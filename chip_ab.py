@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""A/B runs of the port's paths on one CUDA card: two trees, or two pass-through modes.
+
+    python3 chip_ab.py --path main --run parent=_chipwork/parent: --run change=.:auto \\
+        --rounds 5
+    python3 chip_ab.py --path tabular --run off=.:off --run auto=.:auto --rounds 3
+
+Each ``--run LABEL=TREE:MODE`` names a checkout whose ``petastorm_tpu_torch`` package the
+run imports (TREE holds the package) and the ``io_options={"pagedec": MODE}`` it reads
+with (an empty MODE passes no ``io_options``, for trees that predate them). The stores
+are written once, as ``chip_smoke.py`` writes them: ``main`` is the 4,096-row JPEG store
+read with ``decode_on_device=True`` and ``normalize_images`` as the device transform,
+batches of 256; ``tabular`` is the 2,097,152-row Criteo-shaped store, batches of 16,384.
+Every run is its own process, so each pays its own build and start; the runs of a round
+go in turn, and each round starts one run later than the one before (A B, B A, ...), so
+that no label always runs first. Each run prints rows/s over its steady window and its
+``PipelineStats`` split; the summary gives each label's runs and, for each label after the
+first, the rounds in which it beat the first.
+"""
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _one(args):
+    """One run in this process: the path through the tree's package; prints one JSON."""
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    import petastorm_tpu_torch
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+
+    if not os.path.abspath(petastorm_tpu_torch.__file__).startswith(tree + os.sep):
+        raise SystemExit("imported %s, not the tree %s" % (petastorm_tpu_torch.__file__, tree))
+    sys.path.insert(1, ROOT)
+    import chip_smoke as smoke
+
+    kwargs = {"io_options": {"pagedec": args.mode}} if args.mode else {}
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    if args.path == "main":
+        from petastorm_tpu_torch.ops.image import normalize_images
+
+        def transform(batch):
+            return {**batch, "image": normalize_images(batch["image"], smoke.MEAN,
+                                                       smoke.STD)}
+
+        reader = make_batch_reader(args.url, workers_count=workers, shuffle_row_groups=True,
+                                   seed=0, num_epochs=None, decode_on_device=True, **kwargs)
+        batch, loader_kwargs = smoke.BATCH, {"device_transform": transform}
+    else:
+        reader = make_batch_reader(args.url, workers_count=workers, shuffle_row_groups=True,
+                                   seed=0, num_epochs=None, **kwargs)
+        batch, loader_kwargs = smoke.TAB_BATCH, {}
+    try:
+        from petastorm_tpu_torch.io import pagedec
+        counters0 = pagedec.counter_values()
+    except ImportError:  # a tree without the pass-through
+        pagedec, counters0 = None, None
+    with DataLoader(reader, batch, device="cuda", prefetch=3, host_queue_size=8,
+                    **loader_kwargs) as loader:
+        it = iter(loader)
+        for _ in range(args.warmup):
+            next(it)
+        torch.cuda.synchronize()
+        stats0 = loader.stats.snapshot()
+        t0 = time.perf_counter()
+        for _ in range(args.measured):
+            next(it)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats1 = loader.stats.snapshot()
+        it.close()
+    window = {k: round(v - stats0[k], 4) for k, v in stats1.items()
+              if isinstance(v, (int, float)) and k in stats0}
+    out = {"rows_per_s": args.measured * batch / dt, "window_s": dt, "stats": window}
+    if pagedec is not None:
+        out["pagedec"] = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def _write_store(path, root):
+    sys.path.insert(0, ROOT)
+    import chip_smoke as smoke
+
+    if path == "main":
+        env = smoke.phase_environment()
+        url = "file://" + os.path.join(root, "store")
+        smoke.write_store(url, env["cv2"])
+        return url, env["smi"]
+    url, _arrays = smoke.write_tabular_store(os.path.join(root, "tabular"))
+    return url, smoke.phase_environment()["smi"]
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("main", "tabular"), required=True)
+    parser.add_argument("--run", action="append", required=True,
+                        help="LABEL=TREE:MODE (MODE auto/on/off, or empty)")
+    parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--warmup", type=int, default=None)
+    parser.add_argument("--measured", type=int, default=None)
+    parser.add_argument("--timeout", type=float, default=300.0, help="seconds per run")
+    # one run in this process (the driver's child)
+    parser.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--tree", help=argparse.SUPPRESS)
+    parser.add_argument("--mode", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--url", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    defaults = {"main": (5, 60), "tabular": (30, 60)}[args.path]
+    args.warmup = defaults[0] if args.warmup is None else args.warmup
+    args.measured = defaults[1] if args.measured is None else args.measured
+    if args.one:
+        return _one(args)
+
+    runs = []
+    for spec in args.run:
+        label, _, rest = spec.partition("=")
+        tree, _, mode = rest.rpartition(":")
+        if not label or not tree or not os.path.isdir(os.path.join(tree, "petastorm_tpu_torch")):
+            raise SystemExit("--run %r: want LABEL=TREE:MODE with TREE/petastorm_tpu_torch" % spec)
+        runs.append((label, tree, mode))
+    work = tempfile.mkdtemp(prefix="ptpu_chip_ab_")
+    results = {label: [] for label, _t, _m in runs}
+    try:
+        url, smi = _write_store(args.path, work)
+        print(smi, flush=True)
+        for r in range(args.rounds):
+            for k in range(len(runs)):
+                label, tree, mode = runs[(r + k) % len(runs)]
+                cmd = [sys.executable, os.path.abspath(__file__), "--one", "--path", args.path,
+                       "--run", "unused", "--tree", tree, "--mode", mode, "--url", url,
+                       "--warmup", str(args.warmup), "--measured", str(args.measured)]
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=args.timeout)
+                lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+                if proc.returncode != 0 or not lines:
+                    print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+                    raise SystemExit("run %s failed (rc %d)" % (label, proc.returncode))
+                res = json.loads(lines[-1][len("RESULT "):])
+                results[label].append(res["rows_per_s"])
+                print("round %d %s (%s, pagedec=%s): %.1f rows/s %s" % (
+                    r, label, tree, mode or "-", res["rows_per_s"],
+                    json.dumps({k: v for k, v in res.items() if k != "rows_per_s"})),
+                    flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for label, vals in results.items():
+        print("%s: %s rows/s (median %.1f)" % (label, ", ".join("%.1f" % v for v in vals),
+                                               sorted(vals)[len(vals) // 2]))
+    first = runs[0][0]
+    for label, _t, _m in runs[1:]:
+        wins = sum(1 for x, y in zip(results[label], results[first]) if x > y)
+        print("%s faster than %s in %d of %d rounds" % (label, first, wins, args.rounds))
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()

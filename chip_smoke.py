@@ -20,6 +20,16 @@ Phases (each passes or the script exits non-zero, printing no result line):
    kernels' launch counters are zeroed just before and read just after; the first batch
    is checked against host cv2 decode.
 
+5. Tabular pass-through: a 2,097,152-row Criteo-shaped store (13 dense float32, 26
+   categorical int32, an int32 label; 8 files of 16 row groups of 16,384 rows; snappy)
+   written from a numpy seed. K3 (snappy pages), the run scan and K4 (RLE/bit-packed
+   extract) on one batch's real pages against their plain versions and the host twin,
+   timed, and crafted corrupt pages through K3 (each must latch ok=0); then
+   ``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the card,
+   batches of 16,384, 30 warm-up + 60 measured, with the launch counters zeroed around
+   it, launches held to the per-batch prediction, and the first and last measured
+   batches held byte for byte against a ``pagedec="off"`` read.
+
 The last lines are the kernels table (JSON), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -280,6 +290,7 @@ def phase_main_path(url, blobs, cv2):
     import torch
 
     from petastorm_tpu_torch import codecs, make_batch_reader
+    from petastorm_tpu_torch.io import pagedec
     from petastorm_tpu_torch.loader import DataLoader
     from petastorm_tpu_torch.ops import image, jpeg
 
@@ -296,6 +307,7 @@ def phase_main_path(url, blobs, cv2):
     codecs.host_decoded_rows(reset=True)
     jpeg.idct_scaled.launches = 0
     image.normalize_images.launches = 0
+    pagedec0 = pagedec.counter_values()
     first = None
     consumed = 0
     t_start = time.perf_counter()
@@ -327,6 +339,10 @@ def phase_main_path(url, blobs, cv2):
     log("main path peak device memory: %d bytes" % peak)
     log("main path launches: %s (host-decoded rows: %d)"
         % (json.dumps(launches), codecs.host_decoded_rows()))
+    # the reader's default pagedec is "off": the main path's id and label columns take
+    # the classic read, as before the pass-through existed
+    log("main path pass-through: %s" % json.dumps(
+        {k: v - pagedec0[k] for k, v in pagedec.counter_values().items()}))
     check(launches["K1"] > 0 and launches["K2"] > 0, "a kernel of the path was never "
           "launched: %s" % launches)
     check(launches["K1"] == 3 * launches["K2"], "K1 should launch 3 times per batch "
@@ -362,6 +378,398 @@ def phase_main_path(url, blobs, cv2):
           "normalised batch differs from normalising its uint8 images")
     check(torch.isfinite(first["norm"]).all().item(), "non-finite normalised values")
     return launches, {"rows_per_s": rows_per_s, "peak_bytes": peak}
+
+
+# -- phase 5: tabular pass-through ----------------------------------------------------
+#
+# BASELINE.json config #3 (bench.py bench_tabular): the Criteo-1TB tabular shape, 13
+# float32 dense columns, 26 int32 categorical columns and an int32 label, at 2,097,152
+# rows (~1 % of one Criteo-1TB day) in 8 files of 16 row groups of 16,384 rows, snappy,
+# data page v1. Dense: log1p of Zipf(1.6) counts; categorical: Zipf(1.2) modulo the
+# MLPerf DLRM Criteo-1TB vocabulary sizes; label: 3.4 % positive, PLAIN (no dictionary).
+
+TAB_FILES, TAB_RGS_PER_FILE, TAB_RG_ROWS = 8, 16, 16384
+TAB_BATCH = TAB_RG_ROWS
+TAB_WARMUP_BATCHES, TAB_MEASURED_BATCHES = 30, 60
+CRITEO_VOCAB = (39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951, 2953546,
+                403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771, 25641295, 39664984,
+                585935, 12972, 108, 36)
+TAB_COLUMNS = ["label"] + ["i%d" % i for i in range(13)] + ["c%d" % i for i in range(26)]
+
+
+def write_tabular_store(root, seed=0, files=TAB_FILES, rgs_per_file=TAB_RGS_PER_FILE,
+                        rg_rows=TAB_RG_ROWS):
+    """The Criteo-shaped store, from ``seed``; returns (url, [per-file {column: array}])."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(root)
+    rng = np.random.default_rng(seed)
+    n = rgs_per_file * rg_rows
+    arrays = []
+    for f in range(files):
+        cols = {"label": (rng.random(n) < 0.034).astype(np.int32)}
+        for i in range(13):
+            cols["i%d" % i] = np.log1p(rng.zipf(1.6, n).astype(np.float64)).astype(np.float32)
+        for i, vocab in enumerate(CRITEO_VOCAB):
+            cols["c%d" % i] = (rng.zipf(1.2, n) % vocab).astype(np.int32)
+        pq.write_table(pa.table(cols), os.path.join(root, "part-%d.parquet" % f),
+                       row_group_size=rg_rows, compression="snappy",
+                       use_dictionary=TAB_COLUMNS[1:], data_page_version="1.0")
+        arrays.append(cols)
+    return "file://" + root, arrays
+
+
+def tabular_chunks(path, rg):
+    """{column: PassthroughChunk} of one row group, through the port's walker."""
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.io import pagedec
+
+    md = pq.read_metadata(path)
+    rgmd = md.row_group(rg)
+    out = {}
+    with open(path, "rb") as f:
+        for i in range(rgmd.num_columns):
+            el = pagedec.classify_chunk(md, rg, i)
+            check(el.eligible, "column %s is not pass-through eligible: %s"
+                  % (rgmd.column(i).path_in_schema, el.reason))
+            start, length = pagedec.chunk_byte_range(rgmd.column(i))
+            f.seek(start)
+            chunk, reason = pagedec.build_chunk(f.read(length), el, rgmd.num_rows)
+            check(chunk is not None, "column %s declined the pass-through: %s"
+                  % (rgmd.column(i).path_in_schema, reason))
+            out[rgmd.column(i).path_in_schema] = chunk
+    return out
+
+
+def tabular_structure(root):
+    """Per-batch launches the path predicts (one batch = one row group): K3 once per
+    snappy column, the scan and K4 once per dictionary data page; checked uniform over
+    every row group of the store."""
+    shapes = set()
+    for f in range(TAB_FILES):
+        path = os.path.join(root, "part-%d.parquet" % f)
+        for rg in range(TAB_RGS_PER_FILE):
+            chunks = tabular_chunks(path, rg).values()
+            shapes.add((sum(c.codec == "SNAPPY" for c in chunks),
+                        sum(1 for c in chunks for p in c.pages if p.encoding != 0),
+                        sum(len(c.pages) + (c.dict_page is not None) for c in chunks),
+                        len(chunks)))
+    check(len(shapes) == 1, "row groups differ in page structure: %s" % sorted(shapes))
+    k3, k4, pages, columns = shapes.pop()
+    return {"K3": k3, "scan": k4, "K4": k4, "pages": pages, "columns": columns}
+
+
+def _crafted_pages():
+    """Corrupt snappy pages, each of which must latch ok = 0: the reference's crafted
+    literal (4 length bytes, top bit set), a literal whose 31-bit length wraps a 32-bit
+    bound check, a copy reaching before the output's start, and a stream whose claimed
+    length it does not fill."""
+    return [
+        ("literal length 0xFFFFFFFF", bytes([64, 252, 0xFF, 0xFF, 0xFF, 0xFF]) + bytes(10),
+         64),
+        ("literal length 2^31 - 1 after a literal",
+         bytes([64, 0, 7, 252, 0xFE, 0xFF, 0xFF, 0x7F]) + bytes(8), 64),
+        ("copy offset past the output", bytes([16, 0, 7, 0x3D, 9]) + bytes(4), 16),
+        ("stream shorter than its length", bytes([32, 8, 1, 2, 3]), 32),
+    ]
+
+
+def snappy_token_census(comp, comp_len):
+    """Tokens of one snappy stream (host walk): literal and copy counts, the copies that
+    overlap their output, the tokens shorter than K3's block-copy threshold (32 bytes),
+    and the bytes those short tokens carry."""
+    data = bytes(comp[:comp_len])
+    pos = 0
+    while data[pos] & 0x80:  # varint preamble
+        pos += 1
+    pos += 1
+    census = {"literals": 0, "copies": 0, "overlapping": 0, "short": 0, "short_bytes": 0}
+    while pos < len(data):
+        tag = data[pos]
+        t = tag & 3
+        if t == 0:
+            n0 = tag >> 2
+            extra = n0 - 59 if n0 >= 60 else 0
+            ln = (int.from_bytes(data[pos + 1:pos + 1 + extra], "little") if extra else n0) + 1
+            pos += 1 + extra + ln
+            census["literals"] += 1
+        else:
+            if t == 1:
+                ln, off, size = ((tag >> 2) & 7) + 4, ((tag >> 5) << 8) | data[pos + 1], 2
+            else:
+                size = 3 if t == 2 else 5
+                ln, off = (tag >> 2) + 1, int.from_bytes(data[pos + 1:pos + size], "little")
+            pos += size
+            census["copies"] += 1
+            census["overlapping"] += int(off < ln)
+        if ln < 32:
+            census["short"] += 1
+            census["short_bytes"] += ln
+    return census
+
+
+def phase_tabular_kernels(root, dev=None):
+    """K3, the scan and K4 on one batch's real pages (file 0, row group 0) against their
+    plain versions and the host twin, timed; then the crafted corrupt pages."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    dev = dev or torch.device("cuda")
+    chunks = tabular_chunks(os.path.join(root, "part-0.parquet"), 0)
+    res = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "max_abs_err": 0.0}
+           for k in ("K3", "scan", "K4")}
+    plain_checked = {"K3_pages": 0, "streams": 0}
+    plain_columns = {"label", "i0", "c0", "c9"}
+    k3_outputs = {}
+    per_column = []
+    for name, chunk in chunks.items():
+        pages = ([chunk.dict_page] if chunk.dict_page is not None else []) + list(chunk.pages)
+        comp_np, meta_np, out_cap = pk._pack_pages(chunk, pages)
+        comp = torch.from_numpy(comp_np).to(dev)
+        meta = torch.from_numpy(meta_np).to(dev)
+        out, ok = pk.snappy_inflate_pages(comp, meta, out_cap)
+        host_out = out.cpu().numpy()
+        check(bool(ok.all().item()), "K3 latched ok=0 on a valid page of column %s" % name)
+        for i, p in enumerate(pages):  # every page against the host twin (pyarrow snappy)
+            want = np.zeros(out_cap, np.int16)
+            want[:p.uncomp_size] = np.frombuffer(pagedec._decompress_page(
+                chunk.codec, chunk.buf[p.payload_offset:p.payload_offset + p.comp_size],
+                p.uncomp_size), np.uint8)
+            err = int(np.abs(host_out[i].astype(np.int16) - want).max())
+            res["K3"]["max_abs_err"] = max(res["K3"]["max_abs_err"], float(err))
+            check(err == 0, "K3 differs from the host twin on column %s page %d" % (name, i))
+        col_ms = cuda_ms(lambda: pk.snappy_inflate_pages(comp, meta, out_cap))
+        res["K3"]["ms"] += col_ms
+        census = [snappy_token_census(comp_np[i], int(meta_np[i, 0]))
+                  for i in range(len(pages))]
+        per_column.append((col_ms, name, [p.uncomp_size for p in pages], census))
+        res["K3"]["plain_ms"] += cuda_ms(lambda: pk._snappy_pages_plain(comp, meta, out_cap),
+                                         iters=1, warmup=0)
+        # the bytes K3 must move: each page's compressed bytes and its page-table row
+        # in, its decoded bytes and its ok flag out (not the padding of either matrix)
+        res["K3"]["bytes"] += sum(p.comp_size + 8 + p.uncomp_size + 4 for p in pages)
+        if name in plain_columns:
+            plain_out, plain_ok = pk._snappy_pages_plain(comp, meta, out_cap)
+            err = (plain_out.int() - out.int()).abs().max().item()
+            res["K3"]["max_abs_err"] = max(res["K3"]["max_abs_err"], float(err))
+            check(err == 0 and torch.equal(plain_ok, ok),
+                  "K3 differs from its plain version on column %s" % name)
+            plain_checked["K3_pages"] += len(pages)
+        k3_outputs[name] = (chunk, pages, out)
+
+    for name, (chunk, pages, out) in k3_outputs.items():
+        row0 = 1 if chunk.dict_page is not None else 0
+        for j, page in enumerate(chunk.pages):
+            if page.encoding == 0:  # PLAIN: no stream
+                continue
+            body = out[row0 + j, :page.uncomp_size]
+            off = 4 + int(body[:4].cpu().numpy().view("<u4")[0]) if chunk.max_def else 0
+            values = body[off:]
+            bw = int(values[0].item())
+            data, total = values[1:], page.num_values
+            max_runs = max(8, total)
+            tables = pk.rle_run_scan(data, data.shape[0], total, max_runs, bw)
+            plain_tables = pk._rle_run_scan_plain(data, data.shape[0], total, max_runs, bw)
+            err = max((a.long() - b.long()).abs().max().item()
+                      for a, b in zip(tables, plain_tables))
+            res["scan"]["max_abs_err"] = max(res["scan"]["max_abs_err"], float(err))
+            check(err == 0, "the run scan differs from its plain version on column %s" % name)
+            n_runs = int(tables[4][0].item())
+            check(int(tables[4][1].item()) == 1, "the run scan latched ok=0 on column %s"
+                  % name)
+            vals = pk.rle_extract(data, *tables[:4], bw, total)
+            plain_vals = pk._rle_extract_plain(data, *tables[:4], bw, total)
+            err = (vals.long() - plain_vals.long()).abs().max().item()
+            res["K4"]["max_abs_err"] = max(res["K4"]["max_abs_err"], float(err))
+            check(err == 0, "K4 differs from its plain version on column %s" % name)
+            twin = pagedec.rle_bp_decode(data.cpu().numpy().tobytes(), bw, total)
+            check(np.array_equal(vals.cpu().numpy(), twin),
+                  "K4 differs from the host twin on column %s" % name)
+            plain_checked["streams"] += 1
+            res["scan"]["ms"] += cuda_ms(
+                lambda: pk.rle_run_scan(data, data.shape[0], total, max_runs, bw))
+            res["scan"]["plain_ms"] += cuda_ms(lambda: pk._rle_run_scan_plain(
+                data, data.shape[0], total, max_runs, bw), iters=1, warmup=0)
+            # the stream in, four int32 table entries a run and the status out
+            res["scan"]["bytes"] += data.numel() + 16 * n_runs + 8
+            res["K4"]["ms"] += cuda_ms(lambda: pk.rle_extract(data, *tables[:4], bw, total))
+            res["K4"]["plain_ms"] += cuda_ms(
+                lambda: pk._rle_extract_plain(data, *tables[:4], bw, total))
+            # the stream and the entries of the runs that exist in, one int32 a value out
+            res["K4"]["bytes"] += data.numel() + 16 * n_runs + 4 * total
+
+    # crafted corruption, and bit flips of a real page: K3 == plain, ok flags included
+    latched = []
+    for what, comp_bytes, out_len in _crafted_pages():
+        comp = torch.zeros((1, 64), dtype=torch.uint8)
+        comp[0, :len(comp_bytes)] = torch.tensor(list(comp_bytes), dtype=torch.uint8)
+        meta = torch.tensor([[len(comp_bytes), out_len]], dtype=torch.int32)
+        out, ok = pk.snappy_inflate_pages(comp.to(dev), meta.to(dev), 64)
+        plain_out, plain_ok = pk._snappy_pages_plain(comp, meta, 64)
+        check(not bool(ok.item()), "K3 did not latch ok=0 on a crafted page: %s" % what)
+        check(torch.equal(out.cpu(), plain_out) and torch.equal(ok.cpu(), plain_ok),
+              "K3 differs from its plain version on a crafted page: %s" % what)
+        latched.append(what)
+    chunk, pages, _out = k3_outputs["c0"]
+    comp_np, meta_np, out_cap = pk._pack_pages(chunk, pages)
+    rng = np.random.default_rng(5)
+    flips = 0
+    for _ in range(16):
+        bad = comp_np.copy()
+        row = int(rng.integers(0, len(pages)))
+        pos = int(rng.integers(0, meta_np[row, 0]))
+        bad[row, pos] ^= np.uint8(1 << int(rng.integers(0, 8)))
+        out, ok = pk.snappy_inflate_pages(torch.from_numpy(bad).to(dev),
+                                          torch.from_numpy(meta_np).to(dev), out_cap)
+        plain_out, plain_ok = pk._snappy_pages_plain(torch.from_numpy(bad),
+                                                     torch.from_numpy(meta_np), out_cap)
+        check(torch.equal(out.cpu(), plain_out) and torch.equal(ok.cpu(), plain_ok),
+              "K3 differs from its plain version on a bit-flipped page")
+        flips += int(not bool(ok.all().item()))
+    for k in res:
+        res[k]["bound_ms"], res[k]["bound_by"] = bound(res[k]["bytes"], 0)
+    per_column.sort(reverse=True)
+    for col_ms, name, sizes, census in per_column[:3] + per_column[-2:]:
+        log("K3 column %s: %.4f ms, pages of %s bytes, tokens %s"
+            % (name, col_ms, sizes, json.dumps(census)))
+    log("tabular kernels on file 0 row group 0 (%d columns, %d pages): K3 equal to the host "
+        "twin on every page and to its plain version on %d pages; scan and K4 equal to "
+        "their plain versions and the host twin on %d streams"
+        % (len(chunks), sum(len(p) for _c, p, _o in k3_outputs.values()),
+           plain_checked["K3_pages"], plain_checked["streams"]))
+    log("tabular kernels: crafted pages latched ok=0: %s; %d of 16 bit-flipped pages "
+        "latched ok=0, all equal to the plain version" % ("; ".join(latched), flips))
+    for k in ("K3", "scan", "K4"):
+        r = res[k]
+        log("%s per batch: kernel_ms=%.4f plain_ms=%.4f bound_ms=%.6f (%s) "
+            "roofline_share=%.4f bytes=%d" % (k, r["ms"], r["plain_ms"], r["bound_ms"],
+                                              r["bound_by"], r["bound_ms"] / r["ms"],
+                                              r["bytes"]))
+    return res
+
+
+def _rowgroup_of(first_row, arrays, rg_rows):
+    """(file, row group) whose first row equals ``first_row`` ({column: value})."""
+    for f, cols in enumerate(arrays):
+        for start in range(0, len(cols["label"]), rg_rows):
+            if all(cols[c][start] == v for c, v in first_row.items()):
+                return f, start // rg_rows
+    raise PhaseFailed("a delivered batch matches no row group of the store")
+
+
+def _off_read(root, f, rg):
+    """Row group ``rg`` of file ``f`` through the classic read (``pagedec="off"``)."""
+    from petastorm_tpu_torch import make_batch_reader
+
+    url = "file://" + os.path.join(root, "part-%d.parquet" % f)
+    with make_batch_reader(url, reader_pool_type="dummy", shuffle_row_groups=False,
+                           io_options={"pagedec": "off"}) as r:
+        for i, batch in enumerate(r):
+            if i == rg:
+                return batch._asdict()
+    raise PhaseFailed("row group %d of file %d not found" % (rg, f))
+
+
+def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP_BATCHES,
+                       measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH):
+    """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
+    card: counts zeroed just before, read just after; the first and last measured
+    batches against a ``pagedec="off"`` read of their row groups and the source arrays."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    reader = make_batch_reader("file://" + root, workers_count=workers,
+                               shuffle_row_groups=True, seed=0, num_epochs=None,
+                               io_options={"pagedec": "auto"})
+    counters0 = pagedec.counter_values()
+    reads0 = pk.HOST_READS.value
+    pk.snappy_inflate_pages.launches = 0
+    pk.rle_run_scan.launches = 0
+    pk.rle_extract.launches = 0
+    kept = []
+    consumed = 0
+    t_start = time.perf_counter()
+    with DataLoader(reader, batch_size, device=device, prefetch=3,
+                    host_queue_size=8) as loader:
+        for batch in loader:
+            consumed += 1
+            if consumed == warmup:
+                torch.cuda.synchronize() if device == "cuda" else None
+                t0 = time.perf_counter()
+                stats0 = loader.stats.snapshot()
+            if consumed in (warmup + 1, warmup + measured):
+                kept.append({k: v.cpu().numpy() for k, v in batch.items()})
+            if consumed == warmup + measured:
+                torch.cuda.synchronize() if device == "cuda" else None
+                dt = time.perf_counter() - t0
+                stats1 = loader.stats.snapshot()
+                break
+    launches = {"K3": pk.snappy_inflate_pages.launches, "scan": pk.rle_run_scan.launches,
+                "K4": pk.rle_extract.launches}
+    counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+    host_reads = pk.HOST_READS.value - reads0
+    wall = time.perf_counter() - t_start
+    window = {k: stats1[k] - stats0[k] for k in ("rows", "batches", "read_s", "batch_s",
+                                                 "put_wait_s", "decode_s", "h2d_s",
+                                                 "inflate_s", "queue_wait_s",
+                                                 "device_queue_wait_s")}
+    rows_per_s = measured * batch_size / dt
+    passthrough_batches = counters["pages"] // predicted["pages"]
+    log("tabular path: %d batches of %d, steady window %d batches: %.1f rows/s (%.3f s); "
+        "total %.1f s; workers=%d" % (consumed, batch_size, measured, rows_per_s, dt, wall,
+                                      workers))
+    log("tabular window stats: " + json.dumps(window))
+    log("tabular launches: %s for %d pass-through batches (predicted per batch: %s); "
+        "pagedec counters: %s; reads back to the host: %d (%.1f per pass-through batch)"
+        % (json.dumps(launches), passthrough_batches, json.dumps(predicted),
+           json.dumps(counters), host_reads, host_reads / max(1, passthrough_batches)))
+    raw = passthrough_batches * batch_size * 4 * predicted["columns"]
+    log("tabular bytes: %d compressed shipped for %d raw (%.4f of raw), %d columns "
+        "through the pass-through, %d fell back" % (
+            counters["bytes_compressed"], raw, counters["bytes_compressed"] / max(1, raw),
+            predicted["columns"], counters["fallback_columns"]))
+    check(all(v > 0 for v in launches.values()), "a kernel of the tabular path was never "
+          "launched: %s" % launches)
+    check(counters["pages"] % predicted["pages"] == 0, "pages shipped (%d) are not whole "
+          "batches of %d" % (counters["pages"], predicted["pages"]))
+    for k in ("K3", "scan", "K4"):
+        check(launches[k] == predicted[k] * passthrough_batches,
+              "%s launched %d times, the path predicts %d per batch x %d batches"
+              % (k, launches[k], predicted[k], passthrough_batches))
+    check(passthrough_batches >= measured, "only %d batches went through the pass-through"
+          % passthrough_batches)
+    check(counters["host_inflate_columns"] == 0, "%d columns were inflated on the host"
+          % counters["host_inflate_columns"])
+    check(counters["fallback_columns"] == 0, "%d columns fell back to the classic read"
+          % counters["fallback_columns"])
+    for which, got in zip(("first", "last"), kept):
+        check(sorted(got) == sorted(TAB_COLUMNS), "batch columns %s" % sorted(got))
+        f, rg = _rowgroup_of({c: got[c][0] for c in TAB_COLUMNS}, arrays, batch_size)
+        off = _off_read(root, f, rg)
+        for c in TAB_COLUMNS:
+            src = arrays[f][c][rg * batch_size:(rg + 1) * batch_size]
+            check(got[c].dtype == off[c].dtype == src.dtype and got[c].shape == src.shape,
+                  "column %s: %s %s, off read %s, source %s"
+                  % (c, got[c].dtype, got[c].shape, off[c].dtype, src.dtype))
+            check(got[c].tobytes() == off[c].tobytes() == src.tobytes(),
+                  "column %s of the %s measured batch differs from the pagedec=off read"
+                  % (c, which))
+        log("tabular %s measured batch (file %d, row group %d): byte-identical to the "
+            "pagedec=off read and the source arrays in all %d columns"
+            % (which, f, rg, len(TAB_COLUMNS)))
+    return launches, {"rows_per_s": rows_per_s, "window": window, "counters": counters}
 
 
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
@@ -538,6 +946,20 @@ def main():
                time.perf_counter() - t0))
         kernels = phase_kernels(blobs)
         launches, main = phase_main_path(url, blobs, env["cv2"])
+        shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
+
+        t0 = time.perf_counter()
+        tab_root = os.path.join(work, "tabular")
+        _url, arrays = write_tabular_store(tab_root)
+        size = sum(os.path.getsize(os.path.join(tab_root, f)) for f in os.listdir(tab_root))
+        log("tabular store: %d rows in %d files of %d row groups, %d bytes on disk, %d "
+            "decoded, written in %.1f s" % (
+                TAB_FILES * TAB_RGS_PER_FILE * TAB_RG_ROWS, TAB_FILES, TAB_RGS_PER_FILE,
+                size, TAB_FILES * TAB_RGS_PER_FILE * TAB_RG_ROWS * 4 * len(TAB_COLUMNS),
+                time.perf_counter() - t0))
+        predicted = tabular_structure(tab_root)
+        tab_kernels = phase_tabular_kernels(tab_root)
+        tab_launches, tab = phase_tabular_path(tab_root, arrays, predicted)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2 = kernels["K1"], kernels["K2_bf16"]
@@ -554,8 +976,19 @@ def main():
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None},
     ]}
-    log("total %.1f s; main path %.1f rows/s" % (time.perf_counter() - t_all,
-                                                 main["rows_per_s"]))
+    for key, name, replaces in (
+            ("K3", "snappy_pages (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
+            ("scan", "rle_run_scan (feeds K4; replaces a lax.while_loop)",
+             "petastorm_tpu/ops/pagedec_kernels.py:224"),
+            ("K4", "rle_extract (K4)", "petastorm_tpu/ops/pagedec_kernels.py:290")):
+        r = tab_kernels[key]
+        table["kernels"].append({
+            "name": name, "route": "cuda", "source": "petastorm_tpu_torch/csrc/pagedec.cu",
+            "replaces": replaces, "launches": tab_launches[key],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    log("total %.1f s; main path %.1f rows/s; tabular path %.1f rows/s"
+        % (time.perf_counter() - t_all, main["rows_per_s"], tab["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
     import torch

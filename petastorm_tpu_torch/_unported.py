@@ -6,7 +6,6 @@ them gets a ``NotImplementedError`` naming that item; the port never ignores an 
 from __future__ import annotations
 
 _ITEMS = {
-    "tabular_passthrough": "Queue 1 item 1 (tabular pass-through path, kernels K3 and K4)",
     "jpeg_transfer": "Queue 1 item 2 (JPEG transfer variants and on-device resize)",
     "process_pool": "Queue 1 item 4 (process pool, wire serializers and transports)",
     "io": "Queue 1 item 5 (read path IO options and caches)",
@@ -31,7 +30,8 @@ OPTIONS = {
     "cache_size_limit": ("io", None),
     "cache_row_size_estimate": ("io", None),
     "cache_extra_settings": ("io", None),
-    "io_options": ("io", None),
+    # io_options itself is taken (IoOptions): its pagedec field is ported, every other
+    # field raises from IoOptions
     "wire_serializer": ("process_pool", None),
     "transport": ("process_pool", None),
     "io_retries": ("obs", None),

@@ -19,3 +19,14 @@ class TimeoutWaitingForResultError(PetastormTpuError):
 
 class MetadataError(PetastormTpuError):
     """Dataset metadata missing or malformed (reference: PetastormMetadataError)."""
+
+
+class PagedecCorruptError(PetastormTpuError):
+    """A compressed-page pass-through decoder found a malformed page: a truncated or
+    bit-flipped header, a payload running past its chunk, a codec stream that fails to
+    inflate, or a dictionary index out of range. Permanent (retrying re-reads the same
+    bytes), ``cause="pagedec_corrupt"``. Every decoder bounds-checks before touching
+    memory, so corrupt input ends in this error, never in an out-of-bounds read."""
+
+    cause = "pagedec_corrupt"
+    permanent = True

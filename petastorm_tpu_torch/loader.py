@@ -3,9 +3,11 @@
 Port of the core of ``petastorm_tpu.loader.DataLoader``. An async pipeline:
 
     reader (columnar numpy) → host re-batch [+ shuffling buffer] → host-batch queue
-        → transfer thread, on its own CUDA stream: batched on-device JPEG decode
-          (stage 2, kernel K1), pinned staging + non-blocking H2D of the other numeric
-          columns, the optional device transform (e.g. ``normalize_images``, kernel K2)
+        → transfer thread, on its own CUDA stream: the compressed-page inflate
+          (pass-through columns; kernels K3, the run scan and K4), batched on-device JPEG
+          decode (stage 2, kernel K1), pinned staging + non-blocking H2D of the other
+          numeric columns, the optional device transform (e.g. ``normalize_images``,
+          kernel K2)
         → device-batch queue → consumer
 
 so the training step's per-batch cost is a queue pop. Each device batch carries a CUDA
@@ -27,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import inspect
 import logging
+import os
 import queue
 import threading
 import time
@@ -34,12 +37,18 @@ import time
 import numpy as np
 
 from petastorm_tpu_torch._unported import reject_unported
+from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
+                                            materialize_columns, pagedec_counters)
 from petastorm_tpu_torch.shuffle import BatchedRandomShufflingBuffer
 from petastorm_tpu_torch.utils import stack_as_column
 
 logger = logging.getLogger(__name__)
 
 _SENTINEL = object()
+
+#: slab size of the inflate stage's pinned ring: a batch's compressed pages of one column
+#: (a larger request is copied unpooled, counted as ``staging_oversized``)
+_PAGE_SLAB_BYTES = 4 << 20
 
 
 class PipelineStats:
@@ -52,21 +61,25 @@ class PipelineStats:
     - ``batch_s``: producer time re-batching/shuffling host rows
     - ``put_wait_s``: producer time blocked putting into a FULL host-batch queue
     - ``decode_s``: transfer-thread time in batched on-device codec decode (enqueue)
+    - ``inflate_s``: transfer-thread time in the compressed-page inflate stage (page
+      packing, upload, kernel launches and the stage's reads back to the host)
     - ``h2d_s``: transfer-thread time staging and enqueuing host-to-device copies
     - ``queue_wait_s``: transfer-thread time starved waiting on the host-batch queue
     - ``device_queue_wait_s``: consumer time starved waiting on the device-batch queue
 
     The decode and H2D stages launch asynchronous CUDA work, so their seconds are host
-    enqueue time. ``decode_unsharded_batches`` and the ``shm_*`` fields belong to
-    multi-device decode and the process pool's shared-memory wire, which are not ported;
-    they stay 0.
+    enqueue time; the inflate stage waits for the card where it reads values back.
+    ``inflate_s`` is the port's own field (the JAX package counts the same time in its
+    ``ptpu_pagedec_inflate_seconds`` histogram). ``decode_unsharded_batches`` and the
+    ``shm_*`` fields belong to multi-device decode and the process pool's shared-memory
+    wire, which are not ported; they stay 0.
     """
 
     __slots__ = ("rows", "batches", "read_s", "batch_s", "put_wait_s",
                  "decode_s", "h2d_s",
                  "queue_wait_s", "device_queue_wait_s", "decode_unsharded_batches",
                  "shm_slabs_in_flight", "shm_bytes", "shm_fallbacks",
-                 "shm_acquire_wait_s")
+                 "shm_acquire_wait_s", "inflate_s")
 
     def __init__(self):
         self.reset()
@@ -86,6 +99,7 @@ class PipelineStats:
         self.shm_bytes = 0
         self.shm_fallbacks = 0
         self.shm_acquire_wait_s = 0.0
+        self.inflate_s = 0.0
 
     def snapshot(self):
         return {
@@ -103,6 +117,7 @@ class PipelineStats:
             "shm_bytes": self.shm_bytes,
             "shm_fallbacks": self.shm_fallbacks,
             "shm_acquire_wait_s": round(self.shm_acquire_wait_s, 4),
+            "inflate_s": round(self.inflate_s, 4),
         }
 
 
@@ -200,6 +215,13 @@ def _concat(chunks):
         return np.empty((0,))
     if len(chunks) == 1:
         return chunks[0]
+    if any(is_passthrough(c) for c in chunks):
+        if all(is_passthrough(c) for c in chunks):
+            # window chaining, not a copy: the batch keeps riding raw pages
+            return PassthroughColumn.concat(chunks)
+        # mixed chunk types for one column (read before and after a loader adopted
+        # the reader): the decoded form is the common denominator
+        chunks = [c.materialize() if is_passthrough(c) else c for c in chunks]
     if any(c.dtype == object for c in chunks):
         out = np.empty(sum(len(c) for c in chunks), dtype=object)
         pos = 0
@@ -208,6 +230,16 @@ def _concat(chunks):
             pos += len(c)
         return out
     return np.concatenate(chunks, axis=0)
+
+
+def _materialize_passthrough(batch, cause):
+    """Inflate any compressed-page pass-through columns with the host twin, at a seam that
+    bypasses the device inflate stage (``cause`` names it): counted in
+    ``pagedec_counters()["host_inflate_columns"]`` and warned once."""
+    n = sum(1 for v in batch.values() if is_passthrough(v))
+    if n:
+        pagedec_counters()["host_inflate_columns"].inc(n)
+    return materialize_columns(batch, cause)
 
 
 def _rows_to_columns(rows, object_fields=()):
@@ -341,6 +373,18 @@ class DataLoader:
 
             self._staging = PinnedStagingPool(
                 None if staging in (None, True) else int(staging), num_slabs=4)
+        #: pinned ring for the compressed pages of the inflate stage (CUDA only; made at
+        #: its first use, sized from it)
+        self._page_staging = None
+        #: compressed-page pass-through adoption: this loader finishes the inflate
+        #: itself (kernels on a CUDA device, the host twin on the CPU), so the reader
+        #: stops materializing PassthroughColumn values at delivery, and its
+        #: ``pagedec="auto"`` engages when this device is a card. Undone at __exit__.
+        self._adopted_passthrough = False
+        if getattr(reader, "is_batched_reader", False) \
+                and hasattr(reader, "adopt_passthrough"):
+            reader.adopt_passthrough(on_device=self.device.type == "cuda")
+            self._adopted_passthrough = True
         self._stream = None
         self._pad_cache = {}
         self._producer = None
@@ -377,6 +421,9 @@ class DataLoader:
                 else:
                     columns = _rows_to_columns([item], object_fields=device_fields)
                 if self._shuffling_queue_capacity:
+                    # the shuffling buffer permutes ROWS: compressed pages cannot be
+                    # row-permuted without decoding, so this seam inflates on the host
+                    columns = _materialize_passthrough(columns, "pagedec_host_inflate")
                     # rows linger in the shuffling buffer across row groups: staged
                     # payloads that view a row group's stacked buffers are detached, or one
                     # straggler row pins its whole group's memory
@@ -424,6 +471,9 @@ class DataLoader:
                 batch["__valid__"] = np.ones(n, dtype=bool)
             return batch
         pad = self.batch_size - n
+        # pass-through columns inflate on host before the gather below (a short TAIL
+        # batch only — full batches never reach this line)
+        batch = _materialize_passthrough(batch, "pagedec_host_inflate")
         cached = self._pad_cache.get(n)
         if cached is None:
             idx = np.concatenate([np.arange(n), np.full(pad, n - 1)])
@@ -501,11 +551,75 @@ class DataLoader:
                 field, staged, self.device, stager=self._staging)
         return batch, decoded
 
+    def _pages_stager(self):
+        """The pinned ring the inflate stage packs compressed pages into (CUDA only)."""
+        if self.device.type != "cuda" or self._staging is None:
+            return None
+        if self._page_staging is None:
+            from petastorm_tpu_torch.io.staging import PinnedStagingPool
+
+            self._page_staging = PinnedStagingPool(_PAGE_SLAB_BYTES, num_slabs=4)
+        return self._page_staging
+
+    def _inflate_passthrough(self, batch):
+        """The inflate stage of the compressed-page pass-through: PassthroughColumn
+        values → tensors on the device through the kernels
+        (:mod:`petastorm_tpu_torch.ops.pagedec_kernels`) on a CUDA device; on the CPU
+        the host twin decodes them, and the arrays ride the normal upload (with
+        ``PTPU_PAGEDEC_DEVICE=1`` the CPU runs the kernels' plain versions instead).
+        Returns ``(batch_without_passthrough, {name: tensor})``.
+
+        Accounting (``pagedec_counters()``): pages and compressed/saved bytes for every
+        pass-through column; ``host_inflate_columns`` for each one the host twin decoded
+        (the CPU without the switch); the stage's seconds in ``inflate_seconds`` and
+        ``PipelineStats.inflate_s``. When the kernels reject a column's pages
+        (:class:`DeviceInflateError`), the host twin classifies the same pages without
+        delivering them: ``PagedecCorruptError`` when the bytes are bad,
+        :class:`KernelFaultError` when the twin decodes them."""
+        names = [name for name, v in batch.items() if is_passthrough(v)]
+        if not names:
+            return batch, {}
+        from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+        counters = pagedec_counters()
+        t0 = time.perf_counter()
+        use_device = self.device.type == "cuda" \
+            or os.environ.get("PTPU_PAGEDEC_DEVICE", "") not in ("", "0")
+        stager = self._pages_stager()
+        batch = dict(batch)
+        inflated = {}
+        for name in names:
+            col = batch.pop(name)
+            counters["pages"].inc(sum(
+                (p1 - p0) + (1 if c.dict_page is not None else 0)
+                for c, s, t in col.parts
+                for p0, p1, _base in (c.covering_pages(s, t),)))
+            shipped = col.shipped_nbytes
+            counters["bytes_compressed"].inc(shipped)
+            counters["bytes_saved"].inc(max(0, col.raw_nbytes - shipped))
+            if not use_device:
+                counters["host_inflate_columns"].inc()
+                batch[name] = col.materialize()
+                continue
+            try:
+                inflated[name] = pk.inflate_column(col, self.device, stager)
+            except pk.DeviceInflateError as e:
+                col.materialize()  # raises PagedecCorruptError when the bytes are bad
+                raise pk.KernelFaultError(
+                    "column %r: the device inflate rejected pages that the host twin "
+                    "decodes (%s)" % (name, e)) from e
+        dt = time.perf_counter() - t0
+        counters["inflate_seconds"].observe(dt)
+        self.stats.inflate_s += dt
+        return batch, inflated
+
     def _transfer_batch(self, batch):
-        """Staged decode + upload of the numeric columns. Returns the device tensors and
-        the host-only (string/object) columns separately."""
+        """Pass-through inflate, staged decode and upload of the numeric columns.
+        Returns the device tensors and the host-only (string/object) columns
+        separately."""
         import torch
 
+        batch, inflated = self._inflate_passthrough(batch)
         t0 = time.perf_counter()
         batch, decoded = self._decode_staged(batch)
         self.stats.decode_s += time.perf_counter() - t0
@@ -527,6 +641,7 @@ class DataLoader:
                        .to(self.device) for k in names]
         arrays = dict(zip(names, tensors))
         arrays.update(decoded)
+        arrays.update(inflated)
         self.stats.h2d_s += time.perf_counter() - t0
         return arrays, host
 
@@ -673,5 +788,10 @@ class DataLoader:
         self.join()
         self.reader.stop()
         self.reader.join()
-        if self._staging is not None:
-            self._staging.close()
+        if self._adopted_passthrough:
+            # a reader outliving this loader serves decoded batches again
+            self.reader.release_passthrough()
+            self._adopted_passthrough = False
+        for pool in (self._staging, self._page_staging):
+            if pool is not None:
+                pool.close()

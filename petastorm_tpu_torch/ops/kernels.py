@@ -5,7 +5,9 @@ and link into one shared library with a plain C interface
 (:mod:`petastorm_tpu_torch.ops._build`). Nothing builds or loads at import: the first
 :func:`library` call does, from the wrapper that launches a kernel on a CUDA tensor.
 The wrappers themselves live beside their plain PyTorch versions:
-``ops.jpeg.idct_scaled`` (K1) and ``ops.image.normalize_images`` (K2).
+``ops.jpeg.idct_scaled`` (K1), ``ops.image.normalize_images`` (K2), and
+``ops.pagedec_kernels.snappy_inflate_pages`` (K3), ``rle_run_scan`` and ``rle_extract``
+(K4).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import threading
 import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = (os.path.join(_CSRC, "idct.cu"), os.path.join(_CSRC, "normalize.cu"))
+SOURCES = (os.path.join(_CSRC, "idct.cu"), os.path.join(_CSRC, "normalize.cu"),
+           os.path.join(_CSRC, "pagedec.cu"))
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
@@ -71,6 +74,16 @@ def library():
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float), ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         lib.ptpu_normalize_u8.restype = ctypes.c_int
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+        lib.ptpu_snappy_pages.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_int,
+                                          ptr]
+        lib.ptpu_snappy_pages.restype = ctypes.c_int
+        lib.ptpu_rle_run_scan.argtypes = [ptr, i64, i64, i32, i32, ctypes.c_int, ptr, ptr,
+                                          ptr, ptr, ptr, ctypes.c_int, ptr]
+        lib.ptpu_rle_run_scan.restype = ctypes.c_int
+        lib.ptpu_rle_extract.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, i32, ctypes.c_int,
+                                         i32, ptr, ctypes.c_int, ptr]
+        lib.ptpu_rle_extract.restype = ctypes.c_int
         _LIB = lib
         return _LIB
 

@@ -5,7 +5,10 @@ Port of ``petastorm_tpu.reader``: the two worker types (``PyDictWorker`` per-row
 staging branch, sharding, epochs, shuffling of row groups, and the thread and dummy
 pools. With ``decode_on_device=True`` the JPEG columns stop at stage 1 (host entropy
 decode into coefficient planes, one native call per row group) and the
-:class:`~petastorm_tpu_torch.loader.DataLoader` finishes them on its device.
+:class:`~petastorm_tpu_torch.loader.DataLoader` finishes them on its device. With the
+compressed-page pass-through (``io_options={"pagedec": ...}``) eligible fixed-width
+columns travel as their raw compressed pages, read from the local file, and the
+DataLoader inflates them on its device.
 
 Options of the JAX package whose machinery is not ported raise ``NotImplementedError``
 naming their ROADMAP.md item (:mod:`petastorm_tpu_torch._unported`).
@@ -21,6 +24,8 @@ import numpy as np
 from petastorm_tpu_torch._unported import not_ported, reject_unported
 from petastorm_tpu_torch.errors import DecodeFieldError, NoDataAvailableError
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+from petastorm_tpu_torch.io import IoOptions
+from petastorm_tpu_torch.io.pagedec import materialize_columns
 from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, load_row_groups
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
 from petastorm_tpu_torch.unischema import UnischemaField
@@ -116,13 +121,36 @@ class PyDictWorker(_WorkerBase):
 
 class ArrowWorker(_WorkerBase):
     """Vectorized batch path (reference ``ArrowReaderWorker``): row group → columnar numpy
-    dict, the shape the loader batches."""
+    dict, the shape the loader batches.
+
+    With the compressed-page pass-through live (:meth:`_pagedec_active`), eligible
+    fixed-width columns skip pyarrow's host inflate: their raw compressed pages ride the
+    delivery path as opaque :class:`~petastorm_tpu_torch.io.pagedec.PassthroughColumn`
+    values and inflate on the card in the loader
+    (:mod:`petastorm_tpu_torch.ops.pagedec_kernels`). Ineligible columns degrade PER
+    COLUMN to the classic read, so any store reads unchanged."""
+
+    def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
+                 io_options=None):
+        super().__init__(filesystem, read_schema, stored_schema, device_fields)
+        self._io_options = IoOptions.normalize(io_options)
+        #: set by the Reader when a DataLoader on a CUDA device adopts it: what ``auto``
+        #: engages on
+        self.pagedec_on_device = False
+        #: (path, column) pairs whose pages declined the pass-through: read classically
+        self._pagedec_refused = set()
 
     def __call__(self, piece):
         wanted = list(self._read_schema.fields.keys())
-        table = self._read_columns(piece, wanted)
         out = {}
-        for name in wanted:
+        eligible = self._pagedec_eligible(piece, wanted)
+        if eligible:
+            out.update(self._pagedec_read(piece, eligible))
+        read_columns = [c for c in wanted if c not in out]
+        if not read_columns:
+            return out
+        table = self._read_columns(piece, read_columns)
+        for name in read_columns:
             if name not in table.column_names:
                 continue
             try:
@@ -137,6 +165,91 @@ class ArrowWorker(_WorkerBase):
                 raise _annotate_decode_error(
                     DecodeFieldError("Unable to decode field %r: %s" % (name, e)),
                     piece) from e
+        return out
+
+    # -- compressed-page pass-through ---------------------------------------------------
+
+    def _pagedec_active(self):
+        """Is the pass-through live for this worker's reads? ``auto`` engages only for a
+        reader a DataLoader on a CUDA device adopted (there is no host to device link to
+        save otherwise); ``on`` forces it."""
+        mode = self._io_options.pagedec
+        if mode == "off":
+            return False
+        return mode == "on" or self.pagedec_on_device
+
+    def _pagedec_footer(self, path):
+        """The parsed footer for eligibility classification, or ``None`` (the classic
+        read then surfaces the error)."""
+        try:
+            return self._parquet_file(path).metadata
+        except Exception:  # noqa: BLE001 — the classic read will surface it
+            return None
+
+    def _pagedec_eligible(self, piece, wanted):
+        """Footer-only eligibility: ``{column: (col_index, Eligibility)}`` for the
+        eligible subset of ``wanted``. Cheap (no chunk bytes); the walker's page-level
+        gate runs after the raw spans arrive."""
+        if not self._pagedec_active():
+            return {}
+        md = self._pagedec_footer(piece.path)
+        if md is None or piece.row_group >= md.num_row_groups:
+            return {}
+        from petastorm_tpu_torch.io.pagedec import classify_chunk
+
+        names = set(wanted)
+        out = {}
+        rgmd = md.row_group(piece.row_group)
+        for i in range(rgmd.num_columns):
+            name = rgmd.column(i).path_in_schema.split(".")[0]
+            if name not in names or name in out \
+                    or (piece.path, name) in self._pagedec_refused:
+                continue
+            el = classify_chunk(md, piece.row_group, i)
+            if el.eligible:
+                out[name] = (i, el)
+        return out
+
+    def _pagedec_read(self, piece, eligible):
+        """Fetch + walk the eligible columns' raw chunk spans into PassthroughColumn
+        values. Page-level ineligibility degrades per column; corruption raises
+        :class:`~petastorm_tpu_torch.errors.PagedecCorruptError`."""
+        from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, build_chunk,
+                                                    pagedec_counters, warn_once)
+
+        md = self._pagedec_footer(piece.path)
+        if md is None:
+            return {}
+        out = {}
+        counters = pagedec_counters()
+        rgmd = md.row_group(piece.row_group)
+        raws = self._pagedec_fetch_raw(piece, eligible, rgmd)
+        for name, (_col_idx, el) in eligible.items():
+            chunk, reason = build_chunk(raws[name], el, expected_values=rgmd.num_rows)
+            if chunk is None:
+                counters["fallback_columns"].inc()
+                # mute the column for this file: re-fetching its raw span on every read
+                # just to decline again is pure overhead
+                self._pagedec_refused.add((piece.path, name))
+                warn_once("pagedec_ineligible",
+                          "column %r of %s degraded to the classic host-inflate path "
+                          "(%s); further per-column fallbacks are counted in "
+                          "pagedec_counters()['fallback_columns']", name, piece.path,
+                          reason)
+                continue
+            out[name] = PassthroughColumn.from_chunk(chunk)
+        return out
+
+    def _pagedec_fetch_raw(self, piece, eligible, rgmd):
+        """Raw chunk byte spans for the eligible columns (``rgmd``: the row group's
+        footer entry): positional reads on one open handle of the local file."""
+        from petastorm_tpu_torch.io.pagedec import chunk_byte_range
+
+        out = {}
+        with self._fs.open_input_file(piece.path) as f:
+            for name, (col_idx, _el) in eligible.items():
+                start, length = chunk_byte_range(rgmd.column(col_idx))
+                out[name] = bytes(f.read_at(length, start))
         return out
 
 
@@ -321,6 +434,11 @@ class Reader:
         self.stopped = False
         #: device-decodable fields staged by the workers (set by the factories)
         self.device_decode_fields = frozenset()
+        #: compressed-page pass-through adoption: False (the default) materializes
+        #: PassthroughColumn values into decoded arrays at delivery, so loader-less
+        #: consumers see ordinary batches; a DataLoader that finishes the inflate itself
+        #: sets it (:meth:`adopt_passthrough`)
+        self.keep_passthrough = False
         self._start()
 
     def _start(self):
@@ -357,8 +475,27 @@ class Reader:
         while True:
             columns = self._next_payload()
             if columns and len(next(iter(columns.values()))):
+                if not self.keep_passthrough:
+                    # no loader adopted the pass-through: the host twin is the designed
+                    # decode for loader-less readers
+                    columns = materialize_columns(columns)
                 return self._row_type(**{name: columns.get(name)
                                          for name in self.schema.fields})
+
+    def adopt_passthrough(self, on_device):
+        """A DataLoader takes over the pass-through: batches keep their
+        PassthroughColumn values, and ``pagedec="auto"`` engages when the loader's
+        device is a CUDA card (``on_device``)."""
+        self.keep_passthrough = True
+        if hasattr(self._worker, "pagedec_on_device"):
+            self._worker.pagedec_on_device = bool(on_device)
+
+    def release_passthrough(self):
+        """Undo :meth:`adopt_passthrough`: a reader outliving its loader serves decoded
+        batches again, and ``auto`` reads classically."""
+        self.keep_passthrough = False
+        if hasattr(self._worker, "pagedec_on_device"):
+            self._worker.pagedec_on_device = False
 
     def reset(self):
         """Restart epochs on an existing reader (reference ``Reader.reset`` ~L700)."""
@@ -443,8 +580,9 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
         cache_extra_settings=cache_extra_settings, transform_spec=transform_spec,
         filters=filters, wire_serializer=wire_serializer, io_retries=io_retries,
         io_retry_backoff_s=io_retry_backoff_s, worker_respawns=worker_respawns,
-        io_options=io_options, recovery=recovery, provenance=provenance, watch=watch,
+        recovery=recovery, provenance=provenance, watch=watch,
         transport=transport, tenant=tenant)
+    IoOptions.normalize(io_options)  # validated; the per-row path reads classically
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
     stored_schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)
@@ -476,6 +614,12 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
 
     ``decode_on_device``: see :func:`make_reader` — JPEG codec columns come back as
     staging payloads for the DataLoader's batched on-device decode.
+
+    ``io_options``: an :class:`~petastorm_tpu_torch.io.IoOptions` or a dict of its
+    fields. ``{"pagedec": "auto" | "on" | "off"}`` sets the compressed-page
+    pass-through (default ``off``): eligible fixed-width columns travel as their raw
+    compressed pages and the :class:`~petastorm_tpu_torch.loader.DataLoader` inflates
+    them on the card.
     """
     reject_unported(
         "make_batch_reader", shuffle_row_drop_partitions=shuffle_row_drop_partitions,
@@ -484,7 +628,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
         cache_extra_settings=cache_extra_settings, transform_spec=transform_spec,
         filters=filters, wire_serializer=wire_serializer, io_retries=io_retries,
         io_retry_backoff_s=io_retry_backoff_s, worker_respawns=worker_respawns,
-        io_options=io_options, recovery=recovery, provenance=provenance, watch=watch,
+        recovery=recovery, provenance=provenance, watch=watch,
         transport=transport, tenant=tenant)
     fs, path = get_filesystem_and_path_or_paths(
         dataset_url_or_urls, storage_options, filesystem)
@@ -495,7 +639,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
         pieces.extend(load_row_groups(fs, p))
     read_schema = _read_schema(stored_schema, schema_fields)
     device_fields = _resolve_device_fields(read_schema, decode_on_device)
-    worker = ArrowWorker(fs, read_schema, stored_schema, device_fields)
+    worker = ArrowWorker(fs, read_schema, stored_schema, device_fields,
+                         io_options=IoOptions.normalize(io_options))
     r = Reader(read_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,

@@ -148,8 +148,11 @@ def test_two_argument_transform_gets_a_seeded_generator(jpeg_store):
 
 
 def test_pipeline_stats_field_names_equal_reference():
-    assert PipelineStats.__slots__ == ref_loader.PipelineStats.__slots__
-    assert PipelineStats().snapshot().keys() == ref_loader.PipelineStats().snapshot().keys()
+    # the reference's fields, in order, plus the port's inflate-stage seconds
+    # (``inflate_s``; the JAX package keeps that time in a metrics histogram)
+    assert PipelineStats.__slots__ == ref_loader.PipelineStats.__slots__ + ("inflate_s",)
+    assert list(PipelineStats().snapshot()) \
+        == list(ref_loader.PipelineStats().snapshot()) + ["inflate_s"]
 
 
 def test_reader_errors_reach_the_consumer(jpeg_store):

@@ -1,0 +1,726 @@
+"""Port vs reference: the compressed-page pass-through in petastorm_tpu_torch held against
+petastorm_tpu (the JAX package; its Pallas kernels in interpret mode on the CPU) and the
+numpy host twin.
+
+Tolerance: exact everywhere. Pages, bytes, run tables, indices and decoded values are
+compared byte for byte, and ``ok`` flags for equality. The CUDA kernels are held against
+their plain versions by the ``gpu``-marked tests, which skip without a card."""
+import io
+import os
+import pickle
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+
+torch = pytest.importorskip("torch")
+jnp = pytest.importorskip("jax.numpy")
+
+from petastorm_tpu.io import pagedec as ref_pd  # noqa: E402
+from petastorm_tpu.ops import pagedec_kernels as ref_pk  # noqa: E402
+from petastorm_tpu_torch import make_batch_reader  # noqa: E402
+from petastorm_tpu_torch.errors import PagedecCorruptError  # noqa: E402
+from petastorm_tpu_torch.io import IoOptions  # noqa: E402
+from petastorm_tpu_torch.io import pagedec as pd  # noqa: E402
+from petastorm_tpu_torch.loader import DataLoader  # noqa: E402
+from petastorm_tpu_torch.ops import pagedec_kernels as pk  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def plain_inflate(monkeypatch):
+    """The loader's inflate stage on the CPU runs the kernels' plain versions."""
+    monkeypatch.setenv("PTPU_PAGEDEC_DEVICE", "1")
+
+
+def _write(table, compression="snappy", row_group_size=2000, **kwargs):
+    buf = io.BytesIO()
+    pq.write_table(table, buf, compression=compression, row_group_size=row_group_size,
+                   **kwargs)
+    return buf.getvalue()
+
+
+def _chunk_bytes(data, md, rg, col_idx):
+    start, length = pd.chunk_byte_range(md.row_group(rg).column(col_idx))
+    return data[start:start + length]
+
+
+def _build(mod, data, md, rg, col_idx, require_saving=False):
+    """One chunk through ``mod`` (the port's or the reference's io.pagedec)."""
+    el = mod.classify_chunk(md, rg, col_idx)
+    assert el.eligible, el.reason
+    chunk, reason = mod.build_chunk(_chunk_bytes(data, md, rg, col_idx), el,
+                                    expected_values=md.row_group(rg).num_rows,
+                                    require_saving=require_saving)
+    assert chunk is not None, reason
+    return chunk
+
+
+def _simple_table(n=3000, seed=0):
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "f": pa.array(np.repeat(rng.normal(size=max(1, n // 50)).astype(np.float32),
+                                50)[:n]),
+        "cat": pa.array(rng.integers(0, 11, size=n).astype(np.int64)),
+        "i": pa.array(rng.integers(-1000, 1000, size=n).astype(np.int32)),
+        "d": pa.array(np.repeat(np.arange(float(-(-n // 50))), 50)[:n]),
+    })
+
+
+def _pages(chunk):
+    return ([chunk.dict_page] if chunk.dict_page is not None else []) + list(chunk.pages)
+
+
+def _page_tuple(p):
+    return (p.kind, p.encoding, p.def_encoding, p.num_values, p.header_offset,
+            p.payload_offset, p.comp_size, p.uncomp_size)
+
+
+# -- walker and classifier --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+def test_walker_and_classifier_equal_reference(codec):
+    data = _write(_simple_table(), compression=codec, data_page_size=2048)
+    md = pq.read_metadata(io.BytesIO(data))
+    for rg in range(md.num_row_groups):
+        for c in range(md.row_group(rg).num_columns):
+            raw = _chunk_bytes(data, md, rg, c)
+            ours = pd.walk_pages(raw, md.row_group(rg).num_rows)
+            theirs = ref_pd.walk_pages(raw, md.row_group(rg).num_rows)
+            assert (ours[0] is None) == (theirs[0] is None)
+            if ours[0] is not None:
+                assert _page_tuple(ours[0]) == _page_tuple(theirs[0])
+            assert [_page_tuple(p) for p in ours[1]] == [_page_tuple(p) for p in theirs[1]]
+            assert pd.classify_pages(*ours) == ref_pd.classify_pages(*theirs)
+            a, b = pd.classify_chunk(md, rg, c), ref_pd.classify_chunk(md, rg, c)
+            assert (a.eligible, a.reason, a.dtype, a.codec, a.max_def) \
+                == (b.eligible, b.reason, b.dtype, b.codec, b.max_def)
+            assert pd.chunk_byte_range(md.row_group(rg).column(c)) \
+                == ref_pd.chunk_byte_range(md.row_group(rg).column(c))
+
+
+@pytest.mark.parametrize("codec", ["gzip", "zstd", "none", "snappy"])
+def test_classifier_gates_equal_reference(codec):
+    rng = np.random.default_rng(3)
+    n = 500
+    vals = rng.normal(size=n).astype(np.float32)
+    nulls = vals.copy().astype(object)
+    nulls[7] = None
+    t = pa.table({
+        "ok": pa.array(vals),
+        "s": pa.array(["x%d" % i for i in range(n)]),
+        "nested": pa.array([{"a": int(i)} for i in range(n)]),
+        "withnull": pa.array(list(nulls), type=pa.float32()),
+    })
+    md = pq.read_metadata(io.BytesIO(_write(t, compression=codec)))
+    for c in range(md.row_group(0).num_columns):
+        a, b = pd.classify_chunk(md, 0, c), ref_pd.classify_chunk(md, 0, c)
+        assert (a.eligible, a.reason, a.max_def) == (b.eligible, b.reason, b.max_def)
+    if codec == "zstd":
+        assert pd.CODEC_INELIGIBLE["zstd"] >= 1
+
+
+def test_truncated_chunks_raise_the_port_error_where_the_reference_raises():
+    data = _write(_simple_table())
+    md = pq.read_metadata(io.BytesIO(data))
+    raw = _chunk_bytes(data, md, 0, 0)
+    n = md.row_group(0).num_rows
+    for cut in (1, 3, len(raw) // 2, len(raw) - 1):
+        with pytest.raises(ref_pd.PagedecCorruptError):
+            ref_pd.walk_pages(raw[:cut], n)
+        with pytest.raises(PagedecCorruptError) as e:
+            pd.walk_pages(raw[:cut], n)
+        assert e.value.cause == "pagedec_corrupt"
+    with pytest.raises(PagedecCorruptError):
+        pd.walk_pages(raw, n + 1)
+
+
+def test_no_saving_gate_equal_reference():
+    rng = np.random.default_rng(9)
+    data = _write(pa.table({"noise": pa.array(rng.normal(size=3000).astype(np.float32))}))
+    md = pq.read_metadata(io.BytesIO(data))
+    raw = _chunk_bytes(data, md, 0, 0)
+    ours = pd.build_chunk(raw, pd.classify_chunk(md, 0, 0), md.row_group(0).num_rows)
+    theirs = ref_pd.build_chunk(raw, ref_pd.classify_chunk(md, 0, 0),
+                                md.row_group(0).num_rows)
+    assert ours[0] is None and theirs[0] is None and ours[1] == theirs[1]
+
+
+# -- host twin ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+@pytest.mark.parametrize("dict_limit", [64, 1 << 20])
+def test_host_twin_equal_reference_and_pyarrow(codec, dict_limit):
+    rng = np.random.default_rng((7 if codec == "snappy" else 8) * 31 + dict_limit % 97)
+    for trial in range(3):
+        n = int(rng.integers(1, 4000))
+        t = pa.table({
+            "a": pa.array(rng.integers(0, int(rng.integers(2, 5000)), size=n)
+                          .astype(np.int64)),
+            "b": pa.array(np.repeat(rng.normal(size=n // 7 + 1), 7)[:n].astype(np.float32)),
+            "c": pa.array(rng.integers(-5, 5, size=n).astype(np.int32)),
+            "d": pa.array(np.repeat(rng.normal(size=n // 3 + 1), 3)[:n]),
+        })
+        data = _write(t, compression=codec, row_group_size=int(rng.integers(200, 2200)),
+                      data_page_size=int(rng.integers(512, 8192)),
+                      dictionary_pagesize_limit=dict_limit)
+        md = pq.read_metadata(io.BytesIO(data))
+        table = pq.read_table(io.BytesIO(data))
+        off = 0
+        for rg in range(md.num_row_groups):
+            nrows = md.row_group(rg).num_rows
+            for c in range(md.row_group(rg).num_columns):
+                ours = _build(pd, data, md, rg, c)
+                theirs = _build(ref_pd, data, md, rg, c)
+                got = pd.decode_chunk_numpy(ours)
+                assert got.dtype == theirs.dtype
+                assert got.tobytes() == ref_pd.decode_chunk_numpy(theirs).tobytes()
+                want = table.column(c).to_numpy()[off:off + nrows]
+                assert got.tobytes() == want.tobytes(), (trial, rg, c)
+            off += nrows
+
+
+def test_passthrough_column_slice_concat_pickle_and_covering_pages():
+    data = _write(_simple_table(4000), row_group_size=4000, data_page_size=512)
+    md = pq.read_metadata(io.BytesIO(data))
+    ours, theirs = _build(pd, data, md, 0, 0), _build(ref_pd, data, md, 0, 0)
+    want = ours.decode()
+    assert len(ours.pages) >= 2
+    for skip, take in ((0, 1), (3, 5), (ours.page_starts()[1] + 3, 5), (100, 2900)):
+        assert ours.covering_pages(skip, take) == theirs.covering_pages(skip, take)
+    col = pd.PassthroughColumn.from_chunk(ours)
+    part = col.slice(37, 911)
+    assert len(part) == 911 and part.shipped_nbytes < col.shipped_nbytes
+    assert np.array_equal(part.materialize(), want[37:948])
+    joined = pd.PassthroughColumn.concat([col.slice(0, 10), col.slice(10, 90)])
+    assert np.array_equal(joined.materialize(), want[:100])
+    again = pickle.loads(pickle.dumps(part))
+    assert np.array_equal(again.materialize(), want[37:948])
+    cols = {"x": col, "plain": np.arange(3)}
+    out = pd.materialize_columns(cols)
+    assert np.array_equal(out["x"], want) and out["plain"] is cols["plain"]
+    untouched = {"plain": np.arange(4)}
+    assert pd.materialize_columns(untouched) is untouched
+
+
+# -- K3: snappy pages --------------------------------------------------------------------
+
+
+def _small_pages(codec="snappy", n=900, col=1):
+    data = _write(_simple_table(n), compression=codec, data_page_size=1024)
+    md = pq.read_metadata(io.BytesIO(data))
+    chunk = _build(pd, data, md, 0, col)
+    return chunk, pk._pack_pages(chunk, _pages(chunk))
+
+
+@pytest.mark.parametrize("col", [0, 1, 2])
+def test_snappy_plain_equal_reference_kernel(col):
+    chunk, (comp, meta, out_cap) = _small_pages(col=col)
+    ours, ok = pk.snappy_inflate_pages(torch.from_numpy(comp), torch.from_numpy(meta),
+                                       out_cap)
+    theirs, their_ok = ref_pk.snappy_inflate_pages(comp, meta, out_cap, interpret=True)
+    assert ok.numpy().tolist() == np.asarray(their_ok).tolist() == [True] * len(comp)
+    assert ours.numpy().tobytes() == np.asarray(theirs).tobytes()
+
+
+def test_snappy_crafted_literal_latches_ok_false_like_the_reference():
+    comp = bytes([64]) + bytes([252, 0xFF, 0xFF, 0xFF, 0xFF]) + b"\x00" * 10
+    buf = np.zeros((1, 64), np.uint8)
+    buf[0, :len(comp)] = np.frombuffer(comp, np.uint8)
+    meta = np.array([[len(comp), 64]], np.int32)
+    ours, ok = pk.snappy_inflate_pages(torch.from_numpy(buf), torch.from_numpy(meta), 64)
+    theirs, their_ok = ref_pk.snappy_inflate_pages(buf, meta, 64, interpret=True)
+    assert not bool(ok[0]) and not bool(np.asarray(their_ok)[0])
+    assert ours.numpy().tobytes() == np.asarray(theirs).tobytes()
+
+
+def test_snappy_literal_length_that_wraps_32_bits_terminates_with_ok_false():
+    """A literal of 2^31 - 1 bytes after a one-byte literal: in 32-bit sums its bound
+    checks wrap and pass; the port checks in 64-bit and latches ok=False at once."""
+    comp = bytes([64, 0, 7, 252, 0xFE, 0xFF, 0xFF, 0x7F]) + bytes(8)
+    buf = np.zeros((1, 32), np.uint8)
+    buf[0, :len(comp)] = np.frombuffer(comp, np.uint8)
+    out, ok = pk.snappy_inflate_pages(torch.from_numpy(buf),
+                                      torch.tensor([[len(comp), 64]], dtype=torch.int32), 64)
+    assert not bool(ok[0])
+    assert out[0, 0].item() == 7 and not out[0, 1:].any()
+
+
+def test_snappy_bit_flips_plain_equal_reference_kernel():
+    chunk, (comp, meta, out_cap) = _small_pages(n=600)
+    rng = np.random.default_rng(17)
+    latched = 0
+    for _ in range(6):
+        bad = comp.copy()
+        row = int(rng.integers(0, len(bad)))
+        bad[row, int(rng.integers(0, meta[row, 0]))] ^= np.uint8(1 << int(rng.integers(0, 8)))
+        ours, ok = pk.snappy_inflate_pages(torch.from_numpy(bad), torch.from_numpy(meta),
+                                           out_cap)
+        theirs, their_ok = ref_pk.snappy_inflate_pages(bad, meta, out_cap, interpret=True)
+        assert ok.numpy().tolist() == np.asarray(their_ok).tolist()
+        assert ours.numpy().tobytes() == np.asarray(theirs).tobytes()
+        latched += int(not bool(ok.all()))
+    assert latched >= 1
+
+
+def test_stored_pages_equal_reference():
+    chunk, (comp, meta, out_cap) = _small_pages(codec="none")
+    ours, ok = pk.stored_pages(torch.from_numpy(comp), torch.from_numpy(meta), out_cap)
+    theirs, their_ok = ref_pk.stored_pages(comp, meta, out_cap)
+    assert ok.numpy().tolist() == np.asarray(their_ok).tolist()
+    assert ours.numpy().tobytes() == np.asarray(theirs).tobytes()
+
+
+# -- run scan and K4 ---------------------------------------------------------------------
+
+
+def _hybrid_stream(rng, bw):
+    """An RLE run, bit-packed groups and another RLE run, as the Parquet writer emits."""
+    vals, out = [], bytearray()
+    for kind in ("rle", "packed", "rle"):
+        if kind == "rle":
+            run, v = int(rng.integers(1, 40)), int(rng.integers(0, 1 << bw))
+            out += bytes([run << 1]) + v.to_bytes((bw + 7) // 8, "little")
+            vals += [v] * run
+        else:
+            groups = int(rng.integers(1, 5))
+            packed = rng.integers(0, 1 << bw, size=groups * 8)
+            bits = np.unpackbits(packed.astype("<u4").view(np.uint8).reshape(-1, 4),
+                                 bitorder="little", axis=1)[:, :bw].ravel()
+            out += bytes([(groups << 1) | 1]) + np.packbits(bits, bitorder="little").tobytes()
+            vals += [int(x) for x in packed]
+    return bytes(out), vals
+
+
+@pytest.mark.parametrize("bw", [1, 5, 12, 24])
+def test_run_scan_and_extract_equal_reference(bw):
+    rng = np.random.default_rng(23 + bw)
+    stream, vals = _hybrid_stream(rng, bw)
+    data = np.frombuffer(stream, np.uint8)
+    total = len(vals) - 3  # the last run ends past `total`: legal padding
+    max_runs = max(8, total)
+    ours = pk.rle_run_scan(torch.from_numpy(data.copy()), len(data), total, max_runs, bw)
+    theirs = ref_pk._rle_run_scan(jnp.asarray(data), len(data), total, max_runs, bw)
+    for a, b in zip(ours[:4], theirs[:4]):
+        assert a.numpy().tolist() == np.asarray(b).tolist()
+    assert ours[4].numpy().tolist() == [int(theirs[4]), int(bool(theirs[5]))] == [3, 1]
+    got, ok = pk.rle_expand(torch.from_numpy(data.copy()), len(data), bw, total)
+    want, their_ok = ref_pk.rle_expand(data, len(data), bw, total, interpret=True)
+    assert bool(ok) and bool(their_ok)
+    assert got.numpy().tolist() == np.asarray(want).tolist() == vals[:total]
+    assert got.numpy().tolist() == pd.rle_bp_decode(stream, bw, total).tolist()
+
+
+@pytest.mark.parametrize("cut", [1, 2, 5])
+def test_run_scan_on_a_cut_stream_equals_reference(cut):
+    rng = np.random.default_rng(41)
+    stream, vals = _hybrid_stream(rng, 9)
+    data = np.frombuffer(stream[:-cut], np.uint8)
+    ours = pk.rle_run_scan(torch.from_numpy(data.copy()), len(data), len(vals), len(vals), 9)
+    theirs = ref_pk._rle_run_scan(jnp.asarray(data), len(data), len(vals), len(vals),
+                                  9)
+    for a, b in zip(ours[:4], theirs[:4]):
+        assert a.numpy().tolist() == np.asarray(b).tolist()
+    assert ours[4].numpy().tolist() == [int(theirs[4]), int(bool(theirs[5]))]
+    assert ours[4][1].item() == 0
+
+
+def test_run_scan_header_whose_byte_count_overflows_32_bits_latches_ok_false():
+    """A bit-packed run of 2^27 groups at width 16 claims 2^31 bytes: the port's 64-bit
+    overrun check latches ok=False, as the host twin rejects the stream."""
+    header = ((1 << 27) << 1) | 1
+    varint = bytearray()
+    while True:
+        b, header = header & 0x7F, header >> 7
+        varint.append(b | (0x80 if header else 0))
+        if not header:
+            break
+    stream = bytes(varint) + bytes(range(1, 17))
+    with pytest.raises(PagedecCorruptError):
+        pd.rle_bp_decode(stream, 16, 8)
+    _vals, ok = pk.rle_expand(torch.tensor(list(stream), dtype=torch.uint8), len(stream),
+                              16, 8)
+    assert not bool(ok)
+
+
+def test_rle_expand_widths_outside_the_kernel():
+    """Width 0 is all zeros; a width over 32 is not Parquet: ok=False, as the host twin
+    rejects it."""
+    data = torch.zeros(4, dtype=torch.uint8)
+    vals, ok = pk.rle_expand(data, 4, 0, 5)
+    assert bool(ok) and vals.tolist() == [0] * 5
+    vals, ok = pk.rle_expand(data, 4, 33, 5)
+    assert not bool(ok)
+    with pytest.raises(PagedecCorruptError):
+        pd.rle_bp_decode(bytes(4), 33, 5)
+    with pytest.raises(ValueError):
+        pk.rle_run_scan(data, 4, 5, 8, 33)
+
+
+@pytest.mark.parametrize("bw", [25, 31, 32])
+def test_run_scan_and_extract_wide_widths_equal_host_twin(bw):
+    """Widths 25-32, where the reference's 4-byte windows stop: the 5-byte window
+    decodes them as the host twin does (32-bit values wrap to int32)."""
+    rng = np.random.default_rng(61 + bw)
+    stream, vals = _hybrid_stream(rng, bw)
+    total = len(vals) - 3
+    got, ok = pk.rle_expand(torch.tensor(list(stream), dtype=torch.uint8), len(stream), bw,
+                            total)
+    assert bool(ok)
+    twin = pd.rle_bp_decode(stream, bw, total)
+    assert got.numpy().view(np.uint32).tolist() == twin.astype(np.uint32).tolist() \
+        == vals[:total]
+
+
+# -- inflate stage -----------------------------------------------------------------------
+
+
+def test_inflate_window_equal_reference_kernel_and_host_twin():
+    data = _write(_simple_table(2600), data_page_size=2048)
+    md = pq.read_metadata(io.BytesIO(data))
+    ours, theirs = _build(pd, data, md, 0, 1), _build(ref_pd, data, md, 0, 1)
+    got = pk.inflate_column(pd.PassthroughColumn.from_chunk(ours).slice(37, 911), CPU)
+    want = ref_pk.inflate_column(ref_pd.PassthroughColumn.from_chunk(theirs).slice(37, 911),
+                                 interpret=True)
+    twin = ours.decode_window(37, 911)
+    assert got.dtype == torch.int64 and twin.dtype == np.int64
+    # the reference on x64-off jax delivers the int32 low word of each int64
+    assert np.array_equal(got.numpy().astype(np.asarray(want).dtype), np.asarray(want))
+    assert got.numpy().tobytes() == twin.tobytes()
+
+
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+def test_inflate_chunk_equal_host_twin_every_column_and_dtype(codec):
+    data = _write(_simple_table(6000), compression=codec, row_group_size=3000,
+                  data_page_size=4096)
+    md = pq.read_metadata(io.BytesIO(data))
+    for rg in range(md.num_row_groups):
+        for c in range(md.row_group(rg).num_columns):
+            chunk = _build(pd, data, md, rg, c)
+            got = pk.inflate_chunk(chunk, CPU)
+            want = chunk.decode()
+            assert got.numpy().dtype == want.dtype  # INT64 int64, DOUBLE float64
+            assert got.numpy().tobytes() == want.tobytes(), (rg, c)
+
+
+def test_float64_inflates_where_the_reference_bails_without_x64():
+    data = _write(pa.table({"d": pa.array(np.repeat(np.arange(40.0), 50))}))
+    md = pq.read_metadata(io.BytesIO(data))
+    with pytest.raises(ref_pk.DeviceInflateError):
+        ref_pk.inflate_chunk(_build(ref_pd, data, md, 0, 0), interpret=True)
+    chunk = _build(pd, data, md, 0, 0)
+    got = pk.inflate_chunk(chunk, CPU)
+    assert got.dtype == torch.float64 and got.numpy().tobytes() == chunk.decode().tobytes()
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_bitcast_values_copies_a_misaligned_slice(offset):
+    vals = np.arange(5, dtype="<i8") * 1234567891011
+    raw = torch.from_numpy(np.frombuffer(bytes(offset) + vals.tobytes(), np.uint8).copy())
+    got = pk.bitcast_values(raw[offset:], np.int64)
+    assert got.dtype == torch.int64 and got.tolist() == vals.tolist()
+    f32 = pk.bitcast_values(raw[offset:offset + 8], np.float32)
+    assert f32.numpy().tobytes() == raw[offset:offset + 8].numpy().tobytes()
+
+
+def test_host_reads_per_window():
+    """Reads back to the host, as the reference makes them: the pages' ok flags once per
+    window; per data page the level-block length (nullable columns); per dictionary data
+    page the bit width, the stream's ok flag and the index range check."""
+    data = _write(_simple_table(2000), data_page_size=1 << 20)
+    md = pq.read_metadata(io.BytesIO(data))
+    chunk = _build(pd, data, md, 0, 1)  # cat: nullable, dictionary, one data page
+    assert chunk.max_def == 1 and len(chunk.pages) == 1
+    before = pk.HOST_READS.value
+    pk.inflate_chunk(chunk, CPU)
+    assert pk.HOST_READS.value - before == 1 + 1 + 3
+
+
+def test_corrupt_page_bails_then_the_host_twin_classifies_it():
+    data = _write(_simple_table(900))
+    md = pq.read_metadata(io.BytesIO(data))
+    chunk = _build(pd, data, md, 0, 0)
+    raw = bytearray(chunk.buf)
+    raw[chunk.pages[0].payload_offset + 1] ^= 0x55
+    bad = pd.PassthroughChunk(bytes(raw), chunk.codec, chunk.dtype, chunk.max_def,
+                              chunk.dict_page, chunk.pages)
+    try:
+        out = pk.inflate_chunk(bad, CPU)
+    except pk.DeviceInflateError:
+        with pytest.raises(PagedecCorruptError):
+            bad.decode()
+        return
+    assert out.shape == (bad.num_rows,)  # an undetectable value-level flip
+
+
+def test_inflate_entry_points_run_on_the_card_by_default(monkeypatch):
+    """Without a device argument the entry points take the CUDA device, and raise
+    without one; they never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = _write(_simple_table(500))
+    md = pq.read_metadata(io.BytesIO(data))
+    chunk = _build(pd, data, md, 0, 0)
+    for call in (lambda: pk.inflate_chunk(chunk),
+                 lambda: pk.inflate_window(chunk, 0, 10),
+                 lambda: pk.inflate_column(pd.PassthroughColumn.from_chunk(chunk))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_kernel_wrappers_refuse_unsupported_inputs():
+    with pytest.raises(TypeError):
+        pk.snappy_inflate_pages(torch.zeros(2, 4), torch.zeros(2, 2, dtype=torch.int32), 4)
+    with pytest.raises(TypeError):
+        pk.snappy_inflate_pages(torch.zeros(2, 4, dtype=torch.uint8),
+                                torch.zeros(3, 2, dtype=torch.int32), 4)
+    with pytest.raises(TypeError):
+        pk.rle_run_scan(torch.zeros(4, dtype=torch.int32), 4, 4, 8, 3)
+    tables = [torch.zeros(8, dtype=torch.int32)] * 4
+    with pytest.raises(TypeError):
+        pk.rle_extract(torch.zeros(4, dtype=torch.uint8), *tables[:3],
+                       torch.zeros(8, dtype=torch.int64), 3, 4)
+
+
+# -- the pass-through seam ---------------------------------------------------------------
+
+
+def _store(tmp_path, name="ds", n=4000, row_group_size=1000, with_string=True, seed=11,
+           compression="snappy"):
+    rng = np.random.default_rng(seed)
+    cols = {
+        "feat": pa.array(np.repeat(rng.normal(size=-(-n // 40)).astype(np.float32),
+                                   40)[:n]),
+        "cat": pa.array(rng.integers(0, 13, size=n).astype(np.int64)),
+        "id": pa.array(np.arange(n, dtype=np.int32)),
+        "dbl": pa.array(np.repeat(np.arange(float(-(-n // 25))), 25)[:n]),
+    }
+    if with_string:
+        cols["s"] = pa.array(["row-%d" % i for i in range(n)])
+    root = str(tmp_path / name)
+    os.makedirs(root, exist_ok=True)
+    pq.write_table(pa.table(cols), os.path.join(root, "part-0.parquet"),
+                   compression=compression, row_group_size=row_group_size)
+    return "file://" + root
+
+
+def _collect(url, mode, batch=512, last_batch="partial", **loader_kwargs):
+    out = []
+    with make_batch_reader(url, workers_count=1, shuffle_row_groups=False,
+                           io_options={"pagedec": mode}) as r:
+        with DataLoader(r, batch, device=CPU, last_batch=last_batch,
+                        **loader_kwargs) as loader:
+            for b in loader:
+                out.append({k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                            for k, v in b.items()})
+    return out
+
+
+def _assert_batches_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert set(x) == set(y)
+        for k in x:
+            assert x[k].dtype == y[k].dtype, k
+            assert x[k].tobytes() == y[k].tobytes() if x[k].dtype != object \
+                else list(x[k]) == list(y[k]), k
+
+
+@pytest.mark.parametrize("compression", ["snappy", "none"])
+def test_whole_slice_equal_reference_classic_delivery(tmp_path, plain_inflate, compression):
+    """make_batch_reader(pagedec="on") → DataLoader(device="cpu") through the kernels'
+    plain versions is byte-identical to the JAX package's pagedec="off" delivery."""
+    from petastorm_tpu.loader import DataLoader as RefLoader
+    from petastorm_tpu.reader import make_batch_reader as ref_make_batch_reader
+
+    url = _store(tmp_path, n=3000, row_group_size=700, with_string=False,
+                 compression=compression)
+    counters0 = pd.counter_values()
+    ours = _collect(url, "on", batch=997)
+    counters = {k: v - counters0[k] for k, v in pd.counter_values().items()}
+    assert counters["pages"] > 0 and counters["host_inflate_columns"] == 0
+    assert counters["bytes_compressed"] > 0
+    theirs = []
+    with ref_make_batch_reader(url, reader_pool_type="thread", workers_count=1,
+                               shuffle_row_groups=False, io_options={"pagedec": "off"}) as r:
+        with RefLoader(r, 997, to_device=False, last_batch="partial") as loader:
+            for b in loader:
+                theirs.append({k: np.asarray(v) for k, v in b.items()})
+    _assert_batches_equal(ours, theirs)
+
+
+def test_mixed_eligibility_degrades_per_column(tmp_path, plain_inflate):
+    url = _store(tmp_path)
+    before = pd.counter_values()["fallback_columns"]
+    _assert_batches_equal(_collect(url, "off"), _collect(url, "on"))
+    # `id` (incompressible arange) declines per column; `s` is footer-ineligible
+    assert pd.counter_values()["fallback_columns"] > before
+
+
+def test_host_twin_on_the_cpu_without_the_device_switch(tmp_path, monkeypatch):
+    monkeypatch.delenv("PTPU_PAGEDEC_DEVICE", raising=False)
+    url = _store(tmp_path, with_string=False)
+    before = pd.counter_values()["host_inflate_columns"]
+    _assert_batches_equal(_collect(url, "off"), _collect(url, "on"))
+    assert pd.counter_values()["host_inflate_columns"] > before
+
+
+def test_shuffling_buffer_inflates_on_host_counted(tmp_path, plain_inflate):
+    url = _store(tmp_path, with_string=False)
+    before = pd.counter_values()["host_inflate_columns"]
+    out = _collect(url, "on", batch=500, last_batch="drop", shuffling_queue_capacity=1200,
+                   seed=3)
+    assert pd.counter_values()["host_inflate_columns"] > before
+    assert sorted(np.concatenate([b["id"] for b in out]).tolist()) == list(range(4000))
+
+
+def test_pad_tail_inflates_on_host_counted(tmp_path, plain_inflate):
+    url = _store(tmp_path, n=1100, row_group_size=1100, with_string=False)
+    before = pd.counter_values()["host_inflate_columns"]
+    padded = _collect(url, "on", batch=512, last_batch="pad")
+    assert pd.counter_values()["host_inflate_columns"] > before
+    _assert_batches_equal(_collect(url, "off", batch=512, last_batch="pad"), padded)
+    assert padded[-1]["__valid__"].sum() == 1100 - 1024
+
+
+def test_batches_cut_across_row_groups(tmp_path, plain_inflate):
+    url = _store(tmp_path, n=3000, row_group_size=700, with_string=False)
+    _assert_batches_equal(_collect(url, "off", batch=997), _collect(url, "on", batch=997))
+
+
+def test_pagedec_auto_stays_classic_on_cpu(tmp_path, plain_inflate):
+    url = _store(tmp_path, with_string=False)
+    before = pd.counter_values()["bytes_compressed"]
+    _collect(url, "auto")
+    assert pd.counter_values()["bytes_compressed"] == before
+
+
+def test_loaderless_reader_materializes_and_loader_hands_back(tmp_path):
+    url = _store(tmp_path, with_string=False)
+    with make_batch_reader(url, workers_count=1, shuffle_row_groups=False, num_epochs=None,
+                           io_options={"pagedec": "on"}) as r:
+        b = next(iter(r))
+        assert isinstance(b.feat, np.ndarray) and b.feat.dtype == np.float32
+        assert isinstance(b.cat, np.ndarray) and b.cat.dtype == np.int64
+        with DataLoader(r, 100, device=CPU):
+            assert r.keep_passthrough
+        assert not r.keep_passthrough
+        assert isinstance(next(iter(r)).feat, np.ndarray)
+
+
+def test_corrupt_pages_surface_pagedec_corrupt_error_through_the_loader(tmp_path,
+                                                                        plain_inflate):
+    url = _store(tmp_path, n=900, row_group_size=300, with_string=False)
+    path = url[len("file://"):] + "/part-0.parquet"
+    data = bytearray(open(path, "rb").read())
+    md = pq.read_metadata(io.BytesIO(bytes(data)))
+    raw = _chunk_bytes(bytes(data), md, 1, 0)
+    chunk = _build(pd, bytes(data), md, 1, 0)
+    start, _ = pd.chunk_byte_range(md.row_group(1).column(0))
+    # garble the snappy stream of the first data page's payload: the kernel latches, the
+    # host twin classifies
+    page = chunk.pages[0]
+    for k in range(page.comp_size // 2, page.comp_size):
+        data[start + page.payload_offset + k] = 0xFF
+    assert raw != bytes(data[start:start + len(raw)])
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    with pytest.raises(PagedecCorruptError):
+        _collect(url, "on", batch=300)
+
+
+def test_kernels_rejecting_valid_pages_raise_a_kernel_fault(tmp_path, plain_inflate,
+                                                             monkeypatch):
+    """Pages the device path rejects but the host twin decodes are a kernel fault: the
+    loader raises, and never delivers the twin's decode in the kernels' place."""
+    url = _store(tmp_path, n=900, row_group_size=300, with_string=False)
+
+    def latched(comp, meta, out_cap):
+        out, ok = plain(comp, meta, out_cap)
+        return out, torch.zeros_like(ok)
+
+    plain = pk._snappy_pages_plain
+    monkeypatch.setattr(pk, "_snappy_pages_plain", latched)
+    before = pd.counter_values()["host_inflate_columns"]
+    with pytest.raises(pk.KernelFaultError, match="host twin decodes"):
+        _collect(url, "on", batch=300)
+    assert pd.counter_values()["host_inflate_columns"] == before
+
+
+def _passthrough_names(url, io_options):
+    """Columns of the first batch a CUDA-adopted reader ships compressed."""
+    with make_batch_reader(url, reader_pool_type="dummy", shuffle_row_groups=False,
+                           io_options=io_options) as r:
+        r.adopt_passthrough(on_device=True)
+        b = next(iter(r))
+        return sorted(k for k, v in b._asdict().items() if pd.is_passthrough(v))
+
+
+def test_pagedec_defaults_to_the_classic_read_and_auto_engages_on_a_card(tmp_path,
+                                                                        monkeypatch):
+    """Without ``io_options`` a CUDA-adopted reader reads classically; ``auto`` ships
+    every eligible column that saves bytes (``id``, an arange, declines at build)."""
+    monkeypatch.delenv("PTPU_PAGEDEC", raising=False)
+    assert IoOptions().pagedec == "off"
+    url = _store(tmp_path, with_string=False)
+    assert _passthrough_names(url, None) == []
+    assert _passthrough_names(url, {"pagedec": "auto"}) == ["cat", "dbl", "feat"]
+
+
+def test_io_options_pagedec_validates(monkeypatch):
+    assert IoOptions.normalize({"pagedec": " ON "}).pagedec == "on"
+    monkeypatch.setenv("PTPU_PAGEDEC", "off")
+    assert IoOptions().pagedec == "off"
+    with pytest.raises(ValueError):
+        IoOptions(pagedec="sometimes")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        IoOptions.normalize({"pagedec": "on", "readahead": False})
+    with pytest.raises(TypeError):
+        IoOptions.normalize(3)
+
+
+# -- on the card -------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_snappy_kernel_matches_plain_on_the_card(cuda_device):
+    _chunk, (comp, meta, out_cap) = _small_pages(n=3000)
+    comp_t, meta_t = torch.from_numpy(comp), torch.from_numpy(meta)
+    out, ok = pk.snappy_inflate_pages(comp_t.to(cuda_device), meta_t.to(cuda_device), out_cap)
+    plain, plain_ok = pk._snappy_pages_plain(comp_t, meta_t, out_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), plain) and torch.equal(ok.cpu(), plain_ok)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bw", [1, 5, 12, 24, 25, 32])
+def test_rle_kernels_match_plain_on_the_card(cuda_device, bw):
+    stream, vals = _hybrid_stream(np.random.default_rng(bw), bw)
+    data = torch.tensor(list(stream), dtype=torch.uint8)
+    total = len(vals)
+    tables = pk.rle_run_scan(data.to(cuda_device), len(stream), total, total, bw)
+    plain = pk._rle_run_scan_plain(data, len(stream), total, total, bw)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tables, plain))
+    got = pk.rle_extract(data.to(cuda_device), *tables[:4], bw, total)
+    assert got.cpu().tolist() == pk._rle_extract_plain(data, *plain[:4], bw, total).tolist()
+
+
+@pytest.mark.gpu
+def test_inflate_column_on_the_card_equals_host_twin(cuda_device):
+    data = _write(_simple_table(6000), row_group_size=3000, data_page_size=4096)
+    md = pq.read_metadata(io.BytesIO(data))
+    for c in range(md.row_group(0).num_columns):
+        chunk = _build(pd, data, md, 0, c)
+        got = pk.inflate_column(pd.PassthroughColumn.from_chunk(chunk).slice(11, 2500),
+                                cuda_device)
+        assert got.cpu().numpy().tobytes() == chunk.decode_window(11, 2500).tobytes()
