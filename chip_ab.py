@@ -4,6 +4,8 @@
     python3 chip_ab.py --path main --run parent=_chipwork/parent: --run change=.:auto \\
         --rounds 5
     python3 chip_ab.py --path tabular --run off=.:off --run auto=.:auto --rounds 3
+    python3 chip_ab.py --path kernels --run parent=_chipwork/parent: --run change=.: \\
+        --rounds 4
 
 Each ``--run LABEL=TREE:MODE`` names a checkout whose ``petastorm_tpu_torch`` package the
 run imports (TREE holds the package) and the ``io_options={"pagedec": MODE}`` it reads
@@ -11,7 +13,12 @@ with (an empty MODE passes no ``io_options``, for trees that predate them). The 
 are written once, as ``chip_smoke.py`` writes them: ``main`` is the 4,096-row JPEG store
 read with ``decode_on_device=True`` and ``normalize_images`` as the device transform,
 batches of 256; ``tabular`` is the 2,097,152-row Criteo-shaped store, batches of 16,384.
-Every run is its own process, so each pays its own build and start; the runs of a round
+``kernels`` times, per tree, K1 over one batch's three components (256 corpus images;
+beside three ``torch.addmm`` calls) and K3 over one 16,384-row Criteo-shaped batch's
+pages, each as the tree's own path launches it (one launch a batch where the tree has the
+batched entries, one launch a component or a column where it does not); it reports
+milliseconds, not rows/s. Every run is its own process, so each pays its own build and
+start; the runs of a round
 go in turn, and each round starts one run later than the one before (A B, B A, ...), so
 that no label always runs first. Each run prints rows/s over its steady window and its
 ``PipelineStats`` split; the summary gives each label's runs and, for each label after the
@@ -44,6 +51,8 @@ def _one(args):
     sys.path.insert(1, ROOT)
     import chip_smoke as smoke
 
+    if args.path == "kernels":
+        return _one_kernels(args, smoke)
     kwargs = {"io_options": {"pagedec": args.mode}} if args.mode else {}
     workers = max(1, min(8, (os.cpu_count() or 2) - 1))
     if args.path == "main":
@@ -87,6 +96,69 @@ def _one(args):
     print("RESULT " + json.dumps(out), flush=True)
 
 
+def _cuda_ms(fn, iters=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _one_kernels(args, smoke):
+    """K1 and K3 of the tree at the main paths' shapes, as the tree launches them."""
+    import pickle
+
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    dev = torch.device("cuda")
+    with open(os.path.join(args.url, "blobs.pkl"), "rb") as f:
+        blobs = pickle.load(f)
+    coeffs, qtabs = jpeg.stack_jpeg_coefficients(jpeg.entropy_decode_jpeg_batch(blobs))
+    scaled = [(torch.from_numpy(c).float() * torch.from_numpy(q).float()[:, None, :])
+              .reshape(-1, 64).contiguous().to(dev) for c, q in zip(coeffs, qtabs)]
+    if hasattr(jpeg, "idct_scaled_segments"):
+        def k1():
+            return jpeg.idct_scaled_segments(scaled)
+    else:
+        def k1():
+            return [jpeg.idct_scaled(x) for x in scaled]
+    basis = jpeg._basis_on(dev)
+    bias = torch.full((64,), 128.0, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chunks = smoke.tabular_chunks(os.path.join(args.url, "tabular", "part-0.parquet"), 0)
+    groups = [(c, ([c.dict_page] if c.dict_page is not None else []) + list(c.pages))
+              for c in chunks.values()]
+    if hasattr(pk, "snappy_inflate_ragged"):
+        layout, src, table = pk.pack_ragged(groups)
+        src, table = torch.from_numpy(src).to(dev), torch.from_numpy(table).to(dev)
+
+        def k3():
+            return pk.snappy_inflate_ragged(src, table, layout.out_bytes)
+    else:
+        padded = []
+        for chunk, pages in groups:
+            comp, meta, out_cap = pk._pack_pages(chunk, pages)
+            padded.append((torch.from_numpy(comp).to(dev), torch.from_numpy(meta).to(dev),
+                           out_cap))
+
+        def k3():
+            return [pk.snappy_inflate_pages(c, m, cap) for c, m, cap in padded]
+    out = {"k1_ms": _cuda_ms(k1), "k1_library_ms": _cuda_ms(
+        lambda: [torch.addmm(bias, x, basis) for x in scaled]), "k3_ms": _cuda_ms(k3)}
+    out["rows_per_s"] = 0.0
+    print("RESULT " + json.dumps(out), flush=True)
+
+
 def _write_store(path, root):
     sys.path.insert(0, ROOT)
     import chip_smoke as smoke
@@ -96,13 +168,30 @@ def _write_store(path, root):
         url = "file://" + os.path.join(root, "store")
         smoke.write_store(url, env["cv2"])
         return url, env["smi"]
+    if path == "kernels":  # 256 corpus JPEGs and one Criteo-shaped row group
+        import pickle
+
+        env = smoke.phase_environment()
+        codec = smoke.BaselineJpegEncoder(smoke.QUALITY) if env["cv2"] is None else None
+        blobs = []
+        for img in smoke.make_images(smoke.BATCH):
+            if codec is not None:
+                blobs.append(codec.encode(img))
+            else:
+                ok, enc = env["cv2"].imencode(".jpg", img[..., ::-1],
+                                              [env["cv2"].IMWRITE_JPEG_QUALITY, smoke.QUALITY])
+                blobs.append(enc.tobytes())
+        with open(os.path.join(root, "blobs.pkl"), "wb") as f:
+            pickle.dump(blobs, f)
+        smoke.write_tabular_store(os.path.join(root, "tabular"), files=1, rgs_per_file=1)
+        return root, env["smi"]
     url, _arrays = smoke.write_tabular_store(os.path.join(root, "tabular"))
     return url, smoke.phase_environment()["smi"]
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("main", "tabular"), required=True)
+    parser.add_argument("--path", choices=("main", "tabular", "kernels"), required=True)
     parser.add_argument("--run", action="append", required=True,
                         help="LABEL=TREE:MODE (MODE auto/on/off, or empty)")
     parser.add_argument("--rounds", type=int, default=3)
@@ -115,7 +204,7 @@ def main():
     parser.add_argument("--mode", default="", help=argparse.SUPPRESS)
     parser.add_argument("--url", help=argparse.SUPPRESS)
     args = parser.parse_args()
-    defaults = {"main": (5, 60), "tabular": (30, 60)}[args.path]
+    defaults = {"main": (5, 60), "tabular": (30, 60), "kernels": (0, 0)}[args.path]
     args.warmup = defaults[0] if args.warmup is None else args.warmup
     args.measured = defaults[1] if args.measured is None else args.measured
     if args.one:
@@ -146,20 +235,25 @@ def main():
                     print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
                     raise SystemExit("run %s failed (rc %d)" % (label, proc.returncode))
                 res = json.loads(lines[-1][len("RESULT "):])
-                results[label].append(res["rows_per_s"])
-                print("round %d %s (%s, pagedec=%s): %.1f rows/s %s" % (
-                    r, label, tree, mode or "-", res["rows_per_s"],
-                    json.dumps({k: v for k, v in res.items() if k != "rows_per_s"})),
-                    flush=True)
+                results[label].append(res)
+                print("round %d %s (%s, pagedec=%s): %s" % (
+                    r, label, tree, mode or "-", json.dumps(res)), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for label, vals in results.items():
-        print("%s: %s rows/s (median %.1f)" % (label, ", ".join("%.1f" % v for v in vals),
-                                               sorted(vals)[len(vals) // 2]))
+    # rows/s: higher is better; kernel milliseconds: lower is better
+    metrics = (("k1_ms", -1), ("k3_ms", -1), ("k1_library_ms", -1)) \
+        if args.path == "kernels" else (("rows_per_s", 1),)
     first = runs[0][0]
-    for label, _t, _m in runs[1:]:
-        wins = sum(1 for x, y in zip(results[label], results[first]) if x > y)
-        print("%s faster than %s in %d of %d rounds" % (label, first, wins, args.rounds))
+    for metric, sign in metrics:
+        for label, res in results.items():
+            vals = [x[metric] for x in res]
+            print("%s %s: %s (median %.4f)" % (label, metric, ", ".join(
+                "%.4f" % v for v in vals), sorted(vals)[len(vals) // 2]))
+        for label, _t, _m in runs[1:]:
+            wins = sum(1 for x, y in zip(results[label], results[first])
+                       if sign * (x[metric] - y[metric]) > 0)
+            print("%s better than %s in %s in %d of %d rounds"
+                  % (label, first, metric, wins, args.rounds))
     print(smi, flush=True)
 
 

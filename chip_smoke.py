@@ -9,10 +9,10 @@ Phases (each passes or the script exits non-zero, printing no result line):
 2. Build: the CUDA kernels (``csrc/*.cu``, nvcc for sm_90a) and the host JPEG decoder,
    from this checkout's sources, timed.
 3. Kernels against their plain PyTorch versions, on the card, at the main path's shapes:
-   K1 (IDCT) on real coefficients of one batch of 256 corpus images (the three
-   per-component row counts), K2 (normalize) on (256, 224, 224, 3) uint8 to bfloat16 and
-   float32. Times from CUDA events; bounds from H100 SXM peaks (3.35 TB/s, 67 TFLOP/s
-   float32 outside the tensor cores).
+   K1 (IDCT) as its one launch over the three components of one batch of 256 corpus
+   images, timed in turns against three ``torch.addmm`` calls, K2 (normalize) on
+   (256, 224, 224, 3) uint8 to bfloat16 and float32. Times from CUDA events; bounds from
+   H100 SXM peaks (3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores).
 4. Main path: a 4,096-row ImageNet-shaped JPEG store (224x224x3, q85, ~256-row row
    groups, 1,024 rows per file, content from a numpy seed) written by the port, read with
    ``make_batch_reader(decode_on_device=True)`` and the port's ``DataLoader`` with
@@ -22,13 +22,14 @@ Phases (each passes or the script exits non-zero, printing no result line):
 
 5. Tabular pass-through: a 2,097,152-row Criteo-shaped store (13 dense float32, 26
    categorical int32, an int32 label; 8 files of 16 row groups of 16,384 rows; snappy)
-   written from a numpy seed. K3 (snappy pages), the run scan and K4 (RLE/bit-packed
-   extract) on one batch's real pages against their plain versions and the host twin,
-   timed, and crafted corrupt pages through K3 (each must latch ok=0); then
+   written from a numpy seed. K3 (snappy pages) as its one launch over one batch's 79
+   real pages, the run scan and K4 (RLE/bit-packed extract) on the batch's streams, each
+   against its plain version and the host twin, timed; crafted corrupt pages (each must
+   latch ok=0) and a 1 MiB page above K3's shared-memory window through K3; then
    ``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the card,
    batches of 16,384, 30 warm-up + 60 measured, with the launch counters zeroed around
-   it, launches held to the per-batch prediction, and the first and last measured
-   batches held byte for byte against a ``pagedec="off"`` read.
+   it, launches and reads back to the host held to the per-batch prediction, and the
+   first and last measured batches held byte for byte against a ``pagedec="off"`` read.
 
 The last lines are the kernels table (JSON), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -44,12 +45,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+SMEM_ROUND_TRIP_CYCLES = 30    # least shared-memory load-to-use latency, one token of K3
+SM_CLOCK_MHZ = [1980.0]        # nvidia-smi clocks.max.sm, read in phase 1
 ROWS, ROWS_PER_FILE, BATCH = 4096, 1024, 256
 IMG = (224, 224, 3)
 QUALITY = 85
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 WARMUP_BATCHES, MEASURED_BATCHES = 5, 35
+K1_PAIRS = 6
 
 
 class PhaseFailed(Exception):
@@ -99,6 +103,10 @@ def phase_environment():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True,
+                           text=True, timeout=60).stdout.strip().splitlines()
+    SM_CLOCK_MHZ[0] = float(clock[0]) if clock and clock[0].strip().isdigit() else 1980.0
     log("device: %s  count: %d  torch %s  cuda %s" % (name, count, torch.__version__,
                                                       torch.version.cuda))
     log("nvidia-smi: %s" % (smi[0] if smi else "unavailable"))
@@ -203,7 +211,8 @@ def phase_kernels(blobs):
     dev = torch.device("cuda")
     results = {}
 
-    # K1 on the coefficients of one batch of 256 corpus images
+    # K1 on the coefficients of one batch of 256 corpus images: ONE launch over the
+    # batch's three components, as _batched_stage2 makes it
     planes = jpeg.entropy_decode_jpeg_batch([blobs[i] for i in range(BATCH)])
     check(all(p is not None for p in planes), "stage 1 refused a corpus image")
     coeffs, qtabs = jpeg.stack_jpeg_coefficients(planes)
@@ -214,37 +223,41 @@ def phase_kernels(blobs):
     bias = torch.full((64,), 128.0, device=dev)
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
-          "max_abs_err": 0.0, "differing_u8": 0, "rows": []}
-    for scaled in scaled_all:
-        n = scaled.shape[0]
-        out = jpeg.idct_scaled(scaled)
-        plain = jpeg._idct_scaled_plain(scaled)
-        torch.cuda.synchronize()
-        err = (out - plain).abs().max().item()
-        diff_u8 = int((torch.clamp(torch.round(out), 0, 255)
-                       != torch.clamp(torch.round(plain), 0, 255)).sum().item())
-        ms = cuda_ms(lambda: jpeg.idct_scaled(scaled))
-        plain_ms = cuda_ms(lambda: jpeg._idct_scaled_plain(scaled))
-        lib_ms = cuda_ms(lambda: torch.addmm(bias, scaled, basis))
-        nbytes, flops = 2 * n * 64 * 4 + 64 * 64 * 4, 2 * n * 64 * 64
-        b_ms, b_by = bound(nbytes, flops)
-        log("K1 idct rows=%d kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s)"
-            " roofline_share=%.3f max_abs_err=%.3g differing_uint8=%d"
-            % (n, ms, plain_ms, lib_ms, b_ms, b_by, b_ms / ms, err, diff_u8))
-        k1["ms"] += ms
-        k1["plain_ms"] += plain_ms
-        k1["library_ms"] += lib_ms
-        k1["bytes"] += nbytes
-        k1["flops"] += flops
-        k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        k1["differing_u8"] += diff_u8
-        k1["rows"].append(n)
+    outs = jpeg.idct_scaled_segments(scaled_all)
+    plains = [jpeg._idct_scaled_plain(scaled) for scaled in scaled_all]
+    torch.cuda.synchronize()
+    err = max((o - p).abs().max().item() for o, p in zip(outs, plains))
+    diff_u8 = sum(int((torch.clamp(torch.round(o), 0, 255)
+                       != torch.clamp(torch.round(p), 0, 255)).sum().item())
+                  for o, p in zip(outs, plains))
+    rows = [s.shape[0] for s in scaled_all]
+    nbytes, flops = sum(2 * n * 64 * 4 for n in rows) + 64 * 64 * 4, sum(2 * n * 64 * 64
+                                                                         for n in rows)
+    b_ms, b_by = bound(nbytes, flops)
+    # kernel and library call in turns (K1, addmm x 3, addmm x 3, K1, ...): each pair
+    # is one comparison on one card
+    pairs = []
+    for r in range(K1_PAIRS):
+        timed = [("kernel", lambda: jpeg.idct_scaled_segments(scaled_all)),
+                 ("library", lambda: [torch.addmm(bias, x, basis) for x in scaled_all])]
+        got = dict((name, cuda_ms(fn)) for name, fn in (timed if r % 2 == 0 else timed[::-1]))
+        pairs.append((got["kernel"], got["library"]))
+    plain_ms = cuda_ms(lambda: [jpeg._idct_scaled_plain(x) for x in scaled_all])
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-    check(k1["max_abs_err"] <= 1e-3, "K1 differs from its plain version by %.3g > 1e-3"
-          % k1["max_abs_err"])
-    check(k1["differing_u8"] == 0, "K1 range-limited output differs from the plain "
-          "version's in %d values" % k1["differing_u8"])
+    ms = sorted(k for k, _l in pairs)[len(pairs) // 2]
+    lib_ms = sorted(lib for _k, lib in pairs)[len(pairs) // 2]
+    log("K1 idct one launch over rows %s: kernel_ms %s, library_ms (3 x torch.addmm) %s "
+        "(pairs in turn); kernel below the library call in %d of %d pairs"
+        % (rows, [round(k, 4) for k, _l in pairs], [round(lib, 4) for _k, lib in pairs],
+           sum(k < lib for k, lib in pairs), len(pairs)))
+    log("K1 per batch (1 launch): kernel_ms=%.4f (median) plain_ms=%.4f library_ms=%.4f "
+        "bound_ms=%.4f (%s) roofline_share=%.3f max_abs_err=%.3g differing_uint8=%d"
+        % (ms, plain_ms, lib_ms, b_ms, b_by, b_ms / ms, err, diff_u8))
+    check(err <= 1e-3, "K1 differs from its plain version by %.3g > 1e-3" % err)
+    check(diff_u8 == 0, "K1 range-limited output differs from the plain version's in %d "
+          "values" % diff_u8)
+    k1 = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
+          "rows": rows, "pairs": pairs}
     # the whole stage 2 on the card against the CPU path (plain versions throughout)
     on_card = jpeg.decode_jpeg_batch(planes, device=dev).cpu().numpy()
     on_cpu = jpeg.decode_jpeg_batch(planes, device="cpu").numpy()
@@ -253,11 +266,7 @@ def phase_kernels(blobs):
         % (n_diff, on_cpu.size))
     check(n_diff == 0, "decoded uint8 on the card differs from the plain decode in %d "
           "values" % n_diff)
-    b_ms, b_by = bound(k1["bytes"], k1["flops"])
     results["K1"] = dict(k1, bound_ms=b_ms, bound_by=b_by)
-    log("K1 per batch (3 launches): kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
-        "bound_ms=%.4f (%s) roofline_share=%.3f" % (
-            k1["ms"], k1["plain_ms"], k1["library_ms"], b_ms, b_by, b_ms / k1["ms"]))
 
     # K2 on a (256, 224, 224, 3) uint8 batch, to bfloat16 and to float32
     rng = np.random.RandomState(1)
@@ -305,7 +314,7 @@ def phase_main_path(url, blobs, cv2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     codecs.host_decoded_rows(reset=True)
-    jpeg.idct_scaled.launches = 0
+    jpeg.idct_scaled_segments.launches = 0
     image.normalize_images.launches = 0
     pagedec0 = pagedec.counter_values()
     first = None
@@ -328,7 +337,8 @@ def phase_main_path(url, blobs, cv2):
                 dt = time.perf_counter() - t0
                 break
         snapshot = loader.stats.snapshot()
-    launches = {"K1": jpeg.idct_scaled.launches, "K2": image.normalize_images.launches}
+    launches = {"K1": jpeg.idct_scaled_segments.launches,
+                "K2": image.normalize_images.launches}
     wall = time.perf_counter() - t_start
     rows_per_s = (consumed * BATCH - rows0) / dt
     peak = torch.cuda.max_memory_allocated()
@@ -345,8 +355,8 @@ def phase_main_path(url, blobs, cv2):
         {k: v - pagedec0[k] for k, v in pagedec.counter_values().items()}))
     check(launches["K1"] > 0 and launches["K2"] > 0, "a kernel of the path was never "
           "launched: %s" % launches)
-    check(launches["K1"] == 3 * launches["K2"], "K1 should launch 3 times per batch "
-          "(one per colour component): %s" % launches)
+    check(launches["K1"] == launches["K2"], "K1 should launch once per batch (one launch "
+          "for the three colour components): %s" % launches)
     check(launches["K2"] >= consumed, "fewer K2 launches than delivered batches")
     check(codecs.host_decoded_rows() == 0, "%d rows fell back to host decode on a "
           "baseline q85 corpus" % codecs.host_decoded_rows())
@@ -445,21 +455,27 @@ def tabular_chunks(path, rg):
 
 
 def tabular_structure(root):
-    """Per-batch launches the path predicts (one batch = one row group): K3 once per
-    snappy column, the scan and K4 once per dictionary data page; checked uniform over
-    every row group of the store."""
+    """Per-batch launches and reads back to the host the path predicts (one batch = one
+    row group): K3 once (one launch over every snappy page of the batch), the scan and K4
+    once per dictionary data page; one read of the pages' ok flags, then per data page
+    the level-block length (nullable columns) and per dictionary data page the bit
+    width, the stream's ok flag and the index range check. Checked uniform over every
+    row group of the store."""
     shapes = set()
     for f in range(TAB_FILES):
         path = os.path.join(root, "part-%d.parquet" % f)
         for rg in range(TAB_RGS_PER_FILE):
             chunks = tabular_chunks(path, rg).values()
-            shapes.add((sum(c.codec == "SNAPPY" for c in chunks),
+            shapes.add((int(any(c.codec == "SNAPPY" for c in chunks)),
                         sum(1 for c in chunks for p in c.pages if p.encoding != 0),
                         sum(len(c.pages) + (c.dict_page is not None) for c in chunks),
-                        len(chunks)))
+                        len(chunks),
+                        1 + sum((1 if c.max_def else 0) + (3 if p.encoding != 0 else 0)
+                                for c in chunks for p in c.pages)))
     check(len(shapes) == 1, "row groups differ in page structure: %s" % sorted(shapes))
-    k3, k4, pages, columns = shapes.pop()
-    return {"K3": k3, "scan": k4, "K4": k4, "pages": pages, "columns": columns}
+    k3, k4, pages, columns, reads = shapes.pop()
+    return {"K3": k3, "scan": k4, "K4": k4, "pages": pages, "columns": columns,
+            "host_reads": reads}
 
 
 def _crafted_pages():
@@ -479,8 +495,8 @@ def _crafted_pages():
 
 def snappy_token_census(comp, comp_len):
     """Tokens of one snappy stream (host walk): literal and copy counts, the copies that
-    overlap their output, the tokens shorter than K3's block-copy threshold (32 bytes),
-    and the bytes those short tokens carry."""
+    overlap their output, the tokens shorter than 32 bytes (those K3 executes 32 output
+    bytes a step; longer ones run alone), and the bytes those short tokens carry."""
     data = bytes(comp[:comp_len])
     pos = 0
     while data[pos] & 0x80:  # varint preamble
@@ -511,9 +527,20 @@ def snappy_token_census(comp, comp_len):
     return census
 
 
+def _above_window_page(seed=31):
+    """A 1 MiB snappy dictionary-like page (Zipf int32 values, a mix of literals and
+    copies), far above K3's 66 KiB shared-memory output window: (compressed, raw)."""
+    import numpy as np
+    import pyarrow as pa
+
+    raw = (np.random.default_rng(seed).zipf(1.3, 1 << 18) % 1000).astype(np.int32).tobytes()
+    return pa.compress(raw, codec="snappy", asbytes=True), raw
+
+
 def phase_tabular_kernels(root, dev=None):
-    """K3, the scan and K4 on one batch's real pages (file 0, row group 0) against their
-    plain versions and the host twin, timed; then the crafted corrupt pages."""
+    """K3 as ONE launch over one batch's real pages (file 0, row group 0) against the
+    host twin and its plain version, timed; the crafted corrupt pages and a page above
+    K3's shared-memory window; then the scan and K4 on the batch's streams."""
     import numpy as np
     import torch
 
@@ -524,45 +551,112 @@ def phase_tabular_kernels(root, dev=None):
     chunks = tabular_chunks(os.path.join(root, "part-0.parquet"), 0)
     res = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "max_abs_err": 0.0}
            for k in ("K3", "scan", "K4")}
-    plain_checked = {"K3_pages": 0, "streams": 0}
-    plain_columns = {"label", "i0", "c0", "c9"}
+    groups = [(chunk, ([chunk.dict_page] if chunk.dict_page is not None else [])
+               + list(chunk.pages)) for chunk in chunks.values()]
+    layout, src_np, table_np = pk.pack_ragged(groups)
+    src_cpu, table_cpu = torch.from_numpy(src_np), torch.from_numpy(table_np)
+    src, table = src_cpu.to(dev), table_cpu.to(dev)
+    out, ok = pk.snappy_inflate_ragged(src, table, layout.out_bytes)
+    check(bool(ok.all().item()), "K3 latched ok=0 on a valid page of the batch")
+    t0 = time.perf_counter()
+    plain_out, plain_ok = pk.snappy_inflate_ragged(src_cpu, table_cpu, layout.out_bytes)
+    res["K3"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    host_out = out.cpu().numpy()
+    n_pages = len(table_np)
     k3_outputs = {}
-    per_column = []
-    for name, chunk in chunks.items():
-        pages = ([chunk.dict_page] if chunk.dict_page is not None else []) + list(chunk.pages)
-        comp_np, meta_np, out_cap = pk._pack_pages(chunk, pages)
-        comp = torch.from_numpy(comp_np).to(dev)
-        meta = torch.from_numpy(meta_np).to(dev)
-        out, ok = pk.snappy_inflate_pages(comp, meta, out_cap)
-        host_out = out.cpu().numpy()
-        check(bool(ok.all().item()), "K3 latched ok=0 on a valid page of column %s" % name)
+    census = []
+    for g, (name, (chunk, pages)) in enumerate(zip(chunks, groups)):
+        matrix = layout.matrix(out, g)
         for i, p in enumerate(pages):  # every page against the host twin (pyarrow snappy)
-            want = np.zeros(out_cap, np.int16)
+            payload = chunk.buf[p.payload_offset:p.payload_offset + p.comp_size]
+            want = np.zeros(layout.matrices[g][3], np.int16)
             want[:p.uncomp_size] = np.frombuffer(pagedec._decompress_page(
-                chunk.codec, chunk.buf[p.payload_offset:p.payload_offset + p.comp_size],
-                p.uncomp_size), np.uint8)
-            err = int(np.abs(host_out[i].astype(np.int16) - want).max())
+                chunk.codec, payload, p.uncomp_size), np.uint8)
+            err = int(np.abs(matrix[i].cpu().numpy().astype(np.int16) - want).max())
             res["K3"]["max_abs_err"] = max(res["K3"]["max_abs_err"], float(err))
             check(err == 0, "K3 differs from the host twin on column %s page %d" % (name, i))
-        col_ms = cuda_ms(lambda: pk.snappy_inflate_pages(comp, meta, out_cap))
-        res["K3"]["ms"] += col_ms
-        census = [snappy_token_census(comp_np[i], int(meta_np[i, 0]))
-                  for i in range(len(pages))]
-        per_column.append((col_ms, name, [p.uncomp_size for p in pages], census))
-        res["K3"]["plain_ms"] += cuda_ms(lambda: pk._snappy_pages_plain(comp, meta, out_cap),
-                                         iters=1, warmup=0)
-        # the bytes K3 must move: each page's compressed bytes and its page-table row
-        # in, its decoded bytes and its ok flag out (not the padding of either matrix)
-        res["K3"]["bytes"] += sum(p.comp_size + 8 + p.uncomp_size + 4 for p in pages)
-        if name in plain_columns:
-            plain_out, plain_ok = pk._snappy_pages_plain(comp, meta, out_cap)
-            err = (plain_out.int() - out.int()).abs().max().item()
-            res["K3"]["max_abs_err"] = max(res["K3"]["max_abs_err"], float(err))
-            check(err == 0 and torch.equal(plain_ok, ok),
-                  "K3 differs from its plain version on column %s" % name)
-            plain_checked["K3_pages"] += len(pages)
-        k3_outputs[name] = (chunk, pages, out)
+            census.append((snappy_token_census(np.frombuffer(payload, np.uint8),
+                                               p.comp_size), name, i, p.uncomp_size))
+        k3_outputs[name] = (chunk, pages, matrix)
+    for src_off, _sl, _cl, dst_off, cap in table_np.tolist():
+        span = slice(dst_off, dst_off + cap)
+        err = int(np.abs(host_out[span].astype(np.int16)
+                         - plain_out[span].numpy().astype(np.int16)).max())
+        res["K3"]["max_abs_err"] = max(res["K3"]["max_abs_err"], float(err))
+    check(res["K3"]["max_abs_err"] == 0 and torch.equal(ok.cpu(), plain_ok),
+          "K3 differs from its plain version on the batch's pages")
+    res["K3"]["ms"] = cuda_ms(lambda: pk.snappy_inflate_ragged(src, table, layout.out_bytes))
+    # the bytes K3 must move: each page's compressed bytes and its page-table row in,
+    # its decoded bytes and its ok flag out
+    res["K3"]["bytes"] = sum(p.comp_size + 8 * pk.PAGE_TABLE_COLS + p.uncomp_size + 4
+                             for _c, pages in groups for p in pages)
+    longest = max(census, key=lambda c: c[0]["literals"] + c[0]["copies"])
+    res["K3"]["longest_tokens"] = longest[0]["literals"] + longest[0]["copies"]
+    # K3's serial floor: the longest page's tokens, one shared-memory round trip each
+    res["K3"]["serial_floor_ms"] = (res["K3"]["longest_tokens"] * SMEM_ROUND_TRIP_CYCLES
+                                    / (SM_CLOCK_MHZ[0] * 1e3))
+    log("K3 one launch over %d pages (%d columns): %.4f ms; longest page column %s page %d "
+        "(%d bytes), tokens %s; serial floor %.4f ms (%d tokens x %d cycles at %.0f MHz)"
+        % (n_pages, len(groups), res["K3"]["ms"], longest[1], longest[2], longest[3],
+           json.dumps(longest[0]), res["K3"]["serial_floor_ms"],
+           res["K3"]["longest_tokens"], SMEM_ROUND_TRIP_CYCLES, SM_CLOCK_MHZ[0]))
 
+    # crafted corruption and the page above the shared-memory window, in one launch:
+    # K3 == plain, ok flags included; the large page == the host twin
+    big_comp, big_raw = _above_window_page()
+    spans = [(np.frombuffer(c, np.uint8), n) for _w, c, n in _crafted_pages()]
+    spans.append((np.frombuffer(big_comp, np.uint8), len(big_raw)))
+    rows, parts, src_off, dst_off = [], [], 0, 0
+    for a, cap in spans:
+        rows.append((src_off, len(a), len(a), dst_off, cap))
+        parts.append(np.pad(a, (0, -len(a) % 16)))
+        src_off += len(parts[-1])
+        dst_off += -(-cap // 16) * 16
+    c_src = torch.from_numpy(np.concatenate(parts))
+    c_table = torch.tensor(rows, dtype=torch.int64)
+    c_out, c_ok = pk.snappy_inflate_ragged(c_src.to(dev), c_table.to(dev), dst_off)
+    c_plain, c_plain_ok = pk.snappy_inflate_ragged(c_src, c_table, dst_off)
+    c_host = c_out.cpu()
+    for (what, _c, _n), row, flag in zip(_crafted_pages(), rows, c_ok.tolist()):
+        check(not flag, "K3 did not latch ok=0 on a crafted page: %s" % what)
+    check(torch.equal(c_ok.cpu(), c_plain_ok) and all(
+        torch.equal(c_host[r[3]:r[3] + r[4]], c_plain[r[3]:r[3] + r[4]]) for r in rows),
+          "K3 differs from its plain version on the crafted and above-window pages")
+    big = rows[-1]
+    twin = pagedec._decompress_page("SNAPPY", big_comp, len(big_raw))
+    check(bool(c_ok[-1].item()) and c_host[big[3]:big[3] + big[4]].numpy().tobytes()
+          == bytes(twin) == big_raw, "K3 differs from the host twin on the page above the "
+          "shared-memory window")
+    big_table = c_table[-1:].clone()
+    big_table[0, 0], big_table[0, 3] = 0, 0
+    big_src = torch.from_numpy(np.frombuffer(big_comp, np.uint8).copy()).to(dev)
+    big_ms = cuda_ms(lambda: pk.snappy_inflate_ragged(big_src, big_table.to(dev),
+                                                      len(big_raw)), iters=5)
+    log("K3 crafted pages latched ok=0: %s; the %d-byte page above the shared-memory "
+        "window (%d compressed) equals the host twin, %.4f ms alone"
+        % ("; ".join(w for w, _c, _n in _crafted_pages()), len(big_raw), len(big_comp),
+           big_ms))
+    # bit flips of a real page through the padded entry: K3 == plain, ok flags included
+    chunk, pages, _out = k3_outputs["c0"]
+    comp_np, meta_np, out_cap = pk._pack_pages(chunk, pages)
+    rng = np.random.default_rng(5)
+    flips = 0
+    for _ in range(16):
+        bad = comp_np.copy()
+        row = int(rng.integers(0, len(pages)))
+        pos = int(rng.integers(0, meta_np[row, 0]))
+        bad[row, pos] ^= np.uint8(1 << int(rng.integers(0, 8)))
+        b_out, b_ok = pk.snappy_inflate_pages(torch.from_numpy(bad).to(dev),
+                                              torch.from_numpy(meta_np).to(dev), out_cap)
+        p_out, p_ok = pk.snappy_inflate_pages(torch.from_numpy(bad),
+                                              torch.from_numpy(meta_np), out_cap)
+        check(torch.equal(b_out.cpu(), p_out) and torch.equal(b_ok.cpu(), p_ok),
+              "K3 differs from its plain version on a bit-flipped page")
+        flips += int(not bool(b_ok.all().item()))
+    log("K3 bit flips: %d of 16 bit-flipped pages latched ok=0, all equal to the plain "
+        "version" % flips)
+
+    streams = 0
     for name, (chunk, pages, out) in k3_outputs.items():
         row0 = 1 if chunk.dict_page is not None else 0
         for j, page in enumerate(chunk.pages):
@@ -591,7 +685,7 @@ def phase_tabular_kernels(root, dev=None):
             twin = pagedec.rle_bp_decode(data.cpu().numpy().tobytes(), bw, total)
             check(np.array_equal(vals.cpu().numpy(), twin),
                   "K4 differs from the host twin on column %s" % name)
-            plain_checked["streams"] += 1
+            streams += 1
             res["scan"]["ms"] += cuda_ms(
                 lambda: pk.rle_run_scan(data, data.shape[0], total, max_runs, bw))
             res["scan"]["plain_ms"] += cuda_ms(lambda: pk._rle_run_scan_plain(
@@ -604,47 +698,11 @@ def phase_tabular_kernels(root, dev=None):
             # the stream and the entries of the runs that exist in, one int32 a value out
             res["K4"]["bytes"] += data.numel() + 16 * n_runs + 4 * total
 
-    # crafted corruption, and bit flips of a real page: K3 == plain, ok flags included
-    latched = []
-    for what, comp_bytes, out_len in _crafted_pages():
-        comp = torch.zeros((1, 64), dtype=torch.uint8)
-        comp[0, :len(comp_bytes)] = torch.tensor(list(comp_bytes), dtype=torch.uint8)
-        meta = torch.tensor([[len(comp_bytes), out_len]], dtype=torch.int32)
-        out, ok = pk.snappy_inflate_pages(comp.to(dev), meta.to(dev), 64)
-        plain_out, plain_ok = pk._snappy_pages_plain(comp, meta, 64)
-        check(not bool(ok.item()), "K3 did not latch ok=0 on a crafted page: %s" % what)
-        check(torch.equal(out.cpu(), plain_out) and torch.equal(ok.cpu(), plain_ok),
-              "K3 differs from its plain version on a crafted page: %s" % what)
-        latched.append(what)
-    chunk, pages, _out = k3_outputs["c0"]
-    comp_np, meta_np, out_cap = pk._pack_pages(chunk, pages)
-    rng = np.random.default_rng(5)
-    flips = 0
-    for _ in range(16):
-        bad = comp_np.copy()
-        row = int(rng.integers(0, len(pages)))
-        pos = int(rng.integers(0, meta_np[row, 0]))
-        bad[row, pos] ^= np.uint8(1 << int(rng.integers(0, 8)))
-        out, ok = pk.snappy_inflate_pages(torch.from_numpy(bad).to(dev),
-                                          torch.from_numpy(meta_np).to(dev), out_cap)
-        plain_out, plain_ok = pk._snappy_pages_plain(torch.from_numpy(bad),
-                                                     torch.from_numpy(meta_np), out_cap)
-        check(torch.equal(out.cpu(), plain_out) and torch.equal(ok.cpu(), plain_ok),
-              "K3 differs from its plain version on a bit-flipped page")
-        flips += int(not bool(ok.all().item()))
     for k in res:
         res[k]["bound_ms"], res[k]["bound_by"] = bound(res[k]["bytes"], 0)
-    per_column.sort(reverse=True)
-    for col_ms, name, sizes, census in per_column[:3] + per_column[-2:]:
-        log("K3 column %s: %.4f ms, pages of %s bytes, tokens %s"
-            % (name, col_ms, sizes, json.dumps(census)))
     log("tabular kernels on file 0 row group 0 (%d columns, %d pages): K3 equal to the host "
-        "twin on every page and to its plain version on %d pages; scan and K4 equal to "
-        "their plain versions and the host twin on %d streams"
-        % (len(chunks), sum(len(p) for _c, p, _o in k3_outputs.values()),
-           plain_checked["K3_pages"], plain_checked["streams"]))
-    log("tabular kernels: crafted pages latched ok=0: %s; %d of 16 bit-flipped pages "
-        "latched ok=0, all equal to the plain version" % ("; ".join(latched), flips))
+        "twin and to its plain version on every page; scan and K4 equal to their plain "
+        "versions and the host twin on %d streams" % (len(chunks), n_pages, streams))
     for k in ("K3", "scan", "K4"):
         r = res[k]
         log("%s per batch: kernel_ms=%.4f plain_ms=%.4f bound_ms=%.6f (%s) "
@@ -695,7 +753,7 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                                io_options={"pagedec": "auto"})
     counters0 = pagedec.counter_values()
     reads0 = pk.HOST_READS.value
-    pk.snappy_inflate_pages.launches = 0
+    pk.snappy_inflate_ragged.launches = 0
     pk.rle_run_scan.launches = 0
     pk.rle_extract.launches = 0
     kept = []
@@ -716,7 +774,7 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                 dt = time.perf_counter() - t0
                 stats1 = loader.stats.snapshot()
                 break
-    launches = {"K3": pk.snappy_inflate_pages.launches, "scan": pk.rle_run_scan.launches,
+    launches = {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_run_scan.launches,
                 "K4": pk.rle_extract.launches}
     counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
     host_reads = pk.HOST_READS.value - reads0
@@ -750,6 +808,9 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
               % (k, launches[k], predicted[k], passthrough_batches))
     check(passthrough_batches >= measured, "only %d batches went through the pass-through"
           % passthrough_batches)
+    check(host_reads == predicted["host_reads"] * passthrough_batches,
+          "%d reads back to the host, the path predicts %d per batch x %d batches"
+          % (host_reads, predicted["host_reads"], passthrough_batches))
     check(counters["host_inflate_columns"] == 0, "%d columns were inflated on the host"
           % counters["host_inflate_columns"])
     check(counters["fallback_columns"] == 0, "%d columns fell back to the classic read"
@@ -964,7 +1025,7 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     k1, k2 = kernels["K1"], kernels["K2_bf16"]
     table = {"kernels": [
-        {"name": "idct_rows_f32 (K1)", "route": "cuda",
+        {"name": "idct_segments_f32 (K1)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/idct.cu",
          "replaces": "petastorm_tpu/ops/jpeg.py:311", "launches": launches["K1"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -977,7 +1038,7 @@ def main():
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None},
     ]}
     for key, name, replaces in (
-            ("K3", "snappy_pages (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
+            ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
             ("scan", "rle_run_scan (feeds K4; replaces a lax.while_loop)",
              "petastorm_tpu/ops/pagedec_kernels.py:224"),
             ("K4", "rle_extract (K4)", "petastorm_tpu/ops/pagedec_kernels.py:290")):

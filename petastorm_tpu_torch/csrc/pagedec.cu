@@ -10,18 +10,30 @@
 // reference's 4-byte windows stop at 24.
 //
 // Bound on an H100 SXM: bytes, in principle (each compressed byte read once, each
-// decoded byte or value written once: ~100 KB a column a batch, ~30 ns at 3.35 TB/s).
-// In practice all three are latency-bound: a snappy stream and a run stream are
-// sequential by definition, so one thread walks each and the card's width only helps
-// with the copying. The design keeps the walk cheap and moves the bulk bytes wide:
+// decoded byte or value written once: ~2.2 MB a 16,384-row Criteo batch, ~0.7 us at
+// 3.35 TB/s). In practice all three are latency-bound: a snappy stream and a run stream
+// are sequential by definition. K3's serial floor is its longest page's tokens times one
+// shared-memory round trip each (~4,650 tokens x ~30 cycles, ~0.07 ms for a dense
+// Criteo data page); the parallel parse below shares that chain among 32 lanes.
 //
-// - K3: one thread block per page. Thread 0 parses the tags. Tokens of at least
-//   kBlockCopyMin bytes whose source does not overlap their destination (literals, and
-//   copies with offset >= length) are handed to the whole block through shared memory
-//   and copied one byte per thread; shorter tokens and overlapping copies (offset <
-//   length, byte-serial by definition) are copied by thread 0 alone. The tail of the row
-//   past the last byte written is zero-filled by the block, as the reference's output
-//   starts from zeros.
+// - K3: ONE launch over every page of a batch. The pages lie back to back in one ragged
+//   source buffer and decode into one ragged output buffer; a page table row per page,
+//   int64 [src_off, src_len, comp_len, dst_off, out_cap], says where. Reads of a page
+//   clamp to its [src_off, src_off + src_len) span (the reference's clamped gather over
+//   its src_cap row); `comp_len` bounds the stream; the page's output is its
+//   [dst_off, dst_off + out_cap) span, zero past the bytes it decoded. One block per page:
+//   - its four warps stage the compressed page in shared memory with cp.async (16-byte
+//     copies; the window base is offset so that it is aligned where the page is);
+//   - warps 0 and 1 run the token machine as a pipeline, warp 0 parsing a round of
+//     tokens into one half of a queue while warp 1 executes the previous round's from
+//     the other half (snappy_machine_shared: a warp-parallel speculative parse and
+//     32 output bytes a step, see there);
+//   - the output decodes into a shared-memory window, which the block then stores with
+//     16-byte stores, zero-filled past the decoded bytes.
+//   A page whose source exceeds kSrcWindow, or whose output exceeds kOutWindow, or whose
+//   stream is longer than its readable span, runs the same pipeline with a serial parser
+//   and clamped byte reads, on device memory directly where a span is above its window
+//   (snappy_machine_any: the same kernel, another branch).
 // - Scan: one thread walks the run stream (reads stay in L1); the block then fills the
 //   unused table entries as the reference initialises them.
 // - K4: one thread per value: binary search of its run in run_end (torch.searchsorted
@@ -36,22 +48,43 @@
 // the reference's int32 sums can wrap: on every input where the reference terminates
 // the verdict is the same, and a crafted literal length near 2^31 that would wrap the
 // reference's `start + ln` check ends here with ok = 0 instead of a 2^31-byte loop.
-// Varint preambles and run headers keep the reference's 32-bit truncation.
+// Varint preambles and run headers keep the reference's 32-bit truncation. A page-table
+// row whose spans leave the buffers latches ok = 0 and writes nothing.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kSnappyThreads = 128;
-constexpr int64_t kBlockCopyMin = 32;
+constexpr int kTableCols = 5;
+constexpr int64_t kSrcWindow = 40 * 1024;  // compressed bytes staged in shared memory
+constexpr int64_t kOutWindow = 66 * 1024;  // decoded bytes kept in shared memory
+constexpr int kQueue = 32;                 // tokens a round (one per executor lane)
+constexpr int kSrcSlack = 64;  // past the source window: alignment shift + speculative reads
+constexpr int kOutSlack = 16;  // past the output window: alignment shift
 constexpr int kScanThreads = 256;
 constexpr int kExtractThreads = 256;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
-// snappy token command handed from thread 0 to the block
-constexpr int kCmdDone = 0;
-constexpr int kCmdLiteral = 1;
-constexpr int kCmdCopy = 2;
+// A snappy token, from the parser warp to the executor warp: a literal copies `len`
+// bytes from the source at `a`; a copy repeats `len` bytes from `a` (the offset) bytes
+// back. A token that reaches the queue passed its checks, so to + len <= out_len < 2^31.
+struct Token {
+  int64_t a;
+  uint32_t to;
+  uint32_t len_kind;  // len | kind << 31 (kind 1: copy)
+};
+constexpr uint32_t kCopyBit = 0x80000000u;
+constexpr int kQueueBytes = 2 * kQueue * static_cast<int>(sizeof(Token));  // two rounds
+// queue, then the source window and the output window with their slack: 109,648 bytes,
+// two blocks an SM. The output window holds a 16,384-row page of 4-byte values with its
+// level block.
+constexpr int kSnappySmem = kQueueBytes + static_cast<int>(kSrcWindow) + kSrcSlack +
+                            static_cast<int>(kOutWindow) + kOutSlack;
+static_assert(kQueueBytes % 16 == 0 && kSrcSlack % 16 == 0,
+              "the windows must start 16-byte aligned");
 
 __device__ __forceinline__ uint32_t clamped_byte(const uint8_t* row, int64_t cap, int64_t i) {
   if (cap <= 0) return 0u;
@@ -59,130 +92,470 @@ __device__ __forceinline__ uint32_t clamped_byte(const uint8_t* row, int64_t cap
   return row[i];
 }
 
-__global__ void __launch_bounds__(kSnappyThreads)
-snappy_pages_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__ meta,
-                    uint8_t* out, int32_t* __restrict__ ok_out, int64_t src_cap,
-                    int64_t out_cap) {
-  const int64_t page = blockIdx.x;
-  const uint8_t* src_row = comp + page * src_cap;
-  uint8_t* dst_row = out + page * out_cap;
-  __shared__ int64_t s_from, s_to, s_len;
-  __shared__ int s_kind;
+__device__ __forceinline__ int64_t shfl64(int64_t v, int lane) {
+  return static_cast<int64_t>(__shfl_sync(kFullMask, static_cast<long long>(v), lane));
+}
 
-  // thread 0's machine state
-  int64_t comp_len = 0, src = 0, dst = 0, out_len = 0;
-  bool ok = true;
-  if (threadIdx.x == 0) {
-    comp_len = meta[2 * page];
-    // preamble: varint uncompressed length, 32-bit as the reference
-    uint32_t val = 0;
-    int shift = 0;
-    bool done = false;
-    int64_t pos = 0;
-    while (!done && ok) {
-      const uint32_t b = clamped_byte(src_row, src_cap, pos);
-      if (shift < 32) val |= (b & 0x7Fu) << shift;
-      done = (b & 0x80u) == 0;
-      ok = ok && pos < comp_len && shift <= 28;
-      ++pos;
-      shift += 7;
-    }
-    out_len = static_cast<int32_t>(val);
-    ok = ok && out_len <= out_cap;
-    src = pos;
+// the parser warp and the executor warp meet here once a round (barrier 1, 64 threads)
+__device__ __forceinline__ void pair_barrier() {
+  __syncwarp();
+  asm volatile("bar.sync 1, 64;" ::: "memory");
+}
+
+// Bytes pos .. pos+7 of a shared-memory buffer as two little-endian words, from three
+// aligned 32-bit loads.
+__device__ __forceinline__ void window8(const uint8_t* s, uint32_t pos, uint32_t* lo,
+                                        uint32_t* hi) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(s) + pos;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(addr & ~static_cast<uintptr_t>(3));
+  const uint32_t sh = 8u * static_cast<uint32_t>(addr & 3);
+  const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+  *lo = __funnelshift_r(w0, w1, sh);
+  *hi = __funnelshift_r(w1, w2, sh);
+}
+
+// The varint preamble (the uncompressed length, 32-bit as the reference): returns the
+// position after it and sets out_len and ok.
+__device__ __forceinline__ int64_t snappy_preamble(const uint8_t* src, int64_t src_len,
+                                                   int64_t comp_len, int64_t out_cap,
+                                                   int64_t* out_len, bool* ok) {
+  uint32_t val = 0;
+  int shift = 0;
+  bool done = false;
+  int64_t pos = 0;
+  *ok = true;
+  while (!done && *ok) {
+    const uint32_t b = clamped_byte(src, src_len, pos);
+    if (shift < 32) val |= (b & 0x7Fu) << shift;
+    done = (b & 0x80u) == 0;
+    *ok = *ok && pos < comp_len && shift <= 28;
+    ++pos;
+    shift += 7;
   }
+  *out_len = static_cast<int32_t>(val);
+  *ok = *ok && *out_len <= out_cap;
+  return pos;
+}
 
-  while (true) {
-    if (threadIdx.x == 0) {
-      s_kind = kCmdDone;
-      while (src < comp_len && dst < out_len && ok) {
-        const uint32_t tag = clamped_byte(src_row, src_cap, src);
-        const uint32_t t = tag & 3u;
-        int64_t ln, next_src, from = 0, off = 0;
-        bool good;
-        if (t == 0) {
-          const int n0 = static_cast<int>(tag >> 2);
-          const int extra = n0 >= 60 ? n0 - 59 : 0;
-          const uint32_t mask =
-              extra >= 4 ? 0x7FFFFFFFu : ((1u << (8 * (extra < 3 ? extra : 3))) - 1u);
-          const uint32_t word = clamped_byte(src_row, src_cap, src + 1) |
-                                (clamped_byte(src_row, src_cap, src + 2) << 8) |
-                                (clamped_byte(src_row, src_cap, src + 3) << 16) |
-                                ((clamped_byte(src_row, src_cap, src + 4) & 0x7Fu) << 24);
-          ln = (n0 >= 60 ? static_cast<int64_t>(word & mask) : n0) + 1;
-          from = src + 1 + extra;
-          good = ln >= 1 && from + ln <= comp_len && dst + ln <= out_len;
-          next_src = from + ln;
-        } else {
-          const uint32_t b1 = clamped_byte(src_row, src_cap, src + 1);
-          int64_t consumed;
-          if (t == 1) {
-            ln = ((tag >> 2) & 7u) + 4;
-            off = ((tag >> 5) << 8) | b1;
-            consumed = 2;
-          } else if (t == 2) {
-            ln = (tag >> 2) + 1;
-            off = b1 | (clamped_byte(src_row, src_cap, src + 2) << 8);
-            consumed = 3;
-          } else {
-            ln = (tag >> 2) + 1;
-            off = static_cast<int32_t>(b1 | (clamped_byte(src_row, src_cap, src + 2) << 8) |
-                                       (clamped_byte(src_row, src_cap, src + 3) << 16) |
-                                       (clamped_byte(src_row, src_cap, src + 4) << 24));
-            consumed = 5;
-          }
-          good = src + consumed <= comp_len && off > 0 && off <= dst && dst + ln <= out_len;
-          next_src = src + consumed;
-        }
-        if (!good) {
-          ok = false;
-          break;
-        }
-        const bool overlapping = t != 0 && off < ln;
-        if (ln >= kBlockCopyMin && !overlapping) {
-          s_kind = t == 0 ? kCmdLiteral : kCmdCopy;
-          s_from = t == 0 ? from : dst - off;
-          s_to = dst;
-          s_len = ln;
-          src = next_src;
-          dst += ln;
-          break;
-        }
-        if (t == 0) {
-          for (int64_t k = 0; k < ln; ++k) {
-            dst_row[dst + k] = static_cast<uint8_t>(clamped_byte(src_row, src_cap, from + k));
-          }
-        } else {
-          for (int64_t k = 0; k < ln; ++k) dst_row[dst + k] = dst_row[dst - off + k];
-        }
-        src = next_src;
-        dst += ln;
-      }
-    }
-    __syncthreads();
-    const int kind = s_kind;
-    if (kind == kCmdDone) break;
-    const int64_t from = s_from, to = s_to, len = s_len;
-    if (kind == kCmdLiteral) {
-      for (int64_t k = threadIdx.x; k < len; k += blockDim.x) {
-        dst_row[to + k] = static_cast<uint8_t>(clamped_byte(src_row, src_cap, from + k));
-      }
+// One snappy token at `pos` from its tag and the four bytes after it; `good` is the
+// reference's bound check (done in 64-bit: a literal length reaches 2^31).
+__device__ __forceinline__ void decode_token(uint32_t tag, uint32_t b1, uint32_t b2,
+                                             uint32_t b3, uint32_t b4, int64_t pos,
+                                             int64_t dst, int64_t comp_len, int64_t out_len,
+                                             Token* tok, int64_t* next_pos, bool* good) {
+  const uint32_t t = tag & 3u;
+  int64_t len;
+  if (t == 0) {
+    const int n0 = static_cast<int>(tag >> 2);
+    const int extra = n0 >= 60 ? n0 - 59 : 0;
+    const uint32_t mask =
+        extra >= 4 ? 0x7FFFFFFFu : ((1u << (8 * (extra < 3 ? extra : 3))) - 1u);
+    const uint32_t word = b1 | (b2 << 8) | (b3 << 16) | ((b4 & 0x7Fu) << 24);
+    len = (n0 >= 60 ? static_cast<int64_t>(word & mask) : n0) + 1;
+    tok->a = pos + 1 + extra;
+    *good = len >= 1 && tok->a + len <= comp_len && dst + len <= out_len;
+    *next_pos = tok->a + len;
+    tok->len_kind = static_cast<uint32_t>(len);
+  } else {
+    int64_t consumed;
+    if (t == 1) {
+      len = ((tag >> 2) & 7u) + 4;
+      tok->a = ((tag >> 5) << 8) | b1;
+      consumed = 2;
+    } else if (t == 2) {
+      len = (tag >> 2) + 1;
+      tok->a = b1 | (b2 << 8);
+      consumed = 3;
     } else {
-      for (int64_t k = threadIdx.x; k < len; k += blockDim.x) {
-        dst_row[to + k] = dst_row[from + k];
+      len = (tag >> 2) + 1;
+      tok->a = static_cast<int32_t>(b1 | (b2 << 8) | (b3 << 16) | (b4 << 24));
+      consumed = 5;
+    }
+    *good = pos + consumed <= comp_len && tok->a > 0 && tok->a <= dst && dst + len <= out_len;
+    *next_pos = pos + consumed;
+    tok->len_kind = static_cast<uint32_t>(len) | kCopyBit;
+  }
+  tok->to = static_cast<uint32_t>(dst);
+}
+
+// The token machine for a page in the shared windows (src_len <= kSrcWindow, out_cap <=
+// kOutWindow, comp_len <= src_len), so every position and length fits 32 bits. Warps 0
+// and 1 of the block, as a pipeline: warp 0 parses a round of tokens into one half of
+// the queue while warp 1 executes the previous round's from the other half; they meet
+// at a named barrier once a round.
+//  - Parsing, warp-parallel and speculative: for a 32-byte span of the stream starting at
+//    the next token, every lane decodes the token that would start at its byte; a
+//    shuffle chain from lane 0 marks the real token starts; an inclusive scan of their
+//    lengths gives each token's output offset; then every token runs the reference's
+//    bound checks, and the first one that fails (or whose output offset has reached
+//    out_len) ends the stream exactly where the byte-serial loop ends it. Bytes past
+//    comp_len (the span's tail and the window's slack) only ever decode tokens that fail
+//    their checks or lie past the stream's end.
+//  - Executing: a token of 32+ bytes alone, its bytes strided over the 32 lanes; a run of
+//    shorter tokens 32 output bytes a step, each lane finding the token that writes its
+//    byte (a ballot over the token starts). A literal byte comes from the source; a copy
+//    byte j of a token at `to` is out[to - off + (j mod off)], a byte before the token
+//    (the byte-serial definition, overlapping copies included), read from the window
+//    when it lies before the step, else taken from the lane of an earlier token that
+//    computes it in this step (pointer jumping over shuffles). __syncwarp() between
+//    tokens and steps.
+// Returns, in thread 0, the bytes decoded (dst) and the verdict.
+__device__ __forceinline__ void snappy_machine_shared(const uint8_t* src, int64_t src_len,
+                                                      int64_t comp_len, uint8_t* out,
+                                                      int64_t out_cap, Token* queue,
+                                                      int* counts, int64_t* dst_out,
+                                                      bool* ok_out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // the parser's state, uniform over warp 0
+  int64_t out_len64 = 0;
+  bool ok = true;
+  int32_t pos = 0, dst = 0;
+  if (warp == 0) {
+    pos = static_cast<int32_t>(snappy_preamble(src, src_len, comp_len, out_cap, &out_len64, &ok));
+  }
+  const int32_t out_len = static_cast<int32_t>(out_len64);
+  const int32_t c_len = static_cast<int32_t>(comp_len);
+  bool ended = false;
+  for (int round = 0;; ++round) {
+    const int half = round & 1;
+    if (warp == 0) {
+      Token* q = queue + half * kQueue;
+      int n = 0;
+      // a span holds at most 16 token starts (every token takes 2+ bytes)
+      while (n <= kQueue - 16 && !ended && pos < c_len && dst < out_len && ok) {
+        const int32_t base = pos;
+        const int32_t p = base + lane;
+        uint32_t lo, hi;
+        window8(src, static_cast<uint32_t>(p), &lo, &hi);
+        const uint32_t tag = lo & 0xFFu;
+        const uint32_t t = tag & 3u;
+        uint32_t len, consumed;
+        int32_t a;
+        if (t == 0) {
+          const uint32_t n0 = tag >> 2;
+          const uint32_t extra = n0 >= 60 ? n0 - 59 : 0;
+          const uint32_t word = (lo >> 8) | ((hi & 0x7Fu) << 24);
+          const uint32_t mask = extra >= 4 ? 0x7FFFFFFFu : ((1u << (8 * extra)) - 1u);
+          len = (n0 >= 60 ? (word & mask) : n0) + 1u;  // <= 2^31
+          a = p + 1 + static_cast<int32_t>(extra);
+          consumed = 1u + extra + len;
+        } else {
+          len = t == 1 ? ((tag >> 2) & 7u) + 4u : (tag >> 2) + 1u;
+          a = t == 1   ? static_cast<int32_t>(((tag >> 5) << 8) | ((lo >> 8) & 0xFFu))
+              : t == 2 ? static_cast<int32_t>((lo >> 8) & 0xFFFFu)
+                       : static_cast<int32_t>((lo >> 8) | (hi << 24));
+          consumed = t == 1 ? 2u : (t == 2 ? 3u : 5u);
+        }
+        // the chain of real token starts within the span
+        const int32_t rel_next = lane + static_cast<int32_t>(consumed < 32u ? consumed : 32u);
+        uint32_t starts = 0;
+        int32_t cur = 0;
+        while (cur < 32 && base + cur < c_len) {
+          starts |= 1u << cur;
+          cur = __shfl_sync(kFullMask, rel_next, cur);
+        }
+        const bool is_tok = (starts >> lane) & 1u;
+        // output offsets: a length past 2^20 fails its check (out_len <= kOutWindow)
+        const int32_t slen = is_tok ? static_cast<int32_t>(len < (1u << 20) ? len : (1u << 20)) : 0;
+        int32_t incl = slen;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int32_t v = __shfl_up_sync(kFullMask, incl, d);
+          if (lane >= d) incl += v;
+        }
+        const int32_t d_l = dst + incl - slen;
+        const bool run = d_l < out_len;
+        const uint32_t room = static_cast<uint32_t>(out_len - d_l);
+        const bool good =
+            t == 0 ? (a <= c_len && len <= static_cast<uint32_t>(c_len - a) && len <= room)
+                   : (p + static_cast<int32_t>(consumed) <= c_len && a > 0 && a <= d_l &&
+                      len <= room);
+        const uint32_t stop = __ballot_sync(kFullMask, is_tok && !(run && good));
+        const int first = stop ? __ffs(stop) - 1 : 32;
+        const uint32_t exec = first < 32 ? (starts & ((1u << first) - 1u)) : starts;
+        if ((exec >> lane) & 1u) {
+          Token tok;
+          tok.a = a;
+          tok.to = static_cast<uint32_t>(d_l);
+          tok.len_kind = len | (t == 0 ? 0u : kCopyBit);
+          q[n + __popc(exec & ((1u << lane) - 1u))] = tok;
+        }
+        n += __popc(exec);
+        if (first < 32) {  // the byte-serial loop stops at this token
+          if (__shfl_sync(kFullMask, run ? 1 : 0, first)) ok = false;
+          pos = base + first;
+          dst = __shfl_sync(kFullMask, d_l, first);
+          ended = true;
+        } else {
+          const int last = 31 - __clz(exec);
+          pos = base + last + static_cast<int32_t>(__shfl_sync(kFullMask, consumed, last));
+          dst = __shfl_sync(kFullMask, d_l, last) +
+                static_cast<int32_t>(__shfl_sync(kFullMask, len, last));
+        }
+      }
+      if (lane == 0) counts[half] = n;
+    } else if (round > 0) {
+      const Token* q = queue + (half ^ 1) * kQueue;
+      const int n = counts[half ^ 1];
+      Token mine = {0, 0u, 0u};
+      if (lane < n) mine = q[lane];
+      const uint32_t my_len = mine.len_kind & ~kCopyBit;
+      const uint32_t long_mask = __ballot_sync(kFullMask, lane < n && my_len >= 32u);
+      int k = 0;
+      while (k < n) {
+        if ((long_mask >> k) & 1u) {  // a long token alone: its bytes strided over the lanes
+          const int64_t a = shfl64(mine.a, k);
+          const uint32_t to = __shfl_sync(kFullMask, mine.to, k);
+          const uint32_t len_kind = __shfl_sync(kFullMask, mine.len_kind, k);
+          const uint32_t len = len_kind & ~kCopyBit;
+          if ((len_kind & kCopyBit) == 0) {
+            for (uint32_t j = lane; j < len; j += 32) out[to + j] = src[a + j];
+          } else {
+            // out[to + j] = out[to - off + (j mod off)], j mod off kept incrementally
+            const uint32_t off = static_cast<uint32_t>(a);
+            const uint32_t step = 32u % off;
+            uint32_t r = static_cast<uint32_t>(lane) % off;
+            for (uint32_t j = lane; j < len; j += 32) {
+              out[to + j] = out[to - off + r];
+              r += step;
+              if (r >= off) r -= off;
+            }
+          }
+          __syncwarp();
+          ++k;
+          continue;
+        }
+        // a run of short tokens k .. e-1, 32 output bytes a step
+        const uint32_t rest = long_mask >> k;
+        const int e = rest ? k + __ffs(rest) - 1 : n;
+        const uint32_t d0 = __shfl_sync(kFullMask, mine.to, k);
+        const uint32_t d1 = __shfl_sync(kFullMask, mine.to + my_len, e - 1);
+        for (uint32_t g = d0; g < d1; g += 32) {
+          const uint32_t qq = g + lane;
+          const bool starts_here = lane < n && mine.to >= g && mine.to < g + 32;
+          const uint32_t m =
+              __reduce_or_sync(kFullMask, starts_here ? 1u << (mine.to - g) : 0u);
+          const int before = __popc(__ballot_sync(kFullMask, lane < n && mine.to < g));
+          const int kq = before - 1 + __popc(m & ((2u << lane) - 1u));  // the token of qq
+          const int kl = kq < 0 ? 0 : kq;
+          const int64_t ka = shfl64(mine.a, kl);
+          const uint32_t kto = __shfl_sync(kFullMask, mine.to, kl);
+          const uint32_t klk = __shfl_sync(kFullMask, mine.len_kind, kl);
+          uint32_t v = 0;
+          bool resolved = true;
+          int ptr = 0;
+          if (qq < d1) {
+            if ((klk & kCopyBit) == 0) {
+              v = src[ka + (qq - kto)];
+            } else {
+              // out[to + j] = out[to - off + (j mod off)]: a byte before the token
+              const uint32_t off = static_cast<uint32_t>(ka), j = qq - kto;
+              const uint32_t s = kto - off + (j < off ? j : j % off);
+              if (s >= g) {
+                resolved = false;  // an earlier token writes it in this step, lane s - g
+                ptr = static_cast<int>(s - g);
+              } else {
+                v = out[s];
+              }
+            }
+          }
+          while (__any_sync(kFullMask, !resolved)) {  // pointers go to lower lanes: ends
+            const uint32_t pv = __shfl_sync(kFullMask, v, ptr);
+            const int pr = __shfl_sync(kFullMask, resolved ? 1 : 0, ptr);
+            const int pp = __shfl_sync(kFullMask, ptr, ptr);
+            if (!resolved) {
+              if (pr) {
+                v = pv;
+                resolved = true;
+              } else {
+                ptr = pp;
+              }
+            }
+          }
+          if (qq < d1) out[qq] = static_cast<uint8_t>(v);
+          __syncwarp();  // this step's bytes are visible to the next step's reads
+        }
+        k = e;
       }
     }
-    __syncthreads();
+    pair_barrier();
+    if (counts[half] == 0) break;  // nothing parsed this round: the last was executed
   }
-
-  // every byte in [0, dst) was written by a good token; the rest of the row is zero
   if (threadIdx.x == 0) {
-    ok = ok && dst == out_len && src == comp_len;
-    ok_out[page] = ok ? 1 : 0;
-    s_to = dst;
+    *dst_out = dst;
+    *ok_out = ok && dst == out_len && pos == c_len;
+  }
+}
+
+// The token machine for any other page (a source or output span above its window, or
+// a stream longer than its readable span): the same two-warp pipeline on device memory
+// or the windows, with clamped byte reads, lane 0 of warp 0 parsing serially in 64-bit
+// and warp 1 executing one token at a time, its bytes spread over the 32 lanes. An
+// overlapping copy (offset < length) writes out[to + k] = out[to - off + (k mod off)],
+// which equals the byte-serial definition and reads only bytes written before the token.
+__device__ __forceinline__ void snappy_machine_any(const uint8_t* src, int64_t src_len,
+                                                   int64_t comp_len, uint8_t* out,
+                                                   int64_t out_cap, Token* queue,
+                                                   int* counts, int64_t* dst_out,
+                                                   bool* ok_out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int64_t pos = 0, dst = 0, out_len = 0;  // the parser's state, in thread 0
+  bool ok = true;
+  if (threadIdx.x == 0) pos = snappy_preamble(src, src_len, comp_len, out_cap, &out_len, &ok);
+  for (int round = 0;; ++round) {
+    const int half = round & 1;
+    if (warp == 0) {
+      if (lane == 0) {
+        Token* q = queue + half * kQueue;
+        int n = 0;
+        while (n < kQueue && pos < comp_len && dst < out_len && ok) {
+          const uint32_t tag = clamped_byte(src, src_len, pos);
+          const uint32_t b1 = clamped_byte(src, src_len, pos + 1);
+          const uint32_t b2 = clamped_byte(src, src_len, pos + 2);
+          const uint32_t b3 = clamped_byte(src, src_len, pos + 3);
+          const uint32_t b4 = clamped_byte(src, src_len, pos + 4);
+          Token tok;
+          int64_t next_pos;
+          bool good;
+          decode_token(tag, b1, b2, b3, b4, pos, dst, comp_len, out_len, &tok, &next_pos,
+                       &good);
+          if (!good) {
+            ok = false;
+            break;
+          }
+          q[n++] = tok;
+          pos = next_pos;
+          dst += tok.len_kind & ~kCopyBit;
+        }
+        counts[half] = n;
+      }
+    } else if (round > 0) {
+      const Token* q = queue + (half ^ 1) * kQueue;
+      const int n = counts[half ^ 1];
+      Token mine = {0, 0u, 0u};
+      if (lane < n) mine = q[lane];
+      for (int k = 0; k < n; ++k) {
+        const int64_t a = shfl64(mine.a, k);
+        const uint32_t to = __shfl_sync(kFullMask, mine.to, k);
+        const uint32_t len_kind = __shfl_sync(kFullMask, mine.len_kind, k);
+        const uint32_t len = len_kind & ~kCopyBit;
+        if ((len_kind & kCopyBit) == 0) {
+          for (uint32_t j = lane; j < len; j += 32) {
+            out[to + j] = static_cast<uint8_t>(clamped_byte(src, src_len, a + j));
+          }
+        } else {
+          // a copy is at most 64 bytes and 0 < off <= to: every byte read lies before `to`
+          const uint32_t off = static_cast<uint32_t>(a);
+          for (uint32_t j = lane; j < len; j += 32) {
+            out[to + j] = out[to - off + (j < off ? j : j % off)];
+          }
+        }
+        __syncwarp();  // this token's bytes are visible to the next token's reads
+      }
+    }
+    pair_barrier();
+    if (counts[half] == 0) break;  // nothing parsed this round: the last was executed
+  }
+  if (threadIdx.x == 0) {
+    *dst_out = dst;
+    *ok_out = ok && dst == out_len && pos == comp_len;
+  }
+}
+
+// `len` bytes from device memory to shared memory, by the whole block: cp.async for the
+// 16-byte chunks (`s` and `g` agree modulo 16), plain loads for the ragged ends.
+__device__ __forceinline__ void stage_to_shared(uint8_t* s, const uint8_t* g, int64_t len) {
+  const int64_t head_raw = (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(g) & 15)) & 15;
+  const int64_t head = head_raw < len ? head_raw : len;
+  const int64_t body_end = head + ((len - head) & ~static_cast<int64_t>(15));
+  for (int64_t i = threadIdx.x; i < head; i += blockDim.x) s[i] = g[i];
+  for (int64_t c = head + 16 * static_cast<int64_t>(threadIdx.x); c < body_end;
+       c += 16 * static_cast<int64_t>(blockDim.x)) {
+    __pipeline_memcpy_async(s + c, g + c, 16);
+  }
+  for (int64_t i = body_end + threadIdx.x; i < len; i += blockDim.x) s[i] = g[i];
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// A page's output span [0, cap) in device memory, by the whole block: bytes below
+// `dst` from the shared window `s` (or, when `s` is null, left as decoded in place),
+// zeros from `dst` on; 16-byte stores where `g` is aligned (`s` agrees modulo 16).
+__device__ __forceinline__ void store_window(uint8_t* g, const uint8_t* s, int64_t dst,
+                                             int64_t cap) {
+  const int64_t head_raw = (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(g) & 15)) & 15;
+  const int64_t head = head_raw < cap ? head_raw : cap;
+  const int64_t body_end = head + ((cap - head) & ~static_cast<int64_t>(15));
+  const int64_t first = s != nullptr ? 0 : dst;  // in place: only the zero tail
+  for (int64_t i = threadIdx.x; i < head; i += blockDim.x) {
+    if (i >= first) g[i] = i < dst ? s[i] : 0;
+  }
+  int64_t c0 = head + ((first > head ? (first - head) : 0) & ~static_cast<int64_t>(15));
+  for (int64_t c = c0 + 16 * static_cast<int64_t>(threadIdx.x); c < body_end;
+       c += 16 * static_cast<int64_t>(blockDim.x)) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (c + 16 <= dst) {
+      v = *reinterpret_cast<const uint4*>(s + c);
+    } else if (c < dst) {  // the chunk that holds the last decoded byte
+      uint8_t* vb = reinterpret_cast<uint8_t*>(&v);
+      for (int b = 0; b < 16; ++b) {
+        vb[b] = c + b < dst ? (s != nullptr ? s[c + b] : g[c + b]) : 0;
+      }
+    }
+    *reinterpret_cast<uint4*>(g + c) = v;
+  }
+  for (int64_t i = body_end + threadIdx.x; i < cap; i += blockDim.x) {
+    if (i >= first) g[i] = i < dst ? s[i] : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kSnappyThreads)
+snappy_ragged_kernel(const uint8_t* __restrict__ src, int64_t src_bytes,
+                     const int64_t* __restrict__ table, uint8_t* out, int64_t out_bytes,
+                     int32_t* __restrict__ ok_out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int64_t s_dst;
+  __shared__ int s_counts[2];
+  const int64_t page = blockIdx.x;
+  const int64_t* row = table + page * kTableCols;
+  const int64_t src_off = row[0], src_len = row[1], comp_len = row[2];
+  const int64_t dst_off = row[3], out_cap = row[4];
+  const bool spans_ok = src_off >= 0 && src_len >= 0 && src_off <= src_bytes - src_len &&
+                        dst_off >= 0 && out_cap >= 0 && dst_off <= out_bytes - out_cap;
+  if (!spans_ok) {
+    if (threadIdx.x == 0) ok_out[page] = 0;
+    return;
+  }
+  const uint8_t* g_src = src + src_off;
+  uint8_t* g_out = out + dst_off;
+  const bool src_shared = src_len <= kSrcWindow;
+  const bool out_shared = out_cap <= kOutWindow;
+  Token* queue = reinterpret_cast<Token*>(smem);
+  uint8_t* s_src = smem + kQueueBytes + (reinterpret_cast<uintptr_t>(g_src) & 15);
+  uint8_t* s_out = smem + kQueueBytes + kSrcWindow + kSrcSlack +
+                   (reinterpret_cast<uintptr_t>(g_out) & 15);
+  if (src_shared) stage_to_shared(s_src, g_src, src_len);
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    int64_t dst = 0;
+    bool ok = false;
+    if (src_shared && out_shared && comp_len <= src_len) {
+      snappy_machine_shared(s_src, src_len, comp_len, s_out, out_cap, queue, s_counts, &dst,
+                            &ok);
+    } else {
+      snappy_machine_any(src_shared ? s_src : g_src, src_len, comp_len,
+                         out_shared ? s_out : g_out, out_cap, queue, s_counts, &dst, &ok);
+    }
+    if (threadIdx.x == 0) {
+      s_dst = dst;
+      ok_out[page] = ok ? 1 : 0;
+    }
   }
   __syncthreads();
-  for (int64_t k = s_to + threadIdx.x; k < out_cap; k += blockDim.x) dst_row[k] = 0;
+  // every byte in [0, dst) was written by a good token; the rest of the span is zero
+  store_window(g_out, out_shared ? s_out : nullptr, s_dst, out_cap);
 }
 
 __global__ void __launch_bounds__(kScanThreads)
@@ -278,22 +651,28 @@ rle_extract_kernel(const uint8_t* __restrict__ data, int64_t cap,
 
 extern "C" {
 
-// comp: (n_pages, src_cap) uint8, zero-padded compressed pages; meta: (n_pages, 2) int32
-// rows [comp_len, out_len]; out: (n_pages, out_cap) uint8; ok: (n_pages,) int32 (1 = the
-// page decoded exactly). All on CUDA device `device`; launches on `stream` and returns
-// the cudaError_t of the launch (0 = cudaSuccess).
-int ptpu_snappy_pages(const void* comp, const void* meta, void* out, void* ok, int64_t n_pages,
-                      int64_t src_cap, int64_t out_cap, int device, void* stream) {
-  if (n_pages < 0 || src_cap < 1 || out_cap < 0 || n_pages > INT32_MAX) {
+// One launch over a batch of snappy pages packed back to back. src: (src_bytes,) uint8;
+// table: (n_pages, 5) int64 rows [src_off, src_len, comp_len, dst_off, out_cap]; out:
+// (out_bytes,) uint8, of which each page writes exactly its [dst_off, dst_off + out_cap)
+// span (decoded bytes, then zeros); ok: (n_pages,) int32 (1 = the page decoded exactly).
+// All on CUDA device `device`; launches on `stream` and returns the cudaError_t of the
+// launch (0 = cudaSuccess).
+int ptpu_snappy_ragged(const void* src, int64_t src_bytes, const void* table, void* out,
+                       int64_t out_bytes, void* ok, int64_t n_pages, int device,
+                       void* stream) {
+  if (n_pages < 0 || n_pages > INT32_MAX || src_bytes < 0 || out_bytes < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_pages == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  snappy_pages_kernel<<<static_cast<unsigned>(n_pages), kSnappyThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(meta),
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(ok), src_cap, out_cap);
+  err = cudaFuncSetAttribute(snappy_ragged_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSnappySmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  snappy_ragged_kernel<<<static_cast<unsigned>(n_pages), kSnappyThreads, kSnappySmem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), src_bytes, static_cast<const int64_t*>(table),
+      static_cast<uint8_t*>(out), out_bytes, static_cast<int32_t*>(ok));
   return static_cast<int>(cudaGetLastError());
 }
 

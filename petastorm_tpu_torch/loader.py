@@ -46,7 +46,7 @@ logger = logging.getLogger(__name__)
 
 _SENTINEL = object()
 
-#: slab size of the inflate stage's pinned ring: a batch's compressed pages of one column
+#: slab size of the inflate stage's pinned ring: a batch's compressed pages, all columns
 #: (a larger request is copied unpooled, counted as ``staging_oversized``)
 _PAGE_SLAB_BYTES = 4 << 20
 
@@ -585,9 +585,8 @@ class DataLoader:
         t0 = time.perf_counter()
         use_device = self.device.type == "cuda" \
             or os.environ.get("PTPU_PAGEDEC_DEVICE", "") not in ("", "0")
-        stager = self._pages_stager()
         batch = dict(batch)
-        inflated = {}
+        cols = {}
         for name in names:
             col = batch.pop(name)
             counters["pages"].inc(sum(
@@ -601,13 +600,17 @@ class DataLoader:
                 counters["host_inflate_columns"].inc()
                 batch[name] = col.materialize()
                 continue
+            cols[name] = col
+        inflated = {}
+        if cols:
             try:
-                inflated[name] = pk.inflate_column(col, self.device, stager)
+                # one upload, one K3 launch and one read of the ok flags for the batch
+                inflated = pk.inflate_columns(cols, self.device, self._pages_stager())
             except pk.DeviceInflateError as e:
-                col.materialize()  # raises PagedecCorruptError when the bytes are bad
+                cols[e.column].materialize()  # raises PagedecCorruptError on bad bytes
                 raise pk.KernelFaultError(
                     "column %r: the device inflate rejected pages that the host twin "
-                    "decodes (%s)" % (name, e)) from e
+                    "decodes (%s)" % (e.column, e)) from e
         dt = time.perf_counter() - t0
         counters["inflate_seconds"].observe(dt)
         self.stats.inflate_s += dt

@@ -7,10 +7,11 @@ Port of ``petastorm_tpu.ops.jpeg``:
   :func:`entropy_decode_jpeg_batch` (one native call per row group) turn JPEG bytes into
   *quantized DCT coefficient blocks* per component (:class:`JpegPlanes`).
 - **Stage 2 (device)**: :func:`decode_jpeg_batch` dequantises, runs the 8x8 inverse DCT
-  as one (N, 64) @ (64, 64) product per component (:func:`idct_scaled`, the CUDA kernel
-  K1 on a CUDA tensor), range-limits, upsamples chroma with libjpeg's triangle filter and
-  converts YCbCr to RGB. The operations around the IDCT are plain torch ops, as they sit
-  outside the Pallas kernel in the JAX package too.
+  as one (N, 64) @ (64, 64) product per component (:func:`idct_scaled_segments`, the CUDA
+  kernel K1 on CUDA tensors, one launch for a batch's components), range-limits,
+  upsamples chroma with libjpeg's triangle filter and converts YCbCr to RGB. The
+  operations around the IDCT are plain torch ops, as they sit outside the Pallas kernel
+  in the JAX package too.
 
 Stage 2 ships full int16 coefficients (k = 64). The JAX package's H2D byte savers (12-bit,
 zigzag-truncated and split packs) and ``resize_image_batch`` are not ported yet.
@@ -394,37 +395,66 @@ def _idct_scaled_plain(scaled):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def idct_scaled(scaled):
-    """(N, 64) dequantized float32 coefficients → (N, 64) pixel blocks (+128 level shift).
+_MAX_IDCT_SEGMENTS = 4  # csrc/idct.cu kMaxSegments
 
-    K1: on a CUDA tensor, the hand-written kernel ``csrc/idct.cu`` (port of
-    ``petastorm_tpu/ops/jpeg.py:311 _idct_kernel``); on a CPU tensor, the plain version.
-    ``idct_scaled.launches`` counts kernel launches."""
+
+def idct_scaled_segments(segments):
+    """A list of (N_i, 64) dequantized float32 coefficient tensors (a batch's colour
+    components, all on one device) → the list of (N_i, 64) pixel blocks (+128 level
+    shift), in order.
+
+    K1: on CUDA tensors, the hand-written kernel ``csrc/idct.cu`` (port of
+    ``petastorm_tpu/ops/jpeg.py:311 _idct_kernel``), ONE launch for every segment; on CPU
+    tensors, the plain version per segment. ``idct_scaled_segments.launches`` counts
+    kernel launches."""
     import torch
 
-    if scaled.dim() != 2 or scaled.shape[1] != 64:
-        raise ValueError("idct_scaled takes (N, 64) rows, got %s" % (tuple(scaled.shape),))
-    if scaled.dtype != torch.float32:
-        raise TypeError("idct_scaled takes float32, got %s" % scaled.dtype)
-    if scaled.device.type == "cpu":
-        return _idct_scaled_plain(scaled)
-    if scaled.device.type != "cuda":
-        raise ValueError("idct_scaled runs on CPU or CUDA tensors, got %s" % scaled.device)
+    segments = list(segments)
+    if not 1 <= len(segments) <= _MAX_IDCT_SEGMENTS:
+        raise ValueError("idct_scaled_segments takes 1..%d segments, got %d"
+                         % (_MAX_IDCT_SEGMENTS, len(segments)))
+    device = segments[0].device
+    for scaled in segments:
+        if scaled.dim() != 2 or scaled.shape[1] != 64:
+            raise ValueError("idct_scaled takes (N, 64) rows, got %s"
+                             % (tuple(scaled.shape),))
+        if scaled.dtype != torch.float32:
+            raise TypeError("idct_scaled takes float32, got %s" % scaled.dtype)
+        if scaled.device != device:
+            raise ValueError("idct_scaled_segments: segments on %s and %s"
+                             % (device, scaled.device))
+    if device.type == "cpu":
+        return [_idct_scaled_plain(scaled) for scaled in segments]
+    if device.type != "cuda":
+        raise ValueError("idct_scaled runs on CPU or CUDA tensors, got %s" % device)
+    import ctypes
+
     from petastorm_tpu_torch.ops import kernels
 
-    if not scaled.is_contiguous() or scaled.data_ptr() % 16:
-        raise ValueError("idct_scaled needs a contiguous, 16-byte aligned input")
-    basis = _basis_on(scaled.device)
-    out = torch.empty_like(scaled)
-    lib = kernels.library()
-    rc = lib.ptpu_idct_rows_f32(scaled.data_ptr(), basis.data_ptr(), out.data_ptr(),
-                                scaled.shape[0], *kernels.launch_target(scaled.device))
-    kernels.check_launch("idct_rows_f32", rc)
-    idct_scaled.launches += 1
-    return out
+    for scaled in segments:
+        if not scaled.is_contiguous() or scaled.data_ptr() % 16:
+            raise ValueError("idct_scaled needs contiguous, 16-byte aligned inputs")
+    basis = _basis_on(device)
+    outs = [torch.empty_like(scaled) for scaled in segments]
+    n = len(segments)
+    ins = (ctypes.c_void_p * n)(*[t.data_ptr() for t in segments])
+    out_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in outs])
+    rows = (ctypes.c_int64 * n)(*[t.shape[0] for t in segments])
+    rc = kernels.library().ptpu_idct_segments_f32(ins, out_ptrs, rows, n, basis.data_ptr(),
+                                                  *kernels.launch_target(device))
+    kernels.check_launch("idct_segments_f32", rc)
+    idct_scaled_segments.launches += 1
+    return outs
 
 
-idct_scaled.launches = 0
+idct_scaled_segments.launches = 0
+
+
+def idct_scaled(scaled):
+    """(N, 64) dequantized float32 coefficients → (N, 64) pixel blocks (+128 level shift):
+    the one-segment case of :func:`idct_scaled_segments` (K1 on a CUDA tensor, the plain
+    version on a CPU tensor)."""
+    return idct_scaled_segments([scaled])[0]
 
 
 def idct_blocks(coeffs, qtable):
@@ -495,7 +525,7 @@ def decode_jpeg_device_stage(planes, device=None):
     return _to_uint8(ycbcr_to_rgb(full[0], full[1], full[2]))
 
 
-# -- batched stage 2 (one IDCT launch per component per batch) --------------------------
+# -- batched stage 2 (one IDCT launch per batch) --------------------------------------
 
 
 def _layout_key(planes):
@@ -511,17 +541,17 @@ def _layout_key(planes):
 def _batched_stage2(layout, coeffs, qtabs, bgr=False):
     """Same-layout batch on device: per component ``(n, by*bx, 64)`` int16 coefficients
     and ``(n, 64)`` int32 quantisation tables (per image: quality may vary) →
-    ``(n, h, w, 3)`` uint8, RGB or (``bgr``) BGR. One K1 launch per component."""
+    ``(n, h, w, 3)`` uint8, RGB or (``bgr``) BGR. One K1 launch for all components."""
     import torch
 
     height, width, comp_layout = layout
     hmax = max(h for h, _v, _by, _bx in comp_layout)
     vmax = max(v for _h, v, _by, _bx in comp_layout)
     n = coeffs[0].shape[0]
+    scaled = [(coef.float() * qtab.float()[:, None, :]).reshape(n * by * bx, 64)
+              for (_h, _v, by, bx), coef, qtab in zip(comp_layout, coeffs, qtabs)]
     planes = []
-    for (h_samp, v_samp, by, bx), coef, qtab in zip(comp_layout, coeffs, qtabs):
-        scaled = coef.float() * qtab.float()[:, None, :]
-        pix = idct_scaled(scaled.reshape(n * by * bx, 64))
+    for (h_samp, v_samp, by, bx), pix in zip(comp_layout, idct_scaled_segments(scaled)):
         pix = torch.clamp(torch.round(pix), 0.0, 255.0)  # libjpeg range-limits at IDCT out
         plane = pix.reshape(n, by, bx, 8, 8).permute(0, 1, 3, 2, 4).reshape(n, by * 8, bx * 8)
         ry, rx = vmax // v_samp, hmax // h_samp

@@ -5,8 +5,8 @@ and link into one shared library with a plain C interface
 (:mod:`petastorm_tpu_torch.ops._build`). Nothing builds or loads at import: the first
 :func:`library` call does, from the wrapper that launches a kernel on a CUDA tensor.
 The wrappers themselves live beside their plain PyTorch versions:
-``ops.jpeg.idct_scaled`` (K1), ``ops.image.normalize_images`` (K2), and
-``ops.pagedec_kernels.snappy_inflate_pages`` (K3), ``rle_run_scan`` and ``rle_extract``
+``ops.jpeg.idct_scaled_segments`` (K1), ``ops.image.normalize_images`` (K2), and
+``ops.pagedec_kernels.snappy_inflate_ragged`` (K3), ``rle_run_scan`` and ``rle_extract``
 (K4).
 """
 from __future__ import annotations
@@ -65,19 +65,20 @@ def library():
             raise RuntimeError("CUDA kernels need nvcc (%s): %s" % (nvcc, e)) from e
         BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=path)
         lib = ctypes.CDLL(path)
-        lib.ptpu_idct_rows_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        lib.ptpu_idct_segments_f32.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p]
-        lib.ptpu_idct_rows_f32.restype = ctypes.c_int
+        lib.ptpu_idct_segments_f32.restype = ctypes.c_int
         lib.ptpu_normalize_u8.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float), ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         lib.ptpu_normalize_u8.restype = ctypes.c_int
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-        lib.ptpu_snappy_pages.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_int,
-                                          ptr]
-        lib.ptpu_snappy_pages.restype = ctypes.c_int
+        lib.ptpu_snappy_ragged.argtypes = [ptr, i64, ptr, ptr, i64, ptr, i64, ctypes.c_int,
+                                           ptr]
+        lib.ptpu_snappy_ragged.restype = ctypes.c_int
         lib.ptpu_rle_run_scan.argtypes = [ptr, i64, i64, i32, i32, ctypes.c_int, ptr, ptr,
                                           ptr, ptr, ptr, ctypes.c_int, ptr]
         lib.ptpu_rle_run_scan.restype = ctypes.c_int

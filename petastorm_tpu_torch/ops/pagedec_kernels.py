@@ -4,19 +4,23 @@ Port of ``petastorm_tpu.ops.pagedec_kernels``, the device half of
 :mod:`petastorm_tpu_torch.io.pagedec`: the compressed pages of a batch cross the host to
 device link, and the card inflates them.
 
-- :func:`snappy_inflate_pages` is kernel K3 (``csrc/pagedec.cu``, port of
+- :func:`snappy_inflate_ragged` is kernel K3 (``csrc/pagedec.cu``, port of
   ``petastorm_tpu/ops/pagedec_kernels.py:149 _snappy_pages_kernel``): the snappy LZ token
-  machine, one page per thread block; a bound violation latches the page's ``ok`` flag.
-  :func:`stored_pages` is its UNCOMPRESSED twin (a torch reshuffle, no kernel).
+  machine over a batch of pages packed back to back, ONE launch, one thread block a page
+  (a warp machine in shared memory); a bound violation latches the page's ``ok`` flag.
+  :func:`snappy_inflate_pages` keeps the reference's padded signature as a thin caller
+  of it. :func:`stored_pages` is the UNCOMPRESSED twin (a torch reshuffle, no kernel).
 - :func:`rle_expand` expands a hybrid RLE/bit-packed dictionary-index stream in two
   launches: :func:`rle_run_scan` (the run table; port of the ``lax.while_loop``
   ``_rle_run_scan``) and :func:`rle_extract`, kernel K4 (port of ``_extract_kernel``,
   with the run-id lookup and the window gather done inside the kernel). Its windows
   are 5 bytes, so it takes every bit width Parquet allows (1-32), where the reference's
   4-byte windows stop at 24.
-- :func:`inflate_window`, :func:`inflate_chunk` and :func:`inflate_column` are the
-  loader-facing entries: a :class:`~petastorm_tpu_torch.io.pagedec.PassthroughColumn`
-  window → the decoded tensor on the device, from the covering pages only.
+- :func:`inflate_columns` is the loader-facing entry: one batch's
+  :class:`~petastorm_tpu_torch.io.pagedec.PassthroughColumn` values → decoded tensors on
+  the device, from the covering pages only, with one upload, one K3 launch and one read
+  of the ok flags for all of them. :func:`inflate_column`, :func:`inflate_window` and
+  :func:`inflate_chunk` are its one-column cases.
 
 Every kernel wrapper runs its kernel on a CUDA tensor and its plain version beside it on
 a CPU tensor, and nothing else; ``<wrapper>.launches`` counts kernel launches. The numpy
@@ -28,9 +32,10 @@ raises :class:`KernelFaultError` if the twin decodes them (the device path deliv
 nothing the host decoded). A kernel that fails to build or launch raises
 ``RuntimeError`` to the caller.
 
-The stage reads a few values back to the host, as the JAX package does: the pages' ``ok``
-flags, each data page's definition-level block length and bit width, each stream's
-``ok`` flag and the dictionary index range check. On a CUDA device each read waits for
+The stage reads a few values back to the host: the pages' ``ok`` flags (once a batch;
+the JAX package reads them once a column window), each data page's definition-level
+block length and bit width, each stream's ``ok`` flag and the dictionary index range
+check. On a CUDA device each read waits for
 the transfer stream; :data:`HOST_READS` counts them.
 """
 from __future__ import annotations
@@ -39,16 +44,22 @@ import threading
 
 import numpy as np
 
-from petastorm_tpu_torch.io.pagedec import ENC_PLAIN
+from petastorm_tpu_torch.io.pagedec import ENC_PLAIN, PassthroughColumn
 
 _MAX_BIT_WIDTH = 32  # Parquet's widest; 5-byte windows cover shift (<= 7) + width bits
 _INT32_MAX = 2 ** 31 - 1
+#: K3's page table columns (csrc/pagedec.cu kTableCols): src_off, src_len, comp_len,
+#: dst_off, out_cap
+PAGE_TABLE_COLS = 5
+_PAGE_ALIGN = 16  # pages start 16-byte aligned in K3's buffers (cp.async, 16-byte stores)
 
 
 class DeviceInflateError(Exception):
     """The device path rejected the pages: an ``ok`` flag latched false or a layout
     check failed. The caller runs the host twin on them, which raises the classified
-    error if the bytes are bad."""
+    error if the bytes are bad. ``column`` names the column (:func:`inflate_columns`)."""
+
+    column = None
 
 
 class KernelFaultError(RuntimeError):
@@ -109,12 +120,13 @@ def _wrap32(x):
 
 
 def _snappy_page_plain(comp, comp_len, out_cap):
-    """One page: ``comp`` (src_cap,) uint8 numpy → ((out_cap,) uint8, ok)."""
+    """One page: ``comp`` (src_cap,) uint8 numpy, its readable span → ((out_cap,) uint8,
+    ok)."""
     src_cap = comp.shape[0]
     data = comp.tobytes()
 
     def rd(i):
-        return data[min(max(i, 0), src_cap - 1)]
+        return data[min(max(i, 0), src_cap - 1)] if src_cap else 0
 
     ok = True
     pos = val = shift = 0
@@ -170,17 +182,78 @@ def _snappy_page_plain(comp, comp_len, out_cap):
     return np.frombuffer(bytes(out), np.uint8), ok
 
 
-def _snappy_pages_plain(comp, meta, out_cap):
-    """Plain version of K3: a Python token loop per page."""
+def _snappy_ragged_plain(src, table, out_bytes):
+    """Plain version of K3: a Python token loop per page of the ragged page table. Bytes
+    of the output that no page's span covers are zero."""
     import torch
 
-    c = comp.cpu().numpy()
-    m = meta.cpu().numpy()
-    out = np.zeros((c.shape[0], out_cap), np.uint8)
-    ok = np.zeros(c.shape[0], bool)
-    for i in range(c.shape[0]):
-        out[i], ok[i] = _snappy_page_plain(c[i], int(m[i, 0]), out_cap)
-    return torch.from_numpy(out).to(comp.device), torch.from_numpy(ok).to(comp.device)
+    buf = src.cpu().numpy()
+    out = np.zeros(out_bytes, np.uint8)
+    ok = np.zeros(table.shape[0], bool)
+    for i, (src_off, src_len, comp_len, dst_off, out_cap) in enumerate(
+            table.cpu().numpy().tolist()):
+        if not (src_off >= 0 and src_len >= 0 and src_off + src_len <= buf.shape[0]
+                and dst_off >= 0 and out_cap >= 0 and dst_off + out_cap <= out_bytes):
+            continue  # a span outside the buffers: ok stays False, nothing written
+        out[dst_off:dst_off + out_cap], ok[i] = _snappy_page_plain(
+            buf[src_off:src_off + src_len], comp_len, out_cap)
+    return torch.from_numpy(out).to(src.device), torch.from_numpy(ok).to(src.device)
+
+
+def _check_ragged(src, table, name):
+    import torch
+
+    if src.dtype != torch.uint8 or src.dim() != 1:
+        raise TypeError("%s takes a 1-D uint8 page buffer, got %s %s"
+                        % (name, src.dtype, tuple(src.shape)))
+    if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] != PAGE_TABLE_COLS:
+        raise TypeError("%s takes an (n_pages, %d) int64 page table, got %s %s"
+                        % (name, PAGE_TABLE_COLS, table.dtype, tuple(table.shape)))
+    if src.device != table.device:
+        raise ValueError("%s: pages on %s, page table on %s"
+                         % (name, src.device, table.device))
+
+
+def snappy_inflate_ragged(src, table, out_bytes):
+    """Inflate a batch of snappy pages packed back to back: one K3 launch.
+
+    ``src``: (src_bytes,) uint8. ``table``: (n_pages, 5) int64 rows ``[src_off, src_len,
+    comp_len, dst_off, out_cap]``: the page's readable bytes are ``src[src_off:src_off +
+    src_len]`` (reads past them clamp, as the reference's gather does), its stream is
+    ``comp_len`` bytes long, and it decodes into ``out[dst_off:dst_off + out_cap]``, zero
+    past the bytes it decoded. Its ``ok`` latches where the reference's does (a bad
+    stream, a decoded length above ``out_cap``) and when a span leaves the buffers.
+    Returns ``(out (out_bytes,) uint8, ok (n_pages,) bool)``; bytes outside every page's
+    span are unspecified on a CUDA device (zero on the CPU).
+
+    K3 on CUDA tensors (``csrc/pagedec.cu``), the plain version on CPU tensors.
+    ``snappy_inflate_ragged.launches`` counts kernel launches."""
+    import torch
+
+    _check_ragged(src, table, "snappy_inflate_ragged")
+    out_bytes = int(out_bytes)
+    if out_bytes < 0:
+        raise ValueError("snappy_inflate_ragged: out_bytes %d" % out_bytes)
+    if src.device.type == "cpu":
+        return _snappy_ragged_plain(src, table, out_bytes)
+    _require_cuda(src, "snappy_inflate_ragged")
+    from petastorm_tpu_torch.ops import kernels
+
+    src, table = src.contiguous(), table.contiguous()
+    n = table.shape[0]
+    out = torch.empty((out_bytes,), dtype=torch.uint8, device=src.device)
+    ok = torch.empty((n,), dtype=torch.int32, device=src.device)
+    if n == 0:
+        return out, ok != 0
+    rc = kernels.library().ptpu_snappy_ragged(
+        src.data_ptr(), src.shape[0], table.data_ptr(), out.data_ptr(), out_bytes,
+        ok.data_ptr(), n, *kernels.launch_target(src.device))
+    kernels.check_launch("snappy_ragged", rc)
+    snappy_inflate_ragged.launches += 1
+    return out, ok != 0
+
+
+snappy_inflate_ragged.launches = 0
 
 
 def _check_pages(comp, meta, name):
@@ -198,35 +271,24 @@ def _check_pages(comp, meta, name):
 
 
 def snappy_inflate_pages(comp, meta, out_cap):
-    """Inflate a batch of snappy pages.
+    """Inflate a batch of snappy pages (the reference's padded signature).
 
     ``comp``: (n_pages, src_cap) uint8, zero-padded compressed pages. ``meta``: (n_pages,
     2) int32 rows [compressed_len, uncompressed_len]. Returns ``(raw (n_pages, out_cap)
     uint8, ok (n_pages,) bool)``; a row is zero past the bytes it decoded.
 
-    K3 on CUDA tensors, the plain version on CPU tensors."""
+    A thin caller of :func:`snappy_inflate_ragged` (K3 on CUDA tensors, the plain version
+    on CPU tensors): page ``i`` reads row ``i`` of ``comp`` and decodes into row ``i``."""
     import torch
 
     _check_pages(comp, meta, "snappy_inflate_pages")
     out_cap = int(out_cap)
-    if comp.device.type == "cpu":
-        return _snappy_pages_plain(comp, meta, out_cap)
-    _require_cuda(comp, "snappy_inflate_pages")
-    from petastorm_tpu_torch.ops import kernels
-
-    comp, meta = comp.contiguous(), meta.contiguous()
     n, src_cap = comp.shape
-    out = torch.empty((n, out_cap), dtype=torch.uint8, device=comp.device)
-    ok = torch.empty((n,), dtype=torch.int32, device=comp.device)
-    rc = kernels.library().ptpu_snappy_pages(
-        comp.data_ptr(), meta.data_ptr(), out.data_ptr(), ok.data_ptr(), n, src_cap,
-        out_cap, *kernels.launch_target(comp.device))
-    kernels.check_launch("snappy_pages", rc)
-    snappy_inflate_pages.launches += 1
-    return out, ok != 0
-
-
-snappy_inflate_pages.launches = 0
+    idx = torch.arange(n, dtype=torch.int64, device=comp.device)
+    table = torch.stack([idx * src_cap, torch.full_like(idx, src_cap), meta[:, 0].long(),
+                         idx * out_cap, torch.full_like(idx, out_cap)], dim=1)
+    out, ok = snappy_inflate_ragged(comp.contiguous().view(-1), table, n * out_cap)
+    return out.view(n, out_cap), ok
 
 
 def stored_pages(comp, meta, out_cap):
@@ -457,46 +519,103 @@ def bitcast_values(raw_bytes, dtype):
 # -- loader-facing orchestration -------------------------------------------------------
 
 
-def _pack_pages(chunk, pages, reserve=None):
-    """Host prep of the device transfer: pad the COMPRESSED page payloads into one
-    (n, src_cap) matrix + the (n, 2) page table. These bytes (plus the table) are exactly
-    the H2D traffic the pass-through ships. ``reserve(specs)`` gives the two arrays to
-    fill (a pinned staging slab's views); the default allocates numpy arrays.
+def _align(n):
+    return -(-n // _PAGE_ALIGN) * _PAGE_ALIGN
 
-    Returns ``(comp, meta, out_cap)``."""
+
+def _padded_specs(pages):
     src_cap = max(1, max(p.comp_size for p in pages))
-    out_cap = max(p.uncomp_size for p in pages)
-    specs = [((len(pages), src_cap), np.uint8), ((len(pages), 2), np.int32)]
-    comp, meta = (np.empty(shape, dtype) for shape, dtype in specs) \
-        if reserve is None else reserve(specs)
+    return [((len(pages), src_cap), np.uint8), ((len(pages), 2), np.int32)]
+
+
+def _fill_padded(chunk, pages, comp, meta):
     buf = np.frombuffer(chunk.buf, np.uint8)
     for i, p in enumerate(pages):
         comp[i, :p.comp_size] = buf[p.payload_offset:p.payload_offset + p.comp_size]
         comp[i, p.comp_size:] = 0
         meta[i] = (p.comp_size, p.uncomp_size)
-    return comp, meta, out_cap
 
 
-def _inflate_chunk_pages(chunk, pages, device, stager):
-    """All of ``pages`` inflated on ``device``: returns (raw (n, out_cap) uint8, ok)."""
+def _pack_pages(chunk, pages):
+    """Host prep of the padded entries (:func:`snappy_inflate_pages`,
+    :func:`stored_pages`): the COMPRESSED page payloads zero-padded into one (n, src_cap)
+    matrix + the (n, 2) page table. Returns ``(comp, meta, out_cap)``."""
+    comp, meta = (np.empty(shape, dtype) for shape, dtype in _padded_specs(pages))
+    _fill_padded(chunk, pages, comp, meta)
+    return comp, meta, max(p.uncomp_size for p in pages)
+
+
+class RaggedLayout:
+    """Where K3's one launch finds and puts the pages of several windows.
+
+    ``groups``: ``(chunk, pages)`` pairs, each a window's covering pages. Their compressed
+    payloads lie back to back in one source buffer, each page 16-byte aligned and with no
+    padding beyond that: these bytes (plus the page table) are the H2D traffic of the
+    pass-through. Group ``i`` decodes into the rows of one ``(n, out_cap)`` matrix of the
+    output buffer (:meth:`matrix`), ``out_cap`` its largest uncompressed page, as the
+    padded entry's ``out_cap``; its rows start 16-byte aligned."""
+
+    def __init__(self, groups):
+        self.groups = list(groups)
+        rows, self.matrices = [], []
+        src_off = out_off = 0
+        for _chunk, pages in self.groups:
+            cap = max(p.uncomp_size for p in pages)
+            stride = _align(cap)
+            self.matrices.append((out_off, len(pages), stride, cap))
+            for p in pages:
+                rows.append((src_off, p.comp_size, p.comp_size, out_off, cap))
+                src_off += _align(p.comp_size)
+                out_off += stride
+        self.table = np.asarray(rows, np.int64).reshape(-1, PAGE_TABLE_COLS)
+        self.src_bytes, self.out_bytes = src_off, out_off
+
+    def specs(self):
+        """``(shape, dtype)`` of the source buffer and the page table."""
+        return [((self.src_bytes,), np.uint8), (self.table.shape, np.int64)]
+
+    def fill(self, src, table):
+        """Copy the payloads into ``src`` and the page table into ``table`` (host arrays
+        of :meth:`specs`, e.g. views into a pinned slab)."""
+        row = 0
+        for chunk, pages in self.groups:
+            buf = np.frombuffer(chunk.buf, np.uint8)
+            for p in pages:
+                off = int(self.table[row, 0])
+                src[off:off + p.comp_size] = \
+                    buf[p.payload_offset:p.payload_offset + p.comp_size]
+                row += 1
+        table[...] = self.table
+
+    def matrix(self, out, i):
+        """Group ``i``'s ``(n, out_cap)`` rows of K3's output ``out``."""
+        off, n, stride, cap = self.matrices[i]
+        return out[off:off + n * stride].view(n, stride)[:, :cap]
+
+
+def pack_ragged(groups):
+    """:class:`RaggedLayout` of ``groups`` with its host arrays filled: returns
+    ``(layout, src, table)``, numpy arrays for :func:`snappy_inflate_ragged`."""
+    layout = RaggedLayout(groups)
+    (src_shape, _), (table_shape, _) = layout.specs()
+    src, table = np.zeros(src_shape, np.uint8), np.empty(table_shape, np.int64)
+    layout.fill(src, table)
+    return layout, src, table
+
+
+def _upload(specs, fill, device, stager):
+    """Host arrays of ``specs`` (``(shape, dtype)`` pairs), filled by ``fill(views)``, on
+    ``device``: through one slab of ``stager`` (one non-blocking copy) on a CUDA device,
+    else numpy arrays moved with ``.to(device)``."""
     import torch
 
     if stager is not None and device.type == "cuda":
-        holder = {}
-
-        def reserve(specs):
-            holder["views"], holder["upload"] = stager.reserve(specs)
-            return holder["views"]
-
-        _comp, _meta, out_cap = _pack_pages(chunk, pages, reserve)
-        comp, meta = holder["upload"](device)
-    else:
-        comp_np, meta_np, out_cap = _pack_pages(chunk, pages)
-        comp = torch.from_numpy(comp_np).to(device)
-        meta = torch.from_numpy(meta_np).to(device)
-    if chunk.codec == "SNAPPY":
-        return snappy_inflate_pages(comp, meta, out_cap)
-    return stored_pages(comp, meta, out_cap)
+        views, upload = stager.reserve(specs)
+        fill(views)
+        return upload(device)
+    views = [np.zeros(shape, dtype) for shape, dtype in specs]
+    fill(views)
+    return [torch.from_numpy(v).to(device) for v in views]
 
 
 def _as_device(device):
@@ -513,24 +632,27 @@ def _as_device(device):
     return torch.device(device) if not isinstance(device, torch.device) else device
 
 
-def inflate_window(chunk, skip, take, device=None, stager=None):
-    """Rows ``[skip, skip+take)`` of one
-    :class:`~petastorm_tpu_torch.io.pagedec.PassthroughChunk`, inflated on ``device``
-    from the COVERING pages only (plus the dictionary page when one exists): cutting a
-    row group into many batches ships and decodes each data page at most twice (boundary
-    pages), never the whole chunk per batch. ``device=None`` is the CUDA device. ``stager``: a
-    :class:`~petastorm_tpu_torch.io.staging.PinnedStagingPool` for the page upload.
-    Raises :class:`DeviceInflateError` when any page's ok flag latches false or a layout
-    check fails."""
+class _Window:
+    """One ``(chunk, skip, take)`` window of a column and its covering pages (the
+    dictionary page first when there is one)."""
+
+    __slots__ = ("name", "chunk", "skip", "take", "pages", "base", "raw", "flags")
+
+    def __init__(self, name, chunk, skip, take):
+        self.name, self.chunk, self.skip, self.take = name, chunk, skip, take
+        p0, p1, self.base = chunk.covering_pages(skip, take)
+        self.pages = ([chunk.dict_page] if chunk.dict_page is not None else []) \
+            + list(chunk.pages[p0:p1])
+        self.raw = self.flags = None
+
+
+def _decode_window(w):
+    """The window's values from its inflated pages ``w.raw`` ((n, out_cap) uint8 on the
+    device): dictionary, level blocks, PLAIN or RLE_DICTIONARY values, then the rows
+    ``[skip, skip + take)``."""
     import torch
 
-    device = _as_device(device)
-    p0, p1, base = chunk.covering_pages(skip, take)
-    data_pages = list(chunk.pages[p0:p1])
-    pages = ([chunk.dict_page] if chunk.dict_page is not None else []) + data_pages
-    raw, ok = _inflate_chunk_pages(chunk, pages, device, stager)
-    if not _host_int(ok.all()):
-        raise DeviceInflateError("page inflate kernel latched ok=False")
+    chunk, raw = w.chunk, w.raw
     pos = 0
     dict_vals = None
     if chunk.dict_page is not None:
@@ -540,7 +662,7 @@ def inflate_window(chunk, skip, take, device=None, stager=None):
         dict_vals = dict_vals[:chunk.dict_page.num_values]
         pos = 1
     outs = []
-    for i, page in enumerate(data_pages):
+    for i, page in enumerate(w.pages[pos:]):
         body = raw[pos + i, :page.uncomp_size]
         off = 0
         if chunk.max_def:
@@ -573,25 +695,95 @@ def inflate_window(chunk, skip, take, device=None, stager=None):
                 raise DeviceInflateError("dictionary index out of range")
             outs.append(dict_vals.index_select(0, idx.long()))
     full = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return full[skip - base:skip - base + take]
+    return full[w.skip - w.base:w.skip - w.base + w.take]
+
+
+def inflate_columns(columns, device=None, stager=None):
+    """The loader's device inflate of one batch: ``{name:``
+    :class:`~petastorm_tpu_torch.io.pagedec.PassthroughColumn` ``}`` → ``{name: tensor}``
+    on ``device`` (``None``: the CUDA device), each for exactly its rows, from the
+    COVERING pages of each window only (plus the dictionary page when one exists).
+
+    The compressed pages of every window of every column cross the link in ONE upload
+    (one slab of ``stager``, a
+    :class:`~petastorm_tpu_torch.io.staging.PinnedStagingPool`, when given): snappy pages
+    packed back to back (:class:`RaggedLayout`) for ONE K3 launch
+    (:func:`snappy_inflate_ragged`), UNCOMPRESSED pages as padded matrices for
+    :func:`stored_pages`. Every page's ``ok`` flag comes back to the host in ONE read.
+    Then each column's dictionary, level-block and RLE steps run, column by column, on
+    views of the one output buffer.
+
+    Raises :class:`DeviceInflateError`, its ``column`` naming the column, when a page's
+    ok flag latched or a layout check failed."""
+    import torch
+
+    device = _as_device(device)
+    windows = {name: [_Window(name, chunk, skip, take)
+                      for chunk, skip, take in column.parts if take]
+               for name, column in columns.items()}
+    flat = [w for ws in windows.values() for w in ws]
+    snappy = [w for w in flat if w.chunk.codec == "SNAPPY"]
+    stored = [w for w in flat if w.chunk.codec != "SNAPPY"]
+    layout = RaggedLayout([(w.chunk, w.pages) for w in snappy])
+    specs = layout.specs()
+    for w in stored:
+        specs += _padded_specs(w.pages)
+
+    def fill(views):
+        layout.fill(views[0], views[1])
+        for k, w in enumerate(stored):
+            _fill_padded(w.chunk, w.pages, views[2 + 2 * k], views[3 + 2 * k])
+
+    arrays = _upload(specs, fill, device, stager) if flat else []
+    oks = []
+    n_flags = 0
+    if snappy:
+        out, ok = snappy_inflate_ragged(arrays[0], arrays[1], layout.out_bytes)
+        oks.append(ok)
+    for i, w in enumerate(snappy):
+        w.raw = layout.matrix(out, i)
+    for k, w in enumerate(stored):
+        w.raw, ok = stored_pages(arrays[2 + 2 * k], arrays[3 + 2 * k],
+                                 max(p.uncomp_size for p in w.pages))
+        oks.append(ok)
+    for w in snappy + stored:
+        w.flags = slice(n_flags, n_flags + len(w.pages))
+        n_flags += len(w.pages)
+    if oks:
+        HOST_READS.add()  # every page's ok flag, in one read
+        flags = torch.cat(oks).cpu().numpy()
+    result = {}
+    for name, ws in windows.items():
+        try:
+            outs = []
+            for w in ws:
+                if not flags[w.flags].all():
+                    raise DeviceInflateError("page inflate kernel latched ok=False")
+                outs.append(_decode_window(w))
+        except DeviceInflateError as e:
+            e.column = name
+            raise
+        if not outs:
+            result[name] = torch.zeros((0,), dtype=_torch_dtype(columns[name].dtype),
+                                       device=device)
+        else:
+            result[name] = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return result
+
+
+def inflate_column(column, device=None, stager=None):
+    """One column's device inflate: the one-column case of :func:`inflate_columns`."""
+    return inflate_columns({"column": column}, device, stager)["column"]
+
+
+def inflate_window(chunk, skip, take, device=None, stager=None):
+    """Rows ``[skip, skip+take)`` of one
+    :class:`~petastorm_tpu_torch.io.pagedec.PassthroughChunk`, inflated on ``device``
+    from the covering pages only: cutting a row group into many batches ships and decodes
+    each data page at most twice (boundary pages), never the whole chunk per batch."""
+    return inflate_column(PassthroughColumn([(chunk, skip, take)]), device, stager)
 
 
 def inflate_chunk(chunk, device=None, stager=None):
     """All rows of one chunk (the full-range window) — test/CLI convenience."""
     return inflate_window(chunk, 0, chunk.num_rows, device, stager)
-
-
-def inflate_column(column, device=None, stager=None):
-    """The loader's device inflate: a
-    :class:`~petastorm_tpu_torch.io.pagedec.PassthroughColumn` window → the decoded
-    tensor on ``device`` (``None``: the CUDA device) for exactly its rows, one
-    covering-pages inflate per window. Raises :class:`DeviceInflateError` when the device
-    path rejects the pages."""
-    import torch
-
-    device = _as_device(device)
-    outs = [inflate_window(chunk, skip, take, device, stager)
-            for chunk, skip, take in column.parts if take]
-    if not outs:
-        return torch.zeros((0,), dtype=_torch_dtype(column.dtype), device=device)
-    return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -104,6 +104,56 @@ def test_idct_blocks_plain_matches_reference():
     np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("cut", [None, (1, 129, 77)])
+def test_idct_segments_plain_equal_reference_per_component(cut):
+    """The multi-segment K1 wrapper (its plain version on the CPU) against the
+    reference's ``_idct_scaled`` (Pallas, interpret mode) on each segment: the
+    dequantised components of a batch of real JPEGs, whole or cut to uneven lengths."""
+    rng = np.random.RandomState(16)
+    blobs = [_encode(_image(rng, (64, 96, 3)), q) for q in (75, 85, 95)]
+    coeffs, qtabs = port.stack_jpeg_coefficients(port.entropy_decode_jpeg_batch(blobs))
+    scaled = [(c.astype(np.float32) * q.astype(np.float32)[:, None, :]).reshape(-1, 64)
+              for c, q in zip(coeffs, qtabs)]
+    if cut is not None:
+        scaled = [a[:n] for a, n in zip(scaled, cut)]
+    ours = port.idct_scaled_segments([torch.from_numpy(a) for a in scaled])
+    assert [tuple(o.shape) for o in ours] == [a.shape for a in scaled]
+    for got, a in zip(ours, scaled):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref._idct_scaled(a)), rtol=0,
+                                   atol=1e-4)
+        assert torch.equal(got, port.idct_scaled(torch.from_numpy(a)))
+
+
+def test_idct_segments_refuses_what_the_kernel_does_not_take():
+    rows = torch.zeros(4, 64)
+    with pytest.raises(ValueError):
+        port.idct_scaled_segments([])
+    with pytest.raises(ValueError):
+        port.idct_scaled_segments([rows] * 5)
+    with pytest.raises(TypeError):
+        port.idct_scaled_segments([rows, rows.double()])
+
+
+def test_batched_stage2_makes_one_idct_call_a_batch(monkeypatch):
+    """Stage 2 hands all of a batch's components to K1's wrapper in one call, and stays
+    bit-identical to the reference."""
+    rng = np.random.RandomState(15)
+    blobs = [_encode(_image(rng, (48, 64, 3)), q) for q in (75, 85, 95)]
+    calls = []
+    real = port.idct_scaled_segments
+
+    def counting(segments):
+        calls.append([tuple(t.shape) for t in segments])
+        return real(segments)
+
+    monkeypatch.setattr(port, "idct_scaled_segments", counting)
+    ours = port.decode_jpeg_batch(port.entropy_decode_jpeg_batch(blobs), device=CPU)
+    theirs = np.asarray(ref.decode_jpeg_batch(ref.entropy_decode_jpeg_batch(blobs)))
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+    assert calls == [[(3 * 48, 64), (3 * 12, 64), (3 * 12, 64)]]
+
+
 @pytest.mark.parametrize("index", range(6))
 def test_device_stage_bit_identical_to_reference(index):
     planes = ref.entropy_decode_jpeg_fast(_streams()[index])
@@ -217,10 +267,10 @@ def test_idct_kernel_matches_plain_on_the_card(cuda_device):
         scaled = (torch.from_numpy(coef).float()
                   * torch.from_numpy(qtab).float()[:, None, :]).reshape(-1, 64)
         scaled = scaled.to(cuda_device)
-        before = port.idct_scaled.launches
+        before = port.idct_scaled_segments.launches
         out = port.idct_scaled(scaled)
         torch.cuda.synchronize()
-        assert port.idct_scaled.launches == before + 1
+        assert port.idct_scaled_segments.launches == before + 1
         plain = port._idct_scaled_plain(scaled)
         assert (out - plain).abs().max().item() <= 1e-3
         assert torch.equal(torch.clamp(torch.round(out), 0, 255),
@@ -235,3 +285,24 @@ def test_batched_decode_on_the_card_equals_cpu(cuda_device):
     on_card = port.decode_jpeg_batch(planes, device=cuda_device).cpu()
     np.testing.assert_array_equal(on_card.numpy(),
                                   port.decode_jpeg_batch(planes, device=CPU).numpy())
+
+
+@pytest.mark.gpu
+def test_idct_segments_kernel_matches_plain_on_the_card(cuda_device):
+    """One launch over a batch's three components, cut to uneven lengths (partial
+    128-row tiles included), equals the plain version per segment."""
+    rng = np.random.RandomState(23)
+    blobs = [_encode(_image(rng, (224, 224, 3)), 85) for _ in range(8)]
+    coeffs, qtabs = port.stack_jpeg_coefficients(port.entropy_decode_jpeg_batch(blobs))
+    scaled = [(torch.from_numpy(c).float() * torch.from_numpy(q).float()[:, None, :])
+              .reshape(-1, 64)[:n].contiguous().to(cuda_device)
+              for c, q, n in zip(coeffs, qtabs, (6272, 1568 - 31, 1))]
+    before = port.idct_scaled_segments.launches
+    outs = port.idct_scaled_segments(scaled)
+    torch.cuda.synchronize()
+    assert port.idct_scaled_segments.launches == before + 1
+    for out, seg in zip(outs, scaled):
+        plain = port._idct_scaled_plain(seg)
+        assert (out - plain).abs().max().item() <= 1e-3
+        assert torch.equal(torch.clamp(torch.round(out), 0, 255),
+                           torch.clamp(torch.round(plain), 0, 255))

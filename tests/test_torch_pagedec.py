@@ -274,6 +274,99 @@ def test_snappy_bit_flips_plain_equal_reference_kernel():
     assert latched >= 1
 
 
+def _ragged_groups(n=900, codec="snappy", cols=(0, 1, 2, 3), data_page_size=1024):
+    """Each column's pages of one small store: (chunk, pages) groups for one ragged
+    launch, pages of different sizes side by side."""
+    data = _write(_simple_table(n), compression=codec, data_page_size=data_page_size)
+    md = pq.read_metadata(io.BytesIO(data))
+    return [(c, _pages(c)) for c in (_build(pd, data, md, 0, col) for col in cols)]
+
+
+@pytest.mark.parametrize("col", [0, 1, 2, 3])
+def test_ragged_plain_equal_reference_kernel_page_for_page(col):
+    """K3's ragged entry (its plain version) against the reference's padded kernel
+    (interpret mode), page for page, on every column of the test store."""
+    (chunk, pages), = _ragged_groups(cols=(col,))
+    layout, src, table = pk.pack_ragged([(chunk, pages)])
+    out, ok = pk.snappy_inflate_ragged(torch.from_numpy(src), torch.from_numpy(table),
+                                       layout.out_bytes)
+    comp, meta, out_cap = pk._pack_pages(chunk, pages)
+    theirs, their_ok = ref_pk.snappy_inflate_pages(comp, meta, out_cap, interpret=True)
+    assert ok.numpy().tolist() == np.asarray(their_ok).tolist() == [True] * len(pages)
+    assert layout.matrix(out, 0).numpy().tobytes() == np.asarray(theirs).tobytes()
+    assert src.nbytes < comp.nbytes or len(pages) == 1  # no padding to the largest page
+
+
+@pytest.mark.parametrize("what,comp_bytes,out_len", [
+    ("literal overrun", bytes([64, 252, 0xFF, 0xFF, 0xFF, 0xFF]) + bytes(10), 64),
+    ("32-bit wrap", bytes([64, 0, 7, 252, 0xFE, 0xFF, 0xFF, 0x7F]) + bytes(8), 64),
+    ("copy before the output", bytes([16, 0, 7, 0x3D, 9]) + bytes(4), 16),
+    ("stream shorter than its length", bytes([32, 8, 1, 2, 3]), 32),
+])
+def test_ragged_crafted_pages_latch_ok_false_like_the_reference(what, comp_bytes, out_len):
+    """Crafted corrupt pages between two good ones in one ragged launch latch ok=False,
+    and their bytes equal the reference's (the 32-bit wrap, on which the reference would
+    loop 2^31 times, ends with ok=False and only the first literal's byte)."""
+    (chunk, pages), = _ragged_groups(cols=(2,))
+    good_src = np.frombuffer(chunk.buf, np.uint8)[
+        pages[0].payload_offset:pages[0].payload_offset + pages[0].comp_size]
+    cap = max(out_len, pages[0].uncomp_size)
+    spans = [good_src, np.frombuffer(comp_bytes, np.uint8), good_src]
+    src = np.zeros(sum(-(-len(a) // 16) * 16 for a in spans), np.uint8)
+    table, off = [], 0
+    for i, a in enumerate(spans):
+        src[off:off + len(a)] = a
+        table.append((off, len(a), len(a), i * cap, cap))
+        off += -(-len(a) // 16) * 16
+    out, ok = pk.snappy_inflate_ragged(torch.from_numpy(src),
+                                       torch.tensor(table, dtype=torch.int64), 3 * cap)
+    assert ok.tolist() == [True, False, True], what
+    row = out[cap:2 * cap].numpy()
+    if what == "32-bit wrap":
+        assert row[0] == 7 and not row[1:].any()
+    else:
+        buf = np.zeros((1, 64), np.uint8)
+        buf[0, :len(comp_bytes)] = np.frombuffer(comp_bytes, np.uint8)
+        theirs, their_ok = ref_pk.snappy_inflate_pages(
+            buf, np.array([[len(comp_bytes), out_len]], np.int32), cap, interpret=True)
+        assert not bool(np.asarray(their_ok)[0])
+        assert row.tobytes() == np.asarray(theirs)[0].tobytes()
+    assert out[:cap].numpy().tobytes() == out[2 * cap:].numpy().tobytes()
+
+
+def test_page_table_pages_of_different_sizes_share_one_slab():
+    """Every column's pages (dictionary and data pages of four sizes and dtypes) in one
+    source buffer and one launch: each page equals the padded entry's row, the bytes
+    between spans are untouched, and an output span shorter than the page latches it."""
+    groups = _ragged_groups(n=2600, data_page_size=2048)
+    layout, src, table = pk.pack_ragged(groups)
+    sizes = {int(r[1]) for r in table}
+    assert len(groups) == 4 and len(sizes) > 4
+    assert (table[:, 0] % 16 == 0).all() and (table[:, 3] % 16 == 0).all()
+    out, ok = pk.snappy_inflate_ragged(torch.from_numpy(src), torch.from_numpy(table),
+                                       layout.out_bytes)
+    assert ok.all()
+    covered = np.zeros(layout.out_bytes, bool)
+    for i, (chunk, pages) in enumerate(groups):
+        comp, meta, out_cap = pk._pack_pages(chunk, pages)
+        want, _ok = pk.snappy_inflate_pages(torch.from_numpy(comp), torch.from_numpy(meta),
+                                            out_cap)
+        assert torch.equal(layout.matrix(out, i), want)
+    for src_off, src_len, comp_len, dst_off, cap in table.tolist():
+        covered[dst_off:dst_off + cap] = True
+    assert not out.numpy()[~covered].any()
+    short = table.copy()
+    short[-1, 4] = int(groups[-1][1][-1].uncomp_size) - 1
+    _out, ok = pk.snappy_inflate_ragged(torch.from_numpy(src), torch.from_numpy(short),
+                                        layout.out_bytes)
+    assert ok.tolist() == [True] * (len(table) - 1) + [False]
+    bad = table.copy()
+    bad[0, 0] = len(src)  # a span past the source buffer: latched, nothing written
+    out, ok = pk.snappy_inflate_ragged(torch.from_numpy(src), torch.from_numpy(bad),
+                                       layout.out_bytes)
+    assert not ok[0] and ok[1:].all() and not out[:int(table[0, 4])].any()
+
+
 def test_stored_pages_equal_reference():
     chunk, (comp, meta, out_cap) = _small_pages(codec="none")
     ours, ok = pk.stored_pages(torch.from_numpy(comp), torch.from_numpy(meta), out_cap)
@@ -384,6 +477,67 @@ def test_run_scan_and_extract_wide_widths_equal_host_twin(bw):
 
 
 # -- inflate stage -----------------------------------------------------------------------
+
+
+def _batch_columns(codecs=("snappy",), n=4000, row_group_size=2000, skip=37, take=2900):
+    """{name: PassthroughColumn} of one batch: every column of ``_simple_table`` (per
+    codec), cut across two row groups."""
+    cols = {}
+    for codec in codecs:
+        data = _write(_simple_table(n, seed=5), compression=codec,
+                      row_group_size=row_group_size, data_page_size=4096)
+        md = pq.read_metadata(io.BytesIO(data))
+        for c in range(md.row_group(0).num_columns):
+            whole = pd.PassthroughColumn.concat([
+                pd.PassthroughColumn.from_chunk(_build(pd, data, md, rg, c))
+                for rg in range(md.num_row_groups)])
+            cols["%s_%d" % (codec, c)] = whole.slice(skip, take)
+    return cols
+
+
+def test_batch_inflate_equals_inflate_column_and_host_twin():
+    """One inflate over all of a batch's columns (snappy and uncompressed chunks side by
+    side) equals each column inflated alone and the host twin, byte for byte."""
+    cols = _batch_columns(codecs=("snappy", "none"))
+    got = pk.inflate_columns(cols, CPU)
+    assert sorted(got) == sorted(cols)
+    for name, col in cols.items():
+        alone = pk.inflate_column(col, CPU)
+        twin = col.materialize()
+        assert got[name].dtype == alone.dtype and got[name].numpy().dtype == twin.dtype
+        assert got[name].numpy().tobytes() == alone.numpy().tobytes() == twin.tobytes(), \
+            name
+
+
+def test_host_reads_one_ok_read_for_a_batch_of_columns():
+    """Every K3 page's ok flag of a batch of several columns comes back in ONE read; the
+    per-page reads (level-block length, bit width, stream ok, index range) stay."""
+    cols = _batch_columns()
+    per_page = 0
+    for col in cols.values():
+        for chunk, skip, take in col.parts:
+            p0, p1, _base = chunk.covering_pages(skip, take)
+            for page in chunk.pages[p0:p1]:
+                per_page += (1 if chunk.max_def else 0) \
+                    + (3 if page.encoding != pd.ENC_PLAIN else 0)
+    assert len(cols) >= 4 and sum(len(c.parts) for c in cols.values()) >= 8
+    before = pk.HOST_READS.value
+    pk.inflate_columns(cols, CPU)
+    assert pk.HOST_READS.value - before == 1 + per_page
+
+
+def test_batch_inflate_names_the_column_whose_pages_latched():
+    cols = _batch_columns()
+    name = sorted(cols)[2]
+    chunk, skip, take = cols[name].parts[0]
+    raw = bytearray(chunk.buf)
+    raw[chunk.pages[0].payload_offset] ^= 0x80  # the varint preamble: the page latches
+    bad = pd.PassthroughChunk(bytes(raw), chunk.codec, chunk.dtype, chunk.max_def,
+                              chunk.dict_page, chunk.pages)
+    cols[name] = pd.PassthroughColumn([(bad, skip, take)] + cols[name].parts[1:])
+    with pytest.raises(pk.DeviceInflateError) as err:
+        pk.inflate_columns(cols, CPU)
+    assert err.value.column == name
 
 
 def test_inflate_window_equal_reference_kernel_and_host_twin():
@@ -645,12 +799,12 @@ def test_kernels_rejecting_valid_pages_raise_a_kernel_fault(tmp_path, plain_infl
     loader raises, and never delivers the twin's decode in the kernels' place."""
     url = _store(tmp_path, n=900, row_group_size=300, with_string=False)
 
-    def latched(comp, meta, out_cap):
-        out, ok = plain(comp, meta, out_cap)
+    def latched(src, table, out_bytes):
+        out, ok = plain(src, table, out_bytes)
         return out, torch.zeros_like(ok)
 
-    plain = pk._snappy_pages_plain
-    monkeypatch.setattr(pk, "_snappy_pages_plain", latched)
+    plain = pk._snappy_ragged_plain
+    monkeypatch.setattr(pk, "_snappy_ragged_plain", latched)
     before = pd.counter_values()["host_inflate_columns"]
     with pytest.raises(pk.KernelFaultError, match="host twin decodes"):
         _collect(url, "on", batch=300)
@@ -697,7 +851,7 @@ def test_snappy_kernel_matches_plain_on_the_card(cuda_device):
     _chunk, (comp, meta, out_cap) = _small_pages(n=3000)
     comp_t, meta_t = torch.from_numpy(comp), torch.from_numpy(meta)
     out, ok = pk.snappy_inflate_pages(comp_t.to(cuda_device), meta_t.to(cuda_device), out_cap)
-    plain, plain_ok = pk._snappy_pages_plain(comp_t, meta_t, out_cap)
+    plain, plain_ok = pk.snappy_inflate_pages(comp_t, meta_t, out_cap)  # the plain version
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), plain) and torch.equal(ok.cpu(), plain_ok)
 
@@ -724,3 +878,117 @@ def test_inflate_column_on_the_card_equals_host_twin(cuda_device):
         got = pk.inflate_column(pd.PassthroughColumn.from_chunk(chunk).slice(11, 2500),
                                 cuda_device)
         assert got.cpu().numpy().tobytes() == chunk.decode_window(11, 2500).tobytes()
+
+
+def _window_edge_pages(rng):
+    """Raw snappy pages around K3's shared-memory windows (66 KiB decoded, 40 KiB
+    compressed): a 1 MiB page above the output window, an incompressible 60 KiB page
+    whose source is above its window, and a 64 KiB page of many copies inside both."""
+    raws = [(rng.zipf(1.3, 1 << 18) % 1000).astype(np.int32).tobytes(),
+            rng.integers(0, 256, 60 << 10, dtype=np.uint8).tobytes(),
+            (rng.zipf(1.3, 1 << 14) % 1000).astype(np.int32).tobytes()]
+    return [(pa.compress(r, codec="snappy", asbytes=True), r) for r in raws]
+
+
+@pytest.mark.gpu
+def test_ragged_kernel_matches_plain_on_the_card_across_the_window(cuda_device):
+    """One launch over a store's pages, pages above the shared-memory windows and the
+    crafted corrupt pages: bytes and ok flags equal the plain version's, and the large
+    pages equal their raw bytes."""
+    groups = _ragged_groups(n=3000)
+    layout, src, table = pk.pack_ragged(groups)
+    spans = [src] + [np.frombuffer(c, np.uint8) for c, _r in
+                     _window_edge_pages(np.random.default_rng(31))]
+    caps = [None] + [len(r) for _c, r in _window_edge_pages(np.random.default_rng(31))]
+    for _what, comp_bytes, out_len in [
+            ("literal overrun", bytes([64, 252, 0xFF, 0xFF, 0xFF, 0xFF]) + bytes(10), 64),
+            ("32-bit wrap", bytes([64, 0, 7, 252, 0xFE, 0xFF, 0xFF, 0x7F]) + bytes(8), 64),
+            ("copy before the output", bytes([16, 0, 7, 0x3D, 9]) + bytes(4), 16)]:
+        spans.append(np.frombuffer(comp_bytes, np.uint8))
+        caps.append(out_len)
+    rows, src_off, out_off = [list(r) for r in table.tolist()], 0, layout.out_bytes
+    parts = []
+    for a, cap in zip(spans, caps):
+        if cap is not None:
+            rows.append([src_off, len(a), len(a), out_off, cap])
+            out_off += -(-cap // 16) * 16
+        parts.append(np.pad(a, (0, -len(a) % 16)))
+        src_off += len(parts[-1])
+    all_src = torch.from_numpy(np.concatenate(parts))
+    all_table = torch.tensor(rows, dtype=torch.int64)
+    before = pk.snappy_inflate_ragged.launches
+    out, ok = pk.snappy_inflate_ragged(all_src.to(cuda_device), all_table.to(cuda_device),
+                                       out_off)
+    torch.cuda.synchronize()
+    assert pk.snappy_inflate_ragged.launches == before + 1
+    plain, plain_ok = pk.snappy_inflate_ragged(all_src, all_table, out_off)
+    assert torch.equal(ok.cpu(), plain_ok)
+    assert plain_ok.tolist() == [True] * (len(rows) - 3) + [False] * 3
+    for _s, _l, _c, dst_off, cap in rows:  # bytes outside the spans are unspecified
+        assert torch.equal(out[dst_off:dst_off + cap].cpu(), plain[dst_off:dst_off + cap])
+    for (_c, raw), row in zip(_window_edge_pages(np.random.default_rng(31)),
+                              rows[len(table):]):
+        assert out[row[3]:row[3] + row[4]].cpu().numpy().tobytes() == raw
+
+
+@pytest.mark.gpu
+def test_batch_inflate_on_the_card_equals_host_twin(cuda_device):
+    """The loader's one-launch batch inflate on the card, snappy and uncompressed
+    columns side by side, with one read of the ok flags."""
+    cols = _batch_columns(codecs=("snappy", "none"))
+    launches, reads = pk.snappy_inflate_ragged.launches, pk.HOST_READS.value
+    got = pk.inflate_columns(cols, cuda_device)
+    assert pk.snappy_inflate_ragged.launches == launches + 1
+    for name, col in cols.items():
+        assert got[name].cpu().numpy().tobytes() == col.materialize().tobytes(), name
+    cpu_reads = pk.HOST_READS.value - reads
+    reads = pk.HOST_READS.value
+    pk.inflate_columns(cols, CPU)
+    assert pk.HOST_READS.value - reads == cpu_reads
+
+
+@pytest.mark.gpu
+def test_ragged_kernel_verdicts_match_plain_on_the_card_fuzzed(cuda_device):
+    """Random streams, bit-flipped real pages, streams cut short and tight output spans,
+    all in one launch: every page's bytes and ok flag equal the plain version's."""
+    rng = np.random.default_rng(41)
+    groups = _ragged_groups(n=3000)
+    real = [np.frombuffer(c.buf, np.uint8)[p.payload_offset:p.payload_offset + p.comp_size]
+            for c, pages in groups for p in pages]
+    caps = [p.uncomp_size for _c, pages in groups for p in pages]
+    spans, rows = [], []
+    for i in range(240):
+        kind = i % 4
+        if kind == 0:  # random bytes behind a small varint
+            a = rng.integers(0, 256, int(rng.integers(1, 90)), dtype=np.uint8)
+            a[0] = rng.integers(0, 120)
+            comp_len, cap = len(a) - int(rng.integers(0, min(3, len(a)))), int(rng.integers(1, 160))
+        else:
+            j = int(rng.integers(0, len(real)))
+            a, cap = real[j].copy(), caps[j]
+            comp_len = len(a)
+            if kind == 1:
+                for _ in range(int(rng.integers(1, 4))):
+                    a[rng.integers(0, len(a))] ^= np.uint8(1 << int(rng.integers(0, 8)))
+            elif kind == 2:
+                comp_len -= int(rng.integers(1, min(40, len(a)) + 1))
+            else:
+                cap += int(rng.integers(-16, 17))
+        spans.append(a)
+        rows.append([0, len(a), comp_len, 0, max(cap, 0)])
+    src_off = out_off = 0
+    for a, row in zip(spans, rows):
+        row[0], row[3] = src_off, out_off
+        src_off += len(a) + (-len(a) % 16)
+        out_off += row[4] + (-row[4] % 16)
+    src = np.zeros(src_off, np.uint8)
+    for a, row in zip(spans, rows):
+        src[row[0]:row[0] + len(a)] = a
+    src_t, table = torch.from_numpy(src), torch.tensor(rows, dtype=torch.int64)
+    out, ok = pk.snappy_inflate_ragged(src_t.to(cuda_device), table.to(cuda_device), out_off)
+    plain, plain_ok = pk.snappy_inflate_ragged(src_t, table, out_off)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), plain_ok)
+    assert 0 < int(plain_ok.sum()) < len(rows)
+    for _s, _l, _c, dst_off, cap in rows:
+        assert torch.equal(out[dst_off:dst_off + cap].cpu(), plain[dst_off:dst_off + cap])
