@@ -14,10 +14,10 @@ are written once, as ``chip_smoke.py`` writes them: ``main`` is the 4,096-row JP
 read with ``decode_on_device=True`` and ``normalize_images`` as the device transform,
 batches of 256; ``tabular`` is the 2,097,152-row Criteo-shaped store, batches of 16,384.
 ``kernels`` times, per tree, K1 over one batch's three components (256 corpus images;
-beside three ``torch.addmm`` calls) and K3 over one 16,384-row Criteo-shaped batch's
-pages, each as the tree's own path launches it (one launch a batch where the tree has the
-batched entries, one launch a component or a column where it does not); it reports
-milliseconds, not rows/s. Every run is its own process, so each pays its own build and
+beside three ``torch.addmm`` calls), and K3, the run scan and K4 over one 16,384-row
+Criteo-shaped batch's pages, each as the tree's own path launches it (one launch a batch
+where the tree has the batched entries; one launch a component, a column or a dictionary
+data page where it does not); it reports milliseconds, not rows/s. Every run is its own process, so each pays its own build and
 start; the runs of a round
 go in turn, and each round starts one run later than the one before (A B, B A, ...), so
 that no label always runs first. Each run prints rows/s over its steady window and its
@@ -153,10 +153,61 @@ def _one_kernels(args, smoke):
 
         def k3():
             return [pk.snappy_inflate_pages(c, m, cap) for c, m, cap in padded]
+    scan, k4, launches = _scan_and_k4(pk, chunks, dev)
     out = {"k1_ms": _cuda_ms(k1), "k1_library_ms": _cuda_ms(
-        lambda: [torch.addmm(bias, x, basis) for x in scaled]), "k3_ms": _cuda_ms(k3)}
+        lambda: [torch.addmm(bias, x, basis) for x in scaled]), "k3_ms": _cuda_ms(k3),
+        "scan_ms": _cuda_ms(scan), "k4_ms": _cuda_ms(k4), "scan_k4_launches": launches}
     out["rows_per_s"] = 0.0
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def _scan_and_k4(pk, chunks, dev):
+    """The run scan and K4 over one row group's data pages as the tree launches them:
+    ``(scan(), k4(), launches of each a batch)``. Batched trees launch each once over
+    every data page; earlier trees once a dictionary data page, on its stream in K3's
+    output (the level-block length and bit width read here, before the timing)."""
+    import torch
+
+    from petastorm_tpu_torch.io import pagedec
+
+    if hasattr(pk, "stage_batch"):
+        batch = pk.stage_batch({name: pagedec.PassthroughColumn.from_chunk(c)
+                                for name, c in chunks.items()}, dev)
+        out, ok, runs, meta, flags, _values = batch.run()
+        plan = batch.plan
+
+        def scan():
+            return pk.rle_scan_pages(out, batch.stored, batch.pages, ok, plan.runs_total)
+
+        def k4():
+            return pk.extract_pages(out, batch.stored, batch.pages, batch.blocks, runs, meta,
+                                    flags, plan.out_bytes)
+        return scan, k4, 1
+    groups = [(c, ([c.dict_page] if c.dict_page is not None else []) + list(c.pages))
+              for c in chunks.values()]
+    layout, src, table = pk.pack_ragged(groups)
+    out, _ok = pk.snappy_inflate_ragged(torch.from_numpy(src).to(dev),
+                                        torch.from_numpy(table).to(dev), layout.out_bytes)
+    streams = []
+    for g, (chunk, _pages) in enumerate(groups):
+        matrix = layout.matrix(out, g)
+        row0 = 1 if chunk.dict_page is not None else 0
+        for j, page in enumerate(chunk.pages):
+            if page.encoding == 0:
+                continue
+            body = matrix[row0 + j, :page.uncomp_size]
+            off = 4 + int(body[:4].cpu().numpy().view("<u4")[0]) if chunk.max_def else 0
+            data = body[off + 1:]
+            bw, total = int(body[off].item()), page.num_values
+            tables = pk.rle_run_scan(data, data.shape[0], total, max(8, total), bw)
+            streams.append((data, bw, total, tables))
+
+    def scan():
+        return [pk.rle_run_scan(d, d.shape[0], n, max(8, n), bw) for d, bw, n, _t in streams]
+
+    def k4():
+        return [pk.rle_extract(d, *t[:4], bw, n) for d, bw, n, t in streams]
+    return scan, k4, len(streams)
 
 
 def _write_store(path, root):
@@ -241,7 +292,8 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # rows/s: higher is better; kernel milliseconds: lower is better
-    metrics = (("k1_ms", -1), ("k3_ms", -1), ("k1_library_ms", -1)) \
+    metrics = (("k1_ms", -1), ("k3_ms", -1), ("scan_ms", -1), ("k4_ms", -1),
+               ("k1_library_ms", -1)) \
         if args.path == "kernels" else (("rows_per_s", 1),)
     first = runs[0][0]
     for metric, sign in metrics:

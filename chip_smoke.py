@@ -23,13 +23,16 @@ Phases (each passes or the script exits non-zero, printing no result line):
 5. Tabular pass-through: a 2,097,152-row Criteo-shaped store (13 dense float32, 26
    categorical int32, an int32 label; 8 files of 16 row groups of 16,384 rows; snappy)
    written from a numpy seed. K3 (snappy pages) as its one launch over one batch's 79
-   real pages, the run scan and K4 (RLE/bit-packed extract) on the batch's streams, each
-   against its plain version and the host twin, timed; crafted corrupt pages (each must
-   latch ok=0) and a 1 MiB page above K3's shared-memory window through K3; then
+   real pages, then the run scan and K4 (RLE/bit-packed extract and dictionary gather) as
+   the path launches them, one launch each over the batch's 40 data pages, each against
+   its plain version and the host twin, timed; crafted corrupt pages (each must latch
+   ok=0) and a 1 MiB page above K3's shared-memory window through K3, crafted run streams
+   (each must latch its page's reason) through the scan and K4; then
    ``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the card,
    batches of 16,384, 30 warm-up + 60 measured, with the launch counters zeroed around
-   it, launches and reads back to the host held to the per-batch prediction, and the
-   first and last measured batches held byte for byte against a ``pagedec="off"`` read.
+   it, launches (1 K3, 1 scan, 1 K4) and reads back to the host (1) held to the
+   per-batch prediction, and the first and last measured batches held byte for byte
+   against a ``pagedec="off"`` read.
 
 The last lines are the kernels table (JSON), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -46,6 +49,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 SMEM_ROUND_TRIP_CYCLES = 30    # least shared-memory load-to-use latency, one token of K3
+L2_ROUND_TRIP_CYCLES = 200     # about the least L2 load-to-use latency, one run of the scan
 SM_CLOCK_MHZ = [1980.0]        # nvidia-smi clocks.max.sm, read in phase 1
 ROWS, ROWS_PER_FILE, BATCH = 4096, 1024, 256
 IMG = (224, 224, 3)
@@ -457,25 +461,20 @@ def tabular_chunks(path, rg):
 def tabular_structure(root):
     """Per-batch launches and reads back to the host the path predicts (one batch = one
     row group): K3 once (one launch over every snappy page of the batch), the scan and K4
-    once per dictionary data page; one read of the pages' ok flags, then per data page
-    the level-block length (nullable columns) and per dictionary data page the bit
-    width, the stream's ok flag and the index range check. Checked uniform over every
-    row group of the store."""
+    once (one launch each over every data page); one read back to the host (K3's ok flags
+    and the data pages' verdicts). Checked uniform over every row group of the store."""
     shapes = set()
     for f in range(TAB_FILES):
         path = os.path.join(root, "part-%d.parquet" % f)
         for rg in range(TAB_RGS_PER_FILE):
             chunks = tabular_chunks(path, rg).values()
             shapes.add((int(any(c.codec == "SNAPPY" for c in chunks)),
-                        sum(1 for c in chunks for p in c.pages if p.encoding != 0),
                         sum(len(c.pages) + (c.dict_page is not None) for c in chunks),
-                        len(chunks),
-                        1 + sum((1 if c.max_def else 0) + (3 if p.encoding != 0 else 0)
-                                for c in chunks for p in c.pages)))
+                        len(chunks)))
     check(len(shapes) == 1, "row groups differ in page structure: %s" % sorted(shapes))
-    k3, k4, pages, columns, reads = shapes.pop()
-    return {"K3": k3, "scan": k4, "K4": k4, "pages": pages, "columns": columns,
-            "host_reads": reads}
+    k3, pages, columns = shapes.pop()
+    return {"K3": k3, "scan": 1, "K4": 1, "pages": pages, "columns": columns,
+            "host_reads": 1}
 
 
 def _crafted_pages():
@@ -535,6 +534,197 @@ def _above_window_page(seed=31):
 
     raw = (np.random.default_rng(seed).zipf(1.3, 1 << 18) % 1000).astype(np.int32).tobytes()
     return pa.compress(raw, codec="snappy", asbytes=True), raw
+
+
+def _varint(v):
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _crafted_streams():
+    """Dictionary data pages of 10 values over a 3-value dictionary, each of which must
+    latch its own reason: (what, page body, max_def, max_runs, reason code)."""
+    levels = _varint(10 << 1) + b"\x01"
+    level_block = len(levels).to_bytes(4, "little") + levels
+    return [
+        ("a good page", bytes([2, 20, 1]), 0, 10, 0),
+        ("a run of no values", bytes([2, 0, 1]), 0, 10, 7),
+        ("an overrun stream", level_block + bytes([2, 0x09, 0xAB, 0xCD]), 1, 10, 7),
+        ("more runs than max_runs", bytes([3]) + b"".join(bytes([2, v]) for v in range(10)),
+         0, 4, 7),
+        ("a short stream", bytes([2, 6, 1]), 0, 10, 7),
+        ("the 2^27-group header", level_block + bytes([16]) + _varint(((1 << 27) << 1) | 1)
+         + bytes(range(1, 17)), 1, 10, 7),
+        ("width 33", bytes([33, 20, 1, 0, 0, 0, 0]), 0, 10, 7),
+        ("an out-of-range index", level_block + bytes([3, 20, 5]), 1, 10, 8),
+        ("a level block past page end", (1000).to_bytes(4, "little") + bytes(8), 1, 10, 3),
+        ("an empty index body", level_block, 1, 10, 6),
+    ]
+
+
+def _scan_sectors(r, m, runs):
+    """The 32-byte sectors, as (buffer, index), of the bytes the scan must read on one
+    page whose verdict is 0: the level block's length, the bit width, and each run's
+    header and, for an RLE run, its value. A run starts where the one before it ends:
+    after its RLE value, or after its 8 x groups packed values."""
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    spans = [(0, 4)] if r["max_def"] else []  # (first byte in the page, bytes)
+    width = m[1]
+    if r["enc"] != pk.ENC_VALUES_PLAIN:
+        spans.append((m[0] - 1, 1))
+        byte_width, start, prev_end = (width + 7) // 8, 0, 0
+        for end, packed, _value, pos in (runs[r["run_off"]:r["run_off"] + m[2]].tolist()
+                                          if width else []):
+            spans.append((m[0] + start, pos - start + (0 if packed else byte_width)))
+            start = pos + ((end - prev_end) // 8 * width if packed else byte_width)
+            prev_end = end
+    first = r["off"]
+    return {(r["buf"], sector) for at, n in spans
+            for sector in range((first + at) // 32, (first + at + n - 1) // 32 + 1)}
+
+
+def phase_batched_scan_and_k4(chunks, res, dev):
+    """The run scan and K4 as the path launches them, one launch each over the batch's
+    data pages (every chunk of the row group read whole), against their plain versions
+    (max abs error 0) and the host twin, timed; then the crafted streams through them."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    cols = {name: pagedec.PassthroughColumn.from_chunk(c) for name, c in chunks.items()}
+    batch = pk.stage_batch(cols, dev)
+    out, ok, runs, meta, flags, values = batch.run()
+    check(bool(ok.all().item()) and not bool(flags.any().item()),
+          "the batched scan or K4 rejected a valid page of the batch")
+    plan = batch.plan
+    cpu = [t.cpu() for t in (out, batch.stored, batch.pages, ok, batch.blocks)]
+    t0 = time.perf_counter()
+    p_runs, p_meta, p_flags = pk.rle_scan_pages(cpu[0], cpu[1], cpu[2], cpu[3],
+                                                plan.runs_total)
+    res["scan"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    p_values = pk.extract_pages(cpu[0], cpu[1], cpu[2], cpu[4], p_runs, p_meta, p_flags,
+                                plan.out_bytes)
+    res["K4"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    runs_h, meta_h, values_h = runs.cpu(), meta.cpu(), values.cpu()
+    scan_err = float((meta_h.long() - p_meta.long()).abs().max().item())
+    n_runs = longest = 0
+    stream_bytes = plain_bytes = 0
+    sectors = set()  # the 32-byte sectors of the page bytes the scan must read
+    for row, m in zip(plan.pages.tolist(), p_meta.tolist()):
+        r = dict(zip(pk.PAGE_COLS, row))
+        sectors |= _scan_sectors(r, m, p_runs)
+        if r["enc"] == pk.ENC_VALUES_PLAIN:
+            plain_bytes += r["num_values"] * r["item"]
+            continue
+        span = slice(r["run_off"], r["run_off"] + m[2])
+        if m[2]:
+            scan_err = max(scan_err, float((runs_h[span].long() - p_runs[span].long())
+                                           .abs().max().item()))
+        n_runs += m[2]
+        longest = max(longest, m[2])
+        stream_bytes += r["size"] - m[0]
+    res["scan"]["max_abs_err"] = scan_err
+    check(scan_err == 0, "the batched scan differs from its plain version")
+    dict_bytes = delivered = 0
+    for name, (off, n, dtype) in plan.columns.items():
+        span = slice(off, off + n * dtype.itemsize)
+        as_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        err = float((values_h[span].view(as_dtype).double()
+                     - p_values[span].view(as_dtype).double()).abs().max().item()) if n else 0.0
+        res["K4"]["max_abs_err"] = max(res["K4"]["max_abs_err"], err)
+        check(values_h[span].numpy().tobytes() == p_values[span].numpy().tobytes(),
+              "K4 differs from its plain version on column %s" % name)
+        check(values_h[span].numpy().tobytes() == chunks[name].decode().tobytes(),
+              "K4 differs from the host twin on column %s" % name)
+        chunk = chunks[name]
+        if chunk.dict_page is not None:
+            dict_bytes += chunk.dict_page.num_values * dtype.itemsize
+        delivered += n * dtype.itemsize
+    res["scan"]["pages"] = len(plan.pages)
+    res["scan"]["ms"] = cuda_ms(lambda: pk.rle_scan_pages(out, batch.stored, batch.pages, ok,
+                                                          plan.runs_total))
+    res["K4"]["ms"] = cuda_ms(lambda: pk.extract_pages(out, batch.stored, batch.pages,
+                                                       batch.blocks, runs, meta, flags,
+                                                       plan.out_bytes))
+    n_pages = len(plan.pages)
+    # the scan: the sectors of its level-block lengths, bit widths, run headers and RLE
+    # values (not the bit-packed bodies it jumps over), the page table and K3's flags in;
+    # the real run entries, meta and flags out. Its serial floor: the longest stream's
+    # runs, one dependent L2 load each
+    res["scan"]["bytes"] = 32 * len(sectors) + n_pages * (8 * len(pk.PAGE_COLS) + 16 + 4) \
+        + ok.shape[0] + 16 * n_runs
+    res["scan"]["serial_floor_ms"] = longest * L2_ROUND_TRIP_CYCLES / (SM_CLOCK_MHZ[0] * 1e3)
+    # K4: the streams, the real run entries, the dictionaries and the PLAIN values in,
+    # every delivered value out
+    res["K4"]["bytes"] = stream_bytes + 16 * n_runs + dict_bytes + plain_bytes + delivered
+    log("batched scan over %d data pages (%d runs, longest stream %d runs, %d stream bytes "
+        "of which it reads %d sectors): %.4f ms, serial floor %.6f ms (%d runs x %d cycles "
+        "at %.0f MHz); K4 over %d values in %d blocks: %.4f ms"
+        % (n_pages, n_runs, longest, stream_bytes, len(sectors), res["scan"]["ms"],
+                     res["scan"]["serial_floor_ms"], longest, L2_ROUND_TRIP_CYCLES,
+                     SM_CLOCK_MHZ[0], delivered // 4, len(plan.blocks), res["K4"]["ms"]))
+
+    # the whole inflate stage alone (no reader threads beside it), as the loader calls it:
+    # host prep (page packing and tables into a pinned slab), one upload, the three
+    # launches and the one read back
+    from petastorm_tpu_torch.io.staging import PinnedStagingPool
+
+    stager = PinnedStagingPool(num_slabs=4)
+    prep = total = 0.0
+    for i in range(23):
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        t0 = time.perf_counter()
+        staged = pk.stage_batch(cols, dev, stager)
+        t1 = time.perf_counter()
+        del staged
+        pk.inflate_columns(cols, dev, stager)
+        t2 = time.perf_counter()
+        if i >= 3:
+            prep, total = prep + (t1 - t0) / 20, total + (t2 - t1) / 20
+    stager.close()
+    res["stage"] = {"prep_ms": prep * 1e3, "inflate_columns_ms": total * 1e3}
+    log("inflate stage alone, one row group's 40 columns: inflate_columns %.4f ms a batch "
+        "(host clock, ends in its one read back), of which host prep and upload enqueue "
+        "(stage_batch) %.4f ms" % (total * 1e3, prep * 1e3))
+
+    # the crafted streams, one page each, in one launch of each kernel: each latches its
+    # own reason, equal to the plain version's
+    dictionary = np.array([11, 22, 33], "<i4").tobytes()
+    buf, rows = bytearray(dictionary), []
+    for i, (_what, body, max_def, max_runs, _reason) in enumerate(_crafted_streams()):
+        buf += bytes(-len(buf) % 16)
+        rows.append(pk.page_row(buf=1, off=len(buf), size=len(body), max_def=max_def,
+                                enc=pk.ENC_VALUES_DICT, num_values=10, item=4, dict_buf=1,
+                                dict_n=3, run_off=16 * i, run_cap=16, max_runs=max_runs,
+                                hi=10, dst=40 * i))
+        buf += body
+    stored = torch.from_numpy(np.frombuffer(bytes(buf), np.uint8).copy())
+    table = torch.tensor(rows, dtype=torch.int64)
+    blocks = torch.from_numpy(pk.block_table(rows))
+    empty, no_ok = torch.empty(0, dtype=torch.uint8), torch.empty(0, dtype=torch.bool)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        c_runs, c_meta, c_flags = pk.rle_scan_pages(empty.to(d), stored.to(d), table.to(d),
+                                                    no_ok.to(d), 16 * len(rows))
+        c_out = pk.extract_pages(empty.to(d), stored.to(d), table.to(d), blocks.to(d),
+                                 c_runs, c_meta, c_flags, 40 * len(rows))
+        got.append((c_flags.cpu().tolist(), c_out.cpu()))
+    want = [reason for *_x, reason in _crafted_streams()]
+    check(got[0][0] == got[1][0] == want, "crafted streams latched %s, plain %s, expected %s"
+          % (got[0][0], got[1][0], want))
+    check(torch.equal(got[0][1], got[1][1]), "K4 differs from its plain version on the "
+          "crafted streams")
+    log("crafted streams through the batched scan and K4: %s"
+        % "; ".join("%s -> %s" % (w, pk.REASONS.get(r, "ok"))
+                    for (w, _b, _m, _x, _r), r in zip(_crafted_streams(), got[0][0])))
 
 
 def phase_tabular_kernels(root, dev=None):
@@ -656,53 +846,13 @@ def phase_tabular_kernels(root, dev=None):
     log("K3 bit flips: %d of 16 bit-flipped pages latched ok=0, all equal to the plain "
         "version" % flips)
 
-    streams = 0
-    for name, (chunk, pages, out) in k3_outputs.items():
-        row0 = 1 if chunk.dict_page is not None else 0
-        for j, page in enumerate(chunk.pages):
-            if page.encoding == 0:  # PLAIN: no stream
-                continue
-            body = out[row0 + j, :page.uncomp_size]
-            off = 4 + int(body[:4].cpu().numpy().view("<u4")[0]) if chunk.max_def else 0
-            values = body[off:]
-            bw = int(values[0].item())
-            data, total = values[1:], page.num_values
-            max_runs = max(8, total)
-            tables = pk.rle_run_scan(data, data.shape[0], total, max_runs, bw)
-            plain_tables = pk._rle_run_scan_plain(data, data.shape[0], total, max_runs, bw)
-            err = max((a.long() - b.long()).abs().max().item()
-                      for a, b in zip(tables, plain_tables))
-            res["scan"]["max_abs_err"] = max(res["scan"]["max_abs_err"], float(err))
-            check(err == 0, "the run scan differs from its plain version on column %s" % name)
-            n_runs = int(tables[4][0].item())
-            check(int(tables[4][1].item()) == 1, "the run scan latched ok=0 on column %s"
-                  % name)
-            vals = pk.rle_extract(data, *tables[:4], bw, total)
-            plain_vals = pk._rle_extract_plain(data, *tables[:4], bw, total)
-            err = (vals.long() - plain_vals.long()).abs().max().item()
-            res["K4"]["max_abs_err"] = max(res["K4"]["max_abs_err"], float(err))
-            check(err == 0, "K4 differs from its plain version on column %s" % name)
-            twin = pagedec.rle_bp_decode(data.cpu().numpy().tobytes(), bw, total)
-            check(np.array_equal(vals.cpu().numpy(), twin),
-                  "K4 differs from the host twin on column %s" % name)
-            streams += 1
-            res["scan"]["ms"] += cuda_ms(
-                lambda: pk.rle_run_scan(data, data.shape[0], total, max_runs, bw))
-            res["scan"]["plain_ms"] += cuda_ms(lambda: pk._rle_run_scan_plain(
-                data, data.shape[0], total, max_runs, bw), iters=1, warmup=0)
-            # the stream in, four int32 table entries a run and the status out
-            res["scan"]["bytes"] += data.numel() + 16 * n_runs + 8
-            res["K4"]["ms"] += cuda_ms(lambda: pk.rle_extract(data, *tables[:4], bw, total))
-            res["K4"]["plain_ms"] += cuda_ms(
-                lambda: pk._rle_extract_plain(data, *tables[:4], bw, total))
-            # the stream and the entries of the runs that exist in, one int32 a value out
-            res["K4"]["bytes"] += data.numel() + 16 * n_runs + 4 * total
-
-    for k in res:
+    phase_batched_scan_and_k4(chunks, res, dev)
+    for k in ("K3", "scan", "K4"):
         res[k]["bound_ms"], res[k]["bound_by"] = bound(res[k]["bytes"], 0)
     log("tabular kernels on file 0 row group 0 (%d columns, %d pages): K3 equal to the host "
-        "twin and to its plain version on every page; scan and K4 equal to their plain "
-        "versions and the host twin on %d streams" % (len(chunks), n_pages, streams))
+        "twin and to its plain version on every page; scan and K4 (one launch each over "
+        "the %d data pages) equal to their plain versions and the host twin"
+        % (len(chunks), n_pages, res["scan"]["pages"]))
     for k in ("K3", "scan", "K4"):
         r = res[k]
         log("%s per batch: kernel_ms=%.4f plain_ms=%.4f bound_ms=%.6f (%s) "
@@ -754,8 +904,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     counters0 = pagedec.counter_values()
     reads0 = pk.HOST_READS.value
     pk.snappy_inflate_ragged.launches = 0
-    pk.rle_run_scan.launches = 0
-    pk.rle_extract.launches = 0
+    pk.rle_scan_pages.launches = 0
+    pk.extract_pages.launches = 0
     kept = []
     consumed = 0
     t_start = time.perf_counter()
@@ -774,8 +924,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                 dt = time.perf_counter() - t0
                 stats1 = loader.stats.snapshot()
                 break
-    launches = {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_run_scan.launches,
-                "K4": pk.rle_extract.launches}
+    launches = {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_scan_pages.launches,
+                "K4": pk.extract_pages.launches}
     counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
     host_reads = pk.HOST_READS.value - reads0
     wall = time.perf_counter() - t_start
@@ -1039,15 +1189,19 @@ def main():
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
-            ("scan", "rle_run_scan (feeds K4; replaces a lax.while_loop)",
-             "petastorm_tpu/ops/pagedec_kernels.py:224"),
-            ("K4", "rle_extract (K4)", "petastorm_tpu/ops/pagedec_kernels.py:290")):
+            ("scan", "rle_scan_pages (the run scan, one launch over a batch's data pages; "
+             "feeds K4; replaces a lax.while_loop)", "petastorm_tpu/ops/pagedec_kernels.py:224"),
+            ("K4", "extract_pages (K4, one launch over a batch's data pages, with the "
+             "dictionary gather)", "petastorm_tpu/ops/pagedec_kernels.py:290")):
         r = tab_kernels[key]
-        table["kernels"].append({
+        row = {
             "name": name, "route": "cuda", "source": "petastorm_tpu_torch/csrc/pagedec.cu",
             "replaces": replaces, "launches": tab_launches[key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+        if "serial_floor_ms" in r:
+            row["serial_floor_ms"] = r["serial_floor_ms"]
+        table["kernels"].append(row)
     log("total %.1f s; main path %.1f rows/s; tabular path %.1f rows/s"
         % (time.perf_counter() - t_all, main["rows_per_s"], tab["rows_per_s"]))
     log(json.dumps(table))

@@ -5,9 +5,11 @@
 // `_snappy_pages_kernel` (launched :167, body `_snappy_machine` :54): the snappy LZ token
 // machine, one page per program. The scan replaces `_rle_run_scan` (:224, a
 // lax.while_loop, not Pallas). K4 replaces `_extract_kernel` (:290, launched :319) and
-// takes in the run-id lookup and the 4-byte window gather that `rle_expand` (:328) did as
-// separate jnp ops, and takes every bit width Parquet allows (1-32), where the
-// reference's 4-byte windows stop at 24.
+// takes in the run-id lookup and the 4-byte window gather that `rle_expand` (:338) did as
+// separate jnp ops, the per-page checks of the reference's `inflate_window` (:472-503:
+// level block, PLAIN length, dictionary index range) and the dictionary gather, and
+// takes every bit width Parquet allows (1-32), where the reference's 4-byte windows stop
+// at 24.
 //
 // Bound on an H100 SXM: bytes, in principle (each compressed byte read once, each
 // decoded byte or value written once: ~2.2 MB a 16,384-row Criteo batch, ~0.7 us at
@@ -34,14 +36,17 @@
 //   stream is longer than its readable span, runs the same pipeline with a serial parser
 //   and clamped byte reads, on device memory directly where a span is above its window
 //   (snappy_machine_any: the same kernel, another branch).
-// - Scan: one thread walks the run stream (reads stay in L1); the block then fills the
-//   unused table entries as the reference initialises them.
-// - K4: one thread per value: binary search of its run in run_end (torch.searchsorted
-//   side="right" over the whole table), the little-endian 5-byte window with every
-//   index clamped to cap - 1, then (word >> shift) & mask in a bit-packed run and the
-//   run's RLE value otherwise. uint64 arithmetic: shift <= 7 plus width <= 32 fits the
-//   window's 40 bits. For widths up to 24 the fifth byte lies above the mask, so the
-//   values equal the reference's 4-byte window and arithmetic int32 shift.
+// - Scan: ONE launch over every data page of a batch (a page table row a page, see
+//   PageCol), one thread a page in blocks of 32 pages; it reads the level block's
+//   length and the bit width from the page bytes, makes the page's checks, and writes
+//   only the run entries that exist (a ragged run table) and a verdict a page.
+// - K4: ONE launch over the values of every data page of a batch (a block-range table
+//   maps blocks to pages): a dictionary page's values are found by one run search a warp
+//   and a walk, decoded from a 5-byte window, range-checked and gathered from the
+//   dictionary straight into the column's output; a PLAIN page's values are copied. The
+//   page's flag latches a reason code. uint64 arithmetic: shift <= 7 plus width <= 32
+//   fits the window's 40 bits. For widths up to 24 the fifth byte lies above the mask,
+//   so the values equal the reference's 4-byte window and arithmetic int32 shift.
 //
 // Every read is clamped to its buffer and every write is in bounds, and `ok` latches 0
 // in exactly the reference's cases. Bound checks are done in 64-bit integers, where
@@ -64,7 +69,6 @@ constexpr int64_t kOutWindow = 66 * 1024;  // decoded bytes kept in shared memor
 constexpr int kQueue = 32;                 // tokens a round (one per executor lane)
 constexpr int kSrcSlack = 64;  // past the source window: alignment shift + speculative reads
 constexpr int kOutSlack = 16;  // past the output window: alignment shift
-constexpr int kScanThreads = 256;
 constexpr int kExtractThreads = 256;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
@@ -558,93 +562,306 @@ snappy_ragged_kernel(const uint8_t* __restrict__ src, int64_t src_bytes,
   store_window(g_out, out_shared ? s_out : nullptr, s_dst, out_cap);
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-rle_run_scan_kernel(const uint8_t* __restrict__ data, int64_t data_len, int64_t cap,
-                    int32_t total, int32_t max_runs, int bit_width, int32_t* run_end,
-                    int32_t* is_packed, int32_t* rle_value, int32_t* bit_base,
-                    int32_t* status) {
-  __shared__ int32_t s_written;
-  if (threadIdx.x == 0) {
-    const int byte_width = (bit_width + 7) / 8;
-    int64_t pos = 0, filled = 0;
-    int32_t nruns = 0;
-    bool ok = true;
-    while (filled < total && ok) {
-      uint32_t header = 0;
-      int shift = 0;
-      bool done = false;
-      while (!done && ok) {
-        const uint32_t b = clamped_byte(data, cap, pos);
-        if (shift < 32) header |= (b & 0x7Fu) << shift;
-        done = (b & 0x80u) == 0;
-        ok = ok && pos < data_len && shift <= 28;
-        ++pos;
-        shift += 7;
-      }
-      const int32_t h = static_cast<int32_t>(header);
-      const bool packed = (h & 1) == 1;
-      const int64_t groups = h >> 1;
-      const int64_t count = packed ? groups * 8 : groups;
-      const int64_t consumed = packed ? groups * bit_width : byte_width;
-      uint32_t v = 0;
-      for (int k = 0; k < byte_width; ++k) v |= clamped_byte(data, cap, pos + k) << (8 * k);
-      ok = ok && pos + consumed <= data_len && count > 0 && nruns < max_runs;
-      const int32_t idx = nruns < max_runs ? nruns : max_runs - 1;
-      const int64_t end = filled + count < total ? filled + count : total;
-      run_end[idx] = static_cast<int32_t>(end);
-      is_packed[idx] = packed ? 1 : 0;
-      rle_value[idx] = packed ? 0 : static_cast<int32_t>(v);
-      bit_base[idx] = static_cast<int32_t>(pos * 8);
-      pos += consumed;
-      filled += count;
-      ++nruns;
-    }
-    ok = ok && filled >= total;
-    status[0] = nruns;
-    status[1] = ok ? 1 : 0;
-    s_written = nruns < max_runs ? nruns : max_runs;
+// -- the batched run scan and K4 ---------------------------------------------------------
+//
+// Both take one row per data page of a batch (int64, kPageCols columns; the one-stream
+// entry points pass one row). The page's bytes are [off, off + size) of one of two
+// buffers: K3's output (buf 0) or the stored, UNCOMPRESSED pages (buf 1).
+
+constexpr int kPageCols = 18;
+enum PageCol {
+  kBuf = 0,     // 0: K3's output, 1: the stored pages
+  kOff,         // the page's first byte in that buffer
+  kSize,        // the page's bytes; every read clamps to them
+  kOkIdx,       // its row of K3's ok vector; -1 a stored page that is whole, -2 one that is not
+  kMaxDef,      // 1: a definition-level block (4-byte length, then the block) comes first
+  kEnc,         // kEncPlain, kEncDict or kEncIndices
+  kNumValues,   // values in the page
+  kItem,        // bytes a value: 4 or 8 (kEncIndices: 4)
+  kDictBuf,     // where the dictionary's values lie (kEncDict)
+  kDictOff,
+  kDictN,       // values in the dictionary; -1: no dictionary page
+  kRunOff,      // the page's first entry in the ragged run table
+  kRunCap,      // the entries it may write there
+  kMaxRuns,     // the reference's latch: more runs than this is a bad stream
+  kStreamLen,   // the stream's length for the bound checks; -1: the bytes after its width
+  kLo,          // the delivered values [lo, hi) of the page
+  kHi,
+  kDst,         // the output byte where value lo goes
+};
+enum Enc { kEncPlain = 0, kEncDict = 1, kEncIndices = 2 };
+// a page's verdict: 0, or why the page is rejected (pagedec_kernels.REASONS)
+enum Reason {
+  kOk = 0,
+  kInflate = 1,        // K3 latched ok = 0 on the page, or a stored page is not whole
+  kShortLevel = 2,     // page too short for the level block's length
+  kLevelPastEnd = 3,   // level block past page end
+  kPlainShort = 4,     // PLAIN page shorter than its values
+  kDictMissing = 5,    // dictionary page missing
+  kEmptyBody = 6,      // empty dictionary-index body
+  kRleLatched = 7,     // the run stream is bad, or its width is above 32
+  kIndexRange = 8,     // a dictionary index out of range
+};
+constexpr int kScanPages = 32;  // pages a block of the scan, one thread each
+constexpr int kMetaCols = 4;  // scan -> K4, per page: stream_off, bit_width, n_runs, verdict
+constexpr int kValuesPerBlock = 1024;
+constexpr int kValuesPerWarp = kValuesPerBlock / (kExtractThreads / 32);
+
+struct Buffers {
+  const uint8_t* k3_out;
+  int64_t k3_bytes;
+  const uint8_t* stored;
+  int64_t stored_bytes;
+};
+
+// The page's span, or null when it leaves its buffer.
+__device__ __forceinline__ const uint8_t* page_span(const Buffers& b, int64_t buf, int64_t off,
+                                                    int64_t size) {
+  const uint8_t* base = buf == 0 ? b.k3_out : b.stored;
+  const int64_t bytes = buf == 0 ? b.k3_bytes : b.stored_bytes;
+  if (!(off >= 0 && size >= 0 && off <= bytes - size)) return nullptr;
+  return base + off;
+}
+
+// One page's checks and run walk, in the reference's order (_decode_window, then
+// _rle_run_scan): returns the verdict and sets m = [stream_off, bit_width, n_runs].
+__device__ int scan_page(const Buffers& b, const int64_t* row, const uint8_t* k3_ok,
+                         int64_t n_ok, int4* runs, int64_t runs_total, int32_t* m) {
+  const int64_t ok_idx = row[kOkIdx];
+  if (ok_idx >= 0 ? (ok_idx >= n_ok || k3_ok[ok_idx] == 0) : ok_idx != -1) return kInflate;
+  const int64_t size = row[kSize];
+  const uint8_t* page = page_span(b, row[kBuf], row[kOff], size);
+  if (page == nullptr) return kInflate;
+  int64_t pos = 0;
+  if (row[kMaxDef] != 0) {
+    if (size < 4) return kShortLevel;
+    const uint32_t head = page[0] | (page[1] << 8) | (page[2] << 16) |
+                          (static_cast<uint32_t>(page[3]) << 24);
+    pos = 4 + static_cast<int64_t>(head);
+    if (pos > size) return kLevelPastEnd;
   }
-  __syncthreads();
-  for (int32_t i = s_written + threadIdx.x; i < max_runs; i += blockDim.x) {
-    run_end[i] = INT32_MAX;
-    is_packed[i] = 0;
-    rle_value[i] = 0;
-    bit_base[i] = 0;
+  const int64_t enc = row[kEnc], total = row[kNumValues];
+  if (enc == kEncPlain) {
+    m[0] = static_cast<int32_t>(pos);
+    return size - pos < total * row[kItem] ? kPlainShort : kOk;
+  }
+  if (enc == kEncDict && row[kDictN] < 0) return kDictMissing;
+  if (size - pos < 1) return kEmptyBody;
+  const int bit_width = page[pos];
+  m[0] = static_cast<int32_t>(pos + 1);
+  m[1] = bit_width;
+  if (bit_width == 0) return kOk;  // every index 0
+  if (bit_width > 32) return kRleLatched;
+  const uint8_t* data = page + pos + 1;
+  const int64_t cap = size - pos - 1;
+  const int64_t data_len = row[kStreamLen] >= 0 ? row[kStreamLen] : cap;
+  const int64_t run_off = row[kRunOff], run_cap = row[kRunCap], max_runs = row[kMaxRuns];
+  const int byte_width = (bit_width + 7) / 8;
+  int64_t p = 0, filled = 0, nruns = 0;
+  bool ok = true;
+  while (filled < total && ok) {
+    uint32_t header = 0;
+    int shift = 0;
+    bool done = false;
+    while (!done && ok) {
+      const uint32_t c = clamped_byte(data, cap, p);
+      if (shift < 32) header |= (c & 0x7Fu) << shift;
+      done = (c & 0x80u) == 0;
+      ok = ok && p < data_len && shift <= 28;
+      ++p;
+      shift += 7;
+    }
+    const int32_t h = static_cast<int32_t>(header);
+    const bool packed = (h & 1) == 1;
+    const int64_t groups = h >> 1;
+    const int64_t count = packed ? groups * 8 : groups;
+    const int64_t consumed = packed ? groups * bit_width : byte_width;
+    uint32_t v = 0;
+    for (int k = 0; !packed && k < byte_width; ++k) v |= clamped_byte(data, cap, p + k) << (8 * k);
+    ok = ok && p + consumed <= data_len && count > 0 && nruns < max_runs;
+    // the reference writes entry min(nruns, max_runs - 1); only entries that exist are kept
+    const int64_t idx = nruns < max_runs ? nruns : max_runs - 1;
+    if (run_off >= 0 && idx < run_cap && run_off + idx < runs_total) {
+      const int64_t end = filled + count < total ? filled + count : total;
+      runs[run_off + idx] = make_int4(static_cast<int32_t>(end), packed ? 1 : 0,
+                                      packed ? 0 : static_cast<int32_t>(v),
+                                      static_cast<int32_t>(p));
+    }
+    p += consumed;
+    filled += count;
+    ++nruns;
+  }
+  m[2] = static_cast<int32_t>(nruns < INT32_MAX ? nruns : INT32_MAX);
+  return ok && filled >= total ? kOk : kRleLatched;
+}
+
+// One thread a page, kScanPages pages a block: a stream's run headers are a dependent
+// chain of loads (from L2, where K3 has just written the bytes), so the walk is
+// latency-bound; every page of the batch walks side by side.
+__global__ void __launch_bounds__(kScanPages)
+rle_scan_pages_kernel(Buffers b, const int64_t* __restrict__ pages, int64_t n_pages,
+                      const uint8_t* __restrict__ k3_ok, int64_t n_ok, int4* runs,
+                      int64_t runs_total, int32_t* __restrict__ meta,
+                      int32_t* __restrict__ flags) {
+  const int64_t page = static_cast<int64_t>(blockIdx.x) * kScanPages + threadIdx.x;
+  if (page >= n_pages) return;
+  int32_t m[3] = {0, 0, 0};
+  const int reason = scan_page(b, pages + page * kPageCols, k3_ok, n_ok, runs, runs_total, m);
+  int32_t* out = meta + page * kMetaCols;
+  out[0] = m[0];
+  out[1] = m[1];
+  out[2] = m[2];
+  out[3] = reason;
+  flags[page] = reason;
+}
+
+// `item` bytes (4 or 8) at `p`, little-endian, by word where aligned, else byte by byte
+__device__ __forceinline__ uint64_t load_item(const uint8_t* p, int item) {
+  if ((reinterpret_cast<uintptr_t>(p) & (item - 1)) == 0) {
+    return item == 8 ? *reinterpret_cast<const uint64_t*>(p)
+                     : *reinterpret_cast<const uint32_t*>(p);
+  }
+  uint64_t v = 0;
+  for (int k = 0; k < item; ++k) v |= static_cast<uint64_t>(p[k]) << (8 * k);
+  return v;
+}
+
+__device__ __forceinline__ void store_item(uint8_t* p, int item, uint64_t v) {
+  if (item == 8) {
+    *reinterpret_cast<uint64_t*>(p) = v;
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = static_cast<uint32_t>(v);
   }
 }
 
+// K4 over every data page of a batch: a block takes up to kValuesPerBlock values of one
+// page (blocks[i] = [page, first value]), a warp kValuesPerWarp consecutive ones.
+// - A dictionary page: lane 0 finds the warp's first run among the page's real runs (a
+//   binary search of run_end), each lane walks on from there to its value's run; then
+//   the 5-byte little-endian window, clamped to the stream, and (word >> shift) & mask,
+//   or the run's RLE value; then 0 <= index < dict_n (the page's flag latches
+//   kIndexRange where it fails) and the dictionary value's 4 or 8 bytes straight into
+//   the output at the value's row. Every value of the page is checked (as the
+//   reference checks the whole page), only [lo, hi) is written.
+// - A PLAIN page: the item bytes of [lo, hi) from the stream offset the scan found.
+// - kEncIndices (the one-stream entry points): the int32 index itself.
+// A page whose scan verdict is not 0, or whose run entries leave the run table, writes
+// zeros and reads nothing. Bytes: the stream,
+// the run entries, the dictionary values gathered, the delivered values written; bound
+// by the latency of a few dependent L1/L2 loads a warp, not by bytes.
 __global__ void __launch_bounds__(kExtractThreads)
-rle_extract_kernel(const uint8_t* __restrict__ data, int64_t cap,
-                   const int32_t* __restrict__ run_end, const int32_t* __restrict__ is_packed,
-                   const int32_t* __restrict__ rle_value, const int32_t* __restrict__ bit_base,
-                   int32_t max_runs, int bit_width, uint64_t mask, int32_t total,
-                   int32_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int32_t lo = 0, hi = max_runs;  // first run whose end is > i
-  while (lo < hi) {
-    const int32_t mid = (lo + hi) >> 1;
-    if (run_end[mid] <= i) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+extract_pages_kernel(Buffers b, const int64_t* __restrict__ pages, int64_t n_pages,
+                     const int32_t* __restrict__ blocks, const int4* __restrict__ runs,
+                     int64_t runs_total, const int32_t* __restrict__ meta,
+                     int32_t* flags, uint8_t* __restrict__ out, int64_t out_bytes) {
+  const int32_t page = blocks[2 * static_cast<int64_t>(blockIdx.x)];
+  const int64_t first = blocks[2 * static_cast<int64_t>(blockIdx.x) + 1];
+  if (page < 0 || page >= n_pages) return;
+  const int64_t* row = pages + static_cast<int64_t>(page) * kPageCols;
+  const int32_t* m = meta + static_cast<int64_t>(page) * kMetaCols;
+  const int64_t enc = row[kEnc], total = row[kNumValues], lo = row[kLo], hi = row[kHi];
+  const int item = static_cast<int>(row[kItem]);
+  const int64_t dst = row[kDst];
+  if (!((item == 4 || item == 8) && lo >= 0 && lo <= hi && hi <= total && dst >= 0 &&
+        dst % item == 0 && dst <= out_bytes - (hi - lo) * item)) {
+    return;  // a row whose output span leaves the buffer writes nothing
   }
-  const int32_t rid = lo < max_runs ? lo : max_runs - 1;
-  const int64_t run_start = rid == 0 ? 0 : run_end[rid - 1];
-  if (is_packed[rid] == 0) {
-    out[i] = rle_value[rid];
+  const int64_t limit = enc == kEncPlain ? hi : total;
+  const int64_t end = first + kValuesPerBlock < limit ? first + kValuesPerBlock : limit;
+  const int64_t size = row[kSize];
+  const uint8_t* bytes = page_span(b, row[kBuf], row[kOff], size);
+  const int64_t stream_off = m[0];
+  const int bit_width = m[1];
+  int64_t n_runs = m[2];
+  n_runs = n_runs < row[kRunCap] ? n_runs : row[kRunCap];
+  n_runs = n_runs < row[kMaxRuns] ? n_runs : row[kMaxRuns];
+  const int64_t run_off = row[kRunOff];
+  // a dictionary page's run entries must lie in the run table
+  const bool runs_in = enc == kEncPlain || bit_width == 0 ||
+                       (n_runs >= 1 && run_off >= 0 && run_off <= runs_total - n_runs);
+  const bool readable = bytes != nullptr && stream_off >= 0 && stream_off <= size && runs_in;
+  if (m[3] != kOk || !readable) {
+    for (int64_t v = first + threadIdx.x; v < end; v += blockDim.x) {
+      if (v >= lo && v < hi) store_item(out + dst + (v - lo) * item, item, 0);
+    }
     return;
   }
-  const int64_t bitpos = static_cast<int64_t>(bit_base[rid]) + (i - run_start) * bit_width;
-  const int64_t byte_off = bitpos >> 3;
-  const int shift = static_cast<int>(bitpos & 7);
-  uint64_t word = 0;
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    word |= static_cast<uint64_t>(clamped_byte(data, cap, byte_off + j)) << (8 * j);
+  if (enc == kEncPlain) {
+    for (int64_t v = first + threadIdx.x; v < end; v += blockDim.x) {
+      if (v >= lo) {
+        store_item(out + dst + (v - lo) * item, item,
+                   load_item(bytes + stream_off + v * item, item));
+      }
+    }
+    return;
   }
-  out[i] = static_cast<int32_t>(static_cast<uint32_t>((word >> shift) & mask));
+  const uint8_t* data = bytes + stream_off;
+  const int64_t cap = size - stream_off;
+  const int4* r = runs + run_off;
+  const uint64_t mask = bit_width >= 32 ? 0xFFFFFFFFull : (1ull << bit_width) - 1ull;
+  const uint8_t* dict = nullptr;
+  int64_t dict_n = 0;
+  if (enc == kEncDict) {
+    dict_n = row[kDictN] > 0 ? row[kDictN] : 0;
+    dict = page_span(b, row[kDictBuf], row[kDictOff], dict_n * item);
+    if (dict == nullptr) dict_n = 0;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t v0 = first + static_cast<int64_t>(warp) * kValuesPerWarp;
+  int64_t rid = 0;
+  if (bit_width > 0 && v0 < end) {  // one search a warp: the first run whose end is > v0
+    if (lane == 0) {
+      int64_t a = 0, z = n_runs;
+      while (a < z) {
+        const int64_t mid = (a + z) >> 1;
+        if (r[mid].x <= v0) {
+          a = mid + 1;
+        } else {
+          z = mid;
+        }
+      }
+      rid = a < n_runs ? a : n_runs - 1;
+    }
+    rid = shfl64(rid, 0);
+  }
+  bool bad = false;
+  for (int64_t v = v0 + lane; v < v0 + kValuesPerWarp; v += 32) {
+    if (v >= end) break;
+    uint32_t idx = 0;
+    if (bit_width > 0) {
+      // a walk: an RLE run holds 1 or more values and a packed run 8 or more, so a
+      // lane's walk takes at most the warp's kValuesPerWarp steps
+      while (rid < n_runs - 1 && r[rid].x <= v) ++rid;
+      const int4 e = r[rid];
+      if (e.y == 0) {
+        idx = static_cast<uint32_t>(e.z);
+      } else {
+        const int64_t run_start = rid == 0 ? 0 : r[rid - 1].x;
+        const int64_t bitpos = static_cast<int64_t>(static_cast<uint32_t>(e.w)) * 8 +
+                               (v - run_start) * bit_width;
+        const int64_t byte_off = bitpos >> 3;
+        uint64_t word = 0;
+#pragma unroll
+        for (int j = 0; j < 5; ++j) {
+          word |= static_cast<uint64_t>(clamped_byte(data, cap, byte_off + j)) << (8 * j);
+        }
+        idx = static_cast<uint32_t>((word >> (bitpos & 7)) & mask);
+      }
+    }
+    const bool delivered = v >= lo && v < hi;
+    if (enc == kEncIndices) {
+      if (delivered) store_item(out + dst + (v - lo) * item, item, idx);
+      continue;
+    }
+    const int32_t si = static_cast<int32_t>(idx);
+    const bool in_range = si >= 0 && si < dict_n;
+    bad = bad || !in_range;
+    if (delivered) {
+      store_item(out + dst + (v - lo) * item, item,
+                 in_range ? load_item(dict + static_cast<int64_t>(si) * item, item) : 0);
+    }
+  }
+  if (__any_sync(kFullMask, bad) && lane == 0) flags[page] = kIndexRange;
 }
 
 }  // namespace
@@ -676,44 +893,56 @@ int ptpu_snappy_ragged(const void* src, int64_t src_bytes, const void* table, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// One hybrid RLE/bit-packed stream: data (cap,) uint8 of which data_len bytes are the
-// stream. Fills the (max_runs,) int32 tables run_end, is_packed, rle_value, bit_base and
-// status (2,) int32 = [n_runs, ok].
-int ptpu_rle_run_scan(const void* data, int64_t data_len, int64_t cap, int32_t total,
-                      int32_t max_runs, int bit_width, void* run_end, void* is_packed,
-                      void* rle_value, void* bit_base, void* status, int device,
-                      void* stream) {
-  if (max_runs < 1 || total < 0 || bit_width < 1 || bit_width > 32 || cap < 0) {
+// The run scan over a batch's data pages, one launch. k3_out (k3_bytes,) uint8 and
+// stored (stored_bytes,) uint8: the pages' bytes; pages: (n_pages, 18) int64 rows (see
+// PageCol); k3_ok: (n_ok,) bool, K3's ok flags. Writes each page's run entries (int32
+// [run_end, is_packed, rle_value, byte_pos]) into runs (runs_total, 4), only those that
+// exist; meta (n_pages, 4) int32 [stream_off, bit_width, n_runs, verdict]; flags
+// (n_pages,) int32, the verdict.
+int ptpu_rle_scan_pages(const void* k3_out, int64_t k3_bytes, const void* stored,
+                        int64_t stored_bytes, const void* pages, int64_t n_pages,
+                        const void* k3_ok, int64_t n_ok, void* runs, int64_t runs_total,
+                        void* meta, void* flags, int device, void* stream) {
+  if (n_pages < 0 || n_pages > INT32_MAX || k3_bytes < 0 || stored_bytes < 0 || n_ok < 0 ||
+      runs_total < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n_pages == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rle_run_scan_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), data_len, cap, total, max_runs, bit_width,
-      static_cast<int32_t*>(run_end), static_cast<int32_t*>(is_packed),
-      static_cast<int32_t*>(rle_value), static_cast<int32_t*>(bit_base),
-      static_cast<int32_t*>(status));
+  const Buffers b = {static_cast<const uint8_t*>(k3_out), k3_bytes,
+                     static_cast<const uint8_t*>(stored), stored_bytes};
+  rle_scan_pages_kernel<<<static_cast<unsigned>((n_pages + kScanPages - 1) / kScanPages),
+                          kScanPages, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      b, static_cast<const int64_t*>(pages), n_pages, static_cast<const uint8_t*>(k3_ok), n_ok,
+      static_cast<int4*>(runs), runs_total, static_cast<int32_t*>(meta),
+      static_cast<int32_t*>(flags));
   return static_cast<int>(cudaGetLastError());
 }
 
-// `total` int32 values of one stream from its run tables (ptpu_rle_run_scan) and its
-// bytes data (cap,) uint8; out: (total,) int32.
-int ptpu_rle_extract(const void* data, int64_t cap, const void* run_end, const void* is_packed,
-                     const void* rle_value, const void* bit_base, int32_t max_runs,
-                     int bit_width, int32_t total, void* out, int device, void* stream) {
-  if (max_runs < 1 || total < 0 || bit_width < 1 || bit_width > 32 || cap < 0) {
+// K4 over a batch's data pages, one launch: blocks (n_blocks, 2) int32 [page, first
+// value]; runs, meta and flags from ptpu_rle_scan_pages (flags latch kIndexRange in
+// place); out (out_bytes,) uint8, each page's delivered values at its dst.
+int ptpu_extract_pages(const void* k3_out, int64_t k3_bytes, const void* stored,
+                       int64_t stored_bytes, const void* pages, int64_t n_pages,
+                       const void* blocks, int64_t n_blocks, const void* runs,
+                       int64_t runs_total, const void* meta, void* flags, void* out,
+                       int64_t out_bytes, int device, void* stream) {
+  if (n_pages < 0 || n_pages > INT32_MAX || n_blocks < 0 || n_blocks > INT32_MAX ||
+      k3_bytes < 0 || stored_bytes < 0 || runs_total < 0 || out_bytes < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (total == 0) return 0;
+  if (n_blocks == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const uint64_t mask = (1ull << bit_width) - 1ull;
-  const int blocks = (total + kExtractThreads - 1) / kExtractThreads;
-  rle_extract_kernel<<<blocks, kExtractThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), cap, static_cast<const int32_t*>(run_end),
-      static_cast<const int32_t*>(is_packed), static_cast<const int32_t*>(rle_value),
-      static_cast<const int32_t*>(bit_base), max_runs, bit_width, mask, total,
-      static_cast<int32_t*>(out));
+  const Buffers b = {static_cast<const uint8_t*>(k3_out), k3_bytes,
+                     static_cast<const uint8_t*>(stored), stored_bytes};
+  extract_pages_kernel<<<static_cast<unsigned>(n_blocks), kExtractThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      b, static_cast<const int64_t*>(pages), n_pages, static_cast<const int32_t*>(blocks),
+      static_cast<const int4*>(runs), runs_total, static_cast<const int32_t*>(meta),
+      static_cast<int32_t*>(flags), static_cast<uint8_t*>(out), out_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,9 +27,10 @@ class IoOptions:
       whose loader runs on the CPU, reads classically.
     - ``on`` forces the pass-through (the loader then inflates on the card, or with the
       host twin on the CPU).
-    - ``off`` is the classic read, and the default: on an H100 the pass-through is slower
-      than the classic read on every store measured (PERF.md), where the JAX package
-      defaults to ``auto``.
+    - ``off`` is the classic read, and the default, where the JAX package defaults to
+      ``auto``: on an H100 the pass-through does not beat the classic read on the stores
+      measured (PERF.md: on the Criteo-shaped store the two tie, and on the JPEG store
+      ``auto`` is slower).
     """
 
     __slots__ = ("pagedec",)

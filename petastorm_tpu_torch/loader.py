@@ -604,7 +604,7 @@ class DataLoader:
         inflated = {}
         if cols:
             try:
-                # one upload, one K3 launch and one read of the ok flags for the batch
+                # one upload, one launch each of K3, the scan and K4, and one read back
                 inflated = pk.inflate_columns(cols, self.device, self._pages_stager())
             except pk.DeviceInflateError as e:
                 cols[e.column].materialize()  # raises PagedecCorruptError on bad bytes

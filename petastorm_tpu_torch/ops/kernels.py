@@ -6,8 +6,8 @@ and link into one shared library with a plain C interface
 :func:`library` call does, from the wrapper that launches a kernel on a CUDA tensor.
 The wrappers themselves live beside their plain PyTorch versions:
 ``ops.jpeg.idct_scaled_segments`` (K1), ``ops.image.normalize_images`` (K2), and
-``ops.pagedec_kernels.snappy_inflate_ragged`` (K3), ``rle_run_scan`` and ``rle_extract``
-(K4).
+``ops.pagedec_kernels.snappy_inflate_ragged`` (K3), ``rle_scan_pages`` (the run scan)
+and ``extract_pages`` (K4).
 """
 from __future__ import annotations
 
@@ -75,16 +75,16 @@ def library():
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float), ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         lib.ptpu_normalize_u8.restype = ctypes.c_int
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.ptpu_snappy_ragged.argtypes = [ptr, i64, ptr, ptr, i64, ptr, i64, ctypes.c_int,
                                            ptr]
         lib.ptpu_snappy_ragged.restype = ctypes.c_int
-        lib.ptpu_rle_run_scan.argtypes = [ptr, i64, i64, i32, i32, ctypes.c_int, ptr, ptr,
-                                          ptr, ptr, ptr, ctypes.c_int, ptr]
-        lib.ptpu_rle_run_scan.restype = ctypes.c_int
-        lib.ptpu_rle_extract.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, i32, ctypes.c_int,
-                                         i32, ptr, ctypes.c_int, ptr]
-        lib.ptpu_rle_extract.restype = ctypes.c_int
+        lib.ptpu_rle_scan_pages.argtypes = [ptr, i64, ptr, i64, ptr, i64, ptr, i64, ptr, i64,
+                                            ptr, ptr, ctypes.c_int, ptr]
+        lib.ptpu_rle_scan_pages.restype = ctypes.c_int
+        lib.ptpu_extract_pages.argtypes = [ptr, i64, ptr, i64, ptr, i64, ptr, i64, ptr, i64,
+                                           ptr, ptr, ptr, i64, ctypes.c_int, ptr]
+        lib.ptpu_extract_pages.restype = ctypes.c_int
         _LIB = lib
         return _LIB
 

@@ -10,36 +10,39 @@ device link, and the card inflates them.
   (a warp machine in shared memory); a bound violation latches the page's ``ok`` flag.
   :func:`snappy_inflate_pages` keeps the reference's padded signature as a thin caller
   of it. :func:`stored_pages` is the UNCOMPRESSED twin (a torch reshuffle, no kernel).
-- :func:`rle_expand` expands a hybrid RLE/bit-packed dictionary-index stream in two
-  launches: :func:`rle_run_scan` (the run table; port of the ``lax.while_loop``
-  ``_rle_run_scan``) and :func:`rle_extract`, kernel K4 (port of ``_extract_kernel``,
-  with the run-id lookup and the window gather done inside the kernel). Its windows
-  are 5 bytes, so it takes every bit width Parquet allows (1-32), where the reference's
-  4-byte windows stop at 24.
+- :func:`rle_scan_pages` is the run scan (port of the ``lax.while_loop``
+  ``_rle_run_scan``) and :func:`extract_pages` is kernel K4 (port of ``_extract_kernel``,
+  with the run lookup, the window gather, the per-page checks and the dictionary gather
+  inside the kernel): ONE launch each over every data page of a batch, described by a
+  page table (:func:`page_row`, :data:`PAGE_COLS`). K4's windows are 5 bytes, so it
+  takes every bit width Parquet allows (1-32), where the reference's 4-byte windows stop
+  at 24. :func:`rle_run_scan`, :func:`rle_extract` and :func:`rle_expand` keep the
+  reference's one-stream signatures as thin callers of them.
 - :func:`inflate_columns` is the loader-facing entry: one batch's
   :class:`~petastorm_tpu_torch.io.pagedec.PassthroughColumn` values → decoded tensors on
-  the device, from the covering pages only, with one upload, one K3 launch and one read
-  of the ok flags for all of them. :func:`inflate_column`, :func:`inflate_window` and
-  :func:`inflate_chunk` are its one-column cases.
+  the device, from the covering pages only, with one upload (:func:`stage_batch`), one
+  launch each of K3, the scan and K4, and one read back to the host.
+  :func:`inflate_column`, :func:`inflate_window` and :func:`inflate_chunk` are its
+  one-column cases.
 
 Every kernel wrapper runs its kernel on a CUDA tensor and its plain version beside it on
 a CPU tensor, and nothing else; ``<wrapper>.launches`` counts kernel launches. The numpy
 decoders of ``io/pagedec.py`` are the host twin: when a page's ``ok`` flag latches or a
-layout check fails, the stage raises :class:`DeviceInflateError`; the caller runs the
+page check fails, the stage raises :class:`DeviceInflateError`; the caller runs the
 host twin on the same pages to classify them, which raises
 :class:`~petastorm_tpu_torch.errors.PagedecCorruptError` if the bytes are bad, and
 raises :class:`KernelFaultError` if the twin decodes them (the device path delivers
 nothing the host decoded). A kernel that fails to build or launch raises
 ``RuntimeError`` to the caller.
 
-The stage reads a few values back to the host: the pages' ``ok`` flags (once a batch;
-the JAX package reads them once a column window), each data page's definition-level
-block length and bit width, each stream's ``ok`` flag and the dictionary index range
-check. On a CUDA device each read waits for
-the transfer stream; :data:`HOST_READS` counts them.
+The stage reads back to the host once a batch: K3's ok flags and each data page's
+verdict (a :data:`REASONS` code), in one vector; on a CUDA device the read waits for
+the transfer stream. :data:`HOST_READS` counts it. (The JAX package reads the ok flags
+once a column window and four values a nullable dictionary data page.)
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -83,12 +86,7 @@ class _Count:
 HOST_READS = _Count()
 
 
-def _host_int(t):
-    """One scalar of a device tensor on the host (counted in :data:`HOST_READS`)."""
-    HOST_READS.add()
-    return int(t.item())
-
-
+@functools.lru_cache(maxsize=None)
 def _torch_dtype(np_dtype):
     import torch
 
@@ -308,7 +306,375 @@ def stored_pages(comp, meta, out_cap):
     return out, meta[:, 0] == meta[:, 1]
 
 
-# -- RLE/bit-packed hybrid expansion ---------------------------------------------------
+# -- the batched run scan and K4 -------------------------------------------------------
+#
+# Both take a page table: one int64 row of PAGE_COLS a data page (csrc/pagedec.cu
+# PageCol). A page's bytes are [off, off + size) of K3's output (buf 0) or of the stored,
+# UNCOMPRESSED pages (buf 1).
+
+#: the page table's columns, in order (csrc/pagedec.cu PageCol)
+PAGE_COLS = ("buf", "off", "size", "ok_idx", "max_def", "enc", "num_values", "item",
+             "dict_buf", "dict_off", "dict_n", "run_off", "run_cap", "max_runs",
+             "stream_len", "lo", "hi", "dst")
+_COL = {name: i for i, name in enumerate(PAGE_COLS)}
+ENC_VALUES_PLAIN, ENC_VALUES_DICT, ENC_VALUES_INDICES = 0, 1, 2
+#: K4's values a block (csrc/pagedec.cu kValuesPerBlock): the block table's stride
+VALUES_PER_BLOCK = 1024
+#: a page's verdict (the scan's and K4's flag) → the DeviceInflateError message
+REASONS = {
+    1: "page inflate kernel latched ok=False",
+    2: "page too short for level block",
+    3: "level block past page end",
+    4: "PLAIN page shorter than its values",
+    5: "dictionary page missing",
+    6: "empty dictionary-index body",
+    7: "RLE expansion latched ok=False",
+    8: "dictionary index out of range",
+}
+_INFLATE, _RLE_LATCHED, _INDEX_RANGE = 1, 7, 8
+
+
+def page_row(**fields):
+    """One page table row: ``fields`` by :data:`PAGE_COLS` name; ``ok_idx`` and
+    ``stream_len`` default to -1, the rest to 0."""
+    row = [0] * len(PAGE_COLS)
+    row[_COL["ok_idx"]] = row[_COL["stream_len"]] = -1
+    for name, value in fields.items():
+        row[_COL[name]] = int(value)
+    return row
+
+
+def block_table(pages):
+    """K4's block-range table of a page table ((n, PAGE_COLS) int64 numpy): (n_blocks, 2)
+    int32 rows ``[page, first value]``, :data:`VALUES_PER_BLOCK` values a block, over every
+    value of a dictionary or index page and the delivered ``[lo, hi)`` of a PLAIN page."""
+    pages = np.asarray(pages, np.int64).reshape(-1, len(PAGE_COLS))
+    plain = pages[:, _COL["enc"]] == ENC_VALUES_PLAIN
+    start = np.where(plain, pages[:, _COL["lo"]], 0)
+    limit = np.where(plain, pages[:, _COL["hi"]], pages[:, _COL["num_values"]])
+    counts = np.maximum(0, -(-(limit - start) // VALUES_PER_BLOCK))
+    page = np.repeat(np.arange(len(pages)), counts)
+    rank = np.arange(len(page)) - np.repeat(np.cumsum(counts) - counts, counts)
+    return np.stack([page, start[page] + rank * VALUES_PER_BLOCK], 1).astype(np.int32)
+
+
+def _check_page_inputs(name, k3_out, stored, pages):
+    import torch
+
+    for what, t in (("K3 output", k3_out), ("stored pages", stored)):
+        if t.dtype != torch.uint8 or t.dim() != 1:
+            raise TypeError("%s takes a 1-D uint8 %s buffer, got %s %s"
+                            % (name, what, t.dtype, tuple(t.shape)))
+    if pages.dtype != torch.int64 or pages.dim() != 2 or pages.shape[1] != len(PAGE_COLS):
+        raise TypeError("%s takes an (n_pages, %d) int64 page table, got %s %s"
+                        % (name, len(PAGE_COLS), pages.dtype, tuple(pages.shape)))
+    if not k3_out.device == stored.device == pages.device:
+        raise ValueError("%s: buffers and page table on different devices" % name)
+
+
+def _clamped(buf, cap):
+    def rd(i):
+        return int(buf[min(max(i, 0), cap - 1)]) if cap > 0 else 0
+    return rd
+
+
+def _scan_page_plain(buffers, row, k3_ok, runs, m):
+    """One page of the plain scan (csrc/pagedec.cu scan_page): returns the verdict and
+    sets ``m`` = [stream_off, bit_width, n_runs]."""
+    r = dict(zip(PAGE_COLS, row))
+    ok_idx = r["ok_idx"]
+    if (ok_idx >= len(k3_ok) or not k3_ok[ok_idx]) if ok_idx >= 0 else ok_idx != -1:
+        return _INFLATE
+    buf = buffers[r["buf"]]
+    off, size = r["off"], r["size"]
+    if not (off >= 0 and size >= 0 and off <= buf.shape[0] - size):
+        return _INFLATE
+    page = buf[off:off + size]
+    pos = 0
+    if r["max_def"]:
+        if size < 4:
+            return 2
+        pos = 4 + int(page[:4].view("<u4")[0])
+        if pos > size:
+            return 3
+    total = r["num_values"]
+    if r["enc"] == ENC_VALUES_PLAIN:
+        m[0] = pos
+        return 4 if size - pos < total * r["item"] else 0
+    if r["enc"] == ENC_VALUES_DICT and r["dict_n"] < 0:
+        return 5
+    if size - pos < 1:
+        return 6
+    bit_width = int(page[pos])
+    m[0], m[1] = pos + 1, bit_width
+    if bit_width == 0:
+        return 0
+    if bit_width > _MAX_BIT_WIDTH:
+        return _RLE_LATCHED
+    data = page[pos + 1:]
+    cap = data.shape[0]
+    rd = _clamped(data, cap)
+    data_len = r["stream_len"] if r["stream_len"] >= 0 else cap
+    run_off, run_cap, max_runs = r["run_off"], r["run_cap"], r["max_runs"]
+    byte_width = (bit_width + 7) // 8
+    p = filled = nruns = 0
+    ok = True
+    while filled < total and ok:
+        header = shift = 0
+        done = False
+        while not done and ok:
+            b = rd(p)
+            if shift < 32:
+                header |= (b & 0x7F) << shift
+            done = (b & 0x80) == 0
+            ok = ok and p < data_len and shift <= 28
+            p += 1
+            shift += 7
+        header = _wrap32(header)
+        packed = (header & 1) == 1
+        groups = header >> 1
+        count = groups * 8 if packed else groups
+        consumed = groups * bit_width if packed else byte_width
+        v = 0
+        for k in range(byte_width):
+            v |= rd(p + k) << (8 * k)
+        ok = ok and p + consumed <= data_len and count > 0 and nruns < max_runs
+        idx = min(nruns, max_runs - 1)
+        if run_off >= 0 and idx < run_cap and run_off + idx < runs.shape[0]:
+            # a packed run's trailing values beyond `total` are spec-legal padding
+            runs[run_off + idx] = (min(filled + count, total), int(packed),
+                                   0 if packed else _wrap32(v), _wrap32(p))
+        p += consumed
+        filled += count
+        nruns += 1
+    m[2] = min(nruns, _INT32_MAX)
+    return 0 if ok and filled >= total else _RLE_LATCHED
+
+
+def _rle_scan_pages_plain(k3_out, stored, pages, k3_ok, runs_total):
+    """Plain version of the batched scan: a Python walk a page. Run entries it does not
+    write are zero."""
+    import torch
+
+    buffers = (k3_out.cpu().numpy(), stored.cpu().numpy())
+    ok = k3_ok.cpu().numpy()
+    rows = pages.cpu().numpy().tolist()
+    runs = np.zeros((runs_total, 4), np.int32)
+    meta = np.zeros((len(rows), 4), np.int32)
+    for i, row in enumerate(rows):
+        m = [0, 0, 0]
+        reason = _scan_page_plain(buffers, row, ok, runs, m)
+        meta[i] = m + [reason]
+    dev = pages.device
+    return (torch.from_numpy(runs).to(dev), torch.from_numpy(meta).to(dev),
+            torch.from_numpy(meta[:, 3].copy()).to(dev))
+
+
+def rle_scan_pages(k3_out, stored, pages, k3_ok, runs_total):
+    """The run scan over every data page of a batch: ONE launch.
+
+    ``k3_out``, ``stored``: 1-D uint8 buffers holding the pages' bytes (K3's output and
+    the stored pages); ``pages``: (n, len(PAGE_COLS)) int64 page table (:func:`page_row`);
+    ``k3_ok``: K3's (n_ok,) bool ok flags, which ``ok_idx`` indexes; ``runs_total``: rows
+    of the ragged run table, at least every page's ``run_off + run_cap``.
+
+    Per page, in the reference's order (``_decode_window``, then ``_rle_run_scan``): its
+    K3 flag, the level block's length read from its bytes, the PLAIN length check, the
+    dictionary and index-body checks, the bit width, then the run walk with the
+    reference's latches (a run of no values, an overrun stream, more than ``max_runs``
+    runs, fewer than ``num_values`` values; bounds in 64 bits). Returns ``(runs
+    (runs_total, 4) int32 [run_end, is_packed, rle_value, byte_pos] with only the
+    entries that exist written, meta (n, 4) int32 [stream_off, bit_width, n_runs,
+    verdict], flags (n,) int32 verdict)``, a verdict being 0 or a :data:`REASONS` code.
+
+    The scan kernel on CUDA tensors, the plain version on CPU tensors.
+    ``rle_scan_pages.launches`` counts kernel launches."""
+    import torch
+
+    _check_page_inputs("rle_scan_pages", k3_out, stored, pages)
+    runs_total = int(runs_total)
+    if runs_total < 0:
+        raise ValueError("rle_scan_pages: runs_total %d" % runs_total)
+    if k3_ok.dtype != torch.bool or k3_ok.dim() != 1 or k3_ok.device != pages.device:
+        raise TypeError("rle_scan_pages takes K3's 1-D bool ok flags on the pages' device")
+    if pages.device.type == "cpu":
+        return _rle_scan_pages_plain(k3_out, stored, pages, k3_ok, runs_total)
+    _require_cuda(pages, "rle_scan_pages")
+    from petastorm_tpu_torch.ops import kernels
+
+    dev = pages.device
+    k3_out, stored, pages, k3_ok = (t.contiguous() for t in (k3_out, stored, pages, k3_ok))
+    n = pages.shape[0]
+    runs = torch.empty((runs_total, 4), dtype=torch.int32, device=dev)
+    meta = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    flags = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return runs, meta, flags
+    rc = kernels.library().ptpu_rle_scan_pages(
+        k3_out.data_ptr(), k3_out.shape[0], stored.data_ptr(), stored.shape[0],
+        pages.data_ptr(), n, k3_ok.data_ptr(), k3_ok.shape[0], runs.data_ptr(), runs_total,
+        meta.data_ptr(), flags.data_ptr(), *kernels.launch_target(dev))
+    kernels.check_launch("rle_scan_pages", rc)
+    rle_scan_pages.launches += 1
+    return runs, meta, flags
+
+
+rle_scan_pages.launches = 0
+
+
+def _le_bytes(values, item):
+    """(k,) int64 → (k, item) uint8, little-endian."""
+    import torch
+
+    shifts = 8 * torch.arange(item, dtype=torch.int64)
+    return ((values[:, None] >> shifts[None, :]) & 0xFF).to(torch.uint8)
+
+
+def _extract_page_plain(buffers, r, m, runs, values, out):
+    """One page of the plain K4 over the values ``values`` (int64) it covers; returns
+    True where a dictionary index is out of range."""
+    import torch
+
+    item, lo, hi, dst = r["item"], r["lo"], r["hi"], r["dst"]
+    if not (item in (4, 8) and 0 <= lo <= hi <= r["num_values"] and dst >= 0
+            and dst % item == 0 and dst <= out.shape[0] - (hi - lo) * item):
+        return False
+    delivered = (values >= lo) & (values < hi)
+    at = (dst + (values[delivered] - lo) * item)[:, None] + torch.arange(item)[None, :]
+    buf = buffers[r["buf"]]
+    off, size, stream_off = r["off"], r["size"], int(m[0])
+    bit_width = int(m[1])
+    n_runs = min(int(m[2]), r["run_cap"], r["max_runs"])
+    run_off = r["run_off"]
+    runs_in = r["enc"] == ENC_VALUES_PLAIN or bit_width == 0 or (
+        n_runs >= 1 and 0 <= run_off <= runs.shape[0] - n_runs)
+    readable = off >= 0 and size >= 0 and off <= buf.shape[0] - size \
+        and 0 <= stream_off <= size and runs_in
+    if int(m[3]) != 0 or not readable:
+        out[at] = 0
+        return False
+    page = buf[off:off + size]
+    if r["enc"] == ENC_VALUES_PLAIN:
+        src = (stream_off + values[delivered] * item)[:, None] + torch.arange(item)[None, :]
+        out[at] = page[src]
+        return False
+    data = page[stream_off:]
+    cap = data.shape[0]
+    if bit_width == 0:
+        idx = torch.zeros_like(values)
+    else:
+        e = runs[run_off:run_off + n_runs].long()
+        rid = torch.searchsorted(e[:, 0].contiguous(), values, right=True).clamp(max=n_runs - 1)
+        run_start = torch.where(rid == 0, torch.zeros_like(rid), e[(rid - 1).clamp(min=0), 0])
+        bitpos = (e[rid, 3] & 0xFFFFFFFF) * 8 + (values - run_start) * bit_width
+        if cap:
+            gather = ((bitpos >> 3)[:, None] + torch.arange(5)[None, :]).clamp(0, cap - 1)
+            word = (data[gather].long() << (8 * torch.arange(5))[None, :]).sum(1)
+        else:
+            word = torch.zeros_like(values)
+        packed = (word >> (bitpos & 7)) & ((1 << bit_width) - 1)
+        idx = torch.where(e[rid, 1] != 0, packed, e[rid, 2] & 0xFFFFFFFF)
+    if r["enc"] == ENC_VALUES_INDICES:
+        out[at] = _le_bytes(idx[delivered], item)
+        return False
+    si = torch.where(idx >= 1 << 31, idx - (1 << 32), idx)  # the index as int32
+    dict_n = max(0, r["dict_n"])
+    dbuf, doff = buffers[r["dict_buf"]], r["dict_off"]
+    if not (doff >= 0 and doff <= dbuf.shape[0] - dict_n * item):
+        dict_n = 0
+    in_range = (si >= 0) & (si < dict_n)
+    if dict_n:
+        table = dbuf[doff:doff + dict_n * item].view(dict_n, item)
+        vals = table[si.clamp(0, dict_n - 1)]
+        vals[~in_range] = 0
+        out[at] = vals[delivered]
+    else:
+        out[at] = 0
+    return not bool(in_range.all())
+
+
+def _extract_pages_plain(k3_out, stored, pages, blocks, runs, meta, flags, out_bytes):
+    """Plain version of the batched K4: torch ops a page (the reference's run-id
+    ``searchsorted`` and window gather, then the dictionary gather), over the values the
+    block table gives each page. Output bytes no page writes are zero."""
+    import torch
+
+    buffers = (k3_out.cpu(), stored.cpu())
+    rows = pages.cpu().numpy().tolist()
+    blk = blocks.cpu().numpy()
+    runs_c, meta_c = runs.cpu(), meta.cpu().numpy()
+    out = torch.zeros((out_bytes,), dtype=torch.uint8)
+    latched = flags.cpu().clone()
+    for p, row in enumerate(rows):
+        firsts = blk[blk[:, 0] == p, 1].astype(np.int64)
+        if not len(firsts):
+            continue
+        r = dict(zip(PAGE_COLS, row))
+        limit = r["hi"] if r["enc"] == ENC_VALUES_PLAIN else r["num_values"]
+        values = torch.from_numpy(np.concatenate([
+            np.arange(f, min(f + VALUES_PER_BLOCK, limit)) for f in firsts]))
+        if _extract_page_plain(buffers, r, meta_c[p], runs_c, values, out):
+            latched[p] = _INDEX_RANGE
+    flags.copy_(latched.to(flags.device))
+    return out.to(pages.device)
+
+
+def extract_pages(k3_out, stored, pages, blocks, runs, meta, flags, out_bytes):
+    """K4 over every data page of a batch: ONE launch.
+
+    The buffers and ``pages`` as for :func:`rle_scan_pages`, and its ``runs``, ``meta``
+    and ``flags``; ``blocks``: (n_blocks, 2) int32 :func:`block_table`. Per value of a
+    dictionary page: its run among the page's real runs, ``(word >> shift) & mask`` from a
+    5-byte window clamped to the stream or the run's RLE value, the range check ``0 <=
+    index < dict_n`` (a failure latches the page's flag, in place, to the "dictionary
+    index out of range" code), and the dictionary value's bytes at the value's row of
+    the output; per value of a PLAIN page, its item bytes. Only the delivered values
+    ``[lo, hi)`` of a page are written, at ``dst``; a page whose verdict is not 0 writes
+    zeros there. Returns the (out_bytes,) uint8 output.
+
+    K4 on CUDA tensors, the plain version on CPU tensors. ``extract_pages.launches``
+    counts kernel launches."""
+    import torch
+
+    _check_page_inputs("extract_pages", k3_out, stored, pages)
+    n = pages.shape[0]
+    out_bytes = int(out_bytes)
+    for what, t, shape in (("blocks", blocks, (blocks.shape[0], 2)),
+                           ("runs", runs, (runs.shape[0], 4)), ("meta", meta, (n, 4)),
+                           ("flags", flags, (n,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != pages.device:
+            raise TypeError("extract_pages takes %s as %s int32 on the pages' device, got "
+                            "%s %s" % (what, shape, t.dtype, tuple(t.shape)))
+    if out_bytes < 0:
+        raise ValueError("extract_pages: out_bytes %d" % out_bytes)
+    if pages.device.type == "cpu":
+        return _extract_pages_plain(k3_out, stored, pages, blocks, runs, meta, flags,
+                                    out_bytes)
+    _require_cuda(pages, "extract_pages")
+    from petastorm_tpu_torch.ops import kernels
+
+    dev = pages.device
+    k3_out, stored, pages, blocks, runs, meta = (
+        t.contiguous() for t in (k3_out, stored, pages, blocks, runs, meta))
+    if not flags.is_contiguous() or runs.data_ptr() % 16:
+        raise ValueError("extract_pages: flags must be contiguous and runs 16-byte aligned")
+    out = torch.empty((out_bytes,), dtype=torch.uint8, device=dev)
+    if blocks.shape[0] == 0:
+        return out
+    rc = kernels.library().ptpu_extract_pages(
+        k3_out.data_ptr(), k3_out.shape[0], stored.data_ptr(), stored.shape[0],
+        pages.data_ptr(), n, blocks.data_ptr(), blocks.shape[0], runs.data_ptr(),
+        runs.shape[0], meta.data_ptr(), flags.data_ptr(), out.data_ptr(), out_bytes,
+        *kernels.launch_target(dev))
+    kernels.check_launch("extract_pages", rc)
+    extract_pages.launches += 1
+    return out
+
+
+extract_pages.launches = 0
+
+
+# -- the one-stream entry points: thin callers of the batched scan and K4 ---------------
 
 
 def _check_stream(data, name):
@@ -325,56 +691,24 @@ def _check_width(bit_width, name):
                          % (name, _MAX_BIT_WIDTH, bit_width))
 
 
-def _rle_run_scan_plain(data, data_len, total, max_runs, bit_width):
-    """Plain version of the run scan: a Python loop over the runs."""
+def _stream_page(data, data_len, bit_width, total, max_runs):
+    """One stream as a batch of one page: its bytes behind a bit-width byte, and the
+    (1, PAGE_COLS) page table (numpy) of an index page that reads them."""
     import torch
 
-    buf = data.cpu().numpy().tobytes()
-    cap = len(buf)
+    page = torch.cat([torch.full((1,), bit_width, dtype=torch.uint8, device=data.device),
+                      data])
+    row = page_row(size=page.shape[0], enc=ENC_VALUES_INDICES, num_values=total, item=4,
+                   run_cap=max_runs, max_runs=max_runs, stream_len=max(0, data_len),
+                   hi=total)
+    return page, np.asarray([row], np.int64)
 
-    def rd(i):
-        return buf[min(max(i, 0), cap - 1)] if cap else 0
 
-    run_end = np.full(max_runs, _INT32_MAX, np.int32)
-    is_packed = np.zeros(max_runs, np.int32)
-    rle_value = np.zeros(max_runs, np.int32)
-    bit_base = np.zeros(max_runs, np.int32)
-    byte_width = (bit_width + 7) // 8
-    pos = filled = nruns = 0
-    ok = True
-    while filled < total and ok:
-        header = shift = 0
-        done = False
-        while not done and ok:
-            b = rd(pos)
-            if shift < 32:
-                header |= (b & 0x7F) << shift
-            done = (b & 0x80) == 0
-            ok = ok and pos < data_len and shift <= 28
-            pos += 1
-            shift += 7
-        header = _wrap32(header)
-        packed = (header & 1) == 1
-        groups = header >> 1
-        count = groups * 8 if packed else groups
-        consumed = groups * bit_width if packed else byte_width
-        v = 0
-        for k in range(byte_width):
-            v |= rd(pos + k) << (8 * k)
-        ok = ok and pos + consumed <= data_len and count > 0 and nruns < max_runs
-        idx = min(nruns, max_runs - 1)
-        # a packed run's trailing values beyond `total` are spec-legal padding
-        run_end[idx] = min(filled + count, total)
-        is_packed[idx] = int(packed)
-        rle_value[idx] = 0 if packed else _wrap32(v)
-        bit_base[idx] = _wrap32(pos * 8)
-        pos += consumed
-        filled += count
-        nruns += 1
-    ok = ok and filled >= total
-    status = np.array([_wrap32(nruns), int(ok)], np.int32)
-    return tuple(torch.from_numpy(a).to(data.device)
-                 for a in (run_end, is_packed, rle_value, bit_base, status))
+def _no_pages(dev):
+    import torch
+
+    return (torch.empty((0,), dtype=torch.uint8, device=dev),
+            torch.empty((0,), dtype=torch.bool, device=dev))
 
 
 def rle_run_scan(data, data_len, total, max_runs, bit_width):
@@ -386,7 +720,8 @@ def rle_run_scan(data, data_len, total, max_runs, bit_width):
     [n_runs, ok]. ``ok`` latches 0 on a run of no values, an overrun stream, more than
     ``max_runs`` runs, or fewer than ``total`` values.
 
-    The scan kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    A thin caller of :func:`rle_scan_pages` over one page (the scan kernel on a CUDA
+    tensor, the plain version on a CPU tensor); the padding is done in torch around it."""
     import torch
 
     _check_stream(data, "rle_run_scan")
@@ -394,57 +729,26 @@ def rle_run_scan(data, data_len, total, max_runs, bit_width):
     _check_width(bit_width, "rle_run_scan")
     if max_runs < 1 or total < 0:
         raise ValueError("rle_run_scan: max_runs %d, total %d" % (max_runs, total))
-    if data.device.type == "cpu":
-        return _rle_run_scan_plain(data, int(data_len), total, max_runs, bit_width)
-    _require_cuda(data, "rle_run_scan")
-    from petastorm_tpu_torch.ops import kernels
-
-    data = data.contiguous()
-    tables = torch.empty((4, max_runs), dtype=torch.int32, device=data.device)
-    status = torch.empty((2,), dtype=torch.int32, device=data.device)
-    rc = kernels.library().ptpu_rle_run_scan(
-        data.data_ptr(), int(data_len), data.shape[0], total, max_runs, bit_width,
-        tables[0].data_ptr(), tables[1].data_ptr(), tables[2].data_ptr(),
-        tables[3].data_ptr(), status.data_ptr(), *kernels.launch_target(data.device))
-    kernels.check_launch("rle_run_scan", rc)
-    rle_run_scan.launches += 1
-    return tables[0], tables[1], tables[2], tables[3], status
-
-
-rle_run_scan.launches = 0
-
-
-def _rle_extract_plain(data, run_end, is_packed, rle_value, bit_base, bit_width, total):
-    """Plain version of K4: the reference's run-id ``searchsorted`` and window gather
-    (5 bytes, each index clamped to the stream), then ``(word >> shift) & mask`` or the
-    run's RLE value, in torch ops. A 32-bit value wraps to int32 as the kernel's does."""
-    import torch
-
-    dev = data.device
-    max_runs = run_end.shape[0]
-    cap = data.shape[0]
-    i = torch.arange(total, dtype=torch.int32, device=dev)
-    rid = torch.searchsorted(run_end, i, right=True).clamp(0, max_runs - 1)
-    prev = run_end[(rid - 1).clamp(0, max_runs - 1)].long()
-    run_start = torch.where(rid == 0, torch.zeros_like(prev), prev)
-    bitpos = bit_base[rid].long() + (i.long() - run_start) * bit_width
-    byte_off = bitpos >> 3
-    shift = bitpos & 7
-    if cap:
-        gather = (byte_off[:, None] + torch.arange(5, device=dev)[None, :]).clamp(0, cap - 1)
-        win = data[gather].long()
-    else:
-        win = torch.zeros((total, 5), dtype=torch.int64, device=dev)
-    word = (win << (8 * torch.arange(5, device=dev))[None, :]).sum(1)
-    packed = (word >> shift) & ((1 << bit_width) - 1)
-    return torch.where(is_packed[rid] != 0, packed, rle_value[rid].long()).to(torch.int32)
+    page, table = _stream_page(data, int(data_len), bit_width, total, max_runs)
+    stored, no_ok = _no_pages(data.device)
+    runs, meta, flags = rle_scan_pages(page, stored, torch.from_numpy(table).to(data.device),
+                                       no_ok, max_runs)
+    written = torch.arange(max_runs, device=data.device) < meta[0, 2].clamp(max=max_runs)
+    zero = torch.zeros((), dtype=torch.int32, device=data.device)
+    bit_base = (runs[:, 3].long() * 8 + (1 << 31)) % (1 << 32) - (1 << 31)
+    return (torch.where(written, runs[:, 0], torch.full_like(zero, _INT32_MAX)),
+            torch.where(written, runs[:, 1], zero), torch.where(written, runs[:, 2], zero),
+            torch.where(written, bit_base.int(), zero),
+            torch.stack([meta[0, 2], (flags[0] == 0).int()]))
 
 
 def rle_extract(data, run_end, is_packed, rle_value, bit_base, bit_width, total):
     """Phase 2 of :func:`rle_expand`: ``total`` int32 values of one stream from its run
-    tables (:func:`rle_run_scan`) and its bytes ``data``.
+    tables (:func:`rle_run_scan`; ``bit_base`` a multiple of 8, as the scan makes it) and
+    its bytes ``data``.
 
-    K4 on CUDA tensors, the plain version on CPU tensors."""
+    A thin caller of :func:`extract_pages` over one index page (K4 on CUDA tensors, the
+    plain version on CPU tensors)."""
     import torch
 
     _check_stream(data, "rle_extract")
@@ -458,25 +762,18 @@ def rle_extract(data, run_end, is_packed, rle_value, bit_base, bit_width, total)
                             "stream's device")
     if max_runs < 1:
         raise ValueError("rle_extract needs a run table")
-    if data.device.type == "cpu":
-        return _rle_extract_plain(data, *tables, bit_width, total)
-    _require_cuda(data, "rle_extract")
-    from petastorm_tpu_torch.ops import kernels
-
-    data = data.contiguous()
-    tables = [t.contiguous() for t in tables]
-    out = torch.empty((total,), dtype=torch.int32, device=data.device)
-    if total == 0:
-        return out
-    rc = kernels.library().ptpu_rle_extract(
-        data.data_ptr(), data.shape[0], *(t.data_ptr() for t in tables), max_runs,
-        bit_width, total, out.data_ptr(), *kernels.launch_target(data.device))
-    kernels.check_launch("rle_extract", rc)
-    rle_extract.launches += 1
-    return out
-
-
-rle_extract.launches = 0
+    dev = data.device
+    runs = torch.stack([run_end, is_packed, rle_value,
+                        ((bit_base.long() & 0xFFFFFFFF) >> 3).int()], 1)
+    rows = [page_row(size=data.shape[0], enc=ENC_VALUES_INDICES, num_values=total, item=4,
+                     run_cap=max_runs, max_runs=max_runs, hi=total)]
+    meta = torch.tensor([[0, bit_width, max_runs, 0]], dtype=torch.int32, device=dev)
+    flags = torch.zeros((1,), dtype=torch.int32, device=dev)
+    out = extract_pages(data, _no_pages(dev)[0], torch.tensor(rows, dtype=torch.int64,
+                                                              device=dev),
+                        torch.from_numpy(block_table(rows)).to(dev), runs, meta, flags,
+                        4 * total)
+    return out.view(torch.int32)
 
 
 def rle_expand(data, data_len, bit_width, total):
@@ -484,9 +781,11 @@ def rle_expand(data, data_len, bit_width, total):
 
     ``data``: (cap,) uint8 (the values section after the bit-width byte). Returns
     ``(values (total,) int32, ok)`` with ``ok`` a 0-dim bool tensor. Width 0 gives zeros;
-    a width over 32 (not Parquet) gives ``ok = False``."""
+    a width over 32 (not Parquet) gives ``ok = False``. One batched scan and one batched
+    K4 over the stream as a one-page batch; a latched stream's values are zeros."""
     import torch
 
+    _check_stream(data, "rle_expand")
     bit_width, total = int(bit_width), int(total)
     if bit_width == 0:
         return (torch.zeros((total,), dtype=torch.int32, device=data.device),
@@ -495,10 +794,14 @@ def rle_expand(data, data_len, bit_width, total):
         return (torch.zeros((total,), dtype=torch.int32, device=data.device),
                 torch.zeros((), dtype=torch.bool, device=data.device))
     max_runs = max(8, total)  # worst case: 1-value RLE runs
-    run_end, is_packed, rle_value, bit_base, status = rle_run_scan(
-        data, data_len, total, max_runs, bit_width)
-    values = rle_extract(data, run_end, is_packed, rle_value, bit_base, bit_width, total)
-    return values, status[1] != 0
+    page, table = _stream_page(data, int(data_len), bit_width, total, max_runs)
+    stored, no_ok = _no_pages(data.device)
+    blocks = torch.from_numpy(block_table(table)).to(data.device)
+    table = torch.from_numpy(table).to(data.device)
+    runs, meta, flags = rle_scan_pages(page, stored, table, no_ok, max_runs)
+    ok = flags[0] == 0
+    values = extract_pages(page, stored, table, blocks, runs, meta, flags, 4 * total)
+    return values.view(torch.int32), ok
 
 
 def bitcast_values(raw_bytes, dtype):
@@ -523,25 +826,16 @@ def _align(n):
     return -(-n // _PAGE_ALIGN) * _PAGE_ALIGN
 
 
-def _padded_specs(pages):
-    src_cap = max(1, max(p.comp_size for p in pages))
-    return [((len(pages), src_cap), np.uint8), ((len(pages), 2), np.int32)]
-
-
-def _fill_padded(chunk, pages, comp, meta):
-    buf = np.frombuffer(chunk.buf, np.uint8)
-    for i, p in enumerate(pages):
-        comp[i, :p.comp_size] = buf[p.payload_offset:p.payload_offset + p.comp_size]
-        comp[i, p.comp_size:] = 0
-        meta[i] = (p.comp_size, p.uncomp_size)
-
-
 def _pack_pages(chunk, pages):
     """Host prep of the padded entries (:func:`snappy_inflate_pages`,
     :func:`stored_pages`): the COMPRESSED page payloads zero-padded into one (n, src_cap)
     matrix + the (n, 2) page table. Returns ``(comp, meta, out_cap)``."""
-    comp, meta = (np.empty(shape, dtype) for shape, dtype in _padded_specs(pages))
-    _fill_padded(chunk, pages, comp, meta)
+    buf = np.frombuffer(chunk.buf, np.uint8)
+    comp = np.zeros((len(pages), max(1, max(p.comp_size for p in pages))), np.uint8)
+    meta = np.empty((len(pages), 2), np.int32)
+    for i, p in enumerate(pages):
+        comp[i, :p.comp_size] = buf[p.payload_offset:p.payload_offset + p.comp_size]
+        meta[i] = (p.comp_size, p.uncomp_size)
     return comp, meta, max(p.uncomp_size for p in pages)
 
 
@@ -603,6 +897,106 @@ def pack_ragged(groups):
     return layout, src, table
 
 
+class StoredLayout:
+    """Where the scan and K4 find the UNCOMPRESSED pages of several windows: each page's
+    ``uncomp_size`` bytes back to back, 16-byte aligned, its payload truncated or
+    zero-padded to them as :func:`stored_pages` does. These bytes cross the link in the
+    batch's one upload. ``offsets[i][j]``: page ``j`` of group ``i``."""
+
+    def __init__(self, groups):
+        self.groups = list(groups)
+        self.offsets, off = [], 0
+        for _chunk, pages in self.groups:
+            self.offsets.append([])
+            for p in pages:
+                self.offsets[-1].append(off)
+                off += _align(p.uncomp_size)
+        self.nbytes = off
+
+    def fill(self, dst):
+        for (chunk, pages), offs in zip(self.groups, self.offsets):
+            buf = np.frombuffer(chunk.buf, np.uint8)
+            for p, off in zip(pages, offs):
+                n = min(p.comp_size, p.uncomp_size)
+                dst[off:off + n] = buf[p.payload_offset:p.payload_offset + n]
+                dst[off + n:off + p.uncomp_size] = 0
+
+
+class _Window:
+    """One ``(chunk, skip, take)`` window of a column and its covering pages (the
+    dictionary page first when there is one); ``loc[i]`` = ``(buf, off, ok_idx)`` of page
+    ``i``: where its inflated bytes lie and its row of K3's ok vector (-1: a whole stored
+    page, -2: a stored page whose payload is not its uncompressed size)."""
+
+    __slots__ = ("name", "chunk", "skip", "take", "pages", "base", "loc", "rows")
+
+    def __init__(self, name, chunk, skip, take):
+        self.name, self.chunk, self.skip, self.take = name, chunk, skip, take
+        p0, p1, self.base = chunk.covering_pages(skip, take)
+        self.pages = ([chunk.dict_page] if chunk.dict_page is not None else []) \
+            + list(chunk.pages[p0:p1])
+        self.loc = self.rows = None
+
+    def inflated(self, k3_ok):
+        """Every page of the window inflated (K3's flags, the stored pages' sizes)."""
+        return all(k3_ok[i] if i >= 0 else i == -1 for _b, _o, i in self.loc)
+
+
+class BatchPlan:
+    """The page table, block table, run table size and output layout of one batch's
+    windows (``{name: [_Window]}``, columns in order), whose ``loc`` are set: one page
+    table row a data page, in column, window and page order (``w.rows`` is the window's
+    slice of them). Each column's output starts 16-byte aligned in one buffer of
+    ``out_bytes``; ``columns[name] = (offset, n_values, numpy dtype)``."""
+
+    def __init__(self, windows, dtypes):
+        rows, self.columns = [], {}
+        run_off = out_off = 0
+        for name, ws in windows.items():
+            dtype = np.dtype(dtypes[name])
+            item = dtype.itemsize
+            out_off = _align(out_off)
+            col_off, n_values = out_off, 0
+            for w in ws:
+                chunk = w.chunk
+                first = 1 if chunk.dict_page is not None else 0
+                dict_buf, dict_off, _i = w.loc[0] if first else (0, 0, 0)
+                dict_n = min(chunk.dict_page.num_values, chunk.dict_page.uncomp_size // item) \
+                    if first else -1
+                start, row0 = w.skip - w.base, len(rows)
+                s = 0  # the page's first value, counted from the window's first page
+                for page, (buf, off, ok_idx) in zip(w.pages[first:], w.loc[first:]):
+                    n = page.num_values
+                    lo = min(n, max(0, start - s))
+                    hi = max(lo, min(n, start + w.take - s))
+                    plain = page.encoding == ENC_PLAIN
+                    run_cap = 0 if plain else max(1, min(max(8, n), page.uncomp_size // 2 + 1))
+                    rows.append(page_row(
+                        buf=buf, off=off, size=page.uncomp_size, ok_idx=ok_idx,
+                        max_def=chunk.max_def, enc=ENC_VALUES_PLAIN if plain
+                        else ENC_VALUES_DICT, num_values=n, item=item, dict_buf=dict_buf,
+                        dict_off=dict_off, dict_n=dict_n, run_off=run_off, run_cap=run_cap,
+                        max_runs=max(8, n), lo=lo, hi=hi,
+                        dst=out_off + (n_values + s + lo - start) * item))
+                    run_off += run_cap
+                    s += n
+                w.rows = slice(row0, len(rows))
+                n_values += w.take
+            self.columns[name] = (col_off, n_values, dtype)
+            out_off = col_off + n_values * item
+        self.pages = np.asarray(rows, np.int64).reshape(-1, len(PAGE_COLS))
+        self.blocks = block_table(self.pages)
+        self.runs_total, self.out_bytes = run_off, out_off
+
+    def specs(self):
+        """``(shape, dtype)`` of the page table and the block table."""
+        return [(self.pages.shape, np.int64), (self.blocks.shape, np.int32)]
+
+    def fill(self, pages, blocks):
+        pages[...] = self.pages
+        blocks[...] = self.blocks
+
+
 def _upload(specs, fill, device, stager):
     """Host arrays of ``specs`` (``(shape, dtype)`` pairs), filled by ``fill(views)``, on
     ``device``: through one slab of ``stager`` (one non-blocking copy) on a CUDA device,
@@ -632,70 +1026,89 @@ def _as_device(device):
     return torch.device(device) if not isinstance(device, torch.device) else device
 
 
-class _Window:
-    """One ``(chunk, skip, take)`` window of a column and its covering pages (the
-    dictionary page first when there is one)."""
+def _verdict(windows, k3_ok, flags):
+    """Raise :class:`DeviceInflateError` for the first rejected page, in the order the
+    reference checks them: column by column, window by window, first every page's inflate
+    flag, then the dictionary page's length (a host check), then each data page's
+    verdict."""
+    for name, ws in windows.items():
+        try:
+            for w in ws:
+                if not w.inflated(k3_ok):
+                    raise DeviceInflateError(REASONS[_INFLATE])
+                dict_page = w.chunk.dict_page
+                if dict_page is not None and dict_page.num_values \
+                        > dict_page.uncomp_size // w.chunk.dtype.itemsize:
+                    raise DeviceInflateError("dictionary page shorter than its values")
+                for code in flags[w.rows]:
+                    if code:
+                        raise DeviceInflateError(REASONS[int(code)])
+        except DeviceInflateError as e:
+            e.column = name
+            raise
 
-    __slots__ = ("name", "chunk", "skip", "take", "pages", "base", "raw", "flags")
 
-    def __init__(self, name, chunk, skip, take):
-        self.name, self.chunk, self.skip, self.take = name, chunk, skip, take
-        p0, p1, self.base = chunk.covering_pages(skip, take)
-        self.pages = ([chunk.dict_page] if chunk.dict_page is not None else []) \
-            + list(chunk.pages[p0:p1])
-        self.raw = self.flags = None
+class StagedBatch:
+    """One batch's pages and tables on the device (:func:`stage_batch`): the windows by
+    column, the host layouts (:class:`RaggedLayout`, :class:`StoredLayout`,
+    :class:`BatchPlan`) and the uploaded arrays ``src``, ``table`` (K3's), ``stored``,
+    ``pages`` and ``blocks``."""
+
+    __slots__ = ("windows", "layout", "stored_layout", "plan", "src", "table", "stored",
+                 "pages", "blocks")
+
+    def __init__(self, **fields):
+        for name, value in fields.items():
+            setattr(self, name, value)
+
+    def run(self):
+        """The three launches on the current stream, K3 (when a page is snappy), the scan
+        and K4: returns ``(k3_out, k3_ok, runs, meta, flags, values)``, ``values`` the
+        one output buffer of every column (:attr:`BatchPlan.columns`)."""
+        if self.layout.groups:
+            out, ok = snappy_inflate_ragged(self.src, self.table, self.layout.out_bytes)
+        else:
+            out, ok = _no_pages(self.pages.device)
+        runs, meta, flags = rle_scan_pages(out, self.stored, self.pages, ok,
+                                           self.plan.runs_total)
+        values = extract_pages(out, self.stored, self.pages, self.blocks, runs, meta, flags,
+                               self.plan.out_bytes)
+        return out, ok, runs, meta, flags, values
 
 
-def _decode_window(w):
-    """The window's values from its inflated pages ``w.raw`` ((n, out_cap) uint8 on the
-    device): dictionary, level blocks, PLAIN or RLE_DICTIONARY values, then the rows
-    ``[skip, skip + take)``."""
-    import torch
+def stage_batch(columns, device, stager=None):
+    """Host prep and the ONE upload of a batch's pages (:func:`inflate_columns`): returns
+    a :class:`StagedBatch`, or ``None`` when no column has a row."""
+    windows = {name: [_Window(name, chunk, skip, take)
+                      for chunk, skip, take in column.parts if take]
+               for name, column in columns.items()}
+    flat = [w for ws in windows.values() for w in ws]
+    if not flat:
+        return None
+    snappy = [w for w in flat if w.chunk.codec == "SNAPPY"]
+    stored = [w for w in flat if w.chunk.codec != "SNAPPY"]
+    layout = RaggedLayout([(w.chunk, w.pages) for w in snappy])
+    k3_row = 0
+    for i, w in enumerate(snappy):
+        off, _n, stride, _cap = layout.matrices[i]
+        w.loc = [(0, off + j * stride, k3_row + j) for j in range(len(w.pages))]
+        k3_row += len(w.pages)
+    stored_layout = StoredLayout([(w.chunk, w.pages) for w in stored])
+    for w, offs in zip(stored, stored_layout.offsets):
+        w.loc = [(1, off, -1 if p.comp_size == p.uncomp_size else -2)
+                 for p, off in zip(w.pages, offs)]
+    plan = BatchPlan(windows, {name: col.dtype for name, col in columns.items()})
 
-    chunk, raw = w.chunk, w.raw
-    pos = 0
-    dict_vals = None
-    if chunk.dict_page is not None:
-        dict_vals = bitcast_values(raw[0, :chunk.dict_page.uncomp_size], chunk.dtype)
-        if chunk.dict_page.num_values > dict_vals.shape[0]:
-            raise DeviceInflateError("dictionary page shorter than its values")
-        dict_vals = dict_vals[:chunk.dict_page.num_values]
-        pos = 1
-    outs = []
-    for i, page in enumerate(w.pages[pos:]):
-        body = raw[pos + i, :page.uncomp_size]
-        off = 0
-        if chunk.max_def:
-            if page.uncomp_size < 4:
-                raise DeviceInflateError("page too short for level block")
-            # the level-block length is part of the page layout: 4 bytes read back to the
-            # host, so the slicing below has a host offset
-            HOST_READS.add()
-            head = body[:4].cpu().numpy().view("<u4")[0]
-            off = 4 + int(head)
-            if off > page.uncomp_size:
-                raise DeviceInflateError("level block past page end")
-        values = body[off:]
-        if page.encoding == ENC_PLAIN:
-            need = page.num_values * chunk.dtype.itemsize
-            if values.shape[0] < need:
-                raise DeviceInflateError("PLAIN page shorter than its values")
-            outs.append(bitcast_values(values[:need], chunk.dtype))
-        else:  # RLE_DICTIONARY / PLAIN_DICTIONARY
-            if dict_vals is None:
-                raise DeviceInflateError("dictionary page missing")
-            if values.shape[0] < 1:
-                raise DeviceInflateError("empty dictionary-index body")
-            bit_width = _host_int(values[0])
-            idx, ok = rle_expand(values[1:], values.shape[0] - 1, bit_width,
-                                 page.num_values)
-            if not _host_int(ok):
-                raise DeviceInflateError("RLE expansion latched ok=False")
-            if not _host_int(((idx >= 0) & (idx < dict_vals.shape[0])).all()):
-                raise DeviceInflateError("dictionary index out of range")
-            outs.append(dict_vals.index_select(0, idx.long()))
-    full = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return full[w.skip - w.base:w.skip - w.base + w.take]
+    def fill(views):
+        layout.fill(views[0], views[1])
+        stored_layout.fill(views[2])
+        plan.fill(views[3], views[4])
+
+    arrays = _upload(layout.specs() + [((stored_layout.nbytes,), np.uint8)] + plan.specs(),
+                     fill, device, stager)
+    return StagedBatch(windows=windows, layout=layout, stored_layout=stored_layout,
+                       plan=plan, **dict(zip(("src", "table", "stored", "pages", "blocks"),
+                                             arrays)))
 
 
 def inflate_columns(columns, device=None, stager=None):
@@ -704,71 +1117,30 @@ def inflate_columns(columns, device=None, stager=None):
     on ``device`` (``None``: the CUDA device), each for exactly its rows, from the
     COVERING pages of each window only (plus the dictionary page when one exists).
 
-    The compressed pages of every window of every column cross the link in ONE upload
-    (one slab of ``stager``, a
-    :class:`~petastorm_tpu_torch.io.staging.PinnedStagingPool`, when given): snappy pages
-    packed back to back (:class:`RaggedLayout`) for ONE K3 launch
-    (:func:`snappy_inflate_ragged`), UNCOMPRESSED pages as padded matrices for
-    :func:`stored_pages`. Every page's ``ok`` flag comes back to the host in ONE read.
-    Then each column's dictionary, level-block and RLE steps run, column by column, on
-    views of the one output buffer.
+    The pages of every window of every column cross the link in ONE upload (one slab of
+    ``stager``, a :class:`~petastorm_tpu_torch.io.staging.PinnedStagingPool`, when given),
+    with the batch's page table and block table (:class:`BatchPlan`): snappy pages packed
+    back to back (:class:`RaggedLayout`) for ONE K3 launch (:func:`snappy_inflate_ragged`),
+    UNCOMPRESSED pages as they are stored (:class:`StoredLayout`). Then ONE scan launch
+    (:func:`rle_scan_pages`) and ONE K4 launch (:func:`extract_pages`) over every data
+    page, which write each column's values into one output buffer. K3's ok flags and the
+    pages' verdicts come back to the host in ONE read.
 
-    Raises :class:`DeviceInflateError`, its ``column`` naming the column, when a page's
-    ok flag latched or a layout check failed."""
+    Raises :class:`DeviceInflateError`, its ``column`` naming the first column (in
+    ``columns`` order) with a rejected page, with the reference's message for it."""
     import torch
 
     device = _as_device(device)
-    windows = {name: [_Window(name, chunk, skip, take)
-                      for chunk, skip, take in column.parts if take]
-               for name, column in columns.items()}
-    flat = [w for ws in windows.values() for w in ws]
-    snappy = [w for w in flat if w.chunk.codec == "SNAPPY"]
-    stored = [w for w in flat if w.chunk.codec != "SNAPPY"]
-    layout = RaggedLayout([(w.chunk, w.pages) for w in snappy])
-    specs = layout.specs()
-    for w in stored:
-        specs += _padded_specs(w.pages)
-
-    def fill(views):
-        layout.fill(views[0], views[1])
-        for k, w in enumerate(stored):
-            _fill_padded(w.chunk, w.pages, views[2 + 2 * k], views[3 + 2 * k])
-
-    arrays = _upload(specs, fill, device, stager) if flat else []
-    oks = []
-    n_flags = 0
-    if snappy:
-        out, ok = snappy_inflate_ragged(arrays[0], arrays[1], layout.out_bytes)
-        oks.append(ok)
-    for i, w in enumerate(snappy):
-        w.raw = layout.matrix(out, i)
-    for k, w in enumerate(stored):
-        w.raw, ok = stored_pages(arrays[2 + 2 * k], arrays[3 + 2 * k],
-                                 max(p.uncomp_size for p in w.pages))
-        oks.append(ok)
-    for w in snappy + stored:
-        w.flags = slice(n_flags, n_flags + len(w.pages))
-        n_flags += len(w.pages)
-    if oks:
-        HOST_READS.add()  # every page's ok flag, in one read
-        flags = torch.cat(oks).cpu().numpy()
-    result = {}
-    for name, ws in windows.items():
-        try:
-            outs = []
-            for w in ws:
-                if not flags[w.flags].all():
-                    raise DeviceInflateError("page inflate kernel latched ok=False")
-                outs.append(_decode_window(w))
-        except DeviceInflateError as e:
-            e.column = name
-            raise
-        if not outs:
-            result[name] = torch.zeros((0,), dtype=_torch_dtype(columns[name].dtype),
-                                       device=device)
-        else:
-            result[name] = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return result
+    batch = stage_batch(columns, device, stager)
+    if batch is None:
+        return {name: torch.zeros((0,), dtype=_torch_dtype(np.dtype(col.dtype)),
+                                  device=device) for name, col in columns.items()}
+    _out, ok, _runs, _meta, flags, values = batch.run()
+    HOST_READS.add()  # K3's ok flags and every data page's verdict, in one read
+    both = torch.cat([ok.to(torch.int32), flags]).cpu().numpy()
+    _verdict(batch.windows, both[:ok.shape[0]], both[ok.shape[0]:])
+    return {name: values[off:off + n * dtype.itemsize].view(_torch_dtype(dtype))
+            for name, (off, n, dtype) in batch.plan.columns.items()}
 
 
 def inflate_column(column, device=None, stager=None):

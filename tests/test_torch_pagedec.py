@@ -5,6 +5,7 @@ numpy host twin.
 Tolerance: exact everywhere. Pages, bytes, run tables, indices and decoded values are
 compared byte for byte, and ``ok`` flags for equality. The CUDA kernels are held against
 their plain versions by the ``gpu``-marked tests, which skip without a card."""
+import inspect
 import io
 import os
 import pickle
@@ -378,17 +379,19 @@ def test_stored_pages_equal_reference():
 # -- run scan and K4 ---------------------------------------------------------------------
 
 
-def _hybrid_stream(rng, bw):
-    """An RLE run, bit-packed groups and another RLE run, as the Parquet writer emits."""
+def _hybrid_stream(rng, bw, high=None):
+    """An RLE run, bit-packed groups and another RLE run, as the Parquet writer emits;
+    values below ``high`` (default ``2**bw``)."""
+    high = 1 << bw if high is None else high
     vals, out = [], bytearray()
     for kind in ("rle", "packed", "rle"):
         if kind == "rle":
-            run, v = int(rng.integers(1, 40)), int(rng.integers(0, 1 << bw))
+            run, v = int(rng.integers(1, 40)), int(rng.integers(0, high))
             out += bytes([run << 1]) + v.to_bytes((bw + 7) // 8, "little")
             vals += [v] * run
         else:
             groups = int(rng.integers(1, 5))
-            packed = rng.integers(0, 1 << bw, size=groups * 8)
+            packed = rng.integers(0, high, size=groups * 8)
             bits = np.unpackbits(packed.astype("<u4").view(np.uint8).reshape(-1, 4),
                                  bitorder="little", axis=1)[:, :bw].ravel()
             out += bytes([(groups << 1) | 1]) + np.packbits(bits, bitorder="little").tobytes()
@@ -476,6 +479,321 @@ def test_run_scan_and_extract_wide_widths_equal_host_twin(bw):
         == vals[:total]
 
 
+# -- the batched scan and K4 -------------------------------------------------------------
+
+
+def _varint(v):
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _level_block(n):
+    """A v1 data page's definition-level block: every one of ``n`` values present."""
+    levels = _varint(n << 1) + b"\x01"
+    return len(levels).to_bytes(4, "little") + levels
+
+
+def _mixed_columns(codec):
+    """{name: PassthroughColumn} of one batch over two stores: a one-value dictionary
+    (pyarrow writes its indices at width 1; width 0 is in the hand-made batch below), and
+    dictionary widths 1, 9, 11 and 15-17, PLAIN pages, nullable and non-nullable columns,
+    int32/int64/float32/float64, windows cut across row groups (rows [37, 5037) of 6,000
+    in row groups of 3,000) and one 70,000-row chunk read whole."""
+    rng = np.random.default_rng(77)
+    n = 6000
+    table = pa.table({
+        "w0": pa.array(np.full(n, 7, np.int32)),
+        "w1": pa.array(rng.integers(0, 2, n).astype(np.int64)),
+        "w9": pa.array(rng.integers(0, 300, n).astype(np.int32)),
+        "w12": pa.array(rng.integers(0, 3000, n).astype(np.float32)),
+        "plain_f": pa.array(rng.normal(size=n)),
+        "plain_i": pa.array(rng.integers(0, 1 << 30, n).astype(np.int32)),
+    }, schema=pa.schema([
+        pa.field("w0", pa.int32(), nullable=False), pa.field("w1", pa.int64()),
+        pa.field("w9", pa.int32(), nullable=False), pa.field("w12", pa.float32()),
+        pa.field("plain_f", pa.float64(), nullable=False), pa.field("plain_i", pa.int32())]))
+    data = _write(table, compression=codec, row_group_size=3000, data_page_size=4096,
+                  use_dictionary=["w0", "w1", "w9", "w12"])
+    md = pq.read_metadata(io.BytesIO(data))
+    cols = {}
+    for c, name in enumerate(table.column_names):
+        whole = pd.PassthroughColumn.concat([pd.PassthroughColumn.from_chunk(
+            _build(pd, data, md, rg, c)) for rg in range(md.num_row_groups)])
+        cols[name] = whole.slice(37, 5000)
+    wide = pa.table({"w17": pa.array(rng.permutation(70000).astype(np.int32))})
+    data = _write(wide, compression=codec, row_group_size=70000)
+    md = pq.read_metadata(io.BytesIO(data))
+    cols["w17"] = pd.PassthroughColumn.from_chunk(_build(pd, data, md, 0, 0))
+    return cols
+
+
+def _page_bytes(batch, out, row):
+    r = dict(zip(pk.PAGE_COLS, row))
+    buf = (out, batch.stored)[r["buf"]]
+    return r, buf[r["off"]:r["off"] + r["size"]]
+
+
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+def test_batched_plain_versions_equal_reference_and_host_twin_on_a_mixed_batch(codec):
+    """The plain versions of the batched scan and K4 over a batch of mixed columns, page
+    for page: the real run entries equal the reference's ``_rle_run_scan``, the indices
+    its ``rle_expand`` (interpret mode) and the host twin's ``rle_bp_decode``, and each
+    column equals ``PassthroughColumn.materialize``."""
+    cols = _mixed_columns(codec)
+    batch = pk.stage_batch(cols, CPU)
+    out, ok, runs, meta, flags, values = batch.run()
+    assert ok.all() and not flags.any()
+    column_of = {p: name for name, ws in batch.windows.items() for w in ws
+                 for p in range(w.rows.start, w.rows.stop)}
+    widths, kinds = set(), set()
+    for p, row in enumerate(batch.plan.pages.tolist()):
+        r, page = _page_bytes(batch, out, row)
+        m = meta[p].tolist()
+        kinds.add((r["enc"], r["max_def"], r["item"]))
+        if r["enc"] == pk.ENC_VALUES_PLAIN:
+            continue
+        stream, bw, n = page[m[0]:].numpy(), m[1], r["num_values"]
+        widths.add(bw)
+        idx = pd.rle_bp_decode(stream.tobytes(), bw, n)
+        if bw:
+            theirs = ref_pk._rle_run_scan(jnp.asarray(stream), len(stream), n, max(8, n), bw)
+            assert m[2] == int(theirs[4]) and bool(theirs[5])
+            ours = runs[r["run_off"]:r["run_off"] + m[2]]
+            assert ours[:, 0].tolist() == np.asarray(theirs[0])[:m[2]].tolist()
+            assert ours[:, 1].tolist() == np.asarray(theirs[1])[:m[2]].tolist()
+            assert ours[:, 2].tolist() == np.asarray(theirs[2])[:m[2]].tolist()
+            assert (ours[:, 3] * 8).tolist() == np.asarray(theirs[3])[:m[2]].tolist()
+            want, their_ok = ref_pk.rle_expand(stream, len(stream), bw, n, interpret=True)
+            assert bool(their_ok) and np.asarray(want).tolist() == idx.tolist()
+        dtype = batch.plan.columns[column_of[p]][2]
+        d = (out, batch.stored)[r["dict_buf"]][r["dict_off"]:r["dict_off"]
+                                               + r["dict_n"] * r["item"]].numpy().view(dtype)
+        got = values[r["dst"]:r["dst"] + (r["hi"] - r["lo"]) * r["item"]].numpy().view(dtype)
+        assert got.tobytes() == d[idx[r["lo"]:r["hi"]]].tobytes()
+    assert {1, 9, 11, 17} <= widths
+    assert {(pk.ENC_VALUES_PLAIN, 0, 8), (pk.ENC_VALUES_PLAIN, 1, 4),
+            (pk.ENC_VALUES_DICT, 0, 4), (pk.ENC_VALUES_DICT, 1, 8)} <= kinds
+    got = pk.inflate_columns(cols, CPU)
+    for name, col in cols.items():
+        twin = col.materialize()
+        assert got[name].numpy().dtype == twin.dtype
+        assert got[name].numpy().tobytes() == twin.tobytes(), name
+
+
+def _hand_batch(specs, rng):
+    """A batch of hand-made dictionary pages in one stored buffer: ``specs`` rows
+    ``(bit_width, n, max_def, lo, hi)``, each page's stream a random one of indices below
+    a 50-value int32 dictionary, or ``(..., stream, max_runs)``. Returns ``(stored, pages,
+    dictionary, streams, runs_total, out_bytes)``."""
+    dictionary = rng.integers(-1 << 31, 1 << 31, 50).astype("<i4")
+    buf = bytearray(dictionary.tobytes())
+    rows, streams, run_off, dst = [], [], 0, 0
+    for bw, n, max_def, lo, hi, *given in specs:
+        buf += bytes(-len(buf) % 16)
+        if given:
+            stream = given[0]
+        elif bw:
+            stream, vals = _hybrid_stream(rng, bw, high=50)
+            while len(vals) < n:
+                more, extra = _hybrid_stream(rng, bw, high=50)
+                stream, vals = stream + more, vals + extra
+        else:
+            stream = b""
+        body = (_level_block(n) if max_def else b"") + bytes([bw]) + stream
+        rows.append(pk.page_row(buf=1, off=len(buf), size=len(body), max_def=max_def,
+                                enc=pk.ENC_VALUES_DICT, num_values=n, item=4, dict_buf=1,
+                                dict_n=50, run_off=run_off, run_cap=len(body) // 2 + 1,
+                                max_runs=given[1] if given else max(8, n), lo=lo, hi=hi,
+                                dst=dst))
+        streams.append(stream)
+        buf += body
+        run_off += len(body) // 2 + 1
+        dst += 4 * (hi - lo)
+    return (torch.from_numpy(np.frombuffer(bytes(buf), np.uint8).copy()),
+            torch.tensor(rows, dtype=torch.int64), dictionary, streams, run_off, dst)
+
+
+def test_batched_plain_versions_take_every_width_on_hand_made_pages():
+    """Widths 0, 1, 9, 17, 24, 25 and 32 side by side in one batch (wide widths with
+    indices below the dictionary's size, as a writer may emit): the run entries equal the
+    reference's scan, the delivered values the dictionary at the host twin's indices
+    (and at the reference's ``rle_expand`` indices up to its 24-bit limit)."""
+    rng = np.random.default_rng(5)
+    specs = [(0, 40, 0, 0, 40), (1, 300, 1, 10, 290), (9, 70, 0, 0, 70),
+             (17, 1000, 1, 999, 1000), (24, 64, 0, 3, 60), (25, 90, 1, 0, 90),
+             (32, 2100, 0, 0, 2100)]
+    stored, pages, dictionary, streams, runs_total, out_bytes = _hand_batch(specs, rng)
+    empty = torch.empty(0, dtype=torch.uint8)
+    runs, meta, flags = pk.rle_scan_pages(empty, stored, pages, torch.empty(0, dtype=torch.bool),
+                                          runs_total)
+    assert not flags.any()
+    blocks = torch.from_numpy(pk.block_table(pages.numpy()))
+    out = pk.extract_pages(empty, stored, pages, blocks, runs, meta, flags, out_bytes)
+    assert not flags.any()
+    got = out.numpy().view("<i4")
+    at = 0
+    for (bw, n, _md, lo, hi), stream, m, row in zip(specs, streams, meta.tolist(),
+                                                    pages.tolist()):
+        idx = pd.rle_bp_decode(stream, bw, n)
+        assert got[at:at + hi - lo].tolist() == dictionary[idx[lo:hi]].tolist(), bw
+        at += hi - lo
+        if not bw:
+            continue
+        data = np.frombuffer(stream, np.uint8)
+        theirs = ref_pk._rle_run_scan(jnp.asarray(data), len(data), n, max(8, n), bw)
+        r = dict(zip(pk.PAGE_COLS, row))
+        ours = runs[r["run_off"]:r["run_off"] + m[2]]
+        assert m[2] == int(theirs[4]) and bool(theirs[5])
+        for k in range(3):
+            assert ours[:, k].tolist() == np.asarray(theirs[k])[:m[2]].tolist()
+        if bw <= 24:
+            want, _ok = ref_pk.rle_expand(data, len(data), bw, n, interpret=True)
+            assert np.asarray(want).tolist() == idx.tolist()
+
+
+def test_batched_scan_latches_more_runs_than_max_runs():
+    """A page of six one-value RLE runs under a table row whose ``max_runs`` is 4
+    latches "RLE expansion latched ok=False", as the reference's scan latches ok=False;
+    its neighbours decode."""
+    rng = np.random.default_rng(8)
+    stream = b"".join(bytes([2, v]) for v in range(6))
+    stored, pages, _d, _s, runs_total, _ob = _hand_batch(
+        [(9, 30, 0, 0, 30), (3, 6, 0, 0, 6, stream, 4), (9, 30, 1, 0, 30)], rng)
+    body = bytes([3]) + stream
+    runs, meta, flags = pk.rle_scan_pages(torch.empty(0, dtype=torch.uint8), stored, pages,
+                                          torch.empty(0, dtype=torch.bool), runs_total)
+    theirs = ref_pk._rle_run_scan(jnp.asarray(np.frombuffer(body[1:], np.uint8)),
+                                  len(body) - 1, 6, 4, 3)
+    assert not bool(theirs[5]) and int(theirs[4]) == meta[1, 2].item() == 5
+    assert flags.tolist() == [0, 7, 0] and pk.REASONS[7] == "RLE expansion latched ok=False"
+
+
+def test_batched_plain_versions_write_nothing_outside_the_run_table():
+    """A table row whose run entries start before the run table (``run_off`` < 0): the
+    scan writes none of its entries, not even at the table's end, and K4 writes zeros for
+    its values; its neighbours decode as alone."""
+    rng = np.random.default_rng(9)
+    stored, pages, dictionary, streams, runs_total, out_bytes = _hand_batch(
+        [(9, 30, 0, 0, 30), (9, 30, 1, 0, 30), (9, 30, 0, 0, 30)], rng)
+    empty, no_ok = torch.empty(0, dtype=torch.uint8), torch.empty(0, dtype=torch.bool)
+    blocks = torch.from_numpy(pk.block_table(pages.numpy()))
+    runs, meta, flags = pk.rle_scan_pages(empty, stored, pages, no_ok, runs_total)
+    want = pk.extract_pages(empty, stored, pages, blocks, runs, meta, flags, out_bytes)
+    moved = pages.clone()
+    moved[1, pk.PAGE_COLS.index("run_off")] = -3
+    m_runs, m_meta, m_flags = pk.rle_scan_pages(empty, stored, moved, no_ok, runs_total)
+    own = slice(int(pages[1, pk.PAGE_COLS.index("run_off")]),
+                int(pages[2, pk.PAGE_COLS.index("run_off")]))
+    assert not m_runs[own].any() and torch.equal(m_runs[-3:], runs[-3:])
+    assert torch.equal(m_meta, meta) and m_flags.tolist() == flags.tolist() == [0, 0, 0]
+    got = pk.extract_pages(empty, stored, moved, blocks, m_runs, m_meta, m_flags, out_bytes)
+    assert not got[120:240].any() and got[120:240].numel() == 120
+    assert torch.equal(got[:120], want[:120]) and torch.equal(got[240:], want[240:])
+    assert want[120:240].view(torch.int32).tolist() == dictionary[
+        pd.rle_bp_decode(streams[1], 9, 30)].tolist()
+
+
+_CRAFTED = [
+    # (case, max_def, page body after the level block, dictionary size, reason)
+    ("run of no values", 0, bytes([2, 0x00, 1]), 3, 7),
+    ("overrun stream", 1, bytes([2, 0x09, 0xAB, 0xCD]), 3, 7),
+    ("short stream", 0, bytes([2, 6, 1]), 3, 7),
+    ("2^27-group header", 1, bytes([16]) + _varint(((1 << 27) << 1) | 1)
+     + bytes(range(1, 17)), 3, 7),
+    ("width 33", 0, bytes([33, 20, 1, 0, 0, 0, 0]), 3, 7),
+    ("out-of-range index", 1, bytes([3, 20, 5]), 3, 8),
+    ("level block past page end", 1, None, 3, 3),
+    ("empty index body", 1, b"", 3, 6),
+]
+
+
+def _crafted_chunk(mod, dictionary, max_def, bodies, num_values=10):
+    """A stored (UNCOMPRESSED) chunk of hand-made pages in ``mod`` (the port's or the
+    reference's io.pagedec): an int32 dictionary page, then one data page a body; a body
+    of ``None`` is a level block whose length runs past its page."""
+    buf, pages = bytearray(), []
+
+    def add(kind, enc, n, raw):
+        pages.append(mod.PageInfo(kind, enc, None if kind == mod.PAGE_DICT else mod.ENC_RLE,
+                                  n, len(buf), len(buf), len(raw), len(raw)))
+        buf.extend(raw)
+
+    add(mod.PAGE_DICT, mod.ENC_PLAIN, len(dictionary), dictionary.astype("<i4").tobytes())
+    for body in bodies:
+        if body is None:
+            raw = (1000).to_bytes(4, "little") + bytes(8)
+        else:
+            raw = (_level_block(num_values) if max_def else b"") + body
+        add(mod.PAGE_DATA, mod.ENC_RLE_DICT, num_values, raw)
+    return mod.PassthroughChunk(bytes(buf), "UNCOMPRESSED", np.int32, max_def, pages[0],
+                                pages[1:])
+
+
+@pytest.mark.parametrize("case,max_def,body,dict_n,reason", _CRAFTED,
+                         ids=[c[0] for c in _CRAFTED])
+def test_crafted_streams_latch_their_page_and_name_their_column(case, max_def, body, dict_n,
+                                                                reason):
+    """A crafted page among a batch's real columns: its page's flag, alone, latches the
+    expected reason; the other columns' values equal the host twin; the batch raises
+    DeviceInflateError naming the column with the reference's message, and the host twin
+    rejects the page too."""
+    dictionary = np.array([11, 22, 33][:dict_n], np.int32)
+    good = (bytes([2]) + bytes([20, 1]))  # 10 values of index 1
+    chunk = _crafted_chunk(pd, dictionary, max_def, [good, body, good])
+    cols = _batch_columns(codecs=("snappy", "none"))
+    names = sorted(cols)
+    cols = {**{k: cols[k] for k in names[:3]}, "bad": pd.PassthroughColumn.from_chunk(chunk),
+            **{k: cols[k] for k in names[3:]}}
+    batch = pk.stage_batch(cols, CPU)
+    _out, ok, _runs, _meta, flags, values = batch.run()
+    bad_rows = batch.windows["bad"][0].rows
+    assert ok.all()
+    assert flags.tolist() == [reason if i == bad_rows.start + 1 else 0
+                              for i in range(len(flags))]
+    for name, (off, n, dtype) in batch.plan.columns.items():
+        if name != "bad":
+            assert values[off:off + n * dtype.itemsize].numpy().tobytes() \
+                == cols[name].materialize().tobytes(), name
+    with pytest.raises(pk.DeviceInflateError) as err:
+        pk.inflate_columns(cols, CPU)
+    assert err.value.column == "bad" and str(err.value) == pk.REASONS[reason]
+    with pytest.raises(PagedecCorruptError):
+        cols["bad"].materialize()
+    if case != "2^27-group header":  # the reference's int32 byte count wraps and passes
+        ref_chunk = _crafted_chunk(ref_pd, dictionary, max_def, [good, body, good])
+        with pytest.raises(ref_pk.DeviceInflateError, match=pk.REASONS[reason]
+                           .replace("(", r"\(").replace(")", r"\)")):
+            ref_pk.inflate_chunk(ref_chunk, interpret=True)
+
+
+def test_the_first_rejected_column_in_order_is_named():
+    """Two columns with rejected pages: the error names the first in ``columns`` order,
+    whatever their pages' order in the batch's tables."""
+    dictionary = np.array([11, 22, 33], np.int32)
+    good = bytes([2, 20, 1])
+    late = _crafted_chunk(pd, dictionary, 1, [good, good, None])
+    early = _crafted_chunk(pd, dictionary, 0, [bytes([3, 20, 5]), good])
+    for order in (("a", "b"), ("b", "a")):
+        cols = {order[0]: pd.PassthroughColumn.from_chunk(late),
+                order[1]: pd.PassthroughColumn.from_chunk(early)}
+        with pytest.raises(pk.DeviceInflateError) as err:
+            pk.inflate_columns(cols, CPU)
+        assert err.value.column == order[0]
+        assert str(err.value) == "level block past page end"
+
+
+def test_block_table_covers_dictionary_pages_whole_and_plain_pages_delivered():
+    rows = [pk.page_row(enc=pk.ENC_VALUES_DICT, num_values=2500, lo=100, hi=200),
+            pk.page_row(enc=pk.ENC_VALUES_PLAIN, num_values=5000, lo=1000, hi=3100),
+            pk.page_row(enc=pk.ENC_VALUES_PLAIN, num_values=50, lo=7, hi=7)]
+    assert pk.block_table(rows).tolist() == [[0, 0], [0, 1024], [0, 2048], [1, 1000],
+                                             [1, 2024], [1, 3048]]
+
+
 # -- inflate stage -----------------------------------------------------------------------
 
 
@@ -510,20 +828,18 @@ def test_batch_inflate_equals_inflate_column_and_host_twin():
 
 
 def test_host_reads_one_ok_read_for_a_batch_of_columns():
-    """Every K3 page's ok flag of a batch of several columns comes back in ONE read; the
-    per-page reads (level-block length, bit width, stream ok, index range) stay."""
+    """Every K3 page's ok flag and every data page's verdict (level block, bit width,
+    stream, index range) of a batch of several columns come back in ONE read."""
     cols = _batch_columns()
-    per_page = 0
-    for col in cols.values():
-        for chunk, skip, take in col.parts:
-            p0, p1, _base = chunk.covering_pages(skip, take)
-            for page in chunk.pages[p0:p1]:
-                per_page += (1 if chunk.max_def else 0) \
-                    + (3 if page.encoding != pd.ENC_PLAIN else 0)
+    nullable_dict_pages = sum(
+        1 for col in cols.values() for chunk, skip, take in col.parts
+        for page in chunk.pages[slice(*chunk.covering_pages(skip, take)[:2])]
+        if chunk.max_def and page.encoding != pd.ENC_PLAIN)
     assert len(cols) >= 4 and sum(len(c.parts) for c in cols.values()) >= 8
+    assert nullable_dict_pages >= 4  # each made 4 reads of its own before
     before = pk.HOST_READS.value
     pk.inflate_columns(cols, CPU)
-    assert pk.HOST_READS.value - before == 1 + per_page
+    assert pk.HOST_READS.value - before == 1
 
 
 def test_batch_inflate_names_the_column_whose_pages_latched():
@@ -589,16 +905,16 @@ def test_bitcast_values_copies_a_misaligned_slice(offset):
 
 
 def test_host_reads_per_window():
-    """Reads back to the host, as the reference makes them: the pages' ok flags once per
-    window; per data page the level-block length (nullable columns); per dictionary data
-    page the bit width, the stream's ok flag and the index range check."""
+    """Reads back to the host: one for a window of a nullable dictionary column, where
+    the reference reads the pages' ok flags, the level-block length, the bit width, the
+    stream's ok flag and the index range check."""
     data = _write(_simple_table(2000), data_page_size=1 << 20)
     md = pq.read_metadata(io.BytesIO(data))
     chunk = _build(pd, data, md, 0, 1)  # cat: nullable, dictionary, one data page
     assert chunk.max_def == 1 and len(chunk.pages) == 1
     before = pk.HOST_READS.value
     pk.inflate_chunk(chunk, CPU)
-    assert pk.HOST_READS.value - before == 1 + 1 + 3
+    assert pk.HOST_READS.value - before == 1
 
 
 def test_corrupt_page_bails_then_the_host_twin_classifies_it():
@@ -859,14 +1175,157 @@ def test_snappy_kernel_matches_plain_on_the_card(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bw", [1, 5, 12, 24, 25, 32])
 def test_rle_kernels_match_plain_on_the_card(cuda_device, bw):
+    """The one-stream entry points, thin callers of the batched kernels, on the card
+    equal their plain versions."""
     stream, vals = _hybrid_stream(np.random.default_rng(bw), bw)
     data = torch.tensor(list(stream), dtype=torch.uint8)
     total = len(vals)
     tables = pk.rle_run_scan(data.to(cuda_device), len(stream), total, total, bw)
-    plain = pk._rle_run_scan_plain(data, len(stream), total, total, bw)
+    plain = pk.rle_run_scan(data, len(stream), total, total, bw)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(tables, plain))
     got = pk.rle_extract(data.to(cuda_device), *tables[:4], bw, total)
-    assert got.cpu().tolist() == pk._rle_extract_plain(data, *plain[:4], bw, total).tolist()
+    assert got.cpu().tolist() == pk.rle_extract(data, *plain[:4], bw, total).tolist()
+    got, ok = pk.rle_expand(data.to(cuda_device), len(stream), bw, total)
+    assert bool(ok) and got.cpu().numpy().view(np.uint32).tolist() == vals
+
+
+def _assert_batched_kernels_match_plain(k3_out, stored, pages, k3_ok, runs_total, out_bytes,
+                                        cuda_device):
+    """The batched scan and K4 on the card against their plain versions on the same
+    tables: meta and flags equal, each page's written run entries equal, and each page's
+    delivered values equal. Returns the plain flags."""
+    blocks = torch.from_numpy(pk.block_table(pages.numpy()))
+    args = [k3_out, stored, pages]
+    dev_args = [t.to(cuda_device) for t in args]
+    scans, launches = pk.rle_scan_pages.launches, pk.extract_pages.launches
+    runs, meta, flags = pk.rle_scan_pages(*dev_args, k3_ok.to(cuda_device), runs_total)
+    out = pk.extract_pages(*dev_args, blocks.to(cuda_device), runs, meta, flags, out_bytes)
+    torch.cuda.synchronize()
+    assert pk.rle_scan_pages.launches == scans + 1
+    assert pk.extract_pages.launches == launches + 1
+    p_runs, p_meta, p_flags = pk.rle_scan_pages(*args, k3_ok, runs_total)
+    p_out = pk.extract_pages(*args, blocks, p_runs, p_meta, p_flags, out_bytes)
+    assert torch.equal(meta.cpu(), p_meta) and torch.equal(flags.cpu(), p_flags)
+    runs, out = runs.cpu(), out.cpu()
+    for row, m in zip(pages.tolist(), p_meta.tolist()):
+        r = dict(zip(pk.PAGE_COLS, row))
+        written = min(m[2], r["run_cap"], r["max_runs"]) if m[1] and r["run_off"] >= 0 else 0
+        span = slice(r["run_off"], r["run_off"] + written)
+        assert torch.equal(runs[span], p_runs[span])
+        span = slice(r["dst"], r["dst"] + (r["hi"] - r["lo"]) * r["item"])
+        assert torch.equal(out[span], p_out[span])
+    return p_flags
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+def test_batched_kernels_match_plain_on_the_card(cuda_device, codec):
+    """The mixed batch (widths 1-17, PLAIN, nullable, snappy or stored pages, windows cut
+    across row groups) and the hand-made widths 0-32: values and flags equal the plain
+    versions'."""
+    batch = pk.stage_batch(_mixed_columns(codec), CPU)
+    out, ok, *_rest = batch.run()
+    flags = _assert_batched_kernels_match_plain(out, batch.stored, batch.pages, ok,
+                                                batch.plan.runs_total, batch.plan.out_bytes,
+                                                cuda_device)
+    assert not flags.any()
+    stored, pages, _d, _s, runs_total, out_bytes = _hand_batch(
+        [(0, 40, 0, 0, 40), (1, 300, 1, 10, 290), (9, 70, 0, 0, 70), (17, 1000, 1, 999, 1000),
+         (24, 64, 0, 3, 60), (25, 90, 1, 0, 90), (32, 2100, 0, 0, 2100)],
+        np.random.default_rng(5))
+    empty = torch.empty(0, dtype=torch.uint8)
+    flags = _assert_batched_kernels_match_plain(empty, stored, pages, torch.empty(
+        0, dtype=torch.bool), runs_total, out_bytes, cuda_device)
+    assert not flags.any()
+
+
+@pytest.mark.gpu
+def test_batched_kernels_match_plain_on_the_card_fuzzed(cuda_device):
+    """About 200 random, bit-flipped, cut and tight-capacity streams (and a few pages
+    K3 rejected, and a few rows whose run entries start before the run table) in one
+    launch each: values, run entries and verdicts equal the plain versions'."""
+    rng = np.random.default_rng(43)
+    real = [s for s in (_hybrid_stream(rng, int(rng.integers(1, 33)), high=50)
+                        for _ in range(40))]
+    buf = bytearray(np.arange(50, dtype="<i4").tobytes())
+    rows, run_off, dst = [], 0, 0
+    for i in range(208):
+        kind = i % 4
+        max_def = int(rng.integers(0, 2))
+        if kind == 0:  # random bytes
+            body = rng.integers(0, 256, int(rng.integers(0, 40)), dtype=np.uint8).tobytes()
+            n = int(rng.integers(0, 300))
+        else:
+            stream, vals = real[int(rng.integers(0, len(real)))]
+            bw = max(1, max(vals).bit_length())
+            body = bytearray((_level_block(len(vals)) if max_def else b"")
+                             + bytes([bw]) + stream)
+            n = len(vals)
+            if kind == 1:
+                for _ in range(int(rng.integers(1, 4))):
+                    body[int(rng.integers(0, len(body)))] ^= 1 << int(rng.integers(0, 8))
+            elif kind == 2:
+                body = body[:len(body) - int(rng.integers(1, min(8, len(body)) + 1))]
+            body = bytes(body)
+        buf += bytes(-len(buf) % 16)
+        cap = len(body) // 2 + 1 if kind != 3 else int(rng.integers(1, 4))
+        lo = int(rng.integers(0, n + 1))
+        hi = int(rng.integers(lo, n + 1))
+        rows.append(pk.page_row(
+            buf=1, off=len(buf), size=len(body), ok_idx=int(rng.integers(0, 4)) - 1,
+            max_def=max_def, enc=pk.ENC_VALUES_DICT if i % 9 else pk.ENC_VALUES_PLAIN,
+            num_values=n, item=4 if i % 5 else 8, dict_buf=1, dict_n=int(rng.integers(-1, 51)),
+            run_off=run_off if i % 13 != 6 else -1 - i % 5, run_cap=cap,
+            max_runs=max(8, n) if i % 7 else 3, lo=lo, hi=hi, dst=dst))
+        buf += body
+        run_off += cap
+        dst += 8 * (hi - lo)
+    k3_ok = torch.from_numpy(rng.integers(0, 2, 3).astype(bool))
+    flags = _assert_batched_kernels_match_plain(
+        torch.empty(0, dtype=torch.uint8), torch.from_numpy(np.frombuffer(bytes(buf), np.uint8)
+                                                            .copy()),
+        torch.tensor(rows, dtype=torch.int64), k3_ok, run_off, dst, cuda_device)
+    assert (flags == 0).any() and len(set(flags.tolist())) >= 5
+
+
+@pytest.mark.gpu
+def test_inflate_columns_on_the_card_one_read_and_one_launch_each(cuda_device):
+    """The loader's batch inflate on the card: one K3, one scan and one K4 launch, one
+    read back to the host, values equal to the host twin."""
+    cols = {**_batch_columns(codecs=("snappy", "none")), **_mixed_columns("snappy")}
+    counts = (pk.snappy_inflate_ragged.launches, pk.rle_scan_pages.launches,
+              pk.extract_pages.launches, pk.HOST_READS.value)
+    got = pk.inflate_columns(cols, cuda_device)
+    assert (pk.snappy_inflate_ragged.launches, pk.rle_scan_pages.launches,
+            pk.extract_pages.launches, pk.HOST_READS.value) \
+        == tuple(c + 1 for c in counts)
+    for name, col in cols.items():
+        assert got[name].cpu().numpy().tobytes() == col.materialize().tobytes(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+def test_large_pages_on_the_card_equal_host_twin(cuda_device, codec):
+    """1 MiB data pages of ~250,000 values (a PLAIN column and a dictionary column):
+    K4's grid scales over the values, the scan walks each page's runs alone."""
+    rng = np.random.default_rng(3)
+    n = 250000
+    t = pa.table({"plain": pa.array(rng.integers(0, 1 << 31, n).astype(np.int32)),
+                  "dict": pa.array(rng.integers(0, 1000, n).astype(np.int32))})
+    # pyarrow from 15 on also cuts pages at 20,000 rows unless told otherwise
+    rows_limit = {"max_rows_per_page": n} if "max_rows_per_page" in \
+        inspect.signature(pq.ParquetWriter.__init__).parameters else {}
+    data = _write(t, compression=codec, row_group_size=n, data_page_size=1 << 20,
+                  use_dictionary=["dict"], **rows_limit)
+    md = pq.read_metadata(io.BytesIO(data))
+    cols = {}
+    for c in range(2):
+        chunk = _build(pd, data, md, 0, c)
+        assert max(p.num_values for p in chunk.pages) >= 200000
+        cols[t.column_names[c]] = pd.PassthroughColumn.from_chunk(chunk).slice(11, n - 20)
+    got = pk.inflate_columns(cols, cuda_device)
+    for name, col in cols.items():
+        assert got[name].cpu().numpy().tobytes() == col.materialize().tobytes(), name
 
 
 @pytest.mark.gpu
