@@ -14,11 +14,14 @@ are written once, as ``chip_smoke.py`` writes them: ``main`` is the 4,096-row JP
 read with ``decode_on_device=True`` and ``normalize_images`` as the device transform,
 batches of 256; ``tabular`` is the 2,097,152-row Criteo-shaped store, batches of 16,384.
 ``kernels`` times, per tree, K1 over one batch's three components (256 corpus images;
-beside three ``torch.addmm`` calls), and K3, the run scan and K4 over one 16,384-row
-Criteo-shaped batch's pages, each as the tree's own path launches it (one launch a batch
-where the tree has the batched entries; one launch a component, a column or a dictionary
-data page where it does not); it reports milliseconds, not rows/s. Every run is its own process, so each pays its own build and
-start; the runs of a round
+beside three ``torch.addmm`` calls), K2 on a (256, 224, 224, 3) batch to bfloat16 and
+float32 and through ``normalize_and_augment`` (flip on; beside the bfloat16 conversion
+copy), and K3, the run scan and K4 over one 16,384-row Criteo-shaped batch's pages, each
+as the tree's own path launches it (one launch a batch where the tree has the batched
+entries; one launch a component, a column or a dictionary data page where it does not);
+it reports device milliseconds (the calls queued behind a spin on the card,
+``chip_smoke.timing``) and K2's host enqueue microseconds a call, not rows/s. Every run
+is its own process, so each pays its own build and start; the runs of a round
 go in turn, and each round starts one run later than the one before (A B, B A, ...), so
 that no label always runs first. Each run prints rows/s over its steady window and its
 ``PipelineStats`` split; the summary gives each label's runs and, for each label after the
@@ -96,28 +99,15 @@ def _one(args):
     print("RESULT " + json.dumps(out), flush=True)
 
 
-def _cuda_ms(fn, iters=20, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _one_kernels(args, smoke):
-    """K1 and K3 of the tree at the main paths' shapes, as the tree launches them."""
+    """K1, K2, K3, the scan and K4 of the tree at the main paths' shapes, as the tree
+    launches them; device times from ``chip_smoke.timing``."""
     import pickle
 
+    import numpy as np
     import torch
 
-    from petastorm_tpu_torch.ops import jpeg
+    from petastorm_tpu_torch.ops import image, jpeg
     from petastorm_tpu_torch.ops import pagedec_kernels as pk
 
     dev = torch.device("cuda")
@@ -154,9 +144,22 @@ def _one_kernels(args, smoke):
         def k3():
             return [pk.snappy_inflate_pages(c, m, cap) for c, m, cap in padded]
     scan, k4, launches = _scan_and_k4(pk, chunks, dev)
-    out = {"k1_ms": _cuda_ms(k1), "k1_library_ms": _cuda_ms(
-        lambda: [torch.addmm(bias, x, basis) for x in scaled]), "k3_ms": _cuda_ms(k3),
-        "scan_ms": _cuda_ms(scan), "k4_ms": _cuda_ms(k4), "scan_k4_launches": launches}
+    imgs = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (smoke.BATCH,) + smoke.IMG, dtype=np.uint8)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k2_ms, k2_enqueue_us = smoke.timing(
+        lambda: image.normalize_images(imgs, smoke.MEAN, smoke.STD, torch.bfloat16))
+    out = {
+        "k1_ms": smoke.cuda_ms(k1),
+        "k1_library_ms": smoke.cuda_ms(lambda: [torch.addmm(bias, x, basis) for x in scaled]),
+        "k2_bf16_ms": k2_ms, "k2_enqueue_us": k2_enqueue_us,
+        "k2_f32_ms": smoke.cuda_ms(
+            lambda: image.normalize_images(imgs, smoke.MEAN, smoke.STD, torch.float32)),
+        "k2_augment_ms": smoke.cuda_ms(
+            lambda: image.normalize_and_augment(imgs, smoke.MEAN, smoke.STD, gen)),
+        "copy_bf16_ms": smoke.cuda_ms(lambda: imgs.to(torch.bfloat16)),
+        "k3_ms": smoke.cuda_ms(k3), "scan_ms": smoke.cuda_ms(scan), "k4_ms": smoke.cuda_ms(k4),
+        "scan_k4_launches": launches}
     out["rows_per_s"] = 0.0
     print("RESULT " + json.dumps(out), flush=True)
 
@@ -292,8 +295,9 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # rows/s: higher is better; kernel milliseconds: lower is better
-    metrics = (("k1_ms", -1), ("k3_ms", -1), ("scan_ms", -1), ("k4_ms", -1),
-               ("k1_library_ms", -1)) \
+    metrics = (("k1_ms", -1), ("k2_bf16_ms", -1), ("k2_f32_ms", -1), ("k2_augment_ms", -1),
+               ("k2_enqueue_us", -1), ("k3_ms", -1), ("scan_ms", -1), ("k4_ms", -1),
+               ("k1_library_ms", -1), ("copy_bf16_ms", -1)) \
         if args.path == "kernels" else (("rows_per_s", 1),)
     first = runs[0][0]
     for metric, sign in metrics:

@@ -10,15 +10,19 @@ Phases (each passes or the script exits non-zero, printing no result line):
    from this checkout's sources, timed.
 3. Kernels against their plain PyTorch versions, on the card, at the main path's shapes:
    K1 (IDCT) as its one launch over the three components of one batch of 256 corpus
-   images, timed in turns against three ``torch.addmm`` calls, K2 (normalize) on
-   (256, 224, 224, 3) uint8 to bfloat16 and float32. Times from CUDA events; bounds from
+   images, timed in turns against three ``torch.addmm`` calls; K2 (normalize) on
+   (256, 224, 224, 3) uint8 to bfloat16 and float32, each of its three routes with and
+   without flips held to max abs error 0, the bulk route's tile sizes, the bfloat16
+   conversion copy as a yardstick, and the fused ``normalize_and_augment`` against the
+   normalise-then-flip composition. Device times from CUDA events with the calls queued
+   behind a spin (:func:`timing`), beside the host's enqueue time a call; bounds from
    H100 SXM peaks (3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores).
 4. Main path: a 4,096-row ImageNet-shaped JPEG store (224x224x3, q85, ~256-row row
    groups, 1,024 rows per file, content from a numpy seed) written by the port, read with
    ``make_batch_reader(decode_on_device=True)`` and the port's ``DataLoader`` with
    ``normalize_images`` to bfloat16 as its device transform; ~40 batches of 256. The
-   kernels' launch counters are zeroed just before and read just after; the first batch
-   is checked against host cv2 decode.
+   kernels' launch counters are zeroed just before and read just after (every K2 launch
+   on the bulk route); the first batch is checked against host cv2 decode.
 
 5. Tabular pass-through: a 2,097,152-row Criteo-shaped store (13 dense float32, 26
    categorical int32, an int32 label; 8 files of 16 row groups of 16,384 rows; snappy)
@@ -73,20 +77,40 @@ def check(cond, msg):
         raise PhaseFailed(msg)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean milliseconds of ``fn()`` on the current stream, from CUDA events."""
+def timing(fn, iters=20, warmup=3):
+    """``(device ms, host enqueue us)`` a call of ``fn()`` on the current stream.
+
+    The device time comes from CUDA events around ``iters`` calls. A spin on the card
+    (``torch.cuda._sleep``) is queued ahead of the start event, twice as long as one
+    untimed round of ``iters`` calls took the host (at least 1 ms, at most 0.5 s: the
+    plain versions that take longer are host-bound anyway), so the calls are all queued
+    before the start event fires and the events time the device alone, not the enqueue.
+    The enqueue time is the host's wall time a call in the timed round."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(0.5, max(1e-3, 2.0 * host_s)) * SM_CLOCK_MHZ[0] * 1e6))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_s / iters * 1e6
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device milliseconds of ``fn()`` on the current stream (:func:`timing`)."""
+    return timing(fn, iters, warmup)[0]
 
 
 def bound(nbytes, flops):
@@ -272,27 +296,112 @@ def phase_kernels(blobs):
           "values" % n_diff)
     results["K1"] = dict(k1, bound_ms=b_ms, bound_by=b_by)
 
-    # K2 on a (256, 224, 224, 3) uint8 batch, to bfloat16 and to float32
+    results["K2"] = phase_k2(dev)
+    return results
+
+
+def phase_k2(dev):
+    """K2 on a (256, 224, 224, 3) uint8 batch: every route, to bfloat16 and float32, with
+    and without flips, equal to the plain version (max abs error 0); times of each route,
+    of the bulk route's tile sizes, of the plain version, of the bfloat16 conversion copy
+    and a device-to-device copy (the same bytes: yardsticks of the rate the card reaches,
+    not of K2's function) and of the fused
+    ``normalize_and_augment`` against the normalise-then-flip-and-select composition."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.ops import image
+
     rng = np.random.RandomState(1)
     imgs = torch.from_numpy(rng.randint(0, 256, (BATCH,) + IMG, dtype=np.uint8)).to(dev)
-    for out_dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
-        out = image.normalize_images(imgs, MEAN, STD, out_dtype)
-        plain = image._normalize_plain(imgs, MEAN, STD, out_dtype)
-        torch.cuda.synchronize()
-        err = (out.float() - plain.float()).abs().max().item()
-        ms = cuda_ms(lambda: image.normalize_images(imgs, MEAN, STD, out_dtype))
-        plain_ms = cuda_ms(lambda: image._normalize_plain(imgs, MEAN, STD, out_dtype))
-        nbytes = imgs.numel() * (1 + out.element_size())
-        b_ms, b_by = bound(nbytes, 3 * imgs.numel())
+    flips = torch.from_numpy(rng.randint(0, 2, BATCH).astype(bool)).to(dev)
+    res = {}
+    for out_dtype in (torch.bfloat16, torch.float32):
         name = "bf16" if out_dtype == torch.bfloat16 else "f32"
+        nbytes = imgs.numel() * (1 + torch.empty((), dtype=out_dtype).element_size())
+        b_ms, b_by = bound(nbytes, 3 * imgs.numel())
+        plain_ms = cuda_ms(lambda: image._normalize_plain(imgs, MEAN, STD, out_dtype))
+        err = 0.0
+        for route in image.ROUTES:
+            for fl in (None, flips):
+                out = image.normalize_images(imgs, MEAN, STD, out_dtype, flips=fl,
+                                             route=route)
+                plain = image._normalize_plain(imgs, MEAN, STD, out_dtype, fl)
+                torch.cuda.synchronize()
+                e = (out.float() - plain.float()).abs().max().item()
+                check(e == 0 and torch.equal(out, plain), "K2 %s route %s (flips %s) "
+                      "differs from its plain version by %.3g" % (name, route,
+                                                                   fl is not None, e))
+                err = max(err, e)
+            ms, enq = timing(lambda: image.normalize_images(imgs, MEAN, STD, out_dtype,
+                                                            route=route))
+            log("K2 normalize %s route %s: kernel_ms=%.4f bound_ms=%.4f (%s) "
+                "roofline_share=%.3f enqueue_us=%.1f (flips on and off equal to the plain "
+                "version)" % (name, route, ms, b_ms, b_by, b_ms / ms, enq))
+            if route == "bulk":
+                res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 enqueue_us=enq)
+        # the bulk route's tile: whole rows of 224 x 3 values
+        sweep = []
+        saved = image.BULK_TILE_IN_BYTES, image.BULK_TILE_OUT_BYTES
+        try:
+            for rows in (6, 12, 18, 24):
+                image.BULK_TILE_IN_BYTES = rows * IMG[1] * IMG[2]
+                image.BULK_TILE_OUT_BYTES = image.BULK_TILE_IN_BYTES * out.element_size()
+                out = image.normalize_images(imgs, MEAN, STD, out_dtype, flips=flips)
+                check(torch.equal(out, image._normalize_plain(imgs, MEAN, STD, out_dtype,
+                                                              flips)),
+                      "K2 %s at %d rows a tile differs from its plain version" % (name, rows))
+                sweep.append((rows, cuda_ms(lambda: image.normalize_images(
+                    imgs, MEAN, STD, out_dtype))))
+        finally:
+            image.BULK_TILE_IN_BYTES, image.BULK_TILE_OUT_BYTES = saved
+        log("K2 normalize %s bulk route by rows a tile: %s (default %d rows)" % (
+            name, ", ".join("%d: %.4f ms" % rt for rt in sweep),
+            image.choose_route(imgs.shape, 0, 0, out.element_size())[1]))
+        res[name]["max_abs_err"] = err
         log("K2 normalize %s kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
-            "roofline_share=%.3f max_abs_err=%.3g exact=%s"
-            % (name, ms, plain_ms, b_ms, b_by, b_ms / ms, err, torch.equal(out, plain)))
-        check(err <= tol, "K2 (%s) differs from its plain version by %.3g > %g"
-              % (name, err, tol))
-        results["K2_" + name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, max_abs_err=err)
-    return results
+            "roofline_share=%.3f max_abs_err=%.3g (every route, flips on and off)"
+            % (name, res[name]["ms"], plain_ms, b_ms, b_by, b_ms / res[name]["ms"], err))
+    copy_ms = cuda_ms(lambda: imgs.to(torch.bfloat16))
+    log("K2 yardstick: imgs.to(torch.bfloat16) (1 byte in, 2 out, no arithmetic) "
+        "copy_ms=%.4f, %.3f of the bf16 bound %.4f ms; K2 bf16 takes %.3f of the copy's "
+        "time" % (copy_ms, res["bf16"]["bound_ms"] / copy_ms, res["bf16"]["bound_ms"],
+                  res["bf16"]["ms"] / copy_ms))
+    # a device-to-device copy of as many bytes as K2 bf16 moves (half read, half written)
+    src = torch.empty(imgs.numel() * 3 // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    d2d_ms = cuda_ms(lambda: dst.copy_(src))
+    del src, dst
+    log("K2 yardstick: device-to-device copy of the same %d bytes (%d read, %d written) "
+        "d2d_ms=%.4f, %.3f of the bf16 bound; K2 bf16 takes %.3f of the copy's time"
+        % (3 * imgs.numel(), 3 * imgs.numel() // 2, 3 * imgs.numel() // 2, d2d_ms,
+           res["bf16"]["bound_ms"] / d2d_ms, res["bf16"]["ms"] / d2d_ms))
+
+    def composed(gen):  # the normalise-then-flip-and-select composition
+        out = image.normalize_images(imgs, MEAN, STD)
+        fl = torch.rand(imgs.shape[0], generator=gen, device=dev) < 0.5
+        return torch.where(fl[:, None, None, None], out.flip(2), out)
+
+    fused = image.normalize_and_augment(imgs, MEAN, STD,
+                                        torch.Generator(device=dev).manual_seed(3))
+    check(torch.equal(fused, composed(torch.Generator(device=dev).manual_seed(3))),
+          "normalize_and_augment differs from the normalise-then-flip composition")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = image.normalize_images.launches
+    image.normalize_and_augment(imgs, MEAN, STD, gen)
+    check(image.normalize_images.launches == before + 1,
+          "normalize_and_augment took more than one K2 launch")
+    aug_ms, aug_enq = timing(lambda: image.normalize_and_augment(imgs, MEAN, STD, gen))
+    comp_ms, comp_enq = timing(lambda: composed(gen))
+    log("K2 normalize_and_augment(flip=True) bf16: fused_ms=%.4f (enqueue_us=%.1f, one "
+        "launch + torch.rand) composition_ms=%.4f (enqueue_us=%.1f; normalize_images, "
+        "torch.rand, flip, where); fused within %.1f %% of K2 alone; bit-identical"
+        % (aug_ms, aug_enq, comp_ms, comp_enq,
+           100.0 * (aug_ms / res["bf16"]["ms"] - 1.0)))
+    res["bf16"].update(copy_ms=copy_ms, d2d_ms=d2d_ms, augment_ms=aug_ms,
+                       composition_ms=comp_ms)
+    return res
 
 
 # -- phase 4 ---------------------------------------------------------------------------
@@ -320,6 +429,7 @@ def phase_main_path(url, blobs, cv2):
     codecs.host_decoded_rows(reset=True)
     jpeg.idct_scaled_segments.launches = 0
     image.normalize_images.launches = 0
+    image.normalize_images.routes = dict.fromkeys(image.ROUTES, 0)
     pagedec0 = pagedec.counter_values()
     first = None
     consumed = 0
@@ -342,7 +452,8 @@ def phase_main_path(url, blobs, cv2):
                 break
         snapshot = loader.stats.snapshot()
     launches = {"K1": jpeg.idct_scaled_segments.launches,
-                "K2": image.normalize_images.launches}
+                "K2": image.normalize_images.launches,
+                "K2_routes": dict(image.normalize_images.routes)}
     wall = time.perf_counter() - t_start
     rows_per_s = (consumed * BATCH - rows0) / dt
     peak = torch.cuda.max_memory_allocated()
@@ -362,6 +473,8 @@ def phase_main_path(url, blobs, cv2):
     check(launches["K1"] == launches["K2"], "K1 should launch once per batch (one launch "
           "for the three colour components): %s" % launches)
     check(launches["K2"] >= consumed, "fewer K2 launches than delivered batches")
+    check(launches["K2_routes"]["bulk"] == launches["K1"],
+          "a K2 launch of the main path missed the bulk route: %s" % launches)
     check(codecs.host_decoded_rows() == 0, "%d rows fell back to host decode on a "
           "baseline q85 corpus" % codecs.host_decoded_rows())
 
@@ -1173,7 +1286,7 @@ def main():
         tab_launches, tab = phase_tabular_path(tab_root, arrays, predicted)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    k1, k2 = kernels["K1"], kernels["K2_bf16"]
+    k1, k2 = kernels["K1"], kernels["K2"]["bf16"]
     table = {"kernels": [
         {"name": "idct_segments_f32 (K1)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/idct.cu",

@@ -2,6 +2,8 @@
 (Pallas in interpret mode on the CPU) at the tests/test_ops.py tolerances: float32
 atol=1e-5, bfloat16 atol=2e-2. The flip is random, so it is held to its contract: each
 output is the normalised image or its horizontal mirror."""
+import zlib
+
 import numpy as np
 import pytest
 
@@ -67,9 +69,128 @@ def test_normalize_and_augment_flip_contract():
     np.testing.assert_array_equal(out, again)  # the generator alone decides the flips
 
 
+@pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", [16, 7], ids=["row_multiple_of_16", "row_not_multiple"])
+@pytest.mark.parametrize("channels", [1, 3, 4, 5])
+def test_plain_with_flips_matches_reference_body(channels, width, out_dtype, atol):
+    """The plain version with ``flips`` equals the JAX package's normalize_and_augment body
+    (normalize, then select the W-mirrored image) given the same flags, made with numpy."""
+    rng = np.random.RandomState(10 + channels)
+    imgs = rng.randint(0, 256, (6, 5, width, channels), dtype=np.uint8)
+    flags = np.array([1, 0, 1, 1, 0, 0], dtype=bool)
+    mean = rng.uniform(0.2, 0.6, channels).tolist()
+    std = rng.uniform(0.1, 0.4, channels).tolist()
+    jdtype = jnp.float32 if out_dtype == torch.float32 else jnp.bfloat16
+    normed = ref.normalize_images(jnp.asarray(imgs), mean, std, out_dtype=jdtype)
+    theirs = np.asarray(jnp.where(jnp.asarray(flags)[:, None, None, None],
+                                  normed[:, :, ::-1, :], normed), dtype=np.float32)
+    ours = port._normalize_plain(torch.from_numpy(imgs), mean, std, out_dtype,
+                                 torch.from_numpy(flags))
+    assert ours.dtype == out_dtype and tuple(ours.shape) == imgs.shape
+    np.testing.assert_allclose(ours.float().numpy(), theirs, rtol=0, atol=atol)
+    # the wrapper on a CPU tensor is the plain version, flips included
+    wrapped = port.normalize_images(torch.from_numpy(imgs), mean, std, out_dtype,
+                                    flips=torch.from_numpy(flags.astype(np.uint8)))
+    assert torch.equal(wrapped, ours)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_normalize_and_augment_equals_the_two_step_composition(out_dtype):
+    """One pass with flips is bit for bit the normalise-then-flip-and-select composition
+    for the same generator state."""
+    rng = np.random.RandomState(4)
+    imgs = torch.from_numpy(rng.randint(0, 256, (32, 6, 10, 3), dtype=np.uint8))
+    fused = port.normalize_and_augment(imgs, MEAN, STD, torch.Generator().manual_seed(7),
+                                       out_dtype=out_dtype)
+    gen = torch.Generator().manual_seed(7)
+    out = port.normalize_images(imgs, MEAN, STD, out_dtype=out_dtype)
+    flips = torch.rand(imgs.shape[0], generator=gen) < 0.5
+    composed = torch.where(flips[:, None, None, None], out.flip(2), out)
+    assert 0 < int(flips.sum()) < imgs.shape[0]
+    assert torch.equal(fused, composed)
+    unflipped = port.normalize_and_augment(imgs, MEAN, STD, flip=False, out_dtype=out_dtype)
+    assert torch.equal(unflipped, out)
+
+
+@pytest.mark.parametrize("shape,images_off,out_off,out_size,want", [
+    ((256, 224, 224, 3), 0, 0, 2, ("bulk", 18)),    # the main path: 18 rows of 672 bytes
+    ((256, 224, 224, 3), 0, 0, 4, ("bulk", 12)),    # to float32: 12 rows
+    ((2, 5, 16, 3), 0, 0, 2, ("bulk", 10)),         # the tile is capped at the batch's rows
+    ((1, 4, 4096, 4), 0, 0, 2, ("bulk", 1)),        # one 16 KiB row a tile
+    ((1, 4, 4096, 4), 0, 0, 4, ("vector", 0)),      # its float32 tile overflows shared memory
+    ((1, 4, 4097, 4), 0, 0, 2, ("vector", 0)),      # W*C = 16388: not a multiple of 16
+    ((4, 8, 7, 3), 0, 0, 4, ("vector", 0)),         # W*C = 21: not a multiple of 16
+    ((4, 8, 16, 3), 1, 0, 2, ("scalar", 0)),        # the batch one byte off alignment
+    ((4, 8, 16, 3), 16, 8, 4, ("scalar", 0)),       # the output off a 16-byte boundary
+    ((4, 8, 16, 16), 32, 0, 2, ("bulk", 32)),       # C = 16, aligned at an offset
+])
+def test_route_choice(shape, images_off, out_off, out_size, want):
+    assert port.choose_route(shape, 0x7f0000000000 + images_off,
+                             0x7f1000000000 + out_off, out_size) == want
+
+
+def test_route_forcing_takes_slower_routes_and_refuses_faster_ones():
+    main = (256, 224, 224, 3)
+    assert port.choose_route(main, 0, 0, 2, "bulk") == ("bulk", 18)
+    assert port.choose_route(main, 0, 0, 2, "vector") == ("vector", 0)
+    assert port.choose_route(main, 0, 0, 4, "scalar") == ("scalar", 0)
+    assert port.choose_route((4, 8, 7, 3), 0, 0, 2, "scalar") == ("scalar", 0)
+    with pytest.raises(ValueError, match="route 'bulk'"):
+        port.choose_route((4, 8, 7, 3), 0, 0, 2, "bulk")
+    with pytest.raises(ValueError, match="route 'vector'"):
+        port.choose_route(main, 1, 0, 2, "vector")
+    with pytest.raises(ValueError, match="route 'tma'"):
+        port.choose_route(main, 0, 0, 2, "tma")
+
+
+def test_bulk_tiles_fit_shared_memory():
+    for w, c in ((224, 3), (16, 1), (4, 4), (96, 16), (2048, 4), (3072, 4), (5456, 3)):
+        for out_size in (2, 4):
+            route, rows = port.choose_route((8, 64, w, c), 0, 0, out_size)
+            if route == "bulk":
+                assert port._bulk_smem(rows, w * c, out_size) <= port.BULK_SMEM_BYTES
+                assert rows == 1 or (rows * w * c <= port.BULK_TILE_IN_BYTES and
+                                     rows * w * c * out_size <= port.BULK_TILE_OUT_BYTES)
+                assert rows == 8 * 64 or ((rows + 1) * w * c > port.BULK_TILE_IN_BYTES or
+                                          (rows + 1) * w * c * out_size
+                                          > port.BULK_TILE_OUT_BYTES)
+
+
+def test_flips_must_match_the_batch():
+    imgs = torch.zeros((2, 3, 7, 3), dtype=torch.uint8)
+    for bad in (torch.zeros(3, dtype=torch.bool), torch.zeros(2, dtype=torch.float32),
+                torch.zeros((2, 1), dtype=torch.uint8)):
+        with pytest.raises(ValueError, match="flips"):
+            port.normalize_images(imgs, MEAN, STD, flips=bad)
+
+
+def test_constants_cache_follows_mean_and_std():
+    calls = [([0.5, 0.25, 0.125], [0.5, 0.5, 0.25], 3), ((0.1, 0.2, 0.3), (0.3, 0.2, 0.1), 3),
+             ([0.5, 0.25, 0.125], [0.5, 0.5, 0.25], 3), (0.5, 0.25, 3), (0.5, 0.25, 1),
+             ([0.2] * 4, [0.4] * 4, 4), ([0.5, 0.25, 0.125], [0.5, 0.5, 0.25], 3)]
+    for mean, std, channels in calls:
+        mean_c, inv_c, mean_p, inv_p = port._cached_constants(mean, std, channels)
+        want_m, want_i = port._channel_constants(mean, std, channels)
+        np.testing.assert_array_equal(mean_c, want_m)
+        np.testing.assert_array_equal(inv_c, want_i)
+        assert [mean_p[c] for c in range(channels)] == want_m.tolist()
+        assert [inv_p[c] for c in range(channels)] == want_i.tolist()
+    # an array-valued mean is not cached, and still right
+    mean_c, _inv, _mp, _ip = port._cached_constants(np.array([0.1, 0.2, 0.3]), STD, 3)
+    np.testing.assert_array_equal(mean_c, np.array([0.1, 0.2, 0.3], np.float32))
+    imgs = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (2, 3, 4, 3),
+                                                             dtype=np.uint8))
+    first = port.normalize_images(imgs, [0.1, 0.2, 0.3], STD, torch.float32)
+    second = port.normalize_images(imgs, [0.3, 0.2, 0.1], STD, torch.float32)
+    assert not torch.equal(first, second)
+    assert torch.equal(second, port._normalize_plain(imgs, [0.3, 0.2, 0.1], STD,
+                                                     torch.float32))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-def test_normalize_kernel_matches_plain_on_the_card(cuda_device, out_dtype, atol):
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_normalize_kernel_matches_plain_on_the_card(cuda_device, out_dtype):
     rng = np.random.RandomState(3)
     for shape in ((16, 224, 224, 3), (3, 5, 7, 3)):
         imgs = torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).to(cuda_device)
@@ -77,11 +198,60 @@ def test_normalize_kernel_matches_plain_on_the_card(cuda_device, out_dtype, atol
         out = port.normalize_images(imgs, MEAN, STD, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert port.normalize_images.launches == before + 1
-        plain = port._normalize_plain(imgs, MEAN, STD, out_dtype)
-        assert (out.float() - plain.float()).abs().max().item() <= atol
+        assert torch.equal(out, port._normalize_plain(imgs, MEAN, STD, out_dtype))
     # a batch that starts off a 16-byte boundary takes the one-element kernel
     flat = torch.from_numpy(rng.randint(0, 256, 3 * 5 * 7 * 3 + 1, dtype=np.uint8))
     odd = flat.to(cuda_device)[1:].view(3, 5, 7, 3)
     out = port.normalize_images(odd, MEAN, STD, out_dtype=out_dtype)
-    plain = port._normalize_plain(odd, MEAN, STD, out_dtype)
-    assert (out.float() - plain.float()).abs().max().item() <= atol
+    assert torch.equal(out, port._normalize_plain(odd, MEAN, STD, out_dtype))
+
+
+# (shape, byte offset of the batch) for the card: every route the batch allows is held
+# against the plain version
+_CARD_CASES = {
+    "n1": ((1, 224, 224, 3), 0),
+    "short_last_tile": ((3, 7, 224, 3), 0),      # 21 rows: tiles of 18, the last of 3
+    "n_mod16": ((2, 5, 7, 3), 0),                # 210 elements: 210 % 16 != 0
+    "one_byte_off": ((3, 8, 32, 3), 1),
+    "c16": ((4, 6, 10, 16), 0),
+    "c1": ((5, 9, 48, 1), 0),
+    "c4": ((3, 11, 20, 4), 0),
+    "c5_wide": ((2, 13, 48, 5), 0),              # generic C through the bulk route
+    "main_path": ((256, 224, 224, 3), 0),
+    # one 12 KiB row a tile, one block an SM and 140 rows: the tile count, rounded up to
+    # a multiple of the grid, exceeds the rows, so some bulk tiles are empty
+    "empty_tiles": ((2, 70, 3072, 4), 0),
+}
+
+
+def _card_params():
+    for name, (shape, off) in sorted(_CARD_CASES.items()):
+        for out_dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+            best = port.choose_route(shape, off, 0, size)[0]
+            for route in port.ROUTES[port.ROUTES.index(best):]:
+                yield pytest.param(name, route, out_dtype,
+                                   id="%s-%s-%s" % (name, route, str(out_dtype)[6:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_flips", [False, True], ids=["plain", "flips"])
+@pytest.mark.parametrize("case,route,out_dtype", list(_card_params()))
+def test_every_route_equals_plain_on_the_card(cuda_device, case, route, out_dtype,
+                                              with_flips):
+    shape, off = _CARD_CASES[case]
+    rng = np.random.RandomState(zlib.crc32(case.encode()))
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.randint(0, 256, n + off, dtype=np.uint8)).to(cuda_device)
+    imgs = flat[off:].view(shape)
+    c = shape[-1]
+    mean = rng.uniform(0.2, 0.6, c).tolist()
+    std = rng.uniform(0.1, 0.4, c).tolist()
+    flips = None
+    if with_flips:
+        flips = torch.from_numpy(rng.randint(0, 2, shape[0]).astype(bool)).to(cuda_device)
+        flips[0] = True
+    before = dict(port.normalize_images.routes)
+    out = port.normalize_images(imgs, mean, std, out_dtype, flips=flips, route=route)
+    torch.cuda.synchronize()
+    assert port.normalize_images.routes[route] == before[route] + 1
+    assert torch.equal(out, port._normalize_plain(imgs, mean, std, out_dtype, flips))
