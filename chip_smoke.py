@@ -10,19 +10,26 @@ Phases (each passes or the script exits non-zero, printing no result line):
    from this checkout's sources, timed.
 3. Kernels against their plain PyTorch versions, on the card, at the main path's shapes:
    K1 (IDCT) as its one launch over the three components of one batch of 256 corpus
-   images, timed in turns against three ``torch.addmm`` calls; K2 (normalize) on
-   (256, 224, 224, 3) uint8 to bfloat16 and float32, each of its three routes with and
-   without flips held to max abs error 0, the bulk route's tile sizes, the bfloat16
-   conversion copy as a yardstick, and the fused ``normalize_and_augment`` against the
+   images, timed in turns against three ``torch.addmm`` calls; the stage-2 unpack
+   (``csrc/coef_unpack.cu``) over the same batch's 301,056 blocks, for the transfer
+   variant the corpus selects and for forced full int16 and 12-bit packs, each held to
+   max abs error 0 and timed beside its bytes bound, its plain version and (int16) one
+   ``torch.mul``; K2 (normalize) on (256, 224, 224, 3) uint8 to bfloat16, float32 and
+   float16, each of its three routes with and without flips held to max abs error 0, a
+   non-contiguous crop view, the bulk route's tile sizes, the bfloat16 conversion copy
+   as a yardstick, and the fused ``normalize_and_augment`` against the
    normalise-then-flip composition. Device times from CUDA events with the calls queued
    behind a spin (:func:`timing`), beside the host's enqueue time a call; bounds from
    H100 SXM peaks (3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores).
 4. Main path: a 4,096-row ImageNet-shaped JPEG store (224x224x3, q85, ~256-row row
    groups, 1,024 rows per file, content from a numpy seed) written by the port, read with
    ``make_batch_reader(decode_on_device=True)`` and the port's ``DataLoader`` with
-   ``normalize_images`` to bfloat16 as its device transform; ~40 batches of 256. The
-   kernels' launch counters are zeroed just before and read just after (every K2 launch
-   on the bulk route); the first batch is checked against host cv2 decode.
+   ``normalize_images`` to bfloat16 as its device transform; ~40 batches of 256, the
+   coefficients narrowed as the JAX package ships them (shipped/raw printed). The
+   kernels' launch counters are zeroed just before and read just after (one unpack, one
+   K1 and one K2 launch a batch, every K2 launch on the bulk route); the first batch is
+   checked against host cv2 decode and, bit for bit, against the port's CPU decode of
+   the same rows.
 
 5. Tabular pass-through: a 2,097,152-row Criteo-shaped store (13 dense float32, 26
    categorical int32, an int32 label; 8 files of 16 row groups of 16,384 rows; snappy)
@@ -37,6 +44,13 @@ Phases (each passes or the script exits non-zero, printing no result line):
    it, launches (1 K3, 1 scan, 1 K4) and reads back to the host (1) held to the
    per-batch prediction, and the first and last measured batches held byte for byte
    against a ``pagedec="off"`` read.
+
+6. The mixed-size training feed: a 2,048-row JPEG store of ImageNet's common sizes and
+   one ragged size (q85, content from a numpy seed) read with
+   ``DataLoader(device_decode_resize=(256, 256))`` and a device transform of
+   ``random_crop`` (224), ``color_jitter`` and ``normalize_and_augment`` to bfloat16;
+   every batch (256, 224, 224, 3) bfloat16, the first batch's resized uint8 within 1 of
+   the port's CPU path on the same rows, one unpack and one K1 launch a layout group.
 
 The last lines are the kernels table (JSON), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -176,22 +190,22 @@ def phase_build():
 # -- corpus ------------------------------------------------------------------------------
 
 
-def make_images(n, seed=0):
+def make_images(n, seed=0, shape=IMG):
     """ImageNet-shaped content from a numpy seed: lightly blurred noise over a gradient,
-    one uint8 (224, 224, 3) image per row, ~19 KB as a q85 JPEG (photographic crops of
-    that size run 20-35 KB)."""
+    one uint8 image of ``shape`` per row, ~19 KB as a q85 JPEG at 224x224x3
+    (photographic crops of that size run 20-35 KB)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    x = np.linspace(0, 255, IMG[0], dtype=np.float32)
-    grad = np.add.outer(x, x) * 0.5
+    grad = np.add.outer(np.linspace(0, 255, shape[0], dtype=np.float32),
+                        np.linspace(0, 255, shape[1], dtype=np.float32)) * 0.5
     k = np.array([0.25, 0.5, 0.25], np.float32)
     for _ in range(n):
-        img = rng.randint(0, 256, IMG).astype(np.float32)
+        img = rng.randint(0, 256, shape).astype(np.float32)
         for axis in (0, 1):
             pad = [(1, 1) if a == axis else (0, 0) for a in range(3)]
             p = np.pad(img, pad, mode="reflect")
-            img = sum(k[i] * np.take(p, range(i, i + IMG[axis]), axis=axis)
+            img = sum(k[i] * np.take(p, range(i, i + shape[axis]), axis=axis)
                       for i in range(3))
         yield (0.8 * img + 0.2 * grad[..., None]).clip(0, 255).astype(np.uint8)
 
@@ -296,8 +310,89 @@ def phase_kernels(blobs):
           "values" % n_diff)
     results["K1"] = dict(k1, bound_ms=b_ms, bound_by=b_by)
 
+    results["unpack"] = phase_unpack(planes, dev)
     results["K2"] = phase_k2(dev)
     return results
+
+
+def reset_transfer_state(jpeg):
+    """Clear the stage-2 transfer's sticky choices and byte counters (process-global, as
+    in the JAX package), so a phase starts from what its own data selects."""
+    with jpeg._STICKY_KS_LOCK:
+        jpeg._STICKY_KS.clear()
+        jpeg._STICKY_SPLIT.clear()
+        jpeg._PACK12_DISABLED.clear()
+        jpeg._SPLIT_DISABLED.clear()
+        jpeg._TRANSFER_BYTES.update(shipped=0, raw=0)
+
+
+def phase_unpack(planes, dev):
+    """The stage-2 unpack on one batch of 256 corpus images (301,056 blocks): the variant
+    the corpus selects (as the main path stages it), then forced full int16 and 12-bit
+    packs of the same coefficients; each launch over the three components equals the
+    plain version (max abs error 0), timed, beside its bytes bound, the plain version's
+    time and, for int16, one library call computing the same function."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg, native
+
+    layout = jpeg._layout_key(planes[0])
+    coeffs, qtabs = jpeg.stack_jpeg_coefficients(planes)
+    qtabs_dev = [torch.from_numpy(q).to(dev) for q in qtabs]
+    reset_transfer_state(jpeg)
+    (corpus_coeffs, corpus_q, ks, packed, split), = jpeg._stage_groups(
+        [(layout, planes)], dev, None)
+    counters = jpeg.transfer_byte_counters(reset=True)
+    packs = [native.jpeg_pack12_native(c) for c in coeffs]
+    check(all(p is not None for p in packs), "a corpus coefficient exceeds 12 bits")
+    variants = {
+        "corpus": [jpeg.CoefSegment(c, q, 64 if ks is None else ks[ci],
+                                    bool(packed and packed[ci]),
+                                    None if split is None else split[ci])
+                   for ci, (c, q) in enumerate(zip(corpus_coeffs, corpus_q))],
+        "int16": [jpeg.CoefSegment(torch.from_numpy(c).to(dev), q, 64, False, None)
+                  for c, q in zip(coeffs, qtabs_dev)],
+        "pack12": [jpeg.CoefSegment(torch.from_numpy(pk).to(dev), q, 64, True, None)
+                   for pk, q in zip(packs, qtabs_dev)],
+    }
+    blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
+    out_bytes = blocks * 64 * 4
+    log("unpack: the corpus selects ks=%s packed=%s split=%s; shipped/raw %d/%d = %.4f "
+        "(%d blocks, %d bytes out)" % (ks, packed, split, counters["shipped"],
+                                       counters["raw"], counters["shipped"] / counters["raw"],
+                                       blocks, out_bytes))
+    res = {}
+    for name, segs in variants.items():
+        outs = jpeg.unpack_dequant_segments(segs)
+        plains = [jpeg._unpack_dequant_plain(seg) for seg in segs]
+        torch.cuda.synchronize()
+        err = max((o - p).abs().max().item() for o, p in zip(outs, plains))
+        check(err == 0 and all(torch.equal(o, p) for o, p in zip(outs, plains)),
+              "unpack %s differs from its plain version by %.3g" % (name, err))
+        shipped = sum(sum(t.numel() * t.element_size() for t in
+                          (seg.slabs if seg.split is not None else (seg.slabs,)))
+                      for seg in segs)
+        nbytes = shipped + sum(q.numel() * 4 for q in qtabs_dev) + out_bytes
+        b_ms, b_by = bound(nbytes, blocks * 64)
+        ms, enq = timing(lambda: jpeg.unpack_dequant_segments(segs))
+        plain_ms = cuda_ms(lambda: [jpeg._unpack_dequant_plain(seg) for seg in segs])
+        lib_ms = None
+        if name == "int16":
+            qf = [q.to(torch.float32)[:, None, :] for q in qtabs_dev]
+            views = [seg.slabs for seg in segs]
+            lib_ms = cuda_ms(lambda: [torch.mul(c, q) for c, q in zip(views, qf)])
+        log("unpack %s (one launch, 3 components): kernel_ms=%.4f plain_ms=%.4f "
+            "library_ms=%s bound_ms=%.4f (%s, %d bytes: %d shipped) roofline_share=%.3f "
+            "enqueue_us=%.1f max_abs_err=%.3g"
+            % (name, ms, plain_ms, "null" if lib_ms is None else "%.4f" % lib_ms, b_ms,
+               b_by, nbytes, shipped, b_ms / ms, enq, err))
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                     "shipped": shipped}
+    res["ratio"] = counters["shipped"] / counters["raw"]
+    reset_transfer_state(jpeg)
+    return res
 
 
 def phase_k2(dev):
@@ -316,8 +411,8 @@ def phase_k2(dev):
     imgs = torch.from_numpy(rng.randint(0, 256, (BATCH,) + IMG, dtype=np.uint8)).to(dev)
     flips = torch.from_numpy(rng.randint(0, 2, BATCH).astype(bool)).to(dev)
     res = {}
-    for out_dtype in (torch.bfloat16, torch.float32):
-        name = "bf16" if out_dtype == torch.bfloat16 else "f32"
+    for out_dtype in (torch.bfloat16, torch.float32, torch.float16):
+        name = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float16: "f16"}[out_dtype]
         nbytes = imgs.numel() * (1 + torch.empty((), dtype=out_dtype).element_size())
         b_ms, b_by = bound(nbytes, 3 * imgs.numel())
         plain_ms = cuda_ms(lambda: image._normalize_plain(imgs, MEAN, STD, out_dtype))
@@ -363,6 +458,16 @@ def phase_k2(dev):
         log("K2 normalize %s kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
             "roofline_share=%.3f max_abs_err=%.3g (every route, flips on and off)"
             % (name, res[name]["ms"], plain_ms, b_ms, b_by, b_ms / res[name]["ms"], err))
+    # a crop's view (not contiguous): one contiguous copy, then K2
+    view = imgs[:, 3:227 - 6, 2:226 - 8, :]
+    for out_dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for fl in (None, flips):
+            out = image.normalize_images(view, MEAN, STD, out_dtype, flips=fl)
+            check(torch.equal(out, image._normalize_plain(view, MEAN, STD, out_dtype, fl)),
+                  "K2 on a non-contiguous view differs from its plain version (%s)"
+                  % out_dtype)
+    log("K2 on a non-contiguous (256, 218, 216, 3) view: equal to the plain version in "
+        "bf16, f32 and f16, flips on and off")
     copy_ms = cuda_ms(lambda: imgs.to(torch.bfloat16))
     log("K2 yardstick: imgs.to(torch.bfloat16) (1 byte in, 2 out, no arithmetic) "
         "copy_ms=%.4f, %.3f of the bf16 bound %.4f ms; K2 bf16 takes %.3f of the copy's "
@@ -427,6 +532,8 @@ def phase_main_path(url, blobs, cv2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     codecs.host_decoded_rows(reset=True)
+    reset_transfer_state(jpeg)
+    jpeg.unpack_dequant_segments.launches = 0
     jpeg.idct_scaled_segments.launches = 0
     image.normalize_images.launches = 0
     image.normalize_images.routes = dict.fromkeys(image.ROUTES, 0)
@@ -451,7 +558,9 @@ def phase_main_path(url, blobs, cv2):
                 dt = time.perf_counter() - t0
                 break
         snapshot = loader.stats.snapshot()
-    launches = {"K1": jpeg.idct_scaled_segments.launches,
+    transfer = jpeg.transfer_byte_counters()
+    launches = {"unpack": jpeg.unpack_dequant_segments.launches,
+                "K1": jpeg.idct_scaled_segments.launches,
                 "K2": image.normalize_images.launches,
                 "K2_routes": dict(image.normalize_images.routes)}
     wall = time.perf_counter() - t_start
@@ -464,6 +573,16 @@ def phase_main_path(url, blobs, cv2):
     log("main path peak device memory: %d bytes" % peak)
     log("main path launches: %s (host-decoded rows: %d)"
         % (json.dumps(launches), codecs.host_decoded_rows()))
+    decoded = launches["K1"]  # one K1 launch a batch on the uniform path
+    qtab_bytes = BATCH * 3 * 64 * 4
+    full_bytes = transfer["raw"] / max(1, decoded)
+    log("main path transfer: shipped/raw %d/%d = %.4f; coefficient H2D a batch %.0f bytes "
+        "(+%d of tables) against %.0f of full int16; decode_s %.5f, h2d_s %.5f a batch "
+        "(%d batches decoded)" % (
+            transfer["shipped"], transfer["raw"], transfer["shipped"] / transfer["raw"],
+            transfer["shipped"] / max(1, decoded), qtab_bytes, full_bytes,
+            snapshot["decode_s"] / max(1, snapshot["batches"]),
+            snapshot["h2d_s"] / max(1, snapshot["batches"]), decoded))
     # the reader's default pagedec is "off": the main path's id and label columns take
     # the classic read, as before the pass-through existed
     log("main path pass-through: %s" % json.dumps(
@@ -472,6 +591,10 @@ def phase_main_path(url, blobs, cv2):
           "launched: %s" % launches)
     check(launches["K1"] == launches["K2"], "K1 should launch once per batch (one launch "
           "for the three colour components): %s" % launches)
+    check(launches["unpack"] == launches["K1"], "the stage-2 unpack should launch once per "
+          "batch, beside K1: %s" % launches)
+    check(transfer["shipped"] < transfer["raw"], "the narrowed transfer shipped no less than "
+          "full int16: %s" % transfer)
     check(launches["K2"] >= consumed, "fewer K2 launches than delivered batches")
     check(launches["K2_routes"]["bulk"] == launches["K1"],
           "a K2 launch of the main path missed the bulk route: %s" % launches)
@@ -499,12 +622,183 @@ def phase_main_path(url, blobs, cv2):
         check(diff.max() <= 4 and diff.mean() < 1.0, "decoded pixels too far from cv2")
     else:
         check(diff.max() == 0, "decoded pixels differ from the CPU path")
+    # the port's CPU path on the same rows (stage 1 over the batch's own rows, so its
+    # transfer variant may differ; every variant is exact)
+    cpu = jpeg.decode_jpeg_batch(jpeg.entropy_decode_jpeg_batch([blobs[int(i)] for i in ids]),
+                                 device="cpu", bgr=True).numpy()
+    check(np.array_equal(cpu[:len(first["u8"])], first["u8"]), "the first batch differs from "
+          "the port's CPU decode of the same rows")
+    log("first batch equal to the port's CPU decode of the same rows (bit for bit)")
     norm_ref = image._normalize_plain(torch.from_numpy(first["u8"][:8]), MEAN, STD,
                                       torch.bfloat16).float()
     check((first["norm"] - norm_ref).abs().max().item() <= 2e-2,
           "normalised batch differs from normalising its uint8 images")
     check(torch.isfinite(first["norm"]).all().item(), "non-finite normalised values")
-    return launches, {"rows_per_s": rows_per_s, "peak_bytes": peak}
+    return launches, {"rows_per_s": rows_per_s, "peak_bytes": peak,
+                      "shipped_ratio": transfer["shipped"] / transfer["raw"]}
+
+
+# -- phase 6: the mixed-size training feed ---------------------------------------------
+#
+# Raw ImageNet-style stores hold images of many sizes. 2,048 JPEG rows at q85, content
+# from the corpus generator, each row's size drawn from a seed among ImageNet's common
+# (h, w) = (375, 500), (500, 375), (333, 500), (500, 333) and one ragged size (359, 481)
+# that is not a multiple of 16; row groups of ~256 rows, 1,024 rows a file. Read with
+# make_batch_reader(decode_on_device=True) into DataLoader(batch_size=256,
+# device_decode_resize=(256, 256), prefetch=3) with a two-argument device transform:
+# random_crop(224, 224), color_jitter(0.4, 0.4, 0.4), normalize_and_augment(flip=True)
+# to bfloat16.
+
+MIX_ROWS, MIX_SIZES, MIX_RESIZE, MIX_CROP = 2048, ((375, 500), (500, 375), (333, 500),
+                                                   (500, 333), (359, 481)), (256, 256), 224
+
+
+def write_mixed_store(url, cv2, rows=MIX_ROWS, seed=5):
+    """The mixed-size store through the port's writer; returns {id: jpeg bytes}. The
+    images are made by 8 threads (numpy releases the GIL), 256 a thread, each from its
+    own seed."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from petastorm_tpu_torch import types
+    from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
+    from petastorm_tpu_torch.metadata import RowWriter
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    schema = Unischema("ChipSmokeMixedSchema", [
+        UnischemaField("id", np.int64, (), ScalarCodec(types.LongType()), False),
+        UnischemaField("image", np.uint8, (None, None, 3),
+                       CompressedImageCodec("jpeg", QUALITY), False),
+    ])
+    field = schema.fields["image"]
+    sizes = np.random.RandomState(seed).randint(len(MIX_SIZES), size=rows)
+    chunk = 256
+
+    def encode_chunk(c):
+        out = []
+        for j, size in enumerate(sizes[c * chunk:(c + 1) * chunk]):
+            shape = MIX_SIZES[size] + (3,)
+            img = next(make_images(1, seed=seed * 100003 + c * chunk + j, shape=shape))
+            if cv2 is None:
+                out.append(BaselineJpegEncoder(QUALITY).encode(img))
+            else:
+                out.append(bytes(field.codec.encode(field, img)))
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        blobs = [b for part in pool.map(encode_chunk, range(-(-rows // chunk))) for b in part]
+    mean = sum(map(len, blobs)) / len(blobs)
+    with RowWriter(url, schema, row_group_size_mb=max(1, round(256 * mean / 2 ** 20)),
+                   rows_per_file=ROWS_PER_FILE) as w:
+        for i, blob in enumerate(blobs):
+            w.write_encoded({"id": i, "image": blob})
+    return dict(enumerate(blobs)), [MIX_SIZES[k] for k in sizes]
+
+
+def phase_mixed_feed(url, blobs, sizes, device="cuda"):
+    """The mixed-size store through the resize and the augmentations on the card: every
+    batch (256, 224, 224, 3) bfloat16; the first batch's resized uint8 (before the
+    transform) within 1 of the port's CPU path on the same rows; one unpack and one K1
+    launch a layout group, one K2 launch a batch."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import codecs, make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image, jpeg
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+
+    def transform(batch, gen):
+        u8 = batch["image"]
+        x = image.random_crop(u8, gen, MIX_CROP, MIX_CROP)
+        x = image.color_jitter(x, gen, 0.4, 0.4, 0.4)
+        x = image.normalize_and_augment(x, MEAN, STD, gen, flip=True)
+        return {**batch, "image": x, "image_u8": u8}
+
+    groups = [0]
+    real_stage2 = jpeg._batched_stage2
+
+    def counting_stage2(*args, **kwargs):  # one call a layout group
+        groups[0] += 1
+        return real_stage2(*args, **kwargs)
+
+    reader = make_batch_reader(url, workers_count=workers, shuffle_row_groups=True, seed=1,
+                               num_epochs=1, decode_on_device=True)
+    reset_transfer_state(jpeg)
+    codecs.per_image_stage1_rows(reset=True)
+    codecs.host_decoded_rows(reset=True)
+    jpeg.unpack_dequant_segments.launches = 0
+    jpeg.idct_scaled_segments.launches = 0
+    image.normalize_images.launches = 0
+    jpeg._batched_stage2 = counting_stage2
+    first, shapes, consumed = None, set(), 0
+    t_start = time.perf_counter()
+    try:
+        with DataLoader(reader, BATCH, device_transform=transform, prefetch=3,
+                        device_decode_resize=MIX_RESIZE, seed=2, device=device) as loader:
+            for batch in loader:
+                consumed += 1
+                shapes.add((tuple(batch["image"].shape), batch["image"].dtype))
+                if first is None:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    first = {"id": batch["id"].cpu().numpy(),
+                             "u8": batch["image_u8"].cpu().numpy(),
+                             "x": batch["image"][:4].float().cpu()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            snapshot = loader.stats.snapshot()
+    finally:
+        jpeg._batched_stage2 = real_stage2
+    wall = time.perf_counter() - t_start
+    launches = {"unpack": jpeg.unpack_dequant_segments.launches,
+                "K1": jpeg.idct_scaled_segments.launches,
+                "K2": image.normalize_images.launches, "groups": groups[0]}
+    transfer = jpeg.transfer_byte_counters()
+    per_image = codecs.per_image_stage1_rows()
+    rows_per_s = (consumed - 1) * BATCH / dt if consumed > 1 else float("nan")
+    log("mixed feed: %d batches of %d from %d rows of sizes %s; %.1f rows/s after the "
+        "first batch (%.3f s), %.1f s in all; workers=%d" % (
+            consumed, BATCH, len(blobs), json.dumps(
+                {"%dx%d" % s: sizes.count(s) for s in MIX_SIZES}), rows_per_s, dt, wall,
+            workers))
+    log("mixed feed stats: " + json.dumps(snapshot))
+    log("mixed feed: shipped/raw %d/%d = %.4f; rows through the per-image stage 1: %d of "
+        "%d; host-decoded rows: %d; layout groups %d (%.2f a batch); launches %s (a "
+        "batch: unpack %.2f, K1 %.2f, K2 %.2f)" % (
+            transfer["shipped"], transfer["raw"], transfer["shipped"] / transfer["raw"],
+            per_image, consumed * BATCH, codecs.host_decoded_rows(), groups[0],
+            groups[0] / consumed, json.dumps(launches), launches["unpack"] / consumed,
+            launches["K1"] / consumed, launches["K2"] / consumed))
+    # the first batch's resized uint8 against the port's CPU path on the same rows
+    from petastorm_tpu_torch.unischema import UnischemaField
+
+    field = UnischemaField("image", np.uint8, (None, None, 3),
+                           codecs.CompressedImageCodec("jpeg", QUALITY), False)
+    rows = [blobs[int(i)] for i in first["id"]]
+    staged = field.codec.host_stage_decode_batch(field, rows)
+    cpu = field.codec.device_decode_batch(field, staged, torch.device("cpu"),
+                                          resize_to=MIX_RESIZE).numpy()
+    diff = np.abs(cpu.astype(np.int32) - first["u8"].astype(np.int32))
+    share = float((diff > 0).mean())
+    log("mixed feed first batch (resized uint8, before the transform) vs the port's CPU "
+        "path on the same rows: max %d, %.6f of the values differ" % (diff.max(), share))
+    check(first["u8"].shape == (BATCH,) + MIX_RESIZE + (3,), "resized batch has shape %s"
+          % (first["u8"].shape,))
+    check(diff.max() <= 1 and share < 0.01, "resized uint8 on the card too far from the "
+          "CPU path")
+    check(consumed == len(blobs) // BATCH, "mixed feed delivered %d batches" % consumed)
+    check(shapes == {((BATCH, MIX_CROP, MIX_CROP, 3), torch.bfloat16)},
+          "mixed feed batches have shapes %s" % shapes)
+    check(launches["unpack"] == launches["K1"] == groups[0] > consumed,
+          "unpack and K1 should launch once a layout group: %s" % launches)
+    check(launches["K2"] == consumed, "K2 should launch once a batch: %s" % launches)
+    check(torch.isfinite(first["x"]).all().item(), "non-finite values in the fed batch")
+    return {"rows_per_s": rows_per_s, "launches": launches, "batches": consumed,
+            "shipped_ratio": transfer["shipped"] / transfer["raw"],
+            "per_image_rows": per_image}
 
 
 # -- phase 5: tabular pass-through ----------------------------------------------------
@@ -1273,6 +1567,15 @@ def main():
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
         t0 = time.perf_counter()
+        mix_url = "file://" + os.path.join(work, "mixed")
+        mix_blobs, mix_sizes = write_mixed_store(mix_url, env["cv2"])
+        log("mixed store: %d rows, %.1f MB of JPEG, written in %.1f s" % (
+            len(mix_blobs), sum(map(len, mix_blobs.values())) / 1e6,
+            time.perf_counter() - t0))
+        mixed = phase_mixed_feed(mix_url, mix_blobs, mix_sizes)
+        shutil.rmtree(os.path.join(work, "mixed"), ignore_errors=True)
+
+        t0 = time.perf_counter()
         tab_root = os.path.join(work, "tabular")
         _url, arrays = write_tabular_store(tab_root)
         size = sum(os.path.getsize(os.path.join(tab_root, f)) for f in os.listdir(tab_root))
@@ -1286,8 +1589,19 @@ def main():
         tab_launches, tab = phase_tabular_path(tab_root, arrays, predicted)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    k1, k2 = kernels["K1"], kernels["K2"]["bf16"]
+    k1, k2, up = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"]
     table = {"kernels": [
+        {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation, one launch "
+         "a layout group; replaces fused jnp, not Pallas)", "route": "cuda",
+         "source": "petastorm_tpu_torch/csrc/coef_unpack.cu",
+         "replaces": "petastorm_tpu/ops/jpeg.py:552", "launches": launches["unpack"],
+         "max_abs_err": max(v["max_abs_err"] for k, v in up.items() if k != "ratio"),
+         "ms": up["corpus"]["ms"], "plain_ms": up["corpus"]["plain_ms"],
+         "bound_ms": up["corpus"]["bound_ms"], "bound_by": up["corpus"]["bound_by"],
+         "library_ms": up["corpus"]["library_ms"],
+         "variants": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                      for k, v in up.items() if k != "ratio"},
+         "mixed_feed_launches": mixed["launches"]["unpack"]},
         {"name": "idct_segments_f32 (K1)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/idct.cu",
          "replaces": "petastorm_tpu/ops/jpeg.py:311", "launches": launches["K1"],
@@ -1315,8 +1629,11 @@ def main():
         if "serial_floor_ms" in r:
             row["serial_floor_ms"] = r["serial_floor_ms"]
         table["kernels"].append(row)
-    log("total %.1f s; main path %.1f rows/s; tabular path %.1f rows/s"
-        % (time.perf_counter() - t_all, main["rows_per_s"], tab["rows_per_s"]))
+    log("total %.1f s; main path %.1f rows/s (shipped/raw %.4f); mixed feed %.1f rows/s "
+        "(shipped/raw %.4f, %.2f groups a batch); tabular path %.1f rows/s"
+        % (time.perf_counter() - t_all, main["rows_per_s"], main["shipped_ratio"],
+           mixed["rows_per_s"], mixed["shipped_ratio"],
+           mixed["launches"]["groups"] / mixed["batches"], tab["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
     import torch

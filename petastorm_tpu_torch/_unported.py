@@ -6,7 +6,6 @@ them gets a ``NotImplementedError`` naming that item; the port never ignores an 
 from __future__ import annotations
 
 _ITEMS = {
-    "jpeg_transfer": "Queue 1 item 2 (JPEG transfer variants and on-device resize)",
     "process_pool": "Queue 1 item 4 (process pool, wire serializers and transports)",
     "io": "Queue 1 item 5 (read path IO options and caches)",
     "selection": "Queue 1 item 6 (predicates, filters, partitions, selectors, transforms)",
@@ -48,7 +47,6 @@ OPTIONS = {
     "controller": ("obs", None),
     "pad_shapes": ("selection", None),
     "device_shuffle_capacity": ("device_shuffle", 0),
-    "device_decode_resize": ("jpeg_transfer", None),
     "sharding": ("multi_device", None),
 }
 

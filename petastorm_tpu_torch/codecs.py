@@ -178,6 +178,23 @@ def _count_host_decoded():
         _host_decoded_rows += 1
 
 
+#: Rows the row-group batched stage 1 handed back (a layout other than the row group's
+#: first stream's: a mixed-size store) and stage 1 decoded one by one instead. Such rows
+#: carry no ``kmax`` or ``specmax``, which turns the zigzag truncation off for their
+#: batch's group; counted so a run can show how much of its corpus took that road.
+_per_image_stage1_rows = 0
+
+
+def per_image_stage1_rows(reset=False):
+    """Rows that ``host_stage_decode_batch`` sent through the per-image stage 1 so far."""
+    global _per_image_stage1_rows
+    with _host_decoded_lock:
+        n = _per_image_stage1_rows
+        if reset:
+            _per_image_stage1_rows = 0
+    return n
+
+
 class CompressedImageCodec(DataframeColumnCodec):
     """PNG/JPEG image bytes (reference: petastorm/codecs.py ~L200, cv2 imencode/imdecode).
 
@@ -272,18 +289,30 @@ class CompressedImageCodec(DataframeColumnCodec):
             planes = entropy_decode_jpeg_batch(blobs)
         except (ValueError, RuntimeError):
             planes = [None] * len(blobs)
+        global _per_image_stage1_rows
+        redone = 0
         for j, i in enumerate(idx):
             p = planes[j]
-            out[i] = p if p is not None \
-                else self.host_stage_decode(unischema_field, blobs[j])
+            if p is None:
+                redone += 1
+                p = self.host_stage_decode(unischema_field, blobs[j])
+            out[i] = p
+        if redone:
+            with _host_decoded_lock:
+                _per_image_stage1_rows += redone
         return out
 
-    def device_decode_batch(self, unischema_field, staged, device, stager=None):
+    def device_decode_batch(self, unischema_field, staged, device, stager=None,
+                            resize_to=None):
         """Coefficient planes (one per row) → (n, ...) uint8 tensor on ``device``.
 
         Matches :meth:`decode`'s per-row contract: stored (BGR) channel order for colour,
         2-D for grayscale fields. Rows that fell back to host decode arrive as ndarrays
-        and are merged in at their original positions. ``stager``: see
+        and are merged in at their original positions. ``resize_to=(h, w)`` takes a
+        mixed-size store: the device rows are resized on the device after decode
+        (:func:`petastorm_tpu_torch.ops.jpeg.resize_image_batch`), the host rows with
+        ``cv2.resize(INTER_LINEAR)``, the matching sampling. The decode runs in stored
+        order, which the resize (channel by channel) does not mind. ``stager``: see
         :func:`petastorm_tpu_torch.ops.jpeg.decode_jpeg_batch`."""
         if not self.device_decodable:
             raise NotImplementedError("on-device decode is only available for jpeg")
@@ -301,12 +330,20 @@ class CompressedImageCodec(DataframeColumnCodec):
         order = []
         if plane_idx:
             img = decode_jpeg_batch([staged[i] for i in plane_idx], device=device,
-                                    bgr=not grayscale, stager=stager)
+                                    bgr=not grayscale, stager=stager, resize_to=resize_to)
             parts.append(img[..., 0].contiguous() if grayscale else img)
             order.extend(plane_idx)
         if host_idx:
             # host-decoded rows are already in stored order
-            host = torch.from_numpy(np.stack([staged[i] for i in host_idx]))
+            fallbacks = [staged[i] for i in host_idx]
+            if resize_to is not None:
+                import cv2
+
+                h, w = int(resize_to[0]), int(resize_to[1])
+                fallbacks = [f if f.shape[0] == h and f.shape[1] == w
+                             else cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR)
+                             for f in fallbacks]
+            host = torch.from_numpy(np.stack(fallbacks))
             parts.append(host.to(device))
             order.extend(host_idx)
         out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)

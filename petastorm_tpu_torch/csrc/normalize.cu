@@ -1,4 +1,4 @@
-// K2 — per-channel image normalisation, uint8 -> bfloat16 or float32, with the train-time
+// K2 — per-channel image normalisation, uint8 -> bfloat16, float16 or float32, with the train-time
 // horizontal flip in the same pass, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel petastorm_tpu/ops/image.py:24 `_normalize_kernel`, launched
@@ -41,9 +41,12 @@
 // opt-in, and sets the device only when it is not the current one.
 //
 // Every route rounds as the reference does: __fmul_rn / __fsub_rn (never contracted into
-// an FMA), then __float2bfloat16_rn (round to nearest even, as torch's .to(bfloat16)).
+// an FMA), then __float2bfloat16_rn or __float2half_rn (round to nearest even, as torch's
+// .to(bfloat16) and .to(float16)). float16 is a store type of every route, beside bfloat16
+// and float32: its plain version is the same formula cast to float16.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,6 +91,16 @@ __device__ __forceinline__ void store_one<__nv_bfloat16>(__nv_bfloat16* out, int
   out[i] = __float2bfloat16_rn(v);
 }
 
+template <>
+__device__ __forceinline__ void store_one<__half>(__half* out, int64_t i, float v) {
+  out[i] = __float2half_rn(v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  return static_cast<uint32_t>(__half_as_ushort(__float2half_rn(lo))) |
+         (static_cast<uint32_t>(__half_as_ushort(__float2half_rn(hi))) << 16);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
@@ -123,6 +136,21 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* dst, const float (&v)
     for (int p = 0; p < 4; ++p) {
       w[p] = pack_bf16(v[source_of<C, kN, kFlip>(8 * q + 2 * p)],
                        v[source_of<C, kN, kFlip>(8 * q + 2 * p + 1)]);
+    }
+    d[q] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <int C, int kN, bool kFlip>
+__device__ __forceinline__ void store_chunk(__half* dst, const float (&v)[kN]) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int q = 0; q < kN / 8; ++q) {
+    uint32_t w[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      w[p] = pack_f16(v[source_of<C, kN, kFlip>(8 * q + 2 * p)],
+                      v[source_of<C, kN, kFlip>(8 * q + 2 * p + 1)]);
     }
     d[q] = make_uint4(w[0], w[1], w[2], w[3]);
   }
@@ -564,7 +592,7 @@ cudaError_t launch(const uint8_t* x, Out* out, int64_t n_images, int rows_per_im
 extern "C" {
 
 // x: an (n_images, rows_per_image, width, channels) uint8 NHWC batch; out: as many values
-// of out_kind (0 = bfloat16, 1 = float32); mean / inv_std: `channels` float32 values in
+// of out_kind (0 = bfloat16, 1 = float32, 2 = float16); mean / inv_std: `channels` float32 values in
 // HOST memory (copied into the launch parameters); flips: n_images bytes on the device
 // (non-zero = mirror that image along W) or null. route: 0 bulk (rows_per_tile rows of
 // width * channels bytes a tile; needs 16-byte aligned pointers and width * channels a
@@ -576,7 +604,7 @@ int ptpu_normalize_u8(const void* x, void* out, int64_t n_images, int rows_per_i
                       int width, int channels, const float* mean, const float* inv_std,
                       int out_kind, const void* flips, int route, int rows_per_tile,
                       int device, void* stream) {
-  if (channels < 1 || channels > kMaxChannels || (out_kind != 0 && out_kind != 1) ||
+  if (channels < 1 || channels > kMaxChannels || out_kind < 0 || out_kind > 2 ||
       route < kBulk || route > kScalar || device < 0 || device >= kMaxDevices ||
       n_images < 0 || rows_per_image < 0 || width < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -594,11 +622,20 @@ int ptpu_normalize_u8(const void* x, void* out, int64_t n_images, int rows_per_i
   const uint8_t* src = static_cast<const uint8_t*>(x);
   const uint8_t* f = static_cast<const uint8_t*>(flips);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = out_kind == 0
-            ? launch(src, static_cast<__nv_bfloat16*>(out), n_images, rows_per_image, width,
-                     channels, p, f, route, rows_per_tile, device, s)
-            : launch(src, static_cast<float*>(out), n_images, rows_per_image, width,
-                     channels, p, f, route, rows_per_tile, device, s);
+  switch (out_kind) {
+    case 0:
+      err = launch(src, static_cast<__nv_bfloat16*>(out), n_images, rows_per_image, width,
+                   channels, p, f, route, rows_per_tile, device, s);
+      break;
+    case 1:
+      err = launch(src, static_cast<float*>(out), n_images, rows_per_image, width, channels,
+                   p, f, route, rows_per_tile, device, s);
+      break;
+    default:
+      err = launch(src, static_cast<__half*>(out), n_images, rows_per_image, width,
+                   channels, p, f, route, rows_per_tile, device, s);
+      break;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

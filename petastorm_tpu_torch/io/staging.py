@@ -4,7 +4,8 @@ Port of ``petastorm_tpu.io.staging.PinnedStagingPool``. A copy from pageable num
 memory makes the CUDA runtime bounce through its own staging buffer, synchronously.
 This pool keeps a small ring of page-locked slabs (``torch.empty(..., pin_memory=True)``):
 :meth:`PinnedStagingPool.to_device` copies a request's arrays into one slab
-(:meth:`~PinnedStagingPool.reserve` lets a producer write them there directly), launches
+(:meth:`~PinnedStagingPool.reserve` lets a producer write them there directly, and
+:meth:`~PinnedStagingPool.reserve_bytes` hands out raw room filled front to back), launches
 ONE ``.to(device, non_blocking=True)`` of the used span on the current stream (the
 loader's transfer stream) and returns device views into it. The slab goes back to the
 ring when a CUDA event recorded after that copy has completed, so a slab is never
@@ -90,6 +91,39 @@ class PinnedStagingPool:
             self._free.append(slab_id)
         return self._free.popleft()
 
+    def reserve_bytes(self, nbytes):
+        """Claim room for ``nbytes`` in one slab (a slab-less pool allocates its slabs at
+        this size).
+
+        Returns ``(host, upload)``: a flat uint8 numpy view the caller fills from the
+        front, and ``upload(device, used)``, which the caller must call once, after
+        filling: it launches ONE non-blocking copy of ``host[:used]`` on the current
+        CUDA stream and returns it as a uint8 device tensor."""
+        import torch
+
+        nbytes = int(nbytes)
+        if self.slab_bytes is None:
+            self._allocate(nbytes)
+        if nbytes > self.slab_bytes:
+            _degrade("staging_oversized", "request of %d bytes exceeds the %d-byte "
+                     "staging slab; copying it unpooled", nbytes, self.slab_bytes)
+            host = np.empty(nbytes, np.uint8)
+            return host, lambda device, used: torch.from_numpy(host[:used]).to(device)
+        slab_id = self._acquire()
+        slab = self._slabs[slab_id]
+
+        def upload(device, used):
+            if not 0 <= used <= nbytes:
+                raise ValueError("upload of %d bytes from a %d-byte reservation"
+                                 % (used, nbytes))
+            dev = slab[:used].to(device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            self._in_flight.append((slab_id, event))
+            return dev
+
+        return slab.numpy()[:nbytes], upload
+
     def reserve(self, specs):
         """Claim room for arrays of ``specs`` (``(shape, numpy dtype)`` pairs) in one slab.
 
@@ -97,8 +131,6 @@ class PinnedStagingPool:
         and ``upload(device)``, which the caller must call once, after filling: it
         launches ONE non-blocking copy of the used span on the current CUDA stream and
         returns the device tensors, in order."""
-        import torch
-
         specs = [(tuple(shape), np.dtype(dtype)) for shape, dtype in specs]
         sizes = [int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
                  for shape, dtype in specs]
@@ -108,24 +140,12 @@ class PinnedStagingPool:
             start = -(-end // _STAGE_ALIGN) * _STAGE_ALIGN
             end = start + nbytes
             spans.append(start)
-        if self.slab_bytes is None:
-            self._allocate(end)
-        if end > self.slab_bytes:
-            _degrade("staging_oversized", "request of %d bytes exceeds the %d-byte "
-                     "staging slab; copying it unpooled", end, self.slab_bytes)
-            views = [np.empty(shape, dtype) for shape, dtype in specs]
-            return views, lambda device: [torch.from_numpy(v).to(device) for v in views]
-        slab_id = self._acquire()
-        slab = self._slabs[slab_id]
-        host = slab.numpy()
+        host, send = self.reserve_bytes(end)
         views = [host[start:start + nbytes].view(dtype).reshape(shape)
                  for (shape, dtype), start, nbytes in zip(specs, spans, sizes)]
 
         def upload(device):
-            dev = slab[:end].to(device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
-            self._in_flight.append((slab_id, event))
+            dev = send(device, end)
             return [dev[start:start + nbytes].view(_torch_dtype(dtype)).view(shape)
                     for (shape, dtype), start, nbytes in zip(specs, spans, sizes)]
 

@@ -16,13 +16,15 @@ waits on it and every delivered tensor is marked as used by the consumer's strea
 (``record_stream``), so the caching allocator never hands its memory back to the
 transfer stream while the consumer may still read it.
 
-``device=None`` means the CUDA device; without one the loader raises. Tests pass
+The parameters are the JAX package's, in its order, with ``device`` (keyword only) after
+them. ``device=None`` means the CUDA device; without one the loader raises. Tests pass
 ``device="cpu"``: the same pipeline runs the kernels' plain PyTorch versions.
+``to_device=False`` delivers host numpy after the staged decode, as the JAX package does.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
-across devices, pad_shapes, the HBM device shuffle, the on-device resize, the trace,
-metrics, health, provenance, SLO, controller and tenant wiring, checkpointing, and the
-lease-backed zero-copy wire of the process pool.
+across devices, pad_shapes, the HBM device shuffle, the trace, metrics, health,
+provenance, SLO, controller and tenant wiring, checkpointing, and the lease-backed
+zero-copy wire of the process pool.
 """
 from __future__ import annotations
 
@@ -233,13 +235,50 @@ def _concat(chunks):
 
 
 def _materialize_passthrough(batch, cause):
-    """Inflate any compressed-page pass-through columns with the host twin, at a seam that
-    bypasses the device inflate stage (``cause`` names it): counted in
-    ``pagedec_counters()["host_inflate_columns"]`` and warned once."""
+    """Inflate any compressed-page pass-through columns with the host twin: counted in
+    ``pagedec_counters()["host_inflate_columns"]``, and warned once when ``cause`` names a
+    seam that bypasses the device inflate stage (None: host delivery, the designed
+    host seam)."""
     n = sum(1 for v in batch.values() if is_passthrough(v))
     if n:
         pagedec_counters()["host_inflate_columns"].inc(n)
     return materialize_columns(batch, cause)
+
+
+def _validate_decode_resize(resize, device_fields):
+    """``device_decode_resize`` normalised and checked at construction: ``None``, an
+    ``(h, w)`` pair, or a dict of such pairs keyed by device-decoded field. A misspelled
+    key or a malformed target fails here, not later as a mixed-size error (the JAX
+    package's ``_validate_decode_resize``)."""
+    if resize is None:
+        return None
+    if not device_fields:
+        raise ValueError(
+            "device_decode_resize was given but the reader has no device-decoded "
+            "fields — open it with decode_on_device=True (and an image-codec "
+            "column) for the on-device resize to apply")
+
+    def check_target(t, label):
+        try:
+            h, w = int(t[0]), int(t[1])
+        except (TypeError, ValueError, IndexError):
+            raise ValueError(
+                "device_decode_resize%s must be an (h, w) pair, got %r" % (label, t))
+        if h <= 0 or w <= 0 or len(tuple(t)) != 2:
+            raise ValueError(
+                "device_decode_resize%s must be two positive ints, got %r" % (label, t))
+        return (h, w)
+
+    if isinstance(resize, dict):
+        known = set(device_fields or ())
+        unknown = set(resize) - known
+        if unknown:
+            raise ValueError(
+                "device_decode_resize names %s, but the reader's device-decoded "
+                "fields are %s (is decode_on_device=True set, and are the names "
+                "spelled right?)" % (sorted(unknown), sorted(known)))
+        return {k: check_target(v, "[%r]" % k) for k, v in resize.items()}
+    return check_target(resize, "")
 
 
 def _rows_to_columns(rows, object_fields=()):
@@ -308,8 +347,8 @@ class DataLoader:
         Batch reader (columnar) or per-row reader (rows are stacked host-side).
     batch_size : int
         Rows per yielded batch.
-    device : torch.device or str, optional
-        Where batches land. Default: the CUDA device (raises when there is none).
+    sharding : None
+        Multi-card placement is not ported (raises ``NotImplementedError``).
     shuffling_queue_capacity : int
         >0 enables a host-side row shuffling buffer (reference ``shuffling_queue_capacity``).
     seed : int, optional
@@ -327,25 +366,35 @@ class DataLoader:
     prefetch : int
         Device batches kept in flight by the transfer thread. 0 transfers synchronously
         on the consumer thread.
+    to_device : bool
+        False yields host numpy dicts: staged (``decode_on_device``) fields are still
+        decoded on ``device`` and brought back, pass-through columns inflate on the host
+        twin, and the device transform is not applied (as in the JAX package).
     host_queue_size : int
         Host batches buffered between the producer and the transfer thread.
+    device_decode_resize : (h, w) or {field: (h, w)}, optional
+        Lifts the uniform-size requirement of the device decode for mixed-size stores:
+        each decoded image is resized to ``(h, w)`` on the device (host-decoded rows
+        with cv2), so every batch leaves with one shape. Validated here.
     staging : None, bool or int, optional
         Pinned-host H2D staging (:class:`petastorm_tpu_torch.io.staging.PinnedStagingPool`).
         Default ``None`` = on for a CUDA device, off for the CPU; ``False`` disables; an
         ``int`` forces it on with that slab size in bytes (otherwise sized from the first
         upload).
+    device : torch.device or str, optional, keyword only
+        Where batches land (and where staged fields decode). Default: the CUDA device
+        (raises when there is none).
     """
 
-    def __init__(self, reader, batch_size, device=None, shuffling_queue_capacity=0,
+    def __init__(self, reader, batch_size, sharding=None, shuffling_queue_capacity=0,
                  seed=None, last_batch="drop", device_transform=None, prefetch=2,
-                 host_queue_size=8, staging=None, sharding=None, pad_shapes=None,
+                 to_device=True, host_queue_size=8, pad_shapes=None,
                  device_shuffle_capacity=0, device_decode_resize=None, trace=None,
-                 metrics=None, health=None, provenance=None, slos=None, controller=None,
-                 tenant=None):
+                 metrics=None, health=None, staging=None, provenance=None,
+                 slos=None, controller=None, tenant=None, *, device=None):
         reject_unported(
             "DataLoader", sharding=sharding, pad_shapes=pad_shapes,
-            device_shuffle_capacity=device_shuffle_capacity,
-            device_decode_resize=device_decode_resize, trace=trace, metrics=metrics,
+            device_shuffle_capacity=device_shuffle_capacity, trace=trace, metrics=metrics,
             health=health, provenance=provenance, slos=slos, controller=controller,
             tenant=tenant)
         if batch_size <= 0:
@@ -359,6 +408,9 @@ class DataLoader:
         self.batch_size = int(batch_size)
         self.last_batch = last_batch
         self.prefetch = int(prefetch)
+        self.to_device = bool(to_device)
+        self._device_decode_resize = _validate_decode_resize(
+            device_decode_resize, getattr(reader, "device_decode_fields", None))
         self._seed = seed
         self._shuffling_queue_capacity = shuffling_queue_capacity
         self._host_queue_size = host_queue_size
@@ -383,7 +435,7 @@ class DataLoader:
         self._adopted_passthrough = False
         if getattr(reader, "is_batched_reader", False) \
                 and hasattr(reader, "adopt_passthrough"):
-            reader.adopt_passthrough(on_device=self.device.type == "cuda")
+            reader.adopt_passthrough(on_device=self.device.type == "cuda" and self.to_device)
             self._adopted_passthrough = True
         self._stream = None
         self._pad_cache = {}
@@ -547,8 +599,11 @@ class DataLoader:
                 raise ValueError(
                     "Field %r has null rows; nullable columns are not supported with "
                     "decode_on_device (pad or filter nulls upstream)" % name)
+            resize = self._device_decode_resize
+            if isinstance(resize, dict):
+                resize = resize.get(name)
             decoded[name] = field.codec.device_decode_batch(
-                field, staged, self.device, stager=self._staging)
+                field, staged, self.device, stager=self._staging, resize_to=resize)
         return batch, decoded
 
     def _pages_stager(self):
@@ -706,10 +761,25 @@ class DataLoader:
                 v.record_stream(consumer)
         return batch
 
+    def _host_delivery(self, host_q):
+        """``to_device=False``: host numpy batches, on the consumer thread. Pass-through
+        columns inflate on the host twin (the designed host seam, not a degradation);
+        staged fields decode on the device and come back as numpy."""
+        for batch in self._host_batches(host_q):
+            batch = _materialize_passthrough(batch, None)
+            if getattr(self.reader, "device_decode_fields", None):
+                rest, staged = self._decode_staged(batch)
+                rest.update({k: v.cpu().numpy() for k, v in staged.items()})
+                batch = rest
+            yield batch
+
     def __iter__(self):
         self._start_producer()
         gen = self._generation  # superseded iterators must not stop a newer pipeline
         host_q = self._queue
+        if not self.to_device:
+            yield from self._host_delivery(host_q)
+            return
         if self.prefetch <= 0:  # synchronous transfer on the consumer thread
             for batch, event in self._device_batches(host_q):
                 yield self._hand_over(batch, event)

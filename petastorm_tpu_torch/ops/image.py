@@ -1,10 +1,14 @@
-"""Image prep on the device: uint8 → normalised bfloat16 (+ random horizontal flip).
+"""Image prep on the device: uint8 → normalised bfloat16 (+ random horizontal flip), and
+the random crop and colour jitter of train-time augmentation.
 
 Port of ``petastorm_tpu.ops.image``: ``normalize_images`` is kernel K2 (``csrc/normalize.cu``,
 port of ``petastorm_tpu/ops/image.py:24 _normalize_kernel``) on a CUDA tensor and its
 plain PyTorch version on a CPU tensor; ``normalize_and_augment`` draws a per-image flip
 from a ``torch.Generator`` and hands it to the same K2 launch, which writes flipped images
-mirrored. ``random_crop`` and ``color_jitter`` are not ported yet.
+mirrored. ``random_crop`` and ``color_jitter`` draw from a ``torch.Generator`` where the
+JAX package takes a key, and are plain torch ops, as the JAX package's are plain ``jnp``;
+each is built on a helper that takes its draws as tensors (``_crop_at``,
+``_jitter_with``).
 
 Layout: NHWC with C innermost, as in the JAX package.
 """
@@ -113,24 +117,33 @@ def _normalize_plain(images, mean, std, out_dtype, flips=None):
     return out
 
 
-def normalize_images(images, mean, std, out_dtype=None, flips=None, route=None):
-    """(N, H, W, C) uint8 → (N, H, W, C) ``out_dtype`` (default bfloat16 — float32 also
-    taken), ``(x/255 - mean) / std`` per channel. ``mean``/``std``: (C,) floats.
-    ``flips``: optional (N,) bool or uint8 tensor on the images' device; image i comes
-    out mirrored along W where ``flips[i]`` is set, in the same pass.
+def _out_kinds():
+    import torch
 
-    K2 on a CUDA tensor, the plain version on a CPU tensor. ``route`` (None: the
-    fastest :func:`choose_route` allows) forces one of K2's slower routes
-    (``"vector"``, ``"scalar"``), for tests. ``normalize_images.launches`` counts kernel
-    launches, ``normalize_images.routes`` those of each route."""
+    return {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+
+def normalize_images(images, mean, std, out_dtype=None, flips=None, route=None):
+    """(N, H, W, C) uint8 → (N, H, W, C) ``out_dtype`` (default bfloat16; float32 and
+    float16 also taken), ``(x/255 - mean) / std`` per channel. ``mean``/``std``: (C,)
+    floats. ``flips``: optional (N,) bool or uint8 tensor on the images' device; image i
+    comes out mirrored along W where ``flips[i]`` is set, in the same pass.
+
+    K2 on a CUDA tensor, the plain version on a CPU tensor. A batch that is not
+    contiguous (a crop's view) is made contiguous with one copy before the launch.
+    ``route`` (None: the fastest :func:`choose_route` allows) forces one of K2's slower
+    routes (``"vector"``, ``"scalar"``), for tests. ``normalize_images.launches`` counts
+    kernel launches, ``normalize_images.routes`` those of each route."""
     import torch
 
     out_dtype = torch.bfloat16 if out_dtype is None else out_dtype
     if images.dtype != torch.uint8 or images.dim() != 4:
         raise TypeError("normalize_images takes (N, H, W, C) uint8, got %s %s"
                         % (images.dtype, tuple(images.shape)))
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError("normalize_images writes bfloat16 or float32, got %s" % out_dtype)
+    out_kind = _out_kinds().get(out_dtype)
+    if out_kind is None:
+        raise TypeError("normalize_images writes bfloat16, float32 or float16, got %s"
+                        % out_dtype)
     if flips is not None and (flips.dtype not in (torch.bool, torch.uint8)
                               or tuple(flips.shape) != (images.shape[0],)
                               or flips.device != images.device):
@@ -145,8 +158,7 @@ def normalize_images(images, mean, std, out_dtype=None, flips=None, route=None):
     if not 1 <= channels <= MAX_CHANNELS:
         raise ValueError("normalize_images kernel takes 1..%d channels, got %d"
                          % (MAX_CHANNELS, channels))
-    if not images.is_contiguous():
-        raise ValueError("normalize_images needs a contiguous batch")
+    images = images.contiguous()
     from petastorm_tpu_torch.ops import kernels
 
     _m, _i, mean_p, inv_p = _cached_constants(mean, std, channels)
@@ -157,8 +169,7 @@ def normalize_images(images, mean, std, out_dtype=None, flips=None, route=None):
     if flips is not None:
         flips = flips.contiguous()
     rc = kernels.library().ptpu_normalize_u8(
-        x_ptr, out_ptr, n, h, w, channels, mean_p, inv_p,
-        0 if out_dtype == torch.bfloat16 else 1,
+        x_ptr, out_ptr, n, h, w, channels, mean_p, inv_p, out_kind,
         None if flips is None else flips.data_ptr(), ROUTES.index(chosen), rows_per_tile,
         *kernels.launch_target(images.device))
     kernels.check_launch("normalize_u8", rc)
@@ -182,3 +193,73 @@ def normalize_and_augment(images, mean, std, generator=None, flip=True, out_dtyp
         flips = torch.rand(images.shape[0], generator=generator,
                            device=images.device) < 0.5
     return normalize_images(images, mean, std, out_dtype=out_dtype, flips=flips)
+
+
+def _crop_at(images, tops, lefts, crop_h, crop_w):
+    """(N, H, W, C) → (N, crop_h, crop_w, C): image i cut at rows ``tops[i]`` and columns
+    ``lefts[i]`` onwards ((N,) integer tensors on the images' device), as one gather (the
+    JAX package's ``random_crop`` body)."""
+    import torch
+
+    n = images.shape[0]
+    dev = images.device
+    rows = tops.to(torch.int64)[:, None] + torch.arange(crop_h, device=dev)[None, :]
+    cols = lefts.to(torch.int64)[:, None] + torch.arange(crop_w, device=dev)[None, :]
+    batch = torch.arange(n, device=dev)[:, None, None]
+    return images[batch, rows[:, :, None], cols[:, None, :], :]
+
+
+def random_crop(images, generator, crop_h, crop_w):
+    """Per-image random crop of an (N, H, W, C) batch to (N, crop_h, crop_w, C): offsets
+    drawn uniformly from ``generator`` (a ``torch.Generator`` on the images' device, or
+    None for torch's default one), every crop inside its image."""
+    import torch
+
+    n, h, w, _c = images.shape
+    if not (0 < crop_h <= h and 0 < crop_w <= w):
+        raise ValueError("random_crop: crop (%d, %d) does not fit images of (%d, %d)"
+                         % (crop_h, crop_w, h, w))
+    tops = torch.randint(0, h - crop_h + 1, (n,), generator=generator, device=images.device)
+    lefts = torch.randint(0, w - crop_w + 1, (n,), generator=generator,
+                          device=images.device)
+    return _crop_at(images, tops, lefts, crop_h, crop_w)
+
+
+def _jitter_with(images, fb, fc, fs):
+    """The JAX package's ``color_jitter`` body with its factors given: ``fb``, ``fc``,
+    ``fs`` (N, 1, 1, 1) float32 brightness, contrast and saturation factors (or None to
+    skip that step), applied in float32; clipped to [0, 255] and cast back to the input
+    dtype (truncating, for uint8)."""
+    import torch
+
+    dtype = images.dtype
+    x = images.to(torch.float32)
+    if fb is not None:
+        x = x * fb
+    if fc is not None:
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        x = (x - mean) * fc + mean
+    if fs is not None:
+        gray = x.mean(dim=-1, keepdim=True)
+        x = (x - gray) * fs + gray
+    return torch.clamp(x, 0.0, 255.0).to(dtype)
+
+
+def color_jitter(images, generator, brightness=0.4, contrast=0.4, saturation=0.4):
+    """Per-image random brightness, contrast and saturation (torchvision-style ranges:
+    factor ~ U[1-x, 1+x]) of an (N, H, W, C) batch, same dtype out; the factors are drawn
+    from ``generator`` (a ``torch.Generator`` on the images' device, or None)."""
+    import torch
+
+    n = images.shape[0]
+
+    def factors(span):
+        if not span:
+            return None
+        u = torch.rand((n, 1, 1, 1), generator=generator, device=images.device)
+        return (1.0 - span) + (2.0 * span) * u
+
+    fb = factors(brightness)
+    fc = factors(contrast)
+    fs = factors(saturation)
+    return _jitter_with(images, fb, fc, fs)

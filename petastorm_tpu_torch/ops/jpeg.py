@@ -4,20 +4,27 @@ Port of ``petastorm_tpu.ops.jpeg``:
 
 - **Stage 1 (host)**: :func:`entropy_decode_jpeg` (pure-Python oracle, baseline only),
   :func:`entropy_decode_jpeg_fast` (the C++ decoder, baseline and progressive) and
-  :func:`entropy_decode_jpeg_batch` (one native call per row group) turn JPEG bytes into
-  *quantized DCT coefficient blocks* per component (:class:`JpegPlanes`).
-- **Stage 2 (device)**: :func:`decode_jpeg_batch` dequantises, runs the 8x8 inverse DCT
-  as one (N, 64) @ (64, 64) product per component (:func:`idct_scaled_segments`, the CUDA
-  kernel K1 on CUDA tensors, one launch for a batch's components), range-limits,
-  upsamples chroma with libjpeg's triangle filter and converts YCbCr to RGB. The
-  operations around the IDCT are plain torch ops, as they sit outside the Pallas kernel
-  in the JAX package too.
-
-Stage 2 ships full int16 coefficients (k = 64). The JAX package's H2D byte savers (12-bit,
-zigzag-truncated and split packs) and ``resize_image_batch`` are not ported yet.
+  :func:`entropy_decode_jpeg_batch` (one native call per row group, with the row group's
+  spectral profile ``specmax``) turn JPEG bytes into *quantized DCT coefficient blocks*
+  per component (:class:`JpegPlanes`).
+- **The transfer**: :func:`decode_jpeg_batch` ships only what the content needs, with the
+  JAX package's rules (``_decode_group``): the zigzag prefix when the rest of the
+  spectrum is zero (:func:`_truncation_ks`), a per-position bit-width split from the
+  profile (:func:`_split_points`), else a 12-bit pack, else int16; all of a batch's groups
+  are packed into one pinned staging region and cross in ONE upload
+  (:func:`transfer_byte_counters` counts the bytes).
+- **Stage 2 (device)**: the stage-2 unpack (:func:`unpack_dequant_segments`, the CUDA
+  kernel ``csrc/coef_unpack.cu`` on CUDA tensors) turns each component's shipped slabs
+  into dequantised float32 blocks in natural order, one launch a layout group; the 8x8
+  inverse DCT runs as one (N, 64) @ (64, 64) product per component
+  (:func:`idct_scaled_segments`, the CUDA kernel K1, one launch a group); then plain
+  torch ops range-limit, upsample chroma with libjpeg's triangle filter and convert
+  YCbCr to RGB, as they sit outside the Pallas kernel in the JAX package too.
+  :func:`resize_image_batch` resizes a mixed-size batch's groups to one size.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import struct
@@ -55,16 +62,26 @@ class JpegPlanes:
     batch_ref: tuple | None = None
     #: per component, the max zigzag index with any nonzero coefficient (row group)
     kmax: tuple | None = None
+    #: ``(ncomp, 64)`` int32 per-zigzag-position max |coefficient| over the row group
+    #: (one array shared by the group's rows): drives the split transfer. None when
+    #: stage 1 did not profile the spectrum (per-image stage 1).
+    specmax: object = None
 
     def detach(self):
         """An equivalent ``JpegPlanes`` that owns its coefficients: a ``batch_ref`` row
         pins its whole row group's buffers, so rows that linger (a shuffling buffer)
-        are detached."""
+        are detached. ``specmax`` stays shared (small, never written)."""
         if self.batch_ref is None:
             return self
         comps = [JpegComponent(c.blocks.copy(), c.qtable.copy(), c.h_samp, c.v_samp)
                  for c in self.components]
-        return JpegPlanes(self.height, self.width, comps, batch_ref=None, kmax=self.kmax)
+        return JpegPlanes(self.height, self.width, comps, batch_ref=None, kmax=self.kmax,
+                          specmax=self.specmax)
+
+    def __reduce__(self):
+        # a pickle carries this row only, not its row group's buffers (batch_ref)
+        d = self.detach()
+        return (JpegPlanes, (d.height, d.width, d.components, None, d.kmax, d.specmax))
 
 
 def planes_from_arrays(height, width, components):
@@ -331,6 +348,9 @@ def entropy_decode_jpeg_batch(blobs):
         raise ValueError("Unsupported JPEG component count %d (expected 1 or 3)"
                          % len(comps_layout))
     qtabs = qtabs.astype(np.int32)
+    # the row group's spectral profile, one native pass a component over the stacked
+    # buffers (failed streams' slices are zeroed, so they cannot widen it)
+    specmax = np.stack([native.jpeg_specmax_native(c) for c in coeffs])
     out = []
     for i in range(len(blobs)):
         if status[i] != 0:
@@ -339,7 +359,7 @@ def entropy_decode_jpeg_batch(blobs):
         comps = [JpegComponent(coeffs[c][i].reshape(by, bx, 64), qtabs[i, c], h, v)
                  for c, (h, v, by, bx) in enumerate(comps_layout)]
         out.append(JpegPlanes(height, width, comps, batch_ref=(coeffs, qtabs, i),
-                              kmax=kmax))
+                              kmax=kmax, specmax=specmax))
     return out
 
 
@@ -525,7 +545,162 @@ def decode_jpeg_device_stage(planes, device=None):
     return _to_uint8(ycbcr_to_rgb(full[0], full[1], full[2]))
 
 
-# -- batched stage 2 (one IDCT launch per batch) --------------------------------------
+# -- the stage-2 unpack: shipped slabs → dequantised blocks (csrc/coef_unpack.cu) ------
+
+
+#: one component's shipped coefficients, as :func:`unpack_dequant_segments` takes them:
+#: ``slabs`` an (n, blocks, k) int16 tensor, or its 12-bit pack (n, blocks, k*3//2) uint8
+#: when ``packed``, or when ``split = (k1, k2)`` a ``(head, mid, tail)`` triple: uint8
+#: 12-bit pairs for zigzag positions [0, k1), int8 for [k1, k2), uint8 4-bit nibble pairs
+#: for [k2, k). ``qtab``: (n, 64) int32 natural order. Order: natural when k == 64 and no
+#: split, else zigzag.
+CoefSegment = collections.namedtuple("CoefSegment", "slabs qtab k packed split")
+
+_MAX_UNPACK_SEGMENTS = 4  # csrc/coef_unpack.cu kMaxSegments
+
+
+def _unpack12(u8):
+    """(n, blocks, m*3) uint8 → (n, blocks, 2m) int32, 12-bit two's complement
+    (``ptpu_jpeg_pack12`` layout: ``lo = b0 | (b1 & 0xF) << 8``, ``hi = b1 >> 4 | b2 << 4``)."""
+    import torch
+
+    triples = u8.reshape(u8.shape[0], u8.shape[1], -1, 3).to(torch.int32)
+    b0, b1, b2 = triples[..., 0], triples[..., 1], triples[..., 2]
+    lo = b0 | ((b1 & 0xF) << 8)
+    hi = (b1 >> 4) | (b2 << 4)
+    pair = torch.stack([lo, hi], dim=-1)
+    pair = pair - ((pair & 0x800) << 1)
+    return pair.reshape(u8.shape[0], u8.shape[1], -1)
+
+
+def _unpack4(u8):
+    """(n, blocks, m) uint8 → (n, blocks, 2m) int32, 4-bit two's complement, low nibble
+    first."""
+    import torch
+
+    b = u8.to(torch.int32)
+    pair = torch.stack([b & 0xF, (b >> 4) & 0xF], dim=-1)
+    pair = pair - ((pair & 0x8) << 1)
+    return pair.reshape(u8.shape[0], u8.shape[1], -1)
+
+
+def _unpack_dequant_plain(seg):
+    """Plain PyTorch version of the stage-2 unpack for one :class:`CoefSegment`: the JAX
+    package's integer ops (``_batched_stage2``, ``petastorm_tpu/ops/jpeg.py:573-602``),
+    then ``coef.float() * qtab.float()``. Returns (n * blocks, 64) float32, natural
+    order."""
+    import torch
+
+    k = seg.k
+    if seg.split is not None:
+        head, mid, tail = seg.slabs
+        parts = []
+        if head.shape[-1]:
+            parts.append(_unpack12(head))
+        if mid.shape[-1]:
+            parts.append(mid.to(torch.int32))
+        if tail.shape[-1]:
+            parts.append(_unpack4(tail))
+        coef = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        zigzag = True
+    else:
+        coef = _unpack12(seg.slabs) if seg.packed else seg.slabs
+        zigzag = k < 64
+    if zigzag:
+        if k < 64:
+            coef = torch.nn.functional.pad(coef, (0, 64 - k))
+        coef = coef.index_select(-1, torch.from_numpy(UNZIGZAG).to(coef.device))
+    n, blocks = coef.shape[0], coef.shape[1]
+    scaled = coef.to(torch.float32) * seg.qtab.to(torch.float32)[:, None, :]
+    return scaled.reshape(n * blocks, 64)
+
+
+def _check_segment(seg):
+    """Shapes and dtypes of one :class:`CoefSegment`; returns (images, blocks)."""
+    import torch
+
+    if seg.qtab.dim() != 2 or seg.qtab.shape[1] != 64 or seg.qtab.dtype != torch.int32:
+        raise ValueError("unpack_dequant: qtab must be (n, 64) int32, got %s %s"
+                         % (seg.qtab.dtype, tuple(seg.qtab.shape)))
+    k = int(seg.k)
+    if not 1 <= k <= 64 or k % 2:
+        raise ValueError("unpack_dequant: k must be even in [2, 64], got %r" % (seg.k,))
+    if seg.split is not None:
+        k1, k2 = seg.split
+        if not 0 <= k1 <= k2 <= k or k1 % 2 or (k - k2) % 2:
+            raise ValueError("unpack_dequant: bad split %r for k=%d" % (seg.split, k))
+        want = ((torch.uint8, k1 * 3 // 2), (torch.int8, k2 - k1), (torch.uint8, (k - k2) // 2))
+        slabs = tuple(seg.slabs)
+    else:
+        want = ((torch.uint8, k * 3 // 2),) if seg.packed else ((torch.int16, k),)
+        slabs = (seg.slabs,)
+    n = seg.qtab.shape[0]
+    blocks = slabs[0].shape[1] if slabs[0].dim() == 3 else -1
+    for t, (dtype, width) in zip(slabs, want):
+        if t.dtype != dtype or t.dim() != 3 or tuple(t.shape) != (n, blocks, width):
+            raise ValueError("unpack_dequant: slab %s %s, expected %s of shape %s"
+                             % (t.dtype, tuple(t.shape), dtype, (n, blocks, width)))
+    if len(slabs) != len(want):
+        raise ValueError("unpack_dequant: a split segment takes (head, mid, tail)")
+    return n, blocks
+
+
+def unpack_dequant_segments(segments):
+    """A layout group's components as shipped (:class:`CoefSegment` each, all on one
+    device) → the list of (n * blocks, 64) float32 dequantised blocks in natural order,
+    K1's input.
+
+    On CUDA tensors, the hand-written kernel ``csrc/coef_unpack.cu`` (it replaces the
+    unpack and dequantisation the JAX package fuses into its stage-2 program,
+    ``petastorm_tpu/ops/jpeg.py:552-602``), ONE launch for every segment; on CPU tensors,
+    the plain version per segment. ``unpack_dequant_segments.launches`` counts kernel
+    launches."""
+    import torch
+
+    segments = list(segments)
+    if not 1 <= len(segments) <= _MAX_UNPACK_SEGMENTS:
+        raise ValueError("unpack_dequant_segments takes 1..%d segments, got %d"
+                         % (_MAX_UNPACK_SEGMENTS, len(segments)))
+    device = segments[0].qtab.device
+    shapes = []
+    for seg in segments:
+        shapes.append(_check_segment(seg))
+        slabs = seg.slabs if seg.split is not None else (seg.slabs,)
+        if any(t.device != device for t in slabs) or seg.qtab.device != device:
+            raise ValueError("unpack_dequant_segments: tensors on more than one device")
+    if device.type == "cpu":
+        return [_unpack_dequant_plain(seg) for seg in segments]
+    if device.type != "cuda":
+        raise ValueError("unpack_dequant runs on CPU or CUDA tensors, got %s" % device)
+    from petastorm_tpu_torch.ops import kernels
+
+    descs = (kernels.CoefSegmentDesc * len(segments))()
+    outs = []
+    for d, seg, (n, blocks) in zip(descs, segments, shapes):
+        slabs = tuple(seg.slabs) if seg.split is not None else (seg.slabs,)
+        if not all(t.is_contiguous() for t in slabs) or not seg.qtab.is_contiguous():
+            raise ValueError("unpack_dequant needs contiguous slabs and tables")
+        out = torch.empty((n * blocks, 64), dtype=torch.float32, device=device)
+        outs.append(out)
+        ptrs = [t.data_ptr() for t in slabs] + [0] * (3 - len(slabs))
+        d.src0, d.src1, d.src2 = ptrs
+        d.qtab, d.out = seg.qtab.data_ptr(), out.data_ptr()
+        d.rows, d.blocks_per_image = n * blocks, blocks
+        d.kind = 2 if seg.split is not None else int(bool(seg.packed))  # split, pack12, int16
+        d.k = seg.k
+        d.k1, d.k2 = seg.split if seg.split is not None else (0, 0)
+        d.zigzag = int(seg.split is not None or seg.k < 64)
+    rc = kernels.library().ptpu_coef_unpack_segments(descs, len(segments),
+                                                     *kernels.launch_target(device))
+    kernels.check_launch("coef_unpack_segments", rc)
+    unpack_dequant_segments.launches += 1
+    return outs
+
+
+unpack_dequant_segments.launches = 0
+
+
+# -- batched stage 2 (one unpack and one IDCT launch per layout group) -----------------
 
 
 def _layout_key(planes):
@@ -538,18 +713,25 @@ def _layout_key(planes):
     )
 
 
-def _batched_stage2(layout, coeffs, qtabs, bgr=False):
-    """Same-layout batch on device: per component ``(n, by*bx, 64)`` int16 coefficients
-    and ``(n, 64)`` int32 quantisation tables (per image: quality may vary) →
-    ``(n, h, w, 3)`` uint8, RGB or (``bgr``) BGR. One K1 launch for all components."""
+def _batched_stage2(layout, coeffs, qtabs, ks=None, packed=None, split=None, bgr=False):
+    """Same-layout batch on device: per component the shipped coefficients (an
+    ``(n, by*bx, k)`` int16 tensor, its 12-bit pack, or a split's slab triple: see
+    :class:`CoefSegment`; ``ks``, ``packed`` and ``split`` give each component's variant,
+    None = full int16 in natural order) and ``(n, 64)`` int32 quantisation tables (per
+    image: quality may vary) → ``(n, h, w, 3)`` uint8, RGB or (``bgr``) BGR. One unpack
+    launch and one K1 launch for all components."""
     import torch
 
     height, width, comp_layout = layout
     hmax = max(h for h, _v, _by, _bx in comp_layout)
     vmax = max(v for _h, v, _by, _bx in comp_layout)
-    n = coeffs[0].shape[0]
-    scaled = [(coef.float() * qtab.float()[:, None, :]).reshape(n * by * bx, 64)
-              for (_h, _v, by, bx), coef, qtab in zip(comp_layout, coeffs, qtabs)]
+    n = qtabs[0].shape[0]
+    ncomp = len(comp_layout)
+    segments = [CoefSegment(coef, qtab, 64 if ks is None else ks[ci],
+                            bool(packed is not None and packed[ci]),
+                            None if split is None else split[ci])
+                for ci, (coef, qtab) in enumerate(zip(coeffs, qtabs))]
+    scaled = unpack_dequant_segments(segments)
     planes = []
     for (h_samp, v_samp, by, bx), pix in zip(comp_layout, idct_scaled_segments(scaled)):
         pix = torch.clamp(torch.round(pix), 0.0, 255.0)  # libjpeg range-limits at IDCT out
@@ -561,27 +743,25 @@ def _batched_stage2(layout, coeffs, qtabs, bgr=False):
             elif r > 1:
                 plane = torch.repeat_interleave(plane, r, dim=axis)
         planes.append(plane[:, :height, :width])
-    if len(planes) == 1:
+    if ncomp == 1:
         y = torch.clamp(planes[0], 0, 255).to(torch.uint8)
         return torch.stack([y, y, y], dim=-1)
     return _to_uint8(ycbcr_to_rgb(planes[0], planes[1], planes[2], bgr=bgr))
 
 
-def stack_jpeg_coefficients(planes_list, out=None):
+def stack_jpeg_coefficients(planes_list):
     """Stack same-layout :class:`JpegPlanes` into per-component batch arrays.
 
     Returns ``(coeffs, qtabs)``: tuples with one ``(n, by*bx, 64)`` int16 and one
-    ``(n, 64)`` int32 array per component, written into ``out`` (a ``(coeffs, qtabs)``
-    pair of such arrays, e.g. views into a pinned staging slab) when given. Rows of one
-    row group (``batch_ref``) are gathered from their parent buffers with one ``take``
-    per parent and component; other rows are copied one by one."""
+    ``(n, 64)`` int32 array per component. Rows of one row group (``batch_ref``) are
+    gathered from their parent buffers with one ``take`` per parent and component; other
+    rows are copied one by one. (The transfer packs from the parent buffers in place,
+    :func:`_runs`; this is the stacked form for callers that want one array.)"""
     ncomp = len(planes_list[0].components)
     n = len(planes_list)
-    if out is None:
-        blocks = [c.blocks.shape[0] * c.blocks.shape[1] for c in planes_list[0].components]
-        out = (tuple(np.empty((n, nb, 64), np.int16) for nb in blocks),
-               tuple(np.empty((n, 64), np.int32) for _ in blocks))
-    coeffs, qtabs = out
+    blocks = [c.blocks.shape[0] * c.blocks.shape[1] for c in planes_list[0].components]
+    coeffs = tuple(np.empty((n, nb, 64), np.int16) for nb in blocks)
+    qtabs = tuple(np.empty((n, 64), np.int32) for _ in blocks)
     by_parent = {}
     for j, p in enumerate(planes_list):
         ref = p.batch_ref
@@ -605,7 +785,26 @@ def stack_jpeg_coefficients(planes_list, out=None):
             else:
                 coeffs[c][positions] = parent_coeffs[c][rows]
                 qtabs[c][positions] = parent_qtabs[rows, c, :]
-    return tuple(coeffs), tuple(qtabs)
+    return coeffs, qtabs
+
+
+def resize_image_batch(img, target):
+    """(n, h, w, c) uint8 batch → (n, *target, c) uint8, bilinear with half-pixel centres
+    and no antialiasing, computed in float32, then rounded and clamped (the JAX package's
+    ``jax.image.resize(method="linear", antialias=False)``, which tracks
+    ``cv2.resize(INTER_LINEAR)``). A no-op, returning ``img`` itself, when the size
+    already matches. The JAX package's resize is no Pallas kernel, so this is
+    ``torch.nn.functional.interpolate`` on a channels-last view (the CUDA bilinear takes
+    no uint8)."""
+    import torch
+
+    h, w = int(target[0]), int(target[1])
+    if img.shape[1] == h and img.shape[2] == w:
+        return img
+    x = img.to(torch.float32).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+    out = torch.nn.functional.interpolate(x, size=(h, w), mode="bilinear",
+                                          align_corners=False, antialias=False)
+    return _to_uint8(out.permute(0, 2, 3, 1)).contiguous()
 
 
 def _resolve_device(device):
@@ -620,55 +819,417 @@ def _resolve_device(device):
     return torch.device(device)
 
 
-def _stack_to_device(group, layout, device, stager):
-    """Stack a same-layout group's coefficients and tables and put them on ``device``:
-    straight into a slab of ``stager`` (the loader's pinned staging ring, whose
-    ``reserve`` hands out the host views) when given, else through numpy."""
-    import torch
+# -- the narrowed coefficient transfer (the JAX package's _decode_group rules) ----------
 
-    if stager is not None and device.type == "cuda":
-        n = len(group)
-        specs = [((n, by * bx, 64), np.int16) for _h, _v, by, bx in layout[2]]
-        specs += [((n, 64), np.int32)] * len(layout[2])
-        views, upload = stager.reserve(specs)
-        ncomp = len(layout[2])
-        stack_jpeg_coefficients(group, out=(views[:ncomp], views[ncomp:]))
-        return upload(device)
-    coeffs, qtabs = stack_jpeg_coefficients(group)
-    tensors = [torch.from_numpy(a) for a in coeffs + qtabs]
-    return tensors if device.type == "cpu" else [t.to(device) for t in tensors]
+#: Coarse zigzag-prefix buckets; 64 means "ship the full spectrum for this component".
+_K_BUCKETS = (16, 32, 64)
+
+#: Per-layout sticky buckets: ks only ever GROW, so content variation across row groups
+#: switches a layout's variant a bounded number of times. Updated from loader transfer
+#: threads under _STICKY_KS_LOCK (compare-and-grow must be atomic).
+_STICKY_KS: dict = {}
+_STICKY_KS_LOCK = threading.Lock()
+
+#: (layout, component) pairs seen to exceed the 12-bit range: pack12 off for them, sticky.
+_PACK12_DISABLED: set = set()
+
+#: Per-layout sticky split points: layout → per-component ``(k1, k2)``, only ever growing.
+_STICKY_SPLIT: dict = {}
+
+#: (layout, component) pairs whose split pack failed its ranges: split off, sticky.
+_SPLIT_DISABLED: set = set()
+
+#: Cumulative coefficient-transfer accounting: ``raw`` = what full int16 coefficients
+#: would ship, ``shipped`` = the bytes shipped after truncation/split/pack.
+_TRANSFER_BYTES = {"shipped": 0, "raw": 0}
 
 
-def decode_jpeg_batch(planes_list, device=None, bgr=False, stager=None):
+def transfer_byte_counters(reset=False):
+    """Snapshot (optionally reset) the cumulative coefficient-transfer accounting:
+    ``{"shipped": bytes_actually_shipped, "raw": int16_equivalent_bytes}``."""
+    with _STICKY_KS_LOCK:
+        out = dict(_TRANSFER_BYTES)
+        if reset:
+            _TRANSFER_BYTES["shipped"] = 0
+            _TRANSFER_BYTES["raw"] = 0
+    return out
+
+
+def _truncation_ks(group, layout=None):
+    """Per-component zigzag-prefix buckets for a same-layout group, or None when
+    truncation is unavailable (a row without kmax) or useless (every component at full
+    width)."""
+    kms = [p.kmax for p in group]
+    if any(km is None for km in kms):
+        return None
+    ncomp = len(group[0].components)
+
+    def bucket(kcount):
+        for b in _K_BUCKETS:
+            if kcount <= b:
+                return b
+        return 64
+
+    ks = [bucket(max(km[c] for km in kms) + 1) for c in range(ncomp)]
+    if layout is not None:
+        with _STICKY_KS_LOCK:
+            prev = _STICKY_KS.get(layout)
+            if prev is not None:
+                ks = [max(a, b) for a, b in zip(ks, prev)]
+            _STICKY_KS[layout] = ks
+    if all(k >= 64 for k in ks):
+        return None
+    return tuple(ks)
+
+
+def _batch_specmax(group):
+    """The group's combined ``(ncomp, 64)`` spectral range profile, or None when any row
+    lacks one. Rows of one row group share the profile array; mixed-parent groups take
+    the elementwise max."""
+    vecs = []
+    seen = set()
+    for p in group:
+        sm = p.specmax
+        if sm is None:
+            return None
+        if id(sm) not in seen:
+            seen.add(id(sm))
+            vecs.append(sm)
+    return vecs[0] if len(vecs) == 1 else np.maximum.reduce(vecs)
+
+
+def _round_up4(x):
+    return (x + 3) & ~3
+
+
+def _split_points(profile, ks, layout):
+    """Per-component spectral split ``(k1, k2)`` (or None = plain pack12 is as good) from
+    the measured per-position ranges. Positions >= k1 fit int8, positions >= k2 fit 4
+    bits; both bucketed to multiples of 4 and sticky-grown per layout."""
+    ncomp = profile.shape[0]
+    out = []
+    for ci in range(ncomp):
+        k = ks[ci] if ks is not None else 64
+        mx = profile[ci]
+
+        def low_bound(lim):
+            j = k
+            while j > 0 and mx[j - 1] <= lim:
+                j -= 1
+            return j
+
+        k1 = min(_round_up4(low_bound(127)), k)
+        k2 = min(max(_round_up4(low_bound(7)), k1), k)
+        out.append((k1, k2))
+    with _STICKY_KS_LOCK:
+        prev = _STICKY_SPLIT.get(layout)
+        if prev is not None:
+            out = [(max(a1, b1), max(max(a2, b2), max(a1, b1)))
+                   for (a1, a2), (b1, b2) in zip(out, prev)]
+        _STICKY_SPLIT[layout] = out
+    spec = []
+    for ci, (k1, k2) in enumerate(out):
+        k = ks[ci] if ks is not None else 64
+        k1, k2 = min(k1, k), min(k2, k)
+        # k1 == k: every position needs 12 bits, the bytes of pack12 without its
+        # natural-order layout: use pack12
+        spec.append(None if k1 >= k else (k1, k2))
+    return spec
+
+
+_SCRATCH = threading.local()
+_ALIGN = 256  # offsets of the arrays inside one upload
+
+
+def _scratch(slot, shape, dtype):
+    """A reusable host array of ``shape``/``dtype`` for this thread (a view into a
+    growing buffer, one per ``slot``): the zigzag truncation writes here."""
+    bufs = getattr(_SCRATCH, "bufs", None)
+    if bufs is None:
+        bufs = _SCRATCH.bufs = {}
+    nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+    buf = bufs.get(slot)
+    if buf is None or buf.nbytes < nbytes:
+        buf = bufs[slot] = np.empty(max(nbytes, 1), np.uint8)
+    return buf[:nbytes].view(dtype).reshape(shape)
+
+
+def _runs(group):
+    """A same-layout group's rows as runs ``(position, count, coeffs, qtabs)``: per
+    component an (count, blocks, 64) int16 array and a (count, 64) table, slices of one
+    row group's buffers for rows that follow each other there, else one row's own
+    arrays. The packers read these in place: no stacked copy of the batch."""
+    runs = []
+    j, n = 0, len(group)
+    while j < n:
+        ref = group[j].batch_ref
+        if ref is None:
+            comps = group[j].components
+            runs.append((j, 1, tuple(c.blocks.reshape(1, -1, 64) for c in comps),
+                         tuple(np.asarray(c.qtable).reshape(1, 64) for c in comps)))
+            j += 1
+            continue
+        m = 1
+        while j + m < n:
+            nxt = group[j + m].batch_ref
+            if nxt is None or nxt[0] is not ref[0] or nxt[2] != ref[2] + m:
+                break
+            m += 1
+        r0 = ref[2]
+        runs.append((j, m, tuple(c[r0:r0 + m] for c in ref[0]),
+                     tuple(ref[1][r0:r0 + m, ci, :] for ci in range(len(ref[0])))))
+        j += m
+    return runs
+
+
+class _Upload:
+    """Host room for one batch's shipped arrays, filled front to back at 256-byte aligned
+    offsets, then sent to the device in ONE copy of the used span: a pinned staging slab
+    of the loader's ring (``stager``), else a numpy buffer."""
+
+    def __init__(self, capacity, stager, device):
+        self.device = device
+        self.end = 0
+        if stager is not None and device.type == "cuda":
+            self.host, self._send = stager.reserve_bytes(capacity)
+        else:
+            self.host, self._send = np.empty(capacity, np.uint8), None
+        self.specs = []
+
+    def view(self, shape, dtype, at=None):
+        """A host array at the next free offset (or at ``at``), not yet claimed."""
+        at = self.end if at is None else at
+        nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+        if at + nbytes > self.host.nbytes:
+            raise RuntimeError("transfer region of %d bytes overflows at %d + %d"
+                               % (self.host.nbytes, at, nbytes))
+        return self.host[at:at + nbytes].view(dtype).reshape(shape)
+
+    def claim(self, arr, at=None):
+        """Claim a :meth:`view` made at offset ``at`` (default: the next free one);
+        returns its index among the claims."""
+        at = self.end if at is None else at
+        self.specs.append((at, arr.shape, arr.dtype))
+        self.end = -(-(at + arr.nbytes) // _ALIGN) * _ALIGN
+        return len(self.specs) - 1
+
+    def send(self):
+        """ONE copy of the claimed span to the device; the claimed arrays as tensors."""
+        import torch
+
+        used = self.end
+        if self._send is not None:
+            dev = self._send(self.device, used)
+        else:
+            dev = torch.from_numpy(self.host[:used])
+            if self.device.type != "cpu":
+                dev = dev.to(self.device)
+        out = []
+        for at, shape, dtype in self.specs:
+            nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+            t = dev[at:at + nbytes]
+            out.append(t.view(torch.from_numpy(np.empty(0, dtype)).dtype).view(shape))
+        return out
+
+
+def _row_bytes(layout):
+    """Bytes of one image's full int16 coefficients and int32 tables: the most any
+    transfer variant ships for it."""
+    return sum(by * bx * 64 * 2 + 64 * 4 for _h, _v, by, bx in layout[2])
+
+
+def _plan_group(layout, group):
+    """The transfer variant of one same-layout group, with the reference's rules and
+    sticky state: ``(sources, qtabs, ks, split)``. ``sources`` per component the runs
+    ``(position, count, int16 array)`` to pack (the truncated components stacked into
+    one zigzag-prefix run in this thread's scratch), ``qtabs`` the runs of tables, ``ks``
+    None or the zigzag-prefix widths, ``split`` each component's candidate ``(k1, k2)``
+    or None. ``ks is False`` means native stage 1 is unavailable: full int16."""
+    from petastorm_tpu_torch.ops import native
+
+    runs = _runs(group)
+    ncomp = len(group[0].components)
+    n = len(group)
+    sources = [[(pos, m, coeffs[ci]) for pos, m, coeffs, _q in runs] for ci in range(ncomp)]
+    qtabs = [(pos, m, q) for pos, m, _c, q in runs]
+    if not native.native_available():
+        return sources, qtabs, False, None
+    ks = _truncation_ks(group, layout)
+    if ks is not None:
+        for ci, k in enumerate(ks):
+            if k < 64:
+                nb = sources[ci][0][2].shape[1]
+                trunc = _scratch(("trunc", ci), (n, nb, k), np.int16)
+                for pos, m, src in sources[ci]:
+                    native.jpeg_zigzag_truncate_native(src, k, out=trunc[pos:pos + m])
+                sources[ci] = [(0, n, trunc)]
+    profile = _batch_specmax(group)
+    if profile is None:
+        # a row without a stage-1 profile (per-image stage 1): profile the batch
+        vecs = []
+        for ci in range(ncomp):
+            zig = ks is not None and ks[ci] < 64
+            v = np.maximum.reduce([native.jpeg_specmax_native(src, is_zigzag=zig)
+                                   for _pos, _m, src in sources[ci]])
+            vecs.append(np.pad(v, (0, 64 - ks[ci])) if zig else v)
+        profile = np.stack(vecs)
+    candidate = _split_points(profile, ks, layout)
+    split = [None] * ncomp
+    with _STICKY_KS_LOCK:
+        for ci, sp in enumerate(candidate):
+            if sp is not None and (layout, ci) not in _SPLIT_DISABLED:
+                split[ci] = sp
+    return sources, qtabs, ks, split
+
+
+def _pack_runs(pack, runs, outs):
+    """``pack(src, out)`` over every run, into the rows ``[pos, pos + count)`` of the
+    arrays ``outs``; False as soon as one run overflows its tier. Blocks are packed
+    independently, so the runs give the bytes one call over the stacked batch gives."""
+    for pos, m, src in runs:
+        if pack(src, tuple(o[pos:pos + m] for o in outs)) is None:
+            return False
+    return True
+
+
+def _pack_group(layout, plan, up):
+    """Pack one planned group into ``up``: per component the split pack, else the 12-bit
+    pack, else int16, each written run by run straight into the upload's host room (a
+    failed tier's bytes are overwritten by the next). Counts the bytes; returns
+    ``(coeff_claims, qtab_claims, ks, packed, split)``."""
+    from petastorm_tpu_torch.ops import native
+
+    sources, qtab_runs, ks, split = plan
+    n = sum(m for _pos, m, _q in qtab_runs)
+    raw = sum(n * by * bx * 64 * 2 for _h, _v, by, bx in layout[2])
+    native_ok = ks is not False
+    if not native_ok:
+        ks, split = None, [None] * len(sources)
+    split = list(split)
+    claims, packed = [], []
+    shipped = 0
+
+    def int16(src, out):
+        np.copyto(out[0], src)
+        return out[0]
+
+    for ci, runs in enumerate(sources):
+        nb, k = runs[0][2].shape[1], runs[0][2].shape[2]
+        is_zig = ks is not None and ks[ci] < 64
+        if split[ci] is not None:
+            k1, k2 = split[ci]
+            at = [up.end]
+            slabs = []
+            for shape, dtype in (((n, nb, k1 * 3 // 2), np.uint8), ((n, nb, k2 - k1), np.int8),
+                                 ((n, nb, (k - k2) // 2), np.uint8)):
+                slabs.append(up.view(shape, dtype, at=at[-1]))
+                at.append(at[-1] + _aligned(slabs[-1].nbytes))
+            if _pack_runs(lambda src, out: native.jpeg_pack_split_native(
+                    src, k1, k2, is_zigzag=is_zig, out=out), runs, slabs):
+                claims.append(tuple(up.claim(a, o) for a, o in zip(slabs, at)))
+                packed.append(False)
+                shipped += sum(a.nbytes for a in slabs)
+                continue
+            # a range exceeded despite the profile (rows of mixed provenance): split off
+            # for this component, sticky; fall through to pack12
+            split[ci] = None
+            with _STICKY_KS_LOCK:
+                _SPLIT_DISABLED.add((layout, ci))
+        with _STICKY_KS_LOCK:
+            enabled = native_ok and (layout, ci) not in _PACK12_DISABLED
+        dst = None
+        if enabled:
+            dst = up.view((n, nb, k * 3 // 2), np.uint8)
+            if not _pack_runs(lambda src, out: native.jpeg_pack12_native(src, out=out[0]),
+                              runs, (dst,)):
+                dst = None  # 12-bit range exceeded: int16 for this component, sticky
+                with _STICKY_KS_LOCK:
+                    _PACK12_DISABLED.add((layout, ci))
+        if dst is None:
+            dst = up.view((n, nb, k), np.int16)
+            _pack_runs(int16, runs, (dst,))
+        packed.append(dst.dtype == np.uint8)
+        claims.append(up.claim(dst))
+        shipped += dst.nbytes
+    qclaims = []
+    for ci in range(len(sources)):
+        dst = up.view((n, 64), np.int32)
+        for pos, m, q in qtab_runs:
+            np.copyto(dst[pos:pos + m], q[ci])
+        qclaims.append(up.claim(dst))
+    with _STICKY_KS_LOCK:
+        _TRANSFER_BYTES["raw"] += raw
+        _TRANSFER_BYTES["shipped"] += raw if not native_ok else shipped
+    if not native_ok:
+        return claims, qclaims, None, None, None
+    return claims, qclaims, ks, tuple(packed), tuple(split)
+
+
+def _aligned(nbytes):
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def _stage_groups(groups, device, stager):
+    """Plan and pack every layout group of a batch into one host region and send it in
+    ONE upload (a slab of ``stager``, the loader's pinned ring, when given on a CUDA
+    device). Returns per group ``(coeffs, qtabs, ks, packed, split)`` on ``device``.
+
+    The region asks for the full int16 bound of the batch's rows at its largest layout,
+    which every variant fits under, so a pinned ring sized by its first batch takes
+    every later batch of that size whatever the variants."""
+    n_rows = sum(len(g) for _l, g in groups)
+    # alignment padding: at most 16 arrays a group (3 slabs and a table a component)
+    capacity = n_rows * max(_row_bytes(layout) for layout, _g in groups) \
+        + max(1 << 20, 16 * _ALIGN * len(groups))
+    up = _Upload(capacity, stager, device)
+    packed_groups = [_pack_group(layout, _plan_group(layout, group), up)
+                     for layout, group in groups]
+    tensors = up.send()
+    out = []
+    for claims, qclaims, ks, packed, split in packed_groups:
+        coeffs = [tuple(tensors[i] for i in c) if isinstance(c, tuple) else tensors[c]
+                  for c in claims]
+        out.append((coeffs, [tensors[i] for i in qclaims], ks, packed, split))
+    return out
+
+
+def decode_jpeg_batch(planes_list, device=None, bgr=False, stager=None, resize_to=None):
     """Batched stage 2: list of :class:`JpegPlanes` → (n, h, w, 3) uint8 tensor on
     ``device`` (default: the CUDA device; raises when there is none).
 
-    All images must share height/width; mixed chroma samplings are grouped, decoded per
-    group and gathered back in input order. ``bgr`` returns the stored channel order of
-    colour JPEGs (what cv2 returns) instead of RGB. ``stager``: optional
-    :class:`~petastorm_tpu_torch.io.staging.PinnedStagingPool` the coefficient slabs are
-    stacked into and uploaded from (the loader's)."""
+    Without ``resize_to`` all images must share height/width; mixed chroma samplings are
+    grouped, decoded per group and gathered back in input order. ``resize_to=(h, w)``
+    takes mixed sizes: each same-layout group decodes at its stored size and is resized
+    to ``(h, w)`` (:func:`resize_image_batch`) before the gather. ``bgr`` returns the
+    stored channel order of colour JPEGs (what cv2 returns) instead of RGB. The
+    coefficients of every group cross in one upload, narrowed as the content allows
+    (see the module docstring); ``stager``: optional
+    :class:`~petastorm_tpu_torch.io.staging.PinnedStagingPool` whose slab they are packed
+    into (the loader's)."""
     import torch
 
     if not planes_list:
         raise ValueError("decode_jpeg_batch: empty batch")
     device = _resolve_device(device)
     sizes = {(p.height, p.width) for p in planes_list}
-    if len(sizes) > 1:
+    if len(sizes) > 1 and resize_to is None:
         raise ValueError(
-            "decode_jpeg_batch requires a uniform image size per batch, got %s. Resize "
-            "on write or decode on host via CompressedImageCodec.decode (the on-device "
-            "resize is not ported yet)." % sizes)
+            "decode_jpeg_batch requires a uniform image size per batch, got %s. "
+            "Pass resize_to=(h, w) (DataLoader(device_decode_resize=...)) to decode "
+            "mixed sizes with an on-device resize, resize on write, or decode on "
+            "host via CompressedImageCodec.decode." % sizes)
     groups = {}
     for i, p in enumerate(planes_list):
         groups.setdefault(_layout_key(p), []).append(i)
+    staged = _stage_groups([(layout, [planes_list[i] for i in indices])
+                            for layout, indices in groups.items()], device, stager)
     parts = []
     order = []
-    for layout, indices in groups.items():
-        group = [planes_list[i] for i in indices]
-        ncomp = len(layout[2])
-        on_device = _stack_to_device(group, layout, device, stager)
-        parts.append(_batched_stage2(layout, on_device[:ncomp], on_device[ncomp:], bgr))
+    for (layout, indices), (coeffs, qtabs, ks, packed, split) in zip(groups.items(), staged):
+        img = _batched_stage2(layout, coeffs, qtabs, ks, packed, split, bgr)
+        if resize_to is not None:
+            img = resize_image_batch(img, resize_to)
+        parts.append(img)
         order.extend(indices)
     if len(parts) == 1:
         return parts[0]

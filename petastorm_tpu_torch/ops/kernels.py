@@ -5,6 +5,7 @@ and link into one shared library with a plain C interface
 (:mod:`petastorm_tpu_torch.ops._build`). Nothing builds or loads at import: the first
 :func:`library` call does, from the wrapper that launches a kernel on a CUDA tensor.
 The wrappers themselves live beside their plain PyTorch versions:
+``ops.jpeg.unpack_dequant_segments`` (the stage-2 unpack),
 ``ops.jpeg.idct_scaled_segments`` (K1), ``ops.image.normalize_images`` (K2), and
 ``ops.pagedec_kernels.snappy_inflate_ragged`` (K3), ``rle_scan_pages`` (the run scan)
 and ``extract_pages`` (K4).
@@ -18,14 +19,25 @@ import threading
 import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = (os.path.join(_CSRC, "idct.cu"), os.path.join(_CSRC, "normalize.cu"),
-           os.path.join(_CSRC, "pagedec.cu"))
+SOURCES = (os.path.join(_CSRC, "coef_unpack.cu"), os.path.join(_CSRC, "idct.cu"),
+           os.path.join(_CSRC, "normalize.cu"), os.path.join(_CSRC, "pagedec.cu"))
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LIB = None
 #: what the last build did: {"seconds": wall time, "log": compiler output (ptxas -v)}
 BUILD_INFO = {}
+
+
+class CoefSegmentDesc(ctypes.Structure):
+    """One component of the stage-2 unpack (``csrc/coef_unpack.cu``'s struct)."""
+    _fields_ = [
+        ("src0", ctypes.c_void_p), ("src1", ctypes.c_void_p), ("src2", ctypes.c_void_p),
+        ("qtab", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("rows", ctypes.c_int64), ("blocks_per_image", ctypes.c_int64),
+        ("kind", ctypes.c_int32), ("k", ctypes.c_int32), ("k1", ctypes.c_int32),
+        ("k2", ctypes.c_int32), ("zigzag", ctypes.c_int32), ("pad", ctypes.c_int32),
+    ]
 
 
 def nvcc_path():
@@ -65,6 +77,9 @@ def library():
             raise RuntimeError("CUDA kernels need nvcc (%s): %s" % (nvcc, e)) from e
         BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=path)
         lib = ctypes.CDLL(path)
+        lib.ptpu_coef_unpack_segments.argtypes = [
+            ctypes.POINTER(CoefSegmentDesc), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.ptpu_coef_unpack_segments.restype = ctypes.c_int
         lib.ptpu_idct_segments_f32.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,

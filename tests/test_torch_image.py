@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from petastorm_tpu.ops import image as ref  # noqa: E402
@@ -226,7 +227,8 @@ _CARD_CASES = {
 
 def _card_params():
     for name, (shape, off) in sorted(_CARD_CASES.items()):
-        for out_dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for out_dtype, size in ((torch.float32, 4), (torch.bfloat16, 2),
+                                (torch.float16, 2)):
             best = port.choose_route(shape, off, 0, size)[0]
             for route in port.ROUTES[port.ROUTES.index(best):]:
                 yield pytest.param(name, route, out_dtype,
@@ -255,3 +257,151 @@ def test_every_route_equals_plain_on_the_card(cuda_device, case, route, out_dtyp
     torch.cuda.synchronize()
     assert port.normalize_images.routes[route] == before[route] + 1
     assert torch.equal(out, port._normalize_plain(imgs, mean, std, out_dtype, flips))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("with_flips", [False, True], ids=["plain", "flips"])
+def test_non_contiguous_batch_equals_plain_on_the_card(cuda_device, out_dtype, with_flips):
+    """A crop's view (not contiguous) goes through K2 after one contiguous copy and
+    equals the plain version on the same view (max abs error 0)."""
+    rng = np.random.RandomState(30)
+    for shape, cut in (((2, 8, 8, 3), (slice(1, 7), slice(1, 7))),
+                       ((4, 230, 230, 3), (slice(3, 227), slice(2, 226)))):
+        x = torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).to(cuda_device)
+        view = x[:, cut[0], cut[1], :]
+        assert not view.is_contiguous()
+        flips = None
+        if with_flips:
+            flips = torch.from_numpy(rng.randint(0, 2, shape[0]).astype(bool)).to(cuda_device)
+        before = port.normalize_images.launches
+        out = port.normalize_images(view, MEAN, STD, out_dtype, flips=flips)
+        torch.cuda.synchronize()
+        assert port.normalize_images.launches == before + 1
+        assert out.is_contiguous() and tuple(out.shape) == tuple(view.shape)
+        assert torch.equal(out, port._normalize_plain(view, MEAN, STD, out_dtype, flips))
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 16, 3), (3, 5, 7, 3)])
+def test_normalize_float16_matches_reference(shape):
+    rng = np.random.RandomState(4)
+    imgs = rng.randint(0, 256, shape, dtype=np.uint8)
+    theirs = np.asarray(ref.normalize_images(jnp.asarray(imgs), MEAN, STD,
+                                             out_dtype=jnp.float16), dtype=np.float32)
+    ours = port.normalize_images(torch.from_numpy(imgs), MEAN, STD, out_dtype=torch.float16)
+    assert ours.dtype == torch.float16 and tuple(ours.shape) == shape
+    # both cast the same float32 formula to float16
+    np.testing.assert_allclose(ours.float().numpy(), theirs, rtol=0, atol=2e-3)
+    plain32 = port._normalize_plain(torch.from_numpy(imgs), MEAN, STD, torch.float32)
+    assert torch.equal(ours, plain32.to(torch.float16))
+
+
+def test_non_contiguous_batch_on_the_cpu_equals_its_copy():
+    x = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (2, 8, 8, 3),
+                                                          dtype=np.uint8))
+    view = x[:, 1:7, 1:7, :]
+    for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert torch.equal(port.normalize_images(view, MEAN, STD, out_dtype),
+                           port.normalize_images(view.contiguous(), MEAN, STD, out_dtype))
+
+
+# -- random crop and colour jitter: the draws of the reference's key, handed over --------
+
+
+def _ref_crop_draws(key, n, h, w, crop_h, crop_w):
+    kh, kw = jax.random.split(key)  # as petastorm_tpu.ops.image.random_crop splits it
+    return (np.array(jax.random.randint(kh, (n,), 0, h - crop_h + 1)),
+            np.array(jax.random.randint(kw, (n,), 0, w - crop_w + 1)))
+
+
+def _ref_jitter_draws(key, n, spans):
+    keys = jax.random.split(key, 3)  # as petastorm_tpu.ops.image.color_jitter splits it
+    return [None if not span else np.array(jax.random.uniform(
+        k, (n, 1, 1, 1), minval=1.0 - span, maxval=1.0 + span)) for k, span in zip(keys, spans)]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("crop", [(5, 7), (12, 16), (1, 1)])
+def test_crop_equals_reference_given_its_offsets(dtype, crop):
+    rng = np.random.RandomState(40)
+    imgs = rng.randint(0, 256, (6, 12, 16, 3)).astype(dtype)
+    key = jax.random.PRNGKey(7)
+    theirs = np.asarray(ref.random_crop(jnp.asarray(imgs), key, *crop))
+    tops, lefts = _ref_crop_draws(key, 6, 12, 16, *crop)
+    ours = port._crop_at(torch.from_numpy(imgs), torch.from_numpy(tops),
+                         torch.from_numpy(lefts), *crop).numpy()
+    assert ours.dtype == imgs.dtype and ours.shape == (6,) + crop + (3,)
+    np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("spans", [(0.4, 0.4, 0.4), (0.4, 0.0, 0.2), (0.0, 0.3, 0.0)])
+def test_jitter_float32_within_1e3_of_reference_given_its_factors(spans):
+    """float32 images up to 255: the reductions (image mean, channel mean) sum in another
+    order, so the limit is atol 1e-3."""
+    rng = np.random.RandomState(41)
+    imgs = rng.uniform(0, 255, (5, 9, 11, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(8)
+    theirs = np.asarray(ref.color_jitter(jnp.asarray(imgs), key, *spans))
+    factors = [None if f is None else torch.from_numpy(f)
+               for f in _ref_jitter_draws(key, 5, spans)]
+    ours = port._jitter_with(torch.from_numpy(imgs), *factors).numpy()
+    assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-3)
+
+
+def test_jitter_uint8_within_one_of_reference_on_few_pixels():
+    """uint8 truncates back after the float32 arithmetic, as the reference does: a value
+    within 1e-3 of an integer may land on either side, so the limit is 1 on under 0.1 %
+    of the values."""
+    rng = np.random.RandomState(42)
+    imgs = rng.randint(0, 256, (8, 24, 32, 3), dtype=np.uint8)
+    key = jax.random.PRNGKey(9)
+    theirs = np.asarray(ref.color_jitter(jnp.asarray(imgs), key))
+    factors = [torch.from_numpy(f) for f in _ref_jitter_draws(key, 8, (0.4, 0.4, 0.4))]
+    ours = port._jitter_with(torch.from_numpy(imgs), *factors).numpy()
+    assert ours.dtype == np.uint8
+    diff = np.abs(ours.astype(np.int32) - theirs.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-3, "%.5f of the values differ" % (diff > 0).mean()
+
+
+def test_random_crop_contract():
+    """Every crop lies inside its image, the offsets vary, and the generator alone
+    decides them."""
+    n, h, w = 64, 20, 30
+    pos = torch.arange(n * h * w, dtype=torch.int64).view(n, h, w, 1)
+    out = port.random_crop(pos, torch.Generator().manual_seed(1), 7, 11)
+    assert tuple(out.shape) == (n, 7, 11, 1)
+    flat = out[..., 0]
+    img = flat // (h * w)
+    row = (flat % (h * w)) // w
+    col = flat % w
+    assert torch.equal(img, torch.arange(n)[:, None, None].expand(n, 7, 11))
+    tops, lefts = row[:, 0, 0], col[:, 0, 0]
+    assert (row == tops[:, None, None] + torch.arange(7)[None, :, None]).all()
+    assert (col == lefts[:, None, None] + torch.arange(11)[None, None, :]).all()
+    assert tops.min() >= 0 and tops.max() <= h - 7 and lefts.min() >= 0 \
+        and lefts.max() <= w - 11
+    assert len(set(tops.tolist())) > 1 and len(set(lefts.tolist())) > 1
+    again = port.random_crop(pos, torch.Generator().manual_seed(1), 7, 11)
+    assert torch.equal(out, again)
+    with pytest.raises(ValueError):
+        port.random_crop(pos, None, h + 1, 2)
+
+
+def test_color_jitter_contract():
+    """The factors lie in [1 - x, 1 + x]: a constant image shows the brightness factor
+    alone (contrast and saturation leave a constant image as it is); the dtype stays."""
+    n = 256
+    imgs = torch.full((n, 2, 3, 3), 100.0)
+    out = port.color_jitter(imgs, torch.Generator().manual_seed(2), 0.4, 0.4, 0.4)
+    assert out.dtype == torch.float32
+    factor = out[:, 0, 0, 0] / 100.0
+    assert factor.min() >= 0.6 - 1e-6 and factor.max() <= 1.4 + 1e-6
+    assert factor.min() < 0.7 and factor.max() > 1.3  # spread over the range
+    assert torch.allclose(out, factor[:, None, None, None] * 100.0)
+    u8 = port.color_jitter(imgs.to(torch.uint8), torch.Generator().manual_seed(2))
+    assert u8.dtype == torch.uint8 and tuple(u8.shape) == (n, 2, 3, 3)
+    assert torch.equal(port.color_jitter(imgs, torch.Generator().manual_seed(2), 0, 0, 0),
+                       imgs)

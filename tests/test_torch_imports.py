@@ -100,6 +100,23 @@ def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
         DataLoader(object(), 4, device="cpu", **kwargs)
 
 
+def test_device_decode_resize_no_longer_raises_not_implemented():
+    """The on-device resize is ported: the option is validated (against the reader's
+    device-decoded fields), not refused."""
+    from types import SimpleNamespace
+
+    from petastorm_tpu_torch.loader import DataLoader
+
+    reader = SimpleNamespace(device_decode_fields=("image",), stop=lambda: None,
+                             join=lambda: None)
+    with DataLoader(reader, 4, device="cpu", device_decode_resize=(8, 8)) as loader:
+        assert loader._device_decode_resize == (8, 8)
+    with pytest.raises(ValueError, match="misspelled|spelled right"):
+        DataLoader(reader, 4, device="cpu", device_decode_resize={"imgae": (8, 8)})
+    with pytest.raises(ValueError, match="no device-decoded"):
+        DataLoader(SimpleNamespace(), 4, device="cpu", device_decode_resize=(8, 8))
+
+
 def test_kernel_wrappers_refuse_unsupported_inputs():
     from petastorm_tpu_torch.ops.image import normalize_images
     from petastorm_tpu_torch.ops.jpeg import idct_scaled
@@ -110,6 +127,11 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
         idct_scaled(torch.zeros(4, 64, dtype=torch.float64))
     with pytest.raises(TypeError):
         normalize_images(torch.zeros(1, 2, 2, 3), [0.0] * 3, [1.0] * 3)
+    # float16 is a store type of K2 (as the reference takes any out_dtype): on the CPU the
+    # wrapper is the plain version, the same formula cast to float16
+    x = torch.arange(12, dtype=torch.uint8).view(1, 2, 2, 3)
+    half = normalize_images(x, [0.5] * 3, [0.25] * 3, out_dtype=torch.float16)
+    assert half.dtype == torch.float16
+    assert torch.equal(half, ((x.float() / 255.0 - 0.5) * 4.0).to(torch.float16))
     with pytest.raises(TypeError):
-        normalize_images(torch.zeros(1, 2, 2, 3, dtype=torch.uint8), [0.0] * 3, [1.0] * 3,
-                         out_dtype=torch.float16)
+        normalize_images(x, [0.0] * 3, [1.0] * 3, out_dtype=torch.float64)

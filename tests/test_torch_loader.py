@@ -176,3 +176,129 @@ def test_abandoned_iteration_stops_and_a_new_one_restarts(jpeg_store):
         assert loader._stop.is_set()
         second = next(iter(loader))
         assert first["image"].shape == second["image"].shape == (16,) + SHAPE
+
+
+def test_dataloader_signature_is_the_references_then_device():
+    """The reference's parameters, by name and in order, then ``device`` keyword-only."""
+    import inspect
+
+    theirs = list(inspect.signature(ref_loader.DataLoader.__init__).parameters.values())
+    ours = list(inspect.signature(DataLoader.__init__).parameters.values())
+    assert [p.name for p in ours] == [p.name for p in theirs] + ["device"]
+    for a, b in zip(ours, theirs):
+        assert a.kind == b.kind and a.default == b.default, (a, b)
+    assert ours[-1].kind == inspect.Parameter.KEYWORD_ONLY and ours[-1].default is None
+
+
+def test_to_device_false_batches_equal_reference(jpeg_store):
+    """``to_device=False`` delivers host numpy after the staged decode, equal to the
+    reference's ``to_device=False`` batches on the same store."""
+    theirs = _reference_batches(jpeg_store, 16, to_device=False)
+    reader = make_batch_reader(jpeg_store, **READER_KW)
+    with DataLoader(reader, 16, to_device=False, device=CPU) as loader:
+        ours = list(loader)
+    assert len(ours) == len(theirs) == ROWS // 16
+    for a, b in zip(ours, theirs):
+        assert set(a) == set(b)
+        for name in b:
+            assert isinstance(a[name], np.ndarray), name
+            assert a[name].dtype == np.asarray(b[name]).dtype, name
+            np.testing.assert_array_equal(a[name], np.asarray(b[name]))
+
+
+MIXED_SHAPES = [(40, 56, 3), (56, 40, 3), (33, 47, 3)]
+
+
+@pytest.fixture(scope="module")
+def mixed_store(tmp_path_factory):
+    """A mixed-size JPEG store the reference wrote: each row's size drawn from a seed,
+    several sizes in every row group (so most rows take the per-image stage 1)."""
+    schema = RefSchema("MixedSchema", [
+        RefField("id", np.int64, (), RefScalar(ref_types.LongType()), False),
+        RefField("image", np.uint8, (None, None, 3), RefImage("jpeg", 85), False),
+    ])
+    rng = np.random.RandomState(19)
+
+    def rows():
+        for i in range(48):
+            shape = MIXED_SHAPES[rng.randint(len(MIXED_SHAPES))]
+            noise = rng.randint(0, 256, shape).astype(np.float32)
+            img = cv2.GaussianBlur(noise, (5, 5), 1.5).clip(0, 255).astype(np.uint8)
+            yield {"id": i, "image": img}
+
+    url = "file://" + str(tmp_path_factory.mktemp("torch_mixed_store") / "ds")
+    ref_metadata.write_dataset(url, schema, rows(), row_group_size_mb=0, rows_per_file=24)
+    return url
+
+
+def test_mixed_size_store_with_device_decode_resize_within_one_of_reference(mixed_store):
+    """Each batch holds several layout groups: each decodes at its stored size, is
+    resized on the device and gathered back in order. The resize differs from the
+    reference's by at most 1 on uint8, on a small share of the values."""
+    from petastorm_tpu.ops import jpeg as ref_jpeg
+    from petastorm_tpu_torch.ops import jpeg as port_jpeg
+
+    port_jpeg.transfer_byte_counters(reset=True)
+    ref_jpeg.transfer_byte_counters(reset=True)
+    theirs = _reference_batches(mixed_store, 16, device_decode_resize=(36, 44))
+    ours, _ = _port_batches(mixed_store, 16, device_decode_resize={"image": (36, 44)})
+    assert len(ours) == len(theirs) == 3
+    for a, b in zip(ours, theirs):
+        assert a["image"].shape == (16, 36, 44, 3) and a["image"].dtype == np.uint8
+        np.testing.assert_array_equal(a["id"], b["id"])
+        diff = np.abs(a["image"].astype(np.int32) - b["image"].astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+    assert port_jpeg.transfer_byte_counters() == ref_jpeg.transfer_byte_counters()
+
+
+def test_mixed_size_store_without_resize_raises_naming_the_option(mixed_store):
+    with pytest.raises(ValueError, match="device_decode_resize"):
+        _port_batches(mixed_store, 16)
+
+
+def test_device_decode_resize_is_validated_at_construction(mixed_store):
+    reader = make_batch_reader(mixed_store, **READER_KW)
+    try:
+        with pytest.raises(ValueError, match="spelled right"):
+            DataLoader(reader, 16, device=CPU, device_decode_resize={"imgae": (8, 8)})
+        with pytest.raises(ValueError, match="two positive ints|pair"):
+            DataLoader(reader, 16, device=CPU, device_decode_resize=(8, 0))
+        with pytest.raises(ValueError, match="pair"):
+            DataLoader(reader, 16, device=CPU, device_decode_resize=8)
+    finally:
+        reader.stop()
+        reader.join()
+
+
+@pytest.mark.gpu
+def test_no_oversized_staging_across_a_store_whose_ks_grow(tmp_path):
+    """Smooth row groups first (narrow zigzag prefixes), sharp ones after (the sticky ks
+    grow to 64): the pinned ring, sized by the first batch's full int16 bound, takes
+    every batch without an unpooled copy, and the batches equal the CPU path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from petastorm_tpu_torch.io import staging
+
+    schema = RefSchema("GrowSchema", [
+        RefField("id", np.int64, (), RefScalar(ref_types.LongType()), False),
+        RefField("image", np.uint8, SHAPE, RefImage("jpeg", 95), False),
+    ])
+    rng = np.random.RandomState(20)
+
+    def rows():
+        for i in range(64):
+            noise = rng.randint(0, 256, SHAPE).astype(np.float32)
+            img = cv2.GaussianBlur(noise, (9, 9), 3.0) if i < 32 else noise
+            yield {"id": i, "image": img.clip(0, 255).astype(np.uint8)}
+
+    url = "file://" + str(tmp_path / "grow")
+    ref_metadata.write_dataset(url, schema, rows(), row_group_size_mb=0, rows_per_file=16)
+    before = staging.DEGRADATIONS["staging_oversized"]
+    reader = make_batch_reader(url, **READER_KW)
+    with DataLoader(reader, 16, device="cuda") as loader:
+        on_card = [b["image"].cpu().numpy() for b in loader]
+    assert staging.DEGRADATIONS["staging_oversized"] == before
+    cpu, _ = _port_batches(url, 16)
+    assert len(on_card) == len(cpu) == 4
+    for a, b in zip(on_card, cpu):
+        np.testing.assert_array_equal(a, b["image"])
