@@ -4,6 +4,8 @@
     python3 chip_ab.py --path main --run parent=_chipwork/parent: --run change=.:auto \\
         --rounds 5
     python3 chip_ab.py --path tabular --run off=.:off --run auto=.:auto --rounds 3
+    python3 chip_ab.py --path mixed --run parent=_chipwork/parent: --run change=.: \
+        --rounds 5
     python3 chip_ab.py --path kernels --run parent=_chipwork/parent: --run change=.: \\
         --rounds 4
 
@@ -12,7 +14,10 @@ run imports (TREE holds the package) and the ``io_options={"pagedec": MODE}`` it
 with (an empty MODE passes no ``io_options``, for trees that predate them). The stores
 are written once, as ``chip_smoke.py`` writes them: ``main`` is the 4,096-row JPEG store
 read with ``decode_on_device=True`` and ``normalize_images`` as the device transform,
-batches of 256; ``tabular`` is the 2,097,152-row Criteo-shaped store, batches of 16,384.
+batches of 256; ``mixed`` is the 2,048-row mixed-size store of chip_smoke's phase 6,
+read without end through ``device_decode_resize=(256, 256)`` and the crop, jitter and
+``normalize_and_augment`` transform, batches of 256; ``tabular`` is the 2,097,152-row
+Criteo-shaped store, batches of 16,384.
 ``kernels`` times, per tree, K1 over one batch's three components (256 corpus images;
 beside three ``torch.addmm`` calls), K2 on a (256, 224, 224, 3) batch to bfloat16 and
 float32 and through ``normalize_and_augment`` (flip on; beside the bfloat16 conversion
@@ -68,6 +73,19 @@ def _one(args):
         reader = make_batch_reader(args.url, workers_count=workers, shuffle_row_groups=True,
                                    seed=0, num_epochs=None, decode_on_device=True, **kwargs)
         batch, loader_kwargs = smoke.BATCH, {"device_transform": transform}
+    elif args.path == "mixed":
+        from petastorm_tpu_torch.ops import image
+
+        def transform(batch, gen):
+            x = image.random_crop(batch["image"], gen, smoke.MIX_CROP, smoke.MIX_CROP)
+            x = image.color_jitter(x, gen, 0.4, 0.4, 0.4)
+            return {**batch, "image": image.normalize_and_augment(x, smoke.MEAN, smoke.STD,
+                                                                  gen, flip=True)}
+
+        reader = make_batch_reader(args.url, workers_count=workers, shuffle_row_groups=True,
+                                   seed=1, num_epochs=None, decode_on_device=True, **kwargs)
+        batch, loader_kwargs = smoke.BATCH, {"device_transform": transform, "seed": 2,
+                                             "device_decode_resize": smoke.MIX_RESIZE}
     else:
         reader = make_batch_reader(args.url, workers_count=workers, shuffle_row_groups=True,
                                    seed=0, num_epochs=None, **kwargs)
@@ -217,10 +235,10 @@ def _write_store(path, root):
     sys.path.insert(0, ROOT)
     import chip_smoke as smoke
 
-    if path == "main":
+    if path in ("main", "mixed"):
         env = smoke.phase_environment()
         url = "file://" + os.path.join(root, "store")
-        smoke.write_store(url, env["cv2"])
+        (smoke.write_store if path == "main" else smoke.write_mixed_store)(url, env["cv2"])
         return url, env["smi"]
     if path == "kernels":  # 256 corpus JPEGs and one Criteo-shaped row group
         import pickle
@@ -245,7 +263,8 @@ def _write_store(path, root):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("main", "tabular", "kernels"), required=True)
+    parser.add_argument("--path", choices=("main", "mixed", "tabular", "kernels"),
+                        required=True)
     parser.add_argument("--run", action="append", required=True,
                         help="LABEL=TREE:MODE (MODE auto/on/off, or empty)")
     parser.add_argument("--rounds", type=int, default=3)
@@ -258,7 +277,8 @@ def main():
     parser.add_argument("--mode", default="", help=argparse.SUPPRESS)
     parser.add_argument("--url", help=argparse.SUPPRESS)
     args = parser.parse_args()
-    defaults = {"main": (5, 60), "tabular": (30, 60), "kernels": (0, 0)}[args.path]
+    defaults = {"main": (5, 60), "mixed": (2, 16), "tabular": (30, 60),
+                "kernels": (0, 0)}[args.path]
     args.warmup = defaults[0] if args.warmup is None else args.warmup
     args.measured = defaults[1] if args.measured is None else args.measured
     if args.one:

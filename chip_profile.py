@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the main path's time goes on one CUDA card.
+"""Where a JPEG path's time goes on one CUDA card.
 
-    python3 chip_profile.py [--batches N] [--trace PATH]
+    python3 chip_profile.py [--path main|mixed] [--tree DIR] [--batches N] [--trace PATH]
 
-Builds the same 4,096-row JPEG store as ``chip_smoke.py`` and measures, in one process:
+``--tree`` names a checkout whose ``petastorm_tpu_torch`` the run imports (default: this
+one), so that two trees are profiled in one call on one card. ``--path main`` builds the
+same 4,096-row JPEG store as ``chip_smoke.py`` and measures, in one process:
 
 1. the reader alone (``make_batch_reader(decode_on_device=True)``: Parquet IO + stage 1
    entropy decode in the thread pool), rows/s;
@@ -12,6 +14,14 @@ Builds the same 4,096-row JPEG store as ``chip_smoke.py`` and measures, in one p
 3. a ``torch.profiler`` window of ``--batches`` main-path batches: device time by kernel
    and the device's busy share (device time over the window's wall time). ``--trace``
    writes the window's chrome trace to PATH.
+
+``--path mixed`` does 2 and 3 on chip_smoke's mixed-size store (five sizes, resized to
+256x256, then ``random_crop``, ``color_jitter`` and ``normalize_and_augment``), read
+without end. Each window's device time is also summed by kind: the stage-2 kernels
+(``stage2_planes``/``stage2_rgb``, or the unpack and K1 of trees that launch them), K2,
+the resize's bilinear kernel, copies, and every other kernel (the torch ops: in trees
+without ``stage2_rgb`` the stage-2 range limit, upsample and colour; on the mixed path
+also the resize's conversions, the crop and the jitter).
 
 Every figure is printed beside the card's name and power limit.
 """
@@ -43,21 +53,45 @@ def reader_alone(url, workers, rows_wanted):
         return rows / (time.perf_counter() - t0)
 
 
-def main_path(url, workers, warmup, measured, profiled, trace_path):
+#: kind of a device activity, by the first pattern its name holds
+KINDS = (("stage-2 kernels", ("stage2_planes", "stage2_rgb", "coef_unpack", "idct_segments")),
+         ("K2", ("normalize",)), ("resize (bilinear)", ("upsample_bilinear",)),
+         ("copies", ("Memcpy", "memcpy", "Memset", "memset")))
+
+
+def kind_of(name):
+    for kind, patterns in KINDS:
+        if any(p in name for p in patterns):
+            return kind
+    return "other kernels"
+
+
+def main_path(url, workers, warmup, measured, profiled, trace_path, mixed=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from petastorm_tpu_torch import make_batch_reader
     from petastorm_tpu_torch.loader import DataLoader
-    from petastorm_tpu_torch.ops.image import normalize_images
+    from petastorm_tpu_torch.ops import image
 
-    def transform(batch):
-        return {**batch, "image": normalize_images(batch["image"], smoke.MEAN, smoke.STD)}
+    if mixed:
+        def transform(batch, gen):
+            x = image.random_crop(batch["image"], gen, smoke.MIX_CROP, smoke.MIX_CROP)
+            x = image.color_jitter(x, gen, 0.4, 0.4, 0.4)
+            return {**batch, "image": image.normalize_and_augment(x, smoke.MEAN, smoke.STD,
+                                                                  gen, flip=True)}
 
+        kwargs = {"device_decode_resize": smoke.MIX_RESIZE, "seed": 2}
+    else:
+        def transform(batch):
+            return {**batch, "image": image.normalize_images(batch["image"], smoke.MEAN,
+                                                             smoke.STD)}
+
+        kwargs = {"host_queue_size": 8}
     reader = make_batch_reader(url, workers_count=workers, shuffle_row_groups=True, seed=0,
                                num_epochs=None, decode_on_device=True)
     with DataLoader(reader, smoke.BATCH, device="cuda", device_transform=transform,
-                    prefetch=3, host_queue_size=8) as loader:
+                    prefetch=3, **kwargs) as loader:
         it = iter(loader)
         for _ in range(warmup):
             next(it)
@@ -92,31 +126,52 @@ def main_path(url, workers, warmup, measured, profiled, trace_path):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--batches", type=int, default=10, help="profiled batches")
+    parser.add_argument("--path", choices=("main", "mixed"), default="main")
+    parser.add_argument("--tree", default=smoke.ROOT, help="checkout whose package to run")
+    parser.add_argument("--batches", type=int, default=20, help="profiled batches")
     parser.add_argument("--trace", default=None, help="write the chrome trace here")
     args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import petastorm_tpu_torch
+
+    if not os.path.abspath(petastorm_tpu_torch.__file__).startswith(tree + os.sep):
+        raise SystemExit("imported %s, not the tree %s" % (petastorm_tpu_torch.__file__, tree))
     env = smoke.phase_environment()
     smoke.phase_build()
     workers = max(1, min(8, (os.cpu_count() or 2) - 1))
     work = tempfile.mkdtemp(prefix="ptpu_chip_profile_")
     try:
         url = "file://" + os.path.join(work, "store")
-        smoke.write_store(url, env["cv2"])
-        alone = reader_alone(url, workers, 3000)
-        smoke.log("reader alone (IO + stage 1, %d workers): %.1f rows/s" % (workers, alone))
-        rows_s, stats, device, wall = main_path(url, workers, smoke.WARMUP_BATCHES,
-                                                smoke.MEASURED_BATCHES, args.batches,
-                                                args.trace)
+        if args.path == "main":
+            smoke.write_store(url, env["cv2"])
+            alone = reader_alone(url, workers, 3000)
+            smoke.log("reader alone (IO + stage 1, %d workers): %.1f rows/s" % (workers, alone))
+            warmup, measured = smoke.WARMUP_BATCHES, smoke.MEASURED_BATCHES
+        else:
+            smoke.write_mixed_store(url, env["cv2"])
+            warmup, measured = 2, 8
+        rows_s, stats, device, wall = main_path(url, workers, warmup, measured, args.batches,
+                                                args.trace, mixed=args.path == "mixed")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    smoke.log("main path: %.1f rows/s over %d batches; stats %s"
-              % (rows_s, smoke.MEASURED_BATCHES, json.dumps(stats)))
+    smoke.log("%s path (tree %s): %.1f rows/s over %d batches; stats %s"
+              % (args.path, tree, rows_s, measured, json.dumps(stats)))
     total_us = sum(us for us, _n, _k in device)
     if total_us:
         smoke.log("profiled window: %d batches, wall %.4f s, device time %.4f s, device "
                   "busy share %.4f (sum of device activity / wall; streams may overlap)"
                   % (args.batches, wall, total_us / 1e6, total_us / 1e6 / wall))
-        for us, n, key in device[:12]:
+        kinds = {}
+        for us, _n, key in device:
+            kinds[kind_of(key)] = kinds.get(kind_of(key), 0.0) + us
+        # the loader runs ahead of the consumer (prefetch), so the window holds the device
+        # work of fewer batches than it consumed: count them by K2, one launch a batch
+        made = sum(n for _us, n, key in device if kind_of(key) == "K2")
+        smoke.log("device time a batch by kind (ms; the %d batches whose K2 ran in the "
+                  "window): %s" % (made, json.dumps(
+                      {k: round(v / 1e3 / max(1, made), 4) for k, v in sorted(kinds.items())})))
+        for us, n, key in device[:14]:
             smoke.log("  %10.1f us  %6d x  %s" % (us, n, key[:100]))
     else:
         smoke.log("profiled window: the profiler recorded no device time (not measured)")
@@ -124,5 +179,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, smoke.ROOT)
     main()

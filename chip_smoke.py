@@ -76,6 +76,7 @@ MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 WARMUP_BATCHES, MEASURED_BATCHES = 5, 35
 K1_PAIRS = 6
+PER_IMAGE_ROWS = 4             # corpus images through the per-image stage 2 (K1's path)
 
 
 class PhaseFailed(Exception):
@@ -300,19 +301,215 @@ def phase_kernels(blobs):
           "values" % diff_u8)
     k1 = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
           "rows": rows, "pairs": pairs}
-    # the whole stage 2 on the card against the CPU path (plain versions throughout)
+    # the whole batched stage 2 on the card against the CPU path (plain versions
+    # throughout)
     on_card = jpeg.decode_jpeg_batch(planes, device=dev).cpu().numpy()
     on_cpu = jpeg.decode_jpeg_batch(planes, device="cpu").numpy()
     n_diff = int((on_card != on_cpu).sum())
-    log("K1 batch decode on the card vs the CPU plain path: %d of %d uint8 values differ"
+    log("batched decode on the card vs the CPU plain path: %d of %d uint8 values differ"
         % (n_diff, on_cpu.size))
     check(n_diff == 0, "decoded uint8 on the card differs from the plain decode in %d "
           "values" % n_diff)
-    results["K1"] = dict(k1, bound_ms=b_ms, bound_by=b_by)
+    # the standalone kernels' own path since the batched stage 2 folds the unpack and
+    # K1's product into stage2_planes: the per-image stage 2 (decode_jpeg_device_stage →
+    # idct_blocks: one unpack and one K1 launch a component), counts zeroed around it
+    jpeg.unpack_dequant_segments.launches = 0
+    jpeg.idct_scaled_segments.launches = 0
+    per_image = [jpeg.decode_jpeg_device_stage(p, device=dev) for p in planes[:PER_IMAGE_ROWS]]
+    per_image_launches = {"unpack": jpeg.unpack_dequant_segments.launches,
+                          "K1": jpeg.idct_scaled_segments.launches}
+    for p, got in zip(planes[:PER_IMAGE_ROWS], per_image):
+        check(torch.equal(got.cpu(), jpeg.decode_jpeg_device_stage(p, device="cpu")),
+              "the per-image stage 2 on the card differs from the CPU path")
+    log("the per-image path: %d images through decode_jpeg_device_stage, launches %s (one "
+        "each a component), each image equal to the CPU path"
+        % (PER_IMAGE_ROWS, json.dumps(per_image_launches)))
+    check(per_image_launches == {"unpack": 3 * PER_IMAGE_ROWS, "K1": 3 * PER_IMAGE_ROWS},
+          "the unpack and K1 should launch once a component on the per-image path: %s"
+          % per_image_launches)
+    results["K1"] = dict(k1, bound_ms=b_ms, bound_by=b_by, launches=per_image_launches["K1"])
 
     results["unpack"] = phase_unpack(planes, dev)
+    results["unpack"]["launches"] = per_image_launches["unpack"]
+    results["stage2"] = phase_stage2(planes, dev)
     results["K2"] = phase_k2(dev)
     return results
+
+
+def parent_stage2(layout, segments, bgr=False):
+    """The parent's stage 2 of one layout group, kept here as a yardstick of time: the
+    standalone unpack kernel, K1, then the torch ops that range-limited, transposed,
+    upsampled, cropped and coloured (each product rounded on its own, as the parent did).
+    The same work as ``stage2_planes_segments`` then ``stage2_rgb``."""
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg
+
+    height, width, comp_layout = layout
+    n = segments[0].qtab.shape[0]
+    full = []
+    pixels = jpeg.idct_scaled_segments(jpeg.unpack_dequant_segments(segments))
+    for seg, pix, (ry, rx) in zip(segments, pixels, jpeg._ratios(comp_layout)):
+        pix = torch.clamp(torch.round(pix), 0.0, 255.0)
+        plane = pix.reshape(n, seg.by, seg.bx, 8, 8).permute(0, 1, 3, 2, 4).reshape(
+            n, seg.by * 8, seg.bx * 8)
+        for axis, r in ((1, ry), (2, rx)):
+            if r == 2:
+                plane = jpeg._fancy_upsample2(plane, axis)
+            elif r > 1:
+                plane = torch.repeat_interleave(plane, r, dim=axis)
+        full.append(plane[:, :height, :width])
+    if len(full) == 1:
+        y = torch.clamp(full[0], 0, 255).to(torch.uint8)
+        return torch.stack([y, y, y], dim=-1)
+    return jpeg._to_uint8(jpeg.ycbcr_to_rgb(full[0], full[1], full[2], bgr=bgr))
+
+
+def stage2_variants(planes, dev):
+    """A layout group's transfer variants as the stage-2 kernels take them: ``{name:
+    segments}`` with the variant the content selects (``_stage_groups``, as the paths
+    stage it), forced full int16 and 12-bit packs, and, cut to zigzag prefixes of (32,
+    16, 16) positions, int16, 12-bit and a split from the cut's own profile (a cut
+    changes the image, not what a kernel must equal)."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg, native
+
+    layout = jpeg._layout_key(planes[0])
+    comps = layout[2]
+    coeffs, qtabs = jpeg.stack_jpeg_coefficients(planes)
+    qdev = [torch.from_numpy(q).to(dev) for q in qtabs]
+    reset_transfer_state(jpeg)
+    (staged, staged_q, ks, packed, split), = jpeg._stage_groups([(layout, planes)], dev, None)
+    reset_transfer_state(jpeg)
+
+    def segments(slabs, ks=None, packed=None, split=None, qs=qdev):
+        return [jpeg.CoefSegment(c, q, 64 if ks is None else ks[ci],
+                                 bool(packed is not None and packed[ci]),
+                                 None if split is None else split[ci], by, bx)
+                for ci, ((_h, _v, by, bx), c, q) in enumerate(zip(comps, slabs, qs))]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cut = tuple((32, 16, 16)[:len(comps)])
+    trunc = [native.jpeg_zigzag_truncate_native(c, k) for c, k in zip(coeffs, cut)]
+    profile = np.stack([np.pad(native.jpeg_specmax_native(t, is_zigzag=True), (0, 64 - k))
+                        for t, k in zip(trunc, cut)])
+    points = jpeg._split_points(profile, cut, ("chip_smoke", len(comps)))
+    reset_transfer_state(jpeg)
+    split_slabs, split_spec, split_packed = [], [], []
+    for t, sp in zip(trunc, points):
+        pk12 = None if sp is not None else native.jpeg_pack12_native(t)
+        if sp is not None:
+            split_slabs.append(tuple(up(a) for a in native.jpeg_pack_split_native(
+                t, sp[0], sp[1], is_zigzag=True)))
+        else:  # pack12 is as good for this component; int16 beyond 12 bits
+            split_slabs.append(up(t if pk12 is None else pk12))
+        split_spec.append(sp)
+        split_packed.append(pk12 is not None)
+    variants = {
+        "selected": segments(staged, ks, packed, split, staged_q),
+        "int16": segments([up(c) for c in coeffs]),
+        "int16_cut": segments([up(t) for t in trunc], cut),
+        "split_cut": segments(split_slabs, cut, tuple(split_packed), tuple(split_spec)),
+    }
+    full12 = [native.jpeg_pack12_native(c) for c in coeffs]
+    if all(p is not None for p in full12):  # None: a coefficient beyond 12 bits
+        variants["pack12"] = segments([up(p) for p in full12], packed=(True,) * len(comps))
+        variants["pack12_cut"] = segments([up(native.jpeg_pack12_native(t)) for t in trunc],
+                                          cut, (True,) * len(comps))
+    return layout, variants, (ks, packed, split)
+
+
+def check_stage2(layout, variants, what):
+    """Each variant through ``stage2_planes_segments`` and ``stage2_rgb`` (RGB and BGR)
+    equal to the plain versions (``torch.equal``)."""
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg
+
+    for name, segs in variants.items():
+        outs = jpeg.stage2_planes_segments(segs)
+        plains = [jpeg._stage2_planes_plain(seg) for seg in segs]
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, p) for o, p in zip(outs, plains)),
+              "stage2_planes differs from its plain version (%s, %s)" % (what, name))
+        for bgr in (False, True):
+            rgb = jpeg.stage2_rgb(outs, layout, bgr)
+            torch.cuda.synchronize()
+            check(torch.equal(rgb, jpeg._stage2_rgb_plain(outs, layout, bgr)),
+                  "stage2_rgb differs from its plain version (%s, %s, bgr=%s)"
+                  % (what, name, bgr))
+
+
+def phase_stage2(planes, dev):
+    """The batched stage 2's two kernels on one batch of 256 corpus images (301,056
+    blocks): every transfer variant through ``stage2_planes`` and ``stage2_rgb`` equal to
+    the plain versions; device times of each kernel (the corpus's variant, and
+    ``stage2_planes`` in every variant) beside its bound and its plain version, and the
+    parent's composition of the same work (the unpack, K1 and the torch ops) as a
+    yardstick."""
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg
+
+    layout, variants, selected = stage2_variants(planes, dev)
+    check_stage2(layout, variants, "corpus batch")
+    log("stage 2: %d variants of the corpus batch (the selected ks=%s packed=%s split=%s) "
+        "equal to the plain versions through both kernels, RGB and BGR"
+        % (len(variants), *selected))
+    segs = variants["selected"]
+    blocks = sum(seg.qtab.shape[0] * seg.by * seg.bx for seg in segs)
+    plane_bytes = blocks * 64
+    res = {"planes": {}, "max_abs_err": 0.0}  # every variant held with torch.equal
+    for name, vsegs in variants.items():
+        shipped = sum(sum(t.numel() * t.element_size() for t in
+                          (seg.slabs if seg.split is not None else (seg.slabs,)))
+                      for seg in vsegs)
+        nbytes = shipped + sum(seg.qtab.numel() * 4 for seg in vsegs) + plane_bytes
+        b_ms, b_by = bound(nbytes, 2 * blocks * 64 * 64)
+        ms, enq = timing(lambda: jpeg.stage2_planes_segments(vsegs))
+        res["planes"][name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                               "shipped": shipped, "enqueue_us": enq}
+        log("stage2_planes %s (one launch, 3 components): kernel_ms=%.4f bound_ms=%.4f (%s; "
+            "%d bytes, %d shipped) roofline_share=%.3f enqueue_us=%.1f"
+            % (name, ms, b_ms, b_by, nbytes, shipped, b_ms / ms, enq))
+    planes_out = jpeg.stage2_planes_segments(segs)
+    sel = res["planes"]["selected"]
+    sel["plain_ms"] = cuda_ms(lambda: [jpeg._stage2_planes_plain(seg) for seg in segs])
+    n = segs[0].qtab.shape[0]
+    rgb_bytes = plane_bytes + n * layout[0] * layout[1] * 3
+    r_bound, r_by = bound(rgb_bytes, 0)
+    r_ms, r_enq = timing(lambda: jpeg.stage2_rgb(planes_out, layout))
+    r_plain = cuda_ms(lambda: jpeg._stage2_rgb_plain(planes_out, layout))
+    res["rgb"] = {"ms": r_ms, "bound_ms": r_bound, "bound_by": r_by, "plain_ms": r_plain,
+                  "enqueue_us": r_enq}
+    log("stage2_rgb (one launch): kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s; %d bytes) "
+        "roofline_share=%.3f enqueue_us=%.1f" % (r_ms, r_plain, r_bound, r_by, rgb_bytes,
+                                                 r_bound / r_ms, r_enq))
+    # the two launches as _batched_stage2 makes them, in turns with the parent's
+    # composition of the same work (each pair one comparison on one card)
+    pairs = []
+    for r in range(4):
+        timed = [("change", lambda: jpeg.stage2_rgb(jpeg.stage2_planes_segments(segs), layout)),
+                 ("parent", lambda: parent_stage2(layout, segs))]
+        got = dict((name, cuda_ms(fn)) for name, fn in (timed if r % 2 == 0 else timed[::-1]))
+        pairs.append((got["change"], got["parent"]))
+    both = sorted(c for c, _p in pairs)[len(pairs) // 2]
+    parent_ms = sorted(p for _c, p in pairs)[len(pairs) // 2]
+    composed = parent_stage2(layout, segs)
+    ours = jpeg.stage2_rgb(jpeg.stage2_planes_segments(segs), layout)
+    torch.cuda.synchronize()
+    differ = int((composed != ours).sum().item())
+    log("stage 2 of the batch (stage2_planes + stage2_rgb, 2 launches): %s ms; the parent's "
+        "composition (unpack + K1 + torch ops) %s ms (pairs in turn); medians %.4f against "
+        "%.4f; the parent's rounding of the colour differs in %d of %d uint8 values"
+        % ([round(c, 4) for c, _p in pairs], [round(p, 4) for _c, p in pairs], both,
+           parent_ms, differ, ours.numel()))
+    res.update(both_ms=both, composition_ms=parent_ms, pairs=pairs)
+    return res
 
 
 def reset_transfer_state(jpeg):
@@ -535,6 +732,8 @@ def phase_main_path(url, blobs, cv2):
     reset_transfer_state(jpeg)
     jpeg.unpack_dequant_segments.launches = 0
     jpeg.idct_scaled_segments.launches = 0
+    jpeg.stage2_planes_segments.launches = 0
+    jpeg.stage2_rgb.launches = 0
     image.normalize_images.launches = 0
     image.normalize_images.routes = dict.fromkeys(image.ROUTES, 0)
     pagedec0 = pagedec.counter_values()
@@ -559,7 +758,9 @@ def phase_main_path(url, blobs, cv2):
                 break
         snapshot = loader.stats.snapshot()
     transfer = jpeg.transfer_byte_counters()
-    launches = {"unpack": jpeg.unpack_dequant_segments.launches,
+    launches = {"stage2_planes": jpeg.stage2_planes_segments.launches,
+                "stage2_rgb": jpeg.stage2_rgb.launches,
+                "unpack": jpeg.unpack_dequant_segments.launches,
                 "K1": jpeg.idct_scaled_segments.launches,
                 "K2": image.normalize_images.launches,
                 "K2_routes": dict(image.normalize_images.routes)}
@@ -573,7 +774,7 @@ def phase_main_path(url, blobs, cv2):
     log("main path peak device memory: %d bytes" % peak)
     log("main path launches: %s (host-decoded rows: %d)"
         % (json.dumps(launches), codecs.host_decoded_rows()))
-    decoded = launches["K1"]  # one K1 launch a batch on the uniform path
+    decoded = launches["stage2_planes"]  # one launch a batch on the uniform path
     qtab_bytes = BATCH * 3 * 64 * 4
     full_bytes = transfer["raw"] / max(1, decoded)
     log("main path transfer: shipped/raw %d/%d = %.4f; coefficient H2D a batch %.0f bytes "
@@ -587,16 +788,17 @@ def phase_main_path(url, blobs, cv2):
     # the classic read, as before the pass-through existed
     log("main path pass-through: %s" % json.dumps(
         {k: v - pagedec0[k] for k, v in pagedec.counter_values().items()}))
-    check(launches["K1"] > 0 and launches["K2"] > 0, "a kernel of the path was never "
-          "launched: %s" % launches)
-    check(launches["K1"] == launches["K2"], "K1 should launch once per batch (one launch "
-          "for the three colour components): %s" % launches)
-    check(launches["unpack"] == launches["K1"], "the stage-2 unpack should launch once per "
-          "batch, beside K1: %s" % launches)
+    check(launches["stage2_planes"] > 0 and launches["stage2_rgb"] > 0
+          and launches["K2"] > 0, "a kernel of the path was never launched: %s" % launches)
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"],
+          "stage2_planes and stage2_rgb should launch once per batch (one launch each for "
+          "the three colour components): %s" % launches)
+    check(launches["unpack"] == 0 and launches["K1"] == 0, "the batched path launched the "
+          "standalone unpack or K1: %s" % launches)
     check(transfer["shipped"] < transfer["raw"], "the narrowed transfer shipped no less than "
           "full int16: %s" % transfer)
     check(launches["K2"] >= consumed, "fewer K2 launches than delivered batches")
-    check(launches["K2_routes"]["bulk"] == launches["K1"],
+    check(launches["K2_routes"]["bulk"] == launches["K2"],
           "a K2 launch of the main path missed the bulk route: %s" % launches)
     check(codecs.host_decoded_rows() == 0, "%d rows fell back to host decode on a "
           "baseline q85 corpus" % codecs.host_decoded_rows())
@@ -651,6 +853,7 @@ def phase_main_path(url, blobs, cv2):
 
 MIX_ROWS, MIX_SIZES, MIX_RESIZE, MIX_CROP = 2048, ((375, 500), (500, 375), (333, 500),
                                                    (500, 333), (359, 481)), (256, 256), 224
+MIX_GROUP_ROWS = 51  # a batch of 256 over five layouts
 
 
 def write_mixed_store(url, cv2, rows=MIX_ROWS, seed=5):
@@ -696,11 +899,61 @@ def write_mixed_store(url, cv2, rows=MIX_ROWS, seed=5):
     return dict(enumerate(blobs)), [MIX_SIZES[k] for k in sizes]
 
 
+def phase_stage2_layouts(blobs, sizes, dev):
+    """The stage-2 kernels on every layout of the mixed store: ``MIX_GROUP_ROWS`` rows of
+    each size (one batch's share of a group), every transfer variant equal to the plain
+    versions through both kernels; then, per layout, the device times of the two kernels,
+    of the parent's composition of the same work and of the resize to 256x256, and the
+    host time of the per-image stage 1 those rows take in the feed. The five layouts'
+    sums are a mixed batch's split."""
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg
+
+    split = {"stage2_ms": 0.0, "composition_ms": 0.0, "resize_ms": 0.0, "stage1_host_s": 0.0}
+    for size in MIX_SIZES:
+        rows = [blobs[i] for i, s in enumerate(sizes) if s == size][:MIX_GROUP_ROWS]
+        t0 = time.perf_counter()
+        for b in rows:
+            jpeg.entropy_decode_jpeg_fast(b)
+        stage1_s = time.perf_counter() - t0
+        planes = jpeg.entropy_decode_jpeg_batch(rows)
+        check(all(p is not None for p in planes), "stage 1 refused a mixed-store image")
+        layout, variants, selected = stage2_variants(planes, dev)
+        check_stage2(layout, variants, "%dx%d" % size)
+        segs = variants["selected"]
+        planes_out = jpeg.stage2_planes_segments(segs)
+        img = jpeg.stage2_rgb(planes_out, layout)
+        ms = cuda_ms(lambda: jpeg.stage2_rgb(jpeg.stage2_planes_segments(segs), layout))
+        p_ms = cuda_ms(lambda: jpeg.stage2_planes_segments(segs))
+        r_ms = cuda_ms(lambda: jpeg.stage2_rgb(planes_out, layout))
+        c_ms = cuda_ms(lambda: parent_stage2(layout, segs))
+        z_ms = cuda_ms(lambda: jpeg.resize_image_batch(img, MIX_RESIZE))
+        log("stage 2 %dx%d (%s, %d rows; selected ks=%s packed=%s split=%s): %d variants "
+            "equal to the plain versions; stage2_planes %.4f + stage2_rgb %.4f ms (both "
+            "%.4f), the parent's composition %.4f ms, resize %.4f ms; per-image stage 1 "
+            "%.4f s on one host thread" % (
+                size[0], size[1], [c[:2] for c in layout[2]], len(rows), *selected,
+                len(variants), p_ms, r_ms, ms, c_ms, z_ms, stage1_s))
+        split["stage2_ms"] += ms
+        split["composition_ms"] += c_ms
+        split["resize_ms"] += z_ms
+        split["stage1_host_s"] += stage1_s
+    torch.cuda.synchronize()
+    log("mixed batch split (%d rows of each of %d layouts): stage 2 %.4f ms of device time "
+        "(the parent's composition %.4f), resize %.4f ms; per-image stage 1 %.4f s of host "
+        "time on one thread" % (MIX_GROUP_ROWS, len(MIX_SIZES), split["stage2_ms"],
+                                split["composition_ms"], split["resize_ms"],
+                                split["stage1_host_s"]))
+    return split
+
+
 def phase_mixed_feed(url, blobs, sizes, device="cuda"):
     """The mixed-size store through the resize and the augmentations on the card: every
     batch (256, 224, 224, 3) bfloat16; the first batch's resized uint8 (before the
-    transform) within 1 of the port's CPU path on the same rows; one unpack and one K1
-    launch a layout group, one K2 launch a batch."""
+    transform) within 1 of the port's CPU path on the same rows; one stage2_planes and
+    one stage2_rgb launch a layout group (no standalone unpack or K1), one K2 launch a
+    batch."""
     import numpy as np
     import torch
 
@@ -731,6 +984,8 @@ def phase_mixed_feed(url, blobs, sizes, device="cuda"):
     codecs.host_decoded_rows(reset=True)
     jpeg.unpack_dequant_segments.launches = 0
     jpeg.idct_scaled_segments.launches = 0
+    jpeg.stage2_planes_segments.launches = 0
+    jpeg.stage2_rgb.launches = 0
     image.normalize_images.launches = 0
     jpeg._batched_stage2 = counting_stage2
     first, shapes, consumed = None, set(), 0
@@ -753,7 +1008,9 @@ def phase_mixed_feed(url, blobs, sizes, device="cuda"):
     finally:
         jpeg._batched_stage2 = real_stage2
     wall = time.perf_counter() - t_start
-    launches = {"unpack": jpeg.unpack_dequant_segments.launches,
+    launches = {"stage2_planes": jpeg.stage2_planes_segments.launches,
+                "stage2_rgb": jpeg.stage2_rgb.launches,
+                "unpack": jpeg.unpack_dequant_segments.launches,
                 "K1": jpeg.idct_scaled_segments.launches,
                 "K2": image.normalize_images.launches, "groups": groups[0]}
     transfer = jpeg.transfer_byte_counters()
@@ -767,11 +1024,11 @@ def phase_mixed_feed(url, blobs, sizes, device="cuda"):
     log("mixed feed stats: " + json.dumps(snapshot))
     log("mixed feed: shipped/raw %d/%d = %.4f; rows through the per-image stage 1: %d of "
         "%d; host-decoded rows: %d; layout groups %d (%.2f a batch); launches %s (a "
-        "batch: unpack %.2f, K1 %.2f, K2 %.2f)" % (
+        "batch: stage2_planes %.2f, stage2_rgb %.2f, K2 %.2f)" % (
             transfer["shipped"], transfer["raw"], transfer["shipped"] / transfer["raw"],
             per_image, consumed * BATCH, codecs.host_decoded_rows(), groups[0],
-            groups[0] / consumed, json.dumps(launches), launches["unpack"] / consumed,
-            launches["K1"] / consumed, launches["K2"] / consumed))
+            groups[0] / consumed, json.dumps(launches), launches["stage2_planes"] / consumed,
+            launches["stage2_rgb"] / consumed, launches["K2"] / consumed))
     # the first batch's resized uint8 against the port's CPU path on the same rows
     from petastorm_tpu_torch.unischema import UnischemaField
 
@@ -792,8 +1049,10 @@ def phase_mixed_feed(url, blobs, sizes, device="cuda"):
     check(consumed == len(blobs) // BATCH, "mixed feed delivered %d batches" % consumed)
     check(shapes == {((BATCH, MIX_CROP, MIX_CROP, 3), torch.bfloat16)},
           "mixed feed batches have shapes %s" % shapes)
-    check(launches["unpack"] == launches["K1"] == groups[0] > consumed,
-          "unpack and K1 should launch once a layout group: %s" % launches)
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == groups[0] > consumed,
+          "stage2_planes and stage2_rgb should launch once a layout group: %s" % launches)
+    check(launches["unpack"] == 0 and launches["K1"] == 0, "the batched path launched the "
+          "standalone unpack or K1: %s" % launches)
     check(launches["K2"] == consumed, "K2 should launch once a batch: %s" % launches)
     check(torch.isfinite(first["x"]).all().item(), "non-finite values in the fed batch")
     return {"rows_per_s": rows_per_s, "launches": launches, "batches": consumed,
@@ -1549,6 +1808,8 @@ class BaselineJpegEncoder:
 def main():
     t_all = time.perf_counter()
     env = phase_environment()
+    import torch
+
     phase_build()
     work = tempfile.mkdtemp(prefix="ptpu_chip_smoke_")
     try:
@@ -1572,6 +1833,7 @@ def main():
         log("mixed store: %d rows, %.1f MB of JPEG, written in %.1f s" % (
             len(mix_blobs), sum(map(len, mix_blobs.values())) / 1e6,
             time.perf_counter() - t0))
+        mixed_split = phase_stage2_layouts(mix_blobs, mix_sizes, torch.device("cuda"))
         mixed = phase_mixed_feed(mix_url, mix_blobs, mix_sizes)
         shutil.rmtree(os.path.join(work, "mixed"), ignore_errors=True)
 
@@ -1589,25 +1851,51 @@ def main():
         tab_launches, tab = phase_tabular_path(tab_root, arrays, predicted)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    k1, k2, up = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"]
+    k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
+    sel = s2["planes"]["selected"]
     table = {"kernels": [
-        {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation, one launch "
-         "a layout group; replaces fused jnp, not Pallas)", "route": "cuda",
+        {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
+         "product and the range limit into uint8 planes, one launch a layout group)",
+         "route": "cuda", "source": "petastorm_tpu_torch/csrc/stage2.cu",
+         "replaces": "petastorm_tpu/ops/jpeg.py:311", "launches": launches["stage2_planes"],
+         "max_abs_err": s2["max_abs_err"], "ms": sel["ms"], "plain_ms": sel["plain_ms"],
+         "bound_ms": sel["bound_ms"], "bound_by": sel["bound_by"], "library_ms": None,
+         "composition_ms": s2["composition_ms"], "both_kernels_ms": s2["both_ms"],
+         "variants": {k: {kk: v[kk] for kk in ("ms", "bound_ms")}
+                      for k, v in s2["planes"].items()},
+         "mixed_feed_launches": mixed["launches"]["stage2_planes"]},
+        {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
+         "one launch a layout group)", "route": "cuda",
+         "source": "petastorm_tpu_torch/csrc/stage2.cu",
+         "replaces": "petastorm_tpu/ops/jpeg.py:337", "launches": launches["stage2_rgb"],
+         "max_abs_err": s2["max_abs_err"], "ms": s2["rgb"]["ms"],
+         "plain_ms": s2["rgb"]["plain_ms"], "bound_ms": s2["rgb"]["bound_ms"],
+         "bound_by": s2["rgb"]["bound_by"], "library_ms": None,
+         "mixed_feed_launches": mixed["launches"]["stage2_rgb"]},
+        {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
+         "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
+         "the batched path runs its code inside stage2_planes and launches it 0 times; "
+         "replaces fused jnp, not Pallas)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/coef_unpack.cu",
-         "replaces": "petastorm_tpu/ops/jpeg.py:552", "launches": launches["unpack"],
-         "max_abs_err": max(v["max_abs_err"] for k, v in up.items() if k != "ratio"),
+         "replaces": "petastorm_tpu/ops/jpeg.py:552", "launches": up["launches"],
+         "max_abs_err": max(v["max_abs_err"] for k, v in up.items()
+                            if k not in ("ratio", "launches")),
          "ms": up["corpus"]["ms"], "plain_ms": up["corpus"]["plain_ms"],
          "bound_ms": up["corpus"]["bound_ms"], "bound_by": up["corpus"]["bound_by"],
          "library_ms": up["corpus"]["library_ms"],
          "variants": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "library_ms")}
-                      for k, v in up.items() if k != "ratio"},
+                      for k, v in up.items() if k not in ("ratio", "launches")},
+         "main_path_launches": launches["unpack"],
          "mixed_feed_launches": mixed["launches"]["unpack"]},
-        {"name": "idct_segments_f32 (K1)", "route": "cuda",
+        {"name": "idct_segments_f32 (K1; launches counted on its path, the per-image "
+         "stage 2 decode_jpeg_device_stage; the batched path runs its product inside "
+         "stage2_planes and launches it 0 times)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/idct.cu",
-         "replaces": "petastorm_tpu/ops/jpeg.py:311", "launches": launches["K1"],
+         "replaces": "petastorm_tpu/ops/jpeg.py:311", "launches": k1["launches"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"]},
+         "library_ms": k1["library_ms"], "main_path_launches": launches["K1"],
+         "mixed_feed_launches": mixed["launches"]["K1"]},
         {"name": "normalize_u8 (K2)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/normalize.cu",
          "replaces": "petastorm_tpu/ops/image.py:24", "launches": launches["K2"],
@@ -1630,14 +1918,14 @@ def main():
             row["serial_floor_ms"] = r["serial_floor_ms"]
         table["kernels"].append(row)
     log("total %.1f s; main path %.1f rows/s (shipped/raw %.4f); mixed feed %.1f rows/s "
-        "(shipped/raw %.4f, %.2f groups a batch); tabular path %.1f rows/s"
+        "(shipped/raw %.4f, %.2f groups a batch; a batch's stage 2 %.4f ms and resize %.4f "
+        "ms of device time); tabular path %.1f rows/s"
         % (time.perf_counter() - t_all, main["rows_per_s"], main["shipped_ratio"],
            mixed["rows_per_s"], mixed["shipped_ratio"],
-           mixed["launches"]["groups"] / mixed["batches"], tab["rows_per_s"]))
+           mixed["launches"]["groups"] / mixed["batches"], mixed_split["stage2_ms"],
+           mixed_split["resize_ms"], tab["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
-    import torch
-
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],
                                            "count": torch.cuda.device_count()}}))
 

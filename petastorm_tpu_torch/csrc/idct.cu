@@ -22,22 +22,25 @@
 //    k loop fully unrolled (168 registers; two blocks an SM);
 //  - every output value is a 64-term fmaf chain in k order starting from 0, then +128
 //    with __fadd_rn, so nvcc contracts nothing: the value a float32 matmul with k-ordered
-//    accumulation gives, with no TF32 (and no wgmma, whose float32 path is TF32);
+//    accumulation gives, with no TF32 (and no wgmma, whose float32 path is TF32). The
+//    micro-tile lives in idct_tile.cuh, shared with stage2.cu's `stage2_planes`;
 //  - results leave as 16-byte stores, eight neighbouring threads on one 128-byte row.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "idct_tile.cuh"
+
 namespace {
 
 constexpr int kMaxSegments = 4;
-constexpr int kTileRows = 128;
-constexpr int kThreads = 128;
-constexpr int kStride = 68;  // padded row stride (floats) of a coefficient tile
+constexpr int kTileRows = ptpu::kIdctTileRows;
+constexpr int kThreads = ptpu::kIdctThreads;
+constexpr int kStride = ptpu::kIdctStride;
 constexpr int kStages = 2;
-constexpr int kBasisFloats = 64 * 64;
-constexpr int kTileFloats = kTileRows * kStride;
+constexpr int kBasisFloats = ptpu::kIdctBasisFloats;
+constexpr int kTileFloats = ptpu::kIdctTileFloats;
 constexpr int kIdctSmem = (kBasisFloats + kStages * kTileFloats) * static_cast<int>(sizeof(float));
 
 struct Segments {
@@ -107,39 +110,8 @@ idct_segments_kernel(const Segments segs, const float* __restrict__ basis) {
     __pipeline_wait_prior(1);  // this thread's copies of `tile` have landed
     __syncthreads();           // everyone's have (and the basis is in place)
 
-    const float* st = s_tiles + stage * kTileFloats;
     float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < 64; k += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(&st[(ty + 16 * i) * kStride + k]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 = *reinterpret_cast<const float4*>(&s_basis[(k + kk) * 64 + 4 * tx]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&s_basis[(k + kk) * 64 + 32 + 4 * tx]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float ai = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-          acc[i][0] = fmaf(ai, b0.x, acc[i][0]);
-          acc[i][1] = fmaf(ai, b0.y, acc[i][1]);
-          acc[i][2] = fmaf(ai, b0.z, acc[i][2]);
-          acc[i][3] = fmaf(ai, b0.w, acc[i][3]);
-          acc[i][4] = fmaf(ai, b1.x, acc[i][4]);
-          acc[i][5] = fmaf(ai, b1.y, acc[i][5]);
-          acc[i][6] = fmaf(ai, b1.z, acc[i][6]);
-          acc[i][7] = fmaf(ai, b1.w, acc[i][7]);
-        }
-      }
-    }
+    ptpu::idct_micro_tile(s_tiles + stage * kTileFloats, s_basis, tx, ty, acc);
 
     const TileRef t = locate(segs, tile);
 #pragma unroll

@@ -29,9 +29,11 @@ def _tag(sources, commands):
     return hasher.hexdigest()[:16]
 
 
-def build_shared_library(name, sources, compile_cmd, link_cmd=None, timeout=600):
+def build_shared_library(name, sources, compile_cmd, link_cmd=None, timeout=600,
+                         headers=()):
     """Compile ``sources`` into ``_build/<name>-<hash>.so`` unless it exists; returns
     ``(path, log)`` where ``log`` holds the compilers' output (empty on a cache hit).
+    ``headers`` are files the sources include: they key the output file too.
 
     ``compile_cmd(src, out)`` gives the command that compiles one source. Without
     ``link_cmd`` there must be one source and its command writes the library itself.
@@ -41,7 +43,8 @@ def build_shared_library(name, sources, compile_cmd, link_cmd=None, timeout=600)
     probe_cmds = [compile_cmd("SRC", "OUT")]
     if link_cmd is not None:
         probe_cmds.append(link_cmd(["OBJ"], "OUT"))
-    out_path = os.path.join(BUILD_DIR, "%s-%s.so" % (name, _tag(sources, probe_cmds)))
+    out_path = os.path.join(BUILD_DIR, "%s-%s.so" % (name, _tag([*sources, *headers],
+                                                                 probe_cmds)))
     if os.path.exists(out_path):
         return out_path, ""
     workdir = tempfile.mkdtemp(prefix=name + "-", dir=BUILD_DIR)

@@ -13,13 +13,14 @@ Port of ``petastorm_tpu.ops.jpeg``:
   profile (:func:`_split_points`), else a 12-bit pack, else int16; all of a batch's groups
   are packed into one pinned staging region and cross in ONE upload
   (:func:`transfer_byte_counters` counts the bytes).
-- **Stage 2 (device)**: the stage-2 unpack (:func:`unpack_dequant_segments`, the CUDA
-  kernel ``csrc/coef_unpack.cu`` on CUDA tensors) turns each component's shipped slabs
-  into dequantised float32 blocks in natural order, one launch a layout group; the 8x8
-  inverse DCT runs as one (N, 64) @ (64, 64) product per component
-  (:func:`idct_scaled_segments`, the CUDA kernel K1, one launch a group); then plain
-  torch ops range-limit, upsample chroma with libjpeg's triangle filter and convert
-  YCbCr to RGB, as they sit outside the Pallas kernel in the JAX package too.
+- **Stage 2 (device)**, two launches a layout group (``csrc/stage2.cu`` on CUDA
+  tensors): :func:`stage2_planes_segments` unpacks and dequantises each component's
+  shipped slabs, runs the 8x8 inverse DCT (K1's product) and range-limits into uint8
+  planes; :func:`stage2_rgb` upsamples the chroma with libjpeg's triangle filter, crops
+  and converts YCbCr to RGB. The per-image stage 2 (:func:`decode_jpeg_device_stage`)
+  keeps the standalone kernels (:func:`idct_blocks`: the unpack
+  :func:`unpack_dequant_segments`, ``csrc/coef_unpack.cu``, then K1,
+  ``csrc/idct.cu``) and plain torch ops around them.
   :func:`resize_image_batch` resizes a mixed-size batch's groups to one size.
 """
 from __future__ import annotations
@@ -478,7 +479,18 @@ def idct_scaled(scaled):
 
 
 def idct_blocks(coeffs, qtable):
-    """(N, 64) quantized coefficients → (N, 64) pixel blocks (dequant + IDCT + shift)."""
+    """(N, 64) quantized coefficients → (N, 64) pixel blocks (dequant + IDCT + shift).
+
+    The per-image stage 2's path to the standalone kernels: on a CUDA device, int16
+    coefficients (the native stage 1's) dequantise in one launch of the unpack kernel
+    (one segment of one image, :func:`unpack_dequant_segments`), then K1; other integer
+    types with torch ops. Both are one float32 product a coefficient."""
+    import torch
+
+    if coeffs.is_cuda and coeffs.dtype == torch.int16:
+        seg = CoefSegment(coeffs.reshape(1, -1, 64).contiguous(),
+                          qtable.to(torch.int32).reshape(1, 64).contiguous(), 64, False, None)
+        return idct_scaled(unpack_dequant_segments([seg])[0])
     scaled = coeffs.float() * qtable.float()[None, :]
     return idct_scaled(scaled.contiguous())
 
@@ -511,6 +523,33 @@ def _to_uint8(x):
     import torch
 
     return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
+#: :func:`ycbcr_to_rgb`'s constants as float32 (a Python float rounded, as torch and jnp
+#: take them)
+_CR_R, _CB_G, _CR_G, _CB_B = (float(np.float32(c)) for c in (1.402, 0.344136, 0.714136, 1.772))
+
+
+def _ycbcr_to_rgb_u8_fused(y, cb, cr, bgr=False):
+    """JFIF YCbCr → RGB uint8 as the reference's jitted ``_batched_stage2`` computes it on
+    the CPU, where XLA contracts each multiply-add of ``ycbcr_to_rgb`` into one fused
+    multiply-add (one rounding): ``r = fma(1.402, cr - 128, y)``, ``g = fma(-0.714136,
+    cr - 128, fma(-0.344136, cb - 128, y))``, ``b = fma(1.772, cb - 128, y)``, then round,
+    clip and uint8. Each fma is computed in float64 and rounded once to float32: the
+    product of two float32 is exact there, and so is the sum, for these operands (samples
+    in [0, 255] at a 1/16 grid), so the result is the fused one. :func:`ycbcr_to_rgb` on
+    its own rounds every product (the reference's eager form, used by the per-image
+    stage 2)."""
+    import torch
+
+    f64 = torch.float64
+    y64 = y.to(f64)
+    dcb = (cb - 128.0).to(f64)
+    dcr = (cr - 128.0).to(f64)
+    r = (y64 + _CR_R * dcr).to(torch.float32)
+    g = ((y64 - _CB_G * dcb).to(torch.float32).to(f64) - _CR_G * dcr).to(torch.float32)
+    b = (y64 + _CB_B * dcb).to(torch.float32)
+    return _to_uint8(torch.stack([b, g, r] if bgr else [r, g, b], dim=-1))
 
 
 def decode_jpeg_device_stage(planes, device=None):
@@ -553,8 +592,10 @@ def decode_jpeg_device_stage(planes, device=None):
 #: when ``packed``, or when ``split = (k1, k2)`` a ``(head, mid, tail)`` triple: uint8
 #: 12-bit pairs for zigzag positions [0, k1), int8 for [k1, k2), uint8 4-bit nibble pairs
 #: for [k2, k). ``qtab``: (n, 64) int32 natural order. Order: natural when k == 64 and no
-#: split, else zigzag.
-CoefSegment = collections.namedtuple("CoefSegment", "slabs qtab k packed split")
+#: split, else zigzag. ``by``, ``bx``: the component's blocks a column and a row, which
+#: :func:`stage2_planes_segments` needs for its planes (the unpack alone ignores them).
+CoefSegment = collections.namedtuple("CoefSegment", "slabs qtab k packed split by bx",
+                                     defaults=(None, None))
 
 _MAX_UNPACK_SEGMENTS = 4  # csrc/coef_unpack.cu kMaxSegments
 
@@ -615,20 +656,20 @@ def _unpack_dequant_plain(seg):
     return scaled.reshape(n * blocks, 64)
 
 
-def _check_segment(seg):
+def _check_segment(seg, what="unpack_dequant"):
     """Shapes and dtypes of one :class:`CoefSegment`; returns (images, blocks)."""
     import torch
 
     if seg.qtab.dim() != 2 or seg.qtab.shape[1] != 64 or seg.qtab.dtype != torch.int32:
-        raise ValueError("unpack_dequant: qtab must be (n, 64) int32, got %s %s"
-                         % (seg.qtab.dtype, tuple(seg.qtab.shape)))
+        raise ValueError("%s: qtab must be (n, 64) int32, got %s %s"
+                         % (what, seg.qtab.dtype, tuple(seg.qtab.shape)))
     k = int(seg.k)
     if not 1 <= k <= 64 or k % 2:
-        raise ValueError("unpack_dequant: k must be even in [2, 64], got %r" % (seg.k,))
+        raise ValueError("%s: k must be even in [2, 64], got %r" % (what, seg.k))
     if seg.split is not None:
         k1, k2 = seg.split
         if not 0 <= k1 <= k2 <= k or k1 % 2 or (k - k2) % 2:
-            raise ValueError("unpack_dequant: bad split %r for k=%d" % (seg.split, k))
+            raise ValueError("%s: bad split %r for k=%d" % (what, seg.split, k))
         want = ((torch.uint8, k1 * 3 // 2), (torch.int8, k2 - k1), (torch.uint8, (k - k2) // 2))
         slabs = tuple(seg.slabs)
     else:
@@ -638,10 +679,10 @@ def _check_segment(seg):
     blocks = slabs[0].shape[1] if slabs[0].dim() == 3 else -1
     for t, (dtype, width) in zip(slabs, want):
         if t.dtype != dtype or t.dim() != 3 or tuple(t.shape) != (n, blocks, width):
-            raise ValueError("unpack_dequant: slab %s %s, expected %s of shape %s"
-                             % (t.dtype, tuple(t.shape), dtype, (n, blocks, width)))
+            raise ValueError("%s: slab %s %s, expected %s of shape %s"
+                             % (what, t.dtype, tuple(t.shape), dtype, (n, blocks, width)))
     if len(slabs) != len(want):
-        raise ValueError("unpack_dequant: a split segment takes (head, mid, tail)")
+        raise ValueError("%s: a split segment takes (head, mid, tail)" % what)
     return n, blocks
 
 
@@ -700,7 +741,170 @@ def unpack_dequant_segments(segments):
 unpack_dequant_segments.launches = 0
 
 
-# -- batched stage 2 (one unpack and one IDCT launch per layout group) -----------------
+# -- the batched stage 2: shipped slabs → planes → RGB (csrc/stage2.cu) ----------------
+
+_MAX_PLANES_SEGMENTS = 4  # csrc/stage2.cu kMaxSegments
+
+
+def _stage2_planes_plain(seg):
+    """Plain PyTorch version of ``stage2_planes`` for one :class:`CoefSegment`: the
+    unpack (:func:`_unpack_dequant_plain`), the IDCT (:func:`_idct_scaled_plain`), the
+    range limit (round half to even, clamp to [0, 255]) and the block-to-plane transpose,
+    as the reference's ``_batched_stage2`` (``petastorm_tpu/ops/jpeg.py:552-608``) does
+    them. Returns (n, by*8, bx*8) uint8."""
+    import torch
+
+    n = seg.qtab.shape[0]
+    pix = torch.clamp(torch.round(_idct_scaled_plain(_unpack_dequant_plain(seg))), 0.0, 255.0)
+    plane = pix.reshape(n, seg.by, seg.bx, 8, 8).permute(0, 1, 3, 2, 4)
+    return plane.reshape(n, seg.by * 8, seg.bx * 8).to(torch.uint8)
+
+
+def stage2_planes_segments(segments):
+    """A layout group's components as shipped (:class:`CoefSegment` each, with ``by`` and
+    ``bx``, all on one device) → the list of (n, by*8, bx*8) uint8 planes, range-limited
+    pixels in plane layout.
+
+    On CUDA tensors, the hand-written kernel ``stage2_planes`` (``csrc/stage2.cu``: the
+    unpack and dequantisation, K1's product and the range limit in one pass), ONE launch
+    for every segment; on CPU tensors, the plain version per segment.
+    ``stage2_planes_segments.launches`` counts kernel launches."""
+    import torch
+
+    segments = list(segments)
+    if not 1 <= len(segments) <= _MAX_PLANES_SEGMENTS:
+        raise ValueError("stage2_planes_segments takes 1..%d segments, got %d"
+                         % (_MAX_PLANES_SEGMENTS, len(segments)))
+    device = segments[0].qtab.device
+    shapes = []
+    for seg in segments:
+        n, blocks = _check_segment(seg, "stage2_planes")
+        if seg.by is None or seg.bx is None or int(seg.by) < 1 or int(seg.bx) < 1 \
+                or int(seg.by) * int(seg.bx) != blocks:
+            raise ValueError("stage2_planes: by=%r, bx=%r do not make the %d blocks an image"
+                             % (seg.by, seg.bx, blocks))
+        slabs = seg.slabs if seg.split is not None else (seg.slabs,)
+        if any(t.device != device for t in slabs) or seg.qtab.device != device:
+            raise ValueError("stage2_planes_segments: tensors on more than one device")
+        shapes.append((n, int(seg.by), int(seg.bx)))
+    if device.type == "cpu":
+        return [_stage2_planes_plain(seg) for seg in segments]
+    if device.type != "cuda":
+        raise ValueError("stage2_planes runs on CPU or CUDA tensors, got %s" % device)
+    from petastorm_tpu_torch.ops import kernels
+
+    descs = (kernels.PlaneSegmentDesc * len(segments))()
+    outs = []
+    for d, seg, (n, by, bx) in zip(descs, segments, shapes):
+        slabs = tuple(seg.slabs) if seg.split is not None else (seg.slabs,)
+        if not all(t.is_contiguous() for t in slabs) or not seg.qtab.is_contiguous():
+            raise ValueError("stage2_planes needs contiguous slabs and tables")
+        if any(t.numel() and t.data_ptr() % 16 for t in (*slabs, seg.qtab)):
+            raise ValueError("stage2_planes needs 16-byte aligned slabs and tables")
+        out = torch.empty((n, by * 8, bx * 8), dtype=torch.uint8, device=device)
+        outs.append(out)
+        ptrs = [t.data_ptr() for t in slabs] + [0] * (3 - len(slabs))
+        d.src0, d.src1, d.src2 = ptrs
+        d.qtab, d.out = seg.qtab.data_ptr(), out.data_ptr()
+        d.rows, d.blocks_per_image, d.bx = n * by * bx, by * bx, bx
+        d.kind = 2 if seg.split is not None else int(bool(seg.packed))  # split, pack12, int16
+        d.k = seg.k
+        d.k1, d.k2 = seg.split if seg.split is not None else (0, 0)
+        d.zigzag = int(seg.split is not None or seg.k < 64)
+    rc = kernels.library().ptpu_stage2_planes(descs, len(segments), _basis_on(device).data_ptr(),
+                                              *kernels.launch_target(device))
+    kernels.check_launch("stage2_planes", rc)
+    stage2_planes_segments.launches += 1
+    return outs
+
+
+stage2_planes_segments.launches = 0
+
+
+def _ratios(comp_layout):
+    """Per component ``(ry, rx)``: the vertical and horizontal upsample ratios."""
+    hmax = max(h for h, _v, _by, _bx in comp_layout)
+    vmax = max(v for _h, v, _by, _bx in comp_layout)
+    return [(vmax // v, hmax // h) for h, v, _by, _bx in comp_layout]
+
+
+def _stage2_rgb_plain(planes, layout, bgr=False):
+    """Plain PyTorch version of ``stage2_rgb``: per component the upsample (libjpeg's
+    triangle filter at ratio 2, a nearest repeat above, vertical then horizontal, edges
+    clamped at the padded plane), the crop to (h, w), then YCbCr → RGB with round, clip and
+    uint8 (:func:`_ycbcr_to_rgb_u8_fused`), as the reference's jitted ``_batched_stage2``
+    (``petastorm_tpu/ops/jpeg.py:609-618``)."""
+    import torch
+
+    height, width, comp_layout = layout
+    full = []
+    for plane, (ry, rx) in zip(planes, _ratios(comp_layout)):
+        plane = plane.to(torch.float32)
+        for axis, r in ((1, ry), (2, rx)):
+            if r == 2:
+                plane = _fancy_upsample2(plane, axis)
+            elif r > 1:
+                plane = torch.repeat_interleave(plane, r, dim=axis)
+        full.append(plane[:, :height, :width])
+    if len(full) == 1:
+        y = torch.clamp(full[0], 0, 255).to(torch.uint8)
+        return torch.stack([y, y, y], dim=-1)
+    return _ycbcr_to_rgb_u8_fused(full[0], full[1], full[2], bgr=bgr)
+
+
+def stage2_rgb(planes, layout, bgr=False):
+    """A layout group's uint8 planes (one (n, by*8, bx*8) tensor a component, all on one
+    device, as :func:`stage2_planes_segments` gives them) → (n, h, w, 3) uint8, RGB or
+    (``bgr``) BGR; one component is copied to three channels.
+
+    On CUDA tensors, the hand-written kernel ``stage2_rgb`` (``csrc/stage2.cu``: the
+    chroma upsample, the crop and the colour conversion in one pass), ONE launch; on CPU
+    tensors, the plain version. ``stage2_rgb.launches`` counts kernel launches."""
+    import torch
+
+    height, width, comp_layout = layout
+    planes = list(planes)
+    if len(planes) != len(comp_layout) or len(planes) not in (1, 3):
+        raise ValueError("stage2_rgb takes 1 or 3 planes, one a component of the layout; "
+                         "got %d for %d components" % (len(planes), len(comp_layout)))
+    device, n = planes[0].device, planes[0].shape[0]
+    ratios = _ratios(comp_layout)
+    for plane, (_h, _v, by, bx), (ry, rx) in zip(planes, comp_layout, ratios):
+        if plane.dtype != torch.uint8 or tuple(plane.shape) != (n, by * 8, bx * 8):
+            raise ValueError("stage2_rgb: plane %s %s, expected uint8 of shape %s"
+                             % (plane.dtype, tuple(plane.shape), (n, by * 8, bx * 8)))
+        if plane.device != device:
+            raise ValueError("stage2_rgb: planes on more than one device")
+        if by * 8 * ry < height or bx * 8 * rx < width:
+            raise ValueError("stage2_rgb: a %dx%d plane upsampled by (%d, %d) does not cover "
+                             "%dx%d" % (by * 8, bx * 8, ry, rx, height, width))
+    if device.type == "cpu":
+        return _stage2_rgb_plain(planes, layout, bgr)
+    if device.type != "cuda":
+        raise ValueError("stage2_rgb runs on CPU or CUDA tensors, got %s" % device)
+    if not all(plane.is_contiguous() for plane in planes):
+        raise ValueError("stage2_rgb needs contiguous planes")
+    if any(plane.data_ptr() % 16 for plane in planes):
+        raise ValueError("stage2_rgb needs 16-byte aligned planes")
+    from petastorm_tpu_torch.ops import kernels
+
+    out = torch.empty((n, height, width, 3), dtype=torch.uint8, device=device)
+    d = kernels.RgbDesc()
+    for c, (plane, (_h, _v, by, bx), (ry, rx)) in enumerate(zip(planes, comp_layout, ratios)):
+        d.plane[c] = plane.data_ptr()
+        d.rows[c], d.cols[c], d.ry[c], d.rx[c] = by * 8, bx * 8, ry, rx
+    d.out, d.images = out.data_ptr(), n
+    d.height, d.width, d.ncomp, d.bgr = height, width, len(planes), int(bool(bgr))
+    rc = kernels.library().ptpu_stage2_rgb(d, *kernels.launch_target(device))
+    kernels.check_launch("stage2_rgb", rc)
+    stage2_rgb.launches += 1
+    return out
+
+
+stage2_rgb.launches = 0
+
+
+# -- batched stage 2 (two launches a layout group) --------------------------------------
 
 
 def _layout_key(planes):
@@ -718,35 +922,16 @@ def _batched_stage2(layout, coeffs, qtabs, ks=None, packed=None, split=None, bgr
     ``(n, by*bx, k)`` int16 tensor, its 12-bit pack, or a split's slab triple: see
     :class:`CoefSegment`; ``ks``, ``packed`` and ``split`` give each component's variant,
     None = full int16 in natural order) and ``(n, 64)`` int32 quantisation tables (per
-    image: quality may vary) → ``(n, h, w, 3)`` uint8, RGB or (``bgr``) BGR. One unpack
-    launch and one K1 launch for all components."""
-    import torch
-
-    height, width, comp_layout = layout
-    hmax = max(h for h, _v, _by, _bx in comp_layout)
-    vmax = max(v for _h, v, _by, _bx in comp_layout)
-    n = qtabs[0].shape[0]
-    ncomp = len(comp_layout)
+    image: quality may vary) → ``(n, h, w, 3)`` uint8, RGB or (``bgr``) BGR. One
+    :func:`stage2_planes_segments` launch for all components, then one
+    :func:`stage2_rgb` launch."""
+    _height, _width, comp_layout = layout
     segments = [CoefSegment(coef, qtab, 64 if ks is None else ks[ci],
                             bool(packed is not None and packed[ci]),
-                            None if split is None else split[ci])
-                for ci, (coef, qtab) in enumerate(zip(coeffs, qtabs))]
-    scaled = unpack_dequant_segments(segments)
-    planes = []
-    for (h_samp, v_samp, by, bx), pix in zip(comp_layout, idct_scaled_segments(scaled)):
-        pix = torch.clamp(torch.round(pix), 0.0, 255.0)  # libjpeg range-limits at IDCT out
-        plane = pix.reshape(n, by, bx, 8, 8).permute(0, 1, 3, 2, 4).reshape(n, by * 8, bx * 8)
-        ry, rx = vmax // v_samp, hmax // h_samp
-        for axis, r in ((1, ry), (2, rx)):
-            if r == 2:
-                plane = _fancy_upsample2(plane, axis)
-            elif r > 1:
-                plane = torch.repeat_interleave(plane, r, dim=axis)
-        planes.append(plane[:, :height, :width])
-    if ncomp == 1:
-        y = torch.clamp(planes[0], 0, 255).to(torch.uint8)
-        return torch.stack([y, y, y], dim=-1)
-    return _to_uint8(ycbcr_to_rgb(planes[0], planes[1], planes[2], bgr=bgr))
+                            None if split is None else split[ci], by, bx)
+                for ci, ((_h, _v, by, bx), coef, qtab) in enumerate(
+                    zip(comp_layout, coeffs, qtabs))]
+    return stage2_rgb(stage2_planes_segments(segments), layout, bgr)
 
 
 def stack_jpeg_coefficients(planes_list):

@@ -5,7 +5,8 @@ and link into one shared library with a plain C interface
 (:mod:`petastorm_tpu_torch.ops._build`). Nothing builds or loads at import: the first
 :func:`library` call does, from the wrapper that launches a kernel on a CUDA tensor.
 The wrappers themselves live beside their plain PyTorch versions:
-``ops.jpeg.unpack_dequant_segments`` (the stage-2 unpack),
+``ops.jpeg.stage2_planes_segments`` and ``ops.jpeg.stage2_rgb`` (the batched stage 2),
+``ops.jpeg.unpack_dequant_segments`` (the standalone stage-2 unpack),
 ``ops.jpeg.idct_scaled_segments`` (K1), ``ops.image.normalize_images`` (K2), and
 ``ops.pagedec_kernels.snappy_inflate_ragged`` (K3), ``rle_scan_pages`` (the run scan)
 and ``extract_pages`` (K4).
@@ -20,7 +21,9 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = (os.path.join(_CSRC, "coef_unpack.cu"), os.path.join(_CSRC, "idct.cu"),
-           os.path.join(_CSRC, "normalize.cu"), os.path.join(_CSRC, "pagedec.cu"))
+           os.path.join(_CSRC, "normalize.cu"), os.path.join(_CSRC, "pagedec.cu"),
+           os.path.join(_CSRC, "stage2.cu"))
+HEADERS = (os.path.join(_CSRC, "idct_tile.cuh"),)
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
@@ -37,6 +40,28 @@ class CoefSegmentDesc(ctypes.Structure):
         ("rows", ctypes.c_int64), ("blocks_per_image", ctypes.c_int64),
         ("kind", ctypes.c_int32), ("k", ctypes.c_int32), ("k1", ctypes.c_int32),
         ("k2", ctypes.c_int32), ("zigzag", ctypes.c_int32), ("pad", ctypes.c_int32),
+    ]
+
+
+class PlaneSegmentDesc(ctypes.Structure):
+    """One component of ``stage2_planes`` (``csrc/stage2.cu``'s struct)."""
+    _fields_ = [
+        ("src0", ctypes.c_void_p), ("src1", ctypes.c_void_p), ("src2", ctypes.c_void_p),
+        ("qtab", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("rows", ctypes.c_int64), ("blocks_per_image", ctypes.c_int64),
+        ("bx", ctypes.c_int32), ("kind", ctypes.c_int32), ("k", ctypes.c_int32),
+        ("k1", ctypes.c_int32), ("k2", ctypes.c_int32), ("zigzag", ctypes.c_int32),
+    ]
+
+
+class RgbDesc(ctypes.Structure):
+    """The arguments of ``stage2_rgb`` (``csrc/stage2.cu``'s struct)."""
+    _fields_ = [
+        ("plane", ctypes.c_void_p * 3), ("out", ctypes.c_void_p), ("images", ctypes.c_int64),
+        ("rows", ctypes.c_int32 * 3), ("cols", ctypes.c_int32 * 3),
+        ("ry", ctypes.c_int32 * 3), ("rx", ctypes.c_int32 * 3),
+        ("height", ctypes.c_int32), ("width", ctypes.c_int32), ("ncomp", ctypes.c_int32),
+        ("bgr", ctypes.c_int32),
     ]
 
 
@@ -72,7 +97,8 @@ def library():
         t0 = time.perf_counter()
         try:
             path, log = build_shared_library("ptpu_torch_kernels", list(SOURCES),
-                                             compile_cmd, link_cmd, timeout=600)
+                                             compile_cmd, link_cmd, timeout=600,
+                                             headers=HEADERS)
         except FileNotFoundError as e:
             raise RuntimeError("CUDA kernels need nvcc (%s): %s" % (nvcc, e)) from e
         BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=path)
@@ -80,6 +106,13 @@ def library():
         lib.ptpu_coef_unpack_segments.argtypes = [
             ctypes.POINTER(CoefSegmentDesc), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.ptpu_coef_unpack_segments.restype = ctypes.c_int
+        lib.ptpu_stage2_planes.argtypes = [
+            ctypes.POINTER(PlaneSegmentDesc), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.ptpu_stage2_planes.restype = ctypes.c_int
+        lib.ptpu_stage2_rgb.argtypes = [ctypes.POINTER(RgbDesc), ctypes.c_int,
+                                        ctypes.c_void_p]
+        lib.ptpu_stage2_rgb.restype = ctypes.c_int
         lib.ptpu_idct_segments_f32.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,

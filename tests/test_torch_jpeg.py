@@ -136,22 +136,29 @@ def test_idct_segments_refuses_what_the_kernel_does_not_take():
 
 
 def test_batched_stage2_makes_one_idct_call_a_batch(monkeypatch):
-    """Stage 2 hands all of a batch's components to K1's wrapper in one call, and stays
-    bit-identical to the reference."""
+    """Stage 2 hands all of a batch's components to ``stage2_planes_segments`` in one
+    call (the IDCT's one call a batch lives there now) and their planes to ``stage2_rgb``
+    in one call, and stays bit-identical to the reference."""
     rng = np.random.RandomState(15)
     blobs = [_encode(_image(rng, (48, 64, 3)), q) for q in (75, 85, 95)]
     calls = []
-    real = port.idct_scaled_segments
+    real_planes, real_rgb = port.stage2_planes_segments, port.stage2_rgb
 
-    def counting(segments):
-        calls.append([tuple(t.shape) for t in segments])
-        return real(segments)
+    def counting_planes(segments):
+        calls.append(("planes", [(seg.by, seg.bx) for seg in segments]))
+        return real_planes(segments)
 
-    monkeypatch.setattr(port, "idct_scaled_segments", counting)
+    def counting_rgb(planes, layout, bgr=False):
+        calls.append(("rgb", [tuple(p.shape) for p in planes]))
+        return real_rgb(planes, layout, bgr)
+
+    monkeypatch.setattr(port, "stage2_planes_segments", counting_planes)
+    monkeypatch.setattr(port, "stage2_rgb", counting_rgb)
     ours = port.decode_jpeg_batch(port.entropy_decode_jpeg_batch(blobs), device=CPU)
     theirs = np.asarray(ref.decode_jpeg_batch(ref.entropy_decode_jpeg_batch(blobs)))
     np.testing.assert_array_equal(ours.numpy(), theirs)
-    assert calls == [[(3 * 48, 64), (3 * 12, 64), (3 * 12, 64)]]
+    assert calls == [("planes", [(6, 8), (3, 4), (3, 4)]),
+                     ("rgb", [(3, 48, 64), (3, 24, 32), (3, 24, 32)])]
 
 
 @pytest.mark.parametrize("index", range(6))
@@ -279,6 +286,29 @@ def test_idct_kernel_matches_plain_on_the_card(cuda_device):
         assert (out - plain).abs().max().item() <= 1e-3
         assert torch.equal(torch.clamp(torch.round(out), 0, 255),
                            torch.clamp(torch.round(plain), 0, 255))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index", range(6))
+def test_per_image_stage_launches_the_unpack_and_idct_a_component_on_the_card(
+        cuda_device, index):
+    """The per-image stage 2 is the standalone kernels' path: native (int16) coefficients
+    dequantise through one unpack launch a component, then one K1 launch; the Python
+    oracle's int32 coefficients take the torch dequantisation. Equal to the CPU path."""
+    data = _streams()[index]
+    planes = port.entropy_decode_jpeg_fast(data)
+    u0, k0 = port.unpack_dequant_segments.launches, port.idct_scaled_segments.launches
+    on_card = port.decode_jpeg_device_stage(planes, cuda_device).cpu()
+    ncomp = len(planes.components)
+    assert port.unpack_dequant_segments.launches == u0 + ncomp
+    assert port.idct_scaled_segments.launches == k0 + ncomp
+    assert torch.equal(on_card, port.decode_jpeg_device_stage(planes, CPU))
+    if index < 5:  # baseline: the oracle's int32 blocks skip the unpack, same pixels
+        oracle = port.entropy_decode_jpeg(data)
+        u0 = port.unpack_dequant_segments.launches
+        assert torch.equal(port.decode_jpeg_device_stage(oracle, cuda_device).cpu(),
+                           on_card)
+        assert port.unpack_dequant_segments.launches == u0
 
 
 @pytest.mark.gpu
@@ -836,13 +866,19 @@ def test_unpack_kernel_mixed_cases_in_one_launch(cuda_device):
 def test_group_is_one_unpack_and_one_idct_launch_on_the_card(cuda_device, case,
                                                              monkeypatch,
                                                              fresh_transfer_state):
+    """A layout group on the card is one ``stage2_planes`` launch (the unpack and K1's
+    product live there now) and one ``stage2_rgb`` launch; the standalone unpack and K1
+    do not launch; the pixels equal the CPU path's."""
     blobs, _check = _variant_case(case, monkeypatch)
     planes = port.entropy_decode_jpeg_batch(blobs)
     cpu = port.decode_jpeg_batch(planes, device=CPU).numpy()
     u0, k0 = port.unpack_dequant_segments.launches, port.idct_scaled_segments.launches
+    p0, r0 = port.stage2_planes_segments.launches, port.stage2_rgb.launches
     on_card = port.decode_jpeg_batch(planes, device=cuda_device).cpu().numpy()
-    assert port.unpack_dequant_segments.launches == u0 + 1
-    assert port.idct_scaled_segments.launches == k0 + 1
+    assert port.stage2_planes_segments.launches == p0 + 1
+    assert port.stage2_rgb.launches == r0 + 1
+    assert port.unpack_dequant_segments.launches == u0
+    assert port.idct_scaled_segments.launches == k0
     np.testing.assert_array_equal(on_card, cpu)
 
 
@@ -851,9 +887,10 @@ def test_mixed_size_resize_on_the_card_equals_cpu(cuda_device, fresh_transfer_st
     rng = np.random.RandomState(73)
     blobs = [_encode(_image(rng, s), 85) for s in ((40, 56, 3), (33, 47, 3), (40, 56, 3))]
     planes = [port.entropy_decode_jpeg_fast(b) for b in blobs]
-    u0 = port.unpack_dequant_segments.launches
+    p0, r0 = port.stage2_planes_segments.launches, port.stage2_rgb.launches
     on_card = port.decode_jpeg_batch(planes, device=cuda_device, resize_to=(36, 44)).cpu()
-    assert port.unpack_dequant_segments.launches == u0 + 2  # one a layout group
+    assert port.stage2_planes_segments.launches == p0 + 2  # one a layout group
+    assert port.stage2_rgb.launches == r0 + 2
     cpu = port.decode_jpeg_batch(planes, device=CPU, resize_to=(36, 44))
     diff = (on_card.to(torch.int32) - cpu.to(torch.int32)).abs()
     assert diff.max().item() <= 1
