@@ -52,9 +52,31 @@ Phases (each passes or the script exits non-zero, printing no result line):
    every batch (256, 224, 224, 3) bfloat16, the first batch's resized uint8 within 1 of
    the port's CPU path on the same rows, one unpack and one K1 launch a layout group.
 
-The last lines are the kernels table (JSON), the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+7. The process pool (``reader_pool_type='process'``, ``workers_count=min(8, cpus-1)``),
+   against the thread pool in the same process. The main path's store and configuration
+   for three epochs (48 batches: 5 warm-up, 35 measured, 8 under ``torch.profiler`` for
+   the device busy share) on the thread pool, then the process pool on ``'arrow'``,
+   ``'shm'`` and ``'shm-view'`` at the default 32 MB slab (a 270-row group's ~40.6 MB of
+   coefficients takes the socket), the shm wires again with ``PTPU_SHM_SLAB_BYTES`` at
+   64 MB (the phase fails where ``df /dev/shm`` says the ring does not fit), and the
+   thread pool again, so the pools' order is bracketed. Each run: every id delivered
+   once an epoch, every image equal on the card to the first thread-pool run's image of
+   the same id, ``stage2_planes``/``stage2_rgb``/K2 launched once a batch, the first
+   batch equal to the plain stage 2 (the CPU decode) and to K2's plain version, no
+   lease leaked, no child with ``libcuda`` mapped or listed by ``nvidia-smi``, no slab
+   left after ``join()``; printed: rows/s, ``read_s``/``decode_s``/``put_wait_s``/
+   ``device_queue_wait_s`` a batch, the busy share, ``wire_stats()`` (slab items against
+   socket fallbacks), start-up (seconds to the children's handshakes and to the first
+   result) and the children's resident memory. Then phase 5's tabular path at 10 + 30
+   batches on the thread pool, the process pool on ``'arrow'`` and ``'shm-view'``, and
+   the thread pool again, with phase 5's checks (launches, 0 host-inflated columns,
+   byte identity) and no lease leaked; printed: rows/s and ``inflate_s`` a batch.
+
+The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
+launches in phase 7's runs), the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -840,6 +862,296 @@ def phase_main_path(url, blobs, cv2):
                       "shipped_ratio": transfer["shipped"] / transfer["raw"]}
 
 
+# -- phase 7: the process pool ---------------------------------------------------------
+#
+# The main path and the tabular pass-through with reader_pool_type='process': children
+# run Parquet IO and stage 1 (or the page walk) in clean interpreters and answer over a
+# socket ('arrow', make_batch_reader's default) or shared-memory slabs ('shm',
+# 'shm-view'), against the thread pool in the same process. The JPEG runs read three
+# epochs of the main-path store (48 batches: 5 warm-up, 35 measured, 8 under the
+# profiler); every delivered image is held on the card against the first thread-pool
+# run's image of the same id, and the thread pool runs again last, bracketing the
+# order. A row group of 256 rows ships ~38.5 MB of int16 coefficients, over the 32 MB
+# default slab, so the shm wires run once at the default slab and once with
+# PTPU_SHM_SLAB_BYTES at POOL_SLAB_BYTES. The ring keeps its default of workers + 2
+# slabs.
+
+POOL_EPOCHS = 3
+POOL_PROFILED = 8
+POOL_SLAB_BYTES = 64 << 20
+POOL_TAB_WARMUP, POOL_TAB_MEASURED = 10, 30
+
+
+def shm_state():
+    """(free bytes of /dev/shm or None, `df -B1 /dev/shm` as printed)."""
+    from petastorm_tpu_torch.parallel.shm_ring import shm_free_bytes
+
+    out = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True,
+                         timeout=60)
+    return shm_free_bytes(), " | ".join(out.stdout.strip().splitlines())
+
+
+def port_slabs():
+    import glob
+
+    from petastorm_tpu_torch.parallel.shm_ring import SEGMENT_PREFIX
+
+    return sorted(glob.glob("/dev/shm/%s%d_*" % (SEGMENT_PREFIX, os.getpid())))
+
+
+def child_report(pids):
+    """{pid: (resident MiB, libcuda mapped)} of the pool's children, from /proc."""
+    out = {}
+    for pid in pids:
+        try:
+            with open("/proc/%d/status" % pid) as f:
+                rss = [int(line.split()[1]) for line in f if line.startswith("VmRSS:")]
+            with open("/proc/%d/maps" % pid) as f:
+                cuda = any("libcuda" in line for line in f)
+        except OSError:
+            continue
+        out[pid] = (rss[0] / 1024.0 if rss else -1.0, cuda)
+    return out
+
+
+def compute_app_pids():
+    """The pids nvidia-smi lists with a context on a card (as it prints them)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def profiled_busy_share(next_batch, batches):
+    """Device busy share over ``batches`` calls of ``next_batch`` under torch.profiler
+    (sum of device activity / wall; streams may overlap), or None when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next_batch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            v = getattr(e, "self_device_time_total", None)
+            us += v if v is not None else getattr(e, "self_cuda_time_total", 0)
+    return (us / 1e6 / wall) if us else None
+
+
+def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, tag=""):
+    """One JPEG run (module comment above). ``images`` ((ROWS, 224, 224, 3) uint8 on the
+    card): the first thread-pool run fills it by id (``fill``), every later run is held
+    to it bit for bit."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io.lease import lease_stats
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image, jpeg
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    label = "%s/%s%s%s" % (pool, wire or "-", "" if slab_bytes is None
+                           else " %d-byte slabs" % slab_bytes, tag)
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    with pool_env(slab_bytes):
+        reader = make_batch_reader(url, reader_pool_type=pool, workers_count=workers,
+                                   wire_serializer=wire, shuffle_row_groups=True, seed=0,
+                                   num_epochs=POOL_EPOCHS, decode_on_device=True)
+    executor = reader._executor
+    dev = torch.device("cuda")
+    counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    leases0 = lease_stats()
+    reset_transfer_state(jpeg)
+    jpeg.stage2_planes_segments.launches = 0
+    jpeg.stage2_rgb.launches = 0
+    image.normalize_images.launches = 0
+    first = None
+    children = {}
+    apps = None
+    consumed = 0
+    total = POOL_EPOCHS * ROWS // BATCH
+    with DataLoader(reader, BATCH, device="cuda", device_transform=transform, prefetch=3,
+                    host_queue_size=8) as loader:
+        it = iter(loader)
+
+        def take():
+            nonlocal consumed, first
+            batch = next(it)
+            consumed += 1
+            ids, u8 = batch["id"], batch["image_u8"]
+            counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            if fill:
+                images.index_copy_(0, ids, u8)
+            else:
+                bad.add_((images.index_select(0, ids) != u8).sum())
+            if first is None:
+                first = {"id": ids.cpu().numpy(), "u8": u8[:32].cpu().numpy(),
+                         "u8_dev": u8[:8].clone(), "norm": batch["image"][:8].clone()}
+
+        for _ in range(WARMUP_BATCHES):
+            take()
+        if pool == "process":
+            pids = executor.child_pids()
+            children = child_report(pids)
+            apps = compute_app_pids()
+        torch.cuda.synchronize()
+        stats0 = loader.stats.snapshot()
+        t0 = time.perf_counter()
+        for _ in range(MEASURED_BATCHES):
+            take()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats1 = loader.stats.snapshot()
+        busy = profiled_busy_share(take, POOL_PROFILED)
+        for _ in range(total - consumed):
+            take()
+        check(next(it, None) is None, "%s: more batches than %d epochs hold" % (label,
+                                                                              POOL_EPOCHS))
+        wire_stats = reader.wire_stats()
+        pool_stats = executor.pool_stats() if pool == "process" else {}
+    torch.cuda.synchronize()
+    launches = {"stage2_planes": jpeg.stage2_planes_segments.launches,
+                "stage2_rgb": jpeg.stage2_rgb.launches, "K2": image.normalize_images.launches}
+    leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
+    window = {k: (stats1[k] - stats0[k]) / MEASURED_BATCHES * 1e3
+              for k in ("read_s", "decode_s", "put_wait_s", "device_queue_wait_s",
+                        "queue_wait_s", "batch_s", "h2d_s")}
+    rows_per_s = MEASURED_BATCHES * BATCH / dt
+    log("pool %s: %.1f rows/s over %d batches (%.3f s); ms a batch: %s; device busy share "
+        "%s (%d profiled batches); %s" % (
+            label, rows_per_s, MEASURED_BATCHES, dt,
+            json.dumps({k: round(v, 3) for k, v in window.items()}),
+            "%.4f" % busy if busy is not None else "not measured", POOL_PROFILED, smi))
+    log("pool %s: launches %s; wire %s; leases %s" % (label, json.dumps(launches),
+                                                     json.dumps(wire_stats), leases))
+    if pool == "process":
+        log("pool %s: start-up %s; children (pid: resident MiB, libcuda mapped) %s; "
+            "nvidia-smi compute apps %s (this process %d)" % (
+                label, json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                                   for k, v in pool_stats.items()}),
+                {p: (round(m, 1), c) for p, (m, c) in children.items()}, apps, os.getpid()))
+    # -- checks ------------------------------------------------------------------------
+    c = counts.cpu()
+    check(bool((c == POOL_EPOCHS).all()), "%s: ids delivered %s times, not %d each"
+          % (label, sorted(set(c.tolist())), POOL_EPOCHS))
+    if not fill:
+        check(bad.item() == 0, "%s: %d uint8 values differ from the thread pool's images "
+              "of the same ids" % (label, bad.item()))
+    check(all(v > 0 for v in launches.values()), "%s: a kernel of the path was never "
+          "launched: %s" % (label, launches))
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"] == total,
+          "%s: stage2_planes, stage2_rgb and K2 should launch once a batch (%d): %s"
+          % (label, total, launches))
+    ids = first["id"]
+    cpu = jpeg.decode_jpeg_batch(jpeg.entropy_decode_jpeg_batch([blobs[int(i)]
+                                                                 for i in ids[:32]]),
+                                 device="cpu", bgr=True).numpy()
+    check(np.array_equal(cpu, first["u8"]), "%s: the first batch differs from the plain "
+          "stage 2 (the port's CPU decode) of the same rows" % label)
+    plain = image._normalize_plain(first["u8_dev"], MEAN, STD, torch.bfloat16)
+    check(torch.equal(plain, first["norm"]), "%s: K2 differs from its plain version on "
+          "the first batch" % label)
+    norm_ref = image._normalize_plain(torch.from_numpy(first["u8"][:8]), MEAN, STD,
+                                      torch.bfloat16).float()
+    check((first["norm"].float().cpu() - norm_ref).abs().max().item() <= 2e-2,
+          "%s: normalised batch further than 2e-2 from a CPU normalisation" % label)
+    check(leases["leaked"] == 0 and leases["acquired"] == leases["released"],
+          "%s: leases %s" % (label, leases))
+    if pool == "process":
+        check(children and all(not cuda for _m, cuda in children.values()),
+              "%s: a child mapped libcuda (or none was found): %s" % (label, children))
+        check(not set(apps) & set(children),
+              "%s: nvidia-smi lists a child with a CUDA context: %s" % (label, apps))
+        if wire.startswith("shm") and slab_bytes is not None:
+            check(wire_stats.get("shm_items", 0) > 0, "%s: no item went through a slab "
+                  "(wire %s): not an shm run" % (label, wire_stats))
+    check(not port_slabs(), "%s: slabs left in /dev/shm after join: %s"
+          % (label, port_slabs()))
+    log("pool %s: every id %d times, images equal to the thread pool's per id, first "
+        "batch equal to the plain stage 2 and K2, no slab left" % (label, POOL_EPOCHS))
+    return {"rows_per_s": rows_per_s, "window_ms": window, "busy": busy,
+            "wire": wire_stats, "pool": pool_stats, "launches": launches,
+            "child_rss_mib": [m for m, _c in children.values()]}
+
+
+@contextlib.contextmanager
+def pool_env(slab_bytes):
+    """``PTPU_SHM_SLAB_BYTES`` set while a reader starts its pool (None: the default)."""
+    saved = os.environ.pop("PTPU_SHM_SLAB_BYTES", None)
+    if slab_bytes is not None:
+        os.environ["PTPU_SHM_SLAB_BYTES"] = str(slab_bytes)
+    try:
+        yield
+    finally:
+        os.environ.pop("PTPU_SHM_SLAB_BYTES", None)
+        if saved is not None:
+            os.environ["PTPU_SHM_SLAB_BYTES"] = saved
+
+
+def check_ring_fits(slab_bytes, slabs):
+    """Fail unless /dev/shm holds ``slabs`` slabs of ``slab_bytes``: a ring that does not
+    fit sends every item over the socket, which is no shm run."""
+    free, _df = shm_state()
+    check(free is None or free >= slab_bytes * slabs, "/dev/shm has %s bytes free, less "
+          "than a ring of %d slabs of %d bytes" % (free, slabs, slab_bytes))
+
+
+def phase_process_pool_jpeg(url, blobs, env):
+    """The JPEG runs: the thread pool, then the process pool on 'arrow', 'shm' and
+    'shm-view' at the default slab, the shm wires at POOL_SLAB_BYTES (the default ring of
+    workers + 2 slabs), then the thread pool again (the pools' order bracketed)."""
+    import torch
+
+    _free, df = shm_state()
+    log("process pool: /dev/shm %s; %s" % (df, env["smi"]))
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    check(not port_slabs(), "slabs in /dev/shm before the phase: %s" % port_slabs())
+    images = torch.zeros((ROWS,) + IMG, dtype=torch.uint8, device="cuda")
+    out = {}
+    check_ring_fits(POOL_SLAB_BYTES, workers + 2)
+    runs = [("thread", None, None), ("process", "arrow", None), ("process", "shm", None),
+            ("process", "shm-view", None), ("process", "shm", POOL_SLAB_BYTES),
+            ("process", "shm-view", POOL_SLAB_BYTES), ("thread", None, None)]
+    for i, (pool, wire, slab_bytes) in enumerate(runs):
+        tag = " (again)" if pool == "thread" and i else ""
+        res = pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, env["smi"],
+                            fill=i == 0, tag=tag)
+        out["%s/%s/%s%s" % (pool, wire, "default" if slab_bytes is None
+                            else "%dMB" % (slab_bytes >> 20), tag)] = res
+    return out
+
+
+def phase_process_pool_tabular(root, arrays, predicted, env):
+    """The tabular pass-through at a reduced depth: the thread pool, then the process
+    pool on 'arrow' and 'shm-view', then the thread pool again (the pools' order bracketed,
+    so a drift of the host across the phase shows)."""
+    out = {}
+    for pool, wire, tag in (("thread", None, ""), ("process", "arrow", ""),
+                            ("process", "shm-view", ""), ("thread", None, " (again)")):
+        launches, res = phase_tabular_path(
+            root, arrays, predicted, warmup=POOL_TAB_WARMUP, measured=POOL_TAB_MEASURED,
+            pool=pool, wire=wire)
+        w = res["window"]
+        name = "%s/%s%s" % (pool, wire, tag)
+        log("pool tabular %s: %.1f rows/s; inflate_s %.3f, read_s %.3f ms a batch; "
+            "launches %s; wire %s; %s" % (
+                name, res["rows_per_s"], w["inflate_s"] / POOL_TAB_MEASURED * 1e3,
+                w["read_s"] / POOL_TAB_MEASURED * 1e3, json.dumps(launches),
+                json.dumps(res["wire"]), env["smi"]))
+        out[name] = res
+    return out
+
+
 # -- phase 6: the mixed-size training feed ---------------------------------------------
 #
 # Raw ImageNet-style stores hold images of many sizes. 2,048 JPEG rows at q85, content
@@ -1551,22 +1863,28 @@ def _off_read(root, f, rg):
 
 
 def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP_BATCHES,
-                       measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH):
+                       measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH, pool="thread",
+                       wire=None):
     """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
     card: counts zeroed just before, read just after; the first and last measured
-    batches against a ``pagedec="off"`` read of their row groups and the source arrays."""
+    batches against a ``pagedec="off"`` read of their row groups and the source arrays.
+    ``pool``/``wire``: the reader's pool and the process pool's wire (then also no lease
+    leaked and no slab left)."""
     import numpy as np
     import torch
 
     from petastorm_tpu_torch import make_batch_reader
     from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.io.lease import lease_stats
     from petastorm_tpu_torch.loader import DataLoader
     from petastorm_tpu_torch.ops import pagedec_kernels as pk
 
     workers = max(1, min(8, (os.cpu_count() or 2) - 1))
     reader = make_batch_reader("file://" + root, workers_count=workers,
                                shuffle_row_groups=True, seed=0, num_epochs=None,
-                               io_options={"pagedec": "auto"})
+                               io_options={"pagedec": "auto"}, reader_pool_type=pool,
+                               wire_serializer=wire)
+    leases0 = lease_stats()
     counters0 = pagedec.counter_values()
     reads0 = pk.HOST_READS.value
     pk.snappy_inflate_ragged.launches = 0
@@ -1590,8 +1908,10 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                 dt = time.perf_counter() - t0
                 stats1 = loader.stats.snapshot()
                 break
+        wire_stats = reader.wire_stats()
     launches = {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_scan_pages.launches,
                 "K4": pk.extract_pages.launches}
+    leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
     counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
     host_reads = pk.HOST_READS.value - reads0
     wall = time.perf_counter() - t_start
@@ -1601,9 +1921,10 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                                                  "device_queue_wait_s")}
     rows_per_s = measured * batch_size / dt
     passthrough_batches = counters["pages"] // predicted["pages"]
-    log("tabular path: %d batches of %d, steady window %d batches: %.1f rows/s (%.3f s); "
-        "total %.1f s; workers=%d" % (consumed, batch_size, measured, rows_per_s, dt, wall,
-                                      workers))
+    log("tabular path (%s pool%s): %d batches of %d, steady window %d batches: %.1f rows/s "
+        "(%.3f s); total %.1f s; workers=%d" % (
+            pool, ", wire %s" % wire if wire else "", consumed, batch_size, measured,
+            rows_per_s, dt, wall, workers))
     log("tabular window stats: " + json.dumps(window))
     log("tabular launches: %s for %d pass-through batches (predicted per batch: %s); "
         "pagedec counters: %s; reads back to the host: %d (%.1f per pass-through batch)"
@@ -1631,6 +1952,10 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
           % counters["host_inflate_columns"])
     check(counters["fallback_columns"] == 0, "%d columns fell back to the classic read"
           % counters["fallback_columns"])
+    check(leases["leaked"] == 0 and leases["acquired"] == leases["released"],
+          "leases of the tabular run: %s" % leases)
+    if pool == "process":
+        check(not port_slabs(), "slabs left in /dev/shm after join: %s" % port_slabs())
     for which, got in zip(("first", "last"), kept):
         check(sorted(got) == sorted(TAB_COLUMNS), "batch columns %s" % sorted(got))
         f, rg = _rowgroup_of({c: got[c][0] for c in TAB_COLUMNS}, arrays, batch_size)
@@ -1646,7 +1971,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
         log("tabular %s measured batch (file %d, row group %d): byte-identical to the "
             "pagedec=off read and the source arrays in all %d columns"
             % (which, f, rg, len(TAB_COLUMNS)))
-    return launches, {"rows_per_s": rows_per_s, "window": window, "counters": counters}
+    return launches, {"rows_per_s": rows_per_s, "window": window, "counters": counters,
+                      "wire": wire_stats, "leases": leases, "launches": launches}
 
 
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
@@ -1825,6 +2151,7 @@ def main():
                time.perf_counter() - t0))
         kernels = phase_kernels(blobs)
         launches, main = phase_main_path(url, blobs, env["cv2"])
+        pool_jpeg = phase_process_pool_jpeg(url, blobs, env)
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
         t0 = time.perf_counter()
@@ -1849,10 +2176,17 @@ def main():
         predicted = tabular_structure(tab_root)
         tab_kernels = phase_tabular_kernels(tab_root)
         tab_launches, tab = phase_tabular_path(tab_root, arrays, predicted)
+        pool_tab = phase_process_pool_tabular(tab_root, arrays, predicted, env)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
     sel = s2["planes"]["selected"]
+
+    def pool_launches(runs, key):
+        """{run: launches of ``key``} over the process-pool runs (phase 7)."""
+        return {name: r["launches"][key] for name, r in runs.items()}
+
+    tab_pool = {name: r["launches"] for name, r in pool_tab.items()}
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -1863,7 +2197,8 @@ def main():
          "composition_ms": s2["composition_ms"], "both_kernels_ms": s2["both_ms"],
          "variants": {k: {kk: v[kk] for kk in ("ms", "bound_ms")}
                       for k, v in s2["planes"].items()},
-         "mixed_feed_launches": mixed["launches"]["stage2_planes"]},
+         "mixed_feed_launches": mixed["launches"]["stage2_planes"],
+         "pool_launches": pool_launches(pool_jpeg, "stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -1871,7 +2206,8 @@ def main():
          "max_abs_err": s2["max_abs_err"], "ms": s2["rgb"]["ms"],
          "plain_ms": s2["rgb"]["plain_ms"], "bound_ms": s2["rgb"]["bound_ms"],
          "bound_by": s2["rgb"]["bound_by"], "library_ms": None,
-         "mixed_feed_launches": mixed["launches"]["stage2_rgb"]},
+         "mixed_feed_launches": mixed["launches"]["stage2_rgb"],
+         "pool_launches": pool_launches(pool_jpeg, "stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -1900,7 +2236,8 @@ def main():
          "source": "petastorm_tpu_torch/csrc/normalize.cu",
          "replaces": "petastorm_tpu/ops/image.py:24", "launches": launches["K2"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None},
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+         "pool_launches": pool_launches(pool_jpeg, "K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -1916,7 +2253,11 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         if "serial_floor_ms" in r:
             row["serial_floor_ms"] = r["serial_floor_ms"]
+        row["pool_launches"] = {name: n[key] for name, n in tab_pool.items()}
         table["kernels"].append(row)
+    log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
+        json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
+        json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_tab.items()})))
     log("total %.1f s; main path %.1f rows/s (shipped/raw %.4f); mixed feed %.1f rows/s "
         "(shipped/raw %.4f, %.2f groups a batch; a batch's stage 2 %.4f ms and resize %.4f "
         "ms of device time); tabular path %.1f rows/s"

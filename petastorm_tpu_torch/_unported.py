@@ -6,7 +6,7 @@ them gets a ``NotImplementedError`` naming that item; the port never ignores an 
 from __future__ import annotations
 
 _ITEMS = {
-    "process_pool": "Queue 1 item 4 (process pool, wire serializers and transports)",
+    "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
     "io": "Queue 1 item 5 (read path IO options and caches)",
     "selection": "Queue 1 item 6 (predicates, filters, partitions, selectors, transforms)",
     "ngram": "Queue 1 item 7 (NGram)",
@@ -31,11 +31,8 @@ OPTIONS = {
     "cache_extra_settings": ("io", None),
     # io_options itself is taken (IoOptions): its pagedec field is ported, every other
     # field raises from IoOptions
-    "wire_serializer": ("process_pool", None),
-    "transport": ("process_pool", None),
     "io_retries": ("obs", None),
     "io_retry_backoff_s": ("obs", None),
-    "worker_respawns": ("obs", None),
     "recovery": ("obs", None),
     "provenance": ("obs", None),
     "watch": ("obs", None),

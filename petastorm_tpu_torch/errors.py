@@ -30,3 +30,29 @@ class PagedecCorruptError(PetastormTpuError):
 
     cause = "pagedec_corrupt"
     permanent = True
+
+
+class LeaseError(PetastormTpuError):
+    """Broken lease discipline on a :class:`petastorm_tpu_torch.io.lease.Lease`:
+    releasing past a zero refcount (double release) or retaining a lease whose buffers
+    were already returned to their owner. Always a caller bug: the contract is exactly
+    one release per retain."""
+
+
+class LeaseRevoked(PetastormTpuError):
+    """The buffers behind a lease were invalidated by their owner, e.g. a
+    ``Reader.reset()`` rebuilt the process pool whose slab ring backed a still-retained
+    batch. Lease-aware accessors raise this instead of returning views into recycled
+    memory."""
+
+
+class WorkerDiedError(PetastormTpuError, RuntimeError):
+    """A pool worker process died and the respawn budget (``worker_respawns``, default
+    2, or ``PTPU_WORKER_RESPAWNS``) is exhausted. Carries the original child failure as
+    ``__cause__`` and ``original``."""
+
+    def __init__(self, message, original=None):
+        super().__init__(message)
+        self.original = original
+        if original is not None:
+            self.__cause__ = original

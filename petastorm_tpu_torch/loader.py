@@ -21,10 +21,17 @@ them. ``device=None`` means the CUDA device; without one the loader raises. Test
 ``device="cpu"``: the same pipeline runs the kernels' plain PyTorch versions.
 ``to_device=False`` delivers host numpy after the staged decode, as the JAX package does.
 
+A process pool's view wire (``wire_serializer='shm-view'``) delivers batches that view
+pool slabs. The producer takes each delivery's lease from the reader; every batch cut
+from it holds the lease until the transfer thread has read its host arrays (the staged
+decode has packed its coefficients into the upload region, the inflate stage has copied
+its pages, the other columns are staged), and only then is the slab free for reuse.
+Where rows linger (the shuffling buffer) or are restacked (a per-row reader), the views
+are copied out instead.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
 across devices, pad_shapes, the HBM device shuffle, the trace, metrics, health,
-provenance, SLO, controller and tenant wiring, checkpointing, and the lease-backed
-zero-copy wire of the process pool.
+provenance, SLO, controller and tenant wiring, and checkpointing.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import time
 import numpy as np
 
 from petastorm_tpu_torch._unported import reject_unported
+from petastorm_tpu_torch.io.lease import attach_leases, count_copy, take_leases
 from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
                                             materialize_columns, pagedec_counters)
 from petastorm_tpu_torch.shuffle import BatchedRandomShufflingBuffer
@@ -72,9 +80,10 @@ class PipelineStats:
     The decode and H2D stages launch asynchronous CUDA work, so their seconds are host
     enqueue time; the inflate stage waits for the card where it reads values back.
     ``inflate_s`` is the port's own field (the JAX package counts the same time in its
-    ``ptpu_pagedec_inflate_seconds`` histogram). ``decode_unsharded_batches`` and the
-    ``shm_*`` fields belong to multi-device decode and the process pool's shared-memory
-    wire, which are not ported; they stay 0.
+    ``ptpu_pagedec_inflate_seconds`` histogram). The ``shm_*`` fields are the process
+    pool's shared-memory wire gauges (``Reader.wire_stats()``), refreshed at each
+    delivery; ``decode_unsharded_batches`` belongs to multi-device decode, which is not
+    ported, and stays 0.
     """
 
     __slots__ = ("rows", "batches", "read_s", "batch_s", "put_wait_s",
@@ -122,6 +131,15 @@ class PipelineStats:
             "inflate_s": round(self.inflate_s, 4),
         }
 
+    def update_wire(self, wire_stats):
+        """Fold in the pool's shared-memory gauges (a ``Reader.wire_stats()`` dict)."""
+        if not wire_stats:
+            return
+        self.shm_slabs_in_flight = wire_stats.get("shm_slabs_in_flight", 0)
+        self.shm_bytes = wire_stats.get("shm_bytes", 0)
+        self.shm_fallbacks = wire_stats.get("shm_fallbacks", 0)
+        self.shm_acquire_wait_s = wire_stats.get("shm_acquire_wait_s", 0.0)
+
 
 def _is_device_dtype(arr):
     """Only numeric/bool fixed-shape columns go to the device; strings/objects stay host."""
@@ -129,7 +147,13 @@ def _is_device_dtype(arr):
 
 
 class _HostBatcher:
-    """Accumulates columnar chunks and cuts exact fixed-size batches."""
+    """Accumulates columnar chunks and cuts exact fixed-size batches.
+
+    A chunk added with a lease (its arrays view a pool slab) holds the lease once a
+    column entry; each batch cut from it retains the lease (a
+    :class:`~petastorm_tpu_torch.io.lease.LeasedBatch`), and the batcher's own holds drop
+    as its chunks drain. Leases ride the plain path only: the shuffling buffer's callers
+    copy views out first."""
 
     def __init__(self, batch_size, shuffling_queue_capacity=0, seed=None):
         self.batch_size = batch_size
@@ -143,19 +167,23 @@ class _HostBatcher:
             )
         else:
             self._buffer = None
-            # {name: list of [array, offset]}: the remainder stays an offset into the
-            # head chunk instead of a fresh slice per cut
+            # {name: list of [array, offset, lease]}: the remainder stays an offset into
+            # the head chunk instead of a fresh slice per cut
             self._pending = {}
             self._pending_rows = 0
 
     def _cut_one(self, take):
         merged = {}
+        batch_leases = {}
+        drained = []
         for name, chunks in self._pending.items():
             parts = []
             need = take
             while need > 0:
                 entry = chunks[0]
-                arr, off = entry
+                arr, off, lease = entry
+                if lease is not None:
+                    batch_leases[id(lease)] = lease
                 avail = len(arr) - off
                 if avail > need:
                     parts.append(arr[off:off + need])
@@ -164,9 +192,14 @@ class _HostBatcher:
                 else:
                     parts.append(arr[off:] if off else arr)
                     chunks.pop(0)
+                    if lease is not None:
+                        drained.append(lease)
                     need -= avail
             merged[name] = parts[0] if len(parts) == 1 else _concat(parts)
         self._pending_rows -= take
+        merged = attach_leases(merged, [lease.retain() for lease in batch_leases.values()])
+        for lease in drained:
+            lease.release()
         return merged
 
     def _plain_cut(self, final=False):
@@ -177,16 +210,22 @@ class _HostBatcher:
             out.append(self._cut_one(self._pending_rows))
         return out
 
-    def add(self, columns):
-        """Feed one columnar chunk; returns the list of ready full-size batches."""
+    def add(self, columns, lease=None):
+        """Feed one columnar chunk (and the ownership of ``lease``, when its arrays view
+        a slab); returns the list of ready full-size batches."""
         if self._buffer is None:
             n = None
             for name, arr in columns.items():
-                self._pending.setdefault(name, []).append([arr, 0])
+                self._pending.setdefault(name, []).append(
+                    [arr, 0, None if lease is None else lease.retain()])
                 n = len(arr)
+            if lease is not None:
+                lease.release()  # the reference handed in: now held once a column entry
             if n is not None:
                 self._pending_rows += n
             return self._plain_cut()
+        if lease is not None:
+            lease.release()  # callers copy views out before the shuffling buffer
         ready = []
         self._buffer.add_many(columns)
         while self._buffer.can_retrieve:
@@ -202,6 +241,51 @@ class _HostBatcher:
         while self._buffer.can_retrieve:
             ready.append(self._buffer.retrieve())
         return ready
+
+    def close(self):
+        """Drop the holds on still-pending leased chunks (a producer stopped mid-epoch:
+        rows that never formed a batch)."""
+        if self._buffer is not None:
+            return
+        for chunks in self._pending.values():
+            for _arr, _off, lease in chunks:
+                if lease is not None:
+                    lease.release()
+        self._pending.clear()
+        self._pending_rows = 0
+
+
+def _release_leases(batch):
+    """Release every lease a batch holds (no-op for plain dicts)."""
+    for lease in take_leases(batch):
+        lease.release()
+
+
+def _detach_views(columns):
+    """Copy every read-only slab view out of a view-wire delivery before it enters a
+    stage the lease cannot ride (the shuffling buffer, a per-row reader's restacking):
+    read-only arrays, read-only elements of object columns, and staged payloads with a
+    ``detach()``. Charged to the ``loader_detach`` copy-census site."""
+    out = {}
+    copied = 0
+    for name, v in columns.items():
+        if isinstance(v, np.ndarray):
+            if v.dtype.hasobject:
+                fresh = np.empty(v.shape, dtype=object)
+                for idx, e in np.ndenumerate(v):
+                    if isinstance(e, np.ndarray) and not e.flags.writeable:
+                        copied += e.nbytes
+                        e = e.copy()
+                    elif hasattr(e, "detach"):
+                        e = e.detach()
+                    fresh[idx] = e
+                v = fresh
+            elif not v.flags.writeable:
+                copied += v.nbytes
+                v = v.copy()
+        out[name] = v
+    count_copy("loader_detach", copied)
+    return out
 
 
 def _batch_row_count(batch):
@@ -307,6 +391,18 @@ def _put_with_stop(q, item, stop_event):
         except full:
             if stop_event.is_set():
                 return False
+
+
+def _drain(q):
+    """Empty a pipeline queue; host batches in it will never transfer, so their leases
+    are released."""
+    try:
+        while True:
+            item = q.get_nowait()
+            if isinstance(item, dict):
+                _release_leases(item)
+    except queue.Empty:
+        pass
 
 
 def _put_sentinel(q, stop_event):
@@ -457,12 +553,21 @@ class DataLoader:
         stats = self.stats
         device_fields = getattr(self.reader, "device_decode_fields", ())
         batched = bool(getattr(self.reader, "is_batched_reader", False))
+        wire_stats = getattr(self.reader, "wire_stats", None)
+        if wire_stats is not None and not wire_stats():
+            wire_stats = None  # a thread or dummy pool, or a socket wire: no gauges
+        # on a view wire the plain batched path takes each delivery's lease; the
+        # shuffling buffer and per-row readers copy the views out instead
+        wire_views = bool(getattr(self.reader, "wire_views", False))
+        lease_mode = wire_views and batched and not self._shuffling_queue_capacity
         try:
             it = iter(self.reader)
             while True:
                 t0 = time.perf_counter()
                 item = next(it, _SENTINEL)
                 stats.read_s += time.perf_counter() - t0
+                if wire_stats is not None:
+                    stats.update_wire(wire_stats())
                 if item is _SENTINEL:
                     break
                 if self._stop.is_set():
@@ -472,6 +577,9 @@ class DataLoader:
                     columns = {k: v for k, v in item._asdict().items() if v is not None}
                 else:
                     columns = _rows_to_columns([item], object_fields=device_fields)
+                lease = self.reader.take_lease() if lease_mode else None
+                if wire_views and not lease_mode:
+                    columns = _detach_views(columns)
                 if self._shuffling_queue_capacity:
                     # the shuffling buffer permutes ROWS: compressed pages cannot be
                     # row-permuted without decoding, so this seam inflates on the host
@@ -485,7 +593,7 @@ class DataLoader:
                             for i, v in enumerate(col):
                                 if hasattr(v, "detach"):
                                     col[i] = v.detach()
-                ready = batcher.add(columns)
+                ready = batcher.add(columns, lease)
                 stats.batch_s += time.perf_counter() - t0
                 if not self._deliver_batches(q, ready):
                     return
@@ -497,15 +605,20 @@ class DataLoader:
         except Exception as e:  # noqa: BLE001 — surfaced to the consumer thread
             self._producer_error = e
         finally:
+            batcher.close()
             _put_sentinel(q, self._stop)
 
     def _deliver_batches(self, q, batches, drop_short=False):
         """Push cut batches into the host queue, padding per ``last_batch``. Returns
-        False once the loader is stopped."""
-        for batch in batches:
+        False once the loader is stopped. A batch that is dropped, or not delivered
+        because the loader stopped, releases its leases here."""
+        for i, batch in enumerate(batches):
             if self._stop.is_set():
+                for b in batches[i:]:
+                    _release_leases(b)
                 return False
             if drop_short and _batch_row_count(batch) < self.batch_size:
+                _release_leases(batch)
                 continue
             if self.last_batch == "pad":
                 batch = self._pad(batch)
@@ -513,6 +626,8 @@ class DataLoader:
             ok = _put_with_stop(q, batch, self._stop)
             self.stats.put_wait_s += time.perf_counter() - t0
             if not ok:
+                for b in batches[i:]:
+                    _release_leases(b)
                 return False
         return True
 
@@ -525,6 +640,7 @@ class DataLoader:
         pad = self.batch_size - n
         # pass-through columns inflate on host before the gather below (a short TAIL
         # batch only — full batches never reach this line)
+        leases = take_leases(batch)
         batch = _materialize_passthrough(batch, "pagedec_host_inflate")
         cached = self._pad_cache.get(n)
         if cached is None:
@@ -533,6 +649,12 @@ class DataLoader:
             cached = self._pad_cache[n] = (idx, valid)
         idx, valid = cached
         out = {name: arr[idx] for name, arr in batch.items()}
+        if leases:
+            # the gather copied the arrays but only the outer pointers of object columns:
+            # their elements may still view the slabs the release below frees
+            out = _detach_views(out)
+            for lease in leases:
+                lease.release()
         out["__valid__"] = valid.copy()
         return out
 
@@ -722,7 +844,16 @@ class DataLoader:
         return self._device_transform(arrays)
 
     def _to_device(self, batch):
-        arrays, host = self._transfer_batch(batch)
+        leases = take_leases(batch)
+        try:
+            arrays, host = self._transfer_batch(batch)
+            if leases:
+                host = _detach_views(host)  # the consumer keeps these past the release
+        finally:
+            # every host array of the batch has been read: packed into the upload
+            # region, copied into the page slab, or staged; the slabs may be reused
+            for lease in leases:
+                lease.release()
         arrays = self._apply_device_transform(arrays)
         arrays.update(host)
         return arrays
@@ -737,6 +868,7 @@ class DataLoader:
             self._stream = torch.cuda.Stream(self.device)
         for batch in self._host_batches(host_q):
             if self._stop.is_set():
+                _release_leases(batch)
                 return
             # the stream is current only while this batch's work is enqueued: the caller
             # runs between yields (on the consumer thread when prefetch=0)
@@ -766,11 +898,18 @@ class DataLoader:
         columns inflate on the host twin (the designed host seam, not a degradation);
         staged fields decode on the device and come back as numpy."""
         for batch in self._host_batches(host_q):
-            batch = _materialize_passthrough(batch, None)
-            if getattr(self.reader, "device_decode_fields", None):
-                rest, staged = self._decode_staged(batch)
-                rest.update({k: v.cpu().numpy() for k, v in staged.items()})
-                batch = rest
+            leases = take_leases(batch)
+            try:
+                batch = _materialize_passthrough(batch, None)
+                if getattr(self.reader, "device_decode_fields", None):
+                    rest, staged = self._decode_staged(batch)
+                    rest.update({k: v.cpu().numpy() for k, v in staged.items()})
+                    batch = rest
+                if leases:
+                    batch = _detach_views(batch)  # the consumer keeps these
+            finally:
+                for lease in leases:
+                    lease.release()
             yield batch
 
     def __iter__(self):
@@ -837,11 +976,7 @@ class DataLoader:
         for q in (self._queue, self._dev_queue):
             if q is None:
                 continue
-            try:  # unblock a producer/transfer thread stuck on a full queue
-                while True:
-                    q.get_nowait()
-            except queue.Empty:
-                pass
+            _drain(q)  # unblock a producer/transfer thread stuck on a full queue
             try:  # the drain may have eaten the end-of-stream sentinel: re-put it
                 q.put_nowait(_SENTINEL)
             except queue.Full:
@@ -852,6 +987,8 @@ class DataLoader:
             self._producer.join(timeout=60)
         if self._transfer_thread is not None:
             self._transfer_thread.join(timeout=60)
+        if self._stop.is_set() and self._queue is not None:
+            _drain(self._queue)  # what a thread put after stop()'s drain
 
     def __enter__(self):
         return self

@@ -69,15 +69,22 @@ class JpegPlanes:
     specmax: object = None
 
     def detach(self):
-        """An equivalent ``JpegPlanes`` that owns its coefficients: a ``batch_ref`` row
-        pins its whole row group's buffers, so rows that linger (a shuffling buffer)
-        are detached. ``specmax`` stays shared (small, never written)."""
-        if self.batch_ref is None:
+        """An equivalent ``JpegPlanes`` that owns its coefficients, so rows that linger
+        (a shuffling buffer, a padded tail) are detached: a ``batch_ref`` row pins its
+        whole row group's buffers, and a row rebuilt from a view wire holds read-only
+        views into a pool slab that is rewritten once its lease is released. A row that
+        owns writable arrays comes back as it is; a writable ``specmax`` stays shared
+        (small, never written)."""
+        specmax = self.specmax
+        spec_view = isinstance(specmax, np.ndarray) and not specmax.flags.writeable
+        if self.batch_ref is None and not spec_view and all(
+                c.blocks.flags.writeable and c.qtable.flags.writeable
+                for c in self.components):
             return self
         comps = [JpegComponent(c.blocks.copy(), c.qtable.copy(), c.h_samp, c.v_samp)
                  for c in self.components]
         return JpegPlanes(self.height, self.width, comps, batch_ref=None, kmax=self.kmax,
-                          specmax=self.specmax)
+                          specmax=specmax.copy() if spec_view else specmax)
 
     def __reduce__(self):
         # a pickle carries this row only, not its row group's buffers (batch_ref)

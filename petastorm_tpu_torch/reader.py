@@ -2,9 +2,10 @@
 
 Port of ``petastorm_tpu.reader``: the two worker types (``PyDictWorker`` per-row decode,
 ``ArrowWorker`` columnar batches), ``_column_to_numpy`` with its ``device_fields``
-staging branch, sharding, epochs, shuffling of row groups, and the thread and dummy
-pools. With ``decode_on_device=True`` the JPEG columns stop at stage 1 (host entropy
-decode into coefficient planes, one native call per row group) and the
+staging branch, sharding, epochs, shuffling of row groups, and the thread, dummy and
+process pools (with the process pool's socket and shared-memory wires). With
+``decode_on_device=True`` the JPEG columns stop at stage 1 (host entropy decode into
+coefficient planes, one native call per row group) and the
 :class:`~petastorm_tpu_torch.loader.DataLoader` finishes them on its device. With the
 compressed-page pass-through (``io_options={"pagedec": ...}``) eligible fixed-width
 columns travel as their raw compressed pages, read from the local file, and the
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -25,6 +27,7 @@ from petastorm_tpu_torch._unported import not_ported, reject_unported
 from petastorm_tpu_torch.errors import DecodeFieldError, NoDataAvailableError
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
 from petastorm_tpu_torch.io import IoOptions
+from petastorm_tpu_torch.io.lease import LEASE_KEY
 from petastorm_tpu_torch.io.pagedec import materialize_columns
 from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, load_row_groups
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
@@ -50,6 +53,12 @@ class _Tagged:
         epoch, ordinal, piece = tagged_item
         return epoch, ordinal, self._worker(piece)
 
+    def apply_settings(self, settings):
+        """Set worker attributes in a process-pool child (``{name: value}``, sent by the
+        parent ahead of an item: a loader's adoption of a running reader)."""
+        for name, value in settings.items():
+            setattr(self._worker, name, value)
+
 
 class _WorkerBase:
     """Shared row-group loading: column-pruned reads through per-thread open files."""
@@ -62,6 +71,16 @@ class _WorkerBase:
         self._read_schema = read_schema  # fields to deliver
         self._stored_schema = stored_schema  # full stored schema (decode source of truth)
         self._device_fields = frozenset(device_fields)  # host-stage-only decode columns
+        self._local = threading.local()
+
+    def __getstate__(self):
+        # a process-pool child opens its own files
+        state = dict(self.__dict__)
+        state["_local"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
         self._local = threading.local()
 
     def _parquet_file(self, path):
@@ -403,12 +422,19 @@ class Reader:
 
     Reference: ``Reader`` petastorm/reader.py ~L330. Context-manager protocol,
     ``reset()``, ``stop()``/``join()``, ``last_row_consumed``.
+
+    On a process pool's shared-memory view wire (``wire_serializer='shm-view'`` or
+    ``'shm-arrow-view'``) a batch's arrays are read-only views into a pool slab, valid
+    until the next ``__next__()`` or :meth:`release_batch`; a consumer that keeps them
+    longer takes the batch's lease (:meth:`take_lease`) and releases it when done.
     """
 
     def __init__(self, schema, worker, pieces, num_epochs=1, shuffle_row_groups=True,
                  seed=None, cur_shard=None, shard_count=None, shard_seed=None,
                  reader_pool_type="thread", workers_count=4, results_queue_size=16,
-                 is_batched_reader=False, results_timeout_s=300.0):
+                 is_batched_reader=False, results_timeout_s=300.0,
+                 wire_serializer="pickle", worker_respawns=None, io_options=None,
+                 transport=None):
         self.schema = schema
         self._worker = worker
         self.is_batched_reader = is_batched_reader
@@ -424,9 +450,18 @@ class Reader:
         self._plan = EpochPlan(items, num_epochs=num_epochs, shuffle=shuffle_row_groups,
                                seed=seed if seed is not None else shard_seed,
                                with_epoch=True)
-        self._pool_args = (reader_pool_type, workers_count, results_queue_size,
-                           results_timeout_s)
+        self._pool_args = dict(
+            reader_pool_type=reader_pool_type, workers_count=workers_count,
+            results_queue_size=results_queue_size, results_timeout_s=results_timeout_s,
+            serializer=wire_serializer, worker_respawns=worker_respawns,
+            io_options=io_options, transport=transport)
         self._executor = None
+        #: lease of the current batch or row buffer on a view wire: held until the next
+        #: fetch, release_batch() or take_lease()
+        self._held_lease = None
+        #: every lease this reader delivered that a consumer may still hold: revoked when
+        #: reset() rebuilds the pool whose slabs they view
+        self._issued_leases = weakref.WeakSet()
         self._results_iter = None
         self._buffer = []
         self._buffer_pos = 0
@@ -442,7 +477,7 @@ class Reader:
         self._start()
 
     def _start(self):
-        self._executor = make_executor(*self._pool_args)
+        self._executor = make_executor(**self._pool_args)
         self._executor.start(_Tagged(self._worker), self._plan)
         self._results_iter = self._executor.results()
         self.stopped = False
@@ -465,42 +500,95 @@ class Reader:
 
     def _next_row(self):
         while self._buffer_pos >= len(self._buffer):
+            # past the drained buffer: its slab (view wire) returns to the ring
+            self.release_batch()
             self._buffer = self._next_payload()
             self._buffer_pos = 0
+            self._held_lease = self._register_lease(getattr(self._buffer, "lease", None))
         row = self._buffer[self._buffer_pos]
         self._buffer_pos += 1
         return self._row_type(**{name: row.get(name) for name in self.schema.fields})
 
     def _next_batch(self):
+        # the previous batch's slab (view wire) returns to the ring: a batch's views stay
+        # valid until the consumer asks for the next one
+        self.release_batch()
         while True:
             columns = self._next_payload()
-            if columns and len(next(iter(columns.values()))):
-                if not self.keep_passthrough:
-                    # no loader adopted the pass-through: the host twin is the designed
-                    # decode for loader-less readers
-                    columns = materialize_columns(columns)
-                return self._row_type(**{name: columns.get(name)
-                                         for name in self.schema.fields})
+            if isinstance(columns, dict):
+                self._held_lease = self._register_lease(columns.pop(LEASE_KEY, None))
+            if not (columns and len(next(iter(columns.values())))):
+                self.release_batch()  # an empty row group
+                continue
+            if not self.keep_passthrough:
+                # no loader adopted the pass-through: the host twin is the designed
+                # decode for loader-less readers
+                columns = materialize_columns(columns)
+            return self._row_type(**{name: columns.get(name)
+                                     for name in self.schema.fields})
 
     def adopt_passthrough(self, on_device):
         """A DataLoader takes over the pass-through: batches keep their
         PassthroughColumn values, and ``pagedec="auto"`` engages when the loader's
-        device is a CUDA card (``on_device``)."""
+        device is a CUDA card (``on_device``), in a process pool's running children
+        from their next item on."""
         self.keep_passthrough = True
-        if hasattr(self._worker, "pagedec_on_device"):
-            self._worker.pagedec_on_device = bool(on_device)
+        self._set_pagedec_on_device(bool(on_device))
 
     def release_passthrough(self):
         """Undo :meth:`adopt_passthrough`: a reader outliving its loader serves decoded
         batches again, and ``auto`` reads classically."""
         self.keep_passthrough = False
-        if hasattr(self._worker, "pagedec_on_device"):
-            self._worker.pagedec_on_device = False
+        self._set_pagedec_on_device(False)
+
+    def _set_pagedec_on_device(self, on_device):
+        if not hasattr(self._worker, "pagedec_on_device"):
+            return
+        self._worker.pagedec_on_device = on_device  # and every child spawned from now
+        update = getattr(self._executor, "update_settings", None)
+        if update is not None:
+            update(pagedec_on_device=on_device)
+
+    # -- the lease-backed wire ----------------------------------------------------------
+
+    def _register_lease(self, lease):
+        if lease is not None:
+            self._issued_leases.add(lease)
+        return lease
+
+    def take_lease(self):
+        """Take ownership of the current batch's lease (view wires): the reader no longer
+        releases it at the next fetch, the caller must ``release()`` it when it is done
+        with the batch's buffers. ``None`` when the batch is not lease-backed."""
+        lease, self._held_lease = self._held_lease, None
+        return lease
+
+    def release_batch(self):
+        """Return the current batch's slab to the pool's ring (view wires; a no-op
+        otherwise). The batch's arrays must not be touched afterwards."""
+        lease, self._held_lease = self._held_lease, None
+        if lease is not None:
+            lease.release()
+
+    def wire_stats(self):
+        """The process pool's wire gauges (``ProcessExecutor.wire_stats``); ``{}`` for
+        thread and dummy pools."""
+        fn = getattr(self._executor, "wire_stats", None)
+        return fn() if fn is not None else {}
+
+    @property
+    def wire_views(self):
+        """True when batches are read-only views into pool slabs (a view wire)."""
+        return bool(getattr(self._executor, "wire_views", False))
 
     def reset(self):
-        """Restart epochs on an existing reader (reference ``Reader.reset`` ~L700)."""
+        """Restart epochs on an existing reader (reference ``Reader.reset`` ~L700). Every
+        lease this reader delivered is revoked: the pool rebuild recycles the slabs they
+        view, so a batch kept across the reset raises ``LeaseRevoked``."""
         self.stop()
         self.join()
+        for lease in list(self._issued_leases):
+            lease.revoke()
         self._plan.reset()
         self._buffer = []
         self._buffer_pos = 0
@@ -508,6 +596,7 @@ class Reader:
         self._start()
 
     def stop(self):
+        self.release_batch()  # a held slab must not outlive the stream it came from
         if self._executor is not None:
             self._executor.stop()
         self.stopped = True
@@ -571,6 +660,15 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     ``decode_on_device=True`` routes JPEG codec columns through the two-stage decode:
     workers run only the native entropy decode, and rows carry DCT coefficient staging
     payloads that :class:`petastorm_tpu_torch.loader.DataLoader` finishes on its device.
+
+    ``reader_pool_type='process'`` runs the worker in child processes
+    (:class:`~petastorm_tpu_torch.workers.ProcessExecutor`). ``wire_serializer`` is the
+    wire they answer over: ``'pickle'`` (the default here) or ``'arrow'`` on the socket,
+    ``'shm'`` or ``'shm-arrow'`` through shared-memory slabs (``PTPU_SHM_SLAB_BYTES``
+    sizes a slab), and their ``-view`` forms, which deliver read-only views into the
+    slabs (see :class:`Reader`). ``worker_respawns`` bounds the respawns of dead children
+    (default 2, or ``PTPU_WORKER_RESPAWNS``). ``transport`` is ``'pipe'``; ``'tcp'`` is not
+    ported.
     """
     reject_unported(
         "make_reader", shuffle_row_drop_partitions=shuffle_row_drop_partitions,
@@ -578,11 +676,9 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
         cache_location=cache_location, cache_size_limit=cache_size_limit,
         cache_row_size_estimate=cache_row_size_estimate,
         cache_extra_settings=cache_extra_settings, transform_spec=transform_spec,
-        filters=filters, wire_serializer=wire_serializer, io_retries=io_retries,
-        io_retry_backoff_s=io_retry_backoff_s, worker_respawns=worker_respawns,
-        recovery=recovery, provenance=provenance, watch=watch,
-        transport=transport, tenant=tenant)
-    IoOptions.normalize(io_options)  # validated; the per-row path reads classically
+        filters=filters, io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
+        recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
+    io_options = IoOptions.normalize(io_options)  # the per-row path reads classically
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
     stored_schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)
@@ -594,7 +690,9 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
                shard_count=shard_count, shard_seed=shard_seed,
                reader_pool_type=reader_pool_type, workers_count=workers_count,
                results_queue_size=results_queue_size, is_batched_reader=False,
-               results_timeout_s=results_timeout_s)
+               results_timeout_s=results_timeout_s,
+               wire_serializer=wire_serializer or "pickle",
+               worker_respawns=worker_respawns, io_options=io_options, transport=transport)
     r.device_decode_fields = device_fields
     return r
 
@@ -620,16 +718,18 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     pass-through (default ``off``): eligible fixed-width columns travel as their raw
     compressed pages and the :class:`~petastorm_tpu_torch.loader.DataLoader` inflates
     them on the card.
+
+    The process pool's options are :func:`make_reader`'s; the default wire here is
+    ``'arrow'``, and ``'shm'``/``'shm-view'`` mean ``'shm-arrow'``/``'shm-arrow-view'``.
     """
     reject_unported(
         "make_batch_reader", shuffle_row_drop_partitions=shuffle_row_drop_partitions,
         predicate=predicate, cache_type=cache_type, cache_location=cache_location,
         cache_size_limit=cache_size_limit, cache_row_size_estimate=cache_row_size_estimate,
         cache_extra_settings=cache_extra_settings, transform_spec=transform_spec,
-        filters=filters, wire_serializer=wire_serializer, io_retries=io_retries,
-        io_retry_backoff_s=io_retry_backoff_s, worker_respawns=worker_respawns,
-        recovery=recovery, provenance=provenance, watch=watch,
-        transport=transport, tenant=tenant)
+        filters=filters, io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
+        recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
+    io_options = IoOptions.normalize(io_options)
     fs, path = get_filesystem_and_path_or_paths(
         dataset_url_or_urls, storage_options, filesystem)
     paths = path if isinstance(path, list) else [path]
@@ -640,12 +740,17 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     read_schema = _read_schema(stored_schema, schema_fields)
     device_fields = _resolve_device_fields(read_schema, decode_on_device)
     worker = ArrowWorker(fs, read_schema, stored_schema, device_fields,
-                         io_options=IoOptions.normalize(io_options))
+                         io_options=io_options)
     r = Reader(read_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,
                reader_pool_type=reader_pool_type, workers_count=workers_count,
                results_queue_size=results_queue_size, is_batched_reader=True,
-               results_timeout_s=results_timeout_s)
+               results_timeout_s=results_timeout_s,
+               # the JAX package's default wire for batches: Arrow IPC, and its framing
+               # inside the slabs
+               wire_serializer={"shm": "shm-arrow", "shm-view": "shm-arrow-view"}.get(
+                   wire_serializer, wire_serializer) or "arrow",
+               worker_respawns=worker_respawns, io_options=io_options, transport=transport)
     r.device_decode_fields = device_fields
     return r

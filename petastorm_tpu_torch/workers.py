@@ -1,11 +1,16 @@
 """Worker executors: pull row-group work items from a plan, run a worker, stream results.
 
-Port of the thread and dummy pools of ``petastorm_tpu.workers`` (``SyncExecutor``,
-``ThreadExecutor``, ``make_executor``). Threads are the pool that matters for the main
-path: Arrow IO and the native entropy decode release the GIL. Backpressure is a bounded
-results queue; the "ventilator" is the thread-safe :class:`~petastorm_tpu_torch.plan.EpochPlan`
-each worker pulls from. The process pool, its wires and transports, work stealing,
-readahead lookahead and poison-item quarantine are not ported yet.
+Port of the pools of ``petastorm_tpu.workers`` (``SyncExecutor``, ``ThreadExecutor``,
+``ProcessExecutor``, ``make_executor``). Backpressure is a bounded results queue; the
+"ventilator" is the thread-safe :class:`~petastorm_tpu_torch.plan.EpochPlan` each worker
+(or each process-pool feeder thread) pulls from. Threads are the default pool: Arrow IO
+and the native entropy decode release the GIL. The process pool runs the worker in
+clean child interpreters, over a socket or a shared-memory slab wire
+(:mod:`petastorm_tpu_torch.serializers`).
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md item): the tcp
+transport (item 4(c)); readahead lookahead, work stealing and the cache arena (item 5);
+poison-item quarantine, the stall healer, health and control frames (item 8).
 
 Contract: ``executor.start(worker, plan)`` then iterate ``executor.results()``; exceptions
 in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference pool API.
@@ -13,11 +18,13 @@ in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference
 from __future__ import annotations
 
 import logging
+import os
 import queue
+import sys
 import threading
 import time
 
-from petastorm_tpu_torch.errors import TimeoutWaitingForResultError
+from petastorm_tpu_torch.errors import TimeoutWaitingForResultError, WorkerDiedError
 
 logger = logging.getLogger(__name__)
 
@@ -27,6 +34,36 @@ _DONE = object()
 class _ExcResult:
     def __init__(self, exc):
         self.exc = exc
+
+
+def _iter_results(pool):
+    """The results drain of the queue-backed pools: ends on ``_DONE``, re-raises a
+    worker's exception (stopping the pool first), raises
+    :class:`TimeoutWaitingForResultError` when nothing arrives within the pool's timeout,
+    and returns promptly once ``stop()`` was called, marking the stream truncated."""
+    deadline = time.monotonic() + pool._timeout
+    while True:
+        try:
+            value = pool._results.get(timeout=0.2)
+        except queue.Empty:
+            if pool._stop_event.is_set():
+                pool.truncated = True
+                return
+            if time.monotonic() > deadline:
+                raise TimeoutWaitingForResultError(
+                    "No worker result within %.0fs" % pool._timeout) from None
+            continue
+        if value is _DONE:
+            if pool._stop_event.is_set():
+                pool.truncated = True
+            return
+        if isinstance(value, _ExcResult):
+            pool.stop()
+            raise value.exc
+        yield value
+        # fresh budget per consumer request: time the consumer spends between next()
+        # calls does not count against the worker-result timeout
+        deadline = time.monotonic() + pool._timeout
 
 
 class SyncExecutor:
@@ -120,29 +157,7 @@ class ThreadExecutor:
     def results(self):
         """Generator of worker results; raises worker exceptions; ends when the plan is
         exhausted, or promptly once ``stop()`` was called (a truncation)."""
-        deadline = time.monotonic() + self._timeout
-        while True:
-            try:
-                value = self._results.get(timeout=0.2)
-            except queue.Empty:
-                if self._stop_event.is_set():
-                    self.truncated = True
-                    return
-                if time.monotonic() > deadline:
-                    raise TimeoutWaitingForResultError(
-                        "No worker result within %.0fs" % self._timeout) from None
-                continue
-            if value is _DONE:
-                if self._stop_event.is_set():
-                    self.truncated = True
-                return
-            if isinstance(value, _ExcResult):
-                self.stop()
-                raise value.exc
-            yield value
-            # fresh budget per consumer request: time the consumer spends between
-            # next() calls does not count against the worker-result timeout
-            deadline = time.monotonic() + self._timeout
+        return _iter_results(self)
 
     def stop(self):
         self._stop_event.set()
@@ -162,16 +177,602 @@ class ThreadExecutor:
         self._threads = []
 
 
+
+
+# -- process pool ----------------------------------------------------------------------
+
+#: the wire's child-death signals: a dead child's socket ends in one of these
+_CHILD_GONE = (EOFError, BrokenPipeError, ConnectionResetError)
+
+
+def _release_result(value):
+    """Release the slab lease a dropped result holds (view wires), so a result the
+    consumer never sees cannot keep its slab until garbage collection."""
+    from petastorm_tpu_torch.io.lease import LEASE_KEY
+
+    payload = value[2] if isinstance(value, tuple) and len(value) == 3 else None
+    lease = None
+    if isinstance(payload, dict):
+        lease = payload.pop(LEASE_KEY, None)
+    elif payload is not None:
+        lease = getattr(payload, "lease", None)
+        if lease is not None:
+            payload.lease = None
+    if lease is not None:
+        lease.release()
+
+
+class ProcessExecutor:
+    """Runs the worker in child processes: clean interpreters started as ``python -m
+    petastorm_tpu_torch._child_worker`` (never forked from this process, which holds a
+    CUDA context, pinned memory and threads), one feeder thread a child. The worker is
+    pickled once a child; a feeder pulls a plan item, sends it, and waits for the result,
+    so each child has one item in flight and the bounded results queue is the pool's
+    backpressure.
+
+    With a serializer of the ``shm`` family the results do not ride the socket:
+    ``start()`` makes a :class:`~petastorm_tpu_torch.parallel.shm_ring.SlabRing` of
+    ``shm_slabs`` slabs (default ``workers_count + 2``) of ``PTPU_SHM_SLAB_BYTES``
+    (default 32 MB); a feeder grants its child a slab with each item and the child
+    writes the frames into it; only a descriptor crosses the socket. An item larger than
+    a slab takes the socket, and so does an item that finds the ring empty: at once on a
+    view wire, where the consumer holds a slab for as long as it keeps the batches
+    viewing it, after 2 s on the others, whose slabs come back as soon as a result is
+    rebuilt (both counted in ``wire_stats()``). Where shared memory does not work, or the
+    ring does not fit in ``/dev/shm``, the whole pool takes the socket wire, with a
+    warning. ``join()`` unlinks every slab.
+
+    A child that dies mid-item is replaced by a fresh one and its item dispatched again,
+    at most ``worker_respawns`` times a pool (default 2, or ``PTPU_WORKER_RESPAWNS``; 0
+    fails at the first death) before :class:`~petastorm_tpu_torch.errors.WorkerDiedError`
+    reaches the consumer. A child whose worker raises ships the exception, which reaches
+    the consumer like a thread pool's.
+    """
+
+    def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
+                 serializer="pickle", worker_respawns=None, shm_slab_bytes=None,
+                 shm_slabs=None):
+        from petastorm_tpu_torch.serializers import make_serializer
+
+        if workers_count < 1:
+            raise ValueError("workers_count must be >= 1, got %r" % workers_count)
+        self._workers_count = workers_count
+        self._queue_size = results_queue_size
+        self._timeout = results_timeout_s
+        self._serializer_name = serializer
+        self._serializer = make_serializer(serializer)
+        self._shm_slab_bytes = int(shm_slab_bytes
+                                   or os.environ.get("PTPU_SHM_SLAB_BYTES", 0)
+                                   or (32 << 20))
+        self._shm_slabs = shm_slabs
+        self._ring = None
+        self._shm_unavailable = False
+        self._respawn_budget = int(worker_respawns) if worker_respawns is not None \
+            else max(0, int(os.environ.get("PTPU_WORKER_RESPAWNS", "") or 2))
+        self._procs = []
+        self._conns = []
+        self._threads = []
+        self._results = None
+        self._stop_event = threading.Event()
+        self._active = 0
+        self._active_lock = threading.Lock()
+        #: guards the child/connection lists, the tmpdir and the ring against join()
+        self._respawn_lock = threading.Lock()
+        self._spawn_counter = 0
+        self._tmpdir = None
+        self._worker = None
+        self._child_env = None
+        self._python = sys.executable
+        self._authkey = None
+        #: worker settings sent to running children ahead of their next item
+        #: (``update_settings``), with a version each feeder compares against
+        self._settings = {}
+        self._settings_version = 0
+        self._settings_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._pool_stats = {}
+        self._t_start = None
+        #: True when the result stream ended because ``stop()`` aborted it mid-pass
+        self.truncated = False
+
+    # -- start-up ----------------------------------------------------------------------
+
+    def start(self, worker, plan):
+        import tempfile
+
+        self._results = queue.Queue(maxsize=self._queue_size)
+        self._stop_event.clear()
+        self.truncated = False
+        self._worker = worker
+        self._t_start = time.perf_counter()
+        with self._stats_lock:
+            self._pool_stats = {"children": self._workers_count, "spawn_s": None,
+                                "first_result_s": None, "items": 0, "child_work_s": 0.0,
+                                "child_first_work_s": 0.0, "child_serialize_s": 0.0,
+                                "respawns": 0}
+        self._authkey = os.urandom(32)
+        self._setup_shm()
+        with self._respawn_lock:
+            self._tmpdir = tempfile.mkdtemp(prefix="ptpu-torch-pool-")
+        # the package root goes on PYTHONPATH explicitly: the child must import the port
+        # before the handshake can hand it this process's sys.path
+        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        child_pp = os.environ.get("PYTHONPATH", "")
+        child_pp = pkg_root + ((os.pathsep + child_pp) if child_pp else "")
+        # children decode on the host only: no card is visible to them, so nothing a
+        # worker unpickles can make a CUDA context there
+        self._child_env = {**os.environ, "PYTHONPATH": child_pp, "CUDA_VISIBLE_DEVICES": ""}
+        try:
+            self._start_children()
+        except BaseException:
+            self.join()  # no child, socket or slab outlives a failed start
+            raise
+        with self._stats_lock:
+            self._pool_stats["spawn_s"] = time.perf_counter() - self._t_start
+        with self._active_lock:
+            self._active = len(self._conns)
+        for i, conn in enumerate(self._conns):
+            t = threading.Thread(target=self._feed_child, args=(conn, i, plan),
+                                 daemon=True, name="ptpu-torch-feed-%d" % i)
+            t.start()
+            self._threads.append(t)
+
+    def _setup_shm(self):
+        """Make the slab ring for a serializer of the ``shm`` family; where shared memory
+        does not work or the ring does not fit, the pool takes the inner socket
+        serializer (same results, socket copies) and ``wire_stats()`` says so."""
+        from petastorm_tpu_torch.parallel.shm_ring import (SlabRing, degradation,
+                                                           shm_supported)
+        from petastorm_tpu_torch.serializers import ShmSerializer
+
+        if not isinstance(self._serializer, ShmSerializer):
+            return
+        ring = None
+        if shm_supported():
+            try:
+                ring = SlabRing(self._shm_slab_bytes,
+                                self._shm_slabs or (self._workers_count + 2))
+            except Exception as e:  # noqa: BLE001 — degrade, never fail the pool
+                degradation("shm_ring_create_failed", "shared-memory slab ring creation "
+                            "failed (%s); the process pool uses the socket wire", e,
+                            once=False)
+        if ring is None:
+            self._shm_unavailable = True
+            self._serializer_name = self._serializer.inner_name
+            self._serializer = self._serializer.inner
+            return
+        self._serializer.bind_ring(ring)
+        with self._respawn_lock:
+            self._ring = ring
+
+    def _popen_child(self, address, authkey):
+        import subprocess
+
+        p = subprocess.Popen([self._python, "-m", "petastorm_tpu_torch._child_worker",
+                              address], stdin=subprocess.PIPE, env=self._child_env)
+        p.stdin.write(authkey)
+        p.stdin.close()
+        return p
+
+    def _start_children(self):
+        """Spawn the fleet and handshake each child as it connects, then collect the pid
+        acks: the children bootstrap concurrently."""
+        from multiprocessing.connection import Listener
+
+        from petastorm_tpu_torch.transport import PipeTransport
+
+        with self._respawn_lock:
+            address = os.path.join(self._tmpdir, "sock")
+        # a backlog for the whole fleet: every child dials at once, and some kernels
+        # refuse a connect to a full backlog (EAGAIN) instead of queueing it
+        listener = Listener(address, family="AF_UNIX", authkey=self._authkey,
+                            backlog=self._workers_count + 1)
+        try:
+            for _ in range(self._workers_count):
+                child = self._popen_child(address, self._authkey)
+                with self._respawn_lock:
+                    self._procs.append(child)
+            accepted = self._accept_in_background(listener, self._workers_count)
+            pending = []
+            while len(pending) < self._workers_count:
+                conn = PipeTransport(self._await_accept(accepted, self._procs, "Pool child"))
+                self._send_handshake(conn)
+                pending.append(conn)
+            for conn in pending:
+                self._await_pid_ack(conn)
+                with self._respawn_lock:
+                    self._conns.append(conn)
+        finally:
+            listener.close()  # also unblocks the acceptor thread if we raised
+
+    @staticmethod
+    def _accept_in_background(listener, count):
+        """Accept ``count`` connections on a helper thread (so this one can watch the
+        children meanwhile); returns the queue they, or the acceptor's error, land in."""
+        accepted = queue.Queue()
+
+        def _accept_loop():
+            try:
+                for _ in range(count):
+                    accepted.put(listener.accept())
+            except Exception as e:  # noqa: BLE001 — surfaced by _await_accept
+                accepted.put(e)
+
+        threading.Thread(target=_accept_loop, name="ptpu-torch-accept", daemon=True).start()
+        return accepted
+
+    def _await_accept(self, accepted, procs, what, check_stop=False, deadline=120.0):
+        """One accepted connection, polling the children every second: a child that dies
+        before it connects (an import error, a crash) raises here instead of hanging."""
+        waited = 0.0
+        while True:
+            try:
+                item = accepted.get(timeout=1.0)
+                break
+            except queue.Empty:
+                waited += 1.0
+                if check_stop and self._stop_event.is_set():
+                    raise RuntimeError("pool stopping during respawn")
+                for p in procs:
+                    if p.poll() is not None:
+                        raise RuntimeError(
+                            "%s exited with code %s before connecting (run 'python -m "
+                            "petastorm_tpu_torch._child_worker' to debug)"
+                            % (what, p.returncode))
+                if waited > deadline:
+                    raise TimeoutWaitingForResultError(
+                        "%s did not connect within %.0fs" % (what, deadline))
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def _send_handshake(self, conn):
+        """This process's sys.path, the serializer's name (and the ring's segments on
+        the shared-memory wire), the worker."""
+        conn.send(list(sys.path))
+        conn.send(self._serializer_name)
+        if self._ring is not None:
+            conn.send((self._ring.names, self._ring.slab_bytes))
+        conn.send(self._worker)
+
+    def _await_pid_ack(self, conn, deadline=120.0):
+        """The child's ``("pid", pid)``, sent once it has unpickled the worker."""
+        waited = 0.0
+        while not conn.poll(1.0):
+            waited += 1.0
+            if waited > deadline:
+                raise TimeoutWaitingForResultError(
+                    "pool child connected but never sent its pid ack (worker unpickle "
+                    "wedged?)")
+        ack = conn.recv()
+        if not (isinstance(ack, tuple) and len(ack) == 2 and ack[0] == "pid"):
+            raise RuntimeError("unexpected pool-child handshake ack %r" % (ack,))
+        return ack[1]
+
+    def _spawn_one(self):
+        """Spawn and handshake one replacement child; returns its connection. Raises
+        when it cannot start or the pool is stopping (the child is then killed)."""
+        from multiprocessing.connection import Listener
+
+        from petastorm_tpu_torch.transport import PipeTransport
+
+        with self._respawn_lock:
+            if self._tmpdir is None:
+                raise RuntimeError("pool stopping during respawn")
+            self._spawn_counter += 1
+            address = os.path.join(self._tmpdir, "sock-r%d" % self._spawn_counter)
+        authkey = os.urandom(32)
+        listener = Listener(address, family="AF_UNIX", authkey=authkey)
+        p = None
+        conn = None
+        try:
+            p = self._popen_child(address, authkey)
+            accepted = self._accept_in_background(listener, 1)
+            conn = PipeTransport(self._await_accept(accepted, [p], "respawned pool child",
+                                                    check_stop=True))
+            self._send_handshake(conn)
+            self._await_pid_ack(conn)
+            with self._respawn_lock:
+                # join() may have begun meanwhile: registering into cleared lists would
+                # leak an unreaped child and an open socket
+                if self._stop_event.is_set():
+                    raise RuntimeError("pool stopping during respawn")
+                self._procs.append(p)
+                self._conns.append(conn)
+            return conn
+        except BaseException:
+            if conn is not None:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+            if p is not None:
+                p.kill()
+                p.wait()
+            raise
+        finally:
+            listener.close()
+
+    def _respawn(self, err):
+        """A replacement connection for a dead child, or None when the budget is spent,
+        the pool is stopping, or the spawn fails."""
+        from petastorm_tpu_torch.parallel.shm_ring import degradation
+
+        with self._respawn_lock:
+            if self._stop_event.is_set() or self._respawn_budget <= 0:
+                return None
+            self._respawn_budget -= 1
+            budget_left = self._respawn_budget
+        try:
+            conn = self._spawn_one()
+        except Exception as e:  # noqa: BLE001 — the caller raises WorkerDiedError
+            degradation("respawn_failed", "Pool child respawn failed: %s", e, once=False)
+            return None
+        with self._stats_lock:
+            self._pool_stats["respawns"] += 1
+        degradation("worker_died", "Pool worker died (%s); respawned a replacement and "
+                    "dispatching its item again (respawn budget left: %d)", err,
+                    budget_left, once=False)
+        return conn
+
+    # -- the feeders -------------------------------------------------------------------
+
+    def update_settings(self, **settings):
+        """Worker attributes for the running children (``apply_settings`` on the
+        worker), sent with each child's next item; a child spawned later gets them with
+        the worker pickle, so the caller sets them on the worker too."""
+        with self._settings_lock:
+            self._settings.update(settings)
+            self._settings_version += 1
+
+    def _pending_settings(self, seen):
+        """``(settings or None, version)`` for a feeder that last sent ``seen``."""
+        with self._settings_lock:
+            if seen == self._settings_version:
+                return None, seen
+            return dict(self._settings), self._settings_version
+
+    def _recv_result(self, conn):
+        """The next result header, in a poll loop that gives up once the pool stops."""
+        while not conn.poll(0.2):
+            if self._stop_event.is_set():
+                raise EOFError("pool stopping while awaiting a child result")
+        return conn.recv()
+
+    def _feed_child(self, conn, idx, plan):
+        from petastorm_tpu_torch.serializers import KIND_SHM
+
+        # a local snapshot: join() takes self._ring while a straggling feeder may still
+        # be mid-item (the ring stays safe to call; close() makes release a no-op)
+        ring = self._ring
+        slab_wait_s = 0.0 if self.wire_views else 2.0
+        seen = 0
+        first = True  # this child's first item (its imports and file opens included)
+        fatal = False
+        try:
+            while not fatal and not self._stop_event.is_set():
+                item = next(plan, _DONE)
+                if item is _DONE:
+                    break
+                first_death = None
+                deaths = 0
+                while True:  # attempts: a dead child's item goes to its replacement
+                    slab = None
+                    if ring is not None:
+                        slab = ring.acquire(timeout=slab_wait_s)
+                        if slab is None:  # ring empty: this item takes the socket
+                            ring.count_fallback()
+                    try:
+                        settings, seen = self._pending_settings(seen)
+                        conn.send((slab, item, settings) if ring is not None
+                                  else (item, settings))
+                        header = self._recv_result(conn)
+                        if header[0] == "exc":
+                            if slab is not None:
+                                ring.release(slab)
+                            self._put(_ExcResult(header[1]))
+                            fatal = True
+                            break
+                        _, kind, nframes, timing = header
+                        frames = [conn.recv_bytes() for _ in range(nframes)]
+                        if slab is not None and kind != KIND_SHM:
+                            # granted but unused (a payload larger than a slab)
+                            ring.release(slab)
+                            ring.count_fallback()
+                            slab = None
+                        # a shm descriptor hands the slab to deserialize(), which returns
+                        # it on its own failure or leases it to the consumer: `slab` is
+                        # cleared first so no path here releases it twice
+                        granted, slab = slab, None
+                        try:
+                            result = self._serializer.deserialize(kind, frames)
+                        except Exception as e:  # noqa: BLE001 — delivered to the consumer
+                            if granted is not None and not getattr(e, "slab_released",
+                                                                   True):
+                                ring.release(granted)
+                            self._put(_ExcResult(e))
+                            fatal = True
+                            break
+                    except _CHILD_GONE as e:
+                        if slab is not None:
+                            ring.reclaim(slab)  # revokes a consumer lease, if one views it
+                        if self._stop_event.is_set():
+                            fatal = True  # teardown, not a child failure
+                            break
+                        deaths += 1
+                        first_death = first_death or e
+                        replacement = self._respawn(e)
+                        if replacement is None:
+                            if not self._stop_event.is_set():
+                                self._put(_ExcResult(WorkerDiedError(
+                                    "worker process died%s and no replacement could be "
+                                    "spawned (respawn budget exhausted, or the spawn "
+                                    "failed): %s" % (" %d times on one item" % deaths
+                                                     if deaths > 1 else "", first_death),
+                                    original=first_death)))
+                            fatal = True
+                            break
+                        try:
+                            conn.close()
+                        except OSError:
+                            pass
+                        conn = replacement
+                        seen = 0  # the fresh child gets the current settings again
+                        first = True
+                        continue
+                    self._count_item(timing, first)
+                    first = False
+                    self._put(result)
+                    break
+            try:
+                conn.send(None)  # orderly shutdown
+            except OSError:
+                pass
+        finally:
+            with self._active_lock:
+                self._active -= 1
+                last = self._active == 0
+            if last:
+                self._put(_DONE)  # outside the lock
+
+    def _count_item(self, timing, first):
+        with self._stats_lock:
+            st = self._pool_stats
+            if st["first_result_s"] is None:
+                st["first_result_s"] = time.perf_counter() - self._t_start
+            st["items"] += 1
+            st["child_work_s"] += timing[0]
+            if first:
+                st["child_first_work_s"] += timing[0]
+            st["child_serialize_s"] += timing[1]
+
+    def _put(self, value):
+        # yields to a set stop event: the consumer who set it never reads again; a
+        # result dropped here returns its slab at once
+        while True:
+            try:
+                self._results.put(value, timeout=0.1)
+                return
+            except queue.Full:
+                if self._stop_event.is_set():
+                    _release_result(value)
+                    return
+
+    # -- the consumer's side -----------------------------------------------------------
+
+    def results(self):
+        """Generator of worker results; raises worker exceptions (a dead child past the
+        respawn budget as :class:`~petastorm_tpu_torch.errors.WorkerDiedError`); ends
+        when the plan is exhausted, or promptly once ``stop()`` was called."""
+        return _iter_results(self)
+
+    def wire_stats(self):
+        """The shared-memory wire's gauges (slabs, grants, items and bytes through the
+        slabs, socket fallbacks, acquire wait), ``{"shm_unavailable": 1}`` where the pool
+        fell back to the socket wire, ``{}`` for the socket serializers."""
+        if self._ring is not None:
+            return self._ring.stats()
+        if self._shm_unavailable:
+            return {"shm_unavailable": 1}
+        return {}
+
+    def pool_stats(self):
+        """Start-up and child-side counts: children, seconds from ``start()`` to every
+        child's handshake (``spawn_s``) and to the first result (``first_result_s``),
+        items, the children's seconds in the worker (all items, and each child's first
+        item alone, which pays for its imports) and in the serializer, respawns."""
+        with self._stats_lock:
+            return dict(self._pool_stats)
+
+    def child_pids(self):
+        """Process ids of the live children."""
+        with self._respawn_lock:
+            return [p.pid for p in self._procs if p.poll() is None]
+
+    @property
+    def wire_views(self):
+        """True when results are read-only views into the slabs (a ``-view`` wire)."""
+        from petastorm_tpu_torch.serializers import ShmSerializer
+
+        return isinstance(self._serializer, ShmSerializer) and not self._serializer.writable
+
+    def stop(self):
+        self._stop_event.set()
+        try:  # drain so blocked feeders can exit; dropped results return their slabs
+            while True:
+                _release_result(self._results.get_nowait())
+        except (queue.Empty, AttributeError):
+            pass
+
+    def join(self):
+        import shutil
+
+        # join == no more results wanted: also aborts a respawn in flight
+        self._stop_event.set()
+        for t in self._threads:
+            t.join(timeout=10)
+        self._threads = []
+        self.stop()  # results a feeder put after the consumer's stop() return their slabs
+        with self._respawn_lock:  # excludes a racing _spawn_one registration
+            conns, self._conns = self._conns, []
+            procs, self._procs = self._procs, []
+            tmpdir, self._tmpdir = self._tmpdir, None
+            ring, self._ring = self._ring, None
+        for conn in conns:
+            try:
+                conn.close()
+            except OSError:
+                pass
+        for p in procs:
+            try:
+                p.wait(timeout=5)
+            except Exception:  # noqa: BLE001 — a child that will not exit is killed
+                p.kill()
+                p.wait()
+        if ring is not None:
+            # after the children are reaped (no writer left): /dev/shm is clean even if
+            # a consumer abandoned leased batches
+            ring.close()
+        if tmpdir:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.stop()
+        self.join()
+
+
 def make_executor(reader_pool_type="thread", workers_count=4, results_queue_size=16,
-                  results_timeout_s=300.0):
-    """Factory for the reference's ``reader_pool_type`` kwarg: 'thread' or 'dummy'."""
+                  results_timeout_s=300.0, serializer="pickle", worker_respawns=None,
+                  shm_slab_bytes=None, shm_slabs=None, io_options=None, recovery=None,
+                  transport=None):
+    """Factory for the reference's ``reader_pool_type``: 'thread', 'process' or 'dummy'.
+
+    ``serializer`` is the process pool's wire: 'pickle' or 'arrow' (socket frames), or
+    the shared-memory family 'shm', 'shm-arrow' and their '-view' variants (see
+    :mod:`petastorm_tpu_torch.serializers`); ``worker_respawns`` its respawn budget;
+    ``shm_slab_bytes``/``shm_slabs`` size its slab ring. Thread and dummy pools share
+    memory and ignore them. ``transport`` is validated for every pool: 'pipe' (default,
+    or ``PTPU_TRANSPORT``); 'tcp' is not ported. ``io_options`` is validated (its
+    lookahead and work stealing are not ported); ``recovery`` is not ported.
+    """
+    from petastorm_tpu_torch._unported import not_ported
+    from petastorm_tpu_torch.io import IoOptions
+    from petastorm_tpu_torch.transport import normalize_transport
+
+    normalize_transport(transport)
+    IoOptions.normalize(io_options)
+    if recovery is not None:
+        raise not_ported("make_executor(recovery=%r)" % (recovery,), "obs")
     if reader_pool_type in ("dummy", "sync"):
         return SyncExecutor()
     if reader_pool_type == "thread":
         return ThreadExecutor(workers_count, results_queue_size, results_timeout_s)
     if reader_pool_type == "process":
-        from petastorm_tpu_torch._unported import not_ported
-
-        raise not_ported("reader_pool_type='process'", "process_pool")
-    raise ValueError(
-        "Unknown reader_pool_type %r (expected 'thread' or 'dummy')" % reader_pool_type)
+        return ProcessExecutor(workers_count, results_queue_size, results_timeout_s,
+                               serializer=serializer, worker_respawns=worker_respawns,
+                               shm_slab_bytes=shm_slab_bytes, shm_slabs=shm_slabs)
+    raise ValueError("Unknown reader_pool_type %r (expected 'thread', 'process' or "
+                     "'dummy')" % reader_pool_type)

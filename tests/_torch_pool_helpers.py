@@ -1,0 +1,78 @@
+"""Shared by the port's process-pool tests: the slab-leak check and the workers the
+pool children run.
+
+The port's slabs are named ``ptpu_torch_shm_<creator pid>_...``, outside the glob of
+the JAX package's ``_no_leaked_shm_segments`` fixture (``ptpu_shm_*``), so that fixture
+neither sees them nor blames them on a test in another xdist worker. This module holds
+their own check: ``no_leaked_port_slabs`` (autouse in every test module that imports
+it) fails a test that leaves a slab created by this process (its pid in the name).
+
+This module imports numpy, pytest and the port only: pool children import it to
+unpickle the workers below, and a child must not load jax or the JAX package.
+"""
+import contextlib
+import glob
+import os
+import sys
+import time
+
+import numpy as np
+import pytest
+
+
+def port_slabs():
+    """``/dev/shm`` paths of the slabs this process created."""
+    from petastorm_tpu_torch.parallel.shm_ring import SEGMENT_PREFIX
+
+    return set(glob.glob("/dev/shm/%s%d_*" % (SEGMENT_PREFIX, os.getpid())))
+
+
+@contextlib.contextmanager
+def slab_leak_check():
+    """Raise ``AssertionError`` when the block leaves a slab of this process behind."""
+    before = port_slabs()
+    yield
+    leaked = port_slabs() - before
+    assert not leaked, "leaked port shared-memory slabs: %s" % sorted(leaked)
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_port_slabs():
+    """Every test leaves ``/dev/shm`` free of the port's slabs: ``ProcessExecutor.join``
+    unlinks its whole ring, so a slab surviving a test is a leak."""
+    with slab_leak_check():
+        yield
+
+
+# -- workers the children run -----------------------------------------------------------
+
+
+def payload_worker(i):
+    return (0, i, {"x": np.full((50_000,), i, np.int32)})
+
+
+def slow_payload_worker(i):
+    time.sleep(0.3)
+    return (0, i, {"x": np.full((50_000,), i, np.int32)})
+
+
+def failing_worker(i):
+    if i == 3:
+        raise ValueError("item 3 is bad")
+    return (0, i, {"x": np.full((4,), i, np.int32)})
+
+
+class ModulesProbe:
+    """Runs ``worker`` on the item, then reports which of jax, the JAX package and torch
+    the child process has loaded."""
+
+    def __init__(self, worker):
+        self.worker = worker
+
+    def __call__(self, item):
+        self.worker(item)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "petastorm_tpu", "torch"))
+        return (0, 0, {"loaded": np.array(loaded or [""]),
+                       "cuda_visible": np.array([os.environ.get("CUDA_VISIBLE_DEVICES",
+                                                                "unset")])})

@@ -135,3 +135,22 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     assert torch.equal(half, ((x.float() / 255.0 - 0.5) * 4.0).to(torch.float16))
     with pytest.raises(TypeError):
         normalize_images(x, [0.0] * 3, [1.0] * 3, out_dtype=torch.float64)
+
+
+@pytest.mark.parametrize("module", [
+    "petastorm_tpu_torch.serializers", "petastorm_tpu_torch._child_worker",
+    "petastorm_tpu_torch.parallel.shm_ring", "petastorm_tpu_torch.io.lease",
+    "petastorm_tpu_torch.transport"])
+def test_process_pool_modules_import_no_jax_or_reference(module):
+    """The process pool's modules, which every pool child imports, load neither jax nor
+    the JAX package (nor torch: a child must not pay for it or touch the card)."""
+    assert module in _port_modules()
+    code = ("import importlib, sys\n"
+            "importlib.import_module(%r)\n"
+            "print(repr(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'petastorm_tpu', 'torch'))))\n" % module)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -238,6 +238,15 @@ def test_mixed_size_store_with_device_decode_resize_within_one_of_reference(mixe
     from petastorm_tpu.ops import jpeg as ref_jpeg
     from petastorm_tpu_torch.ops import jpeg as port_jpeg
 
+    # both packages start from a fresh transfer state: its sticky per-layout choices are
+    # process-global, and a test file run earlier in this process (the JAX package's
+    # tests/test_jpeg.py decodes the same 40x56 layout) would leave them apart
+    for mod in (port_jpeg, ref_jpeg):
+        with mod._STICKY_KS_LOCK:
+            mod._STICKY_KS.clear()
+            mod._STICKY_SPLIT.clear()
+            mod._PACK12_DISABLED.clear()
+            mod._SPLIT_DISABLED.clear()
     port_jpeg.transfer_byte_counters(reset=True)
     ref_jpeg.transfer_byte_counters(reset=True)
     theirs = _reference_batches(mixed_store, 16, device_decode_resize=(36, 44))

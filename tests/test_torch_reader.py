@@ -160,7 +160,8 @@ def test_reset_restarts_the_epoch(ref_store):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"reader_pool_type": "process"}, {"predicate": object()}, {"cache_type": "local-disk"},
+    {"reader_pool_type": "process", "transport": "tcp"}, {"predicate": object()},
+    {"cache_type": "local-disk"},
     {"io_options": {"readahead": False}}, {"transform_spec": object()},
     {"filters": [("id", ">", 3)]}, {"recovery": {"on_poison": "quarantine"}},
     {"shuffle_row_drop_partitions": 2}, {"watch": True},
