@@ -72,9 +72,34 @@ Phases (each passes or the script exits non-zero, printing no result line):
    the thread pool again, with phase 5's checks (launches, 0 host-inflated columns,
    byte identity) and no lease leaked; printed: rows/s and ``inflate_s`` a batch.
 
+8. The click-through training feed (BASELINE.json config #3 as a DLRM-style trainer
+   consumes it). A ``FeaturePipeline(device=True)`` modelled on the MLPerf DLRM
+   preprocessing of Criteo (``Standardize`` then ``FillNull`` on the 13 dense columns,
+   ``HashField`` of the 26 categoricals into the MLPerf vocabulary sizes, one quantile
+   ``Bucketize(num_buckets=16)``, one ``VocabLookup(max_size=1000)``, one
+   ``FeatureCross``; every output under a new name), its statistics resolved once over
+   phase 5's store (``io.statscache.resolve_statistics``, sources printed). (a) the feed:
+   ``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader(batch_size=16384,
+   device_shuffle_capacity=131072, device_transform=pipeline)``, 10 warm-up + 30 measured
+   batches, beside a phase-5-style run (no ring, no pipeline) in the same process: no row
+   delivered twice (a 64-bit key a row over its 40 raw columns, on the card), one K3, one
+   scan and one K4 launch and one read back to the host a transferred batch, 0
+   host-inflated columns; the ring's exchange and the pipeline's device time a batch
+   (:func:`timing`); then one whole epoch through the ring and the pipeline: the store's
+   rows exactly once (sorted keys equal), every derived column of every batch equal to
+   the port's host target on the batch's raw rows (ids exact, floats within 1 ulp; the
+   bucket ids equal float32 comparisons, as the JAX package's device function compares,
+   and those that differ from the host target's float64 comparison are counted). (b) the
+   same pipeline as ``make_batch_reader(transform_spec=...)``, which resolves its own
+   statistics: 0 compressed pages shipped (a transform turns the pass-through off, as in
+   the JAX package) and the derived columns equal (a)'s pipeline on the same rows. (c)
+   phase 4's store with ``device_shuffle_capacity=1024`` (decoded uint8 images in the
+   ring), one epoch: every id once, every image equal on the card to phase 7's ring-less
+   image of the same id, ``stage2_planes``, ``stage2_rgb`` and K2 once a batch.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
-launches in phase 7's runs), the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+launches in phase 7's runs, ``ring_feed_launches`` in phase 8's), the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -1128,7 +1153,7 @@ def phase_process_pool_jpeg(url, blobs, env):
                             fill=i == 0, tag=tag)
         out["%s/%s/%s%s" % (pool, wire, "default" if slab_bytes is None
                             else "%dMB" % (slab_bytes >> 20), tag)] = res
-    return out
+    return out, images
 
 
 def phase_process_pool_tabular(root, arrays, predicted, env):
@@ -1975,6 +2000,357 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                       "wire": wire_stats, "leases": leases, "launches": launches}
 
 
+# -- phase 8: the click-through training feed ------------------------------------------
+#
+# BASELINE.json config #3 as a DLRM-style trainer consumes it: phase 5's Criteo-shaped
+# store through the compressed-page pass-through, the device shuffle ring and a
+# declarative FeaturePipeline(device=True) modelled on the MLPerf DLRM preprocessing of
+# Criteo (standardised dense features with gaps filled, categoricals hashed into the
+# MLPerf vocabulary sizes, one quantile-bucketised dense feature, one vocabulary-mapped
+# categorical, one crossed pair). Every output takes a new name, so the raw columns
+# travel along and identify each row (a 64-bit key a row over its 40 raw words, computed
+# on the card). (a) the feed at batches of 16,384 through a ring of 131,072 rows
+# (~21 MB), beside a phase-5-style run in the same process, then one whole epoch held
+# row by row to the store and to the port's host target; (b) the same pipeline as the
+# reader's transform_spec (the pass-through off, as the JAX package rules); (c) the JPEG
+# main path through a ring of 1,024 decoded images (~154 MB).
+
+FEED_BATCH, FEED_CAPACITY = TAB_BATCH, 131072
+FEED_WARMUP, FEED_MEASURED = 10, 30
+FEED_B_BATCHES = 4
+FEED_JPEG_CAPACITY = 1024
+FEED_BUCKETIZED, FEED_VOCAB, FEED_CROSS = "i1", "c2", ("c3", "c4")
+
+
+def feed_pipeline(tab, device=True):
+    """The DLRM-style pipeline over TAB_COLUMNS (module ``tab``: the port's
+    ``ops.tabular``); statistics-dependent ops resolve through ``resolve_statistics``."""
+    ops = []
+    for i in range(13):
+        ops += [tab.Standardize("i%d" % i, out="dense%d" % i),
+                tab.FillNull("dense%d" % i, 0.0)]
+    ops += [tab.HashField("c%d" % i, v, out="cat%d" % i) for i, v in enumerate(CRITEO_VOCAB)]
+    ops += [tab.Bucketize(FEED_BUCKETIZED, num_buckets=16, out="%s_bucket" % FEED_BUCKETIZED),
+            tab.VocabLookup(FEED_VOCAB, max_size=1000, out="%s_vocab" % FEED_VOCAB),
+            tab.FeatureCross(FEED_CROSS, 1 << 20, out="%s_x_%s" % FEED_CROSS)]
+    return tab.FeaturePipeline(ops, device=device)
+
+
+def row_keys(cols):
+    """A 64-bit key a row over the 40 raw columns (float32 by its bits), on the columns'
+    device: the multiset identity of the rows."""
+    import torch
+
+    key = None
+    for name in TAB_COLUMNS:
+        c = cols[name]
+        w = (c.view(torch.int32) if c.dtype == torch.float32 else c).to(torch.int64)
+        key = w if key is None else key * 1000003 + w  # wraps in int64 alike everywhere
+    return key
+
+
+def _ulps(a, b):
+    """Largest distance in float32 units in the last place between two arrays."""
+    import numpy as np
+
+    def ordered(x):
+        i = np.ascontiguousarray(x, dtype=np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int(np.abs(ordered(a) - ordered(b)).max()) if len(a) else 0
+
+
+def check_against_host_target(batch, host_pipe):
+    """Every derived column of a delivered batch against the port's host target on the
+    batch's own raw rows: ids exact, floats within 1 ulp; the bucket ids exact against
+    float32 comparisons (the device target's, as the JAX package's) and counted where
+    they differ from the host target's float64 ones. Returns (max ulps, bucket ids that
+    differ from the float64 comparison)."""
+    import numpy as np
+
+    got = {k: v.cpu().numpy() for k, v in batch.items()}
+    host = host_pipe.apply_columns({c: got[c] for c in TAB_COLUMNS})
+    worst = differ = 0
+    bucket = "%s_bucket" % FEED_BUCKETIZED
+    for stage in host_pipe._plan:
+        name = stage.out
+        a, b = got[name], host[name]
+        check(a.shape == b.shape, "derived %s has shape %s, host %s" % (name, a.shape,
+                                                                        b.shape))
+        if name == bucket:
+            bounds = stage.op.boundaries.astype(np.float32)
+            f32 = np.searchsorted(bounds, got[FEED_BUCKETIZED].astype(np.float32),
+                                  side="right")
+            check(np.array_equal(a, f32), "%s differs from float32 searchsorted" % name)
+            differ = int((a != b).sum())
+        elif a.dtype.kind == "f":
+            check(a.dtype == np.float32, "derived %s is %s, not float32" % (name, a.dtype))
+            worst = max(worst, _ulps(a, b))
+        else:
+            check(a.dtype == np.int32, "derived %s is %s, not int32" % (name, a.dtype))
+            check(np.array_equal(a, b.astype(np.int64)), "derived %s differs from the "
+                  "host target" % name)
+    check(worst <= 1, "a derived float is %d ulps from the host target" % worst)
+    return worst, differ
+
+
+def _feed_reader(root, pool_kw):
+    from petastorm_tpu_torch import make_batch_reader
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    return make_batch_reader("file://" + root, workers_count=workers,
+                             shuffle_row_groups=True, seed=0,
+                             io_options={"pagedec": "auto"}, **pool_kw)
+
+
+def phase_feed_tabular(root, arrays, predicted, smi, device="cuda"):
+    """(a) and (b) (module comment above). Returns the printed numbers."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.io.statscache import resolve_statistics
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.metadata import infer_or_load_unischema, load_row_groups
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+    from petastorm_tpu_torch.ops import tabular as tab
+    from petastorm_tpu_torch.ops.device_shuffle import DeviceShuffleBuffer
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # the statistics, once, over the store (phase 5's pieces)
+    fs, path = get_filesystem_and_path_or_paths("file://" + root)
+    pieces = load_row_groups(fs, path)
+    schema = infer_or_load_unischema(fs, path)
+    pipe = feed_pipeline(tab)
+    t0 = time.perf_counter()
+    stats, sources = resolve_statistics(pipe.required_statistics(schema), fs, pieces)
+    stats_s = time.perf_counter() - t0
+    pipe.compile(schema, statistics=stats)
+    host_pipe = feed_pipeline(tab, device=False).compile(schema, statistics=stats)
+    by_source = {}
+    for key, src in sources.items():
+        by_source.setdefault(src, []).append(key)
+    log("feed statistics: %d keys in %.3f s, by source %s" % (
+        len(sources), stats_s, json.dumps({k: len(v) for k, v in by_source.items()})))
+    log("feed statistics sources: %s" % json.dumps(sources, sort_keys=True))
+
+    # the phase-5-style run beside it, in the same process: no ring, no pipeline
+    _launches, plain = phase_tabular_path(root, arrays, predicted, device=device,
+                                          warmup=FEED_WARMUP, measured=FEED_MEASURED)
+    store = {c: torch.from_numpy(np.concatenate([a[c] for a in arrays])).to(dev)
+             for c in TAB_COLUMNS}
+    store_keys = torch.sort(row_keys(store)).values
+    del store
+    n_store = len(store_keys)
+    check(bool((store_keys[1:] != store_keys[:-1]).all().item()),
+          "two rows of the store share a key")
+
+    def zero_counts():
+        pk.snappy_inflate_ragged.launches = 0
+        pk.rle_scan_pages.launches = 0
+        pk.extract_pages.launches = 0
+        return pagedec.counter_values(), pk.HOST_READS.value
+
+    def read_counts(counters0, reads0):
+        launches = {"K3": pk.snappy_inflate_ragged.launches,
+                    "scan": pk.rle_scan_pages.launches, "K4": pk.extract_pages.launches}
+        counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+        return launches, counters, pk.HOST_READS.value - reads0
+
+    def check_launches(what, launches, counters, host_reads, least):
+        batches = counters["pages"] // predicted["pages"]
+        check(counters["pages"] % predicted["pages"] == 0, "%s: pages shipped (%d) are "
+              "not whole batches of %d" % (what, counters["pages"], predicted["pages"]))
+        check(batches >= least, "%s: only %d batches went through the pass-through"
+              % (what, batches))
+        for k in ("K3", "scan", "K4"):
+            check(launches[k] == predicted[k] * batches, "%s: %s launched %d times for "
+                  "%d pass-through batches" % (what, k, launches[k], batches))
+        check(host_reads == predicted["host_reads"] * batches, "%s: %d reads back to the "
+              "host for %d batches" % (what, host_reads, batches))
+        check(counters["host_inflate_columns"] == 0 and counters["fallback_columns"] == 0,
+              "%s: host-inflated or fallen-back columns: %s" % (what, counters))
+        return batches
+
+    # (a) the feed, measured
+    derived = [s.out for s in pipe._plan]
+    counts0 = zero_counts()
+    raws = []  # the delivered raw columns, keyed after the window: the consumer stays idle
+    first = None
+    consumed = 0
+    with DataLoader(_feed_reader(root, {"num_epochs": None}), FEED_BATCH, device=device,
+                    prefetch=3, host_queue_size=8, device_transform=pipe,
+                    device_shuffle_capacity=FEED_CAPACITY, seed=0) as loader:
+        for batch in loader:
+            consumed += 1
+            raws.append({c: batch[c] for c in TAB_COLUMNS})
+            if first is None:
+                first = {k: v.clone() for k, v in batch.items()}
+            if consumed == FEED_WARMUP:
+                sync()
+                t0 = time.perf_counter()
+                stats0 = loader.stats.snapshot()
+            if consumed == FEED_WARMUP + FEED_MEASURED:
+                sync()
+                dt = time.perf_counter() - t0
+                stats1 = loader.stats.snapshot()
+                break
+    feed_launches, counters, host_reads = read_counts(*counts0)
+    rows_per_s = FEED_MEASURED * FEED_BATCH / dt
+    window = {k: (stats1[k] - stats0[k]) / FEED_MEASURED * 1e3
+              for k in ("read_s", "inflate_s", "h2d_s", "queue_wait_s",
+                        "device_queue_wait_s", "put_wait_s")}
+    keys = torch.cat([row_keys(r) for r in raws])
+    del raws
+    distinct = len(torch.unique(keys))
+    known = bool(torch.isin(keys, store_keys).all().item())
+    # batches read before the loader adopted the reader ("auto" engages at adoption)
+    # take the classic read, as in phase 5
+    transferred = check_launches("feed", feed_launches, counters, host_reads,
+                                 FEED_MEASURED)
+    log("feed (a): %.1f rows/s over %d batches of %d (%.3f s) through a ring of %d rows, "
+        "beside %.1f rows/s without ring and pipeline; ms a batch %s; %s" % (
+            rows_per_s, FEED_MEASURED, FEED_BATCH, dt, FEED_CAPACITY, plain["rows_per_s"],
+            json.dumps({k: round(v, 3) for k, v in window.items()}), smi))
+    log("feed (a): launches %s for %d transferred batches; reads back to the host %d; "
+        "pagedec counters %s; %d rows delivered, %d distinct, all in the store: %s" % (
+            json.dumps(feed_launches), transferred, host_reads, json.dumps(counters),
+            len(keys), distinct, known))
+    check(distinct == len(keys) == consumed * FEED_BATCH, "a row was delivered twice "
+          "(%d distinct of %d)" % (distinct, len(keys)))
+    check(known, "a delivered row is not a row of the store")
+    check(sorted(first) == sorted(TAB_COLUMNS + derived), "feed batch columns %s"
+          % sorted(first))
+
+    # the ring's exchange and the pipeline's device time a batch, at this phase's shapes
+    raw = {c: first[c] for c in TAB_COLUMNS}
+    ring = DeviceShuffleBuffer(FEED_CAPACITY, seed=1)
+    while ring.push(raw) is None:
+        pass
+    exchange_ms, exchange_us = timing(lambda: ring.push(raw))
+    pipe_ms, pipe_us = timing(lambda: pipe._device_call(raw))
+    ring_bytes = ring.nbytes
+    del ring
+    log("feed (a): the ring's exchange %.4f ms of device time a batch (%.1f us host "
+        "enqueue), %d bytes resident; the pipeline %.4f ms of device time a batch "
+        "(%.1f us host enqueue), %d stages; %s" % (
+            exchange_ms, exchange_us, ring_bytes, pipe_ms, pipe_us, len(pipe._plan), smi))
+    again = pipe._device_call(raw)
+    for name in derived:
+        check(torch.equal(again[name], first[name]), "the pipeline on the first batch's "
+              "raw rows differs from the delivered %s" % name)
+
+    # (a) one whole epoch: every row once, every derived column against the host target
+    counts0 = zero_counts()
+    keys = []
+    worst = differ = rows = 0
+    t0 = time.perf_counter()
+    with DataLoader(_feed_reader(root, {"num_epochs": 1}), FEED_BATCH, device=device,
+                    prefetch=3, host_queue_size=8, device_transform=pipe,
+                    device_shuffle_capacity=FEED_CAPACITY, seed=1) as loader:
+        for batch in loader:
+            keys.append(row_keys(batch))
+            w, d = check_against_host_target(batch, host_pipe)
+            worst, differ, rows = max(worst, w), differ + d, rows + FEED_BATCH
+    epoch_s = time.perf_counter() - t0
+    epoch_launches, counters, host_reads = read_counts(*counts0)
+    epoch_batches = check_launches("epoch", epoch_launches, counters, host_reads,
+                                   FEED_MEASURED)
+    keys = torch.sort(torch.cat(keys)).values
+    check(torch.equal(keys, store_keys), "one epoch through the ring is not the store's "
+          "rows exactly once (%d rows delivered of %d)" % (len(keys), n_store))
+    log("feed (a) epoch: %d rows, each row of the store exactly once (%d of %d batches "
+        "through the pass-through, %.1f s with the host checks); every derived column equal to the host target (ids "
+        "exact, floats within %d ulp); %s bucket ids of %d differ from the host's float64 "
+        "comparison and all equal the float32 one; launches %s" % (
+            len(keys), epoch_batches, n_store // FEED_BATCH, epoch_s, worst, differ, rows,
+            json.dumps(epoch_launches)))
+
+    # (b) the same pipeline as the reader's transform_spec: the pass-through is off
+    spec = feed_pipeline(tab)
+    counts0 = zero_counts()
+    got = []
+    with DataLoader(_feed_reader(root, {"num_epochs": None, "transform_spec": spec}),
+                    FEED_BATCH, device=device, prefetch=3, host_queue_size=8) as loader:
+        for batch in loader:
+            got.append(batch)
+            if len(got) == FEED_B_BATCHES:
+                break
+    launches, counters, host_reads = read_counts(*counts0)
+    log("feed (b): transform_spec statistics %s; launches %s; pagedec counters %s" % (
+        json.dumps(spec.stats_info, sort_keys=True), json.dumps(launches),
+        json.dumps(counters)))
+    check(counters["pages"] == 0 and counters["bytes_compressed"] == 0 and
+          not any(launches.values()), "a transform_spec read shipped compressed pages: "
+          "%s %s" % (counters, launches))
+    for batch in got:
+        check(sorted(batch) == sorted(TAB_COLUMNS + derived), "feed (b) batch columns %s"
+              % sorted(batch))
+        ref = pipe._device_call({c: batch[c] for c in TAB_COLUMNS})
+        for name in derived:
+            check(torch.equal(batch[name], ref[name]), "feed (b): %s differs from (a)'s "
+                  "pipeline on the same rows" % name)
+    log("feed (b): %d batches, 0 compressed pages shipped, every derived column equal to "
+        "(a)'s pipeline on the same rows" % len(got))
+    return {"rows_per_s": rows_per_s, "plain_rows_per_s": plain["rows_per_s"],
+            "exchange_ms": exchange_ms, "pipeline_ms": pipe_ms, "window_ms": window,
+            "launches": feed_launches, "transferred": transferred,
+            "epoch_launches": epoch_launches, "b_launches": launches,
+            "sources": by_source, "bucket_differ": differ}
+
+
+def phase_feed_jpeg(url, images):
+    """(c): the main path with a ring of FEED_JPEG_CAPACITY decoded images, one epoch;
+    ``images`` ((ROWS, 224, 224, 3) uint8 on the card, by id) from phase 7's first
+    thread-pool run, which had no ring."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image, jpeg
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    reader = make_batch_reader(url, workers_count=workers, shuffle_row_groups=True, seed=0,
+                               num_epochs=1, decode_on_device=True)
+    counts = torch.zeros(ROWS, dtype=torch.int32, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    reset_transfer_state(jpeg)
+    jpeg.stage2_planes_segments.launches = 0
+    jpeg.stage2_rgb.launches = 0
+    image.normalize_images.launches = 0
+    t0 = time.perf_counter()
+    with DataLoader(reader, BATCH, device="cuda", device_transform=transform, prefetch=3,
+                    host_queue_size=8, device_shuffle_capacity=FEED_JPEG_CAPACITY,
+                    seed=0) as loader:
+        for batch in loader:
+            ids, u8 = batch["id"], batch["image_u8"]
+            counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad.add_((images.index_select(0, ids) != u8).sum())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batches = ROWS // BATCH
+    launches = {"stage2_planes": jpeg.stage2_planes_segments.launches,
+                "stage2_rgb": jpeg.stage2_rgb.launches, "K2": image.normalize_images.launches}
+    c = counts.cpu()
+    log("feed (c): one epoch of %d rows through a ring of %d images in %.2f s; launches "
+        "%s for %d batches; %d uint8 values differ from the ring-less run" % (
+            ROWS, FEED_JPEG_CAPACITY, wall, json.dumps(launches), batches, bad.item()))
+    check(bool((c == 1).all()), "feed (c): ids delivered %s times, not once each"
+          % sorted(set(c.tolist())))
+    check(bad.item() == 0, "feed (c): images differ from the ring-less run's of the same "
+          "ids")
+    check(all(v == batches for v in launches.values()), "feed (c): stage2_planes, "
+          "stage2_rgb and K2 should launch once a batch (%d): %s" % (batches, launches))
+    return {"launches": launches, "seconds": wall}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -2151,7 +2527,9 @@ def main():
                time.perf_counter() - t0))
         kernels = phase_kernels(blobs)
         launches, main = phase_main_path(url, blobs, env["cv2"])
-        pool_jpeg = phase_process_pool_jpeg(url, blobs, env)
+        pool_jpeg, images = phase_process_pool_jpeg(url, blobs, env)
+        feed_jpeg = phase_feed_jpeg(url, images)
+        del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
         t0 = time.perf_counter()
@@ -2177,6 +2555,7 @@ def main():
         tab_kernels = phase_tabular_kernels(tab_root)
         tab_launches, tab = phase_tabular_path(tab_root, arrays, predicted)
         pool_tab = phase_process_pool_tabular(tab_root, arrays, predicted, env)
+        feed = phase_feed_tabular(tab_root, arrays, predicted, env["smi"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -2198,7 +2577,8 @@ def main():
          "variants": {k: {kk: v[kk] for kk in ("ms", "bound_ms")}
                       for k, v in s2["planes"].items()},
          "mixed_feed_launches": mixed["launches"]["stage2_planes"],
-         "pool_launches": pool_launches(pool_jpeg, "stage2_planes")},
+         "pool_launches": pool_launches(pool_jpeg, "stage2_planes"),
+         "ring_feed_launches": feed_jpeg["launches"]["stage2_planes"]},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -2207,7 +2587,8 @@ def main():
          "plain_ms": s2["rgb"]["plain_ms"], "bound_ms": s2["rgb"]["bound_ms"],
          "bound_by": s2["rgb"]["bound_by"], "library_ms": None,
          "mixed_feed_launches": mixed["launches"]["stage2_rgb"],
-         "pool_launches": pool_launches(pool_jpeg, "stage2_rgb")},
+         "pool_launches": pool_launches(pool_jpeg, "stage2_rgb"),
+         "ring_feed_launches": feed_jpeg["launches"]["stage2_rgb"]},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -2237,7 +2618,8 @@ def main():
          "replaces": "petastorm_tpu/ops/image.py:24", "launches": launches["K2"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
-         "pool_launches": pool_launches(pool_jpeg, "K2")},
+         "pool_launches": pool_launches(pool_jpeg, "K2"),
+         "ring_feed_launches": feed_jpeg["launches"]["K2"]},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -2254,17 +2636,24 @@ def main():
         if "serial_floor_ms" in r:
             row["serial_floor_ms"] = r["serial_floor_ms"]
         row["pool_launches"] = {name: n[key] for name, n in tab_pool.items()}
+        row["ring_feed_launches"] = {"feed": feed["launches"][key],
+                                     "feed_transferred_batches": feed["transferred"],
+                                     "epoch": feed["epoch_launches"][key],
+                                     "transform_spec_read": feed["b_launches"][key]}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_tab.items()})))
     log("total %.1f s; main path %.1f rows/s (shipped/raw %.4f); mixed feed %.1f rows/s "
         "(shipped/raw %.4f, %.2f groups a batch; a batch's stage 2 %.4f ms and resize %.4f "
-        "ms of device time); tabular path %.1f rows/s"
+        "ms of device time); tabular path %.1f rows/s; click-through feed %.1f rows/s "
+        "beside %.1f without ring and pipeline (ring exchange %.4f ms, pipeline %.4f ms of "
+        "device time a batch)"
         % (time.perf_counter() - t_all, main["rows_per_s"], main["shipped_ratio"],
            mixed["rows_per_s"], mixed["shipped_ratio"],
            mixed["launches"]["groups"] / mixed["batches"], mixed_split["stage2_ms"],
-           mixed_split["resize_ms"], tab["rows_per_s"]))
+           mixed_split["resize_ms"], tab["rows_per_s"], feed["rows_per_s"],
+           feed["plain_rows_per_s"], feed["exchange_ms"], feed["pipeline_ms"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

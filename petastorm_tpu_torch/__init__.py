@@ -4,9 +4,22 @@ Same module paths and public names as the JAX package: ``make_reader`` /
 ``make_batch_reader`` open a Parquet store, and
 :class:`petastorm_tpu_torch.loader.DataLoader` turns its batches into torch tensors on a
 CUDA device, finishing JPEG decode on the device with hand-written CUDA kernels
-(``csrc/``). The port imports nothing of ``petastorm_tpu`` and no ``jax``. Kernels and the
-host JPEG decoder build at first use, never at import.
+(``csrc/``). ``transform_spec`` takes a :class:`TransformSpec` or a declarative
+:class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline`. The port imports nothing of
+``petastorm_tpu`` and no ``jax``. Kernels and the host JPEG decoder build at first use,
+never at import.
 """
 from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+from petastorm_tpu_torch.transform import TransformSpec, transform_schema
 
-__all__ = ["make_reader", "make_batch_reader"]
+__all__ = ["make_reader", "make_batch_reader", "TransformSpec", "transform_schema"]
+
+
+def __getattr__(name):
+    # the feature pipeline's names load lazily, as in the JAX package
+    if name in ("FeaturePipeline", "Normalize", "Standardize", "Clip", "Cast", "FillNull",
+                "Bucketize", "HashField", "VocabLookup", "FeatureCross"):
+        from petastorm_tpu_torch.ops import tabular
+
+        return getattr(tabular, name)
+    raise AttributeError("module 'petastorm_tpu_torch' has no attribute %r" % name)

@@ -8,11 +8,10 @@ from __future__ import annotations
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
     "io": "Queue 1 item 5 (read path IO options and caches)",
-    "selection": "Queue 1 item 6 (predicates, filters, partitions, selectors, transforms)",
+    "selection": "Queue 1 item 6 (predicates, filters, partitions, selectors, pad_shapes)",
     "ngram": "Queue 1 item 7 (NGram)",
     "obs": "Queue 1 item 8 (recovery, chaos, observability, health, provenance, tenants)",
     "checkpoint": "Queue 1 item 9 (checkpoint and exact resume)",
-    "device_shuffle": "Queue 1 item 10 (HBM shuffle ring)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
 }
@@ -22,7 +21,6 @@ OPTIONS = {
     "predicate": ("selection", None),
     "rowgroup_selector": ("selection", None),
     "filters": ("selection", None),
-    "transform_spec": ("selection", None),
     "shuffle_row_drop_partitions": ("selection", 1),
     "cache_type": ("io", "null"),
     "cache_location": ("io", None),
@@ -43,7 +41,6 @@ OPTIONS = {
     "slos": ("obs", None),
     "controller": ("obs", None),
     "pad_shapes": ("selection", None),
-    "device_shuffle_capacity": ("device_shuffle", 0),
     "sharding": ("multi_device", None),
 }
 

@@ -1,5 +1,6 @@
 """Host IO for the device path: the pinned H2D staging ring (:mod:`.staging`), the
-compressed-page pass-through's host half (:mod:`.pagedec`) and :class:`IoOptions`.
+compressed-page pass-through's host half (:mod:`.pagedec`), the feature pipelines'
+statistics resolution (:mod:`.statscache`) and :class:`IoOptions`.
 
 ``IoOptions`` holds the read-path options of the JAX package's ``IoOptions``. Of them
 the port has ``pagedec`` only; any other field raises ``NotImplementedError`` naming

@@ -6,8 +6,8 @@ Port of the core of ``petastorm_tpu.loader.DataLoader``. An async pipeline:
         → transfer thread, on its own CUDA stream: the compressed-page inflate
           (pass-through columns; kernels K3, the run scan and K4), batched on-device JPEG
           decode (stage 2, kernel K1), pinned staging + non-blocking H2D of the other
-          numeric columns, the optional device transform (e.g. ``normalize_images``,
-          kernel K2)
+          numeric columns, [the device shuffle ring,] the optional device transform
+          (e.g. ``normalize_images``, kernel K2, or a ``FeaturePipeline``)
         → device-batch queue → consumer
 
 so the training step's per-batch cost is a queue pop. Each device batch carries a CUDA
@@ -30,8 +30,8 @@ Where rows linger (the shuffling buffer) or are restacked (a per-row reader), th
 are copied out instead.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
-across devices, pad_shapes, the HBM device shuffle, the trace, metrics, health,
-provenance, SLO, controller and tenant wiring, and checkpointing.
+across devices, pad_shapes, the trace, metrics, health, provenance, SLO, controller and
+tenant wiring, and checkpointing.
 """
 from __future__ import annotations
 
@@ -433,6 +433,35 @@ def _resolve_device(device):
     return device
 
 
+def _resolve_device_transform(device_transform, reader):
+    """The device function the loader applies: a declarative ``FeaturePipeline``
+    compiled against the reader's delivered schema, the given callable, or (when none is
+    given) the reader's own ``TransformSpec(device=True)``."""
+    if getattr(device_transform, "declarative", False):
+        if getattr(reader, "ngram", None) is not None:
+            # the pipeline's ops name schema fields, but NGram batches are keyed
+            # 'offset/field'
+            raise ValueError(
+                "a declarative FeaturePipeline cannot be the device_transform of an "
+                "NGram reader: batches are keyed 'offset/field', not by schema field "
+                "names. Pass a function written against the flat columns instead.")
+        # statistics-dependent ops must have been resolved: device_fn raises with the
+        # fix otherwise
+        return device_transform.device_fn(reader.schema)
+    if device_transform is not None:
+        return device_transform
+    spec = getattr(reader, "transform_spec", None)
+    if spec is not None and spec.device and spec.func is not None:
+        if getattr(reader, "ngram", None) is not None:
+            raise ValueError(
+                "a device TransformSpec cannot be auto-applied to an NGram reader: "
+                "batches are keyed 'offset/field', not by schema field names. Pass "
+                "DataLoader(device_transform=...) written against the flat "
+                "'offset/field' columns instead.")
+        return spec.func
+    return None
+
+
 class DataLoader:
     """Iterable of batches: ``{field: torch.Tensor}`` on ``device`` (numeric fields and
     device-decoded images), host numpy for string/object fields.
@@ -454,11 +483,14 @@ class DataLoader:
         Remainder policy. ``drop`` (default) keeps shapes static; ``pad`` repeats the last
         row up to ``batch_size`` and adds a boolean ``__valid__`` mask column; ``partial``
         yields the short batch.
-    device_transform : callable, optional
+    device_transform : callable or FeaturePipeline, optional
         ``fn(batch) -> batch`` applied on the device after transfer, on the transfer
         stream (e.g. ``normalize_images``). A two-argument ``fn(batch, generator)``
         receives a ``torch.Generator`` on the device, seeded from ``seed`` — the hook for
-        random augmentation.
+        random augmentation. A declarative
+        :class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline` runs through its
+        ``device_fn(reader.schema)``. Without one, a reader opened with a
+        ``TransformSpec(device=True)`` (declarative or not) supplies it.
     prefetch : int
         Device batches kept in flight by the transfer thread. 0 transfers synchronously
         on the consumer thread.
@@ -477,6 +509,14 @@ class DataLoader:
         Default ``None`` = on for a CUDA device, off for the CPU; ``False`` disables; an
         ``int`` forces it on with that slab size in bytes (otherwise sized from the first
         upload).
+    device_shuffle_capacity : int
+        >0 puts a device shuffle ring of about this many rows
+        (:class:`petastorm_tpu_torch.ops.device_shuffle.DeviceShuffleBuffer`, rounded up
+        to a batch multiple) between the transfer and the device transform: each batch
+        swaps into the ring and the displaced rows are delivered (exactly once, a
+        decorrelation window of about the capacity, one gather and one scatter a column a
+        batch). Requires ``to_device=True`` and every delivered column on the device (no
+        strings). Seeded from ``seed``.
     device : torch.device or str, optional, keyword only
         Where batches land (and where staged fields decode). Default: the CUDA device
         (raises when there is none).
@@ -489,14 +529,16 @@ class DataLoader:
                  metrics=None, health=None, staging=None, provenance=None,
                  slos=None, controller=None, tenant=None, *, device=None):
         reject_unported(
-            "DataLoader", sharding=sharding, pad_shapes=pad_shapes,
-            device_shuffle_capacity=device_shuffle_capacity, trace=trace, metrics=metrics,
-            health=health, provenance=provenance, slos=slos, controller=controller,
-            tenant=tenant)
+            "DataLoader", sharding=sharding, pad_shapes=pad_shapes, trace=trace,
+            metrics=metrics, health=health, provenance=provenance, slos=slos,
+            controller=controller, tenant=tenant)
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if last_batch not in ("drop", "pad", "partial"):
             raise ValueError("last_batch must be drop|pad|partial, got %r" % last_batch)
+        if device_shuffle_capacity and not to_device:
+            raise ValueError("device_shuffle_capacity requires to_device=True "
+                             "(the ring lives in device memory)")
         self.device = _resolve_device(device)
         if staging and self.device.type != "cuda":
             raise ValueError("staging=%r needs a CUDA device, got %s" % (staging, self.device))
@@ -510,7 +552,8 @@ class DataLoader:
         self._seed = seed
         self._shuffling_queue_capacity = shuffling_queue_capacity
         self._host_queue_size = host_queue_size
-        self._device_transform = device_transform
+        self._device_shuffle_capacity = int(device_shuffle_capacity or 0)
+        self._device_transform = _resolve_device_transform(device_transform, reader)
         self._transform_takes_generator = None
         self._generator = None
         #: pinned H2D staging ring (None for the CPU or when disabled); its slabs are
@@ -843,7 +886,9 @@ class DataLoader:
             return self._device_transform(arrays, self._generator)
         return self._device_transform(arrays)
 
-    def _to_device(self, batch):
+    def _transfer(self, batch):
+        """:meth:`_transfer_batch` holding the batch's leases until every host array of
+        it has been read. Returns ``(device tensors, host-only columns)``."""
         leases = take_leases(batch)
         try:
             arrays, host = self._transfer_batch(batch)
@@ -854,26 +899,68 @@ class DataLoader:
             # region, copied into the page slab, or staged; the slabs may be reused
             for lease in leases:
                 lease.release()
+        return arrays, host
+
+    def _to_device(self, batch):
+        arrays, host = self._transfer(batch)
         arrays = self._apply_device_transform(arrays)
         arrays.update(host)
         return arrays
 
+    def _plain_batches(self, host_q):
+        for batch in self._host_batches(host_q):
+            if self._stop.is_set():
+                _release_leases(batch)
+                return
+            yield self._to_device(batch)
+
+    def _shuffled_batches(self, host_q, shuffler):
+        """host batches → device batches through the device shuffle ring: each
+        transferred batch (untransformed) is exchanged in the ring and the displaced rows
+        go on to the device transform; the residue drains at the end."""
+        for batch in self._host_batches(host_q):
+            if self._stop.is_set():
+                _release_leases(batch)
+                return
+            arrays, host = self._transfer(batch)
+            if host:
+                raise ValueError(
+                    "device_shuffle_capacity requires every delivered column to be "
+                    "device-resident, but %s are host-only (strings/objects cannot live "
+                    "in the device ring). Narrow schema_fields or drop the device "
+                    "shuffle." % sorted(host))
+            out = shuffler.push(arrays)
+            if out is not None:
+                yield self._apply_device_transform(out)
+        for out in shuffler.drain():
+            if self._stop.is_set():
+                return
+            yield self._apply_device_transform(out)
+
     def _device_batches(self, host_q):
         """host batches → ``(device batch, event)``, on the transfer stream for a CUDA
-        device; the event marks the batch's last operation on that stream."""
+        device; the event marks the batch's last operation on that stream. With
+        ``device_shuffle_capacity`` the batches pass through the device shuffle ring
+        between the transfer and the device transform."""
         import torch
 
         cuda = self.device.type == "cuda"
         if cuda and self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        for batch in self._host_batches(host_q):
-            if self._stop.is_set():
-                _release_leases(batch)
-                return
-            # the stream is current only while this batch's work is enqueued: the caller
+        if self._device_shuffle_capacity:
+            from petastorm_tpu_torch.ops.device_shuffle import DeviceShuffleBuffer
+
+            batches = self._shuffled_batches(host_q, DeviceShuffleBuffer(
+                self._device_shuffle_capacity, seed=self._seed or 0))
+        else:
+            batches = self._plain_batches(host_q)
+        while True:
+            # the stream is current only while a batch's work is enqueued: the caller
             # runs between yields (on the consumer thread when prefetch=0)
             with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():
-                out = self._to_device(batch)
+                out = next(batches, None)
+                if out is None:
+                    return
                 event = None
                 if cuda:
                     event = torch.cuda.Event()

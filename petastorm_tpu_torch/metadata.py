@@ -1,7 +1,7 @@
 """Dataset metadata: write datasets, persist/recover schemas, enumerate row groups.
 
 Port of ``petastorm_tpu.metadata`` (``RowWriter``, ``write_dataset``, ``get_schema``,
-``infer_or_load_unischema``, ``load_row_groups``). It reads and writes the SAME
+``infer_or_load_unischema``, ``load_row_groups``, ``aggregate_column_stats``). It reads and writes the SAME
 key-value keys (``PTPU_SCHEMA_KEY``, ``PTPU_ROW_GROUPS_KEY``) as the JAX package, so a
 store written by either package reads in the other. Reading the reference petastorm's
 pickled schema key, Spark materialization and hive partition directories are not ported.
@@ -263,3 +263,83 @@ def _rows_for_bytes(table, target_bytes):
         return 1
     per_row = max(1, table.nbytes // table.num_rows)
     return max(1, target_bytes // per_row)
+
+
+def _rowgroup_stats(rgmd):
+    """``{column: (min, max, null_count)}`` from a row group's parquet statistics, or
+    None. ``null_count`` is None when the footer does not record it. Only simple
+    (non-nested) columns with valid min/max are recorded; min/max exclude nulls (parquet
+    semantics)."""
+    stats = {}
+    for ci in range(rgmd.num_columns):
+        col = rgmd.column(ci)
+        st = col.statistics
+        if st is None or not st.has_min_max:
+            continue
+        name = col.path_in_schema
+        if "." in name:  # nested columns: path is not a plain field name
+            continue
+        try:
+            nulls = st.null_count if st.has_null_count else None
+            stats[name] = (st.min, st.max, nulls)
+        except Exception:  # noqa: BLE001 — exotic logical types: skip, stay safe
+            continue
+    return stats or None
+
+
+def aggregate_column_stats(fs, pieces, columns):
+    """Dataset-level ``{column: (min, max)}`` aggregated from parquet row-group
+    statistics over ``pieces``: the resolution tier declarative pipelines try before any
+    data pre-pass.
+
+    The port's pieces carry no statistics, so each file's footer is read once (a
+    metadata read, never a data read). A column is returned only when EVERY piece
+    contributes valid min/max for it (a single silent gap would make the bound wrong);
+    numeric coercion failures drop the column the same way. min/max exclude nulls
+    (parquet semantics), the right bound for normalization."""
+    import pyarrow.parquet as pq
+
+    wanted = list(columns)
+    if not wanted or not pieces:
+        return {}
+    footer_stats = {}  # path -> [per-row-group stats dict]
+
+    def piece_stats(piece):
+        per_group = footer_stats.get(piece.path)
+        if per_group is None:
+            with fs.open_input_file(piece.path) as f:
+                md = pq.ParquetFile(f).metadata
+            per_group = footer_stats[piece.path] = [
+                _rowgroup_stats(md.row_group(rg)) or {}
+                for rg in range(md.num_row_groups)
+            ]
+        if piece.row_group >= len(per_group):
+            return {}
+        return per_group[piece.row_group]
+
+    out = {}
+    for piece in pieces:
+        try:
+            stats = piece_stats(piece)
+        except Exception:  # noqa: BLE001 — unreadable footer: no bounds at all
+            return {}
+        for name in list(wanted):
+            entry = (stats or {}).get(name)
+            if entry is None:
+                wanted.remove(name)
+                out.pop(name, None)
+                continue
+            try:
+                mn, mx = float(entry[0]), float(entry[1])
+            except (TypeError, ValueError):  # non-numeric stats (str/bytes)
+                wanted.remove(name)
+                out.pop(name, None)
+                continue
+            prev = out.get(name)
+            if prev is None:
+                out[name] = (mn, mx)
+            else:
+                out[name] = (min(prev[0], mn), max(prev[1], mx))
+        if not wanted:
+            break
+    return out

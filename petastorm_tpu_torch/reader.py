@@ -9,7 +9,10 @@ coefficient planes, one native call per row group) and the
 :class:`~petastorm_tpu_torch.loader.DataLoader` finishes them on its device. With the
 compressed-page pass-through (``io_options={"pagedec": ...}``) eligible fixed-width
 columns travel as their raw compressed pages, read from the local file, and the
-DataLoader inflates them on its device.
+DataLoader inflates them on its device. A ``transform_spec`` (an opaque
+:class:`~petastorm_tpu_torch.transform.TransformSpec` or a declarative
+:class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline`, compiled by the factories)
+runs in the workers, or on the device in the DataLoader when it says ``device=True``.
 
 Options of the JAX package whose machinery is not ported raise ``NotImplementedError``
 naming their ROADMAP.md item (:mod:`petastorm_tpu_torch._unported`).
@@ -31,6 +34,7 @@ from petastorm_tpu_torch.io.lease import LEASE_KEY
 from petastorm_tpu_torch.io.pagedec import materialize_columns
 from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, load_row_groups
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
+from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.unischema import UnischemaField
 from petastorm_tpu_torch.utils import decode_row, stack_as_column
 from petastorm_tpu_torch.workers import make_executor
@@ -60,17 +64,51 @@ class _Tagged:
             setattr(self._worker, name, value)
 
 
+def _spec_wants_writable(spec):
+    """True when the host transform is an OPAQUE callable that may mutate the worker
+    payload in place: the workers hand it copies (fresh row dicts, a pandas frame), never
+    the read's own arrays. Declarative pipelines are out of place by construction (each
+    fused stage materializes its own output column) and device transforms do not run in
+    the workers."""
+    return (spec is not None and not spec.device and spec.func is not None
+            and not getattr(spec, "declarative", False))
+
+
+def _host_pipeline(spec):
+    """True when ``spec`` is a declarative pipeline that runs in the workers."""
+    return spec is not None and not spec.device and getattr(spec, "declarative", False)
+
+
+def _pandas_transform(spec, columns):
+    """An opaque host transform on the batch path: the columns as a pandas DataFrame
+    through ``spec.func``, then back to columns (tensor rows stacked once, scalar
+    object columns such as strings as object arrays)."""
+    import pandas as pd
+
+    pdf = spec.func(pd.DataFrame({k: list(v) if v.ndim > 1 else v
+                                  for k, v in columns.items()}))
+    out = {}
+    for name in pdf.columns:
+        series = pdf[name]
+        out[name] = stack_as_column(series.to_list()) if series.dtype == object \
+            else series.to_numpy()
+    return out
+
+
 class _WorkerBase:
-    """Shared row-group loading: column-pruned reads through per-thread open files."""
+    """Shared row-group loading: column-pruned reads through per-thread open files, and
+    the host half of a ``transform_spec``."""
 
     #: max cached open parquet files per thread (fd bound: threads × this)
     MAX_OPEN_FILES = 64
 
-    def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset()):
+    def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
+                 transform_spec=None):
         self._fs = filesystem
         self._read_schema = read_schema  # fields to deliver
         self._stored_schema = stored_schema  # full stored schema (decode source of truth)
         self._device_fields = frozenset(device_fields)  # host-stage-only decode columns
+        self._transform_spec = transform_spec  # compiled by the factory; pickled to children
         self._local = threading.local()
 
     def __getstate__(self):
@@ -135,6 +173,12 @@ class PyDictWorker(_WorkerBase):
                 rows.append(decode_row(r, decode_view, self._device_fields, prestaged))
         except DecodeFieldError as e:
             raise _annotate_decode_error(e, piece) from e
+        spec = self._transform_spec
+        if _host_pipeline(spec):
+            # one columnar application over the whole row group
+            rows = spec.apply_rows(rows)
+        elif _spec_wants_writable(spec):
+            rows = [spec.func(dict(r)) for r in rows]
         return rows
 
 
@@ -150,8 +194,9 @@ class ArrowWorker(_WorkerBase):
     COLUMN to the classic read, so any store reads unchanged."""
 
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
-                 io_options=None):
-        super().__init__(filesystem, read_schema, stored_schema, device_fields)
+                 io_options=None, transform_spec=None):
+        super().__init__(filesystem, read_schema, stored_schema, device_fields,
+                         transform_spec)
         self._io_options = IoOptions.normalize(io_options)
         #: set by the Reader when a DataLoader on a CUDA device adopts it: what ``auto``
         #: engages on
@@ -160,6 +205,17 @@ class ArrowWorker(_WorkerBase):
         self._pagedec_refused = set()
 
     def __call__(self, piece):
+        out = self._load_columns(piece)
+        spec = self._transform_spec
+        if _host_pipeline(spec):
+            # fused vectorized kernels over the columnar batch, no pandas round trip;
+            # untouched columns stay the read's arrays
+            out = spec.apply_columns(out)
+        elif _spec_wants_writable(spec):
+            out = _pandas_transform(spec, out)
+        return out
+
+    def _load_columns(self, piece):
         wanted = list(self._read_schema.fields.keys())
         out = {}
         eligible = self._pagedec_eligible(piece, wanted)
@@ -197,6 +253,11 @@ class ArrowWorker(_WorkerBase):
             return False
         return mode == "on" or self.pagedec_on_device
 
+    def _pagedec_shape_ok(self):
+        """In-worker rewrites need decoded columns: any ``transform_spec`` (a device one
+        too, as in the JAX package) turns the pass-through off for the whole read."""
+        return self._transform_spec is None
+
     def _pagedec_footer(self, path):
         """The parsed footer for eligibility classification, or ``None`` (the classic
         read then surfaces the error)."""
@@ -209,7 +270,7 @@ class ArrowWorker(_WorkerBase):
         """Footer-only eligibility: ``{column: (col_index, Eligibility)}`` for the
         eligible subset of ``wanted``. Cheap (no chunk bytes); the walker's page-level
         gate runs after the raw spans arrive."""
-        if not self._pagedec_active():
+        if not self._pagedec_active() or not self._pagedec_shape_ok():
             return {}
         md = self._pagedec_footer(piece.path)
         if md is None or piece.row_group >= md.num_row_groups:
@@ -469,6 +530,9 @@ class Reader:
         self.stopped = False
         #: device-decodable fields staged by the workers (set by the factories)
         self.device_decode_fields = frozenset()
+        #: the compiled transform_spec (set by the factories); a device one is the
+        #: DataLoader's default device transform
+        self.transform_spec = None
         #: compressed-page pass-through adoption: False (the default) materializes
         #: PassthroughColumn values into decoded arrays at delivery, so loader-less
         #: consumers see ordinary batches; a DataLoader that finishes the inflate itself
@@ -618,10 +682,40 @@ class Reader:
 # --------------------------------------------------------------------------------------
 
 
-def _resolve_device_fields(schema, decode_on_device):
+def _maybe_compile_pipeline(spec, schema, fs, pieces):
+    """Plan a declarative :class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline`
+    against the read schema: resolve statistics-dependent op parameters (parquet
+    row-group statistics when the footers cover them, one memoized streaming pass
+    otherwise), then compile to the fused host kernels (or the device function for
+    ``device=True``). Opaque ``TransformSpec``\\ s pass through untouched; an already
+    compiled pipeline (reused across readers) is kept as it is. The pass's result is
+    memoized in the process only: the port has no tiered cache to write it through yet
+    (ROADMAP.md Queue 1 item 5)."""
+    if spec is None or not getattr(spec, "declarative", False) \
+            or getattr(spec, "compiled", False):
+        return spec
+    reqs = spec.required_statistics(schema)
+    stats, sources = {}, {}
+    if reqs:
+        from petastorm_tpu_torch.io.statscache import resolve_statistics
+
+        stats, sources = resolve_statistics(reqs, fs, pieces)
+    spec.compile(schema, statistics=stats)
+    spec.stats_info = dict(sources)
+    return spec
+
+
+def _resolve_device_fields(schema, decode_on_device, transform_spec=None):
     """Fields whose codec decode should stop at the host staging half (stage 1)."""
     if not decode_on_device:
         return frozenset()
+    if transform_spec is not None and not transform_spec.device \
+            and transform_spec.func is not None:
+        raise ValueError(
+            "decode_on_device is not compatible with a host transform_spec: the "
+            "transform would receive coefficient staging payloads, not decoded images. "
+            "Use a device transform (TransformSpec(..., device=True)) or the "
+            "DataLoader's device_transform instead.")
     fields = frozenset(
         name for name, f in schema.fields.items()
         if f.codec is not None and getattr(f.codec, "device_decodable", False)
@@ -661,6 +755,12 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     workers run only the native entropy decode, and rows carry DCT coefficient staging
     payloads that :class:`petastorm_tpu_torch.loader.DataLoader` finishes on its device.
 
+    ``transform_spec``: a :class:`~petastorm_tpu_torch.transform.TransformSpec` whose
+    function runs on each decoded row dict in the workers (a declarative
+    :class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline` runs once over each row
+    group's columns), or on the device in the DataLoader with ``device=True``. The reader's
+    schema is the post-transform schema of a host spec.
+
     ``reader_pool_type='process'`` runs the worker in child processes
     (:class:`~petastorm_tpu_torch.workers.ProcessExecutor`). ``wire_serializer`` is the
     wire they answer over: ``'pickle'`` (the default here) or ``'arrow'`` on the socket,
@@ -675,17 +775,21 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
         predicate=predicate, rowgroup_selector=rowgroup_selector, cache_type=cache_type,
         cache_location=cache_location, cache_size_limit=cache_size_limit,
         cache_row_size_estimate=cache_row_size_estimate,
-        cache_extra_settings=cache_extra_settings, transform_spec=transform_spec,
-        filters=filters, io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
+        cache_extra_settings=cache_extra_settings, filters=filters,
+        io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
     io_options = IoOptions.normalize(io_options)  # the per-row path reads classically
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
     stored_schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)
     read_schema = _read_schema(stored_schema, schema_fields)
-    device_fields = _resolve_device_fields(read_schema, decode_on_device)
-    worker = PyDictWorker(fs, read_schema, stored_schema, device_fields)
-    r = Reader(read_schema, worker, pieces, num_epochs=num_epochs,
+    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, pieces)
+    final_schema = read_schema
+    if transform_spec is not None and not transform_spec.device:
+        final_schema = transform_schema(read_schema, transform_spec)
+    device_fields = _resolve_device_fields(read_schema, decode_on_device, transform_spec)
+    worker = PyDictWorker(fs, read_schema, stored_schema, device_fields, transform_spec)
+    r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,
                reader_pool_type=reader_pool_type, workers_count=workers_count,
@@ -693,6 +797,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
                results_timeout_s=results_timeout_s,
                wire_serializer=wire_serializer or "pickle",
                worker_respawns=worker_respawns, io_options=io_options, transport=transport)
+    r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r
 
@@ -717,7 +822,12 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     fields. ``{"pagedec": "auto" | "on" | "off"}`` sets the compressed-page
     pass-through (default ``off``): eligible fixed-width columns travel as their raw
     compressed pages and the :class:`~petastorm_tpu_torch.loader.DataLoader` inflates
-    them on the card.
+    them on the card. A ``transform_spec`` turns the pass-through off for the whole read
+    (the transform needs decoded columns), as in the JAX package.
+
+    ``transform_spec``: see :func:`make_reader`; here an opaque function receives each
+    row group as a pandas DataFrame, and a declarative ``FeaturePipeline`` runs its fused
+    numpy kernels on the columns.
 
     The process pool's options are :func:`make_reader`'s; the default wire here is
     ``'arrow'``, and ``'shm'``/``'shm-view'`` mean ``'shm-arrow'``/``'shm-arrow-view'``.
@@ -726,8 +836,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
         "make_batch_reader", shuffle_row_drop_partitions=shuffle_row_drop_partitions,
         predicate=predicate, cache_type=cache_type, cache_location=cache_location,
         cache_size_limit=cache_size_limit, cache_row_size_estimate=cache_row_size_estimate,
-        cache_extra_settings=cache_extra_settings, transform_spec=transform_spec,
-        filters=filters, io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
+        cache_extra_settings=cache_extra_settings, filters=filters,
+        io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
     io_options = IoOptions.normalize(io_options)
     fs, path = get_filesystem_and_path_or_paths(
@@ -738,10 +848,14 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     for p in paths:
         pieces.extend(load_row_groups(fs, p))
     read_schema = _read_schema(stored_schema, schema_fields)
-    device_fields = _resolve_device_fields(read_schema, decode_on_device)
+    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, pieces)
+    final_schema = read_schema
+    if transform_spec is not None and not transform_spec.device:
+        final_schema = transform_schema(read_schema, transform_spec)
+    device_fields = _resolve_device_fields(read_schema, decode_on_device, transform_spec)
     worker = ArrowWorker(fs, read_schema, stored_schema, device_fields,
-                         io_options=io_options)
-    r = Reader(read_schema, worker, pieces, num_epochs=num_epochs,
+                         io_options=io_options, transform_spec=transform_spec)
+    r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,
                reader_pool_type=reader_pool_type, workers_count=workers_count,
@@ -752,5 +866,6 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                wire_serializer={"shm": "shm-arrow", "shm-view": "shm-arrow-view"}.get(
                    wire_serializer, wire_serializer) or "arrow",
                worker_respawns=worker_respawns, io_options=io_options, transport=transport)
+    r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r

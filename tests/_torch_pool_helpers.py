@@ -76,3 +76,10 @@ class ModulesProbe:
         return (0, 0, {"loaded": np.array(loaded or [""]),
                        "cuda_visible": np.array([os.environ.get("CUDA_VISIBLE_DEVICES",
                                                                 "unset")])})
+
+
+def double_x_plus_a(d):
+    """An opaque transform the reader tests hand to both packages: ``x2 = 2x + a`` on a
+    row dict (per-row path) and on a pandas DataFrame (batch path) alike."""
+    d["x2"] = d["x"] * 2.0 + d["a"]
+    return d

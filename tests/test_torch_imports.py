@@ -31,6 +31,8 @@ def _forbidden(name):
 def test_importing_every_port_module_loads_no_jax_or_reference():
     modules = _port_modules()
     assert "petastorm_tpu_torch.loader" in modules and "petastorm_tpu_torch.ops.jpeg" in modules
+    for name in ("transform", "ops.tabular", "ops.device_shuffle", "io.statscache"):
+        assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
         "for m in %r: importlib.import_module(m)\n"
@@ -90,7 +92,7 @@ def test_decode_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"sharding": object()}, {"pad_shapes": {"x": (3,)}}, {"device_shuffle_capacity": 64},
+    {"sharding": object()}, {"pad_shapes": {"x": (3,)}}, {"slos": object()},
     {"metrics": True}, {"health": True}, {"provenance": True},
 ])
 def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
@@ -140,10 +142,13 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
 @pytest.mark.parametrize("module", [
     "petastorm_tpu_torch.serializers", "petastorm_tpu_torch._child_worker",
     "petastorm_tpu_torch.parallel.shm_ring", "petastorm_tpu_torch.io.lease",
-    "petastorm_tpu_torch.transport"])
+    "petastorm_tpu_torch.transport", "petastorm_tpu_torch.ops.tabular",
+    "petastorm_tpu_torch.transform", "petastorm_tpu_torch.io.statscache"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
-    the JAX package (nor torch: a child must not pay for it or touch the card)."""
+    the JAX package (nor torch: a child must not pay for it or touch the card). A host
+    ``transform_spec`` travels to the children, so the feature pipeline's module is one
+    of them."""
     assert module in _port_modules()
     code = ("import importlib, sys\n"
             "importlib.import_module(%r)\n"
@@ -154,3 +159,42 @@ def test_process_pool_modules_import_no_jax_or_reference(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+SELECTION_OPTIONS = [("predicate", object()), ("filters", [("id", ">", 3)]),
+                     ("rowgroup_selector", object()), ("shuffle_row_drop_partitions", 2)]
+
+
+@pytest.mark.parametrize("name,value", SELECTION_OPTIONS,
+                         ids=[n for n, _v in SELECTION_OPTIONS])
+def test_the_rest_of_item_6_still_raises_naming_it(tmp_path, name, value):
+    """transform_spec is taken (ported); predicates, filters, selectors, row-drop
+    partitions and pad_shapes still raise naming item 6."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_batch_reader, make_reader
+    from petastorm_tpu_torch._unported import OPTIONS
+
+    assert "transform_spec" not in OPTIONS and "device_shuffle_capacity" not in OPTIONS
+    assert OPTIONS["pad_shapes"][0] == OPTIONS[name][0] == "selection"
+    pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
+    url = "file://" + str(tmp_path)
+    factories = [make_reader] if name == "rowgroup_selector" \
+        else [make_reader, make_batch_reader]
+    for factory in factories:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            factory(url, **{name: value})
+
+
+def test_transform_spec_and_device_shuffle_capacity_are_taken():
+    from types import SimpleNamespace
+
+    from petastorm_tpu_torch.loader import DataLoader
+
+    reader = SimpleNamespace(stop=lambda: None, join=lambda: None)
+    with DataLoader(reader, 4, device="cpu", device_shuffle_capacity=64) as loader:
+        assert loader._device_shuffle_capacity == 64
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        DataLoader(reader, 4, device="cpu", pad_shapes={"x": (3,)})

@@ -311,3 +311,227 @@ def test_no_oversized_staging_across_a_store_whose_ks_grow(tmp_path):
     assert len(on_card) == len(cpu) == 4
     for a, b in zip(on_card, cpu):
         np.testing.assert_array_equal(a, b["image"])
+
+
+# -- the click-through training feed: pass-through → shuffle ring → feature pipeline ----
+
+CRITEO_DENSE, CRITEO_CATS = 4, 6
+CRITEO_VOCAB = (39884406, 39043, 17289, 7420, 20263, 3)
+
+
+@pytest.fixture(scope="module")
+def criteo_store(tmp_path_factory):
+    """A small Criteo-shaped store from a numpy seed: an int32 label, float32 dense
+    columns (one with NaN gaps), int32 categoricals modulo the MLPerf vocabulary sizes;
+    2 files of 2 row groups of 512 rows, snappy, dictionary pages."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    root = tmp_path_factory.mktemp("torch_criteo_store")
+    rng = np.random.default_rng(3)
+    n = 1024
+    for f in range(2):
+        cols = {"label": (rng.random(n) < 0.034).astype(np.int32)}
+        for i in range(CRITEO_DENSE):
+            dense = np.log1p(rng.zipf(1.6, n).astype(np.float64)).astype(np.float32)
+            if i == 0:
+                dense[rng.random(n) < 0.1] = np.nan
+            cols["i%d" % i] = dense
+        for i, vocab in enumerate(CRITEO_VOCAB):
+            cols["c%d" % i] = (rng.zipf(1.2, n) % vocab).astype(np.int32)
+        pq.write_table(pa.table(cols), str(root / ("part-%d.parquet" % f)),
+                       row_group_size=512, compression="snappy",
+                       use_dictionary=[c for c in cols if c != "label"],
+                       data_page_version="1.0")
+    return "file://" + str(root)
+
+
+def _criteo_ops(m, device=True):
+    ops = []
+    for i in range(CRITEO_DENSE):
+        ops += [m.Standardize("i%d" % i, out="dense%d" % i), m.FillNull("dense%d" % i, 0.0)]
+    ops += [m.HashField("c%d" % i, v, out="cat%d" % i) for i, v in enumerate(CRITEO_VOCAB)]
+    ops += [m.Bucketize("i1", num_buckets=8, out="i1_bucket"),
+            m.VocabLookup("c1", max_size=20, out="c1_vocab"),
+            m.FeatureCross(("c2", "c3"), 1000, out="c2_x_c3"),
+            m.Normalize("i3", out="i3_unit")]
+    return m.FeaturePipeline(ops, device=device)
+
+
+def _row_multiset(batches):
+    """Sorted per-row byte strings over every column (NaN-safe)."""
+    rows = []
+    for b in batches:
+        names = sorted(b)
+        cols = [np.ascontiguousarray(np.asarray(b[k])) for k in names]
+        n = len(cols[0])
+        rows.extend(b"".join(c[i].tobytes() for c in cols) for i in range(n))
+    return sorted(rows), sorted(batches[0]) if batches else []
+
+
+def _as_numpy(batch):
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in batch.items()}
+
+
+def test_criteo_feed_through_ring_and_pipeline_equals_the_reference(criteo_store,
+                                                                    monkeypatch):
+    """The slice end to end on the CPU: compressed pages shipped and inflated by the
+    kernels' plain versions, the device shuffle ring, then the declarative pipeline's
+    device function. As a multiset of rows (raw and derived columns, every byte) it
+    equals the JAX package's DataLoader with the same pipeline and statistics and no
+    ring; the ring changed the order."""
+    from petastorm_tpu import reader as ref_reader_mod
+    from petastorm_tpu.io import statscache as ref_stats
+    from petastorm_tpu.ops import tabular as ref_tab
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.ops import tabular as port_tab
+
+    monkeypatch.setenv("PTPU_PAGEDEC_DEVICE", "1")  # plain K3 / scan / K4 on the CPU
+    ref_stats.clear_memo()
+    kw = dict(workers_count=1, shuffle_row_groups=False)
+    ref_reader = ref_reader_mod.make_batch_reader(criteo_store, **kw)
+    ref_pipe = _criteo_ops(ref_tab)
+    fs, path = _fs_path(criteo_store)
+    stats, sources = ref_stats.resolve_statistics(
+        ref_pipe.required_statistics(ref_reader.schema), fs,
+        ref_metadata.load_row_groups(fs, path))
+    assert sources["min:i3"] == "rowgroup-stats" and sources["mean:i0"] == "data-pass"
+    ref_pipe.compile(ref_reader.schema, statistics=stats)
+    with ref_loader.DataLoader(ref_reader, 256, device_transform=ref_pipe) as loader:
+        theirs = [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+    ref_stats.clear_memo()
+
+    def port_run(capacity):
+        reader = make_batch_reader(criteo_store, io_options={"pagedec": "on"}, **kw)
+        pipe = _criteo_ops(port_tab).compile(reader.schema, statistics=stats)
+        with DataLoader(reader, 256, device=CPU, device_transform=pipe, seed=4,
+                        device_shuffle_capacity=capacity) as loader:
+            return [_as_numpy(b) for b in loader]
+
+    before = pagedec.counter_values()
+    ours = port_run(1024)
+    after = pagedec.counter_values()
+    assert after["pages"] > before["pages"]  # the pass-through ran
+    assert after["host_inflate_columns"] == before["host_inflate_columns"]
+    assert len(ours) == len(theirs) == 8
+    for a, b in zip(ours, theirs):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert a[k].dtype == b[k].dtype, k
+    assert _row_multiset(ours) == _row_multiset(theirs)
+    unshuffled = port_run(0)
+    assert _row_multiset(unshuffled) == _row_multiset(theirs)
+    assert [b["label"].tobytes() + b["c0"].tobytes() for b in ours] != \
+        [b["label"].tobytes() + b["c0"].tobytes() for b in unshuffled]
+
+
+def test_device_transform_spec_on_the_reader_is_the_loaders_device_transform(criteo_store):
+    """``make_batch_reader(transform_spec=FeaturePipeline(..., device=True))`` resolves
+    its own statistics and the DataLoader applies it on its device; the pass-through is
+    off for such a read. The rows equal the JAX package's same reader and loader."""
+    from petastorm_tpu import reader as ref_reader_mod
+    from petastorm_tpu.io import statscache as ref_stats
+    from petastorm_tpu.ops import tabular as ref_tab
+    from petastorm_tpu_torch.io import statscache as port_stats
+    from petastorm_tpu_torch.ops import tabular as port_tab
+
+    kw = dict(workers_count=1, shuffle_row_groups=False)
+    ref_stats.clear_memo()
+    port_stats.clear_memo()
+    ref_reader = ref_reader_mod.make_batch_reader(criteo_store,
+                                                  transform_spec=_criteo_ops(ref_tab), **kw)
+    with ref_loader.DataLoader(ref_reader, 512) as loader:
+        theirs = [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+    reader = make_batch_reader(criteo_store, transform_spec=_criteo_ops(port_tab),
+                               io_options={"pagedec": "on"}, **kw)
+    assert reader.transform_spec.stats_info == ref_reader.transform_spec.stats_info
+    assert list(reader.schema.fields) == list(ref_reader.schema.fields)
+    with DataLoader(reader, 512, device=CPU) as loader:
+        ours = [_as_numpy(b) for b in loader]
+    ref_stats.clear_memo()
+    port_stats.clear_memo()
+    assert len(ours) == len(theirs) == 4
+    for a, b in zip(ours, theirs):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_device_shuffle_composes_with_device_decode(jpeg_store):
+    """decode_on_device + device_shuffle_capacity (the JAX package's
+    test_device_decode_composes_with_device_shuffle): decoded uint8 images ride the ring,
+    every row appears once, the order is not the plan's, and every image equals the
+    JAX package's ring-less image of the same id bit for bit."""
+    theirs = _reference_batches(jpeg_store, 16)
+    expected = {int(i): img for b in theirs for i, img in zip(b["id"], b["image"])}
+    ours, loader = _port_batches(jpeg_store, 16, device_shuffle_capacity=40, seed=13)
+    order = [int(i) for b in ours for i in b["id"]]
+    assert sorted(order) == list(range(ROWS)) and order != sorted(order)
+    for b in ours:
+        assert b["image"].shape == (16,) + SHAPE
+        for i, img in zip(b["id"], b["image"]):
+            np.testing.assert_array_equal(img, expected[int(i)])
+    assert loader.stats.rows == ROWS
+
+
+def test_device_shuffle_refusals(jpeg_store, tmp_path):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.ops.tabular import (FeaturePipeline, PipelineValidationError,
+                                                 Standardize)
+
+    reader = make_batch_reader(jpeg_store, **READER_KW)
+    try:
+        with pytest.raises(ValueError, match="requires to_device=True"):
+            DataLoader(reader, 16, device=CPU, to_device=False, device_shuffle_capacity=32)
+        with pytest.raises(PipelineValidationError, match="statistics"):
+            DataLoader(reader, 16, device=CPU,
+                       device_transform=FeaturePipeline([Standardize("label")],
+                                                        device=True))
+    finally:
+        reader.stop()
+        reader.join()
+    pq.write_table(pa.table({"id": np.arange(8), "s": ["a"] * 8}), str(tmp_path / "s.parquet"))
+    reader = make_batch_reader("file://" + str(tmp_path), reader_pool_type="dummy")
+    with DataLoader(reader, 4, device=CPU, device_shuffle_capacity=8) as loader:
+        with pytest.raises(ValueError, match="host-only"):
+            list(loader)
+
+
+@pytest.mark.gpu
+def test_criteo_feed_on_the_card_equals_the_cpu(criteo_store):
+    """The feed on the card (the kernels, the ring and the pipeline on CUDA tensors):
+    every delivered tensor on the card, the same multiset of rows as the CPU run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from petastorm_tpu_torch.io import statscache as port_stats
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+    from petastorm_tpu_torch.ops import tabular as port_tab
+
+    port_stats.clear_memo()
+
+    def run(device, capacity):
+        from petastorm_tpu_torch.metadata import load_row_groups
+
+        reader = make_batch_reader(criteo_store, io_options={"pagedec": "on"},
+                                   workers_count=1, shuffle_row_groups=False)
+        fs, path = _fs_path(criteo_store)
+        pipe = _criteo_ops(port_tab)
+        stats, _src = port_stats.resolve_statistics(
+            pipe.required_statistics(reader.schema), fs, load_row_groups(fs, path))
+        pipe.compile(reader.schema, statistics=stats)
+        with DataLoader(reader, 256, device=device, device_transform=pipe, seed=2,
+                        device_shuffle_capacity=capacity) as loader:
+            batches = list(loader)
+        if device == "cuda":
+            assert all(v.is_cuda for b in batches for v in b.values())
+        return [_as_numpy({k: v.cpu() for k, v in b.items()}) for b in batches]
+
+    launches = pk.extract_pages.launches
+    card = run("cuda", 1024)
+    assert pk.extract_pages.launches > launches
+    assert _row_multiset(card) == _row_multiset(run(CPU, 0))
+    port_stats.clear_memo()

@@ -162,7 +162,7 @@ def test_reset_restarts_the_epoch(ref_store):
 @pytest.mark.parametrize("kwargs", [
     {"reader_pool_type": "process", "transport": "tcp"}, {"predicate": object()},
     {"cache_type": "local-disk"},
-    {"io_options": {"readahead": False}}, {"transform_spec": object()},
+    {"io_options": {"readahead": False}}, {"io_retries": 3},
     {"filters": [("id", ">", 3)]}, {"recovery": {"on_poison": "quarantine"}},
     {"shuffle_row_drop_partitions": 2}, {"watch": True},
 ])
