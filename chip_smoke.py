@@ -97,8 +97,30 @@ Phases (each passes or the script exits non-zero, printing no result line):
    ring), one epoch: every id once, every image equal on the card to phase 7's ring-less
    image of the same id, ``stage2_planes``, ``stage2_rgb`` and K2 once a batch.
 
+9. Row selection and exact resume. (a) phase 4's store laid out as hive ``split=train/``
+   (three files) and ``split=val/`` (one), hard links with metadata written anew, read
+   with ``make_batch_reader(decode_on_device=True, filters=[("split", "=", "train")],
+   predicate=in_pseudorandom_split([0.9, 0.1], 0, "id"))`` into phase 4's loader: the
+   delivered ids equal the split recomputed on the host (md5 of each id), each once;
+   every image equal on the card to phase 7's image of the same id; only the kept rows
+   reach stage 1; ``stage2_planes``, ``stage2_rgb`` and K2 once a batch; rows/s,
+   ``read_s`` and ``decode_s`` a batch and the share of rows that skipped stage 1
+   printed. (b) phase 5's files as ``day=0..7/`` with ``filters=[("day", "<", 6)]`` and
+   ``shuffle_row_drop_partitions=4``, one epoch through a loader whose batches are one
+   partition each: every row of days 0-5 once (64-bit row keys), none of days 6-7, each
+   partition's rows equal to the partitions recomputed with numpy, 0 compressed pages
+   shipped. (c) phase 5's flat store with ``pagedec="auto"`` through
+   ``DataLoader(16384)``: 20 batches, ``checkpoint.save(path, loader)``, a fresh reader
+   and loader, ``checkpoint.restore``, the rest: every row arrives, the rows delivered
+   twice are at most those of the row groups in flight at the save (printed), one K3,
+   scan and K4 launch a pass-through batch in both halves. (d) the same on the main path
+   through ``torch.distributed.checkpoint`` (``state_item(loader)`` beside a tensor).
+   (e) ``pad_shapes`` on a 65,536-row store with a ragged int32 column of 0-50 ids a
+   row, padded to (64,): the padded tensor and its mask on the card equal numpy's.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
-launches in phase 7's runs, ``ring_feed_launches`` in phase 8's), the card's
+launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
+in phase 9's), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -2351,6 +2373,490 @@ def phase_feed_jpeg(url, images):
     return {"launches": launches, "seconds": wall}
 
 
+# -- phase 9: row selection and exact resume -------------------------------------------
+#
+# (a) the main path over phase 4's store laid out as hive split=train/ (3 files) and
+# split=val/ (1 file), hard links plus fresh metadata, read with a train filter and a
+# 90/10 pseudorandom split on id; (b) phase 5's store as day=0..7/ directories with
+# filters=[("day", "<", 6)] and shuffle_row_drop_partitions=4, one epoch; (c) phase 5's
+# flat store on the pass-through, checkpointed after 20 batches with checkpoint.save and
+# resumed from a fresh reader and loader; (d) the main path checkpointed through
+# torch.distributed.checkpoint (state_item) and resumed the same way; (e) pad_shapes on a
+# 65,536-row store with a ragged int32 column of 0-50 ids a row, padded to (64,).
+
+SEL_SPLIT = (0.9, 0.1)
+SEL_DAYS_KEPT = 6
+SEL_DROP_PARTITIONS = 4
+SEL_RESUME_AFTER = 20
+SEL_JPEG_RESUME_AFTER = 6
+PAD_ROWS, PAD_RG_ROWS, PAD_MAX, PAD_TO = 65536, 8192, 50, 64
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _md5_band(ids, lo, hi):
+    """The rows ``in_pseudorandom_split`` keeps, recomputed here from its definition:
+    md5 of the decimal id, the first 8 hex digits over 0xFFFFFFFF, in [lo, hi)."""
+    import hashlib
+
+    import numpy as np
+
+    units = np.array([int(hashlib.md5(str(int(i)).encode()).hexdigest()[:8], 16)
+                      for i in ids], np.float64) / float(0xFFFFFFFF)
+    return np.asarray(ids)[(lo <= units) & (units < hi)]
+
+
+@contextlib.contextmanager
+def count_stage1_rows():
+    """Counts the rows that reach stage 1 (``host_stage_decode_batch``) in the block."""
+    from petastorm_tpu_torch.codecs import CompressedImageCodec
+
+    rows = []
+    orig = CompressedImageCodec.host_stage_decode_batch
+
+    def counting(self, field, values):
+        rows.append(len(values))
+        return orig(self, field, values)
+
+    CompressedImageCodec.host_stage_decode_batch = counting
+    try:
+        yield rows
+    finally:
+        CompressedImageCodec.host_stage_decode_batch = orig
+
+
+def _items_done(state):
+    """Work items a reader state counts as delivered (whole epochs included)."""
+    return int(state["resume_epoch"]) * int(state["plan"]["num_items"]) \
+        + sum(len(v) for v in state["consumed"].values())
+
+
+def _jpeg_launch_counters(zero=False):
+    from petastorm_tpu_torch.ops import image, jpeg
+
+    if zero:
+        reset_transfer_state(jpeg)
+        jpeg.stage2_planes_segments.launches = 0
+        jpeg.stage2_rgb.launches = 0
+        image.normalize_images.launches = 0
+    return {"stage2_planes": jpeg.stage2_planes_segments.launches,
+            "stage2_rgb": jpeg.stage2_rgb.launches, "K2": image.normalize_images.launches}
+
+
+def _tab_launch_counters(zero=False):
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    if zero:
+        pk.snappy_inflate_ragged.launches = 0
+        pk.rle_scan_pages.launches = 0
+        pk.extract_pages.launches = 0
+    return {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_scan_pages.launches,
+            "K4": pk.extract_pages.launches}
+
+
+def write_split_store(url, split_url):
+    """Phase 4's files as split=train/ (the first three) and split=val/ (the last), hard
+    links, with metadata written anew (the unischema and the row-group counts)."""
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+    from petastorm_tpu_torch.metadata import get_schema, write_petastorm_tpu_metadata
+
+    fs, src = get_filesystem_and_path_or_paths(url)
+    _fs, dst = get_filesystem_and_path_or_paths(split_url)
+    files = sorted(f for f in os.listdir(src) if f.endswith(".parquet"))
+    check(len(files) == 4, "phase 4's store has %d files, not 4" % len(files))
+    counts = {}
+    for i, f in enumerate(files):
+        rel = "split=%s/%s" % ("train" if i < 3 else "val", f)
+        os.makedirs(os.path.dirname(os.path.join(dst, rel)), exist_ok=True)
+        os.link(os.path.join(src, f), os.path.join(dst, rel))
+        counts[rel] = pq.read_metadata(os.path.join(src, f)).num_row_groups
+    write_petastorm_tpu_metadata(fs, dst, get_schema(fs, src), counts)
+    return files
+
+
+def _jpeg_transform():
+    from petastorm_tpu_torch.ops import image
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    return transform
+
+
+def phase_selection_jpeg(url, work, images, smi, device="cuda"):
+    """(a) and (d) (module comment above); ``images`` ((ROWS, 224, 224, 3) uint8 on the
+    card, by id) from phase 7's first thread-pool run."""
+    import numpy as np
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    from petastorm_tpu_torch import checkpoint as ptck
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.predicates import in_pseudorandom_split
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    out = {}
+    # -- (a) ------------------------------------------------------------------------------
+    split_url = "file://" + os.path.join(work, "split_store")
+    write_split_store(url, split_url)
+    train_ids = np.arange(3 * ROWS_PER_FILE)
+    want = _md5_band(train_ids, 0.0, SEL_SPLIT[0])
+    counts = torch.zeros(ROWS, dtype=torch.int32, device=device)
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    _jpeg_launch_counters(zero=True)
+    batches = 0
+    t0 = time.perf_counter()
+    # counting from before the reader starts: its pool begins reading at construction
+    with count_stage1_rows() as staged:
+        reader = make_batch_reader(
+            split_url, workers_count=workers, shuffle_row_groups=True, seed=0,
+            num_epochs=1, decode_on_device=True, filters=[("split", "=", "train")],
+            predicate=in_pseudorandom_split(list(SEL_SPLIT), 0, "id"))
+        with DataLoader(reader, BATCH, device=device, device_transform=_jpeg_transform(),
+                        prefetch=3, host_queue_size=8, last_batch="partial") as loader:
+            for batch in loader:
+                batches += 1
+                ids, u8 = batch["id"], batch["image_u8"]
+                counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                bad.add_((images.index_select(0, ids) != u8).sum())
+                check(set(batch["split"]) == {"train"}, "(a): a batch holds rows of %s"
+                      % sorted(set(batch["split"])))
+            _sync(device)
+            wall = time.perf_counter() - t0
+            stats = loader.stats.snapshot()
+    launches = _jpeg_launch_counters()
+    c = counts.cpu().numpy()
+    got = np.nonzero(c)[0]
+    skipped = 1.0 - sum(staged) / float(len(train_ids))
+    log("selection (a): %d of %d train rows in %d batches, %.1f rows/s (%.3f s); read_s "
+        "%.5f and decode_s %.5f a batch; %d rows through stage 1, %d skipped it (%.4f of "
+        "the scheduled rows); launches %s; %s" % (
+            len(got), len(train_ids), batches, len(got) / wall, wall,
+            stats["read_s"] / batches, stats["decode_s"] / batches, sum(staged),
+            len(train_ids) - sum(staged), skipped, json.dumps(launches), smi))
+    check(np.array_equal(got, want) and (c[got] == 1).all(), "(a): the delivered ids are "
+          "not the host's split of the train files (%d delivered, %d wanted, %d delivered "
+          "twice)" % (len(got), len(want), int((c > 1).sum())))
+    check(sum(staged) == len(want), "(a): %d rows reached stage 1, the split keeps %d: "
+          "the mask did not run before stage 1" % (sum(staged), len(want)))
+    check(bad.item() == 0, "(a): %d uint8 values differ from phase 7's images of the same "
+          "ids" % bad.item())
+    check(all(v == batches for v in launches.values()), "(a): stage2_planes, stage2_rgb and "
+          "K2 should launch once a batch (%d): %s" % (batches, launches))
+    out["a"] = {"launches": launches, "rows_per_s": len(got) / wall, "seconds": wall,
+                "stage1_skipped_share": skipped}
+    # -- (d) ------------------------------------------------------------------------------
+
+    def build():
+        reader = make_batch_reader(url, workers_count=workers, shuffle_row_groups=True,
+                                   seed=3, num_epochs=1, decode_on_device=True)
+        return DataLoader(reader, BATCH, device=device, device_transform=_jpeg_transform(),
+                          prefetch=3, host_queue_size=8, last_batch="partial")
+
+    counts.zero_()
+    bad.zero_()
+    model = {"w": torch.arange(12, dtype=torch.float32, device=device).view(3, 4)}
+    ckpt = os.path.join(work, "dcp_jpeg")
+    halves = []
+    t0 = time.perf_counter()
+    loader = build()
+    _jpeg_launch_counters(zero=True)
+    n = 0
+    with loader:
+        for batch in loader:
+            n += 1
+            ids, u8 = batch["id"], batch["image_u8"]
+            counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad.add_((images.index_select(0, ids) != u8).sum())
+            if n == SEL_JPEG_RESUME_AFTER:
+                break
+        reader_done = _items_done(loader.reader.state_dict())
+        dcp.save({"model": {k: v.cpu() for k, v in model.items()},
+                  "data": ptck.state_item(loader)}, checkpoint_id=ckpt)
+        saved = loader.state_dict()
+    # the transfer thread decodes ahead of the consumer: it took stats["batches"]
+    halves.append((n, _jpeg_launch_counters(), loader.stats.snapshot()["batches"]))
+    loader = build()
+    target = {"model": {"w": torch.zeros(3, 4)}, "data": ptck.state_item(loader)}
+    dcp.load(target, checkpoint_id=ckpt)
+    check(torch.equal(target["model"]["w"].to(device), model["w"]), "(d): the model tensor "
+          "did not come back from the checkpoint")
+    _jpeg_launch_counters(zero=True)
+    n = 0
+    with loader:
+        for batch in loader:
+            n += 1
+            ids, u8 = batch["id"], batch["image_u8"]
+            counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad.add_((images.index_select(0, ids) != u8).sum())
+    halves.append((n, _jpeg_launch_counters(), loader.stats.snapshot()["batches"]))
+    _sync(device)
+    wall = time.perf_counter() - t0
+    c = counts.cpu().numpy()
+    in_flight = reader_done - _items_done(saved)
+    dup = int((c - 1).clip(0).sum())
+    log("selection (d): %d + %d batches around a torch.distributed.checkpoint save "
+        "(%.2f s); %d row groups in flight at the save, %d rows delivered twice; launches "
+        "%s for %s batches the transfer thread took; %s" % (
+            halves[0][0], halves[1][0], wall, in_flight, dup,
+            json.dumps([h[1] for h in halves]), [h[2] for h in halves], smi))
+    check(bool((c >= 1).all()), "(d): %d ids never arrived" % int((c == 0).sum()))
+    check(dup <= in_flight * 270, "(d): %d rows twice, more than the %d row groups in "
+          "flight hold" % (dup, in_flight))
+    check(bad.item() == 0, "(d): images differ from phase 7's of the same ids")
+    for nb, lc, transferred in halves:
+        check(lc["stage2_planes"] == lc["stage2_rgb"] == lc["K2"]
+              and nb <= lc["K2"] <= transferred, "(d): stage2_planes, stage2_rgb and K2 "
+              "should launch once for each batch the transfer thread decoded (%d taken by "
+              "the consumer, %d by the transfer thread): %s" % (nb, transferred, lc))
+    out["d"] = {"launches": [h[1] for h in halves], "seconds": wall,
+                "in_flight_row_groups": in_flight, "duplicate_rows": dup}
+    return out
+
+
+def _global_row_index(arrays):
+    """Sorted 64-bit row keys (``row_keys``' formula in numpy) of every row of phase 5's
+    store and each one's (file, row) position."""
+    import numpy as np
+
+    keys, where = [], []
+    for f, cols in enumerate(arrays):
+        key = None
+        for name in TAB_COLUMNS:
+            c = cols[name]
+            w = (c.view(np.int32) if c.dtype == np.float32 else c).astype(np.int64)
+            key = w if key is None else key * 1000003 + w
+        keys.append(key)
+        where.append(np.stack([np.full(len(key), f), np.arange(len(key))], 1))
+    keys, where = np.concatenate(keys), np.concatenate(where)
+    order = np.argsort(keys, kind="stable")
+    keys, where = keys[order], where[order]
+    check(len(np.unique(keys)) == len(keys), "phase 5's rows do not have distinct keys")
+    return keys, where
+
+
+def _drop_partition_rows(path, rg, rows, k, p, seed=0):
+    """Partition ``p`` of ``k`` of a row group, recomputed here from the JAX package's
+    definition: PCG64 over SeedSequence([seed, crc32(path), row group])."""
+    import zlib
+
+    import numpy as np
+
+    seq = np.random.SeedSequence([seed, zlib.crc32(path.encode()) & 0x7FFFFFFF, rg])
+    perm = np.random.Generator(np.random.PCG64(seq)).permutation(rows)
+    return np.sort(np.array_split(perm, k)[p])
+
+
+def phase_selection_tabular(root, arrays, predicted, work, smi, device="cuda"):
+    """(b) and (c) (module comment above)."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import checkpoint as ptck
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.loader import DataLoader
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    out = {}
+    keys, where = _global_row_index(arrays)
+    # -- (b) ------------------------------------------------------------------------------
+    days = os.path.join(work, "days")
+    for f in range(TAB_FILES):
+        os.makedirs(os.path.join(days, "day=%d" % f))
+        os.link(os.path.join(root, "part-%d.parquet" % f),
+                os.path.join(days, "day=%d" % f, "part-0.parquet"))
+    part_rows = TAB_RG_ROWS // SEL_DROP_PARTITIONS
+    reader = make_batch_reader("file://" + days, workers_count=workers,
+                               shuffle_row_groups=True, seed=0, num_epochs=1,
+                               io_options={"pagedec": "auto"},
+                               filters=[("day", "<", SEL_DAYS_KEPT)],
+                               shuffle_row_drop_partitions=SEL_DROP_PARTITIONS)
+    counters0 = pagedec.counter_values()
+    _tab_launch_counters(zero=True)
+    seen = np.zeros(len(keys), np.int32)
+    partitions = {}
+    t0 = time.perf_counter()
+    with DataLoader(reader, part_rows, device=device, prefetch=3,
+                    host_queue_size=8) as loader:
+        for batch in loader:
+            check(torch.equal(batch["day"], torch.full_like(batch["day"], batch["day"][0]))
+                  and int(batch["day"][0]) < SEL_DAYS_KEPT, "(b): a batch mixes days or "
+                  "holds a pruned day")
+            k = row_keys(batch).cpu().numpy()
+            pos = np.searchsorted(keys, k)
+            check(bool((keys[np.minimum(pos, len(keys) - 1)] == k).all()),
+                  "(b): a delivered row is no row of the store")
+            seen[pos] += 1
+            f, rows = where[pos, 0], where[pos, 1]
+            check(len(set(f.tolist())) == 1 and len(set((rows // TAB_RG_ROWS).tolist())) == 1,
+                  "(b): a batch spans row groups: the items are not whole partitions")
+            rg = int(rows[0] // TAB_RG_ROWS)
+            partitions.setdefault((int(f[0]), rg), []).append(np.sort(rows % TAB_RG_ROWS))
+        _sync(device)
+        wall = time.perf_counter() - t0
+    counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+    launches = _tab_launch_counters()
+    kept = np.isin(where[:, 0], np.arange(SEL_DAYS_KEPT))
+    matched = 0
+    for (f, rg), parts in partitions.items():
+        path = os.path.join(days, "day=%d" % f, "part-0.parquet")
+        want = [_drop_partition_rows(path, rg, TAB_RG_ROWS, SEL_DROP_PARTITIONS, p)
+                for p in range(SEL_DROP_PARTITIONS)]
+        for got in parts:
+            check(any(np.array_equal(got, w) for w in want), "(b): day %d row group %d: a "
+                  "partition's rows differ from the recomputed partitions" % (f, rg))
+            matched += 1
+    delivered = int(seen.sum())
+    log("selection (b): %d rows of days 0-%d in %d partitions of %d rows, %.1f rows/s "
+        "(%.3f s); pass-through pages shipped %d, launches %s; %s" % (
+            delivered, SEL_DAYS_KEPT - 1, matched, part_rows, delivered / wall, wall,
+            counters["pages"], json.dumps(launches), smi))
+    check(bool((seen[kept] == 1).all()) and not seen[~kept].any(), "(b): rows of days "
+          "0-%d not delivered once each (%d missing, %d twice) or rows of later days "
+          "delivered (%d)" % (SEL_DAYS_KEPT - 1, int((seen[kept] == 0).sum()),
+                              int((seen[kept] > 1).sum()), int(seen[~kept].sum())))
+    check(matched == SEL_DAYS_KEPT * TAB_RGS_PER_FILE * SEL_DROP_PARTITIONS,
+          "(b): %d partitions delivered" % matched)
+    check(counters["pages"] == 0 and counters["bytes_compressed"] == 0,
+          "(b): the pass-through shipped %d pages under filters and row-drop partitions"
+          % counters["pages"])
+    out["b"] = {"launches": launches, "rows_per_s": delivered / wall, "seconds": wall,
+                "pages_shipped": counters["pages"]}
+    # -- (c) ------------------------------------------------------------------------------
+
+    def build():
+        reader = make_batch_reader("file://" + root, workers_count=workers,
+                                   shuffle_row_groups=True, seed=5, num_epochs=1,
+                                   io_options={"pagedec": "auto"})
+        return DataLoader(reader, TAB_BATCH, device=device, prefetch=3, host_queue_size=8)
+
+    ckpt = os.path.join(work, "tab_ckpt", "data.pt")
+    all_keys = []
+    halves = []
+    t0 = time.perf_counter()
+    loader = build()
+    counters0 = pagedec.counter_values()
+    _tab_launch_counters(zero=True)
+    n = 0
+    with loader:
+        for batch in loader:
+            n += 1
+            all_keys.append(row_keys(batch))
+            if n == SEL_RESUME_AFTER:
+                break
+        reader_done = _items_done(loader.reader.state_dict())
+        ptck.save(ckpt, loader)
+        saved = loader.state_dict()
+    halves.append((n, _tab_launch_counters(), {k: v - counters0[k] for k, v in
+                                               pagedec.counter_values().items()}))
+    loader = build()
+    ptck.restore(ckpt, loader)
+    counters0 = pagedec.counter_values()
+    _tab_launch_counters(zero=True)
+    n = 0
+    with loader:
+        for batch in loader:
+            n += 1
+            all_keys.append(row_keys(batch))
+    halves.append((n, _tab_launch_counters(), {k: v - counters0[k] for k, v in
+                                               pagedec.counter_values().items()}))
+    got = torch.cat(all_keys).sort().values
+    want = torch.from_numpy(keys).to(device)
+    present = torch.isin(want, got)
+    dup = int(len(got) - torch.unique(got).numel())
+    _sync(device)
+    wall = time.perf_counter() - t0
+    in_flight = reader_done - _items_done(saved)
+    log("selection (c): %d + %d batches around checkpoint.save (%.2f s); %d row groups in "
+        "flight at the save, %d rows delivered twice; launches %s; pages %s; %s" % (
+            halves[0][0], halves[1][0], wall, in_flight, dup,
+            json.dumps([h[1] for h in halves]),
+            json.dumps([h[2]["pages"] for h in halves]), smi))
+    check(bool(present.all()), "(c): %d rows never arrived" % int((~present).sum()))
+    check(dup <= in_flight * TAB_RG_ROWS, "(c): %d rows twice, more than the %d row groups "
+          "in flight hold" % (dup, in_flight))
+    for nb, lc, cnt in halves:
+        passthrough_batches = cnt["pages"] // predicted["pages"]
+        check(passthrough_batches >= 1 and cnt["host_inflate_columns"] == 0,
+              "(c): %d pass-through batches, %d host-inflated columns"
+              % (passthrough_batches, cnt["host_inflate_columns"]))
+        for k in ("K3", "scan", "K4"):
+            check(lc[k] == predicted[k] * passthrough_batches, "(c): %s launched %d times "
+                  "for %d pass-through batches" % (k, lc[k], passthrough_batches))
+    out["c"] = {"launches": [h[1] for h in halves], "seconds": wall,
+                "in_flight_row_groups": in_flight, "duplicate_rows": dup}
+    return out
+
+
+def phase_pad_shapes(work, smi, device="cuda"):
+    """(e) (module comment above)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+
+    rng = np.random.default_rng(9)
+    lengths = rng.integers(0, PAD_MAX + 1, PAD_ROWS)
+    flat = rng.integers(0, 2**31 - 1, int(lengths.sum()), dtype=np.int64).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    root = os.path.join(work, "ragged")
+    os.makedirs(root)
+    pq.write_table(pa.table({"id": np.arange(PAD_ROWS, dtype=np.int64),
+                             "hist": pa.ListArray.from_arrays(pa.array(offsets),
+                                                              pa.array(flat))}),
+                   os.path.join(root, "p.parquet"), row_group_size=PAD_RG_ROWS)
+    padded = np.zeros((PAD_ROWS, PAD_TO), np.int64)
+    mask = np.zeros((PAD_ROWS, PAD_TO), bool)
+    col = np.arange(PAD_TO)
+    mask[:] = col[None, :] < lengths[:, None]
+    padded[mask] = flat
+    padded_dev = torch.from_numpy(padded).to(device)
+    mask_dev = torch.from_numpy(mask).to(device)
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    reader = make_batch_reader("file://" + root, workers_count=workers, num_epochs=1)
+    seen = torch.zeros(PAD_ROWS, dtype=torch.int32, device=device)
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    batches = 0
+    t0 = time.perf_counter()
+    with DataLoader(reader, PAD_RG_ROWS, device=device, prefetch=3,
+                    pad_shapes={"hist": (PAD_TO,)}) as loader:
+        for batch in loader:
+            batches += 1
+            ids, h, m = batch["id"], batch["hist"], batch["hist__mask"]
+            on_card = h.device.type == m.device.type == torch.device(device).type
+            check(on_card and h.shape == (len(ids), PAD_TO)
+                  and m.dtype == torch.bool, "(e): padded %s %s %s, mask %s" % (
+                      h.device, tuple(h.shape), h.dtype, m.dtype))
+            seen.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad.add_((padded_dev.index_select(0, ids) != h).sum()
+                     + (mask_dev.index_select(0, ids) != m).sum())
+        _sync(device)
+        wall = time.perf_counter() - t0
+        stats = loader.stats.snapshot()
+    log("selection (e): %d rows with 0-%d ids each padded to (%d,) in %d batches, %.1f "
+        "rows/s (%.3f s; batch_s %.5f a batch: the padding runs in the producer); dtype "
+        "%s; %d values apart from numpy; %s" % (
+            PAD_ROWS, PAD_MAX, PAD_TO, batches, PAD_ROWS / wall, wall,
+            stats["batch_s"] / max(1, batches), str(h.dtype), bad.item(), smi))
+    check(bool((seen == 1).all()), "(e): rows not delivered once each")
+    check(bad.item() == 0, "(e): %d padded values or mask bits differ from numpy"
+          % bad.item())
+    return {"rows_per_s": PAD_ROWS / wall, "seconds": wall}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -2529,6 +3035,9 @@ def main():
         launches, main = phase_main_path(url, blobs, env["cv2"])
         pool_jpeg, images = phase_process_pool_jpeg(url, blobs, env)
         feed_jpeg = phase_feed_jpeg(url, images)
+        t9 = time.perf_counter()
+        sel_jpeg = phase_selection_jpeg(url, work, images, env["smi"])
+        phase9_s = time.perf_counter() - t9
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -2556,6 +3065,11 @@ def main():
         tab_launches, tab = phase_tabular_path(tab_root, arrays, predicted)
         pool_tab = phase_process_pool_tabular(tab_root, arrays, predicted, env)
         feed = phase_feed_tabular(tab_root, arrays, predicted, env["smi"])
+        t9 = time.perf_counter()
+        sel_tab = phase_selection_tabular(tab_root, arrays, predicted, work, env["smi"])
+        pad = phase_pad_shapes(work, env["smi"])
+        phase9_s += time.perf_counter() - t9
+        log("selection: phase 9 took %.1f s of wall time; %s" % (phase9_s, env["smi"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -2566,6 +3080,12 @@ def main():
         return {name: r["launches"][key] for name, r in runs.items()}
 
     tab_pool = {name: r["launches"] for name, r in pool_tab.items()}
+
+    def selection_launches(key):
+        """{part: launches of ``key``} in phase 9 ((d): [before, after] the restore)."""
+        return {"a_split_store": sel_jpeg["a"]["launches"][key],
+                "d_resume": [h[key] for h in sel_jpeg["d"]["launches"]]}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -2578,7 +3098,8 @@ def main():
                       for k, v in s2["planes"].items()},
          "mixed_feed_launches": mixed["launches"]["stage2_planes"],
          "pool_launches": pool_launches(pool_jpeg, "stage2_planes"),
-         "ring_feed_launches": feed_jpeg["launches"]["stage2_planes"]},
+         "ring_feed_launches": feed_jpeg["launches"]["stage2_planes"],
+         "selection_launches": selection_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -2588,7 +3109,8 @@ def main():
          "bound_by": s2["rgb"]["bound_by"], "library_ms": None,
          "mixed_feed_launches": mixed["launches"]["stage2_rgb"],
          "pool_launches": pool_launches(pool_jpeg, "stage2_rgb"),
-         "ring_feed_launches": feed_jpeg["launches"]["stage2_rgb"]},
+         "ring_feed_launches": feed_jpeg["launches"]["stage2_rgb"],
+         "selection_launches": selection_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -2619,7 +3141,8 @@ def main():
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
          "pool_launches": pool_launches(pool_jpeg, "K2"),
-         "ring_feed_launches": feed_jpeg["launches"]["K2"]},
+         "ring_feed_launches": feed_jpeg["launches"]["K2"],
+         "selection_launches": selection_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -2640,6 +3163,8 @@ def main():
                                      "feed_transferred_batches": feed["transferred"],
                                      "epoch": feed["epoch_launches"][key],
                                      "transform_spec_read": feed["b_launches"][key]}
+        row["selection_launches"] = {"b_days_row_drop": sel_tab["b"]["launches"][key],
+                                     "c_resume": [h[key] for h in sel_tab["c"]["launches"]]}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -2648,12 +3173,15 @@ def main():
         "(shipped/raw %.4f, %.2f groups a batch; a batch's stage 2 %.4f ms and resize %.4f "
         "ms of device time); tabular path %.1f rows/s; click-through feed %.1f rows/s "
         "beside %.1f without ring and pipeline (ring exchange %.4f ms, pipeline %.4f ms of "
-        "device time a batch)"
+        "device time a batch); phase 9 %.1f s (split store %.1f rows/s, %.4f of its rows "
+        "skipped stage 1; day partitions %.1f rows/s; pad_shapes %.1f rows/s)"
         % (time.perf_counter() - t_all, main["rows_per_s"], main["shipped_ratio"],
            mixed["rows_per_s"], mixed["shipped_ratio"],
            mixed["launches"]["groups"] / mixed["batches"], mixed_split["stage2_ms"],
            mixed_split["resize_ms"], tab["rows_per_s"], feed["rows_per_s"],
-           feed["plain_rows_per_s"], feed["exchange_ms"], feed["pipeline_ms"]))
+           feed["plain_rows_per_s"], feed["exchange_ms"], feed["pipeline_ms"], phase9_s,
+           sel_jpeg["a"]["rows_per_s"], sel_jpeg["a"]["stage1_skipped_share"],
+           sel_tab["b"]["rows_per_s"], pad["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

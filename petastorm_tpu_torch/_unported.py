@@ -8,20 +8,14 @@ from __future__ import annotations
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
     "io": "Queue 1 item 5 (read path IO options and caches)",
-    "selection": "Queue 1 item 6 (predicates, filters, partitions, selectors, pad_shapes)",
     "ngram": "Queue 1 item 7 (NGram)",
     "obs": "Queue 1 item 8 (recovery, chaos, observability, health, provenance, tenants)",
-    "checkpoint": "Queue 1 item 9 (checkpoint and exact resume)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
 }
 
 #: option name -> (roadmap key, the value that means "not used")
 OPTIONS = {
-    "predicate": ("selection", None),
-    "rowgroup_selector": ("selection", None),
-    "filters": ("selection", None),
-    "shuffle_row_drop_partitions": ("selection", 1),
     "cache_type": ("io", "null"),
     "cache_location": ("io", None),
     "cache_size_limit": ("io", None),
@@ -40,7 +34,6 @@ OPTIONS = {
     "health": ("obs", None),
     "slos": ("obs", None),
     "controller": ("obs", None),
-    "pad_shapes": ("selection", None),
     "sharding": ("multi_device", None),
 }
 

@@ -2,7 +2,8 @@
 
 Port of the core of ``petastorm_tpu.loader.DataLoader``. An async pipeline:
 
-    reader (columnar numpy) → host re-batch [+ shuffling buffer] → host-batch queue
+    reader (columnar numpy) → [pad_shapes] → host re-batch [+ shuffling buffer]
+        → host-batch queue
         → transfer thread, on its own CUDA stream: the compressed-page inflate
           (pass-through columns; kernels K3, the run scan and K4), batched on-device JPEG
           decode (stage 2, kernel K1), pinned staging + non-blocking H2D of the other
@@ -29,12 +30,18 @@ its pages, the other columns are staged), and only then is the slab free for reu
 Where rows linger (the shuffling buffer) or are restacked (a per-row reader), the views
 are copied out instead.
 
+``pad_shapes`` zero-pads ragged tensor columns to a static shape in the producer, with
+a ``name__mask`` column of the valid region, so they reach the device as ordinary
+columns. ``state_dict()`` checkpoints at the consumer watermark: the newest reader state
+whose deliveries the consumer has fully taken (:mod:`petastorm_tpu_torch.checkpoint`).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
-across devices, pad_shapes, the trace, metrics, health, provenance, SLO, controller and
-tenant wiring, and checkpointing.
+across devices, the trace, metrics, health, provenance, SLO, controller and tenant
+wiring.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import inspect
 import logging
@@ -295,6 +302,57 @@ def _batch_row_count(batch):
     return int(len(next(iter(batch.values()))))
 
 
+def _batch_valid_rows(batch):
+    """Rows the reader delivered in a host batch: a ``last_batch='pad'`` tail repeats
+    its last row up to the batch size with a ``__valid__`` mask, and the padding must not
+    advance the consumer watermark past the producer's delivered-row log."""
+    if not batch:
+        return 0
+    valid = batch.get("__valid__")
+    if isinstance(valid, np.ndarray) and valid.dtype == np.bool_:
+        return int(valid.sum())
+    return _batch_row_count(batch)
+
+
+def _pad_ragged_columns(columns, pad_shapes):
+    """Zero-pad ragged tensor columns to their declared max shape, plus a validity mask
+    ``name__mask`` (the JAX package's ``_pad_ragged_columns``).
+
+    Runs in the producer, before the shuffling buffer and the batcher, so every later
+    stage sees static shapes."""
+    columns = dict(columns)
+    for name, target in pad_shapes.items():
+        col = columns.get(name)
+        if col is None:
+            continue
+        if isinstance(col, np.ndarray) and col.dtype != object:
+            if col.shape[1:] == tuple(target):  # already uniform at the max: mask only
+                columns[name + "__mask"] = np.ones(col.shape, dtype=bool)
+                continue
+            col = list(col)  # uniform but below the max: padded like a ragged column
+        rows = [np.asarray(r) for r in col]
+        target = tuple(target)
+        out = np.zeros((len(rows),) + target, dtype=rows[0].dtype if rows else np.float64)
+        mask = np.zeros((len(rows),) + target, dtype=bool)
+        for i, r in enumerate(rows):
+            if r.ndim != len(target):
+                raise ValueError(
+                    "pad_shapes[%r]=%r has rank %d but row %d has rank %d"
+                    % (name, target, len(target), i, r.ndim)
+                )
+            if any(a > t for a, t in zip(r.shape, target)):
+                raise ValueError(
+                    "Row %d of field %r has shape %r exceeding declared pad max %r"
+                    % (i, name, r.shape, target)
+                )
+            region = tuple(slice(0, s) for s in r.shape)
+            out[i][region] = r
+            mask[i][region] = True
+        columns[name] = out
+        columns[name + "__mask"] = mask
+    return columns
+
+
 def _concat(chunks):
     chunks = [c for c in chunks if len(c)]
     if not chunks:
@@ -509,6 +567,11 @@ class DataLoader:
         Default ``None`` = on for a CUDA device, off for the CPU; ``False`` disables; an
         ``int`` forces it on with that slab size in bytes (otherwise sized from the first
         upload).
+    pad_shapes : dict, optional
+        ``{field: max_shape}``: ragged tensor fields are zero-padded to ``max_shape`` in
+        the producer, with a boolean ``field__mask`` column marking each row's valid
+        region; both reach the device as ordinary columns. A ragged field without a pad
+        shape cannot reach the device and raises.
     device_shuffle_capacity : int
         >0 puts a device shuffle ring of about this many rows
         (:class:`petastorm_tpu_torch.ops.device_shuffle.DeviceShuffleBuffer`, rounded up
@@ -520,6 +583,10 @@ class DataLoader:
     device : torch.device or str, optional, keyword only
         Where batches land (and where staged fields decode). Default: the CUDA device
         (raises when there is none).
+
+    A loader over a checkpointable reader checkpoints at its consumer's watermark
+    (:meth:`state_dict`); it duck-types as a reader for
+    :mod:`petastorm_tpu_torch.checkpoint`.
     """
 
     def __init__(self, reader, batch_size, sharding=None, shuffling_queue_capacity=0,
@@ -529,9 +596,8 @@ class DataLoader:
                  metrics=None, health=None, staging=None, provenance=None,
                  slos=None, controller=None, tenant=None, *, device=None):
         reject_unported(
-            "DataLoader", sharding=sharding, pad_shapes=pad_shapes, trace=trace,
-            metrics=metrics, health=health, provenance=provenance, slos=slos,
-            controller=controller, tenant=tenant)
+            "DataLoader", sharding=sharding, trace=trace, metrics=metrics, health=health,
+            provenance=provenance, slos=slos, controller=controller, tenant=tenant)
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if last_batch not in ("drop", "pad", "partial"):
@@ -550,6 +616,7 @@ class DataLoader:
         self._device_decode_resize = _validate_decode_resize(
             device_decode_resize, getattr(reader, "device_decode_fields", None))
         self._seed = seed
+        self._pad_shapes = dict(pad_shapes) if pad_shapes else {}
         self._shuffling_queue_capacity = shuffling_queue_capacity
         self._host_queue_size = host_queue_size
         self._device_shuffle_capacity = int(device_shuffle_capacity or 0)
@@ -588,8 +655,33 @@ class DataLoader:
         #: stop the pipeline a newer __iter__ armed
         self._generation = 0
         self.stats = PipelineStats()
+        # consumer-watermark checkpointing (see state_dict): the producer logs
+        # (cumulative delivered rows, reader state) at its deliveries, the consumer counts
+        # the rows it has taken, and state_dict() returns the newest logged state the
+        # consumer has caught up to. Off under shuffling, where state_dict() refuses (and
+        # behind the device ring the consumer's count would never catch the log up).
+        self._ckpt_enabled = (hasattr(reader, "state_dict")
+                              and not shuffling_queue_capacity
+                              and not self._device_shuffle_capacity)
+        self._ckpt_lock = threading.Lock()
+        self._ckpt_log = collections.deque()
+        self._ckpt_base = None
+        self._rows_consumed = 0
 
     # -- producer (background thread: reader → host batches) ---------------------------
+
+    def _ckpt_record(self, cum_rows):
+        """Log the reader's state as of ``cum_rows`` delivered rows, dropping the entries
+        the consumer has already passed (the log stays about in-flight sized)."""
+        state = self.reader.state_dict()
+        with self._ckpt_lock:
+            log = self._ckpt_log
+            c = self._rows_consumed
+            while len(log) >= 2 and log[1][0] <= c:
+                log.popleft()
+            if log and log[0][0] <= c:
+                self._ckpt_base = log.popleft()[1]
+            log.append((cum_rows, state))
 
     def _produce(self, q):
         batcher = _HostBatcher(self.batch_size, self._shuffling_queue_capacity, self._seed)
@@ -603,6 +695,9 @@ class DataLoader:
         # shuffling buffer and per-row readers copy the views out instead
         wire_views = bool(getattr(self.reader, "wire_views", False))
         lease_mode = wire_views and batched and not self._shuffling_queue_capacity
+        ckpt_cum = 0  # rows the reader delivered in this iteration
+        ckpt_deliveries = 0
+        ckpt_next_snap = 1
         try:
             it = iter(self.reader)
             while True:
@@ -612,6 +707,10 @@ class DataLoader:
                 if wire_stats is not None:
                     stats.update_wire(wire_stats())
                 if item is _SENTINEL:
+                    if self._ckpt_enabled and ckpt_deliveries:
+                        # the all-delivered state must be reachable even when the
+                        # throttle skipped the last deliveries
+                        self._ckpt_record(ckpt_cum)
                     break
                 if self._stop.is_set():
                     return
@@ -623,6 +722,8 @@ class DataLoader:
                 lease = self.reader.take_lease() if lease_mode else None
                 if wire_views and not lease_mode:
                     columns = _detach_views(columns)
+                if self._pad_shapes:
+                    columns = _pad_ragged_columns(columns, self._pad_shapes)
                 if self._shuffling_queue_capacity:
                     # the shuffling buffer permutes ROWS: compressed pages cannot be
                     # row-permuted without decoding, so this seam inflates on the host
@@ -638,6 +739,15 @@ class DataLoader:
                                     col[i] = v.detach()
                 ready = batcher.add(columns, lease)
                 stats.batch_s += time.perf_counter() - t0
+                if self._ckpt_enabled:
+                    ckpt_cum += _batch_row_count(columns)
+                    # snapshots at delivery boundaries (a batched reader's items are row
+                    # groups; a per-row reader's at batch cuts), thinned out after 512
+                    # so that a long epoch does not make the producer quadratic
+                    ckpt_deliveries += 1
+                    if (ready or batched) and ckpt_deliveries >= ckpt_next_snap:
+                        self._ckpt_record(ckpt_cum)
+                        ckpt_next_snap = ckpt_deliveries + max(1, ckpt_deliveries // 512)
                 if not self._deliver_batches(q, ready):
                     return
             # under last_batch='drop' the shuffling buffer can still hold whole batches at
@@ -720,6 +830,13 @@ class DataLoader:
         self._stop.clear()
         self._producer_error = None
         self.stats.reset()
+        if self._ckpt_enabled:
+            with self._ckpt_lock:
+                # a fresh watermark for each iteration: the base is the reader's state
+                # before any of this iteration's deliveries
+                self._ckpt_log.clear()
+                self._ckpt_base = self.reader.state_dict()
+                self._rows_consumed = 0
         self._queue = queue.Queue(maxsize=max(2, self._host_queue_size))
         self._dev_queue = None
         self._producer = threading.Thread(target=self._produce, args=(self._queue,),
@@ -854,7 +971,10 @@ class DataLoader:
                     and isinstance(arr[0], (np.ndarray, list, tuple)):
                 raise ValueError(
                     "Field %r holds ragged tensors and cannot reach the device with a "
-                    "static shape (pad_shapes is not ported yet)" % name)
+                    "static shape. Declare DataLoader(pad_shapes={%r: (max_dims...)}) "
+                    "to zero-pad it (a %s__mask column marks the valid region)."
+                    % (name, name, name)
+                )
         names = list(device)
         if self._staging is not None and names:
             tensors = self._staging.to_device([device[k] for k in names], self.device)
@@ -908,16 +1028,19 @@ class DataLoader:
         return arrays
 
     def _plain_batches(self, host_q):
+        """host batches → ``(device batch, rows the reader delivered in it)``."""
         for batch in self._host_batches(host_q):
             if self._stop.is_set():
                 _release_leases(batch)
                 return
-            yield self._to_device(batch)
+            rows = _batch_valid_rows(batch)
+            yield self._to_device(batch), rows
 
     def _shuffled_batches(self, host_q, shuffler):
         """host batches → device batches through the device shuffle ring: each
         transferred batch (untransformed) is exchanged in the ring and the displaced rows
-        go on to the device transform; the residue drains at the end."""
+        go on to the device transform; the residue drains at the end. Yields ``(batch,
+        0)``: the ring's loader takes no checkpoint, so its consumer counts no rows."""
         for batch in self._host_batches(host_q):
             if self._stop.is_set():
                 _release_leases(batch)
@@ -931,15 +1054,16 @@ class DataLoader:
                     "shuffle." % sorted(host))
             out = shuffler.push(arrays)
             if out is not None:
-                yield self._apply_device_transform(out)
+                yield self._apply_device_transform(out), 0
         for out in shuffler.drain():
             if self._stop.is_set():
                 return
-            yield self._apply_device_transform(out)
+            yield self._apply_device_transform(out), 0
 
     def _device_batches(self, host_q):
-        """host batches → ``(device batch, event)``, on the transfer stream for a CUDA
-        device; the event marks the batch's last operation on that stream. With
+        """host batches → ``(device batch, event, rows)``, on the transfer stream for a
+        CUDA device; the event marks the batch's last operation on that stream, ``rows``
+        are the reader's rows the batch carries (the consumer watermark's step). With
         ``device_shuffle_capacity`` the batches pass through the device shuffle ring
         between the transfer and the device transform."""
         import torch
@@ -958,17 +1082,22 @@ class DataLoader:
             # the stream is current only while a batch's work is enqueued: the caller
             # runs between yields (on the consumer thread when prefetch=0)
             with torch.cuda.stream(self._stream) if cuda else contextlib.nullcontext():
-                out = next(batches, None)
-                if out is None:
+                nxt = next(batches, None)
+                if nxt is None:
                     return
+                out, rows = nxt
                 event = None
                 if cuda:
                     event = torch.cuda.Event()
                     event.record(self._stream)
-            yield out, event
+            yield out, event, rows
 
-    def _hand_over(self, batch, event):
-        """Make a transfer-stream batch safe to use on the consumer's current stream."""
+    def _hand_over(self, batch, event, rows):
+        """Make a transfer-stream batch safe to use on the consumer's current stream; its
+        ``rows`` now count as taken by the consumer (the checkpoint watermark: a
+        pass-through batch counts here, with its inflated columns, not when its pages
+        were staged)."""
+        self._advance_consumed(rows)
         if event is None:
             return batch
         import torch
@@ -997,6 +1126,7 @@ class DataLoader:
             finally:
                 for lease in leases:
                     lease.release()
+            self._advance_consumed(_batch_valid_rows(batch))
             yield batch
 
     def __iter__(self):
@@ -1007,8 +1137,8 @@ class DataLoader:
             yield from self._host_delivery(host_q)
             return
         if self.prefetch <= 0:  # synchronous transfer on the consumer thread
-            for batch, event in self._device_batches(host_q):
-                yield self._hand_over(batch, event)
+            for item in self._device_batches(host_q):
+                yield self._hand_over(*item)
             return
         dev_q = queue.Queue(maxsize=max(1, self.prefetch))
         self._dev_queue = dev_q
@@ -1055,6 +1185,61 @@ class DataLoader:
                 # iterator abandoned mid-epoch: stop the pipeline so the transfer thread
                 # does not keep prefetched device batches alive
                 self.stop()
+
+    # -- consumer watermark -------------------------------------------------------------
+
+    def _advance_consumed(self, n):
+        """Bump the consumer watermark under the checkpoint lock (the producer prunes its
+        log against it concurrently)."""
+        if n:
+            with self._ckpt_lock:
+                self._rows_consumed += n
+
+    @property
+    def cur_shard(self):
+        """The reader's shard, so a loader duck-types as a checkpointable reader for
+        :mod:`petastorm_tpu_torch.checkpoint` routing."""
+        return getattr(self.reader, "cur_shard", None)
+
+    def state_dict(self):
+        """Exact-resume state at the CONSUMER watermark: checkpoint through the loader,
+        not the reader, when batches flow through a ``DataLoader``.
+
+        ``Reader.state_dict()`` counts a row group consumed when the reader hands it to
+        the loader's producer, which runs ahead of the training loop by the queues'
+        depth; restoring that state would skip every row still in the loader. This is
+        the newest reader state whose deliveries the consumer has fully taken: rows in
+        flight inside the loader replay after a restore (at-least-once at row-group
+        granularity), and nothing is lost.
+
+        Raises for shuffling loaders (``shuffling_queue_capacity`` or
+        ``device_shuffle_capacity``): a row can linger in a shuffling buffer arbitrarily
+        long, so no row-group watermark short of the epoch boundary is correct.
+        """
+        if self._shuffling_queue_capacity or self._device_shuffle_capacity:
+            raise ValueError(
+                "DataLoader.state_dict() is not available with shuffling enabled "
+                "(shuffling_queue_capacity/device_shuffle_capacity): shuffled rows "
+                "linger in the buffer indefinitely, so a mid-epoch row-group "
+                "watermark would lose them. Checkpoint at an epoch boundary with "
+                "Reader.state_dict() instead.")
+        if not self._ckpt_enabled:
+            raise AttributeError(
+                "underlying reader %r has no state_dict" % type(self.reader).__name__)
+        with self._ckpt_lock:
+            state = self._ckpt_base
+            for cum, st in self._ckpt_log:
+                if cum <= self._rows_consumed:
+                    state = st
+                else:
+                    break
+        if state is None:  # never iterated: the reader's own state is the truth
+            state = self.reader.state_dict()
+        return state
+
+    def load_state_dict(self, state):
+        """Restore into the underlying reader (before iterating)."""
+        self.reader.load_state_dict(state)
 
     # -- lifecycle ----------------------------------------------------------------------
 

@@ -1,10 +1,12 @@
 """Dataset metadata: write datasets, persist/recover schemas, enumerate row groups.
 
 Port of ``petastorm_tpu.metadata`` (``RowWriter``, ``write_dataset``, ``get_schema``,
-``infer_or_load_unischema``, ``load_row_groups``, ``aggregate_column_stats``). It reads and writes the SAME
-key-value keys (``PTPU_SCHEMA_KEY``, ``PTPU_ROW_GROUPS_KEY``) as the JAX package, so a
-store written by either package reads in the other. Reading the reference petastorm's
-pickled schema key, Spark materialization and hive partition directories are not ported.
+``infer_or_load_unischema``, ``load_row_groups``, ``aggregate_column_stats``). It reads and
+writes the SAME key-value keys (``PTPU_SCHEMA_KEY``, ``PTPU_ROW_GROUPS_KEY``) as the JAX
+package, so a store written by either package reads in the other. Hive ``key=value``
+directories are parsed into each piece's ``partition_values``
+(:mod:`petastorm_tpu_torch.partitions`). Reading the reference petastorm's pickled schema
+key and Spark materialization are not ported.
 """
 from __future__ import annotations
 
@@ -22,7 +24,14 @@ PTPU_ROW_GROUPS_KEY = b"petastorm_tpu.num_row_groups_per_file.json.v1"
 _METADATA_FILES = ("_common_metadata", "_metadata")
 
 #: One unit of scheduled work: a single row group of a single file.
-RowGroupPiece = namedtuple("RowGroupPiece", ["path", "row_group", "num_rows"])
+#: ``partition_values``: raw ``{key: str}`` parsed from hive ``key=value`` path segments
+#: (None for flat layouts), typed and pruned by :mod:`petastorm_tpu_torch.partitions`.
+#: ``stats``: ``{column: (min, max, null_count)}`` from the parquet row-group statistics
+#: when the footer was read (None on the KV fast path): ``filters`` skip whole row groups
+#: with them before scheduling, and the planner strips them before items reach the pool.
+RowGroupPiece = namedtuple("RowGroupPiece", ["path", "row_group", "num_rows",
+                                             "partition_values", "stats"],
+                           defaults=(None, None))
 
 
 # --------------------------------------------------------------------------------------
@@ -223,8 +232,11 @@ def load_row_groups(fs, path):
     """Enumerate :class:`RowGroupPiece` work units for a dataset.
 
     Fast path: per-file row-group counts from KV metadata (no footer scans; ``num_rows``
-    is then -1). Fallback: open each footer. Raises for hive ``key=value`` partition
-    directories, whose column values the port cannot attach yet."""
+    is then -1 and ``stats`` None). Fallback: open each footer, which also gives each
+    piece its row count and min/max/null-count statistics. Either way a piece under hive
+    ``key=value`` directories carries its raw partition values."""
+    from petastorm_tpu_torch.partitions import partition_values_for_path
+
     kv = _read_kv_metadata(fs, path)
     counts = None
     if kv is not None and PTPU_ROW_GROUPS_KEY in kv:
@@ -233,28 +245,22 @@ def load_row_groups(fs, path):
         pieces = []
         for fname in sorted(counts):
             full = fname if posixpath.isabs(fname) else posixpath.join(path, fname)
-            _refuse_partitioned(full, path)
+            pv = partition_values_for_path(full, path) or None
             for rg in range(int(counts[fname])):
-                pieces.append(RowGroupPiece(full, rg, -1))
+                pieces.append(RowGroupPiece(full, rg, -1, pv))
         return pieces
     import pyarrow.parquet as pq
 
     pieces = []
     for full in _list_parquet_files(fs, path):
-        _refuse_partitioned(full, path)
         with fs.open_input_file(full) as f:
             md = pq.ParquetFile(f).metadata
+        pv = partition_values_for_path(full, path) or None
         for rg in range(md.num_row_groups):
-            pieces.append(RowGroupPiece(full, rg, md.row_group(rg).num_rows))
+            rgmd = md.row_group(rg)
+            pieces.append(RowGroupPiece(full, rg, rgmd.num_rows, pv,
+                                        _rowgroup_stats(rgmd)))
     return pieces
-
-
-def _refuse_partitioned(full, root):
-    rel = posixpath.relpath(full, root) if full != root else ""
-    if any("=" in seg for seg in posixpath.dirname(rel).split("/") if seg):
-        from petastorm_tpu_torch._unported import not_ported
-
-        raise not_ported("hive-partitioned datasets (%r)" % full, "selection")
 
 
 def _rows_for_bytes(table, target_bytes):
@@ -292,8 +298,9 @@ def aggregate_column_stats(fs, pieces, columns):
     statistics over ``pieces``: the resolution tier declarative pipelines try before any
     data pre-pass.
 
-    The port's pieces carry no statistics, so each file's footer is read once (a
-    metadata read, never a data read). A column is returned only when EVERY piece
+    Pieces that already carry ``stats`` (footer-scan planning) are consumed as they are;
+    for the KV fast path's pieces each file's footer is read once (a metadata read, never
+    a data read). A column is returned only when EVERY piece
     contributes valid min/max for it (a single silent gap would make the bound wrong);
     numeric coercion failures drop the column the same way. min/max exclude nulls
     (parquet semantics), the right bound for normalization."""
@@ -305,6 +312,8 @@ def aggregate_column_stats(fs, pieces, columns):
     footer_stats = {}  # path -> [per-row-group stats dict]
 
     def piece_stats(piece):
+        if piece.stats is not None:
+            return piece.stats
         per_group = footer_stats.get(piece.path)
         if per_group is None:
             with fs.open_input_file(piece.path) as f:

@@ -1,9 +1,11 @@
-"""Deterministic epoch planning: sharding and per-epoch shuffling.
+"""Deterministic epoch planning: sharding, per-epoch shuffling, resumable cursor.
 
 Port of ``petastorm_tpu.plan`` (``shard_indices``, ``EpochPlan``): the plan is a pure
 function of (seed, epoch, shard), so every process derives the same global order and
-takes its slice with no communication. The plan extension of the dataset-watch plane
-and the checkpoint cursor are not ported.
+takes its slice with no communication, and any position checkpoints as a small state
+dict (``state_dict``/``load_state_dict``, with a skip map of consumed ordinals for the
+reader's exact resume). The plan extension of the dataset-watch plane (``extend``) and
+the readahead lookahead (``peek``) are not ported.
 """
 from __future__ import annotations
 
@@ -39,12 +41,14 @@ def epoch_permutation(num_items, epoch, seed, shuffle):
 
 
 class EpochPlan:
-    """Thread-safe iterator over plan items across epochs.
+    """Thread-safe, resumable iterator over plan items across epochs.
 
     ``num_epochs=None`` means infinite. ``with_epoch=True`` yields
-    ``(epoch, ordinal, item)`` instead of ``item``."""
+    ``(epoch, ordinal, item)`` instead of ``item``. ``skip``: optional
+    ``{epoch: set(ordinal)}`` of already-consumed work to omit."""
 
-    def __init__(self, items, num_epochs=1, shuffle=False, seed=None, with_epoch=False):
+    def __init__(self, items, num_epochs=1, shuffle=False, seed=None, with_epoch=False,
+                 skip=None):
         self._items = list(items)
         if num_epochs is not None and (not isinstance(num_epochs, int) or num_epochs < 1):
             raise ValueError("num_epochs must be a positive integer or None, got %r" % num_epochs)
@@ -52,29 +56,43 @@ class EpochPlan:
         self._shuffle = shuffle
         self._seed = seed
         self._with_epoch = with_epoch
+        self._skip = {int(k): set(v) for k, v in (skip or {}).items()}
         self._epoch = 0
         self._pos = 0
         self._perm = epoch_permutation(len(self._items), 0, seed, shuffle)
         self._lock = threading.Lock()
+
+    @property
+    def items(self):
+        return self._items
 
     def __iter__(self):
         return self
 
     def __next__(self):
         with self._lock:
-            if not self._items or self.exhausted():
-                raise StopIteration
-            epoch = self._epoch
-            ordinal = int(self._perm[self._pos])
-            self._pos += 1
-            if self._pos >= len(self._perm):
-                self._pos = 0
-                self._epoch += 1
-                if not self.exhausted():
-                    self._perm = epoch_permutation(
-                        len(self._items), self._epoch, self._seed, self._shuffle)
-            item = self._items[ordinal]
-            return (epoch, ordinal, item) if self._with_epoch else item
+            while True:
+                if not self._items or self.exhausted():
+                    raise StopIteration
+                epoch = self._epoch
+                ordinal = int(self._perm[self._pos])
+                self._pos += 1
+                if self._pos >= len(self._perm):
+                    self._pos = 0
+                    self._epoch += 1
+                    if not self.exhausted():
+                        self._perm = epoch_permutation(
+                            len(self._items), self._epoch, self._seed, self._shuffle)
+                if self._skip and ordinal in self._skip.get(epoch, ()):
+                    continue
+                item = self._items[ordinal]
+                return (epoch, ordinal, item) if self._with_epoch else item
+
+    def items_in_epoch(self, epoch):
+        """How many plan items belong to ``epoch``: the denominator of the reader's
+        consumed-ordinal watermark (every epoch holds every item: the port's plan does
+        not grow)."""
+        return len(self._items)
 
     def exhausted(self):
         if not self._items:
@@ -86,4 +104,51 @@ class EpochPlan:
         with self._lock:
             self._epoch = 0
             self._pos = 0
+            self._skip = {}
             self._perm = epoch_permutation(len(self._items), 0, self._seed, self._shuffle)
+
+    def set_skip(self, skip):
+        """Set the {epoch: set(ordinal)} map of work to omit (consumed-aware resume)."""
+        with self._lock:
+            self._skip = {int(k): set(v) for k, v in (skip or {}).items()}
+
+    # -- checkpoint/resume ---------------------------------------------------------------
+
+    def state_dict(self):
+        return {
+            "epoch": self._epoch,
+            "pos": self._pos,
+            "seed": self._seed,
+            "shuffle": self._shuffle,
+            "num_epochs": self._num_epochs,
+            "num_items": len(self._items),
+        }
+
+    def load_state_dict(self, state):
+        # fewer items than the checkpoint saw is a real mismatch (ordinals in the
+        # consumed map would dangle); more is legal in the reference, whose datasets may
+        # grow between a save and a restore
+        if state["num_items"] > len(self._items):
+            raise ValueError(
+                "Checkpoint was taken over %d items; plan has %d"
+                % (state["num_items"], len(self._items))
+            )
+        if state["num_items"] < len(self._items) and state["shuffle"] \
+                and int(state["pos"]):
+            # a mid-epoch position is only meaningful against the exact permutation it
+            # was taken over; a grown shuffled plan derives a different one
+            raise ValueError(
+                "cannot restore a mid-epoch shuffled checkpoint (pos=%d) into "
+                "a grown plan (%d -> %d items): the permutation changed; "
+                "resume via a consumed-ordinal skip map (pos=0 + set_skip), "
+                "as Reader.load_state_dict does"
+                % (state["pos"], state["num_items"], len(self._items)))
+        with self._lock:
+            self._epoch = int(state["epoch"])
+            self._pos = int(state["pos"])
+            self._seed = state["seed"]
+            self._shuffle = state["shuffle"]
+            self._num_epochs = state["num_epochs"]
+            self._perm = epoch_permutation(
+                len(self._items), self._epoch, self._seed, self._shuffle
+            )

@@ -3,7 +3,14 @@
 Port of ``petastorm_tpu.reader``: the two worker types (``PyDictWorker`` per-row decode,
 ``ArrowWorker`` columnar batches), ``_column_to_numpy`` with its ``device_fields``
 staging branch, sharding, epochs, shuffling of row groups, and the thread, dummy and
-process pools (with the process pool's socket and shared-memory wires). With
+process pools (with the process pool's socket and shared-memory wires). Row selection
+runs as in the JAX package: ``filters`` prune hive ``key=value`` directories and row
+groups whose parquet statistics cannot match before anything is scheduled
+(:mod:`petastorm_tpu_torch.partitions`), ``rowgroup_selector`` picks row groups through a
+prebuilt index, and the remaining clauses, a ``predicate`` and
+``shuffle_row_drop_partitions`` run as row masks in the workers; partition columns
+materialize as ordinary values. ``Reader.state_dict()`` is the exact-resume cursor (the
+consumed-work map, :mod:`petastorm_tpu_torch.checkpoint`). With
 ``decode_on_device=True`` the JPEG columns stop at stage 1 (host entropy decode into
 coefficient planes, one native call per row group) and the
 :class:`~petastorm_tpu_torch.loader.DataLoader` finishes them on its device. With the
@@ -35,7 +42,7 @@ from petastorm_tpu_torch.io.pagedec import materialize_columns
 from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, load_row_groups
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
 from petastorm_tpu_torch.transform import transform_schema
-from petastorm_tpu_torch.unischema import UnischemaField
+from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.utils import decode_row, stack_as_column
 from petastorm_tpu_torch.workers import make_executor
 
@@ -48,14 +55,15 @@ logger = logging.getLogger(__name__)
 
 
 class _Tagged:
-    """Runs the worker on ``(epoch, ordinal, piece)`` plan items and tags the result."""
+    """Runs the worker on ``(epoch, ordinal, (piece, partition))`` plan items and tags
+    the result with its ``(epoch, ordinal)``, the reader's checkpoint identity."""
 
     def __init__(self, worker):
         self._worker = worker
 
     def __call__(self, tagged_item):
-        epoch, ordinal, piece = tagged_item
-        return epoch, ordinal, self._worker(piece)
+        epoch, ordinal, item = tagged_item
+        return epoch, ordinal, self._worker(item)
 
     def apply_settings(self, settings):
         """Set worker attributes in a process-pool child (``{name: value}``, sent by the
@@ -96,19 +104,26 @@ def _pandas_transform(spec, columns):
 
 
 class _WorkerBase:
-    """Shared row-group loading: column-pruned reads through per-thread open files, and
-    the host half of a ``transform_spec``."""
+    """Shared row-group loading: column-pruned reads through per-thread open files, the
+    row masks (``filters``, ``predicate``, row-drop partitions), the hive partition
+    columns, and the host half of a ``transform_spec``."""
 
     #: max cached open parquet files per thread (fd bound: threads × this)
     MAX_OPEN_FILES = 64
 
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
-                 transform_spec=None):
+                 transform_spec=None, predicate=None, filters=None,
+                 shuffle_row_drop_partitions=1, seed=None, partition_info=None):
         self._fs = filesystem
         self._read_schema = read_schema  # fields to deliver
         self._stored_schema = stored_schema  # full stored schema (decode source of truth)
         self._device_fields = frozenset(device_fields)  # host-stage-only decode columns
         self._transform_spec = transform_spec  # compiled by the factory; pickled to children
+        self._predicate = predicate
+        self._filters = filters  # normalized user filters: the row-level mask
+        self._drop_partitions = max(1, int(shuffle_row_drop_partitions or 1))
+        self._seed = seed
+        self._partition_info = partition_info  # hive key=value layout (or None)
         self._local = threading.local()
 
     def __getstate__(self):
@@ -138,17 +153,107 @@ class _WorkerBase:
         return pf
 
     def _read_columns(self, piece, columns):
+        """One row group's ``columns`` (those the file holds), with the piece's partition
+        columns attached."""
         pf = self._parquet_file(piece.path)
         available = set(pf.schema_arrow.names)
-        return pf.read_row_group(piece.row_group,
-                                 columns=[c for c in columns if c in available])
+        table = pf.read_row_group(piece.row_group,
+                                  columns=[c for c in columns if c in available])
+        return self._attach_partitions(table, piece, columns)
+
+    def _attach_partitions(self, table, piece, columns):
+        if self._partition_info:
+            from petastorm_tpu_torch.partitions import attach_partition_columns
+
+            table = attach_partition_columns(table, piece, self._partition_info,
+                                             wanted=set(columns))
+        return table
+
+    def _mask_fields(self):
+        """Sorted predicate + filter columns (empty: no row mask)."""
+        fields = set(self._predicate.get_fields()) if self._predicate else set()
+        if self._filters:
+            fields |= _dnf_fields(self._filters)
+        return sorted(fields)
+
+    def _row_mask(self, table):
+        """Boolean keep-mask from filters + predicate over a row-group table (or None)."""
+        mask = None
+        if self._filters:
+            mask = _dnf_mask(table, self._filters)
+        if self._predicate is not None:
+            cols = {
+                name: _column_to_numpy(table, name, self._stored_schema)
+                for name in self._predicate.get_fields()
+            }
+            pmask = np.asarray(self._predicate.do_include_vectorized(cols), dtype=bool)
+            mask = pmask if mask is None else (mask & pmask)
+        return mask
+
+    def _drop_partition_indices(self, item, num_rows):
+        """The sorted rows of ``item``'s partition of its row group: a deterministic 1/k
+        subset for ``shuffle_row_drop_partitions``, seeded with crc32 of the path (not
+        ``hash()``, which differs between interpreters) with the JAX package's PCG64
+        draw, so each partition holds the same rows as the reference's."""
+        import zlib
+
+        piece, partition = item
+        seq = np.random.SeedSequence(
+            [0 if self._seed is None else int(self._seed),
+             zlib.crc32(piece.path.encode("utf-8")) & 0x7FFFFFFF,
+             piece.row_group]
+        )
+        perm = np.random.Generator(np.random.PCG64(seq)).permutation(num_rows)
+        return np.sort(np.array_split(perm, self._drop_partitions)[partition])
+
+    def _selected_rows(self, item, table, mask):
+        """Row indices of ``table`` that survive ``mask`` and ``item``'s row-drop
+        partition."""
+        indices = np.arange(table.num_rows)
+        if mask is not None:
+            indices = indices[mask]
+        if self._drop_partitions > 1:
+            indices = np.intersect1d(indices, self._drop_partition_indices(
+                item, table.num_rows))
+        return indices
 
 
 class PyDictWorker(_WorkerBase):
-    """Per-row decode path (reference ``PyDictReaderWorker``): row group → decoded row dicts."""
+    """Per-row decode path (reference ``PyDictReaderWorker``): row group → decoded row dicts.
 
-    def __call__(self, piece):
-        table = self._read_columns(piece, list(self._read_schema.fields.keys()))
+    With a row mask the predicate and filter columns are read first; the other columns
+    are fetched only when some rows match, and only matching rows are decoded."""
+
+    def __call__(self, item):
+        rows = self._load_rows(item)
+        spec = self._transform_spec
+        if _host_pipeline(spec):
+            # one columnar application over the whole row group
+            rows = spec.apply_rows(rows)
+        elif _spec_wants_writable(spec):
+            rows = [spec.func(dict(r)) for r in rows]
+        return rows
+
+    def _load_rows(self, item):
+        piece, _partition = item
+        wanted = list(self._read_schema.fields.keys())
+        first_pass = self._mask_fields()
+        mask = None
+        if first_pass:
+            head = self._read_columns(piece, first_pass)
+            mask = self._row_mask(head)
+            if mask is not None and not mask.any():
+                return []
+            remaining = sorted(set(wanted) - set(head.column_names))
+            table = _merge_tables(head, self._read_columns(piece, remaining)) \
+                if remaining else head
+        else:
+            table = self._read_columns(piece, wanted)
+        indices = self._selected_rows(item, table, mask)
+        if len(indices) == 0:
+            return []
+        if len(indices) < table.num_rows:
+            table = table.take(indices)
         stored_rows = table.to_pylist()
         decode_view = self._stored_schema.create_schema_view(
             [c for c in table.column_names if c in self._stored_schema.fields])
@@ -173,18 +278,14 @@ class PyDictWorker(_WorkerBase):
                 rows.append(decode_row(r, decode_view, self._device_fields, prestaged))
         except DecodeFieldError as e:
             raise _annotate_decode_error(e, piece) from e
-        spec = self._transform_spec
-        if _host_pipeline(spec):
-            # one columnar application over the whole row group
-            rows = spec.apply_rows(rows)
-        elif _spec_wants_writable(spec):
-            rows = [spec.func(dict(r)) for r in rows]
         return rows
 
 
 class ArrowWorker(_WorkerBase):
     """Vectorized batch path (reference ``ArrowReaderWorker``): row group → columnar numpy
-    dict, the shape the loader batches.
+    dict, the shape the loader batches. The row mask is applied to the Arrow table
+    before any column is converted, so rows a predicate or filter drops cost no decode
+    (a ``decode_on_device`` JPEG column's stage 1 included).
 
     With the compressed-page pass-through live (:meth:`_pagedec_active`), eligible
     fixed-width columns skip pyarrow's host inflate: their raw compressed pages ride the
@@ -194,9 +295,9 @@ class ArrowWorker(_WorkerBase):
     COLUMN to the classic read, so any store reads unchanged."""
 
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
-                 io_options=None, transform_spec=None):
+                 io_options=None, transform_spec=None, **selection):
         super().__init__(filesystem, read_schema, stored_schema, device_fields,
-                         transform_spec)
+                         transform_spec, **selection)
         self._io_options = IoOptions.normalize(io_options)
         #: set by the Reader when a DataLoader on a CUDA device adopts it: what ``auto``
         #: engages on
@@ -204,8 +305,8 @@ class ArrowWorker(_WorkerBase):
         #: (path, column) pairs whose pages declined the pass-through: read classically
         self._pagedec_refused = set()
 
-    def __call__(self, piece):
-        out = self._load_columns(piece)
+    def __call__(self, item):
+        out = self._load_columns(item)
         spec = self._transform_spec
         if _host_pipeline(spec):
             # fused vectorized kernels over the columnar batch, no pandas round trip;
@@ -215,18 +316,24 @@ class ArrowWorker(_WorkerBase):
             out = _pandas_transform(spec, out)
         return out
 
-    def _load_columns(self, piece):
+    def _load_columns(self, item):
+        piece, _partition = item
         wanted = list(self._read_schema.fields.keys())
         out = {}
         eligible = self._pagedec_eligible(piece, wanted)
         if eligible:
             out.update(self._pagedec_read(piece, eligible))
-        read_columns = [c for c in wanted if c not in out]
+        # one read: the wanted columns and the mask's
+        read_columns = [c for c in sorted(set(wanted) | set(self._mask_fields()))
+                        if c not in out]
         if not read_columns:
             return out
         table = self._read_columns(piece, read_columns)
-        for name in read_columns:
-            if name not in table.column_names:
+        indices = self._selected_rows(item, table, self._row_mask(table))
+        if len(indices) < table.num_rows:
+            table = table.take(indices)
+        for name in wanted:
+            if name in out or name not in table.column_names:
                 continue
             try:
                 out[name] = _column_to_numpy(table, name, self._read_schema,
@@ -254,9 +361,12 @@ class ArrowWorker(_WorkerBase):
         return mode == "on" or self.pagedec_on_device
 
     def _pagedec_shape_ok(self):
-        """In-worker rewrites need decoded columns: any ``transform_spec`` (a device one
-        too, as in the JAX package) turns the pass-through off for the whole read."""
-        return self._transform_spec is None
+        """Row-selecting options (a predicate, filters, row-drop partitions) and
+        in-worker rewrites (any ``transform_spec``, a device one too) need decoded rows:
+        each turns the pass-through off for the whole read, as in the JAX package.
+        ``rowgroup_selector`` and hive pruning act at plan time and leave it on."""
+        return (self._predicate is None and not self._filters
+                and self._drop_partitions <= 1 and self._transform_spec is None)
 
     def _pagedec_footer(self, path):
         """The parsed footer for eligibility classification, or ``None`` (the classic
@@ -337,6 +447,15 @@ def _annotate_decode_error(err, piece):
     """Attach the failing row group's identity to a decode error."""
     return DecodeFieldError(
         "%s (while decoding %s row group %d)" % (err, piece.path, piece.row_group))
+
+
+def _merge_tables(head, tail):
+    """Column-wise merge of two same-length row-group reads into one table."""
+    import pyarrow as pa
+
+    cols = {name: head.column(name) for name in head.column_names}
+    cols.update({name: tail.column(name) for name in tail.column_names})
+    return pa.table(cols)
 
 
 def _column_to_numpy(table, name, schema, device_fields=()):
@@ -482,7 +601,9 @@ class Reader:
     """Iterates decoded rows (per-row path) or columnar batches (batch path).
 
     Reference: ``Reader`` petastorm/reader.py ~L330. Context-manager protocol,
-    ``reset()``, ``stop()``/``join()``, ``last_row_consumed``.
+    ``reset()``, ``stop()``/``join()``, ``last_row_consumed``; checkpointable through
+    ``state_dict()``/``load_state_dict()`` (the consumed-work map; equal to the JAX
+    package's after the same deliveries, and loadable by it).
 
     On a process pool's shared-memory view wire (``wire_serializer='shm-view'`` or
     ``'shm-arrow-view'``) a batch's arrays are read-only views into a pool slab, valid
@@ -492,6 +613,7 @@ class Reader:
 
     def __init__(self, schema, worker, pieces, num_epochs=1, shuffle_row_groups=True,
                  seed=None, cur_shard=None, shard_count=None, shard_seed=None,
+                 shuffle_row_drop_partitions=1,
                  reader_pool_type="thread", workers_count=4, results_queue_size=16,
                  is_batched_reader=False, results_timeout_s=300.0,
                  wire_serializer="pickle", worker_respawns=None, io_options=None,
@@ -504,13 +626,16 @@ class Reader:
         self.shard_count = shard_count
         shard_idx = shard_indices(len(pieces), cur_shard, shard_count, shard_seed) \
             if shard_count else np.arange(len(pieces))
-        items = [pieces[int(i)] for i in shard_idx]
+        items = [(pieces[int(i)], partition) for i in shard_idx
+                 for partition in range(max(1, shuffle_row_drop_partitions))]
         if not items:
             raise NoDataAvailableError(
-                "No row groups to read (empty dataset or an empty shard)")
+                "No row groups to read (empty dataset, over-filtering selector/predicate, "
+                "or an empty shard)")
         self._plan = EpochPlan(items, num_epochs=num_epochs, shuffle=shuffle_row_groups,
                                seed=seed if seed is not None else shard_seed,
                                with_epoch=True)
+        self._num_items = len(items)
         self._pool_args = dict(
             reader_pool_type=reader_pool_type, workers_count=workers_count,
             results_queue_size=results_queue_size, results_timeout_s=results_timeout_s,
@@ -526,6 +651,9 @@ class Reader:
         self._results_iter = None
         self._buffer = []
         self._buffer_pos = 0
+        self._buffer_tag = None  # (epoch, ordinal) of the row group feeding _buffer
+        self._consumed = {}  # epoch -> set(ordinal): fully delivered work items
+        self._resume_epoch = 0  # every epoch below this one is fully consumed
         self.last_row_consumed = False
         self.stopped = False
         #: device-decodable fields staged by the workers (set by the factories)
@@ -554,33 +682,67 @@ class Reader:
             return self._next_batch()
         return self._next_row()
 
+    def _mark_consumed(self, tag):
+        epoch, ordinal = tag
+        self._consumed.setdefault(epoch, set()).add(ordinal)
+        # advance the watermark: epochs below _resume_epoch are fully consumed, so the
+        # state stays bounded over any number of epochs
+        while len(self._consumed.get(self._resume_epoch, ())) \
+                >= self._plan.items_in_epoch(self._resume_epoch):
+            del self._consumed[self._resume_epoch]
+            self._resume_epoch += 1
+
+    def _items_identity_crc(self, count):
+        """crc32 over the identity (``path:row_group:partition``) of the first ``count``
+        plan items in ordinal order: what binds a checkpoint's consumed-ordinal map to
+        the item order it was taken over (the JAX package's value for the same store)."""
+        import zlib
+
+        h = 0
+        for piece, partition in self._plan.items[:count]:
+            h = zlib.crc32(("%s:%s:%s" % (piece.path, piece.row_group,
+                                          partition)).encode("utf-8"), h)
+        return h & 0xFFFFFFFF
+
     def _next_payload(self):
+        """The next ``(epoch, ordinal, payload)`` result of the pool."""
         nxt = next(self._results_iter, None)
         if nxt is None:
             if not self._executor.truncated:
                 self.last_row_consumed = True
             raise StopIteration
-        return nxt[2]
+        return nxt
 
     def _next_row(self):
-        while self._buffer_pos >= len(self._buffer):
+        while True:
+            if self._buffer_pos < len(self._buffer):
+                row = self._buffer[self._buffer_pos]
+                self._buffer_pos += 1
+                if self._buffer_pos >= len(self._buffer):
+                    # the row group's last row is delivered: it counts as consumed
+                    self._mark_consumed(self._buffer_tag)
+                    self._buffer_tag = None
+                return self._row_type(**{name: row.get(name) for name in self.schema.fields})
             # past the drained buffer: its slab (view wire) returns to the ring
             self.release_batch()
-            self._buffer = self._next_payload()
+            epoch, ordinal, payload = self._next_payload()
+            self._held_lease = self._register_lease(getattr(payload, "lease", None))
+            if not payload:
+                self._mark_consumed((epoch, ordinal))  # a fully filtered row group
+                continue
+            self._buffer = payload
             self._buffer_pos = 0
-            self._held_lease = self._register_lease(getattr(self._buffer, "lease", None))
-        row = self._buffer[self._buffer_pos]
-        self._buffer_pos += 1
-        return self._row_type(**{name: row.get(name) for name in self.schema.fields})
+            self._buffer_tag = (epoch, ordinal)
 
     def _next_batch(self):
         # the previous batch's slab (view wire) returns to the ring: a batch's views stay
         # valid until the consumer asks for the next one
         self.release_batch()
         while True:
-            columns = self._next_payload()
+            epoch, ordinal, columns = self._next_payload()
             if isinstance(columns, dict):
                 self._held_lease = self._register_lease(columns.pop(LEASE_KEY, None))
+            self._mark_consumed((epoch, ordinal))  # a batch's delivery is atomic
             if not (columns and len(next(iter(columns.values())))):
                 self.release_batch()  # an empty row group
                 continue
@@ -656,6 +818,9 @@ class Reader:
         self._plan.reset()
         self._buffer = []
         self._buffer_pos = 0
+        self._buffer_tag = None
+        self._consumed = {}
+        self._resume_epoch = 0
         self.last_row_consumed = False
         self._start()
 
@@ -675,6 +840,75 @@ class Reader:
     def __exit__(self, exc_type, exc, tb):
         self.stop()
         self.join()
+
+    # -- checkpoint ---------------------------------------------------------------------
+
+    def state_dict(self):
+        """Exact-resume checkpoint: the consumed-work map, not the dispatch cursor.
+
+        Work items prefetched by the pool but not yet delivered are not counted, so a
+        resume replays them: at-least-once delivery at row-group granularity (a
+        partially consumed row group is replayed in full). The dict is plain JSON data,
+        key for key the JAX package's ``Reader.state_dict()``.
+        """
+        plan_state = self._plan.state_dict()
+        state = {
+            "plan": {k: plan_state[k] for k in ("seed", "shuffle", "num_epochs", "num_items")},
+            "resume_epoch": self._resume_epoch,
+            "consumed": {int(e): sorted(v) for e, v in self._consumed.items()},
+            # consumed ordinals mean something only against this item order
+            "items_crc": self._items_identity_crc(self._num_items),
+        }
+        if self.shard_count:
+            # the shard travels with the cursor, so a restore routes each process its own
+            # state (petastorm_tpu_torch.checkpoint) and a mis-wired one fails loudly
+            state["cur_shard"] = self.cur_shard
+            state["shard_count"] = self.shard_count
+        return state
+
+    def load_state_dict(self, state):
+        if "plan" not in state or "consumed" not in state:
+            raise ValueError(
+                "not a Reader state (keys: %s) — a WeightedSamplingReader/"
+                "InMemDataLoader checkpoint must be restored into the matching "
+                "object" % sorted(state))
+        self.stop()
+        self.join()
+        if state["plan"]["num_items"] > self._num_items:
+            raise ValueError(
+                "Checkpoint was taken over %d work items; reader has %d"
+                % (state["plan"]["num_items"], self._num_items)
+            )
+        ck_shard = state.get("cur_shard")
+        if ck_shard is not None and self.shard_count and ck_shard != self.cur_shard:
+            raise ValueError(
+                "Checkpoint belongs to shard %s/%s but this reader is shard %s/%s — "
+                "resuming would replay the wrong rows"
+                % (ck_shard, state.get("shard_count"), self.cur_shard, self.shard_count))
+        ck_crc = state.get("items_crc")
+        if ck_crc is not None and \
+                ck_crc != self._items_identity_crc(state["plan"]["num_items"]):
+            raise ValueError(
+                "Checkpoint's consumed ordinals do not match this reader's "
+                "item order (the first %d work items differ — a file added "
+                "between save and restore sorts BETWEEN existing names?): "
+                "resuming would replay or lose rows. Mutable datasets must "
+                "append files that sort after existing ones (e.g. "
+                "monotonically-named parts) for cross-restart resume."
+                % state["plan"]["num_items"])
+        for lease in list(self._issued_leases):
+            lease.revoke()  # the pool rebuild below recycles the slabs they view
+        self._resume_epoch = int(state["resume_epoch"])
+        self._consumed = {int(e): set(v) for e, v in state["consumed"].items()}
+        self._plan.load_state_dict(
+            {**state["plan"], "epoch": self._resume_epoch, "pos": 0}
+        )
+        self._plan.set_skip(self._consumed)
+        self._buffer = []
+        self._buffer_pos = 0
+        self._buffer_tag = None
+        self.last_row_consumed = False
+        self._start()
 
 
 # --------------------------------------------------------------------------------------
@@ -769,29 +1003,47 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     slabs (see :class:`Reader`). ``worker_respawns`` bounds the respawns of dead children
     (default 2, or ``PTPU_WORKER_RESPAWNS``). ``transport`` is ``'pipe'``; ``'tcp'`` is not
     ported.
+
+    Row selection: ``predicate`` (:mod:`petastorm_tpu_torch.predicates`) masks rows in
+    the workers, reading its columns first and the others only where a row matches;
+    ``filters`` (pyarrow DNF tuples) prune hive ``key=value`` directories and row groups
+    whose footer statistics cannot match, then mask rows; ``rowgroup_selector``
+    (:mod:`petastorm_tpu_torch.selectors`) keeps the row groups a prebuilt index names
+    (:mod:`petastorm_tpu_torch.etl.rowgroup_indexing`); ``shuffle_row_drop_partitions=k``
+    splits each row group into k seeded row subsets, each its own work item. A predicate
+    that matches nothing gives an empty read; ``filters`` that prune every row group
+    raise ``NoDataAvailableError``.
     """
     reject_unported(
-        "make_reader", shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-        predicate=predicate, rowgroup_selector=rowgroup_selector, cache_type=cache_type,
+        "make_reader", cache_type=cache_type,
         cache_location=cache_location, cache_size_limit=cache_size_limit,
         cache_row_size_estimate=cache_row_size_estimate,
-        cache_extra_settings=cache_extra_settings, filters=filters,
+        cache_extra_settings=cache_extra_settings,
         io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
     io_options = IoOptions.normalize(io_options)  # the per-row path reads classically
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
     stored_schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)
+    pieces = _apply_rowgroup_selector(fs, path, pieces, rowgroup_selector)
+    stats_pieces = pieces  # the plan's input, row-group statistics still attached
+    pieces, partition_info, filters = _plan_pieces(pieces, filters, predicate, shard_count)
+    if partition_info:
+        stored_schema = _schema_with_partitions(stored_schema, partition_info)
     read_schema = _read_schema(stored_schema, schema_fields)
-    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, pieces)
+    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces)
     final_schema = read_schema
     if transform_spec is not None and not transform_spec.device:
         final_schema = transform_schema(read_schema, transform_spec)
     device_fields = _resolve_device_fields(read_schema, decode_on_device, transform_spec)
-    worker = PyDictWorker(fs, read_schema, stored_schema, device_fields, transform_spec)
+    worker = PyDictWorker(
+        fs, read_schema, stored_schema, device_fields, transform_spec, predicate=predicate,
+        filters=filters, shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+        seed=seed if seed is not None else shard_seed, partition_info=partition_info)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,
+               shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                reader_pool_type=reader_pool_type, workers_count=workers_count,
                results_queue_size=results_queue_size, is_batched_reader=False,
                results_timeout_s=results_timeout_s,
@@ -831,12 +1083,17 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
 
     The process pool's options are :func:`make_reader`'s; the default wire here is
     ``'arrow'``, and ``'shm'``/``'shm-view'`` mean ``'shm-arrow'``/``'shm-arrow-view'``.
+
+    ``predicate``, ``filters`` and ``shuffle_row_drop_partitions``: see
+    :func:`make_reader` (``rowgroup_selector`` is ``make_reader``'s only, as in the JAX
+    package). Each of them turns the compressed-page pass-through off for the read: the
+    mask needs decoded rows. The mask is applied before any column is decoded, so rows it
+    drops cost no stage 1 on a ``decode_on_device`` JPEG column.
     """
     reject_unported(
-        "make_batch_reader", shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-        predicate=predicate, cache_type=cache_type, cache_location=cache_location,
+        "make_batch_reader", cache_type=cache_type, cache_location=cache_location,
         cache_size_limit=cache_size_limit, cache_row_size_estimate=cache_row_size_estimate,
-        cache_extra_settings=cache_extra_settings, filters=filters,
+        cache_extra_settings=cache_extra_settings,
         io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
     io_options = IoOptions.normalize(io_options)
@@ -847,17 +1104,25 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     pieces = []
     for p in paths:
         pieces.extend(load_row_groups(fs, p))
+    stats_pieces = pieces  # the plan's input, row-group statistics still attached
+    pieces, partition_info, filters = _plan_pieces(pieces, filters, predicate, shard_count)
+    if partition_info:
+        stored_schema = _schema_with_partitions(stored_schema, partition_info)
     read_schema = _read_schema(stored_schema, schema_fields)
-    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, pieces)
+    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces)
     final_schema = read_schema
     if transform_spec is not None and not transform_spec.device:
         final_schema = transform_schema(read_schema, transform_spec)
     device_fields = _resolve_device_fields(read_schema, decode_on_device, transform_spec)
-    worker = ArrowWorker(fs, read_schema, stored_schema, device_fields,
-                         io_options=io_options, transform_spec=transform_spec)
+    worker = ArrowWorker(
+        fs, read_schema, stored_schema, device_fields, io_options=io_options,
+        transform_spec=transform_spec, predicate=predicate, filters=filters,
+        shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+        seed=seed if seed is not None else shard_seed, partition_info=partition_info)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,
+               shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                reader_pool_type=reader_pool_type, workers_count=workers_count,
                results_queue_size=results_queue_size, is_batched_reader=True,
                results_timeout_s=results_timeout_s,
@@ -869,3 +1134,190 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r
+
+
+# --------------------------------------------------------------------------------------
+# Plan-time selection (reference ``_plan_pieces`` and its helpers)
+# --------------------------------------------------------------------------------------
+
+
+def _dnf_clauses(filters):
+    """pyarrow-style DNF filters as a list of AND-clauses: the flat ``[(col, op, val),
+    ...]`` form or the ``[[...], [...]]`` OR-of-ANDs form. Shared by the row mask and
+    the statistics pruning, so their clause semantics cannot drift."""
+    return [filters] if isinstance(filters[0][0], str) else filters
+
+
+def _dnf_fields(filters):
+    return {name for clause in _dnf_clauses(filters) for name, _op, _val in clause}
+
+
+def _dnf_mask(table, filters):
+    """Evaluate DNF filters over a row-group table as a boolean mask."""
+    def term_mask(name, op, val):
+        col = table.column(name).to_numpy(zero_copy_only=False)
+        if op in ("=", "=="):
+            return col == val
+        if op == "!=":
+            return col != val
+        if op == "<":
+            return col < val
+        if op == "<=":
+            return col <= val
+        if op == ">":
+            return col > val
+        if op == ">=":
+            return col >= val
+        if op == "in":
+            return np.isin(col, list(val))
+        if op in ("not in", "not-in"):
+            return ~np.isin(col, list(val))
+        raise ValueError("Unsupported filter op %r" % op)
+
+    total = None
+    for clause in _dnf_clauses(filters):
+        cmask = None
+        for name, op, val in clause:
+            t = term_mask(name, op, val)
+            cmask = t if cmask is None else (cmask & t)
+        total = cmask if total is None else (total | cmask)
+    return np.asarray(total, dtype=bool)
+
+
+def _plan_pieces(pieces, filters, predicate, shard_count=None):
+    """Plan-time pruning: hive partition resolution and directory pruning, then
+    row-group statistics pruning, with the clauses a predicate implies conjoined for the
+    pruning only. Returns ``(pieces, partition_info, filters)``, ``filters`` being the
+    normalized user filters the workers run as the row mask.
+
+    When the predicate's clauses alone prune everything, one piece a shard is kept: a
+    predicate that matches nothing gives an empty read (its row groups mask to zero
+    rows), while user ``filters`` that prune everything leave no piece, and the reader
+    raises ``NoDataAvailableError``. Statistics are stripped from the returned pieces:
+    work items must not carry per-column bounds to the pool."""
+    out, partition_info, norm_user = _resolve_partitions(pieces, filters)
+    out = _prune_by_stats(out, norm_user)
+    implied = None
+    if predicate is not None:
+        from petastorm_tpu_torch.predicates import implied_dnf_filters
+
+        implied = implied_dnf_filters(predicate)
+    if implied and out:
+        # sequential pruning passes equal conjoining the clause sets (satisfiability is
+        # checked per term), so the implied clauses prune the user-pruned set directly
+        logger.debug("Predicate-implied pruning clauses: %s", implied)
+        kept = out
+        if partition_info:
+            from petastorm_tpu_torch.partitions import normalize_filters, prune_pieces
+
+            implied = normalize_filters(implied, partition_info)
+            kept = prune_pieces(kept, partition_info, implied)
+        kept = _prune_by_stats(kept, implied)
+        # never hand a shard zero pieces: pad with unpruned survivors (they mask to zero
+        # rows) up to one piece a shard
+        min_pieces = max(1, int(shard_count or 1))
+        if len(kept) < min_pieces:
+            have = {(p.path, p.row_group) for p in kept}
+            extra = [p for p in out if (p.path, p.row_group) not in have]
+            kept = kept + extra[:min_pieces - len(kept)]
+        out = kept
+    return ([p._replace(stats=None) if p.stats else p for p in out],
+            partition_info, norm_user)
+
+
+def _resolve_partitions(pieces, filters):
+    """Hive partitioning at plan time: a typed
+    :class:`~petastorm_tpu_torch.partitions.PartitionInfo` from the pieces' paths and
+    directory-level pruning by ``filters``. Returns ``(pieces, info or None, filters)``,
+    filter values on partition columns coerced to the inferred column types (a string
+    filter against an int-typed partition must match, here and in the row mask); flat
+    layouts pass through untouched."""
+    from petastorm_tpu_torch.partitions import (build_partition_info, normalize_filters,
+                                                prune_pieces)
+
+    info = build_partition_info([p.partition_values or {} for p in pieces])
+    if not info:
+        return pieces, None, filters
+    filters = normalize_filters(filters, info)
+    pruned = prune_pieces(pieces, info, filters)
+    if len(pruned) < len(pieces):
+        logger.info("Hive partition pruning: %d of %d row groups scheduled",
+                    len(pruned), len(pieces))
+    return pruned, info, filters
+
+
+def _prune_by_stats(pieces, filters):
+    """Drop the pieces that no OR-clause of ``filters`` can match given their footer
+    statistics. Conservative: absent statistics, unknown columns and type mismatches
+    count as satisfiable, so a piece goes only on a provable contradiction, and the row
+    mask still runs on the survivors. Parquet min/max exclude nulls, so ``!=`` and
+    ``not in`` prune only groups whose recorded null count is zero (null rows match
+    those operators in the row mask)."""
+    if not pieces or not filters:
+        return pieces
+
+    def term_unsat(stats, name, op, val):
+        if not stats or name not in stats:
+            return False
+        mn, mx, nulls = stats[name]
+        try:
+            if op in ("=", "=="):
+                return val < mn or val > mx
+            if op == "!=":
+                return nulls == 0 and bool(mn == mx == val)
+            if op == "<":
+                return mn >= val
+            if op == "<=":
+                return mn > val
+            if op == ">":
+                return mx <= val
+            if op == ">=":
+                return mx < val
+            if op == "in":
+                return all(v < mn or v > mx for v in val)
+            if op in ("not in", "not-in"):
+                if nulls != 0:
+                    return False
+                excluded = set(val)
+                if bool(mn == mx):
+                    return mn in excluded
+                if isinstance(mn, (int, np.integer)) and isinstance(mx, (int, np.integer)):
+                    # integer stats: unsatisfiable iff the excluded set covers every
+                    # value in [mn, mx]
+                    span = int(mx) - int(mn) + 1
+                    return span <= len(excluded) and \
+                        all((int(mn) + i) in excluded for i in range(span))
+                return False
+        except TypeError:  # mixed types (a str filter against bytes stats): no pruning
+            return False
+        return False
+
+    kept = [p for p in pieces
+            if any(not any(term_unsat(p.stats, *term) for term in clause)
+                   for clause in _dnf_clauses(filters))]
+    if len(kept) < len(pieces):
+        logger.info("Row-group statistics pruning: %d of %d row groups scheduled",
+                    len(kept), len(pieces))
+    return kept
+
+
+def _schema_with_partitions(schema, info):
+    """The stored schema plus the partition-directory columns (in no file's schema, but
+    delivered as row values); nullable for ``__HIVE_DEFAULT_PARTITION__`` directories."""
+    from petastorm_tpu_torch.partitions import partition_fields
+
+    extra = [f for f in partition_fields(info, nullable=True)
+             if f.name not in schema.fields]
+    if not extra:
+        return schema
+    return Unischema(schema._name, list(schema.fields.values()) + extra)
+
+
+def _apply_rowgroup_selector(fs, path, pieces, rowgroup_selector):
+    if rowgroup_selector is None:
+        return pieces
+    from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+
+    index_dict = get_row_group_indexes(fs, path)
+    selected = rowgroup_selector.select_row_groups(index_dict)
+    return [p for i, p in enumerate(pieces) if i in selected]

@@ -83,3 +83,41 @@ def double_x_plus_a(d):
     row dict (per-row path) and on a pandas DataFrame (batch path) alike."""
     d["x2"] = d["x"] * 2.0 + d["a"]
     return d
+
+
+def gloo_checkpoint_rank(rank, world, port, url, ckpt, out):
+    """One rank of a ``torch.distributed`` (gloo, CPU) job over a sharded reader: take
+    ``rank + 1`` batches, save the job's data-plane state (collective), rebuild the
+    reader, restore it and read the rest. Writes ``{"pre", "post", "payload_keys"}`` as
+    JSON to ``out``. Run in a spawned process by the checkpoint tests."""
+    import datetime
+    import json
+
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch import checkpoint as ptck
+    from petastorm_tpu_torch import make_batch_reader
+
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        def build():
+            return make_batch_reader(url, cur_shard=rank, shard_count=world, shard_seed=0,
+                                     shuffle_row_groups=True, seed=4, num_epochs=1,
+                                     reader_pool_type="dummy")
+
+        with build() as reader:
+            it = iter(reader)
+            pre = [int(i) for _ in range(rank + 1) for i in next(it).id]
+            payload = ptck.global_state_dict(reader)
+            ptck.save(ckpt, reader)
+        resumed = build()
+        ptck.restore(ckpt, resumed)
+        with resumed:
+            post = [int(i) for b in resumed for i in b.id]
+        with open(out, "w") as f:
+            json.dump({"pre": pre, "post": post,
+                       "payload_keys": sorted(payload[ptck._GLOBAL_KEY])}, f)
+    finally:
+        dist.destroy_process_group()

@@ -7,6 +7,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -91,8 +92,9 @@ def test_decode_without_device_raises_when_cuda_is_absent(monkeypatch):
         decode_jpeg_batch([planes])
 
 
+# pad_shapes is ported: its case holds the trace option, still refused
 @pytest.mark.parametrize("kwargs", [
-    {"sharding": object()}, {"pad_shapes": {"x": (3,)}}, {"slos": object()},
+    {"sharding": object()}, {"trace": True}, {"slos": object()},
     {"metrics": True}, {"health": True}, {"provenance": True},
 ])
 def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
@@ -143,12 +145,13 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.serializers", "petastorm_tpu_torch._child_worker",
     "petastorm_tpu_torch.parallel.shm_ring", "petastorm_tpu_torch.io.lease",
     "petastorm_tpu_torch.transport", "petastorm_tpu_torch.ops.tabular",
-    "petastorm_tpu_torch.transform", "petastorm_tpu_torch.io.statscache"])
+    "petastorm_tpu_torch.transform", "petastorm_tpu_torch.io.statscache",
+    "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.partitions"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
     ``transform_spec`` travels to the children, so the feature pipeline's module is one
-    of them."""
+    of them; so do a predicate and the hive partition layout."""
     assert module in _port_modules()
     code = ("import importlib, sys\n"
             "importlib.import_module(%r)\n"
@@ -161,31 +164,81 @@ def test_process_pool_modules_import_no_jax_or_reference(module):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-SELECTION_OPTIONS = [("predicate", object()), ("filters", [("id", ">", 3)]),
-                     ("rowgroup_selector", object()), ("shuffle_row_drop_partitions", 2)]
-
-
-@pytest.mark.parametrize("name,value", SELECTION_OPTIONS,
-                         ids=[n for n, _v in SELECTION_OPTIONS])
-def test_the_rest_of_item_6_still_raises_naming_it(tmp_path, name, value):
-    """transform_spec is taken (ported); predicates, filters, selectors, row-drop
-    partitions and pad_shapes still raise naming item 6."""
+def _selection_store(tmp_path):
+    """A 12-row store written through the port (both factories open it), its
+    ``id`` column indexed for ``rowgroup_selector``."""
     import numpy as np
-    import pyarrow as pa
-    import pyarrow.parquet as pq
 
+    from petastorm_tpu_torch import types
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.etl.rowgroup_indexing import (SingleFieldIndexer,
+                                                           build_rowgroup_index)
+    from petastorm_tpu_torch.metadata import write_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    schema = Unischema("S", [UnischemaField("id", np.int64, (), ScalarCodec(
+        types.LongType()), False)])
+    url = "file://" + str(tmp_path / "store")
+    write_dataset(url, schema, ({"id": i} for i in range(12)), rows_per_file=4)
+    build_rowgroup_index(url, [SingleFieldIndexer("by_id", "id")])
+    return url
+
+
+def _item_6_value(name):
+    from petastorm_tpu_torch.predicates import in_set
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+
+    return {"predicate": in_set({1, 5, 9}, "id"), "filters": [("id", "in", [1, 5, 9])],
+            "rowgroup_selector": SingleIndexSelector("by_id", [1, 5]),
+            "shuffle_row_drop_partitions": 2}[name]
+
+
+@pytest.mark.parametrize("name", ["predicate", "filters", "rowgroup_selector",
+                                  "shuffle_row_drop_partitions"])
+def test_item_6_options_are_taken(tmp_path, name):
+    """Item 6 is ported: each option is taken by the factories that have it
+    (``rowgroup_selector`` is make_reader's only) and selects rows; none is listed as
+    unported any more."""
     from petastorm_tpu_torch import make_batch_reader, make_reader
     from petastorm_tpu_torch._unported import OPTIONS
 
-    assert "transform_spec" not in OPTIONS and "device_shuffle_capacity" not in OPTIONS
-    assert OPTIONS["pad_shapes"][0] == OPTIONS[name][0] == "selection"
-    pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
-    url = "file://" + str(tmp_path)
+    assert name not in OPTIONS and "pad_shapes" not in OPTIONS
+    url = _selection_store(tmp_path)
     factories = [make_reader] if name == "rowgroup_selector" \
         else [make_reader, make_batch_reader]
     for factory in factories:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            factory(url, **{name: value})
+        with factory(url, reader_pool_type="dummy", **{name: _item_6_value(name)}) as r:
+            got = sorted(int(i) for x in r for i in np.atleast_1d(x.id))
+        if name == "shuffle_row_drop_partitions":
+            assert got == list(range(12))  # every partition of every row group, once
+        elif name == "rowgroup_selector":
+            assert got == list(range(8))  # one row group a file: ids 1 and 5 are in two
+        else:
+            assert got == [1, 5, 9]
+
+
+@pytest.mark.parametrize("case", ["cache_type", "io_retries", "recovery", "watch",
+                                  "sharding", "ngram"])
+def test_options_still_unported_raise_naming_their_item(tmp_path, case):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+
+    pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
+    url = "file://" + str(tmp_path)
+    item = {"cache_type": "item 5", "io_retries": "item 8", "recovery": "item 8",
+            "watch": "item 8", "sharding": "item 12", "ngram": "item 7"}[case]
+    with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
+        if case == "sharding":
+            DataLoader(object(), 4, device="cpu", sharding=object())
+        elif case == "ngram":
+            make_batch_reader(url, schema_fields=object())
+        else:
+            make_batch_reader(url, **{case: {"cache_type": "memory", "io_retries": 2,
+                                             "recovery": {"io_retries": 1},
+                                             "watch": True}[case]})
 
 
 def test_transform_spec_and_device_shuffle_capacity_are_taken():
@@ -196,5 +249,6 @@ def test_transform_spec_and_device_shuffle_capacity_are_taken():
     reader = SimpleNamespace(stop=lambda: None, join=lambda: None)
     with DataLoader(reader, 4, device="cpu", device_shuffle_capacity=64) as loader:
         assert loader._device_shuffle_capacity == 64
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        DataLoader(reader, 4, device="cpu", pad_shapes={"x": (3,)})
+    # pad_shapes is ported too (item 6): taken and kept
+    with DataLoader(reader, 4, device="cpu", pad_shapes={"x": (3,)}) as loader:
+        assert loader._pad_shapes == {"x": (3,)}

@@ -535,3 +535,106 @@ def test_criteo_feed_on_the_card_equals_the_cpu(criteo_store):
     assert pk.extract_pages.launches > launches
     assert _row_multiset(card) == _row_multiset(run(CPU, 0))
     port_stats.clear_memo()
+
+
+# -- pad_shapes ------------------------------------------------------------------------
+
+
+def _ragged_cases():
+    rng = np.random.RandomState(21)
+    ragged_1d = np.empty(9, dtype=object)
+    ragged_1d[:] = [rng.randint(0, 1000, rng.randint(0, 7)).astype(np.int32)
+                    for _ in range(9)]
+    ragged_2d = np.empty(5, dtype=object)
+    ragged_2d[:] = [rng.rand(rng.randint(1, 4), rng.randint(1, 3)).astype(np.float32)
+                    for _ in range(5)]
+    return {
+        "ragged_1d": ({"h": ragged_1d, "id": np.arange(9)}, {"h": (8,)}),
+        "ragged_2d": ({"m": ragged_2d}, {"m": (3, 2)}),
+        "uniform_below_max": ({"u": rng.rand(4, 3).astype(np.float32)}, {"u": (5,)}),
+        "uniform_at_max": ({"u": rng.rand(4, 5).astype(np.float32)}, {"u": (5,)}),
+        "list_rows": ({"l": [[1, 2], [3]]}, {"l": (4,)}),
+        "absent_field": ({"id": np.arange(3)}, {"h": (8,)}),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_ragged_cases()))
+def test_pad_ragged_columns_equal_reference(case):
+    from petastorm_tpu_torch.loader import _pad_ragged_columns
+
+    columns, shapes = _ragged_cases()[case]
+    got = _pad_ragged_columns(columns, shapes)
+    want = ref_loader._pad_ragged_columns(columns, shapes)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert np.asarray(got[name]).dtype == np.asarray(want[name]).dtype, name
+        np.testing.assert_array_equal(np.asarray(got[name]), np.asarray(want[name]))
+
+
+@pytest.mark.parametrize("rows,shape", [([np.zeros((2, 2)), np.zeros((1, 1))], (4,)),
+                                        ([np.zeros(3), np.zeros(9)], (4,))],
+                         ids=["rank_mismatch", "exceeds_max"])
+def test_pad_ragged_columns_errors_are_the_references(rows, shape):
+    from petastorm_tpu_torch.loader import _pad_ragged_columns
+
+    col = np.empty(len(rows), dtype=object)
+    col[:] = rows
+    with pytest.raises(ValueError) as err:
+        _pad_ragged_columns({"x": col}, {"x": shape})
+    with pytest.raises(ValueError) as ref_err:
+        ref_loader._pad_ragged_columns({"x": col}, {"x": shape})
+    assert str(err.value) == str(ref_err.value)
+
+
+@pytest.fixture(scope="module")
+def ragged_store(tmp_path_factory):
+    """A store with a ragged int32 list column (0-6 ids a row), 40 rows in row groups of
+    8, values from a numpy seed."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.RandomState(4)
+    hist = [rng.randint(0, 10**6, rng.randint(0, 7)).astype(np.int32) for _ in range(40)]
+    root = tmp_path_factory.mktemp("torch_ragged")
+    pq.write_table(pa.table({"id": np.arange(40, dtype=np.int64),
+                             "hist": pa.array([h.tolist() for h in hist],
+                                              pa.list_(pa.int32()))}),
+                   str(root / "p.parquet"), row_group_size=8)
+    return {"url": "file://" + str(root), "hist": hist}
+
+
+def test_pad_shapes_through_the_loader_reach_the_device(ragged_store):
+    """The padded column and its mask are ordinary device tensors equal to numpy's
+    padding of the same rows, and to the reference loader's host batches."""
+    reader = make_batch_reader(ragged_store["url"], reader_pool_type="dummy",
+                               shuffle_row_groups=False)
+    with DataLoader(reader, 16, device="cpu", last_batch="partial",
+                    pad_shapes={"hist": (8,)}) as loader:
+        batches = list(loader)
+    ref_r = ref_reader.make_batch_reader(ragged_store["url"], reader_pool_type="dummy",
+                                         shuffle_row_groups=False)
+    with ref_loader.DataLoader(ref_r, 16, last_batch="partial", to_device=False,
+                               pad_shapes={"hist": (8,)}) as loader:
+        ref_batches = list(loader)
+    assert len(batches) == len(ref_batches) == 3
+    for b, rb in zip(batches, ref_batches):
+        # ragged rows arrive as Python lists (as in the reference), so the padding is int64
+        assert isinstance(b["hist"], torch.Tensor) and rb["hist"].dtype == np.int64
+        assert b["hist"].dtype == torch.int64
+        assert isinstance(b["hist__mask"], torch.Tensor) and b["hist__mask"].dtype == \
+            torch.bool
+        np.testing.assert_array_equal(b["hist"].numpy(), rb["hist"])
+        np.testing.assert_array_equal(b["hist__mask"].numpy(), rb["hist__mask"])
+        for row, rid in enumerate(b["id"].tolist()):
+            h = ragged_store["hist"][rid]
+            want = np.zeros(8, np.int64)
+            want[:len(h)] = h
+            np.testing.assert_array_equal(b["hist"][row].numpy(), want)
+            assert b["hist__mask"][row].sum().item() == len(h)
+
+
+def test_a_ragged_field_without_a_pad_shape_raises_the_references_error(ragged_store):
+    reader = make_batch_reader(ragged_store["url"], reader_pool_type="dummy")
+    with DataLoader(reader, 8, device="cpu") as loader:
+        with pytest.raises(ValueError, match=r"holds ragged tensors .*pad_shapes=\{'hist'"):
+            next(iter(loader))

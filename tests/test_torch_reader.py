@@ -159,12 +159,14 @@ def test_reset_restarts_the_epoch(ref_store):
     assert first == again and len(first) == ROWS
 
 
+# predicate, filters and shuffle_row_drop_partitions are ported (tests/test_torch_selection.py):
+# their cases here now hold options that are still refused
 @pytest.mark.parametrize("kwargs", [
-    {"reader_pool_type": "process", "transport": "tcp"}, {"predicate": object()},
+    {"reader_pool_type": "process", "transport": "tcp"}, {"cache_location": "/tmp/c"},
     {"cache_type": "local-disk"},
     {"io_options": {"readahead": False}}, {"io_retries": 3},
-    {"filters": [("id", ">", 3)]}, {"recovery": {"on_poison": "quarantine"}},
-    {"shuffle_row_drop_partitions": 2}, {"watch": True},
+    {"provenance": True}, {"recovery": {"on_poison": "quarantine"}},
+    {"tenant": "team-a"}, {"watch": True},
 ])
 def test_unported_reader_options_raise_naming_the_roadmap(ref_store, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
