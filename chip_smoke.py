@@ -118,9 +118,35 @@ Phases (each passes or the script exits non-zero, printing no result line):
    (e) ``pad_shapes`` on a 65,536-row store with a ragged int32 column of 0-50 ids a
    row, padded to (64,): the padded tensor and its mask on the card equal numpy's.
 
+10. Windowed and in-memory feeds. (a) ``InMemDataLoader`` over phase 4's store
+   (``decode_on_device=True``, batch 256, K2 as its device transform), two shuffled
+   epochs: every id once an epoch, the orders differ, every image equal on the card to
+   phase 7's, K2 equal to its plain version, ``stage2_planes``/``stage2_rgb`` once a fill
+   batch and K2 once a served batch, and a state taken after 5 batches, restored into a
+   fresh loader over a fresh reader, serves exactly the remaining batches' ids; fill
+   seconds, served rows/s and the store's ``memory_allocated`` printed. (b)
+   ``InMemDataLoader`` over phase 5's store with ``pagedec="auto"``, batch 16,384: one K3,
+   scan and K4 launch a pass-through fill batch, every row once, the first batch's
+   columns equal to phase 5's arrays by row key. (c) ``make_dataloader(url, 256,
+   decode_on_device=True, shuffle_row_groups=False, workers_count=7)`` against
+   ``make_batch_reader`` + ``DataLoader`` with the same arguments: the same ids, images
+   equal to phase 7's. (d) per-row ``NGram({0: ["id", "image"], 1: ["id", "image"], 2:
+   ["id"]}, delta_threshold=1, timestamp_field="id")`` (host decode) into
+   ``DataLoader(64)`` with K2 on both frames: the windows equal a numpy computation
+   from the row-group layout, each once, frames equal to the host decode, K2 twice a
+   batch and equal to its plain version. (e) a 1,048,576-row sensor store (``ts`` at 10
+   ms with a seeded gap about every 1,000 rows, 8 float32 sensors, row groups of 65,536)
+   through a batched ``NGram`` of 8 steps (72 flat columns) into ``DataLoader(16384)``,
+   with and without overlap: the window starts equal a numpy rolling-sum computation,
+   each window once, every value equal to the store's. (f) ``WeightedSamplingReader``
+   over phase 5's files 0-5 and 6-7, ``[0.7, 0.3]``, seed 0, into ``DataLoader(16384)``:
+   the items' origins follow numpy's ``Generator(PCG64(0)).choice`` while both readers
+   live, every row once. (g) the torch adapters' ``BatchedDataLoader`` over phase 5's
+   store: every column, moved to the card, equals the ``DataLoader``'s.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
-in phase 9's), the card's
+in phase 9's, ``slice11_launches`` in phase 10's), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -2857,6 +2883,511 @@ def phase_pad_shapes(work, smi, device="cuda"):
     return {"rows_per_s": PAD_ROWS / wall, "seconds": wall}
 
 
+# -- phase 10: windowed and in-memory feeds --------------------------------------------
+#
+# (a) InMemDataLoader over phase 4's JPEG store (decode_on_device, batch 256, K2 as the
+# device transform), two shuffled epochs and an exact resume; (b) InMemDataLoader over
+# phase 5's tabular store through the pass-through (pagedec="auto", batch 16,384), one
+# epoch; (c) make_dataloader against make_batch_reader + DataLoader with the same
+# arguments; (d) per-row NGram windows of three consecutive ids over phase 4's store,
+# host decode, K2 on two frames a window; (e) batched NGram windows of eight 10 ms steps
+# over a 1,048,576-row sensor store written here (72 flat columns), with and without
+# overlap; (f) WeightedSamplingReader over phase 5's store split by files, [0.7, 0.3];
+# (g) the torch adapters' BatchedDataLoader against the DataLoader on phase 5's store.
+
+INMEM_EPOCHS, INMEM_RESUME_AFTER = 2, 5
+NGRAM_BATCH = 64
+SENSOR_ROWS, SENSOR_RG_ROWS, SENSOR_COLUMNS, SENSOR_LENGTH = 1 << 20, 1 << 16, 8, 8
+SENSOR_GAP_EVERY, SENSOR_STEP_MS = 1000, 10
+MIX_P = (0.7, 0.3)
+MIX_FILES = 6  # files 0-5 in the first reader, the rest in the second
+
+
+def _k2_transform(names):
+    """Normalise ``names`` (uint8 frames) to bfloat16 with K2, keeping each frame's
+    uint8 as ``name + "_u8"``."""
+    from petastorm_tpu_torch.ops import image
+
+    def transform(batch):
+        out = dict(batch)
+        for name in names:
+            out[name] = image.normalize_images(batch[name], MEAN, STD)
+            out[name + "_u8"] = batch[name]
+        return out
+
+    return transform
+
+
+def _k2_plain_equal(batch, name):
+    """K2's output of ``name`` equal to its plain version on the same uint8 frames."""
+    import torch
+
+    from petastorm_tpu_torch.ops import image
+
+    plain = image._normalize_plain(batch[name + "_u8"], MEAN, STD, torch.bfloat16)
+    return torch.equal(batch[name], plain)
+
+
+def phase_inmem_jpeg(url, images, smi, device="cuda"):
+    """(a) (comment above); ``images`` ((ROWS, 224, 224, 3) uint8 by id) from phase 7."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import InMemDataLoader
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+
+    def build(workers_count):
+        reader = make_batch_reader(url, workers_count=workers_count, shuffle_row_groups=True,
+                                   seed=0, num_epochs=1, decode_on_device=True)
+        return InMemDataLoader(reader, BATCH, num_epochs=INMEM_EPOCHS, shuffle=True, seed=0,
+                               device_transform=_k2_transform(["image"]), device=device)
+
+    _sync(device)
+    base_mem = torch.cuda.memory_allocated() if device == "cuda" else 0
+    _jpeg_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    loader = build(workers)
+    _sync(device)
+    fill_s = time.perf_counter() - t0
+    fill = _jpeg_launch_counters()
+    store_mem = (torch.cuda.memory_allocated() - base_mem) if device == "cuda" else 0
+    fill_batches = -(-ROWS // BATCH)  # one layout group a batch: the store is uniform
+    _jpeg_launch_counters(zero=True)
+    counts = torch.zeros((INMEM_EPOCHS, ROWS), dtype=torch.int32, device=device)
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    order, plain_ok = [], True
+    t0 = time.perf_counter()
+    with loader:
+        for n, batch in enumerate(loader):
+            ids = batch["id"]
+            epoch = n // len(loader)
+            counts[epoch].index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad.add_((images.index_select(0, ids) != batch["image_u8"]).sum())
+            order.append(ids)
+            if n == 0:
+                plain_ok = _k2_plain_equal(batch, "image")
+        _sync(device)
+        serve_s = time.perf_counter() - t0
+        served = len(order)
+    launches = _jpeg_launch_counters()
+    c = counts.cpu()
+    epochs = [torch.cat(order[e * len(loader):(e + 1) * len(loader)]).cpu()
+              for e in range(INMEM_EPOCHS)]
+    del loader
+    # the resume: the epochs' orders are permutations of the store, so a resumed loader
+    # must fill its store in the same row order: one reader thread (several deliver row
+    # groups in completion order). A state after INMEM_RESUME_AFTER batches of an
+    # uninterrupted run, restored into a fresh loader over a fresh reader, serves exactly
+    # that run's remaining batches.
+    with build(1) as uninterrupted:
+        run, state = [], None
+        for n, batch in enumerate(uninterrupted):
+            run.append(batch["id"].cpu())
+            if n + 1 == INMEM_RESUME_AFTER:
+                state = uninterrupted.state_dict()
+    with build(1) as resumed:
+        resumed.load_state_dict(state)
+        rest = [b["id"].cpu() for b in resumed]
+    want = run[INMEM_RESUME_AFTER:]
+    resume_ok = len(rest) == len(want) and all(torch.equal(a, b) for a, b in zip(rest, want))
+    rows_per_s = served * BATCH / serve_s
+    log("inmem (a): fill of %d rows in %.3f s (%.1f rows/s), store %.1f MB on the card "
+        "(memory_allocated +%d bytes); %d batches served over %d epochs in %.3f s, %.1f "
+        "rows/s; fill launches %s for %d fill batches; serving launches %s; resume after "
+        "%d batches served %d of %d remaining batches identically; %s" % (
+            ROWS, fill_s, ROWS / fill_s, ROWS * IMG[0] * IMG[1] * IMG[2] / 1e6, store_mem,
+            served, INMEM_EPOCHS, serve_s, rows_per_s, json.dumps(fill), fill_batches,
+            json.dumps(launches), INMEM_RESUME_AFTER, len(rest), len(want), smi))
+    check(bool((c == 1).all()), "inmem (a): ids not served once each epoch")
+    check(not torch.equal(epochs[0], epochs[1]), "inmem (a): the two epochs' orders are "
+          "equal")
+    check(bad.item() == 0, "inmem (a): %d uint8 values differ from phase 7's images of the "
+          "same ids" % bad.item())
+    check(plain_ok, "inmem (a): K2 differs from its plain version")
+    check(fill["stage2_planes"] == fill["stage2_rgb"] == fill_batches and fill["K2"] == 0,
+          "inmem (a): the fill should launch stage2_planes and stage2_rgb once a fill batch "
+          "(%d) and K2 never: %s" % (fill_batches, fill))
+    check(launches["K2"] == served and launches["stage2_planes"] == 0,
+          "inmem (a): K2 should launch once a served batch (%d) and stage 2 never: %s"
+          % (served, launches))
+    check(resume_ok, "inmem (a): the restored loader served other ids than the "
+          "uninterrupted run's remaining batches")
+    return {"fill_launches": fill, "launches": launches, "fill_s": fill_s,
+            "rows_per_s": rows_per_s, "store_bytes": store_mem}
+
+
+def phase_make_dataloader(url, images, smi, device="cuda"):
+    """(c) (comment above)."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader, make_dataloader
+
+    workers = 7
+    kw = dict(decode_on_device=True, shuffle_row_groups=False, workers_count=workers)
+    out = {}
+    for form in ("make_dataloader", "two_calls"):
+        if form == "make_dataloader":
+            loader = make_dataloader(url, BATCH, device=device, **kw)
+        else:
+            loader = DataLoader(make_batch_reader(url, num_epochs=1, **kw), BATCH,
+                                device=device)
+        counts = torch.zeros(ROWS, dtype=torch.int32, device=device)
+        bad = torch.zeros((), dtype=torch.int64, device=device)
+        _jpeg_launch_counters(zero=True)
+        batches = 0
+        t0 = time.perf_counter()
+        with loader:
+            for batch in loader:
+                batches += 1
+                ids = batch["id"]
+                counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                bad.add_((images.index_select(0, ids) != batch["image"]).sum())
+            _sync(device)
+        wall = time.perf_counter() - t0
+        out[form] = {"ids": counts.cpu(), "bad": bad.item(), "batches": batches,
+                     "launches": _jpeg_launch_counters(), "rows_per_s": batches * BATCH / wall}
+    a, b = out["make_dataloader"], out["two_calls"]
+    log("make_dataloader (c): %d and %d batches (%.1f and %.1f rows/s); launches %s and %s; "
+        "%d and %d uint8 values apart from phase 7's images; %s" % (
+            a["batches"], b["batches"], a["rows_per_s"], b["rows_per_s"],
+            json.dumps(a["launches"]), json.dumps(b["launches"]), a["bad"], b["bad"], smi))
+    check(torch.equal(a["ids"], b["ids"]) and bool((a["ids"] == 1).all()),
+          "make_dataloader (c): the two forms deliver other ids (or not every id once)")
+    check(a["bad"] == 0 and b["bad"] == 0, "make_dataloader (c): images differ from "
+          "phase 7's")
+    check(a["batches"] == b["batches"] == ROWS // BATCH
+          and a["launches"]["stage2_planes"] == a["launches"]["stage2_rgb"] == a["batches"],
+          "make_dataloader (c): batches %d / %d, launches %s" % (
+              a["batches"], b["batches"], a["launches"]))
+    return {"launches": a["launches"], "rows_per_s": a["rows_per_s"]}
+
+
+def _store_window_starts(url, length, key="id"):
+    """Sorted ``key`` values that start a window of ``length`` consecutive values (delta
+    1) inside one row group, from the store's row-group layout (numpy)."""
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+
+    _fs, root = get_filesystem_and_path_or_paths(url)
+    starts = []
+    for f in sorted(x for x in os.listdir(root) if x.endswith(".parquet")):
+        pf = pq.ParquetFile(os.path.join(root, f))
+        for rg in range(pf.num_row_groups):
+            v = np.sort(pf.read_row_group(rg, columns=[key]).column(key).to_numpy())
+            ok = np.concatenate([[0], np.cumsum(np.diff(v) <= 1)])
+            win = ok[length - 1:] - ok[:len(v) - length + 1]
+            starts.append(v[:len(v) - length + 1][win == length - 1])
+    return np.sort(np.concatenate(starts))
+
+
+def phase_ngram_rows(url, blobs, smi, device="cuda"):
+    """(d) (comment above); ``blobs`` {id: jpeg bytes} of phase 4's store."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ngram import NGram
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    ngram = NGram({0: ["id", "image"], 1: ["id", "image"], 2: ["id"]}, delta_threshold=1,
+                  timestamp_field="id")
+    reader = make_reader(url, schema_fields=ngram, workers_count=workers, num_epochs=1,
+                         shuffle_row_groups=True, seed=0)
+    field = reader.schema.fields["image"]
+    want = _store_window_starts(url, 3)
+    counts = torch.zeros(ROWS, dtype=torch.int32, device=device)
+    bad_ids = torch.zeros((), dtype=torch.int64, device=device)
+    _jpeg_launch_counters(zero=True)
+    checked, plain_ok, batches = 0, True, 0
+    t0 = time.perf_counter()
+    with DataLoader(reader, NGRAM_BATCH, device=device, last_batch="partial",
+                    device_transform=_k2_transform(["0/image", "1/image"])) as loader:
+        for batch in loader:
+            batches += 1
+            ids = batch["0/id"]
+            counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad_ids.add_((batch["1/id"] != ids + 1).sum() + (batch["2/id"] != ids + 2).sum())
+            if batches in (1, 2):
+                plain_ok &= _k2_plain_equal(batch, "0/image") and \
+                    _k2_plain_equal(batch, "1/image")
+                # the frames equal the host decode of the same ids
+                for off in (0, 1):
+                    host = np.stack([field.codec.decode(field, blobs[int(i) + off])
+                                     for i in ids.tolist()])
+                    check(torch.equal(batch["%d/image_u8" % off],
+                                      torch.from_numpy(host).to(device)),
+                          "ngram (d): frames of offset %d differ from the host decode" % off)
+                    checked += len(host)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    launches = _jpeg_launch_counters()
+    c = counts.cpu().numpy()
+    got = np.nonzero(c)[0]
+    log("ngram (d): %d windows of 3 ids (2 frames each) in %d batches of %d, %.1f windows/s "
+        "(%.3f s); %d frames held to the host decode; launches %s; %s" % (
+            int(c.sum()), batches, NGRAM_BATCH, c.sum() / wall, wall, checked,
+            json.dumps(launches), smi))
+    check(np.array_equal(got, want) and bool((c[got] == 1).all()), "ngram (d): %d windows "
+          "delivered, %d computed from the row-group layout (or some twice)"
+          % (len(got), len(want)))
+    check(bad_ids.item() == 0, "ngram (d): a window's ids are not consecutive")
+    check(plain_ok, "ngram (d): K2 differs from its plain version")
+    check(launches["K2"] == 2 * batches and launches["stage2_planes"] == 0,
+          "ngram (d): K2 should launch twice a batch (%d batches) and stage 2 never: %s"
+          % (batches, launches))
+    return {"launches": launches, "windows_per_s": float(c.sum() / wall)}
+
+
+def write_sensor_store(root, seed=12):
+    """The sensor store: SENSOR_ROWS rows in row groups of SENSOR_RG_ROWS, ``ts`` int64 at
+    10 ms steps with a seeded gap (11-500 ms) about every 1,000 rows, ``s0``..``s7``
+    float32. Returns (url, ts, [sensor arrays])."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    steps = np.full(SENSOR_ROWS, SENSOR_STEP_MS, np.int64)
+    gaps = rng.random(SENSOR_ROWS) < 1.0 / SENSOR_GAP_EVERY
+    steps[gaps] += rng.integers(1, 491, int(gaps.sum()))
+    ts = np.cumsum(steps)
+    sensors = [rng.standard_normal(SENSOR_ROWS).astype(np.float32)
+               for _ in range(SENSOR_COLUMNS)]
+    os.makedirs(root)
+    cols = {"ts": ts}
+    cols.update({"s%d" % j: s for j, s in enumerate(sensors)})
+    pq.write_table(pa.table(cols), os.path.join(root, "sensors.parquet"),
+                   row_group_size=SENSOR_RG_ROWS)
+    return "file://" + root, ts, sensors
+
+
+def _sensor_window_starts(ts, overlap):
+    """Row indices that start a valid window, recomputed here per row group: a rolling
+    sum of the steps within SENSOR_STEP_MS, then (no overlap) a greedy pass."""
+    import numpy as np
+
+    out = []
+    for start in range(0, len(ts), SENSOR_RG_ROWS):
+        t = ts[start:start + SENSOR_RG_ROWS]
+        ok = np.concatenate([[0], np.cumsum(np.diff(t) <= SENSOR_STEP_MS)])
+        win = ok[SENSOR_LENGTH - 1:] - ok[:len(t) - SENSOR_LENGTH + 1]
+        s = np.nonzero(win == SENSOR_LENGTH - 1)[0]
+        if not overlap:
+            kept, free = [], -1
+            for x in s:
+                if x > free:
+                    kept.append(x)
+                    free = x + SENSOR_LENGTH - 1
+            s = np.asarray(kept, np.int64)
+        out.append(s + start)
+    return np.concatenate(out)
+
+
+def phase_ngram_sensors(work, smi, device="cuda"):
+    """(e) (comment above)."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ngram import NGram
+
+    t0 = time.perf_counter()
+    url, ts, sensors = write_sensor_store(os.path.join(work, "sensors"))
+    log("sensor store: %d rows in row groups of %d, %d gaps, written in %.2f s" % (
+        SENSOR_ROWS, SENSOR_RG_ROWS, int((np.diff(ts) > SENSOR_STEP_MS).sum()),
+        time.perf_counter() - t0))
+    names = ["ts"] + ["s%d" % j for j in range(SENSOR_COLUMNS)]
+    ts_dev = torch.from_numpy(ts).to(device)
+    sens_dev = torch.stack([torch.from_numpy(s) for s in sensors]).to(device)
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    out = {}
+    for overlap in (True, False):
+        ngram = NGram({k: list(names) for k in range(SENSOR_LENGTH)},
+                      delta_threshold=SENSOR_STEP_MS, timestamp_field="ts",
+                      timestamp_overlap=overlap)
+        want = _sensor_window_starts(ts, overlap)
+        reader = make_batch_reader(url, schema_fields=ngram, workers_count=workers,
+                                   num_epochs=1)
+        starts, bad, batches, columns = [], torch.zeros((), dtype=torch.int64,
+                                                        device=device), 0, 0
+        t0 = time.perf_counter()
+        with DataLoader(reader, TAB_BATCH, device=device, last_batch="partial") as loader:
+            for batch in loader:
+                batches += 1
+                columns = len(batch)
+                idx = torch.searchsorted(ts_dev, batch["0/ts"])
+                starts.append(idx)
+                for k in range(SENSOR_LENGTH):
+                    bad.add_((batch["%d/ts" % k] != ts_dev[idx + k]).sum())
+                    for j in range(SENSOR_COLUMNS):
+                        bad.add_((batch["%d/s%d" % (k, j)] != sens_dev[j][idx + k]).sum())
+            _sync(device)
+            wall = time.perf_counter() - t0
+        got = torch.cat(starts).sort().values.cpu().numpy()
+        tag = "overlap" if overlap else "no_overlap"
+        out[tag] = {"windows": len(got), "windows_per_s": len(got) / wall, "seconds": wall}
+        log("ngram (e, %s): %d windows of %d steps in %d batches of %d flat columns, %.1f "
+            "windows/s (%.3f s); %d values apart from the store; %s" % (
+                tag, len(got), SENSOR_LENGTH, batches, columns, len(got) / wall, wall,
+                bad.item(), smi))
+        check(columns == SENSOR_LENGTH * len(names), "ngram (e): %d columns a batch, not %d"
+              % (columns, SENSOR_LENGTH * len(names)))
+        check(np.array_equal(got, want), "ngram (e, %s): %d windows delivered, %d computed "
+              "from the store (or some twice)" % (tag, len(got), len(want)))
+        check(bad.item() == 0, "ngram (e, %s): %d window values differ from the store"
+              % (tag, bad.item()))
+    return out
+
+
+def phase_inmem_tabular(root, arrays, predicted, smi, device="cuda"):
+    """(b) (comment above)."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.loader import InMemDataLoader
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    keys, where = _global_row_index(arrays)
+    rows = len(keys)
+    _sync(device)
+    base_mem = torch.cuda.memory_allocated() if device == "cuda" else 0
+    counters0 = pagedec.counter_values()
+    _tab_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    reader = make_batch_reader("file://" + root, workers_count=workers, num_epochs=1,
+                               io_options={"pagedec": "auto"})
+    loader = InMemDataLoader(reader, TAB_BATCH, num_epochs=1, shuffle=True, seed=0,
+                             device=device)
+    _sync(device)
+    fill_s = time.perf_counter() - t0
+    store_mem = (torch.cuda.memory_allocated() - base_mem) if device == "cuda" else 0
+    launches = _tab_launch_counters()
+    cnt = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+    passthrough = cnt["pages"] // predicted["pages"]
+    got, first_ok, served = [], None, 0
+    t0 = time.perf_counter()
+    with loader:
+        for batch in loader:
+            served += 1
+            k = row_keys(batch)
+            got.append(k)
+            if first_ok is None:
+                # the first batch's columns against the arrays phase 5 wrote, by row key
+                pos = np.searchsorted(keys, k.cpu().numpy())
+                f, r = where[pos, 0], where[pos, 1]
+                first_ok = True
+                for name in TAB_COLUMNS:
+                    want = np.empty(len(pos), arrays[0][name].dtype)
+                    for fi in np.unique(f):
+                        want[f == fi] = arrays[int(fi)][name][r[f == fi]]
+                    first_ok &= torch.equal(batch[name].cpu(), torch.from_numpy(want))
+        _sync(device)
+        serve_s = time.perf_counter() - t0
+    got = torch.cat(got).sort().values
+    every_row = torch.equal(got, torch.from_numpy(keys).to(device))
+    log("inmem (b): fill of %d rows in %.3f s (%.1f rows/s), memory_allocated +%d bytes; "
+        "%d pass-through fill batches of %d, launches %s, %d host-inflated columns; %d "
+        "batches served in %.3f s, %.1f rows/s; %s" % (
+            rows, fill_s, rows / fill_s, store_mem, passthrough, -(-rows // TAB_BATCH),
+            json.dumps(launches), cnt["host_inflate_columns"], served, serve_s,
+            rows / serve_s, smi))
+    check(every_row, "inmem (b): the served rows are not the store's rows, each once")
+    check(bool(first_ok), "inmem (b): the first batch's columns differ from phase 5's "
+          "arrays of the same rows")
+    check(passthrough >= 1 and cnt["host_inflate_columns"] == 0,
+          "inmem (b): %d pass-through fill batches, %d host-inflated columns"
+          % (passthrough, cnt["host_inflate_columns"]))
+    for k in ("K3", "scan", "K4"):
+        check(launches[k] == predicted[k] * passthrough, "inmem (b): %s launched %d times "
+              "for %d pass-through fill batches" % (k, launches[k], passthrough))
+    return {"launches": launches, "passthrough_batches": passthrough, "fill_s": fill_s,
+            "rows_per_s": rows / serve_s, "store_bytes": store_mem}
+
+
+def phase_weighted(root, arrays, smi, device="cuda"):
+    """(f) (comment above)."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader
+
+    keys, where = _global_row_index(arrays)
+    files = ["file://" + os.path.join(root, "part-%d.parquet" % f) for f in range(TAB_FILES)]
+    readers = [make_batch_reader(files[:MIX_FILES], num_epochs=1),
+               make_batch_reader(files[MIX_FILES:], num_epochs=1)]
+    items = [MIX_FILES * TAB_RGS_PER_FILE, (TAB_FILES - MIX_FILES) * TAB_RGS_PER_FILE]
+    mixer = WeightedSamplingReader(readers, list(MIX_P), seed=0)
+    seen = np.zeros(len(keys), np.int32)
+    origins = []
+    t0 = time.perf_counter()
+    with DataLoader(mixer, TAB_BATCH, device=device) as loader:
+        for batch in loader:
+            k = row_keys(batch).cpu().numpy()
+            pos = np.searchsorted(keys, k)
+            check(bool((keys[np.minimum(pos, len(keys) - 1)] == k).all()),
+                  "mixer (f): a delivered row is no row of the store")
+            seen[pos] += 1
+            f = set((where[pos, 0] >= MIX_FILES).astype(int).tolist())
+            check(len(f) == 1, "mixer (f): a batch mixes both readers' rows")
+            origins.append(f.pop())
+        _sync(device)
+        wall = time.perf_counter() - t0
+    rng = np.random.Generator(np.random.PCG64(0))
+    left, drawn = list(items), []
+    for got in origins:
+        if min(left) == 0:
+            break
+        drawn.append(int(rng.choice([0, 1], p=list(MIX_P))))
+        left[got] -= 1
+    share = origins[:len(drawn)].count(0) / float(len(drawn))
+    log("mixer (f): %d batches, %d while both readers lived (share of the first %.4f), "
+        "%.1f rows/s (%.3f s); %s" % (len(origins), len(drawn), share,
+                                       len(keys) / wall, wall, smi))
+    check(origins[:len(drawn)] == drawn, "mixer (f): the items' origins do not follow "
+          "numpy's Generator(PCG64(0)).choice while both readers are alive")
+    check(bool((seen == 1).all()), "mixer (f): rows not delivered once each")
+    return {"rows_per_s": len(keys) / wall, "alive_draws": len(drawn)}
+
+
+def phase_adapters(root, smi, device="cuda"):
+    """(g) (comment above)."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.adapters.pytorch import BatchedDataLoader
+    from petastorm_tpu_torch.loader import DataLoader
+
+    kw = dict(workers_count=1, shuffle_row_groups=False, num_epochs=1)
+    t0 = time.perf_counter()
+    with DataLoader(make_batch_reader("file://" + root, **kw), TAB_BATCH,
+                    device=device) as loader:
+        card = [{k: v.clone() for k, v in b.items()} for b in loader]
+    batches, bad = 0, 0
+    with BatchedDataLoader(make_batch_reader("file://" + root, **kw), TAB_BATCH) as adapter:
+        for i, b in enumerate(adapter):
+            batches += 1
+            check(all(not v.is_cuda for v in b.values()), "adapters (g): the adapter "
+                  "yielded tensors on the card")
+            bad += sum(int(not torch.equal(v.to(device), card[i][k])) for k, v in b.items())
+    _sync(device)
+    wall = time.perf_counter() - t0
+    log("adapters (g): %d BatchedDataLoader batches against %d DataLoader batches, %d "
+        "columns apart (%.3f s); %s" % (batches, len(card), bad, wall, smi))
+    check(batches == len(card) and bad == 0, "adapters (g): the adapter's columns differ "
+          "from the DataLoader's for the same rows")
+    return {"batches": batches}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -3038,6 +3569,11 @@ def main():
         t9 = time.perf_counter()
         sel_jpeg = phase_selection_jpeg(url, work, images, env["smi"])
         phase9_s = time.perf_counter() - t9
+        t10 = time.perf_counter()
+        inmem_jpeg = phase_inmem_jpeg(url, images, env["smi"])
+        mkdl = phase_make_dataloader(url, images, env["smi"])
+        ngram_rows = phase_ngram_rows(url, blobs, env["smi"])
+        phase10_s = time.perf_counter() - t10
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -3070,6 +3606,14 @@ def main():
         pad = phase_pad_shapes(work, env["smi"])
         phase9_s += time.perf_counter() - t9
         log("selection: phase 9 took %.1f s of wall time; %s" % (phase9_s, env["smi"]))
+        t10 = time.perf_counter()
+        inmem_tab = phase_inmem_tabular(tab_root, arrays, predicted, env["smi"])
+        mixer = phase_weighted(tab_root, arrays, env["smi"])
+        phase_adapters(tab_root, env["smi"])
+        sensors = phase_ngram_sensors(work, env["smi"])
+        phase10_s += time.perf_counter() - t10
+        log("windowed and in-memory feeds: phase 10 took %.1f s of wall time; %s"
+            % (phase10_s, env["smi"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -3086,6 +3630,13 @@ def main():
         return {"a_split_store": sel_jpeg["a"]["launches"][key],
                 "d_resume": [h[key] for h in sel_jpeg["d"]["launches"]]}
 
+    def slice11_launches(key):
+        """{part: launches of ``key``} in phase 10's JPEG parts."""
+        return {"a_inmem_fill": inmem_jpeg["fill_launches"][key],
+                "a_inmem_served": inmem_jpeg["launches"][key],
+                "c_make_dataloader": mkdl["launches"][key],
+                "d_ngram_rows": ngram_rows["launches"][key]}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -3099,7 +3650,8 @@ def main():
          "mixed_feed_launches": mixed["launches"]["stage2_planes"],
          "pool_launches": pool_launches(pool_jpeg, "stage2_planes"),
          "ring_feed_launches": feed_jpeg["launches"]["stage2_planes"],
-         "selection_launches": selection_launches("stage2_planes")},
+         "selection_launches": selection_launches("stage2_planes"),
+         "slice11_launches": slice11_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -3110,7 +3662,8 @@ def main():
          "mixed_feed_launches": mixed["launches"]["stage2_rgb"],
          "pool_launches": pool_launches(pool_jpeg, "stage2_rgb"),
          "ring_feed_launches": feed_jpeg["launches"]["stage2_rgb"],
-         "selection_launches": selection_launches("stage2_rgb")},
+         "selection_launches": selection_launches("stage2_rgb"),
+         "slice11_launches": slice11_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -3142,7 +3695,8 @@ def main():
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
          "pool_launches": pool_launches(pool_jpeg, "K2"),
          "ring_feed_launches": feed_jpeg["launches"]["K2"],
-         "selection_launches": selection_launches("K2")},
+         "selection_launches": selection_launches("K2"),
+         "slice11_launches": slice11_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -3165,6 +3719,9 @@ def main():
                                      "transform_spec_read": feed["b_launches"][key]}
         row["selection_launches"] = {"b_days_row_drop": sel_tab["b"]["launches"][key],
                                      "c_resume": [h[key] for h in sel_tab["c"]["launches"]]}
+        row["slice11_launches"] = {
+            "b_inmem_fill": inmem_tab["launches"][key],
+            "b_inmem_passthrough_fill_batches": inmem_tab["passthrough_batches"]}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -3174,14 +3731,20 @@ def main():
         "ms of device time); tabular path %.1f rows/s; click-through feed %.1f rows/s "
         "beside %.1f without ring and pipeline (ring exchange %.4f ms, pipeline %.4f ms of "
         "device time a batch); phase 9 %.1f s (split store %.1f rows/s, %.4f of its rows "
-        "skipped stage 1; day partitions %.1f rows/s; pad_shapes %.1f rows/s)"
+        "skipped stage 1; day partitions %.1f rows/s; pad_shapes %.1f rows/s); phase 10 "
+        "%.1f s (in-memory JPEG: fill %.3f s, %.1f rows/s served; in-memory tabular: fill "
+        "%.3f s, %.1f rows/s served; make_dataloader %.1f rows/s; per-row NGram %.1f "
+        "windows/s; sensor NGram %.1f windows/s; mixer %.1f rows/s)"
         % (time.perf_counter() - t_all, main["rows_per_s"], main["shipped_ratio"],
            mixed["rows_per_s"], mixed["shipped_ratio"],
            mixed["launches"]["groups"] / mixed["batches"], mixed_split["stage2_ms"],
            mixed_split["resize_ms"], tab["rows_per_s"], feed["rows_per_s"],
            feed["plain_rows_per_s"], feed["exchange_ms"], feed["pipeline_ms"], phase9_s,
            sel_jpeg["a"]["rows_per_s"], sel_jpeg["a"]["stage1_skipped_share"],
-           sel_tab["b"]["rows_per_s"], pad["rows_per_s"]))
+           sel_tab["b"]["rows_per_s"], pad["rows_per_s"], phase10_s, inmem_jpeg["fill_s"],
+           inmem_jpeg["rows_per_s"], inmem_tab["fill_s"], inmem_tab["rows_per_s"],
+           mkdl["rows_per_s"], ngram_rows["windows_per_s"],
+           sensors["overlap"]["windows_per_s"], mixer["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

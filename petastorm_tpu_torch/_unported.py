@@ -8,10 +8,10 @@ from __future__ import annotations
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
     "io": "Queue 1 item 5 (read path IO options and caches)",
-    "ngram": "Queue 1 item 7 (NGram)",
     "obs": "Queue 1 item 8 (recovery, chaos, observability, health, provenance, tenants)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
+    "tf": "Queue 1 item 21 (adapters/tf.py, tf_utils.py and tools/)",
 }
 
 #: option name -> (roadmap key, the value that means "not used")

@@ -34,9 +34,18 @@ LOADER to these functions instead of the reader: it duck-types as a reader and
 checkpoints at the consumer watermark, so rows prefetched into the loader's queues but
 not yet taken replay after a restore instead of being skipped.
 
+A :class:`~petastorm_tpu_torch.weighted_sampling.WeightedSamplingReader` and an
+:class:`~petastorm_tpu_torch.loader.InMemDataLoader` duck-type as readers here too: the
+mixer's state is its RNG's and its sub-readers', the in-memory loader's its
+``(epoch, batch)`` cursor.
+
 :func:`from_reference_state` takes the JAX package's ``Reader.state_dict()`` (plain dicts
 and lists, or its JSON form) and returns the port's: the two are the same data, so a
-state saved by either package resumes the other's reader on the same store.
+state saved by either package resumes the other's reader on the same store. So does a
+mixer's (numpy's RNG state, the sub-readers' states converted), and an
+``InMemDataLoader`` cursor with ``shuffle=False``. A shuffled ``InMemDataLoader`` cursor
+is refused: the JAX package's epochs are ``jax.random`` permutations and the port's
+``torch.randperm`` orders, so the cursor would serve other rows.
 """
 from __future__ import annotations
 
@@ -149,13 +158,27 @@ def state_item(reader):
 def from_reference_state(state):
     """The port's reader state from the JAX package's ``Reader.state_dict()`` (or its
     JSON round trip, or a global payload of them): the same keys and values as plain
-    Python data, epoch keys as ints, consumed ordinals as sorted lists."""
+    Python data, epoch keys as ints, consumed ordinals as sorted lists. A
+    ``WeightedSamplingReader`` state converts its sub-readers' states; an
+    ``InMemDataLoader`` cursor passes when ``shuffle`` is off and raises ``ValueError``
+    when it is on (the two packages' permutations differ)."""
     # through JSON, the form the two packages share: a value that is not JSON data
     # fails here, not at a later restore
     state = json.loads(state if isinstance(state, (str, bytes)) else json.dumps(state))
     if _GLOBAL_KEY in state:
         return {_GLOBAL_KEY: {str(k): from_reference_state(v)
                               for k, v in state[_GLOBAL_KEY].items()}}
+    if state.get("weighted"):
+        return {**state, "readers": [from_reference_state(s) for s in state["readers"]]}
+    if state.get("inmem"):
+        if state.get("shuffle"):
+            raise ValueError(
+                "a shuffled InMemDataLoader cursor of the JAX package cannot resume the "
+                "port's loader: its epochs are jax.random (threefry) permutations, the "
+                "port's torch.randperm orders, so the cursor would serve other rows. "
+                "Resume with shuffle=False, or start the port's loader at an epoch "
+                "boundary.")
+        return state
     missing = {"plan", "resume_epoch", "consumed"} - set(state)
     if missing:
         raise ValueError("not a Reader state: missing %s (keys: %s)"

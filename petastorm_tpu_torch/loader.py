@@ -34,6 +34,13 @@ are copied out instead.
 a ``name__mask`` column of the valid region, so they reach the device as ordinary
 columns. ``state_dict()`` checkpoints at the consumer watermark: the newest reader state
 whose deliveries the consumer has fully taken (:mod:`petastorm_tpu_torch.checkpoint`).
+NGram windows arrive as flat ``offset/field`` columns (a per-row reader's ``{offset:
+row}`` windows are flattened in the producer), so ``pad_shapes`` and a device transform
+key by the flat name.
+
+:class:`InMemDataLoader` fills device memory once through a ``DataLoader`` and serves
+every epoch from it, one gather a batch; :func:`make_dataloader` is the one-call
+``make_batch_reader`` + ``DataLoader``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
 across devices, the trace, metrics, health, provenance, SLO, controller and tenant
@@ -52,7 +59,7 @@ import time
 
 import numpy as np
 
-from petastorm_tpu_torch._unported import reject_unported
+from petastorm_tpu_torch._unported import not_ported, reject_unported
 from petastorm_tpu_torch.io.lease import attach_leases, count_copy, take_leases
 from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
                                             materialize_columns, pagedec_counters)
@@ -423,6 +430,18 @@ def _validate_decode_resize(resize, device_fields):
     return check_target(resize, "")
 
 
+def _flatten_ngram_window(window):
+    """{offset: row} NGram window → one flat {'offset/field': value} row: every
+    timestep's tensors reach the device as ordinary static-shape columns, and
+    ``pad_shapes`` and device transforms key by names like ``'0/image'``."""
+    flat = {}
+    for off, row in window.items():
+        row = row._asdict() if hasattr(row, "_asdict") else row
+        for name, value in row.items():
+            flat["%s/%s" % (off, name)] = value
+    return flat
+
+
 def _rows_to_columns(rows, object_fields=()):
     """Row dicts/namedtuples → columnar numpy dict (per-row ``make_reader`` path).
 
@@ -688,6 +707,7 @@ class DataLoader:
         stats = self.stats
         device_fields = getattr(self.reader, "device_decode_fields", ())
         batched = bool(getattr(self.reader, "is_batched_reader", False))
+        ngram = getattr(self.reader, "ngram", None) is not None
         wire_stats = getattr(self.reader, "wire_stats", None)
         if wire_stats is not None and not wire_stats():
             wire_stats = None  # a thread or dummy pool, or a socket wire: no gauges
@@ -716,8 +736,12 @@ class DataLoader:
                     return
                 t0 = time.perf_counter()
                 if batched:
-                    columns = {k: v for k, v in item._asdict().items() if v is not None}
+                    # a batched NGram reader delivers plain dicts of flat columns
+                    columns = item._asdict() if hasattr(item, "_asdict") else item
+                    columns = {k: v for k, v in columns.items() if v is not None}
                 else:
+                    if ngram:
+                        item = _flatten_ngram_window(item)
                     columns = _rows_to_columns([item], object_fields=device_fields)
                 lease = self.reader.take_lease() if lease_mode else None
                 if wire_views and not lease_mode:
@@ -1277,3 +1301,277 @@ class DataLoader:
         for pool in (self._staging, self._page_staging):
             if pool is not None:
                 pool.close()
+
+
+def _process_group():
+    """``(rank, world size)`` of an initialised ``torch.distributed`` group, else
+    ``(0, 1)``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _fold_seed(*parts):
+    """A torch seed (63 bits) from integers: numpy's ``SeedSequence`` mixes them, so
+    ``(seed, n)`` and ``(seed, n + 1)`` seed unrelated streams."""
+    state = np.random.SeedSequence([int(p) % (1 << 64) for p in parts]).generate_state(
+        1, np.uint64)
+    return int(state[0]) >> 1
+
+
+class InMemDataLoader:
+    """Epochs served from device memory: the reader is read ONCE into tensors on the
+    device, then every batch is one gather of that store (``index_select`` a column),
+    with no host work and no host-to-device copy after the fill.
+
+    Port of ``petastorm_tpu.loader.InMemDataLoader``. The fill goes through a
+    :class:`DataLoader` (unsharded, ``last_batch="partial"``, ``prefetch=2``), so staged
+    JPEG columns decode on the device and pass-through columns inflate there; host-only
+    columns (strings, objects) are dropped with a warning; the chunks are concatenated
+    on the device. Each epoch's order is ``torch.randperm`` on the store's device with a
+    ``torch.Generator`` seeded from ``(seed, epoch)``, so the same ``(seed, epoch)``
+    always gives the same order on the same kind of device (a CPU and a CUDA generator
+    give different orders) and :meth:`state_dict` resumes exactly, given a fill in the
+    same row order: a reader on one worker or the dummy pool (several workers deliver row
+    groups in the order they finish, so the store's row order varies between fills).
+
+    Parameters
+    ----------
+    reader : Reader
+        Source reader, consumed once during construction (its ``num_epochs`` must be
+        finite, usually 1).
+    batch_size : int
+        Rows per yielded batch.
+    num_epochs : int or None
+        Epochs to serve; ``None`` = infinite.
+    shuffle : bool
+        A fresh permutation every epoch, from ``seed`` and the epoch.
+    sharding : None
+        Multi-card placement is not ported (raises ``NotImplementedError``), nor is a
+        ``torch.distributed`` job of more than one process.
+    last_batch : {"drop", "partial"}
+        Remainder policy per epoch.
+    device_transform : callable, optional
+        ``fn(batch) -> batch`` on the device after the gather; a two-argument
+        ``fn(batch, generator)`` receives a ``torch.Generator`` on the device seeded from
+        ``(seed + 1, step)``, ``step`` the batch's position in the whole stream, so a
+        resumed stream draws what the uninterrupted one would.
+    device_decode_resize : see :class:`DataLoader` (applies to the fill).
+    device : torch.device or str, optional, keyword only
+        Where the store lives. Default: the CUDA device (raises when there is none).
+    """
+
+    def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=0,
+                 sharding=None, last_batch="drop", device_transform=None,
+                 device_decode_resize=None, trace=None, *, device=None):
+        import torch
+
+        reject_unported("InMemDataLoader", sharding=sharding, trace=trace)
+        if last_batch not in ("drop", "partial"):
+            raise ValueError("last_batch must be drop|partial, got %r" % last_batch)
+        _rank, world = _process_group()
+        if world > 1:
+            raise not_ported("InMemDataLoader in a torch.distributed job of %d processes"
+                             % world, "multi_device")
+        self.device = _resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.num_epochs = num_epochs
+        self.shuffle = shuffle
+        self.last_batch = last_batch
+        self._seed = int(seed)
+        self._device_transform = device_transform
+        plan = getattr(reader, "_plan", None)
+        if plan is not None and getattr(plan, "_num_epochs", 1) is None:
+            raise ValueError(
+                "InMemDataLoader consumes the reader ONCE to fill device memory; an "
+                "infinite reader (num_epochs=None) would never finish the fill. Build "
+                "the reader with num_epochs=1 and set epochs here.")
+        chunks = []
+        dropped = set()
+        with DataLoader(reader, self.batch_size, last_batch="partial", prefetch=2,
+                        device_decode_resize=device_decode_resize,
+                        device=self.device) as fill:
+            for batch in fill:
+                kept = {}
+                for k, v in batch.items():
+                    # host-only columns (strings, objects) cannot live on the device
+                    if isinstance(v, np.ndarray) and not _is_device_dtype(v):
+                        dropped.add(k)
+                    else:
+                        kept[k] = v
+                chunks.append(kept)
+        if dropped:
+            logger.warning("InMemDataLoader dropped host-only fields: %s", sorted(dropped))
+        if not chunks:
+            raise ValueError("reader yielded no rows to load in memory")
+        # torch.cat copies: the store owns its memory, whatever the fill's tensors view
+        self._store = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+        del chunks
+        self.rows = int(next(iter(self._store.values())).shape[0])
+        self._perm_gen = torch.Generator(device=self.device)
+        self._transform_gen = None
+        #: (epoch, next batch within the epoch) the NEXT yield serves: the exact-resume
+        #: cursor (epoch orders are a function of seed and epoch)
+        self._pos = (0, 0)
+        self._resume = None
+
+    # -- exact resume -------------------------------------------------------------------
+
+    def state_dict(self):
+        """Exact-resume cursor: ``(epoch, batch)`` of the next batch to serve, plus the
+        stream's configuration; the JAX package's keys. Restoring it into a loader of
+        the same configuration continues the stream exactly once, with no replay.
+
+        A restored cursor not yet iterated is returned as it is; after a pass the cursor
+        points past its last epoch, and a new iteration starts a new pass."""
+        epoch, batch = self._resume if self._resume is not None else self._pos
+        return {"inmem": True, "epoch": int(epoch), "batch": int(batch),
+                "seed": self._seed, "shuffle": bool(self.shuffle),
+                "rows": int(self.rows), "batch_size": int(self.batch_size),
+                "last_batch": self.last_batch,
+                "num_epochs": None if self.num_epochs is None else int(self.num_epochs)}
+
+    def load_state_dict(self, state):
+        """Resume a loader of the same configuration at a saved cursor (before
+        iterating)."""
+        if not state.get("inmem"):
+            raise ValueError(
+                "not an InMemDataLoader state (checkpoint from a streaming loader/"
+                "reader? restore it into the matching object)")
+        mismatches = {
+            k: (state.get(k), have) for k, have in (
+                ("seed", self._seed), ("shuffle", bool(self.shuffle)),
+                ("rows", int(self.rows)), ("batch_size", int(self.batch_size)),
+                ("last_batch", self.last_batch),
+                # a shorter num_epochs would serve NOTHING when the cursor's epoch is
+                # past it
+                ("num_epochs", self.num_epochs),
+            ) if state.get(k) != have
+        }
+        if mismatches:
+            raise ValueError(
+                "InMemDataLoader state does not match this loader's stream config "
+                "(saved vs built): %s — a different config is a different epoch "
+                "stream, and resuming would serve wrong rows" % (mismatches,))
+        self._resume = (int(state["epoch"]), int(state["batch"]))
+        return self
+
+    @property
+    def cur_shard(self):
+        """None: one process holds the whole store (a multi-process job raises)."""
+        return None
+
+    def __len__(self):
+        full, rem = divmod(self.rows, self.batch_size)
+        return full + (1 if rem and self.last_batch == "partial" else 0)
+
+    def __iter__(self):
+        import torch
+
+        resume, self._resume = self._resume, None
+        epoch = resume[0] if resume else 0
+        skip = resume[1] if resume else 0  # batches to skip in the FIRST epoch only
+        # a fresh pass resets the cursor
+        self._pos = (epoch, skip)
+        takes_gen = False
+        if self._device_transform is not None:
+            try:
+                takes_gen = len(inspect.signature(self._device_transform).parameters) >= 2
+            except (TypeError, ValueError):
+                takes_gen = False
+        per_epoch = len(self)
+        while self.num_epochs is None or epoch < self.num_epochs:
+            if self.shuffle:
+                self._perm_gen.manual_seed(_fold_seed(self._seed, epoch))
+                perm = torch.randperm(self.rows, generator=self._perm_gen,
+                                      device=self.device)
+            else:
+                perm = torch.arange(self.rows, device=self.device)
+            for bidx, start in enumerate(range(0, self.rows, self.batch_size)):
+                if bidx < skip:
+                    continue
+                n = min(self.batch_size, self.rows - start)
+                if n < self.batch_size and self.last_batch == "drop":
+                    break
+                idx = perm[start:start + n]
+                batch = {k: v.index_select(0, idx) for k, v in self._store.items()}
+                # the step is position-derived, so a resumed stream seeds the same
+                # generators an uninterrupted one would
+                batch = self._apply_transform(batch, epoch * per_epoch + bidx, takes_gen)
+                self._pos = (epoch, bidx + 1)
+                yield batch
+            epoch += 1
+            skip = 0
+
+    def _apply_transform(self, batch, step, takes_gen):
+        if self._device_transform is None:
+            return batch
+        if not takes_gen:
+            return self._device_transform(batch)
+        import torch
+
+        if self._transform_gen is None:
+            self._transform_gen = torch.Generator(device=self.device)
+        self._transform_gen.manual_seed(_fold_seed(self._seed + 1, step))
+        return self._device_transform(batch, self._transform_gen)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._store = None  # release device memory
+
+
+_UNSET = object()
+
+#: DataLoader keyword parameters make_dataloader forwards when given explicitly: the
+#: defaults stay defined once, on DataLoader.__init__
+_LOADER_OPTS = ("last_batch", "device_transform", "prefetch", "pad_shapes",
+                "device_shuffle_capacity", "to_device", "host_queue_size",
+                "device_decode_resize", "trace", "metrics", "health", "staging",
+                "provenance", "slos", "controller")
+
+
+def make_dataloader(dataset_url_or_urls, batch_size, sharding=None, num_epochs=1,
+                    shuffling_queue_capacity=0, reader_factory=None,
+                    last_batch=_UNSET, device_transform=_UNSET, prefetch=_UNSET,
+                    pad_shapes=_UNSET, device_shuffle_capacity=_UNSET,
+                    to_device=_UNSET, host_queue_size=_UNSET,
+                    device_decode_resize=_UNSET, trace=_UNSET, metrics=_UNSET,
+                    health=_UNSET, staging=_UNSET, provenance=_UNSET,
+                    slos=_UNSET, controller=_UNSET, *, device=None, **reader_kwargs):
+    """One call for :func:`~petastorm_tpu_torch.reader.make_batch_reader` +
+    :class:`DataLoader` (port of ``petastorm_tpu.loader.make_dataloader``).
+
+    ``reader_kwargs`` go to ``make_batch_reader`` (or ``reader_factory``); the loader's
+    parameters are :class:`DataLoader`'s, and only those passed explicitly are
+    forwarded. ``seed`` (the loader's) falls back to ``shard_seed``. In a
+    ``torch.distributed`` job of more than one process ``cur_shard``/``shard_count``
+    default to the rank and the world size. ``sharding`` is not ported (raises before
+    the reader is built)."""
+    from petastorm_tpu_torch.reader import make_batch_reader
+
+    reject_unported("make_dataloader", sharding=sharding)
+    factory = reader_factory or make_batch_reader
+    if "cur_shard" not in reader_kwargs:
+        rank, world = _process_group()
+        if world > 1:
+            reader_kwargs["cur_shard"] = rank
+            reader_kwargs["shard_count"] = world
+    reader = factory(dataset_url_or_urls, num_epochs=num_epochs, **reader_kwargs)
+    seed = reader_kwargs.get("seed")
+    if seed is None:
+        seed = reader_kwargs.get("shard_seed")
+    passed = locals()
+    loader_kwargs = {name: passed[name] for name in _LOADER_OPTS
+                     if passed[name] is not _UNSET}
+    try:
+        return DataLoader(reader, batch_size,
+                          shuffling_queue_capacity=shuffling_queue_capacity, seed=seed,
+                          device=device, **loader_kwargs)
+    except BaseException:
+        reader.stop()  # a refused option must not leave the reader's pool running
+        reader.join()
+        raise

@@ -20,6 +20,10 @@ DataLoader inflates them on its device. A ``transform_spec`` (an opaque
 :class:`~petastorm_tpu_torch.transform.TransformSpec` or a declarative
 :class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline`, compiled by the factories)
 runs in the workers, or on the device in the DataLoader when it says ``device=True``.
+``schema_fields=NGram(...)`` (:mod:`petastorm_tpu_torch.ngram`) windows each row group in
+the workers, after the host transform: the per-row reader delivers ``{offset:
+namedtuple}`` windows, the batch reader flat ``{'offset/field': column}`` dicts, one row a
+window.
 
 Options of the JAX package whose machinery is not ported raise ``NotImplementedError``
 naming their ROADMAP.md item (:mod:`petastorm_tpu_torch._unported`).
@@ -33,13 +37,14 @@ from collections import OrderedDict
 
 import numpy as np
 
-from petastorm_tpu_torch._unported import not_ported, reject_unported
+from petastorm_tpu_torch._unported import reject_unported
 from petastorm_tpu_torch.errors import DecodeFieldError, NoDataAvailableError
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
 from petastorm_tpu_torch.io import IoOptions
 from petastorm_tpu_torch.io.lease import LEASE_KEY
 from petastorm_tpu_torch.io.pagedec import materialize_columns
 from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, load_row_groups
+from petastorm_tpu_torch.ngram import NGram, form_ngram_columns
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -222,7 +227,15 @@ class PyDictWorker(_WorkerBase):
     """Per-row decode path (reference ``PyDictReaderWorker``): row group → decoded row dicts.
 
     With a row mask the predicate and filter columns are read first; the other columns
-    are fetched only when some rows match, and only matching rows are decoded."""
+    are fetched only when some rows match, and only matching rows are decoded. NGram
+    windows are formed here, after the host transform, against the post-transform schema
+    (``ngram_schema``), and travel as plain ``{offset: {field: value}}`` dicts (the pickle
+    wire carries no namedtuple class); the Reader rebuilds the namedtuples."""
+
+    def __init__(self, *args, ngram=None, ngram_schema=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._ngram = ngram
+        self._ngram_schema = ngram_schema
 
     def __call__(self, item):
         rows = self._load_rows(item)
@@ -232,6 +245,9 @@ class PyDictWorker(_WorkerBase):
             rows = spec.apply_rows(rows)
         elif _spec_wants_writable(spec):
             rows = [spec.func(dict(r)) for r in rows]
+        if self._ngram is not None:
+            return [{offset: nt._asdict() for offset, nt in w.items()}
+                    for w in self._ngram.form_ngram(rows, self._ngram_schema)]
         return rows
 
     def _load_rows(self, item):
@@ -292,12 +308,17 @@ class ArrowWorker(_WorkerBase):
     delivery path as opaque :class:`~petastorm_tpu_torch.io.pagedec.PassthroughColumn`
     values and inflate on the card in the loader
     (:mod:`petastorm_tpu_torch.ops.pagedec_kernels`). Ineligible columns degrade PER
-    COLUMN to the classic read, so any store reads unchanged."""
+    COLUMN to the classic read, so any store reads unchanged.
+
+    With an ``ngram`` each row group is windowed here, after the host transform
+    (:func:`~petastorm_tpu_torch.ngram.form_ngram_columns`), into flat ``offset/field``
+    columns, one row a window."""
 
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
-                 io_options=None, transform_spec=None, **selection):
+                 io_options=None, transform_spec=None, ngram=None, **selection):
         super().__init__(filesystem, read_schema, stored_schema, device_fields,
                          transform_spec, **selection)
+        self._ngram = ngram
         self._io_options = IoOptions.normalize(io_options)
         #: set by the Reader when a DataLoader on a CUDA device adopts it: what ``auto``
         #: engages on
@@ -314,6 +335,8 @@ class ArrowWorker(_WorkerBase):
             out = spec.apply_columns(out)
         elif _spec_wants_writable(spec):
             out = _pandas_transform(spec, out)
+        if self._ngram is not None:
+            out = form_ngram_columns(out, self._ngram)
         return out
 
     def _load_columns(self, item):
@@ -362,11 +385,13 @@ class ArrowWorker(_WorkerBase):
 
     def _pagedec_shape_ok(self):
         """Row-selecting options (a predicate, filters, row-drop partitions) and
-        in-worker rewrites (any ``transform_spec``, a device one too) need decoded rows:
-        each turns the pass-through off for the whole read, as in the JAX package.
-        ``rowgroup_selector`` and hive pruning act at plan time and leave it on."""
+        in-worker rewrites (any ``transform_spec``, a device one too, and NGram windows)
+        need decoded rows: each turns the pass-through off for the whole read, as in the
+        JAX package. ``rowgroup_selector`` and hive pruning act at plan time and leave it
+        on."""
         return (self._predicate is None and not self._filters
-                and self._drop_partitions <= 1 and self._transform_spec is None)
+                and self._drop_partitions <= 1 and self._transform_spec is None
+                and self._ngram is None)
 
     def _pagedec_footer(self, path):
         """The parsed footer for eligibility classification, or ``None`` (the classic
@@ -605,6 +630,10 @@ class Reader:
     ``state_dict()``/``load_state_dict()`` (the consumed-work map; equal to the JAX
     package's after the same deliveries, and loadable by it).
 
+    With an NGram (``reader.ngram``) the per-row reader delivers windows, ``{offset:
+    namedtuple}`` (one schema view a timestep, made once), and the batch reader plain
+    dicts of flat ``offset/field`` columns (such names cannot be namedtuple fields).
+
     On a process pool's shared-memory view wire (``wire_serializer='shm-view'`` or
     ``'shm-arrow-view'``) a batch's arrays are read-only views into a pool slab, valid
     until the next ``__next__()`` or :meth:`release_batch`; a consumer that keeps them
@@ -617,10 +646,12 @@ class Reader:
                  reader_pool_type="thread", workers_count=4, results_queue_size=16,
                  is_batched_reader=False, results_timeout_s=300.0,
                  wire_serializer="pickle", worker_respawns=None, io_options=None,
-                 transport=None):
+                 transport=None, ngram=None):
         self.schema = schema
         self._worker = worker
         self.is_batched_reader = is_batched_reader
+        self.ngram = ngram
+        self._ngram_views = {}  # offset -> the schema view its namedtuples come from
         self._row_type = schema.make_namedtuple_type()
         self.cur_shard = cur_shard
         self.shard_count = shard_count
@@ -722,7 +753,7 @@ class Reader:
                     # the row group's last row is delivered: it counts as consumed
                     self._mark_consumed(self._buffer_tag)
                     self._buffer_tag = None
-                return self._row_type(**{name: row.get(name) for name in self.schema.fields})
+                return self._wrap_row(row)
             # past the drained buffer: its slab (view wire) returns to the ring
             self.release_batch()
             epoch, ordinal, payload = self._next_payload()
@@ -733,6 +764,18 @@ class Reader:
             self._buffer = payload
             self._buffer_pos = 0
             self._buffer_tag = (epoch, ordinal)
+
+    def _wrap_row(self, row):
+        if self.ngram is None:
+            return self._row_type(**{name: row.get(name) for name in self.schema.fields})
+        out = {}
+        for offset, values in row.items():
+            view = self._ngram_views.get(offset)
+            if view is None:
+                view = self._ngram_views[offset] = self.schema.create_schema_view(
+                    self.ngram.get_field_names_at_timestep(offset))
+            out[offset] = view.make_namedtuple(**values)
+        return out
 
     def _next_batch(self):
         # the previous batch's slab (view wire) returns to the ring: a batch's views stay
@@ -750,6 +793,8 @@ class Reader:
                 # no loader adopted the pass-through: the host twin is the designed
                 # decode for loader-less readers
                 columns = materialize_columns(columns)
+            if self.ngram is not None:
+                return dict(columns)  # flat 'offset/field' names
             return self._row_type(**{name: columns.get(name)
                                      for name in self.schema.fields})
 
@@ -939,10 +984,12 @@ def _maybe_compile_pipeline(spec, schema, fs, pieces):
     return spec
 
 
-def _resolve_device_fields(schema, decode_on_device, transform_spec=None):
+def _resolve_device_fields(schema, decode_on_device, ngram=None, transform_spec=None):
     """Fields whose codec decode should stop at the host staging half (stage 1)."""
     if not decode_on_device:
         return frozenset()
+    if ngram is not None:
+        raise ValueError("decode_on_device is not supported with NGram readers")
     if transform_spec is not None and not transform_spec.device \
             and transform_spec.func is not None:
         raise ValueError(
@@ -962,14 +1009,22 @@ def _resolve_device_fields(schema, decode_on_device, transform_spec=None):
     return fields
 
 
-def _read_schema(stored_schema, schema_fields):
+def _resolve_ngram_schema(schema_fields, stored_schema, predicate):
+    """Both factories' ``schema_fields`` policy: ``(ngram or None, read schema)``. An
+    NGram reads every field a timestep needs plus its timestamp field, and refuses a
+    predicate; otherwise a list of names, regexes or fields selects a schema view."""
+    if isinstance(schema_fields, NGram):
+        if predicate is not None:
+            raise ValueError("NGram readers do not support predicates")
+        schema_fields.resolve_regex_field_names(stored_schema)
+        return schema_fields, schema_fields.make_schema_view(stored_schema)
     if schema_fields is None:
-        return stored_schema
+        return None, stored_schema
     if not isinstance(schema_fields, (list, tuple)) or not all(
             isinstance(f, (str, UnischemaField)) for f in schema_fields):
-        raise not_ported("schema_fields=%r (NGram or another selector)" % (schema_fields,),
-                         "ngram")
-    return stored_schema.create_schema_view(schema_fields)
+        raise ValueError("schema_fields must be a list of field names, regexes or "
+                         "UnischemaFields, or an NGram; got %r" % (schema_fields,))
+    return None, stored_schema.create_schema_view(schema_fields)
 
 
 def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", workers_count=4,
@@ -1013,6 +1068,12 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     splits each row group into k seeded row subsets, each its own work item. A predicate
     that matches nothing gives an empty read; ``filters`` that prune every row group
     raise ``NoDataAvailableError``.
+
+    ``schema_fields`` is a list of field names, regexes or fields, or an
+    :class:`~petastorm_tpu_torch.ngram.NGram`: then each row is a window ``{offset:
+    namedtuple}`` of consecutive rows of one row group (sorted by the timestamp field),
+    formed in the workers after the host transform. NGram refuses a ``predicate`` and
+    ``decode_on_device``.
     """
     reject_unported(
         "make_reader", cache_type=cache_type,
@@ -1030,16 +1091,18 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     pieces, partition_info, filters = _plan_pieces(pieces, filters, predicate, shard_count)
     if partition_info:
         stored_schema = _schema_with_partitions(stored_schema, partition_info)
-    read_schema = _read_schema(stored_schema, schema_fields)
+    ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
     transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces)
     final_schema = read_schema
     if transform_spec is not None and not transform_spec.device:
         final_schema = transform_schema(read_schema, transform_spec)
-    device_fields = _resolve_device_fields(read_schema, decode_on_device, transform_spec)
+    device_fields = _resolve_device_fields(read_schema, decode_on_device, ngram,
+                                           transform_spec)
     worker = PyDictWorker(
         fs, read_schema, stored_schema, device_fields, transform_spec, predicate=predicate,
         filters=filters, shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-        seed=seed if seed is not None else shard_seed, partition_info=partition_info)
+        seed=seed if seed is not None else shard_seed, partition_info=partition_info,
+        ngram=ngram, ngram_schema=final_schema if ngram is not None else None)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,
@@ -1048,7 +1111,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
                results_queue_size=results_queue_size, is_batched_reader=False,
                results_timeout_s=results_timeout_s,
                wire_serializer=wire_serializer or "pickle",
-               worker_respawns=worker_respawns, io_options=io_options, transport=transport)
+               worker_respawns=worker_respawns, io_options=io_options, transport=transport,
+               ngram=ngram)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r
@@ -1089,6 +1153,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     package). Each of them turns the compressed-page pass-through off for the read: the
     mask needs decoded rows. The mask is applied before any column is decoded, so rows it
     drops cost no stage 1 on a ``decode_on_device`` JPEG column.
+
+    ``schema_fields=NGram(...)`` windows each row group into flat ``{'offset/field':
+    column}`` dicts, one row a window (one argsort and one gather an (offset, field));
+    it reads classically (no pass-through) and refuses a ``predicate`` and
+    ``decode_on_device``, as :func:`make_reader` does.
     """
     reject_unported(
         "make_batch_reader", cache_type=cache_type, cache_location=cache_location,
@@ -1108,15 +1177,16 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     pieces, partition_info, filters = _plan_pieces(pieces, filters, predicate, shard_count)
     if partition_info:
         stored_schema = _schema_with_partitions(stored_schema, partition_info)
-    read_schema = _read_schema(stored_schema, schema_fields)
+    ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
     transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces)
     final_schema = read_schema
     if transform_spec is not None and not transform_spec.device:
         final_schema = transform_schema(read_schema, transform_spec)
-    device_fields = _resolve_device_fields(read_schema, decode_on_device, transform_spec)
+    device_fields = _resolve_device_fields(read_schema, decode_on_device, ngram,
+                                           transform_spec)
     worker = ArrowWorker(
         fs, read_schema, stored_schema, device_fields, io_options=io_options,
-        transform_spec=transform_spec, predicate=predicate, filters=filters,
+        transform_spec=transform_spec, ngram=ngram, predicate=predicate, filters=filters,
         shuffle_row_drop_partitions=shuffle_row_drop_partitions,
         seed=seed if seed is not None else shard_seed, partition_info=partition_info)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
@@ -1130,7 +1200,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                # inside the slabs
                wire_serializer={"shm": "shm-arrow", "shm-view": "shm-arrow-view"}.get(
                    wire_serializer, wire_serializer) or "arrow",
-               worker_respawns=worker_respawns, io_options=io_options, transport=transport)
+               worker_respawns=worker_respawns, io_options=io_options, transport=transport,
+               ngram=ngram)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r

@@ -1,10 +1,119 @@
-"""Host-side columnar shuffling buffer (port of ``petastorm_tpu.shuffle``'s
-``BatchedRandomShufflingBuffer``, which the loader's host batcher uses). The per-row
-shuffling buffers and the on-device shuffle ring are not ported yet.
+"""Host-side shuffling buffers (port of ``petastorm_tpu.shuffle``): the columnar
+``BatchedRandomShufflingBuffer`` the loader's host batcher uses, and the per-row
+``NoopShufflingBuffer`` / ``RandomShufflingBuffer`` of the torch adapters
+(:mod:`petastorm_tpu_torch.adapters.pytorch`). The on-device ring is
+:mod:`petastorm_tpu_torch.ops.device_shuffle`.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+class ShufflingBufferBase:
+    def add_many(self, items):
+        raise NotImplementedError
+
+    def retrieve(self):
+        raise NotImplementedError
+
+    @property
+    def can_add(self):
+        raise NotImplementedError
+
+    @property
+    def can_retrieve(self):
+        raise NotImplementedError
+
+    @property
+    def size(self):
+        raise NotImplementedError
+
+    def finish(self):
+        """Signal no more items will be added; drain remaining."""
+        raise NotImplementedError
+
+
+class NoopShufflingBuffer(ShufflingBufferBase):
+    """FIFO passthrough (reference ~L40)."""
+
+    def __init__(self):
+        from collections import deque
+
+        self._items = deque()
+        self._done = False
+
+    def add_many(self, items):
+        self._items.extend(items)
+
+    def retrieve(self):
+        return self._items.popleft()
+
+    @property
+    def can_add(self):
+        return not self._done
+
+    @property
+    def can_retrieve(self):
+        return len(self._items) > 0
+
+    @property
+    def size(self):
+        return len(self._items)
+
+    def finish(self):
+        self._done = True
+
+
+class RandomShufflingBuffer(ShufflingBufferBase):
+    """Bounded reservoir: add until capacity, retrieve uniformly at random once past the
+    retrieval threshold (reference ~L80: capacity + ``min_after_retrieve`` semantics).
+    """
+
+    def __init__(self, shuffling_buffer_capacity, min_after_retrieve, extra_capacity=1000,
+                 seed=None):
+        if min_after_retrieve > shuffling_buffer_capacity:
+            raise ValueError("min_after_retrieve must be <= capacity")
+        self._capacity = shuffling_buffer_capacity
+        self._min_after_retrieve = min_after_retrieve
+        self._extra_capacity = extra_capacity
+        self._items = []
+        self._done = False
+        self._rng = np.random.Generator(np.random.PCG64(seed))
+
+    def add_many(self, items):
+        items = list(items)
+        if self._done:
+            raise RuntimeError("Cannot add to a finished shuffling buffer")
+        if len(self._items) + len(items) > self._capacity + self._extra_capacity:
+            raise RuntimeError(
+                "Attempt to add %d items to a buffer at %d/%d capacity; honor can_add "
+                "backpressure" % (len(items), len(self._items), self._capacity)
+            )
+        self._items.extend(items)
+
+    def retrieve(self):
+        if not self.can_retrieve:
+            raise RuntimeError("Buffer below retrieval threshold and not finished")
+        idx = int(self._rng.integers(len(self._items)))
+        self._items[idx], self._items[-1] = self._items[-1], self._items[idx]
+        return self._items.pop()
+
+    @property
+    def can_add(self):
+        return len(self._items) < self._capacity and not self._done
+
+    @property
+    def can_retrieve(self):
+        if self._done:
+            return len(self._items) > 0
+        return len(self._items) > self._min_after_retrieve
+
+    @property
+    def size(self):
+        return len(self._items)
+
+    def finish(self):
+        self._done = True
 
 
 class BatchedRandomShufflingBuffer:

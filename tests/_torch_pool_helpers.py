@@ -1,11 +1,20 @@
-"""Shared by the port's process-pool tests: the slab-leak check and the workers the
-pool children run.
+"""Shared by the port's tests: the slab-leak checks and the workers the pool children
+run.
 
 The port's slabs are named ``ptpu_torch_shm_<creator pid>_...``, outside the glob of
 the JAX package's ``_no_leaked_shm_segments`` fixture (``ptpu_shm_*``), so that fixture
 neither sees them nor blames them on a test in another xdist worker. This module holds
 their own check: ``no_leaked_port_slabs`` (autouse in every test module that imports
 it) fails a test that leaves a slab created by this process (its pid in the name).
+
+It also holds ``_no_leaked_shm_segments``, the JAX package's slab check scoped to this
+process. The conftest fixture of that name globs every ``ptpu_shm_*`` segment on the
+host, so under ``pytest -n`` it blames one worker's live pool slabs on a test that runs
+in another. A test module that imports this fixture overrides the conftest one for its
+own tests: the JAX package's ring names each slab after the pid of the process that
+creates it (the pool's parent, the test process), so a slab that a test's own JAX pool
+leaves behind still fails that test, and other processes' segments are none of its
+business.
 
 This module imports numpy, pytest and the port only: pool children import it to
 unpickle the workers below, and a child must not load jax or the JAX package.
@@ -34,6 +43,32 @@ def slab_leak_check():
     yield
     leaked = port_slabs() - before
     assert not leaked, "leaked port shared-memory slabs: %s" % sorted(leaked)
+
+
+def own_reference_slabs(shm_dir="/dev/shm"):
+    """Paths of the JAX package's pool slabs (``ptpu_shm_<pid>_...``) this process
+    created."""
+    return set(glob.glob(os.path.join(shm_dir, "ptpu_shm_%d_*" % os.getpid())))
+
+
+@contextlib.contextmanager
+def own_reference_slab_check(shm_dir="/dev/shm"):
+    """Raise ``AssertionError`` when the block leaves a JAX-package slab of this process
+    behind in ``shm_dir``."""
+    if not os.path.isdir(shm_dir):
+        yield
+        return
+    before = own_reference_slabs(shm_dir)
+    yield
+    leaked = own_reference_slabs(shm_dir) - before
+    assert not leaked, "leaked shared-memory slabs: %s" % sorted(leaked)
+
+
+@pytest.fixture(autouse=True)
+def _no_leaked_shm_segments():
+    """The conftest check of the same name, scoped to this process's segments."""
+    with own_reference_slab_check():
+        yield
 
 
 @pytest.fixture(autouse=True)
@@ -119,5 +154,42 @@ def gloo_checkpoint_rank(rank, world, port, url, ckpt, out):
         with open(out, "w") as f:
             json.dump({"pre": pre, "post": post,
                        "payload_keys": sorted(payload[ptck._GLOBAL_KEY])}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_make_dataloader_rank(rank, world, port, url, out):
+    """One rank of a ``torch.distributed`` (gloo, CPU) job: ``make_dataloader`` with no
+    ``cur_shard`` reads the rank's shard; ``InMemDataLoader`` refuses the multi-process
+    job. Writes ``{"ids", "cur_shard", "shard_count", "inmem_error"}`` as JSON to
+    ``out``."""
+    import datetime
+    import json
+
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import InMemDataLoader, make_dataloader
+
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        with make_dataloader(url, 4, device="cpu", last_batch="partial",
+                             reader_pool_type="dummy", shuffle_row_groups=False) as loader:
+            ids = [int(i) for b in loader for i in b["id"]]
+            shard = (loader.reader.cur_shard, loader.reader.shard_count)
+        reader = make_batch_reader(url, reader_pool_type="dummy")
+        try:
+            with InMemDataLoader(reader, 4, device="cpu"):
+                error = None
+        except NotImplementedError as e:
+            error = str(e)
+        finally:
+            reader.stop()
+            reader.join()
+        with open(out, "w") as f:
+            json.dump({"ids": ids, "cur_shard": shard[0], "shard_count": shard[1],
+                       "inmem_error": error}, f)
     finally:
         dist.destroy_process_group()

@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from petastorm_tpu.ops.device_shuffle import DeviceShuffleBuffer as RefBuffer  # noqa: E402

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "petastorm_tpu_torch")
 
@@ -32,7 +34,8 @@ def _forbidden(name):
 def test_importing_every_port_module_loads_no_jax_or_reference():
     modules = _port_modules()
     assert "petastorm_tpu_torch.loader" in modules and "petastorm_tpu_torch.ops.jpeg" in modules
-    for name in ("transform", "ops.tabular", "ops.device_shuffle", "io.statscache"):
+    for name in ("transform", "ops.tabular", "ops.device_shuffle", "io.statscache",
+                 "ngram", "weighted_sampling", "adapters.pytorch", "pytorch"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -146,12 +149,15 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.parallel.shm_ring", "petastorm_tpu_torch.io.lease",
     "petastorm_tpu_torch.transport", "petastorm_tpu_torch.ops.tabular",
     "petastorm_tpu_torch.transform", "petastorm_tpu_torch.io.statscache",
-    "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.partitions"])
+    "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.partitions",
+    "petastorm_tpu_torch.ngram", "petastorm_tpu_torch.weighted_sampling",
+    "petastorm_tpu_torch.adapters.pytorch", "petastorm_tpu_torch.pytorch"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
     ``transform_spec`` travels to the children, so the feature pipeline's module is one
-    of them; so do a predicate and the hive partition layout."""
+    of them; so do a predicate, the hive partition layout and an NGram. The mixer and the
+    torch adapters are host modules too, and load torch only when they make tensors."""
     assert module in _port_modules()
     code = ("import importlib, sys\n"
             "importlib.import_module(%r)\n"
@@ -217,24 +223,27 @@ def test_item_6_options_are_taken(tmp_path, name):
             assert got == [1, 5, 9]
 
 
+# NGram is ported (item 7): its case now holds make_dataloader(sharding=...), which
+# raises naming item 12 before it builds a reader
 @pytest.mark.parametrize("case", ["cache_type", "io_retries", "recovery", "watch",
-                                  "sharding", "ngram"])
+                                  "sharding", "make_dataloader_sharding"])
 def test_options_still_unported_raise_naming_their_item(tmp_path, case):
     import pyarrow as pa
     import pyarrow.parquet as pq
 
     from petastorm_tpu_torch import make_batch_reader
-    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.loader import DataLoader, make_dataloader
 
     pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
     url = "file://" + str(tmp_path)
     item = {"cache_type": "item 5", "io_retries": "item 8", "recovery": "item 8",
-            "watch": "item 8", "sharding": "item 12", "ngram": "item 7"}[case]
+            "watch": "item 8", "sharding": "item 12",
+            "make_dataloader_sharding": "item 12"}[case]
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
         if case == "sharding":
             DataLoader(object(), 4, device="cpu", sharding=object())
-        elif case == "ngram":
-            make_batch_reader(url, schema_fields=object())
+        elif case == "make_dataloader_sharding":
+            make_dataloader(url, 4, sharding=object(), device="cpu")
         else:
             make_batch_reader(url, **{case: {"cache_type": "memory", "io_retries": 2,
                                              "recovery": {"io_retries": 1},

@@ -12,6 +12,8 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 torch = pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 from petastorm_tpu.ops import jpeg as ref  # noqa: E402
 from petastorm_tpu_torch.ops import jpeg as port  # noqa: E402
 

@@ -8,6 +8,8 @@ import importlib
 import numpy as np
 import pytest
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: F401
+
 PACKAGES = ["petastorm_tpu", "petastorm_tpu_torch"]
 
 

@@ -8,6 +8,8 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 torch = pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from petastorm_tpu import loader as ref_loader  # noqa: E402

@@ -18,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 from petastorm_tpu.io import pagedec as ref_pd  # noqa: E402
 from petastorm_tpu.ops import pagedec_kernels as ref_pk  # noqa: E402
 from petastorm_tpu_torch import make_batch_reader  # noqa: E402

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 from petastorm_tpu import partitions as ref_partitions  # noqa: E402
 from petastorm_tpu import reader as ref_reader  # noqa: E402
 from petastorm_tpu_torch import partitions  # noqa: E402

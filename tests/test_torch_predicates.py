@@ -5,6 +5,8 @@ the same seeded columns; ``in_pseudorandom_split`` selects the reference's ids e
 import numpy as np
 import pytest
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: F401
+
 pytest.importorskip("torch")
 
 from petastorm_tpu import predicates as ref  # noqa: E402

@@ -8,6 +8,8 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 from petastorm_tpu import reader as ref_reader  # noqa: E402
 from petastorm_tpu import metadata as ref_metadata  # noqa: E402
 from petastorm_tpu import types as ref_types  # noqa: E402

@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 cv2 = pytest.importorskip("cv2")
 
-from _torch_pool_helpers import no_leaked_port_slabs  # noqa: E402,F401
+from _torch_pool_helpers import _no_leaked_shm_segments, no_leaked_port_slabs  # noqa: E402,F401
 from petastorm_tpu import predicates as ref_predicates  # noqa: E402
 from petastorm_tpu import reader as ref_reader  # noqa: E402
 from petastorm_tpu.errors import NoDataAvailableError as RefNoData  # noqa: E402

@@ -5,6 +5,8 @@ composed with a predicate and sharding delivers the reference's rows."""
 import numpy as np
 import pytest
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: F401
+
 pytest.importorskip("torch")
 
 from petastorm_tpu import metadata as ref_metadata  # noqa: E402

@@ -15,8 +15,8 @@ import time
 import numpy as np
 import pytest
 
-from _torch_pool_helpers import (no_leaked_port_slabs, payload_worker,  # noqa: F401
-                                 port_slabs, slab_leak_check, slow_payload_worker)
+from _torch_pool_helpers import (_no_leaked_shm_segments, no_leaked_port_slabs,  # noqa: F401
+                                 payload_worker, port_slabs, slab_leak_check, slow_payload_worker)
 from petastorm_tpu import serializers as ref
 from petastorm_tpu_torch import serializers as port
 from petastorm_tpu_torch.io.lease import LEASE_KEY

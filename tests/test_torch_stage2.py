@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 from petastorm_tpu.ops import jpeg as ref  # noqa: E402
 from petastorm_tpu_torch.ops import jpeg as port  # noqa: E402
 

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_pool_helpers import _no_leaked_shm_segments  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -13,7 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_pool_helpers import double_x_plus_a, no_leaked_port_slabs  # noqa: E402,F401
+from _torch_pool_helpers import (_no_leaked_shm_segments, double_x_plus_a,  # noqa: E402,F401
+                                 no_leaked_port_slabs)
 from petastorm_tpu import metadata as ref_metadata  # noqa: E402
 from petastorm_tpu import reader as ref_reader  # noqa: E402
 from petastorm_tpu import types as ref_types  # noqa: E402

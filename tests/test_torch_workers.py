@@ -15,8 +15,9 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 torch = pytest.importorskip("torch")
 
-from _torch_pool_helpers import (ModulesProbe, failing_worker,  # noqa: E402,F401
-                                 no_leaked_port_slabs, slow_payload_worker)
+from _torch_pool_helpers import (ModulesProbe, _no_leaked_shm_segments,  # noqa: E402,F401
+                                 failing_worker, no_leaked_port_slabs,
+                                 slow_payload_worker)
 from petastorm_tpu import loader as ref_loader  # noqa: E402
 from petastorm_tpu import metadata as ref_metadata  # noqa: E402
 from petastorm_tpu import reader as ref_reader  # noqa: E402
