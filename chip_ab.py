@@ -4,6 +4,8 @@
     python3 chip_ab.py --path main --run parent=_chipwork/parent: --run change=.:auto \\
         --rounds 5
     python3 chip_ab.py --path tabular --run off=.:off --run auto=.:auto --rounds 3
+    python3 chip_ab.py --path main --run defaults=.: --run read_off=.:+read_off \
+        --rounds 10
     python3 chip_ab.py --path mixed --run parent=_chipwork/parent: --run change=.: \
         --rounds 5
     python3 chip_ab.py --path kernels --run parent=_chipwork/parent: --run change=.: \\
@@ -11,7 +13,10 @@
 
 Each ``--run LABEL=TREE:MODE`` names a checkout whose ``petastorm_tpu_torch`` package the
 run imports (TREE holds the package) and the ``io_options={"pagedec": MODE}`` it reads
-with (an empty MODE passes no ``io_options``, for trees that predate them). The stores
+with (an empty MODE passes no ``io_options``, for trees that predate them). A MODE
+ending in ``+read_off`` also turns the read path's readahead, coalescing and work
+stealing off (trees that have them; ``.:+read_off`` alone keeps the default
+``pagedec``). The stores
 are written once, as ``chip_smoke.py`` writes them: ``main`` is the 4,096-row JPEG store
 read with ``decode_on_device=True`` and ``normalize_images`` as the device transform,
 batches of 256; ``mixed`` is the 2,048-row mixed-size store of chip_smoke's phase 6,
@@ -61,7 +66,13 @@ def _one(args):
 
     if args.path == "kernels":
         return _one_kernels(args, smoke)
-    kwargs = {"io_options": {"pagedec": args.mode}} if args.mode else {}
+    pagedec, _, extra = args.mode.partition("+")
+    io_options = {"pagedec": pagedec} if pagedec else {}
+    if extra == "read_off":
+        io_options.update(readahead=False, coalesce=False, work_stealing=False)
+    elif extra:
+        raise SystemExit("unknown MODE suffix %r (want +read_off)" % extra)
+    kwargs = {"io_options": io_options} if io_options else {}
     workers = max(1, min(8, (os.cpu_count() or 2) - 1))
     if args.path == "main":
         from petastorm_tpu_torch.ops.image import normalize_images
@@ -266,7 +277,8 @@ def main():
     parser.add_argument("--path", choices=("main", "mixed", "tabular", "kernels"),
                         required=True)
     parser.add_argument("--run", action="append", required=True,
-                        help="LABEL=TREE:MODE (MODE auto/on/off, or empty)")
+                        help="LABEL=TREE:MODE (MODE auto/on/off or empty, "
+                             "optionally +read_off)")
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--warmup", type=int, default=None)
     parser.add_argument("--measured", type=int, default=None)

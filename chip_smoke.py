@@ -144,10 +144,30 @@ Phases (each passes or the script exits non-zero, printing no result line):
    live, every row once. (g) the torch adapters' ``BatchedDataLoader`` over phase 5's
    store: every column, moved to the card, equals the ``DataLoader``'s.
 
+11. The read path and the row-group caches. The JAX package's default read path
+   (readahead of depth 3 over 2 IO threads, coalesced reads of up to 4 adjacent row
+   groups, work stealing, the 64 MiB shared footer cache) is the default of every phase
+   above; here it is held against ``IoOptions(readahead=False, coalesce=False,
+   work_stealing=False)``. (a) phase 7's thread-pool run of the main path at the
+   defaults and all off, 3 rounds each, alternating which goes first: rows/s, read_s
+   and decode_s a batch, readahead hits, misses and exposed-wait seconds, coalesced
+   reads and steals printed; every id once an epoch, images equal to phase 7's per id,
+   K2 equal to its plain version, one stage2_planes, stage2_rgb and K2 launch a batch.
+   (b) phase 5's pass-through the same way (phase 5's checks in every run), from an
+   emptied footer cache: one footer parse a file over all six runs, and no pass-through
+   column in any prefetch made while the pass-through was live. (c) the main path with
+   ``memcache_bytes`` over two epochs (one reader each): 300 MB must evict and deliver
+   exactly; 1 GiB serves epoch 2 from memory for every row group with 0 rows through
+   stage 1, equal images, and counts at least the store's 616,562,688 coefficient bytes.
+   (d) phase 5's store through ``cache_type="local-disk"`` (classic read), two epochs:
+   epoch 2 from the disk tier, every row group equal to the source, the cache
+   directory's bytes printed. (e) the process pool on ``'arrow'``: every child's
+   readahead hits, every id once an epoch, images equal to phase 7's per id.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
-in phase 9's, ``slice11_launches`` in phase 10's), the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
+in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's),
+the card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -1015,10 +1035,12 @@ def profiled_busy_share(next_batch, batches):
     return (us / 1e6 / wall) if us else None
 
 
-def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, tag=""):
+def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, tag="",
+                  io_options=None):
     """One JPEG run (module comment above). ``images`` ((ROWS, 224, 224, 3) uint8 on the
     card): the first thread-pool run fills it by id (``fill``), every later run is held
-    to it bit for bit."""
+    to it bit for bit. ``io_options``: the reader's read path (None: the defaults);
+    the result's ``io`` is ``reader.io_stats()`` at the end of the run."""
     import numpy as np
     import torch
 
@@ -1038,7 +1060,8 @@ def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, t
     with pool_env(slab_bytes):
         reader = make_batch_reader(url, reader_pool_type=pool, workers_count=workers,
                                    wire_serializer=wire, shuffle_row_groups=True, seed=0,
-                                   num_epochs=POOL_EPOCHS, decode_on_device=True)
+                                   num_epochs=POOL_EPOCHS, decode_on_device=True,
+                                   io_options=io_options)
     executor = reader._executor
     dev = torch.device("cuda")
     counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
@@ -1091,6 +1114,7 @@ def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, t
         check(next(it, None) is None, "%s: more batches than %d epochs hold" % (label,
                                                                               POOL_EPOCHS))
         wire_stats = reader.wire_stats()
+        io = reader.io_stats()
         pool_stats = executor.pool_stats() if pool == "process" else {}
     torch.cuda.synchronize()
     launches = {"stage2_planes": jpeg.stage2_planes_segments.launches,
@@ -1154,7 +1178,7 @@ def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, t
         "batch equal to the plain stage 2 and K2, no slab left" % (label, POOL_EPOCHS))
     return {"rows_per_s": rows_per_s, "window_ms": window, "busy": busy,
             "wire": wire_stats, "pool": pool_stats, "launches": launches,
-            "child_rss_mib": [m for m, _c in children.values()]}
+            "child_rss_mib": [m for m, _c in children.values()], "io": io}
 
 
 @contextlib.contextmanager
@@ -1937,12 +1961,13 @@ def _off_read(root, f, rg):
 
 def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP_BATCHES,
                        measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH, pool="thread",
-                       wire=None):
+                       wire=None, io_options=None):
     """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
     card: counts zeroed just before, read just after; the first and last measured
     batches against a ``pagedec="off"`` read of their row groups and the source arrays.
     ``pool``/``wire``: the reader's pool and the process pool's wire (then also no lease
-    leaked and no slab left)."""
+    leaked and no slab left). ``io_options``: more read-path fields beside ``pagedec``
+    (the result's ``io`` is ``reader.io_stats()`` at the end of the window)."""
     import numpy as np
     import torch
 
@@ -1955,8 +1980,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     workers = max(1, min(8, (os.cpu_count() or 2) - 1))
     reader = make_batch_reader("file://" + root, workers_count=workers,
                                shuffle_row_groups=True, seed=0, num_epochs=None,
-                               io_options={"pagedec": "auto"}, reader_pool_type=pool,
-                               wire_serializer=wire)
+                               io_options={"pagedec": "auto", **(io_options or {})},
+                               reader_pool_type=pool, wire_serializer=wire)
     leases0 = lease_stats()
     counters0 = pagedec.counter_values()
     reads0 = pk.HOST_READS.value
@@ -1982,6 +2007,7 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                 stats1 = loader.stats.snapshot()
                 break
         wire_stats = reader.wire_stats()
+        io = reader.io_stats()
     launches = {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_scan_pages.launches,
                 "K4": pk.extract_pages.launches}
     leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
@@ -2045,7 +2071,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
             "pagedec=off read and the source arrays in all %d columns"
             % (which, f, rg, len(TAB_COLUMNS)))
     return launches, {"rows_per_s": rows_per_s, "window": window, "counters": counters,
-                      "wire": wire_stats, "leases": leases, "launches": launches}
+                      "wire": wire_stats, "leases": leases, "launches": launches,
+                      "io": io, "passthrough_batches": passthrough_batches}
 
 
 # -- phase 8: the click-through training feed ------------------------------------------
@@ -3388,6 +3415,318 @@ def phase_adapters(root, smi, device="cuda"):
     return {"batches": batches}
 
 
+# -- phase 11: the read path and the row-group caches -----------------------------------
+#
+# The JAX package's default read path (readahead of depth 3 over 2 IO threads a worker
+# process, coalesced reads of up to 4 adjacent row groups, the work-stealing dispatcher,
+# the 64 MiB shared footer cache) is the port's default since this phase's slice, so
+# phases 4-10 already ran on it. Phase 11 holds it against the read path with all three
+# off, and drives the caches: (a) the main path (phase 7's thread-pool run) at the
+# defaults and all off, IO_ROUNDS rounds each, alternating which goes first; (b) phase
+# 5's pass-through the same way, with the footer cache's own counts and a spy on every
+# prefetch; (c) the main path with a memcache over two epochs, at MEMCACHE_SMALL (which
+# must evict) and then MEMCACHE_BIG (which holds the store: epoch 2 runs no stage 1);
+# (d) phase 5's store through cache_type="local-disk" (classic read), two epochs; (e)
+# the process pool on 'arrow' with the readahead hints riding to the children.
+
+IO_ALL_OFF = {"readahead": False, "coalesce": False, "work_stealing": False}
+IO_ROUNDS = 3
+MEMCACHE_SMALL, MEMCACHE_BIG = 300 << 20, 1 << 30
+#: the main-path store's int16 coefficient bytes: 4,096 rows of 224x224 4:2:0 JPEG hold
+#: 784 + 196 + 196 blocks of 64 coefficients (616,562,688 bytes)
+COEF_BYTES = ROWS * (784 + 196 + 196) * 64 * 2
+IO_KEYS = ("readahead_hits", "readahead_misses", "readahead_wait_s", "readahead_exposed_s",
+           "coalesced_reads", "coalesced_items", "steals")
+
+
+def _io_brief(io):
+    return {k: io[k] for k in IO_KEYS if k in io}
+
+
+def phase_read_path_jpeg(url, blobs, images, smi):
+    """(a): phase 7's thread-pool run at the read path's defaults and with it all off.
+    Each run holds every id once an epoch, every image to phase 7's of the same id, the
+    first batch to the plain stage 2 and K2 to its plain version, and stage2_planes,
+    stage2_rgb and K2 to one launch a batch (``pool_jpeg_run``)."""
+    out = {"defaults": [], "all_off": []}
+    for r in range(IO_ROUNDS):
+        order = [("defaults", None), ("all_off", IO_ALL_OFF)]
+        if r % 2:
+            order.reverse()
+        for name, opts in order:
+            res = pool_jpeg_run(url, blobs, "thread", None, None, images, smi,
+                                tag=" read path %s round %d" % (name, r), io_options=opts)
+            w = res["window_ms"]
+            log("read path (a) %s round %d: %.1f rows/s; read_s %.3f, decode_s %.3f ms a "
+                "batch; io %s; %s" % (name, r, res["rows_per_s"], w["read_s"],
+                                      w["decode_s"], json.dumps(_io_brief(res["io"])), smi))
+            io = res["io"]
+            if name == "defaults":
+                check(io.get("readahead_hits", 0) > 0, "read path (a): no readahead hit at "
+                      "the defaults: %s" % _io_brief(io))
+            else:
+                check("readahead_hits" not in io and io.get("steals", 0) == 0,
+                      "read path (a): the all-off run prefetched or stole: %s"
+                      % _io_brief(io))
+            out[name].append(res)
+    for name, runs in out.items():
+        rates = [r["rows_per_s"] for r in runs]
+        log("read path (a) %s: rows/s %s (median %.1f)" % (
+            name, [round(x, 1) for x in rates], sorted(rates)[len(rates) // 2]))
+    return out
+
+
+def phase_read_path_tabular(root, arrays, predicted, smi):
+    """(b): phase 5's pass-through (``pagedec="auto"``) at the defaults and all off.
+    Each run holds phase 5's checks (one K3, scan and K4 launch a pass-through batch, 0
+    host-inflated columns, the first and last measured batches byte-identical to the
+    classic read). Across the runs: one footer parse a file (the footer cache's misses
+    grow by the store's file count, from an emptied cache) and no pass-through column in
+    any prefetch made while the pass-through was live."""
+    import threading
+
+    from petastorm_tpu_torch.io import readahead as ra
+    from petastorm_tpu_torch.io.footercache import shared_footer_cache
+    from petastorm_tpu_torch.reader import ArrowWorker
+
+    local = threading.local()
+    scheduled = []  # (pass-through live at the hint, requested columns)
+    orig_prefetch, orig_schedule = ArrowWorker.prefetch, ra.ReadaheadPool.schedule
+
+    def prefetch(self, items):
+        local.live = self._pagedec_active()
+        try:
+            return orig_prefetch(self, items)
+        finally:
+            local.live = None
+
+    def schedule(self, requests):
+        requests = list(requests)
+        scheduled.extend((getattr(local, "live", None), tuple(cols))
+                         for _piece, cols in requests)
+        return orig_schedule(self, requests)
+
+    footers = shared_footer_cache()
+    footers.clear()
+    misses0 = footers.stats()["footer_cache_misses"]
+    out = {"defaults": [], "all_off": []}
+    ArrowWorker.prefetch, ra.ReadaheadPool.schedule = prefetch, schedule
+    try:
+        for r in range(IO_ROUNDS):
+            order = [("defaults", None), ("all_off", IO_ALL_OFF)]
+            if r % 2:
+                order.reverse()
+            for name, opts in order:
+                launches, res = phase_tabular_path(
+                    root, arrays, predicted, warmup=POOL_TAB_WARMUP,
+                    measured=POOL_TAB_MEASURED, io_options=opts)
+                w = res["window"]
+                log("read path (b) %s round %d: %.1f rows/s; read_s %.3f, inflate_s %.3f "
+                    "ms a batch; launches %s for %d pass-through batches; io %s; %s" % (
+                        name, r, res["rows_per_s"], w["read_s"] / POOL_TAB_MEASURED * 1e3,
+                        w["inflate_s"] / POOL_TAB_MEASURED * 1e3, json.dumps(launches),
+                        res["passthrough_batches"], json.dumps(_io_brief(res["io"])), smi))
+                out[name].append(res)
+    finally:
+        ArrowWorker.prefetch, ra.ReadaheadPool.schedule = orig_prefetch, orig_schedule
+    fstats = footers.stats()
+    parses = fstats["footer_cache_misses"] - misses0
+    live = [cols for flag, cols in scheduled if flag]
+    leaked = [cols for cols in live if set(cols) & set(TAB_COLUMNS)]
+    log("read path (b): footer cache %s (%d parses for %d files over %d runs); %d "
+        "prefetch requests, %d while the pass-through was live, %d of them naming a "
+        "pass-through column" % (json.dumps(fstats), parses, TAB_FILES, 2 * IO_ROUNDS,
+                                 len(scheduled), len(live), len(leaked)))
+    check(parses == TAB_FILES, "read path (b): %d footer parses for %d files (one a file "
+          "a process expected)" % (parses, TAB_FILES))
+    check(fstats["footer_cache_hits"] > 0, "read path (b): the footer cache served nothing")
+    check(not leaked, "read path (b): a prefetch named pass-through columns: %s"
+          % leaked[:3])
+    for name, runs in out.items():
+        rates = [r["rows_per_s"] for r in runs]
+        log("read path (b) %s: rows/s %s (median %.1f)" % (
+            name, [round(x, 1) for x in rates], sorted(rates)[len(rates) // 2]))
+    return out
+
+
+def _memcache_run(url, images, budget, smi):
+    """Two epochs of the main path with ``memcache_bytes=budget``, one reader each (the
+    process-wide store carries the row groups from the first to the second; emptied
+    before and after): every id once an epoch, every image equal to phase 7's,
+    stage2_planes, stage2_rgb and K2 once a batch. Returns each epoch's rows through
+    stage 1, tier counts and rows/s, and the store's counts after epoch 2. One reader an
+    epoch, because a reader running two epochs overlaps them (its workers' claims cross
+    the boundary), and an epoch-2 item may then run before its epoch-1 twin is cached."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io.memcache import shared_store
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    per_epoch = ROWS // BATCH
+    store = shared_store()
+    store.clear()
+    store0 = store.stats()
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    dev = torch.device("cuda")
+    label = "read path (c) memcache %d bytes" % budget
+    epochs = []
+    for epoch in range(2):
+        counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        first = None
+        with count_stage1_rows() as staged:
+            reader = make_batch_reader(url, workers_count=workers, shuffle_row_groups=True,
+                                       seed=epoch, num_epochs=1, decode_on_device=True,
+                                       io_options={"memcache_bytes": budget})
+            counters = _jpeg_launch_counters(zero=True)
+            with DataLoader(reader, BATCH, device="cuda", device_transform=transform,
+                            prefetch=3, host_queue_size=8) as loader:
+                for i, batch in enumerate(loader):
+                    ids, u8 = batch["id"], batch["image_u8"]
+                    counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                    bad.add_((images.index_select(0, ids) != u8).sum())
+                    if first is None:
+                        first = (u8[:8].clone(), batch["image"][:8].clone())
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                rate = (per_epoch - 1) * BATCH / (time.perf_counter() - t0)
+                io = reader.io_stats()
+            counters = _jpeg_launch_counters()
+        c = counts.cpu()
+        tiers = {k: v for k, v in io.items() if k.startswith("tier_")}
+        log("%s epoch %d: %.1f rows/s (batches 2-%d); stage 1 %d rows; tiers %s; "
+            "launches %s; %s" % (label, epoch + 1, rate, per_epoch, sum(staged),
+                                 json.dumps(tiers), json.dumps(counters), smi))
+        check(bool((c == 1).all()), "%s epoch %d: ids delivered %s times, not once each"
+              % (label, epoch + 1, sorted(set(c.tolist()))))
+        check(bad.item() == 0, "%s epoch %d: %d uint8 values differ from phase 7's images "
+              "of the same ids" % (label, epoch + 1, bad.item()))
+        check(counters["stage2_planes"] == counters["stage2_rgb"] == counters["K2"]
+              == per_epoch, "%s epoch %d: stage2_planes, stage2_rgb and K2 should launch "
+              "once a batch (%d): %s" % (label, epoch + 1, per_epoch, counters))
+        check(torch.equal(image._normalize_plain(first[0], MEAN, STD, torch.bfloat16),
+                          first[1]), "%s: K2 differs from its plain version" % label)
+        epochs.append({"staged_rows": sum(staged), "tiers": tiers, "rows_per_s": rate,
+                       "launches": counters})
+    torch.cuda.synchronize()
+    mem = store.stats()
+    store.clear()
+    log("%s: store after epoch 2 %s" % (label, json.dumps(mem)))
+    return {"label": label, "epochs": epochs, "mem": mem,
+            "evictions": mem["memcache_evictions"] - store0["memcache_evictions"]}
+
+
+def phase_read_path_memcache(url, images, smi):
+    """(c): the main path over two epochs with a memcache. MEMCACHE_SMALL first (the
+    store's budget only grows: the big budget afterwards raises it), which cannot hold
+    the store's ~616 MB of coefficients and must evict; then MEMCACHE_BIG, which holds
+    it: epoch 2 is served from memory for all 16 row groups and runs no stage 1, and the
+    store counts at least the coefficient bytes (ROADMAP.md Queue 3 M)."""
+    small = _memcache_run(url, images, MEMCACHE_SMALL, smi)
+    check(small["evictions"] > 0, "%s: no eviction" % small["label"])
+    big = _memcache_run(url, images, MEMCACHE_BIG, smi)
+    one, two = big["epochs"]
+    row_groups = one["tiers"]["tier_remote_hits"]
+    check(one["staged_rows"] == ROWS and two["staged_rows"] == 0, "%s: %d and %d rows "
+          "through stage 1 in epochs 1 and 2 (%d and 0 expected)" % (
+              big["label"], one["staged_rows"], two["staged_rows"], ROWS))
+    check(row_groups >= ROWS // 270 and two["tiers"]["tier_mem_hits"] == row_groups
+          and two["tiers"]["tier_remote_hits"] == 0, "%s: epoch 2 not served from memory "
+          "for every row group: %s" % (big["label"], two["tiers"]))
+    check(big["evictions"] == 0, "%s: %d evictions" % (big["label"], big["evictions"]))
+    check(big["mem"]["memcache_held_bytes"] >= COEF_BYTES, "%s: the store counts %d bytes, "
+          "less than the %d bytes of coefficients it holds" % (
+              big["label"], big["mem"]["memcache_held_bytes"], COEF_BYTES))
+    log("read path (c): %d row groups served from memory in epoch 2, 0 rows through stage "
+        "1 there (%.1f rows/s against %.1f in epoch 1); the store counted %d bytes for %d "
+        "bytes of coefficients; the small budget evicted %d entries, delivery exact" % (
+            row_groups, two["rows_per_s"], one["rows_per_s"],
+            big["mem"]["memcache_held_bytes"], COEF_BYTES, small["evictions"]))
+    return {"small": small, "big": big}
+
+
+def phase_read_path_disk(root, arrays, work, smi):
+    """(d): phase 5's store through ``cache_type="local-disk"`` (the classic read,
+    ``pagedec="off"``) into the DataLoader on the card, two epochs of one reader each
+    (the cache directory carries the row groups over): epoch 2 from the disk tier,
+    every row group once an epoch and equal to the source arrays."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    cache_dir = os.path.join(work, "disk_cache")
+    per_epoch = TAB_FILES * TAB_RGS_PER_FILE
+    epochs = []
+    for epoch in range(2):
+        reader = make_batch_reader("file://" + root, workers_count=workers,
+                                   shuffle_row_groups=True, seed=epoch, num_epochs=1,
+                                   cache_type="local-disk", cache_location=cache_dir,
+                                   io_options={"pagedec": "off"})
+        seen = {}
+        t0 = time.perf_counter()
+        with DataLoader(reader, TAB_BATCH, device="cuda", prefetch=3) as loader:
+            for batch in loader:
+                check(all(batch[c].is_cuda for c in TAB_COLUMNS), "read path (d): a "
+                      "column is not on the card")
+                host = {c: batch[c].cpu().numpy() for c in TAB_COLUMNS}
+                f, rg = _rowgroup_of({c: host[c][0] for c in TAB_COLUMNS}, arrays,
+                                     TAB_BATCH)
+                seen[(f, rg)] = seen.get((f, rg), 0) + 1
+                for c in TAB_COLUMNS:
+                    src = arrays[f][c][rg * TAB_BATCH:(rg + 1) * TAB_BATCH]
+                    check(host[c].dtype == src.dtype and host[c].tobytes() == src.tobytes(),
+                          "read path (d): column %s of file %d row group %d differs from "
+                          "the source" % (c, f, rg))
+            torch.cuda.synchronize()
+            rate = per_epoch * TAB_BATCH / (time.perf_counter() - t0)
+            io = reader.io_stats()
+        tiers = {k: v for k, v in io.items() if k.startswith("tier_")}
+        check(len(seen) == per_epoch and set(seen.values()) == {1}, "read path (d) epoch "
+              "%d: row groups delivered %s times" % (epoch + 1, sorted(set(seen.values()))))
+        epochs.append({"rows_per_s": rate, "tiers": tiers})
+    disk_bytes = sum(os.path.getsize(os.path.join(cache_dir, f))
+                     for f in os.listdir(cache_dir))
+    log("read path (d) local-disk: epoch 1 %.1f rows/s (tiers %s), epoch 2 %.1f rows/s "
+        "(tiers %s), each batch checked on the host, the reader's start included; cache "
+        "directory %d bytes in %d files; %s" % (
+            epochs[0]["rows_per_s"], json.dumps(epochs[0]["tiers"]),
+            epochs[1]["rows_per_s"], json.dumps(epochs[1]["tiers"]), disk_bytes,
+            len(os.listdir(cache_dir)), smi))
+    check(epochs[0]["tiers"]["tier_remote_hits"] == per_epoch
+          and epochs[1]["tiers"]["tier_disk_hits"] == per_epoch
+          and epochs[1]["tiers"]["tier_remote_hits"] == 0,
+          "read path (d): epoch 2 not served from the disk tier: %s" % epochs)
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    return {"epochs": epochs, "disk_bytes": disk_bytes}
+
+
+def phase_read_path_pool(url, blobs, images, smi):
+    """(e): the process pool on 'arrow' at the defaults: the readahead hints ride to the
+    children with each item, and every child's own readahead pool hits; the rest is
+    phase 7's run (every id once an epoch, images equal to phase 7's per id)."""
+    res = pool_jpeg_run(url, blobs, "process", "arrow", None, images, smi,
+                        tag=" read path hints")
+    children = res["io"]["children"]
+    brief = {i: _io_brief(c) for i, c in sorted(children.items())}
+    log("read path (e) process/arrow: %.1f rows/s; children's io %s; steals %s; %s" % (
+        res["rows_per_s"], json.dumps(brief), res["io"].get("steals"), smi))
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    check(len(children) == workers and all(c.get("readahead_hits", 0) > 0
+                                           for c in children.values()),
+          "read path (e): a child's readahead never hit: %s" % brief)
+    return res
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -3574,6 +3913,11 @@ def main():
         mkdl = phase_make_dataloader(url, images, env["smi"])
         ngram_rows = phase_ngram_rows(url, blobs, env["smi"])
         phase10_s = time.perf_counter() - t10
+        t11 = time.perf_counter()
+        io_jpeg = phase_read_path_jpeg(url, blobs, images, env["smi"])
+        io_mem = phase_read_path_memcache(url, images, env["smi"])
+        io_pool = phase_read_path_pool(url, blobs, images, env["smi"])
+        phase11_s = time.perf_counter() - t11
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -3614,6 +3958,12 @@ def main():
         phase10_s += time.perf_counter() - t10
         log("windowed and in-memory feeds: phase 10 took %.1f s of wall time; %s"
             % (phase10_s, env["smi"]))
+        t11 = time.perf_counter()
+        io_tab = phase_read_path_tabular(tab_root, arrays, predicted, env["smi"])
+        io_disk = phase_read_path_disk(tab_root, arrays, work, env["smi"])
+        phase11_s += time.perf_counter() - t11
+        log("read path and caches: phase 11 took %.1f s of wall time; %s"
+            % (phase11_s, env["smi"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -3637,6 +3987,14 @@ def main():
                 "c_make_dataloader": mkdl["launches"][key],
                 "d_ngram_rows": ngram_rows["launches"][key]}
 
+    def slice12_launches(key):
+        """{part: launches of ``key``} in phase 11's JPEG parts (a list a run)."""
+        return {"a_defaults": [r["launches"][key] for r in io_jpeg["defaults"]],
+                "a_all_off": [r["launches"][key] for r in io_jpeg["all_off"]],
+                "c_memcache_small": [e["launches"][key] for e in io_mem["small"]["epochs"]],
+                "c_memcache_big": [e["launches"][key] for e in io_mem["big"]["epochs"]],
+                "e_process_arrow": io_pool["launches"][key]}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -3651,7 +4009,8 @@ def main():
          "pool_launches": pool_launches(pool_jpeg, "stage2_planes"),
          "ring_feed_launches": feed_jpeg["launches"]["stage2_planes"],
          "selection_launches": selection_launches("stage2_planes"),
-         "slice11_launches": slice11_launches("stage2_planes")},
+         "slice11_launches": slice11_launches("stage2_planes"),
+         "slice12_launches": slice12_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -3663,7 +4022,8 @@ def main():
          "pool_launches": pool_launches(pool_jpeg, "stage2_rgb"),
          "ring_feed_launches": feed_jpeg["launches"]["stage2_rgb"],
          "selection_launches": selection_launches("stage2_rgb"),
-         "slice11_launches": slice11_launches("stage2_rgb")},
+         "slice11_launches": slice11_launches("stage2_rgb"),
+         "slice12_launches": slice12_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -3696,7 +4056,8 @@ def main():
          "pool_launches": pool_launches(pool_jpeg, "K2"),
          "ring_feed_launches": feed_jpeg["launches"]["K2"],
          "selection_launches": selection_launches("K2"),
-         "slice11_launches": slice11_launches("K2")},
+         "slice11_launches": slice11_launches("K2"),
+         "slice12_launches": slice12_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -3722,6 +4083,10 @@ def main():
         row["slice11_launches"] = {
             "b_inmem_fill": inmem_tab["launches"][key],
             "b_inmem_passthrough_fill_batches": inmem_tab["passthrough_batches"]}
+        row["slice12_launches"] = {
+            "b_" + mode: [r["launches"][key] for r in runs] for mode, runs in io_tab.items()}
+        row["slice12_launches"]["b_passthrough_batches"] = {
+            mode: [r["passthrough_batches"] for r in runs] for mode, runs in io_tab.items()}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -3745,6 +4110,19 @@ def main():
            inmem_jpeg["rows_per_s"], inmem_tab["fill_s"], inmem_tab["rows_per_s"],
            mkdl["rows_per_s"], ngram_rows["windows_per_s"],
            sensors["overlap"]["windows_per_s"], mixer["rows_per_s"]))
+    def median(runs):
+        rates = sorted(r["rows_per_s"] for r in runs)
+        return rates[len(rates) // 2]
+
+    log("read path (phase 11, %.1f s): main path rows/s median %.1f at the defaults, "
+        "%.1f all off; pass-through %.1f and %.1f; memcache epoch 2 %.1f rows/s against "
+        "%.1f in epoch 1; local-disk epoch 2 %.1f against %.1f; process pool with hints "
+        "%.1f" % (phase11_s, median(io_jpeg["defaults"]), median(io_jpeg["all_off"]),
+                  median(io_tab["defaults"]), median(io_tab["all_off"]),
+                  io_mem["big"]["epochs"][1]["rows_per_s"],
+                  io_mem["big"]["epochs"][0]["rows_per_s"],
+                  io_disk["epochs"][1]["rows_per_s"], io_disk["epochs"][0]["rows_per_s"],
+                  io_pool["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

@@ -10,17 +10,21 @@ only reads and decodes on the host, and must not make a CUDA context of its own.
 Protocol, over a ``multiprocessing.connection`` unix socket (authkey on stdin): the
 parent sends its ``sys.path``, the wire serializer's name (a shared-memory name is
 followed by the slab ring's segment names and slab size), then the pickled worker; the
-child answers ``("pid", pid)``. Then items: ``(item, settings)`` on the socket wire,
-``(slab_id, item, settings)`` on the shared-memory wire, where ``slab_id`` is the
-parent's grant for this item's result (None: the ring was empty, use the socket) and
-``settings`` is None or a dict the worker applies before the item (``apply_settings``:
-how a reader's later adoption by a loader reaches running children). The child answers
-``("ok", kind, nframes, (work_s, serialize_s))`` followed by ``nframes`` raw frames from
-the serializer, or ``("exc", exception)``. A ``None`` item shuts the child down.
+child answers ``("pid", pid)``. Then items: ``(item, hints, settings)`` on the socket
+wire, ``(slab_id, item, hints, settings)`` on the shared-memory wire, where ``slab_id``
+is the parent's grant for this item's result (None: the ring was empty, use the
+socket), ``hints`` the rest of this child's dispatch claim (handed to the worker's
+``prefetch`` before the item is worked: the child's own readahead pool reads them while
+it decodes) and ``settings`` None or a dict the worker applies before the item
+(``apply_settings``: how a reader's later adoption by a loader reaches running
+children). The child answers ``("ok", kind, nframes, (work_s, serialize_s), io)``,
+``io`` the worker's ``io_stats()`` (or None), followed by ``nframes`` raw frames from
+the serializer, or ``("exc", exception)``. A ``None`` item shuts the child down, and the
+worker's ``close()`` releases its readahead pool.
 
 The JAX package's child also speaks tcp, heartbeats, stack dumps, chaos, the cache
 arena, provenance, tenants and live knob frames; those are not ported (ROADMAP.md
-Queue 1 items 4(c), 5 and 8), and the parent never asks for them.
+Queue 1 items 4(c), 5b and 8), and the parent never asks for them.
 """
 import os
 import pickle
@@ -65,6 +69,8 @@ def main():
         worker = conn.recv()
         conn.send(("pid", os.getpid()))
         apply_settings = getattr(worker, "apply_settings", None)
+        prefetch = getattr(worker, "prefetch", None)
+        io_stats = getattr(worker, "io_stats", None)
         while True:
             # waiting for the next item is this process's job; the parent's teardown
             # closes the socket (EOFError, handled)
@@ -72,12 +78,14 @@ def main():
             if msg is None:
                 return
             if shm_wire:
-                slab_id, item, settings = msg
+                slab_id, item, hints, settings = msg
                 serializer.set_slab(slab_id)
             else:
-                item, settings = msg
+                item, hints, settings = msg
             if settings and apply_settings is not None:
                 apply_settings(settings)
+            if hints and prefetch is not None:
+                prefetch(hints)  # never raises (degradation-counted)
             try:
                 t0 = time.perf_counter()
                 result = worker(item)
@@ -91,12 +99,16 @@ def main():
                 except Exception:  # noqa: BLE001 — unpicklable exception: rebuild it
                     conn.send(("exc", RuntimeError("%s: %s" % (type(e).__name__, e))))
                 continue
-            conn.send(("ok", kind, len(frames), (t1 - t0, t2 - t1)))
+            conn.send(("ok", kind, len(frames), (t1 - t0, t2 - t1),
+                       io_stats() if io_stats is not None else None))
             for frame in frames:
                 conn.send_bytes(frame)
     except (EOFError, BrokenPipeError, ConnectionResetError):
         return
     finally:
+        close = getattr(worker, "close", None)
+        if close is not None:
+            close()  # the readahead pool's IO threads
         if serializer is not None and hasattr(serializer, "close"):
             serializer.close()  # detach (never unlink) the attached slabs
         conn.close()

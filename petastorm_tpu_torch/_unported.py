@@ -7,7 +7,8 @@ from __future__ import annotations
 
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
-    "io": "Queue 1 item 5 (read path IO options and caches)",
+    "remote_arena": "Queue 1 item 5b (the object-store tier's ranged-GET engine and the "
+                    "host-wide cache arena)",
     "obs": "Queue 1 item 8 (recovery, chaos, observability, health, provenance, tenants)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
@@ -16,13 +17,8 @@ _ITEMS = {
 
 #: option name -> (roadmap key, the value that means "not used")
 OPTIONS = {
-    "cache_type": ("io", "null"),
-    "cache_location": ("io", None),
-    "cache_size_limit": ("io", None),
-    "cache_row_size_estimate": ("io", None),
-    "cache_extra_settings": ("io", None),
-    # io_options itself is taken (IoOptions): its pagedec field is ported, every other
-    # field raises from IoOptions
+    # io_options and cache_* are taken (item 5a); IoOptions raises for the fields of
+    # item 5b (arena_bytes, the remote engine's)
     "io_retries": ("obs", None),
     "io_retry_backoff_s": ("obs", None),
     "recovery": ("obs", None),

@@ -5,7 +5,8 @@ loaders over the port's readers, with host shuffling buffers. They yield CPU ten
 the caller's own ``.to(device)``; the card path, which finishes ``decode_on_device`` JPEG
 columns and batched NGram windows on the device, is
 :class:`petastorm_tpu_torch.loader.DataLoader`. ``BatchedDataLoader`` rides the columnar
-path (numpy column dicts → ``torch.as_tensor``, zero-copy) instead of a per-row collate.
+path (numpy column dicts → ``torch.as_tensor``, zero-copy for writable arrays; a
+read-only one, such as a memcache serve, is copied) instead of a per-row collate.
 
 On a process pool's shared-memory view wire (``wire_serializer='shm-view'``) a
 delivery's arrays view a slab the reader recycles at its next fetch, and these loaders
@@ -178,7 +179,9 @@ class BatchedDataLoader(LoaderBase):
     @staticmethod
     def _to_torch(torch, arr):
         if isinstance(arr, np.ndarray) and arr.dtype.kind in "biufc":
-            return torch.as_tensor(arr)
+            # a read-only array (an Arrow column, a memcache serve) is copied: torch
+            # tensors are writable, and a write must not land in a buffer others share
+            return torch.as_tensor(arr if arr.flags.writeable else arr.copy())
         return arr
 
 

@@ -1,0 +1,222 @@
+"""Shared Parquet footer cache: each file's metadata is read and parsed once a process.
+
+Port of ``petastorm_tpu.io.footercache``. Without it every worker thread's open-file
+cache (``reader._WorkerBase._parquet_file``) reads and parses each file's footer on its
+first touch: workers x threads x files footer reads for bytes that never change.
+:class:`FooterCache` is one process-wide, byte-budgeted LRU of parsed
+``pyarrow.parquet.FileMetaData`` keyed by path:
+
+- ``_WorkerBase._parquet_file`` passes the cached metadata to
+  ``pq.ParquetFile(source, metadata=...)``: pyarrow then reads no footer at open.
+- The planner's footer scan (``metadata.load_row_groups``) fills the same store, so the
+  statistics pruning and the workers' opens share one footer parse a file a process.
+- The compressed-page pass-through classifies its columns from the cached footer, and a
+  prefetch hint only peeks (never reads a footer to plan a prefetch).
+
+Validation: an entry carries the file size seen at parse time; a later open whose
+handle reports another size invalidates it (counted). A same-size in-place rewrite is
+not seen (the JAX package's stat and crc generation tokens come with dataset watching,
+ROADMAP.md Queue 1 item 8). The host-wide arena publish of the footers is item 5b; the
+counters are per cache, read through :meth:`FooterCache.stats`.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+
+#: parsed FileMetaData are a few KB to a few hundred KB (wide schemas); the default
+#: budget holds ~1k typical footers
+DEFAULT_BUDGET_BYTES = 64 << 20
+
+
+class FooterEntry:
+    """One cached footer: the parsed metadata plus derived planning facts."""
+
+    __slots__ = ("metadata", "size", "nbytes", "num_row_groups", "row_group_rows",
+                 "_spans", "stat_token")
+
+    def __init__(self, metadata, size, stat_token=None):
+        self.metadata = metadata
+        self.size = int(size) if size is not None else None
+        #: the file's stat identity when the caller offered one (dataset watching,
+        #: item 8); None: size-only validation
+        self.stat_token = stat_token
+        # the serialized thrift size stands for the resident parse size
+        try:
+            self.nbytes = int(metadata.serialized_size) or 4096
+        except Exception:  # noqa: BLE001 - the budget is a guardrail, not an allocator
+            self.nbytes = 4096
+        self.num_row_groups = metadata.num_row_groups
+        self.row_group_rows = tuple(
+            metadata.row_group(i).num_rows for i in range(self.num_row_groups))
+        self._spans = None
+
+    def row_group_span(self, rg):
+        """``(start, end)`` byte span of one row group's column chunks: the unit the
+        row-group run planner's byte-gap bridging reasons about."""
+        if self._spans is None:
+            spans = []
+            for i in range(self.num_row_groups):
+                rgmd = self.metadata.row_group(i)
+                start = None
+                end = 0
+                for c in range(rgmd.num_columns):
+                    col = rgmd.column(c)
+                    first = col.data_page_offset
+                    if col.dictionary_page_offset is not None:
+                        first = min(first, col.dictionary_page_offset)
+                    start = first if start is None else min(start, first)
+                    end = max(end, first + col.total_compressed_size)
+                spans.append((start or 0, end))
+            self._spans = tuple(spans)
+        return self._spans[rg]
+
+
+class FooterCache:
+    """Process-wide byte-budgeted LRU of parsed Parquet footers.
+
+    One instance a process (module-level, like the memcache store): pool children each
+    build their own on first use. ``clear()`` releases the held bytes."""
+
+    def __init__(self, budget_bytes=DEFAULT_BUDGET_BYTES):
+        self._lock = threading.Lock()
+        self._entries = OrderedDict()  # path -> FooterEntry
+        self._total = 0
+        self._budget = max(0, int(budget_bytes))
+        self._hits = 0
+        self._misses = 0
+        self._evictions = 0
+        self._invalidations = 0
+
+    def lookup(self, path, size=None, stat_token=None):
+        """The cached :class:`FooterEntry` for ``path``, or ``None`` (a miss).
+
+        ``size`` (the file's current length, free from an open handle) validates the
+        entry; a mismatch invalidates it. ``stat_token`` validates harder: an entry
+        parsed under another stat identity, or under none, misses."""
+        with self._lock:
+            entry = self._entries.get(path)
+            stale = False
+            if entry is not None and size is not None \
+                    and entry.size is not None and entry.size != int(size):
+                stale = True
+            if entry is not None and stat_token is not None \
+                    and entry.stat_token != stat_token:
+                stale = True
+            if stale:
+                del self._entries[path]
+                self._total -= entry.nbytes
+                self._invalidations += 1
+                entry = None
+            if entry is None:
+                self._misses += 1
+                return None
+            self._entries.move_to_end(path)
+            self._hits += 1
+            return entry
+
+    def peek(self, path):
+        """The cached entry without counting a hit or a miss and without validation
+        (callers with no handle to validate against: a prefetch plan, the byte-gap
+        predicate). Bumps LRU recency."""
+        with self._lock:
+            entry = self._entries.get(path)
+            if entry is not None:
+                self._entries.move_to_end(path)
+            return entry
+
+    def invalidate(self, path):
+        """Drop the entry for ``path`` (the file may have been replaced)."""
+        with self._lock:
+            entry = self._entries.pop(path, None)
+            if entry is not None:
+                self._total -= entry.nbytes
+                self._invalidations += 1
+
+    def put(self, path, metadata, size=None, stat_token=None):
+        """Admit a parsed footer; returns its :class:`FooterEntry`. A footer larger
+        than the whole budget is returned to the caller uncached."""
+        entry = FooterEntry(metadata, size, stat_token=stat_token)
+        with self._lock:
+            old = self._entries.pop(path, None)
+            if old is not None:
+                self._total -= old.nbytes
+            if self._budget and entry.nbytes > self._budget:
+                return entry
+            self._entries[path] = entry
+            self._total += entry.nbytes
+            while self._budget and self._total > self._budget and \
+                    len(self._entries) > 1:
+                _, evicted = self._entries.popitem(last=False)
+                self._total -= evicted.nbytes
+                self._evictions += 1
+        return entry
+
+    def get(self, fs, path, source=None, stat_token=None):
+        """The footer for ``path``: cached, or read and parsed from ``source`` (an open
+        pyarrow input file, whose ``size()`` is the validation token) or from a fresh
+        ``fs.open_input_file``."""
+        size = None
+        if source is not None:
+            try:
+                size = source.size()
+            except Exception:  # noqa: BLE001 - the validation token is best effort
+                size = None
+        entry = self.lookup(path, size, stat_token=stat_token)
+        if entry is not None:
+            return entry
+        import pyarrow.parquet as pq
+
+        if source is not None:
+            pos = source.tell()
+            metadata = pq.read_metadata(source)
+            source.seek(pos)
+        else:
+            with fs.open_input_file(path) as f:
+                size = f.size()
+                metadata = pq.read_metadata(f)
+        return self.put(path, metadata, size, stat_token=stat_token)
+
+    def contains(self, path):
+        with self._lock:
+            return path in self._entries
+
+    def clear(self):
+        with self._lock:
+            self._entries.clear()
+            self._total = 0
+
+    def stats(self):
+        with self._lock:
+            return {
+                "footer_cache_entries": len(self._entries),
+                "footer_cache_held_bytes": self._total,
+                "footer_cache_hits": self._hits,
+                "footer_cache_misses": self._misses,
+                "footer_cache_evictions": self._evictions,
+                "footer_cache_invalidations": self._invalidations,
+            }
+
+
+_shared_lock = threading.Lock()
+_shared = None
+
+
+def shared_footer_cache():
+    """The process-wide cache (created on first use; budget raised on demand by
+    :func:`configure_budget`)."""
+    global _shared
+    with _shared_lock:
+        if _shared is None:
+            _shared = FooterCache()
+        return _shared
+
+
+def configure_budget(budget_bytes):
+    """Raise the shared cache's budget (never lowers it: readers share the cache, as
+    they share the memcache store's raise-only budget)."""
+    cache = shared_footer_cache()
+    with cache._lock:
+        if budget_bytes > cache._budget:
+            cache._budget = int(budget_bytes)
+    return cache

@@ -232,7 +232,8 @@ def load_row_groups(fs, path):
     """Enumerate :class:`RowGroupPiece` work units for a dataset.
 
     Fast path: per-file row-group counts from KV metadata (no footer scans; ``num_rows``
-    is then -1 and ``stats`` None). Fallback: open each footer, which also gives each
+    is then -1 and ``stats`` None). Fallback: read each footer through the process-wide
+    footer cache (:mod:`~petastorm_tpu_torch.io.footercache`), which also gives each
     piece its row count and min/max/null-count statistics. Either way a piece under hive
     ``key=value`` directories carries its raw partition values."""
     from petastorm_tpu_torch.partitions import partition_values_for_path
@@ -249,12 +250,14 @@ def load_row_groups(fs, path):
             for rg in range(int(counts[fname])):
                 pieces.append(RowGroupPiece(full, rg, -1, pv))
         return pieces
-    import pyarrow.parquet as pq
+    # the footer scan's parses land in the shared footer cache, so the statistics read
+    # here and the workers' opens later share one footer read a file a process
+    from petastorm_tpu_torch.io.footercache import shared_footer_cache
 
+    footers = shared_footer_cache()
     pieces = []
     for full in _list_parquet_files(fs, path):
-        with fs.open_input_file(full) as f:
-            md = pq.ParquetFile(f).metadata
+        md = footers.get(fs, full).metadata
         pv = partition_values_for_path(full, path) or None
         for rg in range(md.num_row_groups):
             rgmd = md.row_group(rg)

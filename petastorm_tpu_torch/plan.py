@@ -4,8 +4,9 @@ Port of ``petastorm_tpu.plan`` (``shard_indices``, ``EpochPlan``): the plan is a
 function of (seed, epoch, shard), so every process derives the same global order and
 takes its slice with no communication, and any position checkpoints as a small state
 dict (``state_dict``/``load_state_dict``, with a skip map of consumed ordinals for the
-reader's exact resume). The plan extension of the dataset-watch plane (``extend``) and
-the readahead lookahead (``peek``) are not ported.
+reader's exact resume), and ``peek`` gives the next items without advancing (the
+readahead lookahead of a synchronous pool). The plan extension of the dataset-watch
+plane (``extend``) is not ported (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -69,24 +70,53 @@ class EpochPlan:
     def __iter__(self):
         return self
 
+    def _step(self, epoch, pos, perm):
+        """Advance a cursor triple by one raw position (skip map not applied): returns
+        ``(yield_epoch, ordinal, epoch, pos, perm)``. The one copy of the roll-over and
+        reshuffle: :meth:`__next__` moves the plan's cursor with it, :meth:`peek` walks
+        a detached copy, so the two cannot drift."""
+        yield_epoch = epoch
+        ordinal = int(perm[pos])
+        pos += 1
+        if pos >= len(perm):
+            pos = 0
+            epoch += 1
+            if self._num_epochs is None or epoch < self._num_epochs:
+                perm = epoch_permutation(len(self._items), epoch, self._seed,
+                                         self._shuffle)
+        return yield_epoch, ordinal, epoch, pos, perm
+
     def __next__(self):
         with self._lock:
             while True:
                 if not self._items or self.exhausted():
                     raise StopIteration
-                epoch = self._epoch
-                ordinal = int(self._perm[self._pos])
-                self._pos += 1
-                if self._pos >= len(self._perm):
-                    self._pos = 0
-                    self._epoch += 1
-                    if not self.exhausted():
-                        self._perm = epoch_permutation(
-                            len(self._items), self._epoch, self._seed, self._shuffle)
+                epoch, ordinal, self._epoch, self._pos, self._perm = \
+                    self._step(self._epoch, self._pos, self._perm)
                 if self._skip and ordinal in self._skip.get(epoch, ()):
                     continue
                 item = self._items[ordinal]
                 return (epoch, ordinal, item) if self._with_epoch else item
+
+    def peek(self, n):
+        """The next ``n`` yields of :meth:`__next__` without advancing the cursor: the
+        readahead window of a synchronous pool. Same advance as ``__next__`` (skip map,
+        epoch roll-over, per-epoch reshuffle); fewer than ``n`` items when the plan is
+        nearly exhausted."""
+        out = []
+        with self._lock:
+            if not self._items:
+                return out
+            epoch, pos, perm = self._epoch, self._pos, self._perm
+            while len(out) < n:
+                if self._num_epochs is not None and epoch >= self._num_epochs:
+                    break
+                yield_epoch, ordinal, epoch, pos, perm = self._step(epoch, pos, perm)
+                if self._skip and ordinal in self._skip.get(yield_epoch, ()):
+                    continue
+                item = self._items[ordinal]
+                out.append((yield_epoch, ordinal, item) if self._with_epoch else item)
+        return out
 
     def items_in_epoch(self, epoch):
         """How many plan items belong to ``epoch``: the denominator of the reader's

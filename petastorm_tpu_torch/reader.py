@@ -16,7 +16,16 @@ coefficient planes, one native call per row group) and the
 :class:`~petastorm_tpu_torch.loader.DataLoader` finishes them on its device. With the
 compressed-page pass-through (``io_options={"pagedec": ...}``) eligible fixed-width
 columns travel as their raw compressed pages, read from the local file, and the
-DataLoader inflates them on its device. A ``transform_spec`` (an opaque
+DataLoader inflates them on its device. The read path is the JAX package's by default
+(``io_options``, :class:`~petastorm_tpu_torch.io.IoOptions`): each worker's next row
+groups are read ahead on a small IO thread pool while it decodes
+(:mod:`~petastorm_tpu_torch.io.readahead`), adjacent row groups of one file merge into
+one ranged read (:mod:`~petastorm_tpu_torch.io.coalesce`), idle workers steal claimed
+items (:class:`~petastorm_tpu_torch.workers.PullDispatcher`), and each file's footer is
+parsed once a process (:mod:`~petastorm_tpu_torch.io.footercache`). Every row group goes
+through one cache funnel (:mod:`~petastorm_tpu_torch.io.tiers`): an in-memory LRU of
+decoded payloads (``memcache_bytes``) in front of ``cache_type="local-disk"``
+(:mod:`~petastorm_tpu_torch.cache`). A ``transform_spec`` (an opaque
 :class:`~petastorm_tpu_torch.transform.TransformSpec` or a declarative
 :class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline`, compiled by the factories)
 runs in the workers, or on the device in the DataLoader when it says ``device=True``.
@@ -31,19 +40,23 @@ naming their ROADMAP.md item (:mod:`petastorm_tpu_torch._unported`).
 from __future__ import annotations
 
 import logging
+import re
 import threading
+import time
 import weakref
 from collections import OrderedDict
 
 import numpy as np
 
 from petastorm_tpu_torch._unported import reject_unported
+from petastorm_tpu_torch.cache import NullCache, make_cache
 from petastorm_tpu_torch.errors import DecodeFieldError, NoDataAvailableError
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
 from petastorm_tpu_torch.io import IoOptions
 from petastorm_tpu_torch.io.lease import LEASE_KEY
 from petastorm_tpu_torch.io.pagedec import materialize_columns
 from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, load_row_groups
+from petastorm_tpu_torch.parallel.shm_ring import degradation
 from petastorm_tpu_torch.ngram import NGram, form_ngram_columns
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
 from petastorm_tpu_torch.transform import transform_schema
@@ -69,6 +82,16 @@ class _Tagged:
     def __call__(self, tagged_item):
         epoch, ordinal, item = tagged_item
         return epoch, ordinal, self._worker(item)
+
+    def prefetch(self, tagged_items):
+        """Readahead hint: the plan items without their dispatch tags."""
+        self._worker.prefetch([tagged[2] for tagged in tagged_items])
+
+    def close(self):
+        self._worker.close()
+
+    def io_stats(self):
+        return self._worker.io_stats()
 
     def apply_settings(self, settings):
         """Set worker attributes in a process-pool child (``{name: value}``, sent by the
@@ -108,17 +131,35 @@ def _pandas_transform(spec, columns):
     return out
 
 
+def _close_quietly(pf):
+    """Close a cached ParquetFile for real: it wraps an already-open file
+    (``_close_source=False``), so ``close()`` without ``force`` would leave the
+    descriptor to the garbage collector."""
+    try:
+        pf.close(force=True)
+    except Exception:  # noqa: BLE001 — best-effort close of an evicted handle
+        pass
+
+
+#: serializes the lazy per-process construction of the readahead pool (module level:
+#: worker objects stay picklable, with no lock of their own)
+_io_init_lock = threading.Lock()
+
+
 class _WorkerBase:
-    """Shared row-group loading: column-pruned reads through per-thread open files, the
-    row masks (``filters``, ``predicate``, row-drop partitions), the hive partition
-    columns, and the host half of a ``transform_spec``."""
+    """Shared row-group loading: column-pruned reads through per-thread open files (each
+    file's footer from the process-wide footer cache), the readahead pool that reads a
+    worker's next row groups while it decodes, the cache funnel, the row masks
+    (``filters``, ``predicate``, row-drop partitions), the hive partition columns, and
+    the host half of a ``transform_spec``."""
 
     #: max cached open parquet files per thread (fd bound: threads × this)
     MAX_OPEN_FILES = 64
 
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
                  transform_spec=None, predicate=None, filters=None,
-                 shuffle_row_drop_partitions=1, seed=None, partition_info=None):
+                 shuffle_row_drop_partitions=1, seed=None, partition_info=None,
+                 cache=None, io_options=None):
         self._fs = filesystem
         self._read_schema = read_schema  # fields to deliver
         self._stored_schema = stored_schema  # full stored schema (decode source of truth)
@@ -129,19 +170,58 @@ class _WorkerBase:
         self._drop_partitions = max(1, int(shuffle_row_drop_partitions or 1))
         self._seed = seed
         self._partition_info = partition_info  # hive key=value layout (or None)
+        self._cache = cache if cache is not None else NullCache()
+        self._io_options = IoOptions.normalize(io_options)
         self._local = threading.local()
+        self._readahead = None  # built lazily, in each process, by the first prefetch
+        self._io_closed = False  # latched by close(); reopen() re-arms (Reader.reset)
+        self._readahead_unavailable = False  # this worker's pool failed to build
 
     def __getstate__(self):
-        # a process-pool child opens its own files
+        # a process-pool child opens its own files and builds its own readahead pool
         state = dict(self.__dict__)
         state["_local"] = None
+        state["_readahead"] = None
+        state["_io_closed"] = False
+        state["_readahead_unavailable"] = False
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._local = threading.local()
 
+    def _cache_get(self, key, fill):
+        """Read through the cache funnel. A memcache serves zero-copy read-only views;
+        an opaque host ``TransformSpec`` runs user code that may write into the payload
+        in place, so it takes the funnel's copy-on-write serve (``get_writable``).
+        Declarative pipelines and device transforms keep the read-only views."""
+        get_writable = getattr(self._cache, "get_writable", None)
+        if _spec_wants_writable(self._transform_spec) and get_writable is not None:
+            return get_writable(key, fill)
+        return self._cache.get(key, fill)
+
+    def _cache_key(self, item):
+        piece, partition = item
+        return _cache_key(piece, self._read_schema, self._predicate, self._filters,
+                          partition, self._drop_partitions, self._seed,
+                          self._device_fields)
+
+    def _footer_cache(self):
+        """The process-wide parsed-footer cache, or ``None`` when
+        ``remote.footer_cache_bytes`` is 0. Shared by every worker thread, the IO
+        threads and the planner's footer scan."""
+        budget = self._io_options.remote.footer_cache_bytes
+        if not budget:
+            return None
+        from petastorm_tpu_torch.io.footercache import configure_budget
+
+        return configure_budget(budget)
+
     def _parquet_file(self, path):
+        """This thread's open ``ParquetFile`` of ``path`` (LRU of ``MAX_OPEN_FILES``),
+        opened with the cached footer (no footer read at open on a hit). The open handle
+        is kept as ``_ptpu_source``: the pass-through's positional raw-chunk reads use
+        it."""
         import pyarrow.parquet as pq
 
         cache = getattr(self._local, "files", None)
@@ -149,22 +229,188 @@ class _WorkerBase:
             cache = self._local.files = OrderedDict()
         pf = cache.get(path)
         if pf is None:
-            pf = cache[path] = pq.ParquetFile(self._fs.open_input_file(path))
+            f = self._fs.open_input_file(path)
+            try:
+                footers = self._footer_cache()
+                metadata = None if footers is None \
+                    else footers.get(self._fs, path, source=f).metadata
+                pf = pq.ParquetFile(f, metadata=metadata)
+            except BaseException:
+                f.close()
+                raise
+            pf._ptpu_source = f
+            cache[path] = pf
             while len(cache) > self.MAX_OPEN_FILES:  # LRU-evict to bound open fds
                 _, old = cache.popitem(last=False)
-                old.close()
+                _close_quietly(old)
         else:
             cache.move_to_end(path)
         return pf
 
+    # -- the readahead pool -------------------------------------------------------------
+
+    def _readahead_pool(self, create=False):
+        """This process's readahead pool, or None (readahead off, closed, or failed to
+        build). Built lazily by the first ``prefetch``: a reader whose executor sends no
+        hints stays synchronous. A construction failure turns readahead off for this
+        worker (degradation ``readahead_unavailable``)."""
+        if not self._io_options.readahead or self._readahead_unavailable:
+            return None
+        pool = self._readahead
+        if pool is None and create:
+            with _io_init_lock:
+                pool = self._readahead
+                if pool is None and not self._io_closed:
+                    from petastorm_tpu_torch.io.readahead import ReadaheadPool
+
+                    opts = self._io_options
+                    try:
+                        # byte-gap run merging only on an object store; local reads
+                        # merge strictly adjacent row groups
+                        gap_ok = self._rowgroup_gap_ok \
+                            if opts.remote.active_for(self._fs) else None
+                        pool = ReadaheadPool(
+                            self._read_columns_sync, read_run_fn=self._read_run,
+                            depth=opts.readahead_depth, byte_budget=opts.readahead_bytes,
+                            io_threads=opts.io_threads, coalesce=opts.coalesce,
+                            coalesce_max_run=opts.coalesce_max_run, gap_ok=gap_ok)
+                    except Exception as e:  # noqa: BLE001 — degrade to sync reads
+                        degradation("readahead_unavailable",
+                                    "readahead pool construction failed (%s); reads "
+                                    "stay synchronous", e)
+                        # this worker's flag, never the caller's IoOptions (which other
+                        # readers may share)
+                        self._readahead_unavailable = True
+                        return None
+                    self._readahead = pool
+        return pool
+
+    def _rowgroup_gap_ok(self, prev, piece):
+        """Byte-gap predicate of the run planner: True when the hole between two row
+        groups of one file (footer-cache spans) is at most ``remote.min_gap_bytes``, so
+        reading it costs less than a second request. False when the footer is not
+        cached."""
+        footers = self._footer_cache()
+        if footers is None:
+            return False
+        entry = footers.peek(prev.path)
+        if entry is None or piece.row_group >= entry.num_row_groups \
+                or prev.row_group >= entry.num_row_groups:
+            return False
+        gap = entry.row_group_span(piece.row_group)[0] \
+            - entry.row_group_span(prev.row_group)[1]
+        return 0 <= gap <= self._io_options.remote.min_gap_bytes
+
+    def prefetch(self, items):
+        """Dispatch hint: queue background reads of the upcoming plan ``items``
+        (``(piece, partition)``) so their IO overlaps the current item's decode. Skips
+        what the cache funnel will serve and, on the batch path, the pass-through's
+        columns (their raw pages are read by the foreground). Never raises: a failure
+        leaves the reads synchronous (degradation ``readahead_fallback``)."""
+        pool = self._readahead_pool(create=True)
+        if pool is None or not items:
+            return
+        try:
+            columns = self._first_read_columns()
+            requests = []
+            for item in items:
+                if self._cache.contains(self._cache_key(item)):
+                    continue  # the mem or disk tier serves it without a read
+                cols = columns
+                # peek_only: a prefetch never reads a footer; until the footer is cached
+                # the hint asks for the classic set
+                eligible = self._pagedec_eligible(item[0], columns, peek_only=True)
+                if eligible:
+                    cols = [c for c in columns if c not in eligible]
+                    if not cols:
+                        continue  # nothing classic left to prefetch
+                requests.append((item[0], cols))
+            if requests:
+                pool.schedule(requests)
+        except Exception as e:  # noqa: BLE001 — a prefetch must never fail a read
+            degradation("readahead_fallback",
+                        "prefetch scheduling failed (%s); reads stay synchronous", e)
+
+    def _first_read_columns(self):
+        """The column selection of this worker's FIRST read of any piece: what a
+        prefetch must request for its table to be a hit."""
+        raise NotImplementedError
+
+    def _pagedec_eligible(self, piece, wanted, peek_only=False):
+        """The pass-through's eligible columns (the batch path's; none here)."""
+        return {}
+
+    def close(self):
+        """Release this process's readahead pool (``Reader.join``, a pool child's exit)
+        and latch prefetching off, so a straggling executor thread cannot rebuild it
+        during teardown. Idempotent; :meth:`reopen` re-arms it."""
+        with _io_init_lock:
+            self._io_closed = True
+            pool, self._readahead = self._readahead, None
+        if pool is not None:
+            pool.shutdown()
+
+    def reopen(self):
+        """Re-arm the lazy readahead pool after :meth:`close` (``Reader.reset``)."""
+        with _io_init_lock:
+            self._io_closed = False
+
+    def io_stats(self):
+        """This process's read-path counts: the readahead pool's, the cache funnel's
+        (tiers, memcache) and the footer cache's."""
+        out = {}
+        pool = self._readahead
+        if pool is not None:
+            out.update(pool.stats())
+        stats_fn = getattr(self._cache, "stats", None)
+        if stats_fn is not None:
+            out.update(stats_fn())
+        footers = self._footer_cache()
+        if footers is not None:
+            out.update(footers.stats())
+        return out
+
+    # -- reads --------------------------------------------------------------------------
+
     def _read_columns(self, piece, columns):
-        """One row group's ``columns`` (those the file holds), with the piece's partition
-        columns attached."""
+        """One row group's ``columns``, from the readahead pool when the dispatch layer
+        prefetched it (a failed background read re-raises here, as the synchronous read
+        would), else read now."""
+        pool = self._readahead_pool()
+        if pool is not None:
+            table = pool.get(piece, columns)
+            if table is not None:
+                return table
+            # a miss falling to the blocking read is exposed read latency
+            t0 = time.perf_counter()
+            table = self._read_columns_sync(piece, columns)
+            pool.note_sync_read(time.perf_counter() - t0)
+            return table
+        return self._read_columns_sync(piece, columns)
+
+    def _read_columns_sync(self, piece, columns):
+        """The blocking read of one row group's ``columns`` (those the file holds), with
+        the piece's partition columns attached."""
         pf = self._parquet_file(piece.path)
         available = set(pf.schema_arrow.names)
         table = pf.read_row_group(piece.row_group,
                                   columns=[c for c in columns if c in available])
         return self._attach_partitions(table, piece, columns)
+
+    def _read_run(self, pieces, columns):
+        """Coalesced ranged read: row groups of ONE file in a single ``read_row_groups``
+        call, sliced back into one table a piece (zero-copy; the readahead pool's
+        ``read_run_fn``, equal to the single reads)."""
+        from petastorm_tpu_torch.io.coalesce import split_run_table
+
+        pf = self._parquet_file(pieces[0].path)
+        available = set(pf.schema_arrow.names)
+        row_groups = [p.row_group for p in pieces]
+        table = pf.read_row_groups(row_groups,
+                                   columns=[c for c in columns if c in available])
+        sizes = [pf.metadata.row_group(rg).num_rows for rg in row_groups]
+        return [self._attach_partitions(t, piece, columns)
+                for t, piece in zip(split_run_table(table, sizes), pieces)]
 
     def _attach_partitions(self, table, piece, columns):
         if self._partition_info:
@@ -238,7 +484,7 @@ class PyDictWorker(_WorkerBase):
         self._ngram_schema = ngram_schema
 
     def __call__(self, item):
-        rows = self._load_rows(item)
+        rows = self._cache_get(self._cache_key(item), lambda: self._load_rows(item))
         spec = self._transform_spec
         if _host_pipeline(spec):
             # one columnar application over the whole row group
@@ -250,6 +496,11 @@ class PyDictWorker(_WorkerBase):
                     for w in self._ngram.form_ngram(rows, self._ngram_schema)]
         return rows
 
+    def _first_read_columns(self):
+        # exactly the head read of _load_rows: the mask columns when a mask runs first,
+        # else every wanted column (a prefetched table is keyed by this list)
+        return self._mask_fields() or list(self._read_schema.fields.keys())
+
     def _load_rows(self, item):
         piece, _partition = item
         wanted = list(self._read_schema.fields.keys())
@@ -260,8 +511,10 @@ class PyDictWorker(_WorkerBase):
             mask = self._row_mask(head)
             if mask is not None and not mask.any():
                 return []
+            # the tail read goes straight to the blocking read: it is never prefetched,
+            # and asking the pool would count a miss
             remaining = sorted(set(wanted) - set(head.column_names))
-            table = _merge_tables(head, self._read_columns(piece, remaining)) \
+            table = _merge_tables(head, self._read_columns_sync(piece, remaining)) \
                 if remaining else head
         else:
             table = self._read_columns(piece, wanted)
@@ -317,9 +570,8 @@ class ArrowWorker(_WorkerBase):
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
                  io_options=None, transform_spec=None, ngram=None, **selection):
         super().__init__(filesystem, read_schema, stored_schema, device_fields,
-                         transform_spec, **selection)
+                         transform_spec, io_options=io_options, **selection)
         self._ngram = ngram
-        self._io_options = IoOptions.normalize(io_options)
         #: set by the Reader when a DataLoader on a CUDA device adopts it: what ``auto``
         #: engages on
         self.pagedec_on_device = False
@@ -327,7 +579,7 @@ class ArrowWorker(_WorkerBase):
         self._pagedec_refused = set()
 
     def __call__(self, item):
-        out = self._load_columns(item)
+        out = self._cache_get(self._cache_key(item), lambda: self._load_columns(item))
         spec = self._transform_spec
         if _host_pipeline(spec):
             # fused vectorized kernels over the columnar batch, no pandas round trip;
@@ -339,6 +591,10 @@ class ArrowWorker(_WorkerBase):
             out = form_ngram_columns(out, self._ngram)
         return out
 
+    def _first_read_columns(self):
+        # the batch path reads once: the wanted columns and the mask's, sorted
+        return sorted(set(self._read_schema.fields) | set(self._mask_fields()))
+
     def _load_columns(self, item):
         piece, _partition = item
         wanted = list(self._read_schema.fields.keys())
@@ -346,9 +602,8 @@ class ArrowWorker(_WorkerBase):
         eligible = self._pagedec_eligible(piece, wanted)
         if eligible:
             out.update(self._pagedec_read(piece, eligible))
-        # one read: the wanted columns and the mask's
-        read_columns = [c for c in sorted(set(wanted) | set(self._mask_fields()))
-                        if c not in out]
+        # one read: the wanted columns and the mask's, less the pass-through's
+        read_columns = [c for c in self._first_read_columns() if c not in out]
         if not read_columns:
             return out
         table = self._read_columns(piece, read_columns)
@@ -393,21 +648,30 @@ class ArrowWorker(_WorkerBase):
                 and self._drop_partitions <= 1 and self._transform_spec is None
                 and self._ngram is None)
 
-    def _pagedec_footer(self, path):
-        """The parsed footer for eligibility classification, or ``None`` (the classic
-        read then surfaces the error)."""
+    def _pagedec_footer(self, path, peek_only=False):
+        """The parsed footer for eligibility classification, from the shared footer
+        cache, or ``None`` (the classic read then surfaces any error). ``peek_only`` (a
+        prefetch) never opens the file: eligibility is then unknown until a real read
+        has cached the footer."""
+        footers = self._footer_cache()
+        if footers is not None:
+            entry = footers.peek(path)
+            if entry is not None:
+                return entry.metadata
+        if peek_only:
+            return None
         try:
             return self._parquet_file(path).metadata
         except Exception:  # noqa: BLE001 — the classic read will surface it
             return None
 
-    def _pagedec_eligible(self, piece, wanted):
+    def _pagedec_eligible(self, piece, wanted, peek_only=False):
         """Footer-only eligibility: ``{column: (col_index, Eligibility)}`` for the
         eligible subset of ``wanted``. Cheap (no chunk bytes); the walker's page-level
         gate runs after the raw spans arrive."""
         if not self._pagedec_active() or not self._pagedec_shape_ok():
             return {}
-        md = self._pagedec_footer(piece.path)
+        md = self._pagedec_footer(piece.path, peek_only=peek_only)
         if md is None or piece.row_group >= md.num_row_groups:
             return {}
         from petastorm_tpu_torch.io.pagedec import classify_chunk
@@ -457,14 +721,15 @@ class ArrowWorker(_WorkerBase):
 
     def _pagedec_fetch_raw(self, piece, eligible, rgmd):
         """Raw chunk byte spans for the eligible columns (``rgmd``: the row group's
-        footer entry): positional reads on one open handle of the local file."""
+        footer entry): positional reads on this thread's open handle of the file, which
+        never disturb the ``ParquetFile``'s own reads."""
         from petastorm_tpu_torch.io.pagedec import chunk_byte_range
 
+        source = self._parquet_file(piece.path)._ptpu_source
         out = {}
-        with self._fs.open_input_file(piece.path) as f:
-            for name, (col_idx, _el) in eligible.items():
-                start, length = chunk_byte_range(rgmd.column(col_idx))
-                out[name] = bytes(f.read_at(length, start))
+        for name, (col_idx, _el) in eligible.items():
+            start, length = chunk_byte_range(rgmd.column(col_idx))
+            out[name] = bytes(source.read_at(length, start))
         return out
 
 
@@ -472,6 +737,95 @@ def _annotate_decode_error(err, piece):
     """Attach the failing row group's identity to a decode error."""
     return DecodeFieldError(
         "%s (while decoding %s row group %d)" % (err, piece.path, piece.row_group))
+
+
+def _stable_repr(value):
+    """Deterministic repr for cache keys (sets and dicts sorted)."""
+    if isinstance(value, (set, frozenset)):
+        return "{%s}" % ",".join(sorted(repr(v) for v in value))
+    if isinstance(value, dict):
+        return "{%s}" % ",".join(
+            "%r:%s" % (k, _stable_repr(v)) for k, v in sorted(value.items()))
+    if isinstance(value, (list, tuple)):
+        return "[%s]" % ",".join(_stable_repr(v) for v in value)
+    return repr(value)
+
+
+_RUN_SALT = None
+
+_ADDR_RE = re.compile(r" at 0x[0-9a-fA-F]+")
+
+
+def _predicate_key(predicate):
+    """Stable identity of a predicate: its class and parameters (the JAX package's
+    key). A callable parameter is keyed by its bytecode, constants, defaults and
+    closure values, so two lambdas with the same code but other captured thresholds do
+    not collide in a persistent cache; one whose captures have no stable repr (an
+    address) is salted per run, so a disk cache of another run can never serve it."""
+    import hashlib
+
+    global _RUN_SALT
+    parts = [type(predicate).__name__]
+    for name, value in sorted(vars(predicate).items()):
+        if callable(value):
+            code = getattr(value, "__code__", None)
+            payload = None
+            if code is not None:
+                payload = [code.co_code, repr(code.co_consts).encode("utf-8")]
+                defaults = getattr(value, "__defaults__", None)
+                if defaults:
+                    payload.append(_stable_repr(defaults).encode("utf-8"))
+                kwdefaults = getattr(value, "__kwdefaults__", None)
+                if kwdefaults:
+                    payload.append(_stable_repr(kwdefaults).encode("utf-8"))
+                closure = getattr(value, "__closure__", None)
+                if closure:
+                    try:
+                        cells = tuple(c.cell_contents for c in closure)
+                        payload.append(_stable_repr(cells).encode("utf-8"))
+                    except ValueError:  # an empty cell: unkeyable
+                        payload = None
+            if payload is not None and any(_ADDR_RE.search(p.decode("utf-8", "ignore"))
+                                           for p in payload[1:]):
+                payload = None  # a capture whose repr holds an address
+            if payload is not None:
+                digest = hashlib.sha256(b"\x00".join(payload)).hexdigest()
+                parts.append("%s=fn:%s" % (name, digest))
+            else:
+                if _RUN_SALT is None:
+                    import os as _os
+
+                    _RUN_SALT = _os.urandom(8).hex()
+                parts.append("%s=unkeyable:%s:%d" % (name, _RUN_SALT, id(value)))
+        else:
+            parts.append("%s=%s" % (name, _stable_repr(value)))
+    return "|".join(parts)
+
+
+def _cache_key(piece, schema, predicate, filters, partition, num_partitions, seed,
+               device_fields=frozenset()):
+    """The cache key of one work item's payload (the JAX package's key, string for
+    string): path, row group, schema fields, predicate, filters, the row-drop partition
+    (and the seed that draws it), and the device-staged fields when any."""
+    predicate_key = ""
+    if predicate is not None:
+        predicate_key = _predicate_key(predicate)
+    parts = [
+        piece.path,
+        str(piece.row_group),
+        ",".join(schema.fields.keys()),
+        predicate_key,
+        repr(filters) if filters else "",
+        "%s/%s" % (partition, num_partitions),
+        str(seed) if num_partitions > 1 else "",
+    ]
+    if device_fields:
+        # staged payloads differ from host-decoded ones: never cross-serve
+        parts.append("dev:%s" % ",".join(sorted(device_fields)))
+    generation = getattr(piece, "generation", None)
+    if generation is not None:
+        parts.append("gen:%s" % generation)
+    return "|".join(parts)
 
 
 def _merge_tables(head, tail):
@@ -700,6 +1054,7 @@ class Reader:
         self._start()
 
     def _start(self):
+        self._worker.reopen()  # a reset rebuilds the readahead pool lazily
         self._executor = make_executor(**self._pool_args)
         self._executor.start(_Tagged(self._worker), self._plan)
         self._results_iter = self._executor.results()
@@ -847,6 +1202,21 @@ class Reader:
         fn = getattr(self._executor, "wire_stats", None)
         return fn() if fn is not None else {}
 
+    def io_stats(self):
+        """The read path's counts: this process's worker (the readahead pool's hits,
+        misses, exposed wait seconds and coalesced reads, the cache funnel's tiers and
+        memcache, the footer cache) and the dispatcher's steals. On a process pool the
+        children read: their counts come under ``"children"`` (``{feeder index:
+        io_stats()}`` as of each child's latest result)."""
+        out = dict(self._worker.io_stats())
+        fn = getattr(self._executor, "dispatch_stats", None)
+        if fn is not None:
+            out.update(fn())
+        fn = getattr(self._executor, "child_io_stats", None)
+        if fn is not None:
+            out["children"] = fn()
+        return out
+
     @property
     def wire_views(self):
         """True when batches are read-only views into pool slabs (a view wire)."""
@@ -876,6 +1246,10 @@ class Reader:
         self.stopped = True
 
     def join(self):
+        # the worker's IO runtime first: a stop() mid-stream can leave executor threads
+        # waiting in ReadaheadPool.get, and its shutdown releases them (to a synchronous
+        # fallback) so the executor's join does not sit out its timeout
+        self._worker.close()
         if self._executor is not None:
             self._executor.join()
 
@@ -961,15 +1335,36 @@ class Reader:
 # --------------------------------------------------------------------------------------
 
 
-def _maybe_compile_pipeline(spec, schema, fs, pieces):
+def _build_read_funnel(cache, io_opts, num_epochs=None):
+    """The reader's cache funnel: ``MemCache → cache → the store`` as one
+    :class:`~petastorm_tpu_torch.io.tiers.TieredCache`, with per-tier counts and the
+    ``remote.disk_admit`` policy. The mem tier exists when ``io_options.memcache_bytes``
+    (or ``PTPU_MEMCACHE_BYTES``) asks for one; ``num_epochs == 1`` is the scan hint the
+    ``scan-resistant`` policy reads. With neither a mem nor a disk tier the funnel has
+    nothing to serve and is left out: ``cache`` (a ``NullCache``) itself, so an uncached
+    read sizes no payload (the JAX package counts it as a store serve)."""
+    mem = None
+    if io_opts.memcache_bytes:
+        from petastorm_tpu_torch.io.memcache import MemCache
+
+        mem = MemCache(io_opts.memcache_bytes,
+                       writable_hits=io_opts.memcache_writable_hits)
+    if mem is None and isinstance(cache, NullCache):
+        return cache
+    from petastorm_tpu_torch.io.tiers import TieredCache
+
+    return TieredCache(mem=mem, disk=cache, disk_admit=io_opts.remote.disk_admit,
+                       single_epoch=num_epochs == 1)
+
+
+def _maybe_compile_pipeline(spec, schema, fs, pieces, cache=None):
     """Plan a declarative :class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline`
     against the read schema: resolve statistics-dependent op parameters (parquet
     row-group statistics when the footers cover them, one memoized streaming pass
-    otherwise), then compile to the fused host kernels (or the device function for
-    ``device=True``). Opaque ``TransformSpec``\\ s pass through untouched; an already
-    compiled pipeline (reused across readers) is kept as it is. The pass's result is
-    memoized in the process only: the port has no tiered cache to write it through yet
-    (ROADMAP.md Queue 1 item 5)."""
+    otherwise, written through the reader's cache funnel ``cache``), then compile to the
+    fused host kernels (or the device function for ``device=True``). Opaque
+    ``TransformSpec``\\ s pass through untouched; an already compiled pipeline (reused
+    across readers) is kept as it is."""
     if spec is None or not getattr(spec, "declarative", False) \
             or getattr(spec, "compiled", False):
         return spec
@@ -978,7 +1373,7 @@ def _maybe_compile_pipeline(spec, schema, fs, pieces):
     if reqs:
         from petastorm_tpu_torch.io.statscache import resolve_statistics
 
-        stats, sources = resolve_statistics(reqs, fs, pieces)
+        stats, sources = resolve_statistics(reqs, fs, pieces, cache=cache)
     spec.compile(schema, statistics=stats)
     spec.stats_info = dict(sources)
     return spec
@@ -1074,15 +1469,22 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     namedtuple}`` of consecutive rows of one row group (sorted by the timestamp field),
     formed in the workers after the host transform. NGram refuses a ``predicate`` and
     ``decode_on_device``.
+
+    ``io_options`` (:class:`~petastorm_tpu_torch.io.IoOptions` or a dict of its fields)
+    is the read path, at the JAX package's defaults: readahead (depth 3, 256 MB, 2 IO
+    threads a worker process), coalesced reads of up to 4 adjacent row groups, work
+    stealing, the shared 64 MiB footer cache; ``memcache_bytes`` adds the in-memory LRU
+    of decoded row groups (read-only views; an opaque host ``transform_spec`` gets
+    writable copies). ``cache_type="local-disk"`` with ``cache_location`` (and
+    ``cache_size_limit``, ``cache_row_size_estimate``, ``cache_extra_settings``) caches
+    decoded row groups on local disk, behind the memcache (``Reader.io_stats()`` counts
+    the serves of each tier). ``arena_bytes`` and the object-store engine's fields raise
+    (ROADMAP.md Queue 1 item 5b).
     """
     reject_unported(
-        "make_reader", cache_type=cache_type,
-        cache_location=cache_location, cache_size_limit=cache_size_limit,
-        cache_row_size_estimate=cache_row_size_estimate,
-        cache_extra_settings=cache_extra_settings,
-        io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
+        "make_reader", io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
-    io_options = IoOptions.normalize(io_options)  # the per-row path reads classically
+    io_options = IoOptions.normalize(io_options)
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
     stored_schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)
@@ -1092,7 +1494,11 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     if partition_info:
         stored_schema = _schema_with_partitions(stored_schema, partition_info)
     ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
-    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces)
+    cache = _build_read_funnel(
+        make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
+                   cache_extra_settings), io_options, num_epochs)
+    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces,
+                                             cache)
     final_schema = read_schema
     if transform_spec is not None and not transform_spec.device:
         final_schema = transform_schema(read_schema, transform_spec)
@@ -1102,6 +1508,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
         fs, read_schema, stored_schema, device_fields, transform_spec, predicate=predicate,
         filters=filters, shuffle_row_drop_partitions=shuffle_row_drop_partitions,
         seed=seed if seed is not None else shard_seed, partition_info=partition_info,
+        cache=cache, io_options=io_options,
         ngram=ngram, ngram_schema=final_schema if ngram is not None else None)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
@@ -1134,8 +1541,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     ``decode_on_device``: see :func:`make_reader` — JPEG codec columns come back as
     staging payloads for the DataLoader's batched on-device decode.
 
-    ``io_options``: an :class:`~petastorm_tpu_torch.io.IoOptions` or a dict of its
-    fields. ``{"pagedec": "auto" | "on" | "off"}`` sets the compressed-page
+    ``io_options``, ``cache_type`` and the other ``cache_*`` options: see
+    :func:`make_reader`. ``{"pagedec": "auto" | "on" | "off"}`` sets the compressed-page
     pass-through (default ``off``): eligible fixed-width columns travel as their raw
     compressed pages and the :class:`~petastorm_tpu_torch.loader.DataLoader` inflates
     them on the card. A ``transform_spec`` turns the pass-through off for the whole read
@@ -1160,10 +1567,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     ``decode_on_device``, as :func:`make_reader` does.
     """
     reject_unported(
-        "make_batch_reader", cache_type=cache_type, cache_location=cache_location,
-        cache_size_limit=cache_size_limit, cache_row_size_estimate=cache_row_size_estimate,
-        cache_extra_settings=cache_extra_settings,
-        io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
+        "make_batch_reader", io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
     io_options = IoOptions.normalize(io_options)
     fs, path = get_filesystem_and_path_or_paths(
@@ -1178,7 +1582,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     if partition_info:
         stored_schema = _schema_with_partitions(stored_schema, partition_info)
     ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
-    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces)
+    cache = _build_read_funnel(
+        make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
+                   cache_extra_settings), io_options, num_epochs)
+    transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces,
+                                             cache)
     final_schema = read_schema
     if transform_spec is not None and not transform_spec.device:
         final_schema = transform_schema(read_schema, transform_spec)
@@ -1188,7 +1596,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
         fs, read_schema, stored_schema, device_fields, io_options=io_options,
         transform_spec=transform_spec, ngram=ngram, predicate=predicate, filters=filters,
         shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-        seed=seed if seed is not None else shard_seed, partition_info=partition_info)
+        seed=seed if seed is not None else shard_seed, partition_info=partition_info,
+        cache=cache)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,

@@ -1,16 +1,18 @@
 """Worker executors: pull row-group work items from a plan, run a worker, stream results.
 
-Port of the pools of ``petastorm_tpu.workers`` (``SyncExecutor``, ``ThreadExecutor``,
-``ProcessExecutor``, ``make_executor``). Backpressure is a bounded results queue; the
-"ventilator" is the thread-safe :class:`~petastorm_tpu_torch.plan.EpochPlan` each worker
-(or each process-pool feeder thread) pulls from. Threads are the default pool: Arrow IO
-and the native entropy decode release the GIL. The process pool runs the worker in
-clean child interpreters, over a socket or a shared-memory slab wire
-(:mod:`petastorm_tpu_torch.serializers`).
+Port of the pools of ``petastorm_tpu.workers`` (``PullDispatcher``, ``SyncExecutor``,
+``ThreadExecutor``, ``ProcessExecutor``, ``make_executor``). Backpressure is a bounded
+results queue; the "ventilator" is the thread-safe
+:class:`~petastorm_tpu_torch.plan.EpochPlan`, pulled through a :class:`PullDispatcher`:
+bounded claims a worker (its readahead window, ``IoOptions.lookahead``) and work stealing
+when the plan runs dry. Threads are the default pool: Arrow IO and the native entropy
+decode release the GIL. The process pool runs the worker in clean child interpreters,
+over a socket or a shared-memory slab wire (:mod:`petastorm_tpu_torch.serializers`); the
+upcoming items of a child's claim ride with each item as its readahead hints.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md item): the tcp
-transport (item 4(c)); readahead lookahead, work stealing and the cache arena (item 5);
-poison-item quarantine, the stall healer, health and control frames (item 8).
+transport (item 4(c)); the cache arena (item 5b); poison-item quarantine, the stall
+healer, health, control frames and the live fleet resize (item 8).
 
 Contract: ``executor.start(worker, plan)`` then iterate ``executor.results()``; exceptions
 in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference pool API.
@@ -23,12 +25,69 @@ import queue
 import sys
 import threading
 import time
+from collections import deque
 
 from petastorm_tpu_torch.errors import TimeoutWaitingForResultError, WorkerDiedError
 
 logger = logging.getLogger(__name__)
 
 _DONE = object()
+
+
+class PullDispatcher:
+    """Pull-based dispatch over a shared plan: bounded claims a worker plus work
+    stealing.
+
+    Each worker claims up to ``1 + lookahead`` upcoming plan items into its own deque;
+    the lookahead is what the readahead layer prefetches, so the items a worker
+    announces as next are the ones it will process. When the plan runs dry an idle
+    worker steals from the tail of the longest peer claim (the item its owner would
+    reach last), so a worker stuck on one slow item does not strand the rest of its
+    claim. With ``lookahead=0`` and no stealing this is the shared ``next(plan)`` under
+    a lock.
+
+    Claims fill strictly in plan order and are consumed first in, first out; only the
+    completion order can differ (it always could: workers finish out of order), which
+    the Reader's consumed-work map handles. A stolen item keeps its ``(epoch, ordinal)``
+    tag, so ``Reader.state_dict()`` stays exact.
+    """
+
+    def __init__(self, plan, workers_count, lookahead=0, stealing=True):
+        self._iter = iter(plan)
+        self._lock = threading.Lock()
+        self._claims = [deque() for _ in range(max(1, workers_count))]
+        self._exhausted = False
+        self._lookahead = max(0, int(lookahead))
+        self._stealing = bool(stealing)
+        self.steals = 0
+
+    def next(self, worker_idx):
+        """Claim the next item for ``worker_idx``: ``(item, upcoming)``, where
+        ``upcoming`` is the rest of this worker's claim (the prefetch hint), or ``None``
+        when no work is left anywhere."""
+        with self._lock:
+            claim = self._claims[worker_idx]
+            self._fill(claim, 1 + self._lookahead)
+            if not claim and self._stealing:
+                victim = max((c for c in self._claims if c), key=len, default=None)
+                if victim is not None:
+                    claim.append(victim.pop())  # the tail: the victim's furthest item
+                    self.steals += 1
+            if not claim:
+                return None
+            item = claim.popleft()  # the fill above keeps the hint window full
+            return item, tuple(claim)
+
+    def _fill(self, claim, target):
+        # the caller holds self._lock
+        while len(claim) < target and not self._exhausted:
+            try:
+                claim.append(next(self._iter))
+            except StopIteration:
+                self._exhausted = True
+
+    def stats(self):
+        return {"steals": self.steals}
 
 
 class _ExcResult:
@@ -67,14 +126,19 @@ def _iter_results(pool):
 
 
 class SyncExecutor:
-    """Synchronous in-process execution (reference DummyPool): deterministic, for tests."""
+    """Synchronous in-process execution (reference DummyPool): deterministic, for tests.
+
+    Readahead still applies (``lookahead > 0`` and a worker with ``prefetch``): the
+    upcoming items come from ``plan.peek``, so the single consumer keeps its order while
+    the IO pool reads ahead of it."""
 
     truncated = False
 
-    def __init__(self):
+    def __init__(self, lookahead=0):
         self._worker = None
         self._plan = None
         self._stopped = False
+        self._lookahead = max(0, int(lookahead))
 
     def start(self, worker, plan):
         self._worker = worker
@@ -83,10 +147,16 @@ class SyncExecutor:
         self.truncated = False
 
     def results(self):
+        prefetch = getattr(self._worker, "prefetch", None)
+        peek = getattr(self._plan, "peek", None)
         for item in self._plan:
             if self._stopped:
                 self.truncated = True
                 return
+            if prefetch is not None and peek is not None and self._lookahead:
+                upcoming = peek(self._lookahead)
+                if upcoming:
+                    prefetch(upcoming)
             yield self._worker(item)
 
     def stop(self):
@@ -97,15 +167,21 @@ class SyncExecutor:
 
 
 class ThreadExecutor:
-    """N threads pulling work items from the shared plan; bounded results queue =
+    """N threads pulling work items from the shared plan through a
+    :class:`PullDispatcher` (bounded claims, work stealing); each hands the rest of its
+    claim to the worker's ``prefetch`` before working an item. Bounded results queue =
     backpressure."""
 
-    def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0):
+    def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
+                 lookahead=0, work_stealing=True):
         if workers_count < 1:
             raise ValueError("workers_count must be >= 1, got %r" % workers_count)
         self._workers_count = workers_count
         self._queue_size = results_queue_size
         self._timeout = results_timeout_s
+        self._lookahead = max(0, int(lookahead))
+        self._stealing = bool(work_stealing)
+        self._dispatch = None
         self._threads = []
         self._results = None
         self._stop_event = threading.Event()
@@ -119,18 +195,25 @@ class ThreadExecutor:
         self._stop_event.clear()
         self.truncated = False
         self._active = self._workers_count
+        self._dispatch = PullDispatcher(plan, self._workers_count,
+                                        lookahead=self._lookahead,
+                                        stealing=self._stealing)
         for i in range(self._workers_count):
-            t = threading.Thread(target=self._run_worker, args=(worker, plan),
+            t = threading.Thread(target=self._run_worker, args=(worker, self._dispatch, i),
                                  daemon=True, name="ptpu-torch-worker-%d" % i)
             t.start()
             self._threads.append(t)
 
-    def _run_worker(self, worker, plan):
+    def _run_worker(self, worker, dispatch, idx):
+        prefetch = getattr(worker, "prefetch", None)
         try:
             while not self._stop_event.is_set():
-                item = next(plan, _DONE)
-                if item is _DONE:
+                claim = dispatch.next(idx)
+                if claim is None:
                     break
+                item, upcoming = claim
+                if prefetch is not None and upcoming:
+                    prefetch(upcoming)  # never raises (degradation-counted)
                 try:
                     result = worker(item)
                 except Exception as e:  # noqa: BLE001 — delivered to the consumer
@@ -158,6 +241,11 @@ class ThreadExecutor:
         """Generator of worker results; raises worker exceptions; ends when the plan is
         exhausted, or promptly once ``stop()`` was called (a truncation)."""
         return _iter_results(self)
+
+    def dispatch_stats(self):
+        """The dispatcher's counts (``steals``); ``{}`` before ``start()``."""
+        dispatch = self._dispatch
+        return dispatch.stats() if dispatch is not None else {}
 
     def stop(self):
         self._stop_event.set()
@@ -206,9 +294,12 @@ class ProcessExecutor:
     """Runs the worker in child processes: clean interpreters started as ``python -m
     petastorm_tpu_torch._child_worker`` (never forked from this process, which holds a
     CUDA context, pinned memory and threads), one feeder thread a child. The worker is
-    pickled once a child; a feeder pulls a plan item, sends it, and waits for the result,
-    so each child has one item in flight and the bounded results queue is the pool's
-    backpressure.
+    pickled once a child; a feeder claims an item from the :class:`PullDispatcher`,
+    sends it with the rest of its claim (the child's readahead hints, handed to the
+    worker's ``prefetch`` before the item is worked), and waits for the result, so each
+    child has one item in flight and the bounded results queue is the pool's
+    backpressure. Each result carries the child worker's ``io_stats()``
+    (:meth:`child_io_stats`).
 
     With a serializer of the ``shm`` family the results do not ride the socket:
     ``start()`` makes a :class:`~petastorm_tpu_torch.parallel.shm_ring.SlabRing` of
@@ -231,7 +322,7 @@ class ProcessExecutor:
 
     def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
                  serializer="pickle", worker_respawns=None, shm_slab_bytes=None,
-                 shm_slabs=None):
+                 shm_slabs=None, lookahead=0, work_stealing=True):
         from petastorm_tpu_torch.serializers import make_serializer
 
         if workers_count < 1:
@@ -245,6 +336,11 @@ class ProcessExecutor:
                                    or os.environ.get("PTPU_SHM_SLAB_BYTES", 0)
                                    or (32 << 20))
         self._shm_slabs = shm_slabs
+        self._lookahead = max(0, int(lookahead))
+        self._stealing = bool(work_stealing)
+        self._dispatch = None
+        #: {feeder index: the io_stats() its child sent with its latest result}
+        self._child_io = {}
         self._ring = None
         self._shm_unavailable = False
         self._respawn_budget = int(worker_respawns) if worker_respawns is not None \
@@ -311,8 +407,13 @@ class ProcessExecutor:
             self._pool_stats["spawn_s"] = time.perf_counter() - self._t_start
         with self._active_lock:
             self._active = len(self._conns)
+        self._dispatch = PullDispatcher(plan, len(self._conns), lookahead=self._lookahead,
+                                        stealing=self._stealing)
+        with self._stats_lock:
+            self._child_io = {}
         for i, conn in enumerate(self._conns):
-            t = threading.Thread(target=self._feed_child, args=(conn, i, plan),
+            t = threading.Thread(target=self._feed_child,
+                                 args=(conn, i, self._dispatch),
                                  daemon=True, name="ptpu-torch-feed-%d" % i)
             t.start()
             self._threads.append(t)
@@ -539,7 +640,7 @@ class ProcessExecutor:
                 raise EOFError("pool stopping while awaiting a child result")
         return conn.recv()
 
-    def _feed_child(self, conn, idx, plan):
+    def _feed_child(self, conn, idx, dispatch):
         from petastorm_tpu_torch.serializers import KIND_SHM
 
         # a local snapshot: join() takes self._ring while a straggling feeder may still
@@ -551,9 +652,11 @@ class ProcessExecutor:
         fatal = False
         try:
             while not fatal and not self._stop_event.is_set():
-                item = next(plan, _DONE)
-                if item is _DONE:
+                claim = dispatch.next(idx)
+                if claim is None:
                     break
+                item, upcoming = claim
+                hints = list(upcoming)  # the child prefetches these before the item
                 first_death = None
                 deaths = 0
                 while True:  # attempts: a dead child's item goes to its replacement
@@ -564,8 +667,8 @@ class ProcessExecutor:
                             ring.count_fallback()
                     try:
                         settings, seen = self._pending_settings(seen)
-                        conn.send((slab, item, settings) if ring is not None
-                                  else (item, settings))
+                        conn.send((slab, item, hints, settings) if ring is not None
+                                  else (item, hints, settings))
                         header = self._recv_result(conn)
                         if header[0] == "exc":
                             if slab is not None:
@@ -573,7 +676,10 @@ class ProcessExecutor:
                             self._put(_ExcResult(header[1]))
                             fatal = True
                             break
-                        _, kind, nframes, timing = header
+                        _, kind, nframes, timing, io = header
+                        if io:
+                            with self._stats_lock:
+                                self._child_io[idx] = io
                         frames = [conn.recv_bytes() for _ in range(nframes)]
                         if slab is not None and kind != KIND_SHM:
                             # granted but unused (a payload larger than a slab)
@@ -684,6 +790,18 @@ class ProcessExecutor:
         with self._stats_lock:
             return dict(self._pool_stats)
 
+    def child_io_stats(self):
+        """``{feeder index: io_stats()}``: each child worker's read-path counts
+        (readahead, caches, footer cache) as of its latest result; a respawned child
+        starts its counts again."""
+        with self._stats_lock:
+            return {i: dict(v) for i, v in self._child_io.items()}
+
+    def dispatch_stats(self):
+        """The dispatcher's counts (``steals``); ``{}`` before ``start()``."""
+        dispatch = self._dispatch
+        return dispatch.stats() if dispatch is not None else {}
+
     def child_pids(self):
         """Process ids of the live children."""
         with self._respawn_lock:
@@ -755,24 +873,30 @@ def make_executor(reader_pool_type="thread", workers_count=4, results_queue_size
     :mod:`petastorm_tpu_torch.serializers`); ``worker_respawns`` its respawn budget;
     ``shm_slab_bytes``/``shm_slabs`` size its slab ring. Thread and dummy pools share
     memory and ignore them. ``transport`` is validated for every pool: 'pipe' (default,
-    or ``PTPU_TRANSPORT``); 'tcp' is not ported. ``io_options`` is validated (its
-    lookahead and work stealing are not ported); ``recovery`` is not ported.
+    or ``PTPU_TRANSPORT``); 'tcp' is not ported. ``io_options``
+    (:class:`~petastorm_tpu_torch.io.IoOptions`) sets the dispatch side of the read
+    path: each worker's claim beyond its current item (``lookahead``, the readahead
+    window) and work stealing. ``recovery`` is not ported.
     """
     from petastorm_tpu_torch._unported import not_ported
     from petastorm_tpu_torch.io import IoOptions
     from petastorm_tpu_torch.transport import normalize_transport
 
     normalize_transport(transport)
-    IoOptions.normalize(io_options)
+    io_options = IoOptions.normalize(io_options)
     if recovery is not None:
         raise not_ported("make_executor(recovery=%r)" % (recovery,), "obs")
+    lookahead = io_options.lookahead
+    stealing = io_options.work_stealing
     if reader_pool_type in ("dummy", "sync"):
-        return SyncExecutor()
+        return SyncExecutor(lookahead=lookahead)
     if reader_pool_type == "thread":
-        return ThreadExecutor(workers_count, results_queue_size, results_timeout_s)
+        return ThreadExecutor(workers_count, results_queue_size, results_timeout_s,
+                              lookahead=lookahead, work_stealing=stealing)
     if reader_pool_type == "process":
         return ProcessExecutor(workers_count, results_queue_size, results_timeout_s,
                                serializer=serializer, worker_respawns=worker_respawns,
-                               shm_slab_bytes=shm_slab_bytes, shm_slabs=shm_slabs)
+                               shm_slab_bytes=shm_slab_bytes, shm_slabs=shm_slabs,
+                               lookahead=lookahead, work_stealing=stealing)
     raise ValueError("Unknown reader_pool_type %r (expected 'thread', 'process' or "
                      "'dummy')" % reader_pool_type)

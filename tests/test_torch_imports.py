@@ -35,7 +35,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     modules = _port_modules()
     assert "petastorm_tpu_torch.loader" in modules and "petastorm_tpu_torch.ops.jpeg" in modules
     for name in ("transform", "ops.tabular", "ops.device_shuffle", "io.statscache",
-                 "ngram", "weighted_sampling", "adapters.pytorch", "pytorch"):
+                 "ngram", "weighted_sampling", "adapters.pytorch", "pytorch", "cache",
+                 "io.coalesce", "io.readahead", "io.footercache", "io.memcache",
+                 "io.tiers", "io.remote"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -151,7 +153,11 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.transform", "petastorm_tpu_torch.io.statscache",
     "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.partitions",
     "petastorm_tpu_torch.ngram", "petastorm_tpu_torch.weighted_sampling",
-    "petastorm_tpu_torch.adapters.pytorch", "petastorm_tpu_torch.pytorch"])
+    "petastorm_tpu_torch.adapters.pytorch", "petastorm_tpu_torch.pytorch",
+    "petastorm_tpu_torch.cache", "petastorm_tpu_torch.io.coalesce",
+    "petastorm_tpu_torch.io.readahead", "petastorm_tpu_torch.io.footercache",
+    "petastorm_tpu_torch.io.memcache", "petastorm_tpu_torch.io.tiers",
+    "petastorm_tpu_torch.io.remote"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
@@ -236,7 +242,8 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
 
     pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
     url = "file://" + str(tmp_path)
-    item = {"cache_type": "item 5", "io_retries": "item 8", "recovery": "item 8",
+    # cache_type is ported (item 5a): its case holds the cache arena, still refused
+    item = {"cache_type": "item 5b", "io_retries": "item 8", "recovery": "item 8",
             "watch": "item 8", "sharding": "item 12",
             "make_dataloader_sharding": "item 12"}[case]
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
@@ -245,9 +252,12 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
         elif case == "make_dataloader_sharding":
             make_dataloader(url, 4, sharding=object(), device="cpu")
         else:
-            make_batch_reader(url, **{case: {"cache_type": "memory", "io_retries": 2,
-                                             "recovery": {"io_retries": 1},
-                                             "watch": True}[case]})
+            make_batch_reader(url, **{"cache_type": {"cache_type": "local-disk",
+                                                     "cache_location": str(tmp_path / "c"),
+                                                     "io_options": {"arena_bytes": 1 << 20}},
+                                      "io_retries": {"io_retries": 2},
+                                      "recovery": {"recovery": {"io_retries": 1}},
+                                      "watch": {"watch": True}}[case])
 
 
 def test_transform_spec_and_device_shuffle_capacity_are_taken():

@@ -161,12 +161,14 @@ def test_reset_restarts_the_epoch(ref_store):
     assert first == again and len(first) == ROWS
 
 
-# predicate, filters and shuffle_row_drop_partitions are ported (tests/test_torch_selection.py):
-# their cases here now hold options that are still refused
+# predicate, filters and shuffle_row_drop_partitions are ported (tests/test_torch_selection.py),
+# and so are cache_* and the read path's io_options (tests/test_torch_io_async.py): their
+# cases here now hold options that are still refused (item 5b's)
 @pytest.mark.parametrize("kwargs", [
-    {"reader_pool_type": "process", "transport": "tcp"}, {"cache_location": "/tmp/c"},
-    {"cache_type": "local-disk"},
-    {"io_options": {"readahead": False}}, {"io_retries": 3},
+    {"reader_pool_type": "process", "transport": "tcp"},
+    {"io_options": {"arena_bytes": 1 << 20}},
+    {"io_options": {"remote": {"enabled": True}}},
+    {"io_options": {"remote": {"hedge": False}}}, {"io_retries": 3},
     {"provenance": True}, {"recovery": {"on_poison": "quarantine"}},
     {"tenant": "team-a"}, {"watch": True},
 ])

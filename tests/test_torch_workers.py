@@ -317,8 +317,9 @@ def test_adoption_reaches_running_children(tmp_path):
 @pytest.mark.parametrize("kwargs,item", [
     ({"transport": "tcp"}, "item 4(c)"),
     ({"recovery": {"on_poison": "quarantine"}}, "item 8"),
-    ({"io_options": {"readahead_depth": 2}}, "item 5"),
-    ({"io_options": {"work_stealing": False}}, "item 5"),
+    # readahead_depth and work_stealing are ported (item 5a): these cases hold item 5b's
+    ({"io_options": {"arena_bytes": 2 << 20}}, "item 5"),
+    ({"io_options": {"remote": {"max_inflight": 2}}}, "item 5"),
 ])
 def test_unported_pool_options_raise_naming_their_item(scalar_dataset, kwargs, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 %s" % item.replace(
