@@ -164,9 +164,32 @@ Phases (each passes or the script exits non-zero, printing no result line):
    directory's bytes printed. (e) the process pool on ``'arrow'``: every child's
    readahead hits, every id once an epoch, images equal to phase 7's per id.
 
+12. The object-store tier and the host-wide cache arena, every store behind the
+   port's cloud simulator (``io.latencyfs.CloudLatencyFS(LocalFileSystem(), sleep=True,
+   seed=13)``: a 5 ms floor, ~1 s/GB, 2 % of GETs at 10x), passed as ``filesystem=``,
+   which engages the ranged-GET engine. (a) phase 7's thread-pool run of the main path
+   from the simulator against the local read, 3 rounds, alternating: rows/s, read_s and
+   decode_s a batch, GETs, hedges, sparse fallbacks, footer GETs a file and the
+   simulator's p50/p99 delay printed; every id once, images equal to the local read's
+   per id, K2 equal to its plain version, one stage2_planes, stage2_rgb and K2 launch a
+   batch, at most one footer GET a file in the process. (b) phase 5's pass-through from
+   the simulator beside the local read (phase 5's checks); then phase 5's columns in
+   row groups of 65,536 rows and 16 KB pages (its own row groups' chunks are under the
+   engine's 64 KB request floor), two epochs at ``target_request_bytes`` of 64 KB: the
+   second epoch splits every chunk over the target only at walked page starts. (c)
+   hedging: phase 5's pass-through over 3 epochs with 30 % of GETs at 10x, hedged and
+   not: hedges fire, the batches are equal between the runs, no lease is left; the p99
+   of a row group's GET plan printed (a quarter of the row groups: 40 GETs a row group
+   through one engine's 8 in flight). (d) the main path from the simulator on a process
+   pool of 7 children over ``'arrow'`` with a 1 GiB arena and memcache, two epochs (one
+   reader each), then without the arena: with it, epoch 2 takes no store GET and no row
+   through stage 1 in any child, each footer is fetched once across the pool, images
+   equal, and no arena segment is left.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
-in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's),
+in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's,
+``slice13_launches`` in phase 12's),
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1036,11 +1059,12 @@ def profiled_busy_share(next_batch, batches):
 
 
 def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, tag="",
-                  io_options=None):
+                  io_options=None, filesystem=None):
     """One JPEG run (module comment above). ``images`` ((ROWS, 224, 224, 3) uint8 on the
     card): the first thread-pool run fills it by id (``fill``), every later run is held
     to it bit for bit. ``io_options``: the reader's read path (None: the defaults);
-    the result's ``io`` is ``reader.io_stats()`` at the end of the run."""
+    the result's ``io`` is ``reader.io_stats()`` at the end of the run. ``filesystem``:
+    the store's filesystem (phase 12's simulator)."""
     import numpy as np
     import torch
 
@@ -1061,7 +1085,7 @@ def pool_jpeg_run(url, blobs, pool, wire, slab_bytes, images, smi, fill=False, t
         reader = make_batch_reader(url, reader_pool_type=pool, workers_count=workers,
                                    wire_serializer=wire, shuffle_row_groups=True, seed=0,
                                    num_epochs=POOL_EPOCHS, decode_on_device=True,
-                                   io_options=io_options)
+                                   io_options=io_options, filesystem=filesystem)
     executor = reader._executor
     dev = torch.device("cuda")
     counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
@@ -1487,8 +1511,9 @@ TAB_COLUMNS = ["label"] + ["i%d" % i for i in range(13)] + ["c%d" % i for i in r
 
 
 def write_tabular_store(root, seed=0, files=TAB_FILES, rgs_per_file=TAB_RGS_PER_FILE,
-                        rg_rows=TAB_RG_ROWS):
-    """The Criteo-shaped store, from ``seed``; returns (url, [per-file {column: array}])."""
+                        rg_rows=TAB_RG_ROWS, data_page_size=None):
+    """The Criteo-shaped store, from ``seed``; returns (url, [per-file {column: array}]).
+    ``data_page_size``: pyarrow's page size target (None: its 1 MB default)."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.parquet as pq
@@ -1505,7 +1530,8 @@ def write_tabular_store(root, seed=0, files=TAB_FILES, rgs_per_file=TAB_RGS_PER_
             cols["c%d" % i] = (rng.zipf(1.2, n) % vocab).astype(np.int32)
         pq.write_table(pa.table(cols), os.path.join(root, "part-%d.parquet" % f),
                        row_group_size=rg_rows, compression="snappy",
-                       use_dictionary=TAB_COLUMNS[1:], data_page_version="1.0")
+                       use_dictionary=TAB_COLUMNS[1:], data_page_version="1.0",
+                       data_page_size=data_page_size)
         arrays.append(cols)
     return "file://" + root, arrays
 
@@ -1533,15 +1559,16 @@ def tabular_chunks(path, rg):
     return out
 
 
-def tabular_structure(root):
+def tabular_structure(root, files=None, rgs_per_file=None):
     """Per-batch launches and reads back to the host the path predicts (one batch = one
     row group): K3 once (one launch over every snappy page of the batch), the scan and K4
     once (one launch each over every data page); one read back to the host (K3's ok flags
-    and the data pages' verdicts). Checked uniform over every row group of the store."""
+    and the data pages' verdicts). Checked uniform over every row group of the store
+    (``files`` x ``rgs_per_file``, by default phase 5's)."""
     shapes = set()
-    for f in range(TAB_FILES):
+    for f in range(TAB_FILES if files is None else files):
         path = os.path.join(root, "part-%d.parquet" % f)
-        for rg in range(TAB_RGS_PER_FILE):
+        for rg in range(TAB_RGS_PER_FILE if rgs_per_file is None else rgs_per_file):
             chunks = tabular_chunks(path, rg).values()
             shapes.add((int(any(c.codec == "SNAPPY" for c in chunks)),
                         sum(len(c.pages) + (c.dict_page is not None) for c in chunks),
@@ -1961,13 +1988,14 @@ def _off_read(root, f, rg):
 
 def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP_BATCHES,
                        measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH, pool="thread",
-                       wire=None, io_options=None):
+                       wire=None, io_options=None, filesystem=None):
     """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
     card: counts zeroed just before, read just after; the first and last measured
     batches against a ``pagedec="off"`` read of their row groups and the source arrays.
     ``pool``/``wire``: the reader's pool and the process pool's wire (then also no lease
     leaked and no slab left). ``io_options``: more read-path fields beside ``pagedec``
-    (the result's ``io`` is ``reader.io_stats()`` at the end of the window)."""
+    (the result's ``io`` is ``reader.io_stats()`` at the end of the window).
+    ``filesystem``: the store's filesystem (phase 12's simulator)."""
     import numpy as np
     import torch
 
@@ -1978,11 +2006,12 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     from petastorm_tpu_torch.ops import pagedec_kernels as pk
 
     workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    leases0 = lease_stats()  # before the reader: a thread pool reads from its start
     reader = make_batch_reader("file://" + root, workers_count=workers,
                                shuffle_row_groups=True, seed=0, num_epochs=None,
                                io_options={"pagedec": "auto", **(io_options or {})},
-                               reader_pool_type=pool, wire_serializer=wire)
-    leases0 = lease_stats()
+                               reader_pool_type=pool, wire_serializer=wire,
+                               filesystem=filesystem)
     counters0 = pagedec.counter_values()
     reads0 = pk.HOST_READS.value
     pk.snappy_inflate_ragged.launches = 0
@@ -3727,6 +3756,534 @@ def phase_read_path_pool(url, blobs, images, smi):
     return res
 
 
+# -- phase 12: the object-store tier and the host-wide cache arena ---------------------
+#
+# Every store behind the port's cloud simulator (CloudLatencyFS at the JAX package's
+# defaults: a 5 ms floor with a lognormal spread, ~1 s/GB, 2 % of GETs at 10x; seeded,
+# sleeping), passed as ``filesystem=``: its ``type_name`` engages the ranged-GET engine.
+# The simulator's delays are the simulator's, not a real store's.
+
+REMOTE_SEED = 13
+REMOTE_ROUNDS = 3
+#: (b)'s split epochs: phase 5's columns in row groups of 65,536 rows and 16 KB pages
+#: (phase 5's own chunks, 44.5 KB at most, are under the engine's 64 KB request floor)
+SPLIT_FILES, SPLIT_RGS_PER_FILE, SPLIT_RG_ROWS, SPLIT_PAGE = 2, 2, 65536, 16 << 10
+SPLIT_TARGET = 64 << 10
+HEDGE_EPOCHS = 3
+#: (c) reads 1/HEDGE_SHARDS of phase 5's row groups: every row group's 40 column GETs
+#: share one engine's 8 in flight, and 30 % of them at 10x make a full epoch ~13 s
+HEDGE_SHARDS = 4
+#: (d): the main path's 616,562,688 coefficient bytes, their tables and pickled meta
+ARENA_BYTES = 1 << 30
+ARENA_WORKERS = 7
+
+
+def cloud_fs(**kw):
+    """The store simulator over the local disk (``kw`` overrides its defaults)."""
+    import pyarrow.fs as pafs
+
+    from petastorm_tpu_torch.io.latencyfs import CloudLatencyFS
+
+    return CloudLatencyFS(pafs.LocalFileSystem(), sleep=True, seed=REMOTE_SEED, **kw)
+
+
+def _store_files(root):
+    return sorted(os.path.join(root, f) for f in os.listdir(root)
+                  if f.endswith(".parquet") and not f.startswith("_"))
+
+
+def _footer_windows(files):
+    """({path: size}, {path: footer length + 8}) of each file, from its last 8 bytes."""
+    sizes, windows = {}, {}
+    for path in files:
+        sizes[path] = os.path.getsize(path)
+        with open(path, "rb") as f:
+            f.seek(-8, 2)
+            windows[path] = int.from_bytes(f.read(4), "little") + 8
+    return sizes, windows
+
+
+def _delay_quantiles(fs):
+    """(p50, p99) of the simulator's delays over its logged GETs, in ms."""
+    delays = sorted(r["delay_s"] for r in fs.requests)
+    if not delays:
+        return None, None
+    return (delays[len(delays) // 2] * 1e3,
+            delays[min(len(delays) - 1, int(len(delays) * 0.99))] * 1e3)
+
+
+def phase_remote_jpeg(url, blobs, images, smi):
+    """(a): phase 7's thread-pool run of the main path read from the simulator against
+    the same store read locally, REMOTE_ROUNDS rounds alternating which goes first, from
+    an emptied footer cache. ``pool_jpeg_run`` holds every id once an epoch, every image
+    to phase 7's (the local read's) of the same id, the first batch to the plain stage 2
+    and K2 to its plain version, and stage2_planes, stage2_rgb and K2 to one launch a
+    batch. Here: GETs > 0, no sparse fallback, at most one footer GET a file in this
+    process over all rounds."""
+    from petastorm_tpu_torch.io.footercache import shared_footer_cache
+
+    root = url[len("file://"):]
+    files = _store_files(root)
+    sizes, windows = _footer_windows(files)
+    shared_footer_cache().clear()
+    out = {"remote": [], "local": []}
+    footer_gets = dict.fromkeys(files, 0)
+    for r in range(REMOTE_ROUNDS):
+        order = ["remote", "local"]
+        if r % 2:
+            order.reverse()
+        for name in order:
+            fs = cloud_fs() if name == "remote" else None
+            res = pool_jpeg_run(url, blobs, "thread", None, None, images, smi,
+                                tag=" store %s round %d" % (name, r), filesystem=fs)
+            w, io = res["window_ms"], res["io"]
+            if fs is not None:
+                per_file = dict.fromkeys(files, 0)
+                for q in fs.footer_requests(sizes, windows):
+                    per_file[q["path"]] += 1
+                for path, n in per_file.items():
+                    footer_gets[path] += n
+                p50, p99 = _delay_quantiles(fs)
+                res.update(gets=io.get("remote_gets", 0), p50_ms=p50, p99_ms=p99,
+                           footer_gets=[per_file[p] for p in files],
+                           requests=fs.request_count())
+                log("object store (a) remote round %d: %.1f rows/s; read_s %.3f, decode_s "
+                    "%.3f ms a batch; remote_gets %d, remote_hedges %d, "
+                    "remote_sparse_fallbacks %d, footer GETs a file %s, simulator delay "
+                    "p50 %.3f ms p99 %.3f ms over %d requests; %s" % (
+                        r, res["rows_per_s"], w["read_s"], w["decode_s"], res["gets"],
+                        io.get("remote_hedges", 0), io.get("remote_sparse_fallbacks", -1),
+                        res["footer_gets"], p50, p99, res["requests"], smi))
+                check(res["gets"] > 0, "object store (a): no ranged GET (the engine did "
+                      "not engage): %s" % sorted(io))
+                check(io.get("remote_sparse_fallbacks", -1) == 0, "object store (a): "
+                      "%s sparse fallbacks" % io.get("remote_sparse_fallbacks"))
+            else:
+                log("object store (a) local round %d: %.1f rows/s; read_s %.3f, decode_s "
+                    "%.3f ms a batch; %s" % (r, res["rows_per_s"], w["read_s"],
+                                            w["decode_s"], smi))
+            out[name].append(res)
+    check(all(n <= 1 for n in footer_gets.values()), "object store (a): footer GETs a "
+          "file over %d rounds in one process %s (at most 1 each)" % (
+              REMOTE_ROUNDS, sorted(footer_gets.values())))
+    for name, runs in out.items():
+        rates = [x["rows_per_s"] for x in runs]
+        log("object store (a) %s: rows/s %s (median %.1f)" % (
+            name, [round(x, 1) for x in rates], sorted(rates)[len(rates) // 2]))
+    out["footer_gets"] = sorted(footer_gets.values())
+    return out
+
+
+def _chunk_ranges(path):
+    """{(row group, column): (start, length)} of one file's column chunks."""
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.io.pagedec import chunk_byte_range
+
+    md = pq.read_metadata(path)
+    out = {}
+    for rg in range(md.num_row_groups):
+        rgmd = md.row_group(rg)
+        for i in range(rgmd.num_columns):
+            out[(rg, rgmd.column(i).path_in_schema)] = chunk_byte_range(rgmd.column(i))
+    return out
+
+
+def _split_epoch(root, arrays, predicted, fs, epoch, dev="cuda"):
+    """One epoch of (b)'s split store through the pass-through (``pagedec="on"``) into
+    the DataLoader on the card, from the simulator at
+    ``target_request_bytes=SPLIT_TARGET``: every batch byte-identical to the source
+    arrays, one K3, scan and K4 launch a batch."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+
+    fs.reset_accounting()
+    counters = _tab_launch_counters(zero=True)
+    seen = {}
+    # pagedec "on": every row group's raw chunks go through the engine's planner from the
+    # first read ("auto" would read the row groups fetched before the loader adopted
+    # the reader classically, with splits at the target)
+    reader = make_batch_reader("file://" + root, filesystem=fs, workers_count=2,
+                               shuffle_row_groups=True, seed=epoch,
+                               io_options={"pagedec": "on", "remote": {
+                                   "target_request_bytes": SPLIT_TARGET}})
+    t0 = time.perf_counter()
+    with DataLoader(reader, SPLIT_RG_ROWS, device=dev, prefetch=2) as loader:
+        for batch in loader:
+            host = {c: batch[c].cpu().numpy() for c in TAB_COLUMNS}
+            f, rg = _rowgroup_of({c: host[c][0] for c in TAB_COLUMNS}, arrays,
+                                 SPLIT_RG_ROWS)
+            seen[(f, rg)] = seen.get((f, rg), 0) + 1
+            for c in TAB_COLUMNS:
+                src = arrays[f][c][rg * SPLIT_RG_ROWS:(rg + 1) * SPLIT_RG_ROWS]
+                check(host[c].dtype == src.dtype and host[c].tobytes() == src.tobytes(),
+                      "object store (b) split epoch %d: column %s of file %d row group "
+                      "%d differs from the source" % (epoch, c, f, rg))
+        torch.cuda.synchronize() if dev == "cuda" else None
+        dt = time.perf_counter() - t0
+        io = reader.io_stats()
+    counters = _tab_launch_counters()
+    batches = SPLIT_FILES * SPLIT_RGS_PER_FILE
+    check(len(seen) == batches and set(seen.values()) == {1}, "object store (b) split "
+          "epoch %d: row groups delivered %s" % (epoch, seen))
+    check(all(counters[k] == predicted[k] * batches for k in ("K3", "scan", "K4")),
+          "object store (b) split epoch %d: launches %s for %d batches" % (
+              epoch, counters, batches))
+    return {"requests": list(fs.requests), "rows_per_s": batches * SPLIT_RG_ROWS / dt,
+            "launches": counters, "gets": io.get("remote_gets", 0)}
+
+
+def phase_remote_tabular(root, arrays, predicted, work, smi):
+    """(b): phase 5's pass-through from the simulator beside the local read
+    (``phase_tabular_path``'s checks: byte identity against the classic read, 0
+    host-inflated columns, one K3, scan and K4 launch a pass-through batch), then the
+    split store's two epochs: the first splits chunks over the target at the target
+    (no page index yet), the second only at page starts of ``shared_page_index()``."""
+    from petastorm_tpu_torch.io.pagedec import shared_page_index
+    from petastorm_tpu_torch.reader import ArrowWorker
+
+    out = {}
+    fetched = []  # one entry a row group whose raw chunks were fetched
+    orig = ArrowWorker._pagedec_fetch_raw
+
+    def counting(self, piece, eligible, rgmd):
+        fetched.append(1)
+        return orig(self, piece, eligible, rgmd)
+
+    for name in ("remote", "local"):
+        fs = cloud_fs() if name == "remote" else None
+        del fetched[:]
+        ArrowWorker._pagedec_fetch_raw = counting
+        try:
+            launches, res = phase_tabular_path(root, arrays, predicted,
+                                               warmup=POOL_TAB_WARMUP,
+                                               measured=POOL_TAB_MEASURED, filesystem=fs)
+        finally:
+            ArrowWorker._pagedec_fetch_raw = orig
+        io = res["io"]
+        # a batch is a row group; the readers run ahead of the consumer, so GETs are
+        # counted against the row groups they fetched, footer GETs aside
+        res["gets_a_batch"] = (io.get("remote_gets", 0) - io.get("remote_footer_fetches", 0)
+                               ) / max(1, len(fetched))
+        if fs is not None:
+            check(res["io"].get("remote_gets", 0) > 0 and
+                  res["io"].get("remote_sparse_fallbacks", -1) == 0,
+                  "object store (b): GETs %s, sparse fallbacks %s" % (
+                      res["io"].get("remote_gets"), res["io"].get("remote_sparse_fallbacks")))
+        log("object store (b) pass-through %s: %.1f rows/s; launches %s for %d "
+            "pass-through batches; %.2f GETs a batch; %s" % (
+                name, res["rows_per_s"], json.dumps(launches), res["passthrough_batches"],
+                res["gets_a_batch"], smi))
+        out[name] = res
+    split_root = os.path.join(work, "tabular_split")
+    _url, split_arrays = write_tabular_store(split_root, seed=7, files=SPLIT_FILES,
+                                             rgs_per_file=SPLIT_RGS_PER_FILE,
+                                             rg_rows=SPLIT_RG_ROWS,
+                                             data_page_size=SPLIT_PAGE)
+    split_predicted = tabular_structure(split_root, SPLIT_FILES, SPLIT_RGS_PER_FILE)
+    files = _store_files(split_root)
+    chunks = {(path,) + key: rng for path in files
+              for key, rng in _chunk_ranges(path).items()}
+    big = {k: v for k, v in chunks.items() if v[1] > SPLIT_TARGET}
+    check(big, "object store (b): no chunk of the split store is over %d bytes"
+          % SPLIT_TARGET)
+    shared_page_index().clear()
+    fs = cloud_fs()
+    epochs = []
+    for epoch in range(2):
+        res = _split_epoch(split_root, split_arrays, split_predicted, fs, epoch)
+        cuts = {}  # chunk -> request starts strictly inside it (planning tail reads aside)
+        for q in res["requests"]:
+            if q["offset"] + q["nbytes"] >= os.path.getsize(q["path"]):
+                continue
+            for (path, rg, col), (start, length) in big.items():
+                if path == q["path"] and start < q["offset"] < start + length:
+                    cuts.setdefault((path, rg, col), []).append(q["offset"])
+        res["cuts"] = cuts
+        epochs.append(res)
+    off_page = []
+    for (path, rg, col), offs in epochs[1]["cuts"].items():
+        index = shared_page_index().get(path, rg, col)
+        pages = set(index[1]) if index is not None else set()
+        off_page.extend(o for o in offs if o not in pages)
+    first_cuts = sum(len(v) for v in epochs[0]["cuts"].values())
+    second_cuts = sum(len(v) for v in epochs[1]["cuts"].values())
+    first_on_pages = sum(
+        o in set((shared_page_index().get(*k) or (0, ()))[1])
+        for k, v in epochs[0]["cuts"].items() for o in v)
+    log("object store (b) split store: %d chunks, %d over the %d-byte target; epoch 1 "
+        "split them %d times (%d at a page start), epoch 2 %d times, %d of them off a "
+        "walked page start; epochs %.1f and %.1f rows/s, %d and %d GETs; %s" % (
+            len(chunks), len(big), SPLIT_TARGET, first_cuts, first_on_pages, second_cuts,
+            len(off_page), epochs[0]["rows_per_s"], epochs[1]["rows_per_s"],
+            epochs[0]["gets"], epochs[1]["gets"], smi))
+    check(first_cuts > 0 and second_cuts > 0, "object store (b): the chunks over the "
+          "target were not split (%d, %d)" % (first_cuts, second_cuts))
+    check(not off_page, "object store (b): epoch 2 split chunks off their walked page "
+          "starts at %s" % off_page[:5])
+    out["split"] = {"chunks": len(chunks), "big": len(big), "cuts": [first_cuts, second_cuts],
+                    "first_on_pages": first_on_pages,
+                    "launches": [e["launches"] for e in epochs],
+                    "rows_per_s": [e["rows_per_s"] for e in epochs]}
+    shutil.rmtree(split_root, ignore_errors=True)
+    return out
+
+
+def _batch_digest(batch):
+    """One int64 a column over a batch: the sum of its 32-bit words weighted by their
+    row index, on the card (equal digests: equal batches, with overwhelming odds)."""
+    import torch
+
+    n = batch[TAB_COLUMNS[0]].shape[0]
+    w = torch.arange(1, n + 1, device=batch[TAB_COLUMNS[0]].device, dtype=torch.int64)
+    return torch.stack([(batch[c].view(torch.int32).to(torch.int64) * w).sum()
+                        for c in TAB_COLUMNS]).cpu().numpy()
+
+
+def _hedge_run(root, arrays, hedge, smi, dev="cuda"):
+    """HEDGE_EPOCHS epochs of a shard (1/HEDGE_SHARDS) of phase 5's row groups through
+    the pass-through (``pagedec="on"``: every row group's raw chunks through the engine,
+    none read classically before the loader adopts the reader) from a simulator with
+    30 % of GETs at 10x, readahead off: {(file,
+    row group): digests}, the row-group GET plans' seconds, hedges and the lease
+    deltas."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io.lease import lease_stats
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.reader import ArrowWorker
+
+    fs = cloud_fs(tail_fraction=0.3, tail_multiplier=10)
+    plan_s = []
+    orig = ArrowWorker._pagedec_fetch_raw
+
+    def timed(self, piece, eligible, rgmd):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, piece, eligible, rgmd)
+        finally:
+            plan_s.append(time.perf_counter() - t0)
+
+    leases0 = lease_stats()
+    digests = {}
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    counters = _tab_launch_counters(zero=True)
+    ArrowWorker._pagedec_fetch_raw = timed
+    try:
+        reader = make_batch_reader("file://" + root, filesystem=fs, workers_count=workers,
+                                   shuffle_row_groups=True, seed=0,
+                                   num_epochs=HEDGE_EPOCHS, cur_shard=0,
+                                   shard_count=HEDGE_SHARDS,
+                                   io_options={"pagedec": "on", "readahead": False,
+                                               "remote": {"hedge": hedge,
+                                                          "hedge_min_samples": 6,
+                                                          "hedge_min_s": 0.002}})
+        items = len(reader._plan._items)
+        t0 = time.perf_counter()
+        batches = 0
+        with DataLoader(reader, TAB_BATCH, device=dev, prefetch=3) as loader:
+            for batch in loader:
+                batches += 1
+                first = {c: batch[c][0].item() for c in TAB_COLUMNS}
+                key = _rowgroup_of(first, arrays, TAB_BATCH)
+                digests.setdefault(key, []).append(_batch_digest(batch))
+            torch.cuda.synchronize() if dev == "cuda" else None
+            dt = time.perf_counter() - t0
+            io = reader.io_stats()
+    finally:
+        ArrowWorker._pagedec_fetch_raw = orig
+    counters = _tab_launch_counters()
+    leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
+    plan_s.sort()
+    p99 = plan_s[min(len(plan_s) - 1, int(len(plan_s) * 0.99))] if plan_s else None
+    p50 = plan_s[len(plan_s) // 2] if plan_s else None
+    label = "object store (c) hedge=%s" % hedge
+    log("%s: %d batches over %d epochs, %.1f rows/s; remote_hedges %d, remote_hedge_wins "
+        "%d, remote_gets %d; a row group's GET plan p50 %.4f s p99 %.4f s over %d; "
+        "launches %s; leases %s; %s" % (
+            label, batches, HEDGE_EPOCHS, batches * TAB_BATCH / dt, io.get("remote_hedges", 0),
+            io.get("remote_hedge_wins", 0), io.get("remote_gets", 0), p50, p99, len(plan_s),
+            json.dumps(counters), leases, smi))
+    check(batches == HEDGE_EPOCHS * items and len(digests) == items and all(
+        len(v) == HEDGE_EPOCHS for v in digests.values()), "%s: row groups delivered "
+        "%s times" % (label, sorted({len(v) for v in digests.values()})))
+    check(all(all((d == v[0]).all() for d in v) for v in digests.values()),
+          "%s: one row group's batches differ between epochs" % label)
+    check(all(counters[k] == batches for k in ("K3", "scan", "K4")), "%s: launches %s "
+          "for %d batches" % (label, counters, batches))
+    check(leases["leaked"] == 0 and leases["acquired"] == leases["released"],
+          "%s: leases %s (a GET's lease left held)" % (label, leases))
+    return {"digests": digests, "hedges": io.get("remote_hedges", 0),
+            "hedge_wins": io.get("remote_hedge_wins", 0), "p50_s": p50, "p99_s": p99,
+            "rows_per_s": batches * TAB_BATCH / dt, "launches": counters}
+
+
+def phase_remote_hedging(root, arrays, smi):
+    """(c): the pass-through from a heavy-tailed simulator with hedging on, then off:
+    hedges fire with it on (none off), the batches of every row group equal between the
+    runs and across epochs, no lease left held."""
+    on = _hedge_run(root, arrays, True, smi)
+    off = _hedge_run(root, arrays, False, smi)
+    check(on["hedges"] >= 1, "object store (c): no hedge fired with hedging on")
+    check(off["hedges"] == 0, "object store (c): %d hedges with hedging off" % off["hedges"])
+    check(sorted(on["digests"]) == sorted(off["digests"]) and all(
+        (on["digests"][k][0] == off["digests"][k][0]).all() for k in on["digests"]),
+        "object store (c): the batches differ between the hedged and unhedged runs")
+    log("object store (c): %d hedges (%d won); a row group's GET plan p99 %.4f s hedged "
+        "against %.4f s unhedged; batches equal" % (
+            on["hedges"], on["hedge_wins"], on["p99_s"], off["p99_s"]))
+    return {"on": on, "off": off}
+
+
+def _arena_epoch(url, images, io_options, shard_count, epoch, label, smi):
+    """One epoch of the main path from the simulator on a process pool of ARENA_WORKERS
+    children over 'arrow': every id (of the shard) once, images equal to phase 7's,
+    K2 equal to its plain version, stage2_planes, stage2_rgb and K2 once a batch.
+    Returns rows/s, the children's summed io counts, their resident memory and the
+    launches."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    dev = torch.device("cuda")
+    counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    reader = make_batch_reader(url, filesystem=cloud_fs(), reader_pool_type="process",
+                               workers_count=ARENA_WORKERS, wire_serializer="arrow",
+                               shuffle_row_groups=True, seed=epoch, num_epochs=1,
+                               decode_on_device=True, results_timeout_s=300,
+                               cur_shard=0 if shard_count > 1 else None,
+                               shard_count=shard_count if shard_count > 1 else None,
+                               io_options=io_options)
+    reader_files = len({item[0].path for item in reader._plan._items})
+    first = None
+    rss = {}
+    batches = 0
+    counters = _jpeg_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    with DataLoader(reader, BATCH, device="cuda", device_transform=transform, prefetch=3,
+                    host_queue_size=8, last_batch="partial") as loader:
+        for batch in loader:
+            batches += 1
+            ids, u8 = batch["id"], batch["image_u8"]
+            counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad.add_((images.index_select(0, ids) != u8).sum())
+            if first is None:
+                first = (u8[:8].clone(), batch["image"][:8].clone())
+                rss = child_report(reader._executor.child_pids())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        io = reader.io_stats()
+        children = io.get("children", {})
+    counters = _jpeg_launch_counters()
+    c = counts.cpu()
+    delivered = int((c > 0).sum())
+    summed = {}
+    for child in children.values():
+        for k, v in child.items():
+            if isinstance(v, (int, float)) and k.startswith(("remote_", "tier_", "arena_",
+                                                             "memcache_")):
+                summed[k] = summed.get(k, 0) + v
+    log("%s epoch %d: %.1f rows/s (%d batches, the pool's start included); children's "
+        "io %s; children's resident MiB %s; launches %s; %s" % (
+            label, epoch, delivered / dt, batches,
+            json.dumps({k: summed[k] for k in sorted(summed) if k in (
+                "remote_gets", "remote_footer_fetches", "remote_footer_arena_maps",
+                "remote_sparse_fallbacks", "tier_mem_hits", "tier_arena_hits",
+                "tier_remote_hits", "arena_hits", "arena_admits")}),
+            [round(m, 1) for m, _c in rss.values()], json.dumps(counters), smi))
+    if shard_count == 1:
+        check(bool((c == 1).all()), "%s epoch %d: ids delivered %s times, not once each"
+              % (label, epoch, sorted(set(c.tolist()))))
+    else:  # a shard of the row groups: each of its ids once
+        check(bool((c <= 1).all()) and delivered > 0, "%s epoch %d: ids delivered %s "
+              "times" % (label, epoch, sorted(set(c.tolist()))))
+    check(bad.item() == 0, "%s epoch %d: %d uint8 values differ from phase 7's images of "
+          "the same ids" % (label, epoch, bad.item()))
+    check(counters["stage2_planes"] == counters["stage2_rgb"] == counters["K2"] == batches,
+          "%s epoch %d: stage2_planes, stage2_rgb and K2 should launch once a batch (%d): "
+          "%s" % (label, epoch, batches, counters))
+    check(torch.equal(image._normalize_plain(first[0], MEAN, STD, torch.bfloat16),
+                      first[1]), "%s: K2 differs from its plain version" % label)
+    check(all(not cuda for _m, cuda in rss.values()), "%s: a child mapped libcuda" % label)
+    return {"rows_per_s": delivered / dt, "io": summed, "rss_mib": [m for m, _c in
+                                                                    rss.values()],
+            "launches": counters, "delivered": delivered, "files": reader_files}
+
+
+def phase_remote_arena(url, images, smi):
+    """(d): the main path from the simulator on a process pool, two epochs (one reader
+    each: fresh children attach the arena the first epoch's children filled), with a
+    1 GiB arena and memcache and then without the arena. With it: epoch 2 takes no
+    store GET in any child (data or footer) and no row through stage 1 (no store-tier
+    serve), the arena serves, each file's footer is fetched once across the pool's
+    children; after close no ``ptpu_torch_arena_*`` segment is left in /dev/shm."""
+    import glob
+
+    from petastorm_tpu_torch.io import arena as arena_mod
+    from petastorm_tpu_torch.io.footercache import shared_footer_cache
+    from petastorm_tpu_torch.io.memcache import shared_store
+
+    free, df = shm_state()
+    log("object store (d): /dev/shm: %s" % df)
+    shard_count = 1
+    if free is not None and free < ARENA_BYTES + (64 << 20):
+        shard_count = -(-(ARENA_BYTES + (64 << 20)) // max(1, free))
+        log("object store (d): /dev/shm holds %d bytes, less than the %d-byte arena: "
+            "reading 1/%d of the row groups" % (free, ARENA_BYTES, shard_count))
+    out = {"shard_count": shard_count}
+    for mode, arena_bytes in (("arena", ARENA_BYTES), ("no_arena", 0)):
+        shared_footer_cache().clear()
+        shared_store().clear()
+        label = "object store (d) %s" % mode
+        io_options = {"arena_bytes": arena_bytes, "memcache_bytes": ARENA_BYTES}
+        epochs = [_arena_epoch(url, images, io_options, shard_count, e, label, smi)
+                  for e in (1, 2)]
+        stats = {}
+        arena_obj = arena_mod.process_arena()
+        if arena_obj is not None:
+            stats = {k: v for k, v in arena_obj.stats().items()
+                     if k in ("arena_payload_bytes", "arena_entries", "arena_budget_bytes",
+                              "arena_attached", "arena_held_entries")}
+        arena_mod.close_process_arena()
+        left = glob.glob("/dev/shm/%s*" % arena_mod.ARENA_PREFIX)
+        one, two = epochs
+        files = one["files"]
+        log("%s: epochs %.1f and %.1f rows/s; arena %s; footer fetches in the children "
+            "%d and %d for %d files; after close %d arena segments in /dev/shm; %s" % (
+                label, one["rows_per_s"], two["rows_per_s"], json.dumps(stats),
+                one["io"].get("remote_footer_fetches", 0),
+                two["io"].get("remote_footer_fetches", 0), files, len(left), smi))
+        check(not left, "%s: arena segments left after close: %s" % (label, left[:5]))
+        if mode == "arena":
+            check(stats.get("arena_payload_bytes", 0) > 0 and stats.get("arena_entries", 0)
+                  > 0, "%s: the arena holds nothing: %s" % (label, stats))
+            # a child that read nothing never built its engine: no remote_* counts at all
+            check(two["io"].get("remote_gets", 0) == 0, "%s: epoch 2 took %s store GETs "
+                  "in the children" % (label, two["io"].get("remote_gets")))
+            check(two["io"].get("tier_remote_hits", -1) == 0 and two["io"].get(
+                "tier_arena_hits", 0) > 0, "%s: epoch 2 not served from the arena: %s" % (
+                    label, two["io"]))
+            check(one["io"].get("remote_footer_fetches", -1) == files, "%s: %s footer "
+                  "fetches across the pool in epoch 1 for %d files (one each expected)" % (
+                      label, one["io"].get("remote_footer_fetches"), files))
+        else:
+            check(two["io"].get("tier_remote_hits", 0) > 0, "%s: epoch 2 read nothing from "
+                  "the store without the arena: %s" % (label, two["io"]))
+        out[mode] = {"epochs": epochs, "arena": stats}
+    shared_store().clear()
+    return out
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -3918,6 +4475,10 @@ def main():
         io_mem = phase_read_path_memcache(url, images, env["smi"])
         io_pool = phase_read_path_pool(url, blobs, images, env["smi"])
         phase11_s = time.perf_counter() - t11
+        t12 = time.perf_counter()
+        store_jpeg = phase_remote_jpeg(url, blobs, images, env["smi"])
+        store_arena = phase_remote_arena(url, images, env["smi"])
+        phase12_s = time.perf_counter() - t12
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -3964,6 +4525,12 @@ def main():
         phase11_s += time.perf_counter() - t11
         log("read path and caches: phase 11 took %.1f s of wall time; %s"
             % (phase11_s, env["smi"]))
+        t12 = time.perf_counter()
+        store_tab = phase_remote_tabular(tab_root, arrays, predicted, work, env["smi"])
+        store_hedge = phase_remote_hedging(tab_root, arrays, env["smi"])
+        phase12_s += time.perf_counter() - t12
+        log("object-store tier and arena: phase 12 took %.1f s of wall time; %s"
+            % (phase12_s, env["smi"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -3995,6 +4562,13 @@ def main():
                 "c_memcache_big": [e["launches"][key] for e in io_mem["big"]["epochs"]],
                 "e_process_arrow": io_pool["launches"][key]}
 
+    def slice13_launches(key):
+        """{part: launches of ``key``} in phase 12's JPEG parts (a list a run or epoch)."""
+        return {"a_remote": [r["launches"][key] for r in store_jpeg["remote"]],
+                "a_local": [r["launches"][key] for r in store_jpeg["local"]],
+                "d_arena": [e["launches"][key] for e in store_arena["arena"]["epochs"]],
+                "d_no_arena": [e["launches"][key] for e in store_arena["no_arena"]["epochs"]]}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -4010,7 +4584,8 @@ def main():
          "ring_feed_launches": feed_jpeg["launches"]["stage2_planes"],
          "selection_launches": selection_launches("stage2_planes"),
          "slice11_launches": slice11_launches("stage2_planes"),
-         "slice12_launches": slice12_launches("stage2_planes")},
+         "slice12_launches": slice12_launches("stage2_planes"),
+         "slice13_launches": slice13_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -4023,7 +4598,8 @@ def main():
          "ring_feed_launches": feed_jpeg["launches"]["stage2_rgb"],
          "selection_launches": selection_launches("stage2_rgb"),
          "slice11_launches": slice11_launches("stage2_rgb"),
-         "slice12_launches": slice12_launches("stage2_rgb")},
+         "slice12_launches": slice12_launches("stage2_rgb"),
+         "slice13_launches": slice13_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -4057,7 +4633,8 @@ def main():
          "ring_feed_launches": feed_jpeg["launches"]["K2"],
          "selection_launches": selection_launches("K2"),
          "slice11_launches": slice11_launches("K2"),
-         "slice12_launches": slice12_launches("K2")},
+         "slice12_launches": slice12_launches("K2"),
+         "slice13_launches": slice13_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -4087,6 +4664,14 @@ def main():
             "b_" + mode: [r["launches"][key] for r in runs] for mode, runs in io_tab.items()}
         row["slice12_launches"]["b_passthrough_batches"] = {
             mode: [r["passthrough_batches"] for r in runs] for mode, runs in io_tab.items()}
+        row["slice13_launches"] = {
+            "b_remote": store_tab["remote"]["launches"][key],
+            "b_local": store_tab["local"]["launches"][key],
+            "b_passthrough_batches": {m: store_tab[m]["passthrough_batches"]
+                                      for m in ("remote", "local")},
+            "b_split_epochs": [e[key] for e in store_tab["split"]["launches"]],
+            "c_hedged": store_hedge["on"]["launches"][key],
+            "c_unhedged": store_hedge["off"]["launches"][key]}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -4123,6 +4708,15 @@ def main():
                   io_mem["big"]["epochs"][0]["rows_per_s"],
                   io_disk["epochs"][1]["rows_per_s"], io_disk["epochs"][0]["rows_per_s"],
                   io_pool["rows_per_s"]))
+    log("object store (phase 12, %.1f s): main path rows/s median %.1f from the simulator, "
+        "%.1f local; pass-through %.1f from the simulator, %.1f local; hedged p99 of a row "
+        "group's GET plan %.4f s against %.4f s; arena epoch 2 %.1f rows/s against %.1f "
+        "without it" % (
+            phase12_s, median(store_jpeg["remote"]), median(store_jpeg["local"]),
+            store_tab["remote"]["rows_per_s"], store_tab["local"]["rows_per_s"],
+            store_hedge["on"]["p99_s"], store_hedge["off"]["p99_s"],
+            store_arena["arena"]["epochs"][1]["rows_per_s"],
+            store_arena["no_arena"]["epochs"][1]["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

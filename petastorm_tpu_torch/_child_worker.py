@@ -20,11 +20,16 @@ it decodes) and ``settings`` None or a dict the worker applies before the item
 children). The child answers ``("ok", kind, nframes, (work_s, serialize_s), io)``,
 ``io`` the worker's ``io_stats()`` (or None), followed by ``nframes`` raw frames from
 the serializer, or ``("exc", exception)``. A ``None`` item shuts the child down, and the
-worker's ``close()`` releases its readahead pool.
+worker's ``close()`` releases its readahead pool and its ranged-GET engine.
 
-The JAX package's child also speaks tcp, heartbeats, stack dumps, chaos, the cache
-arena, provenance, tenants and live knob frames; those are not ported (ROADMAP.md
-Queue 1 items 4(c), 5b and 8), and the parent never asks for them.
+A parent that owns a host-wide cache arena exports its token
+(:data:`petastorm_tpu_torch.io.arena.ENV_ATTACH`): the child attaches before its first
+item, so its first read of a warm piece maps the shared footers and row groups instead
+of reading the store (attach trouble degrades once, inside ``arena.resolve``).
+
+The JAX package's child also speaks tcp, heartbeats, stack dumps, chaos, provenance,
+tenants and live knob frames; those are not ported (ROADMAP.md Queue 1 items 4(c) and
+8), and the parent never asks for them.
 """
 import os
 import pickle
@@ -68,6 +73,9 @@ def main():
             serializer.bind_slabs(slab_names, slab_bytes)
         worker = conn.recv()
         conn.send(("pid", os.getpid()))
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        arena_mod.attach_from_env()
         apply_settings = getattr(worker, "apply_settings", None)
         prefetch = getattr(worker, "prefetch", None)
         io_stats = getattr(worker, "io_stats", None)

@@ -7,8 +7,6 @@ from __future__ import annotations
 
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
-    "remote_arena": "Queue 1 item 5b (the object-store tier's ranged-GET engine and the "
-                    "host-wide cache arena)",
     "obs": "Queue 1 item 8 (recovery, chaos, observability, health, provenance, tenants)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
@@ -17,8 +15,7 @@ _ITEMS = {
 
 #: option name -> (roadmap key, the value that means "not used")
 OPTIONS = {
-    # io_options and cache_* are taken (item 5a); IoOptions raises for the fields of
-    # item 5b (arena_bytes, the remote engine's)
+    # io_options and cache_* are taken
     "io_retries": ("obs", None),
     "io_retry_backoff_s": ("obs", None),
     "recovery": ("obs", None),

@@ -11,6 +11,10 @@
 - :mod:`.memcache` and :mod:`.tiers`: the in-memory decoded-row-group LRU in front of
   the local-disk cache (:mod:`petastorm_tpu_torch.cache`), as one funnel with per-tier
   accounting.
+- :mod:`.arena`: the host-wide shared-memory cache arena (``arena_bytes``) that every
+  process of a host maps: decoded row groups, footers and page indexes, warmed once.
+- :mod:`.remote` and :mod:`.latencyfs`: the object-store tier (parallel hedged ranged
+  GETs, footer GETs, page-granular raw-chunk plans) and the cloud-latency simulator.
 - :mod:`.staging` (the pinned H2D ring), :mod:`.pagedec` (the compressed-page
   pass-through's host half), :mod:`.statscache` (the feature pipelines' statistics),
   :mod:`.lease` (buffer leases).
@@ -23,7 +27,6 @@ from __future__ import annotations
 
 import os
 
-from petastorm_tpu_torch._unported import not_ported
 from petastorm_tpu_torch.io.remote import RemoteIoOptions, _env_bool, _env_int
 
 
@@ -51,9 +54,9 @@ class IoOptions:
     memcache_writable_  PTPU_MEMCACHE_WRITABLE_    every memcache serve a writable
     hits                HITS                       deep copy (default off: zero-copy
                                                    read-only views)
-    arena_bytes         PTPU_ARENA_BYTES           the host-wide cache arena: 0
-                                                   only; anything else raises
-                                                   (ROADMAP.md item 5b)
+    arena_bytes         PTPU_ARENA_BYTES           host-wide shared cache arena
+                                                   budget (0 = off, the default;
+                                                   ``PTPU_ARENA=off`` kills it)
     pagedec             PTPU_PAGEDEC               compressed-page pass-through:
                                                    "auto", "on" or "off" (default
                                                    ``off``, where the JAX package
@@ -101,9 +104,6 @@ class IoOptions:
             if memcache_writable_hits is None else bool(memcache_writable_hits)
         self.arena_bytes = max(0, _env_int("PTPU_ARENA_BYTES", 0)
                                if arena_bytes is None else int(arena_bytes))
-        if self.arena_bytes:
-            raise not_ported("IoOptions(arena_bytes=%r)" % self.arena_bytes,
-                             "remote_arena")
         pagedec = (os.environ.get("PTPU_PAGEDEC") or "off").strip().lower() \
             if pagedec is None else str(pagedec).strip().lower()
         if pagedec not in ("auto", "on", "off"):

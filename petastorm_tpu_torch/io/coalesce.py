@@ -12,7 +12,7 @@ Port of ``petastorm_tpu.io.coalesce`` (pure Python, no device code):
   ranges whose gap is at most ``min_gap_bytes`` merge into one request, and merged
   spans longer than ``target_request_bytes`` split into parallel ones; the fetched
   chunks are cut back into the original requests, byte-identical. The object-store
-  engine that issues such requests is ROADMAP.md Queue 1 item 5b.
+  engine (:mod:`petastorm_tpu_torch.io.remote`) issues such requests.
 
 Both planners only merge or split what is already queued together: they never reorder
 or delay a read.

@@ -16,8 +16,14 @@ first touch: workers x threads x files footer reads for bytes that never change.
 Validation: an entry carries the file size seen at parse time; a later open whose
 handle reports another size invalidates it (counted). A same-size in-place rewrite is
 not seen (the JAX package's stat and crc generation tokens come with dataset watching,
-ROADMAP.md Queue 1 item 8). The host-wide arena publish of the footers is item 5b; the
-counters are per cache, read through :meth:`FooterCache.stats`.
+ROADMAP.md Queue 1 item 8). The counters are per cache, read through
+:meth:`FooterCache.stats`.
+
+Host-wide sharing: with a cache arena in the process
+(:func:`petastorm_tpu_torch.io.arena.process_arena`), every footer this cache admits is
+also published as its serialized thrift bytes under the key ``("ft", path)``, generation
+``"sz:<file size>"``, and a local miss maps a footer another process published, parses it
+once and admits it locally: a process pool reads each footer from the store once.
 """
 from __future__ import annotations
 
@@ -27,6 +33,47 @@ from collections import OrderedDict
 #: parsed FileMetaData are a few KB to a few hundred KB (wide schemas); the default
 #: budget holds ~1k typical footers
 DEFAULT_BUDGET_BYTES = 64 << 20
+
+
+def _host_arena():
+    """This process's mapped cache arena, or None (the footer cache is a module
+    singleton, so it rides the process's arena handle rather than a pickled spec)."""
+    from petastorm_tpu_torch.io import arena as arena_mod
+
+    return arena_mod.process_arena()
+
+
+def _arena_gen(size, stat_token):
+    """The arena generation of a footer blob: the stat identity when known, else the
+    file size (the validation :meth:`FooterCache.lookup` applies locally)."""
+    if stat_token is not None:
+        return "st:%s" % (stat_token,)
+    if size is not None:
+        return "sz:%d" % int(size)
+    return None
+
+
+def _serialize_metadata(metadata):
+    """The footer's thrift bytes (what ``pq.read_metadata`` parses), or None: a
+    footer that does not serialize stays process-local."""
+    try:
+        import pyarrow as pa
+
+        sink = pa.BufferOutputStream()
+        metadata.write_metadata_file(sink)
+        return sink.getvalue().to_pybytes()
+    except Exception:  # noqa: BLE001 — exotic metadata: stay local
+        return None
+
+
+def _parse_metadata_blob(blob):
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        return pq.read_metadata(pa.BufferReader(blob))
+    except Exception:  # noqa: BLE001 — a torn or foreign blob reads as a miss
+        return None
 
 
 class FooterEntry:
@@ -125,17 +172,55 @@ class FooterCache:
                 self._entries.move_to_end(path)
             return entry
 
+    def count_hit(self):
+        """Counter hook for callers composing :meth:`peek` into their own hit and miss
+        protocol (the remote engine's footer plane)."""
+        with self._lock:
+            self._hits += 1
+
+    def count_miss(self):
+        with self._lock:
+            self._misses += 1
+
+    def from_arena(self, path, size=None, stat_token=None):
+        """The footer of ``path`` mapped from the host-wide arena (another process
+        parsed it), parsed once and admitted here without publishing it back; ``None``
+        when the arena holds no footer of this generation."""
+        arena_obj = _host_arena()
+        if arena_obj is None:
+            return None
+        blob = arena_obj.get_bytes(("ft", path), gen=_arena_gen(size, stat_token))
+        if blob is None:
+            return None
+        metadata = _parse_metadata_blob(blob)
+        if metadata is None:
+            return None
+        return self.put(path, metadata, size, stat_token=stat_token, _share=False)
+
     def invalidate(self, path):
-        """Drop the entry for ``path`` (the file may have been replaced)."""
+        """Drop the entry for ``path`` (the file may have been replaced), here and in
+        the host-wide arena, so no process maps the replaced file's footer."""
         with self._lock:
             entry = self._entries.pop(path, None)
             if entry is not None:
                 self._total -= entry.nbytes
                 self._invalidations += 1
+        arena_obj = _host_arena()
+        if arena_obj is not None:
+            arena_obj.invalidate(("ft", path))
 
-    def put(self, path, metadata, size=None, stat_token=None):
+    def put(self, path, metadata, size=None, stat_token=None, _share=True):
         """Admit a parsed footer; returns its :class:`FooterEntry`. A footer larger
-        than the whole budget is returned to the caller uncached."""
+        than the whole budget is returned to the caller uncached. Unless the footer
+        just came from the arena (``_share=False``), its serialized bytes are also
+        published host-wide."""
+        if _share:
+            arena_obj = _host_arena()
+            if arena_obj is not None:
+                blob = _serialize_metadata(metadata)
+                if blob is not None:
+                    arena_obj.put_bytes(("ft", path), blob,
+                                        gen=_arena_gen(size, stat_token))
         entry = FooterEntry(metadata, size, stat_token=stat_token)
         with self._lock:
             old = self._entries.pop(path, None)
@@ -163,6 +248,10 @@ class FooterCache:
             except Exception:  # noqa: BLE001 - the validation token is best effort
                 size = None
         entry = self.lookup(path, size, stat_token=stat_token)
+        if entry is not None:
+            return entry
+        # another process on the host may have parsed this footer: map its bytes
+        entry = self.from_arena(path, size, stat_token=stat_token)
         if entry is not None:
             return entry
         import pyarrow.parquet as pq

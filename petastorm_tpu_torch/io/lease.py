@@ -36,6 +36,9 @@ LEASE_KEY = "__lease__"
 _stats_lock = threading.RLock()
 _stats = dict.fromkeys(("acquired", "released", "retained", "cow", "revoked", "leaked",
                         "active"), 0)
+#: live leases by ``kind`` (``"slab"``, ``"memcache"``, ``"arena"``, ``"remote_get"``,
+#: ...): the census of who holds what
+_active_kinds = {}
 
 
 def _bump(name, delta=1):
@@ -62,6 +65,7 @@ class Lease:
         with _stats_lock:
             _stats["acquired"] += 1
             _stats["active"] += 1
+            _active_kinds[kind] = _active_kinds.get(kind, 0) + 1
 
     def retain(self):
         """Add a holder; returns ``self``."""
@@ -91,6 +95,7 @@ class Lease:
         with _stats_lock:
             _stats["released"] += 1
             _stats["active"] -= 1
+            _active_kinds[self.kind] -= 1
         if cb is not None:
             cb()
 
@@ -242,6 +247,13 @@ def copy_census():
     """``{site: bytes copied}`` since the process started."""
     with _stats_lock:
         return dict(_census)
+
+
+def active_leases_by_kind():
+    """``{kind: live leases}``, every kind a lease was ever made of (0 when none is
+    live)."""
+    with _stats_lock:
+        return dict(_active_kinds)
 
 
 def lease_stats():

@@ -37,8 +37,15 @@ its budget does not bound a device-decode store); the port does not copy that.
 
 Entries larger than the whole budget are served uncached (degradation
 ``memcache_oversized``). The counters are the store's, read through
-:meth:`MemCache.stats`; the JAX package's registry families and the host-wide arena
-tier are ROADMAP.md Queue 1 items 8 and 5b.
+:meth:`MemCache.stats`; the JAX package's registry families are ROADMAP.md Queue 1
+item 8.
+
+The host-wide tier: ``arena=`` (an :class:`~petastorm_tpu_torch.io.arena.ArenaSpec` or a
+live ``CacheArena``) layers the shared cache arena between this process's store and the
+inner cache. A local miss maps a peer's entry as zero-copy read-only views pinned by
+the arena holder lease (``kind="arena"``, held by the local entry and released when it
+drops), and a real fill is admitted host-wide on the way up, so every other process on
+the host serves it without reading or decoding it again.
 """
 from __future__ import annotations
 
@@ -243,10 +250,15 @@ class _Store:
         if entry is not None:
             entry[2].release()
 
-    def put(self, key, value, nbytes=None):
+    def put(self, key, value, nbytes=None, lease=None):
         """Admit ``value`` (already frozen by the caller; ``nbytes`` its
         :func:`payload_nbytes` when known); True when stored. Stored and served buffers
-        may be shared: both are read-only."""
+        may be shared: both are read-only.
+
+        ``lease`` is a pin owned elsewhere (the arena holder lease of a shm-backed
+        entry): the store releases it at eviction or ``clear()`` like its own
+        accounting lease, so the arena entry stays unevictable host-wide while this
+        store holds views of it. The caller keeps it when put returns False."""
         if nbytes is None:
             nbytes = payload_nbytes(value)
         evicted = []
@@ -257,7 +269,8 @@ class _Store:
                 if old is not None:
                     self._total -= old[1]
                     evicted.append(old[2])
-                self._entries[key] = (value, nbytes, Lease(kind="memcache"))
+                self._entries[key] = (value, nbytes,
+                                      lease if lease is not None else Lease(kind="memcache"))
                 self._total += nbytes
                 while self._total > self._budget and self._entries:
                     _, (_, old_bytes, old_lease) = self._entries.popitem(last=False)
@@ -314,9 +327,14 @@ class MemCache(CacheBase):
     for. ``get`` serves zero-copy read-only views, ``get_writable`` is the
     copy-on-write escalation, ``writable_hits=True`` deep-copies every serve (same
     values either way; only mutability and copies differ). ``clear()`` releases the
-    store's bytes."""
+    store's bytes.
 
-    def __init__(self, size_limit_bytes, inner=None, store=None, writable_hits=False):
+    ``arena=`` adds the host-wide tier (module docstring). The spec is picklable, so a
+    pool child carries it in the worker's pickle; it resolves to a mapped arena lazily,
+    in each process."""
+
+    def __init__(self, size_limit_bytes, inner=None, store=None, writable_hits=False,
+                 arena=None):
         if not size_limit_bytes or int(size_limit_bytes) <= 0:
             raise ValueError("MemCache needs a positive size_limit_bytes; use the inner "
                              "cache alone to disable it")
@@ -326,11 +344,31 @@ class MemCache(CacheBase):
         #: a private store (tests needing isolation from the shared store's raise-only
         #: budget); dropped on pickling, so the unpickled instance uses the shared one
         self._private_store = store
+        if arena is None:
+            self._arena_spec, self._arena_obj = None, None
+        elif hasattr(arena, "token"):  # an ArenaSpec
+            self._arena_spec, self._arena_obj = arena, None
+        else:  # a live CacheArena (thread pools, the creating reader)
+            self._arena_spec, self._arena_obj = arena.spec, arena
 
     def __getstate__(self):
         state = dict(self.__dict__)
         state["_private_store"] = None
+        state["_arena_obj"] = None  # a child resolves the spec itself
         return state
+
+    def _arena(self):
+        """This process's mapped arena, or None (resolved lazily; an arena that does
+        not attach degrades once inside ``arena.resolve``)."""
+        if self._arena_spec is None:
+            return None
+        obj = self._arena_obj
+        if obj is not None and not obj._closed:
+            return obj
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        obj = self._arena_obj = arena_mod.resolve(self._arena_spec)
+        return obj
 
     def _store(self):
         store = self._private_store if self._private_store is not None \
@@ -338,11 +376,14 @@ class MemCache(CacheBase):
         store.raise_budget(self._budget)
         return store
 
-    def get(self, key, fill_cache_func):
+    def get(self, key, fill_cache_func, served=None):
         """Zero-copy serve: hits and the admit path hand out fresh containers over the
         stored read-only buffers; only an oversized (uncached) value passes through
-        writable."""
+        writable. ``served`` (a one-slot list, the tiered funnel's attribution) is set
+        to ``"arena"`` when the payload came off the host-wide arena."""
         origin, value = self._fetch(key, fill_cache_func)
+        if served is not None and origin in ("arena", "arena_uncached"):
+            served[0] = "arena"
         if self._writable_hits:
             copy = _defensive_copy(value)
             count_copy("memcache_hit" if origin == "mem" else "memcache_admit",
@@ -353,29 +394,47 @@ class MemCache(CacheBase):
         return readonly_view(value)
 
     def _fetch(self, key, fill_cache_func):
-        """``(origin, stored_value)``: ``mem`` a hit, ``fill`` decoded and admitted,
-        ``uncached`` decoded but oversized."""
+        """``(origin, stored_value)``: the funnel of this store, the host-wide arena,
+        then the inner cache or a real fill (admitted back up both). ``mem`` a local
+        hit; ``arena`` mapped from the arena and admitted locally; ``arena_uncached``
+        mapped, but the local store declined (the views stay valid: a mapping outlives
+        its name); ``fill`` decoded and admitted; ``uncached`` decoded but oversized."""
         store = self._store()
         hit, value = store.lookup(key)
         if hit:
             return "mem", value
+        arena_obj = self._arena()
+        if arena_obj is not None:
+            got = arena_obj.get(("mc", key))
+            if got is not None:
+                value, lease = got
+                if store.put(key, value, lease=lease):
+                    return "arena", value
+                lease.release()
+                return "arena_uncached", value
         value = self._inner.get(key, fill_cache_func)
         nbytes = payload_nbytes(value)
         if nbytes > store.budget:
             # counts the oversized degradation and stores nothing; the value is not
             # frozen: nothing else aliases it
             store.put(key, value, nbytes)
+            if arena_obj is not None:
+                arena_obj.put(("mc", key), value)
             return "uncached", value
         frozen = _freeze(value)
+        if arena_obj is not None:
+            arena_obj.put(("mc", key), frozen)
         if not store.put(key, frozen, nbytes):
             return "uncached", value
         return "fill", frozen
 
-    def get_writable(self, key, fill_cache_func):
+    def get_writable(self, key, fill_cache_func, served=None):
         """Copy-on-write escalation: a consumer that will write (an opaque host
         ``TransformSpec``) gets an owned writable deep copy of the entry, charged to
         the ``memcache_cow`` copy-census site."""
         origin, value = self._fetch(key, fill_cache_func)
+        if served is not None and origin in ("arena", "arena_uncached"):
+            served[0] = "arena"
         if origin == "uncached":
             return value  # oversized: uncached and unaliased, already owned
         copy = _defensive_copy(value)
@@ -392,10 +451,21 @@ class MemCache(CacheBase):
         return payload_nbytes(value) <= self._budget
 
     def contains(self, key):
-        return self._store().contains(key) or self._inner.contains(key)
+        """Will :meth:`get` serve ``key`` without a fill? The host-wide arena counts: a
+        readahead hint must not read from the store what a peer already admitted (the
+        JAX package's memcache asks only its own store and the inner cache)."""
+        if self._store().contains(key) or self._inner.contains(key):
+            return True
+        arena_obj = self._arena()
+        return arena_obj is not None and arena_obj.contains(("mc", key))
 
     def invalidate(self, key):
+        """Drop ``key`` from every layer, the host-wide arena included, so no process
+        on the host maps the stale payload again."""
         self._store().invalidate(key)
+        arena_obj = self._arena()
+        if arena_obj is not None:
+            arena_obj.invalidate(("mc", key))
         self._inner.invalidate(key)
 
     def clear(self):

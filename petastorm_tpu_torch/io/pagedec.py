@@ -32,8 +32,10 @@ Corruption contract: a truncated or bit-flipped page raises
 a permanent error; every decoder bounds-checks offsets/lengths before touching
 memory, so corrupt input can never read out of bounds.
 
-Not here (they belong to the remote tier and the host-wide arena, which are not
-ported): the page-index cache and ``shared_page_index``.
+- :class:`PageIndexCache` (:func:`shared_page_index`): the walked page starts of each
+  chunk, written by the reader's walk and read by the object-store range planner
+  (:meth:`petastorm_tpu_torch.io.remote.RemoteReadEngine.raw_chunk_plan`), shared
+  host-wide through the cache arena.
 """
 from __future__ import annotations
 
@@ -831,6 +833,91 @@ def build_chunk(raw, eligibility, expected_values=None, require_saving=True):
                       % (chunk.nbytes, chunk.raw_nbytes))
     return chunk, reason
 
+
+# -- page-index cache (the remote planner's page-granular split points) ----------------
+
+class PageIndexCache:
+    """Process-wide memo of walked page boundaries keyed by ``(path, row_group,
+    column)``. Parquet keeps page offsets inline in the data, not in the footer, so the
+    object-store range planner can split a big chunk fetch at page starts only once a
+    walk has seen them: a chunk's first fetch splits at request size, its re-reads at
+    page starts. A bounded count LRU (a get refreshes recency).
+
+    The walked boundaries are also published through the host-wide cache arena (key
+    ``("pi", path, rg, column)``): a process that never walked a chunk still splits its
+    first fetch at page starts when a peer on the host has."""
+
+    def __init__(self, max_entries=4096):
+        from collections import OrderedDict
+
+        self._lock = threading.Lock()
+        self._entries = OrderedDict()
+        self._max = int(max_entries)
+
+    @staticmethod
+    def _arena():
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        return arena_mod.process_arena()
+
+    def put(self, path, rg, column, chunk_offset, page_offsets):
+        key = (path, rg, column)
+        entry = (int(chunk_offset), tuple(int(o) for o in page_offsets))
+        with self._lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+            elif len(self._entries) >= self._max:
+                self._entries.popitem(last=False)
+            self._entries[key] = entry
+        arena_obj = self._arena()
+        if arena_obj is not None:
+            import pickle
+
+            arena_obj.put_bytes(("pi",) + key, pickle.dumps(entry, protocol=2))
+
+    def get(self, path, rg, column):
+        """``(chunk_offset, page_offsets)`` or ``None``."""
+        key = (path, rg, column)
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+        if entry is not None:
+            return entry
+        arena_obj = self._arena()
+        if arena_obj is None:
+            return None
+        blob = arena_obj.get_bytes(("pi",) + key)
+        if blob is None:
+            return None
+        import pickle
+
+        try:
+            chunk_offset, page_offsets = pickle.loads(blob)
+        except Exception:  # noqa: BLE001 — a torn or foreign memo reads as a miss
+            return None
+        with self._lock:  # admit locally: later gets skip the arena
+            if key not in self._entries and len(self._entries) >= self._max:
+                self._entries.popitem(last=False)
+            self._entries[key] = (int(chunk_offset), tuple(page_offsets))
+            return self._entries[key]
+
+    def clear(self):
+        with self._lock:
+            self._entries.clear()
+
+
+_page_index_lock = threading.Lock()
+_page_index = None
+
+
+def shared_page_index():
+    """The process-wide :class:`PageIndexCache` (created on first use)."""
+    global _page_index
+    with _page_index_lock:
+        if _page_index is None:
+            _page_index = PageIndexCache()
+        return _page_index
 
 # -- counters --------------------------------------------------------------------------
 

@@ -4,8 +4,8 @@ Port of ``petastorm_tpu.io.tiers``. :class:`TieredCache` is the one funnel every
 read goes through:
 
 - **Per-tier accounting**: every serve is attributed to the tier that served it,
-  ``mem``, ``disk`` or ``remote`` (a real read of the store, local or not), with its
-  payload bytes (:meth:`TieredCache.stats`: ``tier_<tier>_hits`` and
+  ``mem``, ``arena`` (a peer's entry mapped from the host-wide cache arena), ``disk`` or
+  ``remote`` (a real read of the store, local or not), with its payload bytes (:meth:`TieredCache.stats`: ``tier_<tier>_hits`` and
   ``tier_<tier>_bytes``). Warm epochs should be mem or disk served.
 - **Admission policy** (``disk_admit``): ``"always"`` writes every store read to the
   disk tier. ``"scan-resistant"`` does not write a value the mem tier just admitted (it
@@ -14,9 +14,9 @@ read goes through:
 
 The funnel degrades to its parts: no mem budget, no mem tier; ``cache_type="null"``,
 a disk tier that holds nothing. The mem tier's read-only serving contract is
-:class:`~petastorm_tpu_torch.io.memcache.MemCache`'s. The host-wide arena tier the JAX
-package places between mem and disk is ROADMAP.md Queue 1 item 5b; its registry
-families and per-tenant charges are item 8.
+:class:`~petastorm_tpu_torch.io.memcache.MemCache`'s, which also holds the arena tier
+and reports which of the two served. The registry families and per-tenant charges are
+ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -25,8 +25,10 @@ import threading
 from petastorm_tpu_torch.cache import CacheBase, NullCache
 from petastorm_tpu_torch.io.memcache import payload_nbytes
 
-#: serve-attribution tiers, hot to cold
-TIERS = ("mem", "disk", "remote")
+#: serve-attribution tiers, hot to cold: ``arena`` sits between this process's mem
+#: store and the disk tier (a shared mapping costs less than a disk read, more than a
+#: local dict hit: a cross-process lock and a map)
+TIERS = ("mem", "arena", "disk", "remote")
 
 
 class TieredCache(CacheBase):
@@ -103,8 +105,11 @@ class TieredCache(CacheBase):
     def get(self, key, fill_cache_func):
         served = ["mem"]
         if self._mem is not None:
+            # the mem tier sets served[0] to "arena" when the payload came off the
+            # host-wide mapping instead of the local store
             value = self._mem.get(
-                key, lambda: self._through_disk(key, fill_cache_func, served))
+                key, lambda: self._through_disk(key, fill_cache_func, served),
+                served=served)
         else:
             value = self._through_disk(key, fill_cache_func, served)
         self._count(served[0], value)
@@ -116,7 +121,8 @@ class TieredCache(CacheBase):
         served = ["mem"]
         if self._mem is not None:
             value = self._mem.get_writable(
-                key, lambda: self._through_disk(key, fill_cache_func, served))
+                key, lambda: self._through_disk(key, fill_cache_func, served),
+                served=served)
         else:
             value = self._through_disk(key, fill_cache_func, served)
         self._count(served[0], value)

@@ -1277,6 +1277,14 @@ class DataLoader:
                 q.put_nowait(_SENTINEL)
             except queue.Full:
                 pass
+        # the consumer is going away: drop the host-wide arena's holder refcounts of
+        # processes that died without releasing them (a killed pool child mid-read), so
+        # their entries are evictable again; live peers' views are untouched
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        arena_obj = arena_mod.process_arena()
+        if arena_obj is not None:
+            arena_obj.reclaim()
 
     def join(self):
         if self._producer is not None:

@@ -11,11 +11,14 @@ key and Spark materialization are not ported.
 from __future__ import annotations
 
 import json
+import logging
 import posixpath
 from collections import namedtuple
 
 from petastorm_tpu_torch.errors import MetadataError
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+
+logger = logging.getLogger(__name__)
 
 # Key-value keys (JSON payloads); the same bytes as the JAX package's
 PTPU_SCHEMA_KEY = b"petastorm_tpu.unischema.json.v1"
@@ -153,16 +156,38 @@ def _list_parquet_files(fs, path):
         return [path]
     if info.type == pafs.FileType.NotFound:
         raise FileNotFoundError("Dataset path does not exist: %r" % path)
-    selector = pafs.FileSelector(path, recursive=True)
+    names = _flat_object_listing(fs, path)
+    if names is None:
+        selector = pafs.FileSelector(path, recursive=True)
+        names = [fi.path for fi in fs.get_file_info(selector)
+                 if fi.type == pafs.FileType.File]
     files = []
-    for fi in fs.get_file_info(selector):
-        if fi.type != pafs.FileType.File:
-            continue
-        base = posixpath.basename(fi.path)
+    for full in names:
+        base = posixpath.basename(full)
         if not base.startswith(("_", ".")):
             if base.endswith((".parquet", ".parq")) or "." not in base:
-                files.append(fi.path)
+                files.append(full)
     return sorted(files)
+
+
+def _flat_object_listing(fs, path):
+    """One flat prefix listing for an fsspec-bridged object store, or None.
+
+    An fsspec store (gcsfs, s3fs) emulates directories, so a recursive ``FileSelector``
+    walk through pyarrow's ``FSSpecHandler`` costs one API round trip a directory,
+    while the store lists any prefix in one paginated call: fsspec's ``find()``. The
+    handler maps paths one to one, so the keys it returns are valid for the bridged
+    pyarrow filesystem as they are."""
+    handler = getattr(fs, "handler", None)
+    inner = getattr(handler, "fs", None)
+    if inner is None or not hasattr(inner, "find"):
+        return None
+    try:
+        found = inner.find(path)
+    except Exception as e:  # noqa: BLE001 — fall back to the selector walk
+        logger.debug("flat listing failed (%s); selector walk", e)
+        return None
+    return [str(p) for p in found]
 
 
 def _read_kv_metadata(fs, path):

@@ -111,6 +111,12 @@ def _untrack(segment):
         pass           # spurious unlink warning at child exit, not a leak
 
 
+def untrack_attachment(segment):
+    """The public seam of :func:`_untrack`: the cache arena (``io/arena.py``) attaches
+    segments by name as :class:`SlabClient` does and needs the same deregistration."""
+    _untrack(segment)
+
+
 class SlabLease:
     """One consumer-held reference to an acquired slab: ``release()`` returns the slab
     to the ring exactly once, also when a consumer thread and ``stop()`` race to it.

@@ -15,8 +15,8 @@ consumed-work map, :mod:`petastorm_tpu_torch.checkpoint`). With
 coefficient planes, one native call per row group) and the
 :class:`~petastorm_tpu_torch.loader.DataLoader` finishes them on its device. With the
 compressed-page pass-through (``io_options={"pagedec": ...}``) eligible fixed-width
-columns travel as their raw compressed pages, read from the local file, and the
-DataLoader inflates them on its device. The read path is the JAX package's by default
+columns travel as their raw compressed pages, and the DataLoader inflates them on its
+device. The read path is the JAX package's by default
 (``io_options``, :class:`~petastorm_tpu_torch.io.IoOptions`): each worker's next row
 groups are read ahead on a small IO thread pool while it decodes
 (:mod:`~petastorm_tpu_torch.io.readahead`), adjacent row groups of one file merge into
@@ -24,8 +24,12 @@ one ranged read (:mod:`~petastorm_tpu_torch.io.coalesce`), idle workers steal cl
 items (:class:`~petastorm_tpu_torch.workers.PullDispatcher`), and each file's footer is
 parsed once a process (:mod:`~petastorm_tpu_torch.io.footercache`). Every row group goes
 through one cache funnel (:mod:`~petastorm_tpu_torch.io.tiers`): an in-memory LRU of
-decoded payloads (``memcache_bytes``) in front of ``cache_type="local-disk"``
-(:mod:`~petastorm_tpu_torch.cache`). A ``transform_spec`` (an opaque
+decoded payloads (``memcache_bytes``), the host-wide shared-memory arena every process
+of the host maps (``arena_bytes``, :mod:`~petastorm_tpu_torch.io.arena`), then
+``cache_type="local-disk"`` (:mod:`~petastorm_tpu_torch.cache`). On an object store
+(a filesystem whose ``type_name`` is not local) reads go through the ranged-GET engine
+(:mod:`~petastorm_tpu_torch.io.remote`): footers from the file's tail, column chunks as
+parallel hedged GETs. A ``transform_spec`` (an opaque
 :class:`~petastorm_tpu_torch.transform.TransformSpec` or a declarative
 :class:`~petastorm_tpu_torch.ops.tabular.FeaturePipeline`, compiled by the factories)
 runs in the workers, or on the device in the DataLoader when it says ``device=True``.
@@ -176,14 +180,19 @@ class _WorkerBase:
         self._readahead = None  # built lazily, in each process, by the first prefetch
         self._io_closed = False  # latched by close(); reopen() re-arms (Reader.reset)
         self._readahead_unavailable = False  # this worker's pool failed to build
+        self._remote = None  # the ranged-GET engine, built lazily in each process
+        self._remote_unavailable = False  # off for this filesystem, or failed to build
 
     def __getstate__(self):
         # a process-pool child opens its own files and builds its own readahead pool
+        # and GET pool
         state = dict(self.__dict__)
         state["_local"] = None
         state["_readahead"] = None
         state["_io_closed"] = False
         state["_readahead_unavailable"] = False
+        state["_remote"] = None
+        state["_remote_unavailable"] = False
         return state
 
     def __setstate__(self, state):
@@ -285,6 +294,39 @@ class _WorkerBase:
                     self._readahead = pool
         return pool
 
+    # -- the object-store tier ---------------------------------------------------------
+
+    def _remote_engine(self, create=False):
+        """This process's ranged-GET engine, or ``None`` when the remote tier is off for
+        this filesystem (local reads keep the classic ``ParquetFile`` path). Built
+        lazily like the readahead pool, never pickled (each pool child builds its own);
+        a failed build degrades this worker to classic reads (``remote_unavailable``)."""
+        if self._remote_unavailable:
+            return None
+        engine = self._remote
+        if engine is None and create:
+            opts = self._io_options.remote
+            if not opts.active_for(self._fs):
+                self._remote_unavailable = True  # probe once
+                return None
+            with _io_init_lock:
+                engine = self._remote
+                if engine is None and not self._io_closed:
+                    try:
+                        from petastorm_tpu_torch.io.remote import build_engine
+
+                        engine = build_engine(self._fs, opts)
+                    except Exception as e:  # noqa: BLE001 — degrade to classic reads
+                        degradation("remote_unavailable",
+                                    "remote ranged-GET engine construction failed (%s); "
+                                    "reads use the classic ParquetFile path", e)
+                        engine = None
+                    if engine is None:
+                        self._remote_unavailable = True
+                        return None
+                    self._remote = engine
+        return engine
+
     def _rowgroup_gap_ok(self, prev, piece):
         """Byte-gap predicate of the run planner: True when the hole between two row
         groups of one file (footer-cache spans) is at most ``remote.min_gap_bytes``, so
@@ -341,14 +383,17 @@ class _WorkerBase:
         return {}
 
     def close(self):
-        """Release this process's readahead pool (``Reader.join``, a pool child's exit)
-        and latch prefetching off, so a straggling executor thread cannot rebuild it
-        during teardown. Idempotent; :meth:`reopen` re-arms it."""
+        """Release this process's readahead pool and ranged-GET engine (``Reader.join``,
+        a pool child's exit) and latch both off, so a straggling executor thread cannot
+        rebuild them during teardown. Idempotent; :meth:`reopen` re-arms them."""
         with _io_init_lock:
             self._io_closed = True
             pool, self._readahead = self._readahead, None
+            engine, self._remote = self._remote, None
         if pool is not None:
             pool.shutdown()
+        if engine is not None:
+            engine.shutdown()
 
     def reopen(self):
         """Re-arm the lazy readahead pool after :meth:`close` (``Reader.reset``)."""
@@ -357,7 +402,8 @@ class _WorkerBase:
 
     def io_stats(self):
         """This process's read-path counts: the readahead pool's, the cache funnel's
-        (tiers, memcache) and the footer cache's."""
+        (tiers, memcache), the ranged-GET engine's, the footer cache's and the host-wide
+        arena's."""
         out = {}
         pool = self._readahead
         if pool is not None:
@@ -365,9 +411,17 @@ class _WorkerBase:
         stats_fn = getattr(self._cache, "stats", None)
         if stats_fn is not None:
             out.update(stats_fn())
+        engine = self._remote
+        if engine is not None:
+            out.update(engine.stats())
         footers = self._footer_cache()
         if footers is not None:
             out.update(footers.stats())
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        arena_obj = arena_mod.process_arena()
+        if arena_obj is not None:
+            out.update(arena_obj.stats())
         return out
 
     # -- reads --------------------------------------------------------------------------
@@ -390,7 +444,13 @@ class _WorkerBase:
 
     def _read_columns_sync(self, piece, columns):
         """The blocking read of one row group's ``columns`` (those the file holds), with
-        the piece's partition columns attached."""
+        the piece's partition columns attached: through the ranged-GET engine on an
+        object store, else the thread's open ``ParquetFile``."""
+        engine = self._remote_engine(create=True)
+        if engine is not None:
+            # the engine drops the columns the file lacks against the footer it holds
+            table, _ = engine.read_row_groups(piece.path, [piece.row_group], columns)
+            return self._attach_partitions(table, piece, columns)
         pf = self._parquet_file(piece.path)
         available = set(pf.schema_arrow.names)
         table = pf.read_row_group(piece.row_group,
@@ -403,9 +463,15 @@ class _WorkerBase:
         ``read_run_fn``, equal to the single reads)."""
         from petastorm_tpu_torch.io.coalesce import split_run_table
 
+        row_groups = [p.row_group for p in pieces]
+        engine = self._remote_engine(create=True)
+        if engine is not None:
+            table, entry = engine.read_row_groups(pieces[0].path, row_groups, columns)
+            sizes = [entry.row_group_rows[rg] for rg in row_groups]
+            return [self._attach_partitions(t, piece, columns)
+                    for t, piece in zip(split_run_table(table, sizes), pieces)]
         pf = self._parquet_file(pieces[0].path)
         available = set(pf.schema_arrow.names)
-        row_groups = [p.row_group for p in pieces]
         table = pf.read_row_groups(row_groups,
                                    columns=[c for c in columns if c in available])
         sizes = [pf.metadata.row_group(rg).num_rows for rg in row_groups]
@@ -661,6 +727,9 @@ class ArrowWorker(_WorkerBase):
         if peek_only:
             return None
         try:
+            engine = self._remote_engine(create=True)
+            if engine is not None:
+                return engine.footer(path).metadata
             return self._parquet_file(path).metadata
         except Exception:  # noqa: BLE001 — the classic read will surface it
             return None
@@ -692,9 +761,12 @@ class ArrowWorker(_WorkerBase):
     def _pagedec_read(self, piece, eligible):
         """Fetch + walk the eligible columns' raw chunk spans into PassthroughColumn
         values. Page-level ineligibility degrades per column; corruption raises
-        :class:`~petastorm_tpu_torch.errors.PagedecCorruptError`."""
+        :class:`~petastorm_tpu_torch.errors.PagedecCorruptError`. Each walk records the
+        chunk's page starts in :func:`~petastorm_tpu_torch.io.pagedec.shared_page_index`:
+        the object-store planner splits the chunk's next fetch at them."""
         from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, build_chunk,
-                                                    pagedec_counters, warn_once)
+                                                    chunk_byte_range, pagedec_counters,
+                                                    shared_page_index, warn_once)
 
         md = self._pagedec_footer(piece.path)
         if md is None:
@@ -703,7 +775,7 @@ class ArrowWorker(_WorkerBase):
         counters = pagedec_counters()
         rgmd = md.row_group(piece.row_group)
         raws = self._pagedec_fetch_raw(piece, eligible, rgmd)
-        for name, (_col_idx, el) in eligible.items():
+        for name, (col_idx, el) in eligible.items():
             chunk, reason = build_chunk(raws[name], el, expected_values=rgmd.num_rows)
             if chunk is None:
                 counters["fallback_columns"].inc()
@@ -716,15 +788,25 @@ class ArrowWorker(_WorkerBase):
                           "pagedec_counters()['fallback_columns']", name, piece.path,
                           reason)
                 continue
+            start, _length = chunk_byte_range(rgmd.column(col_idx))
+            shared_page_index().put(
+                piece.path, piece.row_group, name, start,
+                [start + p.header_offset
+                 for p in ((chunk.dict_page,) if chunk.dict_page else ()) + chunk.pages])
             out[name] = PassthroughColumn.from_chunk(chunk)
         return out
 
     def _pagedec_fetch_raw(self, piece, eligible, rgmd):
         """Raw chunk byte spans for the eligible columns (``rgmd``: the row group's
-        footer entry): positional reads on this thread's open handle of the file, which
-        never disturb the ``ParquetFile``'s own reads."""
+        footer entry): ONE batched ranged-GET plan through the object-store engine
+        (page-granular splits on re-reads), else positional reads on this thread's open
+        handle of the file, which never disturb the ``ParquetFile``'s own reads."""
         from petastorm_tpu_torch.io.pagedec import chunk_byte_range
 
+        engine = self._remote_engine(create=True)
+        if engine is not None:
+            return engine.read_raw_column_chunks(piece.path, piece.row_group,
+                                                 list(eligible))
         source = self._parquet_file(piece.path)._ptpu_source
         out = {}
         for name, (col_idx, _el) in eligible.items():
@@ -1335,6 +1417,18 @@ class Reader:
 # --------------------------------------------------------------------------------------
 
 
+def _host_arena_early(io_opts):
+    """Create (or join) the host-wide cache arena BEFORE dataset discovery: the
+    factory's own footer reads (schema inference, row-group planning) go through the
+    shared footer cache, which publishes host-wide only once this process has an arena;
+    an arena born later (in ``_build_read_funnel``) would miss those footers, and every
+    child would read them again from the store."""
+    if io_opts.arena_bytes:
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        arena_mod.host_arena(io_opts.arena_bytes)
+
+
 def _build_read_funnel(cache, io_opts, num_epochs=None):
     """The reader's cache funnel: ``MemCache → cache → the store`` as one
     :class:`~petastorm_tpu_torch.io.tiers.TieredCache`, with per-tier counts and the
@@ -1342,13 +1436,26 @@ def _build_read_funnel(cache, io_opts, num_epochs=None):
     (or ``PTPU_MEMCACHE_BYTES``) asks for one; ``num_epochs == 1`` is the scan hint the
     ``scan-resistant`` policy reads. With neither a mem nor a disk tier the funnel has
     nothing to serve and is left out: ``cache`` (a ``NullCache``) itself, so an uncached
-    read sizes no payload (the JAX package counts it as a store serve)."""
+    read sizes no payload (the JAX package counts it as a store serve).
+
+    ``io_options.arena_bytes`` creates (or joins) this process's host-wide cache arena
+    and hands it to the mem tier, so every pool child maps ONE warm set of decoded row
+    groups instead of filling its own. The arena alone implies a mem tier (its local
+    budget defaults to the arena's); a failed create degrades once inside
+    ``arena.host_arena``."""
+    arena_obj = None
+    if io_opts.arena_bytes:
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        arena_obj = arena_mod.host_arena(io_opts.arena_bytes)
     mem = None
-    if io_opts.memcache_bytes:
+    mem_budget = io_opts.memcache_bytes or (
+        io_opts.arena_bytes if arena_obj is not None else 0)
+    if mem_budget:
         from petastorm_tpu_torch.io.memcache import MemCache
 
-        mem = MemCache(io_opts.memcache_bytes,
-                       writable_hits=io_opts.memcache_writable_hits)
+        mem = MemCache(mem_budget, writable_hits=io_opts.memcache_writable_hits,
+                       arena=arena_obj)
     if mem is None and isinstance(cache, NullCache):
         return cache
     from petastorm_tpu_torch.io.tiers import TieredCache
@@ -1478,13 +1585,18 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     writable copies). ``cache_type="local-disk"`` with ``cache_location`` (and
     ``cache_size_limit``, ``cache_row_size_estimate``, ``cache_extra_settings``) caches
     decoded row groups on local disk, behind the memcache (``Reader.io_stats()`` counts
-    the serves of each tier). ``arena_bytes`` and the object-store engine's fields raise
-    (ROADMAP.md Queue 1 item 5b).
+    the serves of each tier). ``arena_bytes`` maps one host-wide shared-memory cache
+    arena into every process of the reader (the pool's children attach it): footers,
+    decoded row groups and page indexes warmed once a host. On an object store (a
+    filesystem whose ``type_name`` is not local, ``CloudLatencyFS`` included) reads go
+    through the ranged-GET engine (``io_options["remote"]``: parallel hedged GETs, footer
+    GETs against the file's tail).
     """
     reject_unported(
         "make_reader", io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
     io_options = IoOptions.normalize(io_options)
+    _host_arena_early(io_options)
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
     stored_schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)
@@ -1570,6 +1682,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
         "make_batch_reader", io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
         recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
     io_options = IoOptions.normalize(io_options)
+    _host_arena_early(io_options)
     fs, path = get_filesystem_and_path_or_paths(
         dataset_url_or_urls, storage_options, filesystem)
     paths = path if isinstance(path, list) else [path]

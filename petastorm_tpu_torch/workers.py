@@ -10,9 +10,12 @@ decode release the GIL. The process pool runs the worker in clean child interpre
 over a socket or a shared-memory slab wire (:mod:`petastorm_tpu_torch.serializers`); the
 upcoming items of a child's claim ride with each item as its readahead hints.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md item): the tcp
-transport (item 4(c)); the cache arena (item 5b); poison-item quarantine, the stall
-healer, health, control frames and the live fleet resize (item 8).
+The process pool hands the host-wide cache arena's token to its children
+(:data:`petastorm_tpu_torch.io.arena.ENV_ATTACH` on the child environment): each child
+attaches at bootstrap and maps the parent's warm set. Not ported (each raises
+``NotImplementedError`` naming its ROADMAP.md item): the tcp transport (item 4(c));
+poison-item quarantine, the stall healer, health, control frames and the live fleet
+resize (item 8).
 
 Contract: ``executor.start(worker, plan)`` then iterate ``executor.results()``; exceptions
 in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference pool API.
@@ -398,6 +401,15 @@ class ProcessExecutor:
         # children decode on the host only: no card is visible to them, so nothing a
         # worker unpickles can make a CUDA context there
         self._child_env = {**os.environ, "PYTHONPATH": child_pp, "CUDA_VISIBLE_DEVICES": ""}
+        # the host-wide cache arena: children attach the parent's mapped warm set at
+        # bootstrap (the same environment every spawn of this pool reuses)
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        arena_token = arena_mod.current_token()
+        if arena_token is not None:
+            self._child_env[arena_mod.ENV_ATTACH] = arena_token
+        else:
+            self._child_env.pop(arena_mod.ENV_ATTACH, None)
         try:
             self._start_children()
         except BaseException:

@@ -37,7 +37,7 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     for name in ("transform", "ops.tabular", "ops.device_shuffle", "io.statscache",
                  "ngram", "weighted_sampling", "adapters.pytorch", "pytorch", "cache",
                  "io.coalesce", "io.readahead", "io.footercache", "io.memcache",
-                 "io.tiers", "io.remote"):
+                 "io.tiers", "io.remote", "io.latencyfs", "io.arena"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -242,8 +242,25 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
 
     pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
     url = "file://" + str(tmp_path)
-    # cache_type is ported (item 5a): its case holds the cache arena, still refused
-    item = {"cache_type": "item 5b", "io_retries": "item 8", "recovery": "item 8",
+    if case == "cache_type":
+        # cache_type is ported (item 5a) and so is the cache arena (item 5b): the two
+        # together read, every row once, through the arena and the local-disk tier
+        from petastorm_tpu_torch.io import arena as arena_mod
+        from petastorm_tpu_torch.io.memcache import shared_store
+
+        try:
+            with make_batch_reader(url, reader_pool_type="dummy", cache_type="local-disk",
+                                   cache_location=str(tmp_path / "c"),
+                                   io_options={"arena_bytes": 1 << 20}) as r:
+                got = sorted(int(i) for b in r for i in np.asarray(b.id))
+                stats = r.io_stats()
+        finally:
+            arena_mod.close_process_arena()
+            shared_store().clear()  # the arena implies a process-wide memcache
+        assert got == [0, 1, 2, 3]
+        assert stats["arena_entries"] >= 1 and stats["tier_remote_hits"] == 1
+        return
+    item = {"io_retries": "item 8", "recovery": "item 8",
             "watch": "item 8", "sharding": "item 12",
             "make_dataloader_sharding": "item 12"}[case]
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
@@ -252,10 +269,7 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
         elif case == "make_dataloader_sharding":
             make_dataloader(url, 4, sharding=object(), device="cpu")
         else:
-            make_batch_reader(url, **{"cache_type": {"cache_type": "local-disk",
-                                                     "cache_location": str(tmp_path / "c"),
-                                                     "io_options": {"arena_bytes": 1 << 20}},
-                                      "io_retries": {"io_retries": 2},
+            make_batch_reader(url, **{"io_retries": {"io_retries": 2},
                                       "recovery": {"recovery": {"io_retries": 1}},
                                       "watch": {"watch": True}}[case])
 

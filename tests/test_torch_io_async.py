@@ -180,19 +180,29 @@ def test_io_options_env_overrides_equal_the_references(monkeypatch):
     {"remote": {"hedge_min_samples": 5}}, {"remote": {"get_timeout_s": 30.0}},
 ])
 def test_item_5b_fields_raise_naming_the_item(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5b"):
-        IoOptions.normalize(kwargs)
+    """Item 5b is ported: its fields (the arena budget and the ranged-GET engine's) no
+    longer raise; each parses to the JAX package's value."""
+    ours, theirs = IoOptions.normalize(kwargs), ref_io.IoOptions.normalize(kwargs)
+    assert ours.arena_bytes == theirs.arena_bytes
+    for name in ours.remote.__slots__:
+        assert getattr(ours.remote, name) == getattr(theirs.remote, name), name
 
 
 def test_remote_auto_reads_classically_and_disk_admit_validates():
+    """Auto engages the ranged-GET engine on an object store only: a local filesystem
+    reads classically, the cloud simulator does not."""
     import pyarrow.fs as pafs
 
+    from petastorm_tpu_torch.io.latencyfs import CloudLatencyFS
     from petastorm_tpu_torch.io.remote import RemoteIoOptions, fs_is_remote
 
     opts = RemoteIoOptions(enabled=False, disk_admit="scan-resistant")
     assert opts.enabled is False and opts.disk_admit == "scan-resistant"
     assert not fs_is_remote(pafs.LocalFileSystem())
     assert not RemoteIoOptions().active_for(pafs.LocalFileSystem())
+    assert RemoteIoOptions().active_for(CloudLatencyFS(pafs.LocalFileSystem(),
+                                                       sleep=False))
+    assert not opts.active_for(CloudLatencyFS(pafs.LocalFileSystem(), sleep=False))
     with pytest.raises(ValueError):
         RemoteIoOptions(disk_admit="never")
 

@@ -1155,9 +1155,10 @@ def test_io_options_pagedec_validates(monkeypatch):
     assert IoOptions().pagedec == "off"
     with pytest.raises(ValueError):
         IoOptions(pagedec="sometimes")
-    # the read path's options are ported (item 5a); the host-wide arena still raises
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        IoOptions.normalize({"pagedec": "on", "arena_bytes": 1 << 20})
+    # the read path's options are ported (item 5a), the host-wide arena too (item 5b):
+    # it rides beside pagedec
+    opts = IoOptions.normalize({"pagedec": "on", "arena_bytes": 1 << 20})
+    assert opts.pagedec == "on" and opts.arena_bytes == 1 << 20
     with pytest.raises(TypeError):
         IoOptions.normalize(3)
 

@@ -162,8 +162,9 @@ def test_reset_restarts_the_epoch(ref_store):
 
 
 # predicate, filters and shuffle_row_drop_partitions are ported (tests/test_torch_selection.py),
-# and so are cache_* and the read path's io_options (tests/test_torch_io_async.py): their
-# cases here now hold options that are still refused (item 5b's)
+# and so are cache_* and the read path's io_options (tests/test_torch_io_async.py). The
+# object-store tier and the arena (item 5b) are ported too: their cases (1-3) now read
+# the store, equal to the plain read (tests/test_torch_remote_io.py, test_torch_arena.py)
 @pytest.mark.parametrize("kwargs", [
     {"reader_pool_type": "process", "transport": "tcp"},
     {"io_options": {"arena_bytes": 1 << 20}},
@@ -173,5 +174,21 @@ def test_reset_restarts_the_epoch(ref_store):
     {"tenant": "team-a"}, {"watch": True},
 ])
 def test_unported_reader_options_raise_naming_the_roadmap(ref_store, kwargs):
+    if "io_options" in kwargs:
+        from petastorm_tpu_torch.io import arena as arena_mod
+        from petastorm_tpu_torch.io.memcache import shared_store
+
+        try:
+            with make_batch_reader(ref_store, reader_pool_type="dummy",
+                                   shuffle_row_groups=False, **kwargs) as r:
+                got = sorted(int(i) for b in r for i in np.asarray(b.id))
+            with make_batch_reader(ref_store, reader_pool_type="dummy",
+                                   shuffle_row_groups=False) as r:
+                want = sorted(int(i) for b in r for i in np.asarray(b.id))
+        finally:
+            arena_mod.close_process_arena()
+            shared_store().clear()  # the arena implies a process-wide memcache
+        assert got == want and got
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         make_batch_reader(ref_store, **kwargs)

@@ -317,11 +317,26 @@ def test_adoption_reaches_running_children(tmp_path):
 @pytest.mark.parametrize("kwargs,item", [
     ({"transport": "tcp"}, "item 4(c)"),
     ({"recovery": {"on_poison": "quarantine"}}, "item 8"),
-    # readahead_depth and work_stealing are ported (item 5a): these cases hold item 5b's
+    # readahead_depth and work_stealing are ported (item 5a), and so are the arena and
+    # the ranged-GET engine (item 5b): these two cases now read through a process pool
     ({"io_options": {"arena_bytes": 2 << 20}}, "item 5"),
     ({"io_options": {"remote": {"max_inflight": 2}}}, "item 5"),
 ])
 def test_unported_pool_options_raise_naming_their_item(scalar_dataset, kwargs, item):
+    if item == "item 5":
+        from petastorm_tpu_torch.io import arena as arena_mod
+        from petastorm_tpu_torch.io.memcache import shared_store
+
+        try:
+            with make_batch_reader(scalar_dataset.url, reader_pool_type="process",
+                                   workers_count=2, results_timeout_s=120,
+                                   **kwargs) as r:
+                got = sorted(int(i) for b in r for i in np.asarray(b.id))
+        finally:
+            arena_mod.close_process_arena()
+            shared_store().clear()  # the arena implies a process-wide memcache
+        assert got == list(range(len(scalar_dataset.data)))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 %s" % item.replace(
             "(", r"\(").replace(")", r"\)")):
         make_batch_reader(scalar_dataset.url, reader_pool_type="process", **kwargs)
