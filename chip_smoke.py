@@ -186,10 +186,47 @@ Phases (each passes or the script exits non-zero, printing no result line):
    through stage 1 in any child, each footer is fetched once across the pool, images
    equal, and no arena segment is left.
 
+13. Failure handling and its record: the recovery policy, the chaos plane, the trace
+   recorder and the metrics registry (every plan's faults are the plan's own). (a) the
+   main path (phase 7's thread-pool configuration, one epoch, the partial last batch
+   delivered) under ``FaultPlan([FaultRule("reader.read", "raise_transient",
+   every=4)], seed=14)`` with ``recovery=dict(io_retries=8, io_retry_backoff_s=0.01)``
+   (retry attempts are hits too: among 7 reader and 2 IO threads a failed read's retry
+   lands on another fourth hit about one time in four, so 2 retries ran out on the card,
+   and 8 leave it one time in 4**8)
+   beside a clean epoch, 3 rounds alternating: every id once, images equal per id to
+   phase 7's, the ``io_retry`` degradations equal to the plan's injections, nothing
+   quarantined, one ``stage2_planes``, ``stage2_rgb`` and K2 launch a batch in both;
+   rows/s of both printed. (b) phase 5's files 0 and 1 (32 row groups) with
+   ``pagedec="on"``, one epoch, under ``FaultRule("io.pagedec", "raise_permanent",
+   item_key="part-1.parquet:3")`` and ``recovery=dict(on_poison="quarantine",
+   poison_attempts=2)``: exactly that row group quarantined (16,384 rows, 2 attempts,
+   ``ptpu_quarantined_rows_total`` up by 16,384), every other row group once and byte
+   for byte the source, 0 host-inflated columns, one K3, scan and K4 launch a batch,
+   the loader's state after the epoch with all 32 row groups consumed; the same run with
+   ``on_poison="raise"`` raises ``FileNotFoundError`` to the consumer within its
+   ``results_timeout_s``. (c) the main path on 7 children over ``'arrow'`` under
+   ``FaultRule("child.item", "kill", item_key="ordinal=5")`` (propagated) with
+   ``RecoveryOptions(on_poison="quarantine", poison_attempts=2, worker_respawns=1)``:
+   exactly ordinal 5's row group missing, the rest equal per id, one ``child_death``
+   entry of 2 attempts, a budget of 0 left; then ``'shm'`` with 9 x 64 MB slabs under
+   ``FaultRule("wire.decode", "corrupt", nth=2, times=1)``: every id once, no respawn,
+   no lease leaked; no ``ptpu_torch_shm_*`` or ``ptpu_torch_arena_*`` segment of this
+   process left after either. (d) (a)'s clean main path and phase 5's pass-through at
+   10 + 30 batches, each with a ``TraceRecorder`` and a ``MetricsRegistry`` and without,
+   3 rounds alternating (phase 5's checks in every pass-through run): the dumped Chrome
+   JSON loads and holds every stage span (``reader.next``, ``batch.form``,
+   ``decode.dispatch``, ``h2d.transfer``, ``wait.host_queue``, ``wait.device_queue``,
+   ``train.step``) on 3 thread lanes or more, ``ptpu_pipeline_batches`` equals the
+   batches delivered, the read stage's histogram counts, ``write_prometheus`` parses
+   back, ``bottleneck_report()`` gives a verdict; a traced pool run of (c)'s
+   configuration (two epochs) shows one ``child.work`` lane for each child pid. Rows/s
+   on and off and the verdicts printed.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
 in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's,
-``slice13_launches`` in phase 12's),
+``slice13_launches`` in phase 12's, ``slice14_launches`` in phase 13's),
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1988,14 +2025,18 @@ def _off_read(root, f, rg):
 
 def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP_BATCHES,
                        measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH, pool="thread",
-                       wire=None, io_options=None, filesystem=None):
+                       wire=None, io_options=None, filesystem=None, trace=None,
+                       metrics=None):
     """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
     card: counts zeroed just before, read just after; the first and last measured
     batches against a ``pagedec="off"`` read of their row groups and the source arrays.
     ``pool``/``wire``: the reader's pool and the process pool's wire (then also no lease
     leaked and no slab left). ``io_options``: more read-path fields beside ``pagedec``
     (the result's ``io`` is ``reader.io_stats()`` at the end of the window).
-    ``filesystem``: the store's filesystem (phase 12's simulator)."""
+    ``filesystem``: the store's filesystem (phase 12's simulator). ``trace`` and
+    ``metrics``: the loader's recorder and registry (phase 13 (d)); each batch's
+    consumer step is then a ``train.step`` span, and the result carries the registry's
+    snapshot and the loader's bottleneck report, both taken before the loader exits."""
     import numpy as np
     import torch
 
@@ -2020,23 +2061,26 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     kept = []
     consumed = 0
     t_start = time.perf_counter()
-    with DataLoader(reader, batch_size, device=device, prefetch=3,
-                    host_queue_size=8) as loader:
+    with DataLoader(reader, batch_size, device=device, prefetch=3, host_queue_size=8,
+                    trace=trace, metrics=metrics) as loader:
         for batch in loader:
-            consumed += 1
-            if consumed == warmup:
-                torch.cuda.synchronize() if device == "cuda" else None
-                t0 = time.perf_counter()
-                stats0 = loader.stats.snapshot()
-            if consumed in (warmup + 1, warmup + measured):
-                kept.append({k: v.cpu().numpy() for k, v in batch.items()})
-            if consumed == warmup + measured:
-                torch.cuda.synchronize() if device == "cuda" else None
-                dt = time.perf_counter() - t0
-                stats1 = loader.stats.snapshot()
-                break
+            with trace.span("train.step") if trace is not None else contextlib.nullcontext():
+                consumed += 1
+                if consumed == warmup:
+                    torch.cuda.synchronize() if device == "cuda" else None
+                    t0 = time.perf_counter()
+                    stats0 = loader.stats.snapshot()
+                if consumed in (warmup + 1, warmup + measured):
+                    kept.append({k: v.cpu().numpy() for k, v in batch.items()})
+                if consumed == warmup + measured:
+                    torch.cuda.synchronize() if device == "cuda" else None
+                    dt = time.perf_counter() - t0
+                    stats1 = loader.stats.snapshot()
+                    break
         wire_stats = reader.wire_stats()
         io = reader.io_stats()
+        snap = metrics.snapshot() if metrics is not None else None
+        report = loader.bottleneck_report()
     launches = {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_scan_pages.launches,
                 "K4": pk.extract_pages.launches}
     leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
@@ -2101,7 +2145,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
             % (which, f, rg, len(TAB_COLUMNS)))
     return launches, {"rows_per_s": rows_per_s, "window": window, "counters": counters,
                       "wire": wire_stats, "leases": leases, "launches": launches,
-                      "io": io, "passthrough_batches": passthrough_batches}
+                      "io": io, "passthrough_batches": passthrough_batches,
+                      "consumed": consumed, "metrics": snap, "bottleneck": report}
 
 
 # -- phase 8: the click-through training feed ------------------------------------------
@@ -4284,6 +4329,455 @@ def phase_remote_arena(url, images, smi):
     return out
 
 
+# -- phase 13: failure handling and its record -------------------------------------------
+#
+# The recovery policy, the chaos plane, the trace recorder and the metrics registry on
+# the card. (a) the main path (phase 7's thread-pool configuration, one epoch) under a
+# transient fault every fourth row-group read, retried, beside a clean epoch, CHAOS_ROUNDS
+# rounds alternating which goes first; (b) a poison row group on the pass-through (two of
+# phase 5's files, one epoch), quarantined, then the same run raising; (c) the main path
+# on the process pool over 'arrow' under a child kill (quarantined after two deaths),
+# then on 'shm' with phase 7's 9 x 64 MB slabs under one corrupt wire payload; (d) the
+# main path and phase 5's pass-through at 10 + 30 batches with a TraceRecorder and a
+# MetricsRegistry and without, CHAOS_ROUNDS rounds alternating, and one traced pool run
+# of (c)'s configuration. Every run of the main path here delivers its partial last
+# batch (a quarantined row group leaves a short one), so ids compare exactly.
+
+CHAOS_ROUNDS = 3
+CHAOS_SEED = 14
+CHAOS_TAB_FILES = 2        # phase 5's files 0 and 1: 32 row groups, 524,288 rows
+CHAOS_POISON = (1, 3)      # (file, row group) of phase 5's store that (b) poisons
+CHAOS_STAGE_SPANS = ("reader.next", "batch.form", "decode.dispatch", "h2d.transfer",
+                     "wait.host_queue", "wait.device_queue", "train.step")
+
+
+def _own_segments():
+    """This process's slab and arena segments left in /dev/shm."""
+    import glob
+
+    pid = os.getpid()
+    return sorted(glob.glob("/dev/shm/ptpu_torch_shm_%d_*" % pid)
+                  + glob.glob("/dev/shm/ptpu_torch_arena_%d_*" % pid))
+
+
+def _rowgroup_ids(piece):
+    """The ``id`` column of one row group of the JPEG store (pyarrow, no decode)."""
+    import pyarrow.parquet as pq
+
+    with pq.ParquetFile(piece.path) as pf:
+        return pf.read_row_group(piece.row_group, columns=["id"]).column(0).to_pylist()
+
+
+def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery=None,
+                   pool="thread", wire=None, slab_bytes=None, trace=None, metrics=None,
+                   epochs=1):
+    """One run of the main path (phase 7's configuration, ``last_batch="partial"``):
+    every delivered image held on the card to phase 7's image of the same id; the
+    launch counters zeroed just before and read just after. ``plan`` is armed around
+    the reader's whole life (``propagate``: into the pool's children). Returns the
+    per-id counts, the quarantine entries and the counts the caller checks."""
+    import torch
+
+    from petastorm_tpu_torch import chaos, make_batch_reader
+    from petastorm_tpu_torch.io.lease import lease_stats
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.obs.log import degradation_counts
+    from petastorm_tpu_torch.ops import image
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    dev = torch.device("cuda")
+    counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    leases0 = lease_stats()
+    deg0 = degradation_counts()
+    armed = chaos.armed(plan, propagate=propagate) if plan is not None \
+        else contextlib.nullcontext()
+    batches = rows = 0
+    t0 = None
+    with armed, pool_env(slab_bytes):
+        reader = make_batch_reader(url, reader_pool_type=pool, workers_count=workers,
+                                   wire_serializer=wire, shuffle_row_groups=True, seed=0,
+                                   num_epochs=epochs, decode_on_device=True,
+                                   recovery=recovery, results_timeout_s=120)
+        executor = reader._executor
+        items = list(reader._plan.items)
+        _jpeg_launch_counters(zero=True)
+        with DataLoader(reader, BATCH, device="cuda", device_transform=transform,
+                        prefetch=3, host_queue_size=8, last_batch="partial",
+                        trace=trace, metrics=metrics) as loader:
+            pids = executor.child_pids() if pool == "process" else []
+            for batch in loader:
+                with trace.span("train.step") if trace is not None \
+                        else contextlib.nullcontext():
+                    ids, u8 = batch["id"], batch["image_u8"]
+                    counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                    bad.add_((images.index_select(0, ids) != u8).sum())
+                    batches += 1
+                    if t0 is None:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    else:
+                        rows += len(ids)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            entries = [(e.path, e.row_group, e.num_rows, e.kind, e.attempts, e.ordinal)
+                       for e in loader.quarantine_report.entries]
+            state = loader.state_dict()
+            snap = metrics.snapshot() if metrics is not None else None
+            report = loader.bottleneck_report()
+            wire_stats = reader.wire_stats()
+            pool_stats = executor.pool_stats() if pool == "process" else {}
+            budget = getattr(executor, "_respawn_budget", None)
+    launches = _jpeg_launch_counters()
+    deg = {k: v - deg0.get(k, 0) for k, v in degradation_counts().items()
+           if v != deg0.get(k, 0)}
+    leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
+    res = {"label": label, "rows_per_s": rows / dt, "batches": batches,
+           "counts": counts.cpu(), "bad": int(bad.item()), "launches": launches,
+           "entries": entries, "state": state, "metrics": snap, "bottleneck": report,
+           "wire": wire_stats, "pool": pool_stats, "budget": budget, "leases": leases,
+           "degradations": deg, "fires": plan.stats()["fires"] if plan else None,
+           "items": items, "pids": pids, "segments": _own_segments()}
+    log("chaos %s: %.1f rows/s over %d batches (the first excluded); launches %s; "
+        "quarantined %s; degradations %s; plan fires %s; leases %s; respawns %s; %s" % (
+            label, res["rows_per_s"], batches, json.dumps(launches),
+            [(os.path.basename(p), rg, n, k, a) for p, rg, n, k, a, _o in entries],
+            json.dumps(deg), res["fires"], leases, pool_stats.get("respawns"), smi))
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"] == batches,
+          "%s: stage2_planes, stage2_rgb and K2 should launch once a batch (%d): %s"
+          % (label, batches, launches))
+    check(res["bad"] == 0, "%s: %d uint8 values differ from phase 7's images of the same "
+          "ids" % (label, res["bad"]))
+    check(leases["leaked"] == 0 and leases["acquired"] == leases["released"],
+          "%s: leases %s" % (label, leases))
+    check(not res["segments"], "%s: segments left in /dev/shm: %s" % (label,
+                                                                      res["segments"]))
+    return res
+
+
+def phase_chaos_main_path(url, images, smi):
+    """(a): one epoch under ``FaultRule("reader.read", "raise_transient", every=4)`` with
+    ``io_retries=8`` beside a clean epoch, CHAOS_ROUNDS rounds alternating: every id
+    once, images equal per id to phase 7's (so to each other), the io_retry
+    degradations equal the plan's injections, nothing quarantined, the kernels once a
+    batch in both."""
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+
+    out = {"faults": [], "clean": []}
+    for r in range(CHAOS_ROUNDS):
+        order = ["faults", "clean"] if r % 2 == 0 else ["clean", "faults"]
+        for name in order:
+            plan = FaultPlan([FaultRule("reader.read", "raise_transient", every=4)],
+                             seed=CHAOS_SEED) if name == "faults" else None
+            res = chaos_jpeg_run(
+                url, images, "(a) %s round %d" % (name, r), smi, plan=plan,
+                # a retry is a hit of the rule too, and other threads' hits land
+                # between a read's attempts: its retry fails again about one time in
+                # four, so a budget of 2 runs out (it did on the card); 8 leaves it
+                # one time in 4 ** 8
+                recovery=dict(io_retries=8, io_retry_backoff_s=0.01))
+            check(bool((res["counts"] == 1).all()), "(a) %s: ids delivered %s times, not "
+                  "once each" % (name, sorted(set(res["counts"].tolist()))))
+            check(not res["entries"], "(a) %s: quarantined %s" % (name, res["entries"]))
+            retries = res["degradations"].get("io_retry", 0)
+            if plan is not None:
+                fired = plan.stats()["injected_total"]
+                check(fired > 0 and retries == fired, "(a): %d io_retry degradations for "
+                      "%d injected faults" % (retries, fired))
+            else:
+                check(retries == 0, "(a) clean: %d io_retry degradations" % retries)
+            out[name].append(res)
+    per_batch = {name: sorted({tuple(v // max(1, r["batches"])
+                                     for v in r["launches"].values()) for r in runs})
+                 for name, runs in out.items()}
+    check(per_batch["faults"] == per_batch["clean"] == [(1, 1, 1)],
+          "(a): launches a batch %s" % per_batch)
+    log("chaos (a): rows/s under faults %s, clean %s; retries %s (= injections); %s" % (
+        [round(r["rows_per_s"], 1) for r in out["faults"]],
+        [round(r["rows_per_s"], 1) for r in out["clean"]],
+        [r["degradations"].get("io_retry", 0) for r in out["faults"]], smi))
+    return out
+
+
+def phase_chaos_pool(url, images, smi):
+    """(c): the main path on 7 children over 'arrow' with ``FaultRule("child.item",
+    "kill", item_key="ordinal=5")`` armed with propagation under
+    ``RecoveryOptions(on_poison="quarantine", poison_attempts=2, worker_respawns=1)``:
+    exactly ordinal 5's row group missing, one ``child_death`` entry of 2 attempts, a
+    respawn budget of 0 left; then 'shm' at 9 x 64 MB under one corrupt wire payload:
+    every id once, no respawn, no lease leaked; no slab or arena segment left after
+    either."""
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+    from petastorm_tpu_torch.recovery import RecoveryOptions
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    rec = RecoveryOptions(on_poison="quarantine", poison_attempts=2, worker_respawns=1)
+    check(not _own_segments(), "segments in /dev/shm before (c): %s" % _own_segments())
+    kill = chaos_jpeg_run(url, images, "(c) kill, process/arrow", smi,
+                          plan=FaultPlan([FaultRule("child.item", "kill",
+                                                    item_key="ordinal=5")]),
+                          propagate=True, recovery=rec, pool="process", wire="arrow")
+    piece = kill["items"][5][0]  # plan ordinal 5: (piece, partition)
+    lost = set(_rowgroup_ids(piece))
+    c = kill["counts"]
+    missing = {i for i in range(ROWS) if c[i] == 0}
+    check(missing == lost and bool((c[sorted(set(range(ROWS)) - lost)] == 1).all()),
+          "(c) kill: missing %d ids (%d in ordinal 5's row group %s:%d); counts %s" % (
+              len(missing), len(lost), piece.path, piece.row_group,
+              sorted(set(c.tolist()))))
+    check([(e[0], e[1], e[3], e[4]) for e in kill["entries"]]
+          == [(piece.path, piece.row_group, "child_death", 2)],
+          "(c) kill: quarantine entries %s" % kill["entries"])
+    check(kill["budget"] == 0 and kill["pool"].get("respawns") == 2,
+          "(c) kill: respawn budget left %s, respawns %s" % (kill["budget"],
+                                                            kill["pool"].get("respawns")))
+    check_ring_fits(POOL_SLAB_BYTES, workers + 2)
+    corrupt = chaos_jpeg_run(url, images, "(c) corrupt wire, process/shm 64MB", smi,
+                             plan=FaultPlan([FaultRule("wire.decode", "corrupt", nth=2,
+                                                       times=1)], seed=CHAOS_SEED),
+                             recovery=rec, pool="process", wire="shm",
+                             slab_bytes=POOL_SLAB_BYTES)
+    check(corrupt["fires"] == [1], "(c) corrupt: the plan fired %s times"
+          % corrupt["fires"])
+    check(bool((corrupt["counts"] == 1).all()) and not corrupt["entries"],
+          "(c) corrupt: counts %s, quarantined %s" % (
+              sorted(set(corrupt["counts"].tolist())), corrupt["entries"]))
+    check(corrupt["pool"].get("respawns") == 0, "(c) corrupt: %s respawns"
+          % corrupt["pool"].get("respawns"))
+    check(corrupt["wire"].get("shm_items", 0) > 0, "(c) corrupt: no item through a slab: "
+          "%s" % corrupt["wire"])
+    log("chaos (c): the kill quarantined %s:%d (%d ids) after 2 deaths, budget 0 left; "
+        "the corrupt payload was decoded again on its live child; no segment left; %s"
+        % (os.path.basename(piece.path), piece.row_group, len(lost), smi))
+    return {"kill": kill, "corrupt": corrupt}
+
+
+def _trace_checks(tracer, label, work, pids=None):
+    """The dumped Chrome JSON loads and holds every stage span from 3 threads or more;
+    with ``pids``, one child.work lane for each child pid. Returns the span names."""
+    path = tracer.dump(os.path.join(work, "trace_%d.json" % len(os.listdir(work))))
+    with open(path) as f:
+        doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    names = {e["name"] for e in spans}
+    lanes = {e["tid"] for e in spans if e["pid"] == os.getpid()}
+    missing = set(CHAOS_STAGE_SPANS) - names
+    check(not missing and len(lanes) >= 3, "%s: the trace lacks %s or has %d thread "
+          "lanes" % (label, sorted(missing), len(lanes)))
+    if pids is not None:
+        child_lanes = {e["pid"] for e in spans if e["name"] == "child.work"}
+        check(child_lanes == set(pids), "%s: child.work lanes %s, children %s"
+              % (label, sorted(child_lanes), sorted(pids)))
+    return sorted(names)
+
+
+def _metrics_checks(snap, batches, label, ahead=0):
+    """The registry's snapshot: the batches delivered and the read stage's histogram.
+    ``ahead``: how many batches the transfer thread may have taken beyond the consumer's
+    (a run that stops early leaves its prefetch in flight)."""
+    check(batches <= snap["ptpu_pipeline_batches"] <= batches + ahead,
+          "%s: ptpu_pipeline_batches %s for %d delivered (%d may be in flight)"
+          % (label, snap["ptpu_pipeline_batches"], batches, ahead))
+    check(snap['ptpu_pipeline_stage_seconds{stage="read"}']["count"] > 0,
+          "%s: no read-stage observation" % label)
+
+
+def phase_trace_main_path(url, images, work, smi):
+    """(d), the main path: (a)'s clean epoch with a TraceRecorder and a MetricsRegistry
+    and without, CHAOS_ROUNDS rounds alternating; then one traced run of (c)'s pool
+    configuration without faults (two epochs, so every child takes items)."""
+    from petastorm_tpu_torch.obs.export import parse_prometheus_text, write_prometheus
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+    from petastorm_tpu_torch.trace import TraceRecorder
+
+    out = {"on": [], "off": []}
+    for r in range(CHAOS_ROUNDS):
+        for name in (["on", "off"] if r % 2 == 0 else ["off", "on"]):
+            tracer = TraceRecorder() if name == "on" else None
+            registry = MetricsRegistry() if name == "on" else None
+            res = chaos_jpeg_run(url, images, "(d) main path trace %s round %d"
+                                 % (name, r), smi, trace=tracer, metrics=registry)
+            check(bool((res["counts"] == 1).all()), "(d) %s: ids not once each" % name)
+            if tracer is not None:
+                res["spans"] = _trace_checks(tracer, "(d) main path", work)
+                _metrics_checks(res["metrics"], res["batches"], "(d) main path")
+                prom = write_prometheus(os.path.join(work, "m%d.prom" % r), registry)
+                with open(prom) as f:
+                    samples = parse_prometheus_text(f.read())
+                # written after the loader's exit: its pull collectors are gone, its
+                # stage histograms stay
+                read = res["metrics"]['ptpu_pipeline_stage_seconds{stage="read"}']
+                check(samples['ptpu_pipeline_stage_seconds_count{stage="read"}']
+                      == read["count"], "(d): the Prometheus file's read count differs "
+                      "from the snapshot's %d" % read["count"])
+            check(res["bottleneck"].verdict in ("producer-bound", "consumer-bound",
+                                                "wire-bound", "balanced", "straggler",
+                                                "idle"),
+                  "(d): no verdict: %s" % res["bottleneck"])
+            out[name].append(res)
+    tracer = TraceRecorder()
+    pool = chaos_jpeg_run(url, images, "(d) traced process/arrow", smi, pool="process",
+                          wire="arrow", trace=tracer, metrics=MetricsRegistry(), epochs=2)
+    check(bool((pool["counts"] == 2).all()), "(d) pool: ids not twice each")
+    pool["spans"] = _trace_checks(tracer, "(d) pool", work, pids=pool["pids"])
+    out["pool"] = pool
+    log("chaos (d) main path: rows/s traced %s, untraced %s; verdicts %s; the pool's "
+        "trace has %d child lanes; %s" % (
+            [round(r["rows_per_s"], 1) for r in out["on"]],
+            [round(r["rows_per_s"], 1) for r in out["off"]],
+            [r["bottleneck"].verdict for r in out["on"] + out["off"]],
+            len(pool["pids"]), smi))
+    log("chaos (d) main path report: %s" % out["on"][0]["bottleneck"].render()
+        .replace("\n", " | "))
+    return out
+
+
+def phase_chaos_tabular(root, arrays, predicted, smi):
+    """(b): phase 5's files 0 and 1 (32 row groups) with ``pagedec="on"`` (``"auto"``
+    engages when the loader adopts the reader, and the thread pool reads its first
+    items before that: the poisoned row group could pass classically), one epoch,
+    under ``FaultRule("io.pagedec", "raise_permanent", item_key=<file 1>:<row group 3>)``
+    and ``recovery=dict(on_poison="quarantine", poison_attempts=2)``: that row group
+    quarantined (16,384 rows, 2 attempts, counted on the registry), every other row
+    group delivered once and byte-identical to the source (phase 5's classic read
+    equals it), 0 host-inflated columns, one K3, scan and K4 launch a batch, and the
+    loader's state after the epoch counts all 32 row groups consumed. Then the same run
+    with ``on_poison="raise"``: FileNotFoundError reaches the consumer within its
+    ``results_timeout_s``."""
+    import numpy as np
+
+    from petastorm_tpu_torch import chaos, make_batch_reader
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.obs.metrics import default_registry
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    urls = ["file://" + os.path.join(root, "part-%d.parquet" % f)
+            for f in range(CHAOS_TAB_FILES)]
+    f_bad, rg_bad = CHAOS_POISON
+    bad_name = "part-%d.parquet" % f_bad
+    # the site's key is "<path>:<row group>": the file's name and the row group match
+    # this one row group of the two files
+    rule = chaos.FaultRule("io.pagedec", "raise_permanent",
+                           item_key="%s:%d" % (bad_name, rg_bad))
+    q_rows = default_registry().counter("ptpu_quarantined_rows_total")
+    q_items = default_registry().counter("ptpu_quarantined_items_total")
+    rows0, items0 = q_rows.value, q_items.value
+    counters0 = pagedec.counter_values()
+    seen = {}
+    with chaos.armed(chaos.FaultPlan([rule]), propagate=False):
+        reader = make_batch_reader(urls, workers_count=workers, shuffle_row_groups=True,
+                                   seed=0, num_epochs=1, io_options={"pagedec": "on"},
+                                   recovery=dict(on_poison="quarantine", poison_attempts=2),
+                                   results_timeout_s=60)
+        _tab_launch_counters(zero=True)
+        t0 = time.perf_counter()
+        with DataLoader(reader, TAB_BATCH, device="cuda", prefetch=3,
+                        host_queue_size=8) as loader:
+            for batch in loader:
+                got = {k: v.cpu().numpy() for k, v in batch.items()}
+                f, rg = _rowgroup_of({c: got[c][0] for c in TAB_COLUMNS}, arrays,
+                                     TAB_BATCH)
+                check((f, rg) not in seen, "(b): row group %d:%d delivered twice"
+                      % (f, rg))
+                for c in TAB_COLUMNS:
+                    src = arrays[f][c][rg * TAB_BATCH:(rg + 1) * TAB_BATCH]
+                    check(got[c].dtype == src.dtype and got[c].tobytes() == src.tobytes(),
+                          "(b): column %s of row group %d:%d differs from the source"
+                          % (c, f, rg))
+                seen[(f, rg)] = True
+            dt = time.perf_counter() - t0
+            state = loader.state_dict()
+            entries = loader.quarantine_report.entries
+    launches = _tab_launch_counters()
+    counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+    want = {(f, rg) for f in range(CHAOS_TAB_FILES) for rg in range(TAB_RGS_PER_FILE)}
+    batches = len(seen)
+    log("chaos (b): %d batches in %.2f s (%.1f rows/s); launches %s; quarantined %s; "
+        "quarantined rows +%d; counters %s; state resume_epoch %s; %s" % (
+            batches, dt, batches * TAB_BATCH / dt, json.dumps(launches),
+            [(os.path.basename(e.path), e.row_group, e.num_rows, e.kind, e.attempts)
+             for e in entries], q_rows.value - rows0, json.dumps(counters),
+            state["resume_epoch"], smi))
+    check(set(seen) == want - {CHAOS_POISON}, "(b): delivered %d row groups, missing %s"
+          % (batches, sorted(want - set(seen))))
+    check([(os.path.basename(e.path), e.row_group, e.num_rows, e.attempts)
+           for e in entries] == [(bad_name, rg_bad, TAB_RG_ROWS, 2)],
+          "(b): quarantine report %s" % entries)
+    check((q_rows.value - rows0, q_items.value - items0) == (TAB_RG_ROWS, 1),
+          "(b): ptpu_quarantined rows/items rose by %d/%d"
+          % (q_rows.value - rows0, q_items.value - items0))
+    check(counters["host_inflate_columns"] == 0 and counters["fallback_columns"] == 0,
+          "(b): counters %s" % counters)
+    for k in ("K3", "scan", "K4"):
+        check(launches[k] == predicted[k] * batches, "(b): %s launched %d times for %d "
+              "batches" % (k, launches[k], batches))
+    check(state["resume_epoch"] == 1 and state["consumed"] == {}
+          and state["plan"]["num_items"] == len(want),
+          "(b): the loader's state after the epoch: %s" % json.dumps(state)[:300])
+    # on_poison="raise": the permanent error reaches the consumer
+    t0 = time.perf_counter()
+    raised = None
+    with chaos.armed(chaos.FaultPlan([rule]), propagate=False):
+        reader = make_batch_reader(urls, workers_count=workers, shuffle_row_groups=True,
+                                   seed=0, num_epochs=1, io_options={"pagedec": "on"},
+                                   recovery=dict(on_poison="raise"), results_timeout_s=60)
+        try:
+            with DataLoader(reader, TAB_BATCH, device="cuda", prefetch=3) as loader:
+                for _ in loader:
+                    pass
+        except FileNotFoundError as e:
+            raised = e
+    waited = time.perf_counter() - t0
+    log("chaos (b) on_poison='raise': %r after %.2f s" % (raised, waited))
+    check(raised is not None and waited < 60, "(b): on_poison='raise' did not raise "
+          "FileNotFoundError within 60 s (%r after %.1f s)" % (raised, waited))
+    return {"launches": launches, "batches": batches, "entries": entries,
+            "rows_per_s": batches * TAB_BATCH / dt, "raise_s": waited}
+
+
+def phase_trace_tabular(root, arrays, predicted, work, smi):
+    """(d), the pass-through: phase 5's path at 10 + 30 batches with a TraceRecorder and
+    a MetricsRegistry and without, CHAOS_ROUNDS rounds alternating (phase 5's checks
+    in every run)."""
+    from petastorm_tpu_torch.obs.export import parse_prometheus_text, write_prometheus
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+    from petastorm_tpu_torch.trace import TraceRecorder
+
+    out = {"on": [], "off": []}
+    for r in range(CHAOS_ROUNDS):
+        for name in (["on", "off"] if r % 2 == 0 else ["off", "on"]):
+            tracer = TraceRecorder() if name == "on" else None
+            registry = MetricsRegistry() if name == "on" else None
+            _launches, res = phase_tabular_path(
+                root, arrays, predicted, warmup=POOL_TAB_WARMUP, measured=POOL_TAB_MEASURED,
+                trace=tracer, metrics=registry)
+            if tracer is not None:
+                res["spans"] = _trace_checks(tracer, "(d) pass-through", work)
+                check("decode.device_inflate" in res["spans"], "(d): no inflate span")
+                # phase 5's loader: prefetch 3, a host queue of 8
+                _metrics_checks(res["metrics"], res["consumed"], "(d) pass-through",
+                                ahead=3 + 8 + 2)
+                prom = write_prometheus(os.path.join(work, "t%d.prom" % r), registry)
+                with open(prom) as f:
+                    samples = parse_prometheus_text(f.read())
+                check(samples['ptpu_pipeline_stage_seconds_count{stage="device_inflate"}']
+                      > 0, "(d): no inflate-stage observation in the Prometheus file")
+            out[name].append(res)
+    log("chaos (d) pass-through: rows/s traced %s, untraced %s; verdicts %s; %s" % (
+        [round(r["rows_per_s"], 1) for r in out["on"]],
+        [round(r["rows_per_s"], 1) for r in out["off"]],
+        [r["bottleneck"].verdict for r in out["on"] + out["off"]], smi))
+    log("chaos (d) pass-through report: %s" % out["on"][0]["bottleneck"].render()
+        .replace("\n", " | "))
+    return out
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -4479,6 +4973,13 @@ def main():
         store_jpeg = phase_remote_jpeg(url, blobs, images, env["smi"])
         store_arena = phase_remote_arena(url, images, env["smi"])
         phase12_s = time.perf_counter() - t12
+        t13 = time.perf_counter()
+        traces = os.path.join(work, "traces")
+        os.makedirs(traces)
+        chaos_a = phase_chaos_main_path(url, images, env["smi"])
+        chaos_c = phase_chaos_pool(url, images, env["smi"])
+        trace_jpeg = phase_trace_main_path(url, images, traces, env["smi"])
+        phase13_s = time.perf_counter() - t13
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -4531,6 +5032,12 @@ def main():
         phase12_s += time.perf_counter() - t12
         log("object-store tier and arena: phase 12 took %.1f s of wall time; %s"
             % (phase12_s, env["smi"]))
+        t13 = time.perf_counter()
+        chaos_b = phase_chaos_tabular(tab_root, arrays, predicted, env["smi"])
+        trace_tab = phase_trace_tabular(tab_root, arrays, predicted, traces, env["smi"])
+        phase13_s += time.perf_counter() - t13
+        log("failure handling and its record: phase 13 took %.1f s of wall time; %s"
+            % (phase13_s, env["smi"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -4569,6 +5076,18 @@ def main():
                 "d_arena": [e["launches"][key] for e in store_arena["arena"]["epochs"]],
                 "d_no_arena": [e["launches"][key] for e in store_arena["no_arena"]["epochs"]]}
 
+    def slice14_launches(key):
+        """{part: launches of ``key``} in phase 13's JPEG parts (a list a run)."""
+        return {"a_faults": [r["launches"][key] for r in chaos_a["faults"]],
+                "a_clean": [r["launches"][key] for r in chaos_a["clean"]],
+                "a_batches": [r["batches"] for r in chaos_a["faults"]],
+                "c_kill": chaos_c["kill"]["launches"][key],
+                "c_kill_batches": chaos_c["kill"]["batches"],
+                "c_corrupt": chaos_c["corrupt"]["launches"][key],
+                "d_traced": [r["launches"][key] for r in trace_jpeg["on"]],
+                "d_untraced": [r["launches"][key] for r in trace_jpeg["off"]],
+                "d_pool_traced": trace_jpeg["pool"]["launches"][key]}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -4585,7 +5104,8 @@ def main():
          "selection_launches": selection_launches("stage2_planes"),
          "slice11_launches": slice11_launches("stage2_planes"),
          "slice12_launches": slice12_launches("stage2_planes"),
-         "slice13_launches": slice13_launches("stage2_planes")},
+         "slice13_launches": slice13_launches("stage2_planes"),
+         "slice14_launches": slice14_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -4599,7 +5119,8 @@ def main():
          "selection_launches": selection_launches("stage2_rgb"),
          "slice11_launches": slice11_launches("stage2_rgb"),
          "slice12_launches": slice12_launches("stage2_rgb"),
-         "slice13_launches": slice13_launches("stage2_rgb")},
+         "slice13_launches": slice13_launches("stage2_rgb"),
+         "slice14_launches": slice14_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -4634,7 +5155,8 @@ def main():
          "selection_launches": selection_launches("K2"),
          "slice11_launches": slice11_launches("K2"),
          "slice12_launches": slice12_launches("K2"),
-         "slice13_launches": slice13_launches("K2")},
+         "slice13_launches": slice13_launches("K2"),
+         "slice14_launches": slice14_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -4672,6 +5194,12 @@ def main():
             "b_split_epochs": [e[key] for e in store_tab["split"]["launches"]],
             "c_hedged": store_hedge["on"]["launches"][key],
             "c_unhedged": store_hedge["off"]["launches"][key]}
+        row["slice14_launches"] = {
+            "b_quarantine": chaos_b["launches"][key], "b_batches": chaos_b["batches"],
+            "d_traced": [r["launches"][key] for r in trace_tab["on"]],
+            "d_untraced": [r["launches"][key] for r in trace_tab["off"]],
+            "d_passthrough_batches": [r["passthrough_batches"]
+                                      for r in trace_tab["on"] + trace_tab["off"]]}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -4717,6 +5245,15 @@ def main():
             store_hedge["on"]["p99_s"], store_hedge["off"]["p99_s"],
             store_arena["arena"]["epochs"][1]["rows_per_s"],
             store_arena["no_arena"]["epochs"][1]["rows_per_s"]))
+    log("failure handling (phase 13, %.1f s): main path rows/s median %.1f under a transient "
+        "fault every 4th read, %.1f clean; the pass-through with a quarantined row group "
+        "%.1f rows/s; traced/untraced main path %.1f/%.1f, pass-through %.1f/%.1f; "
+        "verdicts: main path %s, pass-through %s" % (
+            phase13_s, median(chaos_a["faults"]), median(chaos_a["clean"]),
+            chaos_b["rows_per_s"], median(trace_jpeg["on"]), median(trace_jpeg["off"]),
+            median(trace_tab["on"]), median(trace_tab["off"]),
+            sorted({r["bottleneck"].verdict for r in trace_jpeg["on"] + trace_jpeg["off"]}),
+            sorted({r["bottleneck"].verdict for r in trace_tab["on"] + trace_tab["off"]})))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

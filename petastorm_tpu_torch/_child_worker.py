@@ -17,19 +17,31 @@ socket), ``hints`` the rest of this child's dispatch claim (handed to the worker
 ``prefetch`` before the item is worked: the child's own readahead pool reads them while
 it decodes) and ``settings`` None or a dict the worker applies before the item
 (``apply_settings``: how a reader's later adoption by a loader reaches running
-children). The child answers ``("ok", kind, nframes, (work_s, serialize_s), io)``,
-``io`` the worker's ``io_stats()`` (or None), followed by ``nframes`` raw frames from
-the serializer, or ``("exc", exception)``. A ``None`` item shuts the child down, and the
-worker's ``close()`` releases its readahead pool and its ranged-GET engine.
+children). The child answers ``("ok", kind, nframes, (work_s, serialize_s), io,
+spans)``, ``io`` the worker's ``io_stats()`` (or None) and ``spans`` the trace piggyback
+``(pid, wall_anchor, perf_anchor, [(name, t0, dur), ...])``: ``child.work`` (the worker
+call) and ``child.serialize`` (the wire encode) around this item, ``t0`` from the
+child's ``perf_counter`` and one (wall, perf) anchor pair sampled at start for clock
+alignment. Recording is two ``perf_counter`` pairs an item (a row group, not a row), so
+it is always on; the parent merges the spans only when a
+:class:`~petastorm_tpu_torch.trace.TraceRecorder` is attached. Then ``nframes`` raw
+frames from the serializer follow; or the child answers ``("exc", exception)``. A
+``None`` item shuts the child down, and the worker's ``close()`` releases its readahead
+pool and its ranged-GET engine.
 
 A parent that owns a host-wide cache arena exports its token
 (:data:`petastorm_tpu_torch.io.arena.ENV_ATTACH`): the child attaches before its first
 item, so its first read of a warm piece maps the shared footers and row groups instead
 of reading the store (attach trouble degrades once, inside ``arena.resolve``).
 
-The JAX package's child also speaks tcp, heartbeats, stack dumps, chaos, provenance,
-tenants and live knob frames; those are not ported (ROADMAP.md Queue 1 items 4(c) and
-8), and the parent never asks for them.
+A parent armed with a propagated :class:`~petastorm_tpu_torch.chaos.FaultPlan` exports
+it as ``PTPU_CHAOS_SPEC``: the child arms its own copy at bootstrap, opted into the
+``kill`` action (``os._exit(137)`` mid-item, exactly a crashed child), and evaluates the
+``child.item`` site around each ``worker(item)``, besides the worker's own read sites.
+
+The JAX package's child also speaks tcp, heartbeats, stack dumps, provenance, tenants
+and live knob frames; those are not ported (ROADMAP.md Queue 1 items 4(c), 8b and 8c),
+and the parent never asks for them.
 """
 import os
 import pickle
@@ -72,7 +84,13 @@ def main():
             slab_names, slab_bytes = conn.recv()
             serializer.bind_slabs(slab_names, slab_bytes)
         worker = conn.recv()
-        conn.send(("pid", os.getpid()))
+        pid = os.getpid()
+        conn.send(("pid", pid))
+        # the clock-alignment anchor pair of this child's spans
+        wall_anchor, perf_anchor = time.time(), time.perf_counter()
+        from petastorm_tpu_torch import chaos
+
+        chaos.arm_from_env(in_child=True)
         from petastorm_tpu_torch.io import arena as arena_mod
 
         arena_mod.attach_from_env()
@@ -96,6 +114,8 @@ def main():
                 prefetch(hints)  # never raises (degradation-counted)
             try:
                 t0 = time.perf_counter()
+                if chaos.ACTIVE is not None:
+                    chaos.ACTIVE.hit("child.item", key=chaos.item_key(item))
                 result = worker(item)
                 t1 = time.perf_counter()
                 kind, frames = serializer.serialize(result)
@@ -108,7 +128,9 @@ def main():
                     conn.send(("exc", RuntimeError("%s: %s" % (type(e).__name__, e))))
                 continue
             conn.send(("ok", kind, len(frames), (t1 - t0, t2 - t1),
-                       io_stats() if io_stats is not None else None))
+                       io_stats() if io_stats is not None else None,
+                       (pid, wall_anchor, perf_anchor,
+                        [("child.work", t0, t1 - t0), ("child.serialize", t1, t2 - t1)])))
             for frame in frames:
                 conn.send_bytes(frame)
     except (EOFError, BrokenPipeError, ConnectionResetError):

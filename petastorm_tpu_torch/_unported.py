@@ -7,7 +7,8 @@ from __future__ import annotations
 
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
-    "obs": "Queue 1 item 8 (recovery, chaos, observability, health, provenance, tenants)",
+    "health": "Queue 1 item 8b (health, provenance, time series, SLOs and the stats CLI)",
+    "control": "Queue 1 item 8c (tenants, the controller and dataset watch)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
     "tf": "Queue 1 item 21 (adapters/tf.py, tf_utils.py and tools/)",
@@ -16,17 +17,13 @@ _ITEMS = {
 #: option name -> (roadmap key, the value that means "not used")
 OPTIONS = {
     # io_options and cache_* are taken
-    "io_retries": ("obs", None),
-    "io_retry_backoff_s": ("obs", None),
-    "recovery": ("obs", None),
-    "provenance": ("obs", None),
-    "watch": ("obs", None),
-    "tenant": ("obs", None),
-    "trace": ("obs", None),
-    "metrics": ("obs", None),
-    "health": ("obs", None),
-    "slos": ("obs", None),
-    "controller": ("obs", None),
+    # io_retries, io_retry_backoff_s, recovery, trace and metrics are taken
+    "provenance": ("health", None),
+    "health": ("health", None),
+    "slos": ("health", None),
+    "watch": ("control", None),
+    "tenant": ("control", None),
+    "controller": ("control", None),
     "sharding": ("multi_device", None),
 }
 

@@ -161,7 +161,9 @@ def from_reference_state(state):
     Python data, epoch keys as ints, consumed ordinals as sorted lists. A
     ``WeightedSamplingReader`` state converts its sub-readers' states; an
     ``InMemDataLoader`` cursor passes when ``shuffle`` is off and raises ``ValueError``
-    when it is on (the two packages' permutations differ)."""
+    when it is on (the two packages' permutations differ). A state taken after a
+    quarantine carries the skipped item's ordinal as consumed, in both packages, so the
+    port's restore skips it too."""
     # through JSON, the form the two packages share: a value that is not JSON data
     # fails here, not at a later restore
     state = json.loads(state if isinstance(state, (str, bytes)) else json.dumps(state))

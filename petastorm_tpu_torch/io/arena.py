@@ -48,7 +48,7 @@ failed create or attach, ``PTPU_ARENA=off``) keeps the per-process caches;
 ``arena_full`` declines an admission; ``arena_lease_revoked`` counts the holder
 refcounts reclaimed from dead processes. The counts are this process's
 (:func:`arena_counters`); the JAX package's registry families are ROADMAP.md Queue 1
-item 8.
+item 8b.
 """
 from __future__ import annotations
 

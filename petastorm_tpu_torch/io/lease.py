@@ -15,9 +15,10 @@ every holder has released it.
   (``wire_writable`` and ``wire_owned`` in the serializers, ``lease_cow``,
   ``loader_detach`` where the loader copies views out), read with :func:`copy_census`.
 
-The JAX package publishes these counters on its metrics registry; the port keeps them
-as plain in-module counters behind :func:`lease_stats` and :func:`copy_census` (the
-registry is ROADMAP.md Queue 1 item 8). A lease dropped without a release reclaims at
+The counters are the JAX package's ``ptpu_lease_*`` families and the
+``ptpu_copy_bytes_total{site=...}`` census on the process-wide metrics registry
+(:func:`petastorm_tpu_torch.obs.metrics.default_registry`); :func:`lease_stats` and
+:func:`copy_census` read them as flat dicts. A lease dropped without a release reclaims at
 garbage collection, so an abandoned batch cannot wedge a ring, and counts as leaked.
 """
 from __future__ import annotations
@@ -34,16 +35,56 @@ LEASE_KEY = "__lease__"
 
 # re-entrant: a lease reclaimed by the garbage collector may run inside a holder of it
 _stats_lock = threading.RLock()
-_stats = dict.fromkeys(("acquired", "released", "retained", "cow", "revoked", "leaked",
-                        "active"), 0)
 #: live leases by ``kind`` (``"slab"``, ``"memcache"``, ``"arena"``, ``"remote_get"``,
 #: ...): the census of who holds what
 _active_kinds = {}
 
 
+class _LeaseMetrics:
+    """The process-wide ``ptpu_lease_*`` families (resolved at the first lease, so the
+    registry import stays off the module's import path)."""
+
+    __slots__ = ("acquired", "released", "retained", "cow", "revoked", "leaked",
+                 "active")
+
+    def __init__(self):
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        reg = default_registry()
+        self.acquired = reg.counter(
+            "ptpu_lease_acquired_total", help="leases created over borrowed buffers")
+        self.released = reg.counter(
+            "ptpu_lease_released_total",
+            help="leases fully released (owner reclaim callback fired)")
+        self.retained = reg.counter(
+            "ptpu_lease_retained_total", help="additional holders added via retain()")
+        self.cow = reg.counter(
+            "ptpu_lease_cow_total",
+            help="copy-on-write escalations (a consumer actually wrote)")
+        self.revoked = reg.counter(
+            "ptpu_lease_revoked_total",
+            help="leases invalidated by their buffer owner (reset/teardown)")
+        self.leaked = reg.counter(
+            "ptpu_lease_leaked_total",
+            help="leases reclaimed by GC instead of an explicit release")
+        self.active = reg.gauge(
+            "ptpu_lease_active", help="leases currently alive (refcount > 0)")
+
+
+_metrics = None
+
+
+def _lease_metrics():
+    global _metrics
+    if _metrics is None:
+        with _stats_lock:
+            if _metrics is None:
+                _metrics = _LeaseMetrics()
+    return _metrics
+
+
 def _bump(name, delta=1):
-    with _stats_lock:
-        _stats[name] += delta
+    getattr(_lease_metrics(), name).inc(delta)
 
 
 class Lease:
@@ -62,9 +103,10 @@ class Lease:
         self._lock = threading.Lock()
         self._revoked = False
         self.kind = kind
+        m = _lease_metrics()
+        m.acquired.inc()
+        m.active.inc()
         with _stats_lock:
-            _stats["acquired"] += 1
-            _stats["active"] += 1
             _active_kinds[kind] = _active_kinds.get(kind, 0) + 1
 
     def retain(self):
@@ -92,9 +134,10 @@ class Lease:
 
     def _reclaim(self):
         cb, self._release_cb = self._release_cb, None
+        m = _lease_metrics()
+        m.released.inc()
+        m.active.dec()
         with _stats_lock:
-            _stats["released"] += 1
-            _stats["active"] -= 1
             _active_kinds[self.kind] -= 1
         if cb is not None:
             cb()
@@ -233,20 +276,33 @@ def readonly_view(value):
     return value
 
 
-_census = {}
+_census = {}  # site -> its ptpu_copy_bytes_total{site=...} counter
+
+
+def _site_counter(site):
+    counter = _census.get(site)
+    if counter is None:
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        with _stats_lock:
+            counter = _census.get(site)
+            if counter is None:
+                counter = _census[site] = default_registry().counter(
+                    "ptpu_copy_bytes_total",
+                    help="payload bytes memcpy'd on the batch path, by site", site=site)
+    return counter
 
 
 def count_copy(site, nbytes):
     """Charge ``nbytes`` to ``site`` in the copy census (zero-byte charges dropped)."""
     if nbytes:
-        with _stats_lock:
-            _census[site] = _census.get(site, 0) + int(nbytes)
+        _site_counter(site).inc(int(nbytes))
 
 
 def copy_census():
     """``{site: bytes copied}`` since the process started."""
     with _stats_lock:
-        return dict(_census)
+        return {site: counter.value for site, counter in _census.items()}
 
 
 def active_leases_by_kind():
@@ -258,6 +314,6 @@ def active_leases_by_kind():
 
 def lease_stats():
     """``{acquired, released, retained, cow, revoked, leaked, active}`` since the
-    process started."""
-    with _stats_lock:
-        return dict(_stats)
+    process started (the ``ptpu_lease_*`` counters as a flat dict)."""
+    m = _lease_metrics()
+    return {name: getattr(m, name).value for name in _LeaseMetrics.__slots__}

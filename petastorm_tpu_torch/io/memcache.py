@@ -38,7 +38,7 @@ its budget does not bound a device-decode store); the port does not copy that.
 Entries larger than the whole budget are served uncached (degradation
 ``memcache_oversized``). The counters are the store's, read through
 :meth:`MemCache.stats`; the JAX package's registry families are ROADMAP.md Queue 1
-item 8.
+item 8b.
 
 The host-wide tier: ``arena=`` (an :class:`~petastorm_tpu_torch.io.arena.ArenaSpec` or a
 live ``CacheArena``) layers the shared cache arena between this process's store and the

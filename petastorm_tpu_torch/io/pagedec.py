@@ -39,27 +39,13 @@ memory, so corrupt input can never read out of bounds.
 """
 from __future__ import annotations
 
-import logging
 import struct
 import threading
 
 import numpy as np
 
 from petastorm_tpu_torch.errors import PagedecCorruptError
-
-logger = logging.getLogger(__name__)
-
-_warned = set()
-_warned_lock = threading.Lock()
-
-
-def warn_once(cause, msg, *args):
-    """Log ``msg`` the first time ``cause`` happens in this process."""
-    with _warned_lock:
-        if cause in _warned:
-            return
-        _warned.add(cause)
-    logger.warning("[%s] " + msg, cause, *args)
+from petastorm_tpu_torch.obs.log import degradation
 
 
 # Parquet page types (format/PageType)
@@ -318,18 +304,18 @@ class Eligibility:
         return self.eligible
 
 
-#: codec (lower case) -> column reads locked out of the pass-through by a codec the
-#: walker classifies but no kernel inflates
-CODEC_INELIGIBLE = {}
-
-
 def _count_codec_ineligible(codec):
     """One column read locked out of the pass-through by a classified-but-
-    kernel-less codec: count it and warn once per codec."""
+    kernel-less codec: ``ptpu_pagedec_codec_ineligible_columns_total{codec=...}``
+    counts every one, and the degradation warns once a codec."""
+    from petastorm_tpu_torch.obs.metrics import default_registry
+
     label = codec.lower()
-    with _warned_lock:
-        CODEC_INELIGIBLE[label] = CODEC_INELIGIBLE.get(label, 0) + 1
-    warn_once(
+    default_registry().counter(
+        "ptpu_pagedec_codec_ineligible_columns_total",
+        help="column reads whose codec the classifier knows but has no device kernel "
+             "for (full classic read)", codec=label).inc()
+    degradation(
         "pagedec_codec_ineligible{codec=%s}" % label,
         "pagedec: %s chunks are classified but have no device inflate "
         "kernel yet — these columns take the full classic host read", codec)
@@ -638,9 +624,8 @@ def materialize_columns(columns, cause=None):
             out[name] = value.materialize()
             names.append(name)
     if out is not None and cause is not None:
-        warn_once(cause, "pass-through column(s) %s inflated on host; "
-                  "the device inflate stage was bypassed at this seam",
-                  sorted(names))
+        degradation(cause, "pass-through column(s) %s inflated on host; "
+                    "the device inflate stage was bypassed at this seam", sorted(names))
     return columns if out is None else out
 
 
@@ -919,42 +904,54 @@ def shared_page_index():
             _page_index = PageIndexCache()
         return _page_index
 
-# -- counters --------------------------------------------------------------------------
+# -- metrics ---------------------------------------------------------------------------
+
+_default_counters = None
 
 
-class _Counter:
-    """A thread-safe running total (count or seconds)."""
+def pagedec_counters(registry=None):
+    """The ``ptpu_pagedec_*`` family, ``{name: metric}`` under the JAX package's names
+    (``inflate_seconds`` is a histogram, the rest counters). The default registry's
+    handle dict is memoized: the worker's per-read fallback path and the loader's
+    per-batch inflate stage would otherwise pay six locked lookups a call."""
+    from petastorm_tpu_torch.obs.metrics import default_registry
 
-    __slots__ = ("_lock", "value")
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.value = 0
-
-    def inc(self, amount=1):
-        with self._lock:
-            self.value += amount
-
-    def observe(self, seconds):
-        self.inc(seconds)
+    global _default_counters
+    if registry is None or registry is default_registry():
+        if _default_counters is None:
+            _default_counters = _build_counters(default_registry())
+        return _default_counters
+    return _build_counters(registry)
 
 
-_COUNTERS = {name: _Counter() for name in (
-    "pages",                 # compressed pages shipped through the pass-through path
-    "bytes_compressed",      # compressed page bytes handed to the device-bound transfer
-    "bytes_saved",           # raw-minus-compressed bytes kept off the host->device link
-    "fallback_columns",      # column reads that degraded to the classic host read
-    "host_inflate_columns",  # pass-through columns the loader inflated on the HOST
-    "inflate_seconds",       # the loader's inflate stage, seconds summed over batches
-)}
-
-
-def pagedec_counters():
-    """The process-wide pass-through counters, ``{name: counter}`` under the JAX
-    package's names; each counter has ``inc(n)`` and a ``value``."""
-    return _COUNTERS
+def _build_counters(reg):
+    return {
+        "pages": reg.counter(
+            "ptpu_pagedec_pages_total",
+            help="compressed pages shipped through the pass-through path"),
+        "bytes_compressed": reg.counter(
+            "ptpu_pagedec_bytes_compressed_total",
+            help="compressed page bytes handed to the device-bound transfer"),
+        "bytes_saved": reg.counter(
+            "ptpu_pagedec_bytes_saved_h2d_total",
+            help="raw-minus-compressed bytes the pass-through kept off the "
+                 "host->device link"),
+        "fallback_columns": reg.counter(
+            "ptpu_pagedec_fallback_columns_total",
+            help="column reads that degraded to the classic host-inflate path"),
+        "host_inflate_columns": reg.counter(
+            "ptpu_pagedec_host_inflate_columns_total",
+            help="pass-through columns the loader inflated on the HOST"),
+        "inflate_seconds": reg.histogram(
+            "ptpu_pagedec_inflate_seconds",
+            help="the loader's inflate stage, seconds a batch"),
+    }
 
 
 def counter_values():
-    """``{name: value}`` of every pass-through counter."""
-    return {name: c.value for name, c in _COUNTERS.items()}
+    """``{name: value}`` of every pass-through counter on the default registry (the
+    inflate histogram's value is its summed seconds)."""
+    out = {}
+    for name, metric in pagedec_counters().items():
+        out[name] = metric.sum if name == "inflate_seconds" else metric.value
+    return out

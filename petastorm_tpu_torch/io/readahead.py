@@ -11,10 +11,10 @@ blocking path, and a pool that fails to build degrades the worker to synchronous
 (degradation ``readahead_unavailable``).
 
 Failure semantics mirror the synchronous path exactly: a background read runs the
-worker's own synchronous read (the port has no transient-retry loop yet, ROADMAP.md
-Queue 1 item 8, so each read runs once in the background as in the foreground), and a
-read that failed re-raises the same exception from :meth:`ReadaheadPool.get`: readahead
-grants no retry the synchronous path lacks. Only cancelled entries (pool shutdown
+worker's own synchronous read, transient-IO retry loop included
+(:class:`~petastorm_tpu_torch.recovery.RecoveryOptions`), and a read that exhausted its
+retries re-raises the same exception from :meth:`ReadaheadPool.get`: readahead grants no
+retry budget the synchronous path lacks, and the foreground spends none on top. Only cancelled entries (pool shutdown
 mid-read) and a read still pending after ``wait_timeout_s`` fall back to a synchronous
 read (degradation ``readahead_fallback``).
 
@@ -22,9 +22,12 @@ Bounds: at most ``depth`` background reads pending, completed-but-unclaimed tabl
 evicted oldest first past ``byte_budget``, and completed entries capped in number (a
 stolen item's prefetched table, or a failed read nobody claims, ages out).
 
-The JAX package's registry families (``ptpu_io_*``), trace spans, health heartbeats,
-chaos site and live ``apply_*`` knobs are ROADMAP.md Queue 1 item 8; the port's counts
-are per pool, read through :meth:`ReadaheadPool.stats`.
+Each background read is the chaos site ``io.readahead`` and, with a
+:class:`~petastorm_tpu_torch.trace.TraceRecorder` attached (:meth:`ReadaheadPool.set_trace`),
+an ``io.readahead`` span; a foreground wait on an in-flight read is an ``io.wait`` span.
+The JAX package's registry families (``ptpu_io_*``) and health heartbeats are ROADMAP.md
+Queue 1 item 8b, its live ``apply_*`` knobs item 8c; the port's counts are per pool,
+read through :meth:`ReadaheadPool.stats`.
 """
 from __future__ import annotations
 
@@ -135,7 +138,7 @@ class _Entry:
 
 def request_key(piece, columns):
     """Identity of one background read: file, row group, the piece's generation token
-    (None in the port: dataset watching is ROADMAP.md item 8) and the exact column
+    (None in the port: dataset watching is ROADMAP.md item 8c) and the exact column
     selection (``None`` = all columns)."""
     return (piece.path, piece.row_group, getattr(piece, "generation", None),
             None if columns is None else tuple(columns))
@@ -158,6 +161,7 @@ class ReadaheadPool:
         self._read_fn = read_fn
         self._read_run_fn = read_run_fn
         self._gap_ok = gap_ok
+        self._tracer = None
         self._depth = max(1, int(depth))
         # 0 or negative = no cap (the memcache_bytes=0 convention), not "hold nothing",
         # which would veto every schedule() while readahead reports itself on
@@ -263,10 +267,23 @@ class ReadaheadPool:
                 if self._active_reads == 0:
                     self._idle.set()
 
+    def set_trace(self, tracer):
+        """Attach a :class:`~petastorm_tpu_torch.trace.TraceRecorder`: background reads
+        record ``io.readahead`` spans, foreground waits on an in-flight read ``io.wait``
+        spans."""
+        self._tracer = tracer
+
     def _read_task_body(self, pieces, columns):
         t0 = time.perf_counter()
         tables = error = None
         try:
+            from petastorm_tpu_torch import chaos as _chaos
+
+            if _chaos.ACTIVE is not None:
+                _chaos.ACTIVE.hit(
+                    "io.readahead",
+                    key="%s:%s" % (pieces[0].path,
+                                   ",".join(str(p.row_group) for p in pieces)))
             if len(pieces) == 1:
                 tables = [self._read_fn(pieces[0], columns)]
             else:
@@ -282,6 +299,9 @@ class ReadaheadPool:
                 "foreground read will re-raise it", pieces[0].path,
                 [p.row_group for p in pieces], e)
         dur = time.perf_counter() - t0
+        tracer = self._tracer
+        if tracer is not None:
+            tracer.add("io.readahead", t0, dur)
         with self._lock:
             self._read_s_cum += dur
             if not self._closed:
@@ -343,6 +363,9 @@ class ReadaheadPool:
         t0 = time.perf_counter()
         completed = entry.event.wait(self._wait_timeout_s)
         wait = time.perf_counter() - t0
+        tracer = self._tracer
+        if tracer is not None and wait > 1e-6:
+            tracer.add("io.wait", t0, wait)
         with self._lock:
             self._wait_s_cum += wait
             self._entries.pop(key, None)

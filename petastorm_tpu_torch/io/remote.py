@@ -30,13 +30,14 @@ Every feature degrades: a failed engine build falls back to the classic ``Parque
 path (degradation ``remote_unavailable``), and a read the sparse file cannot serve goes
 to the store as one more ranged GET (``remote_sparse_fallbacks``; correct, just slower).
 The counts are per engine, read through :meth:`RemoteReadEngine.stats` under the JAX
-package's key names; its registry families, the ``io.remote`` span and chaos site and
-the per-tenant charges are ROADMAP.md Queue 1 item 8. :class:`RemoteIoOptions` and
+package's key names. Each GET attempt is the chaos site ``io.remote`` (key
+``<path>:<offset>+<length>#primary|hedge``); the registry families (``ptpu_io_*``) and
+the ``io.remote`` span are ROADMAP.md Queue 1 item 8b, the per-tenant charges item 8c.
+:class:`RemoteIoOptions` and
 :func:`fs_is_remote` carry the options and the auto probe.
 """
 from __future__ import annotations
 
-import math
 import os
 import threading
 import time
@@ -44,6 +45,7 @@ import weakref
 import zlib
 
 from petastorm_tpu_torch.io.coalesce import plan_byte_ranges
+from petastorm_tpu_torch.obs.metrics import Histogram
 
 #: pyarrow filesystem type_names that are NOT object stores (the auto probe)
 _LOCAL_TYPE_NAMES = frozenset({"local", "localfs", "mock", "subtree", "py::fsspec+file"})
@@ -232,14 +234,6 @@ def fs_is_remote(fs):
 _SIZE_CLASSES = ((64 << 10, "64KB"), (256 << 10, "256KB"), (1 << 20, "1MB"),
                  (4 << 20, "4MB"), (16 << 20, "16MB"))
 
-#: log-bucket resolution of the latency histograms: buckets a power of two (2**(1/4),
-#: ~19 % wide), the JAX package's metrics histogram's, so the same observations give
-#: the same hedge deadline
-_BUCKETS_PER_OCTAVE = 4
-_MANTISSA_BOUNDS = tuple(0.5 * 2 ** (k / _BUCKETS_PER_OCTAVE)
-                         for k in range(1, _BUCKETS_PER_OCTAVE + 1))
-
-
 def size_class(nbytes):
     """Log-spaced request-size bucket label (hedge deadlines are a size class's: a
     16 MB GET is not slow just because it takes longer than a 64 KB one)."""
@@ -249,78 +243,12 @@ def size_class(nbytes):
     return ">16MB"
 
 
-def _bucket_index(v):
-    """Log-bucket index of a positive value: ``i`` such that the bucket's upper bound is
-    ``2**(i / _BUCKETS_PER_OCTAVE)`` (frexp and mantissa thresholds, no logarithm)."""
-    m, e = math.frexp(v)
-    octave_base = (e - 1) * _BUCKETS_PER_OCTAVE
-    if m == 0.5:  # an exact power of two sits on its own bucket boundary
-        return octave_base
-    for step, bound in enumerate(_MANTISSA_BOUNDS, start=1):
-        if m <= bound:
-            return octave_base + step
-    return octave_base + _BUCKETS_PER_OCTAVE
-
-
-def _bucket_upper_bound(index):
-    return 2.0 ** (index / _BUCKETS_PER_OCTAVE)
-
-
-class _Histogram:
-    """Log-bucketed latency distribution: percentiles without storing samples. A
-    percentile is the matched bucket's upper bound (capped at the largest observation),
-    an over-estimate by at most one bucket width: the right bias for a tail deadline."""
-
-    __slots__ = ("_lock", "_buckets", "_zero", "_count", "_max")
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._buckets = {}  # bucket index -> count
-        self._zero = 0      # observations <= 0
-        self._count = 0
-        self._max = 0.0
-
-    def observe(self, v):
-        with self._lock:
-            self._count += 1
-            if v <= 0.0:
-                self._zero += 1
-                return
-            if v > self._max:
-                self._max = v
-            idx = _bucket_index(v)
-            self._buckets[idx] = self._buckets.get(idx, 0) + 1
-
-    def reset(self):
-        with self._lock:
-            self._buckets = {}
-            self._zero = 0
-            self._count = 0
-            self._max = 0.0
-
-    @property
-    def count(self):
-        with self._lock:
-            return self._count
-
-    def percentile(self, q):
-        """Upper bound of the bucket holding the ``q``-quantile; 0.0 when empty."""
-        with self._lock:
-            if self._count == 0:
-                return 0.0
-            target = q * self._count
-            cum = self._zero
-            if cum >= target:
-                return 0.0
-            for idx in sorted(self._buckets):
-                cum += self._buckets[idx]
-                if cum >= target:
-                    return min(_bucket_upper_bound(idx), self._max)
-            return self._max
-
-
 class LatencyModel:
-    """Per-(store, size class) GET latency histograms and the hedge deadline."""
+    """Per-(store, size class) GET latency histograms and the hedge deadline, on the
+    log-bucketed :class:`~petastorm_tpu_torch.obs.metrics.Histogram` (the JAX package's
+    primitive, so the same observations give the same deadline). The histograms stay
+    off the registry: the ``ptpu_io_remote_get_seconds`` family is ROADMAP.md Queue 1
+    item 8b."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -331,7 +259,7 @@ class LatencyModel:
         with self._lock:
             hist = self._hists.get(key)
             if hist is None:
-                hist = self._hists[key] = _Histogram()
+                hist = self._hists[key] = Histogram("ptpu_io_remote_get_seconds")
         return hist
 
     def observe(self, store, nbytes, seconds):
@@ -751,6 +679,7 @@ class RemoteReadEngine:
                 "remote engine shut down while fetching %s" % path))
 
     def _run_attempt(self, state, path, offset, length, role):
+        from petastorm_tpu_torch import chaos as _chaos
         from petastorm_tpu_torch.io.lease import Lease
 
         if role == "primary":
@@ -758,6 +687,9 @@ class RemoteReadEngine:
                 state.exec_start = time.monotonic()
             state.exec_started.set()
         try:
+            if _chaos.ACTIVE is not None:
+                _chaos.ACTIVE.hit("io.remote",
+                                  key="%s:%d+%d#%s" % (path, offset, length, role))
             t0 = time.perf_counter()
             data = self._fetch(path, offset, length)
             dur = time.perf_counter() - t0

@@ -12,7 +12,8 @@ ring when a CUDA event recorded after that copy has completed, so a slab is neve
 rewritten under an in-flight DMA (the event replaces the JAX package's
 ``jax.block_until_ready``).
 
-Degradations (never failures), counted in :data:`DEGRADATIONS` and logged once:
+Degradations (never failures), counted in :data:`DEGRADATIONS` and through the
+degradation log (``ptpu_degradations_total{cause=...}``, logged once):
 
 - ``staging_unpinned``: the slabs could not be page-locked; they stay pooled but pageable.
 - ``staging_oversized``: a request larger than a slab is copied on its own, unpooled.
@@ -20,12 +21,11 @@ Degradations (never failures), counted in :data:`DEGRADATIONS` and logged once:
 from __future__ import annotations
 
 import collections
-import logging
 import threading
 
 import numpy as np
 
-logger = logging.getLogger(__name__)
+from petastorm_tpu_torch.obs.log import degradation
 
 #: per-array offsets inside a slab are rounded up to this
 _STAGE_ALIGN = 256
@@ -37,10 +37,8 @@ _degradation_lock = threading.Lock()
 
 def _degrade(cause, msg, *args):
     with _degradation_lock:
-        first = DEGRADATIONS[cause] == 0
         DEGRADATIONS[cause] += 1
-    if first:
-        logger.warning("[%s] " + msg, cause, *args)
+    degradation(cause, msg, *args)
 
 
 def _torch_dtype(np_dtype):

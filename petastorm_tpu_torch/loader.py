@@ -42,9 +42,19 @@ key by the flat name.
 every epoch from it, one gather a batch; :func:`make_dataloader` is the one-call
 ``make_batch_reader`` + ``DataLoader``.
 
+``trace=`` (a :class:`~petastorm_tpu_torch.trace.TraceRecorder`) records one span a
+stage occurrence: ``reader.next``, ``batch.form`` and ``wait.host_queue_put`` on the
+producer thread, ``wait.host_queue``, ``decode.device_inflate``, ``decode.dispatch`` and
+``h2d.transfer`` on the transfer thread, ``wait.device_queue`` on the consumer; the
+reader's pool and readahead spans join them. A span is host wall time around the
+enqueue and launch of a stage's work: no span waits for the card.
+``metrics=`` (a :class:`~petastorm_tpu_torch.obs.metrics.MetricsRegistry`, or True for
+the process-wide one) adds the ``ptpu_pipeline_*`` and ``ptpu_wire_*`` families and a
+latency histogram a stage; :meth:`DataLoader.bottleneck_report` names the limiting side.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
-across devices, the trace, metrics, health, provenance, SLO, controller and tenant
-wiring.
+across devices (item 12); health, provenance and SLOs (item 8b); the controller and
+tenants (item 8c).
 """
 from __future__ import annotations
 
@@ -59,6 +69,7 @@ import time
 
 import numpy as np
 
+from petastorm_tpu_torch import chaos as _chaos
 from petastorm_tpu_torch._unported import not_ported, reject_unported
 from petastorm_tpu_torch.io.lease import attach_leases, count_copy, take_leases
 from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
@@ -153,6 +164,70 @@ class PipelineStats:
         self.shm_bytes = wire_stats.get("shm_bytes", 0)
         self.shm_fallbacks = wire_stats.get("shm_fallbacks", 0)
         self.shm_acquire_wait_s = wire_stats.get("shm_acquire_wait_s", 0.0)
+
+
+#: the stage keys of the loader's latency histograms; the trace span names map 1:1
+#: (reader.next -> read, batch.form -> batch, ...)
+_OBS_STAGES = ("read", "batch", "host_queue_put", "host_queue_wait", "decode",
+               "device_inflate", "h2d", "device_queue_wait")
+
+
+class _LoaderObs:
+    """Pre-resolved metric handles of one loader's hot path, built only for
+    ``DataLoader(metrics=...)`` (the disabled path is one ``is None`` check a site).
+
+    Holds one log-bucketed latency histogram a pipeline stage
+    (``ptpu_pipeline_stage_seconds{stage=...}``) and registers pull collectors: the
+    ``PipelineStats`` totals and the live queue depths as ``ptpu_pipeline_*``, and the
+    reader's ``wire_stats()`` as ``ptpu_wire_*``. One metrics-enabled loader a registry
+    at a time: the families carry no per-loader label.
+
+    The loader and its reader are held through WEAK references: a caller that skips the
+    context-manager teardown leaves collectors that go quiet once the loader is
+    collected, instead of pinning it or freezing its last gauges into every snapshot.
+    The reader's ``io_stats()`` families (``ptpu_io_*``) are ROADMAP.md Queue 1 item 8b.
+    """
+
+    def __init__(self, registry, loader):
+        import weakref
+
+        self.registry = registry
+        self._hists = {
+            stage: registry.histogram(
+                "ptpu_pipeline_stage_seconds",
+                help="per-occurrence pipeline stage latency (seconds)", stage=stage)
+            for stage in _OBS_STAGES}
+        self._handles = [registry.register_collector("pipeline", self._collect_pipeline)]
+        self._loader_ref = weakref.ref(loader)
+        wire_stats_fn = getattr(loader.reader, "wire_stats", None)
+        if wire_stats_fn is not None:
+            wire_ref = weakref.WeakMethod(wire_stats_fn)
+            self._handles.append(registry.register_collector(
+                "wire", lambda: (wire_ref() or dict)()))
+
+    def observe(self, stage, dur):
+        self._hists[stage].observe(dur)
+
+    def stage_histograms(self):
+        return dict(self._hists)
+
+    def _collect_pipeline(self):
+        loader = self._loader_ref()
+        if loader is None:
+            return {}
+        out = dict(loader.stats.snapshot())
+        q = loader._queue
+        dq = loader._dev_queue
+        out["host_queue_depth"] = q.qsize() if q is not None else 0
+        out["device_queue_depth"] = dq.qsize() if dq is not None else 0
+        return out
+
+    def close(self):
+        """Unregister the pull collectors (loader ``__exit__``): a torn-down pipeline
+        stops contributing stale families; the histograms stay readable."""
+        handles, self._handles = self._handles, []
+        for handle in handles:
+            self.registry.unregister_collector(handle)
 
 
 def _is_device_dtype(arr):
@@ -599,6 +674,12 @@ class DataLoader:
         decorrelation window of about the capacity, one gather and one scatter a column a
         batch). Requires ``to_device=True`` and every delivered column on the device (no
         strings). Seeded from ``seed``.
+    trace : petastorm_tpu_torch.trace.TraceRecorder, optional
+        Records a span for every stage occurrence (see the module docstring), and is
+        handed to the reader (``Reader.set_trace``).
+    metrics : MetricsRegistry or True, optional
+        Stage latency histograms and the pipeline's gauges on this registry (True: the
+        process-wide one); collectors unregister at ``__exit__``.
     device : torch.device or str, optional, keyword only
         Where batches land (and where staged fields decode). Default: the CUDA device
         (raises when there is none).
@@ -615,8 +696,8 @@ class DataLoader:
                  metrics=None, health=None, staging=None, provenance=None,
                  slos=None, controller=None, tenant=None, *, device=None):
         reject_unported(
-            "DataLoader", sharding=sharding, trace=trace, metrics=metrics, health=health,
-            provenance=provenance, slos=slos, controller=controller, tenant=tenant)
+            "DataLoader", sharding=sharding, health=health, provenance=provenance,
+            slos=slos, controller=controller, tenant=tenant)
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if last_batch not in ("drop", "pad", "partial"):
@@ -674,6 +755,18 @@ class DataLoader:
         #: stop the pipeline a newer __iter__ armed
         self._generation = 0
         self.stats = PipelineStats()
+        #: span recorder (None: disabled, one check a stage site)
+        self._trace = trace
+        if trace is not None and hasattr(reader, "set_trace"):
+            reader.set_trace(trace)
+        #: stage histograms and pull collectors (None: disabled)
+        self._obs = None
+        if metrics:
+            from petastorm_tpu_torch.obs.metrics import MetricsRegistry, default_registry
+
+            registry = metrics if isinstance(metrics, MetricsRegistry) \
+                else default_registry()
+            self._obs = _LoaderObs(registry, self)
         # consumer-watermark checkpointing (see state_dict): the producer logs
         # (cumulative delivered rows, reader state) at its deliveries, the consumer counts
         # the rows it has taken, and state_dict() returns the newest logged state the
@@ -686,6 +779,17 @@ class DataLoader:
         self._ckpt_log = collections.deque()
         self._ckpt_base = None
         self._rows_consumed = 0
+
+    def _timed(self, span, stage, t0):
+        """Seconds since ``t0``, recorded as a ``span`` in the trace and as a ``stage``
+        observation in the metrics when either is on (host time only: nothing here
+        waits for the card)."""
+        dt = time.perf_counter() - t0
+        if self._trace is not None:
+            self._trace.add(span, t0, dt)
+        if self._obs is not None:
+            self._obs.observe(stage, dt)
+        return dt
 
     # -- producer (background thread: reader → host batches) ---------------------------
 
@@ -723,7 +827,7 @@ class DataLoader:
             while True:
                 t0 = time.perf_counter()
                 item = next(it, _SENTINEL)
-                stats.read_s += time.perf_counter() - t0
+                stats.read_s += self._timed("reader.next", "read", t0)
                 if wire_stats is not None:
                     stats.update_wire(wire_stats())
                 if item is _SENTINEL:
@@ -762,7 +866,7 @@ class DataLoader:
                                 if hasattr(v, "detach"):
                                     col[i] = v.detach()
                 ready = batcher.add(columns, lease)
-                stats.batch_s += time.perf_counter() - t0
+                stats.batch_s += self._timed("batch.form", "batch", t0)
                 if self._ckpt_enabled:
                     ckpt_cum += _batch_row_count(columns)
                     # snapshots at delivery boundaries (a batched reader's items are row
@@ -801,7 +905,8 @@ class DataLoader:
                 batch = self._pad(batch)
             t0 = time.perf_counter()
             ok = _put_with_stop(q, batch, self._stop)
-            self.stats.put_wait_s += time.perf_counter() - t0
+            self.stats.put_wait_s += self._timed("wait.host_queue_put", "host_queue_put",
+                                                 t0)
             if not ok:
                 for b in batches[i:]:
                     _release_leases(b)
@@ -872,7 +977,7 @@ class DataLoader:
         while True:
             t0 = time.perf_counter()
             item = q.get()
-            stats.queue_wait_s += time.perf_counter() - t0
+            stats.queue_wait_s += self._timed("wait.host_queue", "host_queue_wait", t0)
             if item is _SENTINEL:
                 if self._producer_error is not None:
                     raise self._producer_error
@@ -944,6 +1049,8 @@ class DataLoader:
 
         counters = pagedec_counters()
         t0 = time.perf_counter()
+        if _chaos.ACTIVE is not None:
+            _chaos.ACTIVE.hit("decode.device_inflate")
         use_device = self.device.type == "cuda" \
             or os.environ.get("PTPU_PAGEDEC_DEVICE", "") not in ("", "0")
         batch = dict(batch)
@@ -972,7 +1079,7 @@ class DataLoader:
                 raise pk.KernelFaultError(
                     "column %r: the device inflate rejected pages that the host twin "
                     "decodes (%s)" % (e.column, e)) from e
-        dt = time.perf_counter() - t0
+        dt = self._timed("decode.device_inflate", "device_inflate", t0)
         counters["inflate_seconds"].observe(dt)
         self.stats.inflate_s += dt
         return batch, inflated
@@ -986,7 +1093,7 @@ class DataLoader:
         batch, inflated = self._inflate_passthrough(batch)
         t0 = time.perf_counter()
         batch, decoded = self._decode_staged(batch)
-        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.decode_s += self._timed("decode.dispatch", "decode", t0)
         t0 = time.perf_counter()
         device = {k: v for k, v in batch.items() if _is_device_dtype(v)}
         host = {k: v for k, v in batch.items() if k not in device}
@@ -1009,7 +1116,7 @@ class DataLoader:
         arrays = dict(zip(names, tensors))
         arrays.update(decoded)
         arrays.update(inflated)
-        self.stats.h2d_s += time.perf_counter() - t0
+        self.stats.h2d_s += self._timed("h2d.transfer", "h2d", t0)
         return arrays, host
 
     def _apply_device_transform(self, arrays):
@@ -1195,7 +1302,8 @@ class DataLoader:
                         if t_thread is None or not t_thread.is_alive():
                             item = _SENTINEL
                             break
-                stats.device_queue_wait_s += time.perf_counter() - t0
+                stats.device_queue_wait_s += self._timed("wait.device_queue",
+                                                         "device_queue_wait", t0)
                 if item is _SENTINEL:
                     finished = True
                     if transfer_error:
@@ -1265,6 +1373,25 @@ class DataLoader:
         """Restore into the underlying reader (before iterating)."""
         self.reader.load_state_dict(state)
 
+    # -- failure handling and its record ------------------------------------------------
+
+    @property
+    def quarantine_report(self):
+        """The reader's :class:`~petastorm_tpu_torch.recovery.QuarantineReport` (every
+        row group skipped under ``on_poison="quarantine"``); None for a reader without
+        one."""
+        return getattr(self.reader, "quarantine_report", None)
+
+    def bottleneck_report(self):
+        """Name the limiting side of the pipeline from the stage counters: a
+        :class:`~petastorm_tpu_torch.obs.analyze.BottleneckReport` with verdict
+        ``producer-bound``, ``wire-bound``, ``consumer-bound``, ``balanced`` or ``idle``
+        and the utilization of each side (p50/p90/p99 of each stage attached when the
+        loader was built with ``metrics=``). Reads the current ``stats`` window."""
+        from petastorm_tpu_torch.obs.analyze import analyze_loader
+
+        return analyze_loader(self)
+
     # -- lifecycle ----------------------------------------------------------------------
 
     def stop(self):
@@ -1309,6 +1436,8 @@ class DataLoader:
         for pool in (self._staging, self._page_staging):
             if pool is not None:
                 pool.close()
+        if self._obs is not None:
+            self._obs.close()
 
 
 def _process_group():
@@ -1367,6 +1496,9 @@ class InMemDataLoader:
         ``(seed + 1, step)``, ``step`` the batch's position in the whole stream, so a
         resumed stream draws what the uninterrupted one would.
     device_decode_resize : see :class:`DataLoader` (applies to the fill).
+    trace : petastorm_tpu_torch.trace.TraceRecorder, optional
+        The fill's pipeline spans (through its :class:`DataLoader`) and one
+        ``inmem.gather`` span a served batch (the gather, enqueued on the device).
     device : torch.device or str, optional, keyword only
         Where the store lives. Default: the CUDA device (raises when there is none).
     """
@@ -1376,7 +1508,7 @@ class InMemDataLoader:
                  device_decode_resize=None, trace=None, *, device=None):
         import torch
 
-        reject_unported("InMemDataLoader", sharding=sharding, trace=trace)
+        reject_unported("InMemDataLoader", sharding=sharding)
         if last_batch not in ("drop", "partial"):
             raise ValueError("last_batch must be drop|partial, got %r" % last_batch)
         _rank, world = _process_group()
@@ -1390,6 +1522,7 @@ class InMemDataLoader:
         self.last_batch = last_batch
         self._seed = int(seed)
         self._device_transform = device_transform
+        self._trace = trace
         plan = getattr(reader, "_plan", None)
         if plan is not None and getattr(plan, "_num_epochs", 1) is None:
             raise ValueError(
@@ -1399,7 +1532,7 @@ class InMemDataLoader:
         chunks = []
         dropped = set()
         with DataLoader(reader, self.batch_size, last_batch="partial", prefetch=2,
-                        device_decode_resize=device_decode_resize,
+                        device_decode_resize=device_decode_resize, trace=trace,
                         device=self.device) as fill:
             for batch in fill:
                 kept = {}
@@ -1503,8 +1636,11 @@ class InMemDataLoader:
                 n = min(self.batch_size, self.rows - start)
                 if n < self.batch_size and self.last_batch == "drop":
                     break
+                t_g = time.perf_counter()
                 idx = perm[start:start + n]
                 batch = {k: v.index_select(0, idx) for k, v in self._store.items()}
+                if self._trace is not None:
+                    self._trace.add("inmem.gather", t_g, time.perf_counter() - t_g)
                 # the step is position-derived, so a resumed stream seeds the same
                 # generators an uninterrupted one would
                 batch = self._apply_transform(batch, epoch * per_epoch + bidx, takes_gen)

@@ -32,35 +32,18 @@ import threading
 import time
 import weakref
 
+from petastorm_tpu_torch.obs import log as _log
+
 logger = logging.getLogger(__name__)
 
 #: /dev/shm segment name prefix of the port's slabs
 SEGMENT_PREFIX = "ptpu_torch_shm_"
 
 _supported_cache = None
-_warned = set()
-_warned_lock = threading.Lock()
-#: degradations this process took: {name: count}
-_degradations = {}
-
-
-def degradation(name, msg, *args, once=True):
-    """Count degradation ``name`` and log it (a warning the first time, then debug when
-    ``once``)."""
-    with _warned_lock:
-        _degradations[name] = _degradations.get(name, 0) + 1
-        first = name not in _warned
-        _warned.add(name)
-    if first or not once:
-        logger.warning(msg, *args)
-    else:
-        logger.debug(msg, *args)
-
-
-def degradation_counts():
-    """``{name: times}`` of the wire degradations this process took."""
-    with _warned_lock:
-        return dict(_degradations)
+#: the degradation log (``ptpu_degradations_total{cause=...}``); importable from here as
+#: before, for the modules and tests that took it from the wire
+degradation = _log.degradation
+degradation_counts = _log.degradation_counts
 
 
 def _noop():
@@ -186,6 +169,8 @@ class SlabRing:
         #: slab id -> weakref to the view-mode Lease issued over it (reclaim() revokes
         #: it rather than re-granting a slab a consumer still views)
         self._leases = {}
+        #: a TraceRecorder that receives ``shm.acquire_wait`` spans (set_trace)
+        self._trace = None
         self._grants = 0
         self._items = 0
         self._bytes_through = 0
@@ -212,7 +197,15 @@ class SlabRing:
             if slab_id is not None:
                 self._grants += 1
                 self._granted.add(slab_id)
+        trace = self._trace
+        if trace is not None and waited > 1e-4:
+            trace.add("shm.acquire_wait", t0, waited)
         return slab_id
+
+    def set_trace(self, trace):
+        """Record a ``shm.acquire_wait`` span for every acquire that waited (a feeder
+        starved for a free slab) into ``trace`` (None: stop)."""
+        self._trace = trace
 
     def release(self, slab_id):
         """Return a slab to the free list (no-op after close()). An id that is not

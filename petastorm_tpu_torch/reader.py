@@ -38,12 +38,22 @@ the workers, after the host transform: the per-row reader delivers ``{offset:
 namedtuple}`` windows, the batch reader flat ``{'offset/field': column}`` dicts, one row a
 window.
 
+Failure handling is the JAX package's (``recovery=``,
+:class:`~petastorm_tpu_torch.recovery.RecoveryOptions`): a transient read error
+(connection reset, timeout, a storage client's own exception) is retried ``io_retries``
+times with jittered exponential backoff, once for a read whether it runs in the
+foreground or in the readahead pool, and a poison row group is quarantined
+(``Reader.quarantine_report``) and charged to the consumed-work map. The chaos sites
+``reader.read``, ``reader.read_run`` and ``io.pagedec`` inject faults there
+(:mod:`petastorm_tpu_torch.chaos`).
+
 Options of the JAX package whose machinery is not ported raise ``NotImplementedError``
 naming their ROADMAP.md item (:mod:`petastorm_tpu_torch._unported`).
 """
 from __future__ import annotations
 
 import logging
+import random
 import re
 import threading
 import time
@@ -52,6 +62,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from petastorm_tpu_torch import chaos as _chaos
 from petastorm_tpu_torch._unported import reject_unported
 from petastorm_tpu_torch.cache import NullCache, make_cache
 from petastorm_tpu_torch.errors import DecodeFieldError, NoDataAvailableError
@@ -63,6 +74,9 @@ from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, lo
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 from petastorm_tpu_torch.ngram import NGram, form_ngram_columns
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
+from petastorm_tpu_torch.recovery import (QuarantinedItem, QuarantineEntry,
+                                          QuarantineReport, RecoveryOptions,
+                                          count_quarantined)
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.utils import decode_row, stack_as_column
@@ -135,6 +149,31 @@ def _pandas_transform(spec, columns):
     return out
 
 
+#: errors no retry can heal: the file is gone, unreadable, or the wrong kind of node
+_PERMANENT_IO_ERRORS = (FileNotFoundError, PermissionError, IsADirectoryError,
+                        NotADirectoryError, FileExistsError, InterruptedError)
+
+#: exception-module roots of the storage client stacks that fsspec-bridged filesystems
+#: raise through pyarrow (gcsfs, botocore, aiohttp, google.api_core, ...). Most of these
+#: are not OSErrors, so they are classified by origin: an error born in the storage
+#: layer is worth the bounded retries, and a permanent one just fails a little later.
+_TRANSIENT_ERROR_MODULES = frozenset(
+    ("gcsfs", "s3fs", "adlfs", "fsspec", "aiohttp", "aiobotocore", "botocore",
+     "urllib3", "requests", "google", "azure"))
+
+
+def _is_transient_io_error(exc):
+    """Retry-worthy? OSErrors are (less the permanent subclasses); anything a storage
+    client stack raised is; everything else (corrupt parquet as ``ArrowInvalid``, user
+    code errors) fails at once."""
+    if isinstance(exc, _PERMANENT_IO_ERRORS):
+        return False
+    if isinstance(exc, OSError):
+        return True
+    mod = (type(exc).__module__ or "").split(".")[0]
+    return mod in _TRANSIENT_ERROR_MODULES
+
+
 def _close_quietly(pf):
     """Close a cached ParquetFile for real: it wraps an already-open file
     (``_close_source=False``), so ``close()`` without ``force`` would leave the
@@ -163,7 +202,7 @@ class _WorkerBase:
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
                  transform_spec=None, predicate=None, filters=None,
                  shuffle_row_drop_partitions=1, seed=None, partition_info=None,
-                 cache=None, io_options=None):
+                 cache=None, io_options=None, recovery=None):
         self._fs = filesystem
         self._read_schema = read_schema  # fields to deliver
         self._stored_schema = stored_schema  # full stored schema (decode source of truth)
@@ -176,7 +215,10 @@ class _WorkerBase:
         self._partition_info = partition_info  # hive key=value layout (or None)
         self._cache = cache if cache is not None else NullCache()
         self._io_options = IoOptions.normalize(io_options)
+        #: transient-IO retry policy (io_retries, backoff, read deadline)
+        self._recovery = RecoveryOptions.normalize(recovery)
         self._local = threading.local()
+        self._io_tracer = None  # the readahead pool's TraceRecorder (set_trace)
         self._readahead = None  # built lazily, in each process, by the first prefetch
         self._io_closed = False  # latched by close(); reopen() re-arms (Reader.reset)
         self._readahead_unavailable = False  # this worker's pool failed to build
@@ -193,6 +235,7 @@ class _WorkerBase:
         state["_readahead_unavailable"] = False
         state["_remote"] = None
         state["_remote_unavailable"] = False
+        state["_io_tracer"] = None
         return state
 
     def __setstate__(self, state):
@@ -283,6 +326,8 @@ class _WorkerBase:
                             depth=opts.readahead_depth, byte_budget=opts.readahead_bytes,
                             io_threads=opts.io_threads, coalesce=opts.coalesce,
                             coalesce_max_run=opts.coalesce_max_run, gap_ok=gap_ok)
+                        if self._io_tracer is not None:
+                            pool.set_trace(self._io_tracer)
                     except Exception as e:  # noqa: BLE001 — degrade to sync reads
                         degradation("readahead_unavailable",
                                     "readahead pool construction failed (%s); reads "
@@ -395,6 +440,15 @@ class _WorkerBase:
         if engine is not None:
             engine.shutdown()
 
+    def set_trace(self, tracer):
+        """Attach a :class:`~petastorm_tpu_torch.trace.TraceRecorder` to this process's
+        readahead pool (``io.readahead`` and ``io.wait`` spans), now and when it is
+        built."""
+        self._io_tracer = tracer
+        pool = self._readahead
+        if pool is not None:
+            pool.set_trace(tracer)
+
     def reopen(self):
         """Re-arm the lazy readahead pool after :meth:`close` (``Reader.reset``)."""
         with _io_init_lock:
@@ -445,7 +499,60 @@ class _WorkerBase:
     def _read_columns_sync(self, piece, columns):
         """The blocking read of one row group's ``columns`` (those the file holds), with
         the piece's partition columns attached: through the ranged-GET engine on an
-        object store, else the thread's open ``ParquetFile``."""
+        object store, else the thread's open ``ParquetFile``; transient errors retried
+        (:meth:`_retry_io`). The readahead pool runs this same read in the background."""
+        return self._retry_io(
+            lambda: self._read_columns_once(piece, columns), piece.path,
+            "%s row group %d" % (piece.path, piece.row_group))
+
+    def _retry_io(self, fn, path, what):
+        """One copy of the transient-retry protocol, shared by the single and the
+        coalesced reads (the same budget either way): ``io_retries`` extra attempts
+        with jittered exponential backoff capped at ``io_retry_max_backoff_s``, within
+        ``read_deadline_s`` across all attempts when set, the file's open handle and
+        footer dropped between attempts. Every retry is a ``cause="io_retry"``
+        degradation; permanent errors raise at once."""
+        rec = self._recovery
+        attempt = 0
+        t_first = time.monotonic()
+        while True:
+            try:
+                return fn()
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not _is_transient_io_error(e) or attempt >= rec.io_retries:
+                    raise
+                if rec.read_deadline_s and \
+                        time.monotonic() - t_first >= rec.read_deadline_s:
+                    degradation(
+                        "io_retry", "read deadline (%.0fs) exhausted for %s after %d "
+                        "attempt(s); raising the last error", rec.read_deadline_s, what,
+                        attempt + 1)
+                    raise
+                self._evict_parquet_file(path)
+                delay = min(
+                    rec.io_retry_backoff_s * (2 ** attempt) * (0.5 + random.random()),
+                    rec.io_retry_max_backoff_s)
+                degradation("io_retry", "Transient IO error reading %s (%s); retry "
+                            "%d/%d in %.2fs", what, e, attempt + 1, rec.io_retries, delay)
+                time.sleep(delay)
+                attempt += 1
+
+    def _evict_parquet_file(self, path):
+        """Drop (and close) this thread's open handle of ``path`` and its shared footer
+        entry: a transient failure may leave the handle on a dead connection, and a
+        file replaced underneath must be planned again from its new footer."""
+        cache = getattr(self._local, "files", None) if self._local is not None else None
+        if cache is not None:
+            pf = cache.pop(path, None)
+            if pf is not None:
+                _close_quietly(pf)
+        footers = self._footer_cache()
+        if footers is not None:
+            footers.invalidate(path)
+
+    def _read_columns_once(self, piece, columns):
+        if _chaos.ACTIVE is not None:
+            _chaos.ACTIVE.hit("reader.read", key="%s:%s" % (piece.path, piece.row_group))
         engine = self._remote_engine(create=True)
         if engine is not None:
             # the engine drops the columns the file lacks against the footer it holds
@@ -460,9 +567,17 @@ class _WorkerBase:
     def _read_run(self, pieces, columns):
         """Coalesced ranged read: row groups of ONE file in a single ``read_row_groups``
         call, sliced back into one table a piece (zero-copy; the readahead pool's
-        ``read_run_fn``, equal to the single reads)."""
+        ``read_run_fn``, equal to the single reads), with the single read's retry."""
+        return self._retry_io(
+            lambda: self._read_run_once(pieces, columns), pieces[0].path,
+            "%s row groups %s" % (pieces[0].path, [p.row_group for p in pieces]))
+
+    def _read_run_once(self, pieces, columns):
         from petastorm_tpu_torch.io.coalesce import split_run_table
 
+        if _chaos.ACTIVE is not None:
+            _chaos.ACTIVE.hit("reader.read_run", key="%s:%s" % (
+                pieces[0].path, ",".join(str(p.row_group) for p in pieces)))
         row_groups = [p.row_group for p in pieces]
         engine = self._remote_engine(create=True)
         if engine is not None:
@@ -766,8 +881,10 @@ class ArrowWorker(_WorkerBase):
         the object-store planner splits the chunk's next fetch at them."""
         from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, build_chunk,
                                                     chunk_byte_range, pagedec_counters,
-                                                    shared_page_index, warn_once)
+                                                    shared_page_index)
 
+        if _chaos.ACTIVE is not None:
+            _chaos.ACTIVE.hit("io.pagedec", key="%s:%s" % (piece.path, piece.row_group))
         md = self._pagedec_footer(piece.path)
         if md is None:
             return {}
@@ -782,11 +899,11 @@ class ArrowWorker(_WorkerBase):
                 # mute the column for this file: re-fetching its raw span on every read
                 # just to decline again is pure overhead
                 self._pagedec_refused.add((piece.path, name))
-                warn_once("pagedec_ineligible",
-                          "column %r of %s degraded to the classic host-inflate path "
-                          "(%s); further per-column fallbacks are counted in "
-                          "pagedec_counters()['fallback_columns']", name, piece.path,
-                          reason)
+                degradation("pagedec_ineligible",
+                            "column %r of %s degraded to the classic host-inflate path "
+                            "(%s); further per-column fallbacks are counted in "
+                            "ptpu_pagedec_fallback_columns_total", name, piece.path,
+                            reason)
                 continue
             start, _length = chunk_byte_range(rgmd.column(col_idx))
             shared_page_index().put(
@@ -1074,6 +1191,11 @@ class Reader:
     ``'shm-arrow-view'``) a batch's arrays are read-only views into a pool slab, valid
     until the next ``__next__()`` or :meth:`release_batch`; a consumer that keeps them
     longer takes the batch's lease (:meth:`take_lease`) and releases it when done.
+
+    Under ``recovery=RecoveryOptions(on_poison="quarantine")`` a poison row group is
+    skipped: it is listed in :attr:`quarantine_report`, counted
+    (``ptpu_quarantined_{items,rows}_total``) and charged to the consumed-work map like
+    a delivery, so :meth:`state_dict` resumes without it and without losing anything.
     """
 
     def __init__(self, schema, worker, pieces, num_epochs=1, shuffle_row_groups=True,
@@ -1082,7 +1204,7 @@ class Reader:
                  reader_pool_type="thread", workers_count=4, results_queue_size=16,
                  is_batched_reader=False, results_timeout_s=300.0,
                  wire_serializer="pickle", worker_respawns=None, io_options=None,
-                 transport=None, ngram=None):
+                 transport=None, ngram=None, recovery=None, filesystem=None):
         self.schema = schema
         self._worker = worker
         self.is_batched_reader = is_batched_reader
@@ -1107,8 +1229,15 @@ class Reader:
             reader_pool_type=reader_pool_type, workers_count=workers_count,
             results_queue_size=results_queue_size, results_timeout_s=results_timeout_s,
             serializer=wire_serializer, worker_respawns=worker_respawns,
-            io_options=io_options, transport=transport)
+            io_options=io_options, recovery=recovery, transport=transport)
         self._executor = None
+        #: every plan item this reader quarantined (falsy while empty)
+        self.quarantine_report = QuarantineReport()
+        #: quarantined row groups whose footer could not be read (rows unknown, -1)
+        self._footer_unreadable = 0
+        self._fs = filesystem
+        #: a TraceRecorder the pool and the readahead pool record into (set_trace)
+        self._tracer = None
         #: lease of the current batch or row buffer on a view wire: held until the next
         #: fetch, release_batch() or take_lease()
         self._held_lease = None
@@ -1138,6 +1267,8 @@ class Reader:
     def _start(self):
         self._worker.reopen()  # a reset rebuilds the readahead pool lazily
         self._executor = make_executor(**self._pool_args)
+        if self._tracer is not None:
+            self._executor_set_trace(self._tracer)
         self._executor.start(_Tagged(self._worker), self._plan)
         self._results_iter = self._executor.results()
         self.stopped = False
@@ -1173,13 +1304,59 @@ class Reader:
         return h & 0xFFFFFFFF
 
     def _next_payload(self):
-        """The next ``(epoch, ordinal, payload)`` result of the pool."""
-        nxt = next(self._results_iter, None)
-        if nxt is None:
-            if not self._executor.truncated:
-                self.last_row_consumed = True
-            raise StopIteration
-        return nxt
+        """The next ``(epoch, ordinal, payload)`` result of the pool; quarantine markers
+        are absorbed on the way."""
+        while True:
+            nxt = next(self._results_iter, None)
+            if nxt is None:
+                if not self._executor.truncated:
+                    self.last_row_consumed = True
+                raise StopIteration
+            if isinstance(nxt, QuarantinedItem):
+                self._absorb_quarantine(nxt)
+                continue
+            return nxt
+
+    def _absorb_quarantine(self, marker):
+        """Absorb a :class:`~petastorm_tpu_torch.recovery.QuarantinedItem`: record it in
+        the report, count it, and charge it to the consumed-work map exactly like a
+        delivered item, so a checkpoint taken after the skip resumes without replaying
+        it and without losing anything else. The consumer never sees the marker."""
+        epoch, ordinal, inner = marker.item
+        piece = inner[0] if isinstance(inner, tuple) and inner else inner
+        path = getattr(piece, "path", repr(inner))
+        row_group = getattr(piece, "row_group", -1)
+        num_rows = getattr(piece, "num_rows", None)
+        if num_rows is None or num_rows < 0:
+            # the metadata fast path plans without footers: read the count now
+            num_rows = self._resolve_quarantined_rows(path, row_group)
+        self.quarantine_report.add(QuarantineEntry(
+            epoch, ordinal, path, row_group, num_rows, marker.error, marker.attempts,
+            marker.kind))
+        count_quarantined(num_rows)
+        degradation(
+            "quarantined", "poison item quarantined after %d attempt(s): %s row group %s "
+            "(epoch=%s ordinal=%s, %s); skipped and charged to the checkpoint "
+            "watermark, see Reader.quarantine_report", marker.attempts, path, row_group,
+            epoch, ordinal, marker.kind, once=False)
+        self._mark_consumed((epoch, ordinal))
+
+    def _resolve_quarantined_rows(self, path, row_group):
+        """The quarantined row group's row count from its footer (the shared footer
+        cache, usually already parsed), or -1 with a ``footer_unreadable`` degradation
+        when the footer cannot be read or lacks the group."""
+        try:
+            from petastorm_tpu_torch.io.footercache import shared_footer_cache
+
+            return shared_footer_cache().get(self._fs, path).row_group_rows[row_group]
+        except Exception as e:  # noqa: BLE001 — an unreadable or mismatched footer
+            self._footer_unreadable += 1
+            degradation(
+                "footer_unreadable", "quarantined %s row group %s has no readable footer "
+                "(%s): the skipped row count is unknown (-1 in the quarantine report; "
+                "see Reader.io_stats()['footer_unreadable'])", path, row_group, e,
+                once=False)
+            return -1
 
     def _next_row(self):
         while True:
@@ -1297,7 +1474,24 @@ class Reader:
         fn = getattr(self._executor, "child_io_stats", None)
         if fn is not None:
             out["children"] = fn()
+        if self._footer_unreadable:
+            out["footer_unreadable"] = self._footer_unreadable
         return out
+
+    def set_trace(self, tracer):
+        """Attach a :class:`~petastorm_tpu_torch.trace.TraceRecorder` to the pool (a
+        process pool merges its children's ``child.work``/``child.serialize`` spans and
+        records the slab ring's ``shm.acquire_wait``) and to the worker's readahead pool
+        (``io.readahead``, ``io.wait``). Survives :meth:`reset`; None detaches. The
+        DataLoader wires this from its ``trace=``."""
+        self._tracer = tracer
+        self._executor_set_trace(tracer)
+        self._worker.set_trace(tracer)
+
+    def _executor_set_trace(self, tracer):
+        fn = getattr(self._executor, "set_trace", None)
+        if fn is not None:
+            fn(tracer)
 
     @property
     def wire_views(self):
@@ -1557,9 +1751,19 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     wire they answer over: ``'pickle'`` (the default here) or ``'arrow'`` on the socket,
     ``'shm'`` or ``'shm-arrow'`` through shared-memory slabs (``PTPU_SHM_SLAB_BYTES``
     sizes a slab), and their ``-view`` forms, which deliver read-only views into the
-    slabs (see :class:`Reader`). ``worker_respawns`` bounds the respawns of dead children
-    (default 2, or ``PTPU_WORKER_RESPAWNS``). ``transport`` is ``'pipe'``; ``'tcp'`` is not
-    ported.
+    slabs (see :class:`Reader`). ``transport`` is ``'pipe'``; ``'tcp'`` is not ported.
+
+    Failure handling: ``recovery`` (:class:`~petastorm_tpu_torch.recovery.RecoveryOptions`
+    or a dict of its fields; defaults from the ``PTPU_IO_RETRIES``,
+    ``PTPU_IO_RETRY_BACKOFF_S``, ``PTPU_IO_RETRY_MAX_BACKOFF_S``, ``PTPU_READ_DEADLINE_S``,
+    ``PTPU_WORKER_RESPAWNS``, ``PTPU_ON_POISON`` and ``PTPU_POISON_ATTEMPTS``
+    environment variables). Transient read errors are retried ``io_retries`` extra
+    times (default 2) with jittered exponential backoff from ``io_retry_backoff_s``
+    (0.1 s); the process pool replaces a dead child up to ``worker_respawns`` times (2);
+    with ``on_poison="quarantine"`` a row group that fails ``poison_attempts`` times (2)
+    is skipped into ``Reader.quarantine_report`` instead of ending the read. The legacy
+    ``io_retries=``, ``io_retry_backoff_s=`` and ``worker_respawns=`` win over the struct
+    when given.
 
     Row selection: ``predicate`` (:mod:`petastorm_tpu_torch.predicates`) masks rows in
     the workers, reading its columns first and the others only where a row matches;
@@ -1592,9 +1796,10 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     through the ranged-GET engine (``io_options["remote"]``: parallel hedged GETs, footer
     GETs against the file's tail).
     """
-    reject_unported(
-        "make_reader", io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
-        recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
+    reject_unported("make_reader", provenance=provenance, watch=watch, tenant=tenant)
+    recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
+                                       io_retry_backoff_s=io_retry_backoff_s,
+                                       worker_respawns=worker_respawns)
     io_options = IoOptions.normalize(io_options)
     _host_arena_early(io_options)
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
@@ -1620,7 +1825,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
         fs, read_schema, stored_schema, device_fields, transform_spec, predicate=predicate,
         filters=filters, shuffle_row_drop_partitions=shuffle_row_drop_partitions,
         seed=seed if seed is not None else shard_seed, partition_info=partition_info,
-        cache=cache, io_options=io_options,
+        cache=cache, io_options=io_options, recovery=recovery,
         ngram=ngram, ngram_schema=final_schema if ngram is not None else None)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
@@ -1630,8 +1835,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
                results_queue_size=results_queue_size, is_batched_reader=False,
                results_timeout_s=results_timeout_s,
                wire_serializer=wire_serializer or "pickle",
-               worker_respawns=worker_respawns, io_options=io_options, transport=transport,
-               ngram=ngram)
+               worker_respawns=recovery.worker_respawns, io_options=io_options,
+               transport=transport, ngram=ngram, recovery=recovery, filesystem=fs)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r
@@ -1664,7 +1869,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     row group as a pandas DataFrame, and a declarative ``FeaturePipeline`` runs its fused
     numpy kernels on the columns.
 
-    The process pool's options are :func:`make_reader`'s; the default wire here is
+    The process pool's options and ``recovery`` are :func:`make_reader`'s (a poison row
+    group's quarantine entry counts its rows from the file's footer); the default wire
+    here is
     ``'arrow'``, and ``'shm'``/``'shm-view'`` mean ``'shm-arrow'``/``'shm-arrow-view'``.
 
     ``predicate``, ``filters`` and ``shuffle_row_drop_partitions``: see
@@ -1678,9 +1885,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     it reads classically (no pass-through) and refuses a ``predicate`` and
     ``decode_on_device``, as :func:`make_reader` does.
     """
-    reject_unported(
-        "make_batch_reader", io_retries=io_retries, io_retry_backoff_s=io_retry_backoff_s,
-        recovery=recovery, provenance=provenance, watch=watch, tenant=tenant)
+    reject_unported("make_batch_reader", provenance=provenance, watch=watch,
+                    tenant=tenant)
+    recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
+                                       io_retry_backoff_s=io_retry_backoff_s,
+                                       worker_respawns=worker_respawns)
     io_options = IoOptions.normalize(io_options)
     _host_arena_early(io_options)
     fs, path = get_filesystem_and_path_or_paths(
@@ -1710,7 +1919,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
         transform_spec=transform_spec, ngram=ngram, predicate=predicate, filters=filters,
         shuffle_row_drop_partitions=shuffle_row_drop_partitions,
         seed=seed if seed is not None else shard_seed, partition_info=partition_info,
-        cache=cache)
+        cache=cache, recovery=recovery)
     r = Reader(final_schema, worker, pieces, num_epochs=num_epochs,
                shuffle_row_groups=shuffle_row_groups, seed=seed, cur_shard=cur_shard,
                shard_count=shard_count, shard_seed=shard_seed,
@@ -1722,8 +1931,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                # inside the slabs
                wire_serializer={"shm": "shm-arrow", "shm-view": "shm-arrow-view"}.get(
                    wire_serializer, wire_serializer) or "arrow",
-               worker_respawns=worker_respawns, io_options=io_options, transport=transport,
-               ngram=ngram)
+               worker_respawns=recovery.worker_respawns, io_options=io_options,
+               transport=transport, ngram=ngram, recovery=recovery, filesystem=fs)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r

@@ -12,17 +12,27 @@ upcoming items of a child's claim ride with each item as its readahead hints.
 
 The process pool hands the host-wide cache arena's token to its children
 (:data:`petastorm_tpu_torch.io.arena.ENV_ATTACH` on the child environment): each child
-attaches at bootstrap and maps the parent's warm set. Not ported (each raises
-``NotImplementedError`` naming its ROADMAP.md item): the tcp transport (item 4(c));
-poison-item quarantine, the stall healer, health, control frames and the live fleet
-resize (item 8).
+attaches at bootstrap and maps the parent's warm set.
+
+Every pool runs the poison policy of :class:`~petastorm_tpu_torch.recovery.RecoveryOptions`
+(``recovery=``): with ``on_poison="quarantine"`` an item that fails ``poison_attempts``
+times (an exception, a child death, a wire payload that fails to decode) becomes a
+:class:`~petastorm_tpu_torch.recovery.QuarantinedItem` on the results stream instead of
+an error, and the Reader charges it to its consumed-work map. The chaos sites
+``worker.item`` (sync and thread pools), ``pool.dispatch``, ``pool.recv`` and
+``wire.decode`` (the process pool's feeders) and ``child.item`` (inside the child) are
+evaluated when a :class:`~petastorm_tpu_torch.chaos.FaultPlan` is armed. ``set_trace``
+merges the children's ``child.work``/``child.serialize`` spans and the slab ring's
+``shm.acquire_wait`` spans into a :class:`~petastorm_tpu_torch.trace.TraceRecorder`. Not
+ported (each raises ``NotImplementedError`` naming its ROADMAP.md item): the tcp
+transport (item 4(c)); the stall healer and health (item 8b); control frames and the
+live fleet resize (item 8c).
 
 Contract: ``executor.start(worker, plan)`` then iterate ``executor.results()``; exceptions
 in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference pool API.
 """
 from __future__ import annotations
 
-import logging
 import os
 import queue
 import sys
@@ -30,9 +40,9 @@ import threading
 import time
 from collections import deque
 
+from petastorm_tpu_torch import chaos as _chaos
 from petastorm_tpu_torch.errors import TimeoutWaitingForResultError, WorkerDiedError
-
-logger = logging.getLogger(__name__)
+from petastorm_tpu_torch.recovery import QuarantinedItem, RecoveryOptions
 
 _DONE = object()
 
@@ -128,20 +138,40 @@ def _iter_results(pool):
         deadline = time.monotonic() + pool._timeout
 
 
+def _run_item(worker, item, recovery):
+    """``worker(item)`` under the poison policy (the sync and thread pools): an item
+    that raises is tried again in place until ``poison_attempts`` failures make it a
+    :class:`QuarantinedItem`; without quarantine the first exception propagates."""
+    attempts = 0
+    while True:
+        try:
+            if _chaos.ACTIVE is not None:
+                _chaos.ACTIVE.hit("worker.item", key=_chaos.item_key(item))
+            return worker(item)
+        except Exception as e:  # noqa: BLE001 — classified by the policy
+            attempts += 1
+            if not recovery.quarantine:
+                raise
+            if attempts >= recovery.poison_attempts:
+                return QuarantinedItem(item, e, attempts)
+
+
 class SyncExecutor:
     """Synchronous in-process execution (reference DummyPool): deterministic, for tests.
 
     Readahead still applies (``lookahead > 0`` and a worker with ``prefetch``): the
     upcoming items come from ``plan.peek``, so the single consumer keeps its order while
-    the IO pool reads ahead of it."""
+    the IO pool reads ahead of it. Under ``on_poison="quarantine"`` a failing item is
+    tried again in place, up to ``poison_attempts`` times."""
 
     truncated = False
 
-    def __init__(self, lookahead=0):
+    def __init__(self, lookahead=0, recovery=None):
         self._worker = None
         self._plan = None
         self._stopped = False
         self._lookahead = max(0, int(lookahead))
+        self._recovery = RecoveryOptions.normalize(recovery)
 
     def start(self, worker, plan):
         self._worker = worker
@@ -160,7 +190,7 @@ class SyncExecutor:
                 upcoming = peek(self._lookahead)
                 if upcoming:
                     prefetch(upcoming)
-            yield self._worker(item)
+            yield _run_item(self._worker, item, self._recovery)
 
     def stop(self):
         self._stopped = True
@@ -176,7 +206,7 @@ class ThreadExecutor:
     backpressure."""
 
     def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
-                 lookahead=0, work_stealing=True):
+                 lookahead=0, work_stealing=True, recovery=None):
         if workers_count < 1:
             raise ValueError("workers_count must be >= 1, got %r" % workers_count)
         self._workers_count = workers_count
@@ -184,6 +214,7 @@ class ThreadExecutor:
         self._timeout = results_timeout_s
         self._lookahead = max(0, int(lookahead))
         self._stealing = bool(work_stealing)
+        self._recovery = RecoveryOptions.normalize(recovery)
         self._dispatch = None
         self._threads = []
         self._results = None
@@ -218,7 +249,7 @@ class ThreadExecutor:
                 if prefetch is not None and upcoming:
                     prefetch(upcoming)  # never raises (degradation-counted)
                 try:
-                    result = worker(item)
+                    result = _run_item(worker, item, self._recovery)
                 except Exception as e:  # noqa: BLE001 — delivered to the consumer
                     self._put(_ExcResult(e))
                     break
@@ -263,8 +294,11 @@ class ThreadExecutor:
         for t in self._threads:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
             if t.is_alive():
-                logger.warning("Worker thread %s still alive after %.0fs join (blocked in "
-                               "IO?); it exits at its next stop check", t.name, self._timeout)
+                from petastorm_tpu_torch.obs.log import degradation
+
+                degradation("thread_join_timeout", "Worker thread %s still alive after "
+                            "%.0fs join (blocked in IO?); it exits at its next stop check",
+                            t.name, self._timeout, once=False)
         self._threads = []
 
 
@@ -317,15 +351,25 @@ class ProcessExecutor:
     warning. ``join()`` unlinks every slab.
 
     A child that dies mid-item is replaced by a fresh one and its item dispatched again,
-    at most ``worker_respawns`` times a pool (default 2, or ``PTPU_WORKER_RESPAWNS``; 0
-    fails at the first death) before :class:`~petastorm_tpu_torch.errors.WorkerDiedError`
-    reaches the consumer. A child whose worker raises ships the exception, which reaches
-    the consumer like a thread pool's.
+    at most ``worker_respawns`` times a pool (``RecoveryOptions.worker_respawns``:
+    default 2, or ``PTPU_WORKER_RESPAWNS``; 0 fails at the first death) before
+    :class:`~petastorm_tpu_torch.errors.WorkerDiedError` reaches the consumer, with the
+    first death of the item as its ``original``. A child whose worker raises ships the
+    exception, which reaches the consumer like a thread pool's.
+
+    Under ``RecoveryOptions(on_poison="quarantine")`` the failures of one item are
+    counted across respawns: an exception from the child is retried on the same live
+    child, a result whose wire payload fails to decode (corrupt bytes, a bad
+    descriptor) is dispatched again on the same live child (``kind="wire_decode"``),
+    and a child death charges the respawn budget until the death that reaches
+    ``poison_attempts`` quarantines the item (``kind="child_death"``) and respawns
+    without charging it: the item will not be tried again, so it cannot crash-loop.
+    A quarantined item travels as a :class:`QuarantinedItem` on the results stream.
     """
 
     def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
                  serializer="pickle", worker_respawns=None, shm_slab_bytes=None,
-                 shm_slabs=None, lookahead=0, work_stealing=True):
+                 shm_slabs=None, lookahead=0, work_stealing=True, recovery=None):
         from petastorm_tpu_torch.serializers import make_serializer
 
         if workers_count < 1:
@@ -346,8 +390,11 @@ class ProcessExecutor:
         self._child_io = {}
         self._ring = None
         self._shm_unavailable = False
+        self._recovery = RecoveryOptions.normalize(recovery)
         self._respawn_budget = int(worker_respawns) if worker_respawns is not None \
-            else max(0, int(os.environ.get("PTPU_WORKER_RESPAWNS", "") or 2))
+            else self._recovery.worker_respawns
+        #: a TraceRecorder the children's per-item spans merge into (set_trace)
+        self._tracer = None
         self._procs = []
         self._conns = []
         self._threads = []
@@ -455,6 +502,7 @@ class ProcessExecutor:
             self._serializer = self._serializer.inner
             return
         self._serializer.bind_ring(ring)
+        ring.set_trace(self._tracer)
         with self._respawn_lock:
             self._ring = ring
 
@@ -606,15 +654,20 @@ class ProcessExecutor:
         finally:
             listener.close()
 
-    def _respawn(self, err):
+    def _respawn(self, err, charged=True):
         """A replacement connection for a dead child, or None when the budget is spent,
-        the pool is stopping, or the spawn fails."""
+        the pool is stopping, or the spawn fails. ``charged=False`` is the quarantine
+        path: the dead child's item reached the poison threshold and is skipped, so the
+        respawn only restores the pool's capacity and costs no budget."""
         from petastorm_tpu_torch.parallel.shm_ring import degradation
 
         with self._respawn_lock:
-            if self._stop_event.is_set() or self._respawn_budget <= 0:
+            if self._stop_event.is_set():
                 return None
-            self._respawn_budget -= 1
+            if charged:
+                if self._respawn_budget <= 0:
+                    return None
+                self._respawn_budget -= 1
             budget_left = self._respawn_budget
         try:
             conn = self._spawn_one()
@@ -623,9 +676,10 @@ class ProcessExecutor:
             return None
         with self._stats_lock:
             self._pool_stats["respawns"] += 1
-        degradation("worker_died", "Pool worker died (%s); respawned a replacement and "
-                    "dispatching its item again (respawn budget left: %d)", err,
-                    budget_left, once=False)
+        degradation("worker_died", "Pool worker died (%s); respawned a replacement, "
+                    "its item %s (respawn budget left: %d)", err,
+                    "dispatched again" if charged else "quarantined", budget_left,
+                    once=False)
         return conn
 
     # -- the feeders -------------------------------------------------------------------
@@ -647,6 +701,8 @@ class ProcessExecutor:
 
     def _recv_result(self, conn):
         """The next result header, in a poll loop that gives up once the pool stops."""
+        if _chaos.ACTIVE is not None:
+            _chaos.ACTIVE.hit("pool.recv")
         while not conn.poll(0.2):
             if self._stop_event.is_set():
                 raise EOFError("pool stopping while awaiting a child result")
@@ -659,6 +715,7 @@ class ProcessExecutor:
         # be mid-item (the ring stays safe to call; close() makes release a no-op)
         ring = self._ring
         slab_wait_s = 0.0 if self.wire_views else 2.0
+        recovery = self._recovery
         seen = 0
         first = True  # this child's first item (its imports and file opens included)
         fatal = False
@@ -669,8 +726,8 @@ class ProcessExecutor:
                     break
                 item, upcoming = claim
                 hints = list(upcoming)  # the child prefetches these before the item
+                attempts = 0  # failures of this item, across respawns
                 first_death = None
-                deaths = 0
                 while True:  # attempts: a dead child's item goes to its replacement
                     slab = None
                     if ring is not None:
@@ -678,6 +735,8 @@ class ProcessExecutor:
                         if slab is None:  # ring empty: this item takes the socket
                             ring.count_fallback()
                     try:
+                        if _chaos.ACTIVE is not None:
+                            _chaos.ACTIVE.hit("pool.dispatch", key=_chaos.item_key(item))
                         settings, seen = self._pending_settings(seen)
                         conn.send((slab, item, hints, settings) if ring is not None
                                   else (item, hints, settings))
@@ -685,13 +744,21 @@ class ProcessExecutor:
                         if header[0] == "exc":
                             if slab is not None:
                                 ring.release(slab)
-                            self._put(_ExcResult(header[1]))
-                            fatal = True
+                            attempts += 1
+                            verdict = self._failed_attempt(item, header[1], attempts)
+                            if verdict == "retry":
+                                continue  # again, on the same live child
+                            fatal = verdict == "fatal"
                             break
-                        _, kind, nframes, timing, io = header
+                        _, kind, nframes, timing, io, spans = header
                         if io:
                             with self._stats_lock:
                                 self._child_io[idx] = io
+                        tracer = self._tracer
+                        if tracer is not None and spans is not None:
+                            # (pid, wall anchor, perf anchor, spans): onto this
+                            # recorder's timeline, on the child's pid lane
+                            tracer.add_child(spans[0], spans[3], spans[1], spans[2])
                         frames = [conn.recv_bytes() for _ in range(nframes)]
                         if slab is not None and kind != KIND_SHM:
                             # granted but unused (a payload larger than a slab)
@@ -703,13 +770,23 @@ class ProcessExecutor:
                         # cleared first so no path here releases it twice
                         granted, slab = slab, None
                         try:
+                            if _chaos.ACTIVE is not None:
+                                frames = _chaos.ACTIVE.hit(
+                                    "wire.decode", key=_chaos.item_key(item),
+                                    payload=frames)
                             result = self._serializer.deserialize(kind, frames)
-                        except Exception as e:  # noqa: BLE001 — delivered to the consumer
+                        except Exception as e:  # noqa: BLE001 — classified by the policy
                             if granted is not None and not getattr(e, "slab_released",
                                                                    True):
                                 ring.release(granted)
-                            self._put(_ExcResult(e))
-                            fatal = True
+                            # the child is alive and the socket intact: a payload that
+                            # fails to decode is a failed attempt, never a child death
+                            attempts += 1
+                            verdict = self._failed_attempt(item, e, attempts,
+                                                           kind="wire_decode")
+                            if verdict == "retry":
+                                continue  # dispatch again, on the same live child
+                            fatal = verdict == "fatal"
                             break
                     except _CHILD_GONE as e:
                         if slab is not None:
@@ -717,16 +794,23 @@ class ProcessExecutor:
                         if self._stop_event.is_set():
                             fatal = True  # teardown, not a child failure
                             break
-                        deaths += 1
+                        attempts += 1
                         first_death = first_death or e
-                        replacement = self._respawn(e)
+                        # the death that reaches the threshold quarantines the item and
+                        # respawns uncharged; earlier deaths charge the budget
+                        poison = recovery.quarantine \
+                            and attempts >= recovery.poison_attempts
+                        replacement = self._respawn(e, charged=not poison)
+                        if poison:
+                            self._put(QuarantinedItem(item, e, attempts,
+                                                      kind="child_death"))
                         if replacement is None:
                             if not self._stop_event.is_set():
                                 self._put(_ExcResult(WorkerDiedError(
                                     "worker process died%s and no replacement could be "
                                     "spawned (respawn budget exhausted, or the spawn "
-                                    "failed): %s" % (" %d times on one item" % deaths
-                                                     if deaths > 1 else "", first_death),
+                                    "failed): %s" % (" %d times on one item" % attempts
+                                                     if attempts > 1 else "", first_death),
                                     original=first_death)))
                             fatal = True
                             break
@@ -737,6 +821,8 @@ class ProcessExecutor:
                         conn = replacement
                         seen = 0  # the fresh child gets the current settings again
                         first = True
+                        if poison:
+                            break  # quarantined: the fresh child takes the next item
                         continue
                     self._count_item(timing, first)
                     first = False
@@ -752,6 +838,18 @@ class ProcessExecutor:
                 last = self._active == 0
             if last:
                 self._put(_DONE)  # outside the lock
+
+    def _failed_attempt(self, item, error, attempts, kind="exception"):
+        """The poison policy on a failed attempt of ``item`` whose child lives on:
+        ``"fatal"`` (the error is on the results queue: no quarantine), ``"quarantined"``
+        (its marker is, after ``poison_attempts`` failures) or ``"retry"``."""
+        if not self._recovery.quarantine:
+            self._put(_ExcResult(error))
+            return "fatal"
+        if attempts >= self._recovery.poison_attempts:
+            self._put(QuarantinedItem(item, error, attempts, kind=kind))
+            return "quarantined"
+        return "retry"
 
     def _count_item(self, timing, first):
         with self._stats_lock:
@@ -777,6 +875,16 @@ class ProcessExecutor:
                     return
 
     # -- the consumer's side -----------------------------------------------------------
+
+    def set_trace(self, tracer):
+        """Merge the children's per-item spans (``child.work``, ``child.serialize``)
+        into ``tracer`` on one pid lane each, and record the slab ring's
+        ``shm.acquire_wait`` spans there (None: stop). Without a recorder the spans the
+        children send are dropped."""
+        self._tracer = tracer
+        ring = self._ring
+        if ring is not None:
+            ring.set_trace(tracer)
 
     def results(self):
         """Generator of worker results; raises worker exceptions (a dead child past the
@@ -888,27 +996,30 @@ def make_executor(reader_pool_type="thread", workers_count=4, results_queue_size
     or ``PTPU_TRANSPORT``); 'tcp' is not ported. ``io_options``
     (:class:`~petastorm_tpu_torch.io.IoOptions`) sets the dispatch side of the read
     path: each worker's claim beyond its current item (``lookahead``, the readahead
-    window) and work stealing. ``recovery`` is not ported.
+    window) and work stealing. ``recovery``
+    (:class:`~petastorm_tpu_torch.recovery.RecoveryOptions`, a dict of its fields, or
+    None for the environment's defaults) sets every pool's poison policy and the process
+    pool's respawn budget (an explicit ``worker_respawns`` wins).
     """
-    from petastorm_tpu_torch._unported import not_ported
     from petastorm_tpu_torch.io import IoOptions
     from petastorm_tpu_torch.transport import normalize_transport
 
     normalize_transport(transport)
     io_options = IoOptions.normalize(io_options)
-    if recovery is not None:
-        raise not_ported("make_executor(recovery=%r)" % (recovery,), "obs")
+    recovery = RecoveryOptions.normalize(recovery)
     lookahead = io_options.lookahead
     stealing = io_options.work_stealing
     if reader_pool_type in ("dummy", "sync"):
-        return SyncExecutor(lookahead=lookahead)
+        return SyncExecutor(lookahead=lookahead, recovery=recovery)
     if reader_pool_type == "thread":
         return ThreadExecutor(workers_count, results_queue_size, results_timeout_s,
-                              lookahead=lookahead, work_stealing=stealing)
+                              lookahead=lookahead, work_stealing=stealing,
+                              recovery=recovery)
     if reader_pool_type == "process":
         return ProcessExecutor(workers_count, results_queue_size, results_timeout_s,
                                serializer=serializer, worker_respawns=worker_respawns,
                                shm_slab_bytes=shm_slab_bytes, shm_slabs=shm_slabs,
-                               lookahead=lookahead, work_stealing=stealing)
+                               lookahead=lookahead, work_stealing=stealing,
+                               recovery=recovery)
     raise ValueError("Unknown reader_pool_type %r (expected 'thread', 'process' or "
                      "'dummy')" % reader_pool_type)

@@ -91,6 +91,10 @@ def slow_payload_worker(i):
     return (0, i, {"x": np.full((50_000,), i, np.int32)})
 
 
+def negate(x):
+    return -x
+
+
 def failing_worker(i):
     if i == 3:
         raise ValueError("item 3 is bad")

@@ -5,9 +5,10 @@ the tiered funnel), the ``PTPU_ARENA=off`` kill switch, dead-holder reclaim, the
 process pool's children attaching, and the loader's exit drain.
 
 Every case of the JAX package's ``tests/test_arena.py`` has a counterpart here. Its two
-slow cases drive item 8's chaos plane (a child killed by a fault rule, quarantine); their
+slow cases drive the chaos plane (a child killed by a fault rule, quarantine); their
 port counterparts kill a holder process directly and read a pool from the arena with the
-store gone. The same scripted puts, gets and budget changes give both packages' arenas
+store gone, and ``tests/test_torch_chaos.py`` kills a pool child reading through the
+arena by a fault rule. The same scripted puts, gets and budget changes give both packages' arenas
 the same hit, miss, admit and eviction counts. Every case leaves no segment of this
 process's arenas in ``/dev/shm``.
 """

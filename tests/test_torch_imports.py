@@ -37,7 +37,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     for name in ("transform", "ops.tabular", "ops.device_shuffle", "io.statscache",
                  "ngram", "weighted_sampling", "adapters.pytorch", "pytorch", "cache",
                  "io.coalesce", "io.readahead", "io.footercache", "io.memcache",
-                 "io.tiers", "io.remote", "io.latencyfs", "io.arena"):
+                 "io.tiers", "io.remote", "io.latencyfs", "io.arena", "chaos",
+                 "chaos.plan", "recovery", "trace", "obs", "obs.metrics", "obs.log",
+                 "obs.flight", "obs.analyze", "obs.export"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -97,10 +99,11 @@ def test_decode_without_device_raises_when_cuda_is_absent(monkeypatch):
         decode_jpeg_batch([planes])
 
 
-# pad_shapes is ported: its case holds the trace option, still refused
+# pad_shapes is ported, and so are trace and metrics (item 8a): their cases hold the
+# controller (item 8c) and the tenant (item 8c), still refused
 @pytest.mark.parametrize("kwargs", [
-    {"sharding": object()}, {"trace": True}, {"slos": object()},
-    {"metrics": True}, {"health": True}, {"provenance": True},
+    {"sharding": object()}, {"controller": object()}, {"slos": object()},
+    {"tenant": "team-a"}, {"health": True}, {"provenance": True},
 ])
 def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
     from petastorm_tpu_torch.loader import DataLoader
@@ -157,7 +160,9 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.cache", "petastorm_tpu_torch.io.coalesce",
     "petastorm_tpu_torch.io.readahead", "petastorm_tpu_torch.io.footercache",
     "petastorm_tpu_torch.io.memcache", "petastorm_tpu_torch.io.tiers",
-    "petastorm_tpu_torch.io.remote"])
+    "petastorm_tpu_torch.io.remote", "petastorm_tpu_torch.chaos",
+    "petastorm_tpu_torch.recovery", "petastorm_tpu_torch.trace",
+    "petastorm_tpu_torch.obs.log", "petastorm_tpu_torch.obs.export"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
@@ -260,8 +265,21 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
         assert got == [0, 1, 2, 3]
         assert stats["arena_entries"] >= 1 and stats["tier_remote_hits"] == 1
         return
-    item = {"io_retries": "item 8", "recovery": "item 8",
-            "watch": "item 8", "sharding": "item 12",
+    if case in ("io_retries", "recovery"):
+        # the recovery policy is ported (item 8a): both options are taken, with the
+        # JAX package's semantics (the legacy keyword wins over the struct)
+        kwargs = {"io_retries": {"io_retries": 2},
+                  "recovery": {"recovery": {"io_retries": 1, "on_poison": "quarantine"},
+                               "io_retries": 4}}[case]
+        with make_batch_reader(url, reader_pool_type="dummy", **kwargs) as r:
+            got = sorted(int(i) for b in r for i in np.asarray(b.id))
+            rec = r._worker._recovery
+            assert not r.quarantine_report
+        assert got == [0, 1, 2, 3]
+        assert rec.io_retries == {"io_retries": 2, "recovery": 4}[case]
+        assert rec.quarantine == (case == "recovery")
+        return
+    item = {"watch": "item 8c", "sharding": "item 12",
             "make_dataloader_sharding": "item 12"}[case]
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
         if case == "sharding":
@@ -269,9 +287,74 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
         elif case == "make_dataloader_sharding":
             make_dataloader(url, 4, sharding=object(), device="cpu")
         else:
-            make_batch_reader(url, **{"io_retries": {"io_retries": 2},
-                                      "recovery": {"recovery": {"io_retries": 1}},
-                                      "watch": {"watch": True}}[case])
+            make_batch_reader(url, watch=True)
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    ({"provenance": True}, "item 8b"), ({"health": True}, "item 8b"),
+    ({"slos": object()}, "item 8b"), ({"controller": object()}, "item 8c"),
+    ({"tenant": "team-a"}, "item 8c"),
+])
+def test_later_observability_slices_raise_naming_8b_or_8c(kwargs, item):
+    """What the health/provenance slice (8b) and the tenants/controller slice (8c) own
+    stays refused, each naming its slice."""
+    from petastorm_tpu_torch.loader import DataLoader
+
+    with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
+        DataLoader(object(), 4, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    ({"provenance": True}, "item 8b"), ({"watch": True}, "item 8c"),
+    ({"tenant": "team-a"}, "item 8c"),
+])
+def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwargs,
+                                                                  item):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_batch_reader, make_reader
+
+    pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
+    for factory in (make_batch_reader, make_reader):
+        with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
+            factory("file://" + str(tmp_path), **kwargs)
+
+
+@pytest.mark.parametrize("action,item", [
+    ("net.reset", r"item 4\(c\)"), ("net.partition", r"item 4\(c\)"),
+    ("remove_file", "item 8c"), ("append_piece", "item 8c"),
+])
+def test_chaos_actions_of_later_slices_raise_naming_them(action, item):
+    from petastorm_tpu_torch.chaos import FaultRule
+
+    with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
+        FaultRule("transport.send", action)
+
+
+def test_trace_and_metrics_are_taken_by_every_loader(tmp_path):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader, InMemDataLoader, make_dataloader
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+    from petastorm_tpu_torch.trace import TraceRecorder
+
+    pq.write_table(pa.table({"id": np.arange(8)}), str(tmp_path / "p.parquet"))
+    url = "file://" + str(tmp_path)
+    tracer, registry = TraceRecorder(), MetricsRegistry()
+    with DataLoader(make_batch_reader(url, reader_pool_type="dummy"), 4, device="cpu",
+                    trace=tracer, metrics=registry) as loader:
+        assert sum(1 for _ in loader) == 2
+        assert registry.snapshot()["ptpu_pipeline_batches"] == 2
+    with InMemDataLoader(make_batch_reader(url, reader_pool_type="dummy"), 4,
+                         device="cpu", trace=tracer) as loader:
+        assert sum(1 for _ in loader) == 2
+    with make_dataloader(url, 4, device="cpu", reader_pool_type="dummy",
+                         trace=tracer, metrics=MetricsRegistry()) as loader:
+        assert sum(1 for _ in loader) == 2
+    assert {"reader.next", "inmem.gather"} <= {e["name"] for e in tracer.events()}
 
 
 def test_transform_spec_and_device_shuffle_capacity_are_taken():

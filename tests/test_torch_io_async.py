@@ -14,7 +14,7 @@ Three kinds of case:
   equal per id, and the JPEG store's uint8 images bit-exact through the port's plain
   stage 2.
 
-The cases of ``test_io_async.py`` that need ROADMAP.md item 8 (the registry's
+The cases of ``test_io_async.py`` that need ROADMAP.md item 8b (the registry's
 ``ptpu_io_file_evictions_total``) have no port counterpart yet; ``gpu``-marked cases run
 the kernels on the card and skip here.
 """

@@ -130,7 +130,10 @@ def test_classifier_gates_equal_reference(codec):
         a, b = pd.classify_chunk(md, 0, c), ref_pd.classify_chunk(md, 0, c)
         assert (a.eligible, a.reason, a.max_def) == (b.eligible, b.reason, b.max_def)
     if codec == "zstd":
-        assert pd.CODEC_INELIGIBLE["zstd"] >= 1
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        assert default_registry().counter("ptpu_pagedec_codec_ineligible_columns_total",
+                                          codec="zstd").value >= 1
 
 
 def test_truncated_chunks_raise_the_port_error_where_the_reference_raises():

@@ -164,7 +164,8 @@ def test_reset_restarts_the_epoch(ref_store):
 # predicate, filters and shuffle_row_drop_partitions are ported (tests/test_torch_selection.py),
 # and so are cache_* and the read path's io_options (tests/test_torch_io_async.py). The
 # object-store tier and the arena (item 5b) are ported too: their cases (1-3) now read
-# the store, equal to the plain read (tests/test_torch_remote_io.py, test_torch_arena.py)
+# the store, equal to the plain read (tests/test_torch_remote_io.py, test_torch_arena.py).
+# The recovery policy is ported (item 8a): the io_retries and recovery cases read too
 @pytest.mark.parametrize("kwargs", [
     {"reader_pool_type": "process", "transport": "tcp"},
     {"io_options": {"arena_bytes": 1 << 20}},
@@ -174,7 +175,7 @@ def test_reset_restarts_the_epoch(ref_store):
     {"tenant": "team-a"}, {"watch": True},
 ])
 def test_unported_reader_options_raise_naming_the_roadmap(ref_store, kwargs):
-    if "io_options" in kwargs:
+    if "io_options" in kwargs or "io_retries" in kwargs or "recovery" in kwargs:
         from petastorm_tpu_torch.io import arena as arena_mod
         from petastorm_tpu_torch.io.memcache import shared_store
 

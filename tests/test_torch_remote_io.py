@@ -15,9 +15,9 @@ Three kinds of case:
   worker, readahead off, ``sleep=False``): rows equal per id, the same GET count, and the
   JPEG store's uint8 images bit-exact through the port's plain stage 2.
 
-Left for ROADMAP.md item 8: the ``io.remote`` chaos case of ``TestHedging`` and the
-quarantine cases of ``TestReaderIntegration``; ``TestKwargProbe`` probes the loader's
-``sharding=`` keyword (item 12). ``gpu``-marked cases run the kernels on the card and skip
+The ``io.remote`` chaos case of ``TestHedging`` and the ``footer_unreadable`` quarantine
+cases of ``TestReaderIntegration`` are in ``tests/test_torch_chaos.py``;
+``TestKwargProbe`` probes the loader's ``sharding=`` keyword (item 12). ``gpu``-marked cases run the kernels on the card and skip
 here.
 """
 import os

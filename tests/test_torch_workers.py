@@ -316,6 +316,8 @@ def test_adoption_reaches_running_children(tmp_path):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"transport": "tcp"}, "item 4(c)"),
+    # the recovery policy is ported (item 8a): its case reads through a process pool
+    # under the poison policy, and quarantines nothing on a sound store
     ({"recovery": {"on_poison": "quarantine"}}, "item 8"),
     # readahead_depth and work_stealing are ported (item 5a), and so are the arena and
     # the ranged-GET engine (item 5b): these two cases now read through a process pool
@@ -323,6 +325,13 @@ def test_adoption_reaches_running_children(tmp_path):
     ({"io_options": {"remote": {"max_inflight": 2}}}, "item 5"),
 ])
 def test_unported_pool_options_raise_naming_their_item(scalar_dataset, kwargs, item):
+    if item == "item 8":
+        with make_batch_reader(scalar_dataset.url, reader_pool_type="process",
+                               workers_count=2, results_timeout_s=120, **kwargs) as r:
+            got = sorted(int(i) for b in r for i in np.asarray(b.id))
+            assert r._executor._recovery.quarantine and not r.quarantine_report
+        assert got == list(range(len(scalar_dataset.data)))
+        return
     if item == "item 5":
         from petastorm_tpu_torch.io import arena as arena_mod
         from petastorm_tpu_torch.io.memcache import shared_store
