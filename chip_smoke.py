@@ -2026,7 +2026,7 @@ def _off_read(root, f, rg):
 def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP_BATCHES,
                        measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH, pool="thread",
                        wire=None, io_options=None, filesystem=None, trace=None,
-                       metrics=None):
+                       metrics=None, slos=None, probe=None, on_batch=None):
     """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
     card: counts zeroed just before, read just after; the first and last measured
     batches against a ``pagedec="off"`` read of their row groups and the source arrays.
@@ -2036,7 +2036,10 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     ``filesystem``: the store's filesystem (phase 12's simulator). ``trace`` and
     ``metrics``: the loader's recorder and registry (phase 13 (d)); each batch's
     consumer step is then a ``train.step`` span, and the result carries the registry's
-    snapshot and the loader's bottleneck report, both taken before the loader exits."""
+    snapshot and the loader's bottleneck report, both taken before the loader exits.
+    ``slos``: the loader's SLO specs (phase 14 (d)); ``probe(loader, reader)`` runs inside
+    the loader's block after the window, its result under ``probe``; ``on_batch(n)`` is
+    called with the consumer's count after each batch it takes."""
     import numpy as np
     import torch
 
@@ -2061,11 +2064,14 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     kept = []
     consumed = 0
     t_start = time.perf_counter()
+    probed = None
     with DataLoader(reader, batch_size, device=device, prefetch=3, host_queue_size=8,
-                    trace=trace, metrics=metrics) as loader:
+                    trace=trace, metrics=metrics, slos=slos) as loader:
         for batch in loader:
             with trace.span("train.step") if trace is not None else contextlib.nullcontext():
                 consumed += 1
+                if on_batch is not None:
+                    on_batch(consumed)
                 if consumed == warmup:
                     torch.cuda.synchronize() if device == "cuda" else None
                     t0 = time.perf_counter()
@@ -2081,6 +2087,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
         io = reader.io_stats()
         snap = metrics.snapshot() if metrics is not None else None
         report = loader.bottleneck_report()
+        if probe is not None:
+            probed = probe(loader, reader)
     launches = {"K3": pk.snappy_inflate_ragged.launches, "scan": pk.rle_scan_pages.launches,
                 "K4": pk.extract_pages.launches}
     leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
@@ -2146,7 +2154,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     return launches, {"rows_per_s": rows_per_s, "window": window, "counters": counters,
                       "wire": wire_stats, "leases": leases, "launches": launches,
                       "io": io, "passthrough_batches": passthrough_batches,
-                      "consumed": consumed, "metrics": snap, "bottleneck": report}
+                      "consumed": consumed, "metrics": snap, "bottleneck": report,
+                      "probe": probed}
 
 
 # -- phase 8: the click-through training feed ------------------------------------------
@@ -4370,15 +4379,22 @@ def _rowgroup_ids(piece):
 
 def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery=None,
                    pool="thread", wire=None, slab_bytes=None, trace=None, metrics=None,
-                   epochs=1):
+                   epochs=1, health=None, expect_stall=False):
     """One run of the main path (phase 7's configuration, ``last_batch="partial"``):
     every delivered image held on the card to phase 7's image of the same id; the
     launch counters zeroed just before and read just after. ``plan`` is armed around
-    the reader's whole life (``propagate``: into the pool's children). Returns the
-    per-id counts, the quarantine entries and the counts the caller checks."""
+    the reader's whole life (``propagate``: into the pool's children). ``health``: the
+    loader's (phase 14), whose busy heartbeats' ages are sampled between batches (the
+    largest an actor showed is kept); with ``expect_stall`` the run must end in a
+    StallError, caught in the loop, where the plan is disarmed (a hung thread then
+    wakes at once). Returns the per-id counts, the quarantine entries and the counts the
+    caller checks."""
+    import threading
+
     import torch
 
     from petastorm_tpu_torch import chaos, make_batch_reader
+    from petastorm_tpu_torch.errors import StallError
     from petastorm_tpu_torch.io.lease import lease_stats
     from petastorm_tpu_torch.loader import DataLoader
     from petastorm_tpu_torch.obs.log import degradation_counts
@@ -4399,6 +4415,8 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
         else contextlib.nullcontext()
     batches = rows = 0
     t0 = None
+    stall = t_caught = None
+    busy_age = {}
     with armed, pool_env(slab_bytes):
         reader = make_batch_reader(url, reader_pool_type=pool, workers_count=workers,
                                    wire_serializer=wire, shuffle_row_groups=True, seed=0,
@@ -4409,48 +4427,73 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
         _jpeg_launch_counters(zero=True)
         with DataLoader(reader, BATCH, device="cuda", device_transform=transform,
                         prefetch=3, host_queue_size=8, last_batch="partial",
-                        trace=trace, metrics=metrics) as loader:
+                        trace=trace, metrics=metrics, health=health) as loader:
+            monitor = loader._health
             pids = executor.child_pids() if pool == "process" else []
-            for batch in loader:
-                with trace.span("train.step") if trace is not None \
-                        else contextlib.nullcontext():
-                    ids, u8 = batch["id"], batch["image_u8"]
-                    counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
-                    bad.add_((images.index_select(0, ids) != u8).sum())
-                    batches += 1
-                    if t0 is None:
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                    else:
-                        rows += len(ids)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            try:
+                for batch in loader:
+                    with trace.span("train.step") if trace is not None \
+                            else contextlib.nullcontext():
+                        ids, u8 = batch["id"], batch["image_u8"]
+                        counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                        bad.add_((images.index_select(0, ids) != u8).sum())
+                        batches += 1
+                        for h in monitor.heartbeats() if monitor is not None else ():
+                            if h["state"] != "done" and not h["state"].startswith("wait:"):
+                                busy_age[h["actor"]] = max(busy_age.get(h["actor"], 0.0),
+                                                           h["age_s"])
+                        if t0 is None:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                        else:
+                            rows += len(ids)
+                torch.cuda.synchronize()
+            except StallError as e:
+                if not expect_stall:
+                    raise
+                stall, t_caught = e, time.time()
+                chaos.disarm()  # a hung thread-pool worker wakes now
+            dt = time.perf_counter() - t0 if t0 is not None else 0.0
             entries = [(e.path, e.row_group, e.num_rows, e.kind, e.attempts, e.ordinal)
                        for e in loader.quarantine_report.entries]
-            state = loader.state_dict()
+            state = loader.state_dict() if stall is None else None
             snap = metrics.snapshot() if metrics is not None else None
             report = loader.bottleneck_report()
             wire_stats = reader.wire_stats()
             pool_stats = executor.pool_stats() if pool == "process" else {}
             budget = getattr(executor, "_respawn_budget", None)
+            hbs = monitor.heartbeats() if monitor is not None else []
+            io_threads = sorted(t.name for t in threading.enumerate()
+                                if t.name.startswith(HEALTH_IO_PREFIX))
+            stalls = monitor.stall_count if monitor is not None else 0
+            heals = monitor.heal_count if monitor is not None else 0
     launches = _jpeg_launch_counters()
     deg = {k: v - deg0.get(k, 0) for k, v in degradation_counts().items()
            if v != deg0.get(k, 0)}
     leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
-    res = {"label": label, "rows_per_s": rows / dt, "batches": batches,
+    res = {"label": label, "rows_per_s": rows / dt if rows else 0.0, "batches": batches,
            "counts": counts.cpu(), "bad": int(bad.item()), "launches": launches,
            "entries": entries, "state": state, "metrics": snap, "bottleneck": report,
            "wire": wire_stats, "pool": pool_stats, "budget": budget, "leases": leases,
            "degradations": deg, "fires": plan.stats()["fires"] if plan else None,
-           "items": items, "pids": pids, "segments": _own_segments()}
+           "items": items, "pids": pids, "segments": _own_segments(), "workers": workers,
+           "heartbeats": hbs, "busy_age": busy_age, "io_threads": io_threads,
+           "stalls": stalls, "heals": heals, "stall": stall, "t_caught": t_caught,
+           "injections": plan.injections() if plan is not None else []}
     log("chaos %s: %.1f rows/s over %d batches (the first excluded); launches %s; "
-        "quarantined %s; degradations %s; plan fires %s; leases %s; respawns %s; %s" % (
-            label, res["rows_per_s"], batches, json.dumps(launches),
-            [(os.path.basename(p), rg, n, k, a) for p, rg, n, k, a, _o in entries],
-            json.dumps(deg), res["fires"], leases, pool_stats.get("respawns"), smi))
-    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"] == batches,
-          "%s: stage2_planes, stage2_rgb and K2 should launch once a batch (%d): %s"
-          % (label, batches, launches))
+        "quarantined %s; degradations %s; plan fires %s; leases %s; respawns %s; pool "
+        "spawn %s s, child first-item seconds %s; stalls %d, heals %d, StallError %s; %s"
+        % (label, res["rows_per_s"], batches, json.dumps(launches),
+           [(os.path.basename(p), rg, n, k, a) for p, rg, n, k, a, _o in entries],
+           json.dumps(deg), res["fires"], leases, pool_stats.get("respawns"),
+           pool_stats.get("spawn_s"), pool_stats.get("child_first_work_s"), stalls,
+           heals, "yes" if stall is not None else "no", smi))
+    check(expect_stall == (stall is not None), "%s: StallError %r (expected: %s)"
+          % (label, stall, expect_stall))
+    if not expect_stall:
+        check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"]
+              == batches, "%s: stage2_planes, stage2_rgb and K2 should launch once a "
+              "batch (%d): %s" % (label, batches, launches))
     check(res["bad"] == 0, "%s: %d uint8 values differ from phase 7's images of the same "
           "ids" % (label, res["bad"]))
     check(leases["leaked"] == 0 and leases["acquired"] == leases["released"],
@@ -4778,6 +4821,293 @@ def phase_trace_tabular(root, arrays, predicted, work, smi):
     return out
 
 
+# -- phase 14: liveness and time -----------------------------------------------------------
+#
+# The health monitor, the stall healer and the time-series plane on the card. (a) the
+# main path (phase 13's configuration) with health=HealthOptions(stall_threshold_s=5.0,
+# poll_interval_s=0.25, escalation="raise") and a MetricsRegistry beside an epoch without
+# health, HEALTH_ROUNDS rounds alternating which goes first: 0 stalls, every actor's
+# heartbeat registered, the ptpu_health_* and ptpu_io_* families in the snapshot, the
+# kernels once a batch in both; the busy heartbeat ages each actor showed between batches
+# are printed. (b) one worker.item hang on the thread pool (hang_s 20 s) at a 2 s
+# threshold: escalation "raise" delivers the StallError within threshold + poll + 2 s
+# of the hang, with a flight record naming the hung worker thread and holding its frame;
+# escalation "flight" with a 4 s hang keeps the stream alive, every id once. (c) the main
+# path on 7 children over 'arrow' with a child hung on ordinal 5 every time it is tried
+# (the plan propagates to respawned children), heal escalation at a 3 s child threshold:
+# two heals, the row group quarantined after 2 attempts, every other id once; then with
+# no respawn budget and on_poison="raise": no kill, the StallError with the children's
+# SIGUSR1 stacks in the flight record. (d) phase 5's pass-through at 10 + 30 batches with
+# a MetricsRegistry, a Reporter sampling the windows every 0.25 s, two SLO specs (read
+# p99 <= 60 s cannot breach; the batch count's delta <= 0 over 2 windows must) and a
+# MetricsServer on 127.0.0.1:0, HEALTH_ROUNDS rounds beside runs without any of it.
+
+HEALTH_ROUNDS = 3
+HEALTH_IO_PREFIX = "ptpu-torch-io"  # the readahead pool's thread names
+
+
+def phase_health_main_path(url, images, work, smi):
+    """(a): the watchdog on the clean main path beside an epoch without health."""
+    from petastorm_tpu_torch.obs.health import HealthOptions
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+
+    out = {"on": [], "off": []}
+    for r in range(HEALTH_ROUNDS):
+        for name in (["on", "off"] if r % 2 == 0 else ["off", "on"]):
+            flight = os.path.join(work, "a_flight_%d.json" % r)
+            health = HealthOptions(stall_threshold_s=5.0, poll_interval_s=0.25,
+                                   escalation="raise", flight_path=flight) \
+                if name == "on" else None
+            res = chaos_jpeg_run(url, images, "(a) health %s round %d" % (name, r), smi,
+                                  health=health,
+                                  metrics=MetricsRegistry() if name == "on" else None)
+            check(bool((res["counts"] == 1).all()), "(a) %s: ids not once each" % name)
+            if name == "on":
+                check(res["stalls"] == 0 and not os.path.exists(flight),
+                      "(a): %d stalls, flight record %s" % (res["stalls"],
+                                                            os.path.exists(flight)))
+                actors = {h["actor"]: h["role"] for h in res["heartbeats"]}
+                want = {"loader.producer": "producer", "loader.transfer": "transfer"}
+                want.update({"worker.thread-%d" % i: "worker"
+                             for i in range(res["workers"])})
+                want.update({"io." + t: "io" for t in res["io_threads"]})
+                missing = {a for a, role in want.items() if actors.get(a) != role}
+                check(not missing and res["io_threads"], "(a): heartbeats missing for %s "
+                      "(IO threads %s)" % (sorted(missing), res["io_threads"]))
+                snap = res["metrics"]
+                fams = {p: [k for k in snap if k.startswith(p)]
+                        for p in ("ptpu_health_", "ptpu_io_")}
+                check(all(fams.values()) and "ptpu_health_stalls_total" in snap,
+                      "(a): families missing from the snapshot: %s"
+                      % {p: len(v) for p, v in fams.items()})
+                res["families"] = {p: len(v) for p, v in fams.items()}
+            out[name].append(res)
+    per_batch = {name: sorted({tuple(v // max(1, r["batches"]) for v in r["launches"].values())
+                               for r in runs}) for name, runs in out.items()}
+    check(per_batch["on"] == per_batch["off"] == [(1, 1, 1)],
+          "(a): launches a batch %s" % per_batch)
+    ages = {}
+    for r in out["on"]:
+        for actor, age in r["busy_age"].items():
+            ages[actor] = max(ages.get(actor, 0.0), age)
+    out["busy_age"] = ages
+    log("health (a): rows/s with health %s, without %s; families %s; largest busy "
+        "heartbeat age seen between batches: %s; %s" % (
+            [round(r["rows_per_s"], 1) for r in out["on"]],
+            [round(r["rows_per_s"], 1) for r in out["off"]], out["on"][0]["families"],
+            json.dumps({k: round(v, 3) for k, v in sorted(ages.items())}), smi))
+    return out
+
+
+def phase_health_hang(url, images, work, smi):
+    """(b): a hung decode on the thread pool, escalation "raise" then "flight"."""
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+    from petastorm_tpu_torch.obs.health import HealthOptions
+
+    flight = os.path.join(work, "b_flight.json")
+    threshold, poll = 2.0, 0.25
+    plan = FaultPlan([FaultRule("worker.item", "hang", nth=3, times=1, hang_s=20.0)])
+    raised = chaos_jpeg_run(
+        url, images, "(b) hung decode, raise", smi, plan=plan, expect_stall=True,
+        health=HealthOptions(stall_threshold_s=threshold, poll_interval_s=poll,
+                             escalation="raise", flight_path=flight))
+    hung_at = raised["injections"][0]["t"]
+    latency = raised["t_caught"] - hung_at
+    check(latency <= threshold + poll + 2.0, "(b): the StallError came %.3f s after the "
+          "hang (bound %.2f s)" % (latency, threshold + poll + 2.0))
+    with open(flight) as f:
+        rec = json.load(f)
+    stalled = [st["actor"] for st in rec["stalled"]]
+    check(any(a.startswith("worker.thread-") for a in stalled),
+          "(b): the flight record's stalled actors %s name no worker thread" % stalled)
+    hung = [k for k, v in rec["driver_stacks"].items()
+            if "chaos/plan.py" in v and "_execute" in v]
+    check(hung, "(b): no driver stack holds the hung frame")
+    flight2 = os.path.join(work, "b_flight2.json")
+    alive = chaos_jpeg_run(
+        url, images, "(b) hung decode, flight", smi,
+        plan=FaultPlan([FaultRule("worker.item", "hang", nth=3, times=1, hang_s=4.0)]),
+        health=HealthOptions(stall_threshold_s=threshold, poll_interval_s=poll,
+                             escalation="flight", flight_path=flight2))
+    check(bool((alive["counts"] == 1).all()) and alive["stalls"] >= 1
+          and os.path.exists(flight2), "(b) flight: ids %s, stalls %d"
+          % (sorted(set(alive["counts"].tolist())), alive["stalls"]))
+    log("health (b): StallError %.3f s after the hang began (threshold %.2f s, poll %.2f "
+        "s); stalled %s; hung frame in %s; the flight-only run delivered every id once "
+        "(%d stalls); %s" % (latency, threshold, poll, stalled, hung, alive["stalls"], smi))
+    return {"latency_s": latency, "stalled": stalled, "raised": raised, "alive": alive}
+
+
+def phase_health_heal(url, images, work, smi):
+    """(c): the healer on the process pool, then a heal nothing can absorb."""
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+    from petastorm_tpu_torch.obs.health import HealthOptions
+    from petastorm_tpu_torch.recovery import RecoveryOptions
+
+    def plan():
+        return FaultPlan([FaultRule("child.item", "hang", item_key="ordinal=5",
+                                    hang_s=120.0)])
+
+    check(not _own_segments(), "segments in /dev/shm before (c): %s" % _own_segments())
+    healed = chaos_jpeg_run(
+        url, images, "(c) heal, process/arrow", smi, plan=plan(), propagate=True,
+        pool="process", wire="arrow",
+        recovery=RecoveryOptions(on_poison="quarantine", poison_attempts=2,
+                                 worker_respawns=2),
+        health=HealthOptions(thresholds={"child": 3.0}, poll_interval_s=0.25,
+                             escalation="heal",
+                             flight_path=os.path.join(work, "c_flight.json")))
+    piece = healed["items"][5][0]
+    lost = set(_rowgroup_ids(piece))
+    c = healed["counts"]
+    missing = {i for i in range(ROWS) if c[i] == 0}
+    check(missing == lost and bool((c[sorted(set(range(ROWS)) - lost)] == 1).all()),
+          "(c) heal: missing %d ids (%d in ordinal 5's row group); counts %s"
+          % (len(missing), len(lost), sorted(set(c.tolist()))))
+    check([(e[0], e[1], e[3], e[4]) for e in healed["entries"]]
+          == [(piece.path, piece.row_group, "child_death", 2)],
+          "(c) heal: quarantine entries %s" % healed["entries"])
+    kills = healed["degradations"].get("stall_heal_kill", 0)
+    check(healed["heals"] == 2 and kills == 2, "(c) heal: %d heals, %d stall_heal_kill"
+          % (healed["heals"], kills))
+    flight = os.path.join(work, "c_flight_raise.json")
+    refused = chaos_jpeg_run(
+        url, images, "(c) heal refused, process/arrow", smi, plan=plan(), propagate=True,
+        pool="process", wire="arrow", expect_stall=True,
+        recovery=RecoveryOptions(on_poison="raise", worker_respawns=0),
+        health=HealthOptions(thresholds={"child": 3.0}, poll_interval_s=0.25,
+                             escalation="heal", flight_path=flight))
+    check(refused["heals"] == 0 and not refused["degradations"].get("stall_heal_kill"),
+          "(c) refused: %d heals" % refused["heals"])
+    with open(flight) as f:
+        rec = json.load(f)
+    stacks = rec["child_stacks"]
+    check(stacks and any("chaos/plan.py" in t for t in stacks.values()),
+          "(c) refused: the flight record's child stacks %s hold no hung frame"
+          % sorted(stacks))
+    log("health (c): 2 heals quarantined %s:%d (%d ids) after 2 attempts, every other id "
+        "once; the unabsorbable heal killed nothing and delivered the StallError with %d "
+        "children's stacks; no segment left; %s" % (
+            os.path.basename(piece.path), piece.row_group, len(lost), len(stacks), smi))
+    return {"healed": healed, "refused": refused, "child_stacks": len(stacks)}
+
+
+def phase_health_tabular(root, arrays, predicted, work, smi):
+    """(d): time series, SLOs and the endpoint on the pass-through, beside runs with the
+    registry alone (``metrics=``, no Reporter, no SLOs) and runs with neither, so the
+    sampling's cost is told apart from the collectors'."""
+    import urllib.request
+
+    from petastorm_tpu_torch.obs.export import Reporter, parse_prometheus_text
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+    from petastorm_tpu_torch.obs.serve import MetricsServer
+    from petastorm_tpu_torch.obs.slo import SloSpec
+    from petastorm_tpu_torch.obs.timeseries import load_export
+
+    batches_key = "ptpu_pipeline_batches"
+    out = {"on": [], "metrics": [], "off": []}
+    for r in range(HEALTH_ROUNDS):
+        for name in (["on", "metrics", "off"] if r % 2 == 0 else ["off", "metrics", "on"]):
+            if name != "on":
+                _launches, res = phase_tabular_path(
+                    root, arrays, predicted, warmup=POOL_TAB_WARMUP,
+                    measured=POOL_TAB_MEASURED,
+                    metrics=MetricsRegistry() if name == "metrics" else None)
+                out[name].append(res)
+                continue
+            registry = MetricsRegistry()
+            jsonl = os.path.join(work, "d_%d.jsonl" % r)
+            specs = [SloSpec(name="read-p99", stat="p99", op="<=", threshold=60.0,
+                             metric='ptpu_pipeline_stage_seconds{stage="read"}',
+                             breach_windows=1),
+                     SloSpec(name="batches-stall", metric=batches_key, stat="delta",
+                             op="<=", threshold=0, breach_windows=2)]
+
+            # the consumer's own count at each of the Reporter's samples, read by a
+            # listener on its thread: a count the pipeline collector does not read
+            taken = {"n": 0}
+            marks = []
+            registry.timeline_store().add_listener(
+                lambda window, t, taken=taken, marks=marks:
+                marks.append((t, taken["n"])) if batches_key in window else None)
+
+            def probe(loader, reader, registry=registry, r=r):
+                time.sleep(0.75)  # the Reporter samples the windows after the last batch
+                with MetricsServer(registry, slo_engine=loader.slo_engine) as srv:
+                    prom = urllib.request.urlopen(srv.url + "/metrics", timeout=30).read()
+                    doc = urllib.request.urlopen(srv.url + "/timelines", timeout=30).read()
+                    alerts = json.loads(urllib.request.urlopen(
+                        srv.url + "/alerts", timeout=30).read())["alerts"]
+                    port = srv.port
+                path = os.path.join(work, "d_timelines_%d.json" % r)
+                with open(path, "wb") as f:
+                    f.write(doc)
+                return {"prom": parse_prometheus_text(prom.decode()),
+                        "export": load_export(path), "alerts": alerts, "port": port,
+                        "report": loader.bottleneck_report(),
+                        "slo_alerts": loader.slo_alerts()}
+
+            with Reporter(registry=registry, interval_s=0.25, jsonl_path=jsonl):
+                _launches, res = phase_tabular_path(
+                    root, arrays, predicted, warmup=POOL_TAB_WARMUP,
+                    measured=POOL_TAB_MEASURED, metrics=registry, slos=specs, probe=probe,
+                    on_batch=lambda n, taken=taken: taken.__setitem__("n", n))
+            p = res["probe"]
+            names = [(a.name, a.cause) for a in p["slo_alerts"]]
+            check(names == [("batches-stall", "slo_breach")], "(d): alerts %s (the loose "
+                  "spec must raise none, the tight one exactly one)" % names)
+            check([a["name"] for a in p["alerts"]] == ["batches-stall"],
+                  "(d): GET /alerts lists %s" % [a["name"] for a in p["alerts"]])
+            check(p["report"].slo_alerts and p["report"].slo_alerts[0]["name"]
+                  == "batches-stall", "(d): bottleneck_report() carries no alert")
+            # the batch counter runs ahead of the consumer by at most the device queue
+            # (prefetch 3) and the batch the transfer thread holds; the listener reads
+            # the consumer's count just after the sampler read the counter, so one more
+            lead = 3 + 1 + 1
+            points = registry.timeline(batches_key)
+            check(len(points) == len(marks) >= 3 and all(
+                q["t"] == m[0] for q, m in zip(points, marks)),
+                "(d): %d windows of the batch counter, %d samples seen by the listener"
+                % (len(points), len(marks)))
+            bad = []
+            for i in range(1, len(points)):
+                prev, q = points[i - 1], points[i]
+                took = marks[i][1] - marks[i - 1][1]
+                # the rate is its own window's: rate x window = delta
+                if abs(q["rate"] * (q["t"] - prev["t"]) - q["delta"]) > 1e-3 * max(
+                        1, q["delta"]) or abs(q["delta"] - took) > lead:
+                    bad.append((i, q["delta"], q["rate"], took))
+            summed = points[0]["value"] + sum(
+                q["rate"] * (q["t"] - prev["t"]) for prev, q in zip(points, points[1:]))
+            check(not bad, "(d): windows (index, delta, rate, batches the consumer took) "
+                  "off by more than %d batches or whose rate is not their delta: %s"
+                  % (lead, bad))
+            check(0 <= round(summed) - res["consumed"] <= lead,
+                  "(d): the batch counter's windowed rates sum to %.3f, the consumer took "
+                  "%d batches (lead at most %d)" % (summed, res["consumed"], lead))
+            deltas = [q["delta"] for q in points if q.get("delta") is not None]
+            check(batches_key in p["export"]["series"], "(d): GET /timelines lacks %s"
+                  % batches_key)
+            rates = [q["rate"] for q in points if q.get("rate") is not None]
+            fams = {pre: [k for k in p["prom"] if k.startswith(pre)]
+                    for pre in ("ptpu_io_", "ptpu_pipeline_")}
+            check(all(fams.values()) and p["port"], "(d): GET /metrics families %s"
+                  % {k: len(v) for k, v in fams.items()})
+            res["slo"] = {"alerts": names, "windows": len(points),
+                          "moving_windows": sum(1 for d in deltas if d > 0),
+                          "rates": rates, "families": {k: len(v) for k, v in fams.items()}}
+            out[name].append(res)
+    log("health (d): pass-through rows/s with time series, SLOs and the endpoint %s, "
+        "with metrics= alone %s, with neither %s; windows %s (moving %s); one "
+        "batches-stall alert a run; %s" % (
+            [x["rows_per_s"] for x in out["on"]],
+            [x["rows_per_s"] for x in out["metrics"]],
+            [x["rows_per_s"] for x in out["off"]],
+            [x["slo"]["windows"] for x in out["on"]],
+            [x["slo"]["moving_windows"] for x in out["on"]], smi))
+    return out
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -4980,6 +5310,13 @@ def main():
         chaos_c = phase_chaos_pool(url, images, env["smi"])
         trace_jpeg = phase_trace_main_path(url, images, traces, env["smi"])
         phase13_s = time.perf_counter() - t13
+        t14 = time.perf_counter()
+        health_dir = os.path.join(work, "health")
+        os.makedirs(health_dir)
+        health_a = phase_health_main_path(url, images, health_dir, env["smi"])
+        health_b = phase_health_hang(url, images, health_dir, env["smi"])
+        health_c = phase_health_heal(url, images, health_dir, env["smi"])
+        phase14_s = time.perf_counter() - t14
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -5038,6 +5375,12 @@ def main():
         phase13_s += time.perf_counter() - t13
         log("failure handling and its record: phase 13 took %.1f s of wall time; %s"
             % (phase13_s, env["smi"]))
+        t14 = time.perf_counter()
+        health_d = phase_health_tabular(tab_root, arrays, predicted, health_dir,
+                                        env["smi"])
+        phase14_s += time.perf_counter() - t14
+        log("liveness and time: phase 14 took %.1f s of wall time; %s"
+            % (phase14_s, env["smi"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -5088,6 +5431,19 @@ def main():
                 "d_untraced": [r["launches"][key] for r in trace_jpeg["off"]],
                 "d_pool_traced": trace_jpeg["pool"]["launches"][key]}
 
+    def slice15_launches(key):
+        """{part: launches of ``key``} in phase 14's JPEG parts (a list a run)."""
+        return {"a_health": [r["launches"][key] for r in health_a["on"]],
+                "a_no_health": [r["launches"][key] for r in health_a["off"]],
+                "a_batches": [r["batches"] for r in health_a["on"]],
+                "b_raise": health_b["raised"]["launches"][key],
+                "b_raise_batches": health_b["raised"]["batches"],
+                "b_flight": health_b["alive"]["launches"][key],
+                "c_heal": health_c["healed"]["launches"][key],
+                "c_heal_batches": health_c["healed"]["batches"],
+                "c_refused": health_c["refused"]["launches"][key],
+                "c_refused_batches": health_c["refused"]["batches"]}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -5105,7 +5461,8 @@ def main():
          "slice11_launches": slice11_launches("stage2_planes"),
          "slice12_launches": slice12_launches("stage2_planes"),
          "slice13_launches": slice13_launches("stage2_planes"),
-         "slice14_launches": slice14_launches("stage2_planes")},
+         "slice14_launches": slice14_launches("stage2_planes"),
+         "slice15_launches": slice15_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -5120,7 +5477,8 @@ def main():
          "slice11_launches": slice11_launches("stage2_rgb"),
          "slice12_launches": slice12_launches("stage2_rgb"),
          "slice13_launches": slice13_launches("stage2_rgb"),
-         "slice14_launches": slice14_launches("stage2_rgb")},
+         "slice14_launches": slice14_launches("stage2_rgb"),
+         "slice15_launches": slice15_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -5156,7 +5514,8 @@ def main():
          "slice11_launches": slice11_launches("K2"),
          "slice12_launches": slice12_launches("K2"),
          "slice13_launches": slice13_launches("K2"),
-         "slice14_launches": slice14_launches("K2")},
+         "slice14_launches": slice14_launches("K2"),
+         "slice15_launches": slice15_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -5200,6 +5559,13 @@ def main():
             "d_untraced": [r["launches"][key] for r in trace_tab["off"]],
             "d_passthrough_batches": [r["passthrough_batches"]
                                       for r in trace_tab["on"] + trace_tab["off"]]}
+        row["slice15_launches"] = {
+            "d_timeseries": [r["launches"][key] for r in health_d["on"]],
+            "d_metrics": [r["launches"][key] for r in health_d["metrics"]],
+            "d_plain": [r["launches"][key] for r in health_d["off"]],
+            "d_passthrough_batches": [
+                r["passthrough_batches"]
+                for r in health_d["on"] + health_d["metrics"] + health_d["off"]]}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -5254,6 +5620,14 @@ def main():
             median(trace_tab["on"]), median(trace_tab["off"]),
             sorted({r["bottleneck"].verdict for r in trace_jpeg["on"] + trace_jpeg["off"]}),
             sorted({r["bottleneck"].verdict for r in trace_tab["on"] + trace_tab["off"]})))
+    log("liveness and time (phase 14, %.1f s): main path rows/s median %.1f with the "
+        "watchdog, %.1f without; the hung decode's StallError %.3f s after the hang; %d "
+        "heals, then a refused heal with %d children's stacks; pass-through rows/s median "
+        "%.1f with time series, SLOs and the endpoint, %.1f with metrics= alone, %.1f "
+        "with neither" % (
+            phase14_s, median(health_a["on"]), median(health_a["off"]),
+            health_b["latency_s"], health_c["healed"]["heals"], health_c["child_stacks"],
+            median(health_d["on"]), median(health_d["metrics"]), median(health_d["off"])))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

@@ -9,8 +9,10 @@ only reads and decodes on the host, and must not make a CUDA context of its own.
 
 Protocol, over a ``multiprocessing.connection`` unix socket (authkey on stdin): the
 parent sends its ``sys.path``, the wire serializer's name (a shared-memory name is
-followed by the slab ring's segment names and slab size), then the pickled worker; the
-child answers ``("pid", pid)``. Then items: ``(item, hints, settings)`` on the socket
+followed by the slab ring's segment names and slab size), the health settings
+(``{"stack_dump_dir", "ping_interval_s"}``), then the pickled worker; the child calls
+the worker's ``warm()`` where it has one (the first-use imports of a read) and answers
+``("pid", pid)``. Then items: ``(item, hints, settings)`` on the socket
 wire, ``(slab_id, item, hints, settings)`` on the shared-memory wire, where ``slab_id``
 is the parent's grant for this item's result (None: the ring was empty, use the
 socket), ``hints`` the rest of this child's dispatch claim (handed to the worker's
@@ -39,9 +41,16 @@ it as ``PTPU_CHAOS_SPEC``: the child arms its own copy at bootstrap, opted into 
 ``kill`` action (``os._exit(137)`` mid-item, exactly a crashed child), and evaluates the
 ``child.item`` site around each ``worker(item)``, besides the worker's own read sites.
 
-The JAX package's child also speaks tcp, heartbeats, stack dumps, provenance, tenants
-and live knob frames; those are not ported (ROADMAP.md Queue 1 items 4(c), 8b and 8c),
-and the parent never asks for them.
+Liveness: the child interleaves ``("hb", wall_ts)`` pings with its answers, one as soon
+as it receives an item and one every ``ping_interval_s`` while it waits for work; the
+parent drains them into the child's heartbeat. A child hung inside ``worker(item)``
+sends nothing, so its heartbeat ages: the stall signal. With ``stack_dump_dir`` the child
+registers ``faulthandler`` on SIGUSR1, writing every thread's stack to
+``<dir>/stacks-<pid>.txt``, which the parent signals and reads into a flight record.
+
+The JAX package's child also speaks tcp, provenance, tenants and live knob frames; those
+are not ported (ROADMAP.md Queue 1 items 4(c), 8b(ii) and 8c), and the parent never asks
+for them.
 """
 import os
 import pickle
@@ -61,6 +70,22 @@ def _dial(address, authkey, patience_s=30.0):
             if time.monotonic() > deadline:
                 raise
             time.sleep(0.05)
+
+
+def _register_stack_dump(dump_dir):
+    """SIGUSR1 → faulthandler writes every thread's stack (the worker's and its
+    readahead IO threads') to a file the parent reads; costs nothing until signalled.
+    A file that cannot be opened leaves the parent with its own stacks only."""
+    import faulthandler
+    import signal
+
+    if not dump_dir or not hasattr(signal, "SIGUSR1"):
+        return
+    try:
+        dump_file = open(os.path.join(dump_dir, "stacks-%d.txt" % os.getpid()), "w")
+        faulthandler.register(signal.SIGUSR1, file=dump_file, all_threads=True)
+    except OSError:
+        pass
 
 
 def main():
@@ -83,7 +108,13 @@ def main():
         if shm_wire:
             slab_names, slab_bytes = conn.recv()
             serializer.bind_slabs(slab_names, slab_bytes)
+        health_cfg = conn.recv()
+        ping_s = float(health_cfg.get("ping_interval_s") or 0)
+        _register_stack_dump(health_cfg.get("stack_dump_dir"))
         worker = conn.recv()
+        warm = getattr(worker, "warm", None)
+        if warm is not None:
+            warm()  # first-use imports, before the parent times this child's items
         pid = os.getpid()
         conn.send(("pid", pid))
         # the clock-alignment anchor pair of this child's spans
@@ -98,11 +129,18 @@ def main():
         prefetch = getattr(worker, "prefetch", None)
         io_stats = getattr(worker, "io_stats", None)
         while True:
+            if ping_s:
+                # the idle heartbeat: alive while waiting for work (this thread is the
+                # only sender, so a ping never lands inside a result's frames)
+                while not conn.poll(ping_s):
+                    conn.send(("hb", time.time()))
             # waiting for the next item is this process's job; the parent's teardown
             # closes the socket (EOFError, handled)
             msg = conn.recv()
             if msg is None:
                 return
+            if ping_s:
+                conn.send(("hb", time.time()))  # item received, about to work
             if shm_wire:
                 slab_id, item, hints, settings = msg
                 serializer.set_slab(slab_id)

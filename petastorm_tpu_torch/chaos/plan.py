@@ -42,8 +42,9 @@ decode.device_inflate  ``DataLoader._inflate_passthrough``, once a batch
 The actions that need another slice's machinery raise ``NotImplementedError`` naming
 it when a rule is made: the ``net.*`` actions (the tcp transport, ROADMAP.md Queue 1
 item 4(c)) and the ``dataset.mutate`` actions ``remove_file``, ``rewrite_file`` and
-``append_piece`` (item 8c). ``hang`` is carried; the healer that ends one early is
-item 8b.
+``append_piece`` (item 8c). ``hang`` sleeps ``hang_s`` (ended early by a disarm): the
+stall watchdog's prey (:mod:`petastorm_tpu_torch.obs.health`), which the process pool's
+healer ends by killing the hung child under ``escalation="heal"``.
 
 Every injected fault is recorded: a ``ptpu_degradations_total{cause="chaos_injected"}``
 count, a ``chaos`` event in any live flight recorder, and an in-memory ledger

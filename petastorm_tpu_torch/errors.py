@@ -56,3 +56,11 @@ class WorkerDiedError(PetastormTpuError, RuntimeError):
         self.original = original
         if original is not None:
             self.__cause__ = original
+
+
+class StallError(PetastormTpuError):
+    """A pipeline actor missed its heartbeat threshold and the health monitor's
+    escalation policy is ``raise`` (or ``heal`` with nothing a healer could take): the
+    training loop fails fast instead of silently hanging the card. The flight record
+    written at detection (``HealthOptions.flight_path``) carries the evidence: driver and
+    child stacks, queue depths, recent pipeline events."""

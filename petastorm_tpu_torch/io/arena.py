@@ -47,8 +47,11 @@ Degradations (never a raise on the read path, counted by
 failed create or attach, ``PTPU_ARENA=off``) keeps the per-process caches;
 ``arena_full`` declines an admission; ``arena_lease_revoked`` counts the holder
 refcounts reclaimed from dead processes. The counts are this process's
-(:func:`arena_counters`); the JAX package's registry families are ROADMAP.md Queue 1
-item 8b.
+(:func:`arena_counters`); each also rises on the process-wide registry under the JAX
+package's families (``ptpu_io_arena_{hits,misses,admits,evictions,invalidations,
+attaches}_total``, ``ptpu_io_arena_holders_revoked_total``), beside the gauges
+``ptpu_io_arena_bytes`` and ``ptpu_io_arena_entries`` of the index this process last
+wrote.
 """
 from __future__ import annotations
 
@@ -306,9 +309,38 @@ _COUNTS = dict.fromkeys(("hits", "misses", "admits", "evictions", "invalidations
                          "attaches", "revoked"), 0)
 
 
+#: count name -> (registry family, help): the JAX package's ``ptpu_io_arena_*``
+_FAMILIES = {
+    "hits": ("ptpu_io_arena_hits_total", "reads served from the shared cache arena"),
+    "misses": ("ptpu_io_arena_misses_total", "arena lookups that missed"),
+    "admits": ("ptpu_io_arena_admits_total", "entries copied into the arena"),
+    "evictions": ("ptpu_io_arena_evictions_total", "entries LRU-evicted for budget"),
+    "invalidations": ("ptpu_io_arena_invalidations_total",
+                      "entries dropped by keyed/generation invalidation"),
+    "attaches": ("ptpu_io_arena_attaches_total", "processes that mapped this arena"),
+    "revoked": ("ptpu_io_arena_holders_revoked_total",
+                "dead-process holder refcounts dropped by reclaim()"),
+}
+_metrics = []  # [({name: Counter}, bytes gauge, entries gauge)], made at first use
+
+
+def _registry_metrics():
+    with _counts_lock:
+        if not _metrics:
+            from petastorm_tpu_torch.obs.metrics import default_registry
+
+            reg = default_registry()
+            _metrics.append((
+                {name: reg.counter(fam, help=text) for name, (fam, text) in _FAMILIES.items()},
+                reg.gauge("ptpu_io_arena_bytes", help="payload bytes resident in the arena"),
+                reg.gauge("ptpu_io_arena_entries", help="entries resident in the arena")))
+        return _metrics[0]
+
+
 def _bump(name, n=1):
     with _counts_lock:
         _COUNTS[name] += n
+    _registry_metrics()[0][name].inc(n)
 
 
 def arena_counters():
@@ -436,6 +468,9 @@ class CacheArena:
         buf = self._ctl.buf
         _HEADER.pack_into(buf, 0, _CTL_MAGIC, len(blob))
         buf[_HEADER.size:_HEADER.size + len(blob)] = blob
+        _counters, nbytes, entries = _registry_metrics()
+        nbytes.set(index["total"])
+        entries.set(len(index["entries"]))
 
     # -- admission ----------------------------------------------------------------------
 

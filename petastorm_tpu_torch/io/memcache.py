@@ -37,8 +37,8 @@ its budget does not bound a device-decode store); the port does not copy that.
 
 Entries larger than the whole budget are served uncached (degradation
 ``memcache_oversized``). The counters are the store's, read through
-:meth:`MemCache.stats`; the JAX package's registry families are ROADMAP.md Queue 1
-item 8b.
+:meth:`MemCache.stats`; ``Reader.io_stats()`` carries them, and a
+``DataLoader(metrics=...)`` exports them as ``ptpu_io_*`` (its ``io`` collector).
 
 The host-wide tier: ``arena=`` (an :class:`~petastorm_tpu_torch.io.arena.ArenaSpec` or a
 live ``CacheArena``) layers the shared cache arena between this process's store and the

@@ -25,9 +25,13 @@ stolen item's prefetched table, or a failed read nobody claims, ages out).
 Each background read is the chaos site ``io.readahead`` and, with a
 :class:`~petastorm_tpu_torch.trace.TraceRecorder` attached (:meth:`ReadaheadPool.set_trace`),
 an ``io.readahead`` span; a foreground wait on an in-flight read is an ``io.wait`` span.
-The JAX package's registry families (``ptpu_io_*``) and health heartbeats are ROADMAP.md
-Queue 1 item 8b, its live ``apply_*`` knobs item 8c; the port's counts are per pool,
-read through :meth:`ReadaheadPool.stats`.
+With a :class:`~petastorm_tpu_torch.obs.health.HealthMonitor` attached
+(:meth:`ReadaheadPool.set_health`) each IO thread heartbeats as ``io.<thread name>``
+(role ``io``): busy (``read``) during a background read, ``wait:idle`` between tasks, so
+a read hung against a wedged filesystem trips the stall watchdog. The counts are per
+pool, read through :meth:`ReadaheadPool.stats`; ``Reader.io_stats()`` carries them, and a
+``DataLoader(metrics=...)`` exports that dict as the ``ptpu_io_*`` families. The JAX
+package's live ``apply_*`` knobs are ROADMAP.md Queue 1 item 8c.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import weakref
 from collections import OrderedDict
 
 from petastorm_tpu_torch.io.coalesce import plan_runs
+from petastorm_tpu_torch.obs.health import ActorSlots
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 
 #: pools whose IO threads must be joined before interpreter finalization.
@@ -162,6 +167,10 @@ class ReadaheadPool:
         self._read_run_fn = read_run_fn
         self._gap_ok = gap_ok
         self._tracer = None
+        self._health = None  # a HealthMonitor: a heartbeat an IO thread (set_health)
+        #: the IO threads' heartbeats and the start of each one's read in flight, so a
+        #: monitor attached mid-read watches the threads and reads that already run
+        self._io_slots = ActorSlots(self, "io.%s", "io", busy="read", idle="idle")
         self._depth = max(1, int(depth))
         # 0 or negative = no cap (the memcache_bytes=0 convention), not "hold nothing",
         # which would veto every schedule() while readahead reports itself on
@@ -273,7 +282,16 @@ class ReadaheadPool:
         spans."""
         self._tracer = tracer
 
+    def set_health(self, monitor):
+        """Attach a health monitor (or a scope of one; None detaches): every IO thread
+        heartbeats its background reads. The threads that already exist are registered
+        at once, a read in flight as busy since it began."""
+        self._health = monitor
+        self._io_slots.attach(monitor)
+
     def _read_task_body(self, pieces, columns):
+        name = threading.current_thread().name
+        self._io_slots.begin(name)  # one slot an IO thread, reused by its later tasks
         t0 = time.perf_counter()
         tables = error = None
         try:
@@ -323,6 +341,7 @@ class ReadaheadPool:
                     self._held_bytes += entry.nbytes
                 entry.event.set()
             self._evict_over_budget()
+        self._io_slots.end(name, "idle")  # parked in the pool's queue until its next task
 
     def _evict_over_budget(self):
         """Age out completed, unclaimed entries; the caller holds ``self._lock``.

@@ -31,8 +31,15 @@ path (degradation ``remote_unavailable``), and a read the sparse file cannot ser
 to the store as one more ranged GET (``remote_sparse_fallbacks``; correct, just slower).
 The counts are per engine, read through :meth:`RemoteReadEngine.stats` under the JAX
 package's key names. Each GET attempt is the chaos site ``io.remote`` (key
-``<path>:<offset>+<length>#primary|hedge``); the registry families (``ptpu_io_*``) and
-the ``io.remote`` span are ROADMAP.md Queue 1 item 8b, the per-tenant charges item 8c.
+``<path>:<offset>+<length>#primary|hedge``). Every count also rises on the process-wide
+registry under the JAX package's families (``ptpu_io_remote_gets_total``,
+``ptpu_io_remote_bytes_total``, ``ptpu_io_hedges_total``, ``ptpu_io_hedge_wins_total``,
+``ptpu_io_remote_sparse_fallbacks_total``, ``ptpu_io_remote_footer_fetches_total``), and
+the shared latency model's histograms are ``ptpu_io_remote_get_seconds{store=,
+size_class=}`` there. With a :class:`~petastorm_tpu_torch.trace.TraceRecorder` attached
+(:meth:`RemoteReadEngine.set_trace`) a row-group read and a raw chunk fetch are each an
+``io.remote`` span (the GETs and the stitch), where the JAX package records the same span.
+The per-tenant charges are ROADMAP.md Queue 1 item 8c.
 :class:`RemoteIoOptions` and
 :func:`fs_is_remote` carry the options and the auto probe.
 """
@@ -45,7 +52,7 @@ import weakref
 import zlib
 
 from petastorm_tpu_torch.io.coalesce import plan_byte_ranges
-from petastorm_tpu_torch.obs.metrics import Histogram
+from petastorm_tpu_torch.obs.metrics import MetricsRegistry
 
 #: pyarrow filesystem type_names that are NOT object stores (the auto probe)
 _LOCAL_TYPE_NAMES = frozenset({"local", "localfs", "mock", "subtree", "py::fsspec+file"})
@@ -246,11 +253,13 @@ def size_class(nbytes):
 class LatencyModel:
     """Per-(store, size class) GET latency histograms and the hedge deadline, on the
     log-bucketed :class:`~petastorm_tpu_torch.obs.metrics.Histogram` (the JAX package's
-    primitive, so the same observations give the same deadline). The histograms stay
-    off the registry: the ``ptpu_io_remote_get_seconds`` family is ROADMAP.md Queue 1
-    item 8b."""
+    primitive, so the same observations give the same deadline). Each histogram is the
+    registry's ``ptpu_io_remote_get_seconds{store=,size_class=}``, so the learned
+    distribution exports beside the hedge counters it drives. The shared model uses the
+    process-wide registry; a model given none keeps its own."""
 
-    def __init__(self):
+    def __init__(self, registry=None):
+        self._registry = registry if registry is not None else MetricsRegistry()
         self._lock = threading.Lock()
         self._hists = {}
 
@@ -259,7 +268,10 @@ class LatencyModel:
         with self._lock:
             hist = self._hists.get(key)
             if hist is None:
-                hist = self._hists[key] = Histogram("ptpu_io_remote_get_seconds")
+                hist = self._hists[key] = self._registry.histogram(
+                    "ptpu_io_remote_get_seconds",
+                    help="ranged GET latency by store and request size class",
+                    store=store, size_class=label)
         return hist
 
     def observe(self, store, nbytes, seconds):
@@ -284,6 +296,31 @@ class LatencyModel:
 _model_lock = threading.Lock()
 _model = None
 
+#: the engine counts that rise on the process-wide registry too, under the JAX
+#: package's family names
+_FAMILIES = {
+    "gets": ("ptpu_io_remote_gets_total", "ranged GETs issued (incl. hedges)"),
+    "bytes": ("ptpu_io_remote_bytes_total", "bytes fetched by ranged GETs"),
+    "hedges": ("ptpu_io_hedges_total",
+               "duplicate GETs issued past the latency-quantile deadline"),
+    "hedge_wins": ("ptpu_io_hedge_wins_total",
+                   "hedged GETs where the duplicate responded first"),
+    "sparse_fallbacks": ("ptpu_io_remote_sparse_fallbacks_total",
+                         "reads the prefetched segments could not serve (went to "
+                         "storage)"),
+    "footer_fetches": ("ptpu_io_remote_footer_fetches_total",
+                       "footers fetched via ranged tail GETs"),
+}
+
+
+def _registry_families():
+    """``{count name: Counter}`` on the process-wide registry."""
+    from petastorm_tpu_torch.obs.metrics import default_registry
+
+    reg = default_registry()
+    return {name: reg.counter(family, help=text)
+            for name, (family, text) in _FAMILIES.items()}
+
 
 def shared_latency_model():
     """The process-wide model: every engine (one a worker) feeds and consults the same
@@ -291,7 +328,9 @@ def shared_latency_model():
     global _model
     with _model_lock:
         if _model is None:
-            _model = LatencyModel()
+            from petastorm_tpu_torch.obs.metrics import default_registry
+
+            _model = LatencyModel(default_registry())
         return _model
 
 
@@ -415,13 +454,29 @@ class RemoteReadEngine:
                                         thread_name_prefix="ptpu-torch-remote")
         self._n = {"gets": 0, "bytes": 0, "hedges": 0, "hedge_wins": 0,
                    "sparse_fallbacks": 0, "footer_fetches": 0, "footer_arena_maps": 0}
+        self._families = _registry_families()
+        #: a TraceRecorder the io.remote spans go to (set_trace; None: off)
+        self._tracer = None
         with _live_engines_lock:
             _live_engines.add(self)
         _install_exit_drain()
 
+    def set_trace(self, tracer):
+        """Record an ``io.remote`` span for each row-group read and raw chunk fetch
+        (None: stop)."""
+        self._tracer = tracer
+
+    def _span(self, t0):
+        tracer = self._tracer
+        if tracer is not None:
+            tracer.add("io.remote", t0, time.perf_counter() - t0)
+
     def _count(self, name, n=1):
         with self._lock:
             self._n[name] += n
+        family = self._families.get(name)
+        if family is not None:
+            family.inc(n)
 
     def _all_pools(self):
         with self._lock:
@@ -501,6 +556,7 @@ class RemoteReadEngine:
         import pyarrow as pa
         import pyarrow.parquet as pq
 
+        t0 = time.perf_counter()
         entry = self.footer(path)
         md = entry.metadata
         if columns is not None:
@@ -515,7 +571,9 @@ class RemoteReadEngine:
             size = int(self._fs.get_file_info(path).size)
         src = _SparseFile(path, size, chunks, self)
         pf = pq.ParquetFile(pa.PythonFile(src, mode="r"), metadata=md)
-        return pf.read_row_groups(list(row_groups), columns=columns), entry
+        table = pf.read_row_groups(list(row_groups), columns=columns)
+        self._span(t0)
+        return table, entry
 
     def arrow_names(self, path):
         """Column names of ``path``'s arrow schema, from the cached footer."""
@@ -566,6 +624,7 @@ class RemoteReadEngine:
         bytes}`` of row group ``row_group``'s chunks, fetched as ONE batched hedged
         ranged-GET plan (:meth:`raw_chunk_plan`: page-granular splits once a walk cached
         the chunk's pages)."""
+        t0 = time.perf_counter()
         plans = self.raw_chunk_plan(path, row_group, columns)
         payloads = self.fetch_ranges(path, [r for _name, ranges in plans for r in ranges])
         out = {}
@@ -575,6 +634,7 @@ class RemoteReadEngine:
             pos += len(ranges)
             out[name] = bytes(parts[0]) if len(parts) == 1 \
                 else b"".join(bytes(p) for p in parts)
+        self._span(t0)
         return out
 
     def fetch_ranges(self, path, ranges):
@@ -697,9 +757,8 @@ class RemoteReadEngine:
             self._attempt_failed(state, e)
             return
         self._model.observe(self._store, length, dur)
-        with self._lock:
-            self._n["gets"] += 1
-            self._n["bytes"] += len(data)
+        self._count("gets")
+        self._count("bytes", len(data))
         lease = Lease(kind="remote_get")
         deliver = False
         with state.lock:

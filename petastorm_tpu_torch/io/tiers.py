@@ -15,8 +15,9 @@ read goes through:
 The funnel degrades to its parts: no mem budget, no mem tier; ``cache_type="null"``,
 a disk tier that holds nothing. The mem tier's read-only serving contract is
 :class:`~petastorm_tpu_torch.io.memcache.MemCache`'s, which also holds the arena tier
-and reports which of the two served. The registry families are ROADMAP.md Queue 1 item
-8b, the per-tenant charges item 8c.
+and reports which of the two served. The funnel's counts reach the registry as
+``ptpu_io_*`` through ``Reader.io_stats()`` (a loader's ``io`` collector); the
+per-tenant charges are ROADMAP.md Queue 1 item 8c.
 """
 from __future__ import annotations
 

@@ -49,18 +49,34 @@ producer thread, ``wait.host_queue``, ``decode.device_inflate``, ``decode.dispat
 reader's pool and readahead spans join them. A span is host wall time around the
 enqueue and launch of a stage's work: no span waits for the card.
 ``metrics=`` (a :class:`~petastorm_tpu_torch.obs.metrics.MetricsRegistry`, or True for
-the process-wide one) adds the ``ptpu_pipeline_*`` and ``ptpu_wire_*`` families and a
-latency histogram a stage; :meth:`DataLoader.bottleneck_report` names the limiting side.
+the process-wide one) adds the ``ptpu_pipeline_*``, ``ptpu_wire_*`` and ``ptpu_io_*``
+families and a latency histogram a stage; :meth:`DataLoader.bottleneck_report` names the
+limiting side.
+
+``health=`` (or ``PTPU_HEALTH``) arms the stall watchdog
+(:mod:`petastorm_tpu_torch.obs.health`): the producer heartbeats as ``loader.producer``
+(``read``, ``batch``, ``wait:host_queue_put``), the transfer thread as
+``loader.transfer`` (``decode`` from the inflate stage through the staged decode,
+``h2d`` through the upload and the device transform, ``wait:host_queue`` and
+``wait:device_queue_put``), and the reader's pool and IO threads heartbeat as their
+modules say. A full queue is a ``wait:`` state, never a stall. The kernels build at their
+first call, on the transfer thread inside a busy state (``decode``, or ``h2d`` for a
+device transform's kernel): a cold build under a threshold of a few seconds can trip the
+watchdog (the default threshold is 120 s). ``slos=`` evaluates
+:class:`~petastorm_tpu_torch.obs.slo.SloSpec` objectives over the ``metrics=``
+registry's windows (:mod:`petastorm_tpu_torch.obs.timeseries`), on whatever cadence
+samples them (a :class:`~petastorm_tpu_torch.obs.export.Reporter`, or
+``registry.sample_timelines()``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
-across devices (item 12); health, provenance and SLOs (item 8b); the controller and
-tenants (item 8c).
+across devices (item 12); provenance (item 8b(ii)); the controller and tenants (item 8c).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import inspect
+import itertools
 import logging
 import os
 import queue
@@ -80,6 +96,10 @@ from petastorm_tpu_torch.utils import stack_as_column
 logger = logging.getLogger(__name__)
 
 _SENTINEL = object()
+
+#: pipeline ids of the health scopes: loaders sharing one HealthMonitor must not share
+#: heartbeat slots
+_pipeline_seq = itertools.count()
 
 #: slab size of the inflate stage's pinned ring: a batch's compressed pages, all columns
 #: (a larger request is copied unpooled, counted as ``staging_oversized``)
@@ -182,10 +202,14 @@ class _LoaderObs:
     reader's ``wire_stats()`` as ``ptpu_wire_*``. One metrics-enabled loader a registry
     at a time: the families carry no per-loader label.
 
+    The reader's ``io_stats()`` exports as ``ptpu_io_*`` (the ``io`` collector: the
+    readahead pool's, the caches', the ranged-GET engine's and the arena's counts under
+    the JAX package's key names; a process pool's children's counts, nested, are not
+    exported), and a health monitor's heartbeats as ``ptpu_health_*``.
+
     The loader and its reader are held through WEAK references: a caller that skips the
     context-manager teardown leaves collectors that go quiet once the loader is
     collected, instead of pinning it or freezing its last gauges into every snapshot.
-    The reader's ``io_stats()`` families (``ptpu_io_*``) are ROADMAP.md Queue 1 item 8b.
     """
 
     def __init__(self, registry, loader):
@@ -198,12 +222,21 @@ class _LoaderObs:
                 help="per-occurrence pipeline stage latency (seconds)", stage=stage)
             for stage in _OBS_STAGES}
         self._handles = [registry.register_collector("pipeline", self._collect_pipeline)]
+        health = getattr(loader, "_health", None)
+        if health is not None:
+            # the monitor's lifetime is the loader's; close() unregisters it with the rest
+            self._handles.append(registry.register_collector("health", health.collect))
         self._loader_ref = weakref.ref(loader)
         wire_stats_fn = getattr(loader.reader, "wire_stats", None)
         if wire_stats_fn is not None:
             wire_ref = weakref.WeakMethod(wire_stats_fn)
             self._handles.append(registry.register_collector(
                 "wire", lambda: (wire_ref() or dict)()))
+        io_stats_fn = getattr(loader.reader, "io_stats", None)
+        if io_stats_fn is not None:
+            io_ref = weakref.WeakMethod(io_stats_fn)
+            self._handles.append(registry.register_collector(
+                "io", lambda: (io_ref() or dict)()))
 
     def observe(self, stage, dur):
         self._hists[stage].observe(dur)
@@ -680,6 +713,25 @@ class DataLoader:
     metrics : MetricsRegistry or True, optional
         Stage latency histograms and the pipeline's gauges on this registry (True: the
         process-wide one); collectors unregister at ``__exit__``.
+    health : True, HealthOptions or HealthMonitor, optional
+        Stall monitoring (:mod:`petastorm_tpu_torch.obs.health`): every pipeline actor
+        heartbeats and a watchdog thread calls an actor stalled when its heartbeat ages
+        past its role's threshold in a busy state (a full queue never counts). ``True``:
+        the defaults; a ``HealthOptions`` tunes thresholds, poll interval and escalation
+        (``"raise"`` delivers a :class:`~petastorm_tpu_torch.errors.StallError` to the
+        consumer; ``"heal"`` first lets the process pool kill a hung child); a
+        ``HealthMonitor`` is shared (the caller owns it, and this loader's actors are
+        scoped under ``pipeN/``). ``PTPU_HEALTH=1`` turns it on without code.
+        :meth:`health_report` works whenever it is on; with ``metrics=`` the heartbeat
+        ages export as ``ptpu_health_*``.
+    slos : sequence of SloSpec, or an SloEngine, optional
+        Objectives evaluated on each window of the ``metrics=`` registry's time series
+        (required: ``ValueError`` without ``metrics=``). A window is one
+        ``registry.sample_timelines()``, which a ``Reporter`` on that registry calls
+        each flush. Debounced breaches fire ``slo_breach`` degradations and count
+        ``ptpu_slo_alerts_total``; read them from :meth:`slo_alerts`. A pre-built
+        :class:`~petastorm_tpu_torch.obs.slo.SloEngine` is shared and stays attached at
+        ``__exit__``.
     device : torch.device or str, optional, keyword only
         Where batches land (and where staged fields decode). Default: the CUDA device
         (raises when there is none).
@@ -696,8 +748,8 @@ class DataLoader:
                  metrics=None, health=None, staging=None, provenance=None,
                  slos=None, controller=None, tenant=None, *, device=None):
         reject_unported(
-            "DataLoader", sharding=sharding, health=health, provenance=provenance,
-            slos=slos, controller=controller, tenant=tenant)
+            "DataLoader", sharding=sharding, provenance=provenance,
+            controller=controller, tenant=tenant)
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if last_batch not in ("drop", "pad", "partial"):
@@ -751,6 +803,9 @@ class DataLoader:
         self._transfer_thread = None
         self._stop = threading.Event()
         self._producer_error = None
+        #: False while a watchdog StallError is pending that no consumer has seen: the
+        #: next __iter__ raises it instead of clearing it into an empty epoch
+        self._producer_error_delivered = True
         #: bumped by every _start_producer(): a superseded iterator's finalizer must not
         #: stop the pipeline a newer __iter__ armed
         self._generation = 0
@@ -759,6 +814,7 @@ class DataLoader:
         self._trace = trace
         if trace is not None and hasattr(reader, "set_trace"):
             reader.set_trace(trace)
+        self._init_health(health, metrics)
         #: stage histograms and pull collectors (None: disabled)
         self._obs = None
         if metrics:
@@ -767,6 +823,31 @@ class DataLoader:
             registry = metrics if isinstance(metrics, MetricsRegistry) \
                 else default_registry()
             self._obs = _LoaderObs(registry, self)
+        #: the SLO engine over the registry's windows (None: disabled); it runs on the
+        #: sampling cadence, never on this loader's threads
+        self._slo_engine = None
+        self._slo_owned = False
+        if slos:
+            if self._obs is None:
+                raise ValueError(
+                    "DataLoader(slos=...) requires metrics=: the SLO engine evaluates "
+                    "the metrics registry's windowed time series")
+            from petastorm_tpu_torch.obs.slo import SloEngine
+
+            registry = self._obs.registry
+            if isinstance(slos, SloEngine):
+                # caller-supplied and shared: never detached at __exit__, never moved
+                # off a store its caller attached it to
+                engine = slos
+                if engine._registry is None:
+                    engine._registry = registry
+                if engine._store is None:
+                    engine.attach(registry.timeline_store())
+            else:
+                engine = SloEngine(specs=list(slos), registry=registry)
+                engine.attach(registry.timeline_store())
+                self._slo_owned = True
+            self._slo_engine = engine
         # consumer-watermark checkpointing (see state_dict): the producer logs
         # (cumulative delivered rows, reader state) at its deliveries, the consumer counts
         # the rows it has taken, and state_dict() returns the newest logged state the
@@ -779,6 +860,50 @@ class DataLoader:
         self._ckpt_log = collections.deque()
         self._ckpt_base = None
         self._rows_consumed = 0
+
+    def _init_health(self, health, metrics):
+        """The health wiring of ``health=`` (None: the ``PTPU_HEALTH`` switch): the
+        monitor, this pipeline's scope on it, the flight-record context and the
+        fail-fast callback, the reader's pool and IO threads, and the watchdog."""
+        from petastorm_tpu_torch.obs.health import normalize_health
+
+        self._health, self._health_owned = normalize_health(health)
+        self._health_scope = None
+        self._health_handles = ()
+        self._hb_transfer = None  # the transfer thread's heartbeat while it runs
+        if self._health is None:
+            return
+        import weakref
+
+        monitor = self._health
+        if self._health_owned:
+            self._health_scope = monitor  # an exclusive monitor: bare actor names
+            prefix = None
+        else:
+            # a shared monitor: this pipeline's actors get their own slots, so another
+            # loader's healthy stamps cannot mask this one's stall
+            prefix = "pipe%d" % next(_pipeline_seq)
+            self._health_scope = monitor.scoped(prefix)
+        ref = weakref.ref(self)  # a shared monitor must not pin a dead loader
+        self._health_handles = (
+            monitor.add_context(
+                "pipeline" if prefix is None else "pipeline/%s" % prefix,
+                lambda: (lambda ld: ld._health_context() if ld is not None
+                         else {})(ref())),
+            monitor.add_stall_callback(
+                lambda err: (lambda ld: ld._fail_fast(err) if ld is not None
+                             else None)(ref()),
+                prefix=prefix))
+        if self._health_owned and metrics:
+            # before the reader's pool is wired below: its workers record latencies as
+            # soon as set_health lands, and set_registry is a no-op after that
+            from petastorm_tpu_torch.obs.metrics import MetricsRegistry, default_registry
+
+            monitor.set_registry(metrics if isinstance(metrics, MetricsRegistry)
+                                 else default_registry())
+        if hasattr(self.reader, "set_health"):
+            self.reader.set_health(self._health_scope)
+        monitor.start()
 
     def _timed(self, span, stage, t0):
         """Seconds since ``t0``, recorded as a ``span`` in the trace and as a ``stage``
@@ -822,12 +947,24 @@ class DataLoader:
         ckpt_cum = 0  # rows the reader delivered in this iteration
         ckpt_deliveries = 0
         ckpt_next_snap = 1
+        # one heartbeat for this thread (None: health off), registered through the
+        # scope; the flight ring gets the read span of each delivery
+        scope = self._health_scope
+        hb = flight = None
+        if scope is not None:
+            hb = scope.register("loader.producer", "producer")
+            flight = scope.flight
         try:
             it = iter(self.reader)
             while True:
+                if hb is not None:
+                    hb.beat("read")
                 t0 = time.perf_counter()
                 item = next(it, _SENTINEL)
-                stats.read_s += self._timed("reader.next", "read", t0)
+                dt = self._timed("reader.next", "read", t0)
+                stats.read_s += dt
+                if flight is not None:
+                    flight.record("span", name="read", dur_s=round(dt, 6))
                 if wire_stats is not None:
                     stats.update_wire(wire_stats())
                 if item is _SENTINEL:
@@ -838,6 +975,8 @@ class DataLoader:
                     break
                 if self._stop.is_set():
                     return
+                if hb is not None:
+                    hb.beat("batch")
                 t0 = time.perf_counter()
                 if batched:
                     # a batched NGram reader delivers plain dicts of flat columns
@@ -876,20 +1015,26 @@ class DataLoader:
                     if (ready or batched) and ckpt_deliveries >= ckpt_next_snap:
                         self._ckpt_record(ckpt_cum)
                         ckpt_next_snap = ckpt_deliveries + max(1, ckpt_deliveries // 512)
-                if not self._deliver_batches(q, ready):
+                if not self._deliver_batches(q, ready, hb):
                     return
             # under last_batch='drop' the shuffling buffer can still hold whole batches at
             # reader exhaustion — only the short tail is dropped
-            if not self._deliver_batches(q, batcher.finish(),
+            if not self._deliver_batches(q, batcher.finish(), hb,
                                          drop_short=self.last_batch == "drop"):
                 return
         except Exception as e:  # noqa: BLE001 — surfaced to the consumer thread
             self._producer_error = e
+            if flight is not None:
+                flight.record("producer_error", error=repr(e))
         finally:
             batcher.close()
+            if flight is not None:
+                flight.record("queue", event="producer_end_of_stream")
+            if hb is not None:
+                hb.done()
             _put_sentinel(q, self._stop)
 
-    def _deliver_batches(self, q, batches, drop_short=False):
+    def _deliver_batches(self, q, batches, hb=None, drop_short=False):
         """Push cut batches into the host queue, padding per ``last_batch``. Returns
         False once the loader is stopped. A batch that is dropped, or not delivered
         because the loader stopped, releases its leases here."""
@@ -903,10 +1048,15 @@ class DataLoader:
                 continue
             if self.last_batch == "pad":
                 batch = self._pad(batch)
+            if hb is not None:
+                # a full host queue is backpressure: the consumer side is the slow one
+                hb.wait("host_queue_put")
             t0 = time.perf_counter()
             ok = _put_with_stop(q, batch, self._stop)
             self.stats.put_wait_s += self._timed("wait.host_queue_put", "host_queue_put",
                                                  t0)
+            if hb is not None:
+                hb.beat("batch")
             if not ok:
                 for b in batches[i:]:
                     _release_leases(b)
@@ -957,7 +1107,19 @@ class DataLoader:
                     "timeout; cannot safely start a new iteration")
         self._generation += 1
         self._stop.clear()
+        pending = self._producer_error
+        if pending is not None and not self._producer_error_delivered:
+            from petastorm_tpu_torch.errors import StallError
+
+            if isinstance(pending, StallError):
+                # the watchdog failed fast while no consumer iterated (before the first
+                # iteration or between epochs): the reader is stopped already and the
+                # debounced watchdog will not report the same hang again, so clearing
+                # it here would turn a detected stall into a silently empty epoch
+                self._producer_error_delivered = True
+                raise pending
         self._producer_error = None
+        self._producer_error_delivered = True
         self.stats.reset()
         if self._ckpt_enabled:
             with self._ckpt_lock:
@@ -975,11 +1137,15 @@ class DataLoader:
     def _host_batches(self, q):
         stats = self.stats
         while True:
+            hb = self._hb_transfer  # set only while the transfer thread runs
+            if hb is not None:
+                hb.wait("host_queue")  # starved: the producer's side is the slow one
             t0 = time.perf_counter()
             item = q.get()
             stats.queue_wait_s += self._timed("wait.host_queue", "host_queue_wait", t0)
             if item is _SENTINEL:
                 if self._producer_error is not None:
+                    self._producer_error_delivered = True
                     raise self._producer_error
                 return
             stats.batches += 1
@@ -1047,6 +1213,11 @@ class DataLoader:
             return batch, {}
         from petastorm_tpu_torch.ops import pagedec_kernels as pk
 
+        hb = self._hb_transfer
+        if hb is not None:
+            # busy: the inflate's one read back to the host waits for the card here
+            hb.beat("decode")
+
         counters = pagedec_counters()
         t0 = time.perf_counter()
         if _chaos.ACTIVE is not None:
@@ -1090,10 +1261,17 @@ class DataLoader:
         separately."""
         import torch
 
+        hb = self._hb_transfer
         batch, inflated = self._inflate_passthrough(batch)
+        if hb is not None:
+            hb.beat("decode")
         t0 = time.perf_counter()
         batch, decoded = self._decode_staged(batch)
         self.stats.decode_s += self._timed("decode.dispatch", "decode", t0)
+        if hb is not None:
+            # busy through the upload (the pinned slab's reuse may wait for the card)
+            # and the device transform
+            hb.beat("h2d")
         t0 = time.perf_counter()
         device = {k: v for k, v in batch.items() if _is_device_dtype(v)}
         host = {k: v for k, v in batch.items() if k not in device}
@@ -1276,13 +1454,26 @@ class DataLoader:
         transfer_error = []
 
         def _transfer():
+            scope = self._health_scope
+            hb = None
+            if scope is not None:
+                hb = scope.register("loader.transfer", "transfer")
+                self._hb_transfer = hb
             try:
                 for item in self._device_batches(host_q):
-                    if self._stop.is_set() or not _put_with_stop(dev_q, item, self._stop):
+                    if self._stop.is_set():
+                        return
+                    if hb is not None:
+                        # a full device queue: the training step is the slow one
+                        hb.wait("device_queue_put")
+                    if not _put_with_stop(dev_q, item, self._stop):
                         return
             except Exception as e:  # noqa: BLE001 — surfaced to the consumer thread
                 transfer_error.append(e)
             finally:
+                if hb is not None:
+                    hb.done()
+                self._hb_transfer = None
                 _put_sentinel(dev_q, self._stop)
 
         self._transfer_thread = threading.Thread(
@@ -1309,6 +1500,9 @@ class DataLoader:
                     if transfer_error:
                         raise transfer_error[0]
                     if self._producer_error is not None:
+                        # the watchdog's fail-fast puts the sentinel straight into this
+                        # queue: its StallError must surface, not end the epoch quietly
+                        self._producer_error_delivered = True
                         raise self._producer_error
                     return
                 yield self._hand_over(*item)
@@ -1392,6 +1586,79 @@ class DataLoader:
 
         return analyze_loader(self)
 
+    def _fail_fast(self, err):
+        """The watchdog's ``raise`` escalation (from its thread): deliver ``err`` to the
+        consumer and unblock every queue, so the training loop gets a
+        :class:`~petastorm_tpu_torch.errors.StallError` instead of hanging. The reader is
+        stopped too (a truncation, as a user's ``stop()``), so a producer blocked in the
+        reader wakes; a worker thread wedged in native code stays behind as a daemon,
+        reported by the pool's ``thread_join_timeout`` degradation at join."""
+        self._producer_error = err
+        self._producer_error_delivered = False
+        try:
+            self.reader.stop()
+        except Exception:  # noqa: BLE001 — the StallError itself is the signal
+            pass
+        self.stop()
+
+    def _health_context(self):
+        """Queue depths, stats and the reader's gauges, snapshotted into each flight
+        record: where the pipeline was backed up when it stalled."""
+        q = self._queue
+        dq = self._dev_queue
+        out = {
+            "host_queue_depth": q.qsize() if q is not None else 0,
+            "host_queue_size": max(2, self._host_queue_size),
+            "device_queue_depth": dq.qsize() if dq is not None else 0,
+            "device_queue_size": max(1, self.prefetch),
+            "stats": self.stats.snapshot(),
+        }
+        for name in ("io_stats", "wire_stats"):
+            fn = getattr(self.reader, name, None)
+            if fn is not None:
+                try:
+                    polled = fn()
+                except Exception:  # noqa: BLE001 — the evidence is best effort
+                    polled = None
+                if polled:
+                    out[name.replace("_stats", "")] = polled
+        if self._slo_engine is not None:
+            # a stall that followed a burn shows the burn
+            alerts = self._slo_engine.alerts()
+            out["slo"] = {"alerts": len(alerts), "breaching": self._slo_engine.breaching(),
+                          "last_alert": alerts[-1].message if alerts else None}
+        return out
+
+    def health_report(self, dump_path=None):
+        """The health snapshot on demand (the loader needs ``health=``): the full
+        flight-record dict (heartbeat ages and states, driver and pool-child stacks,
+        queue depths, degradation counts, per-worker latency, the recent events) plus
+        the bottleneck analyzer's verdict under ``"bottleneck"``. ``dump_path`` also
+        writes it as a JSON flight record."""
+        if self._health is None:
+            raise ValueError(
+                "DataLoader was built without health monitoring: pass health=True (or "
+                "a HealthOptions/HealthMonitor, or set PTPU_HEALTH=1) to enable "
+                "health_report()")
+        report = self._health.capture("on_demand")
+        report["bottleneck"] = self.bottleneck_report().to_dict()
+        if dump_path is not None:
+            from petastorm_tpu_torch.obs.flight import write_flight_record
+
+            write_flight_record(dump_path, report)
+        return report
+
+    @property
+    def slo_engine(self):
+        """The attached :class:`~petastorm_tpu_torch.obs.slo.SloEngine`, or None without
+        ``slos=``."""
+        return self._slo_engine
+
+    def slo_alerts(self):
+        """The debounced SLO breach and anomaly alerts so far (oldest first): each an
+        :class:`~petastorm_tpu_torch.obs.slo.SloAlert`. Empty without ``slos=``."""
+        return self._slo_engine.alerts() if self._slo_engine is not None else []
+
     # -- lifecycle ----------------------------------------------------------------------
 
     def stop(self):
@@ -1436,8 +1703,25 @@ class DataLoader:
         for pool in (self._staging, self._page_staging):
             if pool is not None:
                 pool.close()
+        if self._slo_engine is not None and self._slo_owned:
+            # a loader-built engine stops evaluating (its alerts stay readable); a
+            # shared one keeps watching: a sibling pipeline may still be burning
+            self._slo_engine.detach()
         if self._obs is not None:
             self._obs.close()
+        if self._health is not None:
+            monitor = self._health
+            context_handle, stall_handle = self._health_handles or (None, None)
+            if context_handle is not None:
+                monitor.remove_context(context_handle)
+            if stall_handle is not None:
+                monitor.remove_stall_callback(stall_handle)
+            self._health_handles = ()
+            if self._health_owned:
+                monitor.stop()  # a shared monitor stays running: its owner stops it
+            elif self._health_scope is not None:
+                # retire this pipeline's actors, or closed loaders pile up on it
+                self._health_scope.close()
 
 
 def _process_group():

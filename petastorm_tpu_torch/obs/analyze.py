@@ -31,8 +31,8 @@ Verdicts (the JAX package's):
   Fix: more/bigger slabs, release batches sooner.
 - ``straggler`` — a producer-bound pipeline whose reader time is actually ONE
   slow worker: the per-worker latency histograms (recorded when a health
-  monitor is attached; ROADMAP.md Queue 1 item 8b) show one worker's mean item latency far above
-  its peers' — a bad disk, a hot row-group shard, a throttled child. Fix: look
+  monitor is attached, ``DataLoader(health=...)``) show one worker's mean item latency
+  far above its peers' — a bad disk, a hot row-group shard, a throttled child. Fix: look
   at that worker's host/shard, enable work stealing, or drop the worker.
 - ``balanced`` — no stage dominates (utilizations within tolerance), and
   ``idle`` — not enough data to judge.
@@ -58,6 +58,7 @@ class BottleneckReport:
     percentiles: dict | None = None  # stage -> {p50, p90, p99}, when metrics on
     straggler: dict | None = None    # {worker, mean_s, peer_median_s, ratio}, when detected
     transform_ops: dict | None = None  # fused-op label -> {"count", "sum"}
+    slo_alerts: list | None = None   # recent debounced SLO/anomaly alerts
 
     def to_dict(self):
         return dataclasses.asdict(self)
@@ -101,6 +102,11 @@ class BottleneckReport:
                 s = self.transform_ops[op]
                 lines.append("    %-20s total %8.3fs over %6d calls"
                              % (op, s["sum"], s["count"]))
+        if self.slo_alerts:
+            lines.append("  slo alerts (newest last):")
+            for alert in self.slo_alerts[-5:]:
+                lines.append("    [%s] %s" % (alert.get("cause", "?"),
+                                             alert.get("message", "")))
         return "\n".join(lines)
 
     def __str__(self):
@@ -228,8 +234,8 @@ def analyze_snapshot(snap, percentiles=None, worker_latency=None):
 def analyze_loader(loader):
     """:func:`analyze_snapshot` over a live ``DataLoader``: the implementation behind
     ``DataLoader.bottleneck_report()`` (stage percentiles attached when the loader was
-    built with ``metrics=``; per-worker straggler detection needs a health monitor,
-    ROADMAP.md Queue 1 item 8b)."""
+    built with ``metrics=``; per-worker straggler detection when it was built with
+    ``health=``; the SLO engine's alerts when it was built with ``slos=``)."""
     snap = loader.stats.snapshot()
     percentiles = None
     obs = getattr(loader, "_obs", None)
@@ -239,7 +245,12 @@ def analyze_loader(loader):
             s = hist.snapshot()
             percentiles[stage] = {"p50": s["p50"], "p90": s["p90"],
                                   "p99": s["p99"]}
-    report = analyze_snapshot(snap, percentiles=percentiles)
+    # the SCOPE, not the monitor: on a shared monitor the straggler detector compares
+    # peers within this pipeline's pool only
+    scope = getattr(loader, "_health_scope", None)
+    worker_latency = scope.worker_latency() if scope is not None else None
+    report = analyze_snapshot(snap, percentiles=percentiles,
+                              worker_latency=worker_latency)
     # declarative-transform visibility: per-fused-op timings from
     # the process-wide registry — live for thread/dummy pools, where the
     # transform runs in this process (pool children keep their own registries)
@@ -248,4 +259,14 @@ def analyze_loader(loader):
     ops = transform_op_stats()
     if ops:
         report.transform_ops = ops
+    # the time-series plane: recent debounced alerts ride on the verdict, so one report
+    # shows both the steady-state shape and any burn a window crossed
+    engine = getattr(loader, "_slo_engine", None)
+    if engine is not None:
+        alerts = engine.alerts()
+        if alerts:
+            report.slo_alerts = [
+                {"name": a.name, "cause": a.cause, "t": a.t, "value": a.value,
+                 "culprit": a.culprit, "message": a.message}
+                for a in alerts]
     return report

@@ -13,7 +13,10 @@ Port of ``petastorm_tpu.obs.export``. Two pull points for the registry
 :func:`parse_prometheus_text` is the minimal parser the tests validate exports with
 (no ``prometheus_client`` dependency); :func:`read_latest_jsonl_snapshot` and
 :func:`read_recent_jsonl_snapshots` read a Reporter's stream back, tolerating a torn
-final line. The stats CLI that pretty-prints both is ROADMAP.md Queue 1 item 8b.
+final line. With ``timelines=True`` (the default) each flush first samples the
+registry's windowed time series (:meth:`MetricsRegistry.sample_timelines`), which also
+drives an attached SLO engine. The stats CLI that pretty-prints both is ROADMAP.md
+Queue 1 item 8b(ii).
 """
 from __future__ import annotations
 
@@ -159,13 +162,17 @@ class Reporter:
     SCHEMA = "ptpu-stats-v2"
 
     def __init__(self, registry=None, interval_s=5.0, jsonl_path=None,
-                 prom_path=None, max_bytes=None, keep=3):
+                 prom_path=None, max_bytes=None, keep=3, timelines=True):
         if jsonl_path is None and prom_path is None:
             raise ValueError("Reporter needs jsonl_path and/or prom_path")
         self._registry = registry or default_registry()
         self._interval_s = float(interval_s)
         self._jsonl_path = jsonl_path
         self._prom_path = prom_path
+        #: sample the registry's windowed time series once a flush, on this thread
+        #: (the hot paths never see it); False opts out, e.g. for a second Reporter
+        #: on the same registry, which would halve the windows
+        self._timelines = bool(timelines)
         import socket
 
         self._anchor = {"wall": time.time(), "perf": time.perf_counter(),
@@ -210,6 +217,17 @@ class Reporter:
                 pass  # degrade: append past the cap rather than drop data
 
     def _write_once(self):
+        if self._timelines:
+            # the SLO engine, a listener of the store, evaluates on this same tick; a
+            # failed sample must not cost the flush
+            try:
+                self._registry.sample_timelines()
+            except Exception:  # noqa: BLE001 — flushing beats sampling
+                from petastorm_tpu_torch.obs.log import degradation
+
+                degradation("timeline_sample_error",
+                            "timeline sampling failed on the Reporter cadence; "
+                            "snapshots continue without windows")
         if self._prom_path is not None:
             write_prometheus(self._prom_path, self._registry)
         if self._jsonl_path is not None:

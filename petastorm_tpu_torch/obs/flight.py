@@ -8,8 +8,9 @@ formatting until a dump), and :func:`write_flight_record` writes a record as JSO
 
 :func:`active_recorders` is the module-global hook the degradation log and the chaos
 plane mirror their entries into, without either depending on whoever owns the
-recorder (the health monitor, ROADMAP.md Queue 1 item 8b, or a caller that
-registers one through :func:`activate`).
+recorder (the health monitor of :mod:`petastorm_tpu_torch.obs.health`, or a caller that
+registers one through :func:`activate`). With a monitor attached, the process pool's
+dispatcher records its steals here too.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Process-wide metrics registry: counters, gauges, log-bucketed histograms.
 
-Port of ``petastorm_tpu.obs.metrics`` (the timeline hooks ``timeline_store``,
-``sample_timelines`` and ``timeline`` belong to the time-series plane, ROADMAP.md Queue 1
-item 8b). A named metric **family** is a metric name plus a label set (the Prometheus
+Port of ``petastorm_tpu.obs.metrics``, with the time-series plane's hooks
+(``timeline_store``, ``sample_timelines``, ``timeline``: windows over time,
+:mod:`petastorm_tpu_torch.obs.timeseries`). A named metric **family** is a metric name plus a label set (the Prometheus
 data model); a **registry** owns every family in the process, and exporters and the
 bottleneck analyzer read one ``snapshot()`` instead of each subsystem's own dict.
 
@@ -253,6 +253,9 @@ class MetricsRegistry:
         self._families = {}    # name -> (kind, help)
         self._collectors = {}  # handle (int) -> (prefix, fn)
         self._next_handle = 0
+        #: the windowed time-series store, made at the first timeline_store() or
+        #: sample_timelines() call: a registry that never asks pays nothing
+        self._timeline_store = None
 
     # -- family construction ------------------------------------------------------------
 
@@ -329,6 +332,54 @@ class MetricsRegistry:
                     continue
                 out["ptpu_%s_%s" % (prefix, suffix)] = value
         return out
+
+    # -- windowed time series -----------------------------------------------------------
+
+    def _timeline_sources(self):
+        """Raw reads of every series for the timeline sampler
+        (:mod:`petastorm_tpu_torch.obs.timeseries`): ``[(full_name, kind, payload)]``,
+        the payload the value of a counter or gauge and ``export_state()`` of a
+        histogram. Collector values are typed by suffix (``*_total`` counts as a
+        counter, everything else as a level); cumulative floats (``read_s``, ``rows``)
+        are differenced by the sampler either way."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out = []
+        for m in metrics:
+            if m.kind == "histogram":
+                out.append((m.full_name, "histogram", m.export_state()))
+            else:
+                out.append((m.full_name, m.kind, m.value))
+        for name, value in self._collect().items():
+            if not isinstance(value, (int, float)):
+                continue  # a non-scalar collector value has no window
+            kind = "counter" if name.endswith("_total") else "gauge"
+            out.append((name, kind, float(value)))
+        return out
+
+    def timeline_store(self, **kwargs):
+        """The registry's :class:`~petastorm_tpu_torch.obs.timeseries.TimelineStore`
+        (made at first use; ``kwargs``, ``max_points``/``max_series``, apply only then).
+        Sampling happens on whatever cadence calls :meth:`sample_timelines` (the
+        Reporter's thread, normally), never on an instrumented hot path."""
+        with self._lock:
+            if self._timeline_store is None:
+                from petastorm_tpu_torch.obs.timeseries import TimelineStore
+
+                self._timeline_store = TimelineStore(self, **kwargs)
+            return self._timeline_store
+
+    def sample_timelines(self):
+        """Sample every series into the timeline rings (one pass, one lock a metric);
+        returns the window dict. The Reporter calls this once a flush."""
+        return self.timeline_store().sample()
+
+    def timeline(self, name):
+        """The windowed points of one series (its full snapshot name, labels
+        included), ``[]`` until the store has sampled it. Counters read back as
+        delta/rate points, histograms as p50/p99 a window."""
+        store = self._timeline_store
+        return store.points(name) if store is not None else []
 
     # -- output -------------------------------------------------------------------------
 

@@ -105,6 +105,9 @@ class _Tagged:
         """Readahead hint: the plan items without their dispatch tags."""
         self._worker.prefetch([tagged[2] for tagged in tagged_items])
 
+    def warm(self):
+        self._worker.warm()
+
     def close(self):
         self._worker.close()
 
@@ -219,6 +222,7 @@ class _WorkerBase:
         self._recovery = RecoveryOptions.normalize(recovery)
         self._local = threading.local()
         self._io_tracer = None  # the readahead pool's TraceRecorder (set_trace)
+        self._io_health = None  # the readahead pool's HealthMonitor (set_health)
         self._readahead = None  # built lazily, in each process, by the first prefetch
         self._io_closed = False  # latched by close(); reopen() re-arms (Reader.reset)
         self._readahead_unavailable = False  # this worker's pool failed to build
@@ -236,11 +240,22 @@ class _WorkerBase:
         state["_remote"] = None
         state["_remote_unavailable"] = False
         state["_io_tracer"] = None
+        state["_io_health"] = None  # holds threads: never crosses the pickle wire
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._local = threading.local()
+
+    @staticmethod
+    def warm():
+        """Pay a process's first-use cost of a read before it takes work: pyarrow's first
+        ``to_numpy`` imports pandas, half a second of one core and seconds on a busy
+        host. A pool child calls this before it announces itself, so that its heartbeat,
+        busy from the send of each item, times the work and not the import."""
+        import pyarrow as pa
+
+        pa.array([0]).to_numpy()
 
     def _cache_get(self, key, fill):
         """Read through the cache funnel. A memcache serves zero-copy read-only views;
@@ -328,6 +343,8 @@ class _WorkerBase:
                             coalesce_max_run=opts.coalesce_max_run, gap_ok=gap_ok)
                         if self._io_tracer is not None:
                             pool.set_trace(self._io_tracer)
+                        if self._io_health is not None:
+                            pool.set_health(self._io_health)
                     except Exception as e:  # noqa: BLE001 — degrade to sync reads
                         degradation("readahead_unavailable",
                                     "readahead pool construction failed (%s); reads "
@@ -369,6 +386,8 @@ class _WorkerBase:
                     if engine is None:
                         self._remote_unavailable = True
                         return None
+                    if self._io_tracer is not None:
+                        engine.set_trace(self._io_tracer)
                     self._remote = engine
         return engine
 
@@ -448,6 +467,17 @@ class _WorkerBase:
         pool = self._readahead
         if pool is not None:
             pool.set_trace(tracer)
+        engine = self._remote
+        if engine is not None:
+            engine.set_trace(tracer)
+
+    def set_health(self, monitor):
+        """Attach a health monitor to this process's readahead pool (each IO thread
+        heartbeats its background reads), now and when it is built."""
+        self._io_health = monitor
+        pool = self._readahead
+        if pool is not None:
+            pool.set_health(monitor)
 
     def reopen(self):
         """Re-arm the lazy readahead pool after :meth:`close` (``Reader.reset``)."""
@@ -1238,6 +1268,8 @@ class Reader:
         self._fs = filesystem
         #: a TraceRecorder the pool and the readahead pool record into (set_trace)
         self._tracer = None
+        #: the health monitor or scope of the pool and the readahead pool (set_health)
+        self._health_monitor = None
         #: lease of the current batch or row buffer on a view wire: held until the next
         #: fetch, release_batch() or take_lease()
         self._held_lease = None
@@ -1269,6 +1301,10 @@ class Reader:
         self._executor = make_executor(**self._pool_args)
         if self._tracer is not None:
             self._executor_set_trace(self._tracer)
+        if self._health_monitor is not None:
+            # before start(): a rebuilt process pool hands its children the monitor-era
+            # handshake and registers its healer on the monitor
+            self._executor.set_health(self._health_monitor)
         self._executor.start(_Tagged(self._worker), self._plan)
         self._results_iter = self._executor.results()
         self.stopped = False
@@ -1487,6 +1523,17 @@ class Reader:
         self._tracer = tracer
         self._executor_set_trace(tracer)
         self._worker.set_trace(tracer)
+
+    def set_health(self, monitor):
+        """Attach a :class:`~petastorm_tpu_torch.obs.health.HealthMonitor` (or a scope
+        of one; None detaches): the pool's workers or feeders heartbeat each work item
+        (a process pool's children too, and they gain the SIGUSR1 stack dump and the
+        healer), and the worker's readahead IO threads heartbeat each background read.
+        Survives :meth:`reset`. The DataLoader wires this from ``health=``; call it
+        directly for a reader without a loader."""
+        self._health_monitor = monitor
+        self._executor.set_health(monitor)
+        self._worker.set_health(monitor)
 
     def _executor_set_trace(self, tracer):
         fn = getattr(self._executor, "set_trace", None)

@@ -23,10 +23,19 @@ an error, and the Reader charges it to its consumed-work map. The chaos sites
 ``wire.decode`` (the process pool's feeders) and ``child.item`` (inside the child) are
 evaluated when a :class:`~petastorm_tpu_torch.chaos.FaultPlan` is armed. ``set_trace``
 merges the children's ``child.work``/``child.serialize`` spans and the slab ring's
-``shm.acquire_wait`` spans into a :class:`~petastorm_tpu_torch.trace.TraceRecorder`. Not
-ported (each raises ``NotImplementedError`` naming its ROADMAP.md item): the tcp
-transport (item 4(c)); the stall healer and health (item 8b); control frames and the
-live fleet resize (item 8c).
+``shm.acquire_wait`` spans into a :class:`~petastorm_tpu_torch.trace.TraceRecorder`.
+
+``set_health`` attaches a :class:`~petastorm_tpu_torch.obs.health.HealthMonitor` (or a
+scope of one) to every pool: worker threads and feeder threads heartbeat each work item
+(busy while working, ``wait:`` while claiming or blocked on a full results queue) and
+record their item latencies (``observe_worker``), the dispatcher records its steals in
+the monitor's flight ring, and the process pool adds a heartbeat a child (stamped from
+the child's pings), a stack provider (SIGUSR1 to its own live children, whose
+faulthandler writes their stacks to a file the parent reads) and the healer of the
+``heal`` escalation, which kills a hung child only when the respawn budget or the poison
+policy can absorb its item. Not ported (each raises ``NotImplementedError`` naming its
+ROADMAP.md item): the tcp transport (item 4(c)); control frames and the live fleet resize
+(item 8c).
 
 Contract: ``executor.start(worker, plan)`` then iterate ``executor.results()``; exceptions
 in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference pool API.
@@ -42,6 +51,7 @@ from collections import deque
 
 from petastorm_tpu_torch import chaos as _chaos
 from petastorm_tpu_torch.errors import TimeoutWaitingForResultError, WorkerDiedError
+from petastorm_tpu_torch.obs.health import ActorSlots
 from petastorm_tpu_torch.recovery import QuarantinedItem, RecoveryOptions
 
 _DONE = object()
@@ -65,14 +75,22 @@ class PullDispatcher:
     tag, so ``Reader.state_dict()`` stays exact.
     """
 
-    def __init__(self, plan, workers_count, lookahead=0, stealing=True):
+    def __init__(self, plan, workers_count, lookahead=0, stealing=True, recorder=None):
         self._iter = iter(plan)
         self._lock = threading.Lock()
         self._claims = [deque() for _ in range(max(1, workers_count))]
         self._exhausted = False
         self._lookahead = max(0, int(lookahead))
         self._stealing = bool(stealing)
+        #: a FlightRecorder the steals are recorded in (None: no recording)
+        self._recorder = recorder
         self.steals = 0
+
+    def set_recorder(self, recorder):
+        """Attach or replace the flight recorder mid-stream (the pool starts in the
+        reader's constructor, before a loader attaches its health monitor)."""
+        with self._lock:
+            self._recorder = recorder
 
     def next(self, worker_idx):
         """Claim the next item for ``worker_idx``: ``(item, upcoming)``, where
@@ -86,6 +104,9 @@ class PullDispatcher:
                 if victim is not None:
                     claim.append(victim.pop())  # the tail: the victim's furthest item
                     self.steals += 1
+                    if self._recorder is not None:
+                        self._recorder.record("steal", thief=worker_idx,
+                                              victim_len=len(victim))
             if not claim:
                 return None
             item = claim.popleft()  # the fill above keeps the hint window full
@@ -106,6 +127,21 @@ class PullDispatcher:
 class _ExcResult:
     def __init__(self, exc):
         self.exc = exc
+
+
+def _attach_health(pool, monitor, *slots):
+    """``set_health`` of every pool: store the monitor (its workers resolve it at each
+    item, so a monitor attached after ``start()`` instruments the rest of the stream),
+    point a running dispatcher's steal events at its flight ring, and watch the work
+    already in flight (:meth:`ActorSlots.attach`): a reader starts working at its
+    construction, before a loader can attach a monitor, and an item that hangs then
+    must not go unseen."""
+    pool._health = monitor
+    dispatch = getattr(pool, "_dispatch", None)
+    if dispatch is not None:
+        dispatch.set_recorder(monitor.flight if monitor is not None else None)
+    for actor_slots in slots:
+        actor_slots.attach(monitor)
 
 
 def _iter_results(pool):
@@ -165,6 +201,9 @@ class SyncExecutor:
     tried again in place, up to ``poison_attempts`` times."""
 
     truncated = False
+    #: the health monitor (set_health); the consumer's own heartbeat covers this pool's
+    #: items, which run on its thread
+    _health = None
 
     def __init__(self, lookahead=0, recovery=None):
         self._worker = None
@@ -172,6 +211,10 @@ class SyncExecutor:
         self._stopped = False
         self._lookahead = max(0, int(lookahead))
         self._recovery = RecoveryOptions.normalize(recovery)
+
+    def set_health(self, monitor):
+        """Attach a health monitor (None detaches)."""
+        _attach_health(self, monitor)
 
     def start(self, worker, plan):
         self._worker = worker
@@ -221,17 +264,29 @@ class ThreadExecutor:
         self._stop_event = threading.Event()
         self._active = 0
         self._active_lock = threading.Lock()
+        #: the health monitor or scope (set_health; None: off, one check a pass)
+        self._health = None
+        #: the worker threads' heartbeats and the start of each one's item in flight
+        self._slots = ActorSlots(self, "worker.thread-%d", "worker")
         #: True when the result stream ended because ``stop()`` aborted it mid-pass
         self.truncated = False
+
+    def set_health(self, monitor):
+        """Attach a health monitor: each worker thread registers
+        ``worker.thread-<i>`` (role ``worker``), busy while working an item and
+        ``wait:claim``/``wait:results_put`` otherwise, and records its item latencies.
+        A worker already in an item is watched from its item's start. None detaches."""
+        _attach_health(self, monitor, self._slots)
 
     def start(self, worker, plan):
         self._results = queue.Queue(maxsize=self._queue_size)
         self._stop_event.clear()
         self.truncated = False
         self._active = self._workers_count
-        self._dispatch = PullDispatcher(plan, self._workers_count,
-                                        lookahead=self._lookahead,
-                                        stealing=self._stealing)
+        monitor = self._health
+        self._dispatch = PullDispatcher(
+            plan, self._workers_count, lookahead=self._lookahead, stealing=self._stealing,
+            recorder=monitor.flight if monitor is not None else None)
         for i in range(self._workers_count):
             t = threading.Thread(target=self._run_worker, args=(worker, self._dispatch, i),
                                  daemon=True, name="ptpu-torch-worker-%d" % i)
@@ -240,21 +295,36 @@ class ThreadExecutor:
 
     def _run_worker(self, worker, dispatch, idx):
         prefetch = getattr(worker, "prefetch", None)
+        slots = self._slots
         try:
             while not self._stop_event.is_set():
+                # resolved each pass: a monitor attached after start() (the loader
+                # attaches to a running reader) instruments the rest of the stream
+                hb = slots.heartbeat(idx)
+                if hb is not None:
+                    hb.wait("claim")  # an exhausted plan is idleness, not a stall
                 claim = dispatch.next(idx)
                 if claim is None:
                     break
                 item, upcoming = claim
+                slots.begin(idx)
+                monitor = self._health
                 if prefetch is not None and upcoming:
                     prefetch(upcoming)  # never raises (degradation-counted)
+                t0 = time.perf_counter() if monitor is not None else 0.0
                 try:
                     result = _run_item(worker, item, self._recovery)
                 except Exception as e:  # noqa: BLE001 — delivered to the consumer
+                    slots.end(idx, "results_put")
                     self._put(_ExcResult(e))
                     break
+                slots.end(idx, "results_put")  # a full results queue is backpressure
+                if monitor is not None:
+                    # the straggler detector's input
+                    monitor.observe_worker(idx, time.perf_counter() - t0)
                 self._put(result)
         finally:
+            slots.retire(idx)
             with self._active_lock:
                 self._active -= 1
                 last = self._active == 0
@@ -365,6 +435,16 @@ class ProcessExecutor:
     ``poison_attempts`` quarantines the item (``kind="child_death"``) and respawns
     without charging it: the item will not be tried again, so it cannot crash-loop.
     A quarantined item travels as a :class:`QuarantinedItem` on the results stream.
+
+    With a health monitor (``set_health``) each feeder thread heartbeats as
+    ``pooldrv-<i>`` (always in a ``wait:`` state: the hang candidate is its child) and
+    each child as ``worker.child-<i>`` (role ``child``), stamped when its item is sent,
+    at every ``("hb", wall_ts)`` ping the child interleaves with its results (one when
+    it receives an item, one every ``PTPU_CHILD_PING_S`` seconds, default 5, while it
+    waits for work) and at its result. A child hung inside its worker sends nothing, so
+    its heartbeat ages: the stall signal. Under ``escalation="heal"`` the pool's healer
+    kills such a child when the kill can be absorbed, and the child-death path above
+    respawns it and dispatches its item again or quarantines it.
     """
 
     def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
@@ -418,6 +498,27 @@ class ProcessExecutor:
         self._stats_lock = threading.Lock()
         self._pool_stats = {}
         self._t_start = None
+        #: the health monitor or scope (set_health; None: off)
+        self._health = None
+        #: feeder index -> its live child's Popen (under the respawn lock): the healer's
+        #: kill target
+        self._child_by_idx = {}
+        #: feeder index -> failures of its in-flight item so far: lets the healer tell
+        #: whether the poison policy can absorb a kill before it kills
+        self._inflight_attempts = {}
+        #: the children's heartbeats (busy from the send of an item to its result) and
+        #: the feeder threads' (always in a wait state)
+        self._child_slots = ActorSlots(self, "worker.child-%d", "child")
+        self._feeder_slots = ActorSlots(self, "pooldrv-%d", "worker")
+        #: the stack provider and healer this pool registered, and the monitor they
+        #: were registered on (handles are meaningful only to the monitor that issued
+        #: them)
+        self._stack_provider_handle = None
+        self._healer_handle = None
+        self._stack_provider_monitor = None
+        #: an idle child pings at this cadence while it waits for work, so a live child
+        #: without work is told apart from a hung one in the evidence
+        self._ping_interval_s = float(os.environ.get("PTPU_CHILD_PING_S", "") or 5.0)
         #: True when the result stream ended because ``stop()`` aborted it mid-pass
         self.truncated = False
 
@@ -466,8 +567,10 @@ class ProcessExecutor:
             self._pool_stats["spawn_s"] = time.perf_counter() - self._t_start
         with self._active_lock:
             self._active = len(self._conns)
-        self._dispatch = PullDispatcher(plan, len(self._conns), lookahead=self._lookahead,
-                                        stealing=self._stealing)
+        monitor = self._health
+        self._dispatch = PullDispatcher(
+            plan, len(self._conns), lookahead=self._lookahead, stealing=self._stealing,
+            recorder=monitor.flight if monitor is not None else None)
         with self._stats_lock:
             self._child_io = {}
         for i, conn in enumerate(self._conns):
@@ -540,8 +643,12 @@ class ProcessExecutor:
                 self._send_handshake(conn)
                 pending.append(conn)
             for conn in pending:
-                self._await_pid_ack(conn)
+                pid = self._await_pid_ack(conn)
                 with self._respawn_lock:
+                    # accept order is not spawn order: the pid ack ties this connection
+                    # (its feeder index) to its process, which the healer kills by
+                    self._child_by_idx[len(self._conns)] = next(
+                        (p for p in self._procs if p.pid == pid), None)
                     self._conns.append(conn)
         finally:
             listener.close()  # also unblocks the acceptor thread if we raised
@@ -589,11 +696,17 @@ class ProcessExecutor:
 
     def _send_handshake(self, conn):
         """This process's sys.path, the serializer's name (and the ring's segments on
-        the shared-memory wire), the worker."""
+        the shared-memory wire), the health settings, the worker. The health settings
+        go to every child, monitor or not: the stack-dump hook costs nothing until it is
+        signalled and the pings ride the socket, so a monitor attached after the pool
+        started still gets its evidence."""
         conn.send(list(sys.path))
         conn.send(self._serializer_name)
         if self._ring is not None:
             conn.send((self._ring.names, self._ring.slab_bytes))
+        with self._respawn_lock:
+            dump_dir = self._tmpdir
+        conn.send({"stack_dump_dir": dump_dir, "ping_interval_s": self._ping_interval_s})
         conn.send(self._worker)
 
     def _await_pid_ack(self, conn, deadline=120.0):
@@ -610,9 +723,10 @@ class ProcessExecutor:
             raise RuntimeError("unexpected pool-child handshake ack %r" % (ack,))
         return ack[1]
 
-    def _spawn_one(self):
-        """Spawn and handshake one replacement child; returns its connection. Raises
-        when it cannot start or the pool is stopping (the child is then killed)."""
+    def _spawn_one(self, idx=None):
+        """Spawn and handshake one replacement child for feeder ``idx``; returns its
+        connection. Raises when it cannot start or the pool is stopping (the child is
+        then killed)."""
         from multiprocessing.connection import Listener
 
         from petastorm_tpu_torch.transport import PipeTransport
@@ -640,6 +754,8 @@ class ProcessExecutor:
                     raise RuntimeError("pool stopping during respawn")
                 self._procs.append(p)
                 self._conns.append(conn)
+                if idx is not None:
+                    self._child_by_idx[idx] = p
             return conn
         except BaseException:
             if conn is not None:
@@ -654,7 +770,7 @@ class ProcessExecutor:
         finally:
             listener.close()
 
-    def _respawn(self, err, charged=True):
+    def _respawn(self, err, idx=None, charged=True):
         """A replacement connection for a dead child, or None when the budget is spent,
         the pool is stopping, or the spawn fails. ``charged=False`` is the quarantine
         path: the dead child's item reached the poison threshold and is skipped, so the
@@ -670,7 +786,7 @@ class ProcessExecutor:
                 self._respawn_budget -= 1
             budget_left = self._respawn_budget
         try:
-            conn = self._spawn_one()
+            conn = self._spawn_one(idx)
         except Exception as e:  # noqa: BLE001 — the caller raises WorkerDiedError
             degradation("respawn_failed", "Pool child respawn failed: %s", e, once=False)
             return None
@@ -699,14 +815,23 @@ class ProcessExecutor:
                 return None, seen
             return dict(self._settings), self._settings_version
 
-    def _recv_result(self, conn):
-        """The next result header, in a poll loop that gives up once the pool stops."""
+    def _recv_result(self, conn, idx=None):
+        """The next result header, in a poll loop that gives up once the pool stops.
+        The child's ``("hb", wall_ts)`` pings are drained here into its heartbeat
+        (``worker.child-<idx>``; dropped without a monitor)."""
         if _chaos.ACTIVE is not None:
             _chaos.ACTIVE.hit("pool.recv")
-        while not conn.poll(0.2):
-            if self._stop_event.is_set():
-                raise EOFError("pool stopping while awaiting a child result")
-        return conn.recv()
+        while True:
+            while not conn.poll(0.2):
+                if self._stop_event.is_set():
+                    raise EOFError("pool stopping while awaiting a child result")
+            msg = conn.recv()
+            if isinstance(msg, tuple) and len(msg) == 2 and msg[0] == "hb":
+                child_hb = self._child_slots.heartbeat(idx) if idx is not None else None
+                if child_hb is not None:
+                    child_hb.beat("working")
+                continue
+            return msg
 
     def _feed_child(self, conn, idx, dispatch):
         from petastorm_tpu_torch.serializers import KIND_SHM
@@ -719,8 +844,14 @@ class ProcessExecutor:
         seen = 0
         first = True  # this child's first item (its imports and file opens included)
         fatal = False
+        feeder_slots, child_slots = self._feeder_slots, self._child_slots
         try:
             while not fatal and not self._stop_event.is_set():
+                # this feeder's heartbeat, always in a wait state; resolved at each use,
+                # as the monitor can be attached mid-stream
+                hb = feeder_slots.heartbeat(idx)
+                if hb is not None:
+                    hb.wait("claim")
                 claim = dispatch.next(idx)
                 if claim is None:
                     break
@@ -728,23 +859,41 @@ class ProcessExecutor:
                 hints = list(upcoming)  # the child prefetches these before the item
                 attempts = 0  # failures of this item, across respawns
                 first_death = None
+                self._inflight_attempts[idx] = 0
                 while True:  # attempts: a dead child's item goes to its replacement
+                    hb = feeder_slots.heartbeat(idx)
                     slab = None
                     if ring is not None:
+                        if hb is not None:
+                            hb.wait("slab")  # the consumer holds the slabs
                         slab = ring.acquire(timeout=slab_wait_s)
                         if slab is None:  # ring empty: this item takes the socket
                             ring.count_fallback()
                     try:
+                        monitor = self._health
+                        if hb is not None:
+                            # the feeder only waits here; the child's heartbeat (stamped
+                            # at the send, from its pings and at its result) carries the
+                            # stall detection
+                            hb.wait("child")
+                        t0 = time.perf_counter() if monitor is not None else 0.0
                         if _chaos.ACTIVE is not None:
                             _chaos.ACTIVE.hit("pool.dispatch", key=_chaos.item_key(item))
                         settings, seen = self._pending_settings(seen)
+                        child_slots.begin(idx)
                         conn.send((slab, item, hints, settings) if ring is not None
                                   else (item, hints, settings))
-                        header = self._recv_result(conn)
+                        try:
+                            header = self._recv_result(conn, idx)
+                        finally:
+                            child_slots.end(idx, "idle")
+                        if monitor is not None:
+                            monitor.observe_worker(idx, time.perf_counter() - t0)
                         if header[0] == "exc":
                             if slab is not None:
                                 ring.release(slab)
                             attempts += 1
+                            self._inflight_attempts[idx] = attempts
                             verdict = self._failed_attempt(item, header[1], attempts)
                             if verdict == "retry":
                                 continue  # again, on the same live child
@@ -782,6 +931,7 @@ class ProcessExecutor:
                             # the child is alive and the socket intact: a payload that
                             # fails to decode is a failed attempt, never a child death
                             attempts += 1
+                            self._inflight_attempts[idx] = attempts
                             verdict = self._failed_attempt(item, e, attempts,
                                                            kind="wire_decode")
                             if verdict == "retry":
@@ -795,12 +945,13 @@ class ProcessExecutor:
                             fatal = True  # teardown, not a child failure
                             break
                         attempts += 1
+                        self._inflight_attempts[idx] = attempts
                         first_death = first_death or e
                         # the death that reaches the threshold quarantines the item and
                         # respawns uncharged; earlier deaths charge the budget
                         poison = recovery.quarantine \
                             and attempts >= recovery.poison_attempts
-                        replacement = self._respawn(e, charged=not poison)
+                        replacement = self._respawn(e, idx, charged=not poison)
                         if poison:
                             self._put(QuarantinedItem(item, e, attempts,
                                                       kind="child_death"))
@@ -826,6 +977,9 @@ class ProcessExecutor:
                         continue
                     self._count_item(timing, first)
                     first = False
+                    hb = feeder_slots.heartbeat(idx)
+                    if hb is not None:
+                        hb.wait("results_put")  # a full results queue is backpressure
                     self._put(result)
                     break
             try:
@@ -833,6 +987,8 @@ class ProcessExecutor:
             except OSError:
                 pass
         finally:
+            feeder_slots.retire(idx)
+            child_slots.retire(idx)
             with self._active_lock:
                 self._active -= 1
                 last = self._active == 0
@@ -885,6 +1041,148 @@ class ProcessExecutor:
         ring = self._ring
         if ring is not None:
             ring.set_trace(tracer)
+
+    def set_health(self, monitor):
+        """Attach a health monitor (or a scope of one; None detaches): the feeders and
+        children heartbeat as the class docstring says, and this pool registers on the
+        monitor its stack provider (:meth:`_dump_child_stacks`) and its healer
+        (:meth:`_heal_stalled`), moved off a previous monitor first. A child already
+        working an item is watched from the moment it was sent the item."""
+        _attach_health(self, monitor, self._child_slots)
+        if monitor is self._stack_provider_monitor:
+            return
+        old, self._stack_provider_monitor = self._stack_provider_monitor, None
+        handle, self._stack_provider_handle = self._stack_provider_handle, None
+        healer, self._healer_handle = self._healer_handle, None
+        if old is not None:
+            if handle is not None:
+                old.remove_stack_provider(handle)
+            if healer is not None:
+                old.remove_healer(healer)
+        if monitor is not None:
+            self._stack_provider_handle = monitor.add_stack_provider(
+                self._dump_child_stacks)
+            self._healer_handle = monitor.add_healer(self._heal_stalled)
+            self._stack_provider_monitor = monitor
+
+    def _dump_child_stacks(self):
+        """Signal this pool's live children to dump their stacks (SIGUSR1, which each
+        child's faulthandler answers by writing every thread's stack to
+        ``stacks-<pid>.txt`` in the pool's directory) and collect the files: the stall
+        watchdog's evidence from across the process boundary. Only this pool's own
+        children are signalled. A child that has not written a stable dump within about
+        2 s is reported as such, not waited on."""
+        import signal
+
+        if not hasattr(signal, "SIGUSR1"):
+            return {}  # not POSIX: the driver's stacks only
+        with self._respawn_lock:
+            procs = list(self._procs)
+            tmpdir = self._tmpdir
+        if not procs or not tmpdir:
+            return {}
+
+        def _path(pid):
+            return os.path.join(tmpdir, "stacks-%d.txt" % pid)
+
+        def _size(pid):
+            try:
+                return os.path.getsize(_path(pid))
+            except OSError:
+                return 0
+
+        # faulthandler appends to the child's open file: only the bytes written after
+        # this signal belong to this capture
+        alive = []
+        offsets = {}
+        for p in procs:
+            if p.poll() is None:
+                offsets[p.pid] = _size(p.pid)
+                try:
+                    p.send_signal(signal.SIGUSR1)
+                    alive.append(p)
+                except OSError:
+                    pass
+        out = {}
+        pending = {p.pid for p in alive}
+        partial = {}  # pid -> the last read: a dump is taken once it stops growing
+        deadline = time.monotonic() + 2.0
+        while pending and time.monotonic() < deadline:
+            time.sleep(0.05)
+            for pid in list(pending):
+                try:
+                    with open(_path(pid)) as f:
+                        f.seek(offsets[pid])
+                        text = f.read()
+                except OSError:
+                    continue
+                if not text.strip():
+                    continue
+                if partial.get(pid) == text:
+                    out["child-%d" % pid] = text
+                    pending.discard(pid)
+                else:
+                    partial[pid] = text
+        for pid in pending:
+            out["child-%d" % pid] = (
+                partial[pid] + "\n<truncated: dump still growing at 2s>"
+                if pid in partial else "<no faulthandler dump within 2s>")
+        return out
+
+    def _heal_stalled(self, stalled):
+        """The healer of ``escalation="heal"``: kill the hung child behind each
+        stalled ``worker.child-<i>`` actor of this pool, so that its feeder's
+        child-death path takes over (respawn against the budget, slab reclaim, the item
+        dispatched again or quarantined at the poison threshold). Returns the actor
+        names it acted on. A kill that neither the respawn budget nor the poison policy
+        can absorb is not made: it would only turn the stall into a
+        ``WorkerDiedError``, and left alone the watchdog delivers the ``StallError``
+        with the hang's evidence.
+
+        Runs on the watchdog thread. An actor matches only by the full (scope-prefixed)
+        name this pool registered, so on a shared monitor one pipeline's healer never
+        kills a sibling's child."""
+        import re
+
+        from petastorm_tpu_torch.obs.log import degradation
+
+        healed = set()
+        if self._stop_event.is_set():
+            return healed
+        for st in stalled:
+            actor = st.get("actor", "")
+            m = re.search(r"(?:^|/)worker\.child-(\d+)$", actor)
+            if m is None:
+                continue
+            idx = int(m.group(1))
+            if actor != self._child_actor_name(idx):
+                continue  # a sibling pipeline's child on a shared monitor
+            with self._respawn_lock:
+                proc = self._child_by_idx.get(idx)
+                budget = self._respawn_budget
+            attempts = self._inflight_attempts.get(idx, 0)
+            if proc is None or proc.poll() is not None:
+                continue  # already dead: its feeder is respawning it
+            absorbable = budget > 0 or (self._recovery.quarantine
+                                        and attempts + 1 >= self._recovery.poison_attempts)
+            if not absorbable:
+                continue
+            try:
+                proc.kill()
+            except OSError:
+                continue
+            degradation("stall_heal_kill", "Heal tier killed hung pool child pid=%s "
+                        "(actor %s, %.1fs past threshold); its item will be dispatched "
+                        "again or quarantined", proc.pid, actor, st.get("age_s", 0.0),
+                        once=False)
+            healed.add(actor)
+        return healed
+
+    def _child_actor_name(self, idx):
+        """The full (scope-prefixed) actor name of feeder ``idx``'s child."""
+        base = "worker.child-%d" % idx
+        namer = getattr(self._health, "_name", None)
+        return namer(base) if namer is not None else base
 
     def results(self):
         """Generator of worker results; raises worker exceptions (a dead child past the
@@ -947,6 +1245,15 @@ class ProcessExecutor:
 
         # join == no more results wanted: also aborts a respawn in flight
         self._stop_event.set()
+        monitor, self._stack_provider_monitor = self._stack_provider_monitor, None
+        handle, self._stack_provider_handle = self._stack_provider_handle, None
+        healer, self._healer_handle = self._healer_handle, None
+        if monitor is not None:
+            # a stall after this point must neither signal nor kill this pool's children
+            if handle is not None:
+                monitor.remove_stack_provider(handle)
+            if healer is not None:
+                monitor.remove_healer(healer)
         for t in self._threads:
             t.join(timeout=10)
         self._threads = []
@@ -956,6 +1263,8 @@ class ProcessExecutor:
             procs, self._procs = self._procs, []
             tmpdir, self._tmpdir = self._tmpdir, None
             ring, self._ring = self._ring, None
+            self._child_by_idx = {}
+            self._inflight_attempts = {}
         for conn in conns:
             try:
                 conn.close()

@@ -117,6 +117,21 @@ class ModulesProbe:
                                                                 "unset")])})
 
 
+class FirstItemProbe:
+    """Runs ``worker`` on the item and reports whether pandas (which pyarrow's first
+    ``to_numpy`` imports) was loaded in the child before the item began; forwards the
+    worker's ``warm``."""
+
+    def __init__(self, worker):
+        self.worker = worker
+        self.warm = getattr(worker, "warm", None)
+
+    def __call__(self, item):
+        loaded = "pandas" in sys.modules
+        self.worker(item)
+        return (0, 0, {"pandas_before_item": np.array([loaded])})
+
+
 def double_x_plus_a(d):
     """An opaque transform the reader tests hand to both packages: ``x2 = 2x + a`` on a
     row dict (per-row path) and on a pandas DataFrame (batch path) alike."""

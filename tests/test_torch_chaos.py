@@ -3,11 +3,8 @@ item 8a): deterministic fault injection, the recovery options, poison-item quara
 with exactly-once accounting on every pool, the dead-child and lease interaction, and
 exact resume after a quarantine.
 
-Every case of the JAX package's ``tests/test_chaos.py`` has a counterpart here except
-the four healer cases (``test_monitor_try_heal_unit``,
-``test_heal_escalation_recovers_live_hang_without_stallerror``,
-``test_heal_falls_through_to_stallerror_when_budget_exhausted``,
-``test_healer_ignores_sibling_scope_actors``): the stall healer is item 8b. The
+Every case of the JAX package's ``tests/test_chaos.py`` has a counterpart here, the
+four cases of the stall healer (``escalation="heal"``, item 8b(i)) included. The
 ``footer_unreadable`` quarantine cases of ``tests/test_remote_io.py`` and its
 ``test_hedge_loser_drained_under_chaos_latency_at_io_remote`` are here too. Beside them:
 
@@ -18,7 +15,10 @@ the four healer cases (``test_monitor_try_heal_unit``,
   the sync, thread and process pools: the same surviving ids and quarantine entries;
 - a plan armed in the JAX package never fires at a port site in the same process;
 - a child killed holding a slab and reading through the arena leaves no segment and no
-  leaked lease.
+  leaked lease, and so does a child the healer kills;
+- the healer kills a child hung on a poison item until the poison policy quarantines
+  it, and refuses a kill nothing can absorb, after which the loader delivers the
+  ``StallError`` with the children's stacks in the flight record.
 """
 import gc
 import glob
@@ -785,6 +785,245 @@ def test_a_killed_child_leaves_no_segment_and_no_leaked_lease(chaos_dataset):
     gc.collect()
     assert lease_stats()["leaked"] - leaked0 == 0
     assert _own_segments() == before_segments
+
+
+# -- the stall healer (escalation="heal") -------------------------------------------------
+
+
+def test_monitor_try_heal_unit(tmp_path):
+    """Healers run under escalation='heal'; actors nobody heals escalate to StallError,
+    healed ones re-arm silently; heal_count counts the recoveries."""
+    from petastorm_tpu_torch.errors import StallError
+    from petastorm_tpu_torch.obs.health import HealthMonitor, HealthOptions
+
+    mon = HealthMonitor(HealthOptions(stall_threshold_s=0.05, poll_interval_s=10.0,
+                                      escalation="heal",
+                                      flight_path=str(tmp_path / "f.json")))
+    hb_a = mon.register("worker.child-0", "worker")
+    hb_b = mon.register("worker.child-1", "worker")
+    hb_a.beat("working")
+    hb_b.beat("working")
+    healed_calls = []
+    mon.add_healer(lambda stalled: healed_calls.append(
+        [s["actor"] for s in stalled]) or {"worker.child-0"})
+    delivered = []
+    mon.add_stall_callback(delivered.append)
+    time.sleep(0.1)
+    mon._handle_stall(mon.check_stalls())  # what the watchdog's poll does
+    assert healed_calls and set(healed_calls[0]) == {"worker.child-0", "worker.child-1"}
+    assert mon.heal_count == 1
+    assert len(delivered) == 1 and isinstance(delivered[0], StallError)
+    assert "worker.child-1" in str(delivered[0])
+    assert "worker.child-0" not in str(delivered[0])
+
+
+def test_heal_escalation_recovers_live_hang_without_stallerror(tmp_path):
+    """Each child hangs on its second item (a respawned child too, the plan propagates):
+    the healer kills it, the respawned child takes the item again, and the consumer sees
+    every row and no StallError. Four one-row-group files keep the heals few."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.obs.health import HealthMonitor, HealthOptions
+
+    for i in range(4):
+        pq.write_table(pa.table({"id": np.arange(16, dtype=np.int64) + i * 16}),
+                       str(tmp_path / ("part_%02d.parquet" % i)))
+
+    plan = FaultPlan([FaultRule("child.item", "hang", nth=2, times=1, hang_s=60.0)])
+    mon = HealthMonitor(HealthOptions(stall_threshold_s=1.0, poll_interval_s=0.1,
+                                      escalation="heal", thresholds={"child": 1.0},
+                                      flight_path=str(tmp_path / "f.json")))
+    with chaos.armed(plan):
+        with make_batch_reader("file://" + str(tmp_path), num_epochs=1, workers_count=2,
+                               shuffle_row_groups=False, recovery=RecoveryOptions(
+                                   worker_respawns=16), **POOL) as reader:
+            reader.set_health(mon)
+            mon.start()
+            try:
+                ids = _collect_ids(reader)
+            finally:
+                mon.stop()
+            respawns = reader._executor.pool_stats()["respawns"]
+    assert ids == list(range(64))
+    assert mon.heal_count >= 1 and respawns >= 1
+    assert not reader.quarantine_report
+
+
+def test_heal_falls_through_to_stallerror_when_budget_exhausted(tmp_path):
+    """No respawn budget and no quarantine: the healer refuses to kill (nothing could
+    absorb it) and the stall escalates to StallError."""
+    from petastorm_tpu_torch.errors import StallError
+    from petastorm_tpu_torch.obs.health import HealthMonitor, HealthOptions
+    from petastorm_tpu_torch.workers import ProcessExecutor
+
+    mon = HealthMonitor(HealthOptions(stall_threshold_s=0.05, poll_interval_s=10.0,
+                                      escalation="heal",
+                                      flight_path=str(tmp_path / "f.json")))
+    with ProcessExecutor(workers_count=1,
+                         recovery=RecoveryOptions(worker_respawns=0)) as ex:
+        delivered = []
+        mon.add_stall_callback(delivered.append)
+        ex.set_health(mon)
+
+        class _FakeProc:
+            pid = 99999
+
+            @staticmethod
+            def poll():
+                return None  # alive
+
+            @staticmethod
+            def kill():
+                raise AssertionError("the healer must not kill: nothing can absorb it")
+
+        ex._child_by_idx[0] = _FakeProc()
+        hb = mon.register("worker.child-0", "worker")
+        hb.beat("working")
+        time.sleep(0.1)
+        mon._handle_stall(mon.check_stalls())
+        assert len(delivered) == 1 and isinstance(delivered[0], StallError)
+        assert mon.heal_count == 0
+
+
+def test_healer_ignores_sibling_scope_actors(tmp_path):
+    """On a shared monitor a pool's healer claims only its own scoped child actors."""
+    from petastorm_tpu_torch.obs.health import HealthMonitor, HealthOptions
+    from petastorm_tpu_torch.workers import ProcessExecutor
+
+    mon = HealthMonitor(HealthOptions(stall_threshold_s=0.05, poll_interval_s=10.0,
+                                      escalation="heal",
+                                      flight_path=str(tmp_path / "f.json")))
+    scope = mon.scoped("pipe1")
+    kills = []
+    with ProcessExecutor(workers_count=1,
+                         recovery=RecoveryOptions(worker_respawns=2)) as ex:
+        ex.set_health(scope)
+
+        class _FakeProc:
+            pid = 12345
+
+            @staticmethod
+            def poll():
+                return None
+
+            @staticmethod
+            def kill():
+                kills.append(1)
+
+        ex._child_by_idx[0] = _FakeProc()
+        sibling = {"actor": "pipe2/worker.child-0", "age_s": 9.9}
+        assert ex._heal_stalled([sibling]) == set() and kills == []
+        own_name = scope._name("worker.child-0")
+        assert ex._heal_stalled([{"actor": own_name, "age_s": 9.9}]) == {own_name}
+        assert kills == [1]
+
+
+def test_healer_kills_for_the_poison_policy_without_budget(tmp_path):
+    """No respawn budget, but the poison policy quarantines the item at this attempt:
+    the kill is absorbable and the healer makes it."""
+    from petastorm_tpu_torch.obs.health import HealthMonitor, HealthOptions
+    from petastorm_tpu_torch.workers import ProcessExecutor
+
+    mon = HealthMonitor(HealthOptions(escalation="heal", poll_interval_s=10.0,
+                                      flight_path=str(tmp_path / "f.json")))
+    kills = []
+    with ProcessExecutor(workers_count=1, recovery=RecoveryOptions(
+            worker_respawns=0, on_poison="quarantine", poison_attempts=2)) as ex:
+        ex.set_health(mon)
+
+        class _FakeProc:
+            pid = 4242
+
+            @staticmethod
+            def poll():
+                return None
+
+            @staticmethod
+            def kill():
+                kills.append(1)
+
+        ex._child_by_idx[0] = _FakeProc()
+        stalled = [{"actor": "worker.child-0", "age_s": 5.0}]
+        ex._inflight_attempts[0] = 0  # a kill now is attempt 1 of 2: not absorbable
+        assert ex._heal_stalled(stalled) == set() and kills == []
+        ex._inflight_attempts[0] = 1  # attempt 2 of 2 quarantines: absorbable
+        assert ex._heal_stalled(stalled) == {"worker.child-0"} and kills == [1]
+
+
+def test_healed_poison_child_quarantined_and_leaves_no_segment(chaos_dataset, tmp_path):
+    """A child that hangs on one item every time (the plan propagates to respawned
+    children), on the shared-memory wire and the arena: at least the two heals of its two
+    attempts (on a loaded host a slow healthy child past the 1.5 s threshold is killed
+    too, and its item dispatched again), the item quarantined after 2 attempts, every
+    other id once, no StallError, no segment and no leaked lease left."""
+    from petastorm_tpu_torch.io import arena as arena_mod
+    from petastorm_tpu_torch.io.memcache import shared_store
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.obs.health import HealthOptions
+
+    before_segments = _own_segments()
+    leaked0 = lease_stats()["leaked"]
+    deg0 = degradation_counts().get("stall_heal_kill", 0)
+    plan = FaultPlan([FaultRule("child.item", "hang", item_key="ordinal=1",
+                                hang_s=60.0)])
+    opts = HealthOptions(thresholds={"child": 1.5}, poll_interval_s=0.1,
+                         escalation="heal", flight_path=str(tmp_path / "f.json"))
+    try:
+        with chaos.armed(plan, propagate=True):
+            reader = make_batch_reader(
+                chaos_dataset, num_epochs=1, workers_count=2, shuffle_row_groups=False,
+                wire_serializer="shm", io_options={"arena_bytes": 4 << 20}, **POOL,
+                recovery=RecoveryOptions(on_poison="quarantine", poison_attempts=2,
+                                         worker_respawns=2))
+            with DataLoader(reader, 16, device="cpu", to_device=False,
+                            health=opts) as loader:
+                ids = sorted(int(v) for b in loader for v in np.asarray(b["id"]))
+                report = loader.quarantine_report
+                heals = loader._health.heal_count
+    finally:
+        arena_mod.close_process_arena()
+        shared_store().clear()
+    assert ids == sorted(set(ALL_IDS) - set(range(16, 32)))
+    assert [(e.kind, e.attempts) for e in report.entries] == [("child_death", 2)]
+    assert heals >= 2
+    assert degradation_counts()["stall_heal_kill"] - deg0 == heals
+    gc.collect()
+    assert lease_stats()["leaked"] - leaked0 == 0
+    assert _own_segments() == before_segments
+
+
+def test_unabsorbable_heal_delivers_stallerror_with_child_stacks(chaos_dataset,
+                                                                 tmp_path):
+    """No budget and on_poison='raise': the healer does not kill, the loader delivers
+    the StallError, and the flight record holds the children's SIGUSR1 stacks."""
+    import json
+
+    from petastorm_tpu_torch.errors import StallError
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.obs.health import HealthOptions
+
+    flight = str(tmp_path / "f.json")
+    # the hang outlasts detection (1.5 s + a poll) and ends soon after: the hung child
+    # finishes its item and exits at the pool's join instead of being killed there
+    plan = FaultPlan([FaultRule("child.item", "hang", item_key="ordinal=1",
+                                hang_s=3.5)])
+    opts = HealthOptions(thresholds={"child": 1.5}, poll_interval_s=0.1,
+                         escalation="heal", flight_path=flight)
+    deg0 = degradation_counts().get("stall_heal_kill", 0)
+    with chaos.armed(plan, propagate=True):
+        reader = make_batch_reader(
+            chaos_dataset, num_epochs=1, workers_count=2, shuffle_row_groups=False,
+            recovery=RecoveryOptions(worker_respawns=0), **POOL)
+    with DataLoader(reader, 16, device="cpu", to_device=False, health=opts) as loader:
+        with pytest.raises(StallError, match="worker.child-"):
+            for _ in loader:
+                pass
+        assert loader._health.heal_count == 0
+    assert degradation_counts().get("stall_heal_kill", 0) == deg0
+    with open(flight) as f:
+        rec = json.load(f)
+    assert rec["child_stacks"] and any("chaos" in t for t in rec["child_stacks"].values())
 
 
 # -- the object-store tier under chaos ----------------------------------------------------

@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "io.coalesce", "io.readahead", "io.footercache", "io.memcache",
                  "io.tiers", "io.remote", "io.latencyfs", "io.arena", "chaos",
                  "chaos.plan", "recovery", "trace", "obs", "obs.metrics", "obs.log",
-                 "obs.flight", "obs.analyze", "obs.export"):
+                 "obs.flight", "obs.analyze", "obs.export", "obs.health",
+                 "obs.timeseries", "obs.slo", "obs.serve"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -99,8 +100,28 @@ def test_decode_without_device_raises_when_cuda_is_absent(monkeypatch):
         decode_jpeg_batch([planes])
 
 
-# pad_shapes is ported, and so are trace and metrics (item 8a): their cases hold the
-# controller (item 8c) and the tenant (item 8c), still refused
+def _assert_health_and_slos_are_taken(kwargs):
+    """``health=`` and ``slos=`` are ported (item 8b(i)): a loader takes ``health=True``
+    (its watchdog starts and stops with it), and ``slos=`` without ``metrics=`` is the
+    JAX package's ``ValueError``, not a refusal."""
+    from types import SimpleNamespace
+
+    from petastorm_tpu_torch.loader import DataLoader
+
+    reader = SimpleNamespace(stop=lambda: None, join=lambda: None)
+    if "slos" in kwargs:
+        with pytest.raises(ValueError, match="requires metrics="):
+            DataLoader(reader, 4, device="cpu", **kwargs)
+        return
+    with DataLoader(reader, 4, device="cpu", **kwargs) as loader:
+        assert loader._health is not None and loader._health_owned
+        assert loader.health_report()["schema"] == "ptpu-flight-v1"
+    assert loader._health._watchdog is None  # stopped with the loader
+
+
+# pad_shapes is ported, and so are trace and metrics (item 8a), health and slos (item
+# 8b(i)): their cases check that they are taken; the controller (item 8c), the tenant
+# (item 8c) and provenance (item 8b(ii)) are still refused
 @pytest.mark.parametrize("kwargs", [
     {"sharding": object()}, {"controller": object()}, {"slos": object()},
     {"tenant": "team-a"}, {"health": True}, {"provenance": True},
@@ -108,6 +129,9 @@ def test_decode_without_device_raises_when_cuda_is_absent(monkeypatch):
 def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
     from petastorm_tpu_torch.loader import DataLoader
 
+    if "health" in kwargs or "slos" in kwargs:
+        _assert_health_and_slos_are_taken(kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         DataLoader(object(), 4, device="cpu", **kwargs)
 
@@ -162,7 +186,9 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.io.memcache", "petastorm_tpu_torch.io.tiers",
     "petastorm_tpu_torch.io.remote", "petastorm_tpu_torch.chaos",
     "petastorm_tpu_torch.recovery", "petastorm_tpu_torch.trace",
-    "petastorm_tpu_torch.obs.log", "petastorm_tpu_torch.obs.export"])
+    "petastorm_tpu_torch.obs.log", "petastorm_tpu_torch.obs.export",
+    "petastorm_tpu_torch.obs.health", "petastorm_tpu_torch.obs.timeseries",
+    "petastorm_tpu_torch.obs.slo", "petastorm_tpu_torch.obs.serve"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
@@ -296,10 +322,16 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
     ({"tenant": "team-a"}, "item 8c"),
 ])
 def test_later_observability_slices_raise_naming_8b_or_8c(kwargs, item):
-    """What the health/provenance slice (8b) and the tenants/controller slice (8c) own
-    stays refused, each naming its slice."""
+    """What the attribution slice (8b(ii)) and the tenants/controller slice (8c) own
+    stays refused, each naming its slice; what the liveness and time slice (8b(i)) owns,
+    health and slos, is taken."""
     from petastorm_tpu_torch.loader import DataLoader
 
+    if "health" in kwargs or "slos" in kwargs:
+        _assert_health_and_slos_are_taken(kwargs)
+        return
+    if "provenance" in kwargs:
+        item = r"item 8b\(ii\)"
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
         DataLoader(object(), 4, device="cpu", **kwargs)
 
@@ -316,6 +348,8 @@ def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwar
     from petastorm_tpu_torch import make_batch_reader, make_reader
 
     pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
+    if "provenance" in kwargs:
+        item = r"item 8b\(ii\)"  # the attribution slice
     for factory in (make_batch_reader, make_reader):
         with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
             factory("file://" + str(tmp_path), **kwargs)
