@@ -223,11 +223,31 @@ Phases (each passes or the script exits non-zero, printing no result line):
    configuration (two epochs) shows one ``child.work`` lane for each child pid. Rows/s
    on and off and the verdicts printed.
 
+14. Liveness and time: the health monitor with its stall watchdog on the main path, a
+   hung decode caught by the ``raise`` escalation, the process pool's healer, and the
+   time series, SLOs and scrape endpoint on the pass-through (the comment block above
+   ``phase_health_main_path``).
+
+15. Attribution: the provenance plane on both kernel paths (the comment block above
+   ``phase_prov_tabular``). (a) phase 5's pass-through with ``provenance=True`` on the
+   thread pool and on the process pool over ``'arrow'``, with phase 5's checks: every
+   batch's record holds its rows from one item delivered once, the report counts the
+   batches delivered, each child's ``child.work`` lies inside its ``wire.roundtrip``.
+   (b) one site at a time slowed by a chaos latency (``decode.device_inflate``,
+   ``reader.read``, ``io.pagedec``) with one worker and readahead off, 3 rounds: the
+   report's slow-decile culprit is the slowed site, the columns equal the store's, K3,
+   the scan and K4 once a batch; an SLO on the inflate stage's p99 alerts once, naming
+   it. (c) the main path with provenance on and off, 3 rounds alternating: images equal
+   per id, K2 equal to its plain version, the kernels once a batch, rows/s of each arm,
+   and the host self time of ``loader.decode`` beside the kernels' device time. (d) the
+   trend gate twice, the run diff and the stats CLI's attribution panel.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
 in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's,
-``slice13_launches`` in phase 12's, ``slice14_launches`` in phase 13's),
-the card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
+``slice13_launches`` in phase 12's, ``slice14_launches`` in phase 13's,
+``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's), the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -2026,7 +2046,8 @@ def _off_read(root, f, rg):
 def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP_BATCHES,
                        measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH, pool="thread",
                        wire=None, io_options=None, filesystem=None, trace=None,
-                       metrics=None, slos=None, probe=None, on_batch=None):
+                       metrics=None, slos=None, probe=None, on_batch=None,
+                       provenance=None):
     """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
     card: counts zeroed just before, read just after; the first and last measured
     batches against a ``pagedec="off"`` read of their row groups and the source arrays.
@@ -2039,7 +2060,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     snapshot and the loader's bottleneck report, both taken before the loader exits.
     ``slos``: the loader's SLO specs (phase 14 (d)); ``probe(loader, reader)`` runs inside
     the loader's block after the window, its result under ``probe``; ``on_batch(n)`` is
-    called with the consumer's count after each batch it takes."""
+    called with the consumer's count after each batch it takes. ``provenance``: the
+    reader factory's (phase 15 (a))."""
     import numpy as np
     import torch
 
@@ -2055,7 +2077,7 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                                shuffle_row_groups=True, seed=0, num_epochs=None,
                                io_options={"pagedec": "auto", **(io_options or {})},
                                reader_pool_type=pool, wire_serializer=wire,
-                               filesystem=filesystem)
+                               filesystem=filesystem, provenance=provenance)
     counters0 = pagedec.counter_values()
     reads0 = pk.HOST_READS.value
     pk.snappy_inflate_ragged.launches = 0
@@ -4379,7 +4401,7 @@ def _rowgroup_ids(piece):
 
 def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery=None,
                    pool="thread", wire=None, slab_bytes=None, trace=None, metrics=None,
-                   epochs=1, health=None, expect_stall=False):
+                   epochs=1, health=None, expect_stall=False, provenance=None):
     """One run of the main path (phase 7's configuration, ``last_batch="partial"``):
     every delivered image held on the card to phase 7's image of the same id; the
     launch counters zeroed just before and read just after. ``plan`` is armed around
@@ -4387,8 +4409,10 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
     loader's (phase 14), whose busy heartbeats' ages are sampled between batches (the
     largest an actor showed is kept); with ``expect_stall`` the run must end in a
     StallError, caught in the loop, where the plan is disarmed (a hung thread then
-    wakes at once). Returns the per-id counts, the quarantine entries and the counts the
-    caller checks."""
+    wakes at once). ``provenance``: the reader factory's (phase 15 (c)); the result then
+    carries the loader's attribution report. The first batch's K2 output is held to
+    K2's plain version. Returns the per-id counts, the quarantine entries and the counts
+    the caller checks."""
     import threading
 
     import torch
@@ -4417,11 +4441,13 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
     t0 = None
     stall = t_caught = None
     busy_age = {}
+    first = None
     with armed, pool_env(slab_bytes):
         reader = make_batch_reader(url, reader_pool_type=pool, workers_count=workers,
                                    wire_serializer=wire, shuffle_row_groups=True, seed=0,
                                    num_epochs=epochs, decode_on_device=True,
-                                   recovery=recovery, results_timeout_s=120)
+                                   recovery=recovery, results_timeout_s=120,
+                                   provenance=provenance)
         executor = reader._executor
         items = list(reader._plan.items)
         _jpeg_launch_counters(zero=True)
@@ -4437,6 +4463,8 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
                         ids, u8 = batch["id"], batch["image_u8"]
                         counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
                         bad.add_((images.index_select(0, ids) != u8).sum())
+                        if first is None:
+                            first = (u8[:8].clone(), batch["image"][:8].clone())
                         batches += 1
                         for h in monitor.heartbeats() if monitor is not None else ():
                             if h["state"] != "done" and not h["state"].startswith("wait:"):
@@ -4467,6 +4495,7 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
                                 if t.name.startswith(HEALTH_IO_PREFIX))
             stalls = monitor.stall_count if monitor is not None else 0
             heals = monitor.heal_count if monitor is not None else 0
+            attribution = loader.attribution_report() if provenance else None
     launches = _jpeg_launch_counters()
     deg = {k: v - deg0.get(k, 0) for k, v in degradation_counts().items()
            if v != deg0.get(k, 0)}
@@ -4479,7 +4508,8 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
            "items": items, "pids": pids, "segments": _own_segments(), "workers": workers,
            "heartbeats": hbs, "busy_age": busy_age, "io_threads": io_threads,
            "stalls": stalls, "heals": heals, "stall": stall, "t_caught": t_caught,
-           "injections": plan.injections() if plan is not None else []}
+           "injections": plan.injections() if plan is not None else [],
+           "attribution": attribution}
     log("chaos %s: %.1f rows/s over %d batches (the first excluded); launches %s; "
         "quarantined %s; degradations %s; plan fires %s; leases %s; respawns %s; pool "
         "spawn %s s, child first-item seconds %s; stalls %d, heals %d, StallError %s; %s"
@@ -4496,6 +4526,10 @@ def chaos_jpeg_run(url, images, label, smi, plan=None, propagate=False, recovery
               "batch (%d): %s" % (label, batches, launches))
     check(res["bad"] == 0, "%s: %d uint8 values differ from phase 7's images of the same "
           "ids" % (label, res["bad"]))
+    if first is not None:
+        check(torch.equal(image._normalize_plain(first[0], MEAN, STD, torch.bfloat16),
+                          first[1]), "%s: K2 differs from its plain version on the first "
+              "batch" % label)
     check(leases["leaked"] == 0 and leases["acquired"] == leases["released"],
           "%s: leases %s" % (label, leases))
     check(not res["segments"], "%s: segments left in /dev/shm: %s" % (label,
@@ -5108,6 +5142,317 @@ def phase_health_tabular(root, arrays, predicted, work, smi):
     return out
 
 
+# -- phase 15: attribution on the card ---------------------------------------------------
+#
+# The provenance plane on the two paths that launch the port's kernels. (a) phase 5's
+# pass-through (pagedec="auto", batches of 16,384, 10 + 30 batches) with provenance=True
+# on the thread pool (with a MetricsRegistry, whose Reporter JSONL (d) renders) and on
+# the process pool over 'arrow', with phase 5's checks (one K3, scan and K4 launch and
+# one read back a batch, the first and last measured batches byte for byte the
+# pagedec="off" read); every delivered batch's record holds the batch's rows, every
+# item once, the report counts the batches delivered, and on the process pool each
+# item's child.work span lies inside its wire.roundtrip. (b) blame and exoneration with
+# the real kernels: a store of BLAME_RGS row groups whose float32 and int64 columns take
+# the pass-through and whose int32 id column reads classically, one worker, readahead
+# off, pagedec="on", and a chaos latency of BLAME_LATENCY_S on every hit of one site;
+# BLAME_ROUNDS rounds of the three sites decode.device_inflate, reader.read and
+# io.pagedec: the report's slow_top is the slowed site with more than half of the slow
+# batches' critical path, the columns are the store's byte for byte, and K3, the scan
+# and K4 launch once a batch; then the inflate stage slowed under
+# DataLoader(metrics=, slos=[p99 of the inflate stage <= BLAME_LATENCY_S / 2]): one
+# alert, whose culprit is the slowed stage. (c) the main path (phase 13's
+# configuration), PROV_ROUNDS rounds of provenance on and off, alternating which goes
+# first: every id once, the images equal per id to phase 7's in both arms, K2 equal to
+# its plain version, stage2_planes, stage2_rgb and K2 once a batch; rows/s of each arm,
+# their ratio, and the report's host self seconds of loader.decode a batch beside the
+# kernels' device milliseconds a batch from phase 3. (d) the tools: the port's trend
+# gate twice (its history under the run's work directory: the first run seeds it, the
+# second's entry carries the per-site self times), the run diff of the two entries (its
+# last line a ptpu-bench-diff-v1 verdict) and the stats CLI over (a)'s Reporter JSONL
+# (the attribution panel).
+
+BLAME_RGS, BLAME_RG_ROWS = 8, 16384
+BLAME_LATENCY_S = 0.1
+BLAME_ROUNDS = 3
+BLAME_SITES = ("decode.device_inflate", "reader.read", "io.pagedec")
+PROV_ROUNDS = 3
+
+
+def write_blame_store(root, seed=15):
+    """(b)'s store in one file of BLAME_RGS row groups: the repeated float32 ``feat`` and
+    the small-range int64 ``cat`` take the pass-through; the int32 ``id`` saves nothing
+    compressed, so it reads classically (the ``reader.read`` site)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n = BLAME_RGS * BLAME_RG_ROWS
+    rng = np.random.default_rng(seed)
+    cols = {"feat": np.repeat(rng.normal(size=n // 40 + 1).astype(np.float32), 40)[:n],
+            "cat": rng.integers(0, 13, size=n).astype(np.int64),
+            "id": np.arange(n, dtype=np.int32)}
+    os.makedirs(root, exist_ok=True)
+    pq.write_table(pa.table(cols), os.path.join(root, "part-0.parquet"),
+                   compression="snappy", row_group_size=BLAME_RG_ROWS)
+    return cols
+
+
+def _report_brief(report):
+    """The report's verdict and per-site self seconds (largest first) for a log line."""
+    return "%s; self s %s" % (report.verdict, json.dumps(dict(sorted(
+        report.stage_self_s.items(), key=lambda kv: -kv[1]))))
+
+
+def phase_prov_tabular(root, arrays, predicted, work, smi, device="cuda"):
+    """(a): the pass-through with provenance on the thread pool and on the process pool
+    over 'arrow'."""
+    from petastorm_tpu_torch.obs.export import Reporter
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+
+    out = {}
+    local = os.getpid()
+    for pool, wire in (("thread", None), ("process", "arrow")):
+        registry = MetricsRegistry() if pool == "thread" else None
+        jsonl = os.path.join(work, "prov_%s.jsonl" % pool) if registry is not None else None
+
+        def probe(loader, reader, registry=registry, jsonl=jsonl):
+            if registry is not None:
+                with Reporter(registry=registry, interval_s=600.0, jsonl_path=jsonl):
+                    pass  # the final flush, while the loader's collectors are live
+            rec = loader.provenance
+            return {"report": loader.attribution_report(), "views": rec.batches(),
+                    "jsonl": jsonl}
+
+        _launches, res = phase_tabular_path(
+            root, arrays, predicted, device=device, warmup=POOL_TAB_WARMUP,
+            measured=POOL_TAB_MEASURED, pool=pool, wire=wire, metrics=registry,
+            probe=probe, provenance=True)
+        p = res["probe"]
+        label = "provenance (a) %s%s" % (pool, "/" + wire if wire else "")
+        report, views = p["report"], p["views"]
+        check(report.batches == len(views) == res["consumed"],
+              "%s: the report folds %d batches, %d recorded, %d delivered"
+              % (label, report.batches, len(views), res["consumed"]))
+        seen = {}
+        for v in views:
+            check(v["rows"] == TAB_BATCH and v["items"] is not None
+                  and sum(r for _e, _o, r in v["items"]) == v["rows"],
+                  "%s: batch %s records %s rows from items %s" % (label, v["seq"],
+                                                                   v["rows"], v["items"]))
+            for rec in v["item_records"]:
+                key = rec["key"]
+                check(key not in seen and rec["rows"] == TAB_BATCH,
+                      "%s: item %s delivered twice, or %d rows of %d" % (
+                          label, key, rec["rows"], TAB_BATCH))
+                seen[key] = rec
+        check(len(seen) == len(views), "%s: %d items for %d batches (a row group a batch)"
+              % (label, len(seen), len(views)))
+        check(report.stage_self_s.get("decode.device_inflate", 0.0) > 0.0,
+              "%s: no decode.device_inflate self time: %s" % (label, report.stage_self_s))
+        nested = 0
+        if pool == "process":
+            for key, rec in seen.items():
+                trip = [s for s in rec["spans"] if s["site"] == "wire.roundtrip"]
+                child = [s for s in rec["spans"] if s["site"] == "child.work"]
+                check(len(trip) == 1 and len(child) == 1 and child[0]["pid"] != local,
+                      "%s: item %s: %d wire.roundtrip spans, child.work %s" % (
+                          label, key, len(trip), child))
+                tol = 0.005  # the clock alignment's error is the wall clock's jitter
+                check(trip[0]["t0"] - tol <= child[0]["t0"] <= child[0]["t1"]
+                      <= trip[0]["t1"] + tol, "%s: item %s's child.work [%.6f, %.6f] lies "
+                      "outside its wire.roundtrip [%.6f, %.6f]" % (
+                          label, key, child[0]["t0"], child[0]["t1"], trip[0]["t0"],
+                          trip[0]["t1"]))
+                nested += 1
+        res["report"] = report
+        log("%s: %.1f rows/s; %d batches, each its rows from one item delivered once%s; "
+            "report: %s; %s" % (label, res["rows_per_s"], len(views),
+                                "; child.work inside wire.roundtrip for all %d items"
+                                % nested if nested else "", _report_brief(report), smi))
+        log("%s report:\n%s" % (label, report.render()))
+        out[pool] = res
+    return out
+
+
+def blame_run(root, cols, site, label, smi, device="cuda", slo=False):
+    """One pass of (b)'s store with ``site`` slowed by BLAME_LATENCY_S on every hit."""
+    import numpy as np
+
+    from petastorm_tpu_torch import chaos, make_batch_reader
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+    from petastorm_tpu_torch.obs.slo import SloSpec
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    registry = MetricsRegistry() if slo else None
+    specs = [SloSpec(name="inflate-p99",
+                     metric='ptpu_pipeline_stage_seconds{stage="device_inflate"}',
+                     stat="p99", op="<=", threshold=BLAME_LATENCY_S / 2,
+                     breach_windows=1)] if slo else None
+    plan = FaultPlan([FaultRule(site, "latency", every=1, latency_s=BLAME_LATENCY_S)],
+                     seed=15)
+    delivered = {}
+    with chaos.armed(plan, propagate=False):
+        reader = make_batch_reader("file://" + root, reader_pool_type="thread",
+                                   workers_count=1, shuffle_row_groups=False,
+                                   io_options={"pagedec": "on", "readahead": False},
+                                   provenance=True)
+        _tab_launch_counters(zero=True)
+        reads0 = pk.HOST_READS.value
+        t0 = time.perf_counter()
+        with DataLoader(reader, BLAME_RG_ROWS, device=device, metrics=registry,
+                        slos=specs) as loader:
+            for i, batch in enumerate(loader):
+                got = {k: v.cpu().numpy() for k, v in batch.items()}
+                delivered[int(got["id"][0]) // BLAME_RG_ROWS] = got
+                if slo and i in (3, BLAME_RGS - 1):
+                    registry.sample_timelines()  # a window after 4 batches, and the last
+            dt = time.perf_counter() - t0
+            report = loader.attribution_report()
+            alerts = loader.slo_alerts()
+    launches = _tab_launch_counters()
+    host_reads = pk.HOST_READS.value - reads0
+    fires = plan.stats()["injected_total"]
+    check(sorted(delivered) == list(range(BLAME_RGS)), "%s: row groups delivered %s"
+          % (label, sorted(delivered)))
+    for rg, got in delivered.items():
+        for name, src in cols.items():
+            part = src[rg * BLAME_RG_ROWS:(rg + 1) * BLAME_RG_ROWS]
+            check(got[name].dtype == part.dtype and got[name].tobytes() == part.tobytes(),
+                  "%s: column %s of row group %d differs from the store"
+                  % (label, name, rg))
+    check(all(n == BLAME_RGS for n in launches.values()) and host_reads == BLAME_RGS,
+          "%s: launches %s and %d reads back to the host for %d batches"
+          % (label, launches, host_reads, BLAME_RGS))
+    check(fires >= BLAME_RGS, "%s: the plan fired %d times" % (label, fires))
+    share = report.slow_share.get(site, 0.0)
+    log("%s: %.3f s for %d batches; slow_top %s (%.4f of the slow batches' critical path); "
+        "launches %s; plan fires %d; %s; %s" % (
+            label, dt, len(delivered), report.slow_top, share, json.dumps(launches), fires,
+            _report_brief(report), smi))
+    check(report.batches == BLAME_RGS and report.slow_top == site and share > 0.5,
+          "%s: the report names %s (slow shares %s), not the slowed %s"
+          % (label, report.slow_top, report.slow_share, site))
+    if slo:
+        check(len(alerts) == 1 and alerts[0].culprit == site
+              and alerts[0].attribution["slow_top"] == site,
+              "%s: alerts %s" % (label, [(a.name, a.culprit) for a in alerts]))
+        log("%s: alert %r" % (label, alerts[0].message))
+    return {"dt": dt, "report": report, "launches": launches, "share": share,
+            "alerts": [(a.name, a.culprit) for a in alerts]}
+
+
+def phase_prov_blame(work, smi, device="cuda"):
+    """(b): each site slowed in turn, BLAME_ROUNDS rounds; then the SLO alert."""
+    root = os.path.join(work, "blame")
+    cols = write_blame_store(root)
+    out = {site: [] for site in BLAME_SITES}
+    for r in range(BLAME_ROUNDS):
+        for site in BLAME_SITES:
+            out[site].append(blame_run(root, cols, site, "provenance (b) %s slowed, round "
+                                       "%d" % (site, r), smi, device=device))
+    out["slo"] = blame_run(root, cols, BLAME_SITES[0], "provenance (b) %s slowed, "
+                           "slos=" % BLAME_SITES[0], smi, device=device, slo=True)
+    log("provenance (b): the slowed site named in %d of %d rounds for each of %s; shares "
+        "%s; the SLO alert's culprit %s; %s" % (
+            BLAME_ROUNDS, BLAME_ROUNDS, list(BLAME_SITES),
+            json.dumps({s: [round(x["share"], 4) for x in out[s]] for s in BLAME_SITES}),
+            out["slo"]["alerts"], smi))
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_prov_main_path(url, images, kernels, smi):
+    """(c): the main path with provenance on and off, PROV_ROUNDS rounds."""
+    out = {"on": [], "off": []}
+    for r in range(PROV_ROUNDS):
+        for name in (["on", "off"] if r % 2 == 0 else ["off", "on"]):
+            res = chaos_jpeg_run(url, images, "(c) provenance %s round %d" % (name, r), smi,
+                                 provenance=True if name == "on" else None)
+            check(bool((res["counts"] == 1).all()), "(c) %s: ids not once each" % name)
+            if name == "on":
+                rep = res["attribution"]
+                check(rep.batches == res["batches"] and "loader.decode" in rep.stage_self_s,
+                      "(c): the report folds %d batches of %d, sites %s"
+                      % (rep.batches, res["batches"], sorted(rep.stage_self_s)))
+            out[name].append(res)
+    per_batch = {name: sorted({tuple(v // max(1, r["batches"])
+                                     for v in r["launches"].values()) for r in runs})
+                 for name, runs in out.items()}
+    check(per_batch["on"] == per_batch["off"] == [(1, 1, 1)],
+          "(c): launches a batch %s" % per_batch)
+    s2 = kernels["stage2"]
+    device_ms = {"stage2_planes": s2["planes"]["selected"]["ms"],
+                 "stage2_rgb": s2["rgb"]["ms"], "K2": kernels["K2"]["bf16"]["ms"]}
+    decode_ms = sorted(r["attribution"].stage_self_s["loader.decode"] / r["batches"] * 1e3
+                       for r in out["on"])
+    on = sorted(r["rows_per_s"] for r in out["on"])
+    off = sorted(r["rows_per_s"] for r in out["off"])
+    out["ratio"] = on[len(on) // 2] / off[len(off) // 2]
+    out["device_ms"] = device_ms
+    out["decode_self_ms"] = decode_ms
+    log("provenance (c): main path rows/s with provenance %s, without %s (median ratio "
+        "%.4f); loader.decode host self time %s ms a batch against the kernels' device "
+        "time %s ms a batch (%.4f in all, phase 3); reports: %s; %s" % (
+            [round(r["rows_per_s"], 1) for r in out["on"]],
+            [round(r["rows_per_s"], 1) for r in out["off"]], out["ratio"],
+            [round(x, 4) for x in decode_ms], json.dumps({k: round(v, 4) for k, v in
+                                                          device_ms.items()}),
+            sum(device_ms.values()), [_report_brief(r["attribution"]) for r in out["on"]],
+            smi))
+    log("provenance (c) report:\n%s" % out["on"][0]["attribution"].render())
+    return out
+
+
+def phase_prov_tools(prov_tab, work, smi):
+    """(d): the trend gate twice, the run diff and the stats CLI."""
+    import io as io_mod
+
+    from petastorm_tpu_torch.benchmark import trend
+    from petastorm_tpu_torch.obs import diff, stats_cli
+
+    def run(fn, argv):
+        buf = io_mod.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        return rc, buf.getvalue().strip().splitlines()
+
+    history = os.path.join(work, "trend_history.jsonl")
+    runs = []
+    for i in range(2):
+        rc, lines = run(trend.main, ["--history", history])
+        entries = trend.load_history(history)
+        check(len(entries) == i + 1 and entries[-1].get("sites"),
+              "(d) trend run %d: %d entries, sites %s" % (
+                  i, len(entries), entries[-1].get("sites") if entries else None))
+        if i == 0:
+            check(rc == 0 and "seeded" in lines[0]
+                  and entries[0]["baseline_rows_per_s"] is None,
+                  "(d) the first trend run did not seed the history: rc %d, %s"
+                  % (rc, lines))
+        runs.append({"rc": rc, "verdict": lines[0], "entry": entries[-1]})
+        log("provenance (d) trend run %d: exit %d; %s; rows/s %s (epochs %s); sites %s; %s"
+            % (i, rc, lines[0], entries[-1]["rows_per_s"], entries[-1]["epoch_rates"],
+               json.dumps(entries[-1]["sites"]), smi))
+    rc, lines = run(diff.main, ["-2", "-1", "--history", history])
+    verdict = json.loads(lines[-1])
+    check(rc == 0 and verdict["schema"] == "ptpu-bench-diff-v1",
+          "(d) diff: exit %d, last line %s" % (rc, lines[-1]))
+    log("provenance (d) diff of the two trend entries: %s" % " | ".join(lines))
+    jsonl = prov_tab["thread"]["probe"]["jsonl"]
+    rc, lines = run(stats_cli.main, [jsonl])
+    panel = [x for x in lines if x.startswith("attribution (critical-path self time")]
+    check(rc == 0 and panel, "(d) stats CLI over (a)'s Reporter JSONL: exit %d, no "
+          "attribution panel in %d lines" % (rc, len(lines)))
+    start = lines.index(panel[0])
+    end = start + 1
+    while end < len(lines) and lines[end].startswith("  "):
+        end += 1
+    log("provenance (d) stats CLI attribution panel: %s" % " | ".join(lines[start:end]))
+    return {"trend": runs, "diff": verdict}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -5317,6 +5662,9 @@ def main():
         health_b = phase_health_hang(url, images, health_dir, env["smi"])
         health_c = phase_health_heal(url, images, health_dir, env["smi"])
         phase14_s = time.perf_counter() - t14
+        t15 = time.perf_counter()
+        prov_c = phase_prov_main_path(url, images, kernels, env["smi"])
+        phase15_s = time.perf_counter() - t15
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -5381,6 +5729,12 @@ def main():
         phase14_s += time.perf_counter() - t14
         log("liveness and time: phase 14 took %.1f s of wall time; %s"
             % (phase14_s, env["smi"]))
+        t15 = time.perf_counter()
+        prov_a = phase_prov_tabular(tab_root, arrays, predicted, work, env["smi"])
+        prov_b = phase_prov_blame(work, env["smi"])
+        prov_d = phase_prov_tools(prov_a, work, env["smi"])
+        phase15_s += time.perf_counter() - t15
+        log("attribution: phase 15 took %.1f s of wall time; %s" % (phase15_s, env["smi"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -5444,6 +5798,12 @@ def main():
                 "c_refused": health_c["refused"]["launches"][key],
                 "c_refused_batches": health_c["refused"]["batches"]}
 
+    def slice16_launches(key):
+        """{part: launches of ``key``} in phase 15's JPEG part (a list a run)."""
+        return {"c_provenance": [r["launches"][key] for r in prov_c["on"]],
+                "c_no_provenance": [r["launches"][key] for r in prov_c["off"]],
+                "c_batches": [r["batches"] for r in prov_c["on"] + prov_c["off"]]}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -5462,7 +5822,8 @@ def main():
          "slice12_launches": slice12_launches("stage2_planes"),
          "slice13_launches": slice13_launches("stage2_planes"),
          "slice14_launches": slice14_launches("stage2_planes"),
-         "slice15_launches": slice15_launches("stage2_planes")},
+         "slice15_launches": slice15_launches("stage2_planes"),
+         "slice16_launches": slice16_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -5478,7 +5839,8 @@ def main():
          "slice12_launches": slice12_launches("stage2_rgb"),
          "slice13_launches": slice13_launches("stage2_rgb"),
          "slice14_launches": slice14_launches("stage2_rgb"),
-         "slice15_launches": slice15_launches("stage2_rgb")},
+         "slice15_launches": slice15_launches("stage2_rgb"),
+         "slice16_launches": slice16_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -5515,7 +5877,8 @@ def main():
          "slice12_launches": slice12_launches("K2"),
          "slice13_launches": slice13_launches("K2"),
          "slice14_launches": slice14_launches("K2"),
-         "slice15_launches": slice15_launches("K2")},
+         "slice15_launches": slice15_launches("K2"),
+         "slice16_launches": slice16_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -5566,6 +5929,14 @@ def main():
             "d_passthrough_batches": [
                 r["passthrough_batches"]
                 for r in health_d["on"] + health_d["metrics"] + health_d["off"]]}
+        row["slice16_launches"] = {
+            "a_" + pool: prov_a[pool]["launches"][key] for pool in prov_a}
+        row["slice16_launches"]["a_passthrough_batches"] = {
+            pool: prov_a[pool]["passthrough_batches"] for pool in prov_a}
+        row["slice16_launches"].update({
+            "b_" + site: [x["launches"][key] for x in prov_b[site]] for site in BLAME_SITES})
+        row["slice16_launches"]["b_slo"] = prov_b["slo"]["launches"][key]
+        row["slice16_launches"]["b_batches"] = BLAME_RGS
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -5628,6 +5999,19 @@ def main():
             phase14_s, median(health_a["on"]), median(health_a["off"]),
             health_b["latency_s"], health_c["healed"]["heals"], health_c["child_stacks"],
             median(health_d["on"]), median(health_d["metrics"]), median(health_d["off"])))
+    log("attribution (phase 15, %.1f s): pass-through rows/s with provenance %.1f on the "
+        "thread pool, %.1f on the process pool over 'arrow'; the slowed site named in "
+        "%d of %d rounds for each of %s, the SLO alert's culprit %s; main path rows/s "
+        "median ratio provenance on/off %.4f (on %s, off %s); loader.decode host self "
+        "time %s ms a batch beside %.4f ms of kernel device time a batch; trend gate "
+        "verdicts %s; diff %r" % (
+            phase15_s, prov_a["thread"]["rows_per_s"], prov_a["process"]["rows_per_s"],
+            BLAME_ROUNDS, BLAME_ROUNDS, list(BLAME_SITES), prov_b["slo"]["alerts"],
+            prov_c["ratio"], [round(r["rows_per_s"], 1) for r in prov_c["on"]],
+            [round(r["rows_per_s"], 1) for r in prov_c["off"]],
+            [round(x, 4) for x in prov_c["decode_self_ms"]],
+            sum(prov_c["device_ms"].values()), [r["verdict"] for r in prov_d["trend"]],
+            prov_d["diff"]["verdict"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

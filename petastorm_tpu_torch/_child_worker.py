@@ -21,13 +21,20 @@ it decodes) and ``settings`` None or a dict the worker applies before the item
 (``apply_settings``: how a reader's later adoption by a loader reaches running
 children). The child answers ``("ok", kind, nframes, (work_s, serialize_s), io,
 spans)``, ``io`` the worker's ``io_stats()`` (or None) and ``spans`` the trace piggyback
-``(pid, wall_anchor, perf_anchor, [(name, t0, dur), ...])``: ``child.work`` (the worker
-call) and ``child.serialize`` (the wire encode) around this item, ``t0`` from the
-child's ``perf_counter`` and one (wall, perf) anchor pair sampled at start for clock
-alignment. Recording is two ``perf_counter`` pairs an item (a row group, not a row), so
-it is always on; the parent merges the spans only when a
-:class:`~petastorm_tpu_torch.trace.TraceRecorder` is attached. Then ``nframes`` raw
-frames from the serializer follow; or the child answers ``("exc", exception)``. A
+``(pid, wall_anchor, perf_anchor, [(name, t0, dur), ...], prov_blob)``: ``child.work``
+(the worker call) and ``child.serialize`` (the wire encode) around this item, ``t0`` from
+the child's ``perf_counter`` and one (wall, perf) anchor pair sampled at start for clock
+alignment. ``prov_blob`` is the item's provenance record ``(epoch, ordinal, key, spans,
+annotations)`` (:mod:`petastorm_tpu_torch.obs.provenance`; the child arms its
+lightweight collector at bootstrap): the same two spans plus every span the worker
+recorded inside them (reads, GETs, the transform) and its annotations, or None when it
+recorded nothing. The record is taken in a ``finally`` on every exit of the attempt, so
+a failed attempt never leaks into the next item. Recording is a few ``perf_counter``
+pairs an item (a row group, not a row), so it is always on; the parent merges the spans
+only when a :class:`~petastorm_tpu_torch.trace.TraceRecorder` or a
+:class:`~petastorm_tpu_torch.obs.provenance.ProvenanceRecorder` is attached. Then
+``nframes`` raw frames from the serializer follow; or the child answers ``("exc",
+exception)``. A
 ``None`` item shuts the child down, and the worker's ``close()`` releases its readahead
 pool and its ranged-GET engine.
 
@@ -48,9 +55,8 @@ sends nothing, so its heartbeat ages: the stall signal. With ``stack_dump_dir`` 
 registers ``faulthandler`` on SIGUSR1, writing every thread's stack to
 ``<dir>/stacks-<pid>.txt``, which the parent signals and reads into a flight record.
 
-The JAX package's child also speaks tcp, provenance, tenants and live knob frames; those
-are not ported (ROADMAP.md Queue 1 items 4(c), 8b(ii) and 8c), and the parent never asks
-for them.
+The JAX package's child also speaks tcp, tenants and live knob frames; those are not
+ported (ROADMAP.md Queue 1 items 4(c) and 8c), and the parent never asks for them.
 """
 import os
 import pickle
@@ -125,6 +131,9 @@ def main():
         from petastorm_tpu_torch.io import arena as arena_mod
 
         arena_mod.attach_from_env()
+        from petastorm_tpu_torch.obs import provenance as prov
+
+        prov.arm_child()
         apply_settings = getattr(worker, "apply_settings", None)
         prefetch = getattr(worker, "prefetch", None)
         io_stats = getattr(worker, "io_stats", None)
@@ -150,25 +159,37 @@ def main():
                 apply_settings(settings)
             if hints and prefetch is not None:
                 prefetch(hints)  # never raises (degradation-counted)
+            prov.begin_item(item)
             try:
-                t0 = time.perf_counter()
-                if chaos.ACTIVE is not None:
-                    chaos.ACTIVE.hit("child.item", key=chaos.item_key(item))
-                result = worker(item)
-                t1 = time.perf_counter()
-                kind, frames = serializer.serialize(result)
-                t2 = time.perf_counter()
-            except Exception as e:  # noqa: BLE001 — shipped to the parent
                 try:
-                    pickle.dumps(e)
-                    conn.send(("exc", e))
-                except Exception:  # noqa: BLE001 — unpicklable exception: rebuild it
-                    conn.send(("exc", RuntimeError("%s: %s" % (type(e).__name__, e))))
-                continue
+                    t0 = time.perf_counter()
+                    if chaos.ACTIVE is not None:
+                        chaos.ACTIVE.hit("child.item", key=chaos.item_key(item))
+                    result = worker(item)
+                    t1 = time.perf_counter()
+                    kind, frames = serializer.serialize(result)
+                    t2 = time.perf_counter()
+                    # mirrored into the item's record, so the parent's wire.roundtrip
+                    # folds to the wire's overhead (the worker's spans nest in here)
+                    prov.add_span("child.work", t0, t1 - t0)
+                    prov.add_span("child.serialize", t1, t2 - t1)
+                except Exception as e:  # noqa: BLE001 — shipped to the parent
+                    try:
+                        pickle.dumps(e)
+                        conn.send(("exc", e))
+                    except Exception:  # noqa: BLE001 — unpicklable exception: rebuild
+                        conn.send(("exc", RuntimeError("%s: %s" % (type(e).__name__,
+                                                                  e))))
+                    continue
+            finally:
+                # taken on every exit of the attempt: a failed one never leaks into the
+                # next item's record
+                prov_blob = prov.end_item()
             conn.send(("ok", kind, len(frames), (t1 - t0, t2 - t1),
                        io_stats() if io_stats is not None else None,
                        (pid, wall_anchor, perf_anchor,
-                        [("child.work", t0, t1 - t0), ("child.serialize", t1, t2 - t1)])))
+                        [("child.work", t0, t1 - t0), ("child.serialize", t1, t2 - t1)],
+                        prov_blob)))
             for frame in frames:
                 conn.send_bytes(frame)
     except (EOFError, BrokenPipeError, ConnectionResetError):

@@ -7,8 +7,6 @@ from __future__ import annotations
 
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
-    "attribution": "Queue 1 item 8b(ii) (provenance, the critical path, run diffs and the "
-                   "stats CLI)",
     "control": "Queue 1 item 8c (tenants, the controller and dataset watch)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
@@ -19,8 +17,7 @@ _ITEMS = {
 OPTIONS = {
     # io_options and cache_* are taken
     # io_retries, io_retry_backoff_s, recovery, trace and metrics are taken; so are
-    # health and slos
-    "provenance": ("attribution", None),
+    # health, slos and provenance
     "watch": ("control", None),
     "tenant": ("control", None),
     "controller": ("control", None),

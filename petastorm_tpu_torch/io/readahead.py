@@ -28,7 +28,12 @@ an ``io.readahead`` span; a foreground wait on an in-flight read is an ``io.wait
 With a :class:`~petastorm_tpu_torch.obs.health.HealthMonitor` attached
 (:meth:`ReadaheadPool.set_health`) each IO thread heartbeats as ``io.<thread name>``
 (role ``io``): busy (``read``) during a background read, ``wait:idle`` between tasks, so
-a read hung against a wedged filesystem trips the stall watchdog. The counts are per
+a read hung against a wedged filesystem trips the stall watchdog. With the provenance
+plane armed (:mod:`petastorm_tpu_torch.obs.provenance`) the claiming item is annotated
+``readahead`` = ``hit`` or ``miss``, and a hit carries the IO thread's read as an
+``io.readahead`` span (its timestamps are the IO thread's, taken when it read, on the same
+``perf_counter`` clock) plus the claimer's remaining wait as ``io.readahead_wait``. The
+counts are per
 pool, read through :meth:`ReadaheadPool.stats`; ``Reader.io_stats()`` carries them, and a
 ``DataLoader(metrics=...)`` exports that dict as the ``ptpu_io_*`` families. The JAX
 package's live ``apply_*`` knobs are ROADMAP.md Queue 1 item 8c.
@@ -41,6 +46,7 @@ import weakref
 from collections import OrderedDict
 
 from petastorm_tpu_torch.io.coalesce import plan_runs
+from petastorm_tpu_torch.obs import provenance as _prov
 from petastorm_tpu_torch.obs.health import ActorSlots
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 
@@ -131,7 +137,7 @@ class _CancelledRead(Exception):
 
 
 class _Entry:
-    __slots__ = ("event", "table", "error", "nbytes", "claimed")
+    __slots__ = ("event", "table", "error", "nbytes", "claimed", "read_span")
 
     def __init__(self):
         self.event = threading.Event()
@@ -139,6 +145,8 @@ class _Entry:
         self.error = None
         self.nbytes = 0
         self.claimed = False
+        #: (t0, seconds) of the IO thread's read that filled the entry
+        self.read_span = None
 
 
 def request_key(piece, columns):
@@ -338,6 +346,7 @@ class ReadaheadPool:
                 else:
                     entry.table = tables[i]
                     entry.nbytes = getattr(tables[i], "nbytes", 0)
+                    entry.read_span = (t0, dur)
                     self._held_bytes += entry.nbytes
                 entry.event.set()
             self._evict_over_budget()
@@ -377,6 +386,8 @@ class ReadaheadPool:
             entry = self._entries.get(key)
             if entry is None or entry.claimed:
                 self._n_misses += 1
+                if _prov.ACTIVE is not None:
+                    _prov.annotate("readahead", "miss")
                 return None
             entry.claimed = True
         t0 = time.perf_counter()
@@ -391,6 +402,14 @@ class ReadaheadPool:
             if entry.table is not None:
                 self._held_bytes -= entry.nbytes
                 self._n_hits += 1
+                if _prov.ACTIVE is not None:
+                    # the background read (it overlapped earlier items' work: the fold
+                    # charges only what was serialized) and the claimer's residual wait
+                    _prov.annotate("readahead", "hit")
+                    if entry.read_span is not None:
+                        _prov.add_span("io.readahead", *entry.read_span)
+                    if wait > 1e-6:
+                        _prov.add_span("io.readahead_wait", t0, wait)
                 return entry.table
         if not completed:
             # hung background read: abandon the entry (its late completion is dropped

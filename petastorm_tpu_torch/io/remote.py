@@ -52,6 +52,7 @@ import weakref
 import zlib
 
 from petastorm_tpu_torch.io.coalesce import plan_byte_ranges
+from petastorm_tpu_torch.obs import provenance as _prov
 from petastorm_tpu_torch.obs.metrics import MetricsRegistry
 
 #: pyarrow filesystem type_names that are NOT object stores (the auto probe)
@@ -467,9 +468,15 @@ class RemoteReadEngine:
         self._tracer = tracer
 
     def _span(self, t0):
+        """The ``io.remote`` span of a row-group read or raw chunk fetch: into the trace,
+        and onto the calling item's provenance record (nested in its ``reader.read`` or
+        ``io.pagedec``: the fold charges those sites only their residual)."""
+        dur = time.perf_counter() - t0
         tracer = self._tracer
         if tracer is not None:
-            tracer.add("io.remote", t0, time.perf_counter() - t0)
+            tracer.add("io.remote", t0, dur)
+        if _prov.ACTIVE is not None:
+            _prov.add_span("io.remote", t0, dur)
 
     def _count(self, name, n=1):
         with self._lock:
@@ -708,6 +715,10 @@ class RemoteReadEngine:
                         state.hedged = True
                 if fire:
                     self._count("hedges")
+                    if _prov.ACTIVE is not None:
+                        # supervision runs on the item's own thread: the annotation
+                        # lands on the right record
+                        _prov.annotate_add("hedges", 1)
                     self._submit_attempt(state, path, offset, length, "hedge")
                 continue
             next_wake = timeout_at
@@ -718,6 +729,8 @@ class RemoteReadEngine:
         # landed in the timeout race is delivered rather than stranded
         data = state.take()
         if data is not None:
+            if _prov.ACTIVE is not None and state.winner_role == "hedge":
+                _prov.annotate_add("hedge_wins", 1)
             return data
         if state.errors:
             raise state.errors[-1]

@@ -17,7 +17,8 @@ a disk tier that holds nothing. The mem tier's read-only serving contract is
 :class:`~petastorm_tpu_torch.io.memcache.MemCache`'s, which also holds the arena tier
 and reports which of the two served. The funnel's counts reach the registry as
 ``ptpu_io_*`` through ``Reader.io_stats()`` (a loader's ``io`` collector); the
-per-tenant charges are ROADMAP.md Queue 1 item 8c.
+per-tenant charges are ROADMAP.md Queue 1 item 8c. With the provenance plane armed each
+serve annotates its item's ``cache_tier`` with the tier that served it.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import threading
 
 from petastorm_tpu_torch.cache import CacheBase, NullCache
 from petastorm_tpu_torch.io.memcache import payload_nbytes
+from petastorm_tpu_torch.obs import provenance as _prov
 
 #: serve-attribution tiers, hot to cold: ``arena`` sits between this process's mem
 #: store and the disk tier (a shared mapping costs less than a disk read, more than a
@@ -114,6 +116,8 @@ class TieredCache(CacheBase):
         else:
             value = self._through_disk(key, fill_cache_func, served)
         self._count(served[0], value)
+        if _prov.ACTIVE is not None:  # which tier fed this item
+            _prov.annotate("cache_tier", served[0])
         return value
 
     def get_writable(self, key, fill_cache_func):
@@ -127,6 +131,8 @@ class TieredCache(CacheBase):
         else:
             value = self._through_disk(key, fill_cache_func, served)
         self._count(served[0], value)
+        if _prov.ACTIVE is not None:  # which tier fed this item
+            _prov.annotate("cache_tier", served[0])
         return value
 
     @property

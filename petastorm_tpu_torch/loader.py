@@ -68,8 +68,19 @@ registry's windows (:mod:`petastorm_tpu_torch.obs.timeseries`), on whatever cade
 samples them (a :class:`~petastorm_tpu_torch.obs.export.Reporter`, or
 ``registry.sample_timelines()``).
 
+``provenance=`` (or ``PTPU_PROVENANCE``) arms the attribution plane
+(:mod:`petastorm_tpu_torch.obs.provenance`): every row group's spans through the reader,
+the pool and its wire, and the batch plane's own (``loader.collate``,
+``loader.host_queue_put``, ``decode.device_inflate``, ``loader.decode``, ``loader.h2d``)
+recorded once in :meth:`DataLoader._timed` beside the trace, with no second clock; each
+delivered batch knows the items that fed it. :meth:`DataLoader.attribution_report` folds
+them into the critical path's per-site self seconds
+(:mod:`petastorm_tpu_torch.obs.critical_path`), and with ``slos=`` each alert names its
+culprit site. The spans are host time: ``loader.decode`` times the enqueue of the staged
+decode's kernels, and ``decode.device_inflate`` includes its one read back to the host.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
-across devices (item 12); provenance (item 8b(ii)); the controller and tenants (item 8c).
+across devices (item 12); the controller and tenants (item 8c).
 """
 from __future__ import annotations
 
@@ -202,7 +213,8 @@ class _LoaderObs:
     reader's ``wire_stats()`` as ``ptpu_wire_*``. One metrics-enabled loader a registry
     at a time: the families carry no per-loader label.
 
-    The reader's ``io_stats()`` exports as ``ptpu_io_*`` (the ``io`` collector: the
+    With provenance on, the recorder's summary exports as ``ptpu_prov_*``. The reader's
+    ``io_stats()`` exports as ``ptpu_io_*`` (the ``io`` collector: the
     readahead pool's, the caches', the ranged-GET engine's and the arena's counts under
     the JAX package's key names; a process pool's children's counts, nested, are not
     exported), and a health monitor's heartbeats as ``ptpu_health_*``.
@@ -237,6 +249,14 @@ class _LoaderObs:
             io_ref = weakref.WeakMethod(io_stats_fn)
             self._handles.append(registry.register_collector(
                 "io", lambda: (io_ref() or dict)()))
+        prov = getattr(loader, "_prov_rec", None)
+        if prov is not None:
+            # the attribution plane: item and batch counts and the per-site critical-path
+            # self seconds as ptpu_prov_* (the stats CLI's attribution panel)
+            prov_ref = weakref.ref(prov)
+            self._handles.append(registry.register_collector(
+                "prov", lambda: (lambda r: r.summary() if r is not None
+                                 else {})(prov_ref())))
 
     def observe(self, stage, dur):
         self._hists[stage].observe(dur)
@@ -731,7 +751,22 @@ class DataLoader:
         each flush. Debounced breaches fire ``slo_breach`` degradations and count
         ``ptpu_slo_alerts_total``; read them from :meth:`slo_alerts`. A pre-built
         :class:`~petastorm_tpu_torch.obs.slo.SloEngine` is shared and stays attached at
-        ``__exit__``.
+        ``__exit__``. With ``provenance=`` each alert carries an
+        :meth:`attribution_report` snapshot naming the culprit site.
+    provenance : True or ProvenanceRecorder, optional
+        Causal per-item provenance (:mod:`petastorm_tpu_torch.obs.provenance`): every
+        dispatched row group accumulates ``(site, t_start, t_end, pid)`` spans and
+        annotations (the cache tier that served it, hedges, retries, quarantine, the
+        readahead hit or miss) through the whole pipeline, a process pool's children
+        included, and each delivered batch knows its contributing items.
+        :meth:`batch_provenance` returns the latest batch's record and
+        :meth:`attribution_report` folds the window into the critical path's per-site
+        self times. ``True`` builds a recorder (released at ``__exit__``); a recorder
+        the reader factory built (``provenance=`` there) is adopted; a
+        :class:`~petastorm_tpu_torch.obs.provenance.ProvenanceRecorder` passed here is
+        shared and stays armed. One armed recorder a process. ``PTPU_PROVENANCE=1``
+        turns it on without code. Under shuffling (either buffer) batch membership is
+        unknown (``items`` is None); the item records still collect.
     device : torch.device or str, optional, keyword only
         Where batches land (and where staged fields decode). Default: the CUDA device
         (raises when there is none).
@@ -747,9 +782,8 @@ class DataLoader:
                  device_shuffle_capacity=0, device_decode_resize=None, trace=None,
                  metrics=None, health=None, staging=None, provenance=None,
                  slos=None, controller=None, tenant=None, *, device=None):
-        reject_unported(
-            "DataLoader", sharding=sharding, provenance=provenance,
-            controller=controller, tenant=tenant)
+        reject_unported("DataLoader", sharding=sharding, controller=controller,
+                        tenant=tenant)
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if last_batch not in ("drop", "pad", "partial"):
@@ -815,6 +849,7 @@ class DataLoader:
         if trace is not None and hasattr(reader, "set_trace"):
             reader.set_trace(trace)
         self._init_health(health, metrics)
+        self._init_provenance(provenance, trace, shuffling_queue_capacity)
         #: stage histograms and pull collectors (None: disabled)
         self._obs = None
         if metrics:
@@ -847,6 +882,9 @@ class DataLoader:
                 engine = SloEngine(specs=list(slos), registry=registry)
                 engine.attach(registry.timeline_store())
                 self._slo_owned = True
+            if engine._attribution is None and self._prov_rec is not None:
+                # each alert names the site that owns the slow batches' critical path
+                engine.set_attribution(self.attribution_report)
             self._slo_engine = engine
         # consumer-watermark checkpointing (see state_dict): the producer logs
         # (cumulative delivered rows, reader state) at its deliveries, the consumer counts
@@ -905,15 +943,45 @@ class DataLoader:
             self.reader.set_health(self._health_scope)
         monitor.start()
 
-    def _timed(self, span, stage, t0):
-        """Seconds since ``t0``, recorded as a ``span`` in the trace and as a ``stage``
-        observation in the metrics when either is on (host time only: nothing here
-        waits for the card)."""
+    def _init_provenance(self, provenance, trace, shuffling_queue_capacity):
+        """The attribution plane of ``provenance=``: adopt the recorder the reader's
+        factory attached (armed before its pool started, so it saw every item), share
+        a caller's recorder, or build one (None: the ``PTPU_PROVENANCE`` switch)."""
+        from petastorm_tpu_torch.obs import provenance as prov_mod
+
+        #: the ProvenanceRecorder (None: off, one check a site) and whether this loader
+        #: built it, and so releases it at __exit__
+        self._prov_rec = None
+        self._prov_owned = False
+        existing = getattr(self.reader, "_prov", None)
+        if isinstance(provenance, prov_mod.ProvenanceRecorder):
+            rec = provenance.arm()  # the caller's: stays armed past __exit__
+        elif existing is not None:
+            rec = existing.arm()  # the reader's: its join() releases it
+        else:
+            rec = prov_mod.resolve(provenance)
+            self._prov_owned = rec is not None
+        if rec is None:
+            return
+        if trace is not None:
+            rec.set_trace(trace)  # flow events linking each item's spans in the dump
+        rec.set_batch_tracking(not shuffling_queue_capacity
+                               and not self._device_shuffle_capacity)
+        if hasattr(self.reader, "set_provenance") and existing is not rec:
+            self.reader.set_provenance(rec)
+        self._prov_rec = rec
+
+    def _timed(self, span, stage, t0, site=None):
+        """Seconds since ``t0``, recorded as a ``span`` in the trace, as a ``stage``
+        observation in the metrics, and as the provenance ``site`` of the batch in
+        transfer, when each is on (host time only: nothing here waits for the card)."""
         dt = time.perf_counter() - t0
         if self._trace is not None:
             self._trace.add(span, t0, dt)
         if self._obs is not None:
             self._obs.observe(stage, dt)
+        if site is not None and self._prov_rec is not None:
+            self._prov_rec.transfer_span(site, t0, dt)
         return dt
 
     # -- producer (background thread: reader → host batches) ---------------------------
@@ -1005,7 +1073,8 @@ class DataLoader:
                                 if hasattr(v, "detach"):
                                     col[i] = v.detach()
                 ready = batcher.add(columns, lease)
-                stats.batch_s += self._timed("batch.form", "batch", t0)
+                dt = self._timed("batch.form", "batch", t0)
+                stats.batch_s += dt
                 if self._ckpt_enabled:
                     ckpt_cum += _batch_row_count(columns)
                     # snapshots at delivery boundaries (a batched reader's items are row
@@ -1015,7 +1084,7 @@ class DataLoader:
                     if (ready or batched) and ckpt_deliveries >= ckpt_next_snap:
                         self._ckpt_record(ckpt_cum)
                         ckpt_next_snap = ckpt_deliveries + max(1, ckpt_deliveries // 512)
-                if not self._deliver_batches(q, ready, hb):
+                if not self._deliver_batches(q, ready, hb, collate_span=(t0, dt)):
                     return
             # under last_batch='drop' the shuffling buffer can still hold whole batches at
             # reader exhaustion — only the short tail is dropped
@@ -1034,16 +1103,33 @@ class DataLoader:
                 hb.done()
             _put_sentinel(q, self._stop)
 
-    def _deliver_batches(self, q, batches, hb=None, drop_short=False):
+    def _deliver_batches(self, q, batches, hb=None, drop_short=False, collate_span=None):
         """Push cut batches into the host queue, padding per ``last_batch``. Returns
         False once the loader is stopped. A batch that is dropped, or not delivered
-        because the loader stopped, releases its leases here."""
+        because the loader stopped, releases its leases here.
+
+        With provenance each batch opens its record here: its items from the delivery
+        FIFO, an equal share of the ``collate_span`` ``(t0, seconds)`` that cut it, and
+        its ``loader.host_queue_put`` span; a batch that dies on this path is retired, so
+        the transfer and delivery pointers stay aligned."""
+        rec = self._prov_rec
+        collate_t0 = collate_share = None
+        if rec is not None and collate_span is not None and batches:
+            collate_t0 = collate_span[0]
+            collate_share = collate_span[1] / len(batches)
         for i, batch in enumerate(batches):
+            bp = None
+            if rec is not None:
+                bp = rec.producer_cut(_batch_row_count(batch), collate_t0, collate_share)
             if self._stop.is_set():
+                if bp is not None:
+                    rec.batch_dropped(bp)
                 for b in batches[i:]:
                     _release_leases(b)
                 return False
             if drop_short and _batch_row_count(batch) < self.batch_size:
+                if bp is not None:
+                    rec.batch_dropped(bp)
                 _release_leases(batch)
                 continue
             if self.last_batch == "pad":
@@ -1053,11 +1139,15 @@ class DataLoader:
                 hb.wait("host_queue_put")
             t0 = time.perf_counter()
             ok = _put_with_stop(q, batch, self._stop)
-            self.stats.put_wait_s += self._timed("wait.host_queue_put", "host_queue_put",
-                                                 t0)
+            dt = self._timed("wait.host_queue_put", "host_queue_put", t0)
+            self.stats.put_wait_s += dt
+            if bp is not None:
+                rec.batch_span(bp, "loader.host_queue_put", t0, dt)
             if hb is not None:
                 hb.beat("batch")
             if not ok:
+                if bp is not None:
+                    rec.batch_dropped(bp)
                 for b in batches[i:]:
                     _release_leases(b)
                 return False
@@ -1250,7 +1340,8 @@ class DataLoader:
                 raise pk.KernelFaultError(
                     "column %r: the device inflate rejected pages that the host twin "
                     "decodes (%s)" % (e.column, e)) from e
-        dt = self._timed("decode.device_inflate", "device_inflate", t0)
+        dt = self._timed("decode.device_inflate", "device_inflate", t0,
+                         site="decode.device_inflate")
         counters["inflate_seconds"].observe(dt)
         self.stats.inflate_s += dt
         return batch, inflated
@@ -1262,12 +1353,17 @@ class DataLoader:
         import torch
 
         hb = self._hb_transfer
+        if self._prov_rec is not None:
+            # host batches reach this thread in FIFO order: the recorder's transfer
+            # pointer moves to this batch's record
+            self._prov_rec.transfer_next()
         batch, inflated = self._inflate_passthrough(batch)
         if hb is not None:
             hb.beat("decode")
         t0 = time.perf_counter()
         batch, decoded = self._decode_staged(batch)
-        self.stats.decode_s += self._timed("decode.dispatch", "decode", t0)
+        self.stats.decode_s += self._timed("decode.dispatch", "decode", t0,
+                                           site="loader.decode")
         if hb is not None:
             # busy through the upload (the pinned slab's reuse may wait for the card)
             # and the device transform
@@ -1294,7 +1390,7 @@ class DataLoader:
         arrays = dict(zip(names, tensors))
         arrays.update(decoded)
         arrays.update(inflated)
-        self.stats.h2d_s += self._timed("h2d.transfer", "h2d", t0)
+        self.stats.h2d_s += self._timed("h2d.transfer", "h2d", t0, site="loader.h2d")
         return arrays, host
 
     def _apply_device_transform(self, arrays):
@@ -1405,8 +1501,10 @@ class DataLoader:
         """Make a transfer-stream batch safe to use on the consumer's current stream; its
         ``rows`` now count as taken by the consumer (the checkpoint watermark: a
         pass-through batch counts here, with its inflated columns, not when its pages
-        were staged)."""
+        were staged); its provenance record is finalized (the step gap starts here)."""
         self._advance_consumed(rows)
+        if self._prov_rec is not None:
+            self._prov_rec.batch_delivered()
         if event is None:
             return batch
         import torch
@@ -1436,6 +1534,8 @@ class DataLoader:
                 for lease in leases:
                     lease.release()
             self._advance_consumed(_batch_valid_rows(batch))
+            if self._prov_rec is not None:
+                self._prov_rec.batch_delivered()
             yield batch
 
     def __iter__(self):
@@ -1586,6 +1686,35 @@ class DataLoader:
 
         return analyze_loader(self)
 
+    @property
+    def provenance(self):
+        """The attached :class:`~petastorm_tpu_torch.obs.provenance.ProvenanceRecorder`,
+        or None without ``provenance=``."""
+        return self._prov_rec
+
+    def _require_provenance(self):
+        if self._prov_rec is None:
+            raise ValueError(
+                "DataLoader was built without provenance: pass provenance=True (or a "
+                "ProvenanceRecorder, or set PTPU_PROVENANCE=1) to enable "
+                "batch_provenance()/attribution_report()")
+        return self._prov_rec
+
+    def batch_provenance(self):
+        """The latest delivered batch's provenance: its contributing item records (spans
+        across every seam and process, annotations) plus the batch-plane spans and the
+        step gap. None before the first delivery. Requires ``provenance=``."""
+        return self._require_provenance().last_batch()
+
+    def attribution_report(self, tenant=None):
+        """Fold the recorded batch window into a critical-path step-time attribution
+        (:class:`~petastorm_tpu_torch.obs.critical_path.AttributionReport`): per-site
+        self seconds and shares, the step gap's p50/p99 split by cache tier and by
+        degradation cause, and the "your p99 batch spent N% of its critical path in
+        <site>" verdict. ``tenant=`` folds only batches whose items carry that
+        ``tenant`` annotation. Requires ``provenance=``."""
+        return self._require_provenance().report(tenant=tenant)
+
     def _fail_fast(self, err):
         """The watchdog's ``raise`` escalation (from its thread): deliver ``err`` to the
         consumer and unblock every queue, so the training loop gets a
@@ -1622,6 +1751,13 @@ class DataLoader:
                     polled = None
                 if polled:
                     out[name.replace("_stats", "")] = polled
+        rec = self._prov_rec
+        if rec is not None:
+            # which site owned the critical path when it hung
+            try:
+                out["attribution"] = rec.summary()
+            except Exception:  # noqa: BLE001 — the evidence is best effort
+                out["attribution"] = None
         if self._slo_engine is not None:
             # a stall that followed a burn shows the burn
             alerts = self._slo_engine.alerts()
@@ -1709,6 +1845,10 @@ class DataLoader:
             self._slo_engine.detach()
         if self._obs is not None:
             self._obs.close()
+        if self._prov_rec is not None and self._prov_owned:
+            # a loader-built recorder releases the process-global slot (its records stay
+            # readable); the reader's was released by its join() above, a caller's stays
+            self._prov_rec.disarm()
         if self._health is not None:
             monitor = self._health
             context_handle, stall_handle = self._health_handles or (None, None)

@@ -24,11 +24,23 @@ and the liveness and time planes:
   windows, with debounced alerts;
 - :mod:`petastorm_tpu_torch.obs.serve`: the loopback HTTP scrape endpoint.
 
-Provenance, the critical path, run diffs and the stats CLI are ROADMAP.md Queue 1 item
-8b(ii); tenants and the controller item 8c.
+and the attribution plane:
+
+- :mod:`petastorm_tpu_torch.obs.provenance`: per-item causal spans and annotations
+  through every seam of the read path, the pool and the loader, and each delivered
+  batch's contributing items;
+- :mod:`petastorm_tpu_torch.obs.critical_path`: the self-time fold of those spans into
+  an :class:`~petastorm_tpu_torch.obs.critical_path.AttributionReport`;
+- :mod:`petastorm_tpu_torch.obs.diff`: site-by-site diffs of two trend-gate runs
+  (``python -m petastorm_tpu_torch.obs.diff``);
+- :mod:`petastorm_tpu_torch.obs.stats_cli`: the terminal dashboard over a Reporter's
+  JSONL stream or a Prometheus file (``python -m petastorm_tpu_torch.obs.stats_cli``).
+
+Tenants and the controller are ROADMAP.md Queue 1 item 8c.
 """
 from petastorm_tpu_torch.obs.flight import FlightRecorder
 from petastorm_tpu_torch.obs.health import HealthMonitor, HealthOptions
+from petastorm_tpu_torch.obs.critical_path import AttributionReport
 from petastorm_tpu_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -36,10 +48,12 @@ from petastorm_tpu_torch.obs.metrics import (
     MetricsRegistry,
     default_registry,
 )
+from petastorm_tpu_torch.obs.provenance import ProvenanceRecorder
 from petastorm_tpu_torch.obs.serve import MetricsServer
 from petastorm_tpu_torch.obs.slo import AnomalyDetector, SloEngine, SloSpec
 from petastorm_tpu_torch.obs.timeseries import TimelineStore
 
-__all__ = ["AnomalyDetector", "Counter", "FlightRecorder", "Gauge", "HealthMonitor",
-           "HealthOptions", "Histogram", "MetricsRegistry", "MetricsServer", "SloEngine",
-           "SloSpec", "TimelineStore", "default_registry"]
+__all__ = ["AnomalyDetector", "AttributionReport", "Counter", "FlightRecorder", "Gauge",
+           "HealthMonitor", "HealthOptions", "Histogram", "MetricsRegistry",
+           "MetricsServer", "ProvenanceRecorder", "SloEngine", "SloSpec", "TimelineStore",
+           "default_registry"]

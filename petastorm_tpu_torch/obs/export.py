@@ -15,8 +15,8 @@ Port of ``petastorm_tpu.obs.export``. Two pull points for the registry
 :func:`read_recent_jsonl_snapshots` read a Reporter's stream back, tolerating a torn
 final line. With ``timelines=True`` (the default) each flush first samples the
 registry's windowed time series (:meth:`MetricsRegistry.sample_timelines`), which also
-drives an attached SLO engine. The stats CLI that pretty-prints both is ROADMAP.md
-Queue 1 item 8b(ii).
+drives an attached SLO engine. The stats CLI that pretty-prints both is
+:mod:`petastorm_tpu_torch.obs.stats_cli`.
 """
 from __future__ import annotations
 

@@ -17,9 +17,11 @@ this module watches them:
 Every firing is a degradation event (``cause=slo_breach`` or ``anomaly_detected``:
 counted on ``ptpu_degradations_total``, logged once, mirrored into every live flight
 recorder) and counted on ``ptpu_slo_alerts_total{slo=...}``. An alert carries an
-attribution snapshot when the engine has an attribution source; the port's source,
-provenance, is ROADMAP.md Queue 1 item 8b(ii), so until then ``attribution`` and
-``culprit`` stay None, as they do in the JAX package without provenance.
+attribution snapshot when the engine has an attribution source:
+``DataLoader(slos=..., provenance=...)`` wires its
+:meth:`~petastorm_tpu_torch.loader.DataLoader.attribution_report`, so ``culprit`` names
+the site owning the slow batches' critical path. Without provenance ``attribution`` and
+``culprit`` stay None, as in the JAX package.
 
 Evaluation happens on the sampling cadence (the Reporter thread), never on the loader or
 reader paths.
@@ -255,10 +257,10 @@ class SloEngine:
     :meth:`attach` (the Reporter's ``sample_timelines()`` cadence then drives
     evaluation), or call :meth:`evaluate` directly with a window dict (tests,
     manual cadences). ``attribution`` is a zero-arg callable returning an
-    attribution report (an object with ``to_dict()`` and ``slow_top``) or None; the
-    port's source of one, provenance, is ROADMAP.md Queue 1 item 8b(ii), so
-    ``DataLoader(slos=...)`` wires none yet. Alerts are kept in a bounded list (newest
-    last) and counted as ``ptpu_slo_alerts_total{slo=...}`` on the engine's registry."""
+    attribution report (an object with ``to_dict()`` and ``slow_top``) or None;
+    ``DataLoader(slos=..., provenance=...)`` sets its ``attribution_report`` here. Alerts
+    are kept in a bounded list (newest last) and counted as
+    ``ptpu_slo_alerts_total{slo=...}`` on the engine's registry."""
 
     def __init__(self, specs=(), registry=None, attribution=None,
                  anomaly_metrics=(), anomaly_kwargs=None, max_alerts=256):

@@ -55,6 +55,7 @@ import time
 
 import numpy as np
 
+from petastorm_tpu_torch.obs import provenance as _prov
 from petastorm_tpu_torch.transform import TransformSpec
 from petastorm_tpu_torch.unischema import UnischemaField
 
@@ -874,11 +875,17 @@ _op_seconds = {}  # fused-stage label -> [observations, seconds]
 _rows = [0]
 
 
-def _record_stage(label, seconds):
+def _record_stage(label, t0):
+    """One run of a fused stage that started at ``t0`` (``perf_counter``): its seconds
+    into the per-label totals, and a ``transform.<label>`` span onto the calling item's
+    provenance record (nested in the worker's ``transform`` span)."""
+    seconds = time.perf_counter() - t0
     with _stats_lock:
         entry = _op_seconds.setdefault(label, [0, 0.0])
         entry[0] += 1
         entry[1] += seconds
+    if _prov.ACTIVE is not None:
+        _prov.add_span("transform.%s" % label, t0, seconds)
 
 
 def _count_rows(n):
@@ -1251,7 +1258,7 @@ class FeaturePipeline(TransformSpec):
             t0 = time.perf_counter()
             out = stage.apply(result)
             result[stage.out] = out
-            _record_stage(stage.label, time.perf_counter() - t0)
+            _record_stage(stage.label, t0)
             if rows is None:
                 rows = len(out) if hasattr(out, "__len__") else 0
         if rows:
@@ -1283,7 +1290,7 @@ class FeaturePipeline(TransformSpec):
             out = stage.apply(merged)
             merged[stage.out] = out
             out_cols[stage.out] = out
-            _record_stage(stage.label, time.perf_counter() - t0)
+            _record_stage(stage.label, t0)
         _count_rows(len(rows))
         new_rows = []
         for i, r in enumerate(rows):

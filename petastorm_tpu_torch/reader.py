@@ -47,6 +47,12 @@ foreground or in the readahead pool, and a poison row group is quarantined
 ``reader.read``, ``reader.read_run`` and ``io.pagedec`` inject faults there
 (:mod:`petastorm_tpu_torch.chaos`).
 
+``provenance=True`` (or a shared
+:class:`~petastorm_tpu_torch.obs.provenance.ProvenanceRecorder`, or ``PTPU_PROVENANCE=1``)
+records each plan item's spans at the same sites (``reader.read``, ``reader.read_run``,
+``io.pagedec``, ``transform``), its retries (``io_retries``) and the cache tier that
+served it, and notes each delivery and quarantine for the loader's batch attribution.
+
 Options of the JAX package whose machinery is not ported raise ``NotImplementedError``
 naming their ROADMAP.md item (:mod:`petastorm_tpu_torch._unported`).
 """
@@ -73,6 +79,7 @@ from petastorm_tpu_torch.io.pagedec import materialize_columns
 from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, load_row_groups
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 from petastorm_tpu_torch.ngram import NGram, form_ngram_columns
+from petastorm_tpu_torch.obs import provenance as _prov
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
 from petastorm_tpu_torch.recovery import (QuarantinedItem, QuarantineEntry,
                                           QuarantineReport, RecoveryOptions,
@@ -265,6 +272,10 @@ class _WorkerBase:
         get_writable = getattr(self._cache, "get_writable", None)
         if _spec_wants_writable(self._transform_spec) and get_writable is not None:
             return get_writable(key, fill)
+        if _prov.ACTIVE is not None and isinstance(self._cache, NullCache):
+            # no funnel was built (no cache configured): every serve reads the store,
+            # which the TieredCache annotates as "remote"
+            _prov.annotate("cache_tier", "remote")
         return self._cache.get(key, fill)
 
     def _cache_key(self, item):
@@ -559,6 +570,7 @@ class _WorkerBase:
                         attempt + 1)
                     raise
                 self._evict_parquet_file(path)
+                _prov.annotate_add("io_retries", 1)
                 delay = min(
                     rec.io_retry_backoff_s * (2 ** attempt) * (0.5 + random.random()),
                     rec.io_retry_max_backoff_s)
@@ -581,18 +593,20 @@ class _WorkerBase:
             footers.invalidate(path)
 
     def _read_columns_once(self, piece, columns):
-        if _chaos.ACTIVE is not None:
-            _chaos.ACTIVE.hit("reader.read", key="%s:%s" % (piece.path, piece.row_group))
-        engine = self._remote_engine(create=True)
-        if engine is not None:
-            # the engine drops the columns the file lacks against the footer it holds
-            table, _ = engine.read_row_groups(piece.path, [piece.row_group], columns)
+        with _prov.span("reader.read"):
+            if _chaos.ACTIVE is not None:
+                _chaos.ACTIVE.hit("reader.read",
+                                  key="%s:%s" % (piece.path, piece.row_group))
+            engine = self._remote_engine(create=True)
+            if engine is not None:
+                # the engine drops the columns the file lacks against the footer it holds
+                table, _ = engine.read_row_groups(piece.path, [piece.row_group], columns)
+                return self._attach_partitions(table, piece, columns)
+            pf = self._parquet_file(piece.path)
+            available = set(pf.schema_arrow.names)
+            table = pf.read_row_group(piece.row_group,
+                                      columns=[c for c in columns if c in available])
             return self._attach_partitions(table, piece, columns)
-        pf = self._parquet_file(piece.path)
-        available = set(pf.schema_arrow.names)
-        table = pf.read_row_group(piece.row_group,
-                                  columns=[c for c in columns if c in available])
-        return self._attach_partitions(table, piece, columns)
 
     def _read_run(self, pieces, columns):
         """Coalesced ranged read: row groups of ONE file in a single ``read_row_groups``
@@ -605,23 +619,25 @@ class _WorkerBase:
     def _read_run_once(self, pieces, columns):
         from petastorm_tpu_torch.io.coalesce import split_run_table
 
-        if _chaos.ACTIVE is not None:
-            _chaos.ACTIVE.hit("reader.read_run", key="%s:%s" % (
-                pieces[0].path, ",".join(str(p.row_group) for p in pieces)))
-        row_groups = [p.row_group for p in pieces]
-        engine = self._remote_engine(create=True)
-        if engine is not None:
-            table, entry = engine.read_row_groups(pieces[0].path, row_groups, columns)
-            sizes = [entry.row_group_rows[rg] for rg in row_groups]
+        with _prov.span("reader.read_run"):
+            if _chaos.ACTIVE is not None:
+                _chaos.ACTIVE.hit("reader.read_run", key="%s:%s" % (
+                    pieces[0].path, ",".join(str(p.row_group) for p in pieces)))
+            row_groups = [p.row_group for p in pieces]
+            engine = self._remote_engine(create=True)
+            if engine is not None:
+                table, entry = engine.read_row_groups(pieces[0].path, row_groups,
+                                                      columns)
+                sizes = [entry.row_group_rows[rg] for rg in row_groups]
+                return [self._attach_partitions(t, piece, columns)
+                        for t, piece in zip(split_run_table(table, sizes), pieces)]
+            pf = self._parquet_file(pieces[0].path)
+            available = set(pf.schema_arrow.names)
+            table = pf.read_row_groups(row_groups,
+                                       columns=[c for c in columns if c in available])
+            sizes = [pf.metadata.row_group(rg).num_rows for rg in row_groups]
             return [self._attach_partitions(t, piece, columns)
                     for t, piece in zip(split_run_table(table, sizes), pieces)]
-        pf = self._parquet_file(pieces[0].path)
-        available = set(pf.schema_arrow.names)
-        table = pf.read_row_groups(row_groups,
-                                   columns=[c for c in columns if c in available])
-        sizes = [pf.metadata.row_group(rg).num_rows for rg in row_groups]
-        return [self._attach_partitions(t, piece, columns)
-                for t, piece in zip(split_run_table(table, sizes), pieces)]
 
     def _attach_partitions(self, table, piece, columns):
         if self._partition_info:
@@ -697,11 +713,13 @@ class PyDictWorker(_WorkerBase):
     def __call__(self, item):
         rows = self._cache_get(self._cache_key(item), lambda: self._load_rows(item))
         spec = self._transform_spec
-        if _host_pipeline(spec):
-            # one columnar application over the whole row group
-            rows = spec.apply_rows(rows)
-        elif _spec_wants_writable(spec):
-            rows = [spec.func(dict(r)) for r in rows]
+        if spec is not None and not spec.device:
+            with _prov.span("transform"):
+                if _host_pipeline(spec):
+                    # one columnar application over the whole row group
+                    rows = spec.apply_rows(rows)
+                elif _spec_wants_writable(spec):
+                    rows = [spec.func(dict(r)) for r in rows]
         if self._ngram is not None:
             return [{offset: nt._asdict() for offset, nt in w.items()}
                     for w in self._ngram.form_ngram(rows, self._ngram_schema)]
@@ -792,12 +810,14 @@ class ArrowWorker(_WorkerBase):
     def __call__(self, item):
         out = self._cache_get(self._cache_key(item), lambda: self._load_columns(item))
         spec = self._transform_spec
-        if _host_pipeline(spec):
-            # fused vectorized kernels over the columnar batch, no pandas round trip;
-            # untouched columns stay the read's arrays
-            out = spec.apply_columns(out)
-        elif _spec_wants_writable(spec):
-            out = _pandas_transform(spec, out)
+        if spec is not None and not spec.device:
+            with _prov.span("transform"):
+                if _host_pipeline(spec):
+                    # fused vectorized kernels over the columnar batch, no pandas round
+                    # trip; untouched columns stay the read's arrays
+                    out = spec.apply_columns(out)
+                elif _spec_wants_writable(spec):
+                    out = _pandas_transform(spec, out)
         if self._ngram is not None:
             out = form_ngram_columns(out, self._ngram)
         return out
@@ -913,35 +933,38 @@ class ArrowWorker(_WorkerBase):
                                                     chunk_byte_range, pagedec_counters,
                                                     shared_page_index)
 
-        if _chaos.ACTIVE is not None:
-            _chaos.ACTIVE.hit("io.pagedec", key="%s:%s" % (piece.path, piece.row_group))
-        md = self._pagedec_footer(piece.path)
-        if md is None:
-            return {}
-        out = {}
-        counters = pagedec_counters()
-        rgmd = md.row_group(piece.row_group)
-        raws = self._pagedec_fetch_raw(piece, eligible, rgmd)
-        for name, (col_idx, el) in eligible.items():
-            chunk, reason = build_chunk(raws[name], el, expected_values=rgmd.num_rows)
-            if chunk is None:
-                counters["fallback_columns"].inc()
-                # mute the column for this file: re-fetching its raw span on every read
-                # just to decline again is pure overhead
-                self._pagedec_refused.add((piece.path, name))
-                degradation("pagedec_ineligible",
-                            "column %r of %s degraded to the classic host-inflate path "
-                            "(%s); further per-column fallbacks are counted in "
-                            "ptpu_pagedec_fallback_columns_total", name, piece.path,
-                            reason)
-                continue
-            start, _length = chunk_byte_range(rgmd.column(col_idx))
-            shared_page_index().put(
-                piece.path, piece.row_group, name, start,
-                [start + p.header_offset
-                 for p in ((chunk.dict_page,) if chunk.dict_page else ()) + chunk.pages])
-            out[name] = PassthroughColumn.from_chunk(chunk)
-        return out
+        with _prov.span("io.pagedec"):
+            if _chaos.ACTIVE is not None:
+                _chaos.ACTIVE.hit("io.pagedec",
+                                  key="%s:%s" % (piece.path, piece.row_group))
+            md = self._pagedec_footer(piece.path)
+            if md is None:
+                return {}
+            out = {}
+            counters = pagedec_counters()
+            rgmd = md.row_group(piece.row_group)
+            raws = self._pagedec_fetch_raw(piece, eligible, rgmd)
+            for name, (col_idx, el) in eligible.items():
+                chunk, reason = build_chunk(raws[name], el,
+                                            expected_values=rgmd.num_rows)
+                if chunk is None:
+                    counters["fallback_columns"].inc()
+                    # mute the column for this file: re-fetching its raw span on every
+                    # read just to decline again is pure overhead
+                    self._pagedec_refused.add((piece.path, name))
+                    degradation("pagedec_ineligible",
+                                "column %r of %s degraded to the classic host-inflate "
+                                "path (%s); further per-column fallbacks are counted in "
+                                "ptpu_pagedec_fallback_columns_total", name, piece.path,
+                                reason)
+                    continue
+                start, _length = chunk_byte_range(rgmd.column(col_idx))
+                shared_page_index().put(
+                    piece.path, piece.row_group, name, start,
+                    [start + p.header_offset for p in
+                     ((chunk.dict_page,) if chunk.dict_page else ()) + chunk.pages])
+                out[name] = PassthroughColumn.from_chunk(chunk)
+            return out
 
     def _pagedec_fetch_raw(self, piece, eligible, rgmd):
         """Raw chunk byte spans for the eligible columns (``rgmd``: the row group's
@@ -1234,7 +1257,8 @@ class Reader:
                  reader_pool_type="thread", workers_count=4, results_queue_size=16,
                  is_batched_reader=False, results_timeout_s=300.0,
                  wire_serializer="pickle", worker_respawns=None, io_options=None,
-                 transport=None, ngram=None, recovery=None, filesystem=None):
+                 transport=None, ngram=None, recovery=None, filesystem=None,
+                 provenance=None):
         self.schema = schema
         self._worker = worker
         self.is_batched_reader = is_batched_reader
@@ -1294,6 +1318,11 @@ class Reader:
         #: consumers see ordinary batches; a DataLoader that finishes the inflate itself
         #: sets it (:meth:`adopt_passthrough`)
         self.keep_passthrough = False
+        #: the ProvenanceRecorder this reader notes deliveries and quarantines on and
+        #: its pool merges wire spans into (None: off). Set before _start(): the pool
+        #: claims items the moment it starts, and a recorder attached later misses the
+        #: items a small plan has already drained
+        self._prov = provenance
         self._start()
 
     def _start(self):
@@ -1305,6 +1334,11 @@ class Reader:
             # before start(): a rebuilt process pool hands its children the monitor-era
             # handshake and registers its healer on the monitor
             self._executor.set_health(self._health_monitor)
+        if self._prov is not None:
+            # survives reset()'s pool rebuild; join() released a recorder the factory
+            # built, and arming again raises if another recorder took the slot meanwhile
+            self._prov.arm()
+            self._executor_set_provenance(self._prov)
         self._executor.start(_Tagged(self._worker), self._plan)
         self._results_iter = self._executor.results()
         self.stopped = False
@@ -1375,6 +1409,10 @@ class Reader:
             "(epoch=%s ordinal=%s, %s); skipped and charged to the checkpoint "
             "watermark, see Reader.quarantine_report", marker.attempts, path, row_group,
             epoch, ordinal, marker.kind, once=False)
+        if self._prov is not None:
+            # a quarantined item never enters the delivery FIFO: the ledgers stay
+            # disjoint
+            self._prov.note_quarantined(epoch, ordinal, marker.attempts, marker.kind)
         self._mark_consumed((epoch, ordinal))
 
     def _resolve_quarantined_rows(self, path, row_group):
@@ -1411,6 +1449,8 @@ class Reader:
             if not payload:
                 self._mark_consumed((epoch, ordinal))  # a fully filtered row group
                 continue
+            if self._prov is not None:
+                self._prov.note_delivery(epoch, ordinal, len(payload))
             self._buffer = payload
             self._buffer_pos = 0
             self._buffer_tag = (epoch, ordinal)
@@ -1439,6 +1479,8 @@ class Reader:
             if not (columns and len(next(iter(columns.values())))):
                 self.release_batch()  # an empty row group
                 continue
+            if self._prov is not None:
+                self._prov.note_delivery(epoch, ordinal, len(next(iter(columns.values()))))
             if not self.keep_passthrough:
                 # no loader adopted the pass-through: the host twin is the designed
                 # decode for loader-less readers
@@ -1535,6 +1577,21 @@ class Reader:
         self._executor.set_health(monitor)
         self._worker.set_health(monitor)
 
+    def set_provenance(self, recorder):
+        """Attach a :class:`~petastorm_tpu_torch.obs.provenance.ProvenanceRecorder`:
+        deliveries and quarantines are noted on it, and a process pool records its wire
+        spans and merges its children's item records into it. Survives :meth:`reset`.
+        The DataLoader wires this from ``provenance=``; a reader without a loader gets
+        it from the factories' ``provenance=`` (or ``recorder.arm()`` and this call, so
+        that the worker threads' spans are captured)."""
+        self._prov = recorder
+        self._executor_set_provenance(recorder)
+
+    def _executor_set_provenance(self, recorder):
+        fn = getattr(self._executor, "set_provenance", None)
+        if fn is not None:
+            fn(recorder)
+
     def _executor_set_trace(self, tracer):
         fn = getattr(self._executor, "set_trace", None)
         if fn is not None:
@@ -1575,6 +1632,11 @@ class Reader:
         self._worker.close()
         if self._executor is not None:
             self._executor.join()
+        if self._prov is not None and self._prov._auto_disarm:
+            # a recorder the factory built for this reader releases the process-global
+            # slot here (its records stay readable; reset() arms it again); a recorder
+            # the caller passed in stays armed, the caller's to release
+            self._prov.disarm()
 
     def __enter__(self):
         return self
@@ -1843,7 +1905,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     through the ranged-GET engine (``io_options["remote"]``: parallel hedged GETs, footer
     GETs against the file's tail).
     """
-    reject_unported("make_reader", provenance=provenance, watch=watch, tenant=tenant)
+    reject_unported("make_reader", watch=watch, tenant=tenant)
     recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
                                        io_retry_backoff_s=io_retry_backoff_s,
                                        worker_respawns=worker_respawns)
@@ -1883,7 +1945,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
                results_timeout_s=results_timeout_s,
                wire_serializer=wire_serializer or "pickle",
                worker_respawns=recovery.worker_respawns, io_options=io_options,
-               transport=transport, ngram=ngram, recovery=recovery, filesystem=fs)
+               transport=transport, ngram=ngram, recovery=recovery, filesystem=fs,
+               provenance=_prov.resolve(provenance))
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r
@@ -1932,8 +1995,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     it reads classically (no pass-through) and refuses a ``predicate`` and
     ``decode_on_device``, as :func:`make_reader` does.
     """
-    reject_unported("make_batch_reader", provenance=provenance, watch=watch,
-                    tenant=tenant)
+    reject_unported("make_batch_reader", watch=watch, tenant=tenant)
     recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
                                        io_retry_backoff_s=io_retry_backoff_s,
                                        worker_respawns=worker_respawns)
@@ -1979,7 +2041,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                wire_serializer={"shm": "shm-arrow", "shm-view": "shm-arrow-view"}.get(
                    wire_serializer, wire_serializer) or "arrow",
                worker_respawns=recovery.worker_respawns, io_options=io_options,
-               transport=transport, ngram=ngram, recovery=recovery, filesystem=fs)
+               transport=transport, ngram=ngram, recovery=recovery, filesystem=fs,
+               provenance=_prov.resolve(provenance))
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r

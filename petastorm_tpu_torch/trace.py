@@ -89,11 +89,12 @@ class TraceRecorder:
 
     def add_flow_point(self, flow_id, lane, pid, t, name="item",
                        terminate=False):
-        """Record one point of a Perfetto flow (the provenance plane's item linkage,
-        ROADMAP.md Queue 1 item 8b(ii)). ``t`` is a value from THIS recorder's
-        timeline (``perf_counter``); points sharing ``flow_id`` render as one arrow
-        chain across the ``(pid, lane)`` tracks. ``terminate=True`` marks the chain's
-        explicit end (the batch delivery point)."""
+        """Record one point of a Perfetto flow: the provenance plane's item linkage,
+        fed at each batch delivery
+        (:meth:`~petastorm_tpu_torch.obs.provenance.ProvenanceRecorder.batch_delivered`).
+        ``t`` is a value from THIS recorder's timeline (``perf_counter``); points sharing
+        ``flow_id`` render as one arrow chain across the ``(pid, lane)`` tracks.
+        ``terminate=True`` marks the chain's explicit end (the batch delivery point)."""
         with self._lock:
             self._flows.append((int(flow_id), lane, int(pid), t, name,
                                 bool(terminate)))

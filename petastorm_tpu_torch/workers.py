@@ -24,6 +24,10 @@ an error, and the Reader charges it to its consumed-work map. The chaos sites
 evaluated when a :class:`~petastorm_tpu_torch.chaos.FaultPlan` is armed. ``set_trace``
 merges the children's ``child.work``/``child.serialize`` spans and the slab ring's
 ``shm.acquire_wait`` spans into a :class:`~petastorm_tpu_torch.trace.TraceRecorder`.
+With the provenance plane armed (:mod:`petastorm_tpu_torch.obs.provenance`) the sync and
+thread pools run each item's attempts inside its record, and the process pool
+(``set_provenance``) records its wire's spans on the item and merges the record each
+child sends with its result.
 
 ``set_health`` attaches a :class:`~petastorm_tpu_torch.obs.health.HealthMonitor` (or a
 scope of one) to every pool: worker threads and feeder threads heartbeat each work item
@@ -51,6 +55,7 @@ from collections import deque
 
 from petastorm_tpu_torch import chaos as _chaos
 from petastorm_tpu_torch.errors import TimeoutWaitingForResultError, WorkerDiedError
+from petastorm_tpu_torch.obs import provenance as _prov
 from petastorm_tpu_torch.obs.health import ActorSlots
 from petastorm_tpu_torch.recovery import QuarantinedItem, RecoveryOptions
 
@@ -177,19 +182,28 @@ def _iter_results(pool):
 def _run_item(worker, item, recovery):
     """``worker(item)`` under the poison policy (the sync and thread pools): an item
     that raises is tried again in place until ``poison_attempts`` failures make it a
-    :class:`QuarantinedItem`; without quarantine the first exception propagates."""
+    :class:`QuarantinedItem`; without quarantine the first exception propagates. With
+    the provenance plane armed the attempts run inside the item's context, closed on
+    every exit (the sync pool yields after this returns: a context held open across the
+    consumer's turn would charge its spans to this item)."""
     attempts = 0
-    while True:
-        try:
-            if _chaos.ACTIVE is not None:
-                _chaos.ACTIVE.hit("worker.item", key=_chaos.item_key(item))
-            return worker(item)
-        except Exception as e:  # noqa: BLE001 — classified by the policy
-            attempts += 1
-            if not recovery.quarantine:
-                raise
-            if attempts >= recovery.poison_attempts:
-                return QuarantinedItem(item, e, attempts)
+    if _prov.ACTIVE is not None:
+        _prov.begin_item(item)
+    try:
+        while True:
+            try:
+                if _chaos.ACTIVE is not None:
+                    _chaos.ACTIVE.hit("worker.item", key=_chaos.item_key(item))
+                return worker(item)
+            except Exception as e:  # noqa: BLE001 — classified by the policy
+                attempts += 1
+                if not recovery.quarantine:
+                    raise
+                if attempts >= recovery.poison_attempts:
+                    return QuarantinedItem(item, e, attempts)
+    finally:
+        if _prov.ACTIVE is not None:
+            _prov.end_item()
 
 
 class SyncExecutor:
@@ -475,6 +489,9 @@ class ProcessExecutor:
             else self._recovery.worker_respawns
         #: a TraceRecorder the children's per-item spans merge into (set_trace)
         self._tracer = None
+        #: the ProvenanceRecorder the wire spans and the children's item records merge
+        #: into (set_provenance; resolved at each item, so it can attach mid-stream)
+        self._prov = None
         self._procs = []
         self._conns = []
         self._threads = []
@@ -857,6 +874,8 @@ class ProcessExecutor:
                     break
                 item, upcoming = claim
                 hints = list(upcoming)  # the child prefetches these before the item
+                prov = self._prov
+                prov_id = _prov.item_identity(item) if prov is not None else None
                 attempts = 0  # failures of this item, across respawns
                 first_death = None
                 self._inflight_attempts[idx] = 0
@@ -866,7 +885,12 @@ class ProcessExecutor:
                     if ring is not None:
                         if hb is not None:
                             hb.wait("slab")  # the consumer holds the slabs
+                        t_slab = time.perf_counter() if prov is not None else 0.0
                         slab = ring.acquire(timeout=slab_wait_s)
+                        if prov is not None:
+                            prov.add_item_span(prov_id[0], prov_id[1], "wire.slab_wait",
+                                               t_slab, time.perf_counter(),
+                                               key=prov_id[2])
                         if slab is None:  # ring empty: this item takes the socket
                             ring.count_fallback()
                     try:
@@ -881,12 +905,19 @@ class ProcessExecutor:
                             _chaos.ACTIVE.hit("pool.dispatch", key=_chaos.item_key(item))
                         settings, seen = self._pending_settings(seen)
                         child_slots.begin(idx)
+                        t_send = time.perf_counter() if prov is not None else 0.0
                         conn.send((slab, item, hints, settings) if ring is not None
                                   else (item, hints, settings))
                         try:
                             header = self._recv_result(conn, idx)
                         finally:
                             child_slots.end(idx, "idle")
+                        if prov is not None:
+                            # the child's spans, once merged, nest inside this one: the
+                            # fold charges the wire its overhead only
+                            prov.add_item_span(prov_id[0], prov_id[1], "wire.roundtrip",
+                                               t_send, time.perf_counter(),
+                                               key=prov_id[2])
                         if monitor is not None:
                             monitor.observe_worker(idx, time.perf_counter() - t0)
                         if header[0] == "exc":
@@ -905,9 +936,12 @@ class ProcessExecutor:
                                 self._child_io[idx] = io
                         tracer = self._tracer
                         if tracer is not None and spans is not None:
-                            # (pid, wall anchor, perf anchor, spans): onto this
-                            # recorder's timeline, on the child's pid lane
+                            # (pid, wall anchor, perf anchor, spans, provenance blob):
+                            # onto this recorder's timeline, on the child's pid lane
                             tracer.add_child(spans[0], spans[3], spans[1], spans[2])
+                        if prov is not None and spans is not None and spans[4] is not None:
+                            # the child's item record, on the same anchors
+                            prov.absorb_child(spans[4], spans[0], spans[1], spans[2])
                         frames = [conn.recv_bytes() for _ in range(nframes)]
                         if slab is not None and kind != KIND_SHM:
                             # granted but unused (a payload larger than a slab)
@@ -918,12 +952,19 @@ class ProcessExecutor:
                         # it on its own failure or leases it to the consumer: `slab` is
                         # cleared first so no path here releases it twice
                         granted, slab = slab, None
+                        t_dec = time.perf_counter() if prov is not None else 0.0
                         try:
                             if _chaos.ACTIVE is not None:
                                 frames = _chaos.ACTIVE.hit(
                                     "wire.decode", key=_chaos.item_key(item),
                                     payload=frames)
                             result = self._serializer.deserialize(kind, frames)
+                            if prov is not None:
+                                # covers the chaos site too: an injected wire stall
+                                # lands in this span's self time
+                                prov.add_item_span(prov_id[0], prov_id[1], "wire.decode",
+                                                   t_dec, time.perf_counter(),
+                                                   key=prov_id[2])
                         except Exception as e:  # noqa: BLE001 — classified by the policy
                             if granted is not None and not getattr(e, "slab_released",
                                                                    True):
@@ -1041,6 +1082,13 @@ class ProcessExecutor:
         ring = self._ring
         if ring is not None:
             ring.set_trace(tracer)
+
+    def set_provenance(self, recorder):
+        """Record the wire's spans (``wire.slab_wait``, ``wire.roundtrip``,
+        ``wire.decode``) on ``recorder`` and merge the children's item records into it
+        (None: stop). The children always send their records; without a recorder they
+        are dropped."""
+        self._prov = recorder
 
     def set_health(self, monitor):
         """Attach a health monitor (or a scope of one; None detaches): the feeders and

@@ -6,7 +6,8 @@ readahead IO threads.
 Every case of the JAX package's ``tests/test_health.py`` has a counterpart here except
 the three dashboard and stats-CLI cases (``test_dashboard_renders_health_sections``,
 ``test_stats_cli_watch_file_form_parses``,
-``test_dashboard_renders_prometheus_histograms``): the stats CLI is item 8b(ii). The
+``test_dashboard_renders_prometheus_histograms``), which are in
+``tests/test_torch_stats_cli.py`` with the rest of the stats CLI's cases. The
 hangs are chaos ``hang`` rules, disarmed as soon as a case has seen what it waits for,
 so a case never waits out its hang; each watchdog case runs a threshold and a poll
 interval below 1 s (a backpressure case, which must hold a wait longer than the

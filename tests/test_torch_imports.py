@@ -40,7 +40,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "io.tiers", "io.remote", "io.latencyfs", "io.arena", "chaos",
                  "chaos.plan", "recovery", "trace", "obs", "obs.metrics", "obs.log",
                  "obs.flight", "obs.analyze", "obs.export", "obs.health",
-                 "obs.timeseries", "obs.slo", "obs.serve"):
+                 "obs.timeseries", "obs.slo", "obs.serve", "obs.provenance",
+                 "obs.critical_path", "obs.diff", "obs.stats_cli", "benchmark",
+                 "benchmark.trend"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -120,8 +122,8 @@ def _assert_health_and_slos_are_taken(kwargs):
 
 
 # pad_shapes is ported, and so are trace and metrics (item 8a), health and slos (item
-# 8b(i)): their cases check that they are taken; the controller (item 8c), the tenant
-# (item 8c) and provenance (item 8b(ii)) are still refused
+# 8b(i)) and provenance (item 8b(ii)): their cases check that they are taken; the
+# controller (item 8c) and the tenant (item 8c) are still refused
 @pytest.mark.parametrize("kwargs", [
     {"sharding": object()}, {"controller": object()}, {"slos": object()},
     {"tenant": "team-a"}, {"health": True}, {"provenance": True},
@@ -132,8 +134,30 @@ def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
     if "health" in kwargs or "slos" in kwargs:
         _assert_health_and_slos_are_taken(kwargs)
         return
+    if "provenance" in kwargs:
+        _assert_provenance_is_taken()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         DataLoader(object(), 4, device="cpu", **kwargs)
+
+
+def _assert_provenance_is_taken():
+    """``provenance=`` is ported (item 8b(ii)): a loader takes ``provenance=True``,
+    arms the process's recorder for its lifetime and answers ``attribution_report()``."""
+    from types import SimpleNamespace
+
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.obs import provenance as prov
+
+    reader = SimpleNamespace(stop=lambda: None, join=lambda: None)
+    try:
+        with DataLoader(reader, 4, device="cpu", provenance=True) as loader:
+            assert prov.ACTIVE is loader.provenance is not None
+            assert loader.attribution_report().batches == 0
+            assert loader.batch_provenance() is None
+        assert prov.ACTIVE is None  # the loader built it, and released it at exit
+    finally:
+        prov.ACTIVE = None
 
 
 def test_device_decode_resize_no_longer_raises_not_implemented():
@@ -188,13 +212,19 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.recovery", "petastorm_tpu_torch.trace",
     "petastorm_tpu_torch.obs.log", "petastorm_tpu_torch.obs.export",
     "petastorm_tpu_torch.obs.health", "petastorm_tpu_torch.obs.timeseries",
-    "petastorm_tpu_torch.obs.slo", "petastorm_tpu_torch.obs.serve"])
+    "petastorm_tpu_torch.obs.slo", "petastorm_tpu_torch.obs.serve",
+    "petastorm_tpu_torch.obs.provenance", "petastorm_tpu_torch.obs.critical_path",
+    "petastorm_tpu_torch.obs.diff", "petastorm_tpu_torch.obs.stats_cli",
+    "petastorm_tpu_torch.benchmark.trend"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
     ``transform_spec`` travels to the children, so the feature pipeline's module is one
     of them; so do a predicate, the hive partition layout and an NGram. The mixer and the
-    torch adapters are host modules too, and load torch only when they make tensors."""
+    torch adapters are host modules too, and load torch only when they make tensors. A
+    child arms the provenance plane's collector at bootstrap; the critical-path fold,
+    the run diff, the stats CLI and the trend gate are host tools that need no torch
+    until the gate builds a loader."""
     assert module in _port_modules()
     code = ("import importlib, sys\n"
             "importlib.import_module(%r)\n"
@@ -322,16 +352,17 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
     ({"tenant": "team-a"}, "item 8c"),
 ])
 def test_later_observability_slices_raise_naming_8b_or_8c(kwargs, item):
-    """What the attribution slice (8b(ii)) and the tenants/controller slice (8c) own
-    stays refused, each naming its slice; what the liveness and time slice (8b(i)) owns,
-    health and slos, is taken."""
+    """What the tenants/controller slice (8c) owns stays refused, naming its slice; what
+    the liveness and time slice (8b(i)) owns, health and slos, and what the attribution
+    slice (8b(ii)) owns, provenance, are taken."""
     from petastorm_tpu_torch.loader import DataLoader
 
     if "health" in kwargs or "slos" in kwargs:
         _assert_health_and_slos_are_taken(kwargs)
         return
     if "provenance" in kwargs:
-        item = r"item 8b\(ii\)"
+        _assert_provenance_is_taken()
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
         DataLoader(object(), 4, device="cpu", **kwargs)
 
@@ -349,7 +380,20 @@ def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwar
 
     pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
     if "provenance" in kwargs:
-        item = r"item 8b\(ii\)"  # the attribution slice
+        # the attribution slice is ported: the factory arms a recorder of its own, the
+        # reader notes its deliveries on it and releases it at join
+        from petastorm_tpu_torch.obs import provenance as prov
+
+        try:
+            with make_batch_reader("file://" + str(tmp_path), reader_pool_type="dummy",
+                                   **kwargs) as reader:
+                assert sorted(int(i) for b in reader for i in b.id) == [0, 1, 2, 3]
+                assert prov.ACTIVE is reader._prov
+                assert sum(r["rows"] for r in reader._prov.items().values()) == 4
+            assert prov.ACTIVE is None
+        finally:
+            prov.ACTIVE = None
+        return
     for factory in (make_batch_reader, make_reader):
         with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
             factory("file://" + str(tmp_path), **kwargs)

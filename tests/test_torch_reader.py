@@ -165,7 +165,8 @@ def test_reset_restarts_the_epoch(ref_store):
 # and so are cache_* and the read path's io_options (tests/test_torch_io_async.py). The
 # object-store tier and the arena (item 5b) are ported too: their cases (1-3) now read
 # the store, equal to the plain read (tests/test_torch_remote_io.py, test_torch_arena.py).
-# The recovery policy is ported (item 8a): the io_retries and recovery cases read too
+# The recovery policy is ported (item 8a): the io_retries and recovery cases read too.
+# Provenance is ported (item 8b(ii)): its case reads too, and records every row group
 @pytest.mark.parametrize("kwargs", [
     {"reader_pool_type": "process", "transport": "tcp"},
     {"io_options": {"arena_bytes": 1 << 20}},
@@ -190,6 +191,18 @@ def test_unported_reader_options_raise_naming_the_roadmap(ref_store, kwargs):
             arena_mod.close_process_arena()
             shared_store().clear()  # the arena implies a process-wide memcache
         assert got == want and got
+        return
+    if "provenance" in kwargs:
+        from petastorm_tpu_torch.obs import provenance as prov
+
+        try:
+            with make_batch_reader(ref_store, reader_pool_type="dummy",
+                                   shuffle_row_groups=False, **kwargs) as r:
+                got = sorted(int(i) for b in r for i in np.asarray(b.id))
+                rows = sum(rec["rows"] for rec in r._prov.items().values())
+        finally:
+            prov.ACTIVE = None
+        assert got and rows == len(got)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         make_batch_reader(ref_store, **kwargs)

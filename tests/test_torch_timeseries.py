@@ -6,8 +6,9 @@ Every case of the JAX package's ``tests/test_timeseries.py`` has a counterpart h
 except those that need tenants (``test_fleet_merge_keeps_tenant_labels_as_distinct_
 series``, ``test_tenant_usage_report_from_merged_fleet_totals``: item 8c), the stats CLI
 (``test_stats_cli_merge_renders``, ``test_render_dashboard_trends_and_window_deltas``:
-item 8b(ii)) or run diffs (the six ``test_bench_diff_*`` cases and
-``test_diff_self_times_significance_and_new_sites``: item 8b(ii)). The SLO end-to-end
+in ``tests/test_torch_stats_cli.py``) and run diffs (the five ``test_bench_diff_*``
+cases and ``test_diff_self_times_significance_and_new_sites``: in
+``tests/test_torch_bench_diff.py``). The SLO end-to-end
 case reads a series that moves once a batch the test consumes (the ``pipeline``
 collector's batch count) and samples the windows itself, so its windows are the test's,
 not the reader's. Beside them:
@@ -404,8 +405,8 @@ def test_slo_breach_debounce_and_attribution_snapshot():
 
 
 def test_slo_without_attribution_source_names_no_culprit():
-    """Without provenance (item 8b(ii)) an alert carries no attribution, as in the JAX
-    package with provenance off."""
+    """Without an attribution source (a loader without provenance) an alert carries no
+    attribution, as in the JAX package with provenance off."""
     engine = SloEngine(specs=[SloSpec(name="p99", metric="m", stat="p99", op="<=",
                                       threshold=0.1, breach_windows=1)])
     alert = engine.evaluate({"m": _hist_window(0.5)}, t=1.0)[0]
