@@ -242,11 +242,26 @@ Phases (each passes or the script exits non-zero, printing no result line):
    and the host self time of ``loader.decode`` beside the kernels' device time. (d) the
    trend gate twice, the run diff and the stats CLI's attribution panel.
 
+16. Tenants and the controller (the comment block above ``phase_ctl_converge``): (a) the
+   wrong readahead depth on a slow simulated store, with and without
+   ``DataLoader(controller=...)``, and the depth set by hand: the controller grows the
+   depth, each actuation carrying its window and signal, every id once, the images id
+   for id those of the run without it; rows/s of the last third printed. (b) the live
+   resize 4 -> 2 -> 4 on the thread pool and on the process pool over ``'arrow'``, two
+   epochs, every id once an epoch, nothing quarantined, no lease leaked; the process
+   pool's running children ack a readahead retune sent mid-run. (c) the controller armed
+   on the healthy main path: 0 actuations; armed against unarmed, 3 pairs. (d) ``team-a``
+   on the thread pool, ``team-b`` on the process pool, then an untagged run: the usage
+   report's rows equal each loader's, worker and decode seconds charged, the untagged
+   run adds no tenant series, the per-tenant fold, the stats CLI's tenant panel. Every
+   run checks the kernels once a batch and K2 against its plain version.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
 in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's,
 ``slice13_launches`` in phase 12's, ``slice14_launches`` in phase 13's,
-``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's), the card's
+``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's,
+``slice17_launches`` in phase 16's), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -5453,6 +5468,337 @@ def phase_prov_tools(prov_tab, work, smi):
     return {"trend": runs, "diff": verdict}
 
 
+# -- phase 16: tenants and the closed-loop controller ----------------------------------
+#
+# The main path's store and configuration under the controller and the tenant plane.
+# (a) converge: the store read through CloudLatencyFS (CTL_LATENCY_S a request, no tail,
+# CTL_PER_BYTE_S a byte, the remote tier off) with readahead_depth=1 and one worker,
+# `metrics=`, `provenance=True` and `controller=ControlOptions(warmup_windows=3,
+# settle_windows=2)`, one window a batch; the same run without the controller, and a
+# hand-tuned run at depth 8. (b) fleet: two epochs with 4 workers on the thread pool and
+# on the process pool over 'arrow', resized to 2 after a third of the run's row groups
+# were read and to 4 after two thirds; the process pool's readahead depth retuned to 6
+# in between (two epochs: the reader runs up to six row groups ahead of the consumer
+# through the loader's queues, and a grown pool's children must find work left).
+# (c) clean: the controller armed at the default knobs on the local main path, 0
+# actuations, CTL_ROUNDS pairs against unarmed runs. (d) tenants: `team-a` on the thread
+# pool, `team-b` on the process pool, then an untagged run; the usage report, the
+# per-tenant attribution fold and the stats CLI's tenant panel.
+#
+# A row group's stage 1 on one worker outlasts a 20 ms request, so with the request
+# floor alone a depth-1 prefetch already hides the read and there is nothing for the
+# controller to converge on: the per-byte cost (6.7 MB/s a request) makes the read the
+# bottleneck at depth 1, as a slow store is for a one-worker reader.
+
+CTL_LATENCY_S = 0.02
+CTL_PER_BYTE_S = 1.5e-7
+CTL_ROUNDS = 3
+CTL_TUNED_DEPTH = 8
+
+
+def _items_read(reader):
+    """Plan items the reader has delivered so far: its consumed-work map, read from the
+    consumer's thread while the loader's producer adds to it (a snapshot, retried if the
+    map changes size under it)."""
+    while True:
+        try:
+            return sum(len(v) for v in list(reader._consumed.values())) \
+                + reader._resume_epoch * reader._num_items
+        except RuntimeError:
+            continue
+
+
+def ctl_jpeg_run(url, against, label, smi, pool="thread", workers=None, wire=None,
+                 filesystem=None, io_options=None, metrics=None, controller=None,
+                 provenance=None, tenant=None, fill=None, on_batch=None,
+                 results_queue_size=16, host_queue_size=8, prefetch=3, epochs=1):
+    """``epochs`` of the main path (each id once an epoch): every delivered image held
+    on the card to
+    ``against`` (by id) and, with ``fill``, written into it by id; the launch counters
+    zeroed just before and read just after; with ``metrics`` one
+    ``registry.sample_timelines()`` a batch (one controller window); ``on_batch(n,
+    reader, loader)`` runs after each batch. Returns the per-id counts and what the
+    caller checks."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io.lease import lease_stats
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+
+    workers = workers or max(1, min(8, (os.cpu_count() or 2) - 1))
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    dev = torch.device("cuda")
+    counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    leaked0 = lease_stats()["leaked"]
+    stamps, extra = [], {}
+    batches = rows = 0
+    first = None
+    reader = make_batch_reader(url, reader_pool_type=pool, workers_count=workers,
+                               wire_serializer=wire, shuffle_row_groups=True, seed=0,
+                               num_epochs=epochs, decode_on_device=True,
+                               filesystem=filesystem,
+                               io_options=io_options, results_timeout_s=120,
+                               results_queue_size=results_queue_size,
+                               provenance=provenance, tenant=tenant)
+    executor = reader._executor
+    _jpeg_launch_counters(zero=True)
+    with DataLoader(reader, BATCH, device="cuda", device_transform=transform,
+                    prefetch=prefetch, host_queue_size=host_queue_size,
+                    last_batch="partial", metrics=metrics, controller=controller) as loader:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        for batch in loader:
+            ids, u8 = batch["id"], batch["image_u8"]
+            counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+            bad.add_((against.index_select(0, ids) != u8).sum())
+            if fill is not None:
+                fill.index_copy_(0, ids, u8)
+            if first is None:
+                first = (u8[:8].clone(), batch["image"][:8].clone())
+            batches += 1
+            rows += len(ids)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if metrics is not None:
+                metrics.sample_timelines()
+            if on_batch is not None:
+                on_batch(batches, reader, loader, extra)
+        ctl = loader.controller
+        decisions = [d.to_dict() for d in loader.ctl_decisions()]
+        knobs = ctl.knobs.describe() if ctl is not None else {}
+        frozen = ctl.frozen if ctl is not None else None
+        entries = list(loader.quarantine_report.entries)
+        attribution = {t: loader.attribution_report(tenant=t)
+                       for t in (tenant, "nobody")} if provenance else None
+        acks = executor.ctl_acks() if pool == "process" else {}
+        # the feeders that sent their child the pending knob frame (before an item)
+        sent = sorted(i for i, v in getattr(executor, "_ctl_seen", {}).items()
+                      if v and v == executor._ctl_version)
+        pool_stats = executor.pool_stats() if pool == "process" else {}
+    launches = _jpeg_launch_counters()
+    res = {"label": label, "batches": batches, "rows": rows, "stamps": stamps,
+           "rows_per_s": rows / (stamps[-1] - stamps[0]), "counts": counts.cpu(),
+           "bad": int(bad.item()), "launches": launches, "decisions": decisions,
+           "knobs": knobs, "frozen": frozen, "entries": entries,
+           "attribution": attribution, "acks": acks, "sent": sent, "pool": pool_stats,
+           "leaked": lease_stats()["leaked"] - leaked0, "extra": extra,
+           "segments": _own_segments()}
+    log("controller %s: %.1f rows/s over %d batches; launches %s; actuations %s; "
+        "quarantined %d; leases leaked %d; %s" % (
+            label, res["rows_per_s"], batches, json.dumps(launches),
+            [(d["knob"], d["before"], d["after"], d["window"]) for d in decisions
+             if d["cause"] == "ctl_actuate"], len(entries), res["leaked"], smi))
+    check(bool((res["counts"] == epochs).all()), "%s: ids not delivered once an epoch "
+          "(counts %s)" % (label, sorted(set(res["counts"].tolist()))))
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"]
+          == batches, "%s: stage2_planes, stage2_rgb and K2 should launch once a batch "
+          "(%d): %s" % (label, batches, launches))
+    check(res["bad"] == 0, "%s: %d uint8 values differ, id for id, from the run they "
+          "are held to" % (label, res["bad"]))
+    check(torch.equal(image._normalize_plain(first[0], MEAN, STD, torch.bfloat16),
+                      first[1]), "%s: K2 differs from its plain version on the first "
+          "batch" % label)
+    check(not entries and res["leaked"] == 0 and not res["segments"],
+          "%s: quarantined %s, leases leaked %d, segments left %s"
+          % (label, entries, res["leaked"], res["segments"]))
+    return res
+
+
+def _tail_rows_per_s(res, share=1 / 3):
+    """Rows/s over the last ``share`` of a run's batches (the converged window)."""
+    stamps = res["stamps"]
+    tail = max(1, int(round((len(stamps) - 1) * share)))
+    return tail * BATCH / (stamps[-1] - stamps[-1 - tail])
+
+
+def phase_ctl_converge(url, images, smi):
+    """(a): the wrong depth on a slow store, with and without the controller, and the
+    hand-tuned depth."""
+    import torch
+
+    from petastorm_tpu_torch.control import ControlOptions
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+
+    fs = cloud_fs(base_latency_s=CTL_LATENCY_S, per_byte_s=CTL_PER_BYTE_S,
+                  tail_fraction=0.0)
+
+    def io(depth):
+        return dict(readahead_depth=depth, io_threads=depth, coalesce=False,
+                    remote=dict(enabled=False))
+
+    # the off run fills `ref`, which the controller's run is then held to id for id
+    ref = torch.zeros_like(images)
+    common = dict(workers=1, filesystem=fs, results_queue_size=2, host_queue_size=2,
+                  prefetch=1)
+    off = ctl_jpeg_run(url, images, "(a) depth 1, no controller", smi, io_options=io(1),
+                       fill=ref, metrics=MetricsRegistry(), **common)
+    ctl = ctl_jpeg_run(url, ref, "(a) depth 1 with the controller", smi,
+                       io_options=io(1), metrics=MetricsRegistry(), provenance=True,
+                       controller=ControlOptions(warmup_windows=3, settle_windows=2),
+                       **common)
+    tuned = ctl_jpeg_run(url, images, "(a) depth %d by hand" % CTL_TUNED_DEPTH, smi,
+                         io_options=io(CTL_TUNED_DEPTH), **common)
+    moves = [d for d in ctl["decisions"]
+             if d["cause"] == "ctl_actuate" and d["knob"] == "readahead_depth"]
+    check(moves, "(a): the controller never actuated readahead_depth (decisions %s)"
+          % ctl["decisions"])
+    check(all(d["window"] and "io.readahead_wait" in d["trigger"] for d in moves),
+          "(a): an actuation without its window or signal: %s" % moves)
+    out = {"off": off, "controller": ctl, "tuned": tuned, "moves": moves,
+           "tail": {k: _tail_rows_per_s(r) for k, r in
+                    (("off", off), ("controller", ctl), ("tuned", tuned))}}
+    log("controller (a): readahead_depth actuations %s (triggers %s); final knobs %s, "
+        "frozen %s; rows/s over the last third: %.1f with the controller, %.1f at depth "
+        "%d by hand, %.1f at depth 1 without (%.3f of the hand-tuned arm); %s" % (
+            [(d["before"], d["after"], d["window"]) for d in moves],
+            [d["trigger"] for d in moves], json.dumps(
+                {k: v["value"] for k, v in ctl["knobs"].items()}), ctl["frozen"],
+            out["tail"]["controller"], out["tail"]["tuned"], CTL_TUNED_DEPTH,
+            out["tail"]["off"], out["tail"]["controller"] / out["tail"]["tuned"], smi))
+    return out
+
+
+def phase_ctl_fleet(url, images, smi):
+    """(b): the live resize on both pools, and the knob frame on the process pool."""
+    out = {}
+    for pool, wire in (("thread", None), ("process", "arrow")):
+        def on_batch(n, reader, loader, extra, pool=pool):
+            done = _items_read(reader)
+            third = 2 * reader._num_items / 3.0
+            live = reader.live_workers()
+            extra.setdefault("live", []).append(live)
+            if "shrunk" not in extra and done >= third:
+                check(reader.resize_workers(2) == 2, "(b) %s: resize to 2 refused" % pool)
+                extra["shrunk"] = n
+            elif "shrunk" in extra and "reached" not in extra and live == 2:
+                extra["reached"] = n
+            if pool == "process" and "shrunk" in extra and "knob" not in extra \
+                    and done >= 1.5 * third:
+                extra["knob"] = reader.apply_readahead_depth(6)
+                with reader._executor._respawn_lock:
+                    extra["survivors"] = sorted(reader._executor._child_by_idx)
+            if "reached" in extra and "grown" not in extra and done >= 2 * third:
+                check(reader.resize_workers(4) == 4, "(b) %s: resize to 4 refused" % pool)
+                extra["grown"] = n
+                extra["live_after_grow"] = reader.live_workers()
+
+        res = ctl_jpeg_run(url, images, "(b) %s pool resized" % pool, smi, pool=pool,
+                           wire=wire, workers=4, results_queue_size=1, host_queue_size=2,
+                           prefetch=1, on_batch=on_batch, epochs=2)
+        extra = res["extra"]
+        check("reached" in extra and extra.get("live_after_grow") == 4,
+              "(b) %s: live_workers() did not reach 2 then 4 (shrunk at batch %s, 2 at "
+              "%s, grown at %s to %s; live %s)" % (
+                  pool, extra.get("shrunk"), extra.get("reached"), extra.get("grown"),
+                  extra.get("live_after_grow"), extra.get("live")))
+        if pool == "process":
+            # every child that took an item after the retune was sent the frame ahead of
+            # it, and each of them must have acked the applied value
+            acks = res["acks"]
+            check(extra.get("knob") == 6 and res["sent"]
+                  and sorted(acks) == res["sent"]
+                  and all(a == {"readahead_depth": 6} for a in acks.values())
+                  and res["pool"].get("respawns") == 0,
+                  "(b) process: the knob frame (applied %s) sent to %s, acked by %s "
+                  "(children alive at the retune %s), respawns %s" % (
+                      extra.get("knob"), res["sent"], acks, extra.get("survivors"),
+                      res["pool"].get("respawns")))
+        log("controller (b) %s: shrunk at batch %s, 2 alive at %s, grown at %s (alive "
+            "%s); live per batch %s; knob frame sent to %s (alive at the retune %s), "
+            "acks %s; %s" % (
+                pool, extra.get("shrunk"), extra.get("reached"), extra.get("grown"),
+                extra.get("live_after_grow"), extra.get("live"), res["sent"],
+                extra.get("survivors"), res["acks"], smi))
+        out[pool] = res
+    return out
+
+
+def phase_ctl_clean(url, images, smi):
+    """(c): the controller armed on the healthy main path: no actuation; armed against
+    unarmed, CTL_ROUNDS pairs alternating which runs first."""
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+
+    out = {"armed": [], "off": []}
+    for r in range(CTL_ROUNDS):
+        for name in (["armed", "off"] if r % 2 == 0 else ["off", "armed"]):
+            res = ctl_jpeg_run(url, images, "(c) %s round %d" % (name, r), smi,
+                               metrics=MetricsRegistry(),
+                               controller=True if name == "armed" else None)
+            if name == "armed":
+                acts = [d for d in res["decisions"] if d["cause"] == "ctl_actuate"]
+                check(not acts, "(c): the controller actuated on a healthy run: %s" % acts)
+            out[name].append(res)
+    armed = sorted(r["rows_per_s"] for r in out["armed"])
+    off = sorted(r["rows_per_s"] for r in out["off"])
+    out["ratio"] = armed[len(armed) // 2] / off[len(off) // 2]
+    log("controller (c): 0 actuations in %d armed epochs; rows/s armed %s, unarmed %s "
+        "(median ratio %.4f); %s" % (
+            CTL_ROUNDS, [round(r["rows_per_s"], 1) for r in out["armed"]],
+            [round(r["rows_per_s"], 1) for r in out["off"]], out["ratio"], smi))
+    return out
+
+
+def phase_ctl_tenants(url, images, work, smi):
+    """(d): two tagged loaders in turn, then an untagged one: the usage report, the
+    per-tenant fold and the stats CLI's panel."""
+    import io as io_mod
+
+    from petastorm_tpu_torch.obs import stats_cli
+    from petastorm_tpu_torch.obs.export import Reporter
+    from petastorm_tpu_torch.obs.metrics import default_registry
+    from petastorm_tpu_torch.obs.tenant import TenantUsageReport
+
+    def tenant_series():
+        return {k: v for k, v in default_registry().snapshot().items()
+                if k.startswith("ptpu_tenant_")}
+
+    before = TenantUsageReport.from_registry()
+    a = ctl_jpeg_run(url, images, "(d) team-a, thread pool", smi, tenant="team-a",
+                     provenance=True)
+    b = ctl_jpeg_run(url, images, "(d) team-b, process pool", smi, pool="process",
+                     wire="arrow", tenant="team-b")
+    tagged = tenant_series()
+    untagged = ctl_jpeg_run(url, images, "(d) untagged", smi)
+    check(tenant_series() == tagged, "(d): the untagged run changed the tenant series")
+    report = TenantUsageReport.from_registry()
+    usage = {}
+    for name, run in (("team-a", a), ("team-b", b)):
+        got = {k: report.get(name, k) - before.get(name, k)
+               for k in ("rows", "worker_s", "decode_s", "read_bytes")}
+        usage[name] = got
+        check(got["rows"] == run["rows"] and got["worker_s"] > 0 and got["decode_s"] > 0,
+              "(d) %s: charged %s against %d rows delivered" % (name, got, run["rows"]))
+    folds = a["attribution"]
+    check(folds["team-a"].batches == a["batches"] and folds["nobody"].batches == 0,
+          "(d): attribution_report(tenant='team-a') folds %d of %d batches, another "
+          "tenant %d" % (folds["team-a"].batches, a["batches"], folds["nobody"].batches))
+    jsonl = os.path.join(work, "tenant_stats.jsonl")
+    with Reporter(registry=default_registry(), interval_s=600.0, jsonl_path=jsonl):
+        pass
+    buf = io_mod.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = stats_cli.main([jsonl])
+    lines = buf.getvalue().splitlines()
+    check(rc == 0 and "tenants (ptpu_tenant_*):" in lines,
+          "(d) stats CLI: exit %d, no tenant panel" % rc)
+    start = lines.index("tenants (ptpu_tenant_*):")
+    panel = lines[start:start + 3]
+    check(sorted(x.split()[0] for x in panel[1:]) == ["team-a", "team-b"],
+          "(d) stats CLI tenant panel: %s" % panel)
+    log("tenants (d): charged %s; team-a's fold %d batches of %d; the untagged run "
+        "added no tenant series; stats CLI panel: %s; %s" % (
+            json.dumps({t: {k: round(v, 4) for k, v in u.items()}
+                        for t, u in usage.items()}),
+            folds["team-a"].batches, a["batches"], " | ".join(panel), smi))
+    return {"a": a, "b": b, "untagged": untagged, "usage": usage}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -5665,6 +6011,14 @@ def main():
         t15 = time.perf_counter()
         prov_c = phase_prov_main_path(url, images, kernels, env["smi"])
         phase15_s = time.perf_counter() - t15
+        t16 = time.perf_counter()
+        ctl_a = phase_ctl_converge(url, images, env["smi"])
+        ctl_b = phase_ctl_fleet(url, images, env["smi"])
+        ctl_c = phase_ctl_clean(url, images, env["smi"])
+        ctl_d = phase_ctl_tenants(url, images, work, env["smi"])
+        phase16_s = time.perf_counter() - t16
+        log("tenants and the controller: phase 16 took %.1f s of wall time; %s"
+            % (phase16_s, env["smi"]))
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -5804,6 +6158,18 @@ def main():
                 "c_no_provenance": [r["launches"][key] for r in prov_c["off"]],
                 "c_batches": [r["batches"] for r in prov_c["on"] + prov_c["off"]]}
 
+    def slice17_launches(key):
+        """{part: launches of ``key``} in phase 16 (a list a run where it has several)."""
+        runs = {"a_off": ctl_a["off"], "a_controller": ctl_a["controller"],
+                "a_tuned": ctl_a["tuned"], "b_thread": ctl_b["thread"],
+                "b_process": ctl_b["process"], "d_team_a": ctl_d["a"],
+                "d_team_b": ctl_d["b"], "d_untagged": ctl_d["untagged"]}
+        out = {name: r["launches"][key] for name, r in runs.items()}
+        out.update({"c_" + arm: [r["launches"][key] for r in ctl_c[arm]]
+                    for arm in ("armed", "off")})
+        out["batches"] = {name: r["batches"] for name, r in runs.items()}
+        return out
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -5823,7 +6189,8 @@ def main():
          "slice13_launches": slice13_launches("stage2_planes"),
          "slice14_launches": slice14_launches("stage2_planes"),
          "slice15_launches": slice15_launches("stage2_planes"),
-         "slice16_launches": slice16_launches("stage2_planes")},
+         "slice16_launches": slice16_launches("stage2_planes"),
+         "slice17_launches": slice17_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -5840,7 +6207,8 @@ def main():
          "slice13_launches": slice13_launches("stage2_rgb"),
          "slice14_launches": slice14_launches("stage2_rgb"),
          "slice15_launches": slice15_launches("stage2_rgb"),
-         "slice16_launches": slice16_launches("stage2_rgb")},
+         "slice16_launches": slice16_launches("stage2_rgb"),
+         "slice17_launches": slice17_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -5878,7 +6246,8 @@ def main():
          "slice13_launches": slice13_launches("K2"),
          "slice14_launches": slice14_launches("K2"),
          "slice15_launches": slice15_launches("K2"),
-         "slice16_launches": slice16_launches("K2")},
+         "slice16_launches": slice16_launches("K2"),
+         "slice17_launches": slice17_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -6012,6 +6381,15 @@ def main():
             [round(x, 4) for x in prov_c["decode_self_ms"]],
             sum(prov_c["device_ms"].values()), [r["verdict"] for r in prov_d["trend"]],
             prov_d["diff"]["verdict"]))
+    log("tenants and the controller (phase 16, %.1f s): (a) readahead_depth %s; rows/s "
+        "over the last third %.1f with the controller, %.1f at depth %d by hand, %.1f at "
+        "depth 1 without; (b) resized 4 -> 2 -> 4 on both pools, knob frame acks %s; (c) "
+        "0 actuations, armed/unarmed median ratio %.4f; (d) charged %s" % (
+            phase16_s, [(d["before"], d["after"]) for d in ctl_a["moves"]],
+            ctl_a["tail"]["controller"], ctl_a["tail"]["tuned"], CTL_TUNED_DEPTH,
+            ctl_a["tail"]["off"], ctl_b["process"]["acks"], ctl_c["ratio"],
+            json.dumps({t: {k: round(v, 4) for k, v in u.items()}
+                        for t, u in ctl_d["usage"].items()})))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

@@ -19,8 +19,10 @@ socket), ``hints`` the rest of this child's dispatch claim (handed to the worker
 ``prefetch`` before the item is worked: the child's own readahead pool reads them while
 it decodes) and ``settings`` None or a dict the worker applies before the item
 (``apply_settings``: how a reader's later adoption by a loader reaches running
-children). The child answers ``("ok", kind, nframes, (work_s, serialize_s), io,
-spans)``, ``io`` the worker's ``io_stats()`` (or None) and ``spans`` the trace piggyback
+children). A ``("ctl", {knob: value})`` message ahead of an item is a live knob retune:
+the child applies each knob through the worker's ``apply_<knob>`` and answers
+``("ctl_ack", {knob: applied value})`` before it takes the item. The child answers
+``("ok", kind, nframes, (work_s, serialize_s), io, spans)``, ``io`` the worker's ``io_stats()`` (or None) and ``spans`` the trace piggyback
 ``(pid, wall_anchor, perf_anchor, [(name, t0, dur), ...], prov_blob)``: ``child.work``
 (the worker call) and ``child.serialize`` (the wire encode) around this item, ``t0`` from
 the child's ``perf_counter`` and one (wall, perf) anchor pair sampled at start for clock
@@ -55,8 +57,10 @@ sends nothing, so its heartbeat ages: the stall signal. With ``stack_dump_dir`` 
 registers ``faulthandler`` on SIGUSR1, writing every thread's stack to
 ``<dir>/stacks-<pid>.txt``, which the parent signals and reads into a flight record.
 
-The JAX package's child also speaks tcp, tenants and live knob frames; those are not
-ported (ROADMAP.md Queue 1 items 4(c) and 8c), and the parent never asks for them.
+The child adopts the parent's tenant (``PTPU_TENANT``, stamped by the pool) as its
+process default before its pid ack (:func:`petastorm_tpu_torch.obs.tenant.attach_from_env`),
+so the IO it does is charged to that tenant. The JAX package's child also speaks tcp;
+that is not ported (ROADMAP.md Queue 1 item 4(c)), and the parent never asks for it.
 """
 import os
 import pickle
@@ -94,6 +98,25 @@ def _register_stack_dump(dump_dir):
         pass
 
 
+def _apply_knobs(worker, knobs):
+    """Apply a control frame's ``{knob: value}`` through ``worker.apply_<knob>``;
+    ``{knob: applied value}`` of the knobs that applied (a failed retune is degraded,
+    never fatal to the child)."""
+    applied = {}
+    for knob, value in knobs.items():
+        fn = getattr(worker, "apply_%s" % knob, None)
+        if fn is None:
+            continue
+        try:
+            applied[knob] = fn(value)
+        except Exception as e:  # noqa: BLE001 — a bad retune must not kill the child
+            from petastorm_tpu_torch.obs.log import degradation
+
+            degradation("ctl_child_apply_failed", "pool-child knob %r apply failed: %s",
+                        knob, e)
+    return applied
+
+
 def main():
     address = sys.argv[1]
     authkey = sys.stdin.buffer.read(32)
@@ -118,6 +141,9 @@ def main():
         ping_s = float(health_cfg.get("ping_interval_s") or 0)
         _register_stack_dump(health_cfg.get("stack_dump_dir"))
         worker = conn.recv()
+        from petastorm_tpu_torch.obs import tenant as tenant_mod
+
+        tenant_mod.attach_from_env()
         warm = getattr(worker, "warm", None)
         if warm is not None:
             warm()  # first-use imports, before the parent times this child's items
@@ -148,6 +174,10 @@ def main():
             msg = conn.recv()
             if msg is None:
                 return
+            if isinstance(msg, tuple) and len(msg) == 2 and msg[0] == "ctl":
+                # a live knob retune (item messages are 3- or 4-tuples)
+                conn.send(("ctl_ack", _apply_knobs(worker, msg[1] or {})))
+                continue
             if ping_s:
                 conn.send(("hb", time.time()))  # item received, about to work
             if shm_wire:

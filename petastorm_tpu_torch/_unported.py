@@ -7,7 +7,7 @@ from __future__ import annotations
 
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
-    "control": "Queue 1 item 8c (tenants, the controller and dataset watch)",
+    "watch": "Queue 1 item 8c(ii) (dataset watch and mutation)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
     "tf": "Queue 1 item 21 (adapters/tf.py, tf_utils.py and tools/)",
@@ -17,10 +17,8 @@ _ITEMS = {
 OPTIONS = {
     # io_options and cache_* are taken
     # io_retries, io_retry_backoff_s, recovery, trace and metrics are taken; so are
-    # health, slos and provenance
-    "watch": ("control", None),
-    "tenant": ("control", None),
-    "controller": ("control", None),
+    # health, slos and provenance; so are tenant and controller
+    "watch": ("watch", None),
     "sharding": ("multi_device", None),
 }
 

@@ -75,7 +75,7 @@ class LocalDiskCache(CacheBase):
         """Unlink the entry for ``key``. The cache has no validation of its own:
         entries are only as fresh as their keys (a source file rewritten in place keeps
         its keys; the generation-scoped keys of dataset watching are ROADMAP.md Queue 1
-        item 8c)."""
+        item 8c(ii))."""
         try:
             os.unlink(self._key_path(key))
         except OSError:

@@ -42,8 +42,8 @@ decode.device_inflate  ``DataLoader._inflate_passthrough``, once a batch
 The actions that need another slice's machinery raise ``NotImplementedError`` naming
 it when a rule is made: the ``net.*`` actions (the tcp transport, ROADMAP.md Queue 1
 item 4(c)) and the ``dataset.mutate`` actions ``remove_file``, ``rewrite_file`` and
-``append_piece`` (item 8c). ``hang`` sleeps ``hang_s`` (ended early by a disarm): the
-stall watchdog's prey (:mod:`petastorm_tpu_torch.obs.health`), which the process pool's
+``append_piece`` (item 8c(ii)). ``hang`` sleeps ``hang_s`` (ended early by a disarm):
+the stall watchdog's prey (:mod:`petastorm_tpu_torch.obs.health`), which the process pool's
 healer ends by killing the hung child under ``escalation="heal"``.
 
 Every injected fault is recorded: a ``ptpu_degradations_total{cause="chaos_injected"}``
@@ -63,7 +63,7 @@ _ACTIONS = ("raise_transient", "raise_permanent", "latency", "corrupt",
             "net.partition", "net.reset", "net.slow", "net.corrupt_frame")
 
 #: actions of the tcp transport (ROADMAP.md Queue 1 item 4(c)) and of the dataset
-#: watcher (item 8c): named, so a JAX plan's rule is recognised, but refused here
+#: watcher (item 8c(ii)): named, so a JAX plan's rule is recognised, but refused here
 _NET_ACTIONS = ("net.partition", "net.reset", "net.slow", "net.corrupt_frame")
 _MUTATE_ACTIONS = ("remove_file", "rewrite_file", "append_piece")
 
@@ -104,7 +104,7 @@ class FaultRule:
         ``latency_s``), ``corrupt`` (flip a byte in the site's payload — only
         meaningful at ``wire.decode``), ``kill`` (``os._exit`` — pool children
         only), ``hang`` (sleep ``hang_s``). The ``net.*`` and dataset-mutation
-        actions raise ``NotImplementedError`` (ROADMAP.md Queue 1 items 4(c), 8c).
+        actions raise ``NotImplementedError`` (ROADMAP.md Queue 1 items 4(c), 8c(ii)).
     nth : int, optional
         Fire on the Nth matching hit (1-based), counted per rule per process.
     every : int, optional
@@ -135,7 +135,7 @@ class FaultRule:
             from petastorm_tpu_torch._unported import not_ported
 
             raise not_ported("chaos action %r" % action,
-                             "process_pool" if action in _NET_ACTIONS else "control")
+                             "process_pool" if action in _NET_ACTIONS else "watch")
         if nth is not None and int(nth) < 1:
             raise ValueError("nth is 1-based (the first matching hit is 1)")
         if probability is not None and not (0.0 <= float(probability) <= 1.0):

@@ -67,6 +67,7 @@ import zlib
 import numpy as np
 
 from petastorm_tpu_torch.io.lease import Lease, count_copy
+from petastorm_tpu_torch.obs import tenant as _tenant
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 
 #: /dev/shm segment name prefix (the tests' leak checks glob it)
@@ -553,9 +554,13 @@ class CacheArena:
                         buf[start:start + arr.nbytes] = \
                             memoryview(arr).cast("B")
                 index["tick"] += 1
+                admit_tenant = _tenant.current_label()
                 index["entries"][key] = {
                     "seg": seg_name, "nbytes": nbytes, "gen": gen,
-                    "tick": index["tick"], "holders": {}}
+                    "tick": index["tick"], "holders": {},
+                    # the admitting tenant: an eviction debits the owner's residency,
+                    # not the evictor's
+                    "tenant": admit_tenant}
                 index["total"] += nbytes
                 try:
                     self._write_index(index)
@@ -574,6 +579,8 @@ class CacheArena:
                 self._funlock()
         count_copy("arena_admit", nbytes)
         _bump("admits")
+        if admit_tenant is not None:
+            _tenant.meter().arena_adjust(admit_tenant, nbytes)
         return True
 
     def _rewrite_best_effort(self, index):
@@ -609,6 +616,12 @@ class CacheArena:
         index["total"] -= entry["nbytes"]
         self._unlink_seg(entry["seg"])
         _bump("invalidations" if invalidation else "evictions")
+        owner = entry.get("tenant")
+        if owner is not None:
+            # the owner's residency integral closes here: exact in this process; an
+            # eviction by a peer process debits the peer's meter, and stats()'s
+            # index-derived per-tenant bytes stay the host-wide truth
+            _tenant.meter().arena_adjust(owner, -entry["nbytes"])
 
     def _unlink_seg(self, seg_name):
         """Remove a segment's NAME (POSIX keeps peers' live mappings valid).
@@ -877,6 +890,11 @@ class CacheArena:
             finally:
                 self._funlock()
         counts = arena_counters()
+        tenant_bytes = {}
+        for e in index["entries"].values():
+            owner = e.get("tenant")
+            if owner is not None:
+                tenant_bytes[owner] = tenant_bytes.get(owner, 0) + e["nbytes"]
         return {
             "arena_entries": len(index["entries"]),
             "arena_payload_bytes": index["total"],
@@ -893,6 +911,9 @@ class CacheArena:
             "arena_admits": counts["admits"],
             "arena_evictions": counts["evictions"],
             "arena_invalidations": counts["invalidations"],
+            # host-wide residency by tenant, from the index (exports as
+            # ptpu_io_arena_tenant_bytes{tenant=...})
+            "arena_tenant_bytes": tenant_bytes,
         }
 
     # -- teardown -----------------------------------------------------------------------

@@ -16,7 +16,7 @@ first touch: workers x threads x files footer reads for bytes that never change.
 Validation: an entry carries the file size seen at parse time; a later open whose
 handle reports another size invalidates it (counted). A same-size in-place rewrite is
 not seen (the JAX package's stat and crc generation tokens come with dataset watching,
-ROADMAP.md Queue 1 item 8c). The counters are per cache, read through
+ROADMAP.md Queue 1 item 8c(ii)). The counters are per cache, read through
 :meth:`FooterCache.stats`.
 
 Host-wide sharing: with a cache arena in the process
@@ -86,7 +86,7 @@ class FooterEntry:
         self.metadata = metadata
         self.size = int(size) if size is not None else None
         #: the file's stat identity when the caller offered one (dataset watching,
-        #: item 8c); None: size-only validation
+        #: item 8c(ii)); None: size-only validation
         self.stat_token = stat_token
         # the serialized thrift size stands for the resident parse size
         try:

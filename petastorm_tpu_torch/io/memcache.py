@@ -219,6 +219,21 @@ class _Store:
             if budget > self._budget:
                 self._budget = budget
 
+    def set_budget(self, budget):
+        """Move the store's ceiling, down too (a live retune): a shrink evicts
+        oldest-first down to the new budget at once. Served views stay valid; the
+        evicted entries' leases release as at any eviction."""
+        evicted = []
+        with self._lock:
+            self._budget = max(0, int(budget))
+            while self._total > self._budget and self._entries:
+                _, (_, old_bytes, old_lease) = self._entries.popitem(last=False)
+                self._total -= old_bytes
+                self._evictions += 1
+                evicted.append(old_lease)
+        for lease in evicted:
+            lease.release()
+
     @property
     def budget(self):
         with self._lock:
@@ -440,6 +455,18 @@ class MemCache(CacheBase):
         copy = _defensive_copy(value)
         count_copy("memcache_cow", _copied_nbytes(copy))
         return copy
+
+    def apply_budget(self, size_limit_bytes):
+        """Retune the budget live (the controller's hot-row-group lever): a larger
+        budget keeps more decoded row groups resident, a smaller one evicts down at
+        once. Moves this instance's budget and the store's ceiling: the store is
+        process-wide, so every MemCache over it sees the retune."""
+        size_limit_bytes = max(1, int(size_limit_bytes))
+        self._budget = size_limit_bytes
+        store = self._private_store if self._private_store is not None \
+            else shared_store()
+        store.set_budget(size_limit_bytes)
+        return size_limit_bytes
 
     @property
     def budget(self):

@@ -35,8 +35,10 @@ plane armed (:mod:`petastorm_tpu_torch.obs.provenance`) the claiming item is ann
 ``perf_counter`` clock) plus the claimer's remaining wait as ``io.readahead_wait``. The
 counts are per
 pool, read through :meth:`ReadaheadPool.stats`; ``Reader.io_stats()`` carries them, and a
-``DataLoader(metrics=...)`` exports that dict as the ``ptpu_io_*`` families. The JAX
-package's live ``apply_*`` knobs are ROADMAP.md Queue 1 item 8c.
+``DataLoader(metrics=...)`` exports that dict as the ``ptpu_io_*`` families. The depth,
+the byte budget and the IO thread count are live knobs (:meth:`ReadaheadPool.apply_depth`,
+:meth:`~ReadaheadPool.apply_byte_budget`, :meth:`~ReadaheadPool.apply_io_threads`), the
+seam :mod:`petastorm_tpu_torch.control` actuates; the options are never mutated.
 """
 from __future__ import annotations
 
@@ -151,8 +153,8 @@ class _Entry:
 
 def request_key(piece, columns):
     """Identity of one background read: file, row group, the piece's generation token
-    (None in the port: dataset watching is ROADMAP.md item 8c) and the exact column
-    selection (``None`` = all columns)."""
+    (None in the port: dataset watching is ROADMAP.md Queue 1 item 8c(ii)) and the exact
+    column selection (``None`` = all columns)."""
     return (piece.path, piece.row_group, getattr(piece, "generation", None),
             None if columns is None else tuple(columns))
 
@@ -211,6 +213,49 @@ class ReadaheadPool:
             _live_pools.add(self)
         _install_exit_drain()
 
+    # -- live knobs ---------------------------------------------------------------------
+
+    def apply_depth(self, depth):
+        """Retune the bound on background reads in flight. Takes effect at the next
+        ``schedule()``: reads in flight above a lowered bound finish (the bound gates
+        admission, it never cancels work)."""
+        depth = max(1, int(depth))
+        with self._lock:
+            self._depth = depth
+            self._evict_over_budget()  # the completed-entry cap scales with the depth
+        return depth
+
+    def apply_byte_budget(self, nbytes):
+        """Retune the completed-unclaimed byte budget (<= 0: uncapped, the
+        construction convention); tables over the new budget are evicted now."""
+        nbytes = int(nbytes)
+        with self._lock:
+            self._byte_budget = nbytes if nbytes > 0 else None
+            self._evict_over_budget()
+        return 0 if self._byte_budget is None else self._byte_budget
+
+    def apply_io_threads(self, io_threads):
+        """Resize the IO thread pool by a swap: new reads go to a fresh pool of the
+        target size; the old pool's queued and running reads finish on its own threads
+        (a retune never fails a read), which the exit drain joins like any shut-down
+        pool's."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        io_threads = max(1, int(io_threads))
+        with self._lock:
+            if self._closed or io_threads == self._io_threads:
+                return self._io_threads
+            old = self._pool
+            self._pool = ThreadPoolExecutor(max_workers=io_threads,
+                                            thread_name_prefix="ptpu-torch-io")
+            self._io_threads = io_threads
+        old.shutdown(wait=False)
+        with _live_pools_lock:
+            _dying_executors[:] = [ex for ex in _dying_executors
+                                   if _executor_threads_alive(ex)]
+            _dying_executors.append(old)
+        return io_threads
+
     @property
     def depth(self):
         return self._depth
@@ -258,7 +303,7 @@ class ReadaheadPool:
                 if self._coalesce \
                 else [([piece], columns) for piece, columns in fresh]
             for pieces, columns in runs:
-                self._pool.submit(self._read_task, pieces, columns)
+                self._submit(pieces, columns)
                 submitted.update(request_key(p, columns) for p in pieces)
         except BaseException:
             # roll back never-submitted registrations: an entry whose read was never
@@ -271,6 +316,19 @@ class ReadaheadPool:
                         self._pending -= 1
             raise
         return len(fresh)
+
+    def _submit(self, pieces, columns):
+        """Submit one read to the current IO pool; a pool that apply_io_threads swapped
+        out between the read of ``self._pool`` and the submit refuses it, and the read
+        goes to its replacement."""
+        while True:
+            pool = self._pool
+            try:
+                pool.submit(self._read_task, pieces, columns)
+                return
+            except RuntimeError:
+                if self._closed or self._pool is pool:
+                    raise
 
     def _read_task(self, pieces, columns):
         with self._lock:

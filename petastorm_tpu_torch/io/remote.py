@@ -39,7 +39,9 @@ the shared latency model's histograms are ``ptpu_io_remote_get_seconds{store=,
 size_class=}`` there. With a :class:`~petastorm_tpu_torch.trace.TraceRecorder` attached
 (:meth:`RemoteReadEngine.set_trace`) a row-group read and a raw chunk fetch are each an
 ``io.remote`` span (the GETs and the stitch), where the JAX package records the same span.
-The per-tenant charges are ROADMAP.md Queue 1 item 8c.
+A GET issued by a tagged reader's thread (:mod:`petastorm_tpu_torch.obs.tenant`) also
+counts on the tenant's twins of the GET, byte, hedge and hedge-win families
+(``{tenant=...}``) and charges each hedge to the tenant's ``hedged_gets``.
 :class:`RemoteIoOptions` and
 :func:`fs_is_remote` carry the options and the auto probe.
 """
@@ -53,6 +55,7 @@ import zlib
 
 from petastorm_tpu_torch.io.coalesce import plan_byte_ranges
 from petastorm_tpu_torch.obs import provenance as _prov
+from petastorm_tpu_torch.obs import tenant as _tenant
 from petastorm_tpu_torch.obs.metrics import MetricsRegistry
 
 #: pyarrow filesystem type_names that are NOT object stores (the auto probe)
@@ -352,7 +355,7 @@ class _GetState:
 
     __slots__ = ("lock", "done", "data", "lease", "winner_role", "errors",
                  "outstanding", "hedged", "deadline_s", "abandoned",
-                 "exec_start", "exec_started")
+                 "exec_start", "exec_started", "tenant")
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -370,6 +373,9 @@ class _GetState:
         #: supervisor waits on this while the GET is queued in the pool, so deadlines
         #: run from execution start exactly
         self.exec_started = threading.Event()
+        #: the tenant slug of the issuing thread (the pool threads that run the
+        #: attempts carry no tenant context)
+        self.tenant = None
 
     def take(self):
         """Claim the winning payload (exactly once) and abandon the slot."""
@@ -478,12 +484,17 @@ class RemoteReadEngine:
         if _prov.ACTIVE is not None:
             _prov.add_span("io.remote", t0, dur)
 
-    def _count(self, name, n=1):
+    def _count(self, name, n=1, tenant=None):
         with self._lock:
             self._n[name] += n
         family = self._families.get(name)
         if family is not None:
             family.inc(n)
+            if tenant is not None:
+                # the tenant's twin, beside the untagged total: the twins sum to it
+                from petastorm_tpu_torch.obs.metrics import default_registry
+
+                default_registry().counter(_FAMILIES[name][0], tenant=tenant).inc(n)
 
     def _all_pools(self):
         with self._lock:
@@ -671,6 +682,7 @@ class RemoteReadEngine:
         """Submit the primary attempt; the latency model is consulted once, now."""
         state = _GetState()
         state.outstanding = 1
+        state.tenant = _tenant.current_label()
         if self._opts.hedge:
             state.deadline_s = self._model.deadline(
                 self._store, length, self._hedge_quantile,
@@ -714,7 +726,9 @@ class RemoteReadEngine:
                         state.outstanding += 1
                         state.hedged = True
                 if fire:
-                    self._count("hedges")
+                    self._count("hedges", tenant=state.tenant)
+                    if state.tenant is not None:
+                        _tenant.charge("hedged_gets", 1, label=state.tenant)
                     if _prov.ACTIVE is not None:
                         # supervision runs on the item's own thread: the annotation
                         # lands on the right record
@@ -770,8 +784,8 @@ class RemoteReadEngine:
             self._attempt_failed(state, e)
             return
         self._model.observe(self._store, length, dur)
-        self._count("gets")
-        self._count("bytes", len(data))
+        self._count("gets", tenant=state.tenant)
+        self._count("bytes", len(data), tenant=state.tenant)
         lease = Lease(kind="remote_get")
         deliver = False
         with state.lock:
@@ -783,7 +797,7 @@ class RemoteReadEngine:
                 deliver = True
         if deliver:
             if role == "hedge":
-                self._count("hedge_wins")
+                self._count("hedge_wins", tenant=state.tenant)
             state.done.set()
         else:
             # the drained loser: release the accounting lease, drop the bytes

@@ -16,9 +16,11 @@ The funnel degrades to its parts: no mem budget, no mem tier; ``cache_type="null
 a disk tier that holds nothing. The mem tier's read-only serving contract is
 :class:`~petastorm_tpu_torch.io.memcache.MemCache`'s, which also holds the arena tier
 and reports which of the two served. The funnel's counts reach the registry as
-``ptpu_io_*`` through ``Reader.io_stats()`` (a loader's ``io`` collector); the
-per-tenant charges are ROADMAP.md Queue 1 item 8c. With the provenance plane armed each
-serve annotates its item's ``cache_tier`` with the tier that served it.
+``ptpu_io_*`` through ``Reader.io_stats()`` (a loader's ``io`` collector). A funnel built
+for a tagged reader (``tenant=``) also charges each serve's payload bytes to its tenant's
+``read_bytes`` (:mod:`petastorm_tpu_torch.obs.tenant`). The admission policy is a live
+knob (:meth:`TieredCache.apply_disk_admit`). With the provenance plane armed each serve
+annotates its item's ``cache_tier`` with the tier that served it.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import threading
 from petastorm_tpu_torch.cache import CacheBase, NullCache
 from petastorm_tpu_torch.io.memcache import payload_nbytes
 from petastorm_tpu_torch.obs import provenance as _prov
+from petastorm_tpu_torch.obs import tenant as _tenant
 
 #: serve-attribution tiers, hot to cold: ``arena`` sits between this process's mem
 #: store and the disk tier (a shared mapping costs less than a disk read, more than a
@@ -42,9 +45,11 @@ class TieredCache(CacheBase):
     ``disk`` any :class:`~petastorm_tpu_torch.cache.CacheBase` (a ``LocalDiskCache``, or
     ``NullCache`` for uncached readers). ``single_epoch`` is the reader's scan hint
     (``num_epochs == 1``) that ``scan-resistant`` consumes. ``clear()``/``cleanup()``
-    release the mem tier's bytes."""
+    release the mem tier's bytes. ``tenant`` is the reader's tenant slug (a plain string:
+    it survives the pickle into a pool child)."""
 
-    def __init__(self, mem=None, disk=None, disk_admit="always", single_epoch=False):
+    def __init__(self, mem=None, disk=None, disk_admit="always", single_epoch=False,
+                 tenant=None):
         if disk_admit not in ("always", "scan-resistant"):
             raise ValueError("disk_admit must be 'always' or 'scan-resistant', "
                              "got %r" % (disk_admit,))
@@ -52,6 +57,7 @@ class TieredCache(CacheBase):
         self._disk = disk if disk is not None else NullCache()
         self._disk_admit = disk_admit
         self._single_epoch = bool(single_epoch)
+        self._tenant = tenant
         self._counts_lock = threading.Lock()
         self._counts = {t: [0, 0] for t in TIERS}
 
@@ -72,6 +78,8 @@ class TieredCache(CacheBase):
             slot = self._counts[tier]
             slot[0] += 1
             slot[1] += n
+        if self._tenant is not None:
+            _tenant.charge("read_bytes", n, label=self._tenant)
 
     def _admit_disk(self, value):
         """Should this store-read ``value`` go to the disk tier? Decided from the value:
@@ -134,6 +142,15 @@ class TieredCache(CacheBase):
         if _prov.ACTIVE is not None:  # which tier fed this item
             _prov.annotate("cache_tier", served[0])
         return value
+
+    def apply_disk_admit(self, policy):
+        """Retune the disk admission policy live; it applies from the next store read
+        (entries already on disk stay)."""
+        if policy not in ("always", "scan-resistant"):
+            raise ValueError("disk_admit must be 'always' or 'scan-resistant', "
+                             "got %r" % (policy,))
+        self._disk_admit = policy
+        return policy
 
     @property
     def disk_admit(self):

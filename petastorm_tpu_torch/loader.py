@@ -79,8 +79,17 @@ them into the critical path's per-site self seconds
 culprit site. The spans are host time: ``loader.decode`` times the enqueue of the staged
 decode's kernels, and ``decode.device_inflate`` includes its one read back to the host.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md item): sharding
-across devices (item 12); the controller and tenants (item 8c).
+``controller=`` (with ``metrics=``) closes the loop
+(:mod:`petastorm_tpu_torch.control`): a :class:`~petastorm_tpu_torch.control.Controller`
+evaluates each window of the registry's time series and retunes the reader's live knobs
+(readahead depth and bytes, the GET pool, the hedge quantile, the mem tier, the fleet
+size) within its anti-oscillation contract; it only reads windows and never runs on the
+loader's threads. ``tenant=`` bills this pipeline's work to a tenant
+(:mod:`petastorm_tpu_torch.obs.tenant`): the reader charges rows, worker seconds and IO,
+the loader its decode seconds.
+
+Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 12):
+sharding across devices.
 """
 from __future__ import annotations
 
@@ -101,6 +110,7 @@ from petastorm_tpu_torch._unported import not_ported, reject_unported
 from petastorm_tpu_torch.io.lease import attach_leases, count_copy, take_leases
 from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
                                             materialize_columns, pagedec_counters)
+from petastorm_tpu_torch.obs import tenant as _tenant
 from petastorm_tpu_torch.shuffle import BatchedRandomShufflingBuffer
 from petastorm_tpu_torch.utils import stack_as_column
 
@@ -257,6 +267,10 @@ class _LoaderObs:
             self._handles.append(registry.register_collector(
                 "prov", lambda: (lambda r: r.summary() if r is not None
                                  else {})(prov_ref())))
+
+    def add_collector(self, prefix, fn):
+        """Register one more pull collector, unregistered with the rest at close."""
+        self._handles.append(self.registry.register_collector(prefix, fn))
 
     def observe(self, stage, dur):
         self._hists[stage].observe(dur)
@@ -767,6 +781,23 @@ class DataLoader:
         shared and stays armed. One armed recorder a process. ``PTPU_PROVENANCE=1``
         turns it on without code. Under shuffling (either buffer) batch membership is
         unknown (``items`` is None); the item records still collect.
+    controller : True, ControlOptions or Controller, optional
+        The closed-loop controller (:mod:`petastorm_tpu_torch.control`; requires
+        ``metrics=``): on each window of the registry's time series it retunes the
+        reader's live knobs through :func:`~petastorm_tpu_torch.control.build_knobset`
+        (readahead depth and bytes, the GET pool's width, the hedge quantile, the mem
+        tier's budget, disk admission, the fleet size: a shrink drains, never kills
+        mid-item), with hysteresis, debounce, cooldowns, step limits and the
+        revert-and-freeze no-gain guard. ``True``: the default rules; a
+        ``ControlOptions`` tunes warmup, cooldown and the guard; a ``Controller`` is
+        shared (the caller's: never detached here). With ``provenance=`` the rules read
+        the attribution report. Decisions are ``ctl_actuate`` / ``ctl_revert`` /
+        ``ctl_freeze`` degradation events and ``ptpu_ctl_*`` families; read them from
+        :meth:`ctl_decisions` and :attr:`controller`.
+    tenant : str or TenantContext, optional
+        Who this pipeline's work is billed to (:mod:`petastorm_tpu_torch.obs.tenant`):
+        this argument, else the reader's tenant, else the thread's or process's current
+        one. The loader charges its decode seconds (``ptpu_tenant_decode_seconds_total``).
     device : torch.device or str, optional, keyword only
         Where batches land (and where staged fields decode). Default: the CUDA device
         (raises when there is none).
@@ -782,8 +813,7 @@ class DataLoader:
                  device_shuffle_capacity=0, device_decode_resize=None, trace=None,
                  metrics=None, health=None, staging=None, provenance=None,
                  slos=None, controller=None, tenant=None, *, device=None):
-        reject_unported("DataLoader", sharding=sharding, controller=controller,
-                        tenant=tenant)
+        reject_unported("DataLoader", sharding=sharding)
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if last_batch not in ("drop", "pad", "partial"):
@@ -791,6 +821,11 @@ class DataLoader:
         if device_shuffle_capacity and not to_device:
             raise ValueError("device_shuffle_capacity requires to_device=True "
                              "(the ring lives in device memory)")
+        #: who the decode seconds are billed to: the explicit argument, else the reader's
+        #: tenant, else the current one; None: untagged
+        self.tenant_context = (_tenant.resolve(tenant, env_default=False)
+                               or getattr(reader, "tenant_context", None)
+                               or _tenant.current())
         self.device = _resolve_device(device)
         if staging and self.device.type != "cuda":
             raise ValueError("staging=%r needs a CUDA device, got %s" % (staging, self.device))
@@ -886,6 +921,7 @@ class DataLoader:
                 # each alert names the site that owns the slow batches' critical path
                 engine.set_attribution(self.attribution_report)
             self._slo_engine = engine
+        self._init_controller(controller)
         # consumer-watermark checkpointing (see state_dict): the producer logs
         # (cumulative delivered rows, reader state) at its deliveries, the consumer counts
         # the rows it has taken, and state_dict() returns the newest logged state the
@@ -898,6 +934,41 @@ class DataLoader:
         self._ckpt_log = collections.deque()
         self._ckpt_base = None
         self._rows_consumed = 0
+
+    def _init_controller(self, controller):
+        """The closed loop of ``controller=``: a loader-built controller over the
+        reader's standard knobs, or a caller's shared one, on the registry's window
+        cadence."""
+        #: the Controller (None: off) and whether this loader built it (and so detaches
+        #: it at __exit__)
+        self._controller = None
+        self._ctl_owned = False
+        if not controller:
+            return
+        if self._obs is None:
+            raise ValueError(
+                "DataLoader(controller=...) requires metrics=: the controller reads the "
+                "metrics registry's windowed time series")
+        from petastorm_tpu_torch.control import ControlOptions, Controller, build_knobset
+
+        registry = self._obs.registry
+        if isinstance(controller, Controller):
+            # the caller's, shared: never detached here (as a shared SLO engine)
+            ctl = controller
+            if ctl._registry is None:
+                ctl._registry = registry
+            if ctl._store is None:
+                ctl.attach(registry.timeline_store())
+        else:
+            options = controller if isinstance(controller, ControlOptions) else None
+            ctl = Controller(build_knobset(self.reader), registry=registry,
+                             options=options)
+            ctl.attach(registry.timeline_store())
+            self._ctl_owned = True
+        if ctl._attribution is None and self._prov_rec is not None:
+            ctl.set_attribution(self.attribution_report)
+        self._controller = ctl
+        self._obs.add_collector("ctl", ctl.collect)
 
     def _init_health(self, health, metrics):
         """The health wiring of ``health=`` (None: the ``PTPU_HEALTH`` switch): the
@@ -1362,8 +1433,10 @@ class DataLoader:
             hb.beat("decode")
         t0 = time.perf_counter()
         batch, decoded = self._decode_staged(batch)
-        self.stats.decode_s += self._timed("decode.dispatch", "decode", t0,
-                                           site="loader.decode")
+        dt = self._timed("decode.dispatch", "decode", t0, site="loader.decode")
+        self.stats.decode_s += dt
+        if self.tenant_context is not None:
+            _tenant.charge("decode_s", dt, label=self.tenant_context.tenant)
         if hb is not None:
             # busy through the upload (the pinned slab's reuse may wait for the card)
             # and the device transform
@@ -1795,6 +1868,21 @@ class DataLoader:
         :class:`~petastorm_tpu_torch.obs.slo.SloAlert`. Empty without ``slos=``."""
         return self._slo_engine.alerts() if self._slo_engine is not None else []
 
+    @property
+    def controller(self):
+        """The attached :class:`~petastorm_tpu_torch.control.Controller`, or None without
+        ``controller=``."""
+        return self._controller
+
+    def ctl_decisions(self):
+        """The controller's decisions so far (oldest first): each a
+        :class:`~petastorm_tpu_torch.control.Decision` with its cause (``ctl_actuate``,
+        ``ctl_revert``, ``ctl_freeze``), the knob's values before and after and the
+        triggering window. Empty without ``controller=``."""
+        return self._controller.decisions() if self._controller is not None else []
+
+    controller_decisions = ctl_decisions
+
     # -- lifecycle ----------------------------------------------------------------------
 
     def stop(self):
@@ -1843,6 +1931,10 @@ class DataLoader:
             # a loader-built engine stops evaluating (its alerts stay readable); a
             # shared one keeps watching: a sibling pipeline may still be burning
             self._slo_engine.detach()
+        if self._controller is not None and self._ctl_owned:
+            # the same ownership: a loader-built controller stops actuating (its
+            # decisions stay readable); a shared one is the caller's to detach
+            self._controller.detach()
         if self._obs is not None:
             self._obs.close()
         if self._prov_rec is not None and self._prov_owned:

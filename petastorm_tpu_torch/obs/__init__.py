@@ -36,7 +36,14 @@ and the attribution plane:
 - :mod:`petastorm_tpu_torch.obs.stats_cli`: the terminal dashboard over a Reporter's
   JSONL stream or a Prometheus file (``python -m petastorm_tpu_torch.obs.stats_cli``).
 
-Tenants and the controller are ROADMAP.md Queue 1 item 8c.
+and the tenant plane:
+
+- :mod:`petastorm_tpu_torch.obs.tenant`: a validated :class:`TenantContext` carried
+  through every layer a batch touches, ``tenant=``-labelled twins beside the untagged
+  totals, and the fleet-mergeable :class:`TenantUsageReport` (the stats CLI's tenant
+  panel).
+
+The closed-loop controller is :mod:`petastorm_tpu_torch.control`.
 """
 from petastorm_tpu_torch.obs.flight import FlightRecorder
 from petastorm_tpu_torch.obs.health import HealthMonitor, HealthOptions
@@ -51,9 +58,10 @@ from petastorm_tpu_torch.obs.metrics import (
 from petastorm_tpu_torch.obs.provenance import ProvenanceRecorder
 from petastorm_tpu_torch.obs.serve import MetricsServer
 from petastorm_tpu_torch.obs.slo import AnomalyDetector, SloEngine, SloSpec
+from petastorm_tpu_torch.obs.tenant import TenantContext, TenantUsageReport
 from petastorm_tpu_torch.obs.timeseries import TimelineStore
 
 __all__ = ["AnomalyDetector", "AttributionReport", "Counter", "FlightRecorder", "Gauge",
            "HealthMonitor", "HealthOptions", "Histogram", "MetricsRegistry",
-           "MetricsServer", "ProvenanceRecorder", "SloEngine", "SloSpec", "TimelineStore",
-           "default_registry"]
+           "MetricsServer", "ProvenanceRecorder", "SloEngine", "SloSpec", "TenantContext",
+           "TenantUsageReport", "TimelineStore", "default_registry"]

@@ -46,9 +46,10 @@ One armed :class:`ProvenanceRecorder` per process at a time (like the chaos plan
 loaders their own processes, or share one recorder. The JAX package's recorder is a
 separate module global: arming one plane never arms the other.
 
-The reference also stamps each item with its tenant; the port has no tenant context yet
-(ROADMAP.md Queue 1 item 8c), so no item carries a ``tenant`` annotation and
-``report(tenant=...)`` folds only batches whose items were annotated by the caller.
+Each item is stamped with the tenant active on the thread that begins it
+(:mod:`petastorm_tpu_torch.obs.tenant`), as a plain ``tenant`` annotation that rides a
+child's record to the parent unchanged; ``report(tenant=...)`` folds only the batches
+whose items carry that tenant.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ import time
 import zlib
 
 from petastorm_tpu_torch.chaos import item_key as _chaos_item_key
+from petastorm_tpu_torch.obs import tenant as _tenant
 
 #: the armed collector for THIS process: a :class:`ProvenanceRecorder` in the
 #: consumer process, a :class:`_ChildCollector` in pool children, or None
@@ -193,6 +195,9 @@ def begin_item(tagged_item):
         return None
     rec = ACTIVE.open_item(tagged_item)
     _tls.item = rec
+    label = _tenant.current_label()
+    if label is not None and "tenant" not in rec.annotations:
+        rec.annotations["tenant"] = label
     return rec
 
 

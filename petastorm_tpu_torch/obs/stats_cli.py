@@ -23,8 +23,9 @@ panels.
         family, a per-source breakdown and the fleet rows/s sparkline, windows aligned
         on each source's (wall, perf) clock anchor.
 
-The per-tenant panel is ROADMAP.md Queue 1 item 8c: a snapshot holding tenant series
-renders one line naming that item in its place.
+A snapshot holding ``ptpu_tenant_*`` series renders the per-tenant panel
+(:class:`~petastorm_tpu_torch.obs.tenant.TenantUsageReport`), tenants ranked by worker
+seconds.
 
 Exit codes: 0 printed a snapshot, 1 no snapshot found / unreadable file.
 """
@@ -249,19 +250,6 @@ def _fmt_delta(cur, prev, as_int=True):
     return " (%+d this window)" % d if as_int else " (%+.3f this window)" % d
 
 
-_TENANT_SERIES_RE = re.compile(r'^ptpu_tenant_\w+\{.*\btenant="(?P<tenant>[^"]*)"')
-
-
-def _tenant_labels(metrics):
-    """Sorted tenant labels of the snapshot's ``ptpu_tenant_*{tenant=...}`` series."""
-    out = set()
-    for name, value in metrics.items():
-        m = _TENANT_SERIES_RE.match(name)
-        if m and isinstance(value, (int, float)):
-            out.add(m.group("tenant"))
-    return sorted(out)
-
-
 def render_dashboard(metrics, title="", history=None):
     """One dashboard frame (a plain string — the CLI prints it, tests assert
     on it). Sections appear only when their families are present, so the same
@@ -383,13 +371,12 @@ def render_dashboard(metrics, title="", history=None):
                int(metrics.get("ptpu_io_arena_invalidations_total", 0)),
                int(metrics.get("ptpu_io_arena_holders_revoked_total", 0))))
 
-    # -- per-tenant accounting: the panel is ROADMAP.md Queue 1 item 8c; a snapshot that
-    # holds tenant series says so instead of showing nothing
-    tenants = _tenant_labels(metrics)
-    if tenants:
-        lines.append("tenants: %d in the snapshot (%s); the per-tenant panel is not "
-                     "ported yet (ROADMAP.md Queue 1 item 8c)"
-                     % (len(tenants), ", ".join(tenants)))
+    # -- per-tenant accounting: who used the shared resources
+    from petastorm_tpu_torch.obs.tenant import TenantUsageReport
+
+    tenant_report = TenantUsageReport.from_metrics(metrics)
+    if tenant_report.tenants():
+        lines.extend(tenant_report.render())
 
     # -- remote read path: GETs, hedging, footer cache
     r = {name: metrics[name] for name in metrics

@@ -6,7 +6,7 @@ takes its slice with no communication, and any position checkpoints as a small s
 dict (``state_dict``/``load_state_dict``, with a skip map of consumed ordinals for the
 reader's exact resume), and ``peek`` gives the next items without advancing (the
 readahead lookahead of a synchronous pool). The plan extension of the dataset-watch
-plane (``extend``) is not ported (ROADMAP.md Queue 1 item 8c).
+plane (``extend``) is not ported (ROADMAP.md Queue 1 item 8c(ii)).
 """
 from __future__ import annotations
 

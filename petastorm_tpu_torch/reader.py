@@ -80,6 +80,7 @@ from petastorm_tpu_torch.metadata import get_schema, infer_or_load_unischema, lo
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 from petastorm_tpu_torch.ngram import NGram, form_ngram_columns
 from petastorm_tpu_torch.obs import provenance as _prov
+from petastorm_tpu_torch.obs import tenant as _tenant
 from petastorm_tpu_torch.plan import EpochPlan, shard_indices
 from petastorm_tpu_torch.recovery import (QuarantinedItem, QuarantineEntry,
                                           QuarantineReport, RecoveryOptions,
@@ -99,14 +100,32 @@ logger = logging.getLogger(__name__)
 
 class _Tagged:
     """Runs the worker on ``(epoch, ordinal, (piece, partition))`` plan items and tags
-    the result with its ``(epoch, ordinal)``, the reader's checkpoint identity."""
+    the result with its ``(epoch, ordinal)``, the reader's checkpoint identity.
 
-    def __init__(self, worker):
+    ``tenant`` (a :class:`~petastorm_tpu_torch.obs.tenant.TenantContext`, pickled into a
+    process pool's children) is activated on the thread around each item, so every IO
+    charge made there lands on it; the item's provenance record is stamped with it and
+    its seconds are charged to the tenant's ``worker_s``. The live knobs
+    (``apply_<knob>``) are forwarded to the worker: a child's control frame reaches them
+    through this wrapper."""
+
+    def __init__(self, worker, tenant=None):
         self._worker = worker
+        self.tenant_context = tenant
 
     def __call__(self, tagged_item):
         epoch, ordinal, item = tagged_item
-        return epoch, ordinal, self._worker(item)
+        ctx = self.tenant_context
+        if ctx is None:
+            return epoch, ordinal, self._worker(item)
+        with _tenant.activate(ctx):
+            # the pool began the item's record before this activation
+            _prov.annotate("tenant", ctx.tenant)
+            t0 = time.perf_counter()
+            try:
+                return epoch, ordinal, self._worker(item)
+            finally:
+                _tenant.charge("worker_s", time.perf_counter() - t0, label=ctx.tenant)
 
     def prefetch(self, tagged_items):
         """Readahead hint: the plan items without their dispatch tags."""
@@ -126,6 +145,27 @@ class _Tagged:
         parent ahead of an item: a loader's adoption of a running reader)."""
         for name, value in settings.items():
             setattr(self._worker, name, value)
+
+    def live_io_knobs(self):
+        return self._worker.live_io_knobs()
+
+    def apply_readahead_depth(self, depth):
+        return self._worker.apply_readahead_depth(depth)
+
+    def apply_readahead_bytes(self, nbytes):
+        return self._worker.apply_readahead_bytes(nbytes)
+
+    def apply_remote_max_inflight(self, max_inflight):
+        return self._worker.apply_remote_max_inflight(max_inflight)
+
+    def apply_hedge_quantile(self, quantile):
+        return self._worker.apply_hedge_quantile(quantile)
+
+    def apply_pagedec(self, mode):
+        return self._worker.apply_pagedec(mode)
+
+    def apply_arena_bytes(self, nbytes):
+        return self._worker.apply_arena_bytes(nbytes)
 
 
 def _spec_wants_writable(spec):
@@ -235,6 +275,9 @@ class _WorkerBase:
         self._readahead_unavailable = False  # this worker's pool failed to build
         self._remote = None  # the ranged-GET engine, built lazily in each process
         self._remote_unavailable = False  # off for this filesystem, or failed to build
+        #: live retunes ({knob: value}): a lazily built readahead pool or GET engine
+        #: starts at them, and pool children spawned later inherit them in the pickle
+        self._knob_overrides = {}
 
     def __getstate__(self):
         # a process-pool child opens its own files and builds its own readahead pool
@@ -342,6 +385,7 @@ class _WorkerBase:
                     from petastorm_tpu_torch.io.readahead import ReadaheadPool
 
                     opts = self._io_options
+                    knobs = self._knob_overrides
                     try:
                         # byte-gap run merging only on an object store; local reads
                         # merge strictly adjacent row groups
@@ -349,8 +393,11 @@ class _WorkerBase:
                             if opts.remote.active_for(self._fs) else None
                         pool = ReadaheadPool(
                             self._read_columns_sync, read_run_fn=self._read_run,
-                            depth=opts.readahead_depth, byte_budget=opts.readahead_bytes,
-                            io_threads=opts.io_threads, coalesce=opts.coalesce,
+                            depth=knobs.get("readahead_depth", opts.readahead_depth),
+                            byte_budget=knobs.get("readahead_bytes",
+                                                  opts.readahead_bytes),
+                            io_threads=knobs.get("io_threads", opts.io_threads),
+                            coalesce=opts.coalesce,
                             coalesce_max_run=opts.coalesce_max_run, gap_ok=gap_ok)
                         if self._io_tracer is not None:
                             pool.set_trace(self._io_tracer)
@@ -399,6 +446,12 @@ class _WorkerBase:
                         return None
                     if self._io_tracer is not None:
                         engine.set_trace(self._io_tracer)
+                    # retunes made before this lazy build: the engine starts at them
+                    knobs = self._knob_overrides
+                    if "remote_max_inflight" in knobs:
+                        engine.apply_max_inflight(knobs["remote_max_inflight"])
+                    if "hedge_quantile" in knobs:
+                        engine.apply_hedge_quantile(knobs["hedge_quantile"])
                     self._remote = engine
         return engine
 
@@ -494,6 +547,104 @@ class _WorkerBase:
         """Re-arm the lazy readahead pool after :meth:`close` (``Reader.reset``)."""
         with _io_init_lock:
             self._io_closed = False
+
+    # -- live knobs -----------------------------------------------------------------------
+    #
+    # The retune seam the controller's KnobSet binds to. Each apply records the override
+    # (a pool or engine built later starts retuned; a pool child spawned later inherits
+    # it through the pickle) and forwards to the live component when there is one. The
+    # IoOptions are never mutated: one options object may be shared across readers.
+
+    #: the per-row worker decodes rows: the pass-through is the batch path's
+    _pagedec_supported = False
+
+    def live_io_knobs(self):
+        """The LIVE IO knob values (the live component, else the override, else the
+        options)."""
+        opts = self._io_options
+        pool = self._readahead
+        engine = self._remote
+        knobs = self._knob_overrides
+        return {
+            "readahead_depth": pool.depth if pool is not None
+            else knobs.get("readahead_depth", opts.readahead_depth),
+            "readahead_bytes": (pool.byte_budget or 0) if pool is not None
+            else knobs.get("readahead_bytes", opts.readahead_bytes),
+            "io_threads": pool.io_threads if pool is not None
+            else knobs.get("io_threads", opts.io_threads),
+            "remote_max_inflight": engine.max_inflight if engine is not None
+            else knobs.get("remote_max_inflight", opts.remote.max_inflight),
+            "hedge_quantile": engine.hedge_quantile if engine is not None
+            else knobs.get("hedge_quantile", opts.remote.hedge_quantile),
+        }
+
+    def apply_readahead_depth(self, depth):
+        """Retune the prefetch window. The IO thread pool grows with it (up to 16): a
+        deeper window on the configured threads would queue, not overlap."""
+        depth = max(1, int(depth))
+        self._knob_overrides["readahead_depth"] = depth
+        io_threads = max(self._io_options.io_threads, min(depth, 16))
+        self._knob_overrides["io_threads"] = io_threads
+        pool = self._readahead
+        if pool is not None:
+            pool.apply_depth(depth)
+            pool.apply_io_threads(io_threads)
+        return depth
+
+    def apply_readahead_bytes(self, nbytes):
+        nbytes = max(0, int(nbytes))
+        self._knob_overrides["readahead_bytes"] = nbytes
+        pool = self._readahead
+        if pool is not None:
+            pool.apply_byte_budget(nbytes)
+        return nbytes
+
+    def apply_remote_max_inflight(self, max_inflight):
+        max_inflight = max(1, int(max_inflight))
+        self._knob_overrides["remote_max_inflight"] = max_inflight
+        engine = self._remote
+        if engine is not None:
+            engine.apply_max_inflight(max_inflight)
+        return max_inflight
+
+    def apply_hedge_quantile(self, quantile):
+        quantile = min(0.999, max(0.5, float(quantile)))
+        self._knob_overrides["hedge_quantile"] = quantile
+        engine = self._remote
+        if engine is not None:
+            engine.apply_hedge_quantile(quantile)
+        return quantile
+
+    def apply_mem_cache_bytes(self, nbytes):
+        """Retune the mem tier's budget; 0 (a no-op) without a mem tier."""
+        mem = getattr(self._cache, "mem", None)
+        if mem is None:
+            return 0
+        return mem.apply_budget(nbytes)
+
+    def apply_arena_bytes(self, nbytes):
+        """Retune the host-wide arena's budget. It lives in the arena's shared control
+        segment, so one retune governs every attached process's admissions; a shrink
+        evicts unheld entries host-wide at once. 0 (a no-op) without an arena."""
+        from petastorm_tpu_torch.io import arena as arena_mod
+
+        arena_obj = arena_mod.process_arena()
+        if arena_obj is None:
+            return 0
+        return arena_obj.set_budget(nbytes)
+
+    def live_pagedec(self):
+        """The LIVE pass-through mode (the override, else the options)."""
+        return self._knob_overrides.get("pagedec", self._io_options.pagedec)
+
+    def apply_pagedec(self, mode):
+        """Retune the pass-through mode; it applies from the worker's next read (a
+        process pool's children get it in a control frame)."""
+        mode = str(mode).strip().lower()
+        if mode not in ("auto", "on", "off"):
+            raise ValueError("pagedec accepts auto/on/off, got %r" % mode)
+        self._knob_overrides["pagedec"] = mode
+        return mode
 
     def io_stats(self):
         """This process's read-path counts: the readahead pool's, the cache funnel's
@@ -796,6 +947,8 @@ class ArrowWorker(_WorkerBase):
     (:func:`~petastorm_tpu_torch.ngram.form_ngram_columns`), into flat ``offset/field``
     columns, one row a window."""
 
+    _pagedec_supported = True
+
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
                  io_options=None, transform_spec=None, ngram=None, **selection):
         super().__init__(filesystem, read_schema, stored_schema, device_fields,
@@ -864,7 +1017,7 @@ class ArrowWorker(_WorkerBase):
         """Is the pass-through live for this worker's reads? ``auto`` engages only for a
         reader a DataLoader on a CUDA device adopted (there is no host to device link to
         save otherwise); ``on`` forces it."""
-        mode = self._io_options.pagedec
+        mode = self.live_pagedec()
         if mode == "off":
             return False
         return mode == "on" or self.pagedec_on_device
@@ -1249,6 +1402,13 @@ class Reader:
     skipped: it is listed in :attr:`quarantine_report`, counted
     (``ptpu_quarantined_{items,rows}_total``) and charged to the consumed-work map like
     a delivery, so :meth:`state_dict` resumes without it and without losing anything.
+
+    ``tenant`` (a slug or a :class:`~petastorm_tpu_torch.obs.tenant.TenantContext`; the
+    ``PTPU_TENANT`` environment otherwise) bills the reader's work: delivered and
+    quarantined rows here, worker seconds and IO in the pool (:mod:`~petastorm_tpu_torch
+    .obs.tenant`). The live knobs (:meth:`resize_workers`, :meth:`apply_readahead_depth`
+    and the other ``apply_*``) retune a running reader; ``reset()`` rebuilds the pool at
+    the configured size.
     """
 
     def __init__(self, schema, worker, pieces, num_epochs=1, shuffle_row_groups=True,
@@ -1258,7 +1418,10 @@ class Reader:
                  is_batched_reader=False, results_timeout_s=300.0,
                  wire_serializer="pickle", worker_respawns=None, io_options=None,
                  transport=None, ngram=None, recovery=None, filesystem=None,
-                 provenance=None):
+                 provenance=None, tenant=None):
+        #: the resolved TenantContext, or None (untagged): an explicit argument, else the
+        #: PTPU_TENANT environment; an invalid explicit slug raises
+        self.tenant_context = _tenant.resolve(tenant)
         self.schema = schema
         self._worker = worker
         self.is_batched_reader = is_batched_reader
@@ -1279,6 +1442,7 @@ class Reader:
                                seed=seed if seed is not None else shard_seed,
                                with_epoch=True)
         self._num_items = len(items)
+        self._io_options = IoOptions.normalize(io_options)
         self._pool_args = dict(
             reader_pool_type=reader_pool_type, workers_count=workers_count,
             results_queue_size=results_queue_size, results_timeout_s=results_timeout_s,
@@ -1339,7 +1503,8 @@ class Reader:
             # built, and arming again raises if another recorder took the slot meanwhile
             self._prov.arm()
             self._executor_set_provenance(self._prov)
-        self._executor.start(_Tagged(self._worker), self._plan)
+        self._executor.start(_Tagged(self._worker, tenant=self.tenant_context),
+                             self._plan)
         self._results_iter = self._executor.results()
         self.stopped = False
 
@@ -1404,6 +1569,9 @@ class Reader:
             epoch, ordinal, path, row_group, num_rows, marker.error, marker.attempts,
             marker.kind))
         count_quarantined(num_rows)
+        if self.tenant_context is not None:
+            _tenant.charge("quarantined", max(0, num_rows or 0),
+                           label=self.tenant_context.tenant)
         degradation(
             "quarantined", "poison item quarantined after %d attempt(s): %s row group %s "
             "(epoch=%s ordinal=%s, %s); skipped and charged to the checkpoint "
@@ -1451,6 +1619,9 @@ class Reader:
                 continue
             if self._prov is not None:
                 self._prov.note_delivery(epoch, ordinal, len(payload))
+            if self.tenant_context is not None:
+                # charged at delivery: the tenant's rows are the rows it received
+                _tenant.charge("rows", len(payload), label=self.tenant_context.tenant)
             self._buffer = payload
             self._buffer_pos = 0
             self._buffer_tag = (epoch, ordinal)
@@ -1481,6 +1652,9 @@ class Reader:
                 continue
             if self._prov is not None:
                 self._prov.note_delivery(epoch, ordinal, len(next(iter(columns.values()))))
+            if self.tenant_context is not None:
+                _tenant.charge("rows", len(next(iter(columns.values()))),
+                               label=self.tenant_context.tenant)
             if not self.keep_passthrough:
                 # no loader adopted the pass-through: the host twin is the designed
                 # decode for loader-less readers
@@ -1601,6 +1775,65 @@ class Reader:
     def wire_views(self):
         """True when batches are read-only views into pool slabs (a view wire)."""
         return bool(getattr(self._executor, "wire_views", False))
+
+    # -- live knobs ---------------------------------------------------------------------
+
+    def resize_workers(self, workers_count):
+        """Grow or shrink the worker fleet live (thread and process pools; None on the
+        dummy pool, which has none). A grow spawns; a shrink drains between items (never
+        mid-item) and hands the retiring workers' claims back to the dispatcher, so the
+        delivered rows and the checkpoint watermark are those of an un-resized run.
+        Returns the applied target."""
+        fn = getattr(self._executor, "resize", None)
+        if fn is None:
+            return None
+        return fn(workers_count)
+
+    def live_workers(self):
+        """Workers running now (ones draining toward a shrink included), or None for a
+        pool without a fleet."""
+        return getattr(self._executor, "alive_workers", None)
+
+    def apply_readahead_depth(self, depth):
+        """Retune the readahead window: the worker's pool depth (and IO threads) and the
+        dispatcher's claim lookahead (the claim is the prefetch hint window: a deeper
+        pool without it would see no more hints)."""
+        applied = self._worker.apply_readahead_depth(depth)
+        set_lookahead = getattr(self._executor, "set_lookahead", None)
+        if set_lookahead is not None and self._io_options.readahead:
+            set_lookahead(applied)
+        self._broadcast_child_knobs({"readahead_depth": applied})
+        return applied
+
+    def apply_readahead_bytes(self, nbytes):
+        applied = self._worker.apply_readahead_bytes(nbytes)
+        self._broadcast_child_knobs({"readahead_bytes": applied})
+        return applied
+
+    def apply_remote_max_inflight(self, max_inflight):
+        applied = self._worker.apply_remote_max_inflight(max_inflight)
+        self._broadcast_child_knobs({"remote_max_inflight": applied})
+        return applied
+
+    def apply_hedge_quantile(self, quantile):
+        applied = self._worker.apply_hedge_quantile(quantile)
+        self._broadcast_child_knobs({"hedge_quantile": applied})
+        return applied
+
+    def apply_pagedec(self, mode):
+        """Retune the pass-through mode (the controller's lever back to the host
+        inflate); it lands on the worker's next read."""
+        applied = self._worker.apply_pagedec(mode)
+        self._broadcast_child_knobs({"pagedec": applied})
+        return applied
+
+    def _broadcast_child_knobs(self, knobs):
+        """A process pool's children own their IO runtimes, which the parent-side
+        setters above cannot reach: the applied values also ride a control frame to
+        every running child. Thread and dummy pools share the worker and need none."""
+        fn = getattr(self._executor, "broadcast_io_knobs", None)
+        if fn is not None:
+            fn(dict(knobs))
 
     def reset(self):
         """Restart epochs on an existing reader (reference ``Reader.reset`` ~L700). Every
@@ -1732,14 +1965,16 @@ def _host_arena_early(io_opts):
         arena_mod.host_arena(io_opts.arena_bytes)
 
 
-def _build_read_funnel(cache, io_opts, num_epochs=None):
+def _build_read_funnel(cache, io_opts, num_epochs=None, tenant=None):
     """The reader's cache funnel: ``MemCache → cache → the store`` as one
     :class:`~petastorm_tpu_torch.io.tiers.TieredCache`, with per-tier counts and the
     ``remote.disk_admit`` policy. The mem tier exists when ``io_options.memcache_bytes``
     (or ``PTPU_MEMCACHE_BYTES``) asks for one; ``num_epochs == 1`` is the scan hint the
     ``scan-resistant`` policy reads. With neither a mem nor a disk tier the funnel has
     nothing to serve and is left out: ``cache`` (a ``NullCache``) itself, so an uncached
-    read sizes no payload (the JAX package counts it as a store serve).
+    read sizes no payload (the JAX package counts it as a store serve), unless the reader
+    is tagged: ``tenant`` (a slug) keeps the funnel, which charges each serve's bytes to
+    the tenant's ``read_bytes``.
 
     ``io_options.arena_bytes`` creates (or joins) this process's host-wide cache arena
     and hands it to the mem tier, so every pool child maps ONE warm set of decoded row
@@ -1759,12 +1994,12 @@ def _build_read_funnel(cache, io_opts, num_epochs=None):
 
         mem = MemCache(mem_budget, writable_hits=io_opts.memcache_writable_hits,
                        arena=arena_obj)
-    if mem is None and isinstance(cache, NullCache):
+    if mem is None and isinstance(cache, NullCache) and tenant is None:
         return cache
     from petastorm_tpu_torch.io.tiers import TieredCache
 
     return TieredCache(mem=mem, disk=cache, disk_admit=io_opts.remote.disk_admit,
-                       single_epoch=num_epochs == 1)
+                       single_epoch=num_epochs == 1, tenant=tenant)
 
 
 def _maybe_compile_pipeline(spec, schema, fs, pieces, cache=None):
@@ -1904,8 +2139,15 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     filesystem whose ``type_name`` is not local, ``CloudLatencyFS`` included) reads go
     through the ranged-GET engine (``io_options["remote"]``: parallel hedged GETs, footer
     GETs against the file's tail).
+
+    ``tenant``: per-tenant accounting (:mod:`petastorm_tpu_torch.obs.tenant`), a bounded
+    slug or a ``TenantContext`` (default: the ``PTPU_TENANT`` environment). Every
+    ``ptpu_tenant_*`` family this reader's work touches is charged under its label:
+    delivered and quarantined rows, worker seconds, bytes served, arena residency,
+    hedged GETs.
     """
-    reject_unported("make_reader", watch=watch, tenant=tenant)
+    reject_unported("make_reader", watch=watch)
+    tenant_ctx = _tenant.resolve(tenant)
     recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
                                        io_retry_backoff_s=io_retry_backoff_s,
                                        worker_respawns=worker_respawns)
@@ -1922,7 +2164,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
     cache = _build_read_funnel(
         make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
-                   cache_extra_settings), io_options, num_epochs)
+                   cache_extra_settings), io_options, num_epochs,
+        tenant=tenant_ctx.tenant if tenant_ctx is not None else None)
     transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces,
                                              cache)
     final_schema = read_schema
@@ -1946,7 +2189,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
                wire_serializer=wire_serializer or "pickle",
                worker_respawns=recovery.worker_respawns, io_options=io_options,
                transport=transport, ngram=ngram, recovery=recovery, filesystem=fs,
-               provenance=_prov.resolve(provenance))
+               provenance=_prov.resolve(provenance), tenant=tenant_ctx)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r
@@ -1994,8 +2237,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     column}`` dicts, one row a window (one argsort and one gather an (offset, field));
     it reads classically (no pass-through) and refuses a ``predicate`` and
     ``decode_on_device``, as :func:`make_reader` does.
+
+    ``tenant``: see :func:`make_reader`.
     """
-    reject_unported("make_batch_reader", watch=watch, tenant=tenant)
+    reject_unported("make_batch_reader", watch=watch)
+    tenant_ctx = _tenant.resolve(tenant)
     recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
                                        io_retry_backoff_s=io_retry_backoff_s,
                                        worker_respawns=worker_respawns)
@@ -2015,7 +2261,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
     cache = _build_read_funnel(
         make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
-                   cache_extra_settings), io_options, num_epochs)
+                   cache_extra_settings), io_options, num_epochs,
+        tenant=tenant_ctx.tenant if tenant_ctx is not None else None)
     transform_spec = _maybe_compile_pipeline(transform_spec, read_schema, fs, stats_pieces,
                                              cache)
     final_schema = read_schema
@@ -2042,7 +2289,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                    wire_serializer, wire_serializer) or "arrow",
                worker_respawns=recovery.worker_respawns, io_options=io_options,
                transport=transport, ngram=ngram, recovery=recovery, filesystem=fs,
-               provenance=_prov.resolve(provenance))
+               provenance=_prov.resolve(provenance), tenant=tenant_ctx)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r

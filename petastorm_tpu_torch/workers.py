@@ -37,9 +37,16 @@ the monitor's flight ring, and the process pool adds a heartbeat a child (stampe
 the child's pings), a stack provider (SIGUSR1 to its own live children, whose
 faulthandler writes their stacks to a file the parent reads) and the healer of the
 ``heal`` escalation, which kills a hung child only when the respawn budget or the poison
-policy can absorb its item. Not ported (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the tcp transport (item 4(c)); control frames and the live fleet resize
-(item 8c).
+policy can absorb its item.
+
+The thread and process pools resize live (``resize``): a grow starts workers (children)
+against the running dispatcher; a shrink drains, a retiring worker finishing its item and
+handing its unprocessed claim back to the dispatcher, so the delivered rows are those of
+an un-resized run. The process pool carries a reader's live knob retunes to its running
+children in a control frame (``broadcast_io_knobs``, acknowledged in ``ctl_acks``), and
+stamps the reader's tenant (:mod:`petastorm_tpu_torch.obs.tenant`) into every child's
+environment. Not ported (it raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item
+4(c)): the tcp transport.
 
 Contract: ``executor.start(worker, plan)`` then iterate ``executor.results()``; exceptions
 in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference pool API.
@@ -56,6 +63,7 @@ from collections import deque
 from petastorm_tpu_torch import chaos as _chaos
 from petastorm_tpu_torch.errors import TimeoutWaitingForResultError, WorkerDiedError
 from petastorm_tpu_torch.obs import provenance as _prov
+from petastorm_tpu_torch.obs import tenant as _tenant
 from petastorm_tpu_torch.obs.health import ActorSlots
 from petastorm_tpu_torch.recovery import QuarantinedItem, RecoveryOptions
 
@@ -78,6 +86,12 @@ class PullDispatcher:
     completion order can differ (it always could: workers finish out of order), which
     the Reader's consumed-work map handles. A stolen item keeps its ``(epoch, ordinal)``
     tag, so ``Reader.state_dict()`` stays exact.
+
+    The live fleet resize: :meth:`ensure_workers` grows the claim table,
+    :meth:`withdraw` hands a retiring worker's claim back (refilled into claims before
+    the plan iterator: it was claimed earlier in plan order than anything left there),
+    :meth:`has_work` is the pools' last-worker exit gate, and :meth:`set_lookahead`
+    retunes the claim window with the readahead depth.
     """
 
     def __init__(self, plan, workers_count, lookahead=0, stealing=True, recorder=None):
@@ -87,6 +101,8 @@ class PullDispatcher:
         self._exhausted = False
         self._lookahead = max(0, int(lookahead))
         self._stealing = bool(stealing)
+        #: items handed back (a retiring worker's claim): claims refill from here first
+        self._returned = deque()
         #: a FlightRecorder the steals are recorded in (None: no recording)
         self._recorder = recorder
         self.steals = 0
@@ -117,9 +133,54 @@ class PullDispatcher:
             item = claim.popleft()  # the fill above keeps the hint window full
             return item, tuple(claim)
 
+    def set_lookahead(self, lookahead):
+        """Retune the claim window live: the claim is the readahead hint window, so a
+        deeper prefetch pool needs a wider claim to see more upcoming items."""
+        with self._lock:
+            self._lookahead = max(0, int(lookahead))
+
+    def ensure_workers(self, workers_count):
+        """Grow the claim table to at least ``workers_count`` slots (a live grow). Never
+        shrinks: a retired worker's slot stays, empty, so indices keep their claims."""
+        with self._lock:
+            while len(self._claims) < workers_count:
+                self._claims.append(deque())
+
+    def withdraw(self, worker_idx):
+        """Hand ``worker_idx``'s unprocessed claim back (a live shrink): its items refill
+        other claims before the plan iterator, so a drained worker loses no work and
+        duplicates none. Returns the number of items handed back."""
+        with self._lock:
+            claim = self._claims[worker_idx]
+            n = len(claim)
+            self._returned.extend(claim)
+            claim.clear()
+        return n
+
+    def return_items(self, items):
+        """Hand specific dispatched items back (items that already left their claim),
+        ahead of the plan iterator, with :meth:`withdraw`'s no-loss, no-duplicate
+        discipline."""
+        with self._lock:
+            self._returned.extend(items)
+        return len(items)
+
+    def has_work(self):
+        """Is anything left to dispatch: handed-back items, claimed items or an
+        unexhausted plan? The pools' last-worker exit gate: a retiring worker may hand
+        its claim back after its peers saw an empty dispatcher and exited, and ending
+        the stream over those items would drop rows."""
+        with self._lock:
+            return bool(self._returned) or not self._exhausted or any(self._claims)
+
     def _fill(self, claim, target):
         # the caller holds self._lock
-        while len(claim) < target and not self._exhausted:
+        while len(claim) < target:
+            if self._returned:
+                claim.append(self._returned.popleft())
+                continue
+            if self._exhausted:
+                break
             try:
                 claim.append(next(self._iter))
             except StopIteration:
@@ -230,6 +291,10 @@ class SyncExecutor:
         """Attach a health monitor (None detaches)."""
         _attach_health(self, monitor)
 
+    def set_lookahead(self, lookahead):
+        """Retune how many upcoming items each item's prefetch hint names."""
+        self._lookahead = max(0, int(lookahead))
+
     def start(self, worker, plan):
         self._worker = worker
         self._plan = plan
@@ -260,7 +325,7 @@ class ThreadExecutor:
     """N threads pulling work items from the shared plan through a
     :class:`PullDispatcher` (bounded claims, work stealing); each hands the rest of its
     claim to the worker's ``prefetch`` before working an item. Bounded results queue =
-    backpressure."""
+    backpressure. :meth:`resize` grows or drains the fleet live."""
 
     def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
                  lookahead=0, work_stealing=True, recovery=None):
@@ -278,6 +343,12 @@ class ThreadExecutor:
         self._stop_event = threading.Event()
         self._active = 0
         self._active_lock = threading.Lock()
+        #: the live resize's state, under _active_lock: the fleet's target size, the
+        #: retirements not yet claimed by a worker, the next worker index
+        self._target = workers_count
+        self._retire = 0
+        self._next_idx = workers_count
+        self._worker_obj = None
         #: the health monitor or scope (set_health; None: off, one check a pass)
         self._health = None
         #: the worker threads' heartbeats and the start of each one's item in flight
@@ -296,22 +367,125 @@ class ThreadExecutor:
         self._results = queue.Queue(maxsize=self._queue_size)
         self._stop_event.clear()
         self.truncated = False
-        self._active = self._workers_count
+        self._worker_obj = worker
         monitor = self._health
         self._dispatch = PullDispatcher(
             plan, self._workers_count, lookahead=self._lookahead, stealing=self._stealing,
             recorder=monitor.flight if monitor is not None else None)
+        with self._active_lock:
+            self._active = self._workers_count
+            self._target = self._workers_count
+            self._retire = 0
+            self._next_idx = self._workers_count
         for i in range(self._workers_count):
-            t = threading.Thread(target=self._run_worker, args=(worker, self._dispatch, i),
-                                 daemon=True, name="ptpu-torch-worker-%d" % i)
-            t.start()
-            self._threads.append(t)
+            self._start_thread(worker, self._dispatch, i)
+
+    def _start_thread(self, worker, dispatch, idx):
+        t = threading.Thread(target=self._run_worker, args=(worker, dispatch, idx),
+                             daemon=True, name="ptpu-torch-worker-%d" % idx)
+        t.start()
+        self._threads.append(t)
+
+    # -- the live resize ------------------------------------------------------------------
+
+    def _should_retire(self):
+        """Claim one pending retirement: workers check between items only, so a shrink
+        drains and never interrupts an item."""
+        with self._active_lock:
+            if self._retire > 0:
+                self._retire -= 1
+                return True
+            return False
+
+    def set_lookahead(self, lookahead):
+        """Retune the dispatcher's claim window (with the readahead depth)."""
+        self._lookahead = max(0, int(lookahead))
+        dispatch = self._dispatch
+        if dispatch is not None:
+            dispatch.set_lookahead(self._lookahead)
+
+    @property
+    def alive_workers(self):
+        """Workers running now (retiring ones count until they drain out)."""
+        return self._active
+
+    @property
+    def target_workers(self):
+        return self._target
+
+    def resize(self, workers_count):
+        """Grow or shrink the fleet live. A grow starts worker threads against the
+        running dispatcher (cancelling pending retirements first); a shrink queues
+        retirements that workers take between items, handing their claims back to the
+        dispatcher, so the delivered rows and the checkpoint watermark are those of an
+        un-resized run. A no-op once the stream has finished. Returns the applied
+        target."""
+        n = max(1, int(workers_count))
+        dispatch = self._dispatch
+        to_start = []
+        with self._active_lock:
+            if dispatch is None or self._active == 0:
+                return self._target  # not started, or drained
+            if n > self._target:
+                grow = n - self._target
+                cancelled = min(grow, self._retire)
+                self._retire -= cancelled
+                for _ in range(grow - cancelled):
+                    to_start.append(self._next_idx)
+                    self._next_idx += 1
+                self._active += len(to_start)
+            elif n < self._target:
+                self._retire += self._target - n
+            self._target = n
+            next_idx = self._next_idx
+        if to_start:
+            dispatch.ensure_workers(next_idx)
+            for idx in to_start:
+                self._start_thread(self._worker_obj, dispatch, idx)
+        return n
+
+    def _retire_worker(self, worker, dispatch, fatal):
+        """One worker's exit: count it out, and post the end of the stream when it was
+        the last, unless the dispatcher still holds work. That is one rare race: a
+        retiring worker hands its claim back after its peers saw an empty dispatcher and
+        exited. The last worker out is the one that sees it, and it starts a rescue
+        worker instead of ending the stream over undelivered rows."""
+        rescue_idx = None
+        with self._active_lock:
+            self._active -= 1
+            if self._active == 0 and not fatal and not self._stop_event.is_set() \
+                    and dispatch.has_work():
+                self._active += 1  # the rescue worker's slot, reserved now
+                rescue_idx = self._next_idx
+                self._next_idx += 1
+            last = self._active == 0
+        if rescue_idx is not None:
+            try:
+                dispatch.ensure_workers(rescue_idx + 1)
+                self._start_thread(worker, dispatch, rescue_idx)
+                return
+            except Exception as e:  # noqa: BLE001 — degrade to the stream's end
+                from petastorm_tpu_torch.obs.log import degradation
+
+                degradation("ctl_rescue_failed", "the rescue worker for handed-back "
+                            "items could not start (%s); those items are lost for this "
+                            "pass", e, once=False)
+                with self._active_lock:
+                    self._active -= 1
+                    last = self._active == 0
+        if last:
+            self._put(_DONE)  # outside the lock: a full queue blocks the put
 
     def _run_worker(self, worker, dispatch, idx):
         prefetch = getattr(worker, "prefetch", None)
         slots = self._slots
+        fatal = False  # a fatal exit never starts a rescue worker
         try:
             while not self._stop_event.is_set():
+                if self._should_retire():
+                    # a live shrink: the unprocessed claim goes back, this worker exits
+                    dispatch.withdraw(idx)
+                    break
                 # resolved each pass: a monitor attached after start() (the loader
                 # attaches to a running reader) instruments the rest of the stream
                 hb = slots.heartbeat(idx)
@@ -331,6 +505,7 @@ class ThreadExecutor:
                 except Exception as e:  # noqa: BLE001 — delivered to the consumer
                     slots.end(idx, "results_put")
                     self._put(_ExcResult(e))
+                    fatal = True
                     break
                 slots.end(idx, "results_put")  # a full results queue is backpressure
                 if monitor is not None:
@@ -339,11 +514,7 @@ class ThreadExecutor:
                 self._put(result)
         finally:
             slots.retire(idx)
-            with self._active_lock:
-                self._active -= 1
-                last = self._active == 0
-            if last:
-                self._put(_DONE)
+            self._retire_worker(worker, dispatch, fatal)
 
     def _put(self, value):
         # yields to a SET stop event: the consumer who set it never reads again
@@ -459,6 +630,16 @@ class ProcessExecutor:
     its heartbeat ages: the stall signal. Under ``escalation="heal"`` the pool's healer
     kills such a child when the kill can be absorbed, and the child-death path above
     respawns it and dispatches its item again or quarantines it.
+
+    :meth:`resize` grows the fleet (fresh children through the same handshake) or drains
+    it (a retiring feeder finishes its item, hands its claim back and shuts its child
+    down). :meth:`broadcast_io_knobs` sends a ``("ctl", {knob: value})`` frame ahead of
+    each running child's next item; the child applies it through the worker's
+    ``apply_<knob>`` and answers ``("ctl_ack", {knob: applied})``, collected in
+    :meth:`ctl_acks`. Children spawned later inherit the retune in the worker's pickle,
+    and a replacement for a dead child gets the frame again. The worker's
+    ``tenant_context`` goes into every child's environment (``PTPU_TENANT``), and each
+    result's worker seconds are charged to that tenant here, in the parent.
     """
 
     def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
@@ -517,6 +698,19 @@ class ProcessExecutor:
         self._t_start = None
         #: the health monitor or scope (set_health; None: off)
         self._health = None
+        #: the live resize's state, under _active_lock (ThreadExecutor's)
+        self._target = workers_count
+        self._retire = 0
+        self._next_idx = workers_count
+        #: the live knob frames, under _ctl_lock: the knobs owed to running children,
+        #: their version, the version each feeder last sent and each child's acks
+        self._ctl_lock = threading.Lock()
+        self._ctl_pending = {}
+        self._ctl_version = 0
+        self._ctl_seen = {}
+        self._ctl_acks = {}
+        #: the tenant the children bill (from the worker's tenant_context), or None
+        self._tenant_label = None
         #: feeder index -> its live child's Popen (under the respawn lock): the healer's
         #: kill target
         self._child_by_idx = {}
@@ -575,6 +769,12 @@ class ProcessExecutor:
             self._child_env[arena_mod.ENV_ATTACH] = arena_token
         else:
             self._child_env.pop(arena_mod.ENV_ATTACH, None)
+        # the tenant: children adopt it at bootstrap (attach_from_env), replacements and
+        # grown children too (every spawn reuses this environment)
+        tenant_ctx = getattr(worker, "tenant_context", None) or _tenant.current()
+        if tenant_ctx is not None:
+            self._child_env.update(tenant_ctx.env())
+        self._tenant_label = tenant_ctx.tenant if tenant_ctx is not None else None
         try:
             self._start_children()
         except BaseException:
@@ -584,18 +784,23 @@ class ProcessExecutor:
             self._pool_stats["spawn_s"] = time.perf_counter() - self._t_start
         with self._active_lock:
             self._active = len(self._conns)
+            self._target = len(self._conns)
+            self._retire = 0
+            self._next_idx = len(self._conns)
         monitor = self._health
         self._dispatch = PullDispatcher(
             plan, len(self._conns), lookahead=self._lookahead, stealing=self._stealing,
             recorder=monitor.flight if monitor is not None else None)
         with self._stats_lock:
             self._child_io = {}
-        for i, conn in enumerate(self._conns):
-            t = threading.Thread(target=self._feed_child,
-                                 args=(conn, i, self._dispatch),
-                                 daemon=True, name="ptpu-torch-feed-%d" % i)
-            t.start()
-            self._threads.append(t)
+        for i, conn in enumerate(list(self._conns)):
+            self._start_feeder(conn, i, self._dispatch)
+
+    def _start_feeder(self, conn, idx, dispatch):
+        t = threading.Thread(target=self._feed_child, args=(conn, idx, dispatch),
+                             daemon=True, name="ptpu-torch-feed-%d" % idx)
+        t.start()
+        self._threads.append(t)
 
     def _setup_shm(self):
         """Make the slab ring for a serializer of the ``shm`` family; where shared memory
@@ -815,6 +1020,150 @@ class ProcessExecutor:
                     once=False)
         return conn
 
+    # -- the live resize -------------------------------------------------------------------
+
+    def _should_retire(self):
+        """Claim one pending retirement: feeders check between items only, so a shrink
+        drains and never interrupts an item."""
+        with self._active_lock:
+            if self._retire > 0:
+                self._retire -= 1
+                return True
+            return False
+
+    def set_lookahead(self, lookahead):
+        """Retune the dispatcher's claim window: the hints sent with each item (a
+        child's own readahead pool follows its control frame)."""
+        self._lookahead = max(0, int(lookahead))
+        dispatch = self._dispatch
+        if dispatch is not None:
+            dispatch.set_lookahead(self._lookahead)
+
+    @property
+    def alive_workers(self):
+        """Feeders (children) running now (retiring ones count until they drain out)."""
+        return self._active
+
+    @property
+    def target_workers(self):
+        return self._target
+
+    def resize(self, workers_count):
+        """Grow or shrink the child fleet live. A grow spawns clean children through
+        the pool's handshake (on the calling thread); a shrink queues retirements: a
+        retiring feeder finishes its item, hands its claim back to the dispatcher, sends
+        its child the orderly shutdown and exits. Never kills mid-item; the delivered and
+        quarantined items are those of an un-resized run. Returns the applied target (a
+        failed spawn leaves the fleet smaller, with a ``ctl_spawn_failed``
+        degradation)."""
+        n = max(1, int(workers_count))
+        dispatch = self._dispatch
+        grow_idxs = []
+        with self._active_lock:
+            if dispatch is None or self._active == 0:
+                return self._target
+            if n > self._target:
+                grow = n - self._target
+                cancelled = min(grow, self._retire)
+                self._retire -= cancelled
+                for _ in range(grow - cancelled):
+                    grow_idxs.append(self._next_idx)
+                    self._next_idx += 1
+                # reserved before the slow spawns: a feeder exiting meanwhile must not
+                # see the fleet at zero and end the stream
+                self._active += len(grow_idxs)
+            elif n < self._target:
+                self._retire += self._target - n
+            self._target = n
+            next_idx = self._next_idx
+        if not grow_idxs:
+            return n
+        dispatch.ensure_workers(next_idx)
+        for idx in grow_idxs:
+            try:
+                conn = self._spawn_one(idx)
+            except Exception as e:  # noqa: BLE001 — degrade, never fail the pool
+                from petastorm_tpu_torch.obs.log import degradation
+
+                degradation("ctl_spawn_failed", "a live fleet grow could not spawn a "
+                            "pool child (%s); running one worker below the target", e,
+                            once=False)
+                with self._active_lock:
+                    self._target -= 1
+                    self._active -= 1
+                    last = self._active == 0
+                if last:
+                    self._put(_DONE)  # the reservation was the last holdout
+                continue
+            self._start_feeder(conn, idx, dispatch)
+        with self._active_lock:
+            return self._target
+
+    def _retire_driver(self, dispatch, fatal):
+        """A feeder's exit, with ThreadExecutor._retire_worker's rescue: the last feeder
+        out that finds handed-back items in the dispatcher spawns a rescue child instead
+        of ending the stream."""
+        rescue_idx = None
+        with self._active_lock:
+            self._active -= 1
+            if self._active == 0 and not fatal and not self._stop_event.is_set() \
+                    and dispatch.has_work():
+                self._active += 1
+                rescue_idx = self._next_idx
+                self._next_idx += 1
+            last = self._active == 0
+        if rescue_idx is not None:
+            try:
+                conn = self._spawn_one(rescue_idx)
+                dispatch.ensure_workers(rescue_idx + 1)
+                self._start_feeder(conn, rescue_idx, dispatch)
+                return
+            except Exception as e:  # noqa: BLE001 — degrade to the stream's end
+                from petastorm_tpu_torch.obs.log import degradation
+
+                degradation("ctl_rescue_failed", "the rescue child for handed-back items "
+                            "could not start (%s); those items are lost for this pass",
+                            e, once=False)
+                with self._active_lock:
+                    self._active -= 1
+                    last = self._active == 0
+        if last:
+            self._put(_DONE)  # outside the lock
+
+    # -- the live knob frames -----------------------------------------------------------
+
+    def broadcast_io_knobs(self, knobs):
+        """Queue a ``{knob: value}`` retune for every running child: each feeder sends
+        one ``("ctl", knobs)`` frame before its next item, the child applies it through
+        its worker's ``apply_<knob>()`` and acks. Children spawned later inherit the
+        retune through the worker's pickle."""
+        if not knobs:
+            return
+        with self._ctl_lock:
+            self._ctl_pending.update(knobs)
+            self._ctl_version += 1
+
+    def _pending_ctl(self, idx):
+        """The control frame feeder ``idx`` still owes its child, or None."""
+        with self._ctl_lock:
+            if not self._ctl_pending or self._ctl_seen.get(idx, 0) == self._ctl_version:
+                return None
+            self._ctl_seen[idx] = self._ctl_version
+            return dict(self._ctl_pending)
+
+    def _rearm_ctl(self, idx):
+        """A replacement child: the dead child's acks go, and the pending frame is sent
+        again (applies are idempotent)."""
+        with self._ctl_lock:
+            self._ctl_acks.pop(idx, None)
+            self._ctl_seen[idx] = 0
+
+    def ctl_acks(self):
+        """``{feeder index: {knob: applied value}}`` of the children that confirmed a
+        live retune."""
+        with self._ctl_lock:
+            return {idx: dict(acks) for idx, acks in self._ctl_acks.items()}
+
     # -- the feeders -------------------------------------------------------------------
 
     def update_settings(self, **settings):
@@ -848,6 +1197,11 @@ class ProcessExecutor:
                 if child_hb is not None:
                     child_hb.beat("working")
                 continue
+            if isinstance(msg, tuple) and len(msg) == 2 and msg[0] == "ctl_ack":
+                if idx is not None:
+                    with self._ctl_lock:
+                        self._ctl_acks.setdefault(idx, {}).update(msg[1] or {})
+                continue
             return msg
 
     def _feed_child(self, conn, idx, dispatch):
@@ -864,6 +1218,13 @@ class ProcessExecutor:
         feeder_slots, child_slots = self._feeder_slots, self._child_slots
         try:
             while not fatal and not self._stop_event.is_set():
+                if self._should_retire():
+                    # a live shrink: the claim goes back, the child gets its shutdown
+                    # below and is reaped at join()
+                    dispatch.withdraw(idx)
+                    with self._respawn_lock:
+                        self._child_by_idx.pop(idx, None)
+                    break
                 # this feeder's heartbeat, always in a wait state; resolved at each use,
                 # as the monitor can be attached mid-stream
                 hb = feeder_slots.heartbeat(idx)
@@ -904,6 +1265,11 @@ class ProcessExecutor:
                         if _chaos.ACTIVE is not None:
                             _chaos.ACTIVE.hit("pool.dispatch", key=_chaos.item_key(item))
                         settings, seen = self._pending_settings(seen)
+                        ctl = self._pending_ctl(idx)
+                        if ctl is not None:
+                            # a live knob retune rides ahead of the item; the child
+                            # applies it and acks (drained by _recv_result)
+                            conn.send(("ctl", ctl))
                         child_slots.begin(idx)
                         t_send = time.perf_counter() if prov is not None else 0.0
                         conn.send((slab, item, hints, settings) if ring is not None
@@ -934,6 +1300,11 @@ class ProcessExecutor:
                         if io:
                             with self._stats_lock:
                                 self._child_io[idx] = io
+                        if self._tenant_label is not None:
+                            # the child's registry is its own: its worker seconds are
+                            # charged here, where the parent's metrics are read
+                            _tenant.charge("worker_s", timing[0],
+                                           label=self._tenant_label)
                         tracer = self._tracer
                         if tracer is not None and spans is not None:
                             # (pid, wall anchor, perf anchor, spans, provenance blob):
@@ -1012,6 +1383,7 @@ class ProcessExecutor:
                             pass
                         conn = replacement
                         seen = 0  # the fresh child gets the current settings again
+                        self._rearm_ctl(idx)  # and the pending knob frame
                         first = True
                         if poison:
                             break  # quarantined: the fresh child takes the next item
@@ -1030,11 +1402,7 @@ class ProcessExecutor:
         finally:
             feeder_slots.retire(idx)
             child_slots.retire(idx)
-            with self._active_lock:
-                self._active -= 1
-                last = self._active == 0
-            if last:
-                self._put(_DONE)  # outside the lock
+            self._retire_driver(dispatch, fatal)
 
     def _failed_attempt(self, item, error, attempts, kind="exception"):
         """The poison policy on a failed attempt of ``item`` whose child lives on:

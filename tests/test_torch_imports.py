@@ -123,7 +123,7 @@ def _assert_health_and_slos_are_taken(kwargs):
 
 # pad_shapes is ported, and so are trace and metrics (item 8a), health and slos (item
 # 8b(i)) and provenance (item 8b(ii)): their cases check that they are taken; the
-# controller (item 8c) and the tenant (item 8c) are still refused
+# controller and tenant (item 8c(i)) are taken too; sharding is still refused
 @pytest.mark.parametrize("kwargs", [
     {"sharding": object()}, {"controller": object()}, {"slos": object()},
     {"tenant": "team-a"}, {"health": True}, {"provenance": True},
@@ -137,8 +137,34 @@ def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
     if "provenance" in kwargs:
         _assert_provenance_is_taken()
         return
+    if "controller" in kwargs or "tenant" in kwargs:
+        _assert_controller_and_tenant_are_taken(kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         DataLoader(object(), 4, device="cpu", **kwargs)
+
+
+def _assert_controller_and_tenant_are_taken(kwargs):
+    """``controller=`` and ``tenant=`` are ported (item 8c(i)): a controller without
+    ``metrics=`` is the JAX package's ``ValueError``; with it the loader builds one over
+    the reader's knobs and detaches it at exit. A tenant is resolved and kept."""
+    from types import SimpleNamespace
+
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+
+    reader = SimpleNamespace(stop=lambda: None, join=lambda: None)
+    if "tenant" in kwargs:
+        with DataLoader(reader, 4, device="cpu", **kwargs) as loader:
+            assert loader.tenant_context.tenant == kwargs["tenant"]
+        return
+    with pytest.raises(ValueError, match="requires metrics="):
+        DataLoader(reader, 4, device="cpu", **kwargs)
+    with DataLoader(reader, 4, device="cpu", metrics=MetricsRegistry(), **kwargs) as loader:
+        ctl = loader.controller
+        assert ctl is not None and ctl._store is not None
+        assert loader.ctl_decisions() == []
+    assert ctl._store is None  # the loader built it, and detached it at exit
 
 
 def _assert_provenance_is_taken():
@@ -335,7 +361,7 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
         assert rec.io_retries == {"io_retries": 2, "recovery": 4}[case]
         assert rec.quarantine == (case == "recovery")
         return
-    item = {"watch": "item 8c", "sharding": "item 12",
+    item = {"watch": r"item 8c\(ii\)", "sharding": "item 12",
             "make_dataloader_sharding": "item 12"}[case]
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
         if case == "sharding":
@@ -352,9 +378,9 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
     ({"tenant": "team-a"}, "item 8c"),
 ])
 def test_later_observability_slices_raise_naming_8b_or_8c(kwargs, item):
-    """What the tenants/controller slice (8c) owns stays refused, naming its slice; what
-    the liveness and time slice (8b(i)) owns, health and slos, and what the attribution
-    slice (8b(ii)) owns, provenance, are taken."""
+    """What the liveness and time slice (8b(i)) owns, health and slos, what the
+    attribution slice (8b(ii)) owns, provenance, and what the tenants and controller
+    slice (8c(i)) owns, controller and tenant, are all taken."""
     from petastorm_tpu_torch.loader import DataLoader
 
     if "health" in kwargs or "slos" in kwargs:
@@ -363,12 +389,15 @@ def test_later_observability_slices_raise_naming_8b_or_8c(kwargs, item):
     if "provenance" in kwargs:
         _assert_provenance_is_taken()
         return
+    if "controller" in kwargs or "tenant" in kwargs:
+        _assert_controller_and_tenant_are_taken(kwargs)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
         DataLoader(object(), 4, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"provenance": True}, "item 8b"), ({"watch": True}, "item 8c"),
+    ({"provenance": True}, "item 8b"), ({"watch": True}, r"item 8c\(ii\)"),
     ({"tenant": "team-a"}, "item 8c"),
 ])
 def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwargs,
@@ -394,6 +423,30 @@ def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwar
         finally:
             prov.ACTIVE = None
         return
+    if "tenant" in kwargs:
+        # the tenant slice (8c(i)) is ported: both factories read every row and charge
+        # them to the tenant (the per-row one from a store with a unischema)
+        from petastorm_tpu_torch import types as ptypes
+        from petastorm_tpu_torch.codecs import ScalarCodec
+        from petastorm_tpu_torch.metadata import write_dataset
+        from petastorm_tpu_torch.obs.metrics import default_registry
+        from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+        rows_url = "file://" + str(tmp_path) + "-rows"  # beside the batch store
+        schema = Unischema("S", [UnischemaField("id", np.int64, (),
+                                                ScalarCodec(ptypes.LongType()), False)])
+        write_dataset(rows_url, schema, ({"id": i} for i in range(4)),
+                      row_group_size_mb=1, rows_per_file=4)
+        name = 'ptpu_tenant_rows_total{tenant="team-a"}'
+        before = default_registry().snapshot().get(name, 0)
+        with make_batch_reader("file://" + str(tmp_path), reader_pool_type="dummy",
+                               **kwargs) as reader:
+            assert sorted(int(i) for b in reader for i in b.id) == [0, 1, 2, 3]
+            assert reader.tenant_context.tenant == "team-a"
+        with make_reader(rows_url, reader_pool_type="dummy", **kwargs) as reader:
+            assert sorted(int(row.id) for row in reader) == [0, 1, 2, 3]
+        assert default_registry().snapshot()[name] - before == 8
+        return
     for factory in (make_batch_reader, make_reader):
         with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
             factory("file://" + str(tmp_path), **kwargs)
@@ -401,7 +454,7 @@ def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwar
 
 @pytest.mark.parametrize("action,item", [
     ("net.reset", r"item 4\(c\)"), ("net.partition", r"item 4\(c\)"),
-    ("remove_file", "item 8c"), ("append_piece", "item 8c"),
+    ("remove_file", r"item 8c\(ii\)"), ("append_piece", r"item 8c\(ii\)"),
 ])
 def test_chaos_actions_of_later_slices_raise_naming_them(action, item):
     from petastorm_tpu_torch.chaos import FaultRule

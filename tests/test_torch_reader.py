@@ -166,7 +166,8 @@ def test_reset_restarts_the_epoch(ref_store):
 # object-store tier and the arena (item 5b) are ported too: their cases (1-3) now read
 # the store, equal to the plain read (tests/test_torch_remote_io.py, test_torch_arena.py).
 # The recovery policy is ported (item 8a): the io_retries and recovery cases read too.
-# Provenance is ported (item 8b(ii)): its case reads too, and records every row group
+# Provenance is ported (item 8b(ii)): its case reads too, and records every row group.
+# The tenant is ported (item 8c(i)): its case reads too, and charges every row to it
 @pytest.mark.parametrize("kwargs", [
     {"reader_pool_type": "process", "transport": "tcp"},
     {"io_options": {"arena_bytes": 1 << 20}},
@@ -191,6 +192,20 @@ def test_unported_reader_options_raise_naming_the_roadmap(ref_store, kwargs):
             arena_mod.close_process_arena()
             shared_store().clear()  # the arena implies a process-wide memcache
         assert got == want and got
+        return
+    if "tenant" in kwargs:
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        name = 'ptpu_tenant_rows_total{tenant="team-a"}'
+        before = default_registry().snapshot().get(name, 0)
+        with make_batch_reader(ref_store, reader_pool_type="dummy",
+                               shuffle_row_groups=False, **kwargs) as r:
+            got = sorted(int(i) for b in r for i in np.asarray(b.id))
+        with make_batch_reader(ref_store, reader_pool_type="dummy",
+                               shuffle_row_groups=False) as r:
+            want = sorted(int(i) for b in r for i in np.asarray(b.id))
+        assert got == want and got
+        assert default_registry().snapshot()[name] - before == len(got)
         return
     if "provenance" in kwargs:
         from petastorm_tpu_torch.obs import provenance as prov

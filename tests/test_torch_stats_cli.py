@@ -2,8 +2,7 @@
 package's: the same snapshot renders the same dashboard frame, string for string, on
 every panel (the attribution and dataset-watch panels included), with and without a
 snapshot history; the fleet merge renders the same frame; a snapshot holding tenant
-series renders one line naming ROADMAP.md item 8c, where the reference renders its
-per-tenant panel.
+series renders the same per-tenant panel.
 
 The stats-CLI cases of the JAX package's ``tests/test_health.py``,
 ``tests/test_timeseries.py``, ``tests/test_obs.py`` and ``tests/test_provenance.py``
@@ -148,20 +147,20 @@ def test_render_merge_equals_the_reference(tmp_path):
 
 
 def test_tenant_series_render_one_line_naming_item_8c():
+    """Tenant series render the per-tenant panel (ported with item 8c(i)), the whole
+    frame equal to the reference's; the tenant families stay out of the catch-all."""
     metrics = dict(PANELS["attribution"])
     metrics['ptpu_tenant_rows_total{tenant="b"}'] = 100
     metrics['ptpu_tenant_rows_total{tenant="a"}'] = 50
     metrics['ptpu_tenant_read_bytes_total{tenant="a"}'] = 1e6
+    metrics['ptpu_tenant_worker_seconds_total{tenant="b"}'] = 2.5
     out = cli.render_dashboard(metrics)
-    lines = [line for line in out.splitlines() if "tenant" in line]
-    assert lines == ["tenants: 2 in the snapshot (a, b); the per-tenant panel is not "
-                     "ported yet (ROADMAP.md Queue 1 item 8c)"]
-    # every other panel renders as the reference's does (the tenant families stay out
-    # of the catch-all in both)
-    rest = "\n".join(x for x in out.splitlines() if x not in lines)
-    untenanted = {k: v for k, v in metrics.items() if not k.startswith("ptpu_tenant_")}
-    assert rest == ref_cli.render_dashboard(untenanted)
-    assert "tenants (ptpu_tenant_*)" in ref_cli.render_dashboard(metrics)
+    assert out == ref_cli.render_dashboard(metrics)
+    lines = out.splitlines()
+    start = lines.index("tenants (ptpu_tenant_*):")
+    assert lines[start + 1].lstrip().startswith("b ")  # most worker seconds first
+    assert lines[start + 2].lstrip().startswith("a ")
+    assert "item 8c" not in out
 
 
 def _write_export(path, anchor, rows_points):

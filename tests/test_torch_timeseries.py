@@ -3,8 +3,7 @@ windowed series of the registry, the SLO and anomaly engine, the Reporter's samp
 merges of exports and the scrape endpoint, and the loader's ``slos=``.
 
 Every case of the JAX package's ``tests/test_timeseries.py`` has a counterpart here
-except those that need tenants (``test_fleet_merge_keeps_tenant_labels_as_distinct_
-series``, ``test_tenant_usage_report_from_merged_fleet_totals``: item 8c), the stats CLI
+(the two tenant cases since item 8c(i)) except the stats CLI's
 (``test_stats_cli_merge_renders``, ``test_render_dashboard_trends_and_window_deltas``:
 in ``tests/test_torch_stats_cli.py``) and run diffs (the five ``test_bench_diff_*``
 cases and ``test_diff_self_times_significance_and_new_sites``: in
@@ -609,6 +608,53 @@ def test_merge_histogram_summaries_conservatively():
     agg = merge_exports(docs)["totals"]["lat"]
     assert agg["count"] == 40
     assert agg["p99"] == 0.4
+
+
+def test_fleet_merge_keeps_tenant_labels_as_distinct_series():
+    """Tenant-labelled counters merge per full labelled name: the fleet total of
+    ``...{tenant="a"}`` sums that label across sources, never folded into the untagged
+    family or another tenant; equal to the JAX package's merge."""
+    docs = []
+    for i, (a_rows, b_rows) in enumerate(((100, 900), (50, 100))):
+        docs.append({"source": "h%d" % i, "anchor": None,
+                     "metrics": {"ptpu_pipeline_rows": a_rows + b_rows,
+                                 'ptpu_tenant_rows_total{tenant="a"}': a_rows,
+                                 'ptpu_tenant_rows_total{tenant="b"}': b_rows},
+                     "series": {}})
+    merged = merge_exports(docs)
+    assert merged["totals"]['ptpu_tenant_rows_total{tenant="a"}'] == 150
+    assert merged["totals"]['ptpu_tenant_rows_total{tenant="b"}'] == 1000
+    for name in ('ptpu_tenant_rows_total{tenant="a"}',
+                 'ptpu_tenant_rows_total{tenant="b"}'):
+        assert merged["totals"][name] == sum(
+            m.get(name, 0) for m in merged["per_source"].values())
+    assert merged["totals"]["ptpu_pipeline_rows"] == 1150
+    assert merged["totals"] == ref_timeseries.merge_exports(docs)["totals"]
+
+
+def test_tenant_usage_report_from_merged_fleet_totals():
+    """The usage report of the merged fleet totals equals the merge of the per-source
+    reports (the report is fleet-mergeable), and the JAX package's report."""
+    from petastorm_tpu.obs.tenant import TenantUsageReport as RefReport
+    from petastorm_tpu_torch.obs.tenant import TenantUsageReport
+
+    per_source = [
+        {'ptpu_tenant_rows_total{tenant="a"}': 100.0,
+         'ptpu_tenant_worker_seconds_total{tenant="a"}': 1.0},
+        {'ptpu_tenant_rows_total{tenant="a"}': 40.0,
+         'ptpu_tenant_rows_total{tenant="b"}': 700.0,
+         'ptpu_tenant_worker_seconds_total{tenant="b"}': 5.0},
+    ]
+    docs = [{"source": "h%d" % i, "anchor": None, "metrics": dict(m), "series": {}}
+            for i, m in enumerate(per_source)]
+    totals = merge_exports(docs)["totals"]
+    fleet = TenantUsageReport.from_metrics(totals)
+    by_parts = TenantUsageReport.from_metrics(per_source[0]).merge(
+        TenantUsageReport.from_metrics(per_source[1]))
+    assert fleet.to_dict() == by_parts.to_dict()
+    assert fleet.get("a", "rows") == 140.0
+    assert fleet.top_consumer("worker_s") == ("b", 5.0)
+    assert fleet.to_dict() == RefReport.from_metrics(totals).to_dict()
 
 
 def test_uniquify_sources_keeps_collisions_visible():
