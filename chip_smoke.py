@@ -256,14 +256,30 @@ Phases (each passes or the script exits non-zero, printing no result line):
    run adds no tenant series, the per-tenant fold, the stats CLI's tenant panel. Every
    run checks the kernels once a batch and K2 against its plain version.
 
+17. Dataset watch and mutation (the comment block above ``_watch_copy``): (a) a watched
+   main path on the thread pool over a copy of phase 1's store, two epochs; after the
+   second batch one tick of a seeded FaultPlan's mutation rules appends a file of new
+   ids, rewrites file 2 with new ids and images and removes file 3: the first epoch
+   delivers files 0, 1 and the appended one, the second those and file 2's new
+   generation, files 2 and 3 quarantine as ``piece_rewritten``/``piece_removed`` in both,
+   no epoch holds two generations of a file, every image equals the plain stage 2 of its
+   id, the kernels once a batch, the ``ptpu_dataset_*`` counters equal the mutations;
+   the stamping's cost with and without the footer crc. (b) the pass-through over phase
+   5's files 0 and 1, file 1 rewritten from a new seed after the first epoch: the new
+   generation's batches equal pyarrow's read of the new bytes, no stale footer or
+   refusal survives, one K3, scan and K4 launch a batch. (c) (a) on the process pool over
+   ``'arrow'``: the same items, ids and quarantine, each conflict counted once in the
+   parent.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
 in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's,
 ``slice13_launches`` in phase 12's, ``slice14_launches`` in phase 13's,
 ``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's,
-``slice17_launches`` in phase 16's), the card's
+``slice17_launches`` in phase 16's, ``slice18_launches`` in phase 17's), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
+import collections
 import contextlib
 import json
 import os
@@ -5799,6 +5815,415 @@ def phase_ctl_tenants(url, images, work, smi):
     return {"a": a, "b": b, "untagged": untagged, "usage": usage}
 
 
+# -- phase 17: dataset watch and mutation ---------------------------------------------
+#
+# A watched reader over a store that changes under it; the watch thread never ticks on
+# its own (a one-hour interval), each tick is a poll_once() call. (a) the main path on
+# the thread pool over a fresh copy of phase 1's store, two epochs: after the second
+# batch one tick applies a seeded FaultPlan's three mutation rules through a
+# LocalDatasetMutator writing the store's own schema (append a fifth file of 1,024 new
+# ids, rewrite file 2 with a new id range and new images, remove file 3). The plan also
+# holds every first-epoch item of files 2 and 3 at the pool's dispatch (a hang at
+# ``worker.item``, or at ``pool.dispatch`` in the process pool's parent, released by the
+# disarm right after the tick), so no read of those files runs before the tick: the
+# first epoch delivers nothing of them on any pool, and the run is the same on the
+# thread and process pools. The readahead is off in all three parts: a prefetch reads
+# items before their dispatch (the hold would not hold them), and a read checked before
+# the tick delivers the old generation by design (the readahead invariant, pinned by
+# the CPU tests), so the split of the first epoch would follow the timing; without it
+# a pool claims at most a few items ahead of the consumer. (b) the pass-through over copies of phase 5's files 0 and 1:
+# file 1 rewritten from a new seed when the first epoch's last batch arrives, one tick,
+# three epochs (the plan has rolled into the second epoch by then, so the new
+# generation is planned into the third). (c) (a) on the process pool over 'arrow' with
+# 4 children.
+
+WATCH_NEW_SEED = 17
+WATCH_TAB_SEED = 18
+WATCH_TAB_EPOCHS = 3
+WATCH_STAMP_ROUNDS = 3
+WATCH_HANG_S = 120.0  # the hold's cap; the disarm after the tick ends it at once
+
+
+def _watch_copy(src, dst, names=None):
+    """A fresh directory of hard links to ``src``'s files (``names``: those only). The
+    mutations replace or unlink directory entries, never the linked inodes, so ``src``
+    stays as it was."""
+    os.makedirs(dst)
+    for name in sorted(os.listdir(src)) if names is None else names:
+        os.link(os.path.join(src, name), os.path.join(dst, name))
+    return dst
+
+
+def watch_new_blobs(cv2, n):
+    """``n`` new JPEG images from WATCH_NEW_SEED, encoded as phase 1 encodes its own."""
+    import numpy as np
+
+    from petastorm_tpu_torch.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.unischema import UnischemaField
+
+    field = UnischemaField("image", np.uint8, IMG, CompressedImageCodec("jpeg", QUALITY),
+                           False)
+    imgs = make_images(n, seed=WATCH_NEW_SEED)
+    if cv2 is None:
+        return [BaselineJpegEncoder(QUALITY).encode(img) for img in imgs]
+    return [bytes(field.codec.encode(field, img)) for img in imgs]
+
+
+def plain_stage2_images(blob_list, dev, chunk=BATCH):
+    """The plain stage 2 on the card (``_stage2_planes_plain``, then ``_stage2_rgb_plain``
+    in BGR, as the loader delivers) of the host stage 1 of ``blob_list``, full int16
+    coefficients: (n, 224, 224, 3) uint8."""
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg
+
+    out = []
+    for i in range(0, len(blob_list), chunk):
+        planes = jpeg.entropy_decode_jpeg_batch(blob_list[i:i + chunk])
+        layout = jpeg._layout_key(planes[0])
+        check(all(jpeg._layout_key(p) == layout for p in planes),
+              "phase 17: the images are not of one layout")
+        coeffs, qtabs = jpeg.stack_jpeg_coefficients(planes)
+        segs = [jpeg.CoefSegment(torch.from_numpy(c).to(dev), torch.from_numpy(q).to(dev),
+                                 64, False, None, by, bx)
+                for (_h, _v, by, bx), c, q in zip(layout[2], coeffs, qtabs)]
+        out.append(jpeg._stage2_rgb_plain([jpeg._stage2_planes_plain(s) for s in segs],
+                                          layout, bgr=True))
+    return torch.cat(out)
+
+
+def _watch_plan(root, names, new_blobs, held, pool):
+    """(a)'s and (c)'s seeded FaultPlan and its mutator (the phase comment above)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+    from petastorm_tpu_torch.dataset.mutate import LocalDatasetMutator
+
+    schema = pq.read_schema(os.path.join(root, names[0]))
+
+    def table_fn(start, rows):
+        ids = range(start, start + rows)
+        return pa.table({"id": pa.array(ids, pa.int64()),
+                         "image": pa.array([new_blobs[i - ROWS] for i in ids], pa.binary()),
+                         "label": pa.array([i % 1000 for i in ids], pa.int32())},
+                        schema=schema)
+
+    site = "pool.dispatch" if pool == "process" else "worker.item"
+    rules = [FaultRule("dataset.mutate", "append_piece", nth=1,
+                       target={"name": "part-zz000.parquet", "start": ROWS,
+                               "rows": ROWS_PER_FILE}),
+             FaultRule("dataset.mutate", "rewrite_file", nth=1,
+                       target={"name": names[2], "start": ROWS + ROWS_PER_FILE,
+                               "rows": ROWS_PER_FILE}),
+             FaultRule("dataset.mutate", "remove_file", nth=1, target={"name": names[3]})]
+    # "ordinal=O " with its space, so that ordinal 1 never matches ordinals 10 to 15
+    rules += [FaultRule(site, "hang", hang_s=WATCH_HANG_S,
+                        item_key="epoch=0 ordinal=%d " % o) for o in held]
+    return FaultPlan(rules, seed=CHAOS_SEED), LocalDatasetMutator(root, table_fn=table_fn)
+
+
+def watch_jpeg_run(root, ref, new_blobs, label, smi, pool="thread", workers=2, wire=None):
+    """One watched main-path run over the store copy ``root`` (the phase comment above).
+    ``ref`` holds the plain stage 2's image of every id, old and new. Returns the
+    delivered plan items of each epoch, the quarantine entries, the id counts, the
+    ``ptpu_dataset_*`` deltas and the launches."""
+    import torch
+
+    from petastorm_tpu_torch import chaos, make_batch_reader
+    from petastorm_tpu_torch.dataset.watch import watch_metrics
+    from petastorm_tpu_torch.io.lease import lease_stats
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+
+    names = sorted(n for n in os.listdir(root) if n.endswith(".parquet"))
+    check(len(names) == 4, "%s: the store copy holds %d files" % (label, len(names)))
+    with make_batch_reader("file://" + root, reader_pool_type="dummy",
+                           shuffle_row_groups=False) as probe:
+        items0 = [(os.path.basename(p.path), p.row_group) for p, _ in probe._plan.items]
+    held = [o for o, (name, _rg) in enumerate(items0) if name in names[2:]]
+    plan, mutator = _watch_plan(root, names, new_blobs, held, pool)
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD),
+                "image_u8": batch["image"]}
+
+    dev = torch.device("cuda")
+    n_ids = ROWS + 2 * ROWS_PER_FILE
+    counts = torch.zeros(n_ids, dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    metrics = watch_metrics()
+    counters0 = {k: c.value for k, c in metrics.items()}
+    leases0 = lease_stats()
+    marks = []
+    batches = 0
+    first = delta = None
+    tick_s = 0.0
+    with chaos.armed(plan, propagate=False):
+        reader = make_batch_reader("file://" + root, reader_pool_type=pool,
+                                   workers_count=workers, wire_serializer=wire,
+                                   shuffle_row_groups=False, num_epochs=2,
+                                   decode_on_device=True, results_queue_size=2,
+                                   io_options={"readahead": False},
+                                   recovery=dict(on_poison="quarantine", poison_attempts=1,
+                                                 io_retries=0),
+                                   results_timeout_s=120, watch={"interval_s": 3600})
+        mark = reader._mark_consumed
+
+        def recording(tag):  # every charge to the watermark: deliveries and quarantines
+            marks.append(tag)
+            mark(tag)
+
+        reader._mark_consumed = recording
+        watcher = reader.dataset_watcher
+        watcher.set_mutator(mutator)
+        _jpeg_launch_counters(zero=True)
+        t0 = time.perf_counter()
+        with DataLoader(reader, BATCH, device="cuda", device_transform=transform,
+                        prefetch=1, host_queue_size=2, last_batch="partial") as loader:
+            for batch in loader:
+                ids, u8 = batch["id"], batch["image_u8"]
+                counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                bad.add_((ref.index_select(0, ids) != u8).sum())
+                if first is None:
+                    first = (u8[:8].clone(), batch["image"][:8].clone())
+                batches += 1
+                if batches == 2:
+                    t_tick = time.perf_counter()
+                    delta = watcher.poll_once()
+                    tick_s = time.perf_counter() - t_tick
+                    chaos.disarm()  # the held items go now, to fail their check
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            entries = [(os.path.basename(e.path), e.row_group, e.kind, e.epoch, e.ordinal,
+                        type(e.error).__name__) for e in loader.quarantine_report.entries]
+            items = [(os.path.basename(p.path), p.row_group) for p, _ in reader._plan.items]
+            io = reader.io_stats()
+    launches = _jpeg_launch_counters()
+    counters = {k: c.value - counters0[k] for k, c in metrics.items()}
+    leases = {k: lease_stats()[k] - leases0[k] for k in ("acquired", "released", "leaked")}
+    quarantined = {(e, o) for _n, _rg, _k, e, o, _t in entries}
+    delivered = collections.defaultdict(set)
+    for epoch, ordinal in marks:
+        if (epoch, ordinal) not in quarantined:
+            gen = "new" if ordinal >= len(items0) else "old"
+            delivered[epoch].add(items[ordinal] + (gen,))
+    kinds = collections.Counter((n, k, e) for n, _rg, k, e, _o, _t in entries)
+    c = counts.cpu()
+    watch = {k: io.get(k) for k in ("watch_ticks", "watch_deltas", "watch_errors")}
+    res = {"label": label, "batches": batches, "launches": launches, "entries": entries,
+           "kinds": dict(kinds), "counters": counters, "leases": leases,
+           "delivered": dict(delivered), "counts": c, "bad": int(bad.item()),
+           "rows_per_s": int(c.sum()) / dt, "tick_s": tick_s, "watch": watch}
+    log("watch %s: %d batches in %.2f s (%.1f rows/s); tick %r in %.4f s applied %s; "
+        "launches %s; quarantined %s; ptpu_dataset_* %s; watcher %s; leases %s; %s" % (
+            label, batches, dt, res["rows_per_s"], delta, tick_s, mutator.applied,
+            json.dumps(launches), sorted(kinds.items()), json.dumps(counters),
+            json.dumps(watch), leases, smi))
+    # -- checks ------------------------------------------------------------------------
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"] == batches,
+          "%s: stage2_planes, stage2_rgb and K2 should launch once a batch (%d): %s"
+          % (label, batches, launches))
+    check(res["bad"] == 0, "%s: %d uint8 values differ from the plain stage 2's image of "
+          "the same id" % (label, res["bad"]))
+    check(torch.equal(image._normalize_plain(first[0], MEAN, STD, torch.bfloat16), first[1]),
+          "%s: K2 differs from its plain version on the first batch" % label)
+    check(leases["leaked"] == 0 and leases["acquired"] == leases["released"],
+          "%s: leases %s" % (label, leases))
+    check(mutator.applied == [("append_piece", "part-zz000.parquet"),
+                              ("rewrite_file", names[2]), ("remove_file", names[3])],
+          "%s: the plan applied %s" % (label, mutator.applied))
+    old = {(n, rg, "old") for n, rg in items0 if n in names[:2]}
+    appended, rewritten = ("part-zz000.parquet", 0, "new"), (names[2], 0, "new")
+    want = {0: old | {appended}, 1: old | {appended, rewritten}}
+    check(res["delivered"] == want, "%s: delivered plan items by epoch %s, expected %s"
+          % (label, res["delivered"], want))
+    per_file = collections.Counter(n for n, _rg in items0)
+    want_q = {(names[2], "piece_rewritten", e): per_file[names[2]] for e in (0, 1)}
+    want_q.update({(names[3], "piece_removed", e): per_file[names[3]] for e in (0, 1)})
+    check(res["kinds"] == want_q, "%s: quarantined %s, expected %s"
+          % (label, res["kinds"], want_q))
+    check(all(t == {"piece_rewritten": "PieceRewrittenError",
+                    "piece_removed": "PieceRemovedError"}[k]
+              for _n, _rg, k, _e, _o, t in entries),
+          "%s: quarantine errors %s" % (label, sorted({(k, t) for _n, _r, k, _e, _o, t
+                                                       in entries})))
+    spans = {"files 0-1": (0, 2 * ROWS_PER_FILE, 2),
+             "file 2, old": (2 * ROWS_PER_FILE, 3 * ROWS_PER_FILE, 0),
+             "file 3": (3 * ROWS_PER_FILE, ROWS, 0),
+             "appended": (ROWS, ROWS + ROWS_PER_FILE, 2),
+             "file 2, new": (ROWS + ROWS_PER_FILE, n_ids, 1)}
+    for what, (lo, hi, times) in spans.items():
+        check(bool((c[lo:hi] == times).all()), "%s: ids of %s delivered %s times, not %d"
+              % (label, what, sorted(set(c[lo:hi].tolist())), times))
+    conflicts = sum(n for (_n, k, _e), n in kinds.items() if k == "piece_rewritten")
+    check(counters == {"pieces_added": 1, "pieces_removed": per_file[names[3]],
+                       "pieces_rewritten": per_file[names[2]], "plan_extensions": 1,
+                       "generation_conflicts": conflicts},
+          "%s: ptpu_dataset_* counters moved %s" % (label, counters))
+    check(watch == {"watch_ticks": 1, "watch_deltas": 1, "watch_errors": 0},
+          "%s: watcher %s" % (label, watch))
+    return res
+
+
+def phase_watch_main_path(store_root, blobs, images, work, env):
+    """(a) on the thread pool and (c) on the process pool, each over its own copy of
+    phase 1's store, against the plain stage 2 of every id; the stamping's cost on
+    the copy, with and without the footer crc."""
+    import pyarrow.fs as pafs
+    import torch
+
+    from petastorm_tpu_torch.dataset.watch import stamp_generation_tokens
+    from petastorm_tpu_torch.io.footercache import shared_footer_cache
+    from petastorm_tpu_torch.metadata import load_row_groups
+
+    smi = env["smi"]
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    new_blobs = watch_new_blobs(env["cv2"], 2 * ROWS_PER_FILE)
+    t1 = time.perf_counter()
+    ref = torch.empty((ROWS + len(new_blobs),) + IMG, dtype=torch.uint8, device=dev)
+    ref[:ROWS] = images
+    ref[ROWS:] = plain_stage2_images(new_blobs, dev)
+    # phase 7's images of the old ids are the kernels' (equal run after run); hold the
+    # first batch of them to the plain stage 2 here too
+    sample = plain_stage2_images([blobs[i] for i in range(BATCH)], dev)
+    torch.cuda.synchronize()
+    check(torch.equal(sample, images[:BATCH]), "phase 17: phase 7's images of ids 0-255 "
+          "differ from the plain stage 2 of the same rows")
+    log("watch: %d new images encoded in %.2f s; plain stage 2 references in %.2f s"
+        % (len(new_blobs), t1 - t0, time.perf_counter() - t1))
+    # the stamping cost: one stat and one fresh footer parse a file (the crc), or a stat
+    stamp_root = _watch_copy(store_root, os.path.join(work, "watch_stamp"))
+    fs = pafs.LocalFileSystem()
+    pieces = load_row_groups(fs, stamp_root)
+    stamp = {}
+    for crc in (True, False):
+        times = []
+        for _ in range(WATCH_STAMP_ROUNDS):
+            shared_footer_cache().clear()
+            t = time.perf_counter()
+            stamped = stamp_generation_tokens(fs, pieces, footer_crc=crc)
+            times.append(time.perf_counter() - t)
+        check(all(p.generation and (p.generation.endswith(".-") != crc) for p in stamped),
+              "phase 17: stamping (footer_crc=%s) left a piece unstamped" % crc)
+        stamp["crc" if crc else "stat_only"] = sorted(times)[len(times) // 2]
+    log("watch: stamping %d pieces of %d files adds %.6f s to the reader's construction "
+        "with the footer crc, %.6f s without (median of %d); %s" % (
+            len(pieces), len({p.path for p in pieces}), stamp["crc"], stamp["stat_only"],
+            WATCH_STAMP_ROUNDS, smi))
+    a = watch_jpeg_run(_watch_copy(store_root, os.path.join(work, "watch_a")), ref,
+                       new_blobs, "(a) thread", smi)
+    c = watch_jpeg_run(_watch_copy(store_root, os.path.join(work, "watch_c")), ref,
+                       new_blobs, "(c) process/arrow", smi, pool="process", workers=4,
+                       wire="arrow")
+    check(c["delivered"] == a["delivered"] and c["kinds"] == a["kinds"]
+          and torch.equal(c["counts"], a["counts"]),
+          "(c): the process pool's items, ids or quarantine differ from the thread pool's")
+    log("watch (a)/(c): the same items and ids in each epoch and the same quarantine on "
+        "both pools; rows/s %.1f thread, %.1f process; %s" % (
+            a["rows_per_s"], c["rows_per_s"], smi))
+    return {"a": a, "c": c, "stamp_s": stamp}
+
+
+def phase_watch_tabular(root, arrays, predicted, work, smi):
+    """(b): the pass-through over copies of phase 5's files 0 and 1 (the phase comment
+    above): every batch byte-identical to its source, the old generation's or pyarrow's
+    read of the new bytes; the file's refusals dropped at the tick; the new generation
+    only in the third epoch, after every batch of the old one; one K3, scan and K4
+    launch a batch."""
+    import pyarrow.fs as pafs
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.dataset.watch import current_stat_token
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.io.footercache import metadata_crc, shared_footer_cache
+    from petastorm_tpu_torch.loader import DataLoader
+
+    names = ["part-%d.parquet" % f for f in range(CHAOS_TAB_FILES)]
+    wdir = _watch_copy(root, os.path.join(work, "watch_tab"), names)
+    path1 = os.path.join(wdir, names[1])
+    per_epoch = CHAOS_TAB_FILES * TAB_RGS_PER_FILE
+    new = None
+    seen = []  # (batch index, source): (f, rg) of the old files, or ("new", rg)
+    refused, delta, write_s = set(), None, 0.0
+    counters0 = pagedec.counter_values()
+    reader = make_batch_reader("file://" + wdir, workers_count=2, results_queue_size=2,
+                               shuffle_row_groups=False, num_epochs=WATCH_TAB_EPOCHS,
+                               io_options={"pagedec": "on", "readahead": False},
+                               recovery=dict(on_poison="quarantine", poison_attempts=1,
+                                             io_retries=0),
+                               results_timeout_s=120, watch={"interval_s": 3600})
+    _tab_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    with DataLoader(reader, TAB_BATCH, device="cuda", prefetch=1,
+                    host_queue_size=1) as loader:
+        for i, batch in enumerate(loader):
+            got = {k: v.cpu().numpy() for k, v in batch.items()}
+            sources = arrays[:CHAOS_TAB_FILES] + ([new] if new is not None else [])
+            f, rg = _rowgroup_of({k: got[k][0] for k in TAB_COLUMNS}, sources, TAB_BATCH)
+            for k in TAB_COLUMNS:
+                src = sources[f][k][rg * TAB_BATCH:(rg + 1) * TAB_BATCH]
+                check(got[k].dtype == src.dtype and got[k].tobytes() == src.tobytes(),
+                      "(b): column %s of batch %d differs from its source" % (k, i))
+            seen.append((i, ("new", rg) if f == CHAOS_TAB_FILES else (f, rg)))
+            if i + 1 == per_epoch:
+                # a refusal of the old generation's column must not outlive it
+                reader._worker._pagedec_refused.add((path1, "label"))
+                t_w = time.perf_counter()
+                tmp = os.path.join(work, "watch_tab_new")
+                _url, (new_arrays,) = write_tabular_store(
+                    tmp, seed=WATCH_TAB_SEED, files=1, rgs_per_file=TAB_RGS_PER_FILE,
+                    rg_rows=TAB_RG_ROWS)
+                os.replace(os.path.join(tmp, "part-0.parquet"), path1)
+                write_s = time.perf_counter() - t_w
+                delta = reader.dataset_watcher.poll_once()
+                table = pq.read_table(path1)  # pyarrow's read of the new bytes
+                new = {k: table.column(k).to_numpy() for k in TAB_COLUMNS}
+                check(all(new[k].tobytes() == new_arrays[k].tobytes() for k in TAB_COLUMNS),
+                      "(b): pyarrow's read of the new file differs from what was written")
+                refused = set(reader._worker._pagedec_refused)
+        dt = time.perf_counter() - t0
+        entries = [(os.path.basename(e.path), e.row_group, e.kind, e.epoch)
+                   for e in loader.quarantine_report.entries]
+        io = reader.io_stats()
+    launches = _tab_launch_counters()
+    counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+    entry = shared_footer_cache().peek(path1)
+    stat = current_stat_token(pafs.LocalFileSystem(), path1)
+    batches = len(seen)
+    tally = collections.Counter(src for _i, src in seen)
+    log("watch (b): %d batches in %.2f s (%.1f rows/s); new file written in %.2f s, tick "
+        "%r; launches %s; quarantined %s; counters %s; watcher %s; %s" % (
+            batches, dt, batches * TAB_BATCH / dt, write_s, delta, json.dumps(launches),
+            sorted(collections.Counter((n, k, e) for n, _rg, k, e in entries).items()),
+            json.dumps(counters), json.dumps({k: io.get(k) for k in (
+                "watch_ticks", "watch_deltas", "watch_errors")}), smi))
+    want = {(0, rg): WATCH_TAB_EPOCHS for rg in range(TAB_RGS_PER_FILE)}
+    want.update({(1, rg): 1 for rg in range(TAB_RGS_PER_FILE)})
+    want.update({("new", rg): 1 for rg in range(TAB_RGS_PER_FILE)})
+    check(dict(tally) == want, "(b): row groups delivered %s" % dict(tally))
+    last_old = max(i for i, src in seen if src[0] == 1)
+    check(all(i > last_old for i, src in seen if src[0] == "new"),
+          "(b): a batch of the new generation came before the old one's last")
+    check(sorted((n, rg, k, e) for n, rg, k, e in entries) == sorted(
+        (names[1], rg, "piece_rewritten", e) for e in (1, 2)
+        for rg in range(TAB_RGS_PER_FILE)), "(b): quarantine report %s" % entries)
+    check(not [t for t in refused if t[0] == path1], "(b): the old generation's refusal "
+          "survived the tick: %s" % sorted(refused))
+    check(entry is None or (entry.stat_token in (None, stat)
+                            and entry.crc == metadata_crc(pq.read_metadata(path1))),
+          "(b): the footer cache holds a stale footer of the rewritten file")
+    check(counters["host_inflate_columns"] == 0 and counters["fallback_columns"] == 0,
+          "(b): counters %s" % counters)
+    for k in ("K3", "scan", "K4"):
+        check(launches[k] == predicted[k] * batches, "(b): %s launched %d times for %d "
+              "pass-through batches" % (k, launches[k], batches))
+    return {"launches": launches, "batches": batches, "entries": entries,
+            "rows_per_s": batches * TAB_BATCH / dt}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -6019,6 +6444,10 @@ def main():
         phase16_s = time.perf_counter() - t16
         log("tenants and the controller: phase 16 took %.1f s of wall time; %s"
             % (phase16_s, env["smi"]))
+        t17 = time.perf_counter()
+        watch_jpeg = phase_watch_main_path(os.path.join(work, "store"), blobs, images, work,
+                                           env)
+        phase17_s = time.perf_counter() - t17
         del images
         shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
@@ -6089,6 +6518,12 @@ def main():
         prov_d = phase_prov_tools(prov_a, work, env["smi"])
         phase15_s += time.perf_counter() - t15
         log("attribution: phase 15 took %.1f s of wall time; %s" % (phase15_s, env["smi"]))
+        t17 = time.perf_counter()
+        watch_tab = phase_watch_tabular(tab_root, arrays, predicted, work, env["smi"])
+        phase17_s += time.perf_counter() - t17
+        log("dataset watch and mutation: phase 17 took %.1f s of wall time; %s"
+            % (phase17_s, env["smi"]))
+        check(phase17_s < 60.0, "phase 17 took %.1f s, over its 60 s" % phase17_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -6170,6 +6605,13 @@ def main():
         out["batches"] = {name: r["batches"] for name, r in runs.items()}
         return out
 
+    def slice18_launches(key):
+        """{part: launches of ``key``} in phase 17's main-path parts."""
+        return {"a_thread": watch_jpeg["a"]["launches"][key],
+                "c_process": watch_jpeg["c"]["launches"][key],
+                "batches": {"a_thread": watch_jpeg["a"]["batches"],
+                            "c_process": watch_jpeg["c"]["batches"]}}
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -6190,7 +6632,8 @@ def main():
          "slice14_launches": slice14_launches("stage2_planes"),
          "slice15_launches": slice15_launches("stage2_planes"),
          "slice16_launches": slice16_launches("stage2_planes"),
-         "slice17_launches": slice17_launches("stage2_planes")},
+         "slice17_launches": slice17_launches("stage2_planes"),
+         "slice18_launches": slice18_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -6208,7 +6651,8 @@ def main():
          "slice14_launches": slice14_launches("stage2_rgb"),
          "slice15_launches": slice15_launches("stage2_rgb"),
          "slice16_launches": slice16_launches("stage2_rgb"),
-         "slice17_launches": slice17_launches("stage2_rgb")},
+         "slice17_launches": slice17_launches("stage2_rgb"),
+         "slice18_launches": slice18_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -6247,7 +6691,8 @@ def main():
          "slice14_launches": slice14_launches("K2"),
          "slice15_launches": slice15_launches("K2"),
          "slice16_launches": slice16_launches("K2"),
-         "slice17_launches": slice17_launches("K2")},
+         "slice17_launches": slice17_launches("K2"),
+         "slice18_launches": slice18_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -6306,6 +6751,8 @@ def main():
             "b_" + site: [x["launches"][key] for x in prov_b[site]] for site in BLAME_SITES})
         row["slice16_launches"]["b_slo"] = prov_b["slo"]["launches"][key]
         row["slice16_launches"]["b_batches"] = BLAME_RGS
+        row["slice18_launches"] = {"b_passthrough": watch_tab["launches"][key],
+                                   "b_passthrough_batches": watch_tab["batches"]}
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -6390,6 +6837,12 @@ def main():
             ctl_a["tail"]["off"], ctl_b["process"]["acks"], ctl_c["ratio"],
             json.dumps({t: {k: round(v, 4) for k, v in u.items()}
                         for t, u in ctl_d["usage"].items()})))
+    log("dataset watch (phase 17, %.1f s): stamping adds %.6f s with the footer crc, "
+        "%.6f s without; main path rows/s %.1f on the thread pool, %.1f on the process "
+        "pool; pass-through %.1f rows/s across the rewrite" % (
+            phase17_s, watch_jpeg["stamp_s"]["crc"], watch_jpeg["stamp_s"]["stat_only"],
+            watch_jpeg["a"]["rows_per_s"], watch_jpeg["c"]["rows_per_s"],
+            watch_tab["rows_per_s"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

@@ -24,6 +24,10 @@ def __getattr__(name):
         from petastorm_tpu_torch import loader
 
         return getattr(loader, name)
+    if name in ("WatchOptions", "DatasetWatcher"):
+        from petastorm_tpu_torch.dataset import watch
+
+        return getattr(watch, name)
     if name == "WeightedSamplingReader":
         from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader
 

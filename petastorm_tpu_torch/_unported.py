@@ -7,7 +7,6 @@ from __future__ import annotations
 
 _ITEMS = {
     "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
-    "watch": "Queue 1 item 8c(ii) (dataset watch and mutation)",
     "multi_device": "Queue 1 item 12 (multi-card placement)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
     "tf": "Queue 1 item 21 (adapters/tf.py, tf_utils.py and tools/)",
@@ -17,8 +16,7 @@ _ITEMS = {
 OPTIONS = {
     # io_options and cache_* are taken
     # io_retries, io_retry_backoff_s, recovery, trace and metrics are taken; so are
-    # health, slos and provenance; so are tenant and controller
-    "watch": ("watch", None),
+    # health, slos and provenance; so are tenant and controller, and watch
     "sharding": ("multi_device", None),
 }
 

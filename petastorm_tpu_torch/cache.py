@@ -74,8 +74,8 @@ class LocalDiskCache(CacheBase):
     def invalidate(self, key):
         """Unlink the entry for ``key``. The cache has no validation of its own:
         entries are only as fresh as their keys (a source file rewritten in place keeps
-        its keys; the generation-scoped keys of dataset watching are ROADMAP.md Queue 1
-        item 8c(ii))."""
+        its keys unless the reader watches the dataset, whose generation tokens are part
+        of every key)."""
         try:
             os.unlink(self._key_path(key))
         except OSError:

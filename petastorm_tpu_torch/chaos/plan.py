@@ -37,12 +37,17 @@ wire.decode        the feeder, once a result's frames before decoding
 child.item         the pool child's loop, around ``worker(item)``
                    (the only site where ``kill`` takes the process down)
 decode.device_inflate  ``DataLoader._inflate_passthrough``, once a batch
+dataset.mutate     ``DatasetWatcher.poll_once``, once a watch tick when a
+                   mutator is attached: the only site where the
+                   ``remove_file``/``rewrite_file``/``append_piece``
+                   actions change a real dataset
 =================  ====================================================
 
-The actions that need another slice's machinery raise ``NotImplementedError`` naming
-it when a rule is made: the ``net.*`` actions (the tcp transport, ROADMAP.md Queue 1
-item 4(c)) and the ``dataset.mutate`` actions ``remove_file``, ``rewrite_file`` and
-``append_piece`` (item 8c(ii)). ``hang`` sleeps ``hang_s`` (ended early by a disarm):
+The ``net.*`` actions need the tcp transport, which is not ported: they raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 4(c) when a rule is made. The
+mutation actions call the method of the same name on the site's payload, a mutator such
+as :class:`~petastorm_tpu_torch.dataset.mutate.LocalDatasetMutator`, with the rule's JSON
+``target``. ``hang`` sleeps ``hang_s`` (ended early by a disarm):
 the stall watchdog's prey (:mod:`petastorm_tpu_torch.obs.health`), which the process pool's
 healer ends by killing the hung child under ``escalation="heal"``.
 
@@ -62,9 +67,12 @@ _ACTIONS = ("raise_transient", "raise_permanent", "latency", "corrupt",
             "kill", "hang", "remove_file", "rewrite_file", "append_piece",
             "net.partition", "net.reset", "net.slow", "net.corrupt_frame")
 
-#: actions of the tcp transport (ROADMAP.md Queue 1 item 4(c)) and of the dataset
-#: watcher (item 8c(ii)): named, so a JAX plan's rule is recognised, but refused here
+#: actions of the tcp transport (ROADMAP.md Queue 1 item 4(c)): named, so a JAX plan's
+#: rule is recognised, but refused here
 _NET_ACTIONS = ("net.partition", "net.reset", "net.slow", "net.corrupt_frame")
+
+#: dataset-mutation actions, evaluated at the ``dataset.mutate`` site, whose payload is a
+#: mutator with a method of each name; ``rule.target`` is the JSON spec handed to it
 _MUTATE_ACTIONS = ("remove_file", "rewrite_file", "append_piece")
 
 #: process-role flag: ``kill`` only ever takes down a pool child (or a process
@@ -103,8 +111,10 @@ class FaultRule:
         ``FileNotFoundError`` — never retried), ``latency`` (sleep
         ``latency_s``), ``corrupt`` (flip a byte in the site's payload — only
         meaningful at ``wire.decode``), ``kill`` (``os._exit`` — pool children
-        only), ``hang`` (sleep ``hang_s``). The ``net.*`` and dataset-mutation
-        actions raise ``NotImplementedError`` (ROADMAP.md Queue 1 items 4(c), 8c(ii)).
+        only), ``hang`` (sleep ``hang_s``), ``remove_file``/``rewrite_file``/
+        ``append_piece`` (call the ``dataset.mutate`` site's mutator with
+        ``target``). The ``net.*`` actions raise ``NotImplementedError``
+        (ROADMAP.md Queue 1 item 4(c)).
     nth : int, optional
         Fire on the Nth matching hit (1-based), counted per rule per process.
     every : int, optional
@@ -119,7 +129,9 @@ class FaultRule:
     latency_s / hang_s / message :
         Action parameters.
     target : optional
-        Dataset-mutation action spec (carried for JSON parity with the JAX package).
+        Dataset-mutation action spec (JSON data; see
+        :mod:`petastorm_tpu_torch.dataset.mutate` for the shapes the mutation
+        actions take).
     """
 
     __slots__ = ("site", "action", "nth", "every", "probability", "item_key",
@@ -131,11 +143,10 @@ class FaultRule:
         if action not in _ACTIONS:
             raise ValueError("action must be one of %s, got %r"
                              % (_ACTIONS, action))
-        if action in _NET_ACTIONS or action in _MUTATE_ACTIONS:
+        if action in _NET_ACTIONS:
             from petastorm_tpu_torch._unported import not_ported
 
-            raise not_ported("chaos action %r" % action,
-                             "process_pool" if action in _NET_ACTIONS else "watch")
+            raise not_ported("chaos action %r" % action, "process_pool")
         if nth is not None and int(nth) < 1:
             raise ValueError("nth is 1-based (the first matching hit is 1)")
         if probability is not None and not (0.0 <= float(probability) <= 1.0):
@@ -287,6 +298,17 @@ class FaultPlan:
                 % (site, key))
         if action == "corrupt":
             return _corrupt_payload(payload, self.seed, idx)
+        if action in _MUTATE_ACTIONS:
+            # the dataset.mutate site passes a mutator as the payload; the action is a
+            # call of its method with the rule's spec
+            method = getattr(payload, action, None)
+            if method is None:
+                raise ChaosError(
+                    "chaos %r fired at %s without a dataset mutator payload; mutation "
+                    "rules target the 'dataset.mutate' site of a watcher with a mutator "
+                    "attached (DatasetWatcher.set_mutator)" % (action, site))
+            method(rule.target)
+            return payload
         if action == "kill":
             if not _kill_allowed:
                 raise ChaosError(

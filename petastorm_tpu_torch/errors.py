@@ -21,6 +21,24 @@ class MetadataError(PetastormTpuError):
     """Dataset metadata missing or malformed (reference: PetastormMetadataError)."""
 
 
+class PieceRemovedError(FileNotFoundError):
+    """A planned row group's file disappeared between planning and read (the dataset
+    changed under a running reader). A ``FileNotFoundError``, so the IO retry classes it
+    permanent; under ``RecoveryOptions(on_poison="quarantine")`` the item is quarantined
+    with ``cause="piece_removed"`` and charged to the checkpoint watermark like any
+    other skip."""
+
+
+class PieceRewrittenError(PetastormTpuError):
+    """A planned row group's file no longer matches the generation token stamped into
+    its plan item (size, mtime or footer crc differ: the file was rewritten under a
+    running reader). Never retried as transient: re-reading would deliver rows of
+    another generation than the rest of the epoch. The read path drops the piece's
+    footer, open handle and cache entries before raising; under the quarantine policy
+    the item is quarantined with ``cause="piece_rewritten"``, and the dataset watcher
+    plans the new generation into a later epoch."""
+
+
 class PagedecCorruptError(PetastormTpuError):
     """A compressed-page pass-through decoder found a malformed page: a truncated or
     bit-flipped header, a payload running past its chunk, a codec stream that fails to

@@ -23,8 +23,9 @@ from __future__ import annotations
 def plan_runs(requests, max_run=4, gap_ok=None):
     """Group ``(piece, columns)`` read requests into coalescible runs.
 
-    A run is a maximal set of requests sharing one file and one column set
-    whose row groups are strictly increasing and pairwise mergeable — adjacent
+    A run is a maximal set of requests sharing one file, one generation of it
+    (``piece.generation``: a watched read checks the run's first piece only) and one
+    column set whose row groups are strictly increasing and pairwise mergeable — adjacent
     (``rg == prev + 1``), or non-adjacent with ``gap_ok(prev_piece, piece)``
     approving the byte gap between them — capped at ``max_run`` row groups (a
     bigger merge would hold too many decoded-table bytes hostage to one read).
@@ -34,9 +35,9 @@ def plan_runs(requests, max_run=4, gap_ok=None):
     eviction semantics stay intact.
     """
     runs = []
-    open_runs = {}  # (path, columns) -> index into runs of the still-growing run
+    open_runs = {}  # (path, generation, columns) -> index of the still-growing run
     for piece, columns in requests:
-        key = (piece.path, columns)
+        key = (piece.path, getattr(piece, "generation", None), columns)
         idx = open_runs.get(key)
         if idx is not None:
             pieces, _ = runs[idx]

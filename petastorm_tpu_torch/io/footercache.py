@@ -14,9 +14,12 @@ first touch: workers x threads x files footer reads for bytes that never change.
   prefetch hint only peeks (never reads a footer to plan a prefetch).
 
 Validation: an entry carries the file size seen at parse time; a later open whose
-handle reports another size invalidates it (counted). A same-size in-place rewrite is
-not seen (the JAX package's stat and crc generation tokens come with dataset watching,
-ROADMAP.md Queue 1 item 8c(ii)). The counters are per cache, read through
+handle reports another size invalidates it (counted). A caller that knows the file's
+stat identity (``<size>.<mtime_ns>``, the dataset watch of
+:mod:`petastorm_tpu_torch.dataset.watch`) pins the entry to it (``stat_token=``): a parse
+taken under another identity misses. A same-size rewrite that keeps the mtime too is
+told apart by :func:`metadata_crc`, the footer half of a generation token
+(:attr:`FooterEntry.crc`). The counters are per cache, read through
 :meth:`FooterCache.stats`.
 
 Host-wide sharing: with a cache arena in the process
@@ -28,7 +31,36 @@ once and admits it locally: a process pool reads each footer from the store once
 from __future__ import annotations
 
 import threading
+import zlib
 from collections import OrderedDict
+
+def metadata_crc(metadata):
+    """crc32 of a parsed footer's layout and statistics (row counts, byte sizes, each
+    column chunk's offsets and size, recorded min/max): the content half of a piece's
+    generation token, the JAX package's value for the same footer. It tells apart the
+    rewrite that size and mtime cannot: a file regenerated to the same length with a
+    colliding mtime still moves its chunk offsets or sizes, or its statistics (two
+    constant columns compress to the same layout, but their min/max differ)."""
+    h = zlib.crc32(("%s|%s|%s" % (metadata.num_rows, metadata.num_row_groups,
+                                  metadata.serialized_size)).encode("ascii"))
+    for i in range(metadata.num_row_groups):
+        rgmd = metadata.row_group(i)
+        h = zlib.crc32(("%s|%s" % (rgmd.num_rows, rgmd.total_byte_size)).encode("ascii"),
+                       h)
+        for c in range(rgmd.num_columns):
+            col = rgmd.column(c)
+            h = zlib.crc32(("%s|%s|%s" % (
+                col.data_page_offset, col.dictionary_page_offset,
+                col.total_compressed_size)).encode("ascii"), h)
+            try:
+                st = col.statistics
+                if st is not None and st.has_min_max:
+                    h = zlib.crc32(("%r|%r" % (st.min, st.max)).encode("utf-8",
+                                                                       "replace"), h)
+            except Exception:  # noqa: BLE001 — exotic logical types: the layout
+                pass  # graftlint: disable=GL-O002 (facts above still fold in)
+    return h & 0xFFFFFFFF
+
 
 #: parsed FileMetaData are a few KB to a few hundred KB (wide schemas); the default
 #: budget holds ~1k typical footers
@@ -80,14 +112,15 @@ class FooterEntry:
     """One cached footer: the parsed metadata plus derived planning facts."""
 
     __slots__ = ("metadata", "size", "nbytes", "num_row_groups", "row_group_rows",
-                 "_spans", "stat_token")
+                 "_spans", "stat_token", "_crc")
 
     def __init__(self, metadata, size, stat_token=None):
         self.metadata = metadata
         self.size = int(size) if size is not None else None
-        #: the file's stat identity when the caller offered one (dataset watching,
-        #: item 8c(ii)); None: size-only validation
+        #: the file's stat identity (``<size>.<mtime_ns>``) when the caller offered one
+        #: (the dataset watch); None: size-only validation
         self.stat_token = stat_token
+        self._crc = None
         # the serialized thrift size stands for the resident parse size
         try:
             self.nbytes = int(metadata.serialized_size) or 4096
@@ -117,6 +150,13 @@ class FooterEntry:
                 spans.append((start or 0, end))
             self._spans = tuple(spans)
         return self._spans[rg]
+
+    @property
+    def crc(self):
+        """:func:`metadata_crc` of this entry's footer (computed once)."""
+        if self._crc is None:
+            self._crc = metadata_crc(self.metadata)
+        return self._crc
 
 
 class FooterCache:

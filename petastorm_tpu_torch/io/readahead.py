@@ -153,8 +153,8 @@ class _Entry:
 
 def request_key(piece, columns):
     """Identity of one background read: file, row group, the piece's generation token
-    (None in the port: dataset watching is ROADMAP.md Queue 1 item 8c(ii)) and the exact
-    column selection (``None`` = all columns)."""
+    (None unless the reader watches the dataset: two generations of one file are two
+    reads) and the exact column selection (``None`` = all columns)."""
     return (piece.path, piece.row_group, getattr(piece, "generation", None),
             None if columns is None else tuple(columns))
 

@@ -45,8 +45,8 @@ def dataset_fingerprint(fs, pieces, req_keys):
     """Stable identity of (scheduled data, requested statistics): the sorted
     ``(path, row_group, num_rows, generation)`` piece set, each file's size/mtime (so a
     dataset regenerated in place invalidates the cached pass), plus the requirement
-    keys. The port's pieces carry no generation token (the dataset watch is not ported),
-    which counts as empty. Two readers over the same pieces share one pass."""
+    keys. A piece without a generation token (a reader that does not watch the
+    dataset) counts it as empty. Two readers over the same pieces share one pass."""
     h = hashlib.sha256()
     for p in sorted((p.path, p.row_group, p.num_rows,
                      getattr(p, "generation", None) or "") for p in pieces):

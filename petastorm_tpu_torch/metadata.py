@@ -32,9 +32,14 @@ _METADATA_FILES = ("_common_metadata", "_metadata")
 #: ``stats``: ``{column: (min, max, null_count)}`` from the parquet row-group statistics
 #: when the footer was read (None on the KV fast path): ``filters`` skip whole row groups
 #: with them before scheduling, and the planner strips them before items reach the pool.
+#: ``generation``: the file's generation token (``<size>.<mtime_ns>.<footer crc>``, see
+#: :mod:`petastorm_tpu_torch.dataset.watch`) stamped when dataset watching is on (None
+#: otherwise): reads check it, cache keys carry it, and a mismatch at read time means the
+#: file was rewritten under the running reader.
 RowGroupPiece = namedtuple("RowGroupPiece", ["path", "row_group", "num_rows",
-                                             "partition_values", "stats"],
-                           defaults=(None, None))
+                                             "partition_values", "stats",
+                                             "generation"],
+                           defaults=(None, None, None))
 
 
 # --------------------------------------------------------------------------------------

@@ -6,9 +6,10 @@ injected) happened seconds earlier. A :class:`FlightRecorder` keeps the last
 ``max_events`` structured events in a bounded ring (``collections.deque`` appends, no
 formatting until a dump), and :func:`write_flight_record` writes a record as JSON.
 
-:func:`active_recorders` is the module-global hook the degradation log and the chaos
-plane mirror their entries into, without either depending on whoever owns the
-recorder (the health monitor of :mod:`petastorm_tpu_torch.obs.health`, or a caller that
+:func:`active_recorders` is the module-global hook the degradation log, the chaos
+plane (``chaos`` events) and the dataset watcher (``dataset_watch`` events: the tick, the
+pieces added, the files removed and rewritten) mirror their entries into, without any
+of them depending on whoever owns the recorder (the health monitor of :mod:`petastorm_tpu_torch.obs.health`, or a caller that
 registers one through :func:`activate`). With a monitor attached, the process pool's
 dispatcher records its steals here too.
 """

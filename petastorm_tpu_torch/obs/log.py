@@ -15,8 +15,12 @@ The causes are the JAX package's slugs where the port degrades the same way: the
 pool (``worker_died``, ``respawn_failed``), the read path (``readahead_unavailable``,
 ``readahead_fallback``, ``memcache_oversized``, ``disk_cache``, ``remote_unavailable``),
 the recovery policy (``io_retry``, ``quarantined``, ``footer_unreadable``), the chaos
-plane (``chaos_injected``) and the host-wide cache arena (``arena_unavailable``,
-``arena_full``, ``arena_lease_revoked``).
+plane (``chaos_injected``), the host-wide cache arena (``arena_unavailable``,
+``arena_full``, ``arena_lease_revoked``) and the dataset watch (``dataset_mutated``: the
+watcher saw a removal or a rewrite under a running reader; ``piece_removed`` and
+``piece_rewritten``: a plan item quarantined because its file vanished or changed
+generation; ``watch_error``: a watch tick failed, in its scan, its mutate hook or
+applying its delta).
 :func:`petastorm_tpu_torch.parallel.shm_ring.degradation` is this function.
 """
 from __future__ import annotations

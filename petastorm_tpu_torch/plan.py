@@ -5,8 +5,10 @@ function of (seed, epoch, shard), so every process derives the same global order
 takes its slice with no communication, and any position checkpoints as a small state
 dict (``state_dict``/``load_state_dict``, with a skip map of consumed ordinals for the
 reader's exact resume), and ``peek`` gives the next items without advancing (the
-readahead lookahead of a synchronous pool). The plan extension of the dataset-watch
-plane (``extend``) is not ported (ROADMAP.md Queue 1 item 8c(ii)).
+readahead lookahead of a synchronous pool). The plan grows under a running reader
+(``extend``, the dataset watch of :mod:`petastorm_tpu_torch.dataset.watch`): appended
+items join the current epoch, deferred ones the next, and ``items_in_epoch`` tells the
+reader's watermark how many items each epoch holds.
 """
 from __future__ import annotations
 
@@ -46,7 +48,14 @@ class EpochPlan:
 
     ``num_epochs=None`` means infinite. ``with_epoch=True`` yields
     ``(epoch, ordinal, item)`` instead of ``item``. ``skip``: optional
-    ``{epoch: set(ordinal)}`` of already-consumed work to omit."""
+    ``{epoch: set(ordinal)}`` of already-consumed work to omit.
+
+    The plan is extensible: :meth:`extend` appends items discovered mid-run, into the
+    current epoch (appended files) or the next one (``defer=True``: a rewritten file's
+    new generation must not share an epoch with the old one). Extension is thread-safe
+    against iteration (the dataset watcher extends from its own thread), and
+    :meth:`items_in_epoch` keeps the reader's consumed-ordinal watermark exact across
+    extensions."""
 
     def __init__(self, items, num_epochs=1, shuffle=False, seed=None, with_epoch=False,
                  skip=None):
@@ -61,11 +70,18 @@ class EpochPlan:
         self._epoch = 0
         self._pos = 0
         self._perm = epoch_permutation(len(self._items), 0, seed, shuffle)
+        #: the extension ledger, ``(birth_epoch, item_count)``: the initial items are
+        #: born in epoch 0, each extend() appends one entry (items_in_epoch reads it)
+        self._births = [(0, len(self._items))]
         self._lock = threading.Lock()
 
     @property
     def items(self):
         return self._items
+
+    @property
+    def epoch(self):
+        return self._epoch
 
     def __iter__(self):
         return self
@@ -78,6 +94,9 @@ class EpochPlan:
         yield_epoch = epoch
         ordinal = int(perm[pos])
         pos += 1
+        # roll over at the permutation's end, not the item count's: a deferred
+        # extension grows the items without touching this epoch's permutation, and
+        # its items first appear in the next epoch's
         if pos >= len(perm):
             pos = 0
             epoch += 1
@@ -118,11 +137,39 @@ class EpochPlan:
                 out.append((yield_epoch, ordinal, item) if self._with_epoch else item)
         return out
 
+    def extend(self, new_items, defer=False):
+        """Append newly discovered ``new_items`` to a live plan.
+
+        ``defer=False`` puts them in the current epoch, at the tail of its running
+        permutation (shuffled among themselves by ``(seed, epoch, first ordinal)`` when
+        the plan shuffles): positions already consumed are untouched, so nothing
+        replays. ``defer=True`` puts them in the next epoch. Returns the ordinals of the
+        new items; existing ordinals keep their identity, so consumed-ordinal
+        checkpoints taken before or after an extension stay exact."""
+        new_items = list(new_items)
+        if not new_items:
+            return []
+        with self._lock:
+            start = len(self._items)
+            self._items.extend(new_items)
+            self._births.append((self._epoch + (1 if defer else 0), len(new_items)))
+            new_ords = np.arange(start, len(self._items))
+            if not defer:
+                ords = new_ords
+                if self._shuffle:
+                    seq = np.random.SeedSequence(
+                        [0 if self._seed is None else int(self._seed), int(self._epoch),
+                         int(start)])
+                    ords = ords[np.random.Generator(np.random.PCG64(seq)).permutation(
+                        len(ords))]
+                self._perm = np.concatenate([self._perm, ords])
+            return [int(o) for o in new_ords]
+
     def items_in_epoch(self, epoch):
-        """How many plan items belong to ``epoch``: the denominator of the reader's
-        consumed-ordinal watermark (every epoch holds every item: the port's plan does
-        not grow)."""
-        return len(self._items)
+        """How many plan items belong to ``epoch`` (those born at or before it): the
+        denominator of the reader's consumed-ordinal watermark."""
+        with self._lock:
+            return sum(count for birth, count in self._births if birth <= epoch)
 
     def exhausted(self):
         if not self._items:
@@ -130,12 +177,15 @@ class EpochPlan:
         return self._num_epochs is not None and self._epoch >= self._num_epochs
 
     def reset(self):
-        """Restart from epoch 0."""
+        """Restart from epoch 0. Every item known so far, extensions included, is part
+        of the restarted epoch 0 (the births collapse: the plan replays the dataset as
+        now known)."""
         with self._lock:
             self._epoch = 0
             self._pos = 0
             self._skip = {}
             self._perm = epoch_permutation(len(self._items), 0, self._seed, self._shuffle)
+            self._births = [(0, len(self._items))]
 
     def set_skip(self, skip):
         """Set the {epoch: set(ordinal)} map of work to omit (consumed-aware resume)."""
@@ -156,8 +206,8 @@ class EpochPlan:
 
     def load_state_dict(self, state):
         # fewer items than the checkpoint saw is a real mismatch (ordinals in the
-        # consumed map would dangle); more is legal in the reference, whose datasets may
-        # grow between a save and a restore
+        # consumed map would dangle); more is legal: files appended after the save are
+        # simply unconsumed
         if state["num_items"] > len(self._items):
             raise ValueError(
                 "Checkpoint was taken over %d items; plan has %d"
@@ -166,7 +216,9 @@ class EpochPlan:
         if state["num_items"] < len(self._items) and state["shuffle"] \
                 and int(state["pos"]):
             # a mid-epoch position is only meaningful against the exact permutation it
-            # was taken over; a grown shuffled plan derives a different one
+            # was taken over; a grown shuffled plan derives a different one, so the
+            # position would replay some consumed ordinals and lose some others (the
+            # Reader's resume is immune: pos 0 and the consumed-ordinal skip map)
             raise ValueError(
                 "cannot restore a mid-epoch shuffled checkpoint (pos=%d) into "
                 "a grown plan (%d -> %d items): the permutation changed; "
@@ -182,3 +234,4 @@ class EpochPlan:
             self._perm = epoch_permutation(
                 len(self._items), self._epoch, self._seed, self._shuffle
             )
+            self._births = [(0, len(self._items))]

@@ -53,8 +53,12 @@ records each plan item's spans at the same sites (``reader.read``, ``reader.read
 ``io.pagedec``, ``transform``), its retries (``io_retries``) and the cache tier that
 served it, and notes each delivery and quarantine for the loader's batch attribution.
 
-Options of the JAX package whose machinery is not ported raise ``NotImplementedError``
-naming their ROADMAP.md item (:mod:`petastorm_tpu_torch._unported`).
+``watch=`` (:mod:`petastorm_tpu_torch.dataset.watch`) reads a store that changes under
+the reader: each file's generation token is stamped into its plan items and cache keys
+and checked at every read (a rewritten file's pending items quarantine as
+``piece_rewritten``, a deleted one's as ``piece_removed``), and a watch thread extends
+the plan with appended files in the current epoch and a rewritten file's new generation
+in the next.
 """
 from __future__ import annotations
 
@@ -69,9 +73,9 @@ from collections import OrderedDict
 import numpy as np
 
 from petastorm_tpu_torch import chaos as _chaos
-from petastorm_tpu_torch._unported import reject_unported
 from petastorm_tpu_torch.cache import NullCache, make_cache
-from petastorm_tpu_torch.errors import DecodeFieldError, NoDataAvailableError
+from petastorm_tpu_torch.errors import (DecodeFieldError, NoDataAvailableError,
+                                       PieceRemovedError, PieceRewrittenError)
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
 from petastorm_tpu_torch.io import IoOptions
 from petastorm_tpu_torch.io.lease import LEASE_KEY
@@ -350,16 +354,20 @@ class _WorkerBase:
             cache = self._local.files = OrderedDict()
         pf = cache.get(path)
         if pf is None:
+            # the stat identity this thread's last generation check saw (dataset
+            # watching): the footer is pinned to it and the handle tagged with it
+            stat = getattr(self._local, "stats", {}).get(path)
             f = self._fs.open_input_file(path)
             try:
                 footers = self._footer_cache()
                 metadata = None if footers is None \
-                    else footers.get(self._fs, path, source=f).metadata
+                    else footers.get(self._fs, path, source=f, stat_token=stat).metadata
                 pf = pq.ParquetFile(f, metadata=metadata)
             except BaseException:
                 f.close()
                 raise
             pf._ptpu_source = f
+            pf._ptpu_stat = stat
             cache[path] = pf
             while len(cache) > self.MAX_OPEN_FILES:  # LRU-evict to bound open fds
                 _, old = cache.popitem(last=False)
@@ -506,7 +514,7 @@ class _WorkerBase:
         prefetch must request for its table to be a hit."""
         raise NotImplementedError
 
-    def _pagedec_eligible(self, piece, wanted, peek_only=False):
+    def _pagedec_eligible(self, piece, wanted, peek_only=False, stat_token=None):
         """The pass-through's eligible columns (the batch path's; none here)."""
         return {}
 
@@ -739,15 +747,91 @@ class _WorkerBase:
             pf = cache.pop(path, None)
             if pf is not None:
                 _close_quietly(pf)
+        stats = getattr(self._local, "stats", None) if self._local is not None else None
+        if stats is not None:
+            stats.pop(path, None)
         footers = self._footer_cache()
         if footers is not None:
             footers.invalidate(path)
+
+    # -- generation checks (dataset watching) -------------------------------------------
+
+    def _verify_generation(self, piece):
+        """Check the piece's stamped generation token against the file as it is now,
+        and return the file's stat identity.
+
+        A removed file raises :class:`~petastorm_tpu_torch.errors.PieceRemovedError`;
+        a stat or footer-crc mismatch drops the piece's footer, handle and cache entries
+        and raises :class:`~petastorm_tpu_torch.errors.PieceRewrittenError`. Both are
+        permanent (never retried as transient) and quarantine under the recovery policy
+        with causes of their own. So a read delivers only rows of the generation stamped
+        into its plan item, and no epoch mixes two generations of a file.
+
+        On a match this thread's open handle of the file is pinned to the stat identity
+        seen here: a handle opened under another one (the old generation's, whose
+        replaced inode it still reads) is closed, and the next open parses the footer
+        under this identity."""
+        from petastorm_tpu_torch.dataset.watch import current_stat_token, stat_token_of
+
+        stat = current_stat_token(self._fs, piece.path)  # raises PieceRemovedError
+        stamped_crc = piece.generation.rsplit(".", 1)[1]
+        mismatch = stat_token_of(piece.generation) != stat
+        if not mismatch and stamped_crc != "-":
+            # the stat identity held; a rewrite colliding on size and mtime can hide
+            # behind it, and the footer crc (pinned to this stat identity, so a stale
+            # parse cannot vouch for the new bytes) settles it
+            from petastorm_tpu_torch.io.footercache import shared_footer_cache
+
+            entry = shared_footer_cache().get(self._fs, piece.path, stat_token=stat)
+            mismatch = ("%08x" % entry.crc) != stamped_crc
+        if mismatch:
+            # not counted here: a pool child's registry never reaches the parent's
+            # export, so the parent counts ptpu_dataset_generation_conflicts_total when
+            # it absorbs the piece_rewritten quarantine marker (Reader._absorb_quarantine)
+            self.invalidate_pieces([piece])
+            raise PieceRewrittenError(
+                "%s row group %d was rewritten under the running reader (stamped "
+                "generation %s no longer matches the file); its cache entries are "
+                "invalidated and the watcher plans the new generation into a later epoch"
+                % (piece.path, piece.row_group, piece.generation))
+        stats = getattr(self._local, "stats", None)
+        if stats is None:
+            stats = self._local.stats = {}
+        if stats.get(piece.path) != stat:
+            stats[piece.path] = stat
+            files = getattr(self._local, "files", None)
+            pf = files.get(piece.path) if files is not None else None
+            if pf is not None and getattr(pf, "_ptpu_stat", None) != stat:
+                del files[piece.path]
+                _close_quietly(pf)
+        return stat
+
+    def invalidate_pieces(self, pieces):
+        """Drop every cache layer's entries for ``pieces`` under their stamped
+        generation: this thread's open handle and the shared footer entry, the
+        pass-through's refusals of the file (a rewritten file may compress otherwise,
+        so its columns are judged again), and the memory and disk tiers' decoded
+        payloads by exact key. Called by the read path on a generation conflict and by
+        the dataset watcher when it sees a removal or a rewrite."""
+        invalidate = getattr(self._cache, "invalidate", None)
+        for piece in pieces:
+            self._evict_parquet_file(piece.path)
+            refused = getattr(self, "_pagedec_refused", None)
+            if refused:
+                self._pagedec_refused = {t for t in refused if t[0] != piece.path}
+            if invalidate is not None:
+                for partition in range(self._drop_partitions):
+                    invalidate(_cache_key(piece, self._read_schema, self._predicate,
+                                          self._filters, partition, self._drop_partitions,
+                                          self._seed, self._device_fields))
 
     def _read_columns_once(self, piece, columns):
         with _prov.span("reader.read"):
             if _chaos.ACTIVE is not None:
                 _chaos.ACTIVE.hit("reader.read",
                                   key="%s:%s" % (piece.path, piece.row_group))
+            if getattr(piece, "generation", None) is not None:
+                self._verify_generation(piece)
             engine = self._remote_engine(create=True)
             if engine is not None:
                 # the engine drops the columns the file lacks against the footer it holds
@@ -774,6 +858,9 @@ class _WorkerBase:
             if _chaos.ACTIVE is not None:
                 _chaos.ACTIVE.hit("reader.read_run", key="%s:%s" % (
                     pieces[0].path, ",".join(str(p.row_group) for p in pieces)))
+            if getattr(pieces[0], "generation", None) is not None:
+                # a run is one generation of one file (io.coalesce.plan_runs)
+                self._verify_generation(pieces[0])
             row_groups = [p.row_group for p in pieces]
             engine = self._remote_engine(create=True)
             if engine is not None:
@@ -983,12 +1070,23 @@ class ArrowWorker(_WorkerBase):
         piece, _partition = item
         wanted = list(self._read_schema.fields.keys())
         out = {}
-        eligible = self._pagedec_eligible(piece, wanted)
+        stat = None
+        if getattr(piece, "generation", None) is not None and self._pagedec_active() \
+                and self._pagedec_shape_ok():
+            # the pass-through reads raw spans at its footer's offsets: check the
+            # generation first, so that the footer and this thread's handle it reads
+            # through are the stamped generation's
+            stat = self._verify_generation(piece)
+        eligible = self._pagedec_eligible(piece, wanted, stat_token=stat)
         if eligible:
-            out.update(self._pagedec_read(piece, eligible))
+            out.update(self._pagedec_read(piece, eligible, stat_token=stat))
         # one read: the wanted columns and the mask's, less the pass-through's
         read_columns = [c for c in self._first_read_columns() if c not in out]
         if not read_columns:
+            if getattr(piece, "generation", None) is not None:
+                # every wanted column passed through: no host read checked the
+                # generation after the raw spans were read, so check it here
+                self._verify_generation(piece)
             return out
         table = self._read_columns(piece, read_columns)
         indices = self._selected_rows(item, table, self._row_mask(table))
@@ -1032,12 +1130,19 @@ class ArrowWorker(_WorkerBase):
                 and self._drop_partitions <= 1 and self._transform_spec is None
                 and self._ngram is None)
 
-    def _pagedec_footer(self, path, peek_only=False):
+    def _pagedec_footer(self, path, peek_only=False, stat_token=None):
         """The parsed footer for eligibility classification, from the shared footer
         cache, or ``None`` (the classic read then surfaces any error). ``peek_only`` (a
         prefetch) never opens the file: eligibility is then unknown until a real read
-        has cached the footer."""
+        has cached the footer. ``stat_token`` (a watched read: the stat identity its
+        generation check saw) pins the footer to that identity."""
         footers = self._footer_cache()
+        if footers is not None and stat_token is not None \
+                and self._remote_engine(create=True) is None:
+            try:
+                return footers.get(self._fs, path, stat_token=stat_token).metadata
+            except Exception:  # noqa: BLE001 — the classic read will surface it
+                return None
         if footers is not None:
             entry = footers.peek(path)
             if entry is not None:
@@ -1052,13 +1157,13 @@ class ArrowWorker(_WorkerBase):
         except Exception:  # noqa: BLE001 — the classic read will surface it
             return None
 
-    def _pagedec_eligible(self, piece, wanted, peek_only=False):
+    def _pagedec_eligible(self, piece, wanted, peek_only=False, stat_token=None):
         """Footer-only eligibility: ``{column: (col_index, Eligibility)}`` for the
         eligible subset of ``wanted``. Cheap (no chunk bytes); the walker's page-level
         gate runs after the raw spans arrive."""
         if not self._pagedec_active() or not self._pagedec_shape_ok():
             return {}
-        md = self._pagedec_footer(piece.path, peek_only=peek_only)
+        md = self._pagedec_footer(piece.path, peek_only=peek_only, stat_token=stat_token)
         if md is None or piece.row_group >= md.num_row_groups:
             return {}
         from petastorm_tpu_torch.io.pagedec import classify_chunk
@@ -1076,7 +1181,7 @@ class ArrowWorker(_WorkerBase):
                 out[name] = (i, el)
         return out
 
-    def _pagedec_read(self, piece, eligible):
+    def _pagedec_read(self, piece, eligible, stat_token=None):
         """Fetch + walk the eligible columns' raw chunk spans into PassthroughColumn
         values. Page-level ineligibility degrades per column; corruption raises
         :class:`~petastorm_tpu_torch.errors.PagedecCorruptError`. Each walk records the
@@ -1090,7 +1195,7 @@ class ArrowWorker(_WorkerBase):
             if _chaos.ACTIVE is not None:
                 _chaos.ACTIVE.hit("io.pagedec",
                                   key="%s:%s" % (piece.path, piece.row_group))
-            md = self._pagedec_footer(piece.path)
+            md = self._pagedec_footer(piece.path, stat_token=stat_token)
             if md is None:
                 return {}
             out = {}
@@ -1418,7 +1523,7 @@ class Reader:
                  is_batched_reader=False, results_timeout_s=300.0,
                  wire_serializer="pickle", worker_respawns=None, io_options=None,
                  transport=None, ngram=None, recovery=None, filesystem=None,
-                 provenance=None, tenant=None):
+                 provenance=None, tenant=None, path=None, watch=None, watch_paths=None):
         #: the resolved TenantContext, or None (untagged): an explicit argument, else the
         #: PTPU_TENANT environment; an invalid explicit slug raises
         self.tenant_context = _tenant.resolve(tenant)
@@ -1432,8 +1537,8 @@ class Reader:
         self.shard_count = shard_count
         shard_idx = shard_indices(len(pieces), cur_shard, shard_count, shard_seed) \
             if shard_count else np.arange(len(pieces))
-        items = [(pieces[int(i)], partition) for i in shard_idx
-                 for partition in range(max(1, shuffle_row_drop_partitions))]
+        self._drop_partitions = max(1, shuffle_row_drop_partitions)
+        items = self._to_items([pieces[int(i)] for i in shard_idx])
         if not items:
             raise NoDataAvailableError(
                 "No row groups to read (empty dataset, over-filtering selector/predicate, "
@@ -1487,6 +1592,17 @@ class Reader:
         #: claims items the moment it starts, and a recorder attached later misses the
         #: items a small plan has already drained
         self._prov = provenance
+        #: the dataset watch (``watch=``): a thread that diffs the piece set every
+        #: interval and feeds _apply_plan_delta; None for a frozen dataset (the default)
+        self._watcher = None
+        if watch is not None:
+            from petastorm_tpu_torch.dataset.watch import DatasetWatcher
+
+            self._watcher = DatasetWatcher(filesystem, path, watch,
+                                           on_delta=self._apply_plan_delta)
+            # every file that existed at plan time, those plan-time selection pruned
+            # included: the first tick must not re-add what the selection excluded
+            self._watcher.prime(pieces, known_paths=watch_paths)
         self._start()
 
     def _start(self):
@@ -1507,6 +1623,10 @@ class Reader:
                              self._plan)
         self._results_iter = self._executor.results()
         self.stopped = False
+        if self._watcher is not None:
+            # started last: a failed pool start must not leak a watch thread, and
+            # reset() and a restore restart the watch with the stream
+            self._watcher.start()
 
     def __iter__(self):
         return self
@@ -1525,6 +1645,57 @@ class Reader:
                 >= self._plan.items_in_epoch(self._resume_epoch):
             del self._consumed[self._resume_epoch]
             self._resume_epoch += 1
+
+    # -- the dataset watch --------------------------------------------------------------
+
+    @property
+    def dataset_watcher(self):
+        """The live :class:`~petastorm_tpu_torch.dataset.watch.DatasetWatcher`, or
+        ``None`` for a reader opened without ``watch=``."""
+        return self._watcher
+
+    def _apply_plan_delta(self, delta):
+        """The watcher's delta seam (runs on the watch thread). Added files extend the
+        current epoch (a new path cannot mix generations); a rewritten file's new
+        generation is deferred to the next epoch (the old generation may have delivered
+        rows in this one); removed and rewritten pieces have their cache entries
+        dropped, and their pending plan items fail the generation check at read time
+        and quarantine as ``piece_removed`` / ``piece_rewritten``, charged to the
+        watermark like any other skip."""
+        stale = [p for _path, pieces in delta.removed for p in pieces]
+        stale += [p for _path, old, _new in delta.rewritten for p in old]
+        if stale:
+            self._worker.invalidate_pieces(stale)
+        extended = False
+        added = [p for p in delta.added if self._owns_piece(p)]
+        if added:
+            self._plan.extend(self._to_items(added), defer=False)
+            extended = True
+        replanned = [p for _path, _old, new in delta.rewritten for p in new
+                     if self._owns_piece(p)]
+        if replanned:
+            self._plan.extend(self._to_items(replanned), defer=True)
+            extended = True
+        if extended:
+            self._num_items = len(self._plan.items)
+            from petastorm_tpu_torch.dataset.watch import watch_metrics
+
+            watch_metrics()["plan_extensions"].inc()
+
+    def _owns_piece(self, piece):
+        """The shard of a piece the watcher discovered: crc32 of ``path:row_group``
+        modulo the shard count, the same on every process, so the shards' extensions
+        stay disjoint and their union exact with no communication."""
+        if not self.shard_count:
+            return True
+        import zlib
+
+        key = "%s:%s" % (piece.path, piece.row_group)
+        return zlib.crc32(key.encode("utf-8")) % self.shard_count == self.cur_shard
+
+    def _to_items(self, pieces):
+        return [(piece, partition) for piece in pieces
+                for partition in range(self._drop_partitions)]
 
     def _items_identity_crc(self, count):
         """crc32 over the identity (``path:row_group:partition``) of the first ``count``
@@ -1565,22 +1736,35 @@ class Reader:
         if num_rows is None or num_rows < 0:
             # the metadata fast path plans without footers: read the count now
             num_rows = self._resolve_quarantined_rows(path, row_group)
+        # a skip because the file vanished or changed generation under the reader gets
+        # a kind and a degradation cause of its own: bad data and a dataset that moved
+        # must be told apart without reading exception chains
+        kind, cause = marker.kind, "quarantined"
+        if isinstance(marker.error, PieceRewrittenError):
+            kind = cause = "piece_rewritten"
+            from petastorm_tpu_torch.dataset.watch import watch_metrics
+
+            # counted here, in the consumer's process, not where the worker found it:
+            # a pool child's registry never reaches the parent's export
+            watch_metrics()["generation_conflicts"].inc()
+        elif isinstance(marker.error, PieceRemovedError):
+            kind = cause = "piece_removed"
         self.quarantine_report.add(QuarantineEntry(
             epoch, ordinal, path, row_group, num_rows, marker.error, marker.attempts,
-            marker.kind))
+            kind))
         count_quarantined(num_rows)
         if self.tenant_context is not None:
             _tenant.charge("quarantined", max(0, num_rows or 0),
                            label=self.tenant_context.tenant)
         degradation(
-            "quarantined", "poison item quarantined after %d attempt(s): %s row group %s "
+            cause, "poison item quarantined after %d attempt(s): %s row group %s "
             "(epoch=%s ordinal=%s, %s); skipped and charged to the checkpoint "
             "watermark, see Reader.quarantine_report", marker.attempts, path, row_group,
-            epoch, ordinal, marker.kind, once=False)
+            epoch, ordinal, kind, once=False)
         if self._prov is not None:
             # a quarantined item never enters the delivery FIFO: the ledgers stay
             # disjoint
-            self._prov.note_quarantined(epoch, ordinal, marker.attempts, marker.kind)
+            self._prov.note_quarantined(epoch, ordinal, marker.attempts, kind)
         self._mark_consumed((epoch, ordinal))
 
     def _resolve_quarantined_rows(self, path, row_group):
@@ -1728,6 +1912,8 @@ class Reader:
             out["children"] = fn()
         if self._footer_unreadable:
             out["footer_unreadable"] = self._footer_unreadable
+        if self._watcher is not None:
+            out.update(self._watcher.stats())
         return out
 
     def set_trace(self, tracer):
@@ -1859,7 +2045,11 @@ class Reader:
         self.stopped = True
 
     def join(self):
-        # the worker's IO runtime first: a stop() mid-stream can leave executor threads
+        # the watch thread first: a delta applied while the pool tears down would extend
+        # a plan nobody drains (reset() and a restore start it again in _start)
+        if self._watcher is not None:
+            self._watcher.stop()
+        # then the worker's IO runtime: a stop() mid-stream can leave executor threads
         # waiting in ReadaheadPool.get, and its shutdown releases them (to a synchronous
         # fallback) so the executor's join does not sit out its timeout
         self._worker.close()
@@ -2145,8 +2335,17 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     ``ptpu_tenant_*`` family this reader's work touches is charged under its label:
     delivered and quarantined rows, worker seconds, bytes served, arena residency,
     hedged GETs.
+
+    ``watch``: a store that changes under the reader
+    (:class:`~petastorm_tpu_torch.dataset.WatchOptions`, a dict of its fields, or
+    ``True`` for the defaults; a single dataset path). Each file's generation token
+    (size, mtime and footer crc) is stamped into its plan items and cache keys and
+    checked at every read: under ``recovery={"on_poison": "quarantine"}`` a rewritten
+    file's pending items quarantine as ``piece_rewritten`` and a deleted one's as
+    ``piece_removed``. A watch thread (``Reader.dataset_watcher``; ``poll_once()`` runs
+    one tick) extends the plan with appended files in the current epoch and a rewritten
+    file's new generation in the next, with the checkpoint watermark exact.
     """
-    reject_unported("make_reader", watch=watch)
     tenant_ctx = _tenant.resolve(tenant)
     recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
                                        io_retry_backoff_s=io_retry_backoff_s,
@@ -2156,9 +2355,15 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     fs, path = get_filesystem_and_path_or_paths(dataset_url, storage_options, filesystem)
     stored_schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)
+    watch_paths = {p.path for p in pieces}  # the file set before any selection
     pieces = _apply_rowgroup_selector(fs, path, pieces, rowgroup_selector)
     stats_pieces = pieces  # the plan's input, row-group statistics still attached
     pieces, partition_info, filters = _plan_pieces(pieces, filters, predicate, shard_count)
+    watch = _resolve_watch(watch)
+    if watch is not None:
+        from petastorm_tpu_torch.dataset.watch import stamp_generation_tokens
+
+        pieces = stamp_generation_tokens(fs, pieces, footer_crc=watch.footer_crc)
     if partition_info:
         stored_schema = _schema_with_partitions(stored_schema, partition_info)
     ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
@@ -2189,10 +2394,18 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
                wire_serializer=wire_serializer or "pickle",
                worker_respawns=recovery.worker_respawns, io_options=io_options,
                transport=transport, ngram=ngram, recovery=recovery, filesystem=fs,
-               provenance=_prov.resolve(provenance), tenant=tenant_ctx)
+               provenance=_prov.resolve(provenance), tenant=tenant_ctx, path=path,
+               watch=watch, watch_paths=watch_paths)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r
+
+
+def _resolve_watch(watch):
+    """The factories' normalization of ``watch=``."""
+    from petastorm_tpu_torch.dataset.watch import WatchOptions
+
+    return WatchOptions.normalize(watch)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type="thread",
@@ -2238,9 +2451,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     it reads classically (no pass-through) and refuses a ``predicate`` and
     ``decode_on_device``, as :func:`make_reader` does.
 
-    ``tenant``: see :func:`make_reader`.
+    ``tenant`` and ``watch``: see :func:`make_reader`.
     """
-    reject_unported("make_batch_reader", watch=watch)
     tenant_ctx = _tenant.resolve(tenant)
     recovery = RecoveryOptions.resolve(recovery, io_retries=io_retries,
                                        io_retry_backoff_s=io_retry_backoff_s,
@@ -2254,8 +2466,14 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     pieces = []
     for p in paths:
         pieces.extend(load_row_groups(fs, p))
+    watch_paths = {p.path for p in pieces}  # the file set before any selection
     stats_pieces = pieces  # the plan's input, row-group statistics still attached
     pieces, partition_info, filters = _plan_pieces(pieces, filters, predicate, shard_count)
+    watch = _resolve_watch(watch)
+    if watch is not None:
+        from petastorm_tpu_torch.dataset.watch import stamp_generation_tokens
+
+        pieces = stamp_generation_tokens(fs, pieces, footer_crc=watch.footer_crc)
     if partition_info:
         stored_schema = _schema_with_partitions(stored_schema, partition_info)
     ngram, read_schema = _resolve_ngram_schema(schema_fields, stored_schema, predicate)
@@ -2289,7 +2507,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                    wire_serializer, wire_serializer) or "arrow",
                worker_respawns=recovery.worker_respawns, io_options=io_options,
                transport=transport, ngram=ngram, recovery=recovery, filesystem=fs,
-               provenance=_prov.resolve(provenance), tenant=tenant_ctx)
+               provenance=_prov.resolve(provenance), tenant=tenant_ctx, path=path,
+               watch=watch, watch_paths=watch_paths)
     r.transform_spec = transform_spec
     r.device_decode_fields = device_fields
     return r

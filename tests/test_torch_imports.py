@@ -317,7 +317,8 @@ def test_item_6_options_are_taken(tmp_path, name):
 
 
 # NGram is ported (item 7): its case now holds make_dataloader(sharding=...), which
-# raises naming item 12 before it builds a reader
+# raises naming item 12 before it builds a reader. The dataset watch is ported (item
+# 8c(ii)): its case reads, watched
 @pytest.mark.parametrize("case", ["cache_type", "io_retries", "recovery", "watch",
                                   "sharding", "make_dataloader_sharding"])
 def test_options_still_unported_raise_naming_their_item(tmp_path, case):
@@ -361,15 +362,21 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
         assert rec.io_retries == {"io_retries": 2, "recovery": 4}[case]
         assert rec.quarantine == (case == "recovery")
         return
-    item = {"watch": r"item 8c\(ii\)", "sharding": "item 12",
-            "make_dataloader_sharding": "item 12"}[case]
-    with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
+    if case == "watch":
+        # the dataset watch is taken: every row once, each plan item stamped with its
+        # file's generation, and the watcher's gauges in io_stats
+        with make_batch_reader(url, reader_pool_type="dummy", watch=True) as r:
+            got = sorted(int(i) for b in r for i in np.asarray(b.id))
+            assert r.dataset_watcher is not None
+            assert all(piece.generation for piece, _p in r._plan.items)
+            assert r.io_stats()["watch_errors"] == 0
+        assert got == [0, 1, 2, 3]
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         if case == "sharding":
             DataLoader(object(), 4, device="cpu", sharding=object())
-        elif case == "make_dataloader_sharding":
-            make_dataloader(url, 4, sharding=object(), device="cpu")
         else:
-            make_batch_reader(url, watch=True)
+            make_dataloader(url, 4, sharding=object(), device="cpu")
 
 
 @pytest.mark.parametrize("kwargs,item", [
@@ -447,9 +454,26 @@ def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwar
             assert sorted(int(row.id) for row in reader) == [0, 1, 2, 3]
         assert default_registry().snapshot()[name] - before == 8
         return
-    for factory in (make_batch_reader, make_reader):
-        with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
-            factory("file://" + str(tmp_path), **kwargs)
+    # the dataset-watch slice (8c(ii)) is ported: both factories read every row of a
+    # watched store (the per-row one from a store with a unischema), every plan item
+    # stamped with its file's generation token
+    from petastorm_tpu_torch import types as ptypes
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.metadata import write_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    rows_url = "file://" + str(tmp_path) + "-rows"
+    schema = Unischema("S", [UnischemaField("id", np.int64, (),
+                                            ScalarCodec(ptypes.LongType()), False)])
+    write_dataset(rows_url, schema, ({"id": i} for i in range(4)), row_group_size_mb=1,
+                  rows_per_file=4)
+    with make_batch_reader("file://" + str(tmp_path), reader_pool_type="dummy",
+                           **kwargs) as reader:
+        assert sorted(int(i) for b in reader for i in b.id) == [0, 1, 2, 3]
+        assert all(p.generation for p, _ in reader._plan.items)
+    with make_reader(rows_url, reader_pool_type="dummy", **kwargs) as reader:
+        assert sorted(int(row.id) for row in reader) == [0, 1, 2, 3]
+        assert all(p.generation for p, _ in reader._plan.items)
 
 
 @pytest.mark.parametrize("action,item", [
@@ -457,10 +481,31 @@ def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwar
     ("remove_file", r"item 8c\(ii\)"), ("append_piece", r"item 8c\(ii\)"),
 ])
 def test_chaos_actions_of_later_slices_raise_naming_them(action, item):
-    from petastorm_tpu_torch.chaos import FaultRule
+    """The ``net.*`` actions still raise naming item 4(c); the mutation actions of item
+    8c(ii) are ported: the rule is made, and firing it at the ``dataset.mutate`` site
+    calls the payload's method of the same name with the rule's target."""
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
 
-    with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
-        FaultRule("transport.send", action)
+    if action.startswith("net."):
+        with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
+            FaultRule("transport.send", action)
+        return
+
+    class _Mutator:
+        calls = []
+
+        def remove_file(self, target):
+            self.calls.append(("remove_file", target))
+
+        def append_piece(self, target):
+            self.calls.append(("append_piece", target))
+
+    target = {"name": "part_zz0.parquet", "start": 100, "rows": 4}
+    plan = FaultPlan([FaultRule("dataset.mutate", action, nth=1, target=target)])
+    mutator = _Mutator()
+    assert plan.hit("dataset.mutate", key="tick=1", payload=mutator) is mutator
+    assert plan.hit("dataset.mutate", key="tick=2", payload=mutator) is mutator
+    assert mutator.calls == [(action, target)]
 
 
 def test_trace_and_metrics_are_taken_by_every_loader(tmp_path):

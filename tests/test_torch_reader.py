@@ -167,7 +167,8 @@ def test_reset_restarts_the_epoch(ref_store):
 # the store, equal to the plain read (tests/test_torch_remote_io.py, test_torch_arena.py).
 # The recovery policy is ported (item 8a): the io_retries and recovery cases read too.
 # Provenance is ported (item 8b(ii)): its case reads too, and records every row group.
-# The tenant is ported (item 8c(i)): its case reads too, and charges every row to it
+# The tenant is ported (item 8c(i)): its case reads too, and charges every row to it.
+# The dataset watch is ported (item 8c(ii)): its case reads too, equal to the plain read
 @pytest.mark.parametrize("kwargs", [
     {"reader_pool_type": "process", "transport": "tcp"},
     {"io_options": {"arena_bytes": 1 << 20}},
@@ -177,7 +178,8 @@ def test_reset_restarts_the_epoch(ref_store):
     {"tenant": "team-a"}, {"watch": True},
 ])
 def test_unported_reader_options_raise_naming_the_roadmap(ref_store, kwargs):
-    if "io_options" in kwargs or "io_retries" in kwargs or "recovery" in kwargs:
+    if "io_options" in kwargs or "io_retries" in kwargs or "recovery" in kwargs \
+            or "watch" in kwargs:
         from petastorm_tpu_torch.io import arena as arena_mod
         from petastorm_tpu_torch.io.memcache import shared_store
 
