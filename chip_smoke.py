@@ -271,12 +271,20 @@ Phases (each passes or the script exits non-zero, printing no result line):
    ``'arrow'``: the same items, ids and quarantine, each conflict counted once in the
    parent.
 
+18. Multi-card placement (the comment block above ``phase_place_world_of_one``): (a) a
+   world of one over NCCL, phase 4's main path with ``sharding=batch_sharding(
+   make_mesh())``: DTensors of the global batch, pixels per id phase 7's; (b) two ranks
+   over gloo on the one card: each rank's main path, two-epoch ``InMemDataLoader`` and
+   pass-through over its shard, ids once across the ranks, pixels per id phase 7's,
+   the pass-through's rows the store's, every kernel once a batch on each rank.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
 in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's,
 ``slice13_launches`` in phase 12's, ``slice14_launches`` in phase 13's,
 ``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's,
-``slice17_launches`` in phase 16's, ``slice18_launches`` in phase 17's), the card's
+``slice17_launches`` in phase 16's, ``slice18_launches`` in phase 17's,
+``slice19_launches`` in phase 18's, each rank apart), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -6224,6 +6232,402 @@ def phase_watch_tabular(root, arrays, predicted, work, smi):
             "rows_per_s": batches * TAB_BATCH / dt}
 
 
+# -- phase 18: multi-card placement -------------------------------------------------
+#
+# BASELINE.json config #5: the main path and the pass-through feeding a data-parallel
+# job through ``sharding=batch_sharding(make_mesh())`` (each rank reads its shard, cuts
+# its share of the global batch, decodes it on its own card and gets DTensors of its
+# rows). The machine has one card, so: (a) a world of one over NCCL on cuda:0, phase 4's
+# store and configuration (K2 as the device transform), every field a DTensor
+# (``Shard(0)``, the global batch of 256), the pixels per id equal to phase 7's
+# unsharded run; (b) two ranks over gloo, both on the one card (each rank sets cuda:0
+# before ``init_device_mesh``; NCCL refuses two ranks on one device, and gloo runs only
+# some collectives on CUDA tensors, so the ranks compare through host copies with
+# ``all_gather_object``): each rank's main path over its shard (global batch 256, 128 a
+# rank), its two-epoch ``InMemDataLoader`` over the same shard, and its pass-through of
+# phase 5's store (``pagedec="on"``, global batch 32,768, one row group a rank a batch).
+# Phase 1's row groups are not all one size, so the ranks' shards differ (1,896 and 2,200
+# rows): each rank's main path delivers its shard's full batches (the rows of its last
+# partial batch, whichever its three reader threads finish last, are dropped),
+# the in-memory loader serves the smaller shard's full batches an epoch (the batch count
+# agreed across the ranks). Checked: the ids once across the ranks, pixels per id equal
+# to phase 7's (a 64-bit weighted digest a row, weights from PLACE_SEED), the
+# pass-through's rows equal to the source's (sorted 64-bit row keys over the 40
+# columns), each kernel launched once a batch on each rank. The first DTensor built in a
+# process imports torch's distributed-tensor machinery (hundreds of modules): it is
+# timed apart, before each timed window. Placement across more than one physical card
+# stays unmeasured here.
+
+PLACE_SEED = 19
+PLACE_WORKERS = 3  # a rank's reader threads: the two ranks share the host's cores
+PLACE_DEADLINE_S = 300
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pixel_weights(device):
+    """PLACE_SEED's int64 weights, one an image value: a row's digest is its weighted
+    sum (below 2**63 for uint8 rows of IMG)."""
+    import torch
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(PLACE_SEED)
+    return torch.randint(1, 1 << 31, (IMG[0] * IMG[1] * IMG[2],), generator=gen,
+                         dtype=torch.int64).to(device)
+
+
+def pixel_digest(rows, weights, chunk=BATCH):
+    """A 64-bit digest of each uint8 image row, on the rows' device: (n,) int64."""
+    import torch
+
+    out = [(rows[i:i + chunk].reshape(len(rows[i:i + chunk]), -1).to(torch.int64)
+            * weights).sum(1) for i in range(0, len(rows), chunk)]
+    return torch.cat(out)
+
+
+def warm_dtensor(sharding):
+    """Seconds of the process's first DTensor (``to_dtensor`` of one element on the
+    card), which imports torch's distributed-tensor machinery."""
+    import torch
+
+    from petastorm_tpu_torch.parallel.mesh import to_dtensor
+
+    t0 = time.perf_counter()
+    to_dtensor(torch.zeros(1, device=sharding.device), sharding)
+    return time.perf_counter() - t0
+
+
+def _all_dtensors(batch):
+    from torch.distributed.tensor import DTensor, Shard
+
+    return all(isinstance(v, DTensor) and tuple(v.placements) == (Shard(0),)
+               for v in batch.values())
+
+
+def phase_place_world_of_one(url, images, smi):
+    """(a) (comment above); ``images`` ((ROWS, 224, 224, 3) uint8 on the card, by id)
+    from phase 7's first thread-pool run."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+    from petastorm_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d" % _free_port(),
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh()
+        first_s = warm_dtensor(batch_sharding(mesh))
+        workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+        reader = make_batch_reader(url, decode_on_device=True, workers_count=workers,
+                                   shuffle_row_groups=False)
+        counts = torch.zeros(ROWS, dtype=torch.int32, device="cuda")
+        bad = torch.zeros((), dtype=torch.int64, device="cuda")
+        placed, shapes, plain_ok, batches = True, set(), False, 0
+        _jpeg_launch_counters(zero=True)
+        t0 = time.perf_counter()
+        with DataLoader(reader, BATCH, sharding=batch_sharding(mesh),
+                        device_transform=_jpeg_transform()) as loader:
+            device = loader.device
+            for batch in loader:
+                placed = placed and _all_dtensors(batch)
+                shapes.add(tuple(batch["image_u8"].shape))
+                ids = batch["id"].to_local()
+                u8 = batch["image_u8"].to_local()
+                counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                bad.add_((images.index_select(0, ids) != u8).sum())
+                if batches == 0:
+                    plain_ok = torch.equal(batch["image"].to_local(), image._normalize_plain(
+                        u8, MEAN, STD, torch.bfloat16))
+                batches += 1
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _jpeg_launch_counters()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    rows_per_s = batches * BATCH / wall
+    log("placement (a): a world of one over %s on %s (the first DTensor %.3f s), %d "
+        "batches of %d (%.1f rows/s); shapes %s; launches %s; %d uint8 values apart from "
+        "phase 7's images; %s" % (
+            backend, device, first_s, batches, BATCH, rows_per_s, sorted(shapes),
+            json.dumps(launches), bad.item(), smi))
+    check(device == torch.device("cuda", 0), "(a): the loader's device is %s" % device)
+    check(placed, "(a): a delivered field is not a DTensor placed Shard(0)")
+    check(shapes == {(BATCH,) + IMG}, "(a): global shapes %s" % sorted(shapes))
+    check(bool((counts == 1).all()), "(a): ids not delivered once each")
+    check(bad.item() == 0, "(a): images differ from phase 7's unsharded run")
+    check(plain_ok, "(a): K2 differs from its plain version")
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"] == batches
+          == ROWS // BATCH, "(a): launches %s for %d batches" % (launches, batches))
+    return {"launches": launches, "batches": batches, "rows_per_s": rows_per_s,
+            "first_dtensor_s": first_s}
+
+
+def _shard_ids(url, rank, world):
+    """The ids of the rank's shard in the order its reader delivers them (host read of
+    the id column)."""
+    import numpy as np
+
+    from petastorm_tpu_torch import make_batch_reader
+
+    with make_batch_reader(url, schema_fields=["id"], cur_shard=rank, shard_count=world,
+                           reader_pool_type="dummy", shuffle_row_groups=False) as r:
+        return [int(i) for b in r for i in np.asarray(b.id)]
+
+
+def _rank_main_path(url, rank, world, sharding, weights):
+    """(b)'s main path on one rank: its shard, its share of the global batch."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+
+    reader = make_batch_reader(url, decode_on_device=True, cur_shard=rank, shard_count=world,
+                               workers_count=PLACE_WORKERS, shuffle_row_groups=False)
+    ids, digests, placed, plain_ok, batches = [], [], True, False, 0
+    _jpeg_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    with DataLoader(reader, BATCH, sharding=sharding,
+                    device_transform=_jpeg_transform()) as loader:
+        local_batch = loader.local_batch_size
+        for batch in loader:
+            placed = placed and _all_dtensors(batch) \
+                and tuple(batch["image_u8"].shape) == (BATCH,) + IMG
+            u8 = batch["image_u8"].to_local()
+            ids.append(batch["id"].to_local())
+            digests.append(pixel_digest(u8, weights))
+            if batches == 0:
+                plain_ok = torch.equal(batch["image"].to_local(), image._normalize_plain(
+                    u8, MEAN, STD, torch.bfloat16))
+            batches += 1
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"ids": torch.cat(ids).tolist(), "digests": torch.cat(digests).tolist(),
+            "placed": placed, "plain_ok": plain_ok, "batches": batches,
+            "local_batch": local_batch, "launches": _jpeg_launch_counters(),
+            "rows_per_s": batches * local_batch / wall}
+
+
+def _rank_inmem(url, rank, world, sharding, weights):
+    """(b)'s in-memory loader on one rank: its shard resident on the card, two epochs
+    of global batches."""
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.loader import InMemDataLoader
+
+    reader = make_batch_reader(url, decode_on_device=True, cur_shard=rank, shard_count=world,
+                               workers_count=PLACE_WORKERS, shuffle_row_groups=True, seed=0)
+    _jpeg_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    loader = InMemDataLoader(reader, BATCH, num_epochs=INMEM_EPOCHS, seed=0,
+                             sharding=sharding, device_transform=_k2_transform(["image"]))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fill = _jpeg_launch_counters()
+    _jpeg_launch_counters(zero=True)
+    epochs = [[] for _ in range(INMEM_EPOCHS)]
+    digests, placed = {}, True
+    with loader:
+        per_epoch = len(loader)
+        for n, batch in enumerate(loader):
+            placed = placed and _all_dtensors(batch) and batch["id"].shape == (BATCH,)
+            ids = batch["id"].to_local()
+            epochs[n // per_epoch].append(ids)
+            for i, d in zip(ids.tolist(), pixel_digest(batch["image_u8"].to_local(),
+                                                       weights).tolist()):
+                digests.setdefault(i, set()).add(d)
+        torch.cuda.synchronize()
+    return {"epochs": [torch.cat(e).tolist() for e in epochs], "per_epoch": per_epoch,
+            "local_batch": loader.local_batch_size, "rows": loader.rows,
+            "digests": {str(i): sorted(d) for i, d in digests.items()}, "placed": placed,
+            "fill_launches": fill, "launches": _jpeg_launch_counters(), "fill_s": fill_s}
+
+
+def _rank_passthrough(tab_root, rank, world, sharding, out):
+    """(b)'s pass-through on one rank: its shard of phase 5's store, one row group a
+    rank a batch; the sorted row keys go to ``out`` (.npy)."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.io import pagedec
+    from petastorm_tpu_torch.loader import DataLoader
+
+    reader = make_batch_reader("file://" + tab_root, cur_shard=rank, shard_count=world,
+                               workers_count=PLACE_WORKERS, shuffle_row_groups=False,
+                               io_options={"pagedec": "on"})
+    counters0 = pagedec.counter_values()
+    _tab_launch_counters(zero=True)
+    keys, placed, batches = [], True, 0
+    t0 = time.perf_counter()
+    with DataLoader(reader, world * TAB_RG_ROWS, sharding=sharding) as loader:
+        for batch in loader:
+            placed = placed and _all_dtensors(batch) \
+                and batch["label"].shape == (world * TAB_RG_ROWS,)
+            keys.append(row_keys({k: v.to_local() for k, v in batch.items()}))
+            batches += 1
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    np.save(out, torch.cat(keys).sort().values.cpu().numpy())
+    counters = {k: v - counters0[k] for k, v in pagedec.counter_values().items()}
+    return {"batches": batches, "placed": placed, "launches": _tab_launch_counters(),
+            "host_inflate_columns": counters["host_inflate_columns"],
+            "rows_per_s": batches * TAB_RG_ROWS / wall}
+
+
+def phase18_rank(rank, world, port, cfg, out):
+    """One rank of (b), in a spawned process: joins the gloo group with a deadline,
+    builds the mesh on the card, runs the three parts, checks its ids against the other
+    ranks' through ``all_gather_object`` and writes JSON to ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)  # one card: every rank on it (the mesh keeps a set device)
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from petastorm_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+
+        mesh = make_mesh()
+        sharding = batch_sharding(mesh)
+        weights = pixel_weights("cuda")
+        res = {"device": str(sharding.device), "mesh": list(mesh.mesh.shape),
+               "first_dtensor_s": warm_dtensor(sharding),
+               "shard": _shard_ids(cfg["url"], rank, world)}
+        res["main"] = _rank_main_path(cfg["url"], rank, world, sharding, weights)
+        res["inmem"] = _rank_inmem(cfg["url"], rank, world, sharding, weights)
+        res["tab"] = _rank_passthrough(cfg["tab_root"], rank, world, sharding,
+                                       out + ".keys.npy")
+        # the other ranks' ids, through host copies
+        everyone = [None] * world
+        dist.all_gather_object(everyone, {"main": res["main"]["ids"],
+                                          "inmem": res["inmem"]["epochs"],
+                                          "shard": len(res["shard"])})
+        res["others"] = [e for r, e in enumerate(everyone) if r != rank]
+        res["shard_rows"] = [e["shard"] for e in everyone]
+        with open(out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_place_two_ranks(url, tab_root, arrays, digests, predicted, work, smi):
+    """(b) (comment above); ``digests`` ((ROWS,) int64 by id) of phase 7's images."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    world = 2
+    cfg = {"url": url, "tab_root": tab_root}
+    outs = [os.path.join(work, "place_rank%d.json" % r) for r in range(world)]
+    port = _free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=phase18_rank, args=(r, world, port, cfg, outs[r]))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=PLACE_DEADLINE_S)
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+    wall = time.perf_counter() - t0
+    check(not alive and [p.exitcode for p in procs] == [0] * world,
+          "(b): the ranks exited %s (alive after %d s: %d)" % (
+              [p.exitcode for p in procs], PLACE_DEADLINE_S, len(alive)))
+    res = [json.load(open(o)) for o in outs]
+    want = digests.tolist()
+    keys = np.sort(np.concatenate([np.load(o + ".keys.npy") for o in outs]))
+    src = []
+    for cols in arrays:
+        t = {k: torch.from_numpy(v).cuda() for k, v in cols.items()}
+        src.append(row_keys(t))
+    src = torch.cat(src).sort().values.cpu().numpy()
+    for rank, r in enumerate(res):
+        m, im, tb = r["main"], r["inmem"], r["tab"]
+        log("placement (b) rank %d on %s (the first DTensor %.3f s, a shard of %d rows): "
+            "main path %d batches of %d (%.1f rows/s) launches %s; in-memory fill %.2f s, "
+            "launches %s, %d batches served, launches %s; pass-through %d batches (%.1f "
+            "rows/s) launches %s; %s" % (
+                rank, r["device"], r["first_dtensor_s"], len(r["shard"]), m["batches"],
+                m["local_batch"], m["rows_per_s"], json.dumps(m["launches"]), im["fill_s"],
+                json.dumps(im["fill_launches"]), INMEM_EPOCHS * im["per_epoch"],
+                json.dumps(im["launches"]), tb["batches"], tb["rows_per_s"],
+                json.dumps(tb["launches"]), smi))
+        local = BATCH // world
+        shard = r["shard"]
+        check(r["device"] == "cuda:0" and r["mesh"] == [world], "(b) rank %d: device %s, "
+              "mesh %s" % (rank, r["device"], r["mesh"]))
+        check(sum(r["shard_rows"]) == ROWS, "(b) rank %d: shards of %s rows" % (
+            rank, r["shard_rows"]))
+        check(m["local_batch"] == local and m["batches"] == len(shard) // local
+              and len(m["ids"]) == len(set(m["ids"])) == m["batches"] * local
+              and set(m["ids"]) <= set(shard), "(b) rank %d: %d batches of %d, not its "
+              "shard's full batches, each row once" % (rank, m["batches"],
+                                                       m["local_batch"]))
+        check(m["placed"] and m["plain_ok"], "(b) rank %d main path: placed %s, K2 equal "
+              "to plain %s" % (rank, m["placed"], m["plain_ok"]))
+        check(all(not set(m["ids"]) & set(o["main"]) for o in r["others"]),
+              "(b) rank %d: main-path ids delivered by another rank too" % rank)
+        check(all(want[i] == d for i, d in zip(m["ids"], m["digests"])),
+              "(b) rank %d: main-path pixels differ from phase 7's unsharded run" % rank)
+        check(m["launches"]["stage2_planes"] == m["launches"]["stage2_rgb"]
+              == m["launches"]["K2"] == m["batches"], "(b) rank %d main path: launches %s"
+              % (rank, m["launches"]))
+        per_epoch = min(r["shard_rows"]) // local  # the agreed batch count
+        check(im["placed"] and im["local_batch"] == local and im["rows"] == ROWS
+              and im["per_epoch"] == per_epoch, "(b) rank %d in-memory: placed %s, %d "
+              "batches an epoch of %d" % (rank, im["placed"], im["per_epoch"],
+                                          im["local_batch"]))
+        for e, ids in enumerate(im["epochs"]):
+            check(len(ids) == len(set(ids)) == per_epoch * local and set(ids) <= set(shard)
+                  and all(not set(ids) & set(o["inmem"][e]) for o in r["others"]),
+                  "(b) rank %d in-memory epoch %d: ids not once, or not its shard's" % (
+                      rank, e))
+        check(im["epochs"][0] != im["epochs"][1], "(b) rank %d in-memory: the epochs' "
+              "orders are equal" % rank)
+        check(all(d == [want[int(i)]] for i, d in im["digests"].items()),
+              "(b) rank %d in-memory: pixels differ from phase 7's" % rank)
+        fill_batches = -(-len(shard) // BATCH)
+        check(im["fill_launches"]["stage2_planes"] == im["fill_launches"]["stage2_rgb"]
+              == fill_batches and im["launches"]["K2"] == INMEM_EPOCHS * im["per_epoch"]
+              and im["launches"]["stage2_planes"] == 0, "(b) rank %d in-memory: fill "
+              "launches %s, served %s" % (rank, im["fill_launches"], im["launches"]))
+        check(tb["placed"] and tb["host_inflate_columns"] == 0, "(b) rank %d pass-through: "
+              "placed %s, host-inflated columns %d" % (rank, tb["placed"],
+                                                       tb["host_inflate_columns"]))
+        for k in ("K3", "scan", "K4"):
+            check(tb["launches"][k] == predicted[k] * tb["batches"], "(b) rank %d: %s "
+                  "launched %d times for %d pass-through batches" % (
+                      rank, k, tb["launches"][k], tb["batches"]))
+    check(sum(r["tab"]["batches"] for r in res) == TAB_FILES * TAB_RGS_PER_FILE
+          and np.array_equal(keys, src), "(b): the ranks' pass-through rows are not the "
+          "store's rows, each once")
+    log("placement (b): two ranks on one card in %.1f s; %s" % (wall, smi))
+    return {"ranks": res, "wall_s": wall}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -6448,8 +6852,12 @@ def main():
         watch_jpeg = phase_watch_main_path(os.path.join(work, "store"), blobs, images, work,
                                            env)
         phase17_s = time.perf_counter() - t17
+        t18 = time.perf_counter()
+        place_a = phase_place_world_of_one(url, images, env["smi"])
+        # (b) runs after phase 5's store exists: it keeps phase 7's pixels as digests
+        digests = pixel_digest(images, pixel_weights("cuda")).cpu()
+        phase18_s = time.perf_counter() - t18
         del images
-        shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
 
         t0 = time.perf_counter()
         mix_url = "file://" + os.path.join(work, "mixed")
@@ -6524,6 +6932,14 @@ def main():
         log("dataset watch and mutation: phase 17 took %.1f s of wall time; %s"
             % (phase17_s, env["smi"]))
         check(phase17_s < 60.0, "phase 17 took %.1f s, over its 60 s" % phase17_s)
+        t18 = time.perf_counter()
+        place_b = phase_place_two_ranks(url, tab_root, arrays, digests, predicted, work,
+                                        env["smi"])
+        phase18_s += time.perf_counter() - t18
+        shutil.rmtree(os.path.join(work, "store"), ignore_errors=True)
+        log("multi-card placement: phase 18 took %.1f s of wall time; %s"
+            % (phase18_s, env["smi"]))
+        check(phase18_s < 120.0, "phase 18 took %.1f s, over its 120 s" % phase18_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -6612,6 +7028,25 @@ def main():
                 "batches": {"a_thread": watch_jpeg["a"]["batches"],
                             "c_process": watch_jpeg["c"]["batches"]}}
 
+    def slice19_launches(key):
+        """{part: launches of ``key``} in phase 18, each rank's parts apart."""
+        ranks = enumerate(place_b["ranks"])
+        if key in ("K3", "scan", "K4"):
+            parts = {"b_rank%d_passthrough" % n: (r["tab"]["launches"][key],
+                                                  r["tab"]["batches"]) for n, r in ranks}
+        else:
+            parts = {"a_world_of_one": (place_a["launches"][key], place_a["batches"])}
+            for n, r in ranks:
+                served = INMEM_EPOCHS * r["inmem"]["per_epoch"]
+                parts["b_rank%d_main" % n] = (r["main"]["launches"][key],
+                                              r["main"]["batches"])
+                parts["b_rank%d_inmem_fill" % n] = (r["inmem"]["fill_launches"][key],
+                                                    -(-len(r["shard"]) // BATCH))
+                parts["b_rank%d_inmem_served" % n] = (r["inmem"]["launches"][key], served)
+        out = {part: n for part, (n, _b) in parts.items()}
+        out["batches"] = {part: b for part, (_n, b) in parts.items()}
+        return out
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -6633,7 +7068,8 @@ def main():
          "slice15_launches": slice15_launches("stage2_planes"),
          "slice16_launches": slice16_launches("stage2_planes"),
          "slice17_launches": slice17_launches("stage2_planes"),
-         "slice18_launches": slice18_launches("stage2_planes")},
+         "slice18_launches": slice18_launches("stage2_planes"),
+         "slice19_launches": slice19_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -6652,7 +7088,8 @@ def main():
          "slice15_launches": slice15_launches("stage2_rgb"),
          "slice16_launches": slice16_launches("stage2_rgb"),
          "slice17_launches": slice17_launches("stage2_rgb"),
-         "slice18_launches": slice18_launches("stage2_rgb")},
+         "slice18_launches": slice18_launches("stage2_rgb"),
+         "slice19_launches": slice19_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -6692,7 +7129,8 @@ def main():
          "slice15_launches": slice15_launches("K2"),
          "slice16_launches": slice16_launches("K2"),
          "slice17_launches": slice17_launches("K2"),
-         "slice18_launches": slice18_launches("K2")},
+         "slice18_launches": slice18_launches("K2"),
+         "slice19_launches": slice19_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -6753,6 +7191,7 @@ def main():
         row["slice16_launches"]["b_batches"] = BLAME_RGS
         row["slice18_launches"] = {"b_passthrough": watch_tab["launches"][key],
                                    "b_passthrough_batches": watch_tab["batches"]}
+        row["slice19_launches"] = slice19_launches(key)
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -6843,6 +7282,11 @@ def main():
             phase17_s, watch_jpeg["stamp_s"]["crc"], watch_jpeg["stamp_s"]["stat_only"],
             watch_jpeg["a"]["rows_per_s"], watch_jpeg["c"]["rows_per_s"],
             watch_tab["rows_per_s"]))
+    log("multi-card placement (phase 18, %.1f s): a world of one %.1f rows/s; two ranks "
+        "on one card: main path %s rows/s, pass-through %s rows/s a rank" % (
+            phase18_s, place_a["rows_per_s"],
+            [round(r["main"]["rows_per_s"], 1) for r in place_b["ranks"]],
+            [round(r["tab"]["rows_per_s"], 1) for r in place_b["ranks"]]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

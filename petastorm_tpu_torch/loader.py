@@ -88,8 +88,18 @@ loader's threads. ``tenant=`` bills this pipeline's work to a tenant
 (:mod:`petastorm_tpu_torch.obs.tenant`): the reader charges rows, worker seconds and IO,
 the loader its decode seconds.
 
-Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 12):
-sharding across devices.
+``sharding=`` (a :class:`~petastorm_tpu_torch.parallel.mesh.NamedSharding` over a
+torch ``DeviceMesh``, or a dict of them by field) feeds a ``torch.distributed`` job, one
+card a rank (:mod:`petastorm_tpu_torch.parallel.mesh`). ``batch_size`` is then GLOBAL:
+each rank's reader reads its shard (``cur_shard=rank``), its producer cuts the rank's
+share (``local_batch_size``), the transfer thread runs the inflate, the staged decode and
+the device transform on the rank's own card (every card of the mesh decodes its share at
+once), and each delivered field is a ``DTensor`` whose local tensor is the rank's rows
+(:func:`~petastorm_tpu_torch.parallel.mesh.to_dtensor`, the counterpart of
+``jax.make_array_from_process_local_data``); a world of one delivers DTensors too, so a
+step's code is the same at 1 and N ranks. The device transform runs on the rank's local
+tensors before that wrap (a kernel reads raw pointers and cannot take a DTensor), where
+the JAX package jits it over the global array: the same for row-wise transforms.
 """
 from __future__ import annotations
 
@@ -106,11 +116,11 @@ import time
 import numpy as np
 
 from petastorm_tpu_torch import chaos as _chaos
-from petastorm_tpu_torch._unported import not_ported, reject_unported
 from petastorm_tpu_torch.io.lease import attach_leases, count_copy, take_leases
 from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
                                             materialize_columns, pagedec_counters)
 from petastorm_tpu_torch.obs import tenant as _tenant
+from petastorm_tpu_torch.parallel.mesh import process_group
 from petastorm_tpu_torch.shuffle import BatchedRandomShufflingBuffer
 from petastorm_tpu_torch.utils import stack_as_column
 
@@ -148,8 +158,11 @@ class PipelineStats:
     ``inflate_s`` is the port's own field (the JAX package counts the same time in its
     ``ptpu_pagedec_inflate_seconds`` histogram). The ``shm_*`` fields are the process
     pool's shared-memory wire gauges (``Reader.wire_stats()``), refreshed at each
-    delivery; ``decode_unsharded_batches`` belongs to multi-device decode, which is not
-    ported, and stays 0.
+    delivery. ``decode_unsharded_batches`` counts batches whose staged decode ran on
+    fewer of the mesh's cards than the rank owns: with one card a rank every decode runs
+    on the rank's card, so it stays 0 (the JAX package counts a batch whose sharding
+    splits the batch axis but whose decode ran on one device, which under one card a
+    rank would be every batch).
     """
 
     __slots__ = ("rows", "batches", "read_s", "batch_s", "put_wait_s",
@@ -637,9 +650,46 @@ def _put_sentinel(q, stop_event):
                 return
 
 
-def _resolve_device(device):
+def _named_shardings(sharding):
+    """The :class:`~petastorm_tpu_torch.parallel.mesh.NamedSharding` values of a loader's
+    ``sharding`` (itself, or a dict's non-None values). Anything else raises
+    ``ValueError``, as the JAX package's ``device_put`` refuses an object that is not a
+    sharding (there at the first transfer, here at construction)."""
+    from petastorm_tpu_torch.parallel.mesh import NamedSharding
+
+    values = list(sharding.values()) if isinstance(sharding, dict) else [sharding]
+    for s in values:
+        if s is not None and not isinstance(s, NamedSharding):
+            raise ValueError(
+                "sharding must be a petastorm_tpu_torch.parallel.mesh.NamedSharding (or a "
+                "dict of them by field, None for a field left local), got %r" % (s,))
+    return [s for s in values if s is not None]
+
+
+def _resolve_device(device, sharding=None):
+    """The loader's device: ``device``, else the sharding's mesh device on this rank,
+    else the CUDA device (raises without one). A ``device`` that contradicts the mesh
+    raises ``ValueError``."""
     import torch
 
+    named = _named_shardings(sharding) if sharding is not None else []
+    if named:
+        from petastorm_tpu_torch.parallel.mesh import mesh_device
+
+        mesh_devs = {mesh_device(s.mesh) for s in named}
+        if len(mesh_devs) > 1:
+            raise ValueError("the sharding's fields lie on meshes of different devices "
+                             "on this rank: %s" % sorted(map(str, mesh_devs)))
+        mesh_dev = mesh_devs.pop()
+        if device is None:
+            return mesh_dev
+        dev = _resolve_device(device)
+        if dev != mesh_dev:
+            raise ValueError(
+                "device=%s contradicts the sharding's mesh, whose device on this rank is "
+                "%s (one card a rank: the mesh's device type decides where batches land)"
+                % (dev, mesh_dev))
+        return dev
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -690,9 +740,16 @@ class DataLoader:
     reader : petastorm_tpu_torch.reader.Reader
         Batch reader (columnar) or per-row reader (rows are stacked host-side).
     batch_size : int
-        Rows per yielded batch.
-    sharding : None
-        Multi-card placement is not ported (raises ``NotImplementedError``).
+        GLOBAL rows per yielded batch: rows across all ranks. Under a ``sharding`` whose
+        batch axis spans ranks each rank cuts only its share (``local_batch_size``), and
+        the delivered DTensor is global; in a world of one (or with a replicated batch
+        axis) local == global.
+    sharding : NamedSharding or dict, optional
+        Layout of the yielded tensors (:mod:`petastorm_tpu_torch.parallel.mesh`): a
+        ``NamedSharding(mesh, spec)`` over a torch ``DeviceMesh``, adapted to each
+        field's rank, or ``{field: NamedSharding or None}`` (None: that field stays a
+        plain local tensor). Each rank's share is delivered as a ``DTensor`` (see the
+        module docstring). The mesh's device on this rank is the loader's device.
     shuffling_queue_capacity : int
         >0 enables a host-side row shuffling buffer (reference ``shuffling_queue_capacity``).
     seed : int, optional
@@ -799,8 +856,9 @@ class DataLoader:
         this argument, else the reader's tenant, else the thread's or process's current
         one. The loader charges its decode seconds (``ptpu_tenant_decode_seconds_total``).
     device : torch.device or str, optional, keyword only
-        Where batches land (and where staged fields decode). Default: the CUDA device
-        (raises when there is none).
+        Where batches land (and where staged fields decode). Default: the sharding's mesh
+        device on this rank, else the CUDA device (raises when there is none). A device
+        that contradicts the mesh raises ``ValueError``.
 
     A loader over a checkpointable reader checkpoints at its consumer's watermark
     (:meth:`state_dict`); it duck-types as a reader for
@@ -813,7 +871,6 @@ class DataLoader:
                  device_shuffle_capacity=0, device_decode_resize=None, trace=None,
                  metrics=None, health=None, staging=None, provenance=None,
                  slos=None, controller=None, tenant=None, *, device=None):
-        reject_unported("DataLoader", sharding=sharding)
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         if last_batch not in ("drop", "pad", "partial"):
@@ -826,7 +883,11 @@ class DataLoader:
         self.tenant_context = (_tenant.resolve(tenant, env_default=False)
                                or getattr(reader, "tenant_context", None)
                                or _tenant.current())
-        self.device = _resolve_device(device)
+        #: rows THIS rank cuts a batch (== batch_size unless the sharding's batch axis
+        #: spans ranks: batch_size is global)
+        self.local_batch_size = _resolve_local_batch(int(batch_size), sharding)
+        self.sharding = sharding
+        self.device = _resolve_device(device, sharding)
         if staging and self.device.type != "cuda":
             raise ValueError("staging=%r needs a CUDA device, got %s" % (staging, self.device))
         self.reader = reader
@@ -1071,7 +1132,8 @@ class DataLoader:
             log.append((cum_rows, state))
 
     def _produce(self, q):
-        batcher = _HostBatcher(self.batch_size, self._shuffling_queue_capacity, self._seed)
+        batcher = _HostBatcher(self.local_batch_size, self._shuffling_queue_capacity,
+                               self._seed)
         stats = self.stats
         device_fields = getattr(self.reader, "device_decode_fields", ())
         batched = bool(getattr(self.reader, "is_batched_reader", False))
@@ -1198,7 +1260,7 @@ class DataLoader:
                 for b in batches[i:]:
                     _release_leases(b)
                 return False
-            if drop_short and _batch_row_count(batch) < self.batch_size:
+            if drop_short and _batch_row_count(batch) < self.local_batch_size:
                 if bp is not None:
                     rec.batch_dropped(bp)
                 _release_leases(batch)
@@ -1226,11 +1288,11 @@ class DataLoader:
 
     def _pad(self, batch):
         n = _batch_row_count(batch)
-        if n == 0 or n == self.batch_size:
+        if n == 0 or n == self.local_batch_size:
             if batch and "__valid__" not in batch:
                 batch["__valid__"] = np.ones(n, dtype=bool)
             return batch
-        pad = self.batch_size - n
+        pad = self.local_batch_size - n
         # pass-through columns inflate on host before the gather below (a short TAIL
         # batch only — full batches never reach this line)
         leases = take_leases(batch)
@@ -1467,8 +1529,16 @@ class DataLoader:
         return arrays, host
 
     def _apply_device_transform(self, arrays):
-        if self._device_transform is None:
-            return arrays
+        """The device transform on this rank's tensors, then the sharding's delivery
+        (:func:`_deliver`). DTensors coming in (from the device ring) are unwrapped to
+        their local tensors first: the transform runs on the rank's card."""
+        if self.sharding is not None:
+            arrays = {k: _local_tensor(v) for k, v in arrays.items()}
+        if self._device_transform is not None:
+            arrays = self._call_device_transform(arrays)
+        return _deliver(self.sharding, arrays)
+
+    def _call_device_transform(self, arrays):
         import torch
 
         if self._transform_takes_generator is None:
@@ -1480,7 +1550,11 @@ class DataLoader:
         if self._transform_takes_generator:
             if self._generator is None:
                 self._generator = torch.Generator(device=self.device)
-                self._generator.manual_seed(self._seed or 0)
+                rank, world = process_group()
+                # each rank draws its own stream (the JAX package draws one key for the
+                # global batch); a world of one keeps the unsharded loader's draws
+                seed = self._seed or 0
+                self._generator.manual_seed(seed if world == 1 else _fold_seed(seed, rank))
             return self._device_transform(arrays, self._generator)
         return self._device_transform(arrays)
 
@@ -1552,8 +1626,14 @@ class DataLoader:
         if self._device_shuffle_capacity:
             from petastorm_tpu_torch.ops.device_shuffle import DeviceShuffleBuffer
 
+            def ring_sharding(name, arr):
+                # each ring column holds this rank's rows only, on its card, and the
+                # exchanged rows leave it delivered like the batches
+                return _field_sharding(self.sharding, name, arr)
+
             batches = self._shuffled_batches(host_q, DeviceShuffleBuffer(
-                self._device_shuffle_capacity, seed=self._seed or 0))
+                self._device_shuffle_capacity, seed=self._seed or 0,
+                shardings=ring_sharding if self.sharding is not None else None))
         else:
             batches = self._plain_batches(host_q)
         while True:
@@ -1586,7 +1666,8 @@ class DataLoader:
         consumer.wait_event(event)
         for v in batch.values():
             if isinstance(v, torch.Tensor) and v.is_cuda:
-                v.record_stream(consumer)
+                # a DTensor's memory is its local tensor's
+                _local_tensor(v).record_stream(consumer)
         return batch
 
     def _host_delivery(self, host_q):
@@ -1956,14 +2037,98 @@ class DataLoader:
                 self._health_scope.close()
 
 
-def _process_group():
-    """``(rank, world size)`` of an initialised ``torch.distributed`` group, else
-    ``(0, 1)``."""
-    import torch.distributed as dist
+def _resolve_local_batch(batch_size, sharding):
+    """Rows this rank feeds a global batch of ``batch_size`` (one rank: all of them).
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    A global batch that does not divide over the sharding's batch axis raises. Across
+    ranks only a ``NamedSharding`` exposes the mesh needed to compute each rank's share:
+    anything else (or a dict holding anything else) raises instead of feeding every rank
+    the global batch. "Multi-process" is the ``torch.distributed`` world size, where the
+    JAX package asks ``jax.process_count()``."""
+    from petastorm_tpu_torch.parallel.mesh import NamedSharding, local_batch_size
+
+    _rank, world = process_group()
+    if sharding is None or world == 1:
+        return batch_size
+
+    def _reject(s):
+        raise ValueError(
+            "DataLoader cannot decompose the global batch across processes for %s: "
+            "only NamedSharding exposes the mesh/axis structure needed to compute "
+            "each process's local share. Use a NamedSharding over a DeviceMesh (batch "
+            "axis in PartitionSpec position 0), or shard the reader per process and "
+            "pass no sharding." % type(s).__name__)
+
+    if isinstance(sharding, dict):  # per-field dict: the first named sharding decides
+        for s in sharding.values():
+            if s is not None and not isinstance(s, NamedSharding):
+                _reject(s)
+        named = [s for s in sharding.values() if s is not None]
+        if not named:
+            return batch_size  # every field stays local
+        sharding = named[0]
+    if not isinstance(sharding, NamedSharding):
+        _reject(sharding)
+    spec0 = sharding.spec[0] if len(sharding.spec) else None
+    if spec0 is None:
+        return batch_size  # batch axis replicated: every rank feeds all rows
+    axes = (spec0,) if isinstance(spec0, str) else tuple(spec0)
+    return local_batch_size(batch_size, sharding.mesh, batch_axes=axes)
+
+
+def _batch_shard_count(sharding):
+    """See :func:`petastorm_tpu_torch.parallel.mesh.batch_axis_shard_count`."""
+    from petastorm_tpu_torch.parallel.mesh import batch_axis_shard_count
+
+    return batch_axis_shard_count(sharding)
+
+
+def _matching_sharding(sharding, arr):
+    """Adapt a batch-axis sharding to a tensor's rank (replicate the trailing axes)."""
+    from petastorm_tpu_torch.parallel.mesh import NamedSharding
+
+    if isinstance(sharding, NamedSharding):
+        spec = list(sharding.spec)
+        if len(spec) < arr.ndim:
+            spec = spec + [None] * (arr.ndim - len(spec))
+        elif len(spec) > arr.ndim:
+            spec = spec[: arr.ndim]
+        return NamedSharding(sharding.mesh, spec)
+    return sharding
+
+
+def _field_sharding(sharding, name, arr):
+    """The sharding of one delivered field: a dict's entry (None: stays local), or the
+    loader's sharding adapted to the field's rank; None without ``sharding=``."""
+    if sharding is None:
+        return None
+    if isinstance(sharding, dict):
+        return sharding.get(name)
+    return _matching_sharding(sharding, arr)
+
+
+def _deliver(sharding, arrays):
+    """Each tensor with a sharding becomes a ``DTensor`` of the rank's rows
+    (:func:`~petastorm_tpu_torch.parallel.mesh.to_dtensor`); a field whose sharding is
+    None in a dict, host columns, and everything without ``sharding=`` stay as they
+    are."""
+    if sharding is None:
+        return arrays
+    import torch
+
+    from petastorm_tpu_torch.parallel.mesh import to_dtensor
+
+    out = {}
+    for name, arr in arrays.items():
+        s = _field_sharding(sharding, name, arr) if isinstance(arr, torch.Tensor) else None
+        out[name] = arr if s is None else to_dtensor(arr, s)
+    return out
+
+
+def _local_tensor(value):
+    """A DTensor's local tensor (the rank's rows); anything else as it is."""
+    to_local = getattr(value, "to_local", None)
+    return to_local() if to_local is not None else value
 
 
 def _fold_seed(*parts):
@@ -1990,6 +2155,14 @@ class InMemDataLoader:
     same row order: a reader on one worker or the dummy pool (several workers deliver row
     groups in the order they finish, so the store's row order varies between fills).
 
+    In a ``torch.distributed`` job of more than one rank each rank fills its own shard
+    (pass a sharded reader, ``cur_shard=rank``) and keeps it on ITS card; every batch
+    gathers the rank's share and is delivered as a ``DTensor`` of the global batch.
+    ``batch_size`` stays GLOBAL; that needs a decomposable ``NamedSharding`` and
+    ``last_batch='drop'``, and the batch count an epoch is agreed once at fill time from
+    every rank's row count (``all_gather_object``, the only collective). A rank's epoch
+    order is ``torch.randperm`` from ``(seed, epoch, rank + 1)``.
+
     Parameters
     ----------
     reader : Reader
@@ -2001,11 +2174,13 @@ class InMemDataLoader:
         Epochs to serve; ``None`` = infinite.
     shuffle : bool
         A fresh permutation every epoch, from ``seed`` and the epoch.
-    sharding : None
-        Multi-card placement is not ported (raises ``NotImplementedError``), nor is a
-        ``torch.distributed`` job of more than one process.
+    sharding : NamedSharding or dict, optional
+        Layout of the yielded batches (:class:`DataLoader`'s ``sharding``): each batch is
+        delivered as DTensors of the rank's rows. The store stays on the rank's card.
     last_batch : {"drop", "partial"}
-        Remainder policy per epoch.
+        Remainder policy per epoch. With ``sharding``, a ``partial`` tail batch is
+        delivered per the sharding when its row count divides the batch axis, and as
+        plain tensors otherwise.
     device_transform : callable, optional
         ``fn(batch) -> batch`` on the device after the gather; a two-argument
         ``fn(batch, generator)`` receives a ``torch.Generator`` on the device seeded from
@@ -2016,7 +2191,8 @@ class InMemDataLoader:
         The fill's pipeline spans (through its :class:`DataLoader`) and one
         ``inmem.gather`` span a served batch (the gather, enqueued on the device).
     device : torch.device or str, optional, keyword only
-        Where the store lives. Default: the CUDA device (raises when there is none).
+        Where the store lives. Default: the sharding's mesh device on this rank, else the
+        CUDA device (raises when there is none).
     """
 
     def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=0,
@@ -2024,15 +2200,36 @@ class InMemDataLoader:
                  device_decode_resize=None, trace=None, *, device=None):
         import torch
 
-        reject_unported("InMemDataLoader", sharding=sharding)
         if last_batch not in ("drop", "partial"):
             raise ValueError("last_batch must be drop|partial, got %r" % last_batch)
-        _rank, world = _process_group()
-        if world > 1:
-            raise not_ported("InMemDataLoader in a torch.distributed job of %d processes"
-                             % world, "multi_device")
-        self.device = _resolve_device(device)
         self.batch_size = int(batch_size)
+        rank, world = process_group()
+        #: more than one rank: each keeps ITS shard on its card and every batch is the
+        #: global DTensor of the ranks' gathers
+        self._multiprocess = world > 1
+        if self._multiprocess:
+            if sharding is None:
+                raise ValueError(
+                    "multi-process InMemDataLoader requires a sharding (a "
+                    "NamedSharding whose batch axis decomposes per process)")
+            if last_batch != "drop":
+                raise ValueError(
+                    "multi-process InMemDataLoader supports last_batch='drop' only "
+                    "(a ragged tail cannot assemble into a uniform global array)")
+            self.local_batch_size = _resolve_local_batch(self.batch_size, sharding)
+            if self.local_batch_size >= self.batch_size:
+                # a replicated batch axis would label each rank's DIFFERENT shard rows
+                # replicas of one global tensor
+                raise ValueError(
+                    "multi-process InMemDataLoader requires a sharding whose batch "
+                    "axis spans processes (each process contributes its shard); a "
+                    "replicated batch axis would label divergent per-process shards "
+                    "as replicas of the same array")
+        else:
+            self.local_batch_size = self.batch_size
+        self._rank = rank
+        self._sharding = sharding
+        self.device = _resolve_device(device, sharding)
         self.num_epochs = num_epochs
         self.shuffle = shuffle
         self.last_batch = last_batch
@@ -2067,6 +2264,30 @@ class InMemDataLoader:
         self._store = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
         del chunks
         self.rows = int(next(iter(self._store.values())).shape[0])
+        if self._multiprocess:
+            import torch.distributed as dist
+
+            self._local_rows = self.rows
+            all_rows = [None] * world
+            dist.all_gather_object(all_rows, self._local_rows)
+            lo, hi = min(all_rows), max(all_rows)
+            self._batches_per_epoch = lo // self.local_batch_size
+            if self._batches_per_epoch == 0:
+                raise ValueError(
+                    "multi-process InMemDataLoader: some process holds only %d rows "
+                    "— fewer than its local batch share %d; no full global batch "
+                    "can be formed" % (lo, self.local_batch_size))
+            served = self._batches_per_epoch * self.local_batch_size
+            if hi > served:
+                logger.warning(
+                    "InMemDataLoader shards are uneven (%d..%d rows/process): each "
+                    "epoch serves %d rows/process; with shuffle=True the excluded "
+                    "rows differ per epoch, with shuffle=False the SAME surplus "
+                    "rows are never served — rebalance shards (shard_seed) or keep "
+                    "shuffle on", lo, hi, served)
+            self.rows = int(sum(all_rows))
+        # one card a rank: the store stays on this rank's card; the gathered batches are
+        # laid out per the sharding
         self._perm_gen = torch.Generator(device=self.device)
         self._transform_gen = None
         #: (epoch, next batch within the epoch) the NEXT yield serves: the exact-resume
@@ -2117,10 +2338,13 @@ class InMemDataLoader:
 
     @property
     def cur_shard(self):
-        """None: one process holds the whole store (a multi-process job raises)."""
-        return None
+        """The rank in a multi-process job (each rank serves its own resident shard: the
+        routing key of :mod:`petastorm_tpu_torch.checkpoint`), else None."""
+        return self._rank if self._multiprocess else None
 
     def __len__(self):
+        if self._multiprocess:
+            return self._batches_per_epoch
         full, rem = divmod(self.rows, self.batch_size)
         return full + (1 if rem and self.last_batch == "partial" else 0)
 
@@ -2140,6 +2364,12 @@ class InMemDataLoader:
                 takes_gen = False
         per_epoch = len(self)
         while self.num_epochs is None or epoch < self.num_epochs:
+            if self._multiprocess:
+                yield from self._multiprocess_epoch(epoch, takes_gen, epoch * per_epoch,
+                                                    skip)
+                epoch += 1
+                skip = 0
+                continue
             if self.shuffle:
                 self._perm_gen.manual_seed(_fold_seed(self._seed, epoch))
                 perm = torch.randperm(self.rows, generator=self._perm_gen,
@@ -2160,12 +2390,48 @@ class InMemDataLoader:
                 # the step is position-derived, so a resumed stream seeds the same
                 # generators an uninterrupted one would
                 batch = self._apply_transform(batch, epoch * per_epoch + bidx, takes_gen)
+                if self._sharding is not None:
+                    # a short tail batch is laid out too when its rows divide the batch
+                    # axis; otherwise it stays plain (a step with fixed placements
+                    # should use last_batch='drop')
+                    if n % _batch_shard_count(self._sharding) == 0:
+                        batch = _deliver(self._sharding, batch)
+                    else:
+                        logger.warning(
+                            "InMemDataLoader: final partial batch (%d rows) does not "
+                            "divide the sharding's batch axis; yielded unsharded", n)
                 self._pos = (epoch, bidx + 1)
                 yield batch
             epoch += 1
             skip = 0
 
+    def _multiprocess_epoch(self, epoch, takes_gen, step0, skip=0):
+        """One epoch of a multi-process job: the rank's own permutation of its shard
+        (seeded from ``(seed, epoch, rank + 1)``, so the ranks' orders decorrelate), a
+        local gather a batch on the rank's card, delivered as the global DTensor."""
+        import torch
+
+        if self.shuffle:
+            self._perm_gen.manual_seed(_fold_seed(self._seed, epoch, self._rank + 1))
+            perm = torch.randperm(self._local_rows, generator=self._perm_gen,
+                                  device=self.device)
+        else:
+            perm = torch.arange(self._local_rows, device=self.device)
+        b = self.local_batch_size
+        for bidx in range(skip, self._batches_per_epoch):
+            t_g = time.perf_counter()
+            idx = perm[bidx * b:(bidx + 1) * b]
+            batch = {k: v.index_select(0, idx) for k, v in self._store.items()}
+            if self._trace is not None:
+                self._trace.add("inmem.gather", t_g, time.perf_counter() - t_g)
+            batch = self._apply_transform(batch, step0 + bidx, takes_gen)
+            self._pos = (epoch, bidx + 1)
+            yield _deliver(self._sharding, batch)
+
     def _apply_transform(self, batch, step, takes_gen):
+        """The device transform on the rank's gathered tensors (before the delivery: a
+        kernel cannot take a DTensor). In a multi-process job a two-argument transform's
+        generator is seeded from ``(seed + 1, step, rank)``."""
         if self._device_transform is None:
             return batch
         if not takes_gen:
@@ -2174,7 +2440,8 @@ class InMemDataLoader:
 
         if self._transform_gen is None:
             self._transform_gen = torch.Generator(device=self.device)
-        self._transform_gen.manual_seed(_fold_seed(self._seed + 1, step))
+        parts = (self._seed + 1, step) + ((self._rank,) if self._multiprocess else ())
+        self._transform_gen.manual_seed(_fold_seed(*parts))
         return self._device_transform(batch, self._transform_gen)
 
     def __enter__(self):
@@ -2209,14 +2476,12 @@ def make_dataloader(dataset_url_or_urls, batch_size, sharding=None, num_epochs=1
     parameters are :class:`DataLoader`'s, and only those passed explicitly are
     forwarded. ``seed`` (the loader's) falls back to ``shard_seed``. In a
     ``torch.distributed`` job of more than one process ``cur_shard``/``shard_count``
-    default to the rank and the world size. ``sharding`` is not ported (raises before
-    the reader is built)."""
+    default to the rank and the world size; ``sharding`` is :class:`DataLoader`'s."""
     from petastorm_tpu_torch.reader import make_batch_reader
 
-    reject_unported("make_dataloader", sharding=sharding)
     factory = reader_factory or make_batch_reader
     if "cur_shard" not in reader_kwargs:
-        rank, world = _process_group()
+        rank, world = process_group()
         if world > 1:
             reader_kwargs["cur_shard"] = rank
             reader_kwargs["shard_count"] = world
@@ -2228,7 +2493,7 @@ def make_dataloader(dataset_url_or_urls, batch_size, sharding=None, num_epochs=1
     loader_kwargs = {name: passed[name] for name in _LOADER_OPTS
                      if passed[name] is not _UNSET}
     try:
-        return DataLoader(reader, batch_size,
+        return DataLoader(reader, batch_size, sharding=sharding,
                           shuffling_queue_capacity=shuffling_queue_capacity, seed=seed,
                           device=device, **loader_kwargs)
     except BaseException:

@@ -22,10 +22,13 @@ distinct slots meets the contract; here it is the head of one ``torch.randperm``
 capacity, drawn from a generator the ring owns on its device, seeded from ``seed``: the
 same seed gives the same slots on the same device. The draws cannot match the JAX
 package's (threefry and Philox streams differ), only its contract.
+
+Across ranks (``shardings=``) each rank's ring lives on its own card and holds only that
+rank's rows, the split across cards that the JAX package's placed ring gives; every rank
+seeds the same slot stream (as every JAX process folds the same seed), and the exchanged
+rows leave the ring delivered as DTensors of the rank's rows.
 """
 from __future__ import annotations
-
-from petastorm_tpu_torch._unported import not_ported
 
 
 class DeviceShuffleBuffer:
@@ -46,13 +49,14 @@ class DeviceShuffleBuffer:
     stream (the loader's ``last_batch='partial'`` tail); pushing again after a short
     warm-up batch raises: continuing would write past the ring and lose rows.
 
-    ``shardings`` (a ring laid out across devices) is not ported: it raises
-    ``NotImplementedError`` naming ROADMAP.md Queue 1 item 12.
+    ``shardings``: optional ``callable(name, local tensor) -> NamedSharding | None``
+    (the loader passes its batch sharding adapted a column). Pushed columns may be
+    DTensors or plain tensors: the ring keeps the rank's local rows of each, on its
+    card, and each emitted column the callable lays out is delivered as a DTensor
+    (:func:`~petastorm_tpu_torch.parallel.mesh.to_dtensor`); the others stay plain.
     """
 
     def __init__(self, capacity, seed=0, shardings=None):
-        if shardings is not None:
-            raise not_ported("DeviceShuffleBuffer(shardings=...)", "multi_device")
         if capacity <= 0:
             raise ValueError("capacity must be positive")
         self._requested_capacity = int(capacity)
@@ -64,6 +68,8 @@ class DeviceShuffleBuffer:
         self._names = None  # the columns, in the first batch's order
         self._batch_rows = None
         self._short_warmup = False
+        self._shardings = shardings
+        self._layout = {}  # column -> its NamedSharding (None: emitted plain)
 
     @property
     def filled(self):
@@ -93,6 +99,24 @@ class DeviceShuffleBuffer:
         self._lanes = [(names, torch.empty((len(names), self.capacity) + shape, dtype=dtype,
                                            device=device))
                        for (dtype, shape), names in groups.items()]
+        if self._shardings is not None:
+            self._layout = {name: self._shardings(name, arr) for name, arr in batch.items()}
+
+    def _local(self, batch):
+        """The rank's local tensor of each pushed column (a DTensor's ``to_local()``)."""
+        if self._shardings is None:
+            return batch
+        return {k: v.to_local() if hasattr(v, "to_local") else v for k, v in batch.items()}
+
+    def _emit(self, columns):
+        """The emitted columns, in the first batch's order, delivered per ``shardings``."""
+        out = {name: columns[name] for name in self._names}
+        if not self._layout:
+            return out
+        from petastorm_tpu_torch.parallel.mesh import to_dtensor
+
+        return {k: v if self._layout.get(k) is None else to_dtensor(v, self._layout[k])
+                for k, v in out.items()}
 
     @staticmethod
     def _stacked(batch, names, ring):
@@ -108,6 +132,7 @@ class DeviceShuffleBuffer:
         """Insert a device batch; returns the displaced batch once warm, else None."""
         import torch
 
+        batch = self._local(batch)
         if self._lanes is None:
             self._init_store(batch)
         b = next(iter(batch.values())).shape[0]
@@ -142,7 +167,7 @@ class DeviceShuffleBuffer:
             taken = ring.index_select(1, slots)  # gather first: a fresh tensor
             ring.index_copy_(1, slots, self._stacked(batch, names, ring))
             out.update(zip(names, taken.unbind(0)))
-        return {name: out[name] for name in self._names}
+        return self._emit(out)
 
     def drain(self, batch_rows=None):
         """Emit the resident rows as a fresh permutation, in batches of ``batch_rows``
@@ -163,4 +188,4 @@ class DeviceShuffleBuffer:
         self._lanes = None
         self._fill_rows = 0
         for start in range(0, filled, b):
-            yield {k: shuffled[k][start:start + b] for k in names}
+            yield self._emit({k: shuffled[k][start:start + b] for k in names})

@@ -179,9 +179,9 @@ def gloo_checkpoint_rank(rank, world, port, url, ckpt, out):
 
 def gloo_make_dataloader_rank(rank, world, port, url, out):
     """One rank of a ``torch.distributed`` (gloo, CPU) job: ``make_dataloader`` with no
-    ``cur_shard`` reads the rank's shard; ``InMemDataLoader`` refuses the multi-process
-    job. Writes ``{"ids", "cur_shard", "shard_count", "inmem_error"}`` as JSON to
-    ``out``."""
+    ``cur_shard`` reads the rank's shard; ``InMemDataLoader`` without a sharding refuses
+    the multi-process job (``ValueError``). Writes ``{"ids", "cur_shard",
+    "shard_count", "inmem_error"}`` as JSON to ``out``."""
     import datetime
     import json
 
@@ -202,7 +202,7 @@ def gloo_make_dataloader_rank(rank, world, port, url, out):
         try:
             with InMemDataLoader(reader, 4, device="cpu"):
                 error = None
-        except NotImplementedError as e:
+        except ValueError as e:
             error = str(e)
         finally:
             reader.stop()

@@ -147,8 +147,25 @@ def test_exchange_casts_into_the_ring_and_emits_fresh_tensors():
 
 
 def test_shardings_raise_naming_multi_card_placement():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        DeviceShuffleBuffer(8, shardings=lambda name, arr: None)
+    """``shardings=`` is taken (multi-card placement is ported): the callable is asked
+    once a column, with the first batch's local tensor, and a column it leaves unplaced
+    (None) is emitted as a plain tensor, as the reference's callable leaves its column
+    on the default layout; the contract holds (the DTensor delivery is held in
+    ``tests/test_torch_sharding.py``)."""
+    asked = []
+
+    def layout(name, arr):
+        asked.append((name, tuple(arr.shape)))
+        return None
+
+    for module, cls in (("port", DeviceShuffleBuffer), ("ref", RefBuffer)):
+        buf = cls(8, seed=1, shardings=layout)
+        out = _push_stream(buf, module, 4)
+        out += list(buf.drain())
+        assert sorted(_ids(out).tolist()) == list(range(32))
+        if module == "port":
+            assert all(isinstance(o["y"], torch.Tensor) for o in out)
+            assert sorted(asked) == [("x", (8, 1)), ("y", (8,))]
     with pytest.raises(ValueError, match="positive"):
         DeviceShuffleBuffer(0)
 

@@ -123,7 +123,8 @@ def _assert_health_and_slos_are_taken(kwargs):
 
 # pad_shapes is ported, and so are trace and metrics (item 8a), health and slos (item
 # 8b(i)) and provenance (item 8b(ii)): their cases check that they are taken; the
-# controller and tenant (item 8c(i)) are taken too; sharding is still refused
+# controller and tenant (item 8c(i)) are taken too, and so is sharding (item 12): an
+# object that is not a NamedSharding raises ValueError, as the reference's device_put
 @pytest.mark.parametrize("kwargs", [
     {"sharding": object()}, {"controller": object()}, {"slos": object()},
     {"tenant": "team-a"}, {"health": True}, {"provenance": True},
@@ -140,7 +141,10 @@ def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
     if "controller" in kwargs or "tenant" in kwargs:
         _assert_controller_and_tenant_are_taken(kwargs)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    from petastorm_tpu_torch._unported import OPTIONS
+
+    assert "sharding" not in OPTIONS
+    with pytest.raises(ValueError, match="NamedSharding"):
         DataLoader(object(), 4, device="cpu", **kwargs)
 
 
@@ -316,9 +320,10 @@ def test_item_6_options_are_taken(tmp_path, name):
             assert got == [1, 5, 9]
 
 
-# NGram is ported (item 7): its case now holds make_dataloader(sharding=...), which
-# raises naming item 12 before it builds a reader. The dataset watch is ported (item
-# 8c(ii)): its case reads, watched
+# NGram is ported (item 7): its case now holds make_dataloader(sharding=...). The
+# dataset watch is ported (item 8c(ii)): its case reads, watched. Multi-card placement
+# is ported (item 12): DataLoader takes a NamedSharding (one rank here, the CPU mesh's
+# device), and make_dataloader refuses an object that is not one, stopping its reader
 @pytest.mark.parametrize("case", ["cache_type", "io_retries", "recovery", "watch",
                                   "sharding", "make_dataloader_sharding"])
 def test_options_still_unported_raise_naming_their_item(tmp_path, case):
@@ -372,11 +377,30 @@ def test_options_still_unported_raise_naming_their_item(tmp_path, case):
             assert r.io_stats()["watch_errors"] == 0
         assert got == [0, 1, 2, 3]
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        if case == "sharding":
-            DataLoader(object(), 4, device="cpu", sharding=object())
-        else:
-            make_dataloader(url, 4, sharding=object(), device="cpu")
+    if case == "sharding":
+        from types import SimpleNamespace
+
+        from petastorm_tpu_torch.parallel.mesh import batch_sharding
+
+        mesh = SimpleNamespace(mesh=torch.zeros((1,), dtype=torch.int64),
+                               mesh_dim_names=("dp",), device_type="cpu")
+        reader = SimpleNamespace(stop=lambda: None, join=lambda: None)
+        with DataLoader(reader, 4, device="cpu", sharding=batch_sharding(mesh)) as loader:
+            assert loader.local_batch_size == 4 and loader.device == torch.device("cpu")
+        return
+    from petastorm_tpu_torch import reader as port_reader
+
+    built = []
+    real = port_reader.make_batch_reader
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    with pytest.raises(ValueError, match="NamedSharding"):
+        make_dataloader(url, 4, sharding=object(), device="cpu", reader_factory=spy,
+                        reader_pool_type="dummy")
+    assert len(built) == 1 and built[0].stopped
 
 
 @pytest.mark.parametrize("kwargs,item", [

@@ -164,11 +164,14 @@ def test_an_infinite_reader_is_refused(store):
 
 
 def test_sharding_raises_naming_item_12(store):
+    """Multi-card placement (item 12) is ported: ``sharding=`` takes a ``NamedSharding``
+    (held across ranks in ``tests/test_torch_sharding.py``); an object that is not one
+    raises ``ValueError``, as the reference's ``device_put`` does for it."""
     from petastorm_tpu_torch import reader as port_reader
 
     reader = _reader(port_reader, store)
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        with pytest.raises(ValueError, match="NamedSharding"):
             InMemDataLoader(reader, 8, device=CPU, sharding=object())
     finally:
         reader.stop()
@@ -439,4 +442,6 @@ def test_make_dataloader_cur_shard_defaults_to_the_gloo_rank(store, tmp_path):
     assert [(r["cur_shard"], r["shard_count"]) for r in results] == [(0, 2), (1, 2)]
     assert all(len(r["ids"]) == len(set(r["ids"])) for r in results)
     assert not shards[0] & shards[1] and shards[0] | shards[1] == set(range(ROWS))
-    assert all("Queue 1 item 12" in r["inmem_error"] for r in results)
+    # multi-card placement is ported: the reference's refusal of an unsharded
+    # multi-process InMemDataLoader
+    assert all("requires a sharding" in r["inmem_error"] for r in results)

@@ -17,8 +17,10 @@ Three kinds of case:
 
 The ``io.remote`` chaos case of ``TestHedging`` and the ``footer_unreadable`` quarantine
 cases of ``TestReaderIntegration`` are in ``tests/test_torch_chaos.py``;
-``TestKwargProbe`` probes the loader's ``sharding=`` keyword (item 12). ``gpu``-marked cases run the kernels on the card and skip
-here.
+The JAX package's ``TestKwargProbe`` (its loader's probe of a codec's ``sharding=`` keyword)
+has no counterpart: the port's codecs take ``device=``, and each rank decodes on its own
+card, so no kwarg probe is needed. ``gpu``-marked cases run the kernels on the card and
+skip here.
 """
 import os
 import pickle
