@@ -278,13 +278,30 @@ Phases (each passes or the script exits non-zero, printing no result line):
    pass-through over its shard, ids once across the ranks, pixels per id phase 7's,
    the pass-through's rows the store's, every kernel once a batch on each rank.
 
+19. The process pool on tcp (the comment block above ``phase_tcp_main_path``): (a) the
+   main path on four children over the pipe and over framed tcp, one epoch each at
+   batches of 128: every id once, pixels per id phase 7's, the JPEG kernels once a
+   batch, the connects counted and no link death; (b) the pass-through over both wires
+   with phase 5's checks; (c) a seeded ``net.reset`` and (d) a ``net.corrupt_frame`` in
+   the middle of (a)'s epoch: every id once, nothing quarantined, the reconnect and the
+   corrupt frame counted.
+
+20. The data service (the comment block above ``phase_service``): a ``DataService``
+   over two of phase 4's files with two ``DecodeWorker`` processes decoding the JPEG
+   cells on the host; (a) two trainers, each a ``ServiceReader`` into
+   ``DataLoader(device='cuda')`` with K2, every row once each, pixels per id phase 7's,
+   one decode an item; (b) a detach with ``state_dict()`` and an exact resume; (c) a
+   seeded ``net.reset`` on a worker's link; (d) a co-hosted trainer served from the
+   host arena.
+
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
 in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 11's,
 ``slice13_launches`` in phase 12's, ``slice14_launches`` in phase 13's,
 ``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's,
 ``slice17_launches`` in phase 16's, ``slice18_launches`` in phase 17's,
-``slice19_launches`` in phase 18's, each rank apart), the card's
+``slice19_launches`` in phase 18's, each rank apart, ``slice20_launches`` in phases 19
+and 20's), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -2086,7 +2103,7 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                        measured=TAB_MEASURED_BATCHES, batch_size=TAB_BATCH, pool="thread",
                        wire=None, io_options=None, filesystem=None, trace=None,
                        metrics=None, slos=None, probe=None, on_batch=None,
-                       provenance=None):
+                       provenance=None, transport=None):
     """``make_batch_reader(io_options={"pagedec": "auto"})`` → ``DataLoader`` on the
     card: counts zeroed just before, read just after; the first and last measured
     batches against a ``pagedec="off"`` read of their row groups and the source arrays.
@@ -2100,7 +2117,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
     ``slos``: the loader's SLO specs (phase 14 (d)); ``probe(loader, reader)`` runs inside
     the loader's block after the window, its result under ``probe``; ``on_batch(n)`` is
     called with the consumer's count after each batch it takes. ``provenance``: the
-    reader factory's (phase 15 (a))."""
+    reader factory's (phase 15 (a)). ``transport``: the process pool's wire (phase 19
+    (b))."""
     import numpy as np
     import torch
 
@@ -2116,7 +2134,8 @@ def phase_tabular_path(root, arrays, predicted, device="cuda", warmup=TAB_WARMUP
                                shuffle_row_groups=True, seed=0, num_epochs=None,
                                io_options={"pagedec": "auto", **(io_options or {})},
                                reader_pool_type=pool, wire_serializer=wire,
-                               filesystem=filesystem, provenance=provenance)
+                               filesystem=filesystem, provenance=provenance,
+                               transport=transport)
     counters0 = pagedec.counter_values()
     reads0 = pk.HOST_READS.value
     pk.snappy_inflate_ragged.launches = 0
@@ -6628,6 +6647,483 @@ def phase_place_two_ranks(url, tab_root, arrays, digests, predicted, work, smi):
     return {"ranks": res, "wall_s": wall}
 
 
+# -- phase 19: the process pool on tcp ---------------------------------------------------
+#
+# The process pool's wire as framed tcp (``transport='tcp'``): each of TCP_WORKERS
+# children dials back to the pool's hub, and results ride length-prefixed crc32-checked
+# frames with heartbeats, a redial after a link death and the in-flight ledger. (a) the
+# main path, phase 4's store read with make_batch_reader(decode_on_device=True,
+# reader_pool_type='process', transport=...) into DataLoader(128) with K2 as the device
+# transform, one epoch (32 batches of 128) on the pipe and then on tcp: every id once,
+# the pixels per id phase 7's in both (so the two wires deliver the same), the kernels
+# once a batch; rows/s of each and the p50 of the heartbeat round trip printed. (b) phase
+# 5's pass-through over the pipe and over tcp at TCP_TAB_WARMUP + TCP_TAB_MEASURED
+# batches, with phase 5's checks (byte identity to the source, one K3, scan and K4 a
+# batch). (c) (a) on tcp with a seeded net.reset at the parent's transport.send: the link
+# is torn down, the child redials, the item goes out again on the healed link: every id
+# once, nothing quarantined, a reconnect counted. (d) one net.corrupt_frame at the
+# parent's transport.recv (its crc trailer catches it, the link is torn down): a corrupt
+# frame counted, every id once. Each tcp run checks the pool really ran on tcp (its
+# transport, the connects counted, no transport_link_down degradation in (a)).
+
+TCP_WORKERS = 4
+TCP_BATCH = 128
+# the warm-up covers the children's first items: pagedec="auto" reaches a running
+# child with its next item, so each child's first one may still be classic
+TCP_TAB_WARMUP, TCP_TAB_MEASURED = 10, 20
+TCP_RESET_NTH = 8     # about the middle of the epoch's 16 item dispatches
+TCP_CORRUPT_NTH = 12  # an inbound frame early in the epoch
+TCP_HEARTBEAT_S = 0.5  # round trips observed within an epoch; 1.5 s of silence is half-open
+
+
+def net_values():
+    """This process's ``ptpu_net_*`` counts and its transport_link_down degradations."""
+    from petastorm_tpu_torch.obs.log import degradation_counts
+    from petastorm_tpu_torch.transport import net_metrics
+
+    m = net_metrics()
+    return {"connects": m.connects.value, "reconnects": m.reconnects.value,
+            "frames_corrupt": m.frames_corrupt.value, "rtt_count": m.rtt.count,
+            "link_down": degradation_counts().get("transport_link_down", 0)}
+
+
+def tcp_jpeg_run(url, images, transport, label, smi, plan=None, device="cuda"):
+    """One epoch of the main path on TCP_WORKERS children over ``transport``, ``plan``
+    armed in this process (not in the children) while it reads; every id once and its
+    pixels ``images``' (phase 7's, by id)."""
+    import torch
+
+    from petastorm_tpu_torch import chaos, make_batch_reader
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+    from petastorm_tpu_torch.transport import net_metrics
+
+    net0 = net_values()
+    reader = make_batch_reader(url, decode_on_device=True, reader_pool_type="process",
+                               workers_count=TCP_WORKERS, transport=transport,
+                               shuffle_row_groups=False, results_timeout_s=120,
+                               recovery={"link_heartbeat_s": TCP_HEARTBEAT_S})
+    wire = reader._executor._transport_name
+    counts = torch.zeros(ROWS, dtype=torch.int32, device=device)
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    plain_ok, batches = False, 0
+    _jpeg_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    with chaos.armed(plan, propagate=False) if plan is not None \
+            else contextlib.nullcontext():
+        with DataLoader(reader, TCP_BATCH, device=device, last_batch="partial",
+                        device_transform=_jpeg_transform()) as loader:
+            for batch in loader:
+                ids, u8 = batch["id"], batch["image_u8"]
+                counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                bad.add_((images.index_select(0, ids) != u8).sum())
+                if batches == 0:
+                    plain_ok = torch.equal(batch["image"], image._normalize_plain(
+                        u8, MEAN, STD, torch.bfloat16))
+                batches += 1
+            _sync(device)
+            quarantined = list(loader.quarantine_report or ())
+        injections = plan.injections() if plan is not None else []
+    wall = time.perf_counter() - t0
+    launches = _jpeg_launch_counters()
+    net1 = net_values()
+    net = {k: net1[k] - net0[k] for k in net0}
+    rtt_p50 = net_metrics().rtt.percentile(0.5)
+    rows_per_s = ROWS / wall
+    log("tcp pool (%s): %s wire, %d batches of %d, %.1f rows/s (%.3f s); launches %s; "
+        "net counts %s; heartbeat round trip p50 %.6f s (this process, all links so far); "
+        "injections %s; quarantined %d; %d uint8 values apart from phase 7's images; %s"
+        % (label, wire, batches, TCP_BATCH, rows_per_s, wall, json.dumps(launches),
+           json.dumps(net), rtt_p50, [(i["site"], i["action"], i["key"])
+                                      for i in injections], len(quarantined), bad.item(),
+           smi))
+    check(wire == (transport or "pipe"), "%s: the pool ran on %r" % (label, wire))
+    check(bool((counts == 1).all()), "%s: ids delivered %s times, not once each"
+          % (label, sorted(set(counts.tolist()))))
+    check(bad.item() == 0, "%s: images differ from phase 7's of the same ids" % label)
+    check(plain_ok, "%s: K2 differs from its plain version" % label)
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"]
+          == batches == -(-ROWS // TCP_BATCH),
+          "%s: launches %s for %d batches" % (label, launches, batches))
+    check(not quarantined, "%s: quarantined %s" % (label, quarantined))
+    if transport == "tcp":
+        check(net["connects"] >= TCP_WORKERS, "%s: %d links connected, fewer than %d "
+              "children" % (label, net["connects"], TCP_WORKERS))
+    return {"rows_per_s": rows_per_s, "launches": launches, "batches": batches,
+            "net": net, "rtt_p50_s": rtt_p50, "injections": len(injections)}
+
+
+def phase_tcp_main_path(url, images, smi, device="cuda"):
+    """(a), (c) and (d) (comment above)."""
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+
+    out = {"pipe": tcp_jpeg_run(url, images, "pipe", "(a) pipe", smi, device=device)}
+    out["tcp"] = tcp_jpeg_run(url, images, "tcp", "(a) tcp", smi, device=device)
+    check(out["tcp"]["net"]["link_down"] == 0 and out["tcp"]["net"]["reconnects"] == 0,
+          "(a): the clean tcp run saw a link death: %s" % out["tcp"]["net"])
+    log("tcp pool (a): tcp %.1f rows/s against the pipe's %.1f (%.4fx; a record, no claim)"
+        % (out["tcp"]["rows_per_s"], out["pipe"]["rows_per_s"],
+           out["tcp"]["rows_per_s"] / out["pipe"]["rows_per_s"]))
+    plan = FaultPlan([FaultRule("transport.send", "net.reset", nth=TCP_RESET_NTH,
+                                times=1)], seed=CHAOS_SEED)
+    out["reset"] = tcp_jpeg_run(url, images, "tcp", "(c) net.reset", smi, plan=plan,
+                                device=device)
+    check(out["reset"]["injections"] == 1 and out["reset"]["net"]["reconnects"] >= 1,
+          "(c): %d injections, %d reconnects" % (out["reset"]["injections"],
+                                                  out["reset"]["net"]["reconnects"]))
+    plan = FaultPlan([FaultRule("transport.recv", "net.corrupt_frame",
+                                nth=TCP_CORRUPT_NTH, times=1)], seed=CHAOS_SEED)
+    out["corrupt"] = tcp_jpeg_run(url, images, "tcp", "(d) net.corrupt_frame", smi,
+                                  plan=plan, device=device)
+    check(out["corrupt"]["net"]["frames_corrupt"] >= 1,
+          "(d): no corrupt frame counted: %s" % out["corrupt"]["net"])
+    check(sum(out[k]["net"]["rtt_count"] for k in ("tcp", "reset", "corrupt")) > 0,
+          "no heartbeat round trip observed on the tcp runs")
+    return out
+
+
+def phase_tcp_tabular(root, arrays, predicted, smi, device="cuda"):
+    """(b) (comment above)."""
+    out = {}
+    for transport in ("pipe", "tcp"):
+        net0 = net_values()
+        launches, res = phase_tabular_path(
+            root, arrays, predicted, device=device, warmup=TCP_TAB_WARMUP,
+            measured=TCP_TAB_MEASURED, pool="process", wire="arrow", transport=transport,
+            probe=lambda _loader, reader: reader._executor._transport_name)
+        net = {k: v - net0[k] for k, v in net_values().items()}
+        log("tcp pool (b) %s: pass-through %.1f rows/s; launches %s; net counts %s; %s"
+            % (transport, res["rows_per_s"], json.dumps(launches), json.dumps(net), smi))
+        check(res["probe"] == transport, "(b): the pool ran on %r" % res["probe"])
+        if transport == "tcp":
+            check(net["connects"] >= min(8, max(1, (os.cpu_count() or 2) - 1))
+                  and net["link_down"] == 0, "(b): net counts %s" % net)
+        out[transport] = res
+    return out
+
+
+# -- phase 20: the data service ----------------------------------------------------------
+#
+# One DataService (ServiceOptions(arena=True), the host arena made first) over phase 4's
+# files 0 and 1 (2,048 rows, 8 row groups: the plan items of parquet_job), with a decode
+# callable that reads a row group and decodes its JPEG cells on the host into uint8
+# (n, 224, 224, 3) BGR (cv2 where the machine has it, else the port's CPU path). The
+# callable run in this process gives the pixels every trainer must receive, by id (held
+# within phase 4's cv2 tolerance of phase 7's images). Two DecodeWorkers run in
+# processes of their own (this script started with ``--svc-worker``, which resolves the
+# pickled callable from its own ``__main__``). (a) decode once, serve many: two trainers
+# attach before the workers start, each a ServiceReader into DataLoader(128,
+# device='cuda', prefetch=0) with K2 as its device transform (prefetch=0: the transform
+# runs on the consumer thread, which takes the two loaders' batches in turns, so K2's
+# launch counter sees one caller at a time): each trainer gets every row once with the
+# callable's pixels, one decode an item, no lease leaked; decode seconds a delivered row
+# and rows/s a trainer printed. (b) a trainer detaches
+# after SVC_DETACH_AFTER items with state_dict(); a fresh ServiceReader restored from it
+# receives exactly the rest. (c) a seeded net.reset on one worker's link (the service's
+# transport.send on that session): every row once, nothing quarantined, a reconnect.
+# (d) a co-hosted trainer with arena=True after the items were decoded: every item
+# arrives as an arena key and is mapped from the arena, with the same pixels.
+
+SVC_FILES = 2
+SVC_WORKERS = 2
+SVC_BATCH = 128
+SVC_DETACH_AFTER = 3
+SVC_ARENA_BYTES = 1 << 30
+SVC_JOB = "jpeg"
+SVC_DEADLINE_S = 120
+SVC_WARM_SEED = 20
+
+
+def host_jpeg_decode(blobs):
+    """JPEG blobs to uint8 (n, h, w, 3) BGR on the host: cv2 (libjpeg) where the machine
+    has it, else the port's CPU path (stage 1, then the plain stage 2)."""
+    import numpy as np
+
+    try:
+        import cv2
+    except ImportError:
+        from petastorm_tpu_torch.ops import jpeg
+
+        return jpeg.decode_jpeg_batch(jpeg.entropy_decode_jpeg_batch(blobs), device="cpu",
+                                      bgr=True).numpy()
+    return np.stack([cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR)
+                     for b in blobs])
+
+
+class JpegRowGroupDecode:
+    """Phase 20's decode callable: the ``(path, row_group)`` item's rows, the JPEG cells
+    decoded on the host (:func:`host_jpeg_decode`), BGR as the loader delivers them."""
+
+    def __call__(self, item):
+        import pyarrow.parquet as pq
+
+        path, rg = item
+        table = pq.ParquetFile(path).read_row_group(rg, columns=["id", "image", "label"])
+        blobs = table.column("image").to_pylist()
+        return {"id": table.column("id").to_numpy(), "image": host_jpeg_decode(blobs),
+                "label": table.column("label").to_numpy()}, len(blobs)
+
+
+def svc_schema():
+    import numpy as np
+
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    return Unischema("ServiceImages", [
+        UnischemaField("id", np.int64, (), None, False),
+        UnischemaField("image", np.uint8, IMG, None, False),
+        UnischemaField("label", np.int32, (), None, False)])
+
+
+def svc_worker_main(address, token, name):
+    """A decode worker process (``chip_smoke.py --svc-worker <address> <token> <name>``):
+    imports the callable's reader and warms the host decode on one image of its own
+    before it dials (without cv2, torch's first host ops take seconds), so no lease
+    times the warm-up, then serves leases until the service stops it."""
+    import pyarrow as pa
+    import pyarrow.parquet  # noqa: F401  (the callable's reader, imported here)
+
+    from petastorm_tpu_torch.service import DecodeWorker
+
+    pa.table({"id": [0]}).column("id").to_numpy()  # pyarrow's lazy pandas import
+    host_jpeg_decode([BaselineJpegEncoder(QUALITY).encode(
+        next(make_images(1, seed=SVC_WARM_SEED)))])
+    DecodeWorker(address, token, name=name).run()
+
+
+def _svc_spawn_worker(svc, name):
+    from petastorm_tpu_torch.transport.tcp import parse_address
+
+    address = svc.worker_address()
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": ROOT + (
+        os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else "")}
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--svc-worker",
+                             address, svc.token, name], env=env, cwd=ROOT)
+    return proc, parse_address(address)[2]
+
+
+def _svc_reader(svc, trainer, arena=False):
+    from petastorm_tpu_torch.reader import make_service_reader
+
+    return make_service_reader(svc.trainer_address(), svc.token, SVC_JOB, trainer=trainer,
+                               arena=arena)
+
+
+def _svc_host_rows(reader, images, limit=None, device="cuda"):
+    """Items of a ServiceReader taken on the host (``limit`` of them, or all): their ids,
+    and the count of uint8 values apart from ``images`` (by id) of the same ids."""
+    import numpy as np
+    import torch
+
+    ids, bad = [], 0
+    deadline = time.monotonic() + SVC_DEADLINE_S
+    for n, row in enumerate(reader):
+        got = torch.from_numpy(np.array(row.image)).to(device)
+        idx = torch.from_numpy(np.array(row.id)).to(device)
+        bad += int((images.index_select(0, idx) != got).sum())
+        ids.extend(int(i) for i in row.id)
+        check(time.monotonic() < deadline, "phase 20: a trainer's read ran past %d s"
+              % SVC_DEADLINE_S)
+        if limit is not None and n + 1 == limit:
+            break
+    return ids, bad
+
+
+def phase_service(url, images, smi, device="cuda"):
+    """(a)-(d) (comment above)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    from petastorm_tpu_torch.chaos import FaultPlan, FaultRule, armed
+    from petastorm_tpu_torch.io import arena as arena_mod
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.ops import image
+    from petastorm_tpu_torch.service import DataService, JobSpec, ServiceOptions, parquet_job
+    from petastorm_tpu_torch.service.protocol import svc_metrics
+
+    root = url[len("file://"):]
+    files = sorted(os.path.join(root, f) for f in os.listdir(root)
+                   if f.endswith(".parquet") and not f.startswith("_"))[:SVC_FILES]
+    base = parquet_job(SVC_JOB, files)
+    job = JobSpec(SVC_JOB, base.items, JpegRowGroupDecode(), svc_schema())
+    want = sorted(int(i) for f in files
+                  for i in pq.read_table(f, columns=["id"]).column("id").to_numpy())
+    # the callable run here, item by item on threads (cv2 releases the GIL): the pixels
+    # the trainers must receive, by id; against phase 7's images as phase 4 holds cv2
+    ref = torch.zeros_like(images)
+    with ThreadPoolExecutor(len(job.items)) as pool:
+        for cols, _rows in pool.map(JpegRowGroupDecode(), job.items):
+            ref.index_copy_(0, torch.from_numpy(np.array(cols["id"])).to(device),
+                            torch.from_numpy(cols["image"]).to(device))
+    rows_t = torch.tensor(want, device=device)
+    diff = (ref.index_select(0, rows_t).to(torch.int32)
+            - images.index_select(0, rows_t).to(torch.int32)).abs()
+    log("service: the decode callable run here against phase 7's images: max %d, mean "
+        "%.4f" % (diff.max().item(), diff.float().mean().item()))
+    check(diff.max().item() <= 4 and diff.float().mean().item() < 1.0,
+          "phase 20: the decode callable's pixels too far from phase 7's images")
+    del diff
+    arena = arena_mod.host_arena(SVC_ARENA_BYTES)
+    check(arena is not None, "phase 20: the host arena could not be made")
+    m = svc_metrics()
+    m0 = {k: v.value for k, v in m.items()}
+    procs = []
+    out = {}
+    t_phase = time.perf_counter()
+    svc = DataService(options=ServiceOptions(arena=True))
+    try:
+        svc.add_job(job)
+        # (a): both trainers attach before the fleet starts, so every decode fans out
+        readers = [_svc_reader(svc, "trainer-%d" % i) for i in range(2)]
+        sessions = []
+        for i in range(SVC_WORKERS):
+            proc, session = _svc_spawn_worker(svc, "decode-%d" % i)
+            procs.append(proc)
+            sessions.append(session)
+        _jpeg_launch_counters(zero=True)
+        dec0 = m["decode_seconds"].value
+        t0 = time.perf_counter()
+        state = [{"ids": [], "bad": torch.zeros((), dtype=torch.int64, device=device),
+                  "batches": 0, "plain_ok": None, "done_s": None, "first_s": None,
+                  "first_rows": 0} for _ in readers]
+        with DataLoader(readers[0], SVC_BATCH, device=device, prefetch=0,
+                        last_batch="partial", device_transform=_jpeg_transform()) as l0, \
+                DataLoader(readers[1], SVC_BATCH, device=device, prefetch=0,
+                           last_batch="partial", device_transform=_jpeg_transform()) as l1:
+            its = [iter(l0), iter(l1)]
+            live = [True, True]
+            while any(live):
+                for t, it in enumerate(its):
+                    if not live[t]:
+                        continue
+                    batch = next(it, None)
+                    st = state[t]
+                    if batch is None:
+                        live[t] = False
+                        st["done_s"] = time.perf_counter() - t0
+                        continue
+                    ids, u8 = batch["id"], batch["image_u8"]
+                    if st["first_s"] is None:
+                        # the clock of the trainer's rate starts at its first batch: the
+                        # workers' start-up is not the service's rate
+                        st["first_s"], st["first_rows"] = time.perf_counter() - t0, len(ids)
+                    st["ids"].append(ids)
+                    st["bad"].add_((ref.index_select(0, ids) != u8).sum())
+                    if st["plain_ok"] is None:
+                        st["plain_ok"] = torch.equal(batch["image"], image._normalize_plain(
+                            u8, MEAN, STD, torch.bfloat16))
+                    st["batches"] += 1
+                check(time.perf_counter() - t0 < SVC_DEADLINE_S,
+                      "phase 20 (a): the trainers ran past %d s" % SVC_DEADLINE_S)
+            _sync(device)
+        launches = _jpeg_launch_counters()
+        decode_s = m["decode_seconds"].value - dec0
+        outstanding = svc.outstanding_leases()
+        for st in state:
+            st["ids"] = torch.cat(st["ids"]).tolist()
+        batches = sum(st["batches"] for st in state)
+        rows_per_s = [(len(st["ids"]) - st["first_rows"]) / (st["done_s"] - st["first_s"])
+                      for st in state]
+        delta = {k: m[k].value - m0[k] for k in ("decodes", "served_items",
+                                                 "fanout_serves", "lease_redispatch")}
+        log("service (a): two trainers, %d items of %d rows: %s batches, rows/s a trainer "
+            "after its first batch %s (first batch at %s s, the workers' start-up "
+            "inside); decode worker-seconds %.4f (%.6f a delivered row, %.6f a row a "
+            "trainer); counts %s; K2 launches %s; outstanding leases %d; %s" % (
+                len(job.items), len(want), [st["batches"] for st in state],
+                [round(r, 1) for r in rows_per_s],
+                [round(st["first_s"], 3) for st in state], decode_s,
+                decode_s / (2 * len(want)), decode_s / len(want), json.dumps(delta),
+                json.dumps(launches), outstanding, smi))
+        for t, st in enumerate(state):
+            check(sorted(st["ids"]) == want, "(a): trainer %d's ids are not the job's "
+                  "rows once each" % t)
+            check(st["bad"].item() == 0, "(a): trainer %d's images differ from the "
+                  "callable's run here" % t)
+            check(st["plain_ok"], "(a): K2 differs from its plain version (trainer %d)" % t)
+        check(launches["K2"] == batches > 0 and launches["stage2_planes"] == 0,
+              "(a): launches %s for %d batches" % (launches, batches))
+        check(delta["decodes"] == len(job.items) and delta["fanout_serves"] == len(
+            job.items), "(a): not one decode an item, fanned out: %s" % delta)
+        check(outstanding == 0, "(a): %d leases outstanding" % outstanding)
+        out["a"] = {"launches": launches, "batches": batches, "rows_per_s": rows_per_s,
+                    "decode_s_per_row": decode_s / len(want), "counts": delta}
+        # (b): detach mid-epoch with the watermark, resume in a fresh reader
+        r = _svc_reader(svc, "trainer-b")
+        first_ids, bad1 = _svc_host_rows(r, ref, limit=SVC_DETACH_AFTER,
+                                         device=device)
+        saved = r.state_dict()
+        r.stop()
+        r = _svc_reader(svc, "trainer-b")
+        r.load_state_dict(saved)
+        rest_ids, bad2 = _svc_host_rows(r, ref, device=device)
+        r.stop()
+        log("service (b): %d rows before the detach, %d after the resume" % (
+            len(first_ids), len(rest_ids)))
+        check(sorted(first_ids + rest_ids) == want and not set(first_ids) & set(rest_ids),
+              "(b): the resumed trainer's rows are not exactly the rest")
+        check(bad1 == bad2 == 0, "(b): images differ from the callable's")
+        out["b"] = {"before": len(first_ids), "after": len(rest_ids)}
+        # (c): a seeded net.reset on each worker's link, at its first frame (the phase
+        # opens 8 sessions, numbered from 1, so a key names one link); a worker that
+        # gets no lease in (c) may escape it, so one injection at least
+        net0 = net_values()
+        q0 = m["quarantined"].value
+        plan = FaultPlan([FaultRule("transport.send", "net.reset", nth=1, times=1,
+                                    item_key="session=%d" % s) for s in sessions],
+                         seed=CHAOS_SEED)
+        with armed(plan, propagate=False):
+            r = _svc_reader(svc, "trainer-c")
+            ids_c, bad_c = _svc_host_rows(r, ref, device=device)
+            quarantined = dict(r.quarantined)
+            r.stop()
+            injections = plan.injections()
+        net = {k: v - net0[k] for k, v in net_values().items()}
+        log("service (c): injections %s; net counts %s; quarantined %s" % (
+            [(i["site"], i["action"], i["key"]) for i in injections], json.dumps(net),
+            quarantined))
+        check(sorted(ids_c) == want and bad_c == 0, "(c): rows not once each with the "
+              "callable's images")
+        check(len(injections) >= 1 and net["reconnects"] >= len(injections),
+              "(c): %d injections, %d reconnects" % (len(injections), net["reconnects"]))
+        check(not quarantined and m["quarantined"].value == q0, "(c): quarantined %s"
+              % quarantined)
+        out["c"] = {"net": net}
+        # (d): a co-hosted trainer through the arena
+        hits0 = arena_mod.arena_counters()["hits"]
+        r = _svc_reader(svc, "trainer-d", arena=True)
+        ids_d, bad_d = _svc_host_rows(r, ref, device=device)
+        mapped = len(r._arena_leases)
+        r.stop()
+        hits = arena_mod.arena_counters()["hits"] - hits0
+        log("service (d): %d items mapped from the arena (%d arena hits)" % (mapped, hits))
+        check(sorted(ids_d) == want and bad_d == 0, "(d): rows not once each with the "
+              "callable's images")
+        check(mapped == len(job.items) and hits >= mapped, "(d): %d items mapped, %d hits"
+              % (mapped, hits))
+        out["d"] = {"mapped": mapped}
+    finally:
+        svc.stop()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        arena_mod.close_process_arena()
+    del ref
+    leaked = m["lease_leaked"].value - m0["lease_leaked"]
+    codes = [p.returncode for p in procs]
+    log("service: phase 20's parts in %.1f s; leases leaked %d; worker exit codes %s"
+        % (time.perf_counter() - t_phase, leaked, codes))
+    check(leaked == 0, "phase 20: %d leases leaked" % leaked)
+    check(codes == [0] * SVC_WORKERS, "phase 20: worker exit codes %s" % codes)
+    return out
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -6857,6 +7353,14 @@ def main():
         # (b) runs after phase 5's store exists: it keeps phase 7's pixels as digests
         digests = pixel_digest(images, pixel_weights("cuda")).cpu()
         phase18_s = time.perf_counter() - t18
+        t19 = time.perf_counter()
+        tcp_jpeg = phase_tcp_main_path(url, images, env["smi"])
+        phase19_s = time.perf_counter() - t19
+        t20 = time.perf_counter()
+        service = phase_service(url, images, env["smi"])
+        phase20_s = time.perf_counter() - t20
+        log("the data service: phase 20 took %.1f s of wall time; %s"
+            % (phase20_s, env["smi"]))
         del images
 
         t0 = time.perf_counter()
@@ -6940,6 +7444,13 @@ def main():
         log("multi-card placement: phase 18 took %.1f s of wall time; %s"
             % (phase18_s, env["smi"]))
         check(phase18_s < 120.0, "phase 18 took %.1f s, over its 120 s" % phase18_s)
+        t19 = time.perf_counter()
+        tcp_tab = phase_tcp_tabular(tab_root, arrays, predicted, env["smi"])
+        phase19_s += time.perf_counter() - t19
+        log("the process pool on tcp: phase 19 took %.1f s of wall time; %s"
+            % (phase19_s, env["smi"]))
+        check(phase19_s + phase20_s < 180.0, "phases 19 and 20 took %.1f s, over their "
+              "180 s" % (phase19_s + phase20_s))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
@@ -7047,6 +7558,24 @@ def main():
         out["batches"] = {part: b for part, (_n, b) in parts.items()}
         return out
 
+    def slice20_launches(key):
+        """{part: launches of ``key``} in phases 19 and 20 (phase 20's path runs K2
+        alone; the pass-through kernels run in phase 19 (b))."""
+        if key in ("K3", "scan", "K4"):
+            parts = {"19b_" + t: (r["launches"][key], r["passthrough_batches"])
+                     for t, r in tcp_tab.items()}
+        else:
+            parts = {"19" + part: (tcp_jpeg[run]["launches"][key],
+                                   tcp_jpeg[run]["batches"])
+                     for part, run in (("a_pipe", "pipe"), ("a_tcp", "tcp"),
+                                       ("c_net_reset", "reset"),
+                                       ("d_net_corrupt_frame", "corrupt"))}
+            parts["20a_two_trainers"] = (service["a"]["launches"][key],
+                                         service["a"]["batches"])
+        out = {part: n for part, (n, _b) in parts.items()}
+        out["batches"] = {part: b for part, (_n, b) in parts.items()}
+        return out
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -7069,7 +7598,8 @@ def main():
          "slice16_launches": slice16_launches("stage2_planes"),
          "slice17_launches": slice17_launches("stage2_planes"),
          "slice18_launches": slice18_launches("stage2_planes"),
-         "slice19_launches": slice19_launches("stage2_planes")},
+         "slice19_launches": slice19_launches("stage2_planes"),
+         "slice20_launches": slice20_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -7089,7 +7619,8 @@ def main():
          "slice16_launches": slice16_launches("stage2_rgb"),
          "slice17_launches": slice17_launches("stage2_rgb"),
          "slice18_launches": slice18_launches("stage2_rgb"),
-         "slice19_launches": slice19_launches("stage2_rgb")},
+         "slice19_launches": slice19_launches("stage2_rgb"),
+         "slice20_launches": slice20_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -7130,7 +7661,8 @@ def main():
          "slice16_launches": slice16_launches("K2"),
          "slice17_launches": slice17_launches("K2"),
          "slice18_launches": slice18_launches("K2"),
-         "slice19_launches": slice19_launches("K2")},
+         "slice19_launches": slice19_launches("K2"),
+         "slice20_launches": slice20_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -7192,6 +7724,7 @@ def main():
         row["slice18_launches"] = {"b_passthrough": watch_tab["launches"][key],
                                    "b_passthrough_batches": watch_tab["batches"]}
         row["slice19_launches"] = slice19_launches(key)
+        row["slice20_launches"] = slice20_launches(key)
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -7287,6 +7820,20 @@ def main():
             phase18_s, place_a["rows_per_s"],
             [round(r["main"]["rows_per_s"], 1) for r in place_b["ranks"]],
             [round(r["tab"]["rows_per_s"], 1) for r in place_b["ranks"]]))
+    log("the process pool on tcp (phase 19, %.1f s): main path rows/s %.1f on tcp against "
+        "%.1f on the pipe, %.1f across a net.reset, %.1f across a corrupt frame; heartbeat "
+        "round trip p50 %.6f s; pass-through rows/s %.1f on tcp against %.1f on the pipe"
+        % (phase19_s, tcp_jpeg["tcp"]["rows_per_s"], tcp_jpeg["pipe"]["rows_per_s"],
+           tcp_jpeg["reset"]["rows_per_s"], tcp_jpeg["corrupt"]["rows_per_s"],
+           tcp_jpeg["corrupt"]["rtt_p50_s"], tcp_tab["tcp"]["rows_per_s"],
+           tcp_tab["pipe"]["rows_per_s"]))
+    log("the data service (phase 20, %.1f s): two trainers at %s rows/s, %.6f decode "
+        "worker-seconds a row (decoded once for both); (b) %d + %d rows across the detach; "
+        "(c) %d reconnects; (d) %d items mapped from the arena" % (
+            phase20_s, [round(r, 1) for r in service["a"]["rows_per_s"]],
+            service["a"]["decode_s_per_row"], service["b"]["before"],
+            service["b"]["after"], service["c"]["net"]["reconnects"],
+            service["d"]["mapped"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],
@@ -7294,6 +7841,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--svc-worker"]:
+        svc_worker_main(*sys.argv[2:5])  # phase 20's decode worker processes
+        sys.exit(0)
     try:
         main()
     except PhaseFailed as e:

@@ -7,7 +7,9 @@ does) and is never forked from the parent, which holds a CUDA context, pinned me
 and threads. The parent also starts it with ``CUDA_VISIBLE_DEVICES`` empty: a child
 only reads and decodes on the host, and must not make a CUDA context of its own.
 
-Protocol, over a ``multiprocessing.connection`` unix socket (authkey on stdin): the
+Protocol, over a ``multiprocessing.connection`` unix socket, or over a framed tcp link
+to the parent's hub when the address is ``tcp:<host>:<port>:<session>``
+(:mod:`petastorm_tpu_torch.transport.tcp`; the authkey on stdin either way): the
 parent sends its ``sys.path``, the wire serializer's name (a shared-memory name is
 followed by the slab ring's segment names and slab size), the health settings
 (``{"stack_dump_dir", "ping_interval_s"}``), then the pickled worker; the child calls
@@ -58,9 +60,15 @@ registers ``faulthandler`` on SIGUSR1, writing every thread's stack to
 ``<dir>/stacks-<pid>.txt``, which the parent signals and reads into a flight record.
 
 The child adopts the parent's tenant (``PTPU_TENANT``, stamped by the pool) as its
-process default before its pid ack (:func:`petastorm_tpu_torch.obs.tenant.attach_from_env`),
-so the IO it does is charged to that tenant. The JAX package's child also speaks tcp;
-that is not ported (ROADMAP.md Queue 1 item 4(c)), and the parent never asks for it.
+process default before it dials (:func:`petastorm_tpu_torch.obs.tenant.attach_from_env`),
+so a tcp hello already carries it and the IO it does is charged to that tenant.
+
+On tcp the child redials with jittered backoff after any link death (its policy comes in
+the ``PTPU_LINK_*`` environment the pool sets). A healed link surfaces as
+:class:`~petastorm_tpu_torch.errors.TransportLinkDown`, caught by the work loop: whatever
+the conversation was (an item half received, a result half sent) is void, and the loop
+waits for the parent's re-dispatch. A parent that cannot be reached surfaces as
+``EOFError``, as a closed pipe does, and the child exits.
 """
 import os
 import pickle
@@ -120,7 +128,18 @@ def _apply_knobs(worker, knobs):
 def main():
     address = sys.argv[1]
     authkey = sys.stdin.buffer.read(32)
-    conn = _dial(address, authkey)
+    from petastorm_tpu_torch.obs import tenant as tenant_mod
+
+    tenant_mod.attach_from_env()  # before the dial: a tcp hello carries the tenant
+    link_down = ()  # a dead pipe cannot heal: end of file or a reset is a gone parent
+    if address.startswith("tcp:"):
+        from petastorm_tpu_torch.errors import TransportLinkDown
+        from petastorm_tpu_torch.transport.tcp import connect_child_tcp
+
+        conn = connect_child_tcp(address, authkey)
+        link_down = TransportLinkDown
+    else:
+        conn = _dial(address, authkey)
     serializer = None
     worker = None
     try:
@@ -141,14 +160,13 @@ def main():
         ping_s = float(health_cfg.get("ping_interval_s") or 0)
         _register_stack_dump(health_cfg.get("stack_dump_dir"))
         worker = conn.recv()
-        from petastorm_tpu_torch.obs import tenant as tenant_mod
-
-        tenant_mod.attach_from_env()
         warm = getattr(worker, "warm", None)
         if warm is not None:
             warm()  # first-use imports, before the parent times this child's items
         pid = os.getpid()
         conn.send(("pid", pid))
+        if hasattr(conn, "mark_ready"):
+            conn.mark_ready()  # tcp: heartbeats and chaos sites on the steady-state link
         # the clock-alignment anchor pair of this child's spans
         wall_anchor, perf_anchor = time.time(), time.perf_counter()
         from petastorm_tpu_torch import chaos
@@ -164,64 +182,71 @@ def main():
         prefetch = getattr(worker, "prefetch", None)
         io_stats = getattr(worker, "io_stats", None)
         while True:
-            if ping_s:
-                # the idle heartbeat: alive while waiting for work (this thread is the
-                # only sender, so a ping never lands inside a result's frames)
-                while not conn.poll(ping_s):
-                    conn.send(("hb", time.time()))
-            # waiting for the next item is this process's job; the parent's teardown
-            # closes the socket (EOFError, handled)
-            msg = conn.recv()
-            if msg is None:
-                return
-            if isinstance(msg, tuple) and len(msg) == 2 and msg[0] == "ctl":
-                # a live knob retune (item messages are 3- or 4-tuples)
-                conn.send(("ctl_ack", _apply_knobs(worker, msg[1] or {})))
-                continue
-            if ping_s:
-                conn.send(("hb", time.time()))  # item received, about to work
-            if shm_wire:
-                slab_id, item, hints, settings = msg
-                serializer.set_slab(slab_id)
-            else:
-                item, hints, settings = msg
-            if settings and apply_settings is not None:
-                apply_settings(settings)
-            if hints and prefetch is not None:
-                prefetch(hints)  # never raises (degradation-counted)
-            prov.begin_item(item)
             try:
-                try:
-                    t0 = time.perf_counter()
-                    if chaos.ACTIVE is not None:
-                        chaos.ACTIVE.hit("child.item", key=chaos.item_key(item))
-                    result = worker(item)
-                    t1 = time.perf_counter()
-                    kind, frames = serializer.serialize(result)
-                    t2 = time.perf_counter()
-                    # mirrored into the item's record, so the parent's wire.roundtrip
-                    # folds to the wire's overhead (the worker's spans nest in here)
-                    prov.add_span("child.work", t0, t1 - t0)
-                    prov.add_span("child.serialize", t1, t2 - t1)
-                except Exception as e:  # noqa: BLE001 — shipped to the parent
-                    try:
-                        pickle.dumps(e)
-                        conn.send(("exc", e))
-                    except Exception:  # noqa: BLE001 — unpicklable exception: rebuild
-                        conn.send(("exc", RuntimeError("%s: %s" % (type(e).__name__,
-                                                                  e))))
+                if ping_s:
+                    # the idle heartbeat: alive while waiting for work (this thread is the
+                    # only sender, so a ping never lands inside a result's frames)
+                    while not conn.poll(ping_s):
+                        conn.send(("hb", time.time()))
+                # waiting for the next item is this process's job; the parent's teardown
+                # closes the socket (EOFError, handled)
+                msg = conn.recv()
+                if msg is None:
+                    return
+                if isinstance(msg, tuple) and len(msg) == 2 and msg[0] == "ctl":
+                    # a live knob retune (item messages are 3- or 4-tuples)
+                    conn.send(("ctl_ack", _apply_knobs(worker, msg[1] or {})))
                     continue
-            finally:
-                # taken on every exit of the attempt: a failed one never leaks into the
-                # next item's record
-                prov_blob = prov.end_item()
-            conn.send(("ok", kind, len(frames), (t1 - t0, t2 - t1),
-                       io_stats() if io_stats is not None else None,
-                       (pid, wall_anchor, perf_anchor,
-                        [("child.work", t0, t1 - t0), ("child.serialize", t1, t2 - t1)],
-                        prov_blob)))
-            for frame in frames:
-                conn.send_bytes(frame)
+                if ping_s:
+                    conn.send(("hb", time.time()))  # item received, about to work
+                if shm_wire:
+                    slab_id, item, hints, settings = msg
+                    serializer.set_slab(slab_id)
+                else:
+                    item, hints, settings = msg
+                if settings and apply_settings is not None:
+                    apply_settings(settings)
+                if hints and prefetch is not None:
+                    prefetch(hints)  # never raises (degradation-counted)
+                prov.begin_item(item)
+                try:
+                    try:
+                        t0 = time.perf_counter()
+                        if chaos.ACTIVE is not None:
+                            chaos.ACTIVE.hit("child.item", key=chaos.item_key(item))
+                        result = worker(item)
+                        t1 = time.perf_counter()
+                        kind, frames = serializer.serialize(result)
+                        t2 = time.perf_counter()
+                        # mirrored into the item's record, so the parent's wire.roundtrip
+                        # folds to the wire's overhead (the worker's spans nest in here)
+                        prov.add_span("child.work", t0, t1 - t0)
+                        prov.add_span("child.serialize", t1, t2 - t1)
+                    except Exception as e:  # noqa: BLE001 — shipped to the parent
+                        try:
+                            pickle.dumps(e)
+                            conn.send(("exc", e))
+                        except link_down:
+                            raise  # to the conversation's handler below
+                        except Exception:  # noqa: BLE001 — unpicklable exception: rebuild
+                            conn.send(("exc", RuntimeError("%s: %s" % (type(e).__name__,
+                                                                      e))))
+                        continue
+                finally:
+                    # taken on every exit of the attempt: a failed one never leaks into the
+                    # next item's record
+                    prov_blob = prov.end_item()
+                conn.send(("ok", kind, len(frames), (t1 - t0, t2 - t1),
+                           io_stats() if io_stats is not None else None,
+                           (pid, wall_anchor, perf_anchor,
+                            [("child.work", t0, t1 - t0), ("child.serialize", t1, t2 - t1)],
+                            prov_blob)))
+                for frame in frames:
+                    conn.send_bytes(frame)
+            except link_down:
+                # the link died and redialed: this conversation is void, and the
+                # parent sends its in-flight item again
+                continue
     except (EOFError, BrokenPipeError, ConnectionResetError):
         return
     finally:

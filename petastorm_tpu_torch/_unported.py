@@ -6,7 +6,6 @@ Each maps to the ROADMAP.md queue item that ports it. A caller that asks for one
 from __future__ import annotations
 
 _ITEMS = {
-    "process_pool": "Queue 1 item 4(c) (the process pool's tcp transport and framing)",
     "compat": "Queue 1 item 16 (reference-petastorm compatibility, HDFS, Spark)",
     "tf": "Queue 1 item 21 (adapters/tf.py, tf_utils.py and tools/)",
 }

@@ -41,11 +41,15 @@ dataset.mutate     ``DatasetWatcher.poll_once``, once a watch tick when a
                    mutator is attached: the only site where the
                    ``remove_file``/``rewrite_file``/``append_piece``
                    actions change a real dataset
+transport.send     ``transport/tcp.py``, once an outbound frame of a ready
+                   tcp link (parent and child evaluate their own copies of
+                   the plan): where the ``net.partition``/``net.reset``/
+                   ``net.slow``/``net.corrupt_frame`` actions act
+transport.recv     the same, once an inbound frame (before the crc check,
+                   so ``net.corrupt_frame`` is caught by the trailer)
 =================  ====================================================
 
-The ``net.*`` actions need the tcp transport, which is not ported: they raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 4(c) when a rule is made. The
-mutation actions call the method of the same name on the site's payload, a mutator such
+The mutation actions call the method of the same name on the site's payload, a mutator such
 as :class:`~petastorm_tpu_torch.dataset.mutate.LocalDatasetMutator`, with the rule's JSON
 ``target``. ``hang`` sleeps ``hang_s`` (ended early by a disarm):
 the stall watchdog's prey (:mod:`petastorm_tpu_torch.obs.health`), which the process pool's
@@ -67,9 +71,28 @@ _ACTIONS = ("raise_transient", "raise_permanent", "latency", "corrupt",
             "kill", "hang", "remove_file", "rewrite_file", "append_piece",
             "net.partition", "net.reset", "net.slow", "net.corrupt_frame")
 
-#: actions of the tcp transport (ROADMAP.md Queue 1 item 4(c)): named, so a JAX plan's
-#: rule is recognised, but refused here
+#: network fault actions, evaluated at the tcp transport's ``transport.send`` and
+#: ``transport.recv`` sites, whose payload is one raw wire frame. ``net.partition`` opens
+#: a drop window of ``latency_s`` seconds on the firing rule: every frame matching that
+#: rule's site pattern inside the window returns :data:`DROPPED`, and the transport drops
+#: heartbeat frames (starving the peer's half-open detector) but stalls app frames at
+#: the send site until the window closes or the link dies under them (TCP retransmits
+#: through a partition: data is delayed or the connection torn down, never silently
+#: lost). ``net.reset`` raises a ``ConnectionResetError`` the transport turns into a real
+#: socket teardown; ``net.slow`` sleeps ``latency_s`` a frame; ``net.corrupt_frame``
+#: flips a byte the receiver's crc32 trailer catches.
 _NET_ACTIONS = ("net.partition", "net.reset", "net.slow", "net.corrupt_frame")
+
+
+class _Dropped:
+    """Sentinel :meth:`FaultPlan.hit` returns when a ``net.partition`` window swallowed
+    the frame: transports check ``payload is DROPPED``."""
+
+    def __repr__(self):
+        return "<chaos DROPPED frame>"
+
+
+DROPPED = _Dropped()
 
 #: dataset-mutation actions, evaluated at the ``dataset.mutate`` site, whose payload is a
 #: mutator with a method of each name; ``rule.target`` is the JSON spec handed to it
@@ -113,8 +136,8 @@ class FaultRule:
         meaningful at ``wire.decode``), ``kill`` (``os._exit`` — pool children
         only), ``hang`` (sleep ``hang_s``), ``remove_file``/``rewrite_file``/
         ``append_piece`` (call the ``dataset.mutate`` site's mutator with
-        ``target``). The ``net.*`` actions raise ``NotImplementedError``
-        (ROADMAP.md Queue 1 item 4(c)).
+        ``target``), and the tcp transport's ``net.partition``, ``net.reset``,
+        ``net.slow`` and ``net.corrupt_frame`` (see ``_NET_ACTIONS``).
     nth : int, optional
         Fire on the Nth matching hit (1-based), counted per rule per process.
     every : int, optional
@@ -143,10 +166,6 @@ class FaultRule:
         if action not in _ACTIONS:
             raise ValueError("action must be one of %s, got %r"
                              % (_ACTIONS, action))
-        if action in _NET_ACTIONS:
-            from petastorm_tpu_torch._unported import not_ported
-
-            raise not_ported("chaos action %r" % action, "process_pool")
         if nth is not None and int(nth) < 1:
             raise ValueError("nth is 1-based (the first matching hit is 1)")
         if probability is not None and not (0.0 <= float(probability) <= 1.0):
@@ -226,6 +245,10 @@ class FaultPlan:
         self._lock = threading.Lock()
         self._hits = [0] * len(self._rules)   # matching hits per rule
         self._fires = [0] * len(self._rules)  # executed actions per rule
+        #: rule index -> monotonic deadline of an open net.partition window: frames
+        #: matching that rule's site pattern are dropped until then
+        self._drop_until = {}
+        self._dropped_frames = 0
         self._ledger = []
         self._max_ledger = int(max_ledger)
 
@@ -238,10 +261,14 @@ class FaultPlan:
     def hit(self, site, key=None, payload=None):
         """Evaluate every rule against one hook-site hit.
 
-        May sleep (``latency``/``hang``), raise (``raise_*``), exit the
-        process (``kill``, opted-in processes only) or return a corrupted copy
-        of ``payload`` (``corrupt``); returns ``payload`` unchanged when nothing
-        fires. Hook sites call this only when a plan is armed."""
+        May sleep (``latency``/``hang``/``net.slow``), raise (``raise_*``,
+        ``net.reset``), exit the process (``kill``, opted-in processes only), return a
+        corrupted copy of ``payload`` (``corrupt``/``net.corrupt_frame``) or return
+        :data:`DROPPED` (an open ``net.partition`` window swallowed the frame); returns
+        ``payload`` unchanged when nothing fires. Hook sites call this only when a plan
+        is armed."""
+        if self._drop_until and self._in_drop_window(site):
+            return DROPPED
         for idx, rule in enumerate(self._rules):
             if not fnmatch.fnmatchcase(site, rule.site):
                 continue
@@ -256,6 +283,21 @@ class FaultPlan:
                 self._fires[idx] += 1
             payload = self._execute(rule, idx, site, key, payload)
         return payload
+
+    def _in_drop_window(self, site):
+        """Is ``site`` inside an open ``net.partition`` window? Expired windows are
+        pruned; dropped frames are counted (not ledgered: a partition drops heartbeats
+        at wire rate)."""
+        now = time.monotonic()
+        with self._lock:
+            for idx, deadline in list(self._drop_until.items()):
+                if now >= deadline:
+                    del self._drop_until[idx]
+                    continue
+                if fnmatch.fnmatchcase(site, self._rules[idx].site):
+                    self._dropped_frames += 1
+                    return True
+        return False
 
     def _should_fire(self, rule, idx, hit_no):
         """Caller holds the lock. Trigger conditions compose conjunctively."""
@@ -296,8 +338,23 @@ class FaultPlan:
             raise FileNotFoundError(
                 rule.message or "chaos-injected permanent IO error at %s (%s)"
                 % (site, key))
-        if action == "corrupt":
+        if action in ("corrupt", "net.corrupt_frame"):
             return _corrupt_payload(payload, self.seed, idx)
+        if action == "net.slow":
+            time.sleep(rule.latency_s)
+            return payload
+        if action == "net.reset":
+            # the transport turns this into a real socket teardown, which the peer
+            # observes too: exactly a mid-frame connection reset
+            raise ConnectionResetError(
+                rule.message or "chaos net.reset at %s (%s)" % (site, key))
+        if action == "net.partition":
+            # open the drop window (latency_s is its length) and swallow the frame
+            # that fired it
+            with self._lock:
+                self._drop_until[idx] = time.monotonic() + rule.latency_s
+                self._dropped_frames += 1
+            return DROPPED
         if action in _MUTATE_ACTIONS:
             # the dataset.mutate site passes a mutator as the payload; the action is a
             # call of its method with the rule's spec
@@ -351,7 +408,7 @@ class FaultPlan:
                 "hits": list(self._hits),
                 "fires": list(self._fires),
                 "injected_total": sum(self._fires),
-                "dropped_frames": 0,  # net.partition drops (the tcp transport, item 4(c))
+                "dropped_frames": self._dropped_frames,
             }
 
     # -- (de)serialization --------------------------------------------------------------

@@ -348,9 +348,10 @@ def tenant_qos_rules(tenants, resource="worker_s", fire_above=0.6,
     (``guarded=False``): fairness is the objective, not throughput — the
     safety guard still reverts a weight cut that tanks delivered rows/s.
 
-    The ``svc_weight:<tenant>`` knobs belong to the data service (ROADMAP.md Queue 1
-    item 20, not ported); rules whose knob is absent are skipped, so the table composes
-    with :func:`default_rules` unconditionally."""
+    The ``svc_weight:<tenant>`` knobs belong to the data service
+    (:meth:`~petastorm_tpu_torch.service.server.DataService.register_knobs`); rules whose
+    knob is absent are skipped, so the table composes with :func:`default_rules`
+    unconditionally."""
     rules = []
     for tenant in tenants:
         rules.append(PolicyRule(

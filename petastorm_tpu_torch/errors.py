@@ -1,5 +1,10 @@
 """Framework exceptions (a copy of ``petastorm_tpu.errors``, cut to what the port raises)."""
 
+#: OSError subclasses that are real answers, not connection trouble: no retry heals a
+#: missing file or a refused permission
+PERMANENT_IO_ERRORS = (FileNotFoundError, PermissionError, IsADirectoryError,
+                       NotADirectoryError, FileExistsError, InterruptedError)
+
 
 class PetastormTpuError(Exception):
     """Base class for framework errors."""
@@ -74,6 +79,23 @@ class WorkerDiedError(PetastormTpuError, RuntimeError):
         self.original = original
         if original is not None:
             self.__cause__ = original
+
+
+class TransportLinkDown(ConnectionResetError):
+    """A tcp transport link died mid-conversation: a socket error, a clean end of file
+    from the peer, a half-open link found by the heartbeats, or a socket replaced when
+    the peer reconnected. A ``ConnectionResetError``, so the process pool's dead-child
+    handling classifies it without new except clauses: the feeder first waits a bounded
+    ``reconnect()`` (the child redials with jittered backoff) and only then spends the
+    respawn budget. The in-flight item is dispatched again under the poison policy:
+    delivered exactly once or quarantined."""
+
+
+class TransportFrameCorrupt(TransportLinkDown):
+    """A tcp transport frame whose crc32 trailer, magic or header does not match its
+    bytes: a flipped bit on the wire or a desynchronised stream. The link is torn down
+    as on a link death (counted in ``ptpu_net_frames_corrupt_total`` and as the
+    ``transport_frame_corrupt`` degradation); the corrupt payload is never delivered."""
 
 
 class StallError(PetastormTpuError):

@@ -116,6 +116,11 @@ import time
 import numpy as np
 
 from petastorm_tpu_torch import chaos as _chaos
+# at import, on the importing thread: pyarrow (which codecs imports) must not load first
+# on the transfer thread. pyarrow's mimalloc first initialised on a thread that exits
+# later faults in concurrent parquet reads (a trainer fed by a ServiceReader touches
+# pyarrow nowhere else)
+from petastorm_tpu_torch.codecs import CompressedImageCodec
 from petastorm_tpu_torch.io.lease import attach_leases, count_copy, take_leases
 from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
                                             materialize_columns, pagedec_counters)
@@ -738,7 +743,12 @@ class DataLoader:
     Parameters
     ----------
     reader : petastorm_tpu_torch.reader.Reader
-        Batch reader (columnar) or per-row reader (rows are stacked host-side).
+        Batch reader (columnar) or per-row reader (rows are stacked host-side). A
+        :class:`~petastorm_tpu_torch.service.client.ServiceReader`
+        (:func:`~petastorm_tpu_torch.reader.make_service_reader`) plugs in unchanged:
+        its batches come from a shared decode fleet instead of a local pool, with the
+        same batch and checkpoint semantics, through the same H2D copy and device
+        transform.
     batch_size : int
         GLOBAL rows per yielded batch: rows across all ranks. Under a ``sharding`` whose
         batch axis spans ranks each rank cuts only its share (``local_batch_size``), and
@@ -1379,8 +1389,6 @@ class DataLoader:
         """Finish the two-stage codec decode on the device: staging-payload columns (JPEG
         coefficient planes from ``decode_on_device=True`` readers) become device tensors,
         one batched codec decode per column."""
-        from petastorm_tpu_torch.codecs import CompressedImageCodec
-
         fields = getattr(self.reader, "device_decode_fields", None)
         if not fields:
             return batch, {}

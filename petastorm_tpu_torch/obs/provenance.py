@@ -314,6 +314,16 @@ def arm_child():
     return ACTIVE
 
 
+def child_collector():
+    """A private per-item collector for producers across a wire (the data service's
+    decode workers): :func:`arm_child`'s record, piggyback and forget, owned by the
+    caller instead of installed as the process's ``ACTIVE``. A
+    :class:`~petastorm_tpu_torch.service.worker.DecodeWorker` in a trainer's process
+    records its ``svc.decode`` spans without taking over the trainer's hooks, and a
+    worker process of its own runs the same code."""
+    return _ChildCollector()
+
+
 # --------------------------------------------------------------------------------------
 # parent-side recorder
 # --------------------------------------------------------------------------------------

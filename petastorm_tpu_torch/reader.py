@@ -74,6 +74,7 @@ import numpy as np
 
 from petastorm_tpu_torch import chaos as _chaos
 from petastorm_tpu_torch.cache import NullCache, make_cache
+from petastorm_tpu_torch.errors import PERMANENT_IO_ERRORS as _PERMANENT_IO_ERRORS
 from petastorm_tpu_torch.errors import (DecodeFieldError, NoDataAvailableError,
                                        PieceRemovedError, PieceRewrittenError)
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
@@ -202,10 +203,6 @@ def _pandas_transform(spec, columns):
             else series.to_numpy()
     return out
 
-
-#: errors no retry can heal: the file is gone, unreadable, or the wrong kind of node
-_PERMANENT_IO_ERRORS = (FileNotFoundError, PermissionError, IsADirectoryError,
-                        NotADirectoryError, FileExistsError, InterruptedError)
 
 #: exception-module roots of the storage client stacks that fsspec-bridged filesystems
 #: raise through pyarrow (gcsfs, botocore, aiohttp, google.api_core, ...). Most of these
@@ -2285,7 +2282,12 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread", work
     wire they answer over: ``'pickle'`` (the default here) or ``'arrow'`` on the socket,
     ``'shm'`` or ``'shm-arrow'`` through shared-memory slabs (``PTPU_SHM_SLAB_BYTES``
     sizes a slab), and their ``-view`` forms, which deliver read-only views into the
-    slabs (see :class:`Reader`). ``transport`` is ``'pipe'``; ``'tcp'`` is not ported.
+    slabs (see :class:`Reader`). ``transport`` is the pool's wire: ``'pipe'`` (the
+    default, or ``PTPU_TRANSPORT``), the unix sockets, or ``'tcp'``, framed tcp to a hub
+    the children dial back to, with heartbeats, a redial after a link death and the
+    in-flight ledger that sends a dead link's item again (a shared-memory wire takes its
+    inner serializer there: slab grants cannot cross a host). The link policy is
+    ``recovery``'s ``link_*`` fields.
 
     Failure handling: ``recovery`` (:class:`~petastorm_tpu_torch.recovery.RecoveryOptions`
     or a dict of its fields; defaults from the ``PTPU_IO_RETRIES``,
@@ -2435,9 +2437,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     row group as a pandas DataFrame, and a declarative ``FeaturePipeline`` runs its fused
     numpy kernels on the columns.
 
-    The process pool's options and ``recovery`` are :func:`make_reader`'s (a poison row
-    group's quarantine entry counts its rows from the file's footer); the default wire
-    here is
+    The process pool's options, ``transport`` and ``recovery`` are :func:`make_reader`'s
+    (a poison row group's quarantine entry counts its rows from the file's footer); the
+    default wire here is
     ``'arrow'``, and ``'shm'``/``'shm-view'`` mean ``'shm-arrow'``/``'shm-arrow-view'``.
 
     ``predicate``, ``filters`` and ``shuffle_row_drop_partitions``: see
@@ -2517,6 +2519,27 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
 # --------------------------------------------------------------------------------------
 # Plan-time selection (reference ``_plan_pieces`` and its helpers)
 # --------------------------------------------------------------------------------------
+
+
+def make_service_reader(address, token, job, trainer=None, tenant=None,
+                        recovery=None, credits=8, arena=True):
+    """Attach to a job of a :class:`~petastorm_tpu_torch.service.server.DataService`:
+    the disaggregated twin of :func:`make_batch_reader`. The returned
+    :class:`~petastorm_tpu_torch.service.client.ServiceReader` consumes the shared decode
+    fleet's output instead of decoding here: batched columnar delivery with the same
+    ``state_dict()`` consumed-watermark checkpoint, into
+    :class:`~petastorm_tpu_torch.loader.DataLoader` unchanged (on a card its columns go
+    through the loader's H2D copy and device transform).
+
+    ``address`` and ``token`` come from the service
+    (:meth:`~petastorm_tpu_torch.service.server.DataService.trainer_address` and
+    ``.token``); ``arena=True`` maps co-hosted payloads zero-copy out of the host-wide
+    cache arena.
+    """
+    from petastorm_tpu_torch.service.client import ServiceReader
+
+    return ServiceReader(address, token, job, trainer=trainer, tenant=tenant,
+                         recovery=recovery, credits=credits, arena=arena)
 
 
 def _dnf_clauses(filters):

@@ -4,8 +4,9 @@ Port of ``petastorm_tpu.recovery``: one picklable policy struct,
 :class:`RecoveryOptions`, handed from the reader factories to every layer (transient-IO
 retry on the workers' sync, readahead and coalesced reads; the process pool's respawn
 budget; the poison policy of every pool), with the JAX package's fields, defaults and
-environment names. The ``link_*`` fields are accepted and carried; the tcp transport
-that reads them is ROADMAP.md Queue 1 item 4(c).
+environment names. The ``link_*`` fields are the tcp transport's link policy
+(:mod:`petastorm_tpu_torch.transport.tcp`): heartbeat cadence, half-open threshold,
+reconnect ceiling and connect bound.
 
 A poison item is a plan item that repeatedly fails or kills workers: a corrupt row
 group, a page that fails to parse. With ``on_poison="quarantine"`` the item is skipped

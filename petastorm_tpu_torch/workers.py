@@ -45,8 +45,11 @@ handing its unprocessed claim back to the dispatcher, so the delivered rows are 
 an un-resized run. The process pool carries a reader's live knob retunes to its running
 children in a control frame (``broadcast_io_knobs``, acknowledged in ``ctl_acks``), and
 stamps the reader's tenant (:mod:`petastorm_tpu_torch.obs.tenant`) into every child's
-environment. Not ported (it raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item
-4(c)): the tcp transport.
+environment. Its wire is a unix-socket pipe (``transport='pipe'``, the default) or framed
+tcp (``transport='tcp'`` or ``PTPU_TRANSPORT=tcp``,
+:mod:`petastorm_tpu_torch.transport.tcp`): a hub the children dial back to, with
+heartbeats, a redial after a link death and an in-flight ledger that sends the item of a
+dead link again on the healed one.
 
 Contract: ``executor.start(worker, plan)`` then iterate ``executor.results()``; exceptions
 in workers propagate to the consumer; ``stop()``/``join()`` mirror the reference pool API.
@@ -644,8 +647,10 @@ class ProcessExecutor:
 
     def __init__(self, workers_count=4, results_queue_size=16, results_timeout_s=300.0,
                  serializer="pickle", worker_respawns=None, shm_slab_bytes=None,
-                 shm_slabs=None, lookahead=0, work_stealing=True, recovery=None):
+                 shm_slabs=None, lookahead=0, work_stealing=True, recovery=None,
+                 transport=None):
         from petastorm_tpu_torch.serializers import make_serializer
+        from petastorm_tpu_torch.transport import normalize_transport
 
         if workers_count < 1:
             raise ValueError("workers_count must be >= 1, got %r" % workers_count)
@@ -732,6 +737,12 @@ class ProcessExecutor:
         self._ping_interval_s = float(os.environ.get("PTPU_CHILD_PING_S", "") or 5.0)
         #: True when the result stream ended because ``stop()`` aborted it mid-pass
         self.truncated = False
+        #: the wire: 'pipe' or 'tcp' (a tcp hub that cannot be made turns the pool back
+        #: to 'pipe', with a transport_link_down degradation)
+        self._transport_name = normalize_transport(transport)
+        #: the tcp hub (the pool's lifetime) and the next session number
+        self._hub = None
+        self._session_counter = 0
 
     # -- start-up ----------------------------------------------------------------------
 
@@ -749,6 +760,8 @@ class ProcessExecutor:
                                 "child_first_work_s": 0.0, "child_serialize_s": 0.0,
                                 "respawns": 0}
         self._authkey = os.urandom(32)
+        if self._transport_name == "tcp":
+            self._setup_hub()  # turns the pool back to 'pipe' where it fails
         self._setup_shm()
         with self._respawn_lock:
             self._tmpdir = tempfile.mkdtemp(prefix="ptpu-torch-pool-")
@@ -776,7 +789,22 @@ class ProcessExecutor:
             self._child_env.update(tenant_ctx.env())
         self._tenant_label = tenant_ctx.tenant if tenant_ctx is not None else None
         try:
-            self._start_children()
+            if self._transport_name == "tcp":
+                # the child's link policy (redial backoff, heartbeat cadence, half-open
+                # threshold) rides the environment: its link exists before any
+                # handshake payload could carry it
+                rec = self._recovery
+                self._child_env.update({
+                    "PTPU_LINK_HEARTBEAT_S": repr(rec.link_heartbeat_s),
+                    "PTPU_LINK_MISS_THRESHOLD": str(rec.link_miss_threshold),
+                    "PTPU_LINK_RECONNECT_S": repr(rec.link_reconnect_s),
+                    "PTPU_LINK_CONNECT_TIMEOUT_S": repr(rec.link_connect_timeout_s),
+                    "PTPU_IO_RETRY_BACKOFF_S": repr(rec.io_retry_backoff_s),
+                    "PTPU_IO_RETRY_MAX_BACKOFF_S": repr(rec.io_retry_max_backoff_s),
+                })
+                self._start_children_tcp()
+            else:
+                self._start_children()
         except BaseException:
             self.join()  # no child, socket or slab outlives a failed start
             raise
@@ -812,6 +840,15 @@ class ProcessExecutor:
 
         if not isinstance(self._serializer, ShmSerializer):
             return
+        if self._transport_name == "tcp":
+            # the tcp wire behaves as if the host boundary were real: a slab grant
+            # cannot cross a network link, so payloads take the framed socket
+            degradation("transport_shm_bypass", "shared-memory slab wire disabled over "
+                        "the tcp transport; result payloads ride the framed socket wire")
+            self._shm_unavailable = True
+            self._serializer_name = self._serializer.inner_name
+            self._serializer = self._serializer.inner
+            return
         ring = None
         if shm_supported():
             try:
@@ -830,6 +867,86 @@ class ProcessExecutor:
         ring.set_trace(self._tracer)
         with self._respawn_lock:
             self._ring = ring
+
+    def _setup_hub(self):
+        """Make the tcp hub. A hub that cannot bind or listen is a classified
+        degradation back to the pipe wire, never a raise: the transport is an
+        availability feature and must not cost any."""
+        from petastorm_tpu_torch.obs.log import degradation
+        from petastorm_tpu_torch.transport import tcp
+
+        try:
+            hub = tcp.TcpHub(self._recovery, token=self._authkey.hex())
+        except Exception as e:  # noqa: BLE001 — degrade, never fail the pool
+            degradation("transport_link_down", "tcp transport unavailable (%s); falling "
+                        "back to the local pipe pool", e, once=False)
+            hub = None
+            self._transport_name = "pipe"
+        with self._respawn_lock:  # join() takes the hub under this lock
+            self._hub = hub
+
+    def _new_session(self):
+        """A fresh hub session (tagged with the reader's tenant): ``(hub, number,
+        transport)``."""
+        with self._respawn_lock:
+            if self._hub is None:
+                raise RuntimeError("pool stopping during respawn")
+            sid = self._session_counter
+            self._session_counter += 1
+            hub = self._hub
+        transport = hub.create_session(sid)
+        if self._tenant_label is not None:
+            transport.set_tenant(self._tenant_label)
+        return hub, sid, transport
+
+    def _start_children_tcp(self):
+        """Spawn the fleet over the tcp hub, one session a child; the children dial back
+        concurrently, each is handshaken as it connects, then the pid acks are collected
+        (the pipe path's two phases)."""
+        pending = []
+        for _ in range(self._workers_count):
+            hub, sid, transport = self._new_session()
+            child = self._popen_child(hub.address_for(sid), self._authkey)
+            with self._respawn_lock:
+                self._procs.append(child)
+            pending.append(transport)
+        for transport in pending:
+            self._await_tcp_connected(transport, self._procs, "Pool child")
+            self._send_handshake(transport)
+        for transport in pending:
+            self._register_conn(transport)
+
+    def _register_conn(self, conn):
+        """Collect one child's pid ack and register its connection as the next feeder:
+        accept order is not spawn order, and the pid ties the connection to its process,
+        which the healer kills by."""
+        pid = self._await_pid_ack(conn)
+        conn.mark_ready()  # the steady-state link: chaos sites and heartbeats on
+        with self._respawn_lock:
+            self._child_by_idx[len(self._conns)] = next(
+                (p for p in self._procs if p.pid == pid), None)
+            self._conns.append(conn)
+
+    def _await_tcp_connected(self, transport, procs, what, check_stop=False,
+                             deadline=120.0):
+        """Wait for a session's first adoption, polling the children every second: the
+        tcp twin of :meth:`_await_accept`."""
+        waited = 0.0
+        while not transport.wait_connected(1.0):
+            waited += 1.0
+            if check_stop and self._stop_event.is_set():
+                raise RuntimeError("pool stopping during respawn")
+            with self._respawn_lock:
+                snapshot = list(procs)
+            for p in snapshot:
+                if p.poll() is not None:
+                    raise RuntimeError(
+                        "%s exited with code %s before connecting (run 'python -m "
+                        "petastorm_tpu_torch._child_worker' to debug)"
+                        % (what, p.returncode))
+            if waited > deadline:
+                raise TimeoutWaitingForResultError(
+                    "%s did not connect within %.0fs" % (what, deadline))
 
     def _popen_child(self, address, authkey):
         import subprocess
@@ -865,13 +982,7 @@ class ProcessExecutor:
                 self._send_handshake(conn)
                 pending.append(conn)
             for conn in pending:
-                pid = self._await_pid_ack(conn)
-                with self._respawn_lock:
-                    # accept order is not spawn order: the pid ack ties this connection
-                    # (its feeder index) to its process, which the healer kills by
-                    self._child_by_idx[len(self._conns)] = next(
-                        (p for p in self._procs if p.pid == pid), None)
-                    self._conns.append(conn)
+                self._register_conn(conn)
         finally:
             listener.close()  # also unblocks the acceptor thread if we raised
 
@@ -948,7 +1059,51 @@ class ProcessExecutor:
     def _spawn_one(self, idx=None):
         """Spawn and handshake one replacement child for feeder ``idx``; returns its
         connection. Raises when it cannot start or the pool is stopping (the child is
-        then killed)."""
+        then killed). On the tcp transport a child whose link cannot be established is
+        replaced by a pipe-connected one: all links down degrades to the local pool,
+        never a hang."""
+        if self._transport_name == "tcp" and self._hub is not None:
+            try:
+                return self._spawn_one_tcp(idx)
+            except Exception as e:  # noqa: BLE001 — degrade to the local pool
+                if self._stop_event.is_set():
+                    raise
+                from petastorm_tpu_torch.obs.log import degradation
+
+                degradation("transport_link_down", "tcp child spawn could not establish "
+                            "a link (%s); falling back to a pipe-connected local child",
+                            e, once=False)
+        return self._spawn_one_pipe(idx)
+
+    def _spawn_one_tcp(self, idx):
+        """One replacement child over a fresh hub session."""
+        hub, sid, transport = self._new_session()
+        p = None
+        try:
+            p = self._popen_child(hub.address_for(sid), self._authkey)
+            self._await_tcp_connected(transport, [p], "respawned pool child",
+                                      check_stop=True)
+            self._send_handshake(transport)
+            self._await_pid_ack(transport)
+            transport.mark_ready()
+            with self._respawn_lock:
+                if self._stop_event.is_set():
+                    raise RuntimeError("pool stopping during respawn")
+                self._procs.append(p)
+                self._conns.append(transport)
+                if idx is not None:
+                    self._child_by_idx[idx] = p
+            return transport
+        except BaseException:
+            hub.drop_session(sid)
+            transport.close()
+            if p is not None:
+                p.kill()
+                p.wait()
+            raise
+
+    def _spawn_one_pipe(self, idx):
+        """One replacement child over a fresh unix socket."""
         from multiprocessing.connection import Listener
 
         from petastorm_tpu_torch.transport import PipeTransport
@@ -969,6 +1124,7 @@ class ProcessExecutor:
                                                     check_stop=True))
             self._send_handshake(conn)
             self._await_pid_ack(conn)
+            conn.mark_ready()
             with self._respawn_lock:
                 # join() may have begun meanwhile: registering into cleared lists would
                 # leak an unreaped child and an open socket
@@ -1264,6 +1420,10 @@ class ProcessExecutor:
                         t0 = time.perf_counter() if monitor is not None else 0.0
                         if _chaos.ACTIVE is not None:
                             _chaos.ACTIVE.hit("pool.dispatch", key=_chaos.item_key(item))
+                        # the in-flight ledger (a no-op on the pipe): the item is
+                        # tracked on its link until its result is fully received;
+                        # whatever is still tracked at a link death goes out again
+                        conn.track(item)
                         settings, seen = self._pending_settings(seen)
                         ctl = self._pending_ctl(idx)
                         if ctl is not None:
@@ -1287,6 +1447,7 @@ class ProcessExecutor:
                         if monitor is not None:
                             monitor.observe_worker(idx, time.perf_counter() - t0)
                         if header[0] == "exc":
+                            conn.settle()  # the conversation completed
                             if slab is not None:
                                 ring.release(slab)
                             attempts += 1
@@ -1297,6 +1458,10 @@ class ProcessExecutor:
                             fatal = verdict == "fatal"
                             break
                         _, kind, nframes, timing, io, spans = header
+                        # the frames first: a link that dies before the result is whole
+                        # leaves nothing of it counted
+                        frames = [conn.recv_bytes() for _ in range(nframes)]
+                        conn.settle()  # the result is off the link
                         if io:
                             with self._stats_lock:
                                 self._child_io[idx] = io
@@ -1313,7 +1478,6 @@ class ProcessExecutor:
                         if prov is not None and spans is not None and spans[4] is not None:
                             # the child's item record, on the same anchors
                             prov.absorb_child(spans[4], spans[0], spans[1], spans[2])
-                        frames = [conn.recv_bytes() for _ in range(nframes)]
                         if slab is not None and kind != KIND_SHM:
                             # granted but unused (a payload larger than a slab)
                             ring.release(slab)
@@ -1363,6 +1527,32 @@ class ProcessExecutor:
                         # respawns uncharged; earlier deaths charge the budget
                         poison = recovery.quarantine \
                             and attempts >= recovery.poison_attempts
+                        # a tcp link death with the child alive: the child redials and
+                        # the hub adopts the new link; the item goes out again on it. An
+                        # attempt is charged (a frame that reliably kills its link is
+                        # poison like any other) but not the respawn budget. Under
+                        # on_poison='raise' the poison threshold bounds this too: past
+                        # it the respawn path (its budget, then WorkerDiedError) takes
+                        # over, never an unbounded reconnect loop. A pipe has no
+                        # reconnect: a dead pipe is a dead child.
+                        reconnect = getattr(conn, "reconnect", None)
+                        if reconnect is not None and not self._stop_event.is_set() \
+                                and (recovery.quarantine
+                                     or attempts < recovery.poison_attempts):
+                            with self._respawn_lock:
+                                proc = self._child_by_idx.get(idx)
+                            if proc is not None and proc.poll() is None and reconnect():
+                                # the settings and a knob frame may have died with the
+                                # old link: both go again (applies are idempotent)
+                                seen = 0
+                                with self._ctl_lock:
+                                    if self._ctl_pending:
+                                        self._ctl_seen[idx] = 0
+                                if poison:
+                                    self._put(QuarantinedItem(item, e, attempts,
+                                                              kind="link_death"))
+                                    break
+                                continue  # dispatch again, on the healed link
                         replacement = self._respawn(e, idx, charged=not poison)
                         if poison:
                             self._put(QuarantinedItem(item, e, attempts,
@@ -1381,6 +1571,11 @@ class ProcessExecutor:
                             conn.close()
                         except OSError:
                             pass
+                        hub = self._hub
+                        if hub is not None and hasattr(conn, "session"):
+                            # a zombie child redialing its dead session must find it
+                            # gone, not be adopted into a closed transport
+                            hub.drop_session(conn.session)
                         conn = replacement
                         seen = 0  # the fresh child gets the current settings again
                         self._rearm_ctl(idx)  # and the pending knob frame
@@ -1679,6 +1874,7 @@ class ProcessExecutor:
             procs, self._procs = self._procs, []
             tmpdir, self._tmpdir = self._tmpdir, None
             ring, self._ring = self._ring, None
+            hub, self._hub = self._hub, None
             self._child_by_idx = {}
             self._inflight_attempts = {}
         for conn in conns:
@@ -1686,9 +1882,16 @@ class ProcessExecutor:
                 conn.close()
             except OSError:
                 pass
+        if hub is not None:
+            # after the links close, before the reaping: a child mid-redial finds the
+            # connection refused and exits at its ceiling; stragglers are killed below
+            hub.close()
+        # one 5 s grace for the whole fleet, not one a child: a tcp child whose link died
+        # mid-result redials the closed hub until its ceiling, and is killed instead
+        deadline = time.monotonic() + 5.0
         for p in procs:
             try:
-                p.wait(timeout=5)
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
             except Exception:  # noqa: BLE001 — a child that will not exit is killed
                 p.kill()
                 p.wait()
@@ -1717,8 +1920,9 @@ def make_executor(reader_pool_type="thread", workers_count=4, results_queue_size
     the shared-memory family 'shm', 'shm-arrow' and their '-view' variants (see
     :mod:`petastorm_tpu_torch.serializers`); ``worker_respawns`` its respawn budget;
     ``shm_slab_bytes``/``shm_slabs`` size its slab ring. Thread and dummy pools share
-    memory and ignore them. ``transport`` is validated for every pool: 'pipe' (default,
-    or ``PTPU_TRANSPORT``); 'tcp' is not ported. ``io_options``
+    memory and ignore them. ``transport`` is the process pool's wire, validated for
+    every pool: 'pipe' (default, or ``PTPU_TRANSPORT``) or 'tcp' (framed tcp over the
+    pool's hub, with heartbeats, reconnect and the in-flight ledger). ``io_options``
     (:class:`~petastorm_tpu_torch.io.IoOptions`) sets the dispatch side of the read
     path: each worker's claim beyond its current item (``lookahead``, the readahead
     window) and work stealing. ``recovery``
@@ -1729,7 +1933,7 @@ def make_executor(reader_pool_type="thread", workers_count=4, results_queue_size
     from petastorm_tpu_torch.io import IoOptions
     from petastorm_tpu_torch.transport import normalize_transport
 
-    normalize_transport(transport)
+    transport = normalize_transport(transport)
     io_options = IoOptions.normalize(io_options)
     recovery = RecoveryOptions.normalize(recovery)
     lookahead = io_options.lookahead
@@ -1745,6 +1949,6 @@ def make_executor(reader_pool_type="thread", workers_count=4, results_queue_size
                                serializer=serializer, worker_respawns=worker_respawns,
                                shm_slab_bytes=shm_slab_bytes, shm_slabs=shm_slabs,
                                lookahead=lookahead, work_stealing=stealing,
-                               recovery=recovery)
+                               recovery=recovery, transport=transport)
     raise ValueError("Unknown reader_pool_type %r (expected 'thread', 'process' or "
                      "'dummy')" % reader_pool_type)

@@ -101,6 +101,35 @@ def failing_worker(i):
     return (0, i, {"x": np.full((4,), i, np.int32)})
 
 
+class PayloadBytesWorker:
+    """Deterministic bytes-heavy worker: results carry raw bytes that any corruption on
+    the wire would change (the transport tests' byte-identity probe)."""
+
+    def __call__(self, item):
+        rng = np.random.default_rng(item)
+        return (item, rng.integers(0, 256, size=4096, dtype=np.uint8).tobytes())
+
+
+def slow_square(x):
+    time.sleep(0.3)
+    return x * x
+
+
+class KnobWorker:
+    """A worker with a live-knob apply seam (the control frame's target)."""
+
+    def __init__(self):
+        self.depth = 1
+
+    def apply_readahead_depth(self, value):
+        self.depth = int(value)
+        return self.depth
+
+    def __call__(self, item):
+        time.sleep(0.05)
+        return item
+
+
 class ModulesProbe:
     """Runs ``worker`` on the item, then reports which of jax, the JAX package and torch
     the child process has loaded."""

@@ -42,7 +42,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "obs.flight", "obs.analyze", "obs.export", "obs.health",
                  "obs.timeseries", "obs.slo", "obs.serve", "obs.provenance",
                  "obs.critical_path", "obs.diff", "obs.stats_cli", "benchmark",
-                 "benchmark.trend"):
+                 "benchmark.trend", "transport", "transport.framing", "transport.tcp",
+                 "service", "service.protocol", "service.worker", "service.server",
+                 "service.client", "service.telemetry"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -245,7 +247,11 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.obs.slo", "petastorm_tpu_torch.obs.serve",
     "petastorm_tpu_torch.obs.provenance", "petastorm_tpu_torch.obs.critical_path",
     "petastorm_tpu_torch.obs.diff", "petastorm_tpu_torch.obs.stats_cli",
-    "petastorm_tpu_torch.benchmark.trend"])
+    "petastorm_tpu_torch.benchmark.trend", "petastorm_tpu_torch.transport",
+    "petastorm_tpu_torch.transport.framing", "petastorm_tpu_torch.transport.tcp",
+    "petastorm_tpu_torch.service", "petastorm_tpu_torch.service.protocol",
+    "petastorm_tpu_torch.service.worker", "petastorm_tpu_torch.service.server",
+    "petastorm_tpu_torch.service.client", "petastorm_tpu_torch.service.telemetry"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
@@ -254,7 +260,9 @@ def test_process_pool_modules_import_no_jax_or_reference(module):
     torch adapters are host modules too, and load torch only when they make tensors. A
     child arms the provenance plane's collector at bootstrap; the critical-path fold,
     the run diff, the stats CLI and the trend gate are host tools that need no torch
-    until the gate builds a loader."""
+    until the gate builds a loader. A tcp child imports the transport; a decode worker
+    of the data service, in a process of its own, imports the service, whose server and
+    client move numpy payloads only."""
     assert module in _port_modules()
     code = ("import importlib, sys\n"
             "importlib.import_module(%r)\n"
@@ -505,14 +513,22 @@ def test_later_observability_reader_options_raise_naming_8b_or_8c(tmp_path, kwar
     ("remove_file", r"item 8c\(ii\)"), ("append_piece", r"item 8c\(ii\)"),
 ])
 def test_chaos_actions_of_later_slices_raise_naming_them(action, item):
-    """The ``net.*`` actions still raise naming item 4(c); the mutation actions of item
-    8c(ii) are ported: the rule is made, and firing it at the ``dataset.mutate`` site
-    calls the payload's method of the same name with the rule's target."""
+    """Both slices are ported. The ``net.*`` actions of item 4(c): the rule is made, and
+    firing it at ``transport.send`` resets the link or opens a partition window. The
+    mutation actions of item 8c(ii): firing one at the ``dataset.mutate`` site calls the
+    payload's method of the same name with the rule's target."""
     from petastorm_tpu_torch.chaos import FaultPlan, FaultRule
+    from petastorm_tpu_torch.chaos.plan import DROPPED
 
     if action.startswith("net."):
-        with pytest.raises(NotImplementedError, match="Queue 1 %s" % item):
-            FaultRule("transport.send", action)
+        plan = FaultPlan([FaultRule("transport.send", action, nth=1, latency_s=0.2)])
+        if action == "net.reset":
+            with pytest.raises(ConnectionResetError, match="net.reset"):
+                plan.hit("transport.send", key="session=0", payload=b"frame")
+        else:
+            assert plan.hit("transport.send", key="session=0", payload=b"frame") \
+                is DROPPED
+        assert [i["action"] for i in plan.injections()] == [action]
         return
 
     class _Mutator:

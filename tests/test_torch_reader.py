@@ -168,7 +168,8 @@ def test_reset_restarts_the_epoch(ref_store):
 # The recovery policy is ported (item 8a): the io_retries and recovery cases read too.
 # Provenance is ported (item 8b(ii)): its case reads too, and records every row group.
 # The tenant is ported (item 8c(i)): its case reads too, and charges every row to it.
-# The dataset watch is ported (item 8c(ii)): its case reads too, equal to the plain read
+# The dataset watch is ported (item 8c(ii)): its case reads too, equal to the plain read.
+# The tcp transport is ported (item 4(c)): its case reads through a process pool on tcp
 @pytest.mark.parametrize("kwargs", [
     {"reader_pool_type": "process", "transport": "tcp"},
     {"io_options": {"arena_bytes": 1 << 20}},
@@ -178,6 +179,16 @@ def test_reset_restarts_the_epoch(ref_store):
     {"tenant": "team-a"}, {"watch": True},
 ])
 def test_unported_reader_options_raise_naming_the_roadmap(ref_store, kwargs):
+    if kwargs.get("transport") == "tcp":
+        with make_batch_reader(ref_store, shuffle_row_groups=False, workers_count=2,
+                               results_timeout_s=120, **kwargs) as r:
+            assert r._executor._transport_name == "tcp"
+            got = sorted(int(i) for b in r for i in np.asarray(b.id))
+        with make_batch_reader(ref_store, reader_pool_type="dummy",
+                               shuffle_row_groups=False) as r:
+            want = sorted(int(i) for b in r for i in np.asarray(b.id))
+        assert got == want and got
+        return
     if "io_options" in kwargs or "io_retries" in kwargs or "recovery" in kwargs \
             or "watch" in kwargs:
         from petastorm_tpu_torch.io import arena as arena_mod

@@ -315,6 +315,8 @@ def test_adoption_reaches_running_children(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
+    # the tcp transport is ported (item 4(c)): its case reads through a process pool
+    # whose children dial back to the pool's hub
     ({"transport": "tcp"}, "item 4(c)"),
     # the recovery policy is ported (item 8a): its case reads through a process pool
     # under the poison policy, and quarantines nothing on a sound store
@@ -325,6 +327,13 @@ def test_adoption_reaches_running_children(tmp_path):
     ({"io_options": {"remote": {"max_inflight": 2}}}, "item 5"),
 ])
 def test_unported_pool_options_raise_naming_their_item(scalar_dataset, kwargs, item):
+    if item == "item 4(c)":
+        with make_batch_reader(scalar_dataset.url, reader_pool_type="process",
+                               workers_count=2, results_timeout_s=120, **kwargs) as r:
+            assert r._executor._transport_name == "tcp"
+            got = sorted(int(i) for b in r for i in np.asarray(b.id))
+        assert got == list(range(len(scalar_dataset.data)))
+        return
     if item == "item 8":
         with make_batch_reader(scalar_dataset.url, reader_pool_type="process",
                                workers_count=2, results_timeout_s=120, **kwargs) as r:
@@ -352,9 +361,14 @@ def test_unported_pool_options_raise_naming_their_item(scalar_dataset, kwargs, i
 
 
 def test_tcp_from_the_environment_raises_too(scalar_dataset, monkeypatch):
+    """``PTPU_TRANSPORT=tcp`` selects the tcp wire (item 4(c) is ported); a name that is
+    neither wire still raises."""
     monkeypatch.setenv("PTPU_TRANSPORT", "tcp")
-    with pytest.raises(NotImplementedError, match=r"PTPU_TRANSPORT.*item 4\(c\)"):
-        make_batch_reader(scalar_dataset.url, reader_pool_type="process")
+    with make_batch_reader(scalar_dataset.url, reader_pool_type="process",
+                           workers_count=2, results_timeout_s=120) as r:
+        assert r._executor._transport_name == "tcp"
+        got = sorted(int(i) for b in r for i in np.asarray(b.id))
+    assert got == list(range(len(scalar_dataset.data)))
     monkeypatch.setenv("PTPU_TRANSPORT", "quic")
     with pytest.raises(ValueError, match="transport must be one of"):
         make_batch_reader(scalar_dataset.url, reader_pool_type="thread")
