@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a JPEG path's time goes on one CUDA card.
 
-    python3 chip_profile.py [--path main|mixed] [--tree DIR] [--batches N] [--trace PATH]
+    python3 chip_profile.py [--path main|mixed|train] [--tree DIR] [--batches N]
+                            [--trace PATH]
 
 ``--tree`` names a checkout whose ``petastorm_tpu_torch`` the run imports (default: this
 one), so that two trees are profiled in one call on one card. ``--path main`` builds the
@@ -22,6 +23,13 @@ without end. Each window's device time is also summed by kind: the stage-2 kerne
 the resize's bilinear kernel, copies, and every other kernel (the torch ops: in trees
 without ``stage2_rgb`` the stage-2 range limit, upsample and colour; on the mixed path
 also the resize's conversions, the crop and the jitter).
+
+``--path train`` feeds chip_smoke phase 21 (a)'s ResNet-50 training step (bfloat16,
+SGD with Nesterov momentum) from the main path and splits a step's time: on a resident
+batch, the host's dispatch of one step (no synchronise), one step's wall time with a
+synchronise, and its device time from CUDA events around it; on the fed path, rows/s
+over a steady window with the time a step spends waiting for its batch (``next``) and
+dispatching, and the ``PipelineStats`` split; then the profiled window as above.
 
 Every figure is printed beside the card's name and power limit.
 """
@@ -124,9 +132,88 @@ def main_path(url, workers, warmup, measured, profiled, trace_path, mixed=False)
     return measured * smoke.BATCH / dt, stats, device, wall
 
 
+def train_path(url, workers, warmup, measured, profiled, trace_path):
+    """``--path train`` (module docstring): returns the printed figures."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.models import ResNet50
+
+    torch.backends.cudnn.benchmark = True
+    torch.manual_seed(smoke.MODEL_SEED)
+    model = ResNet50(num_classes=1000)
+    step = smoke._sgd_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(smoke.MODEL_SEED)
+    x = torch.randn((smoke.BATCH,) + smoke.IMG, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    y = torch.randint(0, 1000, (smoke.BATCH,), generator=gen, device="cuda")
+    for _ in range(smoke.MODEL_WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    dispatch, wall, device = [], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step(x, y)
+        end.record()
+        dispatch.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        device.append(start.elapsed_time(end) / 1e3)
+    out = {"resident": {k: sorted(v)[2] * 1e3 for k, v in (
+        ("dispatch_ms", dispatch), ("wall_ms", wall), ("event_ms", device))}}
+    reader = smoke._model_reader(url, None)
+    with DataLoader(reader, smoke.BATCH, device_transform=smoke._k2_only(),
+                    prefetch=3) as loader:
+        it = iter(loader)
+        for _ in range(warmup):
+            b = next(it)
+            step(b["image"], b["label"])
+        torch.cuda.synchronize()
+        loader.stats.reset()
+        waits, steps = 0.0, 0.0
+        t0 = time.perf_counter()
+        for _ in range(measured):
+            t1 = time.perf_counter()
+            b = next(it)
+            t2 = time.perf_counter()
+            step(b["image"], b["label"])
+            waits += t2 - t1
+            steps += time.perf_counter() - t2
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["fed"] = {"rows_per_s": measured * smoke.BATCH / dt, "wall_s": dt,
+                      "next_ms": waits / measured * 1e3,
+                      "dispatch_ms": steps / measured * 1e3,
+                      "stats": loader.stats.snapshot()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(profiled):
+                b = next(it)
+                step(b["image"], b["label"])
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t1
+        it.close()
+    if trace_path:
+        os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
+        prof.export_chrome_trace(trace_path)
+    dev = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            dev.append((us, e.count, e.key))
+    dev.sort(reverse=True)
+    return out, dev, window
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("main", "mixed"), default="main")
+    parser.add_argument("--path", choices=("main", "mixed", "train"), default="main")
     parser.add_argument("--tree", default=smoke.ROOT, help="checkout whose package to run")
     parser.add_argument("--batches", type=int, default=20, help="profiled batches")
     parser.add_argument("--trace", default=None, help="write the chrome trace here")
@@ -143,7 +230,15 @@ def main():
     work = tempfile.mkdtemp(prefix="ptpu_chip_profile_")
     try:
         url = "file://" + os.path.join(work, "store")
-        if args.path == "main":
+        if args.path == "train":
+            smoke.write_store(url, env["cv2"])
+            out, device, wall = train_path(url, workers, smoke.MODEL_WARMUP, 16,
+                                           args.batches, args.trace)
+            smoke.log("train path (tree %s): ResNet-50 bf16 step at batch %d; resident "
+                      "batch (median of 5): %s; fed: %s" % (
+                          tree, smoke.BATCH, json.dumps(out["resident"]),
+                          json.dumps(out["fed"])))
+        elif args.path == "main":
             smoke.write_store(url, env["cv2"])
             alone = reader_alone(url, workers, 3000)
             smoke.log("reader alone (IO + stage 1, %d workers): %.1f rows/s" % (workers, alone))
@@ -151,12 +246,14 @@ def main():
         else:
             smoke.write_mixed_store(url, env["cv2"])
             warmup, measured = 2, 8
-        rows_s, stats, device, wall = main_path(url, workers, warmup, measured, args.batches,
-                                                args.trace, mixed=args.path == "mixed")
+        if args.path != "train":
+            rows_s, stats, device, wall = main_path(
+                url, workers, warmup, measured, args.batches, args.trace,
+                mixed=args.path == "mixed")
+            smoke.log("%s path (tree %s): %.1f rows/s over %d batches; stats %s"
+                      % (args.path, tree, rows_s, measured, json.dumps(stats)))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    smoke.log("%s path (tree %s): %.1f rows/s over %d batches; stats %s"
-              % (args.path, tree, rows_s, measured, json.dumps(stats)))
     total_us = sum(us for us, _n, _k in device)
     if total_us:
         smoke.log("profiled window: %d batches, wall %.4f s, device time %.4f s, device "

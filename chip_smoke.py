@@ -123,7 +123,8 @@ Phases (each passes or the script exits non-zero, printing no result line):
    epochs: every id once an epoch, the orders differ, every image equal on the card to
    phase 7's, K2 equal to its plain version, ``stage2_planes``/``stage2_rgb`` once a fill
    batch and K2 once a served batch, and a state taken after 5 batches, restored into a
-   fresh loader over a fresh reader, serves exactly the remaining batches' ids; fill
+   fresh loader over a fresh reader (multi-worker fills both), serves exactly the
+   remaining batches' ids; fill
    seconds, served rows/s and the store's ``memory_allocated`` printed. (b)
    ``InMemDataLoader`` over phase 5's store with ``pagedec="auto"``, batch 16,384: one K3,
    scan and K4 launch a pass-through fill batch, every row once, the first batch's
@@ -293,6 +294,15 @@ Phases (each passes or the script exits non-zero, printing no result line):
    one decode an item; (b) a detach with ``state_dict()`` and an exact resume; (c) a
    seeded ``net.reset`` on a worker's link; (d) a co-hosted trainer served from the
    host arena.
+21. The model zoo and the model-parallel toolkit (the comment block above
+   ``phase_model_resnet``): (a) ResNet-50 (bfloat16, ``channels_last``) trained with SGD
+   fed by the main path with K2, the step alone timed with CUDA events, rows/s fed,
+   ``device_queue_wait_s``, the busy share, peak memory and every loss printed, the loss
+   falling on one fixed batch, ``stage2_planes``/``stage2_rgb``/K2 once a fed batch; (b)
+   a float32 ResNet-50's logits on the card within 1e-3 of the CPU's (TF32 off); (c)
+   ViT-B/16 steps on the same loader; (d) the SPMD MoE transformer step as a world of
+   one over NCCL against ``reference_loss``, and ring and Ulysses attention at axis
+   size 1 against ``reference_attention``.
 
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
@@ -301,7 +311,7 @@ in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 
 ``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's,
 ``slice17_launches`` in phase 16's, ``slice18_launches`` in phase 17's,
 ``slice19_launches`` in phase 18's, each rank apart, ``slice20_launches`` in phases 19
-and 20's), the card's
+and 20's, ``slice21_launches`` in phase 21's fed trainers), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -3166,17 +3176,17 @@ def phase_inmem_jpeg(url, images, smi, device="cuda"):
               for e in range(INMEM_EPOCHS)]
     del loader
     # the resume: the epochs' orders are permutations of the store, so a resumed loader
-    # must fill its store in the same row order: one reader thread (several deliver row
-    # groups in completion order). A state after INMEM_RESUME_AFTER batches of an
-    # uninterrupted run, restored into a fresh loader over a fresh reader, serves exactly
-    # that run's remaining batches.
-    with build(1) as uninterrupted:
+    # must fill its store in the same row order; the fill puts the rows in the reader's
+    # item order whatever order the workers finish in. A state after INMEM_RESUME_AFTER
+    # batches of an uninterrupted run, restored into a fresh loader over a fresh reader
+    # (both on all the workers), serves exactly that run's remaining batches.
+    with build(workers) as uninterrupted:
         run, state = [], None
         for n, batch in enumerate(uninterrupted):
             run.append(batch["id"].cpu())
             if n + 1 == INMEM_RESUME_AFTER:
                 state = uninterrupted.state_dict()
-    with build(1) as resumed:
+    with build(workers) as resumed:
         resumed.load_state_dict(state)
         rest = [b["id"].cpu() for b in resumed]
     want = run[INMEM_RESUME_AFTER:]
@@ -7124,6 +7134,321 @@ def phase_service(url, images, smi, device="cuda"):
     return out
 
 
+# -- phase 21: the model zoo and the model-parallel toolkit ------------------------------
+#
+# The consumer of the main path. (a) ResNet-50 (1,000 classes, bfloat16 compute with
+# float32 parameters, channels_last; MODEL_SEED) trained with SGD, Nesterov momentum 0.9
+# at lr 0.1 (examples/imagenet/train_imagenet_jax.py's optimizer), fed by the main path:
+# phase 4's store through make_batch_reader(decode_on_device=True) and DataLoader(256)
+# with K2 (normalize_images to bfloat16) as the device transform. After MODEL_WARMUP
+# steps on a resident batch (cuDNN picks its algorithms), the step alone is timed on that
+# batch with CUDA events; then three fed epochs of 16 steps each: the first a warm-up
+# (the reader's pool starts), the second timed (rows/s fed, device_queue_wait_s, peak
+# memory, the loss at each step), the third under torch.profiler (the device's busy
+# share in the fed window); stage2_planes, stage2_rgb and K2 once a fed batch. Then MODEL_FIXED_STEPS steps on one fixed fed batch: the loss
+# falls. (b) (a)'s trained weights in a float32 ResNet-50 on the card and on the CPU (one
+# state dict), eval mode, 8 of phase 7's images normalised in float32, with TF32 off
+# (cuDNN convolutions use it by default): the card's logits within 1e-3 of the largest.
+# (c) ViT-B/16 (bfloat16) trained VIT_STEPS steps on the same loader; ms a step. (d) the
+# SPMD MoE transformer step as a world of one over NCCL (all five mesh axes of size 1;
+# the default TransformerConfig with its two layers in one stage, as pp = 1 asks, and
+# one microbatch): the first loss within 2e-4 of reference_loss on the card, the loss
+# falling over 5 steps at lr 0.5,
+# and ring and Ulysses attention at axis size 1 equal to reference_attention.
+
+MODEL_SEED = 21
+MODEL_WARMUP = 3
+MODEL_TIMED = 5
+MODEL_FIXED_STEPS = 10
+VIT_STEPS = 8
+MODEL_CARD_CPU_ROWS = 8
+
+
+def _sgd_step(model, lr=0.1):
+    """One SGD step (Nesterov momentum 0.9) of cross-entropy on ``model``: ``step(x,
+    labels) -> loss`` (a device scalar, not read back)."""
+    import torch
+    import torch.nn.functional as F
+
+    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9, nesterov=True)
+
+    def step(images, labels):
+        loss = F.cross_entropy(model(images), labels.long())
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def _model_reader(url, epochs):
+    from petastorm_tpu_torch import make_batch_reader
+
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    return make_batch_reader(url, decode_on_device=True, workers_count=workers,
+                             shuffle_row_groups=True, seed=MODEL_SEED, num_epochs=epochs,
+                             schema_fields=["id", "image", "label"])
+
+
+def _k2_only():
+    from petastorm_tpu_torch.ops import image
+
+    def transform(batch):
+        return {**batch, "image": image.normalize_images(batch["image"], MEAN, STD)}
+
+    return transform
+
+
+def phase_model_resnet(url, smi):
+    """(a) (comment above)."""
+    import math
+
+    import torch
+
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.models import ResNet50
+
+    torch.manual_seed(MODEL_SEED)
+    model = ResNet50(num_classes=1000)
+    check(next(model.parameters()).device.type == "cuda"
+          and model.compute_dtype == torch.bfloat16, "(a): ResNet50() is not on the card "
+          "in bfloat16")
+    step = _sgd_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(MODEL_SEED)
+    x = torch.randn((BATCH,) + IMG, generator=gen, device="cuda").to(torch.bfloat16)
+    y = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(MODEL_WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # timing()'s enqueue figure counts the host blocked on a launch queue filled behind
+    # its spin (a step is ~3,000 launches): the dispatch is timed apart, one step after
+    # a synchronise, to its return
+    step_ms = timing(lambda: step(x, y), iters=MODEL_TIMED, warmup=1)[0]
+    dispatch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y)
+        dispatch.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    dispatch_ms = sorted(dispatch)[1] * 1e3
+    out = {"step_ms": step_ms, "dispatch_ms": dispatch_ms, "warmup_s": warm_s}
+
+    _jpeg_launch_counters(zero=True)
+    losses, batches, fixed = [], 0, None
+    per_epoch = ROWS // BATCH
+    with DataLoader(_model_reader(url, 3), BATCH, device_transform=_k2_only(),
+                    prefetch=3) as loader:
+        it = iter(loader)
+
+        def fed_step():
+            nonlocal batches, fixed
+            b = next(it)
+            losses.append(step(b["image"], b["label"]))
+            batches += 1
+            if fixed is None:
+                fixed = (b["image"].clone(), b["label"].clone())
+
+        for _ in range(per_epoch):
+            fed_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loader.stats.reset()
+        t0 = time.perf_counter()
+        for _ in range(per_epoch):
+            fed_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        queue_wait_s = loader.stats.device_queue_wait_s
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["busy_share"] = profiled_busy_share(fed_step, per_epoch)
+    launches = _jpeg_launch_counters()
+    out["warmup_losses"] = [float(v) for v in losses[:per_epoch]]
+    out["losses"] = [float(v) for v in losses[per_epoch:]]
+    out.update(rows_per_s=per_epoch * BATCH / wall, wall_s=wall, batches=batches,
+               launches=launches, device_queue_wait_s=queue_wait_s)
+    fixed_losses = [float(step(*fixed)) for _ in range(MODEL_FIXED_STEPS)]
+    out["fixed_losses"] = fixed_losses
+    out["consumer_rows_per_s"] = BATCH / (step_ms / 1e3)
+    log("model (a): ResNet-50 bf16 channels_last, batch %d: %.4f ms a step alone on a "
+        "resident batch (CUDA events; the host's dispatch of a step %.4f ms, median of 3; "
+        "warm-up %.1f s) = "
+        "%.1f rows/s the consumer takes; fed by the main path %.1f rows/s over the %d "
+        "steps of the second epoch (%.3f s), device_queue_wait_s %.4f, device busy share "
+        "%s in the third, peak memory %.2f GB; losses (all %d fed steps) %s; launches "
+        "%s for %d batches; %s" % (
+            BATCH, step_ms, dispatch_ms, warm_s, out["consumer_rows_per_s"],
+            out["rows_per_s"], per_epoch, wall, out["device_queue_wait_s"],
+            "not measured" if out["busy_share"] is None else "%.4f" % out["busy_share"],
+            out["peak_gb"], batches,
+            [round(v, 4) for v in out["warmup_losses"] + out["losses"]],
+            json.dumps(launches), batches, smi))
+    log("model (a): %d steps on one fixed fed batch: losses %s; %s"
+        % (MODEL_FIXED_STEPS, [round(v, 4) for v in fixed_losses], smi))
+    check(all(math.isfinite(v) for v in out["warmup_losses"] + out["losses"]
+              + fixed_losses), "(a): a loss is not finite")
+    check(fixed_losses[-1] < fixed_losses[0], "(a): the loss on one fixed batch did not "
+          "fall over %d steps: %s" % (MODEL_FIXED_STEPS, fixed_losses))
+    check(batches == 3 * per_epoch, "(a): %d batches fed, %d expected"
+          % (batches, 3 * per_epoch))
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"] == batches,
+          "(a): launches %s for %d batches" % (launches, batches))
+    return model, out
+
+
+def phase_model_card_vs_cpu(model, images, smi):
+    """(b) (comment above); ``model``: (a)'s trained ResNet-50; ``images``: phase 7's
+    uint8 images on the card."""
+    import torch
+
+    from petastorm_tpu_torch.models import ResNet50
+    from petastorm_tpu_torch.ops import image
+
+    state = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    x = image.normalize_images(images[:MODEL_CARD_CPU_ROWS], MEAN, STD,
+                               out_dtype=torch.float32)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = ResNet50(num_classes=1000, dtype=torch.float32)
+        card.load_state_dict(state)
+        with torch.no_grad():
+            on_card = card.eval()(x).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = ResNet50(num_classes=1000, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict(state)
+    with torch.no_grad():
+        on_cpu = cpu.eval()(x.cpu())
+    err = float((on_card - on_cpu).abs().max())
+    scale = float(on_cpu.abs().max())
+    log("model (b): ResNet-50 float32 eval on %d images, card against CPU (TF32 off): "
+        "max abs error %.3e against max |logit| %.4f (%.3e of it); %s"
+        % (MODEL_CARD_CPU_ROWS, err, scale, err / scale, smi))
+    check(bool(torch.isfinite(on_card).all()) and on_card.shape == (MODEL_CARD_CPU_ROWS,
+                                                                   1000),
+          "(b): card logits %s not finite or mis-shaped" % (tuple(on_card.shape),))
+    check(err <= 1e-3 * scale, "(b): card logits %.3e apart from the CPU's (bar %.3e)"
+          % (err, 1e-3 * scale))
+    return {"max_abs_err": err, "max_logit": scale}
+
+
+def phase_model_vit(url, smi):
+    """(c) (comment above)."""
+    import math
+
+    import torch
+
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.models import ViT_B16
+
+    torch.manual_seed(MODEL_SEED)
+    model = ViT_B16(num_classes=1000)
+    step = _sgd_step(model, lr=0.01)
+    _jpeg_launch_counters(zero=True)
+    losses, times = [], []
+    with DataLoader(_model_reader(url, 1), BATCH, device_transform=_k2_only(),
+                    prefetch=3) as loader:
+        for batch in loader:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch["image"], batch["label"])))
+            times.append(time.perf_counter() - t0)  # float() waits for the step
+            if len(losses) == VIT_STEPS:
+                break
+    launches = _jpeg_launch_counters()
+    ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3  # the first step builds the plan
+    log("model (c): ViT-B/16 bf16, batch %d, %d steps on the main path: %.4f ms a step "
+        "(median wall of steps 2-%d, synchronised; the first %.4f ms), %.1f rows/s the "
+        "consumer takes; losses %s; launches %s; %s" % (
+            BATCH, len(losses), ms, VIT_STEPS, times[0] * 1e3, BATCH / (ms / 1e3),
+            [round(v, 4) for v in losses], json.dumps(launches), smi))
+    check(len(losses) == VIT_STEPS and all(math.isfinite(v) for v in losses),
+          "(c): losses %s" % losses)
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == launches["K2"]
+          >= VIT_STEPS, "(c): launches %s for %d steps" % (launches, VIT_STEPS))
+    return {"step_ms": ms, "losses": losses, "launches": launches, "batches": VIT_STEPS}
+
+
+def phase_model_transformer(smi):
+    """(d) (comment above)."""
+    import dataclasses
+    import datetime
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.models import transformer as tx
+    from petastorm_tpu_torch.parallel import attention
+
+    cfg = dataclasses.replace(tx.TransformerConfig(), n_stages=1, layers_per_stage=2)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d" % _free_port(),
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = tx.model_mesh()
+        params = tx.init_params(cfg, MODEL_SEED)
+        gen = torch.Generator(device="cuda").manual_seed(MODEL_SEED)
+        tokens = torch.randint(0, cfg.vocab, (8, cfg.max_seq), generator=gen, device="cuda")
+        targets = torch.randint(0, cfg.vocab, (8, cfg.max_seq), generator=gen, device="cuda")
+        ref = float(tx.reference_loss(cfg, params, tokens, targets))
+        placed = tx.distribute_params(params, tx.param_shardings(cfg, mesh))
+        ds = tx.data_sharding(mesh)
+        tok, tgt = tx.distribute_params(tokens, ds), tx.distribute_params(targets, ds)
+        # one microbatch: the capacity of each expert is then reference_loss's (the
+        # default capacity_factor drops tokens, per microbatch in the step)
+        step = tx.make_train_step(cfg, mesh, n_micro=1, learning_rate=0.5)
+        losses = []
+        for _ in range(5):
+            placed, loss = step(placed, tok, tgt)
+            losses.append(float(loss))
+        q, k, v = (torch.randn(2, cfg.max_seq, cfg.n_heads, cfg.head_dim, generator=gen,
+                               device="cuda") for _ in range(3))
+        errs = {}
+        for causal in (False, True):
+            dense = attention.reference_attention(q, k, v, causal=causal)
+            for name, fn in (("ring", attention.ring_attention),
+                             ("ulysses", attention.ulysses_attention)):
+                errs["%s_causal_%d" % (name, causal)] = float(
+                    (fn(q, k, v, mesh, "sp", causal) - dense).abs().max())
+        backend = dist.get_backend()
+        device = placed["embed"].to_local().device
+    finally:
+        dist.destroy_process_group()
+    log("model (d): the MoE transformer step as a world of one over %s on %s: losses %s, "
+        "reference_loss %.6f (first loss %.3e apart); attention at axis size 1 against "
+        "reference_attention: %s; %s" % (
+            backend, device, [round(v, 6) for v in losses], ref, abs(losses[0] - ref),
+            json.dumps({k: "%.3e" % v for k, v in errs.items()}), smi))
+    check(device.type == "cuda", "(d): params on %s" % device)
+    check(all(math.isfinite(v) for v in losses), "(d): losses %s" % losses)
+    check(abs(losses[0] - ref) < 2e-4, "(d): first loss %.6f, reference %.6f"
+          % (losses[0], ref))
+    check(losses[-1] < losses[0], "(d): the loss did not fall: %s" % losses)
+    check(max(errs.values()) <= 2e-5, "(d): attention errors %s" % errs)
+    return {"losses": losses, "reference_loss": ref, "attention_errs": errs}
+
+
+def phase_models(url, images, smi):
+    """Phase 21 (a)-(d), with cuDNN's algorithm search on (restored after)."""
+    import torch
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        model, resnet = phase_model_resnet(url, smi)
+        card_cpu = phase_model_card_vs_cpu(model, images, smi)
+        del model
+        vit = phase_model_vit(url, smi)
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    torch.cuda.empty_cache()
+    return {"a": resnet, "b": card_cpu, "c": vit, "d": phase_model_transformer(smi)}
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -7361,6 +7686,11 @@ def main():
         phase20_s = time.perf_counter() - t20
         log("the data service: phase 20 took %.1f s of wall time; %s"
             % (phase20_s, env["smi"]))
+        t21 = time.perf_counter()
+        models = phase_models(url, images, env["smi"])
+        phase21_s = time.perf_counter() - t21
+        log("the model zoo: phase 21 took %.1f s of wall time; %s" % (phase21_s, env["smi"]))
+        check(phase21_s < 120.0, "phase 21 took %.1f s, over its 120 s" % phase21_s)
         del images
 
         t0 = time.perf_counter()
@@ -7576,6 +7906,13 @@ def main():
         out["batches"] = {part: b for part, (_n, b) in parts.items()}
         return out
 
+    def slice21_launches(key):
+        """{part: launches of ``key``} in phase 21's fed trainers."""
+        parts = {"a_resnet50_fed": models["a"], "c_vit_b16_fed": models["c"]}
+        out = {part: r["launches"][key] for part, r in parts.items()}
+        out["batches"] = {part: r["batches"] for part, r in parts.items()}
+        return out
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -7599,7 +7936,8 @@ def main():
          "slice17_launches": slice17_launches("stage2_planes"),
          "slice18_launches": slice18_launches("stage2_planes"),
          "slice19_launches": slice19_launches("stage2_planes"),
-         "slice20_launches": slice20_launches("stage2_planes")},
+         "slice20_launches": slice20_launches("stage2_planes"),
+         "slice21_launches": slice21_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -7620,7 +7958,8 @@ def main():
          "slice17_launches": slice17_launches("stage2_rgb"),
          "slice18_launches": slice18_launches("stage2_rgb"),
          "slice19_launches": slice19_launches("stage2_rgb"),
-         "slice20_launches": slice20_launches("stage2_rgb")},
+         "slice20_launches": slice20_launches("stage2_rgb"),
+         "slice21_launches": slice21_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -7662,7 +8001,8 @@ def main():
          "slice17_launches": slice17_launches("K2"),
          "slice18_launches": slice18_launches("K2"),
          "slice19_launches": slice19_launches("K2"),
-         "slice20_launches": slice20_launches("K2")},
+         "slice20_launches": slice20_launches("K2"),
+         "slice21_launches": slice21_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -7834,6 +8174,17 @@ def main():
             service["a"]["decode_s_per_row"], service["b"]["before"],
             service["b"]["after"], service["c"]["net"]["reconnects"],
             service["d"]["mapped"]))
+    ma, mc, md = models["a"], models["c"], models["d"]
+    log("the model zoo (phase 21, %.1f s): ResNet-50 bf16 at batch %d %.4f ms a step "
+        "alone (%.1f rows/s the consumer takes), fed by the main path at %.1f rows/s "
+        "(device_queue_wait_s %.4f, busy share %s, peak %.2f GB); card against CPU %.3e "
+        "of the largest logit; ViT-B/16 %.4f ms a step; the transformer's world of one "
+        "losses %s; %s" % (
+            phase21_s, BATCH, ma["step_ms"], ma["consumer_rows_per_s"], ma["rows_per_s"],
+            ma["device_queue_wait_s"],
+            "not measured" if ma["busy_share"] is None else "%.4f" % ma["busy_share"],
+            ma["peak_gb"], models["b"]["max_abs_err"] / models["b"]["max_logit"],
+            mc["step_ms"], [round(v, 4) for v in md["losses"]], env["smi"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

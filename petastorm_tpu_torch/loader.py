@@ -125,7 +125,7 @@ from petastorm_tpu_torch.io.lease import attach_leases, count_copy, take_leases
 from petastorm_tpu_torch.io.pagedec import (PassthroughColumn, is_passthrough,
                                             materialize_columns, pagedec_counters)
 from petastorm_tpu_torch.obs import tenant as _tenant
-from petastorm_tpu_torch.parallel.mesh import process_group
+from petastorm_tpu_torch.parallel.mesh import process_group, to_local
 from petastorm_tpu_torch.shuffle import BatchedRandomShufflingBuffer
 from petastorm_tpu_torch.utils import stack_as_column
 
@@ -897,6 +897,7 @@ class DataLoader:
         #: spans ranks: batch_size is global)
         self.local_batch_size = _resolve_local_batch(int(batch_size), sharding)
         self.sharding = sharding
+        self._declared = _declared_shapes(reader)
         self.device = _resolve_device(device, sharding)
         if staging and self.device.type != "cuda":
             raise ValueError("staging=%r needs a CUDA device, got %s" % (staging, self.device))
@@ -1541,10 +1542,10 @@ class DataLoader:
         (:func:`_deliver`). DTensors coming in (from the device ring) are unwrapped to
         their local tensors first: the transform runs on the rank's card."""
         if self.sharding is not None:
-            arrays = {k: _local_tensor(v) for k, v in arrays.items()}
+            arrays = {k: to_local(v) for k, v in arrays.items()}
         if self._device_transform is not None:
             arrays = self._call_device_transform(arrays)
-        return _deliver(self.sharding, arrays)
+        return _deliver(self.sharding, arrays, self._declared)
 
     def _call_device_transform(self, arrays):
         import torch
@@ -1675,7 +1676,7 @@ class DataLoader:
         for v in batch.values():
             if isinstance(v, torch.Tensor) and v.is_cuda:
                 # a DTensor's memory is its local tensor's
-                _local_tensor(v).record_stream(consumer)
+                to_local(v).record_stream(consumer)
         return batch
 
     def _host_delivery(self, host_q):
@@ -2115,28 +2116,33 @@ def _field_sharding(sharding, name, arr):
     return _matching_sharding(sharding, arr)
 
 
-def _deliver(sharding, arrays):
+def _deliver(sharding, arrays, declared=None):
     """Each tensor with a sharding becomes a ``DTensor`` of the rank's rows
-    (:func:`~petastorm_tpu_torch.parallel.mesh.to_dtensor`); a field whose sharding is
-    None in a dict, host columns, and everything without ``sharding=`` stay as they
-    are."""
+    (:func:`~petastorm_tpu_torch.parallel.mesh.to_dtensor`), cut first to the rank's part
+    along each sharded non-batch dimension (:func:`~petastorm_tpu_torch.parallel.mesh.
+    rank_part`; ``declared``: ``{field: schema shape}``); a field whose sharding is None
+    in a dict, host columns, and everything without ``sharding=`` stay as they are."""
     if sharding is None:
         return arrays
     import torch
 
-    from petastorm_tpu_torch.parallel.mesh import to_dtensor
+    from petastorm_tpu_torch.parallel.mesh import rank_part, to_dtensor
 
     out = {}
     for name, arr in arrays.items():
         s = _field_sharding(sharding, name, arr) if isinstance(arr, torch.Tensor) else None
-        out[name] = arr if s is None else to_dtensor(arr, s)
+        out[name] = arr if s is None else to_dtensor(
+            rank_part(arr, s, (declared or {}).get(name)), s)
     return out
 
 
-def _local_tensor(value):
-    """A DTensor's local tensor (the rank's rows); anything else as it is."""
-    to_local = getattr(value, "to_local", None)
-    return to_local() if to_local is not None else value
+def _declared_shapes(reader):
+    """``{field: shape}`` of the reader's schema fields with a known shape (None entries
+    for variable dimensions): what :func:`_deliver` tells a whole row from a rank's
+    part by."""
+    fields = getattr(getattr(reader, "schema", None), "fields", None) or {}
+    return {name: tuple(f.shape) for name, f in fields.items()
+            if getattr(f, "shape", None) is not None}
 
 
 def _fold_seed(*parts):
@@ -2145,6 +2151,28 @@ def _fold_seed(*parts):
     state = np.random.SeedSequence([int(p) % (1 << 64) for p in parts]).generate_state(
         1, np.uint64)
     return int(state[0]) >> 1
+
+
+def _fill_order(plan, log, rows):
+    """The gather that puts a fill's rows in the reader's item order, or None when they
+    already are (or the reader logged no deliveries, or its plan grew). ``log``: the
+    reader's ``(epoch, ordinal, rows)`` a work item, in the order the fill received
+    them."""
+    if plan is None or not log or sum(n for _e, _o, n in log) != rows:
+        return None
+    positions = {}
+    keys = []
+    for epoch, ordinal, _n in log:
+        if epoch not in positions:
+            positions[epoch] = plan.positions(epoch)
+        if positions[epoch] is None:
+            return None
+        keys.append((epoch, int(positions[epoch][ordinal])))
+    if keys == sorted(keys):
+        return None
+    starts = np.cumsum([0] + [n for _e, _o, n in log[:-1]])
+    segments = sorted(range(len(log)), key=keys.__getitem__)
+    return np.concatenate([np.arange(starts[i], starts[i] + log[i][2]) for i in segments])
 
 
 class InMemDataLoader:
@@ -2159,9 +2187,10 @@ class InMemDataLoader:
     on the device. Each epoch's order is ``torch.randperm`` on the store's device with a
     ``torch.Generator`` seeded from ``(seed, epoch)``, so the same ``(seed, epoch)``
     always gives the same order on the same kind of device (a CPU and a CUDA generator
-    give different orders) and :meth:`state_dict` resumes exactly, given a fill in the
-    same row order: a reader on one worker or the dummy pool (several workers deliver row
-    groups in the order they finish, so the store's row order varies between fills).
+    give different orders) and :meth:`state_dict` resumes exactly. The fill puts the
+    rows in the reader's item order (the order one worker delivers), whatever order
+    several workers finish their row groups in, so two fills of one store hold the same
+    rows at the same places.
 
     In a ``torch.distributed`` job of more than one rank each rank fills its own shard
     (pass a sharded reader, ``cur_shard=rank``) and keeps it on ITS card; every batch
@@ -2237,6 +2266,7 @@ class InMemDataLoader:
             self.local_batch_size = self.batch_size
         self._rank = rank
         self._sharding = sharding
+        self._declared = _declared_shapes(reader)
         self.device = _resolve_device(device, sharding)
         self.num_epochs = num_epochs
         self.shuffle = shuffle
@@ -2252,6 +2282,9 @@ class InMemDataLoader:
                 "the reader with num_epochs=1 and set epochs here.")
         chunks = []
         dropped = set()
+        log = []
+        if hasattr(reader, "delivery_log"):
+            reader.delivery_log = log
         with DataLoader(reader, self.batch_size, last_batch="partial", prefetch=2,
                         device_decode_resize=device_decode_resize, trace=trace,
                         device=self.device) as fill:
@@ -2268,10 +2301,16 @@ class InMemDataLoader:
             logger.warning("InMemDataLoader dropped host-only fields: %s", sorted(dropped))
         if not chunks:
             raise ValueError("reader yielded no rows to load in memory")
+        if hasattr(reader, "delivery_log"):
+            reader.delivery_log = None
         # torch.cat copies: the store owns its memory, whatever the fill's tensors view
         self._store = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
         del chunks
         self.rows = int(next(iter(self._store.values())).shape[0])
+        order = _fill_order(plan, log, self.rows)
+        if order is not None:
+            idx = torch.from_numpy(order).to(self.device)
+            self._store = {k: v.index_select(0, idx) for k, v in self._store.items()}
         if self._multiprocess:
             import torch.distributed as dist
 
@@ -2403,7 +2442,7 @@ class InMemDataLoader:
                     # axis; otherwise it stays plain (a step with fixed placements
                     # should use last_batch='drop')
                     if n % _batch_shard_count(self._sharding) == 0:
-                        batch = _deliver(self._sharding, batch)
+                        batch = _deliver(self._sharding, batch, self._declared)
                     else:
                         logger.warning(
                             "InMemDataLoader: final partial batch (%d rows) does not "
@@ -2434,7 +2473,7 @@ class InMemDataLoader:
                 self._trace.add("inmem.gather", t_g, time.perf_counter() - t_g)
             batch = self._apply_transform(batch, step0 + bidx, takes_gen)
             self._pos = (epoch, bidx + 1)
-            yield _deliver(self._sharding, batch)
+            yield _deliver(self._sharding, batch, self._declared)
 
     def _apply_transform(self, batch, step, takes_gen):
         """The device transform on the rank's gathered tensors (before the delivery: a
@@ -2484,15 +2523,20 @@ def make_dataloader(dataset_url_or_urls, batch_size, sharding=None, num_epochs=1
     parameters are :class:`DataLoader`'s, and only those passed explicitly are
     forwarded. ``seed`` (the loader's) falls back to ``shard_seed``. In a
     ``torch.distributed`` job of more than one process ``cur_shard``/``shard_count``
-    default to the rank and the world size; ``sharding`` is :class:`DataLoader`'s."""
+    default to the rank's coordinate along ``sharding``'s batch axes and their size
+    (ranks that differ only along other axes read the same rows; the JAX package
+    defaults to the process index and count), else to the rank and the world size;
+    ``sharding`` is :class:`DataLoader`'s."""
+    from petastorm_tpu_torch.parallel.mesh import batch_shard
     from petastorm_tpu_torch.reader import make_batch_reader
 
     factory = reader_factory or make_batch_reader
     if "cur_shard" not in reader_kwargs:
         rank, world = process_group()
         if world > 1:
-            reader_kwargs["cur_shard"] = rank
-            reader_kwargs["shard_count"] = world
+            shard = batch_shard(sharding) if sharding is not None else (rank, world)
+            if shard is not None and shard[1] > 1:
+                reader_kwargs["cur_shard"], reader_kwargs["shard_count"] = shard
     reader = factory(dataset_url_or_urls, num_epochs=num_epochs, **reader_kwargs)
     seed = reader_kwargs.get("seed")
     if seed is None:

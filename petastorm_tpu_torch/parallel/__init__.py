@@ -1,7 +1,8 @@
 """Parallel machinery of the port: device meshes, batch shardings and DTensor delivery
-over ``torch.distributed`` (:mod:`.mesh`), and the process pool's shared-memory slab
-ring (:mod:`.shm_ring`). The JAX package's attention and pipeline modules are ROADMAP.md
-Queue 1 item 15; their names raise ``AttributeError`` naming it."""
+over ``torch.distributed`` (:mod:`.mesh`), the differentiable collectives
+(:mod:`.collectives`), sequence/context parallelism (ring attention and Ulysses,
+:mod:`.attention`), pipeline microbatching (:mod:`.pipeline`), and the process pool's
+shared-memory slab ring (:mod:`.shm_ring`)."""
 
 from petastorm_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
@@ -14,9 +15,12 @@ from petastorm_tpu_torch.parallel.mesh import (  # noqa: F401
 
 def __getattr__(name):
     if name in ("ring_attention", "ulysses_attention", "reference_attention",
-                "ring_self_attention", "ulysses_self_attention", "spmd_pipeline",
-                "pipelined_apply", "stage_sharding"):
-        raise AttributeError(
-            "petastorm_tpu_torch.parallel.%s is not ported yet: see ROADMAP.md Queue 1 "
-            "item 15 (parallel/attention.py and parallel/pipeline.py)" % name)
+                "ring_self_attention", "ulysses_self_attention"):
+        from petastorm_tpu_torch.parallel import attention
+
+        return getattr(attention, name)
+    if name in ("spmd_pipeline", "pipelined_apply", "stage_sharding"):
+        from petastorm_tpu_torch.parallel import pipeline
+
+        return getattr(pipeline, name)
     raise AttributeError("module 'petastorm_tpu_torch.parallel' has no attribute %r" % name)

@@ -19,7 +19,9 @@ on torch's own idioms:
   the counterpart of ``jax.make_array_from_process_local_data``: the global shape is the
   one that function infers, the local data being the rank's slice along every sharded
   dimension (a dimension sharded over mesh axes of total size k is k times the local
-  one). No collective runs.
+  one). No collective runs. The loader first cuts whole rows to the rank's part along
+  each sharded non-batch dimension (:func:`rank_part`), where the JAX package would
+  infer that dimension k times longer.
 """
 from __future__ import annotations
 
@@ -201,6 +203,49 @@ class NamedSharding:
         return tuple(shape)
 
 
+def axis_coordinate(mesh, axes):
+    """``(index, count)`` of this rank along the mesh axes ``axes`` taken together,
+    major first (the order a ``PartitionSpec`` entry splits its dimension in)."""
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for ax in axes:
+        index = index * int(sizes[ax]) + int(coord[names.index(ax)])
+        count *= int(sizes[ax])
+    return index, count
+
+
+def rank_part(local, sharding, declared=None):
+    """The rank's part of ``local`` along each sharded non-batch dimension.
+
+    A rank reads whole rows, so a dimension past the batch one that ``sharding`` splits
+    over k positions is cut to the rank's k-th (a contiguous copy). The JAX package
+    infers such a dimension k times longer instead (ROADMAP.md "By design"). A dimension
+    that already is the rank's part of the field's ``declared`` size (its schema shape,
+    without the batch dimension) is kept as it is: a feed that sliced its rows itself."""
+    for d, part in enumerate(sharding.spec[1:len(local.shape)], start=1):
+        axes = _axes(part)
+        if not axes:
+            continue
+        index, k = axis_coordinate(sharding.mesh, axes)
+        n = int(local.shape[d])
+        full = declared[d - 1] if declared is not None and d - 1 < len(declared) else None
+        if k == 1 or (full is not None and full % k == 0 and n == full // k != full):
+            continue
+        if n % k:
+            raise ValueError("dimension %d of size %d does not split over %r (%d ranks)"
+                             % (d, n, part, k))
+        local = local.narrow(d, index * (n // k), n // k).contiguous()
+    return local
+
+
+def to_local(value):
+    """A DTensor's local tensor (the rank's block); anything else as it is."""
+    local = getattr(value, "to_local", None)
+    return local() if local is not None else value
+
+
 def to_dtensor(local, sharding):
     """The delivered form of a rank's ``local`` tensor under ``sharding`` (a spec no
     longer than the tensor's rank): a ``DTensor`` of the global shape
@@ -262,6 +307,21 @@ def batch_share(global_batch_size, grid_shape, axis_names, owned, batch_axes=("d
     axis_idx = [list(axis_names).index(a) for a in axes]
     coords = {tuple(pos[i] for i in axis_idx) for pos in owned}
     return global_batch_size * len(coords) // shards
+
+
+def batch_shard(sharding):
+    """``(cur_shard, shard_count)`` of the reader shard this rank reads under
+    ``sharding``: its coordinate along the batch axes, so ranks that share a batch
+    coordinate (replicas along the other axes) read the same rows. None for a
+    replicated batch axis or anything but a :class:`NamedSharding` (or a dict holding
+    one)."""
+    if isinstance(sharding, dict):
+        sharding = next((s for s in sharding.values() if isinstance(s, NamedSharding)),
+                        None)
+    if not isinstance(sharding, NamedSharding) or not len(sharding.spec) \
+            or sharding.spec[0] is None:
+        return None
+    return axis_coordinate(sharding.mesh, _axes(sharding.spec[0]))
 
 
 def local_batch_size(global_batch_size, mesh, batch_axes=("dp",)):

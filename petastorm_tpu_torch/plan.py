@@ -165,6 +165,16 @@ class EpochPlan:
                 self._perm = np.concatenate([self._perm, ords])
             return [int(o) for o in new_ords]
 
+    def positions(self, epoch):
+        """``positions[ordinal]``: where each item comes in ``epoch``'s order (the order
+        one worker delivers the epoch in); None once the plan has grown (:meth:`extend`
+        appends to the running order)."""
+        with self._lock:
+            if len(self._births) > 1:
+                return None
+            return np.argsort(epoch_permutation(len(self._items), epoch, self._seed,
+                                                self._shuffle))
+
     def items_in_epoch(self, epoch):
         """How many plan items belong to ``epoch`` (those born at or before it): the
         denominator of the reader's consumed-ordinal watermark."""

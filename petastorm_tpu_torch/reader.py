@@ -1571,6 +1571,9 @@ class Reader:
         self._buffer_pos = 0
         self._buffer_tag = None  # (epoch, ordinal) of the row group feeding _buffer
         self._consumed = {}  # epoch -> set(ordinal): fully delivered work items
+        #: a list to append ``(epoch, ordinal, rows)`` to as each work item's rows start
+        #: to be delivered, else None (an InMemDataLoader's fill sets it)
+        self.delivery_log = None
         self._resume_epoch = 0  # every epoch below this one is fully consumed
         self.last_row_consumed = False
         self.stopped = False
@@ -1800,6 +1803,8 @@ class Reader:
                 continue
             if self._prov is not None:
                 self._prov.note_delivery(epoch, ordinal, len(payload))
+            if self.delivery_log is not None:
+                self.delivery_log.append((epoch, ordinal, len(payload)))
             if self.tenant_context is not None:
                 # charged at delivery: the tenant's rows are the rows it received
                 _tenant.charge("rows", len(payload), label=self.tenant_context.tenant)
@@ -1833,6 +1838,8 @@ class Reader:
                 continue
             if self._prov is not None:
                 self._prov.note_delivery(epoch, ordinal, len(next(iter(columns.values()))))
+            if self.delivery_log is not None:
+                self.delivery_log.append((epoch, ordinal, len(next(iter(columns.values())))))
             if self.tenant_context is not None:
                 _tenant.charge("rows", len(next(iter(columns.values()))),
                                label=self.tenant_context.tenant)

@@ -235,13 +235,13 @@ def gloo_sharding_rank(rank, world, port, cfg, out):
 def gloo_sequence_rank(rank, world, port, cfg, out):
     """One rank of the four-rank (dp, sp) = (2, 2) job of part (g): ``sequence_sharding``
     on the tokens, ``batch_sharding`` on the ids. Ranks that share a dp coordinate read
-    the same reader shard. Fed whole sequences, the delivery infers a doubled sequence
-    axis (the JAX package's inference); fed the rank's sp slice of each sequence (a
-    device transform), it gives the global batch. Writes JSON with both."""
+    the same reader shard. Fed whole sequences, the delivery cuts each rank's rows to
+    its sp part; fed the rank's sp slice of each sequence (a device transform), it keeps
+    it. Both give the global batch. Writes JSON with both."""
     import torch.distributed as dist
 
     from petastorm_tpu_torch import make_batch_reader
-    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.loader import DataLoader, make_dataloader
     from petastorm_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
                                                    sequence_sharding)
 
@@ -270,6 +270,13 @@ def gloo_sequence_rank(rank, world, port, cfg, out):
                     "placements": _placements(b["tokens"]),
                     "tokens": b["tokens"].full_tensor().tolist(),
                     "ids": b["id"].full_tensor().tolist()}
+        # make_dataloader picks the reader shard itself: the rank's dp coordinate
+        with make_dataloader(cfg["url"], cfg["batch"], sharding=sharding, device="cpu",
+                             reader_pool_type="dummy", shuffle_row_groups=False) as loader:
+            b = next(iter(loader))
+            res["made"] = {"shard": [loader.reader.cur_shard, loader.reader.shard_count],
+                           "shape": list(b["tokens"].shape),
+                           "tokens": b["tokens"].full_tensor().tolist()}
         with open(out, "w") as f:
             json.dump(res, f)
     finally:

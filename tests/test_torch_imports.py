@@ -44,7 +44,10 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "obs.critical_path", "obs.diff", "obs.stats_cli", "benchmark",
                  "benchmark.trend", "transport", "transport.framing", "transport.tcp",
                  "service", "service.protocol", "service.worker", "service.server",
-                 "service.client", "service.telemetry"):
+                 "service.client", "service.telemetry", "models", "models.layers",
+                 "models.weights", "models.resnet", "models.mnist", "models.vit",
+                 "models.transformer", "parallel.collectives", "parallel.attention",
+                 "parallel.pipeline"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"

@@ -445,3 +445,67 @@ def test_make_dataloader_cur_shard_defaults_to_the_gloo_rank(store, tmp_path):
     # multi-card placement is ported: the reference's refusal of an unsharded
     # multi-process InMemDataLoader
     assert all("requires a sharding" in r["inmem_error"] for r in results)
+
+
+def _slow_first_item_fill(store, **kwargs):
+    """A fill over a four-worker thread pool whose item 0 finishes last (a chaos latency
+    on its read), so the workers deliver the row groups out of the reader's order."""
+    from petastorm_tpu_torch import chaos
+    from petastorm_tpu_torch.chaos.plan import FaultPlan, FaultRule
+
+    plan = FaultPlan([FaultRule("worker.item", "latency", item_key="ordinal=0 ",
+                                latency_s=0.5)])
+    with chaos.armed(plan, propagate=False):
+        loader = _port(store, 8, num_epochs=2, shuffle=True, seed=5,
+                       reader_kw={"reader_pool_type": "thread", "workers_count": 4},
+                       **kwargs)
+    assert plan.injections(), "the latency never fired"
+    return loader
+
+
+def test_multi_worker_fills_hold_the_readers_item_order_and_resume_exactly(store):
+    """Two fills of one store on four workers hold the rows in the order one worker
+    delivers them, and a cursor taken mid-epoch resumes over the second fill serving
+    every row of the pass exactly once."""
+    with _port(store, 8) as one:
+        order = one._store["id"].tolist()
+    first = _slow_first_item_fill(store)
+    second = _slow_first_item_fill(store)
+    assert first._store["id"].tolist() == second._store["id"].tolist() == order
+    it = iter(first)
+    pre = _ids(next(it) for _ in range(5))
+    state = first.state_dict()
+    assert (state["epoch"], state["batch"]) == (0, 5)
+    second.load_state_dict(state)
+    rest = _ids(second)
+    served = [i for b in pre + rest for i in b]
+    assert len(served) == 2 * ROWS
+    assert sorted(served[:ROWS]) == sorted(served[ROWS:]) == list(range(ROWS))
+
+
+def test_fill_order_sorts_a_scrambled_delivery_log():
+    from petastorm_tpu_torch.loader import _fill_order
+    from petastorm_tpu_torch.plan import EpochPlan, epoch_permutation
+
+    plan = EpochPlan(list(range(4)), shuffle=True, seed=3)
+    perm = [int(o) for o in epoch_permutation(4, 0, 3, True)]
+    sizes = {0: 3, 1: 1, 2: 2, 3: 4}
+    arrival = [perm[2], perm[0], perm[3], perm[1]]
+    log = [(0, o, sizes[o]) for o in arrival]
+    rows = np.concatenate([np.full(sizes[o], o) for o in arrival])
+    order = _fill_order(plan, log, len(rows))
+    assert rows[order].tolist() == [o for o in perm for _ in range(sizes[o])]
+    in_order = [(0, o, sizes[o]) for o in perm]
+    assert _fill_order(plan, in_order, 10) is None
+    assert _fill_order(plan, log, 9) is None  # a log that does not cover the fill
+
+
+def test_fill_order_leaves_a_grown_plan_in_arrival_order():
+    from petastorm_tpu_torch.loader import _fill_order
+    from petastorm_tpu_torch.plan import EpochPlan
+
+    plan = EpochPlan(list(range(3)))
+    log = [(0, 1, 2), (0, 0, 2)]
+    assert _fill_order(plan, log, 4).tolist() == [2, 3, 0, 1]
+    plan.extend([3])
+    assert _fill_order(plan, log, 4) is None

@@ -183,6 +183,10 @@ def test_parallel_exports_and_item_15_names():
                  "sequence_sharding"):
         assert hasattr(parallel, name) and hasattr(ref_parallel, name)
     assert parallel.AXIS_ORDER == ref_parallel.AXIS_ORDER
-    for name in ("ring_attention", "spmd_pipeline"):
-        with pytest.raises(AttributeError, match="item 15"):
-            getattr(parallel, name)
+    # item 15 is ported: its names resolve lazily, as the reference's do
+    for name in ("ring_attention", "ulysses_attention", "reference_attention",
+                 "ring_self_attention", "ulysses_self_attention", "spmd_pipeline",
+                 "pipelined_apply", "stage_sharding"):
+        assert callable(getattr(parallel, name)) and callable(getattr(ref_parallel, name))
+    with pytest.raises(AttributeError):
+        getattr(parallel, "no_such_name")

@@ -404,18 +404,33 @@ def test_sequence_sharding_sliced_feed_equals_the_references_delivery(seq_job, s
         np.testing.assert_array_equal(np.array(s["ids"]), ids)
 
 
-def test_sequence_sharding_whole_feed_infers_the_references_doubled_axis(seq_job,
-                                                                         seq_store):
-    """Fed whole sequences, each rank's local data is taken as its sp slice, as
-    ``jax.make_array_from_process_local_data`` infers: the sequence axis doubles, each
-    row's two halves the same tokens (ROADMAP.md Queue 3 S)."""
-    tokens, _ids = _reference_sequence_delivery(seq_store)
+def test_sequence_sharding_whole_feed_is_cut_to_the_ranks_part(seq_job, seq_store):
+    """Fed whole sequences, the delivery cuts each rank's rows to its sp part, so the
+    global batch is the reference's delivery of the sliced feed. The JAX package's
+    ``jax.make_array_from_process_local_data`` would take the whole rows as the sp slice
+    and double the sequence axis (ROADMAP.md "By design")."""
+    tokens, ids = _reference_sequence_delivery(seq_store)
     for r in seq_job:
         w = r["whole"]
-        assert w["local_shape"] == [SEQ_BATCH // 2, SEQ]
-        assert w["shape"] == [SEQ_BATCH, 2 * SEQ]
-        np.testing.assert_array_equal(np.array(w["tokens"]),
-                                      np.concatenate([tokens, tokens], axis=1))
+        assert w["local_batch_size"] == SEQ_BATCH // 2
+        assert w["placements"] == ["Shard(dim=0)", "Shard(dim=1)"]
+        assert w["local_shape"] == [SEQ_BATCH // 2, SEQ // 2]
+        assert w["shape"] == list(tokens.shape) == [SEQ_BATCH, SEQ]
+        np.testing.assert_array_equal(np.array(w["tokens"]), tokens)
+        np.testing.assert_array_equal(np.array(w["ids"]), ids)
+
+
+def test_sequence_sharding_make_dataloader_reads_the_batch_coordinates_shard(seq_job,
+                                                                             seq_store):
+    """``make_dataloader`` with no ``cur_shard`` reads the shard of the rank's dp
+    coordinate: the two sp ranks of a dp row read the same rows (the JAX package would
+    shard by the process index over four shards)."""
+    tokens, _ids = _reference_sequence_delivery(seq_store)
+    for r in seq_job:
+        m = r["made"]
+        assert m["shard"] == [r["coordinate"][0], 2]
+        assert m["shape"] == [SEQ_BATCH, SEQ]
+        np.testing.assert_array_equal(np.array(m["tokens"]), tokens)
 
 
 # -- (h) a world of one ----------------------------------------------------------------
