@@ -303,6 +303,16 @@ Phases (each passes or the script exits non-zero, printing no result line):
    ViT-B/16 steps on the same loader; (d) the SPMD MoE transformer step as a world of
    one over NCCL against ``reference_loss``, and ring and Ulysses attention at axis
    size 1 against ``reference_attention``.
+22. The examples, the tools and reference compatibility (the comment block above
+   ``_example``): (a) ``examples/torch/imagenet/train_imagenet_torch.py`` trains
+   ResNet-50 at 1,000 classes, 224x224, batch 256 for 24 steps on phase 4's store with
+   ``--augment`` and ``--trace``: finite losses, 24 ``train.step`` spans, the stage-2
+   kernels once a decoded batch, K2 never, the script's img/s; (b) ViT-S/16 with
+   ``--decode-resize 256 --augment`` on phase 6's mixed store, the stage-2 kernels once
+   a layout group; (c) ``train_mnist_torch.py`` streamed and ``--in-memory``; (d)
+   ``tools.copy_dataset`` and ``generate_metadata`` on phase 4's store, the copy read on
+   the card, and phase 4's files under the reference petastorm's pickled keys read
+   through ``make_reader``: pixels per id phase 7's.
 
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
@@ -311,7 +321,8 @@ in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 
 ``slice15_launches`` in phase 14's, ``slice16_launches`` in phase 15's,
 ``slice17_launches`` in phase 16's, ``slice18_launches`` in phase 17's,
 ``slice19_launches`` in phase 18's, each rank apart, ``slice20_launches`` in phases 19
-and 20's, ``slice21_launches`` in phase 21's fed trainers), the card's
+and 20's, ``slice21_launches`` in phase 21's fed trainers, ``slice22_launches`` in
+phase 22's parts, every kernel's counter read), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -1429,6 +1440,7 @@ def write_mixed_store(url, cv2, rows=MIX_ROWS, seed=5):
         UnischemaField("id", np.int64, (), ScalarCodec(types.LongType()), False),
         UnischemaField("image", np.uint8, (None, None, 3),
                        CompressedImageCodec("jpeg", QUALITY), False),
+        UnischemaField("label", np.int32, (), ScalarCodec(types.IntegerType()), False),
     ])
     field = schema.fields["image"]
     sizes = np.random.RandomState(seed).randint(len(MIX_SIZES), size=rows)
@@ -1451,7 +1463,7 @@ def write_mixed_store(url, cv2, rows=MIX_ROWS, seed=5):
     with RowWriter(url, schema, row_group_size_mb=max(1, round(256 * mean / 2 ** 20)),
                    rows_per_file=ROWS_PER_FILE) as w:
         for i, blob in enumerate(blobs):
-            w.write_encoded({"id": i, "image": blob})
+            w.write_encoded({"id": i, "image": blob, "label": i % 1000})
     return dict(enumerate(blobs)), [MIX_SIZES[k] for k in sizes]
 
 
@@ -7449,6 +7461,292 @@ def phase_models(url, images, smi):
     return {"a": resnet, "b": card_cpu, "c": vit, "d": phase_model_transformer(smi)}
 
 
+# -- phase 22: the examples, the tools and reference compatibility --------------------
+#
+# (a) examples/torch/imagenet/train_imagenet_torch.py's main() on phase 4's store:
+# ResNet-50 (bfloat16) at 1,000 classes and 224x224, batch 256, EXAMPLE_STEPS steps,
+# --augment (the flip only: the store is 224x224, and the JAX example skips the crop
+# there too) and --trace to a temporary file. Every loss finite and EXAMPLE_STEPS
+# train.step spans in the trace; stage2_planes and stage2_rgb launched once a batch the
+# codec decoded on the card (counted around CompressedImageCodec.device_decode_batch:
+# the loader decodes ahead of the steps), K2 never (the step divides by 255, as the JAX
+# example's does). Printed: the script's img/s over its whole run and from its third
+# step on.
+# (b) The same script with --model vit_s16 --decode-resize 256 --augment on phase 6's
+# mixed store, EXAMPLE_VIT_STEPS steps of 256: the crop to 224 applies; one
+# stage2_planes and one stage2_rgb launch a layout group (counted around
+# jpeg._batched_stage2), K2 never.
+# (c) examples/torch/mnist/train_mnist_torch.py for one epoch, streamed and --in-memory:
+# every loss finite, one step a batch of 128.
+# (d) tools.copy_dataset copies phase 4's store, tools.generate_metadata rewrites the
+# copy's metadata, and the main path reads the copy on the card: every id once, pixels
+# per id phase 7's (bit for bit), labels the originals, the stage-2 kernels once a
+# decoded batch. Then a store of phase 4's files (hard links) whose _common_metadata
+# carries only the reference petastorm's pickled schema and row-group counts, built as
+# tests/test_metadata.py builds one, read through make_reader on the card with the same
+# checks.
+# HDFS, Spark and TF are held on the CPU only (tests/test_torch_hdfs.py,
+# test_torch_spark.py, test_torch_tf.py): the card's machine has no cluster, pyspark or
+# tensorflow.
+
+EXAMPLE_STEPS = 24
+EXAMPLE_VIT_STEPS = 8
+
+
+def _example(rel):
+    """Import ``examples/torch/<rel>`` by path (its directory on ``sys.path`` for its
+    sibling imports, as when it runs as a script)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "torch", rel)
+    if os.path.dirname(path) not in sys.path:
+        sys.path.insert(0, os.path.dirname(path))
+    spec = importlib.util.spec_from_file_location(
+        "example_" + os.path.basename(path)[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _all_launch_counters(zero=False):
+    """Every kernel's launch counter (the JPEG path's, the standalone unpack and K1, the
+    pass-through's), zeroed first with ``zero``."""
+    from petastorm_tpu_torch.ops import jpeg
+
+    if zero:
+        jpeg.unpack_dequant_segments.launches = 0
+        jpeg.idct_scaled_segments.launches = 0
+    out = _jpeg_launch_counters(zero)
+    out.update(_tab_launch_counters(zero))
+    out.update(unpack=jpeg.unpack_dequant_segments.launches,
+               K1=jpeg.idct_scaled_segments.launches)
+    return out
+
+
+@contextlib.contextmanager
+def _counting_decodes():
+    """``{"batches": ..., "groups": ...}``: the batches the image codec decoded on the
+    device and the layout groups their stage 2 ran, counted while the block runs."""
+    from petastorm_tpu_torch.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.ops import jpeg
+
+    counts = {"batches": 0, "groups": 0}
+    decode, stage2 = CompressedImageCodec.device_decode_batch, jpeg._batched_stage2
+
+    def counted_decode(self, *args, **kwargs):
+        counts["batches"] += 1
+        return decode(self, *args, **kwargs)
+
+    def counted_stage2(*args, **kwargs):
+        counts["groups"] += 1
+        return stage2(*args, **kwargs)
+
+    CompressedImageCodec.device_decode_batch = counted_decode
+    jpeg._batched_stage2 = counted_stage2
+    try:
+        yield counts
+    finally:
+        CompressedImageCodec.device_decode_batch = decode
+        jpeg._batched_stage2 = stage2
+
+
+def _example_workers():
+    return max(1, min(8, (os.cpu_count() or 2) - 1))
+
+
+def phase_example_imagenet(url, work, smi):
+    """(a) (comment above)."""
+    import math
+
+    example = _example("imagenet/train_imagenet_torch.py")
+    trace = os.path.join(work, "example_trace.json")
+    argv = ["--dataset-url", url, "--batch-size", str(BATCH), "--steps", str(EXAMPLE_STEPS),
+            "--num-classes", "1000", "--workers", str(_example_workers()), "--augment",
+            "--trace", trace]
+    _all_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    with _counting_decodes() as decoded:
+        res = example.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counters()
+    with open(trace) as f:
+        spans = sum(e.get("name") == "train.step" for e in json.load(f)["traceEvents"])
+    log("example (a): train_imagenet_torch.py %s: %d steps of %d, %.1f img/s over the "
+        "script's run (%.3f s, reader start included; %.3f s to the end of step %d), %s "
+        "img/s after it; %.1f s of wall time with the import and the trace; losses %s; "
+        "%d train.step spans; launches %s for %d batches decoded; loader stats %s; %s" % (
+            " ".join(argv[4:]), res["steps"], BATCH, res["img_per_s"], res["seconds"],
+            res["warmup_s"], example.WARMUP_STEPS,
+            "-" if res["steady_img_per_s"] is None else "%.1f" % res["steady_img_per_s"],
+            wall, [round(v, 4) for v in res["losses"]], spans,
+            json.dumps(launches), decoded["batches"], json.dumps(res["stats"]), smi))
+    check(res["steps"] == EXAMPLE_STEPS and len(res["losses"]) == EXAMPLE_STEPS,
+          "(a): %d steps, %d losses" % (res["steps"], len(res["losses"])))
+    check(all(math.isfinite(v) for v in res["losses"]), "(a): losses %s" % res["losses"])
+    check(spans == EXAMPLE_STEPS, "(a): %d train.step spans in the trace" % spans)
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == decoded["batches"]
+          == decoded["groups"] >= EXAMPLE_STEPS,
+          "(a): launches %s for %s" % (launches, decoded))
+    check(launches["K2"] == launches["unpack"] == launches["K1"] == 0,
+          "(a): launches %s" % launches)
+    return {"launches": launches, "batches": decoded["batches"], "wall_s": wall,
+            "img_per_s": res["img_per_s"], "steady_img_per_s": res["steady_img_per_s"],
+            "warmup_s": res["warmup_s"], "losses": res["losses"]}
+
+
+def phase_example_vit(mix_url, smi):
+    """(b) (comment above)."""
+    import math
+
+    example = _example("imagenet/train_imagenet_torch.py")
+    argv = ["--dataset-url", mix_url, "--batch-size", str(BATCH), "--steps",
+            str(EXAMPLE_VIT_STEPS), "--num-classes", "1000", "--workers",
+            str(_example_workers()), "--model", "vit_s16", "--decode-resize",
+            str(MIX_RESIZE[0]), "--augment"]
+    _all_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    with _counting_decodes() as decoded:
+        res = example.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counters()
+    log("example (b): train_imagenet_torch.py %s: %d steps, %.1f img/s over the run "
+        "(%.3f s to the end of step %d), %s after it; %.1f s of wall time; losses %s; "
+        "launches %s for %d batches of %d layout groups; %s" % (
+            " ".join(argv[4:]), res["steps"], res["img_per_s"], res["warmup_s"],
+            example.WARMUP_STEPS,
+            "-" if res["steady_img_per_s"] is None else "%.1f" % res["steady_img_per_s"],
+            wall, [round(v, 4) for v in res["losses"]],
+            json.dumps(launches), decoded["batches"], decoded["groups"], smi))
+    check(res["steps"] == EXAMPLE_VIT_STEPS and all(math.isfinite(v) for v in res["losses"]),
+          "(b): %d steps, losses %s" % (res["steps"], res["losses"]))
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == decoded["groups"]
+          > decoded["batches"] >= EXAMPLE_VIT_STEPS,
+          "(b): launches %s for %s" % (launches, decoded))
+    check(launches["K2"] == launches["unpack"] == launches["K1"] == 0,
+          "(b): launches %s" % launches)
+    return {"launches": launches, "batches": decoded["batches"], "groups": decoded["groups"],
+            "wall_s": wall, "img_per_s": res["img_per_s"],
+            "steady_img_per_s": res["steady_img_per_s"]}
+
+
+def phase_example_mnist(work, smi):
+    """(c) (comment above)."""
+    import math
+
+    example = _example("mnist/train_mnist_torch.py")
+    out = {}
+    for name, extra in (("streamed", []), ("in_memory", ["--in-memory"])):
+        path = os.path.join(work, "mnist_" + name)
+        os.makedirs(path)
+        _all_launch_counters(zero=True)
+        t0 = time.perf_counter()
+        res = example.main(["--path", path, "--epochs", "1"] + extra)
+        wall = time.perf_counter() - t0
+        launches = _all_launch_counters()
+        log("example (c) %s: train_mnist_torch.py %d steps in %.3f s (%.1f s of wall "
+            "time), losses %s; launches %s; %s" % (
+                name, res["steps"], res["seconds"], wall,
+                [round(v, 4) for v in res["losses"]], json.dumps(launches), smi))
+        check(res["steps"] == 2048 // 128 and all(math.isfinite(v) for v in res["losses"]),
+              "(c) %s: %d steps, losses %s" % (name, res["steps"], res["losses"]))
+        out[name] = {"launches": launches, "steps": res["steps"], "seconds": res["seconds"]}
+    return out
+
+
+def _example_pixels_run(reader, images, label, smi):
+    """Every row of ``reader`` (phase 4's rows) through the port's DataLoader on the
+    card: each id once, pixels per id ``images``' (phase 7's), labels ``id % 1000``,
+    the stage-2 kernels once a decoded batch, K2 never."""
+    import torch
+
+    from petastorm_tpu_torch.loader import DataLoader
+
+    counts = torch.zeros(ROWS, dtype=torch.int32, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    bad_labels = torch.zeros((), dtype=torch.int64, device="cuda")
+    batches = 0
+    _all_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    with _counting_decodes() as decoded:
+        with DataLoader(reader, BATCH, device="cuda", last_batch="partial") as loader:
+            for batch in loader:
+                ids = batch["id"]
+                counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                bad.add_((images.index_select(0, ids) != batch["image"]).sum())
+                bad_labels.add_((batch["label"].long() != ids % 1000).sum())
+                batches += 1
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counters()
+    log("example (d) %s: %d batches, %.1f rows/s (%.3f s); %d uint8 values and %d labels "
+        "apart from phase 7's and the originals; launches %s for %d batches decoded; %s"
+        % (label, batches, ROWS / wall, wall, bad.item(), bad_labels.item(),
+           json.dumps(launches), decoded["batches"], smi))
+    check(bool((counts == 1).all()), "(d) %s: ids delivered %s times, not once each"
+          % (label, sorted(set(counts.tolist()))))
+    check(bad.item() == 0 and bad_labels.item() == 0, "(d) %s: %d pixel values, %d "
+          "labels differ" % (label, bad.item(), bad_labels.item()))
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == decoded["batches"]
+          == batches and launches["K2"] == 0,
+          "(d) %s: launches %s for %d batches" % (label, launches, batches))
+    return {"launches": launches, "batches": batches, "rows_per_s": ROWS / wall}
+
+
+def phase_tools_compat(url, images, work, smi):
+    """(d) (comment above)."""
+    import pickle
+
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_batch_reader, make_reader, metadata
+    from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+    from petastorm_tpu_torch.tools.copy_dataset import copy_dataset
+    from petastorm_tpu_torch.tools.generate_metadata import generate_metadata
+
+    src = get_filesystem_and_path_or_paths(url)[1]
+    copy_url = "file://" + os.path.join(work, "copy")
+    t0 = time.perf_counter()
+    copied = copy_dataset(url, copy_url)
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generate_metadata(copy_url)
+    gen_s = time.perf_counter() - t0
+    pieces = metadata.load_row_groups(*get_filesystem_and_path_or_paths(copy_url))
+    log("example (d): copy_dataset %d rows in %.3f s into %d row groups; generate_metadata "
+        "%.3f s" % (copied, copy_s, len(pieces), gen_s))
+    check(copied == ROWS, "(d): copy_dataset copied %d rows" % copied)
+    out = {"copy_s": copy_s, "generate_s": gen_s}
+    out["copy"] = _example_pixels_run(
+        make_batch_reader(copy_url, decode_on_device=True, workers_count=_example_workers(),
+                          shuffle_row_groups=False), images, "copy", smi)
+    # phase 4's files under metadata keyed the reference petastorm's way only
+    ref_root = os.path.join(work, "reference")
+    os.makedirs(ref_root)
+    for name in sorted(os.listdir(src)):
+        if name.endswith(".parquet"):
+            os.link(os.path.join(src, name), os.path.join(ref_root, name))
+    fs, path = get_filesystem_and_path_or_paths("file://" + ref_root)
+    schema = metadata.get_schema(*get_filesystem_and_path_or_paths(url))
+    payload = pickle.dumps(schema, protocol=2)
+    for ours, theirs in ((b"petastorm_tpu_torch.unischema", b"petastorm.unischema"),
+                         (b"petastorm_tpu_torch.codecs", b"petastorm.codecs"),
+                         (b"petastorm_tpu_torch.types", b"pyspark.sql.types")):
+        payload = payload.replace(ours, theirs)
+    pq.write_metadata(schema.as_arrow_schema().with_metadata({
+        metadata.REFERENCE_SCHEMA_KEY: payload,
+        metadata.REFERENCE_ROW_GROUPS_KEY: pickle.dumps(
+            metadata._count_row_groups_per_file(fs, path), protocol=2)}),
+        os.path.join(ref_root, "_common_metadata"))
+    kv = pq.read_schema(os.path.join(ref_root, "_common_metadata")).metadata
+    check(set(kv) == {metadata.REFERENCE_SCHEMA_KEY, metadata.REFERENCE_ROW_GROUPS_KEY},
+          "(d): the reference store's keys are %s" % sorted(kv))
+    out["reference"] = _example_pixels_run(
+        make_reader("file://" + ref_root, decode_on_device=True,
+                    workers_count=_example_workers(), shuffle_row_groups=False),
+        images, "reference keys, make_reader", smi)
+    return out
+
+
 # -- no-cv2 fallback: a small baseline JPEG encoder (JPEG Annex K tables, 4:2:0) -------
 
 
@@ -7691,6 +7989,14 @@ def main():
         phase21_s = time.perf_counter() - t21
         log("the model zoo: phase 21 took %.1f s of wall time; %s" % (phase21_s, env["smi"]))
         check(phase21_s < 120.0, "phase 21 took %.1f s, over its 120 s" % phase21_s)
+        t22 = time.perf_counter()
+        log("phase 22: HDFS, Spark and TensorFlow are held on the CPU only "
+            "(tests/test_torch_hdfs.py, test_torch_spark.py, test_torch_tf.py): this "
+            "machine has no HDFS cluster, pyspark or tensorflow")
+        example_a = phase_example_imagenet(url, work, env["smi"])
+        example_c = phase_example_mnist(work, env["smi"])
+        example_d = phase_tools_compat(url, images, work, env["smi"])
+        phase22_s = time.perf_counter() - t22
         del images
 
         t0 = time.perf_counter()
@@ -7701,6 +8007,12 @@ def main():
             time.perf_counter() - t0))
         mixed_split = phase_stage2_layouts(mix_blobs, mix_sizes, torch.device("cuda"))
         mixed = phase_mixed_feed(mix_url, mix_blobs, mix_sizes)
+        t22 = time.perf_counter()
+        example_b = phase_example_vit(mix_url, env["smi"])
+        phase22_s += time.perf_counter() - t22
+        log("the examples, the tools and reference compatibility: phase 22 took %.1f s of "
+            "wall time; %s" % (phase22_s, env["smi"]))
+        check(phase22_s < 240.0, "phase 22 took %.1f s, over its 240 s" % phase22_s)
         shutil.rmtree(os.path.join(work, "mixed"), ignore_errors=True)
 
         t0 = time.perf_counter()
@@ -7913,6 +8225,16 @@ def main():
         out["batches"] = {part: r["batches"] for part, r in parts.items()}
         return out
 
+    def slice22_launches(key):
+        """{part: launches of ``key``} in phase 22 (every kernel's counter is read)."""
+        parts = {"a_imagenet_resnet50": example_a, "b_imagenet_vit_s16_mixed": example_b,
+                 "d_copy": example_d["copy"], "d_reference_keys": example_d["reference"]}
+        parts.update({"c_mnist_" + k: v for k, v in example_c.items()})
+        out = {part: r["launches"][key] for part, r in parts.items()}
+        out["batches"] = {part: r.get("batches", r.get("steps"))
+                          for part, r in parts.items()}
+        return out
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -7937,7 +8259,8 @@ def main():
          "slice18_launches": slice18_launches("stage2_planes"),
          "slice19_launches": slice19_launches("stage2_planes"),
          "slice20_launches": slice20_launches("stage2_planes"),
-         "slice21_launches": slice21_launches("stage2_planes")},
+         "slice21_launches": slice21_launches("stage2_planes"),
+         "slice22_launches": slice22_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -7959,7 +8282,8 @@ def main():
          "slice18_launches": slice18_launches("stage2_rgb"),
          "slice19_launches": slice19_launches("stage2_rgb"),
          "slice20_launches": slice20_launches("stage2_rgb"),
-         "slice21_launches": slice21_launches("stage2_rgb")},
+         "slice21_launches": slice21_launches("stage2_rgb"),
+         "slice22_launches": slice22_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -7974,7 +8298,8 @@ def main():
          "variants": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "library_ms")}
                       for k, v in up.items() if k not in ("ratio", "launches")},
          "main_path_launches": launches["unpack"],
-         "mixed_feed_launches": mixed["launches"]["unpack"]},
+         "mixed_feed_launches": mixed["launches"]["unpack"],
+         "slice22_launches": slice22_launches("unpack")},
         {"name": "idct_segments_f32 (K1; launches counted on its path, the per-image "
          "stage 2 decode_jpeg_device_stage; the batched path runs its product inside "
          "stage2_planes and launches it 0 times)", "route": "cuda",
@@ -7983,7 +8308,8 @@ def main():
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"], "main_path_launches": launches["K1"],
-         "mixed_feed_launches": mixed["launches"]["K1"]},
+         "mixed_feed_launches": mixed["launches"]["K1"],
+         "slice22_launches": slice22_launches("K1")},
         {"name": "normalize_u8 (K2)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/normalize.cu",
          "replaces": "petastorm_tpu/ops/image.py:24", "launches": launches["K2"],
@@ -8002,7 +8328,8 @@ def main():
          "slice18_launches": slice18_launches("K2"),
          "slice19_launches": slice19_launches("K2"),
          "slice20_launches": slice20_launches("K2"),
-         "slice21_launches": slice21_launches("K2")},
+         "slice21_launches": slice21_launches("K2"),
+         "slice22_launches": slice22_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -8065,6 +8392,7 @@ def main():
                                    "b_passthrough_batches": watch_tab["batches"]}
         row["slice19_launches"] = slice19_launches(key)
         row["slice20_launches"] = slice20_launches(key)
+        row["slice22_launches"] = slice22_launches(key)
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -8185,6 +8513,20 @@ def main():
             "not measured" if ma["busy_share"] is None else "%.4f" % ma["busy_share"],
             ma["peak_gb"], models["b"]["max_abs_err"] / models["b"]["max_logit"],
             mc["step_ms"], [round(v, 4) for v in md["losses"]], env["smi"]))
+    ea, eb = example_a, example_b
+    log("the examples (phase 22, %.1f s): train_imagenet_torch.py ResNet-50 at batch %d "
+        "%.1f img/s over its run, %s after step 2 (%d steps, %d batches decoded, %.1f s "
+        "of wall time); ViT-S/16 on the mixed store %.1f img/s, %s after step 2 (%d "
+        "layout groups in %d batches); train_mnist_torch.py streamed %.3f s, in memory "
+        "%.3f s; the tools' copy read at %.1f rows/s, the reference-keyed store at %.1f "
+        "rows/s; %s" % (
+            phase22_s, BATCH, ea["img_per_s"],
+            "-" if ea["steady_img_per_s"] is None else "%.1f" % ea["steady_img_per_s"],
+            EXAMPLE_STEPS, ea["batches"], ea["wall_s"], eb["img_per_s"],
+            "-" if eb["steady_img_per_s"] is None else "%.1f" % eb["steady_img_per_s"],
+            eb["groups"], eb["batches"], example_c["streamed"]["seconds"],
+            example_c["in_memory"]["seconds"], example_d["copy"]["rows_per_s"],
+            example_d["reference"]["rows_per_s"], env["smi"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

@@ -1,7 +1,6 @@
 """Framework adapters (port of ``petastorm_tpu.adapters``): the PyTorch loaders of
-:mod:`petastorm_tpu_torch.adapters.pytorch`, imported lazily. The TensorFlow bridges
-(``make_petastorm_dataset``, ``tf_tensors``) are not ported and raise naming their
-ROADMAP.md item."""
+:mod:`petastorm_tpu_torch.adapters.pytorch` and the TensorFlow dataset bridges of
+:mod:`petastorm_tpu_torch.adapters.tf`, imported lazily (tensorflow is optional)."""
 
 
 def __getattr__(name):
@@ -11,11 +10,7 @@ def __getattr__(name):
 
         return getattr(pytorch, name)
     if name in ("make_petastorm_dataset", "tf_tensors"):
-        from petastorm_tpu_torch._unported import not_ported
+        from petastorm_tpu_torch.adapters import tf
 
-        def unported(*args, **kwargs):
-            raise not_ported("petastorm_tpu_torch.adapters.%s" % name, "tf")
-
-        unported.__name__ = name
-        return unported
+        return getattr(tf, name)
     raise AttributeError("module 'petastorm_tpu_torch.adapters' has no attribute %r" % name)

@@ -4,7 +4,10 @@ Port of ``petastorm_tpu.codecs``. The storage half (``encode``/``decode``) is ho
 and cv2, byte-for-byte what the JAX package writes and reads. The device half of
 ``CompressedImageCodec`` (``device_decode_batch``) finishes the two-stage JPEG decode
 with torch on the loader's device: dequantise, IDCT (CUDA kernel K1), range limit,
-upsample and colour (:mod:`petastorm_tpu_torch.ops.jpeg`).
+upsample and colour (:mod:`petastorm_tpu_torch.ops.jpeg`). ``spark_dtype`` gives each
+codec's pyspark storage type for the Spark write path (pyspark imported when called), and
+``__setstate__`` takes the reference petastorm's pickled codec state
+(:mod:`petastorm_tpu_torch.compat.reference`).
 """
 from __future__ import annotations
 
@@ -35,6 +38,10 @@ class DataframeColumnCodec:
         """pyarrow storage type for this codec's column."""
         raise NotImplementedError
 
+    def spark_dtype(self):
+        """pyspark storage type (requires pyspark; only needed on the Spark write path)."""
+        raise NotImplementedError
+
     def __eq__(self, other):
         return type(self) is type(other) and self.__dict__ == other.__dict__
 
@@ -43,12 +50,14 @@ class DataframeColumnCodec:
 
 
 class ScalarCodec(DataframeColumnCodec):
-    """Stores a scalar in a typed Parquet column (reference: petastorm/codecs.py ~L60)."""
+    """Stores a scalar in a typed Parquet column (reference: petastorm/codecs.py ~L60).
+
+    Takes a :mod:`petastorm_tpu_torch.types` tag or a ``pyspark.sql.types`` instance,
+    which is converted to the equivalent tag."""
 
     def __init__(self, scalar_type):
         if not isinstance(scalar_type, ptypes.ScalarType):
-            raise ValueError("ScalarCodec takes a petastorm_tpu_torch.types tag, got %r"
-                             % (scalar_type,))
+            scalar_type = _tag_from_spark_type(scalar_type)
         self._scalar_type = scalar_type
 
     @property
@@ -99,6 +108,19 @@ class ScalarCodec(DataframeColumnCodec):
     def arrow_dtype(self, unischema_field=None):
         return self._scalar_type.arrow_type()
 
+    def spark_dtype(self):
+        return self._scalar_type.spark_type()
+
+    def __setstate__(self, state):
+        # the reference's ScalarCodec pickles as {'_spark_type': <pyspark type>}, which
+        # the compat unpickler has already mapped onto a tag
+        if "_spark_type" in state and "_scalar_type" not in state:
+            spark_type = state["_spark_type"]
+            self._scalar_type = spark_type if isinstance(spark_type, ptypes.ScalarType) \
+                else _tag_from_spark_type(spark_type)
+        else:
+            self.__dict__.update(state)
+
     def __repr__(self):
         return "ScalarCodec(%r)" % (self._scalar_type,)
 
@@ -137,6 +159,11 @@ class NdarrayCodec(DataframeColumnCodec):
 
         return pa.binary()
 
+    def spark_dtype(self):
+        import pyspark.sql.types as T
+
+        return T.BinaryType()
+
 
 class CompressedNdarrayCodec(DataframeColumnCodec):
     """npy bytes + zlib (reference: petastorm/codecs.py ~L170)."""
@@ -152,6 +179,11 @@ class CompressedNdarrayCodec(DataframeColumnCodec):
         import pyarrow as pa
 
         return pa.binary()
+
+    def spark_dtype(self):
+        import pyspark.sql.types as T
+
+        return T.BinaryType()
 
 
 #: Rows of device-decoded image columns that stage 1 could not take (lossless,
@@ -357,6 +389,20 @@ class CompressedImageCodec(DataframeColumnCodec):
 
         return pa.binary()
 
+    def spark_dtype(self):
+        import pyspark.sql.types as T
+
+        return T.BinaryType()
+
+    def __setstate__(self, state):
+        # the reference's CompressedImageCodec keeps cv2's extension ('.png', '.jpeg')
+        codec = state.get("_image_codec", "png").lstrip(".")
+        codec = "jpeg" if codec == "jpg" else codec
+        if codec not in ("png", "jpeg"):
+            raise ValueError("Unsupported image codec %r in pickled state" % codec)
+        self._image_codec = codec
+        self._quality = int(state.get("_quality", 80))
+
     def __repr__(self):
         return "CompressedImageCodec(%r, quality=%d)" % (self._image_codec, self._quality)
 
@@ -376,3 +422,16 @@ def _check_shape(unischema_field, value):
                 "Field %r declares shape %r, got %r"
                 % (unischema_field.name, shape, value.shape)
             )
+
+
+def _tag_from_spark_type(spark_type):
+    """The :mod:`petastorm_tpu_torch.types` tag of a ``pyspark.sql.types`` instance
+    (matched by class name: pyspark need not be installed)."""
+    name = type(spark_type).__name__
+    if name == "DecimalType":
+        return ptypes.DecimalType(spark_type.precision, spark_type.scale)
+    tag_cls = getattr(ptypes, name, None)
+    if tag_cls is None or not isinstance(tag_cls, type) \
+            or not issubclass(tag_cls, ptypes.ScalarType):
+        raise ValueError("Unsupported scalar type %r" % (spark_type,))
+    return tag_cls()

@@ -1,9 +1,11 @@
 """URL → (pyarrow FileSystem, path) resolution.
 
 Port of ``petastorm_tpu.fs.get_filesystem_and_path_or_paths``: ``file://`` and bare
-paths, ``s3://`` and ``gs://`` through ``pyarrow.fs``, a user-supplied ``filesystem``,
-and an fsspec bridge for other schemes. HDFS (with its namenode failover client) is
-not ported yet.
+paths, ``s3://`` and ``gs://`` through ``pyarrow.fs``, ``hdfs://`` through
+:func:`petastorm_tpu_torch.hdfs.connect_hdfs` (a nameservice authority resolves through
+the Hadoop config to the namenode failover client; ``hdfs:///path`` maps to
+``fs.defaultFS``; an explicit ``host:port`` is a plain libhdfs connection), a
+user-supplied ``filesystem``, and an fsspec bridge for other schemes.
 """
 from __future__ import annotations
 
@@ -56,9 +58,11 @@ def _resolve(parsed, urls, storage_options):
         fs = pafs.GcsFileSystem(**storage_options)
         return fs, [(p.netloc + p.path).rstrip("/") for p in parsed]
     if scheme == "hdfs":
-        from petastorm_tpu_torch._unported import not_ported
+        from petastorm_tpu_torch.hdfs import connect_hdfs
 
-        raise not_ported("hdfs:// datasets", "compat")
+        fs = connect_hdfs(parsed[0].hostname, parsed[0].port,
+                          storage_options=storage_options)
+        return fs, [p.path for p in parsed]
     try:
         import fsspec
 

@@ -1,12 +1,15 @@
 """Dataset metadata: write datasets, persist/recover schemas, enumerate row groups.
 
 Port of ``petastorm_tpu.metadata`` (``RowWriter``, ``write_dataset``, ``get_schema``,
-``infer_or_load_unischema``, ``load_row_groups``, ``aggregate_column_stats``). It reads and
-writes the SAME key-value keys (``PTPU_SCHEMA_KEY``, ``PTPU_ROW_GROUPS_KEY``) as the JAX
-package, so a store written by either package reads in the other. Hive ``key=value``
-directories are parsed into each piece's ``partition_values``
-(:mod:`petastorm_tpu_torch.partitions`). Reading the reference petastorm's pickled schema
-key and Spark materialization are not ported.
+``infer_or_load_unischema``, ``load_row_groups``, ``aggregate_column_stats``,
+``materialize_dataset``). It reads and writes the SAME key-value keys
+(``PTPU_SCHEMA_KEY``, ``PTPU_ROW_GROUPS_KEY``) as the JAX package, so a store written by
+either package reads in the other. A store written by the reference petastorm carries a
+pickled unischema and pickled row-group counts under its own keys
+(``REFERENCE_SCHEMA_KEY``, ``REFERENCE_ROW_GROUPS_KEY``); they are read after the JSON
+keys, through :mod:`petastorm_tpu_torch.compat.reference`, so such a store opens without
+petastorm or pyspark installed. Hive ``key=value`` directories are parsed into each
+piece's ``partition_values`` (:mod:`petastorm_tpu_torch.partitions`).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import json
 import logging
 import posixpath
 from collections import namedtuple
+from contextlib import contextmanager
 
 from petastorm_tpu_torch.errors import MetadataError
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
@@ -23,6 +27,9 @@ logger = logging.getLogger(__name__)
 # Key-value keys (JSON payloads); the same bytes as the JAX package's
 PTPU_SCHEMA_KEY = b"petastorm_tpu.unischema.json.v1"
 PTPU_ROW_GROUPS_KEY = b"petastorm_tpu.num_row_groups_per_file.json.v1"
+# The reference petastorm's keys (pickled payloads; read only)
+REFERENCE_SCHEMA_KEY = b"dataset-toolkit.unischema.v1"
+REFERENCE_ROW_GROUPS_KEY = b"dataset-toolkit.num_row_groups_per_file.v1"
 
 _METADATA_FILES = ("_common_metadata", "_metadata")
 
@@ -148,6 +155,43 @@ def write_petastorm_tpu_metadata(fs, path, schema, row_groups_per_file):
         pq.write_metadata(tagged, sink)
 
 
+@contextmanager
+def materialize_dataset(spark, dataset_url, schema, row_group_size_mb=32,
+                        filesystem_factory=None):
+    """Spark materialization context manager (the reference's name and shape).
+
+    Sets the Hadoop configuration's ``parquet.block.size`` to ``row_group_size_mb`` for
+    the executors' writes inside the block and restores it after; then counts the row
+    groups of every written file and writes ``_common_metadata`` with the schema. Takes
+    a pyspark ``SparkSession`` (or any object with its ``sparkContext._jsc`` Hadoop
+    configuration protocol). ``filesystem_factory`` is accepted for the reference's
+    signature; the URL resolves the filesystem."""
+    hadoop_conf = spark.sparkContext._jsc.hadoopConfiguration()
+    key = "parquet.block.size"
+    saved = hadoop_conf.get(key)
+    hadoop_conf.setInt(key, int(row_group_size_mb) << 20)
+    try:
+        yield
+    finally:
+        if saved is None:
+            hadoop_conf.unset(key)
+        else:
+            hadoop_conf.set(key, saved)
+    fs, path = get_filesystem_and_path_or_paths(dataset_url)
+    write_petastorm_tpu_metadata(fs, path, schema, _count_row_groups_per_file(fs, path))
+
+
+def _count_row_groups_per_file(fs, path):
+    """``{file path relative to path: row groups}`` from each file's footer."""
+    import pyarrow.parquet as pq
+
+    counts = {}
+    for full in _list_parquet_files(fs, path):
+        with fs.open_input_file(full) as f:
+            counts[posixpath.relpath(full, path)] = pq.ParquetFile(f).metadata.num_row_groups
+    return counts
+
+
 # --------------------------------------------------------------------------------------
 # Read side
 # --------------------------------------------------------------------------------------
@@ -216,7 +260,8 @@ def _read_kv_metadata(fs, path):
 
 
 def get_schema(fs, path):
-    """Recover the Unischema stored with a dataset (the JSON key)."""
+    """Recover the Unischema stored with a dataset: the JSON key, else the reference
+    petastorm's pickled one."""
     kv = _read_kv_metadata(fs, path)
     if kv is None:
         raise MetadataError(
@@ -227,9 +272,13 @@ def get_schema(fs, path):
         from petastorm_tpu_torch.unischema import Unischema
 
         return Unischema.from_json(kv[PTPU_SCHEMA_KEY].decode("utf-8"))
+    if REFERENCE_SCHEMA_KEY in kv:
+        from petastorm_tpu_torch.compat.reference import loads_reference_pickle
+
+        return loads_reference_pickle(kv[REFERENCE_SCHEMA_KEY])
     raise MetadataError(
-        "Dataset at %r has parquet metadata but no unischema key; use make_batch_reader"
-        % path
+        "Dataset at %r has parquet metadata but no unischema key; use make_batch_reader "
+        "or regenerate metadata (petastorm-tpu-torch-generate-metadata)." % path
     )
 
 
@@ -258,21 +307,27 @@ def infer_or_load_unischema(fs, path):
         return Unischema.from_arrow_schema(arrow_schema)
 
 
-def load_row_groups(fs, path):
+def load_row_groups(fs, path, validate=False):
     """Enumerate :class:`RowGroupPiece` work units for a dataset.
 
-    Fast path: per-file row-group counts from KV metadata (no footer scans; ``num_rows``
-    is then -1 and ``stats`` None). Fallback: read each footer through the process-wide
-    footer cache (:mod:`~petastorm_tpu_torch.io.footercache`), which also gives each
-    piece its row count and min/max/null-count statistics. Either way a piece under hive
-    ``key=value`` directories carries its raw partition values."""
+    Fast path: per-file row-group counts from KV metadata, the JSON key or the reference
+    petastorm's pickled one (no footer scans; ``num_rows`` is then -1 and ``stats``
+    None). Fallback, and always with ``validate=True``: read each footer through the
+    process-wide footer cache (:mod:`~petastorm_tpu_torch.io.footercache`), which also
+    gives each piece its row count and min/max/null-count statistics. Either way a piece
+    under hive ``key=value`` directories carries its raw partition values."""
     from petastorm_tpu_torch.partitions import partition_values_for_path
 
     kv = _read_kv_metadata(fs, path)
     counts = None
-    if kv is not None and PTPU_ROW_GROUPS_KEY in kv:
-        counts = json.loads(kv[PTPU_ROW_GROUPS_KEY].decode("utf-8"))
-    if counts is not None:
+    if kv is not None:
+        if PTPU_ROW_GROUPS_KEY in kv:
+            counts = json.loads(kv[PTPU_ROW_GROUPS_KEY].decode("utf-8"))
+        elif REFERENCE_ROW_GROUPS_KEY in kv:
+            from petastorm_tpu_torch.compat.reference import loads_reference_pickle
+
+            counts = loads_reference_pickle(kv[REFERENCE_ROW_GROUPS_KEY])
+    if counts is not None and not validate:
         pieces = []
         for fname in sorted(counts):
             full = fname if posixpath.isabs(fname) else posixpath.join(path, fname)

@@ -8,7 +8,9 @@ and follows flax where torch's layer of the same name differs:
 - :class:`Conv` pads ``"SAME"`` as XLA does, the odd pixel after (a 3x3 stride-2 conv on
   an even input pads (0, 1), where ``Conv2d(padding=1)`` pads (1, 1));
 - :class:`BatchNorm` keeps flax's running averages: momentum 0.9 on the old value and
-  the *biased* batch variance (torch's ``BatchNorm2d`` takes the unbiased one);
+  the *biased* batch variance (torch's ``BatchNorm2d`` takes the unbiased one); under
+  data parallelism (:func:`sync_batch_norm`) its statistics are those of the global
+  batch, as a jitted flax step over a sharded batch computes them;
 - :class:`LayerNorm` defaults to ``epsilon=1e-6`` (torch: 1e-5) and computes in float32;
 - kernels start from flax's ``lecun_normal`` (a normal truncated at two standard
   deviations, variance 1/fan_in), biases from zeros.
@@ -127,12 +129,17 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.epsilon = epsilon
         self.compute_dtype = dtype
+        #: the ranks whose batches make one batch (:func:`sync_batch_norm`); None: this
+        #: rank's batch alone
+        self.process_group = None
 
     def forward(self, x):
         x = x.to(self.compute_dtype)
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False,
                                 0.0, self.epsilon)
+        if self.process_group is not None:
+            return self._global_batch_norm(x)
         # torch's running update takes the unbiased variance: with momentum 1 it leaves
         # the batch's mean and unbiased variance in scratch buffers, which update flax's
         # averages here (torch picks the kernels: on channels_last, its native ones)
@@ -145,6 +152,39 @@ class BatchNorm(nn.Module):
             self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.var.mul_(self.momentum).add_(var, alpha=(1 - self.momentum) * biased)
         return y
+
+    def _global_batch_norm(self, x):
+        """Training over the batch of every rank of ``process_group``, in float32 and in
+        two passes (the mean, then the squared deviations from it), each an all-reduce
+        that autograd reduces again backward: with ``DistributedDataParallel``'s mean of
+        the ranks' gradients, the step's gradient is the global batch's."""
+        from torch.distributed.nn.functional import all_reduce
+
+        shape = (1, -1, 1, 1)
+        xf = x.float()
+        count = xf.new_full((1,), x.numel() // x.shape[1])
+        sums = all_reduce(torch.cat([xf.sum((0, 2, 3)), count]), group=self.process_group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        dev = xf - mean.view(shape)
+        var = all_reduce((dev * dev).sum((0, 2, 3)), group=self.process_group) / n
+        y = dev * torch.rsqrt(var + self.epsilon).view(shape) * self.scale.view(shape) \
+            + self.bias.view(shape)
+        with torch.no_grad():
+            self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        return y.to(self.compute_dtype)
+
+
+def sync_batch_norm(module, process_group):
+    """Make every :class:`BatchNorm` in ``module`` normalise over the batch of all the
+    ranks of ``process_group`` (a data-parallel group, each rank holding its slice of
+    the global batch), as ``SyncBatchNorm`` does; ``None`` restores per-rank
+    statistics. Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = process_group
+    return module
 
 
 class LayerNorm(nn.Module):

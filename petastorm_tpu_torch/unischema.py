@@ -4,7 +4,8 @@ Port of ``petastorm_tpu.unischema`` (``UnischemaField``, ``Unischema``, ``encode
 the JSON round trip). The JSON written under the dataset's key-value metadata is the
 same in both packages, so a store written by either reads in the other; the codec
 objects built from it are this package's own (:mod:`petastorm_tpu_torch.codecs`).
-The Spark veneer (``as_spark_schema``, ``dict_to_spark_row``) is not ported.
+The Spark veneer (``as_spark_schema``, ``dict_to_spark_row``) imports pyspark only when
+called, for the Spark write path (:func:`petastorm_tpu_torch.metadata.materialize_dataset`).
 """
 from __future__ import annotations
 
@@ -162,6 +163,23 @@ class Unischema:
             pa_fields.append(pa.field(f.name, typ, nullable=bool(f.nullable)))
         return pa.schema(pa_fields)
 
+    # -- spark interop (optional) -------------------------------------------------------
+
+    def as_spark_schema(self):
+        """The pyspark ``StructType`` of the stored columns (requires pyspark)."""
+        import pyspark.sql.types as T
+
+        sql_fields = []
+        for f in self._fields.values():
+            if f.codec is None:
+                from petastorm_tpu_torch.types import tag_for_numpy_dtype
+
+                spark_type = tag_for_numpy_dtype(f.numpy_dtype).spark_type()
+            else:
+                spark_type = f.codec.spark_dtype()
+            sql_fields.append(T.StructField(f.name, spark_type, bool(f.nullable)))
+        return T.StructType(sql_fields)
+
     @classmethod
     def from_arrow_schema(cls, arrow_schema_or_dataset, omit_unsupported_fields=True):
         """Infer a codec-less Unischema from an Arrow schema (make_batch_reader path).
@@ -259,6 +277,21 @@ def encode_row(schema, row_dict):
         else:
             encoded[name] = value
     return encoded
+
+
+def dict_to_spark_row(schema, row_dict):
+    """Encode a row and wrap it in a pyspark ``Row`` in the schema's field order
+    (requires pyspark; the reference's name)."""
+    from pyspark.sql import Row
+
+    encoded = encode_row(schema, row_dict)
+    # Row(**kwargs) sorts by key on old pyspark: build positionally to keep schema order
+    cls = Row(*schema.fields.keys())
+    return cls(*[_bytes_for_spark(encoded[name]) for name in schema.fields.keys()])
+
+
+def _bytes_for_spark(value):
+    return bytearray(value) if isinstance(value, bytes) else value
 
 
 def _numpy_to_arrow(field):

@@ -45,6 +45,9 @@ setup(
             "petastorm-tpu-bench=petastorm_tpu.benchmark.cli:main",
             "petastorm-tpu-lint=petastorm_tpu.analysis.cli:main",
             "petastorm-tpu-stats=petastorm_tpu.obs.stats_cli:main",
+            "petastorm-tpu-torch-generate-metadata="
+            "petastorm_tpu_torch.tools.generate_metadata:main",
+            "petastorm-tpu-torch-copy-dataset=petastorm_tpu_torch.tools.copy_dataset:main",
         ],
     },
 )

@@ -281,3 +281,63 @@ def gloo_sequence_rank(rank, world, port, cfg, out):
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
+
+
+def gloo_imagenet_example_rank(rank, world, port, cfg, out):
+    """One rank of the ImageNet example under a ``torchrun``-like environment
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): the
+    script joins the gloo group itself, reads its shard and trains through
+    ``DistributedDataParallel``, its model in float32 (the step comparison's precision;
+    the example computes in bfloat16). Writes JSON: the script's result and a float64
+    sum of every parameter and of every batch-norm buffer; and ``out + ".npz"``: each
+    step's local batch (``step<i>.image``, ``step<i>.label``) and the model's state
+    after it (``step<i>.<state_dict key>``)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    os.environ.update({"WORLD_SIZE": str(world), "RANK": str(rank),
+                       "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(port)})
+    spec = importlib.util.spec_from_file_location("train_imagenet_torch", cfg["script"])
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    models = []
+    build = example.build_model
+    make_step = example.make_train_step
+    record = {}
+
+    def keep(*args, **kwargs):
+        models.append(build(*args, **{**kwargs, "dtype": torch.float32}))
+        return models[-1]
+
+    def recording(net, learning_rate):
+        step = make_step(net, learning_rate)
+
+        def recorded(image, label):
+            loss = step(image, label)
+            i = len(record) // 3
+            record["step%d.image" % i] = image.numpy().copy()
+            record["step%d.label" % i] = label.numpy().copy()
+            record["step%d.state" % i] = {k: v.detach().numpy().copy()
+                                          for k, v in models[0].state_dict().items()}
+            return loss
+
+        return recorded
+
+    example.build_model = keep
+    example.make_train_step = recording
+    res = example.main(cfg["argv"])
+    flat = {}
+    for key, value in record.items():
+        if key.endswith(".state"):
+            flat.update({key[:-len("state")] + k: v for k, v in value.items()})
+        else:
+            flat[key] = value
+    np.savez(out + ".npz", **flat)
+    model = models[0]
+    res["param_sum"] = float(sum(p.detach().double().sum() for p in model.parameters()))
+    res["buffer_sum"] = float(sum(b.double().sum() for b in model.buffers()))
+    with open(out, "w") as f:
+        json.dump(res, f)

@@ -3,8 +3,8 @@
 torch already: on the same store and seed the port's loaders yield the same tensors
 (values and dtypes) and the same host columns, shuffled or not; per-row NGram windows
 collate alike; a view-wire reader's batches are copied out of their slabs; the refusals
-name the port's device DataLoader; the ``pytorch`` alias and the TensorFlow bridges that
-raise naming their ROADMAP.md item."""
+name the port's device DataLoader; the ``pytorch`` alias, and the TensorFlow bridges,
+which the package routes to ``adapters.tf``."""
 import decimal
 import os
 
@@ -203,16 +203,31 @@ def test_a_decode_on_device_reader_is_refused_naming_the_card_path(tmp_path):
                 cls(r)
 
 
-def test_the_pytorch_alias_and_the_unported_tf_bridges():
+def test_the_pytorch_alias_and_the_unported_tf_bridges(batch_store):
     from petastorm_tpu_torch import adapters as package
     from petastorm_tpu_torch import pytorch
 
     for name in ("DataLoader", "BatchedDataLoader", "InMemBatchedDataLoader",
                  "decimal_friendly_collate"):
         assert getattr(pytorch, name) is getattr(adapters, name) is getattr(package, name)
+    # the TensorFlow bridges are ported: both build a dataset over a port reader
+    from petastorm_tpu_torch.adapters import tf as tf_adapter
+
     for name in ("make_petastorm_dataset", "tf_tensors"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
-            getattr(package, name)(None)
+        assert getattr(package, name) is getattr(tf_adapter, name)
+    try:
+        import tensorflow  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="tensorflow"):
+            package.make_petastorm_dataset(None)
+    else:
+        with make_batch_reader(batch_store, **_kw()) as r:
+            got = [int(i) for b in package.make_petastorm_dataset(r)
+                   for i in b["id"].numpy()]
+        assert got == list(range(96))
+        with make_batch_reader(batch_store, **_kw()) as r:
+            first = package.tf_tensors(r)()
+        assert [int(i) for i in first["id"].numpy()] == list(range(12))
     with pytest.raises(AttributeError):
         package.nothing_here
 

@@ -1,7 +1,8 @@
-"""The port stands alone: petastorm_tpu_torch (and chip_smoke.py) import neither jax nor
-any petastorm_tpu module, import loads no kernel, and the entry points refuse to fall
+"""The port stands alone: petastorm_tpu_torch (and chip_smoke.py and the torch examples)
+import neither jax nor any petastorm_tpu module, import loads no kernel, and the entry points refuse to fall
 back to the CPU when no device was asked for."""
 import ast
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -47,7 +48,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "service.client", "service.telemetry", "models", "models.layers",
                  "models.weights", "models.resnet", "models.mnist", "models.vit",
                  "models.transformer", "parallel.collectives", "parallel.attention",
-                 "parallel.pipeline"):
+                 "parallel.pipeline", "compat", "compat.reference", "hdfs", "tools",
+                 "tools.copy_dataset", "tools.generate_metadata", "adapters.tf",
+                 "tf_utils", "spark", "spark.spark_dataset_converter", "spark_utils"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -62,7 +65,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-@pytest.mark.parametrize("path", ["petastorm_tpu_torch", "chip_smoke.py", "chip_profile.py"])
+@pytest.mark.parametrize("path", ["petastorm_tpu_torch", "chip_smoke.py", "chip_profile.py",
+                                  "examples/torch"])
 def test_no_jax_or_reference_import_in_source(path):
     full = os.path.join(ROOT, path)
     files = [full] if full.endswith(".py") else [
@@ -146,9 +150,7 @@ def test_unported_loader_options_raise_naming_the_roadmap(kwargs):
     if "controller" in kwargs or "tenant" in kwargs:
         _assert_controller_and_tenant_are_taken(kwargs)
         return
-    from petastorm_tpu_torch._unported import OPTIONS
-
-    assert "sharding" not in OPTIONS
+    assert "sharding" in inspect.signature(DataLoader).parameters
     with pytest.raises(ValueError, match="NamedSharding"):
         DataLoader(object(), 4, device="cpu", **kwargs)
 
@@ -314,13 +316,14 @@ def test_item_6_options_are_taken(tmp_path, name):
     (``rowgroup_selector`` is make_reader's only) and selects rows; none is listed as
     unported any more."""
     from petastorm_tpu_torch import make_batch_reader, make_reader
-    from petastorm_tpu_torch._unported import OPTIONS
+    from petastorm_tpu_torch.loader import DataLoader
 
-    assert name not in OPTIONS and "pad_shapes" not in OPTIONS
+    assert "pad_shapes" in inspect.signature(DataLoader).parameters
     url = _selection_store(tmp_path)
     factories = [make_reader] if name == "rowgroup_selector" \
         else [make_reader, make_batch_reader]
     for factory in factories:
+        assert name in inspect.signature(factory).parameters
         with factory(url, reader_pool_type="dummy", **{name: _item_6_value(name)}) as r:
             got = sorted(int(i) for x in r for i in np.atleast_1d(x.id))
         if name == "shuffle_row_drop_partitions":
