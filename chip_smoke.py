@@ -313,6 +313,13 @@ Phases (each passes or the script exits non-zero, printing no result line):
    ``tools.copy_dataset`` and ``generate_metadata`` on phase 4's store, the copy read on
    the card, and phase 4's files under the reference petastorm's pickled keys read
    through ``make_reader``: pixels per id phase 7's.
+23. The analyzer (the comment block above ``phase_analyzer``): (a) the port's graftlint
+   (``petastorm_tpu_torch.analysis``) over the port's package, tests and examples with no
+   baseline: exit 0 within 15 s; (b) the capture rules' premises on the card: GL-J001
+   (``.item()``) and GL-J002 (a branch on a tensor) each reported by the analyzer and
+   each raising in a real ``torch.cuda.graph`` capture, GL-J003's host code running
+   once at capture and never on replay, and a ``torch.where`` form clean and bit-exact
+   on replay. At most 60 s.
 
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
@@ -327,6 +334,7 @@ phase 22's parts, every kernel's counter read), the card's
 """
 import collections
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -7900,6 +7908,217 @@ class BaselineJpegEncoder:
                 + seg(0xC4, dht) + seg(0xDA, sos))
 
 
+# -- phase 23: the analyzer ----------------------------------------------------------------
+#
+# The port's graftlint on the card's machine, and the premises of its capture rules
+# (GL-J001-J003 over CUDA graph captures) checked against real captures.
+#
+# (a) ``petastorm_tpu_torch.analysis.cli.main`` over the paths
+#     ``tests/test_torch_lint_clean.py`` lints (the package, the port's tests and
+#     helpers, ``examples/torch``) with ``--no-baseline --format json``: exit 0, no
+#     finding, within ANALYZER_BUDGET_S; the suppressed count and the seconds printed.
+# (b) Four small modules written as source text, each with one body placed twice: in
+#     ``eager(x)`` (the side-stream warm-up and the reference) and in ``capture(g, x)``
+#     inside ``with torch.cuda.graph(g):``. The port's ``analyze_source`` must report
+#     exactly the expected rule at the capture's marked line (nothing in ``eager``, which
+#     is no region), and nothing for the clean form. Then each is exec'd and captured:
+#     GL-J001 (``.item()``) and GL-J002 (``if y.sum() > 0:``) must raise during the
+#     capture, each in a process of its own (a failed capture can leave the CUDA context
+#     unusable); GL-J003's host counter moves once during the capture and stays still
+#     over CAPTURE_REPLAYS replays; the clean form (``torch.where``) replays bit for bit
+#     equal to ``eager`` on each replay's input. The phase fails past PHASE23_BUDGET_S.
+
+ANALYZER_BUDGET_S = 15.0        # the self-lint budget of the JAX package's analyzer
+PHASE23_BUDGET_S = 60.0
+CAPTURE_ELEMS = 1 << 20
+CAPTURE_REPLAYS = 3
+CAPTURE_BODIES = {
+    "GL-J001": ["y = x * 2.0",
+                "s = y.sum().item()  # HAZARD",
+                "y = y + s"],
+    "GL-J002": ["y = x * 2.0",
+                "if y.sum() > 0:  # HAZARD",
+                "    y = y + 1.0"],
+    "GL-J003": ["y = x * 2.0",
+                'print("host I/O during the capture", file=sys.stderr)  # HAZARD',
+                "HOST_CALLS[0] += 1"],
+    "clean": ["y = x * 2.0",
+              "y = torch.where(y.sum() > 0, y + 1.0, y - 1.0)"],
+}
+
+
+def capture_source(name):
+    """Module text for one of :data:`CAPTURE_BODIES`: the body in ``eager(x)`` and in
+    the ``torch.cuda.graph`` block of ``capture(g, x)``."""
+    body = CAPTURE_BODIES[name]
+    return ("import sys\n\nimport torch\n\nHOST_CALLS = [0]\n\n\n"
+            "def eager(x):\n" + "".join("    %s\n" % ln for ln in body) + "    return y\n"
+            "\n\ndef capture(g, x):\n    with torch.cuda.graph(g):\n"
+            + "".join("        %s\n" % ln for ln in body) + "    return y\n")
+
+
+def _warm_up(ns, x):
+    """The usual warm-up before a capture: three calls of ``eager`` on a side stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            ns["eager"](x)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+
+
+def _capture_input(seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(CAPTURE_ELEMS, device="cuda", generator=gen)
+
+
+def capture_child_main(name):
+    """One capture that must fail, in its own process: prints one JSON line."""
+    import torch
+
+    ns = {}
+    exec(compile(capture_source(name), "<%s>" % name, "exec"), ns)
+    x = _capture_input(23)
+    _warm_up(ns, x)  # outside the try: a warm-up failure is no capture's outcome
+    out = {"name": name, "raised": False, "error": None}
+    try:
+        ns["capture"](torch.cuda.CUDAGraph(), x)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 — the outcome under test, reported to the parent
+        out["raised"] = True
+        # the graph's exit raises over the error the body raised: report the body's first
+        chain = [e]
+        while chain[-1].__context__ is not None and len(chain) < 8:
+            chain.append(chain[-1].__context__)
+        out["error"] = " <- ".join(
+            "%s: %s" % (type(x).__name__, str(x).strip().splitlines()[0] if str(x).strip()
+                        else "") for x in reversed(chain))
+    print(json.dumps(out), flush=True)
+    os._exit(0)  # a failed capture may leave the context unusable: skip its teardown
+
+
+def phase_analyzer(smi):
+    import io
+    import torch
+
+    from petastorm_tpu_torch.analysis import analyze_source
+    from petastorm_tpu_torch.analysis.cli import main as lint_main
+
+    t_phase = time.perf_counter()
+    children = {name: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--capture-child", name],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for name in ("GL-J001", "GL-J002")}
+    try:
+        # (a) the self-lint
+        paths = (["petastorm_tpu_torch"]
+                 + sorted(glob.glob(os.path.join("tests", "test_torch_*.py")))
+                 + sorted(glob.glob(os.path.join("tests", "_torch_*.py")))
+                 + [os.path.join("examples", "torch")])
+        out = io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(ROOT)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = lint_main(paths + ["--no-baseline", "--format", "json"])
+            lint_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        report = json.loads(out.getvalue())
+        log("phase 23 (a): petastorm-tpu-torch-lint over %d paths: exit %d, %d findings, "
+            "%d suppressed inline, %.3f s; %s" % (
+                len(paths), rc, len(report["findings"]), report["suppressed_inline"],
+                lint_s, smi))
+        for f in report["findings"]:
+            log("  %s:%d:%d %s %s" % (f["path"], f["line"], f["col"], f["rule"],
+                                      f["message"]))
+        check(rc == 0 and not report["findings"], "phase 23 (a): the port does not lint "
+              "clean under its own analyzer (exit %d)" % rc)
+        check(lint_s < ANALYZER_BUDGET_S, "phase 23 (a): the self-lint took %.3f s, over "
+              "its %.0f s" % (lint_s, ANALYZER_BUDGET_S))
+
+        # (b1) the rules on the four sources
+        for name in CAPTURE_BODIES:
+            src = capture_source(name)
+            findings, _ = analyze_source(src, path="<%s>" % name)
+            marked = [i for i, ln in enumerate(src.splitlines(), start=1) if "HAZARD" in ln]
+            want = [] if name == "clean" else [(name, marked[-1])]
+            got = [(f.rule_id, f.line) for f in findings]
+            log("phase 23 (b): %s: analyze_source reports %s" % (name, got or "nothing"))
+            check(got == want, "phase 23 (b): %s: the analyzer reported %s, expected %s"
+                  % (name, got, want))
+
+        # (b2) the clean form and GL-J003 captured here
+        ns = {}
+        exec(compile(capture_source("clean"), "<clean>", "exec"), ns)
+        x = _capture_input(0)
+        _warm_up(ns, x)
+        g = torch.cuda.CUDAGraph()
+        y = ns["capture"](g, x)
+        for i in range(CAPTURE_REPLAYS):
+            x.copy_(_capture_input(1 + i))
+            g.replay()
+            ref = ns["eager"](x)
+            torch.cuda.synchronize()
+            check(torch.equal(y, ref), "phase 23 (b): the clean capture's replay %d differs "
+                  "from eager (max abs %.3e)" % (i, (y - ref).abs().max().item()))
+        log("phase 23 (b): clean: %d replays bit-equal to eager on %d float32 elements"
+            % (CAPTURE_REPLAYS, CAPTURE_ELEMS))
+        ns = {}
+        exec(compile(capture_source("GL-J003"), "<GL-J003>", "exec"), ns)
+        x = _capture_input(0)
+        _warm_up(ns, x)
+        before = ns["HOST_CALLS"][0]
+        g = torch.cuda.CUDAGraph()
+        ns["capture"](g, x)
+        captured = ns["HOST_CALLS"][0]
+        for _ in range(CAPTURE_REPLAYS):
+            g.replay()
+        torch.cuda.synchronize()
+        replayed = ns["HOST_CALLS"][0]
+        log("phase 23 (b): GL-J003: host counter %d before the capture, %d after it, %d "
+            "after %d replays" % (before, captured, replayed, CAPTURE_REPLAYS))
+        check(captured == before + 1, "phase 23 (b): GL-J003's host code ran %d times "
+              "during the capture, not once" % (captured - before))
+        check(replayed == captured, "phase 23 (b): GL-J003's host code ran on replay")
+        del g, y, x, ns
+
+        # (b3) the captures that must fail
+        for name, proc in children.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise PhaseFailed("phase 23 (b): %s's capture process timed out" % name)
+            lines = stdout.strip().splitlines()
+            check(lines, "phase 23 (b): %s's capture process printed nothing (exit %s): %s"
+                  % (name, proc.returncode, stderr.strip()[-2000:]))
+            res = json.loads(lines[-1])
+            log("phase 23 (b): %s: the capture %s%s" % (
+                name, "raised " if res["raised"] else "did not raise",
+                res["error"] or ""))
+            check(res["raised"], "phase 23 (b): %s's capture did not raise" % name)
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    phase_s = time.perf_counter() - t_phase
+    log("the analyzer: phase 23 took %.1f s of wall time (the self-lint %.3f s); %s"
+        % (phase_s, lint_s, smi))
+    check(phase_s <= PHASE23_BUDGET_S, "phase 23 took %.1f s, over its %.0f s"
+          % (phase_s, PHASE23_BUDGET_S))
+    return {"lint_s": lint_s, "suppressed": report["suppressed_inline"],
+            "paths": len(paths), "phase_s": phase_s, "j003": [before, captured, replayed]}
+
+
 # -- main ------------------------------------------------------------------------------
 
 
@@ -8095,6 +8314,7 @@ def main():
               "180 s" % (phase19_s + phase20_s))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    analyzer = phase_analyzer(env["smi"])
     k1, k2, up, s2 = kernels["K1"], kernels["K2"]["bf16"], kernels["unpack"], kernels["stage2"]
     sel = s2["planes"]["selected"]
 
@@ -8527,6 +8747,11 @@ def main():
             eb["groups"], eb["batches"], example_c["streamed"]["seconds"],
             example_c["in_memory"]["seconds"], example_d["copy"]["rows_per_s"],
             example_d["reference"]["rows_per_s"], env["smi"]))
+    log("the analyzer (phase 23, %.1f s): the self-lint over %d paths %.3f s, 0 findings, "
+        "%d suppressed inline; GL-J001/J002 captures raised, GL-J003's host counter %s "
+        "(before the capture, after it, after %d replays); %s" % (
+            analyzer["phase_s"], analyzer["paths"], analyzer["lint_s"],
+            analyzer["suppressed"], analyzer["j003"], CAPTURE_REPLAYS, env["smi"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],
@@ -8536,6 +8761,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--svc-worker"]:
         svc_worker_main(*sys.argv[2:5])  # phase 20's decode worker processes
+        sys.exit(0)
+    if sys.argv[1:2] == ["--capture-child"]:
+        capture_child_main(sys.argv[2])  # phase 23's captures that must fail
         sys.exit(0)
     try:
         main()

@@ -484,6 +484,8 @@ class Controller:
         return max(0.0, delta) / ctx.window_s
 
     def _run_rules(self, ctx, t, idx, rate):
+        # caller MUST hold self._lock: evaluate(), its one caller, does (the analyzer
+        # cannot see cross-method lock ownership)
         decisions = []
         for rule in self._rules:
             if rule.knob not in self.knobs:
@@ -519,7 +521,7 @@ class Controller:
                 continue  # at a bound / quantized away: not an actuation
             if rule.guarded:
                 if self._experiment is None:
-                    self._experiment = {
+                    self._experiment = {  # graftlint: disable=GL-C001 (evaluate() holds self._lock)
                         "checkpoint": checkpoint,
                         "baseline": self._baseline_rate(),
                         "opened": idx,
@@ -532,7 +534,7 @@ class Controller:
                 # efficiency actuation (e.g. shrink-workers): rows/s should
                 # stay FLAT — watched by the safety guard, not the no-gain
                 # experiment (flat throughput is its success, not a failure)
-                self._efficiency.append({
+                self._efficiency.append({  # graftlint: disable=GL-C001 (evaluate() holds self._lock)
                     "knob": rule.knob, "revert_to": before,
                     "baseline": self._baseline_rate(), "applied": idx})
             cooldown = self._opts.cooldown_windows \
@@ -578,7 +580,8 @@ class Controller:
     def _no_gain_guard(self, t, idx, rate):
         """The revert-and-freeze clause: judge the open experiment on settled
         windows only; commit on ``min_gain`` improvement, revert + freeze
-        after ``max_steps_without_gain`` settled windows without it."""
+        after ``max_steps_without_gain`` settled windows without it. The caller
+        MUST hold self._lock: evaluate(), its one caller, does."""
         exp = self._experiment
         if exp is None or rate is None:
             return []
@@ -596,7 +599,7 @@ class Controller:
         # windows noisy — one good window is proof the knob moved the needle)
         exp["best"] = max(exp.get("best", 0.0), rate)
         if baseline <= 0 or exp["best"] >= baseline * (1.0 + self._opts.min_gain):
-            self._experiment = None  # improvement: commit
+            self._experiment = None  # graftlint: disable=GL-C001 (evaluate() holds self._lock) — improvement: commit
             return []
         exp["stale_windows"] += 1
         if exp["stale_windows"] < self._opts.max_steps_without_gain:
@@ -612,8 +615,8 @@ class Controller:
                         "pre-actuation baseline %.1f"
                         % (rate, round(100 * self._opts.min_gain), baseline),
                 rows_per_s=rate)))
-        self._frozen = True
-        self._experiment = None
+        self._frozen = True  # graftlint: disable=GL-C001 (evaluate() holds self._lock)
+        self._experiment = None  # graftlint: disable=GL-C001 (evaluate() holds self._lock)
         decisions.append(self._record(Decision(
             t=t, window=idx, cause="ctl_freeze", rule="no-gain-guard",
             knob=None,
@@ -627,7 +630,8 @@ class Controller:
         """Safety guard for unguarded (efficiency) actuations: if the
         objective DROPPED materially after the step, revert that knob (no
         freeze — the rule misjudged one window shape, it is not broken);
-        a settled flat window confirms the step and closes the watch."""
+        a settled flat window confirms the step and closes the watch. The caller
+        MUST hold self._lock: evaluate(), its one caller, does."""
         if not self._efficiency or rate is None:
             return []
         decisions = []
@@ -666,14 +670,14 @@ class Controller:
             if age < confirm_after:
                 keep.append(watch)  # settled flat so far: watch a bit longer
             # past the horizon: confirmed — flat throughput IS the success
-        self._efficiency = keep
+        self._efficiency = keep  # graftlint: disable=GL-C001 (evaluate() holds self._lock)
         return decisions
 
     # -- decision plumbing --------------------------------------------------------------
 
     def _record(self, decision):
         # caller MUST hold self._lock (evaluate's helpers run inside it)
-        self._decisions.append(decision)
+        self._decisions.append(decision)  # graftlint: disable=GL-C001 (callers hold self._lock)
         del self._decisions[:-self._opts.max_decisions]
         return decision
 

@@ -176,8 +176,8 @@ class Lease:
                 # count it: buffer return timed by the garbage collector is a caller bug
                 _bump("leaked")
                 self._reclaim()
-        except Exception:  # noqa: BLE001 — interpreter teardown
-            pass
+        except Exception:  # noqa: BLE001
+            pass  # graftlint: disable=GL-O002 (GC/exit path: metrics may be torn down)
 
     def __repr__(self):
         return "<Lease kind=%s refs=%d%s>" % (

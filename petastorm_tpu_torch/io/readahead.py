@@ -130,8 +130,8 @@ def _abandon_pool_threads(pool, cf_thread):
             if lock is not None and shutdown_locks is not None:
                 with threading._shutdown_locks_lock:
                     shutdown_locks.discard(lock)
-    except Exception:  # noqa: BLE001 — best-effort private-API detach at exit
-        pass
+    except Exception:  # noqa: BLE001
+        pass  # graftlint: disable=GL-O002 (best-effort private-API detach at interpreter exit)
 
 
 class _CancelledRead(Exception):
@@ -429,8 +429,8 @@ class ReadaheadPool:
             if entry.table is None and not over_count:
                 continue  # error entries free no bytes; only the cap drops them
             del self._entries[key]
-            self._held_bytes -= entry.nbytes
-            self._n_evictions += 1
+            self._held_bytes -= entry.nbytes  # graftlint: disable=GL-C001 (callers hold self._lock: apply_depth, apply_byte_budget, the read task)
+            self._n_evictions += 1  # graftlint: disable=GL-C001 (callers hold self._lock)
 
     # -- consumption --------------------------------------------------------------------
 

@@ -70,7 +70,7 @@ class TieredCache(CacheBase):
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._counts_lock = threading.Lock()
-        self._counts = {t: [0, 0] for t in TIERS}
+        self._counts = {t: [0, 0] for t in TIERS}  # graftlint: disable=GL-C001 (unpickling: no other thread sees the object yet, as in __init__)
 
     def _count(self, tier, value):
         n = payload_nbytes(value)

@@ -1889,8 +1889,8 @@ class DataLoader:
         self._producer_error_delivered = False
         try:
             self.reader.stop()
-        except Exception:  # noqa: BLE001 — the StallError itself is the signal
-            pass
+        except Exception:  # noqa: BLE001
+            pass  # graftlint: disable=GL-O002 (the StallError itself is the signal)
         self.stop()
 
     def _health_context(self):

@@ -231,8 +231,8 @@ def _close_quietly(pf):
     descriptor to the garbage collector."""
     try:
         pf.close(force=True)
-    except Exception:  # noqa: BLE001 — best-effort close of an evicted handle
-        pass
+    except Exception:  # noqa: BLE001
+        pass  # graftlint: disable=GL-O002 (best-effort close of an evicted handle)
 
 
 #: serializes the lazy per-process construction of the readahead pool (module level:

@@ -814,8 +814,8 @@ class DataService:
                 self._telemetry.drop_peer("worker", wname)
             try:
                 transport.send({"op": OP_STOP})
-            except Exception:  # noqa: BLE001 — a goodbye on a possibly dead link
-                pass
+            except Exception:  # noqa: BLE001
+                pass  # graftlint: disable=GL-O002 (best-effort goodbye on a possibly-dead link)
             transport.close()
             self._hub.drop_session(session)
             with self._cond:

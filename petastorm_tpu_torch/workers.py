@@ -177,17 +177,18 @@ class PullDispatcher:
             return bool(self._returned) or not self._exhausted or any(self._claims)
 
     def _fill(self, claim, target):
-        # the caller holds self._lock
+        # the caller MUST hold self._lock: its one call site, next(), does (the
+        # analyzer cannot see cross-method lock ownership)
         while len(claim) < target:
             if self._returned:
-                claim.append(self._returned.popleft())
+                claim.append(self._returned.popleft())  # graftlint: disable=GL-C001 (caller holds self._lock)
                 continue
             if self._exhausted:
                 break
             try:
                 claim.append(next(self._iter))
             except StopIteration:
-                self._exhausted = True
+                self._exhausted = True  # graftlint: disable=GL-C001 (caller holds self._lock)
 
     def stats(self):
         return {"steals": self.steals}
@@ -753,8 +754,8 @@ class ProcessExecutor:
         self._stop_event.clear()
         self.truncated = False
         self._worker = worker
-        self._t_start = time.perf_counter()
         with self._stats_lock:
+            self._t_start = time.perf_counter()
             self._pool_stats = {"children": self._workers_count, "spawn_s": None,
                                 "first_result_s": None, "items": 0, "child_work_s": 0.0,
                                 "child_first_work_s": 0.0, "child_serialize_s": 0.0,

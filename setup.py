@@ -48,6 +48,7 @@ setup(
             "petastorm-tpu-torch-generate-metadata="
             "petastorm_tpu_torch.tools.generate_metadata:main",
             "petastorm-tpu-torch-copy-dataset=petastorm_tpu_torch.tools.copy_dataset:main",
+            "petastorm-tpu-torch-lint=petastorm_tpu_torch.analysis.cli:main",
         ],
     },
 )

@@ -50,7 +50,14 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "models.transformer", "parallel.collectives", "parallel.attention",
                  "parallel.pipeline", "compat", "compat.reference", "hdfs", "tools",
                  "tools.copy_dataset", "tools.generate_metadata", "adapters.tf",
-                 "tf_utils", "spark", "spark.spark_dataset_converter", "spark_utils"):
+                 "tf_utils", "spark", "spark.spark_dataset_converter", "spark_utils",
+                 "analysis", "analysis.__main__", "analysis.baseline", "analysis.cli",
+                 "analysis.engine", "analysis.findings", "analysis.project",
+                 "analysis.rules", "analysis.rules._astutil", "analysis.rules.concurrency",
+                 "analysis.rules.hotpath", "analysis.rules.lifecycle",
+                 "analysis.rules.observability", "analysis.rules.project_concurrency",
+                 "analysis.rules.robustness", "analysis.rules.schema",
+                 "analysis.rules.tracing"):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
