@@ -320,6 +320,17 @@ Phases (each passes or the script exits non-zero, printing no result line):
    each raising in a real ``torch.cuda.graph`` capture, GL-J003's host code running
    once at capture and never on replay, and a ``torch.where`` form clean and bit-exact
    on replay. At most 60 s.
+24. The throughput tool and the acceptance harnesses (the comment block above
+   ``phase_throughput_tool``): (a) ``petastorm_tpu_torch.benchmark.cli`` over phase 4's
+   store (``--batch --loader --decode-on-device``, batch 256, 7 workers, ``--report
+   --trace``), then with ``--overlap-step-ms 70``: one ``stage2_planes`` and one
+   ``stage2_rgb`` launch a decoded batch, no K2, shipped/raw equal to phase 4's, the
+   trace parsing, the synthetic step's device ms and the device idle (CUDA events); (b)
+   ``decompress`` at its defaults: its bars, byte identity, one K3, scan and K4 launch a
+   batch; (c) the ``--smoke`` of ``copies``, ``tabular``, ``health``, ``wire`` and
+   ``shmcache`` on ``--device cuda`` (the other harnesses' smokes, ``chaos``'s among
+   them, are held on the CPU only). (a) runs after phase 22's main-path parts, (b) and (c) at the end; the
+   phase checks itself against 120 s.
 
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
@@ -329,7 +340,8 @@ in phase 9's, ``slice11_launches`` in phase 10's, ``slice12_launches`` in phase 
 ``slice17_launches`` in phase 16's, ``slice18_launches`` in phase 17's,
 ``slice19_launches`` in phase 18's, each rank apart, ``slice20_launches`` in phases 19
 and 20's, ``slice21_launches`` in phase 21's fed trainers, ``slice22_launches`` in
-phase 22's parts, every kernel's counter read), the card's
+phase 22's parts, ``slice24_launches`` in phase 24's, every kernel's counter read), the
+card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -8122,6 +8134,187 @@ def phase_analyzer(smi):
 # -- main ------------------------------------------------------------------------------
 
 
+# -- phase 24: the throughput tool and the acceptance harnesses --------------------------
+#
+# (a) The port's throughput tool, ``petastorm_tpu_torch.benchmark.cli.main``, over phase
+# 4's store as a user runs it: ``--batch --loader --decode-on-device --loader-batch-size
+# 256 --workers-count 7 --report --trace <file> --device cuda`` (the drain mode), then the
+# same with ``--overlap-step-ms 70`` (ResNet-50's measured step, phase 21 (a)): the
+# launch counters zeroed around each run, one stage2_planes and one stage2_rgb launch a
+# decoded batch (counted around the codec), no K2 (the tool's loader has no device
+# transform), the shipped/raw line equal to phase 4's ratio, the trace parsing with the
+# loader's spans, the step's device ms (CUDA events) and the device idle printed, the
+# idle the complement of the steps' device time over the window. (b)
+# ``decompress`` at its own defaults (60,000 rows, batches of 2,048, ``check`` on): its
+# acceptance bars pass, every delivered column byte for byte the classic twin's, one K3,
+# one scan and one K4 launch a batch with the counters zeroed around the run. (c) the
+# ``--smoke`` of ``copies``, ``tabular``, ``health``, ``wire`` and ``shmcache`` in that
+# order through ``cli.main`` with ``--device cuda`` (each harness's seconds printed;
+# ``wire`` with no ``shm_unavailable`` row). ``chaos``'s smoke (about 80 s here) does not
+# fit the phase's 120 s beside them: it is held on the CPU only
+# (tests/test_torch_bench_chaos*.py), as are the smokes of ``io``, ``remote``,
+# ``attribution``, ``slo``, ``autotune``, ``tenants`` and ``fleet``.
+
+TOOL_STEP_MS = 70.0
+TOOL_WORKERS = 7
+PHASE24_BUDGET_S = 120.0
+PHASE24_HARNESSES = ("copies", "tabular", "health", "wire", "shmcache")
+#: the harnesses whose smokes run on the CPU only (the comment above)
+PHASE24_HELD = ("io", "remote", "chaos", "attribution", "slo", "autotune", "tenants",
+                "fleet")
+
+
+def _captured(fn, *args):
+    """``(fn(*args), its standard output)``."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def _tool_run(url, extra, label, smi):
+    """One run of the throughput tool over phase 4's store, its launches counted."""
+    from petastorm_tpu_torch.benchmark import cli
+    from petastorm_tpu_torch.ops import jpeg
+
+    argv = [url, "--batch", "--loader", "--decode-on-device", "--loader-batch-size",
+            str(BATCH), "--workers-count", str(TOOL_WORKERS), "--device", "cuda"] + extra
+    _all_launch_counters(zero=True)  # also resets the transfer choice, as phase 4 did
+    t0 = time.perf_counter()
+    with _counting_decodes() as decoded:
+        _rc, out = _captured(cli.main, argv)
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counters()
+    transfer = jpeg.transfer_byte_counters()
+    lines = out.strip().splitlines()
+    result = [ln for ln in lines if " rows/s (" in ln]
+    check(len(result) == 1, "(a) %s: no result line in %r" % (label, out[-2000:]))
+    rate = float(result[0].split(" rows/s")[0])
+    shipped = [ln for ln in lines if ln.startswith("coefficient transfer:")]
+    check(len(shipped) == 1, "(a) %s: no shipped/raw line in %r" % (label, out[-2000:]))
+    log("(a) %s: %s; %s; %.1f s of wall time; launches %s for %d decoded batches of %d "
+        "layout groups; %s" % (label, result[0][:120], shipped[0], wall,
+                               json.dumps(launches), decoded["batches"],
+                               decoded["groups"], smi))
+    check(launches["stage2_planes"] == launches["stage2_rgb"] == decoded["groups"]
+          == decoded["batches"] > 0, "(a) %s: launches %s for %s" % (label, launches,
+                                                                   decoded))
+    check(launches["K2"] == launches["unpack"] == launches["K1"] == launches["K3"]
+          == launches["scan"] == launches["K4"] == 0,
+          "(a) %s: launches %s" % (label, launches))
+    return {"launches": launches, "batches": decoded["batches"], "rows_per_s": rate,
+            "out": out, "shipped_line": shipped[0], "wall_s": wall,
+            "ratio": transfer["shipped"] / max(1, transfer["raw"])}
+
+
+def phase_throughput_tool(url, work, main_ratio, smi):
+    """(a) (comment above)."""
+    import re
+
+    trace = os.path.join(work, "tool_trace.json")
+    drain = _tool_run(url, ["--report", "--trace", trace], "drain", smi)
+    printed = re.search(r"\(([0-9.]+) of raw shipped\)", drain["shipped_line"]).group(1)
+    log("(a) drain: shipped/raw %.4f (printed %s) against phase 4's %.4f; bottleneck "
+        "report: %s" % (drain["ratio"], printed, main_ratio,
+                        [ln.strip() for ln in drain["out"].splitlines()
+                         if ln.startswith("bottleneck:")]))
+    check(printed == "%.2f" % main_ratio,
+          "(a): the tool's shipped/raw %s is not phase 4's %.4f" % (printed, main_ratio))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"] for e in events if e.get("ph") == "X"}
+    check({"reader.next", "decode.dispatch", "wait.device_queue"} <= spans,
+          "(a): trace spans %s" % sorted(spans))
+    check(any(ln.startswith("bottleneck:") for ln in drain["out"].splitlines()),
+          "(a): no --report verdict")
+    overlap = _tool_run(url, ["--overlap-step-ms", "%g" % TOOL_STEP_MS], "overlap 70 ms",
+                        smi)
+    step = [ln for ln in overlap["out"].splitlines() if ln.startswith("synthetic step:")]
+    line = [ln for ln in overlap["out"].splitlines() if ln.startswith("overlap: ")]
+    check(len(step) == 1 and "(CUDA events)" in step[0] and len(line) == 1,
+          "(a) overlap: output %r" % overlap["out"][-2000:])
+    step_ms = float(re.search(r", ([0-9.]+) ms a call", step[0]).group(1))
+    fields = dict(re.findall(r"(\w+)=([0-9.e+-]+)", line[0]))
+    idle = float(fields["device_idle_fraction"])
+    # the steps' device time over the window from the step's calibrated ms: the tool's
+    # device_idle_fraction (CUDA events around each batch's steps) must be its complement
+    busy = step_ms * float(fields["step_repeats"]) * float(fields["batches"]) \
+        / (1e3 * float(fields["seconds"]))
+    log("(a) overlap: %s; %s; the step %.4f ms of device time a call (CUDA events), "
+        "device_idle_fraction %.6f, the steps' calibrated device time over the window "
+        "%.4f of its wall; %s" % (step[0], line[0], step_ms, idle, busy, smi))
+    check(0.5 * TOOL_STEP_MS <= step_ms <= 2.0 * TOOL_STEP_MS,
+          "(a) overlap: the step took %.4f ms, not about %g" % (step_ms, TOOL_STEP_MS))
+    check(abs((1.0 - idle) - busy) <= 0.1,
+          "(a) overlap: device_idle_fraction %.4f is not the complement of the steps' "
+          "device time %.4f over the window" % (idle, busy))
+    return {"drain": drain, "overlap": overlap, "step_ms": step_ms, "idle": idle,
+            "busy": busy, "printed_ratio": printed}
+
+
+def phase_decompress(smi):
+    """(b) (comment above)."""
+    from petastorm_tpu_torch.benchmark import decompress
+    from petastorm_tpu_torch.ops import pagedec_kernels as pk
+
+    rows, batch = 60_000, 2048  # the harness's defaults
+    expected = -(-rows // batch)
+    reads0 = pk.HOST_READS.value
+    _all_launch_counters(zero=True)
+    t0 = time.perf_counter()
+    rc, out = _captured(decompress.main, ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counters()
+    reads = pk.HOST_READS.value - reads0
+    result = json.loads(out.strip().splitlines()[-1])
+    log("(b) decompress (%d rows, batches of %d): rc %d, %.1f s; %s; launches %s for %d "
+        "pass-through batches; %s" % (
+            rows, batch, rc, wall, json.dumps({k: result[k] for k in (
+                "h2d_ratio", "pages_shipped", "shipped_bytes_per_batch",
+                "raw_bytes_per_batch", "classic_rows_s", "passthrough_rows_s",
+                "ineligible_classic_rows_s", "ineligible_pagedec_rows_s",
+                "lease_leak_delta", "byte_identity_checked", "failures")}),
+            json.dumps(launches), expected, smi))
+    log("(b) reads back to the host: %d" % reads)
+    check(rc == 0 and result["ok"] and result["byte_identity_checked"],
+          "(b): decompress failed: %s" % result["failures"])
+    check(launches["K3"] == launches["scan"] == launches["K4"] == expected,
+          "(b): launches %s for %d batches" % (launches, expected))
+    check(reads == expected, "(b): %d reads back to the host for %d batches"
+          % (reads, expected))
+    check(launches["stage2_planes"] == launches["K2"] == 0, "(b): launches %s" % launches)
+    return {"launches": launches, "batches": expected, "result": result, "wall_s": wall,
+            "host_reads": reads}
+
+
+def phase_harness_smokes(smi):
+    """(c) (comment above)."""
+    from petastorm_tpu_torch.benchmark import cli
+
+    ran = {}
+    for name in PHASE24_HARNESSES:
+        argv = [name, "--smoke", "--device", "cuda"] + (["--json"] if name == "wire" else [])
+        t0 = time.perf_counter()
+        rc, out = _captured(cli.main, argv)
+        seconds = time.perf_counter() - t0
+        tail = out.strip().splitlines()[-1] if out.strip() else ""
+        log("(c) %s --smoke --device cuda: rc %d in %.1f s; %s" % (
+            name, rc, seconds, tail[:300]))
+        check(rc == 0, "(c) %s --smoke: rc %d; %s" % (name, rc, out[-3000:]))
+        if name == "wire":
+            rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+            check(rows and not any(r["shm_unavailable"] for r in rows),
+                  "(c) wire: a row measured the socket fallback: %s" % rows)
+            log("(c) wire rows: %s" % json.dumps([
+                (r["transport"], r["wire"], r["mb_s"], r["shm_fallbacks"]) for r in rows]))
+        ran[name] = seconds
+    log("(c) held on the CPU only (tests/test_torch_bench_*.py): %s; %s"
+        % (", ".join(PHASE24_HELD), smi))
+    return {"ran": ran, "held": list(PHASE24_HELD)}
+
+
 def main():
     t_all = time.perf_counter()
     env = phase_environment()
@@ -8216,6 +8409,9 @@ def main():
         example_c = phase_example_mnist(work, env["smi"])
         example_d = phase_tools_compat(url, images, work, env["smi"])
         phase22_s = time.perf_counter() - t22
+        t24 = time.perf_counter()
+        tool = phase_throughput_tool(url, work, main["shipped_ratio"], env["smi"])
+        phase24_s = time.perf_counter() - t24
         del images
 
         t0 = time.perf_counter()
@@ -8312,6 +8508,15 @@ def main():
             % (phase19_s, env["smi"]))
         check(phase19_s + phase20_s < 180.0, "phases 19 and 20 took %.1f s, over their "
               "180 s" % (phase19_s + phase20_s))
+        # the phase's clock starts (a)'s seconds back
+        t24 = time.perf_counter() - phase24_s
+        decomp = phase_decompress(env["smi"])
+        smokes = phase_harness_smokes(env["smi"])
+        phase24_s = time.perf_counter() - t24
+        log("the throughput tool and the harnesses: phase 24 took %.1f s of wall time; %s"
+            % (phase24_s, env["smi"]))
+        check(phase24_s < PHASE24_BUDGET_S, "phase 24 took %.1f s, over its %.0f s"
+              % (phase24_s, PHASE24_BUDGET_S))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     analyzer = phase_analyzer(env["smi"])
@@ -8455,6 +8660,15 @@ def main():
                           for part, r in parts.items()}
         return out
 
+    def slice24_launches(key):
+        """{part: launches of ``key``} in phase 24 (every kernel's counter is read): the
+        throughput tool's two runs and decompress."""
+        parts = {"a_tool_drain": tool["drain"], "a_tool_overlap": tool["overlap"],
+                 "b_decompress": decomp}
+        out = {part: r["launches"][key] for part, r in parts.items()}
+        out["batches"] = {part: r["batches"] for part, r in parts.items()}
+        return out
+
     table = {"kernels": [
         {"name": "stage2_planes (the batched stage 2: the unpack, dequantisation, K1's "
          "product and the range limit into uint8 planes, one launch a layout group)",
@@ -8480,7 +8694,8 @@ def main():
          "slice19_launches": slice19_launches("stage2_planes"),
          "slice20_launches": slice20_launches("stage2_planes"),
          "slice21_launches": slice21_launches("stage2_planes"),
-         "slice22_launches": slice22_launches("stage2_planes")},
+         "slice22_launches": slice22_launches("stage2_planes"),
+         "slice24_launches": slice24_launches("stage2_planes")},
         {"name": "stage2_rgb (the batched stage 2: chroma upsample, crop and YCbCr to RGB, "
          "one launch a layout group)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/stage2.cu",
@@ -8503,7 +8718,8 @@ def main():
          "slice19_launches": slice19_launches("stage2_rgb"),
          "slice20_launches": slice20_launches("stage2_rgb"),
          "slice21_launches": slice21_launches("stage2_rgb"),
-         "slice22_launches": slice22_launches("stage2_rgb")},
+         "slice22_launches": slice22_launches("stage2_rgb"),
+         "slice24_launches": slice24_launches("stage2_rgb")},
         {"name": "coef_unpack_segments (the stage-2 unpack and dequantisation on its own; "
          "launches counted on its path, the per-image stage 2 decode_jpeg_device_stage; "
          "the batched path runs its code inside stage2_planes and launches it 0 times; "
@@ -8519,7 +8735,8 @@ def main():
                       for k, v in up.items() if k not in ("ratio", "launches")},
          "main_path_launches": launches["unpack"],
          "mixed_feed_launches": mixed["launches"]["unpack"],
-         "slice22_launches": slice22_launches("unpack")},
+         "slice22_launches": slice22_launches("unpack"),
+         "slice24_launches": slice24_launches("unpack")},
         {"name": "idct_segments_f32 (K1; launches counted on its path, the per-image "
          "stage 2 decode_jpeg_device_stage; the batched path runs its product inside "
          "stage2_planes and launches it 0 times)", "route": "cuda",
@@ -8529,7 +8746,8 @@ def main():
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"], "main_path_launches": launches["K1"],
          "mixed_feed_launches": mixed["launches"]["K1"],
-         "slice22_launches": slice22_launches("K1")},
+         "slice22_launches": slice22_launches("K1"),
+         "slice24_launches": slice24_launches("K1")},
         {"name": "normalize_u8 (K2)", "route": "cuda",
          "source": "petastorm_tpu_torch/csrc/normalize.cu",
          "replaces": "petastorm_tpu/ops/image.py:24", "launches": launches["K2"],
@@ -8549,7 +8767,8 @@ def main():
          "slice19_launches": slice19_launches("K2"),
          "slice20_launches": slice20_launches("K2"),
          "slice21_launches": slice21_launches("K2"),
-         "slice22_launches": slice22_launches("K2")},
+         "slice22_launches": slice22_launches("K2"),
+         "slice24_launches": slice24_launches("K2")},
     ]}
     for key, name, replaces in (
             ("K3", "snappy_ragged (K3)", "petastorm_tpu/ops/pagedec_kernels.py:149"),
@@ -8613,6 +8832,7 @@ def main():
         row["slice19_launches"] = slice19_launches(key)
         row["slice20_launches"] = slice20_launches(key)
         row["slice22_launches"] = slice22_launches(key)
+        row["slice24_launches"] = slice24_launches(key)
         table["kernels"].append(row)
     log("process pool: JPEG rows/s %s; tabular rows/s %s" % (
         json.dumps({k: round(v["rows_per_s"], 1) for k, v in pool_jpeg.items()}),
@@ -8752,6 +8972,17 @@ def main():
         "(before the capture, after it, after %d replays); %s" % (
             analyzer["phase_s"], analyzer["paths"], analyzer["lint_s"],
             analyzer["suppressed"], analyzer["j003"], CAPTURE_REPLAYS, env["smi"]))
+    log("the throughput tool and the harnesses (phase 24, %.1f s): the tool %.1f rows/s "
+        "drained (shipped/raw %.4f, printed %s), at a %.4f ms step device_idle_fraction "
+        "%.6f with the steps' device time %.4f of the window; decompress %s of raw, %.1f "
+        "rows/s pass-through against %.1f classic; "
+        "smokes %s, held on the CPU %s; %s" % (
+            phase24_s, tool["drain"]["rows_per_s"], tool["drain"]["ratio"],
+            tool["printed_ratio"], tool["step_ms"], tool["idle"], tool["busy"],
+            decomp["result"]["h2d_ratio"], decomp["result"]["passthrough_rows_s"],
+            decomp["result"]["classic_rows_s"],
+            json.dumps({k: round(v, 1) for k, v in smokes["ran"].items()}),
+            smokes["held"], env["smi"]))
     log(json.dumps(table))
     log(env["smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"],

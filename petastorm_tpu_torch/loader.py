@@ -28,7 +28,10 @@ from it holds the lease until the transfer thread has read its host arrays (the 
 decode has packed its coefficients into the upload region, the inflate stage has copied
 its pages, the other columns are staged), and only then is the slab free for reuse.
 Where rows linger (the shuffling buffer) or are restacked (a per-row reader), the views
-are copied out instead.
+are copied out instead. ``to_device=False`` hands the consumer the batch's views without
+a copy, as the JAX package does: they stay valid until the consumer asks for the next
+batch (the reader's ``release_batch`` cadence), when the loader releases the previous
+batch's leases; a consumer that keeps a batch longer copies it.
 
 ``pad_shapes`` zero-pads ragged tensor columns to a static shape in the producer, with
 a ``name__mask`` column of the valid region, so they reach the device as ordinary
@@ -295,6 +298,13 @@ class _LoaderObs:
 
     def stage_histograms(self):
         return dict(self._hists)
+
+    def reset_stage_histograms(self):
+        """Re-anchor the stage percentiles to a fresh window (benchmarks call this beside
+        ``PipelineStats.reset()`` so the bottleneck report's p50/p90/p99 cover the
+        measured window, not the warmup)."""
+        for hist in self._hists.values():
+            hist.reset()
 
     def _collect_pipeline(self):
         loader = self._loader_ref()
@@ -1682,24 +1692,41 @@ class DataLoader:
     def _host_delivery(self, host_q):
         """``to_device=False``: host numpy batches, on the consumer thread. Pass-through
         columns inflate on the host twin (the designed host seam, not a degradation);
-        staged fields decode on the device and come back as numpy."""
-        for batch in self._host_batches(host_q):
-            leases = take_leases(batch)
-            try:
-                batch = _materialize_passthrough(batch, None)
-                if getattr(self.reader, "device_decode_fields", None):
-                    rest, staged = self._decode_staged(batch)
-                    rest.update({k: v.cpu().numpy() for k, v in staged.items()})
-                    batch = rest
-                if leases:
-                    batch = _detach_views(batch)  # the consumer keeps these
-            finally:
-                for lease in leases:
+        staged fields decode on the device and come back as numpy. A view-wire batch
+        reaches the consumer as its views, with no copy: its leases are released when
+        the consumer asks for the next batch, and the last one's at generator close
+        (the JAX package's cadence)."""
+        staged_fields = getattr(self.reader, "device_decode_fields", None)
+        held = ()
+        try:
+            for batch in self._host_batches(host_q):
+                for lease in held:
                     lease.release()
-            self._advance_consumed(_batch_valid_rows(batch))
-            if self._prov_rec is not None:
-                self._prov_rec.batch_delivered()
-            yield batch
+                held = ()
+                leases = take_leases(batch)
+                try:
+                    batch = _materialize_passthrough(batch, None)
+                    if staged_fields:
+                        rest, staged = self._decode_staged(batch)
+                        rest.update({k: v.cpu().numpy() for k, v in staged.items()})
+                        batch = rest
+                        if leases:
+                            batch = _detach_views(batch)  # the consumer keeps these
+                    else:
+                        # the consumer reads the views until its next request; key
+                        # access checks revocation, as on the reader's own batches
+                        batch = attach_leases(batch, leases)
+                        held, leases = leases, ()
+                finally:
+                    for lease in leases:
+                        lease.release()
+                self._advance_consumed(_batch_valid_rows(batch))
+                if self._prov_rec is not None:
+                    self._prov_rec.batch_delivered()
+                yield batch
+        finally:
+            for lease in held:
+                lease.release()
 
     def __iter__(self):
         self._start_producer()

@@ -137,7 +137,16 @@ def _arrow_expressible(columns):
 
 
 class ArrowTableSerializer(PickleSerializer):
-    """Arrow IPC for tagged columnar batch results; pickle frames otherwise."""
+    """Arrow IPC for tagged columnar batch results; pickle frames otherwise.
+
+    pyarrow loads when the serializer is made, on the thread that makes it: a pool's
+    feeder threads decode with it, and pyarrow first loaded on a thread that later exits
+    faults in the process's later concurrent parquet reads (its mimalloc pool)."""
+
+    def __init__(self, ensure_writable=True):
+        import pyarrow  # noqa: F401
+
+        super().__init__(ensure_writable)
 
     def serialize(self, obj):
         if (isinstance(obj, tuple) and len(obj) == 3 and isinstance(obj[2], dict)

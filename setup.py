@@ -49,6 +49,8 @@ setup(
             "petastorm_tpu_torch.tools.generate_metadata:main",
             "petastorm-tpu-torch-copy-dataset=petastorm_tpu_torch.tools.copy_dataset:main",
             "petastorm-tpu-torch-lint=petastorm_tpu_torch.analysis.cli:main",
+            "petastorm-tpu-torch-throughput=petastorm_tpu_torch.benchmark.cli:main",
+            "petastorm-tpu-torch-bench=petastorm_tpu_torch.benchmark.cli:main",
         ],
     },
 )

@@ -19,6 +19,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "petastorm_tpu_torch")
 
 
+#: the throughput tool and the acceptance harnesses (``benchmark/``), each a counterpart
+#: of the JAX package's module of the same name
+BENCHMARK_MODULES = ("throughput", "cli", "decompress", "wire", "copies", "io", "remote",
+                     "shmcache", "tabular", "chaos", "health", "attribution", "slo",
+                     "autotune", "tenants", "fleet")
+#: the harnesses ``cli.main`` dispatches to by subcommand
+HARNESSES = ("wire", "io", "remote", "copies", "tabular", "chaos", "health", "attribution",
+             "slo", "autotune", "decompress", "shmcache", "tenants", "fleet")
+
+
 def _port_modules():
     names = ["petastorm_tpu_torch"]
     for info in pkgutil.walk_packages([PKG], prefix="petastorm_tpu_torch."):
@@ -57,7 +67,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "analysis.rules.hotpath", "analysis.rules.lifecycle",
                  "analysis.rules.observability", "analysis.rules.project_concurrency",
                  "analysis.rules.robustness", "analysis.rules.schema",
-                 "analysis.rules.tracing"):
+                 "analysis.rules.tracing") + tuple(
+                     "benchmark." + name for name in BENCHMARK_MODULES):
         assert "petastorm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -263,7 +274,9 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     "petastorm_tpu_torch.transport.framing", "petastorm_tpu_torch.transport.tcp",
     "petastorm_tpu_torch.service", "petastorm_tpu_torch.service.protocol",
     "petastorm_tpu_torch.service.worker", "petastorm_tpu_torch.service.server",
-    "petastorm_tpu_torch.service.client", "petastorm_tpu_torch.service.telemetry"])
+    "petastorm_tpu_torch.service.client", "petastorm_tpu_torch.service.telemetry",
+    "petastorm_tpu_torch.benchmark.wire", "petastorm_tpu_torch.benchmark.fleet",
+    "petastorm_tpu_torch.benchmark.shmcache"])
 def test_process_pool_modules_import_no_jax_or_reference(module):
     """The process pool's modules, which every pool child imports, load neither jax nor
     the JAX package (nor torch: a child must not pay for it or touch the card). A host
@@ -274,7 +287,9 @@ def test_process_pool_modules_import_no_jax_or_reference(module):
     the run diff, the stats CLI and the trend gate are host tools that need no torch
     until the gate builds a loader. A tcp child imports the transport; a decode worker
     of the data service, in a process of its own, imports the service, whose server and
-    client move numpy payloads only."""
+    client move numpy payloads only. The wire harness's payload worker runs in pool
+    children, the fleet harness's decodes in decode workers, and the shmcache harness's
+    legs in interpreters of their own that read without a loader."""
     assert module in _port_modules()
     code = ("import importlib, sys\n"
             "importlib.import_module(%r)\n"
@@ -597,3 +612,44 @@ def test_transform_spec_and_device_shuffle_capacity_are_taken():
     # pad_shapes is ported too (item 6): taken and kept
     with DataLoader(reader, 4, device="cpu", pad_shapes={"x": (3,)}) as loader:
         assert loader._pad_shapes == {"x": (3,)}
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """A file-list comparison of the two packages: every module of ``petastorm_tpu/``
+    lands at the same relative path in the port."""
+    def modules(pkg):
+        root = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")}
+
+    missing = sorted(modules("petastorm_tpu") - modules("petastorm_tpu_torch"))
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("name", HARNESSES)
+def test_benchmark_harnesses_refuse_the_cpu_unless_asked(monkeypatch, name):
+    """Every harness, through ``cli.main`` and through its own ``main``, raises before
+    it does any work when there is no CUDA device and ``--device cpu`` was not given."""
+    import importlib
+
+    from petastorm_tpu_torch.benchmark import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([name, "--smoke"])
+    module = importlib.import_module("petastorm_tpu_torch.benchmark." + name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--smoke", "--device", "cuda"])
+
+
+def test_throughput_cli_refuses_the_cpu_unless_asked(monkeypatch, tmp_path):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.benchmark import cli
+
+    pq.write_table(pa.table({"id": np.arange(4)}), str(tmp_path / "p.parquet"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flags in ([], ["--loader"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["file://" + str(tmp_path), "--batch"] + flags)

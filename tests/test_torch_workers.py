@@ -277,7 +277,9 @@ def test_passthrough_over_the_view_wire_leaks_no_lease(tmp_path, mode):
                                shuffle_row_groups=False, wire_serializer="shm-view",
                                io_options={"pagedec": m}, results_timeout_s=120) as r:
             with DataLoader(r, 250, to_device=False, device=CPU) as loader:
-                out = [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+                # a host batch of the view wire views its slab until the next request:
+                # the test keeps every batch, so it copies each
+                out = [{k: np.array(v) for k, v in b.items()} for b in loader]
         return out, pagedec.counter_values()["host_inflate_columns"] - before
 
     leaked0 = lease_stats()["leaked"]
