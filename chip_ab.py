@@ -24,7 +24,8 @@ read without end through ``device_decode_resize=(256, 256)`` and the crop, jitte
 ``normalize_and_augment`` transform, batches of 256; ``tabular`` is the 2,097,152-row
 Criteo-shaped store, batches of 16,384.
 ``kernels`` times, per tree, K1 over one batch's three components (256 corpus images;
-beside three ``torch.addmm`` calls), K2 on a (256, 224, 224, 3) batch to bfloat16 and
+beside three ``torch.addmm`` calls), ``stage2_planes`` and ``stage2_rgb`` on the same
+batch in the transfer variant its content selects (trees that have them), K2 on a (256, 224, 224, 3) batch to bfloat16 and
 float32 and through ``normalize_and_augment`` (flip on; beside the bfloat16 conversion
 copy), and K3, the run scan and K4 over one 16,384-row Criteo-shaped batch's pages, each
 as the tree's own path launches it (one launch a batch where the tree has the batched
@@ -129,8 +130,8 @@ def _one(args):
 
 
 def _one_kernels(args, smoke):
-    """K1, K2, K3, the scan and K4 of the tree at the main paths' shapes, as the tree
-    launches them; device times from ``chip_smoke.timing``."""
+    """K1, the stage-2 kernels, K2, K3, the scan and K4 of the tree at the main paths'
+    shapes, as the tree launches them; device times from ``chip_smoke.timing``."""
     import pickle
 
     import numpy as np
@@ -142,7 +143,8 @@ def _one_kernels(args, smoke):
     dev = torch.device("cuda")
     with open(os.path.join(args.url, "blobs.pkl"), "rb") as f:
         blobs = pickle.load(f)
-    coeffs, qtabs = jpeg.stack_jpeg_coefficients(jpeg.entropy_decode_jpeg_batch(blobs))
+    decoded = jpeg.entropy_decode_jpeg_batch(blobs)
+    coeffs, qtabs = jpeg.stack_jpeg_coefficients(decoded)
     scaled = [(torch.from_numpy(c).float() * torch.from_numpy(q).float()[:, None, :])
               .reshape(-1, 64).contiguous().to(dev) for c, q in zip(coeffs, qtabs)]
     if hasattr(jpeg, "idct_scaled_segments"):
@@ -189,6 +191,12 @@ def _one_kernels(args, smoke):
         "copy_bf16_ms": smoke.cuda_ms(lambda: imgs.to(torch.bfloat16)),
         "k3_ms": smoke.cuda_ms(k3), "scan_ms": smoke.cuda_ms(scan), "k4_ms": smoke.cuda_ms(k4),
         "scan_k4_launches": launches}
+    if hasattr(jpeg, "stage2_planes_segments"):
+        layout, variants, _selected = smoke.stage2_variants(decoded, dev)
+        segs = variants["selected"]
+        planes = jpeg.stage2_planes_segments(segs)
+        out["stage2_planes_ms"] = smoke.cuda_ms(lambda: jpeg.stage2_planes_segments(segs))
+        out["stage2_rgb_ms"] = smoke.cuda_ms(lambda: jpeg.stage2_rgb(planes, layout))
     out["rows_per_s"] = 0.0
     print("RESULT " + json.dumps(out), flush=True)
 
@@ -327,12 +335,15 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # rows/s: higher is better; kernel milliseconds: lower is better
-    metrics = (("k1_ms", -1), ("k2_bf16_ms", -1), ("k2_f32_ms", -1), ("k2_augment_ms", -1),
+    metrics = (("k1_ms", -1), ("stage2_planes_ms", -1), ("stage2_rgb_ms", -1),
+               ("k2_bf16_ms", -1), ("k2_f32_ms", -1), ("k2_augment_ms", -1),
                ("k2_enqueue_us", -1), ("k3_ms", -1), ("scan_ms", -1), ("k4_ms", -1),
                ("k1_library_ms", -1), ("copy_bf16_ms", -1)) \
         if args.path == "kernels" else (("rows_per_s", 1),)
     first = runs[0][0]
     for metric, sign in metrics:
+        if any(metric not in x for res in results.values() for x in res):
+            continue  # a tree without this kernel
         for label, res in results.items():
             vals = [x[metric] for x in res]
             print("%s %s: %s (median %.4f)" % (label, metric, ", ".join(

@@ -7,7 +7,8 @@ Phases (each passes or the script exits non-zero, printing no result line):
 
 1. Environment: the card's name, count and power limit; pyarrow and cv2 present.
 2. Build: the CUDA kernels (``csrc/*.cu``, nvcc for sm_90a) and the host JPEG decoder,
-   from this checkout's sources, timed.
+   from this checkout's sources, timed; each kernel's registers and spills from
+   ``-Xptxas -v`` (the phase fails if a stage-2 kernel spills).
 3. Kernels against their plain PyTorch versions, on the card, at the main path's shapes:
    K1 (IDCT) as its one launch over the three components of one batch of 256 corpus
    images, timed in turns against three ``torch.addmm`` calls; the stage-2 unpack
@@ -18,7 +19,14 @@ Phases (each passes or the script exits non-zero, printing no result line):
    float16, each of its three routes with and without flips held to max abs error 0, a
    non-contiguous crop view, the bulk route's tile sizes, the bfloat16 conversion copy
    as a yardstick, and the fused ``normalize_and_augment`` against the
-   normalise-then-flip composition. Device times from CUDA events with the calls queued
+   normalise-then-flip composition. The batched stage 2's ``stage2_planes`` and
+   ``stage2_rgb`` over the same batch in every transfer variant, equal to their plain
+   versions, each timed beside its dense bound, ``stage2_planes``' bound from the FMAs of
+   its non-zero coefficients (the work the function needs; the kernels line's
+   ``bound_ms``), its executed-FMA bound (the columns active in its 128-block tiles), both
+   counted on the card from the shipped slabs with plain torch ops, and its byte bound, with each kernel's registers and spills from
+   ``nvcc -Xptxas -v`` (phase 2 fails if a stage-2 kernel spills). Device times from CUDA
+   events with the calls queued
    behind a spin (:func:`timing`), beside the host's enqueue time a call; bounds from
    H100 SXM peaks (3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores).
 4. Main path: a 4,096-row ImageNet-shaped JPEG store (224x224x3, q85, ~256-row row
@@ -475,9 +483,63 @@ def phase_build():
     host_s = time.perf_counter() - t0
     log("build: CUDA kernels %.2fs (%s), host decoder %.2fs"
         % (cuda_s, os.path.basename(kernels.BUILD_INFO.get("path", "?")), host_s))
-    for line in kernels.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log("  ptxas: " + line.strip())
+    report = ptxas_report(kernels.BUILD_INFO.get("log", ""))
+    for name, props in report.items():
+        log("  ptxas: %s: %s" % (name, json.dumps(props)))
+    stage2 = {k: v for k, v in report.items() if k.startswith("stage2_")}
+    check(stage2 and all(p.get("spill_stores", 1) == 0 and p.get("spill_loads", 1) == 0
+                         for p in stage2.values()),
+          "a stage-2 kernel spills registers (or ptxas reported none): %s" % stage2)
+    PTXAS.update(report)
+    return report
+
+
+#: ``ptxas_report`` of this run's build: {function: registers, spills, stack}
+PTXAS = {}
+
+
+def _kernel_name(mangled):
+    """The identifier ending in ``kernel`` inside an Itanium-mangled name (its
+    length-prefixed parts), else the name as it is."""
+    at = 0
+    while at < len(mangled):
+        if not mangled[at].isdigit():
+            at += 1
+            continue
+        end = at
+        while end < len(mangled) and mangled[end].isdigit():
+            end += 1
+        n = int(mangled[at:end])
+        ident = mangled[end:end + n]
+        if ident.endswith("kernel"):
+            return ident
+        at = end + n
+    return mangled
+
+
+def ptxas_report(build_log):
+    """``{function: {"registers", "spill_stores", "spill_loads", "stack_bytes"}}`` from
+    nvcc's ``-Xptxas -v`` output, each entry function under its demangled-enough name
+    (the identifier inside the mangled name, e.g. ``stage2_planes_kernel``)."""
+    import re
+
+    out, current = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            current = _kernel_name(m.group(1))
+            out.setdefault(current, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and current is not None:
+            out[current].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            out[current]["registers"] = int(m.group(1))
+    return out
 
 
 # -- corpus ------------------------------------------------------------------------------
@@ -715,6 +777,30 @@ def stage2_variants(planes, dev):
     return layout, variants, (ks, packed, split)
 
 
+def planes_active_columns(segments):
+    """What ``stage2_planes``' chain runs on these segments, counted on the card with
+    plain torch ops from the shipped slabs: ``{"executed": sum over 128-block tiles of
+    blocks x the natural positions non-zero anywhere in the tile (the columns the kernel
+    keeps), "nonzero": the non-zero dequantised coefficients}`` (each times 64 FMAs)."""
+    import torch
+
+    from petastorm_tpu_torch.ops import jpeg
+
+    executed = nonzero = 0
+    for seg in segments:
+        nz = jpeg._unpack_dequant_plain(seg) != 0  # (rows, 64)
+        rows = nz.shape[0]
+        tiles = (rows + 127) // 128
+        padded = torch.zeros((tiles * 128, 64), dtype=torch.bool, device=nz.device)
+        padded[:rows] = nz
+        active = padded.view(tiles, 128, 64).any(dim=1).sum(dim=1)  # (tiles,)
+        nb = torch.full((tiles,), 128, dtype=torch.int64, device=nz.device)
+        nb[-1] = rows - (tiles - 1) * 128
+        executed += int((active * nb).sum().item())
+        nonzero += int(nz.sum().item())
+    return {"executed": executed, "nonzero": nonzero}
+
+
 def check_stage2(layout, variants, what):
     """Each variant through ``stage2_planes_segments`` and ``stage2_rgb`` (RGB and BGR)
     equal to the plain versions (``torch.equal``)."""
@@ -755,32 +841,55 @@ def phase_stage2(planes, dev):
     segs = variants["selected"]
     blocks = sum(seg.qtab.shape[0] * seg.by * seg.bx for seg in segs)
     plane_bytes = blocks * 64
+    dense_flops = 2 * blocks * 64 * 64
+    planes_regs = PTXAS.get("stage2_planes_kernel", {})
     res = {"planes": {}, "max_abs_err": 0.0}  # every variant held with torch.equal
     for name, vsegs in variants.items():
         shipped = sum(sum(t.numel() * t.element_size() for t in
                           (seg.slabs if seg.split is not None else (seg.slabs,)))
                       for seg in vsegs)
         nbytes = shipped + sum(seg.qtab.numel() * 4 for seg in vsegs) + plane_bytes
-        b_ms, b_by = bound(nbytes, 2 * blocks * 64 * 64)
+        active = planes_active_columns(vsegs)  # counted before the timing, plain torch
+        t_bytes = bound(nbytes, 0)[0]
+        b_ms, b_by = bound(nbytes, dense_flops)
+        x_ms = bound(nbytes, 2 * 64 * active["executed"])[0]
+        n_ms, n_by = bound(nbytes, 2 * 64 * active["nonzero"])
         ms, enq = timing(lambda: jpeg.stage2_planes_segments(vsegs))
-        res["planes"][name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+        # the bound is the work the function needs: an FMA for each non-zero coefficient
+        # and basis column (a zero term changes no value); the dense chain's and the
+        # columns the kernel's tiles keep stand beside it
+        res["planes"][name] = {"ms": ms, "bound_ms": n_ms, "bound_by": n_by,
+                               "dense_bound_ms": b_ms, "executed_bound_ms": x_ms,
+                               "nonzero_bound_ms": n_ms, "bytes_bound_ms": t_bytes,
+                               "active_share": active["executed"] / (blocks * 64),
+                               "nonzero_share": active["nonzero"] / (blocks * 64),
                                "shipped": shipped, "enqueue_us": enq}
-        log("stage2_planes %s (one launch, 3 components): kernel_ms=%.4f bound_ms=%.4f (%s; "
-            "%d bytes, %d shipped) roofline_share=%.3f enqueue_us=%.1f"
-            % (name, ms, b_ms, b_by, nbytes, shipped, b_ms / ms, enq))
+        log("stage2_planes %s (one launch, 3 components): kernel_ms=%.4f dense_bound_ms=%.4f "
+            "(%s; share %.3f) executed_fma_bound_ms=%.4f (active columns %.4f of the dense "
+            "chain's, 128-block tiles; share %.3f) bound_ms=nonzero_bound_ms=%.4f (%s; non-zero "
+            "coefficients %.4f; share %.3f) bytes_bound_ms=%.4f (%d bytes, %d shipped) "
+            "enqueue_us=%.1f"
+            % (name, ms, b_ms, b_by, b_ms / ms, x_ms, active["executed"] / (blocks * 64),
+               x_ms / ms, n_ms, n_by, active["nonzero"] / (blocks * 64), n_ms / ms, t_bytes,
+               nbytes, shipped, enq))
+    log("stage2_planes registers and spills (nvcc -Xptxas -v): %s" % json.dumps(planes_regs))
     planes_out = jpeg.stage2_planes_segments(segs)
     sel = res["planes"]["selected"]
     sel["plain_ms"] = cuda_ms(lambda: [jpeg._stage2_planes_plain(seg) for seg in segs])
+    sel["ptxas"] = planes_regs
     n = segs[0].qtab.shape[0]
     rgb_bytes = plane_bytes + n * layout[0] * layout[1] * 3
     r_bound, r_by = bound(rgb_bytes, 0)
     r_ms, r_enq = timing(lambda: jpeg.stage2_rgb(planes_out, layout))
     r_plain = cuda_ms(lambda: jpeg._stage2_rgb_plain(planes_out, layout))
+    rgb_regs = {k: PTXAS.get(k, {}) for k in ("stage2_rgb_band_kernel", "stage2_rgb_rows_kernel")}
     res["rgb"] = {"ms": r_ms, "bound_ms": r_bound, "bound_by": r_by, "plain_ms": r_plain,
-                  "enqueue_us": r_enq}
-    log("stage2_rgb (one launch): kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s; %d bytes) "
-        "roofline_share=%.3f enqueue_us=%.1f" % (r_ms, r_plain, r_bound, r_by, rgb_bytes,
-                                                 r_bound / r_ms, r_enq))
+                  "enqueue_us": r_enq, "ptxas": rgb_regs}
+    log("stage2_rgb (one launch): kernel_ms=%.4f plain_ms=%.4f bytes_bound_ms=%.4f (%s; %d "
+        "bytes, no arithmetic bound: ~30 integer and float operations a pixel) "
+        "roofline_share=%.3f enqueue_us=%.1f; registers and spills of its band and row "
+        "routes (nvcc -Xptxas -v): %s" % (r_ms, r_plain, r_bound, r_by, rgb_bytes, r_bound / r_ms, r_enq,
+                     json.dumps(rgb_regs)))
     # the two launches as _batched_stage2 makes them, in turns with the parent's
     # composition of the same work (each pair one comparison on one card)
     pairs = []
@@ -1510,6 +1619,8 @@ def phase_stage2_layouts(blobs, sizes, dev):
         layout, variants, selected = stage2_variants(planes, dev)
         check_stage2(layout, variants, "%dx%d" % size)
         segs = variants["selected"]
+        active = planes_active_columns(segs)
+        share = active["executed"] / (64 * sum(s.qtab.shape[0] * s.by * s.bx for s in segs))
         planes_out = jpeg.stage2_planes_segments(segs)
         img = jpeg.stage2_rgb(planes_out, layout)
         ms = cuda_ms(lambda: jpeg.stage2_rgb(jpeg.stage2_planes_segments(segs), layout))
@@ -1518,11 +1629,11 @@ def phase_stage2_layouts(blobs, sizes, dev):
         c_ms = cuda_ms(lambda: parent_stage2(layout, segs))
         z_ms = cuda_ms(lambda: jpeg.resize_image_batch(img, MIX_RESIZE))
         log("stage 2 %dx%d (%s, %d rows; selected ks=%s packed=%s split=%s): %d variants "
-            "equal to the plain versions; stage2_planes %.4f + stage2_rgb %.4f ms (both "
-            "%.4f), the parent's composition %.4f ms, resize %.4f ms; per-image stage 1 "
-            "%.4f s on one host thread" % (
+            "equal to the plain versions; stage2_planes %.4f (active columns %.4f of the "
+            "dense chain's) + stage2_rgb %.4f ms (both %.4f), the parent's composition %.4f "
+            "ms, resize %.4f ms; per-image stage 1 %.4f s on one host thread" % (
                 size[0], size[1], [c[:2] for c in layout[2]], len(rows), *selected,
-                len(variants), p_ms, r_ms, ms, c_ms, z_ms, stage1_s))
+                len(variants), p_ms, share, r_ms, ms, c_ms, z_ms, stage1_s))
         split["stage2_ms"] += ms
         split["composition_ms"] += c_ms
         split["resize_ms"] += z_ms
@@ -8676,8 +8787,12 @@ def main():
          "replaces": "petastorm_tpu/ops/jpeg.py:311", "launches": launches["stage2_planes"],
          "max_abs_err": s2["max_abs_err"], "ms": sel["ms"], "plain_ms": sel["plain_ms"],
          "bound_ms": sel["bound_ms"], "bound_by": sel["bound_by"], "library_ms": None,
+         "dense_bound_ms": sel["dense_bound_ms"], "executed_bound_ms": sel["executed_bound_ms"],
+         "nonzero_share": sel["nonzero_share"], "active_share": sel["active_share"],
+         "ptxas": sel["ptxas"],
          "composition_ms": s2["composition_ms"], "both_kernels_ms": s2["both_ms"],
-         "variants": {k: {kk: v[kk] for kk in ("ms", "bound_ms")}
+         "variants": {k: {kk: v[kk] for kk in ("ms", "bound_ms", "dense_bound_ms",
+                                               "executed_bound_ms", "active_share")}
                       for k, v in s2["planes"].items()},
          "mixed_feed_launches": mixed["launches"]["stage2_planes"],
          "pool_launches": pool_launches(pool_jpeg, "stage2_planes"),
@@ -8702,7 +8817,7 @@ def main():
          "replaces": "petastorm_tpu/ops/jpeg.py:337", "launches": launches["stage2_rgb"],
          "max_abs_err": s2["max_abs_err"], "ms": s2["rgb"]["ms"],
          "plain_ms": s2["rgb"]["plain_ms"], "bound_ms": s2["rgb"]["bound_ms"],
-         "bound_by": s2["rgb"]["bound_by"], "library_ms": None,
+         "bound_by": s2["rgb"]["bound_by"], "library_ms": None, "ptxas": s2["rgb"]["ptxas"],
          "mixed_feed_launches": mixed["launches"]["stage2_rgb"],
          "pool_launches": pool_launches(pool_jpeg, "stage2_rgb"),
          "ring_feed_launches": feed_jpeg["launches"]["stage2_rgb"],

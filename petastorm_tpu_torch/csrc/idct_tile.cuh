@@ -1,5 +1,6 @@
-// The 8x8 inverse DCT's tile product, shared by K1 (idct.cu) and the batched stage 2's
-// `stage2_planes` kernel (stage2.cu), so that the chain the tests hold exact exists once.
+// The 8x8 inverse DCT's tile product of K1 (idct.cu). The batched stage 2's
+// `stage2_planes` kernel (stage2.cu) shares the tile's shape and runs the same micro-tile
+// and chain over the coefficient columns it keeps (`idct_compact_tile` there).
 //
 // A tile is kIdctTileRows (128) rows of 64 dequantised coefficients in shared memory at a
 // padded row stride of kIdctStride floats; the basis is the (64, 64) float32 separable

@@ -32,7 +32,8 @@ def _tag(sources, commands):
 def build_shared_library(name, sources, compile_cmd, link_cmd=None, timeout=600,
                          headers=()):
     """Compile ``sources`` into ``_build/<name>-<hash>.so`` unless it exists; returns
-    ``(path, log)`` where ``log`` holds the compilers' output (empty on a cache hit).
+    ``(path, log)`` where ``log`` holds the compilers' output (kept beside the library in
+    ``<name>-<hash>.so.log``, so a cache hit returns the build's log too).
     ``headers`` are files the sources include: they key the output file too.
 
     ``compile_cmd(src, out)`` gives the command that compiles one source. Without
@@ -46,7 +47,11 @@ def build_shared_library(name, sources, compile_cmd, link_cmd=None, timeout=600,
     out_path = os.path.join(BUILD_DIR, "%s-%s.so" % (name, _tag([*sources, *headers],
                                                                  probe_cmds)))
     if os.path.exists(out_path):
-        return out_path, ""
+        try:
+            with open(out_path + ".log") as f:
+                return out_path, f.read()
+        except OSError:
+            return out_path, ""
     workdir = tempfile.mkdtemp(prefix=name + "-", dir=BUILD_DIR)
     tmp_lib = os.path.join(workdir, name + ".so")
     log = []
@@ -59,6 +64,9 @@ def build_shared_library(name, sources, compile_cmd, link_cmd=None, timeout=600,
             objects = [os.path.join(workdir, "%d.o" % i) for i in range(len(sources))]
             _run([compile_cmd(s, o) for s, o in zip(sources, objects)], log, timeout)
             _run([link_cmd(objects, tmp_lib)], log, timeout)
+        with open(os.path.join(workdir, "build.log"), "w") as f:
+            f.write("\n".join(log))
+        os.replace(os.path.join(workdir, "build.log"), out_path + ".log")
         os.replace(tmp_lib, out_path)  # atomic: concurrent builders converge on one file
     finally:
         for f in os.listdir(workdir):

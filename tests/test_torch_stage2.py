@@ -33,6 +33,15 @@ LAYOUTS = {
     "gray": (48, 64, ((1, 1, 6, 8),), 3),
     "411": (32, 64, ((4, 1, 4, 8), (1, 1, 4, 2), (1, 1, 4, 2)), 3),
     "440": (48, 40, ((1, 2, 6, 5), (1, 1, 3, 5), (1, 1, 3, 5)), 3),
+    # the kernels' edges: Y 280 blocks (tiles of 128, 128 and a ragged 24), 75 rows (not
+    # a multiple of the 16-row band), 107 x 3 bytes a row (not a 16-byte multiple)
+    "420_edge": (75, 107, ((2, 2, 10, 14), (1, 1, 5, 7), (1, 1, 5, 7)), 2),
+    "420_w359": (40, 359, ((2, 2, 6, 46), (1, 1, 3, 23), (1, 1, 3, 23)), 2),
+    "444_odd": (37, 53, ((1, 1, 5, 7), (1, 1, 5, 7), (1, 1, 5, 7)), 4),  # odd bx, 140 blocks
+    # too wide for a 16-row band in 64 KB of shared memory: 2-row bands
+    "420_wide": (40, 2000, ((2, 2, 6, 250), (1, 1, 3, 125), (1, 1, 3, 125)), 1),
+    # too wide for a one-row band: stage2_rgb's row route
+    "gray_wide": (8, 26000, ((1, 1, 1, 3250),), 1),
 }
 
 #: name → (ks, packed, split), per component (Y, Cb, Cr); a grayscale layout takes Y's
@@ -44,6 +53,12 @@ VARIANTS = {
     "split": (None, None, ((6, 16), (4, 10), (4, 10))),
     "split_truncated": ((32, 16, 16), None, ((6, 16), (4, 10), (4, 10))),
     "mixed": ((64, 16, 16), (False, True, False), ((6, 16), None, None)),
+}
+
+#: variants of the edge cases only: the three kinds in one launch, at k = 64 and cut
+EDGE_VARIANTS = {
+    "kinds": (None, (False, True, False), ((6, 16), None, None)),
+    "kinds_truncated": ((32, 16, 16), (False, True, False), ((6, 16), None, None)),
 }
 
 #: every variant on the main path's layout, two on each other layout
@@ -93,19 +108,51 @@ def _pick(spec, ncomp):
     return None if spec is None else tuple(spec[:ncomp])
 
 
+def _natural(*positions):
+    """A zigzag-order mask (64,) of the given natural positions."""
+    keep = np.zeros(64, bool)
+    keep[np.asarray(ref.UNZIGZAG)[list(positions)]] = True
+    return keep
+
+
+def _shape_content(z, ci, content):
+    """Edge content on one component's zigzag-order coefficients (n, blocks, 64), in
+    place: ``zero_tile``: Y's first 128 blocks all zero (a whole tile); ``last_block_hf``:
+    natural positions 0 and 9 only, and position 63 non-zero only in Y's block 127 (the
+    last of a full tile) and in each component's last block (its ragged last tile), so
+    Y's tiles have 3, 2 and 3 active columns; ``odd_active``: natural 0, 1, 2, 8 and 17
+    only (5 active columns)."""
+    flat = z.reshape(-1, 64)
+    if content == "zero_tile":
+        if ci == 0:
+            flat[:128] = 0
+    elif content == "last_block_hf":
+        flat[:, ~_natural(0, 9)] = 0
+        hf = np.asarray(ref.UNZIGZAG)[63]
+        if ci == 0:
+            flat[127, hf] = 5
+        flat[-1, hf] = -6
+    elif content == "odd_active":
+        flat[:, ~_natural(0, 1, 2, 8, 17)] = 0
+    elif content != "random":
+        raise ValueError(content)
+
+
 @functools.lru_cache(maxsize=None)
-def _case(layout_name, variant):
+def _case(layout_name, variant, content="random"):
     """The case's layout key, variant and numpy inputs: ``(layout, ks, packed, split,
     coeffs, qtabs)`` with ``coeffs`` per component an array or a slab triple."""
     height, width, comps, n = LAYOUTS[layout_name]
     layout = (height, width, comps)
     ncomp = len(comps)
-    ks, packed, split = (_pick(s, ncomp) for s in VARIANTS[variant])
-    rng = np.random.RandomState(sum(map(ord, layout_name + variant)))
+    ks, packed, split = (_pick(s, ncomp) for s in {**VARIANTS, **EDGE_VARIANTS}[variant])
+    tag = layout_name + variant + ("" if content == "random" else content)
+    rng = np.random.RandomState(sum(map(ord, tag)))
     coeffs, qtabs = [], []
     for ci, (_h, _v, by, bx) in enumerate(comps):
         lim = _Y_RANGE if ci == 0 else _C_RANGE
         z = (rng.randint(-32768, 32768, (n, by * bx, 64)) % (2 * lim + 1) - lim).astype(np.int16)
+        _shape_content(z, ci, content)
         k = 64 if ks is None else ks[ci]
         coeffs.append(_ship(z, k, packed is not None and packed[ci],
                             None if split is None else split[ci]))
@@ -210,10 +257,10 @@ def _ref_rgb(planes, layout):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(layout_name, variant):
+def _reference(layout_name, variant, content="random"):
     """``(planes, rgb)`` of the reference for a case: its planes composed in jnp, and its
     whole jitted ``_batched_stage2``."""
-    case = _case(layout_name, variant)
+    case = _case(layout_name, variant, content)
     layout, ks, packed, split, coeffs, qtabs = case
     whole = ref._batched_stage2(layout, ks, packed, split)(coeffs, qtabs)
     return _ref_planes(case), np.asarray(whole)
@@ -363,6 +410,56 @@ def test_stage2_wrappers_refuse_what_the_kernels_do_not_take():
         port.stage2_rgb(planes, (48, 56, layout[2]))
 
 
+# -- the kernels' edges: one table, held on the CPU against the reference and on the card
+# against the plain versions ---------------------------------------------------------------
+
+#: (id, layout, variant, content, the active-column counts of Y's 128-block tiles or None)
+STAGE2_EDGES = [
+    ("zero_tile_int16", "420_edge", "int16", "zero_tile", None),
+    ("zero_tile_split", "420_edge", "split", "zero_tile", None),
+    ("last_block_hf_kinds", "420_edge", "kinds", "last_block_hf", (3, 2, 3)),
+    ("odd_active_pack12", "444_odd", "pack12", "odd_active", (5, 5)),
+    ("kinds_truncated", "420_edge", "kinds_truncated", "random", None),
+    ("odd_bx_split_truncated", "444_odd", "split_truncated", "random", None),
+    ("width_359_mixed", "420_w359", "mixed", "random", None),
+    ("width_481_int16_truncated", "420_ragged", "int16_truncated", "random", None),
+    ("ratio4_split", "411", "split", "random", None),
+    ("gray_pack12", "gray", "pack12", "random", None),
+]
+STAGE2_EDGE_IDS = [e[0] for e in STAGE2_EDGES]
+
+
+def _tile_active(seg):
+    """Per 128-block tile of a segment, the natural positions non-zero in any block."""
+    nz = (port._unpack_dequant_plain(seg) != 0).numpy()
+    return tuple(int(nz[t:t + 128].any(axis=0).sum()) for t in range(0, nz.shape[0], 128))
+
+
+@pytest.mark.parametrize("case_id,layout_name,variant,content,active", STAGE2_EDGES,
+                         ids=STAGE2_EDGE_IDS)
+def test_stage2_edges_plain_bit_identical_to_reference(case_id, layout_name, variant, content,
+                                                       active):
+    """Each edge case (an all-zero tile, a high-frequency column in only the last block of
+    a full and of a ragged tile, active counts not a multiple of 4, the three kinds and
+    cut segments in one group, odd block widths, ragged bands, rows of 359 and 481
+    pixels, ratio 4, one component): the plain planes equal the reference's, value for
+    value, and the plain RGB (and BGR) equals its whole jitted ``_batched_stage2``."""
+    case = _case(layout_name, variant, content)
+    layout = case[0]
+    theirs, whole = _reference(layout_name, variant, content)
+    segs = _segments(case)
+    if content == "zero_tile":
+        assert _tile_active(segs[0])[0] == 0
+    if active is not None:
+        assert _tile_active(segs[0]) == active
+    ours = [port._stage2_planes_plain(seg) for seg in segs]
+    for got, want in zip(ours, theirs):
+        np.testing.assert_array_equal(got.numpy().astype(np.float32), want)
+    for bgr in (False, True):
+        rgb = port._stage2_rgb_plain(ours, layout, bgr).numpy()
+        np.testing.assert_array_equal(rgb, whole[..., ::-1] if bgr else whole)
+
+
 # -- the kernels on the card --------------------------------------------------------------
 
 
@@ -477,3 +574,27 @@ def test_stage2_kernels_refuse_unaligned_inputs_on_the_card(cuda_device):
     off_by_one = room[1:1 + planes[0].numel()].view(planes[0].shape)
     with pytest.raises(ValueError, match="aligned"):
         port.stage2_rgb([off_by_one] + planes[1:], layout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case_id,layout_name,variant,content,active", STAGE2_EDGES,
+                         ids=STAGE2_EDGE_IDS)
+def test_stage2_edges_kernels_equal_plain_on_the_card(cuda_device, case_id, layout_name,
+                                                      variant, content, active):
+    """Each edge case through one ``stage2_planes`` launch and one ``stage2_rgb`` launch
+    (RGB and BGR): equal to the plain versions on the card (``torch.equal``)."""
+    case = _case(layout_name, variant, content)
+    layout = case[0]
+    segs = _segments(case, cuda_device)
+    before = port.stage2_planes_segments.launches
+    outs = port.stage2_planes_segments(segs)
+    torch.cuda.synchronize()
+    assert port.stage2_planes_segments.launches == before + 1
+    for out, seg in zip(outs, segs):
+        assert torch.equal(out, port._stage2_planes_plain(seg))
+    for bgr in (False, True):
+        before = port.stage2_rgb.launches
+        rgb = port.stage2_rgb(outs, layout, bgr)
+        torch.cuda.synchronize()
+        assert port.stage2_rgb.launches == before + 1
+        assert torch.equal(rgb, port._stage2_rgb_plain(outs, layout, bgr))
