@@ -162,12 +162,21 @@ Phases (each passes or the script exits non-zero, printing no result line):
    and decode_s a batch, readahead hits, misses and exposed-wait seconds, coalesced
    reads and steals printed; every id once an epoch, images equal to phase 7's per id,
    K2 equal to its plain version, one stage2_planes, stage2_rgb and K2 launch a batch.
+   The process-wide registry's read-path families over each run (its deltas printed):
+   at the defaults ``ptpu_io_readahead_hits_total`` equal to the reader's readahead
+   hits and above 0, ``ptpu_io_read_seconds`` counting background reads; all off, both
+   unmoved; in every run ``ptpu_io_tier_hits_total`` summing to the run's row-group
+   serves (3 epochs of the row groups the store's footers hold).
    (b) phase 5's pass-through the same way (phase 5's checks in every run), from an
    emptied footer cache: one footer parse a file over all six runs, and no pass-through
    column in any prefetch made while the pass-through was live. (c) the main path with
    ``memcache_bytes`` over two epochs (one reader each): 300 MB must evict and deliver
    exactly; 1 GiB serves epoch 2 from memory for every row group with 0 rows through
    stage 1, equal images, and counts at least the store's 616,562,688 coefficient bytes.
+   On the registry: ``ptpu_io_memcache_evictions_total`` rises with the small budget's
+   evictions; in epoch 2 of the large one ``ptpu_io_tier_hits_total{tier="mem"}`` rises
+   by its 16 memory serves and the ``remote`` tier by 0, so the controller's
+   ``tier_share("remote")`` over that window is 0.0.
    (d) phase 5's store through ``cache_type="local-disk"`` (classic read), two epochs:
    epoch 2 from the disk tier, every row group equal to the source, the cache
    directory's bytes printed. (e) the process pool on ``'arrow'``: every child's
@@ -3753,10 +3762,50 @@ MEMCACHE_SMALL, MEMCACHE_BIG = 300 << 20, 1 << 30
 COEF_BYTES = ROWS * (784 + 196 + 196) * 64 * 2
 IO_KEYS = ("readahead_hits", "readahead_misses", "readahead_wait_s", "readahead_exposed_s",
            "coalesced_reads", "coalesced_items", "steals")
+#: the read path's registry families phase 11 reads (counters, and histograms by count)
+READ_FAMILIES = ("ptpu_io_readahead_hits_total", "ptpu_io_readahead_misses_total",
+                 "ptpu_io_read_seconds", "ptpu_io_wait_seconds",
+                 "ptpu_io_coalesced_reads_total", "ptpu_io_tier_hits_total",
+                 "ptpu_io_memcache_hits_total", "ptpu_io_memcache_evictions_total",
+                 "ptpu_io_footer_cache_hits_total", "ptpu_io_file_evictions_total",
+                 "ptpu_io_steals_total")
 
 
 def _io_brief(io):
     return {k: io[k] for k in IO_KEYS if k in io}
+
+
+def _read_families():
+    """``{series: count}`` of the process-wide registry's READ_FAMILIES (a histogram by
+    its count)."""
+    from petastorm_tpu_torch.obs.metrics import default_registry
+
+    return {k: v["count"] if isinstance(v, dict) else v
+            for k, v in default_registry().snapshot().items()
+            if k.split("{")[0] in READ_FAMILIES}
+
+
+def _families_delta(before):
+    """The READ_FAMILIES series that moved since ``before``, by how much."""
+    after = _read_families()
+    return {k: after[k] - before.get(k, 0) for k in sorted(after)
+            if after[k] != before.get(k, 0)}
+
+
+def _store_row_groups(url):
+    """The row groups of a store's parquet files, from their footers."""
+    import glob
+
+    import pyarrow.parquet as pq
+
+    return sum(pq.ParquetFile(f).num_row_groups
+               for f in glob.glob(os.path.join(url[len("file://"):], "*.parquet")))
+
+
+def _tier_delta(delta, tier=None):
+    """A delta's ``ptpu_io_tier_hits_total`` serves, of one tier or all."""
+    return sum(v for k, v in delta.items() if k.startswith("ptpu_io_tier_hits_total")
+               and (tier is None or 'tier="%s"' % tier in k) and "tenant=" not in k)
 
 
 def phase_read_path_jpeg(url, blobs, images, smi):
@@ -3765,25 +3814,39 @@ def phase_read_path_jpeg(url, blobs, images, smi):
     first batch to the plain stage 2 and K2 to its plain version, and stage2_planes,
     stage2_rgb and K2 to one launch a batch (``pool_jpeg_run``)."""
     out = {"defaults": [], "all_off": []}
+    serves = POOL_EPOCHS * _store_row_groups(url)
     for r in range(IO_ROUNDS):
         order = [("defaults", None), ("all_off", IO_ALL_OFF)]
         if r % 2:
             order.reverse()
         for name, opts in order:
+            before = _read_families()
             res = pool_jpeg_run(url, blobs, "thread", None, None, images, smi,
                                 tag=" read path %s round %d" % (name, r), io_options=opts)
+            delta = res["registry"] = _families_delta(before)
             w = res["window_ms"]
+            log("read path (a) %s round %d: registry %s" % (name, r, json.dumps(delta)))
             log("read path (a) %s round %d: %.1f rows/s; read_s %.3f, decode_s %.3f ms a "
                 "batch; io %s; %s" % (name, r, res["rows_per_s"], w["read_s"],
                                       w["decode_s"], json.dumps(_io_brief(res["io"])), smi))
             io = res["io"]
+            hits = delta.get("ptpu_io_readahead_hits_total", 0)
+            reads = delta.get("ptpu_io_read_seconds", 0)
             if name == "defaults":
                 check(io.get("readahead_hits", 0) > 0, "read path (a): no readahead hit at "
                       "the defaults: %s" % _io_brief(io))
+                check(hits == io.get("readahead_hits") and reads > 0, "read path (a): the "
+                      "registry's readahead hits %d and background reads %d against the "
+                      "reader's %s" % (hits, reads, _io_brief(io)))
             else:
                 check("readahead_hits" not in io and io.get("steals", 0) == 0,
                       "read path (a): the all-off run prefetched or stole: %s"
                       % _io_brief(io))
+                check(hits == 0 and reads == 0, "read path (a): the all-off run moved the "
+                      "registry's readahead families: %s" % delta)
+            check(_tier_delta(delta) == serves, "read path (a) %s: the registry's tier "
+                  "hits sum to %d, not the run's %d row-group serves" % (
+                      name, _tier_delta(delta), serves))
             out[name].append(res)
     for name, runs in out.items():
         rates = [r["rows_per_s"] for r in runs]
@@ -3893,10 +3956,12 @@ def _memcache_run(url, images, budget, smi):
     dev = torch.device("cuda")
     label = "read path (c) memcache %d bytes" % budget
     epochs = []
+    families0 = _read_families()
     for epoch in range(2):
         counts = torch.zeros(ROWS, dtype=torch.int32, device=dev)
         bad = torch.zeros((), dtype=torch.int64, device=dev)
         first = None
+        before = _read_families()
         with count_stage1_rows() as staged:
             reader = make_batch_reader(url, workers_count=workers, shuffle_row_groups=True,
                                        seed=epoch, num_epochs=1, decode_on_device=True,
@@ -3916,6 +3981,8 @@ def _memcache_run(url, images, budget, smi):
                 rate = (per_epoch - 1) * BATCH / (time.perf_counter() - t0)
                 io = reader.io_stats()
             counters = _jpeg_launch_counters()
+        delta = _families_delta(before)
+        log("%s epoch %d: registry %s" % (label, epoch + 1, json.dumps(delta)))
         c = counts.cpu()
         tiers = {k: v for k, v in io.items() if k.startswith("tier_")}
         log("%s epoch %d: %.1f rows/s (batches 2-%d); stage 1 %d rows; tiers %s; "
@@ -3931,13 +3998,15 @@ def _memcache_run(url, images, budget, smi):
         check(torch.equal(image._normalize_plain(first[0], MEAN, STD, torch.bfloat16),
                           first[1]), "%s: K2 differs from its plain version" % label)
         epochs.append({"staged_rows": sum(staged), "tiers": tiers, "rows_per_s": rate,
-                       "launches": counters})
+                       "launches": counters, "registry": delta})
     torch.cuda.synchronize()
     mem = store.stats()
     store.clear()
     log("%s: store after epoch 2 %s" % (label, json.dumps(mem)))
     return {"label": label, "epochs": epochs, "mem": mem,
-            "evictions": mem["memcache_evictions"] - store0["memcache_evictions"]}
+            "evictions": mem["memcache_evictions"] - store0["memcache_evictions"],
+            "registry_evictions": _families_delta(families0).get(
+                "ptpu_io_memcache_evictions_total", 0)}
 
 
 def phase_read_path_memcache(url, images, smi):
@@ -3946,8 +4015,13 @@ def phase_read_path_memcache(url, images, smi):
     the store's ~616 MB of coefficients and must evict; then MEMCACHE_BIG, which holds
     it: epoch 2 is served from memory for all 16 row groups and runs no stage 1, and the
     store counts at least the coefficient bytes (ROADMAP.md Queue 3 M)."""
+    from petastorm_tpu_torch.control.controller import WindowContext
+
     small = _memcache_run(url, images, MEMCACHE_SMALL, smi)
     check(small["evictions"] > 0, "%s: no eviction" % small["label"])
+    check(small["registry_evictions"] == small["evictions"], "%s: the registry's "
+          "ptpu_io_memcache_evictions_total rose by %d for %d evictions" % (
+              small["label"], small["registry_evictions"], small["evictions"]))
     big = _memcache_run(url, images, MEMCACHE_BIG, smi)
     one, two = big["epochs"]
     row_groups = one["tiers"]["tier_remote_hits"]
@@ -3958,6 +4032,16 @@ def phase_read_path_memcache(url, images, smi):
           and two["tiers"]["tier_remote_hits"] == 0, "%s: epoch 2 not served from memory "
           "for every row group: %s" % (big["label"], two["tiers"]))
     check(big["evictions"] == 0, "%s: %d evictions" % (big["label"], big["evictions"]))
+    reg_two = two["registry"]
+    window = {'ptpu_io_tier_hits_total{tier="%s"}' % t: {"delta": _tier_delta(reg_two, t)}
+              for t in ("mem", "disk", "remote")}
+    share = WindowContext(window, 1.0).tier_share("remote")
+    row_groups_stored = _store_row_groups(url)
+    check(_tier_delta(reg_two, "mem") == two["tiers"]["tier_mem_hits"] == row_groups_stored
+          and _tier_delta(reg_two, "remote") == 0 and share == 0.0, "%s epoch 2: the "
+          "registry's tier hits %s against the reader's %s (%d row groups), "
+          "tier_share('remote') %r" % (big["label"], window, two["tiers"],
+                                       row_groups_stored, share))
     check(big["mem"]["memcache_held_bytes"] >= COEF_BYTES, "%s: the store counts %d bytes, "
           "less than the %d bytes of coefficients it holds" % (
               big["label"], big["mem"]["memcache_held_bytes"], COEF_BYTES))

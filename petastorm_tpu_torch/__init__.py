@@ -11,10 +11,30 @@ windows rows, and :class:`WeightedSamplingReader` mixes readers. ``transform_spe
 ``petastorm_tpu`` and no ``jax``. Kernels and the host JPEG decoder build at first use,
 never at import.
 """
-from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+from petastorm_tpu_torch.errors import (  # noqa: F401
+    DecodeFieldError,
+    EmptyResultError,
+    MetadataError,
+    NoDataAvailableError,
+    PetastormTpuError,
+    StallError,
+    TimeoutWaitingForResultError,
+    WorkerDiedError,
+)
+from petastorm_tpu_torch.reader import Reader, make_batch_reader, make_reader
 from petastorm_tpu_torch.transform import TransformSpec, transform_schema
+from petastorm_tpu_torch.unischema import (  # noqa: F401
+    Unischema,
+    UnischemaField,
+    dict_to_record,
+    dict_to_spark_row,
+    encode_row,
+    insert_explicit_nulls,
+    match_unischema_fields,
+)
 
-__all__ = ["make_reader", "make_batch_reader", "TransformSpec", "transform_schema"]
+__all__ = ["make_reader", "make_batch_reader", "Reader", "TransformSpec",
+           "transform_schema"]
 
 
 def __getattr__(name):
@@ -28,6 +48,16 @@ def __getattr__(name):
         from petastorm_tpu_torch.dataset import watch
 
         return getattr(watch, name)
+    if name == "RecoveryOptions":
+        from petastorm_tpu_torch.recovery import RecoveryOptions
+
+        return RecoveryOptions
+    if name == "checkpoint":
+        import importlib
+
+        # importlib, not a from-import: that would re-enter this __getattr__ before the
+        # submodule lands in sys.modules
+        return importlib.import_module("petastorm_tpu_torch.checkpoint")
     if name == "WeightedSamplingReader":
         from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader
 

@@ -34,6 +34,22 @@ class DataframeColumnCodec:
         """Decode a stored value back into the numpy value declared by the field."""
         raise NotImplementedError
 
+    def host_stage_decode(self, unischema_field, encoded):
+        """On-device decode path, host half: stored value → the staging object the
+        reader pool produces in parallel (JPEG entropy decode → coefficient planes).
+        Only meaningful when :attr:`device_decodable` is True."""
+        raise NotImplementedError(
+            "%s does not support on-device decode" % type(self).__name__)
+
+    def device_decode_batch(self, unischema_field, staged, device, stager=None,
+                            resize_to=None):
+        """On-device decode path, device half: staging objects (one a row) → one
+        batched tensor on ``device`` matching :meth:`decode`'s per-row output.
+        ``resize_to=(h, w)`` (image codecs) asks for a resize on the device to one
+        shape, so that mixed-size stores can batch."""
+        raise NotImplementedError(
+            "%s does not support on-device decode" % type(self).__name__)
+
     def arrow_dtype(self, unischema_field=None):
         """pyarrow storage type for this codec's column."""
         raise NotImplementedError

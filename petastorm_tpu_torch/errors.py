@@ -18,6 +18,10 @@ class NoDataAvailableError(PetastormTpuError):
     """Raised when a reader has no row groups to read after sharding."""
 
 
+class EmptyResultError(PetastormTpuError):
+    """Results queue empty and epochs exhausted (reference: workers_pool/__init__.py)."""
+
+
 class TimeoutWaitingForResultError(PetastormTpuError):
     """No worker produced a result within the configured timeout."""
 

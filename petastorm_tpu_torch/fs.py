@@ -1,11 +1,13 @@
 """URL → (pyarrow FileSystem, path) resolution.
 
-Port of ``petastorm_tpu.fs.get_filesystem_and_path_or_paths``: ``file://`` and bare
-paths, ``s3://`` and ``gs://`` through ``pyarrow.fs``, ``hdfs://`` through
+Port of ``petastorm_tpu.fs``. :func:`get_filesystem_and_path_or_paths` resolves
+``file://`` and bare paths, ``s3://`` and ``gs://`` through ``pyarrow.fs``, ``hdfs://`` through
 :func:`petastorm_tpu_torch.hdfs.connect_hdfs` (a nameservice authority resolves through
 the Hadoop config to the namenode failover client; ``hdfs:///path`` maps to
 ``fs.defaultFS``; an explicit ``host:port`` is a plain libhdfs connection), a
 user-supplied ``filesystem``, and an fsspec bridge for other schemes.
+:func:`get_dataset_path` and :class:`FilesystemResolver` are reference Petastorm's
+``fs_utils`` names, which user code calls directly.
 """
 from __future__ import annotations
 
@@ -34,6 +36,42 @@ def get_filesystem_and_path_or_paths(url_or_urls, storage_options=None, filesyst
         filesystem, paths = _resolve(parsed, urls, storage_options or {})
     result = paths if isinstance(url_or_urls, (list, tuple)) else paths[0]
     return filesystem, result
+
+
+def get_dataset_path(parsed_url):
+    """Path component of a parsed dataset URL (reference: fs_utils.get_dataset_path)."""
+    if parsed_url.scheme in ("", "file"):
+        return parsed_url.path
+    return _strip_scheme(parsed_url)
+
+
+class FilesystemResolver:
+    """The reference resolver class (petastorm/fs_utils.py), which user code calls
+    directly: ``FilesystemResolver(url).filesystem()``. New code should prefer
+    :func:`get_filesystem_and_path_or_paths`.
+
+    ``hdfs_driver`` and ``user`` are taken for signature compatibility; the driver is
+    libhdfs only, as in :func:`petastorm_tpu_torch.hdfs.connect_hdfs`.
+    """
+
+    def __init__(self, dataset_url, storage_options=None, filesystem=None,
+                 hdfs_driver=None, user=None):  # noqa: ARG002 — reference signature
+        self._dataset_url = str(dataset_url)
+        self._parsed = urlparse(self._dataset_url)
+        self._filesystem, self._path = get_filesystem_and_path_or_paths(
+            self._dataset_url, storage_options=storage_options, filesystem=filesystem)
+
+    def filesystem(self):
+        """The resolved ``pyarrow.fs`` filesystem."""
+        return self._filesystem
+
+    def get_dataset_path(self):
+        """Filesystem-relative dataset path."""
+        return self._path
+
+    def parsed_dataset_url(self):
+        """The ``urllib.parse`` result for the original URL."""
+        return self._parsed
 
 
 def _strip_scheme(parsed):

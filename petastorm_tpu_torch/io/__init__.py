@@ -144,3 +144,11 @@ class IoOptions:
     def __repr__(self):
         return "IoOptions(%s)" % ", ".join(
             "%s=%r" % (name, getattr(self, name)) for name in self.__slots__)
+
+
+# the read path's building blocks, re-exported at the package as in the JAX package
+from petastorm_tpu_torch.io.coalesce import plan_runs, split_run_table  # noqa: E402,F401
+from petastorm_tpu_torch.io.footercache import FooterCache  # noqa: E402,F401
+from petastorm_tpu_torch.io.memcache import MemCache  # noqa: E402,F401
+from petastorm_tpu_torch.io.readahead import ReadaheadPool  # noqa: E402,F401
+from petastorm_tpu_torch.io.tiers import TieredCache  # noqa: E402,F401

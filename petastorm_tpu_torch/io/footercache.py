@@ -20,7 +20,10 @@ stat identity (``<size>.<mtime_ns>``, the dataset watch of
 taken under another identity misses. A same-size rewrite that keeps the mtime too is
 told apart by :func:`metadata_crc`, the footer half of a generation token
 (:attr:`FooterEntry.crc`). The counters are per cache, read through
-:meth:`FooterCache.stats`.
+:meth:`FooterCache.stats`; the same events rise on a registry (``registry=``, the
+process-wide one by default) under the JAX package's families,
+``ptpu_io_footer_cache_{hits,misses,evictions,invalidations}_total`` and the gauge
+``ptpu_io_footer_cache_bytes``.
 
 Host-wide sharing: with a cache arena in the process
 (:func:`petastorm_tpu_torch.io.arena.process_arena`), every footer this cache admits is
@@ -33,6 +36,9 @@ from __future__ import annotations
 import threading
 import zlib
 from collections import OrderedDict
+
+from petastorm_tpu_torch.obs.metrics import default_registry
+
 
 def metadata_crc(metadata):
     """crc32 of a parsed footer's layout and statistics (row counts, byte sizes, each
@@ -165,7 +171,7 @@ class FooterCache:
     One instance a process (module-level, like the memcache store): pool children each
     build their own on first use. ``clear()`` releases the held bytes."""
 
-    def __init__(self, budget_bytes=DEFAULT_BUDGET_BYTES):
+    def __init__(self, budget_bytes=DEFAULT_BUDGET_BYTES, registry=None):
         self._lock = threading.Lock()
         self._entries = OrderedDict()  # path -> FooterEntry
         self._total = 0
@@ -174,6 +180,21 @@ class FooterCache:
         self._misses = 0
         self._evictions = 0
         self._invalidations = 0
+        reg = registry if registry is not None else default_registry()
+        self._hits_total = reg.counter(
+            "ptpu_io_footer_cache_hits_total",
+            help="ParquetFile opens served a cached parsed footer")
+        self._misses_total = reg.counter(
+            "ptpu_io_footer_cache_misses_total",
+            help="footer reads+parses that went to storage")
+        self._evictions_total = reg.counter(
+            "ptpu_io_footer_cache_evictions_total",
+            help="parsed footers dropped for budget")
+        self._invalidations_total = reg.counter(
+            "ptpu_io_footer_cache_invalidations_total",
+            help="cached footers dropped because the file changed size")
+        self._bytes_gauge = reg.gauge(
+            "ptpu_io_footer_cache_bytes", help="parsed footer bytes held")
 
     def lookup(self, path, size=None, stat_token=None):
         """The cached :class:`FooterEntry` for ``path``, or ``None`` (a miss).
@@ -193,13 +214,17 @@ class FooterCache:
             if stale:
                 del self._entries[path]
                 self._total -= entry.nbytes
+                self._bytes_gauge.set(self._total)
                 self._invalidations += 1
+                self._invalidations_total.inc()
                 entry = None
             if entry is None:
                 self._misses += 1
+                self._misses_total.inc()
                 return None
             self._entries.move_to_end(path)
             self._hits += 1
+            self._hits_total.inc()
             return entry
 
     def peek(self, path):
@@ -217,10 +242,12 @@ class FooterCache:
         protocol (the remote engine's footer plane)."""
         with self._lock:
             self._hits += 1
+        self._hits_total.inc()
 
     def count_miss(self):
         with self._lock:
             self._misses += 1
+        self._misses_total.inc()
 
     def from_arena(self, path, size=None, stat_token=None):
         """The footer of ``path`` mapped from the host-wide arena (another process
@@ -244,7 +271,9 @@ class FooterCache:
             entry = self._entries.pop(path, None)
             if entry is not None:
                 self._total -= entry.nbytes
+                self._bytes_gauge.set(self._total)
                 self._invalidations += 1
+                self._invalidations_total.inc()
         arena_obj = _host_arena()
         if arena_obj is not None:
             arena_obj.invalidate(("ft", path))
@@ -267,6 +296,7 @@ class FooterCache:
             if old is not None:
                 self._total -= old.nbytes
             if self._budget and entry.nbytes > self._budget:
+                self._bytes_gauge.set(self._total)
                 return entry
             self._entries[path] = entry
             self._total += entry.nbytes
@@ -275,6 +305,8 @@ class FooterCache:
                 _, evicted = self._entries.popitem(last=False)
                 self._total -= evicted.nbytes
                 self._evictions += 1
+                self._evictions_total.inc()
+            self._bytes_gauge.set(self._total)
         return entry
 
     def get(self, fs, path, source=None, stat_token=None):
@@ -314,6 +346,7 @@ class FooterCache:
         with self._lock:
             self._entries.clear()
             self._total = 0
+            self._bytes_gauge.set(0)
 
     def stats(self):
         with self._lock:

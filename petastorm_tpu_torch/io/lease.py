@@ -276,6 +276,19 @@ def readonly_view(value):
     return value
 
 
+#: the copy sites the port charges: documentation, and a tripwire for a misspelt site
+#: in a benchmark's assertion (a new site registers at its first charge all the same)
+KNOWN_SITES = (
+    "wire_writable",   # the default wire's writable-contract copy (serializers)
+    "wire_owned",      # a shm pickle payload backed by owned buffers (serializers)
+    "memcache_hit",    # the writable-hit deep copy (memcache writable_hits=True)
+    "memcache_admit",  # the miss path's copy (memcache writable_hits=True)
+    "memcache_cow",    # the writable escalation of a leased entry
+    "lease_cow",       # LeasedBatch.writable()
+    "loader_detach",   # the loader's copy out of view columns (shuffle, host only)
+    "arena_admit",     # the one copy into the shared cache arena (io/arena.py)
+)
+
 _census = {}  # site -> its ptpu_copy_bytes_total{site=...} counter
 
 

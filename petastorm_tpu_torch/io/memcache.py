@@ -38,7 +38,10 @@ its budget does not bound a device-decode store); the port does not copy that.
 Entries larger than the whole budget are served uncached (degradation
 ``memcache_oversized``). The counters are the store's, read through
 :meth:`MemCache.stats`; ``Reader.io_stats()`` carries them, and a
-``DataLoader(metrics=...)`` exports them as ``ptpu_io_*`` (its ``io`` collector).
+``DataLoader(metrics=...)`` exports them as ``ptpu_io_*`` (its ``io`` collector). The
+same events rise on the process-wide registry under the JAX package's families,
+``ptpu_io_memcache_{hits,misses,evictions}_total`` and the gauge
+``ptpu_io_memcache_bytes``.
 
 The host-wide tier: ``arena=`` (an :class:`~petastorm_tpu_torch.io.arena.ArenaSpec` or a
 live ``CacheArena``) layers the shared cache arena between this process's store and the
@@ -57,6 +60,7 @@ import numpy as np
 
 from petastorm_tpu_torch.cache import CacheBase, NullCache
 from petastorm_tpu_torch.io.lease import Lease, count_copy, readonly_view
+from petastorm_tpu_torch.obs.metrics import default_registry
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 
 
@@ -213,6 +217,16 @@ class _Store:
         self._hits = 0
         self._misses = 0
         self._evictions = 0
+        reg = default_registry()
+        self._hits_total = reg.counter("ptpu_io_memcache_hits_total",
+                                       help="row-group reads served from memory")
+        self._misses_total = reg.counter("ptpu_io_memcache_misses_total",
+                                         help="memcache misses (fell through to the "
+                                              "inner cache / a real read)")
+        self._evictions_total = reg.counter("ptpu_io_memcache_evictions_total",
+                                            help="entries LRU-evicted for budget")
+        self._bytes_gauge = reg.gauge("ptpu_io_memcache_bytes",
+                                      help="decoded payload bytes held in memory")
 
     def raise_budget(self, budget):
         with self._lock:
@@ -230,7 +244,9 @@ class _Store:
                 _, (_, old_bytes, old_lease) = self._entries.popitem(last=False)
                 self._total -= old_bytes
                 self._evictions += 1
+                self._evictions_total.inc()
                 evicted.append(old_lease)
+            self._bytes_gauge.set(self._total)
         for lease in evicted:
             lease.release()
 
@@ -246,9 +262,11 @@ class _Store:
             hit = self._entries.get(key)
             if hit is None:
                 self._misses += 1
+                self._misses_total.inc()
                 return False, None
             self._entries.move_to_end(key)
             self._hits += 1
+            self._hits_total.inc()
             return True, hit[0]
 
     def contains(self, key):
@@ -262,6 +280,7 @@ class _Store:
             entry = self._entries.pop(key, None)
             if entry is not None:
                 self._total -= entry[1]
+                self._bytes_gauge.set(self._total)
         if entry is not None:
             entry[2].release()
 
@@ -291,7 +310,9 @@ class _Store:
                     _, (_, old_bytes, old_lease) = self._entries.popitem(last=False)
                     self._total -= old_bytes
                     self._evictions += 1
+                    self._evictions_total.inc()
                     evicted.append(old_lease)
+                self._bytes_gauge.set(self._total)
         for lease in evicted:
             lease.release()  # accounting: evicted buffers live on in served views
         if oversized:
@@ -305,10 +326,13 @@ class _Store:
         with self._lock:
             entries, self._entries = self._entries, OrderedDict()
             self._total = 0
+            self._bytes_gauge.set(0)
         for _value, _nbytes, lease in entries.values():
             lease.release()
 
     def stats(self):
+        # "held_bytes", not "bytes": the io collector exports each key as
+        # ptpu_io_<key>, which must not collide with the ptpu_io_memcache_bytes family
         with self._lock:
             return {
                 "memcache_entries": len(self._entries),

@@ -33,9 +33,14 @@ plane armed (:mod:`petastorm_tpu_torch.obs.provenance`) the claiming item is ann
 ``readahead`` = ``hit`` or ``miss``, and a hit carries the IO thread's read as an
 ``io.readahead`` span (its timestamps are the IO thread's, taken when it read, on the same
 ``perf_counter`` clock) plus the claimer's remaining wait as ``io.readahead_wait``. The
-counts are per
-pool, read through :meth:`ReadaheadPool.stats`; ``Reader.io_stats()`` carries them, and a
-``DataLoader(metrics=...)`` exports that dict as the ``ptpu_io_*`` families. The depth,
+counts are per pool, read through :meth:`ReadaheadPool.stats`; ``Reader.io_stats()``
+carries them, and a ``DataLoader(metrics=...)`` exports that dict through its ``io``
+collector. The same events rise on a registry (``registry=``, the process-wide one by
+default) under the JAX package's families: ``ptpu_io_readahead_{hits,misses,
+evictions}_total``, ``ptpu_io_coalesced_{reads,items}_total``, the gauges
+``ptpu_io_readahead_depth`` (reads in flight) and ``ptpu_io_readahead_bytes`` (completed
+bytes awaiting their claim), and the histograms ``ptpu_io_read_seconds`` (background
+reads) and ``ptpu_io_wait_seconds`` (foreground waits). The depth,
 the byte budget and the IO thread count are live knobs (:meth:`ReadaheadPool.apply_depth`,
 :meth:`~ReadaheadPool.apply_byte_budget`, :meth:`~ReadaheadPool.apply_io_threads`), the
 seam :mod:`petastorm_tpu_torch.control` actuates; the options are never mutated.
@@ -50,6 +55,7 @@ from collections import OrderedDict
 from petastorm_tpu_torch.io.coalesce import plan_runs
 from petastorm_tpu_torch.obs import provenance as _prov
 from petastorm_tpu_torch.obs.health import ActorSlots
+from petastorm_tpu_torch.obs.metrics import default_registry
 from petastorm_tpu_torch.parallel.shm_ring import degradation
 
 #: pools whose IO threads must be joined before interpreter finalization.
@@ -112,7 +118,9 @@ def _drain_live_pools():
             t.join(max(0.05, deadline - time.monotonic()))
     from concurrent.futures import thread as cf_thread
 
-    for executor in [p._pool for p in pools] + dying:
+    for pool in pools:
+        pool.abandon_hung_threads()
+    for executor in dying:
         _abandon_pool_threads(executor, cf_thread)
 
 
@@ -166,11 +174,12 @@ class ReadaheadPool:
     ``read_run_fn(pieces, columns) -> [tables]`` (optional) its coalesced ranged read of
     adjacent row groups; ``gap_ok(prev, piece)`` (optional) lets the run planner bridge
     non-adjacent row groups. Shut down with :meth:`shutdown`: the pool owns threads.
+    ``registry`` takes the pool's families (the process-wide registry by default).
     """
 
     def __init__(self, read_fn, read_run_fn=None, depth=3, byte_budget=256 << 20,
                  io_threads=2, coalesce=True, coalesce_max_run=4,
-                 wait_timeout_s=300.0, gap_ok=None):
+                 wait_timeout_s=300.0, registry=None, gap_ok=None):
         from concurrent.futures import ThreadPoolExecutor
 
         self._read_fn = read_fn
@@ -209,6 +218,31 @@ class ReadaheadPool:
         self._sync_s_cum = 0.0
         self._pool = ThreadPoolExecutor(max_workers=self._io_threads,
                                         thread_name_prefix="ptpu-torch-io")
+        # the families are process-wide (shared by every pool on the registry); the
+        # _n_* tallies above are this pool's own, for stats()
+        reg = registry if registry is not None else default_registry()
+        self._hits = reg.counter("ptpu_io_readahead_hits_total",
+                                 help="foreground reads served by readahead")
+        self._misses = reg.counter("ptpu_io_readahead_misses_total",
+                                   help="foreground reads not prefetched")
+        self._evictions = reg.counter("ptpu_io_readahead_evictions_total",
+                                      help="prefetched tables dropped for budget")
+        self._coalesced_reads = reg.counter(
+            "ptpu_io_coalesced_reads_total",
+            help="ranged reads that merged >1 adjacent row group")
+        self._coalesced_items = reg.counter(
+            "ptpu_io_coalesced_items_total",
+            help="row groups delivered through merged ranged reads")
+        self._depth_gauge = reg.gauge("ptpu_io_readahead_depth",
+                                      help="background reads currently in flight")
+        self._bytes_gauge = reg.gauge(
+            "ptpu_io_readahead_bytes",
+            help="completed prefetched table bytes awaiting consumption")
+        self._read_hist = reg.histogram("ptpu_io_read_seconds",
+                                        help="background row-group read latency")
+        self._wait_hist = reg.histogram(
+            "ptpu_io_wait_seconds",
+            help="foreground wait on an in-flight prefetched read")
         with _live_pools_lock:
             _live_pools.add(self)
         _install_exit_drain()
@@ -223,6 +257,7 @@ class ReadaheadPool:
         with self._lock:
             self._depth = depth
             self._evict_over_budget()  # the completed-entry cap scales with the depth
+            self._bytes_gauge.set(self._held_bytes)
         return depth
 
     def apply_byte_budget(self, nbytes):
@@ -232,6 +267,7 @@ class ReadaheadPool:
         with self._lock:
             self._byte_budget = nbytes if nbytes > 0 else None
             self._evict_over_budget()
+            self._bytes_gauge.set(self._held_bytes)
         return 0 if self._byte_budget is None else self._byte_budget
 
     def apply_io_threads(self, io_threads):
@@ -295,6 +331,7 @@ class ReadaheadPool:
                 self._entries[key] = _Entry()
                 fresh.append((piece, columns))
             self._pending += len(fresh)
+            self._depth_gauge.set(self._pending)
         if not fresh:
             return 0
         submitted = set()
@@ -314,6 +351,7 @@ class ReadaheadPool:
                     if key not in submitted and \
                             self._entries.pop(key, None) is not None:
                         self._pending -= 1
+                self._depth_gauge.set(self._pending)
             raise
         return len(fresh)
 
@@ -372,6 +410,8 @@ class ReadaheadPool:
                 tables = [self._read_fn(pieces[0], columns)]
             else:
                 tables = self._read_run_fn(pieces, columns)
+                self._coalesced_reads.inc()
+                self._coalesced_items.inc(len(pieces))
                 with self._lock:
                     self._n_coalesced_reads += 1
                     self._n_coalesced_items += len(pieces)
@@ -383,6 +423,7 @@ class ReadaheadPool:
                 "foreground read will re-raise it", pieces[0].path,
                 [p.row_group for p in pieces], e)
         dur = time.perf_counter() - t0
+        self._read_hist.observe(dur)
         tracer = self._tracer
         if tracer is not None:
             tracer.add("io.readahead", t0, dur)
@@ -408,6 +449,8 @@ class ReadaheadPool:
                     self._held_bytes += entry.nbytes
                 entry.event.set()
             self._evict_over_budget()
+            self._depth_gauge.set(self._pending)
+            self._bytes_gauge.set(self._held_bytes)
         self._io_slots.end(name, "idle")  # parked in the pool's queue until its next task
 
     def _evict_over_budget(self):
@@ -431,6 +474,7 @@ class ReadaheadPool:
             del self._entries[key]
             self._held_bytes -= entry.nbytes  # graftlint: disable=GL-C001 (callers hold self._lock: apply_depth, apply_byte_budget, the read task)
             self._n_evictions += 1  # graftlint: disable=GL-C001 (callers hold self._lock)
+            self._evictions.inc()
 
     # -- consumption --------------------------------------------------------------------
 
@@ -444,6 +488,7 @@ class ReadaheadPool:
             entry = self._entries.get(key)
             if entry is None or entry.claimed:
                 self._n_misses += 1
+                self._misses.inc()
                 if _prov.ACTIVE is not None:
                     _prov.annotate("readahead", "miss")
                 return None
@@ -451,6 +496,7 @@ class ReadaheadPool:
         t0 = time.perf_counter()
         completed = entry.event.wait(self._wait_timeout_s)
         wait = time.perf_counter() - t0
+        self._wait_hist.observe(wait)
         tracer = self._tracer
         if tracer is not None and wait > 1e-6:
             tracer.add("io.wait", t0, wait)
@@ -459,7 +505,9 @@ class ReadaheadPool:
             self._entries.pop(key, None)
             if entry.table is not None:
                 self._held_bytes -= entry.nbytes
+                self._bytes_gauge.set(self._held_bytes)
                 self._n_hits += 1
+                self._hits.inc()
                 if _prov.ACTIVE is not None:
                     # the background read (it overlapped earlier items' work: the fold
                     # charges only what was serialized) and the claimer's residual wait
@@ -502,6 +550,15 @@ class ReadaheadPool:
         for t in list(getattr(self._pool, "_threads", ()) or ()):
             t.join(max(0.05, deadline - time.monotonic()))
 
+    def abandon_hung_threads(self):
+        """Detach still-alive IO threads from interpreter-exit bookkeeping after a
+        bounded join expired: a read hung against a wedged filesystem forfeits the
+        clean-teardown guarantee instead of hanging exit (the exit drain calls this for
+        every live pool)."""
+        from concurrent.futures import thread as cf_thread
+
+        _abandon_pool_threads(self._pool, cf_thread)
+
     def shutdown(self):
         """Cancel pending reads, release waiters, stop the IO threads. Idempotent; the
         worker calls it from ``close()`` (``Reader.join``). Does not wait for an
@@ -514,6 +571,8 @@ class ReadaheadPool:
             self._entries.clear()
             self._pending = 0
             self._held_bytes = 0
+            self._depth_gauge.set(0)
+            self._bytes_gauge.set(0)
         for entry in entries:
             if entry.table is None and entry.error is None:
                 entry.error = _CancelledRead()
@@ -525,7 +584,10 @@ class ReadaheadPool:
             _dying_executors.append(self._pool)
 
     def stats(self):
-        """The pool's gauges and counts (``Reader.io_stats()``)."""
+        """The pool's gauges and counts (``Reader.io_stats()``). The keys differ from
+        the registered gauge families (``readahead_held_bytes``, not
+        ``readahead_bytes``): the ``io`` collector exports each key as ``ptpu_io_<key>``,
+        and a collision would be a duplicate family, which scrapers reject."""
         with self._lock:
             return {
                 "readahead_pending": self._pending,

@@ -317,11 +317,8 @@ _FAMILIES = {
 }
 
 
-def _registry_families():
-    """``{count name: Counter}`` on the process-wide registry."""
-    from petastorm_tpu_torch.obs.metrics import default_registry
-
-    reg = default_registry()
+def _registry_families(reg):
+    """``{count name: Counter}`` on ``reg``."""
     return {name: reg.counter(family, help=text)
             for name, (family, text) in _FAMILIES.items()}
 
@@ -434,10 +431,11 @@ class RemoteReadEngine:
 
     Owns a bounded thread pool (``max_inflight``); :meth:`shutdown` stops it
     (idempotent; the worker's ``close()`` calls it at ``Reader.join``) and joins its
-    threads, bounded."""
+    threads, bounded. ``registry`` takes the engine's count families (the process-wide
+    registry by default)."""
 
-    def __init__(self, fs, options=None, footer_cache=None, latency_model=None,
-                 store_key=None):
+    def __init__(self, fs, options=None, footer_cache=None, registry=None,
+                 latency_model=None, store_key=None):
         from concurrent.futures import ThreadPoolExecutor
 
         self._fs = fs
@@ -461,7 +459,12 @@ class RemoteReadEngine:
                                         thread_name_prefix="ptpu-torch-remote")
         self._n = {"gets": 0, "bytes": 0, "hedges": 0, "hedge_wins": 0,
                    "sparse_fallbacks": 0, "footer_fetches": 0, "footer_arena_maps": 0}
-        self._families = _registry_families()
+        if registry is None:
+            from petastorm_tpu_torch.obs.metrics import default_registry
+
+            registry = default_registry()
+        self._reg = registry
+        self._families = _registry_families(registry)
         #: a TraceRecorder the io.remote spans go to (set_trace; None: off)
         self._tracer = None
         with _live_engines_lock:
@@ -492,9 +495,7 @@ class RemoteReadEngine:
             family.inc(n)
             if tenant is not None:
                 # the tenant's twin, beside the untagged total: the twins sum to it
-                from petastorm_tpu_torch.obs.metrics import default_registry
-
-                default_registry().counter(_FAMILIES[name][0], tenant=tenant).inc(n)
+                self._reg.counter(_FAMILIES[name][0], tenant=tenant).inc(n)
 
     def _all_pools(self):
         with self._lock:
@@ -990,10 +991,10 @@ class _SparseFile:
         return False
 
 
-def build_engine(fs, remote_opts):
+def build_engine(fs, remote_opts, registry=None):
     """The engine with its footer cache, by policy: the shared process-wide cache when
     ``footer_cache_bytes`` asks for one, none (a tail GET a read) otherwise. ``None``
-    when the tier is off for this filesystem."""
+    when the tier is off for this filesystem. ``registry`` as the engine's."""
     if not remote_opts.active_for(fs):
         return None
     footer_cache = None
@@ -1001,4 +1002,5 @@ def build_engine(fs, remote_opts):
         from petastorm_tpu_torch.io.footercache import configure_budget
 
         footer_cache = configure_budget(remote_opts.footer_cache_bytes)
-    return RemoteReadEngine(fs, options=remote_opts, footer_cache=footer_cache)
+    return RemoteReadEngine(fs, options=remote_opts, footer_cache=footer_cache,
+                            registry=registry)

@@ -16,9 +16,13 @@ The funnel degrades to its parts: no mem budget, no mem tier; ``cache_type="null
 a disk tier that holds nothing. The mem tier's read-only serving contract is
 :class:`~petastorm_tpu_torch.io.memcache.MemCache`'s, which also holds the arena tier
 and reports which of the two served. The funnel's counts reach the registry as
-``ptpu_io_*`` through ``Reader.io_stats()`` (a loader's ``io`` collector). A funnel built
-for a tagged reader (``tenant=``) also charges each serve's payload bytes to its tenant's
-``read_bytes`` (:mod:`petastorm_tpu_torch.obs.tenant`). The admission policy is a live
+``ptpu_io_*`` through ``Reader.io_stats()`` (a loader's ``io`` collector), and each serve
+rises on the process-wide registry under the JAX package's families,
+``ptpu_io_tier_hits_total{tier=...}`` and ``ptpu_io_tier_bytes_total{tier=...}`` (the
+controller's ``tier_share`` and the stats CLI's cache-tier panel read them). A funnel
+built for a tagged reader (``tenant=``) also charges their ``tenant=`` twins, beside the
+untagged totals, and each serve's payload bytes to its tenant's ``read_bytes``
+(:mod:`petastorm_tpu_torch.obs.tenant`). The admission policy is a live
 knob (:meth:`TieredCache.apply_disk_admit`). With the provenance plane armed each serve
 annotates its item's ``cache_tier`` with the tier that served it.
 """
@@ -30,6 +34,7 @@ from petastorm_tpu_torch.cache import CacheBase, NullCache
 from petastorm_tpu_torch.io.memcache import payload_nbytes
 from petastorm_tpu_torch.obs import provenance as _prov
 from petastorm_tpu_torch.obs import tenant as _tenant
+from petastorm_tpu_torch.obs.metrics import default_registry
 
 #: serve-attribution tiers, hot to cold: ``arena`` sits between this process's mem
 #: store and the disk tier (a shared mapping costs less than a disk read, more than a
@@ -60,11 +65,16 @@ class TieredCache(CacheBase):
         self._tenant = tenant
         self._counts_lock = threading.Lock()
         self._counts = {t: [0, 0] for t in TIERS}
+        #: the registry families, resolved at the first serve in each process: a
+        #: registry handle does not cross the pickle into a pool child, which counts
+        #: into its own registry
+        self._metrics = None
 
     def __getstate__(self):
         state = dict(self.__dict__)
         state["_counts_lock"] = None
         state["_counts"] = None
+        state["_metrics"] = None
         return state
 
     def __setstate__(self, state):
@@ -72,13 +82,36 @@ class TieredCache(CacheBase):
         self._counts_lock = threading.Lock()
         self._counts = {t: [0, 0] for t in TIERS}  # graftlint: disable=GL-C001 (unpickling: no other thread sees the object yet, as in __init__)
 
+    def _families(self):
+        """``{tier: (hits, bytes, tenant twins or None)}`` on the process-wide
+        registry, every tier's at once."""
+        metrics = self._metrics
+        if metrics is None:
+            reg = default_registry()
+            metrics = self._metrics = {
+                t: (reg.counter("ptpu_io_tier_hits_total",
+                                help="reads served per cache tier", tier=t),
+                    reg.counter("ptpu_io_tier_bytes_total",
+                                help="payload bytes served per cache tier", tier=t),
+                    None if self._tenant is None else
+                    (reg.counter("ptpu_io_tier_hits_total", tier=t, tenant=self._tenant),
+                     reg.counter("ptpu_io_tier_bytes_total", tier=t,
+                                 tenant=self._tenant)))
+                for t in TIERS}
+        return metrics
+
     def _count(self, tier, value):
         n = payload_nbytes(value)
         with self._counts_lock:
             slot = self._counts[tier]
             slot[0] += 1
             slot[1] += n
-        if self._tenant is not None:
+        hits, nbytes, tagged = self._families()[tier]
+        hits.inc()
+        nbytes.inc(n)
+        if tagged is not None:
+            tagged[0].inc()
+            tagged[1].inc(n)
             _tenant.charge("read_bytes", n, label=self._tenant)
 
     def _admit_disk(self, value):

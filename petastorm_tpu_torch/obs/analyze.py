@@ -57,7 +57,7 @@ class BottleneckReport:
     reason: str
     percentiles: dict | None = None  # stage -> {p50, p90, p99}, when metrics on
     straggler: dict | None = None    # {worker, mean_s, peer_median_s, ratio}, when detected
-    transform_ops: dict | None = None  # fused-op label -> {"count", "sum"}
+    transform_ops: dict | None = None  # fused-op label -> histogram summary
     slo_alerts: list | None = None   # recent debounced SLO/anomaly alerts
 
     def to_dict(self):
@@ -100,8 +100,9 @@ class BottleneckReport:
             for op in sorted(self.transform_ops,
                              key=lambda o: -self.transform_ops[o]["sum"]):
                 s = self.transform_ops[op]
-                lines.append("    %-20s total %8.3fs over %6d calls"
-                             % (op, s["sum"], s["count"]))
+                lines.append("    %-20s total %8.3fs over %6d calls  p50 %7.2fms  "
+                             "p99 %7.2fms" % (op, s["sum"], s["count"], s["p50"] * 1e3,
+                                              s["p99"] * 1e3))
         if self.slo_alerts:
             lines.append("  slo alerts (newest last):")
             for alert in self.slo_alerts[-5:]:

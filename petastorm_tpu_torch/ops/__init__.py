@@ -14,7 +14,7 @@ def __getattr__(name):
 
         return DeviceShuffleBuffer
     if name in ("idct_blocks", "decode_jpeg_device_stage", "ycbcr_to_rgb",
-                "entropy_decode_jpeg_fast", "decode_jpeg_batch"):
+                "entropy_decode_jpeg_fast", "decode_jpeg_batch", "decode_jpeg"):
         from petastorm_tpu_torch.ops import jpeg
 
         return getattr(jpeg, name)

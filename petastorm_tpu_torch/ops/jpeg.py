@@ -591,6 +591,14 @@ def decode_jpeg_device_stage(planes, device=None):
     return _to_uint8(ycbcr_to_rgb(full[0], full[1], full[2]))
 
 
+def decode_jpeg(data, device=None):
+    """Full two-stage decode of one image: JPEG bytes → (h, w, 3) uint8 RGB tensor on
+    ``device`` (the card unless the caller asks for the CPU). Stage 1 is the native
+    entropy decode (int16 coefficients), so on the card each component is one unpack
+    launch and one K1 launch (:func:`decode_jpeg_device_stage`)."""
+    return decode_jpeg_device_stage(entropy_decode_jpeg_fast(data), device=device)
+
+
 # -- the stage-2 unpack: shipped slabs → dequantised blocks (csrc/coef_unpack.cu) ------
 
 

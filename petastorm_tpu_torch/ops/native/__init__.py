@@ -134,6 +134,21 @@ def _require():
     return lib
 
 
+def jpeg_parse_layout_native(data):
+    """JPEG bytes → layout tuple ``(height, width, ((h, v, by, bx), ...))`` from the
+    frame header only (no entropy decode). ValueError on non-baseline or corrupt
+    headers."""
+    lib = _require()
+    raw = bytes(data)
+    out = _JpegLayout()
+    rc = lib.ptpu_jpeg_parse_layout(raw, len(raw), ctypes.byref(out))
+    if rc != 0:
+        _raise_for(lib, rc)
+    comps = tuple((out.h_samp[c], out.v_samp[c], out.blocks_y[c], out.blocks_x[c])
+                  for c in range(out.ncomp))
+    return out.height, out.width, comps
+
+
 def jpeg_decode_coeffs_batch_native(blobs):
     """Entropy-decode a whole row group of same-layout JPEGs in ONE native call.
 

@@ -45,8 +45,10 @@ arithmetic is uint32 on both targets, computed on the device in int64 masked to 
 after every multiply, so host and device produce identical ids.
 
 Ops that need dataset statistics resolve them through
-:mod:`petastorm_tpu_torch.io.statscache`. Per-fused-stage host timing is kept in plain
-in-module counters (:func:`transform_op_stats`, :func:`transform_rows_total`).
+:mod:`petastorm_tpu_torch.io.statscache`. The host target's time a fused stage and its
+rows rise on the process-wide registry under the JAX package's families,
+``ptpu_transform_seconds{op=<stage label>}`` and ``ptpu_transform_rows_total``
+(:func:`transform_op_stats`, :func:`transform_rows_total`).
 """
 from __future__ import annotations
 
@@ -867,44 +869,67 @@ class FeatureCross(Op):
 
 
 # --------------------------------------------------------------------------------------
-# Per-stage host timing
+# Per-stage metrics (ptpu_transform_*)
 # --------------------------------------------------------------------------------------
 
-_stats_lock = threading.Lock()
-_op_seconds = {}  # fused-stage label -> [observations, seconds]
-_rows = [0]
+_metrics_lock = threading.Lock()
+_op_seconds = {}  # fused-stage label -> its Histogram on the process-wide registry
+_rows_counter = None
+
+
+def _stage_histogram(label):
+    """The ``ptpu_transform_seconds{op=label}`` histogram, resolved once a process
+    (nothing registry-shaped lives on a pipeline: it pickles into pool children, which
+    count into their own registries)."""
+    hist = _op_seconds.get(label)
+    if hist is None:
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        with _metrics_lock:
+            hist = _op_seconds.get(label)
+            if hist is None:
+                hist = _op_seconds[label] = default_registry().histogram(
+                    "ptpu_transform_seconds",
+                    help="declarative transform time per fused stage, by op", op=label)
+    return hist
+
+
+def _count_rows(n):
+    """Bump ``ptpu_transform_rows_total`` (resolved once a process)."""
+    global _rows_counter
+    counter = _rows_counter
+    if counter is None:
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        counter = _rows_counter = default_registry().counter(
+            "ptpu_transform_rows_total",
+            help="rows through the declarative transform stage")
+    counter.inc(n)
 
 
 def _record_stage(label, t0):
     """One run of a fused stage that started at ``t0`` (``perf_counter``): its seconds
-    into the per-label totals, and a ``transform.<label>`` span onto the calling item's
+    into the stage's histogram, and a ``transform.<label>`` span onto the calling item's
     provenance record (nested in the worker's ``transform`` span)."""
     seconds = time.perf_counter() - t0
-    with _stats_lock:
-        entry = _op_seconds.setdefault(label, [0, 0.0])
-        entry[0] += 1
-        entry[1] += seconds
+    _stage_histogram(label).observe(seconds)
     if _prov.ACTIVE is not None:
         _prov.add_span("transform.%s" % label, t0, seconds)
 
 
-def _count_rows(n):
-    with _stats_lock:
-        _rows[0] += n
-
-
 def transform_op_stats():
-    """``{fused-stage label: {"count": stage runs, "sum": seconds}}`` of the host target
-    in THIS process (thread and dummy pools; process-pool children keep their own)."""
-    with _stats_lock:
-        return {label: {"count": n, "sum": s} for label, (n, s) in _op_seconds.items()
-                if n}
+    """``{fused-stage label: histogram summary}`` (count, sum, percentiles) of the
+    host target in THIS process (thread and dummy pools; process-pool children keep
+    their own registries)."""
+    with _metrics_lock:
+        items = list(_op_seconds.items())
+    return {label: hist.snapshot() for label, hist in items if hist.count}
 
 
 def transform_rows_total():
     """Rows through the host target in this process."""
-    with _stats_lock:
-        return _rows[0]
+    counter = _rows_counter
+    return counter.value if counter is not None else 0
 
 
 # --------------------------------------------------------------------------------------

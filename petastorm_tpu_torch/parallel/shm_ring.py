@@ -136,7 +136,7 @@ class SlabRing:
     first page it cannot fault in, so a ring that does not fit raises ``OSError`` here
     and the pool degrades to the socket wire."""
 
-    def __init__(self, slab_bytes, num_slabs):
+    def __init__(self, slab_bytes, num_slabs, trace=None):
         from multiprocessing import shared_memory
 
         if slab_bytes <= 0 or num_slabs <= 0:
@@ -169,8 +169,9 @@ class SlabRing:
         #: slab id -> weakref to the view-mode Lease issued over it (reclaim() revokes
         #: it rather than re-granting a slab a consumer still views)
         self._leases = {}
-        #: a TraceRecorder that receives ``shm.acquire_wait`` spans (set_trace)
-        self._trace = None
+        #: a TraceRecorder that receives ``shm.acquire_wait`` spans (``trace=``,
+        #: set_trace)
+        self._trace = trace
         self._grants = 0
         self._items = 0
         self._bytes_through = 0

@@ -181,6 +181,10 @@ class EpochPlan:
         with self._lock:
             return sum(count for birth, count in self._births if birth <= epoch)
 
+    def remaining_in_epoch(self):
+        """Items of the current epoch's permutation not yet handed out."""
+        return len(self._perm) - self._pos
+
     def exhausted(self):
         if not self._items:
             return True
@@ -196,6 +200,14 @@ class EpochPlan:
             self._skip = {}
             self._perm = epoch_permutation(len(self._items), 0, self._seed, self._shuffle)
             self._births = [(0, len(self._items))]
+
+    def seek_epoch(self, epoch):
+        """Jump to the start of ``epoch`` (consumed-aware resume)."""
+        with self._lock:
+            self._epoch = int(epoch)
+            self._pos = 0
+            self._perm = epoch_permutation(len(self._items), self._epoch, self._seed,
+                                           self._shuffle)
 
     def set_skip(self, skip):
         """Set the {epoch: set(ordinal)} map of work to omit (consumed-aware resume)."""

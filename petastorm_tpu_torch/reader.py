@@ -239,6 +239,46 @@ def _close_quietly(pf):
 #: worker objects stay picklable, with no lock of their own)
 _io_init_lock = threading.Lock()
 
+_file_eviction_counter = None
+
+
+def _count_file_eviction():
+    """Bump ``ptpu_io_file_evictions_total`` (resolved once a process: workers stay
+    picklable, and a pool child counts into its own registry)."""
+    global _file_eviction_counter
+    counter = _file_eviction_counter
+    if counter is None:
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        counter = _file_eviction_counter = default_registry().counter(
+            "ptpu_io_file_evictions_total",
+            help="cached open-ParquetFile handles closed (LRU bound or "
+                 "transient-IO-retry reopen)")
+    counter.inc()
+
+
+_store_serve_counters = None
+
+
+def _count_store_serve(nbytes):
+    """One serve of a reader with no cache funnel: ``ptpu_io_tier_hits_total`` and
+    ``ptpu_io_tier_bytes_total`` of the ``remote`` tier, the series the funnel
+    (:class:`~petastorm_tpu_torch.io.tiers.TieredCache`) counts its store reads on
+    (resolved once a process, as :func:`_count_file_eviction`)."""
+    global _store_serve_counters
+    counters = _store_serve_counters
+    if counters is None:
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        reg = default_registry()
+        counters = _store_serve_counters = (
+            reg.counter("ptpu_io_tier_hits_total", help="reads served per cache tier",
+                        tier="remote"),
+            reg.counter("ptpu_io_tier_bytes_total",
+                        help="payload bytes served per cache tier", tier="remote"))
+    counters[0].inc()
+    counters[1].inc(nbytes)
+
 
 class _WorkerBase:
     """Shared row-group loading: column-pruned reads through per-thread open files (each
@@ -316,11 +356,22 @@ class _WorkerBase:
         get_writable = getattr(self._cache, "get_writable", None)
         if _spec_wants_writable(self._transform_spec) and get_writable is not None:
             return get_writable(key, fill)
-        if _prov.ACTIVE is not None and isinstance(self._cache, NullCache):
+        if isinstance(self._cache, NullCache):
             # no funnel was built (no cache configured): every serve reads the store,
-            # which the TieredCache annotates as "remote"
-            _prov.annotate("cache_tier", "remote")
+            # the serve the funnel counts and annotates as the "remote" tier's. It is
+            # sized by the bytes the read returned (_note_read_bytes), not by the
+            # funnel's walk over the decoded payload, a pass over every row
+            if _prov.ACTIVE is not None:
+                _prov.annotate("cache_tier", "remote")
+            self._local.read_nbytes = 0
+            value = fill()
+            _count_store_serve(self._local.read_nbytes)
+            return value
         return self._cache.get(key, fill)
+
+    def _note_read_bytes(self, nbytes):
+        """The bytes one fill read from the store: an uncached serve's size."""
+        self._local.read_nbytes = nbytes
 
     def _cache_key(self, item):
         piece, partition = item
@@ -369,6 +420,7 @@ class _WorkerBase:
             while len(cache) > self.MAX_OPEN_FILES:  # LRU-evict to bound open fds
                 _, old = cache.popitem(last=False)
                 _close_quietly(old)
+                _count_file_eviction()
         else:
             cache.move_to_end(path)
         return pf
@@ -744,6 +796,7 @@ class _WorkerBase:
             pf = cache.pop(path, None)
             if pf is not None:
                 _close_quietly(pf)
+                _count_file_eviction()
         stats = getattr(self._local, "stats", None) if self._local is not None else None
         if stats is not None:
             stats.pop(path, None)
@@ -801,6 +854,7 @@ class _WorkerBase:
             if pf is not None and getattr(pf, "_ptpu_stat", None) != stat:
                 del files[piece.path]
                 _close_quietly(pf)
+                _count_file_eviction()
         return stat
 
     def invalidate_pieces(self, pieces):
@@ -982,6 +1036,7 @@ class PyDictWorker(_WorkerBase):
                 if remaining else head
         else:
             table = self._read_columns(piece, wanted)
+        self._note_read_bytes(table.nbytes)
         indices = self._selected_rows(item, table, mask)
         if len(indices) == 0:
             return []
@@ -1084,8 +1139,10 @@ class ArrowWorker(_WorkerBase):
                 # every wanted column passed through: no host read checked the
                 # generation after the raw spans were read, so check it here
                 self._verify_generation(piece)
+            self._note_read_bytes(sum(v.nbytes for v in out.values()))
             return out
         table = self._read_columns(piece, read_columns)
+        self._note_read_bytes(table.nbytes + sum(v.nbytes for v in out.values()))
         indices = self._selected_rows(item, table, self._row_mask(table))
         if len(indices) < table.num_rows:
             table = table.take(indices)
@@ -1920,6 +1977,18 @@ class Reader:
             out.update(self._watcher.stats())
         return out
 
+    def register_metrics(self, registry):
+        """Export this reader's wire and io counts onto a
+        :class:`~petastorm_tpu_torch.obs.metrics.MetricsRegistry` as live
+        ``ptpu_wire_*`` / ``ptpu_io_*`` gauges (pulled at snapshot time: the pool's hot
+        path is untouched). For a reader consumed without a ``DataLoader``, which does
+        this itself under ``metrics=``; with a
+        :class:`~petastorm_tpu_torch.obs.serve.MetricsServer` over the registry it is a
+        loader-less pipeline's scrape point. Returns the collector handles, for
+        ``registry.unregister_collector``."""
+        return [registry.register_collector("wire", self.wire_stats),
+                registry.register_collector("io", self.io_stats)]
+
     def set_trace(self, tracer):
         """Attach a :class:`~petastorm_tpu_torch.trace.TraceRecorder` to the pool (a
         process pool merges its children's ``child.work``/``child.serialize`` spans and
@@ -2166,9 +2235,10 @@ def _build_read_funnel(cache, io_opts, num_epochs=None, tenant=None):
     (or ``PTPU_MEMCACHE_BYTES``) asks for one; ``num_epochs == 1`` is the scan hint the
     ``scan-resistant`` policy reads. With neither a mem nor a disk tier the funnel has
     nothing to serve and is left out: ``cache`` (a ``NullCache``) itself, so an uncached
-    read sizes no payload (the JAX package counts it as a store serve), unless the reader
-    is tagged: ``tenant`` (a slug) keeps the funnel, which charges each serve's bytes to
-    the tenant's ``read_bytes``.
+    read sizes no decoded payload; the worker counts each of its serves as the
+    ``remote`` tier's itself (``_WorkerBase._cache_get``). A tagged reader keeps the
+    funnel: ``tenant`` (a slug) has it charge each serve's bytes to the tenant's
+    ``read_bytes``.
 
     ``io_options.arena_bytes`` creates (or joins) this process's host-wide cache arena
     and hands it to the mem tier, so every pool child maps ONE warm set of decoded row

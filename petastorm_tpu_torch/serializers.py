@@ -46,6 +46,11 @@ KIND_PICKLE = 0
 KIND_ARROW = 1
 KIND_SHM = 2
 
+#: the key under which a view-mode batch's lease rides inside the tagged columnar
+#: payload dict (the Reader pops it before exposing the batch): the generic
+#: :data:`~petastorm_tpu_torch.io.lease.LEASE_KEY`, under the JAX package's older name
+SHM_LEASE_KEY = LEASE_KEY
+
 #: frame offsets inside a slab are rounded up to this
 _SLAB_ALIGN = 64
 

@@ -279,6 +279,11 @@ def encode_row(schema, row_dict):
     return encoded
 
 
+def dict_to_record(schema, row_dict):
+    """Alias of :func:`encode_row` (pyarrow write path)."""
+    return encode_row(schema, row_dict)
+
+
 def dict_to_spark_row(schema, row_dict):
     """Encode a row and wrap it in a pyspark ``Row`` in the schema's field order
     (requires pyspark; the reference's name)."""

@@ -76,3 +76,21 @@ def stack_as_column(values, force_object=False):
     arr = np.empty(len(values), dtype=object)
     arr[:] = values
     return arr
+
+
+def pad_to_shape(array, shape, pad_value=0):
+    """Pad and validate an array against a shape of ints or ``None`` (keep that
+    dimension): the fixed shapes a batch of ragged rows is padded to."""
+    if len(shape) != array.ndim:
+        raise ValueError(
+            "Shape rank %d does not match array rank %d" % (len(shape), array.ndim)
+        )
+    target = tuple(s if s is not None else a for s, a in zip(shape, array.shape))
+    if target == array.shape:
+        return array
+    pads = []
+    for t, a in zip(target, array.shape):
+        if a > t:
+            raise ValueError("Array dim %d exceeds padded max %d" % (a, t))
+        pads.append((0, t - a))
+    return np.pad(array, pads, constant_values=pad_value)

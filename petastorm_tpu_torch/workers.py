@@ -1,14 +1,15 @@
 """Worker executors: pull row-group work items from a plan, run a worker, stream results.
 
-Port of the pools of ``petastorm_tpu.workers`` (``PullDispatcher``, ``SyncExecutor``,
-``ThreadExecutor``, ``ProcessExecutor``, ``make_executor``). Backpressure is a bounded
-results queue; the "ventilator" is the thread-safe
+Port of the pools of ``petastorm_tpu.workers`` (``PullDispatcher``, ``ExecutorBase``,
+``SyncExecutor``, ``ThreadExecutor``, ``ProcessExecutor``, ``make_executor``).
+Backpressure is a bounded results queue; the "ventilator" is the thread-safe
 :class:`~petastorm_tpu_torch.plan.EpochPlan`, pulled through a :class:`PullDispatcher`:
 bounded claims a worker (its readahead window, ``IoOptions.lookahead``) and work stealing
-when the plan runs dry. Threads are the default pool: Arrow IO and the native entropy
-decode release the GIL. The process pool runs the worker in clean child interpreters,
-over a socket or a shared-memory slab wire (:mod:`petastorm_tpu_torch.serializers`); the
-upcoming items of a child's claim ride with each item as its readahead hints.
+when the plan runs dry, each steal counted on ``ptpu_io_steals_total``. Threads are the
+default pool: Arrow IO and the native entropy decode release the GIL. The process pool
+runs the worker in clean child interpreters, over a socket or a shared-memory slab wire
+(:mod:`petastorm_tpu_torch.serializers`); the upcoming items of a child's claim ride
+with each item as its readahead hints.
 
 The process pool hands the host-wide cache arena's token to its children
 (:data:`petastorm_tpu_torch.io.arena.ENV_ATTACH` on the child environment): each child
@@ -72,6 +73,21 @@ from petastorm_tpu_torch.recovery import QuarantinedItem, RecoveryOptions
 
 _DONE = object()
 
+_steal_counter = None
+
+
+def _count_steal():
+    """Bump ``ptpu_io_steals_total`` (resolved once a process)."""
+    global _steal_counter
+    counter = _steal_counter
+    if counter is None:
+        from petastorm_tpu_torch.obs.metrics import default_registry
+
+        counter = _steal_counter = default_registry().counter(
+            "ptpu_io_steals_total",
+            help="claimed plan items taken from a busy worker by an idle one")
+    counter.inc()
+
 
 class PullDispatcher:
     """Pull-based dispatch over a shared plan: bounded claims a worker plus work
@@ -128,6 +144,7 @@ class PullDispatcher:
                 if victim is not None:
                     claim.append(victim.pop())  # the tail: the victim's furthest item
                     self.steals += 1
+                    _count_steal()
                     if self._recorder is not None:
                         self._recorder.record("steal", thief=worker_idx,
                                               victim_len=len(victim))
@@ -271,7 +288,50 @@ def _run_item(worker, item, recovery):
             _prov.end_item()
 
 
-class SyncExecutor:
+class ExecutorBase:
+    """The contract every pool keeps: ``start(worker, plan)``, the ``results()``
+    generator, ``stop()``, ``join()``, the context manager that stops and joins, the
+    ``truncated`` flag, and the health and provenance hooks."""
+
+    #: True when the result stream ended because ``stop()`` aborted it mid-pass rather
+    #: than because the plan was exhausted (``Reader.last_row_consumed`` reads it)
+    truncated = False
+    #: the health monitor or scope (``set_health``; None: off, one check a pass)
+    _health = None
+    #: the provenance recorder the pool's driver records wire spans on (None: off)
+    _prov = None
+
+    def set_provenance(self, recorder):
+        """Attach a provenance recorder (None: stop); attachable mid-stream."""
+        self._prov = recorder
+
+    def set_health(self, monitor):
+        """Attach a health monitor (None detaches)."""
+        _attach_health(self, monitor)
+
+    def start(self, worker, plan):
+        raise NotImplementedError
+
+    def results(self):
+        """Generator of worker results; raises worker exceptions; ends when the plan is
+        exhausted."""
+        raise NotImplementedError
+
+    def stop(self):
+        pass
+
+    def join(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.stop()
+        self.join()
+
+
+class SyncExecutor(ExecutorBase):
     """Synchronous in-process execution (reference DummyPool): deterministic, for tests.
 
     Readahead still applies (``lookahead > 0`` and a worker with ``prefetch``): the
@@ -279,21 +339,12 @@ class SyncExecutor:
     the IO pool reads ahead of it. Under ``on_poison="quarantine"`` a failing item is
     tried again in place, up to ``poison_attempts`` times."""
 
-    truncated = False
-    #: the health monitor (set_health); the consumer's own heartbeat covers this pool's
-    #: items, which run on its thread
-    _health = None
-
     def __init__(self, lookahead=0, recovery=None):
         self._worker = None
         self._plan = None
         self._stopped = False
         self._lookahead = max(0, int(lookahead))
         self._recovery = RecoveryOptions.normalize(recovery)
-
-    def set_health(self, monitor):
-        """Attach a health monitor (None detaches)."""
-        _attach_health(self, monitor)
 
     def set_lookahead(self, lookahead):
         """Retune how many upcoming items each item's prefetch hint names."""
@@ -321,11 +372,8 @@ class SyncExecutor:
     def stop(self):
         self._stopped = True
 
-    def join(self):
-        pass
 
-
-class ThreadExecutor:
+class ThreadExecutor(ExecutorBase):
     """N threads pulling work items from the shared plan through a
     :class:`PullDispatcher` (bounded claims, work stealing); each hands the rest of its
     claim to the worker's ``prefetch`` before working an item. Bounded results queue =
@@ -586,7 +634,7 @@ def _release_result(value):
         lease.release()
 
 
-class ProcessExecutor:
+class ProcessExecutor(ExecutorBase):
     """Runs the worker in child processes: clean interpreters started as ``python -m
     petastorm_tpu_torch._child_worker`` (never forked from this process, which holds a
     CUDA context, pinned memory and threads), one feeder thread a child. The worker is

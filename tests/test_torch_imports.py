@@ -653,3 +653,188 @@ def test_throughput_cli_refuses_the_cpu_unless_asked(monkeypatch, tmp_path):
     for flags in ([], ["--loader"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["file://" + str(tmp_path), "--batch"] + flags)
+
+
+#: JAX-package public names with no port counterpart of the same name. A key is
+#: ``"<path in the package>:<name>"`` (``Class.method`` for a method,
+#: ``name(param)`` for one parameter) or ``"param:<name>"`` for a parameter everywhere;
+#: the value is ``(counterpart, reason)``: the port's counterpart (a dotted name in the
+#: port, or for a parameter the port parameter that must stand in its place), or None
+#: and the one-line reason there is none.
+JAX_ONLY = {
+    "compat/__init__.py:shard_map": (
+        None, "a jax version shim for jax.shard_map; the port's placement is a torch "
+              "DeviceMesh (parallel/mesh.py) and needs no shim"),
+    "io/staging.py:device_put_aliases_host": (
+        None, "probes whether jax's CPU device_put aliases host memory; torch's "
+              ".to(device) always copies, so the port's staging never asks"),
+    "models/resnet.py:ModuleDef": (
+        None, "a typing alias for flax module factories; the port's blocks take torch "
+              "module classes"),
+    "checkpoint.py:save_args": ("checkpoint.state_item", "orbax save args"),
+    "checkpoint.py:restore_args": ("checkpoint.state_item", "orbax restore args"),
+    "spark/spark_dataset_converter.py:SparkDatasetConverter.make_jax_dataloader": (
+        "spark.spark_dataset_converter.SparkDatasetConverter.make_device_dataloader",
+        "a torch DataLoader on a device in place of a jax one"),
+    "workers.py:logger": (None, "the JAX module defines a logger it never calls"),
+    "reader.py:Reader.__init__(stored_schema)": (
+        None, "the JAX Reader keeps the stored schema and never reads it; the port's "
+              "worker holds it (_WorkerBase._stored_schema)"),
+    "ops/pagedec_kernels.py:rle_expand(interpret)": (
+        None, "runs where its input tensors lie: the kernel on a CUDA tensor, its plain "
+              "version on a CPU one"),
+    "ops/pagedec_kernels.py:snappy_inflate_pages(interpret)": (
+        None, "runs where its input tensors lie: the kernel on a CUDA tensor, its plain "
+              "version on a CPU one"),
+    "io/staging.py:PinnedStagingPool.stage": (
+        "io.staging.PinnedStagingPool.reserve", "the JAX staging into a slab under a "
+        "lease; the port's reserve/to_device stage into a slab and hand it back on a "
+        "CUDA event"),
+    "io/staging.py:PinnedStagingPool.__init__(acquire_timeout_s)": (
+        None, "bounds the JAX stage()'s wait for a slab; the port's reserve/to_device "
+              "wait on the oldest copy's CUDA event, which completes"),
+    "param:key": ("generator", "a torch.Generator in place of a jax PRNG key"),
+    "param:axis_name": ("mesh", "a DeviceMesh (and its axis) in place of a named axis"),
+    "param:interpret": ("device", "the CPU device runs a kernel's plain version"),
+    "param:sharding": ("device", "one card a rank: a device in place of a sharding"),
+}
+
+
+def _jax_public_surface(rel):
+    """``(names, classes, functions)`` of one JAX module, read with ``ast`` (no import):
+    the public top-level names (definitions; for a package ``__init__`` its
+    re-exports and the names its ``__getattr__`` serves too), ``{class: {method:
+    params}}`` and ``{function: params}``."""
+    tree = ast.parse(open(os.path.join(ROOT, "petastorm_tpu", rel)).read())
+
+    def params(fn):
+        a = fn.args
+        names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+        names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+        return [p for p in names if not p.startswith("_") and p not in ("self", "cls")]
+
+    names, classes, funcs = set(), {}, {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+            funcs[node.name] = params(node)
+            if node.name == "__getattr__":  # lazily served names: name == "..." tests
+                for cmp in ast.walk(node):
+                    if isinstance(cmp, ast.Compare) and isinstance(cmp.left, ast.Name):
+                        for c in ast.walk(cmp):
+                            if isinstance(c, ast.Constant) and isinstance(c.value, str):
+                                names.add(c.value)
+        elif isinstance(node, ast.ClassDef):
+            names.add(node.name)
+            classes[node.name] = {
+                b.name: params(b) for b in node.body
+                if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef))
+                and (not b.name.startswith("_") or b.name == "__init__")}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for t in (node.targets if isinstance(node, ast.Assign) else [node.target]):
+                if isinstance(t, ast.Name):
+                    names.add(t.id)
+        elif isinstance(node, ast.ImportFrom) and rel.endswith("__init__.py"):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}, classes, funcs
+
+
+def _port_params(obj):
+    """The parameter names ``obj`` takes, or None when it takes any keyword."""
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    if any(p.kind == p.VAR_KEYWORD for p in sig.parameters.values()):
+        return None
+    return set(sig.parameters)
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """A name-level comparison beside the file-list one: every public top-level name of
+    each JAX module, each public method of its public classes (inherited ones count on
+    the port's side) and each parameter of those functions has a counterpart of the
+    same name in the port, or an entry of ``JAX_ONLY``. The JAX side is read with
+    ``ast`` (no jax import); the port side is imported and read with ``inspect``."""
+    import importlib
+
+    jax_root = os.path.join(ROOT, "petastorm_tpu")
+    missing, used = [], set()
+
+    def check_params(key, jax_params, port_obj):
+        port = _port_params(port_obj)
+        if port is None:
+            return
+        for p in jax_params:
+            if p in port:
+                continue
+            if "%s(%s)" % (key, p) in JAX_ONLY:
+                used.add("%s(%s)" % (key, p))
+            elif "param:" + p in JAX_ONLY and JAX_ONLY["param:" + p][0] in port:
+                used.add("param:" + p)
+            else:
+                missing.append("%s(%s)" % (key, p))
+
+    for d, _, files in os.walk(jax_root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), jax_root)
+            modname = "petastorm_tpu_torch." + rel[:-3].replace(os.sep, ".")
+            module = importlib.import_module(modname[:-len(".__init__")]
+                                             if modname.endswith(".__init__") else modname)
+            names, classes, funcs = _jax_public_surface(rel)
+            for name in sorted(names):
+                key = "%s:%s" % (rel, name)
+                if not hasattr(module, name):
+                    if key in JAX_ONLY:
+                        used.add(key)
+                    else:
+                        missing.append(key)
+                    continue
+                obj = getattr(module, name)
+                if name in funcs and callable(obj):
+                    check_params(key, funcs[name], obj)
+                if name not in classes or not inspect.isclass(obj):
+                    continue
+                for meth, jax_params in sorted(classes[name].items()):
+                    mkey = "%s.%s" % (key, meth)
+                    if not hasattr(obj, meth):
+                        if mkey in JAX_ONLY:
+                            used.add(mkey)
+                        else:
+                            missing.append(mkey)
+                        continue
+                    check_params(mkey, jax_params, getattr(obj, meth))
+    assert not missing, missing
+    assert used == set(JAX_ONLY), sorted(set(JAX_ONLY) - used)  # no stale entry
+
+
+def test_every_jax_only_entry_names_a_counterpart_or_a_reason():
+    """Each ``JAX_ONLY`` entry names a port counterpart that exists, or gives a one-line
+    reason; no name of the ported list sits in the map."""
+    import importlib
+
+    for key, (counterpart, reason) in JAX_ONLY.items():
+        assert reason and "\n" not in reason, key
+        if counterpart is None or key.startswith("param:") or "(" in key:
+            continue
+        parts = counterpart.split(".")
+        for i in range(len(parts), 0, -1):
+            try:
+                obj = importlib.import_module("petastorm_tpu_torch." + ".".join(parts[:i]))
+            except ImportError:
+                continue
+            for attr in parts[i:]:
+                obj = getattr(obj, attr)
+            break
+        else:
+            pytest.fail("counterpart %r of %r does not resolve" % (counterpart, key))
+    ported = ("get_dataset_path", "FilesystemResolver", "dict_to_record", "EmptyResultError",
+              "ExecutorBase", "remaining_in_epoch", "seek_epoch", "decode_jpeg",
+              "jpeg_parse_layout_native", "pad_to_shape", "SHM_LEASE_KEY", "KNOWN_SITES",
+              "abandon_hung_threads", "host_stage_decode", "device_decode_batch",
+              "register_metrics", "trace", "registry")
+    for key in JAX_ONLY:
+        leaf = key.split(":", 1)[1].rstrip(")").replace("(", ".").split(".")[-1]
+        assert leaf not in ported, key

@@ -14,9 +14,7 @@ Three kinds of case:
   equal per id, and the JPEG store's uint8 images bit-exact through the port's plain
   stage 2.
 
-The cases of ``test_io_async.py`` that need ROADMAP.md item 8b (the registry's
-``ptpu_io_file_evictions_total``) have no port counterpart yet; ``gpu``-marked cases run
-the kernels on the card and skip here.
+``gpu``-marked cases run the kernels on the card and skip here.
 """
 import collections
 import os
@@ -317,6 +315,67 @@ def test_readahead_hit_and_miss_counters():
         assert sorted(reads) == [0, 1]
     finally:
         pool.shutdown()
+
+
+def test_readahead_footer_cache_and_engine_count_into_the_given_registry(tmp_path):
+    """``registry=`` takes a component's families, as in the JAX package: the readahead
+    pool's hits, misses, coalesced reads, read and wait histograms and gauges, the footer
+    cache's hits, misses and held bytes, and the GET engine's count families."""
+    import pyarrow as pa
+    import pyarrow.fs as pafs
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.io.footercache import FooterCache
+    from petastorm_tpu_torch.io.remote import RemoteIoOptions, build_engine
+    from petastorm_tpu_torch.obs.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    pool = ReadaheadPool(lambda piece, cols: _table(piece.row_group, 10),
+                         read_run_fn=lambda pieces, cols: [_table(p.row_group, 10)
+                                                           for p in pieces],
+                         depth=4, registry=reg)
+    try:
+        p0, p1 = _FakePiece("a", 0), _FakePiece("a", 1)
+        assert pool.schedule([(p0, None), (p1, None)]) == 2
+        assert pool.get(p0, None).tag == 0 and pool.get(p1, None).tag == 1
+        assert pool.get(_FakePiece("a", 9), None) is None
+    finally:
+        pool.shutdown()
+    snap = reg.snapshot()
+    assert snap["ptpu_io_readahead_hits_total"] == 2
+    assert snap["ptpu_io_readahead_misses_total"] == 1
+    assert snap["ptpu_io_coalesced_reads_total"] == 1
+    assert snap["ptpu_io_coalesced_items_total"] == 2
+    assert snap["ptpu_io_read_seconds"]["count"] == 1
+    assert snap["ptpu_io_wait_seconds"]["count"] == 2
+    assert snap["ptpu_io_readahead_depth"] == 0 and snap["ptpu_io_readahead_bytes"] == 0
+
+    path = str(tmp_path / "f.parquet")
+    pq.write_table(pa.table({"v": [1, 2]}), path)
+    cache = FooterCache(1 << 20, registry=reg)
+    fs = pafs.LocalFileSystem()
+    try:
+        cache.get(fs, path)
+        cache.get(fs, path)
+        cache.invalidate(path)
+    finally:
+        cache.clear()
+    snap = reg.snapshot()
+    assert snap["ptpu_io_footer_cache_misses_total"] == 1
+    assert snap["ptpu_io_footer_cache_hits_total"] == 1
+    assert snap["ptpu_io_footer_cache_invalidations_total"] == 1
+    assert snap["ptpu_io_footer_cache_bytes"] == 0
+    assert cache.stats()["footer_cache_hits"] == 1  # io_stats() keys unchanged
+
+    from petastorm_tpu_torch.io.latencyfs import CloudLatencyFS
+
+    engine = build_engine(CloudLatencyFS(fs, sleep=False), RemoteIoOptions(enabled=True),
+                          registry=reg)
+    try:
+        assert engine._reg is reg
+        assert "ptpu_io_remote_gets_total" in reg.snapshot()
+    finally:
+        engine.shutdown()
 
 
 def test_readahead_dedups_repeat_hints():
@@ -1595,3 +1654,37 @@ def test_passthrough_under_default_io_options_on_the_card(cuda_device, tmp_path)
     want = {k: np.concatenate([getattr(b, k) for b in cols]) for k in ("cat", "dense")}
     for k in want:
         np.testing.assert_array_equal(np.sort(got[k]), np.sort(want[k]))
+
+
+def test_file_handle_eviction_counter(tmp_path, monkeypatch):
+    """Five opens through a two-slot handle LRU close three handles, and each close
+    rises on ``ptpu_io_file_evictions_total``, in both packages."""
+    import pyarrow as pa
+    import pyarrow.fs as pafs
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu.cache import NullCache as RefNullCache
+    from petastorm_tpu.obs.metrics import default_registry as ref_default_registry
+    from petastorm_tpu_torch.obs.metrics import default_registry
+
+    d = tmp_path / "many"
+    d.mkdir()
+    for i in range(5):
+        pq.write_table(pa.table({"v": [i]}), str(d / ("f%d.parquet" % i)))
+    monkeypatch.setattr(port_reader._WorkerBase, "MAX_OPEN_FILES", 2)
+    monkeypatch.setattr(ref_reader._WorkerBase, "MAX_OPEN_FILES", 2)
+    ours = port_reader._WorkerBase(pafs.LocalFileSystem(), None, None,
+                                   io_options={"readahead": False})
+    theirs = ref_reader._WorkerBase(pafs.LocalFileSystem(), None, None, None, None,
+                                    RefNullCache(), 1, None, None,
+                                    io_options={"readahead": False})
+    counter = default_registry().counter("ptpu_io_file_evictions_total")
+    ref_counter = ref_default_registry().counter("ptpu_io_file_evictions_total")
+    before, ref_before = counter.value, ref_counter.value
+    for i in range(5):
+        ours._parquet_file(str(d / ("f%d.parquet" % i)))
+        theirs._parquet_file(str(d / ("f%d.parquet" % i)))
+    assert counter.value == before + 3
+    assert ref_counter.value - ref_before == counter.value - before
+    ours._evict_parquet_file(str(d / "f4.parquet"))  # the transient-IO reopen's close
+    assert counter.value == before + 4

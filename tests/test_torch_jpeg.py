@@ -896,3 +896,67 @@ def test_mixed_size_resize_on_the_card_equals_cpu(cuda_device, fresh_transfer_st
     cpu = port.decode_jpeg_batch(planes, device=CPU, resize_to=(36, 44))
     diff = (on_card.to(torch.int32) - cpu.to(torch.int32)).abs()
     assert diff.max().item() <= 1
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_decode_jpeg_bit_identical_to_reference(index):
+    """``decode_jpeg`` (JPEG bytes → (h, w, 3) uint8 on the asked device) equals the
+    reference's. The reference's stage 1 there is its Python decoder, which takes
+    baseline streams only: the progressive stream is held against the reference's
+    device stage of its native stage 1."""
+    data = _streams()[index]
+    ours = port.decode_jpeg(data, device=CPU)
+    if index < 5:
+        theirs = np.asarray(ref.decode_jpeg(data))
+    else:
+        theirs = np.asarray(ref.decode_jpeg_device_stage(ref.entropy_decode_jpeg_fast(data)))
+    assert ours.dtype == torch.uint8 and ours.device == CPU
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+
+
+def test_decode_jpeg_without_a_device_raises_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.decode_jpeg(_streams()[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index", [0, 3, 5])
+def test_decode_jpeg_launches_the_unpack_and_idct_on_the_card(cuda_device, index):
+    """On the card ``decode_jpeg`` runs the native stage 1 and one unpack and one K1
+    launch a component, equal to its CPU path."""
+    data = _streams()[index]
+    ncomp = len(port.entropy_decode_jpeg_fast(data).components)
+    u0, k0 = port.unpack_dequant_segments.launches, port.idct_scaled_segments.launches
+    on_card = port.decode_jpeg(data)
+    assert on_card.device.type == "cuda"
+    assert port.unpack_dequant_segments.launches == u0 + ncomp
+    assert port.idct_scaled_segments.launches == k0 + ncomp
+    assert torch.equal(on_card.cpu(), port.decode_jpeg(data, device=CPU))
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_jpeg_parse_layout_native_equals_the_reference(index):
+    from petastorm_tpu.ops import native as ref_native
+    from petastorm_tpu_torch.ops import native
+
+    data = _streams()[index]
+    layout = native.jpeg_parse_layout_native(data)
+    assert layout == ref_native.jpeg_parse_layout_native(data)
+    planes = port.entropy_decode_jpeg_fast(data)
+    assert layout[:2] == (planes.height, planes.width)
+    assert [c[:2] for c in layout[2]] == [(c.h_samp, c.v_samp) for c in planes.components]
+
+
+def test_jpeg_parse_layout_native_rejects_what_the_reference_rejects():
+    from petastorm_tpu.ops import native as ref_native
+    from petastorm_tpu_torch.ops import native
+
+    stream = _streams()[0]
+    for bad in (b"", b"\xff\xd8", b"not a jpeg at all", stream[:20]):
+        with pytest.raises((ValueError, RuntimeError)) as ours:
+            native.jpeg_parse_layout_native(bad)
+        with pytest.raises((ValueError, RuntimeError)) as theirs:
+            ref_native.jpeg_parse_layout_native(bad)
+        assert type(ours.value) is type(theirs.value)
+        assert str(ours.value) == str(theirs.value)

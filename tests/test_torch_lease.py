@@ -174,3 +174,22 @@ def test_lease_stats_have_the_references_keys():
     from petastorm_tpu_torch.io.lease import lease_stats
 
     assert set(lease_stats()) == set(ref_stats())
+
+
+def test_port_known_sites_name_every_copy_site_the_port_charges():
+    """Every site the port's sources charge to the copy census is in ``KNOWN_SITES``."""
+    import os
+    import re
+
+    from petastorm_tpu_torch.io.lease import KNOWN_SITES
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "petastorm_tpu_torch")
+    charged = set()
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(d, f)).read()
+                charged.update(re.findall(r'count_copy\(\s*"(\w+)"', src))
+                charged.update(re.findall(r'"(memcache_\w+)" if origin', src))
+    assert charged and charged <= set(KNOWN_SITES), sorted(charged - set(KNOWN_SITES))

@@ -297,13 +297,46 @@ def test_stage_counters_record_the_fused_labels():
     _ref_schema, port_schema = _schemas()
     pipe = port.FeaturePipeline([port.Normalize("x", min=0, max=1), port.Clip("x", 0, 1),
                                  port.HashField("a", 8, out="ah")]).compile(port_schema)
+    from petastorm_tpu_torch.obs.metrics import default_registry
+
     before = port.transform_op_stats()
     rows = port.transform_rows_total()
+    snap_before = default_registry().snapshot()
     pipe.apply_columns(_columns(seed=6, n=32))
     after = port.transform_op_stats()
     for label in ("normalize+clip", "hash"):
         assert after[label]["count"] == before.get(label, {"count": 0})["count"] + 1
     assert port.transform_rows_total() == rows + 32
+    # the same events on the registry, under the JAX package's families
+    snap = default_registry().snapshot()
+    assert snap["ptpu_transform_rows_total"] == \
+        snap_before.get("ptpu_transform_rows_total", 0) + 32
+    for label in ("normalize+clip", "hash"):
+        key = 'ptpu_transform_seconds{op="%s"}' % label
+        assert snap[key]["count"] == snap_before.get(key, {"count": 0})["count"] + 1
+        assert snap[key]["sum"] == after[label]["sum"]
+
+
+def test_bottleneck_report_shows_transform_ops(tmp_path):
+    """The loader's bottleneck report carries the host target's per-stage timings from
+    the registry (count, sum and percentiles, as the JAX package's report)."""
+    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.reader import make_batch_reader
+
+    pq.write_table(pa.table({"x": np.random.RandomState(5).rand(256)}),
+                   str(tmp_path / "p.parquet"), row_group_size=64)
+    pipe = port.FeaturePipeline([port.Standardize("x", mean=0.0, std=2.0)])
+    with make_batch_reader("file://" + str(tmp_path), reader_pool_type="dummy",
+                           shuffle_row_groups=False, num_epochs=1,
+                           transform_spec=pipe) as reader:
+        with DataLoader(reader, 64, device="cpu", to_device=False,
+                        last_batch="drop") as loader:
+            for _ in loader:
+                pass
+            report = loader.bottleneck_report()
+    assert report.transform_ops and "standardize" in report.transform_ops
+    assert {"count", "sum", "p50", "p99"} <= set(report.transform_ops["standardize"])
+    assert "standardize" in report.render() and "p99" in report.render()
 
 
 # -- validation -------------------------------------------------------------------------
