@@ -348,6 +348,16 @@ Phases (each passes or the script exits non-zero, printing no result line):
    ``shmcache`` on ``--device cuda`` (the other harnesses' smokes, ``chaos``'s among
    them, are held on the CPU only). (a) runs after phase 22's main-path parts, (b) and (c) at the end; the
    phase checks itself against 120 s.
+25. Edge streams (the comment block above ``phase_edge_streams``; runs after phase 3):
+   the seeded fixtures of ``tests/data/torch_jpeg/`` (baseline, progressive, restart
+   interval, optimised Huffman, grayscale, 4:2:0/4:2:2/4:4:4; odd and mixed sizes with
+   ``resize_to``; an arithmetic-marked row the host decodes between device rows; photo
+   crops at q50/75/95) through ``decode_jpeg_batch`` and the codec on the card, each
+   group equal to the CPU path bit for bit and to the plain versions on the card (K1's
+   product in cuBLAS: at most 1 apart at a rounding tie), the per-image stage (the unpack
+   and K1) and K2; then 300 seeded mutants of the coding seeds in ``[good, mutant,
+   good]`` sandwiches through the port's native stage 1, the good slices unchanged, the
+   survivors through the stage-2 kernels. Prints its launches and seconds; at most 30 s.
 
 The last lines are the kernels table (JSON; ``pool_launches`` gives each kernel's
 launches in phase 7's runs, ``ring_feed_launches`` in phase 8's, ``selection_launches``
@@ -1114,6 +1124,261 @@ def phase_k2(dev):
     res["bf16"].update(copy_ms=copy_ms, d2d_ms=d2d_ms, augment_ms=aug_ms,
                        composition_ms=comp_ms)
     return res
+
+
+# -- phase 25: edge streams -------------------------------------------------------------
+#
+# The device decode's edge paths, which the main path's uniform q85 store never sends to
+# the card: the committed seeded fixtures of ``tests/data/torch_jpeg/`` (made on a machine
+# with cv2 and sklearn by the script beside them; read here without either) through
+# ``decode_jpeg_batch`` and the codec's ``device_decode_batch`` on the card, each group
+# held bit for bit against the CPU path (the kernels' plain versions, equal to the JAX
+# package's stage 2 in ``tests/test_torch_edge_fixtures.py``) and against the plain
+# versions on the card (``plain_differs``: K1's product there runs in cuBLAS); the
+# per-image stage 2 (the unpack and K1) on the streams it takes; K2 on the decoded
+# group; then the fuzz sandwich ``[good, mutant, good]`` over seeded mutants of the
+# coding seeds through the port's native stage 1 (built on this machine), every
+# surviving sandwich through the stage-2 kernels, held the same way.
+
+EDGE_RESIZE = (32, 32)
+EDGE_MUTANTS = 300
+EDGE_SEED = 99
+EDGE_BUDGET_S = 30.0
+EDGE_PER_IMAGE = ("progressive", "grayscale", "sampling_422", "photo0_q95")
+
+
+def edge_fixtures():
+    """``(streams, manifest, arith_host)`` from ``tests/data/torch_jpeg/``."""
+    return _load_by_path("ptpu_edge_fixtures", "tests", "data", "torch_jpeg",
+                         "make_fixtures.py").load()
+
+
+def _load_by_path(name, *parts):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, *parts))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def card_helpers():
+    """``tests/_torch_card_helpers.py``: ``plain_kernels()`` (the JPEG path's kernel
+    wrappers and K2 swapped for their plain versions, which run on the tensors' own
+    device) and ``plain_differences`` (the kernel path against them on the card: the
+    CPU path is the exact oracle; on a CUDA tensor the plain version of K1's product
+    runs in cuBLAS, whose float32 sums differ from the kernel's and the CPU's in the last
+    bits, so at a rounding tie a uint8 value comes out one apart, ROADMAP Queue 3 AC)."""
+    return _load_by_path("ptpu_card_helpers", "tests", "_torch_card_helpers.py")
+
+
+def plain_differs(helpers, out, plain, what):
+    """Values of the kernel path's uint8 ``out`` that differ from the plain versions'
+    on the card; fails past 1 apart or past one value in a thousand."""
+    worst, off, allowed = helpers.plain_differences(out, plain)
+    check(worst <= 1 and off <= allowed,
+          "%s: %d values differ from the plain versions on the card, max %d"
+          % (what, off, worst))
+    return off
+
+
+def edge_mutants(stream, rng, count):
+    """Seeded mutants of one stream: byte flips, truncation, marker splices, DHT/DQT/
+    SOS/DRI/SOF length fields (zero, huge, off by a few) and restart markers injected in
+    the scan (the corpus of the JAX package's ``tests/test_jpeg_fuzz.py``)."""
+    n = len(stream)
+    offsets = [i for i in range(n - 1) if stream[i] == 0xFF
+               and stream[i + 1] in (0xC4, 0xDB, 0xDA, 0xDD, 0xC0, 0xC2)]
+    scan = stream.find(b"\xff\xda")
+    out = []
+    for _ in range(count):
+        kind = rng.randint(0, 5)
+        b = bytearray(stream)
+        if kind == 0:
+            for _ in range(rng.randint(1, 9)):
+                b[rng.randint(0, n)] ^= 1 << rng.randint(0, 8)
+        elif kind == 1:
+            b = b[:rng.randint(2, n)]
+        elif kind == 2:
+            pos = rng.randint(2, n)
+            b[pos:pos] = bytes([0xFF, rng.randint(0x01, 0xFF)])
+        elif kind == 3 and offsets:
+            off = offsets[rng.randint(0, len(offsets))]
+            if off + 3 < n:
+                which = rng.randint(0, 3)
+                if which == 0:
+                    b[off + 2:off + 4] = b"\x00\x00"
+                elif which == 1:
+                    b[off + 2:off + 4] = b"\xff\xff"
+                else:
+                    cur = (b[off + 2] << 8) | b[off + 3]
+                    new = max(0, min(0xFFFF, cur + rng.randint(-8, 9)))
+                    b[off + 2], b[off + 3] = new >> 8, new & 0xFF
+        else:
+            start = scan + 2 if scan > 0 else 2
+            for _ in range(rng.randint(1, 4)):
+                pos = rng.randint(min(start, n - 1), n)
+                b[pos:pos] = bytes([0xFF, 0xD0 + rng.randint(0, 8)])
+        out.append(bytes(b))
+    return out
+
+
+def phase_edge_streams(dev, cv2, smi):
+    """Phase 25 (the comment block above): every edge group on the card against the
+    plain versions there and the CPU, bit for bit; the per-image stage; K2; the fuzz
+    sandwich. Fails past ``EDGE_BUDGET_S``."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.ops import image, jpeg, native
+    from petastorm_tpu_torch.unischema import UnischemaField
+
+    t_phase = time.perf_counter()
+    streams, manifest, arith_host = edge_fixtures()
+    helpers = card_helpers()
+    cpu = torch.device("cpu")
+
+    def group(name):
+        return [streams[k] for k in sorted(manifest) if manifest[k]["group"] == name]
+
+    def stage1(blobs):
+        planes = jpeg.entropy_decode_jpeg_batch(blobs)
+        return [p if p is not None else jpeg.entropy_decode_jpeg_fast(b)
+                for p, b in zip(planes, blobs)]
+
+    field = UnischemaField("image", np.uint8, tuple(manifest["arith_sof9"]["size"]) + (3,),
+                           CompressedImageCodec("jpeg", quality=90), False)
+    fallback = [streams["baseline"], streams["arith_sof9"], streams["baseline"]]
+    if cv2 is not None:
+        staged = field.codec.host_stage_decode_batch(field, fallback)
+    else:  # no host decoder on this machine: the committed host decode stands in
+        good = jpeg.entropy_decode_jpeg_batch([streams["baseline"]])[0]
+        staged = [good, arith_host, good]
+    check(isinstance(staged[1], np.ndarray) and staged[0] is not None,
+          "the native stage 1 took the arithmetic-marked stream or refused the baseline")
+    inputs = {"uniform": stage1(group("uniform")), "photo": stage1(group("photo")),
+              "sizes": [jpeg.entropy_decode_jpeg_fast(b) for b in group("sizes")]}
+
+    def decode_all(device):
+        out = {name: jpeg.decode_jpeg_batch(planes, device=device,
+                                            resize_to=EDGE_RESIZE if name == "sizes"
+                                            else None)
+               for name, planes in inputs.items()}
+        out["fallback"] = field.codec.device_decode_batch(field, staged, device)
+        out["per_image"] = torch.stack([
+            jpeg.decode_jpeg_device_stage(jpeg.entropy_decode_jpeg_fast(streams[n]), device)
+            [:48, :64] for n in EDGE_PER_IMAGE])
+        return out
+
+    reset_transfer_state(jpeg)
+    counters = [jpeg.stage2_planes_segments, jpeg.stage2_rgb, jpeg.unpack_dequant_segments,
+                jpeg.idct_scaled_segments, image.normalize_images]
+    for c in counters:
+        c.launches = 0
+    on_card = decode_all(dev)
+    k2 = image.normalize_images(on_card["uniform"], MEAN, STD, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = {"stage2_planes": jpeg.stage2_planes_segments.launches,
+                "stage2_rgb": jpeg.stage2_rgb.launches,
+                "unpack": jpeg.unpack_dequant_segments.launches,
+                "K1": jpeg.idct_scaled_segments.launches,
+                "K2": image.normalize_images.launches}
+    check(launches["stage2_planes"] >= 4 and launches["stage2_rgb"] >= 4,
+          "edge streams: the stage-2 kernels did not launch for every group: %s" % launches)
+    check(launches["K2"] == 1, "edge streams: K2 launched %d times" % launches["K2"])
+    per_image_comps = sum(len(jpeg.entropy_decode_jpeg_fast(streams[n]).components)
+                          for n in EDGE_PER_IMAGE)
+    check(launches["unpack"] == launches["K1"] == per_image_comps,
+          "edge streams: the per-image stage launched %s, expected %d of each"
+          % (launches, per_image_comps))
+    reset_transfer_state(jpeg)
+    with helpers.plain_kernels():
+        plain = decode_all(dev)
+    reset_transfer_state(jpeg)
+    on_cpu = decode_all(cpu)
+    plain_off = {}
+    for name, out in on_card.items():
+        check(torch.equal(out.cpu(), on_cpu[name]),
+              "edge streams: %s on the card differs from the CPU path" % name)
+        plain_off[name] = plain_differs(helpers, out, plain[name], "edge streams: %s" % name)
+    check(torch.equal(on_card["fallback"][1].cpu(), torch.from_numpy(staged[1])),
+          "edge streams: the host-decoded row was not merged in place")
+    check(torch.equal(k2, image._normalize_plain(on_card["uniform"], MEAN, STD,
+                                                 torch.bfloat16)),
+          "edge streams: K2 differs from its plain version on the decoded group")
+
+    # the fuzz sandwich through the port's native stage 1, survivors through stage 2
+    rng = np.random.RandomState(EDGE_SEED)
+    seeds = [streams[n] for n in ("baseline", "progressive", "restart", "optimized",
+                                  "grayscale")]
+    survivors, rejected, poisoned = [], 0, 0
+    for good in seeds:
+        _l, alone, alone_q, _k, status = native.jpeg_decode_coeffs_batch_native([good])
+        check(int(status[0]) == 0, "edge streams: a seed stream does not decode")
+        for mut in edge_mutants(good, rng, EDGE_MUTANTS // len(seeds)):
+            try:
+                _l, coeffs, qtabs, kmax, status = \
+                    native.jpeg_decode_coeffs_batch_native([good, mut, good])
+            except (ValueError, RuntimeError):
+                poisoned += 1
+                continue
+            check(int(status[0]) == 0 and int(status[2]) == 0,
+                  "edge streams: a mutant failed its good neighbours")
+            for c_alone, c in zip(alone, coeffs):
+                check(np.array_equal(c[0], c_alone[0]) and np.array_equal(c[2], c_alone[0]),
+                      "edge streams: a mutant's decode wrote into a neighbour's slice")
+            check(np.array_equal(qtabs[0], alone_q[0]) and np.array_equal(qtabs[2], alone_q[0]),
+                  "edge streams: a mutant's decode changed a neighbour's tables")
+            if int(status[1]) != 0:
+                rejected += 1
+                check(not any(c[1].any() for c in coeffs),
+                      "edge streams: a failed mutant's slice was not zeroed")
+            else:
+                survivors.append([good, mut, good])
+    before = (jpeg.stage2_planes_segments.launches, jpeg.stage2_rgb.launches)
+    reset_transfer_state(jpeg)
+    fuzz_card = [jpeg.decode_jpeg_batch(jpeg.entropy_decode_jpeg_batch(s), device=dev)
+                 for s in survivors]
+    torch.cuda.synchronize()
+    fuzz_launches = (jpeg.stage2_planes_segments.launches - before[0],
+                     jpeg.stage2_rgb.launches - before[1])
+    check(min(fuzz_launches) >= len(survivors),
+          "edge streams: %d surviving sandwiches, stage-2 launches %s"
+          % (len(survivors), fuzz_launches))
+    reset_transfer_state(jpeg)
+    with helpers.plain_kernels():
+        fuzz_plain = [jpeg.decode_jpeg_batch(jpeg.entropy_decode_jpeg_batch(s), device=dev)
+                      for s in survivors]
+    reset_transfer_state(jpeg)
+    fuzz_cpu = [jpeg.decode_jpeg_batch(jpeg.entropy_decode_jpeg_batch(s), device=cpu)
+                for s in survivors]
+    plain_off["fuzz"] = 0
+    for a, b, c in zip(fuzz_card, fuzz_plain, fuzz_cpu):
+        check(torch.equal(a.cpu(), c), "edge streams: a surviving sandwich on the card "
+              "differs from the CPU path")
+        plain_off["fuzz"] += plain_differs(helpers, a, b, "edge streams: a surviving sandwich")
+    launches["stage2_planes"] += fuzz_launches[0]
+    launches["stage2_rgb"] += fuzz_launches[1]
+    seconds = time.perf_counter() - t_phase
+    total = len(seeds) * (EDGE_MUTANTS // len(seeds))
+    log("edge streams: %d fixture streams in 4 groups (uniform: 5 codings and 3 samplings; "
+        "odd and mixed sizes resized to %dx%d; an arithmetic-marked row between device rows, "
+        "host decode from %s; photo crops at q50/75/95) + the per-image stage on %d streams "
+        "+ K2 (equal to its plain version), each equal on the card to the CPU path, bit for "
+        "bit; fuzz sandwich: %d mutants, %d poisoned the batch, %d rejected in their slot, "
+        "%d survivors through stage 2 equal to the CPU path" % (
+            len(streams), EDGE_RESIZE[0], EDGE_RESIZE[1],
+            "cv2" if cv2 is not None else "the committed fixture", len(EDGE_PER_IMAGE),
+            total, poisoned, rejected, len(survivors)))
+    log("edge streams: values 1 apart from the plain versions on the card (K1's product "
+        "in cuBLAS, a rounding tie; 0 elsewhere): %s" % json.dumps(plain_off, sort_keys=True))
+    log("edge streams: launches %s; phase 25 took %.1f s of wall time; %s"
+        % (json.dumps(launches, sort_keys=True), seconds, smi))
+    check(seconds < EDGE_BUDGET_S, "phase 25 took %.1f s, over its %.0f s"
+          % (seconds, EDGE_BUDGET_S))
+    return {"seconds": seconds, "launches": launches, "mutants": total,
+            "survivors": len(survivors), "rejected": rejected, "poisoned": poisoned}
 
 
 # -- phase 4 ---------------------------------------------------------------------------
@@ -8529,6 +8794,7 @@ def main():
             % (len(blobs), len(pieces), sum(map(len, blobs.values())) / 1e6,
                time.perf_counter() - t0))
         kernels = phase_kernels(blobs)
+        phase_edge_streams(torch.device("cuda"), env["cv2"], env["smi"])
         launches, main = phase_main_path(url, blobs, env["cv2"])
         pool_jpeg, images = phase_process_pool_jpeg(url, blobs, env)
         feed_jpeg = phase_feed_jpeg(url, images)

@@ -373,11 +373,26 @@ class _WorkerBase:
         """The bytes one fill read from the store: an uncached serve's size."""
         self._local.read_nbytes = nbytes
 
+    #: the shape of the payload this worker caches, named in its cache key: a per-row
+    #: worker's list of row dicts and a batch worker's dict of columns never cross-serve
+    _payload_kind = None
+    _ngram = None
+
+    def _payload_kinds(self):
+        """The kind part of this worker's cache keys: its payload shape, plus ``ngram``
+        for a windowing reader and ``pt`` while the pass-through is live for its reads."""
+        kind = self._payload_kind
+        if self._ngram is not None:
+            kind += "+ngram"
+        if self._pagedec_supported and self._pagedec_active() and self._pagedec_shape_ok():
+            kind += "+pt"
+        return kind
+
     def _cache_key(self, item):
         piece, partition = item
         return _cache_key(piece, self._read_schema, self._predicate, self._filters,
                           partition, self._drop_partitions, self._seed,
-                          self._device_fields)
+                          self._device_fields, kind=self._payload_kinds())
 
     def _footer_cache(self):
         """The process-wide parsed-footer cache, or ``None`` when
@@ -871,10 +886,14 @@ class _WorkerBase:
             if refused:
                 self._pagedec_refused = {t for t in refused if t[0] != piece.path}
             if invalidate is not None:
+                # the pass-through's state may have moved since the fill: drop both
+                kinds = {self._payload_kinds(), self._payload_kinds().replace("+pt", "")}
                 for partition in range(self._drop_partitions):
-                    invalidate(_cache_key(piece, self._read_schema, self._predicate,
-                                          self._filters, partition, self._drop_partitions,
-                                          self._seed, self._device_fields))
+                    for kind in kinds:
+                        invalidate(_cache_key(piece, self._read_schema, self._predicate,
+                                              self._filters, partition,
+                                              self._drop_partitions, self._seed,
+                                              self._device_fields, kind=kind))
 
     def _read_columns_once(self, piece, columns):
         with _prov.span("reader.read"):
@@ -994,6 +1013,8 @@ class PyDictWorker(_WorkerBase):
     (``ngram_schema``), and travel as plain ``{offset: {field: value}}`` dicts (the pickle
     wire carries no namedtuple class); the Reader rebuilds the namedtuples."""
 
+    _payload_kind = "rows"
+
     def __init__(self, *args, ngram=None, ngram_schema=None, **kwargs):
         super().__init__(*args, **kwargs)
         self._ngram = ngram
@@ -1087,6 +1108,7 @@ class ArrowWorker(_WorkerBase):
     columns, one row a window."""
 
     _pagedec_supported = True
+    _payload_kind = "columns"
 
     def __init__(self, filesystem, read_schema, stored_schema, device_fields=frozenset(),
                  io_options=None, transform_spec=None, ngram=None, **selection):
@@ -1367,10 +1389,17 @@ def _predicate_key(predicate):
 
 
 def _cache_key(piece, schema, predicate, filters, partition, num_partitions, seed,
-               device_fields=frozenset()):
-    """The cache key of one work item's payload (the JAX package's key, string for
-    string): path, row group, schema fields, predicate, filters, the row-drop partition
-    (and the seed that draws it), and the device-staged fields when any."""
+               device_fields=frozenset(), kind=None):
+    """The cache key of one work item's payload: path, row group, schema fields,
+    predicate, filters, the row-drop partition (and the seed that draws it), the
+    device-staged fields when any, then ``kind:<kind>`` when ``kind`` is given.
+
+    Without ``kind`` this is the JAX package's key, string for string. The workers
+    always pass their payload kind (``rows`` or ``columns``, ``+ngram``, ``+pt``,
+    :meth:`_WorkerBase._payload_kinds`): the reference's key does not name the reader
+    kind, so a batch reader there is served a per-row reader's rows of the same store.
+    The disk tier names each file by the key's sha256, so a directory the JAX package
+    filled is a miss for the port, never a wrong serve, and the reverse."""
     predicate_key = ""
     if predicate is not None:
         predicate_key = _predicate_key(predicate)
@@ -1389,6 +1418,8 @@ def _cache_key(piece, schema, predicate, filters, partition, num_partitions, see
     generation = getattr(piece, "generation", None)
     if generation is not None:
         parts.append("gen:%s" % generation)
+    if kind is not None:
+        parts.append("kind:%s" % kind)
     return "|".join(parts)
 
 
